@@ -1,0 +1,168 @@
+"""Attention dispatch: one API, several implementations (port of
+``repro.core.attention``).
+
+``attention(...)`` picks the implementation by ``AttentionSpec.impl``:
+  * ``pallas``    — the FlashAttention kernels. The name is kept so that
+                    reference configs port unchanged; in this package it
+                    maps to the hand-written CUDA kernels (their plain
+                    versions for CPU tensors).
+  * ``chunked``   — Algorithm 1 in plain PyTorch (online softmax over kv
+                    chunks, O(N) memory). The default, as in the JAX
+                    package.
+  * ``reference`` — Algorithm 0 (materializes S/P).
+
+``decode_attention`` is the single-token path against a contiguous cache
+(plain masked softmax; the contiguous split-KV kernel is not ported yet).
+``paged_prefill_attention`` / ``paged_decode_attention`` attend the shared
+page pool: in place through the kernels, or through a clamped gather plus
+the same fused mask on every other path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+import torch
+
+from repro_torch.core import masks
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.flash_decode import flash_decode_paged
+
+AttnImpl = Literal["pallas", "chunked", "reference"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionSpec:
+    """Static attention configuration carried by model configs. Tiles come
+    from ``kernels.tuning``; ``num_decode_splits`` None = auto."""
+    impl: AttnImpl = "chunked"
+    causal: bool = True
+    window: int | None = None
+    num_decode_splits: int | None = None
+    use_decode_kernel: bool = False
+
+
+def attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    spec: AttentionSpec,
+    *,
+    kv_mask: torch.Tensor | None = None,
+    segment_ids: torch.Tensor | None = None,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    q_positions: torch.Tensor | None = None,
+    kv_positions: torch.Tensor | None = None,
+    q_offset: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """(b, hq, sq, d) x (b, hkv, sk, d)^2 -> (b, hq, sq, d); every impl
+    evaluates the same fused mask. Attention dropout comes with the
+    training slice."""
+    common = dict(causal=spec.causal, window=spec.window, kv_mask=kv_mask,
+                  segment_ids=segment_ids, q_segment_ids=q_segment_ids,
+                  kv_segment_ids=kv_segment_ids, q_positions=q_positions,
+                  kv_positions=kv_positions, scale=scale, q_offset=q_offset)
+    if spec.impl == "pallas":
+        return kops.flash_attention(q, k, v, **common)
+    if spec.impl == "chunked":
+        return kref.chunked_attention(q, k, v, **common)
+    if spec.impl == "reference":
+        return kref.standard_attention(q, k, v, **common)
+    raise ValueError(f"unknown attention impl {spec.impl!r}")
+
+
+def decode_attention(
+    q: torch.Tensor,            # (b, hq, 1, d)
+    k_cache: torch.Tensor,      # (b, hkv, capacity, d)
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,       # (b,) int32
+    spec: AttentionSpec,
+    *,
+    kv_mask: torch.Tensor | None = None,   # (b, capacity) True = valid slot
+    scale: float | None = None,
+) -> torch.Tensor:
+    """GQA-native masked softmax over the cache: q reshaped to
+    (b, hkv, rep, 1, d) against the unexpanded cache. Validity comes from
+    ``masks.decode_kv_valid`` (kv_len + window + optional slot mask)."""
+    if spec.use_decode_kernel:
+        raise NotImplementedError(
+            "the contiguous-cache split-KV decode kernel (dense slot mode) "
+            "is not ported yet; use the paged cache")
+    b, hq, sq, d = q.shape
+    _, hkv, capacity, _ = k_cache.shape
+    rep = hq // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    qg = q.reshape(b, hkv, rep, sq, d)
+    s = torch.einsum("bkrqd,bksd->bkrqs", qg.float(), k_cache.float()) * scale
+    kvm = masks.decode_kv_valid(kv_len, capacity, window=spec.window,
+                                kv_mask=kv_mask)
+    s = torch.where(kvm[:, None, None, None, :], s,
+                    torch.full_like(s, masks.NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(s <= masks.NEG_INF / 2, torch.zeros_like(s),
+                    torch.exp(s - m))
+    l = p.sum(dim=-1, keepdim=True)
+    # fully-masked rows (kv_len == 0 / idle lanes) emit zeros, the same
+    # convention as the split-KV kernel's empty-partial merge.
+    p = p / torch.where(l == 0.0, torch.ones_like(l), l)
+    o = torch.einsum("bkrqs,bksd->bkrqd", p, v_cache.float())
+    return o.reshape(b, hq, sq, d).to(q.dtype)
+
+
+def paged_prefill_attention(
+    q: torch.Tensor,            # (b, hq, sq, d) — the suffix chunk's queries
+    k_pool: torch.Tensor,       # (hkv, num_pages, page_size, d)
+    v_pool: torch.Tensor,
+    page_list: torch.Tensor,    # (b, T) int32; negative = dead (never read)
+    spec: AttentionSpec,
+    *,
+    q_segment_ids: torch.Tensor,
+    kv_segment_ids: torch.Tensor,   # (b, T*page_size), SEG_PAD_KV on dead rows
+    q_positions: torch.Tensor,
+    kv_positions: torch.Tensor,     # (b, T*page_size), POS_PAD on dead rows
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Chunked-prefill attention over the PAGED prefix. ``pallas`` reads the
+    pool in place through the page list (the paged kernel); every other
+    impl is the parity path: gather the pages into the logical view and
+    reuse ``attention``. Dead rows carry sentinels either way."""
+    if spec.impl == "pallas":
+        return kops.flash_prefill_paged(
+            q, k_pool, v_pool, page_list,
+            q_positions=q_positions, kv_positions=kv_positions,
+            q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+            causal=spec.causal, window=spec.window, scale=scale)
+    return attention(
+        q, kref.gather_pages(k_pool, page_list), kref.gather_pages(v_pool, page_list),
+        spec, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+        q_positions=q_positions, kv_positions=kv_positions, scale=scale)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,            # (b, hq, 1, d)
+    k_pool: torch.Tensor,       # (hkv, num_pages, page_size, d)
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,   # (b, pages_per_seq) int32; negative = unallocated
+    kv_len: torch.Tensor,       # (b,) int32
+    spec: AttentionSpec,
+    *,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Single-token decode against the paged cache: the split-KV kernel
+    walks the page table (``use_decode_kernel``), else the parity path
+    gathers the pages and reuses ``decode_attention`` with unallocated
+    entries masked as invalid slots."""
+    if spec.use_decode_kernel:
+        return flash_decode_paged(q, k_pool, v_pool, page_table, kv_len,
+                                  scale=scale,
+                                  num_splits=spec.num_decode_splits,
+                                  window=spec.window)
+    page_size = k_pool.shape[2]
+    alloc = (page_table >= 0).repeat_interleave(page_size, dim=1)
+    return decode_attention(
+        q, kref.gather_pages(k_pool, page_table), kref.gather_pages(v_pool, page_table),
+        kv_len, dataclasses.replace(spec, use_decode_kernel=False),
+        kv_mask=alloc, scale=scale)

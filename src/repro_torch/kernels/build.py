@@ -1,0 +1,94 @@
+"""Build and load the hand-written CUDA kernels (plain-C interface + ctypes).
+
+Each ``csrc/<name>.cu`` is compiled by one ``nvcc`` into
+``<repo>/build/kernels/<name>-<hash>.so`` at first use, where ``<hash>``
+is a digest of the source, so an edited kernel is rebuilt and a stale
+library is never loaded. ``build_all()`` starts one nvcc per source at
+once and waits for all of them (the build counts against every caller's
+time budget). A failed build raises with nvcc's output; there is no
+fallback.
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "kernels"
+SOURCES = ("flash_fwd", "flash_decode")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+                       "kernels are compiled from source at first use")
+
+
+def _target(name: str) -> pathlib.Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, pathlib.Path]:
+    """Compile every missing library, one nvcc per source, all started
+    together; returns name -> library path. Raises on any failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return {name: _target(name) for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = build_all((name,))[name]
+        lib = ctypes.CDLL(str(path))
+        _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, lib: ctypes.CDLL, err_fn: str, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error (refused launches never run
+    and a later synchronize would not report them)."""
+    if err != 0:
+        fn = getattr(lib, err_fn)
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
+                           f"({fn(err).decode()})")

@@ -1,0 +1,179 @@
+"""Split-KV paged decode: hand-written Hopper kernel + its plain version
+(port of ``repro.kernels.flash_decode.flash_decode_paged``).
+
+Serving decode computes attention for ONE new query token against a long
+KV cache held in a shared page pool. Parallelism comes from splitting the
+kv axis: each split runs the Algorithm-1 loop over its pages and emits a
+partial softmax state (acc, m, l); ``_merge_split_partials`` combines them
+with the online-softmax merge (a PyTorch op, as it is XLA-level code in the
+JAX package).
+
+The per-sequence validity band (``kv_len`` + optional window) is lowered
+once per call by ``masks.paged_block_layout``: SKIP pages (past kv_len,
+before the window, unallocated) never run, FULL pages drop the element
+compares, PARTIAL pages apply them. On a CUDA tensor the wrapper launches
+``csrc/flash_decode.cu`` and counts it in ``LAUNCHES``; on a CPU tensor it
+runs the plain version. The contiguous-cache ``flash_decode`` (dense slot
+mode) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import masks as M
+from repro_torch.core.masks import NEG_INF
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import gather_pages, repeat_kv
+from repro_torch.kernels.tuning import KERNEL_HEAD_DIMS
+
+LAUNCHES = {"flash_decode_paged": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_PAGE = 64          # csrc/flash_decode.cu MAX_PAGE
+
+
+def _lib():
+    lib = build.load("flash_decode")
+    if not getattr(lib, "_typed", False):
+        c_int, c_p = ctypes.c_int, ctypes.c_void_p
+        lib.flash_decode_paged.argtypes = ([c_int] * 2 + [c_p] * 9
+                                           + [c_int] * 8 + [ctypes.c_float, c_p])
+        lib.flash_decode_paged.restype = c_int
+        lib._typed = True
+    return lib
+
+
+def validate_paged_decode_geometry(pages_per_seq: int,
+                                   num_splits: int) -> int:
+    """The page IS the block, so only the split count can misalign.
+    Returns the clamped num_splits."""
+    num_splits = min(num_splits, pages_per_seq)
+    if pages_per_seq % num_splits:
+        raise ValueError(
+            f"flash_decode_paged: pages per sequence ({pages_per_seq}) must "
+            f"be a multiple of num_splits ({num_splits})")
+    return num_splits
+
+
+def _merge_split_partials(o_p, m_p, l_p, dtype):
+    """Combine per-split partial softmax states (vectorized over splits).
+    o_p: (b, hq, splits, d); m_p/l_p: (b, hq, splits). Fully-masked rows
+    (all partials empty) emit zeros."""
+    m = m_p.amax(dim=-1)
+    w = torch.where(m_p <= NEG_INF / 2, torch.zeros_like(m_p),
+                    torch.exp(m_p - m[..., None]))
+    l = (l_p * w).sum(dim=-1)
+    acc = (o_p * w[..., None]).sum(dim=2)
+    out = (acc / torch.where(l == 0.0, torch.ones_like(l), l)[..., None])
+    return out.to(dtype)[:, :, None, :]
+
+
+def flash_decode_paged_partials_plain(q, k_pool, v_pool, page_table, kv_len,
+                                      layout, *, scale, num_splits, window):
+    """The kernel's function densely in fp32: (o_p, m_p, l_p) partials."""
+    b, hq, _, d = q.shape
+    hkv, num_pages, ps, _ = k_pool.shape
+    T = page_table.shape[1]
+    n_rep = hq // hkv
+
+    def gather(pool):     # (b, hq, T*ps, d), GQA heads expanded
+        return repeat_kv(gather_pages(pool, page_table), n_rep).float()
+
+    s = torch.einsum("bhd,bhkd->bhk", q[:, :, 0].float(), gather(k_pool)) * scale
+    blk = layout.repeat_interleave(ps, dim=1)[:, None, :]        # (b, 1, T*ps)
+    ok = M.decode_kv_valid(kv_len, T * ps, window=window)[:, None, :]
+    allowed = (blk == M.BLOCK_FULL) | ((blk == M.BLOCK_PARTIAL) & ok)
+    s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
+    s = s.reshape(b, hq, num_splits, -1)
+    m_p = s.amax(dim=-1)
+    p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s),
+                    torch.exp(s - m_p[..., None]))
+    l_p = p.sum(dim=-1)
+    vv = gather(v_pool).reshape(b, hq, num_splits, -1, d)
+    o_p = torch.einsum("bhsk,bhskd->bhsd", p, vv)
+    return o_p, m_p, l_p
+
+
+def flash_decode_paged_partials(q, k_pool, v_pool, page_table, kv_len, layout,
+                                *, scale, num_splits, window):
+    """(o_p, m_p, l_p) split partials: the kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if not q.is_cuda:
+        return flash_decode_paged_partials_plain(
+            q, k_pool, v_pool, page_table, kv_len, layout, scale=scale,
+            num_splits=num_splits, window=window)
+    b, hq, sq, d = q.shape
+    hkv, num_pages, ps, _ = k_pool.shape
+    T = page_table.shape[1]
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} must match q's device and dtype")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_decode_paged takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if d not in KERNEL_HEAD_DIMS or ps > MAX_PAGE or hq % hkv or T % num_splits:
+        raise ValueError(
+            f"flash_decode_paged: head_dim {d} (one of {KERNEL_HEAD_DIMS}), "
+            f"page_size {ps} (<= {MAX_PAGE}), hq % hkv == 0 and "
+            f"T % num_splits == 0 required")
+    q = q.contiguous()
+    k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
+    pt = page_table.to(torch.int32).contiguous()
+    kl = kv_len.to(torch.int32).contiguous()
+    lay = layout.to(torch.int32).contiguous()
+    o_p = torch.empty((b, hq, num_splits, d), dtype=torch.float32,
+                      device=q.device)
+    m_p = torch.empty((b, hq, num_splits), dtype=torch.float32,
+                      device=q.device)
+    l_p = torch.empty_like(m_p)
+    lib = _lib()
+    err = lib.flash_decode_paged(
+        _DTYPES[q.dtype], d, q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), pt.data_ptr(), kl.data_ptr(), lay.data_ptr(),
+        o_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr(),
+        b, hq, hkv, num_pages, ps, T, num_splits,
+        -1 if window is None else int(window), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, lib, "flash_decode_error_string", "flash_decode_paged")
+    LAUNCHES["flash_decode_paged"] += 1
+    return o_p, m_p, l_p
+
+
+def flash_decode_paged(
+    q: torch.Tensor,            # (b, hq, 1, d)
+    k_pool: torch.Tensor,       # (hkv, num_pages, page_size, d)
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,   # (b, pages_per_seq) int32; negative = unallocated
+    kv_len: torch.Tensor,       # (b,) int32 valid lengths
+    *,
+    scale: float | None = None,
+    num_splits: int | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Split-KV decode against a PAGED KV cache; returns (b, hq, 1, d) in
+    q's dtype. ``page_table`` maps each sequence's logical page t
+    (positions [t*ps, (t+1)*ps)) to a physical pool page."""
+    from repro_torch.kernels.tuning import resolve_paged_decode_splits
+    b, hq, sq, d = q.shape
+    hkv, num_pages, page_size, _ = k_pool.shape
+    if sq != 1:
+        raise ValueError("flash_decode_paged handles single-token decode")
+    if any(t.requires_grad for t in (q, k_pool, v_pool)):
+        raise ValueError("flash_decode_paged is forward-only (serving)")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    T = page_table.shape[1]
+    num_splits = resolve_paged_decode_splits(T, num_splits)
+    with torch.inference_mode():
+        kv_len = kv_len.to(torch.int32)
+        # one lowering per call: (b, T) page classes; unallocated entries
+        # are SKIP, so the kernel never forms their address.
+        layout = M.paged_block_layout(kv_len, page_table, page_size,
+                                      window=window)
+        o_p, m_p, l_p = flash_decode_paged_partials(
+            q, k_pool, v_pool, page_table, kv_len, layout, scale=scale,
+            num_splits=num_splits, window=window)
+        return _merge_split_partials(o_p, m_p, l_p, q.dtype)

@@ -1,0 +1,189 @@
+"""Public forward entry points of the attention kernels (port of the forward
+half of ``repro.kernels.ops``).
+
+``flash_attention`` and ``flash_prefill_paged`` pad to block multiples with
+sentinel segments and positions, compile the call's masks ONCE into the
+block layout the kernel consumes (``core.masks.compile_block_layout``) and
+run the kernel — the hand-written CUDA kernel on a CUDA tensor, its plain
+version on a CPU tensor (``kernels/flash_attention.py``). Serving is
+forward-only: both run under ``torch.inference_mode()`` and raise if an
+input requires grad; the differentiable op comes with the training slice.
+
+The JAX package's kv-major re-layout (the whole GQA query group resident
+in one block, ``block_q = n_rep * sq``) is not ported: it is a TPU VMEM
+choice that does not fit Hopper shared memory, and the loop order is the
+CUDA kernel's own business.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.masks import (MaskSpec, POS_PAD, SEG_PAD_KV, SEG_PAD_Q,
+                                    compile_block_layout,
+                                    paged_prefill_block_layout,
+                                    resolve_segment_ids)
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import tuning
+
+
+def _forward_only(*tensors) -> None:
+    if any(t is not None and t.requires_grad for t in tensors):
+        raise ValueError("the attention ops are forward-only (serving); the "
+                         "differentiable op comes with the training slice")
+
+
+def _pad_seq(x: torch.Tensor, axis: int, mult: int, value=0):
+    pad = (-x.shape[axis]) % mult
+    if pad == 0:
+        return x, 0
+    widths = [0, 0] * (x.ndim - 1 - axis) + [0, pad]
+    return F.pad(x, widths, value=value), pad
+
+
+def flash_attention(
+    q: torch.Tensor,                      # (b, hq, sq, d)
+    k: torch.Tensor,                      # (b, hkv, sk, d)
+    v: torch.Tensor,                      # (b, hkv, sk, d)
+    *,
+    kv_mask: torch.Tensor | None = None,  # (b, sk) True = valid
+    causal: bool = False,
+    window: int | None = None,
+    scale: float | None = None,
+    q_offset: int | None = None,
+    block_q: int | None = None,           # None = tuning.fwd_tiles
+    block_k: int | None = None,
+    variant: str = "fa2",
+    segment_ids: torch.Tensor | None = None,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    q_positions: torch.Tensor | None = None,
+    kv_positions: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """FlashAttention forward. Pads seq dims to block multiples; GQA from
+    head counts. Padded tails take sentinel segments (q/kv pads differ) and
+    POS_PAD positions, so padded rows come out fully masked. ``q_offset``
+    defaults to ``sk - sq``; positions are dropped when no geometric term
+    uses them (the cheaper static-layout path)."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if hq % hkv != 0:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    _forward_only(q, k, v)
+    q_seg, kv_seg = resolve_segment_ids(segment_ids, q_segment_ids,
+                                        kv_segment_ids, sq, sk)
+    if (q_positions is None) != (kv_positions is None):
+        raise ValueError(
+            "q_positions and kv_positions must be passed together")
+    if q_positions is not None and not (causal or window is not None):
+        q_positions = kv_positions = None
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if q_offset is None:
+        q_offset = sk - sq
+    auto_q, auto_k = tuning.fwd_tiles(d)
+    block_q = tuning.round_block(block_q or auto_q, sq)
+    block_k = tuning.round_block(block_k or auto_k, sk)
+
+    with torch.inference_mode():
+        qp, qpad = _pad_seq(q, 2, block_q)
+        kp, kpad = _pad_seq(k, 2, block_k)
+        vp, _ = _pad_seq(v, 2, block_k)
+        kvm = None
+        if kv_mask is not None:
+            kvm, _ = _pad_seq(kv_mask, 1, block_k, value=False)
+        if q_seg is not None:
+            q_seg, _ = _pad_seq(q_seg.to(torch.int32), 1, block_q, SEG_PAD_Q)
+            kv_seg, _ = _pad_seq(kv_seg.to(torch.int32), 1, block_k,
+                                 SEG_PAD_KV)
+        if q_positions is not None:
+            # POS_PAD keys are causally unreachable from real queries, so
+            # the kv padding tail self-masks.
+            q_positions, _ = _pad_seq(q_positions.to(torch.int32), 1,
+                                      block_q, POS_PAD)
+            kv_positions, _ = _pad_seq(kv_positions.to(torch.int32), 1,
+                                       block_k, POS_PAD)
+        has_pos = q_positions is not None
+        spec = MaskSpec(
+            causal=causal, window=window,
+            q_offset=0 if has_pos else q_offset,
+            kv_valid_len=None if has_pos else (sk if kpad else None),
+            kv_mask=kvm, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+            q_positions=q_positions, kv_positions=kv_positions)
+        layout = compile_block_layout(spec, qp.shape[2], kp.shape[2],
+                                      block_q, block_k).as_array(q.device)
+        o, _, _ = fa.flash_attention_forward(
+            qp, kp, vp, kvm, layout, scale=scale, causal=causal,
+            window=window, q_offset=spec.q_offset,
+            kv_valid_len=spec.kv_valid_len, block_q=block_q,
+            block_k=block_k, variant=variant, q_segment_ids=q_seg,
+            kv_segment_ids=kv_seg, q_positions=q_positions,
+            kv_positions=kv_positions)
+        return o[:, :, :sq]
+
+
+def flash_prefill_paged(
+    q: torch.Tensor,             # (b, hq, sq, d)
+    k_pool: torch.Tensor,        # (hkv, num_pages, page_size, d)
+    v_pool: torch.Tensor,
+    page_list: torch.Tensor,     # (b, T) int32; negative = dead slot (SKIP)
+    *,
+    q_positions: torch.Tensor,   # (b, sq) logical positions
+    kv_positions: torch.Tensor,  # (b, T*page_size); POS_PAD on dead rows
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    block_q: int | None = None,
+    variant: str = "fa2",
+) -> torch.Tensor:
+    """FlashAttention over a PAGED kv prefix, read in place: logical kv row
+    ``t*page_size + r`` is row r of physical page ``page_list[b, t]``; no
+    gather materializes it. Causal/window masking compares LOGICAL
+    positions, so positions are required; dead kv rows carry POS_PAD (and
+    SEG_PAD_KV), which the layout compiler turns into SKIP pages."""
+    b, hq, sq, d = q.shape
+    hkv, num_pages, ps, _ = k_pool.shape
+    if hq % hkv != 0:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    _forward_only(q, k_pool, v_pool)
+    if page_list.ndim != 2 or page_list.shape[0] != b:
+        raise ValueError(f"page_list must be (batch, T), got "
+                         f"{tuple(page_list.shape)}")
+    T = page_list.shape[1]
+    sk = T * ps
+    if tuple(kv_positions.shape) != (b, sk):
+        raise ValueError(
+            f"kv_positions must be (batch, T*page_size)=({b}, {sk}), got "
+            f"{tuple(kv_positions.shape)}")
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("segment ids must be passed together")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    block_q = tuning.round_block(block_q or tuning.fwd_tiles(d)[0], sq)
+
+    with torch.inference_mode():
+        page_list = page_list.to(torch.int32)
+        qp, _ = _pad_seq(q, 2, block_q)
+        q_positions, _ = _pad_seq(q_positions.to(torch.int32), 1, block_q,
+                                  POS_PAD)
+        kv_positions = kv_positions.to(torch.int32)
+        if q_segment_ids is not None:
+            q_segment_ids, _ = _pad_seq(q_segment_ids.to(torch.int32), 1,
+                                        block_q, SEG_PAD_Q)
+            kv_segment_ids = kv_segment_ids.to(torch.int32)
+        spec = MaskSpec(causal=causal, window=window, q_offset=0,
+                        q_segment_ids=q_segment_ids,
+                        kv_segment_ids=kv_segment_ids,
+                        q_positions=q_positions, kv_positions=kv_positions)
+        layout = compile_block_layout(spec, qp.shape[2], sk, block_q,
+                                      ps).as_array(q.device)
+        layout = paged_prefill_block_layout(layout, page_list)
+        o, _, _ = fa.flash_prefill_paged_forward(
+            qp, k_pool, v_pool, page_list, layout, scale=scale,
+            causal=causal, window=window, q_segment_ids=q_segment_ids,
+            kv_segment_ids=kv_segment_ids, q_positions=q_positions,
+            kv_positions=kv_positions, block_q=block_q, variant=variant)
+        return o[:, :, :sq]

@@ -1,0 +1,192 @@
+"""Plain-PyTorch attention oracles (port of ``repro.kernels.ref``).
+
+* ``standard_attention`` — Algorithm 0 of the paper: materializes S and P.
+* ``chunked_attention`` — Algorithm 1 as a Python loop over kv chunks
+  (online softmax, O(N) memory; FlashAttention's single-accumulator
+  update). The ``chunked`` attention impl.
+
+Both accept GQA, causal / sliding-window masks, a kv padding mask, packed
+segment ids, logical positions and a softmax scale, with shapes
+(batch, heads, seq, head_dim). Every mask term is evaluated through
+``core.masks.element_mask`` — the same fused predicate the kernels apply
+to PARTIAL blocks. Attention dropout waits for the training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import masks as M
+from repro_torch.core.masks import resolve_segment_ids
+from repro_torch.core.online_softmax import (NEG_INF, SoftmaxState,
+                                             block_state, finalize,
+                                             init_state, merge_states)
+
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(b, kv_heads, s, d) -> (b, kv_heads * n_rep, s, d)."""
+    if n_rep == 1:
+        return x
+    b, h, s, d = x.shape
+    return x[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
+
+
+def gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(hkv, P, ps, d) page pool + (b, T) page table -> the logical
+    (b, hkv, T*ps, d) view, logical row ``t*ps + r`` = row r of page
+    ``table[b, t]``. Negative (dead) entries are clamped to page 0 for the
+    fetch only: callers mask those rows (sentinels or a SKIP layout)."""
+    hkv, num_pages, ps, d = pool.shape
+    b, T = table.shape
+    safe = table.clamp(0, num_pages - 1).long()
+    return pool[:, safe].permute(1, 0, 2, 3, 4).reshape(b, hkv, T * ps, d)
+
+
+def standard_attention(
+    q: torch.Tensor,             # (b, hq, sq, d)
+    k: torch.Tensor,             # (b, hkv, sk, d)
+    v: torch.Tensor,             # (b, hkv, sk, d)
+    *,
+    causal: bool = False,
+    window: int | None = None,
+    kv_mask: torch.Tensor | None = None,
+    segment_ids: torch.Tensor | None = None,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    q_positions: torch.Tensor | None = None,
+    kv_positions: torch.Tensor | None = None,
+    scale: float | None = None,
+    q_offset: int | None = None,
+) -> torch.Tensor:
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    q_seg, kv_seg = resolve_segment_ids(segment_ids, q_segment_ids,
+                                        kv_segment_ids, sq, sk)
+    if (q_positions is None) != (kv_positions is None):
+        raise ValueError("q_positions and kv_positions must be passed together")
+    k = repeat_kv(k, hq // hkv)
+    v = repeat_kv(v, hq // hkv)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if q_offset is None:
+        q_offset = sk - sq
+
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if q_positions is not None:
+        q_pos = q_positions[:, None, :, None]
+        k_pos = kv_positions[:, None, None, :]
+    else:
+        q_pos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        k_pos = torch.arange(sk, device=q.device)[None, :]
+    ok = M.element_mask(
+        q_pos, k_pos, causal=causal, window=window,
+        kv_valid=kv_mask[:, None, None, :] if kv_mask is not None else None,
+        q_seg=q_seg[:, None, :, None] if q_seg is not None else None,
+        kv_seg=kv_seg[:, None, None, :] if kv_seg is not None else None)
+    if ok is not None:
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+
+    m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF)
+    p = torch.exp(s - m)
+    p = torch.where(s <= NEG_INF / 2, torch.zeros_like(p), p)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(l == 0.0, torch.ones_like(l), l)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def chunked_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    window: int | None = None,
+    kv_mask: torch.Tensor | None = None,
+    segment_ids: torch.Tensor | None = None,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    q_positions: torch.Tensor | None = None,
+    kv_positions: torch.Tensor | None = None,
+    scale: float | None = None,
+    chunk_size: int = 1024,
+    q_offset: int | None = None,
+) -> torch.Tensor:
+    """IO-aware attention: online softmax over kv chunks, never
+    materializing the (sq, sk) score matrix (peak temp is (sq, chunk))."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    n_rep = hq // hkv
+    q_seg, kv_seg = resolve_segment_ids(segment_ids, q_segment_ids,
+                                        kv_segment_ids, sq, sk)
+    if (q_positions is None) != (kv_positions is None):
+        raise ValueError("q_positions and kv_positions must be passed together")
+    # self-packing (one id tensor both sides): every causal q row keeps its
+    # own diagonal key, so the guard-free fast path stays NaN-safe.
+    self_seg = q_seg is kv_seg
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if q_offset is None:
+        q_offset = sk - sq
+    dev = q.device
+
+    if sk % chunk_size:
+        pad = chunk_size - sk % chunk_size
+        k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, pad))
+        valid = torch.arange(sk + pad, device=dev) < sk
+        if kv_mask is None:
+            kv_mask = valid[None, :].expand(b, sk + pad)
+        else:
+            kv_mask = torch.nn.functional.pad(kv_mask, (0, pad)) & valid[None, :]
+        if kv_seg is not None:
+            kv_seg = torch.nn.functional.pad(kv_seg, (0, pad),
+                                             value=M.SEG_PAD_KV)
+        if kv_positions is not None:
+            kv_positions = torch.nn.functional.pad(kv_positions, (0, pad),
+                                                   value=M.POS_PAD)
+    n_chunks = k.shape[2] // chunk_size
+
+    qf = q.float()
+    q_pos = torch.arange(sq, device=dev) + q_offset
+    # Guard-free fast path: causal self-attention without a padding mask
+    # keeps every row's own diagonal in chunk 0, so masking with the soft
+    # sentinel (exp underflows to exactly 0) needs no NaN guards.
+    fast = (causal and kv_mask is None and window is None and q_offset >= 0
+            and (q_seg is None or self_seg) and q_positions is None)
+
+    state = init_state((b, hq, sq), d, device=dev)
+    for ci in range(n_chunks):
+        sl = slice(ci * chunk_size, (ci + 1) * chunk_size)
+        kb = repeat_kv(k[:, :, sl], n_rep)
+        vb = repeat_kv(v[:, :, sl], n_rep)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb.float()) * scale
+        if kv_positions is not None:
+            qp = q_positions[:, None, :, None]
+            kp = kv_positions[:, None, None, sl]
+        else:
+            qp = q_pos[:, None]
+            kp = torch.arange(sl.start, sl.stop, device=dev)[None, :]
+        ok = M.element_mask(
+            qp, kp, causal=causal, window=window,
+            kv_valid=(kv_mask[:, None, None, sl]
+                      if kv_mask is not None else None),
+            q_seg=q_seg[:, None, :, None] if kv_seg is not None else None,
+            kv_seg=kv_seg[:, None, None, sl] if kv_seg is not None else None)
+        neg = M.NEG_INF_SOFT if fast else NEG_INF
+        if ok is not None:
+            s = torch.where(ok, s, torch.full_like(s, neg))
+        if fast:
+            m = torch.maximum(state.m, s.amax(dim=-1))
+            p = torch.exp(s - m[..., None])
+            pv = p @ vb.float()
+            corr = torch.exp(state.m - m)
+            state = SoftmaxState(m=m, l=state.l * corr + p.sum(dim=-1),
+                                 acc=state.acc * corr[..., None] + pv)
+        else:
+            state = merge_states(state, block_state(s, vb))
+    out, _ = finalize(state, dtype=q.dtype)
+    return out

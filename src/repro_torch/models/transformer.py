@@ -1,0 +1,98 @@
+"""Dense decoder stack (port of the dense serving parts of
+``repro.models.transformer``): pre-norm attention + MLP blocks, run as a
+plain loop over layers (the JAX package scans over stacked layers)."""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention_layer as attn_mod
+from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
+                                       init_norm)
+
+Params = dict[str, Any]
+
+
+def init_block(cfg: ModelConfig, dtype, *, generator, device) -> Params:
+    kw = dict(generator=generator, device=device)
+    return {
+        "attn_norm": init_norm(cfg.d_model, dtype, device),
+        "attn": attn_mod.init_attention(cfg, dtype, **kw),
+        "mlp_norm": init_norm(cfg.d_model, dtype, device),
+        "mlp": init_mlp(cfg.d_model, cfg.d_ff, dtype, **kw),
+    }
+
+
+def _mlp_residual(params: Params, cfg: ModelConfig, x):
+    h = apply_norm(params["mlp_norm"], x)
+    return x + apply_mlp(params["mlp"], h)
+
+
+def apply_block_prefill(params: Params, cfg: ModelConfig, x, *,
+                        segment_ids=None, positions=None):
+    """One block over a (packed) prompt; returns (x, {"kv": {"k", "v"}})
+    with the block's K/V rows (b, hkv, s, hd)."""
+    h = apply_norm(params["attn_norm"], x)
+    a, kv = attn_mod.prefill_attention(params["attn"], cfg, h,
+                                       segment_ids=segment_ids,
+                                       positions=positions)
+    return _mlp_residual(params, cfg, x + a), {"kv": kv}
+
+
+def apply_stack_prefill(blocks: list[Params], cfg: ModelConfig, x, *,
+                        segment_ids=None, positions=None):
+    """Prompt through all layers; K/V rows stacked on a leading layer axis:
+    {"kv": {"k": (L, b, hkv, s, hd), "v": ...}}."""
+    ks, vs = [], []
+    for p_l in blocks:
+        x, c = apply_block_prefill(p_l, cfg, x, segment_ids=segment_ids,
+                                   positions=positions)
+        ks.append(c["kv"]["k"])
+        vs.append(c["kv"]["v"])
+    return x, {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+
+def init_paged_decode_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                            dtype, device):
+    """Per-layer page pools stacked on a leading layer axis:
+    (L, hkv, num_pages, page_size, hd) per K/V leaf."""
+    shape = (cfg.num_layers, cfg.num_kv_heads, num_pages, page_size,
+             cfg.head_dim)
+    return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                   "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+
+def _layer_pool(caches, l: int):
+    """Views of layer l's pool: in-place writes land in the stacked pool."""
+    return {"k": caches["kv"]["k"][l], "v": caches["kv"]["v"][l]}
+
+
+def apply_stack_chunk_prefill(blocks: list[Params], cfg: ModelConfig, x,
+                              caches, dest_page, dest_off, page_list,
+                              q_seg, kv_seg, q_pos, kv_pos):
+    """Packed prefill chunks through all layers, each writing its rows into
+    its own pool layer and attending the prefix in place. The scatter map
+    and page list are layer-invariant. Returns (x, caches) — caches
+    updated in place."""
+    for l, p_l in enumerate(blocks):
+        h = apply_norm(p_l["attn_norm"], x)
+        a, _ = attn_mod.chunk_prefill_attention_step(
+            p_l["attn"], cfg, h, _layer_pool(caches, l), dest_page, dest_off,
+            page_list, q_seg, kv_seg, q_pos, kv_pos)
+        x = _mlp_residual(p_l, cfg, x + a)
+    return x, caches
+
+
+def apply_stack_decode_paged(blocks: list[Params], cfg: ModelConfig, x,
+                             caches, page_table, kv_len):
+    """A single token through all layers against the page pools (updated in
+    place). ``page_table`` / ``kv_len`` are layer-invariant."""
+    for l, p_l in enumerate(blocks):
+        h = apply_norm(p_l["attn_norm"], x)
+        a, _ = attn_mod.paged_decode_attention_step(
+            p_l["attn"], cfg, h, _layer_pool(caches, l), page_table, kv_len)
+        x = _mlp_residual(p_l, cfg, x + a)
+    return x, caches

@@ -1,0 +1,653 @@
+"""Serving engine: a thin EXECUTOR for the continuous-batching scheduler
+over a PAGED KV cache on one device (port of ``repro.serve.engine``).
+
+Division of labour (DESIGN.md §10):
+
+  * **ChunkScheduler** (serve/scheduler.py) owns every policy decision —
+    admission under lane + free-page budgets, per-step chunk emission under
+    a token budget, page growth, preemption at chunk boundaries, capacity
+    finishes.
+  * **ServingEngine** executes each ``StepPlan``: at most one packed
+    zero-offset prefill (chunks starting at position 0 — packed
+    self-attention, then one in-place page write), one packed suffix-chunk
+    call (``Model.prefill_chunk_paged``: write the chunks' K/V rows into
+    pages, attend each segment's prefix in place through a page list), and
+    one batched decode step. It owns the device state (pool, page table,
+    kv_len mirror) and the Request bookkeeping (EOS, token budgets,
+    preemption requeue-vs-finish).
+
+Prefix caching (on by default): ``submit`` stages the prompt's rolling
+content hash with the allocator, admission maps any indexed full-page
+prefix read-only into the new request's table, and the chunk executors
+publish pages as their rows materialize (kv_cache.py, DESIGN.md §12).
+
+Where the JAX engine donates the pool through jitted step functions, this
+engine updates the pool tensors in place. Entry points run on ``cuda``
+unless ``device="cpu"`` is passed; there is no fallback between the two.
+Not ported yet (raise ``NotImplementedError``): dense slot mode
+(``paged=False``), tensor parallelism (``tp>1``), sequence parallelism
+(``sp>1``), and the IO ledger's per-step HBM pricing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.masks import POS_PAD, SEG_PAD_Q
+from repro_torch.kernels import tuning
+from repro_torch.models.model_zoo import Model
+from repro_torch.serve import kv_cache as kvc
+from repro_torch.serve import sampling
+from repro_torch.serve.scheduler import ChunkScheduler, ChunkTask, SchedulerConfig
+from repro_torch.telemetry import Telemetry
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: list[int]
+    max_new_tokens: int
+    params: sampling.SamplingParams = dataclasses.field(
+        default_factory=sampling.SamplingParams)
+    output: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    # submit wall-clock and first-generated-token wall-clock (None until the
+    # last prefill chunk completes; survives preempt->resume).
+    t_submit: float = 0.0
+    t_first: float | None = None
+
+    @property
+    def resume_tokens(self) -> list[int]:
+        """Prefill input: the prompt plus anything generated before a
+        preemption; re-running it reproduces the continuation."""
+        return self.prompt + self.output
+
+
+def _params_device(params) -> torch.device:
+    return params["embed"].device
+
+
+class ServingEngine:
+    # packed prefill widths pad to a multiple of this many rows
+    PREFILL_BUCKET = 64
+
+    def __init__(self, model: Model, params, *, num_slots: int,
+                 capacity: int, eos_id: int | None = None,
+                 paged: bool | None = None,
+                 page_size: int = 16, num_pages: int | None = None,
+                 chunk_size: int | None = None,
+                 token_budget: int | None = None,
+                 prefix_cache: bool | None = None,
+                 tp: int = 1, sp: int = 1, trace: bool = False,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        if _params_device(params).type != self.device.type:
+            raise ValueError(f"params live on {_params_device(params)}, the "
+                             f"engine runs on {self.device}")
+        if paged is False:
+            raise NotImplementedError(
+                "dense slot mode is not ported yet; the engine serves from "
+                "the paged KV cache")
+        if tp != 1 or sp != 1:
+            raise NotImplementedError(
+                "tensor/sequence-parallel serving (tp>1, sp>1) is not "
+                "ported yet")
+        self.model = model
+        self.params = params
+        self.B = num_slots
+        self.capacity = capacity
+        self.eos_id = eos_id
+        self.prefix_cache = True if prefix_cache is None else bool(prefix_cache)
+        self.tm = Telemetry(trace=trace)
+        reg = self.tm.registry
+        self._c_prefill_calls = reg.counter(
+            "serve_prefill_calls", "model prefill invocations")
+        self._c_decode_calls = reg.counter(
+            "serve_decode_calls", "batched decode invocations")
+        self._c_preemptions = reg.counter(
+            "serve_preemptions", "preempted requests requeued/finished")
+        self._g_peak_active = reg.gauge(
+            "serve_peak_active", "max concurrently active lanes")
+        self._g_step = {
+            name: reg.gauge(f"serve_step_{name}",
+                            f"last step's {name.replace('_', ' ')}")
+            for name in ("active", "occupancy", "pool_utilization",
+                         "prefill_tokens", "decode_tokens",
+                         "deferred_chunks", "queued")}
+        self._h_ttft = reg.histogram(
+            "serve_ttft_s", "submit -> first generated token (s)")
+        self._h_tok = reg.histogram(
+            "serve_tok_latency_s", "per-token decode step latency (s)")
+        self._c_prefix_lookups = reg.counter(
+            "serve_prefix_lookups", "admissions with lookup enabled")
+        self._c_prefix_hits = reg.counter(
+            "serve_prefix_hits", "admissions mapping >= 1 page")
+        self._c_prefix_pages = reg.counter(
+            "serve_prefix_pages_shared", "pages mapped from the index")
+        self._c_tokens_skipped = reg.counter(
+            "serve_prefill_tokens_skipped", "prompt rows never prefilled")
+        self._stepped = False
+        self._step_idx = 0
+        self._preempted_rids: set[int] = set()
+
+        cfg = model.cfg
+        # seeds every content-hash chain: pages never collide across model
+        # weights / dtype / attention geometry identities.
+        self._model_key = (f"{cfg.name}|{cfg.family}|{cfg.dtype}"
+                           f"|L{cfg.num_layers}|hq{cfg.num_heads}"
+                           f"|hkv{cfg.num_kv_heads}|d{cfg.head_dim}"
+                           f"|V{cfg.vocab_size}")
+        self.requests: dict[int, Request] = {}
+        self.slot_req: list[Request | None] = [None] * num_slots
+        self.finished: list[Request] = []
+        self.next_token = np.zeros((num_slots,), np.int32)
+        self._rid = itertools.count()
+
+        if capacity % page_size:
+            raise ValueError(
+                f"capacity ({capacity}) must be a multiple of page_size "
+                f"({page_size}): the page is the mask-IR kv block and the "
+                f"per-sequence page table has capacity/page_size entries")
+        self.page_size = page_size
+        self.pages_per_seq = capacity // page_size
+        if num_pages is None:
+            num_pages = num_slots * self.pages_per_seq
+        self.kv = kvc.PagedKVCache(num_pages, page_size,
+                                   registry=self.tm.registry)
+        self.state = model.init_paged_decode_state(
+            num_slots, num_pages, page_size, self.pages_per_seq,
+            device=self.device)
+        self._kv_len_h = np.zeros((num_slots,), np.int64)
+        self._paged_dirty = True     # device table/kv_len need upload
+        # kv-side width bucket for suffix chunks, rounded UP to a page
+        # multiple: the in-place kv side is a page LIST.
+        ckb = max(self.PREFILL_BUCKET, 2 * (chunk_size or 0))
+        self.chunk_kv_bucket = ckb + (-ckb) % page_size
+        self.scheduler = ChunkScheduler(
+            SchedulerConfig(num_lanes=num_slots, capacity=capacity,
+                            page_size=page_size, chunk_size=chunk_size,
+                            token_budget=token_budget),
+            kv=self.kv, telemetry=self.tm)
+
+        # Resolve the decode kernel geometry ONCE at construction: a pinned
+        # split count that does not divide the pages per sequence fails
+        # here, not inside the first decode step.
+        if cfg.use_decode_kernel:
+            self.num_decode_splits = tuning.resolve_paged_decode_splits(
+                self.pages_per_seq, cfg.num_decode_splits)
+
+    # --------------------- views over the telemetry registry
+    @property
+    def prefill_calls(self) -> int:
+        return int(self._c_prefill_calls.total())
+
+    @property
+    def decode_calls(self) -> int:
+        return int(self._c_decode_calls.total())
+
+    @property
+    def preemptions(self) -> int:
+        return int(self._c_preemptions.total())
+
+    @property
+    def peak_active(self) -> int:
+        return int(self._g_peak_active.value())
+
+    @property
+    def prefix_lookups(self) -> int:
+        return int(self._c_prefix_lookups.total())
+
+    @property
+    def prefix_hits(self) -> int:
+        return int(self._c_prefix_hits.total())
+
+    @property
+    def prefix_pages_shared(self) -> int:
+        return int(self._c_prefix_pages.total())
+
+    @property
+    def prefill_tokens_skipped(self) -> int:
+        return int(self._c_tokens_skipped.total())
+
+    @property
+    def prefix_cache_hit_rate(self) -> float:
+        return self.prefix_hits / max(1, self.prefix_lookups)
+
+    @property
+    def last_step_stats(self) -> dict[str, Any]:
+        if not self._stepped:
+            return {}
+        g = self._g_step
+        return {
+            "active": int(g["active"].value()),
+            "occupancy": g["occupancy"].value(),
+            "pool_utilization": g["pool_utilization"].value(),
+            "prefill_tokens": int(g["prefill_tokens"].value()),
+            "decode_tokens": int(g["decode_tokens"].value()),
+            "deferred_chunks": int(g["deferred_chunks"].value()),
+            "queued": int(g["queued"].value()),
+        }
+
+    # ----------------------------------------------------------------- admit
+    def submit(self, prompt: list[int], max_new_tokens: int, *,
+               temperature: float = 0.0, top_p: float = 1.0,
+               seed: int | None = None) -> int:
+        rid = next(self._rid)
+        if len(prompt) + 1 > self.capacity:
+            raise ValueError(
+                f"prompt of {len(prompt)} tokens cannot decode within "
+                f"capacity {self.capacity}")
+        # the final generated token is emitted but never written back, so
+        # the worst-case footprint is prompt + max_new - 1 cache rows.
+        worst = self.kv.pages_for(
+            min(len(prompt) + max_new_tokens - 1, self.capacity))
+        if worst > self.kv.num_pages:
+            raise ValueError(
+                f"request needs up to {worst} pages but the pool has "
+                f"{self.kv.num_pages}; enlarge num_pages or shorten the "
+                f"request")
+        sp = sampling.SamplingParams(
+            temperature=temperature, top_p=top_p,
+            seed=rid if seed is None else seed)
+        req = Request(rid, list(prompt), max_new_tokens, params=sp,
+                      t_submit=time.perf_counter())
+        self.requests[rid] = req
+        self._stage_prefix(req)
+        self.scheduler.submit(rid, len(prompt))
+        tr = self.tm.tracer
+        if tr.enabled:
+            tr.event("req", "submit", rid=rid, prompt_len=len(prompt),
+                     max_new=max_new_tokens)
+        return rid
+
+    def _stage_prefix(self, req: Request) -> None:
+        """Hand the allocator the rolling content hash of the request's
+        resume tokens (full pages only), keyed by model identity."""
+        if not self.prefix_cache:
+            return
+        self.kv.stage_prefix(req.rid, kvc.prefix_page_keys(
+            self._model_key, req.resume_tokens, self.page_size))
+
+    def _packed_batch(self, reqs: list[Request], lengths: list[int]):
+        """Tokens + segment ids for a packed prefill of each request's FIRST
+        ``lengths[i]`` resume tokens, padded to the prefill bucket."""
+        offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+        total = int(offsets[-1])
+        padded = total + (-total) % self.PREFILL_BUCKET
+        toks = np.zeros((1, padded), np.int32)
+        segs = np.full((1, padded), SEG_PAD_Q, np.int32)
+        for i, (r, n) in enumerate(zip(reqs, lengths)):
+            toks[0, offsets[i]:offsets[i + 1]] = r.resume_tokens[:n]
+            segs[0, offsets[i]:offsets[i + 1]] = i
+        return toks, segs, offsets
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
+
+    # ----------------------------------------------------------- sampling
+    def _sample_rows(self, logits_rows, reqs: list[Request | None]) -> list[int]:
+        """One token per row with each request's persisted sampling state;
+        counts index the position so preempt->resume replays identically.
+        ``None`` rows (idle decode lanes) sample greedy and are discarded."""
+        return sampling.sample_tokens(
+            logits_rows,
+            [r.params.seed if r else 0 for r in reqs],
+            [len(r.output) if r else 0 for r in reqs],
+            [r.params.temperature if r else 0.0 for r in reqs],
+            [r.params.top_p if r else 1.0 for r in reqs])
+
+    # ------------------------------------------------------------- bookkeeping
+    def _publish_prefix(self, req: Request, n_rows: int) -> None:
+        """Index req's fully-materialized pages (first ``n_rows`` rows are
+        written) under their staged content keys — at every chunk boundary,
+        so a preempted request has already published its prompt pages."""
+        if self.prefix_cache:
+            self.kv.publish_prefix(req.rid, n_rows // self.page_size)
+
+    def _finish(self, lane: int, req: Request, reason: str = "stop") -> None:
+        req.done = True
+        self.finished.append(req)
+        tr = self.tm.tracer
+        if tr.enabled:
+            tr.event("req", "finish", rid=req.rid, reason=reason,
+                     tokens=len(req.output))
+        # publish before release: zero-ref indexed pages are RETAINED.
+        self._publish_prefix(req, int(self._kv_len_h[lane]))
+        self.scheduler.finish(req.rid)      # frees lane + pages
+        self.slot_req[lane] = None
+        self._kv_len_h[lane] = 0
+        self._paged_dirty = True
+
+    def _post_prefill(self, lane: int, req: Request, tok: int) -> None:
+        """The final chunk's logits produced the next generated token."""
+        if req.t_first is None:
+            req.t_first = time.perf_counter()
+            self._h_ttft.observe(req.t_first - req.t_submit)
+            tr = self.tm.tracer
+            if tr.enabled:
+                tr.event("req", "first_token", rid=req.rid,
+                         ttft_s=req.t_first - req.t_submit)
+        req.output.append(tok)
+        hit_eos = self.eos_id is not None and tok == self.eos_id
+        if hit_eos or len(req.output) >= req.max_new_tokens:
+            self._finish(lane, req, "eos" if hit_eos else "max_new_tokens")
+            return
+        self.next_token[lane] = tok
+
+    def _clear_lane(self, rid: int, lane: int) -> None:
+        """Clear an evicted sequence's lane — only if the lane still holds
+        it (a lane may have been handed to a new admission already)."""
+        if self.slot_req[lane] is self.requests[rid]:
+            self.slot_req[lane] = None
+            self._kv_len_h[lane] = 0
+
+    def _sync_evictions(self, plan) -> None:
+        """Translate scheduler evictions into Request outcomes: requeue at
+        the front with the generated prefix, or finish at capacity."""
+        tr = self.tm.tracer
+        for rid, lane in plan.finished_capacity:
+            req = self.requests[rid]
+            self._clear_lane(rid, lane)
+            req.done = True
+            self.finished.append(req)
+            if tr.enabled:
+                tr.event("req", "finish", rid=rid, reason="capacity",
+                         tokens=len(req.output))
+        for rid, lane in plan.preempted:
+            req = self.requests[rid]
+            self._clear_lane(rid, lane)
+            self._preempted_rids.add(rid)
+            if tr.enabled:
+                tr.event("req", "preempt", rid=rid,
+                         reason=plan.preempt_reasons.get(rid, ""),
+                         generated=len(req.output))
+            if len(req.resume_tokens) > self.capacity:
+                req.done = True
+                self.finished.append(req)
+                if tr.enabled:
+                    tr.event("req", "finish", rid=rid, reason="capacity",
+                             tokens=len(req.output))
+                continue
+            self._stage_prefix(req)     # release dropped the staged keys
+            self.scheduler.resubmit_front(rid, len(req.resume_tokens))
+            self._c_preemptions.inc()
+        if plan.dirty:
+            self._paged_dirty = True
+
+    # ----------------------------------------- executor: zero-offset prefill
+    def _exec_zero_paged(self, tasks: list[ChunkTask]) -> None:
+        """Chunks starting at logical position 0 attend nothing before
+        themselves: ONE packed self-attention prefill, then one in-place
+        write of its K/V rows into pool pages."""
+        t_w = time.perf_counter()
+        reqs = [self.requests[t.rid] for t in tasks]
+        lengths = [t.length for t in tasks]
+        toks, segs, offsets = self._packed_batch(reqs, lengths)
+        caches, logits = self.model.prefill_packed(
+            self.params, {"tokens": self._dev(toks),
+                          "segment_ids": self._dev(segs)})
+        self._c_prefill_calls.inc()
+        tables = [self.kv.table(t.rid) for t in tasks]
+        dest_page, dest_off = kvc.packed_destinations(
+            tables, offsets, lengths, self.page_size, toks.shape[1],
+            self.kv.num_pages)
+        kvc.scatter_packed_segments(self.state["caches"], caches,
+                                    self._dev(dest_page), self._dev(dest_off))
+        self._paged_dirty = True
+        for i, t in enumerate(tasks):
+            self._kv_len_h[t.lane] = t.length
+            self._publish_prefix(reqs[i], t.length)
+        self._emit_first_tokens(tasks, logits, offsets)
+        self._trace_prefill("prefill_zero", tasks, time.perf_counter() - t_w)
+
+    def _emit_first_tokens(self, tasks, logits, offsets) -> None:
+        """Sample the next token of every task whose chunk completes its
+        prefill (the chunk's last-row logits)."""
+        lasts = [(i, t) for i, t in enumerate(tasks) if t.last]
+        if not lasts:
+            return
+        idx = torch.as_tensor([int(offsets[i]) + t.length - 1
+                               for i, t in lasts], device=logits.device)
+        toks = self._sample_rows(logits[0, idx],
+                                 [self.requests[t.rid] for _, t in lasts])
+        for (_, t), tok in zip(lasts, toks):
+            self._post_prefill(t.lane, self.requests[t.rid], int(tok))
+
+    # -------------------------------------------- executor: suffix chunks
+    def _kv_bucketed(self, width: int) -> int:
+        """Round the packed kv width UP to the bucket multiple (never
+        capped: several segments' prefixes can sum past one capacity)."""
+        b = max(1, self.chunk_kv_bucket)
+        return width + (-width) % b
+
+    def _exec_suffix_paged(self, tasks: list[ChunkTask]) -> None:
+        """Chunks with history run as ONE packed varlen call against the
+        page pool: write each chunk's K/V rows into its pages, then attend
+        each sequence's full logical prefix IN PLACE through a page list
+        (``kv_cache.paged_prefix_lists``) with per-segment positions."""
+        t_w = time.perf_counter()
+        reqs = [self.requests[t.rid] for t in tasks]
+        lengths = [t.length for t in tasks]
+        starts = [t.start for t in tasks]
+        q_off = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
+        total_q = int(q_off[-1])
+        Sq = total_q + (-total_q) % self.PREFILL_BUCKET
+        toks = np.zeros((1, Sq), np.int32)
+        qseg = np.full((1, Sq), SEG_PAD_Q, np.int32)
+        qpos = np.full((1, Sq), POS_PAD, np.int32)
+        for i, (r, st, n) in enumerate(zip(reqs, starts, lengths)):
+            sl = slice(int(q_off[i]), int(q_off[i + 1]))
+            toks[0, sl] = r.resume_tokens[st:st + n]
+            qseg[0, sl] = i
+            qpos[0, sl] = np.arange(st, st + n)
+
+        spans = [st + n for st, n in zip(starts, lengths)]
+        tables = [self.kv.table(t.rid) for t in tasks]
+        dest_page, dest_off = kvc.chunk_destinations(
+            tables, starts, q_off, lengths, self.page_size, Sq,
+            self.kv.num_pages)
+        pages_needed = sum(kvc.pages_for(sp, self.page_size) for sp in spans)
+        Sk = self._kv_bucketed(pages_needed * self.page_size)
+        page_list, kseg, kpos = kvc.paged_prefix_lists(
+            tables, spans, self.page_size, Sk // self.page_size)
+        batch = {"tokens": self._dev(toks),
+                 "q_segment_ids": self._dev(qseg),
+                 "q_positions": self._dev(qpos),
+                 "kv_segment_ids": self._dev(kseg[None]),
+                 "kv_positions": self._dev(kpos[None]),
+                 "dest_page": self._dev(dest_page),
+                 "dest_off": self._dev(dest_off),
+                 "page_list": self._dev(page_list[None])}
+        _, logits = self.model.prefill_chunk_paged(self.params, batch,
+                                                   self.state["caches"])
+        self._c_prefill_calls.inc()
+        self._paged_dirty = True
+        for t, r in zip(tasks, reqs):
+            self._kv_len_h[t.lane] = t.start + t.length
+            self._publish_prefix(r, t.start + t.length)
+        self._emit_first_tokens(tasks, logits, q_off)
+        self._trace_prefill("prefill_chunk", tasks, time.perf_counter() - t_w)
+
+    # ------------------------------------------------------ executor: decode
+    def _exec_decode(self, decode_lanes: list[int]) -> None:
+        lanes = [l for l in decode_lanes if self.slot_req[l] is not None]
+        if not lanes:
+            return
+        if self._paged_dirty:
+            # upload the host allocator's view only when it changed. Lanes
+            # still PREFILLING get -1 rows: the decode write drops their
+            # rows and the mask IR classifies their pages SKIP.
+            lane_set = set(lanes)
+            row_rids = [
+                (self.slot_req[l].rid
+                 if l in lane_set and self.slot_req[l] is not None else None)
+                for l in range(self.B)]
+            self.state["page_table"] = self._dev(
+                self.kv.table_array(row_rids, self.pages_per_seq))
+            self.state["kv_len"] = self._dev(self._kv_len_h.astype(np.int32))
+            self._paged_dirty = False
+        t0 = time.perf_counter()
+        tok = self._dev(self.next_token)
+        reqs_by_lane = [self.slot_req[l] for l in range(self.B)]
+        self.state, logits = self.model.decode_step(self.params, self.state,
+                                                    tok)
+        self._c_decode_calls.inc()
+        nxt = self._sample_rows(logits[:, 0], reqs_by_lane)
+        # sampling brought the tokens to the host, so the step's device
+        # work is done: one wall-clock sample covers every token here.
+        dt = time.perf_counter() - t0
+        for _ in lanes:
+            self._h_tok.observe(dt)
+        tr = self.tm.tracer
+        if tr.enabled:
+            tr.span("step", "decode", tr.now() - dt, dt,
+                    step=self._step_idx, lanes=list(lanes),
+                    tokens=len(lanes), tiles=self._tile_args())
+        for lane in lanes:
+            req = self.slot_req[lane]
+            t = int(nxt[lane])
+            req.output.append(t)
+            self.next_token[lane] = t
+            self.scheduler.token_appended(req.rid)
+            self._kv_len_h[lane] += 1
+            hit_eos = self.eos_id is not None and t == self.eos_id
+            if len(req.output) >= req.max_new_tokens or hit_eos:
+                self._finish(lane, req,
+                             "eos" if hit_eos else "max_new_tokens")
+
+    # ------------------------------------- telemetry helpers
+    def _trace_prefill(self, name: str, tasks: list[ChunkTask],
+                       dt: float) -> None:
+        tr = self.tm.tracer
+        if not tr.enabled:
+            return
+        tr.span("step", name, tr.now() - dt, dt, step=self._step_idx,
+                lanes=[t.lane for t in tasks],
+                chunks=[[t.start, t.length] for t in tasks],
+                tokens=sum(t.length for t in tasks),
+                tiles=self._tile_args())
+        for t in tasks:
+            tr.event("req", "chunk", rid=t.rid, lane=t.lane,
+                     start=t.start, length=t.length, last=t.last)
+
+    def _tile_args(self) -> dict[str, Any]:
+        bq, bk = tuning.fwd_tiles(self.model.cfg.head_dim)
+        out: dict[str, Any] = {"block_q": bq, "block_k": bk}
+        if hasattr(self, "num_decode_splits"):
+            out["num_decode_splits"] = self.num_decode_splits
+        return out
+
+    # ------------------------------------------------------------------ step
+    @torch.inference_mode()
+    def step(self) -> None:
+        t_step = time.perf_counter()
+        self._step_idx += 1
+        plan = self.scheduler.plan_step()
+        # evictions FIRST (they clear lanes admissions may reuse); a request
+        # both admitted and starve-evicted in this plan is never placed.
+        self._sync_evictions(plan)
+        evicted = ({rid for rid, _ in plan.preempted}
+                   | {rid for rid, _ in plan.finished_capacity})
+        tr = self.tm.tracer
+        for rid, lane in plan.admitted:
+            if rid not in evicted:
+                self.slot_req[lane] = self.requests[rid]
+                self._record_prefix_hit(rid)
+                if tr.enabled:
+                    tr.event("req",
+                             "resume" if rid in self._preempted_rids
+                             else "admit",
+                             rid=rid, lane=lane,
+                             cached=self.scheduler.by_rid[rid].cached)
+
+        zero = [t for t in plan.prefill if t.start == 0]
+        suffix = [t for t in plan.prefill if t.start > 0]
+        if zero:
+            self._exec_zero_paged(zero)
+        if suffix:
+            self._exec_suffix_paged(suffix)
+
+        active = sum(r is not None for r in self.slot_req)
+        self._g_peak_active.max_update(active)
+        g = self._g_step
+        g["active"].set(active)
+        g["occupancy"].set(active / self.B)
+        g["pool_utilization"].set(self.kv.utilization())
+        g["prefill_tokens"].set(sum(t.length for t in plan.prefill))
+        g["decode_tokens"].set(len(plan.decode_lanes))
+        g["deferred_chunks"].set(plan.deferred_chunks)
+        g["queued"].set(len(self.scheduler.queue))
+        self._stepped = True
+        self._exec_decode(plan.decode_lanes)
+        g["queued"].set(len(self.scheduler.queue))
+        if tr.enabled:
+            dt = time.perf_counter() - t_step
+            tr.span("stepsum", "step", tr.now() - dt, dt,
+                    step=self._step_idx, **self.last_step_stats)
+
+    def run(self, max_steps: int = 10_000, on_step=None) -> list[Request]:
+        """Drive the engine to drain; ``on_step(engine)`` after every step."""
+        for _ in range(max_steps):
+            if self.scheduler.idle():
+                break
+            self.step()
+            if on_step is not None:
+                on_step(self)
+        return self.finished
+
+    # --------------------------------------------------------- observability
+    def _record_prefix_hit(self, rid: int) -> None:
+        """Account one admission's prefix-cache outcome."""
+        if not self.prefix_cache:
+            return
+        self._c_prefix_lookups.inc()
+        cached = self.scheduler.by_rid[rid].cached
+        if not cached:
+            return
+        self._c_prefix_hits.inc()
+        self._c_prefix_pages.inc(cached // self.page_size)
+        self._c_tokens_skipped.inc(cached)
+        tr = self.tm.tracer
+        if tr.enabled:
+            tr.event("req", "prefix_hit", rid=rid, cached_tokens=cached,
+                     pages=cached // self.page_size)
+
+    @staticmethod
+    def step_stats_printer():
+        """``run(on_step=...)`` callback printing per-step batch occupancy
+        and page-pool utilization."""
+        counter = itertools.count(1)
+
+        def show(e):
+            s = e.last_step_stats
+            work = ""
+            if s.get("prefill_tokens"):
+                work = (f" prefill {s['prefill_tokens']}t"
+                        f"+decode {s['decode_tokens']}t")
+            print(f"  step {next(counter):>3}: batch {s['active']}/{e.B} "
+                  f"({s['occupancy']:.0%}) pool {s['pool_utilization']:.0%}"
+                  f"{work} queued {s['queued']}")
+
+        return show
+
+    def cache_bytes(self) -> int:
+        """Device bytes resident in the KV page pool."""
+        return int(sum(t.numel() * t.element_size()
+                       for t in self.state["caches"]["kv"].values()))
+
+    def latency_stats(self) -> dict[str, float]:
+        """Percentile-reduced per-request latencies (seconds): TTFT (submit
+        -> first generated token) and per-token decode step latency."""
+        out: dict[str, float] = {}
+        for name, h in (("ttft", self._h_ttft),
+                        ("tok_latency", self._h_tok)):
+            for q in (50, 95):
+                out[f"{name}_p{q}"] = h.percentile(q)
+        return out

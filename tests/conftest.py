@@ -39,6 +39,10 @@ def pytest_configure(config):
         "multidevice: needs >= 8 local devices "
         "(XLA_FLAGS=--xla_force_host_platform_device_count=8 before jax "
         "initializes)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device (an NVIDIA H100 for the sm_90a kernels); "
+        "skipped without one — run with `pytest -m gpu tests/test_torch_gpu.py`")
 
 
 def pytest_collection_modifyitems(config, items):

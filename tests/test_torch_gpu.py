@@ -1,0 +1,214 @@
+"""Card tests of the hand-written CUDA kernels: each kernel against its
+plain PyTorch version on the same CUDA inputs, and the serving engine on
+the card against the same engine on the CPU. Marked ``gpu``; skipped
+without a CUDA device (whether one is present is decided inside the
+fixture, never at import or collection). Imports no jax: the card's
+machine has none. Run there with::
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances: fp32 inputs atol 1e-4 (summation order only); bf16 inputs
+atol 2e-2 on o (bf16 output rounding) and 1e-2 relative on m and l.
+"""
+
+import pytest
+import torch
+
+from repro_torch.configs import reduced_config
+from repro_torch.core import masks as M
+from repro_torch.kernels import build, ops
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
+from repro_torch.models import build_model, params_to
+from repro_torch.serve import ServingEngine
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all()
+    return torch.device("cuda")
+
+
+def _tol(dtype):
+    return (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 1e-2)
+
+
+def _check(kernel_out, plain_out, dtype):
+    atol, rel = _tol(dtype)
+    o, m, l = kernel_out
+    po, pm, pl = plain_out
+    torch.testing.assert_close(o.float(), po.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(m, pm, atol=rel, rtol=rel)
+    torch.testing.assert_close(l, pl, atol=rel, rtol=rel)
+
+
+def _segments(gen, b, s, device):
+    seg = torch.zeros((b, s), dtype=torch.int32)
+    for i in range(b):
+        cuts = torch.sort(torch.randperm(s - 1, generator=gen)[:3] + 1).values
+        seg[i] = torch.searchsorted(cuts, torch.arange(s), right=True)
+    return seg.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("mask", ["causal_segments", "window_kvmask_tail",
+                                  "positions"])
+def test_flash_fwd_matches_plain(cuda, dtype, d, mask):
+    gen = torch.Generator().manual_seed(d)
+    b, hq, hkv, sq, sk, bq, bk = 2, 8, 2, 128, 192, 64, 64
+    q = torch.randn(b, hq, sq, d, generator=gen).to(cuda, dtype)
+    k = torch.randn(b, hkv, sk, d, generator=gen).to(cuda, dtype)
+    v = torch.randn(b, hkv, sk, d, generator=gen).to(cuda, dtype)
+    kw = dict(causal=True, window=None, q_offset=sk - sq, kv_valid_len=None)
+    arrays = {}
+    if mask == "causal_segments":
+        arrays["q_segment_ids"] = _segments(gen, b, sq, cuda)
+        arrays["kv_segment_ids"] = torch.cat(
+            [torch.zeros((b, sk - sq), dtype=torch.int32, device=cuda),
+             arrays["q_segment_ids"]], dim=1)
+    elif mask == "window_kvmask_tail":
+        kw.update(window=37, kv_valid_len=180)
+        arrays["kv_mask"] = (torch.rand(b, sk, generator=gen) > 0.2).to(cuda)
+    else:
+        kw["q_offset"] = 0
+        arrays["q_positions"] = (torch.arange(sq, dtype=torch.int32)[None]
+                                 + torch.tensor([[5], [50]], dtype=torch.int32)).to(cuda)
+        kv_pos = torch.arange(sk, dtype=torch.int32).repeat(b, 1)
+        kv_pos[1, 170:] = M.POS_PAD
+        arrays["kv_positions"] = kv_pos.to(cuda)
+    spec = M.MaskSpec(**kw, **arrays)
+    layout = M.compile_block_layout(spec, sq, sk, bq, bk).as_array(cuda)
+    call = dict(scale=d ** -0.5, block_q=bq, block_k=bk, **kw,
+                q_segment_ids=arrays.get("q_segment_ids"),
+                kv_segment_ids=arrays.get("kv_segment_ids"),
+                q_positions=arrays.get("q_positions"),
+                kv_positions=arrays.get("kv_positions"))
+    n0 = fa.LAUNCHES["flash_fwd"]
+    out = fa.flash_attention_forward(q, k, v, arrays.get("kv_mask"), layout,
+                                     **call)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd"] == n0 + 1
+    plain = fa.flash_attention_forward_plain(q, k, v, arrays.get("kv_mask"),
+                                             layout, **call)
+    assert fa.LAUNCHES["flash_fwd"] == n0 + 1      # the plain call counts nothing
+    _check(out, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page_size", [8, 16, 64])
+def test_flash_fwd_paged_matches_plain(cuda, dtype, page_size):
+    gen = torch.Generator().manual_seed(page_size)
+    hq, hkv, d, num_pages = 8, 2, 64, 40
+    spans, chunks = [70, 130], [30, 34]
+    sq = 64
+    k_pool = torch.randn(hkv, num_pages, page_size, d, generator=gen).to(cuda, dtype)
+    v_pool = torch.randn(hkv, num_pages, page_size, d, generator=gen).to(cuda, dtype)
+    T = sum(-(-s // page_size) for s in spans) + 2       # two dead slots
+    pages = torch.randperm(num_pages, generator=gen)
+    page_list = torch.full((1, T), -1, dtype=torch.int32)
+    kv_seg = torch.full((1, T * page_size), M.SEG_PAD_KV, dtype=torch.int32)
+    kv_pos = torch.full((1, T * page_size), M.POS_PAD, dtype=torch.int32)
+    q_seg = torch.full((1, sq), M.SEG_PAD_Q, dtype=torch.int32)
+    q_pos = torch.full((1, sq), M.POS_PAD, dtype=torch.int32)
+    slot = row = 0
+    for s, (span, n) in enumerate(zip(spans, chunks)):
+        np_ = -(-span // page_size)
+        page_list[0, slot:slot + np_] = pages[slot:slot + np_].int()
+        kv_seg[0, slot * page_size:slot * page_size + span] = s
+        kv_pos[0, slot * page_size:slot * page_size + span] = torch.arange(span)
+        q_seg[0, row:row + n] = s
+        q_pos[0, row:row + n] = torch.arange(span - n, span)
+        slot, row = slot + np_, row + n
+    q = torch.randn(1, hq, sq, d, generator=gen).to(cuda, dtype)
+    a = {n: t.to(cuda) for n, t in dict(q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+                                       q_positions=q_pos, kv_positions=kv_pos).items()}
+    bq = 32
+    spec = M.MaskSpec(causal=True, **a)
+    layout = M.compile_block_layout(spec, sq, T * page_size, bq,
+                                    page_size).as_array(cuda)
+    layout = M.paged_prefill_block_layout(layout, page_list.to(cuda))
+    call = dict(scale=d ** -0.5, causal=True, window=None, block_q=bq, **a)
+    n0 = fa.LAUNCHES["flash_fwd_paged"]
+    out = fa.flash_prefill_paged_forward(q, k_pool, v_pool, page_list.to(cuda),
+                                         layout, **call)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd_paged"] == n0 + 1
+    plain = fa.flash_prefill_paged_forward_plain(q, k_pool, v_pool,
+                                                 page_list.to(cuda), layout, **call)
+    _check(out, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_decode_paged_matches_plain(cuda, dtype, window):
+    gen = torch.Generator().manual_seed(1)
+    b, hq, hkv, d, ps, num_pages, T = 6, 32, 8, 64, 16, 200, 24
+    q = torch.randn(b, hq, 1, d, generator=gen).to(cuda, dtype)
+    k_pool = torch.randn(hkv, num_pages, ps, d, generator=gen).to(cuda, dtype)
+    v_pool = torch.randn(hkv, num_pages, ps, d, generator=gen).to(cuda, dtype)
+    kv_len = torch.tensor([1, 17, 200, 383, 384, 0], dtype=torch.int32)
+    table = torch.randperm(num_pages, generator=gen)[:b * T].reshape(b, T).int()
+    for i, n in enumerate(kv_len.tolist()):
+        table[i, -(-n // ps):] = -1          # unallocated tail (idle lane: all)
+    table, kv_len = table.to(cuda), kv_len.to(cuda)
+    layout = M.paged_block_layout(kv_len, table, ps, window=window)
+    kw = dict(scale=d ** -0.5, num_splits=4, window=window)
+    n0 = fd.LAUNCHES["flash_decode_paged"]
+    out = fd.flash_decode_paged_partials(q, k_pool, v_pool, table, kv_len,
+                                         layout, **kw)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode_paged"] == n0 + 1
+    plain = fd.flash_decode_paged_partials_plain(q, k_pool, v_pool, table,
+                                                 kv_len, layout, **kw)
+    atol, rel = _tol(dtype)
+    torch.testing.assert_close(out[0], plain[0], atol=atol * 10, rtol=rel)
+    torch.testing.assert_close(out[1], plain[1], atol=rel, rtol=rel)
+    torch.testing.assert_close(out[2], plain[2], atol=rel, rtol=rel)
+    merged = fd._merge_split_partials(*out, dtype)
+    ref = fd._merge_split_partials(*plain, dtype)
+    torch.testing.assert_close(merged.float(), ref.float(), atol=atol, rtol=0)
+    assert torch.all(merged[5] == 0)         # the idle lane emits zeros
+
+
+def test_unsupported_shapes_raise_before_launch(cuda):
+    q = torch.randn(1, 2, 8, 48, device=cuda)
+    lay = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_forward(q, q[:, :1], q[:, :1], None, lay,
+                                   scale=1.0, causal=True, window=None,
+                                   q_offset=0, block_q=8, block_k=8)
+    with pytest.raises(NotImplementedError, match="paper"):
+        ops.flash_attention(torch.randn(1, 2, 8, 64, device=cuda),
+                            torch.randn(1, 1, 8, 64, device=cuda),
+                            torch.randn(1, 1, 8, 64, device=cuda),
+                            causal=True, variant="paper")
+
+
+def test_engine_on_card_matches_cpu(cuda):
+    """The kernel path on the card gives the CPU (plain-version) engine's
+    greedy tokens: chunked prefill, a prefix hit, paged decode."""
+    cfg = reduced_config("granite-3-2b", head_dim=16, attn_impl="pallas",
+                         use_decode_kernel=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    shared = list(range(1, 25))
+    prompts = [shared + [40, 41, 42], list(range(60, 79)), shared + [50]]
+    outs = []
+    for device in ("cpu", "cuda"):
+        p = params_to(params, device)
+        eng = ServingEngine(model, p, num_slots=2, capacity=64, page_size=8,
+                            chunk_size=8, device=device)
+        for pr in prompts:
+            eng.submit(pr, max_new_tokens=6)
+            eng.run()
+        outs.append({r.rid: r.output for r in eng.finished})
+    assert outs[0] == outs[1]
+    assert fa.LAUNCHES["flash_fwd"] > 0 and fa.LAUNCHES["flash_fwd_paged"] > 0
+    assert fd.LAUNCHES["flash_decode_paged"] > 0
