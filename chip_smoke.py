@@ -2,13 +2,16 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --ab PARENT_CHECKOUT    # A/B of the serving path
 
 Imports nothing of JAX or of the JAX package; needs one CUDA card and the
-repository checkout beside it (``src/repro_torch``). Phases:
+repository checkout beside it (``src/repro_torch``). Two main paths run
+through the hand-written kernels: serving (phases 3-4) and training
+(phases 5-6). Phases:
 
 1. print the card's name and power limit (nvidia-smi), then build every
-   CUDA kernel of the serving path from ``src/repro_torch/kernels/csrc``
-   (one nvcc per source, started together);
+   CUDA kernel of both paths from ``src/repro_torch/kernels/csrc`` (one
+   nvcc per source, the three libraries started together);
 2. kernels: each kernel against its plain PyTorch version at the main
    path's shapes in bf16 (hq 32 / hkv 8 / d 64, page 16): a ~2k-token
    packed prefill with several documents (flash_fwd), a 256-row chunk
@@ -18,7 +21,16 @@ repository checkout beside it (``src/repro_torch``). Phases:
    CUDA events after warm-up, inputs rotated so the working set exceeds the
    50 MB L2; the plain version is timed the same way, and for flash_fwd so
    is one ``scaled_dot_product_attention`` call with the equivalent boolean
-   mask (``library_ms``; the port never calls it);
+   mask (``library_ms``; the port never calls it; for the two paged kernels
+   SDPA runs on K/V gathered beforehand into a contiguous tensor, the
+   gather not timed). At the training phase's per-layer shape in bf16 (q
+   (4, 32, 2048, 64), k/v (4, 8, 2048, 64), causal, the segment ids of
+   ``SyntheticLM(49155, 2048, 4, seed).batch_at(0)``): the dq and dkv
+   kernels against the plain backward (max |g - plain| / max |plain| <=
+   2e-2), a dropout_p = 0.1 forward + backward and a ``variant="paper"``
+   forward against the plain versions, each kernel timed beside its bound,
+   its plain time and ``library_ms`` = the backward of SDPA alone
+   (``torch.autograd.grad`` after one forward, boolean mask, GQA);
 3. parity: granite-3-2b at full width, 2 layers, float32: the same weights
    served by the engine on ``cuda`` (kernels) and on ``cpu`` (plain
    versions); greedy tokens must be identical (a divergence at a near-tie
@@ -29,9 +41,30 @@ repository checkout beside it (``src/repro_torch``). Phases:
    kernel's launch counter is reset just before and must be > 0 just
    after; prints tokens/s, TTFT p50 and peak memory beside the card. The
    same serve then runs once more under ``torch.profiler`` for the device
-   busy share and the kernels that take the most device time.
+   busy share and the kernels that take the most device time;
+5. train parity: granite-3-2b at full width, 2 layers, float32, seq 512,
+   batch 2: the same random weights and ``SyntheticLM`` batches through two
+   train steps on ``cuda`` (kernels) and on ``cpu`` (plain versions): losses
+   within 1e-4 relative, layer 0's wq/wk/wv gradients of the first batch
+   within 1e-3 scaled by their max;
+6. train: the published granite-3-2b (40 layers, bf16, remat on) through
+   the training launcher (``repro_torch.launch.train``: AdamW,
+   warmup_cosine(3e-4, 20, steps), clip 1.0, deterministic), seq 2048,
+   batch 4, 6 steps, step 1 excluded from the timing. Launch counters are
+   reset just before and flash_fwd, flash_bwd_dq, flash_bwd_dkv must be > 0
+   just after; every loss and grad norm finite; prints the first loss,
+   tokens/s, ms/step and peak memory, then one more step under
+   ``torch.profiler`` for the device busy share and the top kernels.
 
-Prints one JSON line of kernel results, then as its last line
+``--ab PARENT_CHECKOUT`` runs only an A/B of the serving path against another
+checkout (e.g. ``git archive`` of the parent commit): that checkout's and
+this one's own ``kernel_phase`` and ``serve_phase`` (without the profiled
+pass), each in a fresh process, in the order parent, change, change,
+parent on the same card, then prints each side's per-run numbers.
+
+Prints one JSON line of kernel results (``launches`` summed over the two
+main paths' runs, per path under ``launches_by_path``), then as its last
+line
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, without
 a CUDA device, or without the repository beside it. A full record is
 written to ``build/chip_smoke.json``.
@@ -44,6 +77,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -122,10 +156,12 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import tuning
+    from repro_torch.kernels.ref import gather_pages
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(seed)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     hq, hkv, d, ps = 32, 8, 64, 16
     scale = d ** -0.5
     results = []
@@ -155,7 +191,6 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     plain_ms = time_ms(torch, [lambda: fa.flash_attention_forward_plain(
         q, k, v, None, layout, **call)], warmup=1, iters=3)
     mask = spec.element_mask(S, S)                   # (1, 1, S, S) bool
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = time_ms(torch, [lambda a=a: sdpa(*a, attn_mask=mask, scale=scale,
                                               enable_gqa=True) for a in sets])
     pairs = int(mask.sum()) * hq
@@ -164,7 +199,8 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     results.append(_kernel_record(
         "flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
         "src/repro/kernels/flash_attention.py:325", out, plain, ms, plain_ms,
-        b_ms, b_by, lib_ms, shape=f"packed prefill b=1 S={S} docs={lengths}"))
+        b_ms, b_by, lib_ms, shape=f"packed prefill b=1 S={S} docs={lengths}",
+        library="SDPA, bool mask"))
 
     # -- flash_fwd_paged: chunks against paged prefixes ---------------------
     spans, chunks = [1536, 600], [192, 64]
@@ -210,15 +246,22 @@ def kernel_phase(torch, seed: int) -> list[dict]:
         *a, page_list, play, **pcall) for a in sets])
     plain_ms = time_ms(torch, [lambda: fa.flash_prefill_paged_forward_plain(
         qc, pool_k, pool_v, page_list, play, **pcall)], warmup=1, iters=3)
-    pairs = int(pspec.element_mask(sq, T * ps).sum()) * hq
+    pmask = pspec.element_mask(sq, T * ps)           # (1, 1, sq, T*ps) bool
+    pairs = int(pmask.sum()) * hq
     b_ms, b_by = bound(nbytes(qc, out[0], out[1], out[2], play, page_list,
                               q_seg, q_pos, kv_seg, kv_pos) + kv_bytes,
                        4.0 * d * pairs, BF16_FLOPS_PER_S)
+    gathered = [(a[0], gather_pages(a[1], page_list), gather_pages(a[2], page_list))
+                for a in sets]                       # the gather is not timed
+    lib_ms = time_ms(torch, [lambda a=a: sdpa(*a, attn_mask=pmask, scale=scale,
+                                              enable_gqa=True) for a in gathered])
+    del gathered
     results.append(_kernel_record(
         "flash_fwd_paged", "src/repro_torch/kernels/csrc/flash_fwd.cu",
         "src/repro/kernels/flash_attention.py:765", out, plain, ms, plain_ms,
-        b_ms, b_by, None,
-        shape=f"chunks {chunks} against paged prefixes {spans}, page {ps}"))
+        b_ms, b_by, lib_ms,
+        shape=f"chunks {chunks} against paged prefixes {spans}, page {ps}",
+        library="SDPA on pre-gathered K/V, bool mask"))
 
     # -- flash_decode_paged: batch 8 over ~1k-token contexts ----------------
     b, cap = 8, 1152
@@ -255,33 +298,203 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     pairs = int(kv_len.sum()) * hq
     b_ms, b_by = bound(nbytes(qd, *parts, table, kv_len, dlay) + kv_bytes,
                        4.0 * d * pairs, BF16_FLOPS_PER_S)
+    dmask = (torch.arange(T * ps, device=dev)[None, :]
+             < kv_len[:, None])[:, None, None, :]  # (b, 1, 1, T*ps) bool
+    gathered = [(a[0], gather_pages(a[1], table), gather_pages(a[2], table))
+                for a in sets]                       # the gather is not timed
+    lib_ms = time_ms(torch, [lambda a=a: sdpa(*a, attn_mask=dmask, scale=scale,
+                                              enable_gqa=True) for a in gathered])
+    del gathered
     results.append(_kernel_record(
         "flash_decode_paged", "src/repro_torch/kernels/csrc/flash_decode.cu",
         "src/repro/kernels/flash_decode.py:329", out, plain, ms, plain_ms,
-        b_ms, b_by, None,
+        b_ms, b_by, lib_ms,
         shape=f"decode b={b} kv_len {kv_len.tolist()} page {ps} "
-              f"splits {splits}"))
+              f"splits {splits}", library="SDPA on pre-gathered K/V, bool mask"))
     return results
 
 
 def _kernel_record(name, source, replaces, out, plain, ms, plain_ms, b_ms,
-                   b_by, lib_ms, shape):
+                   b_by, lib_ms, shape, library=None):
     o_err = float((out[0].float() - plain[0].float()).abs().max())
     m_err, l_err = rel_err(out[1], plain[1]), rel_err(out[2], plain[2])
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": None, "max_abs_err": o_err,
            "m_rel_err": m_err, "l_rel_err": l_err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": lib_ms, "shape": shape}
+           "library_ms": lib_ms, "library": library, "shape": shape}
     print(f"[kernel] {name}: {shape}: max|o-plain| {o_err:.3g} "
           f"m rel {m_err:.3g} l rel {l_err:.3g}; {ms:.4f} ms "
           f"(plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}"
-          + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
+          + (f", {library} {lib_ms:.4f} ms" if lib_ms is not None else "")
           + ")", flush=True)
     check(o_err <= 2e-2, f"{name}: max |o - plain| {o_err} > 2e-2")
     check(m_err <= 1e-2 and l_err <= 1e-2,
           f"{name}: m/l relative error {m_err}/{l_err} > 1e-2")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the training path's kernels at the training shape
+# ---------------------------------------------------------------------------
+
+def scaled_err(got, want) -> float:
+    """max |got - want| / max |want| (gradients)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
+    """dq / dkv against the plain backward, a dropout forward + backward and
+    a "paper" forward against the plain versions, at the per-layer shape of
+    the training phase; returns the two backward records and the forward's
+    numbers at this shape."""
+    from repro_torch.core import masks as M
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import tuning
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    b, hq, hkv, S, d = 4, 32, 8, 2048, 64
+    scale = d ** -0.5
+    seg = torch.as_tensor(SyntheticLM(49155, S, b, seed=seed).batch_at(0)
+                          ["segment_ids"]).to(dev)
+    bq, bk = tuning.bwd_tiles(d)
+    spec = M.MaskSpec(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    layout = M.compile_block_layout(spec, S, S, bq, bk).as_array(dev)
+    call = dict(scale=scale, causal=True, window=None, q_offset=0,
+                block_q=bq, block_k=bk, q_segment_ids=seg, kv_segment_ids=seg)
+    shape = (f"train layer b={b} hq={hq} hkv={hkv} S={S} d={d}, causal, "
+             f"{int(seg.max(dim=1).values.sum()) + b} documents")
+
+    def randn(*shp):
+        return torch.randn(*shp, generator=gen, device=dev, dtype=bf16)
+
+    q, k, v, do = randn(b, hq, S, d), randn(b, hkv, S, d), randn(b, hkv, S, d), \
+        randn(b, hq, S, d)
+    mask = spec.element_mask(S, S)                   # (b, 1, S, S) bool
+    pairs = int(mask.sum()) * hq
+    o, m, l = fa.flash_attention_forward_plain(q, k, v, None, layout, **call)
+    res = (q, k, v, o, do, m, l, None, layout)
+
+    # -- correctness: kernels against the plain backward --------------------
+    got = fa.flash_attention_backward(*res, **call)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_backward_plain(*res, **call)
+    errs = dict(zip(("dq", "dk", "dv"), map(scaled_err, got, want)))
+    abs_errs = {n: float((g.float() - w.float()).abs().max())
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    # an all-zero gradient would agree with the kernel's trivially
+    check(all(float(w.float().abs().max()) > 0 for w in want),
+          "the plain backward gave an all-zero gradient")
+    del want
+    print(f"[train-kernel] {shape}: scaled |grad - plain| {errs}", flush=True)
+    for name, e in errs.items():
+        check(e <= 2e-2, f"flash_bwd: {name} scaled error {e} > 2e-2")
+
+    # -- times: each kernel alone, CUDA events (one input set exceeds 2x L2)
+    ops_ = fa.prepare_backward(*res, **call)
+    dq_ms = time_ms(torch, [lambda: fa.launch_dq(ops_)])
+    dkv_ms = time_ms(torch, [lambda: fa.launch_dkv(ops_)])
+    pair_ms = time_ms(torch, [lambda: fa.flash_attention_backward(*res, **call)])
+    plain_ms = time_ms(torch, [lambda: fa.flash_attention_backward_plain(
+        *res, **call)], warmup=1, iters=3)
+    fwd_ms = time_ms(torch, [lambda: fa.flash_attention_forward(
+        q, k, v, None, layout, **call)])
+    fwd_plain_ms = time_ms(torch, [lambda: fa.flash_attention_forward_plain(
+        q, k, v, None, layout, **call)], warmup=1, iters=3)
+
+    # -- library yardstick: SDPA's backward alone, same mask, GQA ----------
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = sdpa(*leaves, attn_mask=mask, scale=scale, enable_gqa=True)
+    lib_bwd_ms = time_ms(torch, [lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True)])
+    del out, leaves
+    lib_fwd_ms = time_ms(torch, [lambda: sdpa(q, k, v, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)])
+
+    # -- dropout 0.1: forward and backward against the plain versions ------
+    dcall = dict(call, dropout_p=0.1, dropout_seed=seed + 7,
+                 dropout_dims=(S, S))
+    dout = fa.flash_attention_forward(q, k, v, None, layout, **dcall)
+    torch.cuda.synchronize()
+    dplain = fa.flash_attention_forward_plain(q, k, v, None, layout, **dcall)
+    d_o_err = float((dout[0].float() - dplain[0].float()).abs().max())
+    check(d_o_err <= 2e-2, f"flash_fwd dropout: max |o - plain| {d_o_err}")
+    check(rel_err(dout[1], dplain[1]) <= 1e-2 and rel_err(dout[2], dplain[2])
+          <= 1e-2, "flash_fwd dropout: m/l differ from the plain version")
+    dres = (q, k, v, dplain[0], do, dplain[1], dplain[2], None, layout)
+    dgot = fa.flash_attention_backward(*dres, **dcall)
+    torch.cuda.synchronize()
+    dwant = fa.flash_attention_backward_plain(*dres, **dcall)
+    derrs = dict(zip(("dq", "dk", "dv"), map(scaled_err, dgot, dwant)))
+    del dwant, dplain
+    print(f"[train-kernel] dropout 0.1: max |o - plain| {d_o_err:.3g}, "
+          f"scaled |grad - plain| {derrs}", flush=True)
+    for name, e in derrs.items():
+        check(e <= 2e-2, f"flash_bwd dropout: {name} scaled error {e} > 2e-2")
+    fwd_drop_ms = time_ms(torch, [lambda: fa.flash_attention_forward(
+        q, k, v, None, layout, **dcall)])
+    dops = fa.prepare_backward(*dres, **dcall)
+    dq_drop_ms = time_ms(torch, [lambda: fa.launch_dq(dops)])
+    dkv_drop_ms = time_ms(torch, [lambda: fa.launch_dkv(dops)])
+
+    # -- variant "paper": forward against the plain version ----------------
+    pcall = dict(call, variant="paper")
+    pout = fa.flash_attention_forward(q, k, v, None, layout, **pcall)
+    torch.cuda.synchronize()
+    pplain = fa.flash_attention_forward_plain(q, k, v, None, layout, **pcall)
+    p_err = float((pout[0].float() - pplain[0].float()).abs().max())
+    check(p_err <= 2e-2, f"flash_fwd paper: max |o - plain| {p_err} > 2e-2")
+    fwd_paper_ms = time_ms(torch, [lambda: fa.flash_attention_forward(
+        q, k, v, None, layout, **pcall)])
+
+    # -- bounds: each input read once, each output written once; FLOPs of
+    # the minimal backward, 5 products of 2d per unmasked pair, split as
+    # dkv: S, dP, dV, dK (8d) and dq: dQ (2d) so the two bounds add up
+    ins = nbytes(q, k, v, do, m, l, layout, seg, seg) + m.numel() * 4  # + D
+    dq_bound = bound(ins + nbytes(got[0]), 2.0 * d * pairs, BF16_FLOPS_PER_S)
+    dkv_bound = bound(ins + nbytes(got[1], got[2]), 8.0 * d * pairs,
+                      BF16_FLOPS_PER_S)
+    fwd_bound = bound(nbytes(q, k, v, o, m, l, layout, seg, seg),
+                      4.0 * d * pairs, BF16_FLOPS_PER_S)
+    lib = "SDPA backward (dq, dk, dv together), bool mask, GQA"
+    recs = []
+    for name, ms, (b_ms, b_by), grads, drop_ms, line in (
+            ("flash_bwd_dq", dq_ms, dq_bound, ("dq",), dq_drop_ms, 581),
+            ("flash_bwd_dkv", dkv_ms, dkv_bound, ("dk", "dv"), dkv_drop_ms,
+             612)):
+        err = max(errs[g] for g in grads)
+        rec = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+               "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+               "launches": None,
+               "max_abs_err": max(abs_errs[g] for g in grads),
+               "scaled_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": lib_bwd_ms, "library": lib,
+               "shape": shape, "dropout_ms": drop_ms, "pair_ms": pair_ms,
+               "plain_ms_is": "the plain backward (dq, dk, dv together)"}
+        recs.append(rec)
+        print(f"[kernel] {name}: {shape}: scaled err {err:.3g}; {ms:.4f} ms "
+              f"(dropout 0.1: {drop_ms:.4f} ms; plain backward {plain_ms:.3f} "
+              f"ms, bound {b_ms:.4f} ms by {b_by}, {lib} {lib_bwd_ms:.4f} ms)",
+              flush=True)
+    fwd = {"shape": shape, "ms": fwd_ms, "dropout_ms": fwd_drop_ms,
+           "paper_ms": fwd_paper_ms, "plain_ms": fwd_plain_ms,
+           "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+           "library_ms": lib_fwd_ms, "dropout_max_abs_err": d_o_err,
+           "paper_max_abs_err": p_err, "bwd_pair_ms": pair_ms,
+           "dropout_grad_errs": derrs}
+    print(f"[kernel] flash_fwd at the train shape: {fwd_ms:.4f} ms, dropout "
+          f"0.1 {fwd_drop_ms:.4f} ms, paper {fwd_paper_ms:.4f} ms (plain "
+          f"{fwd_plain_ms:.3f} ms, bound {fwd_bound[0]:.4f} ms by "
+          f"{fwd_bound[1]}, SDPA forward {lib_fwd_ms:.4f} ms); backward pair "
+          f"{pair_ms:.4f} ms", flush=True)
+    return recs, fwd
 
 
 # ---------------------------------------------------------------------------
@@ -375,6 +588,10 @@ def read_launches() -> dict:
     return {**fa.LAUNCHES, **fd.LAUNCHES}
 
 
+SERVE_KERNELS = ("flash_fwd", "flash_fwd_paged", "flash_decode_paged")
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
 def serve_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
@@ -424,8 +641,9 @@ def serve_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     check(len(done) == len(prompts) and all(len(r.output) == 32 for r in done),
           "serve phase did not finish every request")
     check(eng.prefix_hits >= 1, "serve phase had no prefix-cache hit")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was never launched in the serve phase")
+    for name in SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was never launched in the serve phase")
     profile = profile_serve(torch, model, params, prompts, kw)
     rec = {"model": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
            "requests": len(done), "lanes": 4, "new_tokens": n_tok,
@@ -441,6 +659,11 @@ def serve_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
           f"{peak / 2**30:.2f} GiB, prefix hits {eng.prefix_hits}, "
           f"launches {launches} [{card}]", flush=True)
     return rec, launches
+
+
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", None) or \
+        getattr(e, "self_cuda_time_total", 0.0)
 
 
 def profile_serve(torch, model, params, prompts, kw) -> dict:
@@ -466,32 +689,28 @@ def profile_serve(torch, model, params, prompts, kw) -> dict:
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or \
-            getattr(e, "self_cuda_time_total", 0.0)
-
-    busy_us = sum(dev_us(e) for e in kernels)
+    busy_us = sum(_device_us(e) for e in kernels)
     if busy_us <= 0:
         print("[profile] the profiler recorded no device time: not measured",
               flush=True)
         return {"busy_share": None}
-    ported = {"flash_fwd": ("flash_fwd_kernel", "false>"),
-              "flash_fwd_paged": ("flash_fwd_kernel", "true>"),
-              "flash_decode_paged": ("flash_decode_paged_kernel", "")}
+    # flash_fwd_kernel<T, D, Paged, Dropout, Paper>: Paged tells them apart
+    ported = {"flash_fwd": r"flash_fwd_kernel<[^,>]+, \d+, false",
+              "flash_fwd_paged": r"flash_fwd_kernel<[^,>]+, \d+, true",
+              "flash_decode_paged": r"flash_decode_paged_kernel<"}
     per_kernel = {}
-    for name, (stem, tag) in ported.items():
-        hits = [e for e in kernels if stem in e.key and tag in e.key]
+    for name, pattern in ported.items():
+        hits = [e for e in kernels if re.search(pattern, e.key)]
         n = sum(e.count for e in hits)
         per_kernel[name] = {
-            "launches": n, "device_ms_total": sum(dev_us(e) for e in hits) / 1e3,
-            "device_ms_per_launch": (sum(dev_us(e) for e in hits) / 1e3 / n
+            "launches": n, "device_ms_total": sum(_device_us(e) for e in hits) / 1e3,
+            "device_ms_per_launch": (sum(_device_us(e) for e in hits) / 1e3 / n
                                      if n else None)}
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
     out = {"wall_s": wall_us / 1e6, "device_busy_s": busy_us / 1e6,
            "busy_share": busy_us / wall_us, "ported": per_kernel,
            "top": [{"kernel": e.key[:90], "count": e.count,
-                    "device_ms": dev_us(e) / 1e3} for e in top]}
+                    "device_ms": _device_us(e) / 1e3} for e in top]}
     print(f"[profile] serve under torch.profiler: wall {wall_us / 1e6:.2f}s, "
           f"device busy {busy_us / 1e6:.3f}s ({busy_us / wall_us:.1%}); "
           f"ported kernels {json.dumps(per_kernel)}", flush=True)
@@ -502,10 +721,202 @@ def profile_serve(torch, model, params, prompts, kw) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: float32 train parity, cuda (kernels) vs cpu (plain versions)
+# ---------------------------------------------------------------------------
+
+def _grads(torch, model, params, batch):
+    """(loss, grads) of one batch, grads in the params' tree layout."""
+    from repro_torch.core.tree import tree_leaves, with_leaves
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss, _ = model.loss(with_leaves(params, leaves), batch,
+                         deterministic=True)
+    return float(loss.detach()), with_leaves(
+        params, torch.autograd.grad(loss, leaves))
+
+
+def train_parity_phase(torch, seed: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model, params_to
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("granite-3-2b"), num_layers=2,
+                              dtype="float32", attn_impl="pallas")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(seed), device="cpu")
+    data = SyntheticLM(cfg.vocab_size, 512, 2, seed=seed + 3)
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        p = params_to(params, device)
+        _, g = _grads(torch, model, p, data.batch_at(0))
+        g0 = {n: g["blocks"][0]["attn"][n].cpu() for n in ("wq", "wk", "wv")}
+        del g
+        opt = adamw(warmup_cosine(3e-4, 20, 2))
+        state = opt.init(p)
+        step = make_train_step(model, opt, clip_norm=1.0, deterministic=True)
+        losses = []
+        for s in range(2):
+            p, state, metrics = step(p, state, data.batch_at(s))
+            losses.append(float(metrics["loss"]))
+        out[device] = {"losses": losses, "grads": g0}
+        del p, state
+        print(f"[train-parity] {device}: losses {losses} in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(out["cuda"]["losses"],
+                                               out["cpu"]["losses"])]
+    gerr = {n: scaled_err(out["cuda"]["grads"][n], out["cpu"]["grads"][n])
+            for n in ("wq", "wk", "wv")}
+    print(f"[train-parity] loss relative differences {rel}; layer-0 "
+          f"scaled grad differences {gerr}", flush=True)
+    check(max(rel) <= 1e-4, f"train parity: losses differ by {rel} > 1e-4")
+    check(max(gerr.values()) <= 1e-3,
+          f"train parity: layer-0 grads differ by {gerr} > 1e-3")
+    return {"losses_cuda": out["cuda"]["losses"],
+            "losses_cpu": out["cpu"]["losses"], "loss_rel_diff": rel,
+            "grad_scaled_diff": gerr}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the published model, trained through the kernels
+# ---------------------------------------------------------------------------
+
+def train_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
+    from repro_torch.launch import train as launch_train
+
+    dev = torch.device("cuda")
+    steps, seq, batch = 6, 2048, 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    trainer = launch_train.main([
+        "--arch", "granite-3-2b", "--device", "cuda", "--seed", str(seed),
+        "--steps", str(steps), "--seq", str(seq), "--batch", str(batch),
+        "--ckpt-every", "1000000",
+        "--ckpt-dir", str(ROOT / "build" / "chip_smoke_train_ckpt")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist = trainer.history
+    for name in TRAIN_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was never launched in the train phase")
+    check(len(hist) == steps, f"train phase ran {len(hist)} of {steps} steps")
+    for rec in hist:
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+              f"train step {rec['step']}: loss {rec['loss']} grad norm "
+              f"{rec['grad_norm']}")
+    timed = [r["step_time_s"] for r in hist[1:]]    # step 1 compiles, warms up
+    ms_step = sum(timed) / len(timed) * 1e3
+    tok_s = seq * batch / (ms_step / 1e3)
+    per_step = {n: launches[n] / steps for n in TRAIN_KERNELS}
+    print(f"[train] granite-3-2b 40 layers bf16 remat, seq {seq} batch {batch}: "
+          f"first loss {hist[0]['loss']:.4f} (ln 49155 = {math.log(49155):.4f}), "
+          f"last {hist[-1]['loss']:.4f}; {ms_step:.1f} ms/step, {tok_s:.0f} "
+          f"tokens/s over steps 2-{steps}; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {launches} ({per_step} a step) [{card}]", flush=True)
+    profile = profile_train(torch, trainer)
+    rec = {"model": "granite-3-2b", "layers": 40, "dtype": "bfloat16",
+           "remat": True, "seq": seq, "batch": batch, "steps": steps,
+           "losses": [r["loss"] for r in hist],
+           "grad_norms": [r["grad_norm"] for r in hist],
+           "step_ms": [r["step_time_s"] * 1e3 for r in hist],
+           "ms_per_step": ms_step, "tokens_per_s": tok_s, "wall_s": wall,
+           "peak_memory_bytes": peak, "launches_per_step": per_step,
+           "profile": profile, "card": card}
+    return rec, launches
+
+
+def profile_train(torch, trainer) -> dict:
+    """One more train step under ``torch.profiler`` (not counted in the
+    numbers above): device busy share of its wall time and the kernels
+    that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b = trainer.batch_fn(trainer.step)              # the next batch of the run
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.params, trainer.opt_state, metrics = trainer.step_fn(
+            trainer.params, trainer.opt_state, b)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(_device_us(e) for e in kernels)
+    if busy_us <= 0:
+        print("[profile] the profiler recorded no device time: not measured",
+              flush=True)
+        return {"busy_share": None}
+    top = sorted(kernels, key=_device_us, reverse=True)[:10]
+    out = {"wall_s": wall_us / 1e6, "device_busy_s": busy_us / 1e6,
+           "busy_share": busy_us / wall_us,
+           "top": [{"kernel": e.key[:90], "count": e.count,
+                    "device_ms": _device_us(e) / 1e3} for e in top]}
+    print(f"[profile] one train step under torch.profiler: wall "
+          f"{wall_us / 1e6:.3f}s, device busy {busy_us / 1e6:.3f}s "
+          f"({busy_us / wall_us:.1%})", flush=True)
+    for t in out["top"]:
+        print(f"[profile]   {t['device_ms']:9.2f} ms  x{t['count']:<6} "
+              f"{t['kernel']}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# --ab: parent against change on the serving path, in one call
+# ---------------------------------------------------------------------------
+
+_AB_RUN = """
+import json, sys
+sys.path[:0] = [{src!r}, {root!r}]
+import torch
+import chip_smoke as cs
+from repro_torch.kernels import build
+build.build_all()
+kernels = cs.kernel_phase(torch, {seed})
+cs.profile_serve = lambda *a, **k: {{}}
+serve, _ = cs.serve_phase(torch, {seed}, cs.card_line())
+print("AB " + json.dumps({{
+    "kernels": {{r["name"]: r["ms"] for r in kernels}},
+    "serve": {{n: serve[n] for n in ("tokens_per_s", "ttft_p50_s",
+                                     "tok_latency_p50_s", "wall_s")}}}}))
+"""
+
+
+def ab_main(parent: pathlib.Path, seed: int) -> int:
+    card = card_line()
+    print(card, flush=True)
+    runs = {"parent": [], "change": []}
+    for tag in ("parent", "change", "change", "parent"):
+        root = parent if tag == "parent" else ROOT
+        code = _AB_RUN.format(src=str(root / "src"), root=str(root), seed=seed)
+        out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        line = [x for x in out.stdout.splitlines() if x.startswith("AB ")]
+        check(out.returncode == 0 and len(line) == 1,
+              f"A/B run of {tag} failed: {out.stderr[-2000:]}")
+        runs[tag].append(json.loads(line[0][3:]))
+        print(f"[ab] {tag}: {line[0][3:]}", flush=True)
+    print(json.dumps({"ab": runs, "card": card}))
+    return 0
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ab", type=pathlib.Path, default=None,
+                    metavar="PARENT_CHECKOUT",
+                    help="only A/B the serving path against that checkout")
     args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
         print("chip_smoke: src/repro_torch is not beside this script; run it "
@@ -517,6 +928,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test runs only on a CUDA card", file=sys.stderr)
         return 3
+    if args.ab is not None:
+        return ab_main(args.ab.resolve(), args.seed)
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -531,17 +944,28 @@ def main() -> int:
           flush=True)
 
     kernels = kernel_phase(torch, args.seed)
+    bwd_kernels, fwd_train = train_kernel_phase(torch, args.seed)
+    kernels[0]["at_train_shape"] = fwd_train
+    kernels += bwd_kernels
+    torch.cuda.empty_cache()
     parity = parity_phase(torch, args.seed)
-    serve, launches = serve_phase(torch, args.seed, card)
+    serve, serve_launches = serve_phase(torch, args.seed, card)
+    torch.cuda.empty_cache()
+    train_parity = train_parity_phase(torch, args.seed)
+    train, train_launches = train_phase(torch, args.seed, card)
     for rec in kernels:
-        rec["launches"] = launches[rec["name"]]
+        by_path = {"serve": serve_launches[rec["name"]],
+                   "train": train_launches[rec["name"]]}
+        rec["launches"] = sum(by_path.values())
+        rec["launches_by_path"] = by_path
 
     record = {"card": card, "build_s": build_s, "kernels": kernels,
-              "parity": parity, "serve": serve,
-              "total_s": time.perf_counter() - t_start}
+              "parity": parity, "serve": serve, "train_parity": train_parity,
+              "train": train, "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    print(f"[done] total {record['total_s']:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

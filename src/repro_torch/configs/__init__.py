@@ -36,6 +36,7 @@ def reduced_config(name: str, **overrides) -> ModelConfig:
         d_ff=128,
         vocab_size=256,
         dtype="float32",
+        remat=False,
     )
     small.update(overrides)
     return dataclasses.replace(cfg, **small)

@@ -2,11 +2,12 @@
 part of ``repro.configs.base``): pre-norm blocks with RMSNorm (eps 1e-5),
 RoPE, grouped-query attention, a SwiGLU MLP and a tied embedding head.
 
-Defaults match the JAX package, including ``attn_impl="chunked"`` and
-``use_decode_kernel=False``: with them the serving path reaches no
-kernel. The launcher and ``chip_smoke.py`` set ``attn_impl="pallas"`` and
-``use_decode_kernel=True`` so that on the card the path runs through the
-hand-written CUDA kernels.
+Defaults match the JAX package, including ``attn_impl="chunked"``,
+``use_decode_kernel=False`` and ``remat=True``: with the first two the
+serving and training paths reach no kernel. The launchers and
+``chip_smoke.py`` set ``attn_impl="pallas"`` (and ``use_decode_kernel=True``
+for serving) so that on the card the paths run through the hand-written
+CUDA kernels.
 """
 
 from __future__ import annotations
@@ -28,10 +29,16 @@ class ModelConfig:
     head_dim: int = 0                   # 0 -> d_model // num_heads
     rope_theta: float = 10_000.0
     attn_impl: str = "chunked"          # dispatch (see core.attention)
+    causal: bool = True
+    attn_dropout: float = 0.0
+    # kernel tile geometry: None = auto (kernels.tuning)
+    attn_block_q: int | None = None
+    attn_block_k: int | None = None
     use_decode_kernel: bool = False     # split-KV paged decode kernel;
                                         # False = plain masked-softmax path
     num_decode_splits: int | None = None  # None = auto (kernels.tuning)
     dtype: str = "bfloat16"
+    remat: bool = True                  # activation checkpoint each block
 
     def __post_init__(self):
         if self.head_dim == 0:

@@ -11,6 +11,11 @@
                     package.
   * ``reference`` — Algorithm 0 (materializes S/P).
 
+``attention`` takes the JAX signature's ``dropout_seed`` and
+``deterministic``: attention dropout (``AttentionSpec.dropout_p``) runs
+only when ``deterministic`` is False, on ``pallas`` and ``reference``;
+``chunked`` raises on it, as in the JAX package.
+
 ``decode_attention`` is the single-token path against a contiguous cache
 (plain masked softmax; the contiguous split-KV kernel is not ported yet).
 ``paged_prefill_attention`` / ``paged_decode_attention`` attend the shared
@@ -35,11 +40,16 @@ AttnImpl = Literal["pallas", "chunked", "reference"]
 
 @dataclasses.dataclass(frozen=True)
 class AttentionSpec:
-    """Static attention configuration carried by model configs. Tiles come
-    from ``kernels.tuning``; ``num_decode_splits`` None = auto."""
+    """Static attention configuration carried by model configs. Tiles
+    ``block_q``/``block_k`` None come from ``kernels.tuning``;
+    ``num_decode_splits`` None = auto."""
     impl: AttnImpl = "chunked"
     causal: bool = True
     window: int | None = None
+    dropout_p: float = 0.0
+    block_q: int | None = None
+    block_k: int | None = None
+    variant: str = "fa2"            # pallas accumulator variant: "paper"|"fa2"
     num_decode_splits: int | None = None
     use_decode_kernel: bool = False
 
@@ -54,22 +64,30 @@ def attention(
     kv_segment_ids: torch.Tensor | None = None,
     q_positions: torch.Tensor | None = None,
     kv_positions: torch.Tensor | None = None,
+    dropout_seed=0,
+    deterministic: bool = True,
     q_offset: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
     """(b, hq, sq, d) x (b, hkv, sk, d)^2 -> (b, hq, sq, d); every impl
-    evaluates the same fused mask. Attention dropout comes with the
-    training slice."""
+    evaluates the same fused mask."""
+    dropout_p = 0.0 if deterministic else spec.dropout_p
     common = dict(causal=spec.causal, window=spec.window, kv_mask=kv_mask,
                   segment_ids=segment_ids, q_segment_ids=q_segment_ids,
                   kv_segment_ids=kv_segment_ids, q_positions=q_positions,
                   kv_positions=kv_positions, scale=scale, q_offset=q_offset)
     if spec.impl == "pallas":
-        return kops.flash_attention(q, k, v, **common)
+        return kops.flash_attention(
+            q, k, v, dropout_p=dropout_p, dropout_seed=dropout_seed,
+            block_q=spec.block_q, block_k=spec.block_k, variant=spec.variant,
+            **common)
     if spec.impl == "chunked":
+        if dropout_p > 0.0:
+            raise ValueError("attention dropout requires impl='pallas'")
         return kref.chunked_attention(q, k, v, **common)
     if spec.impl == "reference":
-        return kref.standard_attention(q, k, v, **common)
+        return kref.standard_attention(
+            q, k, v, dropout_p=dropout_p, dropout_seed=dropout_seed, **common)
     raise ValueError(f"unknown attention impl {spec.impl!r}")
 
 

@@ -204,6 +204,14 @@ def resolve_segment_ids(segment_ids, q_segment_ids, kv_segment_ids,
     return q_segment_ids, kv_segment_ids
 
 
+def segment_ids_from_boundaries(boundary: np.ndarray) -> np.ndarray:
+    """(b, s) boolean new-document flags -> (b, s) int32 segment ids.
+    boundary[i] = True marks position i as the FIRST token of a new packed
+    document; ids count up from 0 within each row (numpy, as the data
+    pipeline builds its batches in numpy)."""
+    return np.cumsum(np.asarray(boundary, np.int64), axis=-1).astype(np.int32)
+
+
 def segment_relative_positions(segment_ids: torch.Tensor) -> torch.Tensor:
     """(b, s) segment ids -> (b, s) within-segment token positions (RoPE
     restarts at every packed-document boundary). Boundaries are detected by

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by one ``nvcc`` into
 ``<repo>/build/kernels/<name>-<hash>.so`` at first use, where ``<hash>``
-is a digest of the source, so an edited kernel is rebuilt and a stale
-library is never loaded. ``build_all()`` starts one nvcc per source at
+is a digest of the source, of every shared header ``csrc/*.cuh`` it may
+include and of the flags, so an edited kernel or header is rebuilt and a
+stale library is never loaded. ``build_all()`` starts one nvcc per source at
 once and waits for all of them (the build counts against every caller's
 time budget). A failed build raises with nvcc's output; there is no
 fallback.
@@ -24,7 +25,7 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
-SOURCES = ("flash_fwd", "flash_decode")
+SOURCES = ("flash_fwd", "flash_decode", "flash_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -42,9 +43,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=SOURCES) -> dict[str, pathlib.Path]:

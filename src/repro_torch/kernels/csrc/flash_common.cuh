@@ -1,0 +1,159 @@
+// Shared pieces of the FlashAttention kernels (flash_fwd.cu, flash_bwd.cu):
+// the compiled block-layout classes, the fused element mask, and the
+// counter-based dropout hash. One definition, so the forward and the two
+// backward kernels cannot drift apart.
+//
+//   * layout classes and the per-tile choice of mask terms follow
+//     src/repro/kernels/flash_attention.py:_layout_branches: SKIP tiles run
+//     nothing, FULL tiles run unmasked, PARTIAL tiles apply every term of
+//     the fused mask, PARTIAL_DATA tiles only its data terms; a call with
+//     no term at all runs every non-SKIP tile unmasked.
+//   * the element mask is core/masks.element_mask: causal q_pos >= k_pos,
+//     window q_pos - k_pos < window (implies causal), kv_valid_len on the
+//     buffer column, kv_mask, and q_seg == kv_seg.
+//   * dropout is kernels/ref.dropout_keep_mask (the JAX package's
+//     _dropout_keep): idx = ((b*H + h)*q_len + q)*k_len + k in wrapping
+//     uint32, keep = mix32(idx ^ mix32(seed)) >= threshold, over BUFFER
+//     coordinates with the unpadded (q_len, k_len) as strides.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace flash {
+
+constexpr float NEG_INF = -1e30f;
+constexpr int BLOCK_SKIP = 0;
+constexpr int BLOCK_FULL = 1;
+constexpr int BLOCK_PARTIAL = 2;
+constexpr int BLOCK_PARTIAL_DATA = 3;
+
+constexpr int NUM_WARPS = 8;
+constexpr int THREADS = NUM_WARPS * 32;
+constexpr int MAX_BQ = 64;
+constexpr int MAX_BK = 64;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The compiled layout and the mask operands of one call. A kernel copies
+// it (and DropoutParams) out of its parameter struct by value before use,
+// so the member functions below work on registers, not on the parameter.
+struct MaskParams {
+  const int32_t* layout;      // (nq, nk) or (b, nq, nk)
+  long long layout_b_stride;  // 0 for a static (nq, nk) layout
+  const uint8_t* kv_mask;     // (b, sk) or null
+  const int32_t* q_seg;       // (b, sq) or null
+  const int32_t* kv_seg;      // (b, sk) or null
+  const int32_t* q_pos;       // (b, sq) or null
+  const int32_t* kv_pos;      // (b, sk) or null
+  int nq, nk;
+  int causal, window, q_offset, kv_valid_len;  // window / kv_valid_len < 0: none
+
+  __device__ __forceinline__ bool has_geo() const { return causal || window >= 0; }
+  __device__ __forceinline__ bool has_data() const {
+    return kv_valid_len >= 0 || kv_mask != nullptr || q_seg != nullptr;
+  }
+  // the class of tile (qi, ki); read before any address of the tile is formed
+  __device__ __forceinline__ int block_class(int b, int qi, int ki) const {
+    return layout[(long long)b * layout_b_stride + (long long)qi * nk + ki];
+  }
+  // which terms tile class `blk` applies; false = the tile does not run
+  __device__ __forceinline__ bool tile_terms(int blk, bool& geo_on, bool& data_on) const {
+    if (blk == BLOCK_SKIP) return false;
+    const bool geo = has_geo(), data = has_data();
+    if (!geo && !data) {            // maskless call: every non-SKIP tile unmasked
+      geo_on = data_on = false;
+      return true;
+    }
+    if (blk == BLOCK_FULL) {
+      geo_on = data_on = false;
+      return true;
+    }
+    if (blk == BLOCK_PARTIAL) {
+      geo_on = geo;
+      data_on = data;
+      return true;
+    }
+    if (blk == BLOCK_PARTIAL_DATA && data) {
+      geo_on = false;
+      data_on = true;
+      return true;
+    }
+    return false;                   // no branch runs (as the Pallas kernels)
+  }
+  // logical position and segment of buffer row `row` of sequence b
+  __device__ __forceinline__ int q_position(int b, int sq, int row) const {
+    return q_pos != nullptr ? q_pos[(long long)b * sq + row] : row + q_offset;
+  }
+  __device__ __forceinline__ int q_segment(int b, int sq, int row) const {
+    return q_seg != nullptr ? q_seg[(long long)b * sq + row] : 0;
+  }
+  // the fused element mask for buffer column `col` (kv_row = b * sk + col)
+  __device__ __forceinline__ bool element_ok(bool geo_on, bool data_on, int qpos, int qseg,
+                                             long long kv_row, int col) const {
+    bool ok = true;
+    if (geo_on) {
+      const int kp = kv_pos != nullptr ? kv_pos[kv_row] : col;
+      ok = qpos >= kp;
+      if (window >= 0) ok = ok && (qpos - kp < window);
+    }
+    if (data_on) {
+      if (kv_valid_len >= 0) ok = ok && (col < kv_valid_len);
+      if (kv_mask != nullptr) ok = ok && (kv_mask[kv_row] != 0);
+      if (q_seg != nullptr) ok = ok && (qseg == kv_seg[kv_row]);
+    }
+    return ok;
+  }
+};
+
+__host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+struct DropoutParams {
+  int on;
+  uint32_t seed_mix;    // mix32(seed)
+  uint32_t threshold;   // uint32(int(p * (2^32 - 1))), computed by the caller
+  float keep;           // 1 - p
+  uint32_t num_heads, q_len, k_len;
+
+  __device__ __forceinline__ bool keeps(int b, int h, int row, int col) const {
+    uint32_t idx = ((uint32_t)b * num_heads + (uint32_t)h) * q_len + (uint32_t)row;
+    idx = idx * k_len + (uint32_t)col;
+    return mix32(idx ^ seed_mix) >= threshold;
+  }
+};
+
+inline DropoutParams make_dropout(int on, unsigned seed, unsigned threshold, float keep,
+                                  int num_heads, int q_len, int k_len) {
+  DropoutParams d;
+  d.on = on;
+  d.seed_mix = mix32(seed);
+  d.threshold = threshold;
+  d.keep = keep;
+  d.num_heads = (uint32_t)num_heads;
+  d.q_len = (uint32_t)q_len;
+  d.k_len = (uint32_t)k_len;
+  return d;
+}
+
+}  // namespace flash

@@ -1,4 +1,5 @@
-// FlashAttention forward (paper Alg. 1, FA-2 accumulator) for Hopper, sm_90a.
+// FlashAttention forward (paper Alg. 1; FA-2 or "paper" accumulator, optional
+// attention dropout) for Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` as launched by
 //   * src/repro/kernels/flash_attention.py:flash_attention_forward
@@ -33,40 +34,25 @@
 //     ceil(D/32) output dims. q is pre-scaled by the caller, exactly as
 //     the Pallas wrapper does.
 //   * outputs o (input dtype), m and l (fp32) exactly as the Pallas kernel:
-//     rows with no unmasked key give o = 0, l = 0, m = NEG_INF.
+//     rows with no unmasked key give o = 0, l = 0, m = NEG_INF. m and l are
+//     those of the UNDROPPED P (the backward recomputes P from them).
+//   * variant "paper" (Alg. 1 line 12) renormalizes the accumulator at every
+//     tile: acc = (acc * l_prev * corr + P~V) / l_new; "fa2" keeps it
+//     unnormalized and divides once at the end.
+//   * dropout (contiguous K/V only, as in the JAX package) multiplies P by
+//     the hash keep mask of flash_common.cuh / (1 - p) before P.V, over the
+//     buffer coordinates (b, h, qi*bq + r, ki*bk + c).
+// The layout read, the element mask and the hash live in flash_common.cuh,
+// shared with the backward kernels (flash_bwd.cu).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int BLOCK_SKIP = 0;
-constexpr int BLOCK_FULL = 1;
-constexpr int BLOCK_PARTIAL = 2;
-constexpr int BLOCK_PARTIAL_DATA = 3;
+using namespace flash;
 
-constexpr int NUM_WARPS = 8;
-constexpr int THREADS = NUM_WARPS * 32;
-constexpr int MAX_BQ = 64;
-constexpr int MAX_BK = 64;
 constexpr int ROWS = MAX_BQ / NUM_WARPS;   // q rows per warp
 constexpr int COLS = MAX_BK / 32;          // kv columns per lane
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 struct FwdParams {
   const void* q;            // (b, hq, sq, D), pre-scaled
@@ -75,19 +61,15 @@ struct FwdParams {
   void* o;                  // (b, hq, sq, D)
   float* m;                 // (b, hq, sq)
   float* l;                 // (b, hq, sq)
-  const int32_t* layout;    // (nq, nk) or (b, nq, nk)
-  long long layout_b_stride;  // 0 for a static (nq, nk) layout
-  const uint8_t* kv_mask;   // (b, sk) or null
-  const int32_t* q_seg;     // (b, sq) or null
-  const int32_t* kv_seg;    // (b, sk) or null
-  const int32_t* q_pos;     // (b, sq) or null
-  const int32_t* kv_pos;    // (b, sk) or null
   const int32_t* page_list; // (b, nk) paged only
-  int b, hq, hkv, sq, sk, nq, nk, block_q, block_k, num_pages;
-  int causal, window, q_offset, kv_valid_len;  // window / kv_valid_len < 0: none
+  MaskParams mask;
+  DropoutParams drop;
+  int b, hq, hkv, sq, sk, nq, nk, block_q, block_k, num_pages, paper;
 };
 
-template <typename T, int D, bool Paged>
+// Dropout and Paper are compile-time, so the serving instantiations (no
+// dropout, fa2) carry none of the training variants' code or registers.
+template <typename T, int D, bool Paged, bool Dropout, bool Paper>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   constexpr int DPL = (D + 31) / 32;        // output dims per lane
   extern __shared__ float smem[];
@@ -100,49 +82,35 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (p.hq / p.hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bool has_geo = p.causal || p.window >= 0;
-  const bool has_data = p.kv_valid_len >= 0 || p.kv_mask != nullptr || p.q_seg != nullptr;
+  const MaskParams mp = p.mask;           // by value: see flash_common.cuh
+  const DropoutParams drop = p.drop;
 
   const long long q_row0 = ((long long)b * p.hq + h) * p.sq + (long long)qi * bq;
   const T* qg = static_cast<const T*>(p.q) + q_row0 * D;
   for (int i = tid; i < bq * D; i += THREADS) q_s[i] = to_f32(qg[i]);
 
-  float m_r[ROWS], l_r[ROWS], acc[ROWS][DPL];
+  float m_r[ROWS], l_r[ROWS], div_r[ROWS], acc[ROWS][DPL];
   int qpos_r[ROWS], qseg_r[ROWS];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     m_r[i] = NEG_INF;
     l_r[i] = 0.f;
+    div_r[i] = 1.f;
 #pragma unroll
     for (int j = 0; j < DPL; ++j) acc[i][j] = 0.f;
     const int r = warp * ROWS + i;
-    const long long row = (long long)b * p.sq + (long long)qi * bq + r;
-    qpos_r[i] = (p.q_pos != nullptr && r < bq) ? p.q_pos[row] : (qi * bq + r + p.q_offset);
-    qseg_r[i] = (p.q_seg != nullptr && r < bq) ? p.q_seg[row] : 0;
+    const int row = qi * bq + (r < bq ? r : 0);
+    qpos_r[i] = mp.q_position(b, p.sq, row);
+    qseg_r[i] = mp.q_segment(b, p.sq, row);
   }
 
   const T* kg = static_cast<const T*>(p.k);
   const T* vg = static_cast<const T*>(p.v);
-  const int32_t* lay = p.layout + (long long)b * p.layout_b_stride + (long long)qi * p.nk;
 
   for (int ki = 0; ki < p.nk; ++ki) {
     // the tile's class is read before any address of it is formed
-    const int blk = lay[ki];
-    if (blk == BLOCK_SKIP) continue;
     bool geo_on, data_on;
-    if (!has_geo && !has_data) {
-      geo_on = data_on = false;           // maskless call: run unmasked
-    } else if (blk == BLOCK_FULL) {
-      geo_on = data_on = false;
-    } else if (blk == BLOCK_PARTIAL) {
-      geo_on = has_geo;
-      data_on = has_data;
-    } else if (blk == BLOCK_PARTIAL_DATA && has_data) {
-      geo_on = false;
-      data_on = true;
-    } else {
-      continue;                           // no branch runs (as the Pallas kernel)
-    }
+    if (!mp.tile_terms(mp.block_class(b, qi, ki), geo_on, data_on)) continue;
 
     long long kv_off;
     if (Paged) {
@@ -175,18 +143,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
           const float* kr = k_s + c * (D + 1);
 #pragma unroll 16
           for (int dd = 0; dd < D; ++dd) dot = fmaf(qr[dd], kr[dd], dot);
-          bool ok = true;
-          if (geo_on) {
-            const int qp = qpos_r[i];
-            const int kp = (p.kv_pos != nullptr) ? p.kv_pos[kv_row0 + c] : ki * bk + c;
-            ok = ok && (qp >= kp);
-            if (p.window >= 0) ok = ok && (qp - kp < p.window);
-          }
-          if (data_on) {
-            if (p.kv_valid_len >= 0) ok = ok && (ki * bk + c < p.kv_valid_len);
-            if (p.kv_mask != nullptr) ok = ok && (p.kv_mask[kv_row0 + c] != 0);
-            if (p.q_seg != nullptr) ok = ok && (qseg_r[i] == p.kv_seg[kv_row0 + c]);
-          }
+          const bool ok = mp.element_ok(geo_on, data_on, qpos_r[i], qseg_r[i],
+                                        kv_row0 + c, ki * bk + c);
           s[cc] = ok ? dot : NEG_INF;
         }
       }
@@ -200,16 +158,25 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
 #pragma unroll
       for (int cc = 0; cc < COLS; ++cc) {
         const int c = lane + 32 * cc;
-        const float pv = (s[cc] <= NEG_INF / 2) ? 0.f : expf(s[cc] - m_new);
-        psum += pv;
-        if (c < bk) p_s[r * bk + c] = pv;
+        float pv = (s[cc] <= NEG_INF / 2) ? 0.f : expf(s[cc] - m_new);
+        psum += pv;                       // l sums the undropped P
+        if (c < bk) {
+          if (Dropout) {
+            pv = drop.keeps(b, h, qi * bq + r, ki * bk + c) ? pv / drop.keep : 0.f;
+          }
+          p_s[r * bk + c] = pv;
+        }
       }
       psum = warp_sum(psum);
       const float corr = (m_prev <= NEG_INF / 2) ? 0.f : expf(m_prev - m_new);
-      l_r[i] = l_r[i] * corr + psum;
+      const float l_prev = l_r[i];
+      const float l_new = l_prev * corr + psum;
+      l_r[i] = l_new;
       m_r[i] = m_new;
+      const float acc_scale = Paper ? l_prev * corr : corr;
+      div_r[i] = (l_new == 0.f) ? 1.f : l_new;
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) acc[i][j] *= corr;
+      for (int j = 0; j < DPL; ++j) acc[i][j] *= acc_scale;
     }
     __syncwarp();                         // this warp's P rows are visible
 #pragma unroll
@@ -226,6 +193,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
           if (d < D) acc[i][j] = fmaf(pc, vr[d], acc[i][j]);
         }
       }
+      if (Paper) {
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) acc[i][j] /= div_r[i];
+      }
     }
   }
 
@@ -235,7 +206,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
     const int r = warp * ROWS + i;
     if (r >= bq) break;
     const float l = l_r[i];
-    const float inv = 1.f / (l == 0.f ? 1.f : l);
+    const float inv = Paper ? 1.f : 1.f / (l == 0.f ? 1.f : l);
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
       const int d = lane + 32 * j;
@@ -248,11 +219,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const FwdParams p) {
   }
 }
 
-template <typename T, int D, bool Paged>
+template <typename T, int D, bool Paged, bool Dropout, bool Paper>
 cudaError_t launch(const FwdParams& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)p.block_q * D + (size_t)p.block_k * (D + 1) +
                                        (size_t)p.block_k * D + (size_t)p.block_q * p.block_k);
-  auto kern = flash_fwd_kernel<T, D, Paged>;
+  auto kern = flash_fwd_kernel<T, D, Paged, Dropout, Paper>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(p.nq, p.hq, p.b);
@@ -260,13 +231,25 @@ cudaError_t launch(const FwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, bool Paged>
-cudaError_t dispatch_d(const FwdParams& p, int head_dim, cudaStream_t stream) {
+// paged K/V never take dropout (as in the JAX package)
+template <typename T, int D>
+cudaError_t dispatch_variant(const FwdParams& p, bool paged, cudaStream_t s) {
+  if (paged) {
+    return p.paper ? launch<T, D, true, false, true>(p, s) : launch<T, D, true, false, false>(p, s);
+  }
+  if (p.drop.on) {
+    return p.paper ? launch<T, D, false, true, true>(p, s) : launch<T, D, false, true, false>(p, s);
+  }
+  return p.paper ? launch<T, D, false, false, true>(p, s) : launch<T, D, false, false, false>(p, s);
+}
+
+template <typename T>
+cudaError_t dispatch_d(const FwdParams& p, bool paged, int head_dim, cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch<T, 16, Paged>(p, stream);
-    case 32: return launch<T, 32, Paged>(p, stream);
-    case 64: return launch<T, 64, Paged>(p, stream);
-    case 128: return launch<T, 128, Paged>(p, stream);
+    case 16: return dispatch_variant<T, 16>(p, paged, stream);
+    case 32: return dispatch_variant<T, 32>(p, paged, stream);
+    case 64: return dispatch_variant<T, 64>(p, paged, stream);
+    case 128: return dispatch_variant<T, 128>(p, paged, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -284,27 +267,34 @@ int flash_fwd(int dtype, int paged, int head_dim,
               const int32_t* q_pos, const int32_t* kv_pos, const int32_t* page_list,
               int b, int hq, int hkv, int sq, int sk, int nq, int nk,
               int block_q, int block_k, int num_pages,
-              int causal, int window, int q_offset, int kv_valid_len,
+              int causal, int window, int q_offset, int kv_valid_len, int paper,
+              int dropout_on, unsigned dropout_seed, unsigned dropout_threshold,
+              float dropout_keep, int dropout_q_len, int dropout_k_len,
               void* stream) {
-  if (block_q <= 0 || block_q > MAX_BQ || block_k <= 0 || block_k > MAX_BK) {
+  if (block_q <= 0 || block_q > MAX_BQ || block_k <= 0 || block_k > MAX_BK ||
+      (paged && dropout_on)) {
     return (int)cudaErrorInvalidValue;
   }
   FwdParams p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.m = m; p.l = l;
-  p.layout = layout; p.layout_b_stride = layout_b_stride;
-  p.kv_mask = kv_mask; p.q_seg = q_seg; p.kv_seg = kv_seg;
-  p.q_pos = q_pos; p.kv_pos = kv_pos; p.page_list = page_list;
+  p.page_list = page_list;
+  p.mask.layout = layout; p.mask.layout_b_stride = layout_b_stride;
+  p.mask.kv_mask = kv_mask; p.mask.q_seg = q_seg; p.mask.kv_seg = kv_seg;
+  p.mask.q_pos = q_pos; p.mask.kv_pos = kv_pos;
+  p.mask.nq = nq; p.mask.nk = nk;
+  p.mask.causal = causal; p.mask.window = window; p.mask.q_offset = q_offset;
+  p.mask.kv_valid_len = kv_valid_len;
+  p.drop = make_dropout(dropout_on, dropout_seed, dropout_threshold, dropout_keep, hq,
+                        dropout_q_len, dropout_k_len);
   p.b = b; p.hq = hq; p.hkv = hkv; p.sq = sq; p.sk = sk; p.nq = nq; p.nk = nk;
   p.block_q = block_q; p.block_k = block_k; p.num_pages = num_pages;
-  p.causal = causal; p.window = window; p.q_offset = q_offset;
-  p.kv_valid_len = kv_valid_len;
+  p.paper = paper;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = paged ? dispatch_d<float, true>(p, head_dim, s) : dispatch_d<float, false>(p, head_dim, s);
+    err = dispatch_d<float>(p, paged != 0, head_dim, s);
   } else if (dtype == 1) {
-    err = paged ? dispatch_d<__nv_bfloat16, true>(p, head_dim, s)
-                : dispatch_d<__nv_bfloat16, false>(p, head_dim, s);
+    err = dispatch_d<__nv_bfloat16>(p, paged != 0, head_dim, s);
   } else {
     err = cudaErrorInvalidValue;
   }

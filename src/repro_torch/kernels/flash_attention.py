@@ -1,37 +1,49 @@
-"""FlashAttention forward: hand-written Hopper kernel + its plain version
-(port of the forward half of ``repro.kernels.flash_attention``).
+"""FlashAttention forward and backward: hand-written Hopper kernels and
+their plain versions (port of ``repro.kernels.flash_attention``).
 
 ``flash_attention_forward`` (contiguous K/V) and
 ``flash_prefill_paged_forward`` (K/V read in place from page-pool pages
 through a page list) return ``(o, m, l)`` exactly as the Pallas kernels do:
 o in the input dtype, per-row max m and normalizer l in fp32, rows with no
-unmasked key at o = 0, l = 0, m = NEG_INF. Both take the COMPILED block
-layout (``core.masks.compile_block_layout``) as the single source of
-block-run truth and fold the softmax scale into q once, in q's dtype,
-before the kernel.
+unmasked key at o = 0, l = 0, m = NEG_INF. ``flash_attention_backward``
+returns ``(dq, dk, dv)`` with dk and dv summed over each GQA group. All of
+them take the COMPILED block layout (``core.masks.compile_block_layout``)
+as the single source of block-run truth and fold the softmax scale into q
+once, in q's dtype, before the kernel.
 
-On a CUDA tensor each wrapper launches ``csrc/flash_fwd.cu`` (built at
-first use, see ``kernels/build.py``) and counts the launch in
-``LAUNCHES``; on a CPU tensor it runs the plain version beside it, which
-computes the same function (layout included) densely in fp32. There is no
-fallback between the two. The backward kernels, dropout and the "paper"
-accumulator variant wait for the training slice.
+Attention dropout is the counter-based hash of ``kernels.ref``
+(``dropout_keep_mask``) over BUFFER coordinates (b, q-head, row, column)
+with the unpadded ``dropout_dims`` as strides, so the backward regenerates
+the forward's mask bit for bit. ``variant="paper"`` renormalizes the
+accumulator at every kv tile (Alg. 1 line 12); ``"fa2"`` divides once at
+the end. A dense plain version has no tile order, so both variants compute
+the same dense softmax there.
+
+On a CUDA tensor each wrapper launches ``csrc/flash_fwd.cu`` or
+``csrc/flash_bwd.cu`` (built at first use, see ``kernels/build.py``) and
+counts the launch in ``LAUNCHES``; on a CPU tensor it runs the plain
+version beside it, which computes the same function (layout included)
+densely in fp32. There is no fallback between the two.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.core import masks as M
 from repro_torch.core.masks import NEG_INF
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import gather_pages, repeat_kv
-from repro_torch.kernels.tuning import KERNEL_HEAD_DIMS, MAX_TILE
+from repro_torch.kernels.ref import (dropout_threshold, full_dropout_keep_mask,
+                                     gather_pages, repeat_kv)
+from repro_torch.kernels.tuning import (KERNEL_HEAD_DIMS, MAX_TILE,
+                                        SMEM_PER_BLOCK, bwd_smem_bytes)
 
 # launches of the CUDA kernel per wrapper (never counts plain-version calls)
-LAUNCHES = {"flash_fwd": 0, "flash_fwd_paged": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_fwd_paged": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -41,30 +53,52 @@ def _lib():
     if not getattr(lib, "_typed", False):
         c_int, c_p = ctypes.c_int, ctypes.c_void_p
         lib.flash_fwd.argtypes = ([c_int] * 3 + [c_p] * 7 + [ctypes.c_longlong]
-                                  + [c_p] * 6 + [c_int] * 14 + [c_p])
+                                  + [c_p] * 6 + [c_int] * 15 + _DROPOUT_ARGS
+                                  + [c_p])
         lib.flash_fwd.restype = c_int
         lib._typed = True
     return lib
+
+
+def _bwd_lib():
+    lib = build.load("flash_bwd")
+    if not getattr(lib, "_typed", False):
+        c_int, c_p = ctypes.c_int, ctypes.c_void_p
+        for fn in (lib.flash_bwd_dq, lib.flash_bwd_dkv):
+            fn.argtypes = ([c_int] * 2 + [c_p] * 10 + [ctypes.c_longlong]
+                           + [c_p] * 5 + [c_int] * 13 + _DROPOUT_ARGS
+                           + [ctypes.c_float, c_p])
+            fn.restype = c_int
+        lib._typed = True
+    return lib
+
+
+# (on, seed, threshold, keep probability, q_len and k_len strides)
+_DROPOUT_ARGS = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
+                 ctypes.c_int, ctypes.c_int]
 
 
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _check_common(q, dropout_p, variant):
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "attention dropout comes with the training slice")
+def _check_variant(variant):
     if variant not in ("fa2", "paper"):
         raise ValueError(f"unknown variant {variant!r}")
-    if q.is_cuda and variant != "fa2":
-        raise NotImplementedError(
-            "the CUDA forward implements the fa2 accumulator; variant="
-            "'paper' comes with the training slice")
+
+
+def _dropout_args(dropout_p, dropout_seed, dropout_dims, sq, sk):
+    """The kernels' dropout arguments: the uint32 threshold is computed in
+    Python (double precision) exactly as ``ref.dropout_threshold``."""
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
+    q_len, k_len = dropout_dims if dropout_dims is not None else (sq, sk)
+    return [int(dropout_p > 0.0), int(dropout_seed) & 0xFFFFFFFF,
+            dropout_threshold(dropout_p), 1.0 - dropout_p, q_len, k_len]
 
 
 # ---------------------------------------------------------------------------
-# plain version (the CPU path, and the reference on the card)
+# plain versions (the CPU path, and the reference on the card)
 # ---------------------------------------------------------------------------
 
 def _expand_layout(layout, block_q, block_k, sq, sk):
@@ -73,24 +107,12 @@ def _expand_layout(layout, block_q, block_k, sq, sk):
     return layout[..., qb[:, None], kb[None, :]]
 
 
-def flash_attention_forward_plain(
-    q, k, v, kv_mask, block_layout, *, scale, causal, window, q_offset,
-    kv_valid_len=None, dropout_p=0.0, block_q, block_k, variant="fa2",
-    q_segment_ids=None, kv_segment_ids=None, q_positions=None,
-    kv_positions=None,
-):
-    """Dense fp32 computation of exactly the kernel's function: the layout
+def _allowed(block_layout, kv_mask, *, b, sq, sk, dev, causal, window,
+             q_offset, kv_valid_len, block_q, block_k, q_segment_ids,
+             kv_segment_ids, q_positions, kv_positions):
+    """(…, sq, sk) bool: which (q, k) pairs the kernels score. The layout
     decides which tiles run (SKIP none, FULL unmasked, PARTIAL the fused
-    mask, PARTIAL_DATA its data terms), then one masked softmax."""
-    _check_common(q, dropout_p, variant)
-    b, hq, sq, d = q.shape
-    _, hkv, sk, _ = k.shape
-    dev = q.device
-    qs = (q * scale).float()
-    kf = repeat_kv(k, hq // hkv).float()
-    vf = repeat_kv(v, hq // hkv).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", qs, kf)
-
+    mask, PARTIAL_DATA its data terms); broadcastable to (b, h, sq, sk)."""
     if q_positions is not None:
         q_pos, k_pos = q_positions[:, :, None], kv_positions[:, None, :]
     else:
@@ -114,15 +136,97 @@ def flash_attention_forward_plain(
         allowed = ((blk == M.BLOCK_FULL)
                    | ((blk == M.BLOCK_PARTIAL) & full_ok)
                    | ((blk == M.BLOCK_PARTIAL_DATA) & data_ok))
-    if allowed.ndim == 3:
-        allowed = allowed[:, None]
+    return allowed[:, None] if allowed.ndim == 3 else allowed
+
+
+def _keep_scale(dropout_p, dropout_seed, dropout_dims, b, hq, sq, sk, dev):
+    """Z of the paper's Alg. 2: 1/(1-p) where the hash keeps an element, 0
+    where it drops it, over buffer coordinates with the unpadded strides."""
+    keep = full_dropout_keep_mask(dropout_seed, b, hq, sq, sk, dropout_p,
+                                  device=dev, strides=dropout_dims)
+    return torch.where(keep, 1.0 / (1.0 - dropout_p), 0.0)
+
+
+def flash_attention_forward_plain(
+    q, k, v, kv_mask, block_layout, *, scale, causal, window, q_offset,
+    kv_valid_len=None, dropout_p=0.0, dropout_seed=0, dropout_dims=None,
+    block_q, block_k, variant="fa2", q_segment_ids=None, kv_segment_ids=None,
+    q_positions=None, kv_positions=None,
+):
+    """Dense fp32 computation of exactly the kernel's function: one masked
+    softmax over the pairs the layout lets run, dropout on the normalized
+    P, and m, l of the undropped P."""
+    _check_variant(variant)
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    dev = q.device
+    qs = (q * scale).float()
+    kf = repeat_kv(k, hq // hkv).float()
+    vf = repeat_kv(v, hq // hkv).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qs, kf)
+    allowed = _allowed(
+        block_layout, kv_mask, b=b, sq=sq, sk=sk, dev=dev, causal=causal,
+        window=window, q_offset=q_offset, kv_valid_len=kv_valid_len,
+        block_q=block_q, block_k=block_k, q_segment_ids=q_segment_ids,
+        kv_segment_ids=kv_segment_ids, q_positions=q_positions,
+        kv_positions=kv_positions)
     s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1)
     p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s),
                     torch.exp(s - m[..., None]))
     l = p.sum(dim=-1)
+    if dropout_p > 0.0:
+        p = p * _keep_scale(dropout_p, dropout_seed, dropout_dims, b, hq, sq,
+                            sk, dev)
     o = (p @ vf) / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
     return o.to(q.dtype), m, l
+
+
+def flash_attention_backward_plain(
+    q, k, v, o, do, m, l, kv_mask, block_layout, *, scale, causal, window,
+    q_offset, kv_valid_len=None, dropout_p=0.0, dropout_seed=0,
+    dropout_dims=None, block_q, block_k, q_segment_ids=None,
+    kv_segment_ids=None, q_positions=None, kv_positions=None,
+):
+    """Dense fp32 backward (paper Alg. 4 with the same recompute as the
+    Pallas kernels): P from the saved (m, l) under the layout-allowed mask,
+    D = rowsum(dO∘O), dP = dO·Vᵀ∘Z, dS = P∘(dP − D), dq = scale·dS·K,
+    dK = dSᵀ·q′ (q′ = scale·q), dV = (P∘Z)ᵀ·dO, dK/dV summed per group."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    n_rep = hq // hkv
+    dev = q.device
+    qs = (q * scale).float()
+    kf = repeat_kv(k, n_rep).float()
+    vf = repeat_kv(v, n_rep).float()
+    dof = do.float()
+    dd = (dof * o.float()).sum(dim=-1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qs, kf)
+    allowed = _allowed(
+        block_layout, kv_mask, b=b, sq=sq, sk=sk, dev=dev, causal=causal,
+        window=window, q_offset=q_offset, kv_valid_len=kv_valid_len,
+        block_q=block_q, block_k=block_k, q_segment_ids=q_segment_ids,
+        kv_segment_ids=kv_segment_ids, q_positions=q_positions,
+        kv_positions=kv_positions)
+    s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
+    empty = l == 0.0
+    m_safe = torch.where(empty, torch.zeros_like(m), m)
+    l_safe = torch.where(empty, torch.ones_like(l), l)
+    p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s),
+                    torch.exp(s - m_safe[..., None])) / l_safe[..., None]
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    p_drop = p
+    if dropout_p > 0.0:
+        z = _keep_scale(dropout_p, dropout_seed, dropout_dims, b, hq, sq, sk,
+                        dev)
+        dp, p_drop = dp * z, p * z
+    ds = p * (dp - dd[..., None])
+    dq = (scale * (ds @ kf)).to(q.dtype)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qs)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_drop, dof)
+    dk = dk.reshape(b, hkv, n_rep, sk, d).sum(dim=2)
+    dv = dv.reshape(b, hkv, n_rep, sk, d).sum(dim=2)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_prefill_paged_forward_plain(
@@ -147,30 +251,42 @@ def _i32(t):
     return None if t is None else t.to(torch.int32).contiguous()
 
 
-def _launch(*, paged, q, k, v, block_layout, kv_mask, q_seg, kv_seg, q_pos,
-            kv_pos, page_list, scale, causal, window, q_offset, kv_valid_len,
-            block_q, block_k, sk, num_pages):
+def _check_launch(kernel, q, others, *, hkv, sk, block_q, block_k,
+                  block_layout):
+    """Validate what every attention kernel takes; returns the int32
+    layout on q's device and the (nq, nk) block grid."""
     b, hq, sq, d = q.shape
-    hkv = k.shape[0] if paged else k.shape[1]
-    for name, t in (("k", k), ("v", v)):
+    for name, t in others.items():
         if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{name} must match q's device and dtype")
+            raise ValueError(f"{kernel}: {name} must match q's device and "
+                             f"dtype")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_fwd takes float32 or bfloat16, got {q.dtype}")
+        raise TypeError(f"{kernel} takes float32 or bfloat16, got {q.dtype}")
     if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_fwd head_dim must be one of "
+        raise ValueError(f"{kernel} head_dim must be one of "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
     if not (0 < block_q <= MAX_TILE and 0 < block_k <= MAX_TILE):
-        raise ValueError(f"flash_fwd tiles must be <= {MAX_TILE}, got "
+        raise ValueError(f"{kernel} tiles must be <= {MAX_TILE}, got "
                          f"({block_q}, {block_k})")
     if sq % block_q or sk % block_k or hq % hkv:
-        raise ValueError("flash_fwd needs sq % block_q == sk % block_k == 0 "
+        raise ValueError(f"{kernel} needs sq % block_q == sk % block_k == 0 "
                          "and hq % hkv == 0 (ops.py pads)")
     nq, nk = sq // block_q, sk // block_k
     layout = block_layout.to(device=q.device, dtype=torch.int32).contiguous()
     if layout.shape[-2:] != (nq, nk) or layout.ndim not in (2, 3):
         raise ValueError(f"layout shape {tuple(layout.shape)} does not match "
                          f"the ({nq}, {nk}) block grid")
+    return layout, nq, nk
+
+
+def _launch(*, paged, q, k, v, block_layout, kv_mask, q_seg, kv_seg, q_pos,
+            kv_pos, page_list, scale, causal, window, q_offset, kv_valid_len,
+            block_q, block_k, sk, num_pages, variant, dropout):
+    b, hq, sq, d = q.shape
+    hkv = k.shape[0] if paged else k.shape[1]
+    layout, nq, nk = _check_launch("flash_fwd", q, {"k": k, "v": v}, hkv=hkv,
+                                   sk=sk, block_q=block_q, block_k=block_k,
+                                   block_layout=block_layout)
     qs = (q * scale).contiguous()   # the scale folded into q, in q's dtype
     k, v = k.contiguous(), v.contiguous()
     kvm = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
@@ -189,6 +305,7 @@ def _launch(*, paged, q, k, v, block_layout, kv_mask, q_seg, kv_seg, q_pos,
         b, hq, hkv, sq, sk, nq, nk, block_q, block_k, num_pages,
         int(bool(causal)), -1 if window is None else int(window),
         int(q_offset), -1 if kv_valid_len is None else int(kv_valid_len),
+        int(variant == "paper"), *dropout,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, lib, "flash_fwd_error_string", "flash_fwd")
     return o, m, l
@@ -201,7 +318,8 @@ def flash_attention_forward(
     *,
     scale: float, causal: bool, window: int | None, q_offset: int,
     kv_valid_len: int | None = None,
-    dropout_p: float = 0.0,
+    dropout_p: float = 0.0, dropout_seed=0,
+    dropout_dims: tuple[int, int] | None = None,
     block_q: int, block_k: int, variant: str = "fa2",
     q_segment_ids: torch.Tensor | None = None,
     kv_segment_ids: torch.Tensor | None = None,
@@ -210,26 +328,139 @@ def flash_attention_forward(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (o, m, l). q (b,hq,sq,d), k/v (b,hkv,sk,d), kv_mask (b, sk)
     or None; sq % block_q == 0 and sk % block_k == 0 (ops.py pads).
-    ``block_layout`` is the compiled (nq, nk) or (b, nq, nk) layout."""
+    ``block_layout`` is the compiled (nq, nk) or (b, nq, nk) layout;
+    ``dropout_dims`` = (unpadded sq, sk) keeps the dropout hash independent
+    of padding."""
     if q_positions is not None and kv_valid_len is not None:
         raise ValueError("kv_valid_len cannot combine with q/kv_positions")
+    _check_variant(variant)
+    dropout = _dropout_args(dropout_p, dropout_seed, dropout_dims,
+                            q.shape[2], k.shape[2])
     if not q.is_cuda:
         return flash_attention_forward_plain(
             q, k, v, kv_mask, block_layout, scale=scale, causal=causal,
             window=window, q_offset=q_offset, kv_valid_len=kv_valid_len,
-            dropout_p=dropout_p, block_q=block_q, block_k=block_k,
+            dropout_p=dropout_p, dropout_seed=dropout_seed,
+            dropout_dims=dropout_dims, block_q=block_q, block_k=block_k,
             variant=variant, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, q_positions=q_positions,
             kv_positions=kv_positions)
-    _check_common(q, dropout_p, variant)
     out = _launch(paged=False, q=q, k=k, v=v, block_layout=block_layout,
                   kv_mask=kv_mask, q_seg=q_segment_ids, kv_seg=kv_segment_ids,
                   q_pos=q_positions, kv_pos=kv_positions, page_list=None,
                   scale=scale, causal=causal, window=window, q_offset=q_offset,
                   kv_valid_len=kv_valid_len, block_q=block_q, block_k=block_k,
-                  sk=k.shape[2], num_pages=0)
+                  sk=k.shape[2], num_pages=0, variant=variant,
+                  dropout=dropout)
     LAUNCHES["flash_fwd"] += 1
     return out
+
+
+@dataclasses.dataclass
+class BackwardOperands:
+    """The validated, contiguous operands of one backward call on the card
+    (q pre-scaled, D = rowsum(dO∘O) computed), shared by the dq and the dkv
+    kernel; it keeps every tensor alive while a kernel may read it."""
+    dtype: int
+    head_dim: int
+    tensors: tuple      # (q', k, v, dO, m, l, D)
+    extra: tuple        # layout, kv_mask, q_seg, kv_seg, q_pos, kv_pos
+    args: tuple         # the C arguments after the outputs
+
+
+def prepare_backward(q, k, v, o, do, m, l, kv_mask, block_layout, *, scale,
+                     causal, window, q_offset, kv_valid_len=None,
+                     dropout_p=0.0, dropout_seed=0, dropout_dims=None,
+                     block_q, block_k, q_segment_ids=None,
+                     kv_segment_ids=None, q_positions=None,
+                     kv_positions=None) -> BackwardOperands:
+    """Check and lay out a backward call for ``launch_dq``/``launch_dkv``."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    dropout = _dropout_args(dropout_p, dropout_seed, dropout_dims, sq, sk)
+    layout, nq, nk = _check_launch(
+        "flash_bwd", q, {"k": k, "v": v, "o": o, "do": do}, hkv=hkv, sk=sk,
+        block_q=block_q, block_k=block_k, block_layout=block_layout)
+    if bwd_smem_bytes(block_q, block_k, d) > SMEM_PER_BLOCK:
+        raise ValueError(f"flash_bwd tiles ({block_q}, {block_k}) exceed "
+                         f"shared memory at head_dim {d}")
+    for name, t in (("m", m), ("l", l)):
+        if t.dtype != torch.float32 or t.shape != (b, hq, sq):
+            raise ValueError(f"flash_bwd: {name} must be float32 "
+                             f"{(b, hq, sq)}")
+    # D_i = rowsum(dO ∘ O) (Alg. 4 line 19), O(N d) at the PyTorch level
+    # as in the JAX package
+    dd = (do.float() * o.float()).sum(dim=-1).contiguous()
+    tensors = ((q * scale).contiguous(), k.contiguous(), v.contiguous(),
+               do.contiguous(), m.contiguous(), l.contiguous(), dd)
+    kvm = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
+    extra = (layout, kvm, *map(_i32, (q_segment_ids, kv_segment_ids,
+                                      q_positions, kv_positions)))
+    args = (_ptr(layout), nq * nk if layout.ndim == 3 else 0,
+            *map(_ptr, extra[1:]),
+            b, hq, hkv, sq, sk, nq, nk, block_q, block_k,
+            int(bool(causal)), -1 if window is None else int(window),
+            int(q_offset), -1 if kv_valid_len is None else int(kv_valid_len),
+            *dropout, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return BackwardOperands(_DTYPES[q.dtype], d, tensors, extra, args)
+
+
+def launch_dq(ops: BackwardOperands) -> torch.Tensor:
+    """The dq kernel: dq in q's dtype, (b, hq, sq, d)."""
+    dq = torch.empty_like(ops.tensors[0])
+    lib = _bwd_lib()
+    err = lib.flash_bwd_dq(ops.dtype, ops.head_dim, *map(_ptr, ops.tensors),
+                           _ptr(dq), None, *ops.args)
+    build.check(err, lib, "flash_bwd_error_string", "flash_bwd_dq")
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def launch_dkv(ops: BackwardOperands) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dkv kernel: dk, dv summed over each GQA group, in k's dtype."""
+    dk = torch.empty_like(ops.tensors[1])
+    dv = torch.empty_like(ops.tensors[2])
+    lib = _bwd_lib()
+    err = lib.flash_bwd_dkv(ops.dtype, ops.head_dim, *map(_ptr, ops.tensors),
+                            _ptr(dk), _ptr(dv), *ops.args)
+    build.check(err, lib, "flash_bwd_error_string", "flash_bwd_dkv")
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+    kv_mask: torch.Tensor | None,
+    block_layout: torch.Tensor,
+    *,
+    scale: float, causal: bool, window: int | None, q_offset: int,
+    kv_valid_len: int | None = None,
+    dropout_p: float = 0.0, dropout_seed=0,
+    dropout_dims: tuple[int, int] | None = None,
+    block_q: int, block_k: int,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    q_positions: torch.Tensor | None = None,
+    kv_positions: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (dq, dk, dv), dk and dv already summed over each GQA group,
+    from the forward's residuals (o, m, l) and the SAME compiled layout.
+    On the card: D = rowsum(dO∘O) in PyTorch, then the dq kernel (one CTA
+    per (b, hq, q-block)) and the dkv kernel (one CTA per (b, hkv,
+    kv-block), group-summed in registers, no atomics)."""
+    kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
+              kv_valid_len=kv_valid_len, dropout_p=dropout_p,
+              dropout_seed=dropout_seed, dropout_dims=dropout_dims,
+              block_q=block_q, block_k=block_k, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids, q_positions=q_positions,
+              kv_positions=kv_positions)
+    if not q.is_cuda:
+        return flash_attention_backward_plain(q, k, v, o, do, m, l, kv_mask,
+                                              block_layout, **kw)
+    ops = prepare_backward(q, k, v, o, do, m, l, kv_mask, block_layout, **kw)
+    return (launch_dq(ops), *launch_dkv(ops))
 
 
 def flash_prefill_paged_forward(
@@ -249,13 +480,13 @@ def flash_prefill_paged_forward(
     """Returns (o, m, l) computed directly against pool pages: the kv tile
     is the page, logical row ``t*ps + r`` is row r of page
     ``page_list[b, t]``; masking is position-based."""
+    _check_variant(variant)
     if not q.is_cuda:
         return flash_prefill_paged_forward_plain(
             q, k_pool, v_pool, page_list, block_layout, scale=scale,
             causal=causal, window=window, q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, q_positions=q_positions,
             kv_positions=kv_positions, block_q=block_q, variant=variant)
-    _check_common(q, 0.0, variant)
     hkv, num_pages, ps, _ = k_pool.shape
     T = page_list.shape[1]
     if block_layout.ndim != 3 or block_layout.shape[-1] != T:
@@ -267,6 +498,7 @@ def flash_prefill_paged_forward(
                   page_list=page_list, scale=scale, causal=causal,
                   window=window, q_offset=0, kv_valid_len=None,
                   block_q=block_q, block_k=ps, sk=T * ps,
-                  num_pages=num_pages)
+                  num_pages=num_pages, variant=variant,
+                  dropout=_dropout_args(0.0, 0, None, 0, 0))
     LAUNCHES["flash_fwd_paged"] += 1
     return out

@@ -1,13 +1,19 @@
-"""Public forward entry points of the attention kernels (port of the forward
-half of ``repro.kernels.ops``).
+"""Public entry points of the attention kernels (port of
+``repro.kernels.ops``).
 
-``flash_attention`` and ``flash_prefill_paged`` pad to block multiples with
-sentinel segments and positions, compile the call's masks ONCE into the
-block layout the kernel consumes (``core.masks.compile_block_layout``) and
-run the kernel — the hand-written CUDA kernel on a CUDA tensor, its plain
-version on a CPU tensor (``kernels/flash_attention.py``). Serving is
-forward-only: both run under ``torch.inference_mode()`` and raise if an
-input requires grad; the differentiable op comes with the training slice.
+``flash_attention`` is differentiable: a ``torch.autograd.Function``
+around the padded core saves q, k, v, o, m, l, the compiled layout and the
+id/position tensors (the paper's O(N) residuals) and its backward runs
+``flash_attention_backward`` — the dq and dkv kernels on a CUDA tensor,
+their plain version on a CPU tensor. Padding (``F.pad``) and the final
+slice stay outside the Function, so autograd carries their gradients. The
+call's masks are compiled ONCE into the block layout the kernels consume
+(``core.masks.compile_block_layout``), under ``torch.no_grad()``, and the
+backward reuses it.
+
+``flash_prefill_paged`` stays forward-only (serving): it raises if an input
+requires grad, because the paged backward kernels (#5, #6) are not ported
+yet (ROADMAP.md §1 item 2).
 
 The JAX package's kv-major re-layout (the whole GQA query group resident
 in one block, ``block_q = n_rep * sq``) is not ported: it is a TPU VMEM
@@ -30,8 +36,35 @@ from repro_torch.kernels import tuning
 
 def _forward_only(*tensors) -> None:
     if any(t is not None and t.requires_grad for t in tensors):
-        raise ValueError("the attention ops are forward-only (serving); the "
-                         "differentiable op comes with the training slice")
+        raise ValueError("flash_prefill_paged is forward-only (serving): the "
+                         "paged backward kernels are ROADMAP.md §1 item 2")
+
+
+class _FlashCore(torch.autograd.Function):
+    """The padded core: forward kernel, residuals, backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, q_seg, kv_seg, q_pos, kv_pos, layout,
+                call):
+        o, m, l = fa.flash_attention_forward(
+            q, k, v, kv_mask, layout, q_segment_ids=q_seg,
+            kv_segment_ids=kv_seg, q_positions=q_pos, kv_positions=kv_pos,
+            **call)
+        ctx.save_for_backward(q, k, v, o, m, l, kv_mask, q_seg, kv_seg,
+                              q_pos, kv_pos, layout)
+        ctx.call = call
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        (q, k, v, o, m, l, kv_mask, q_seg, kv_seg, q_pos, kv_pos,
+         layout) = ctx.saved_tensors
+        call = {n: x for n, x in ctx.call.items() if n != "variant"}
+        dq, dk, dv = fa.flash_attention_backward(
+            q, k, v, o, do, m, l, kv_mask, layout, q_segment_ids=q_seg,
+            kv_segment_ids=kv_seg, q_positions=q_pos, kv_positions=kv_pos,
+            **call)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def _pad_seq(x: torch.Tensor, axis: int, mult: int, value=0):
@@ -54,6 +87,8 @@ def flash_attention(
     q_offset: int | None = None,
     block_q: int | None = None,           # None = tuning.fwd_tiles
     block_k: int | None = None,
+    dropout_p: float = 0.0,
+    dropout_seed=0,
     variant: str = "fa2",
     segment_ids: torch.Tensor | None = None,
     q_segment_ids: torch.Tensor | None = None,
@@ -61,16 +96,16 @@ def flash_attention(
     q_positions: torch.Tensor | None = None,
     kv_positions: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """FlashAttention forward. Pads seq dims to block multiples; GQA from
-    head counts. Padded tails take sentinel segments (q/kv pads differ) and
-    POS_PAD positions, so padded rows come out fully masked. ``q_offset``
-    defaults to ``sk - sq``; positions are dropped when no geometric term
-    uses them (the cheaper static-layout path)."""
+    """Differentiable FlashAttention. Pads seq dims to block multiples; GQA
+    from head counts. Padded tails take sentinel segments (q/kv pads
+    differ) and POS_PAD positions, so padded rows come out fully masked.
+    ``q_offset`` defaults to ``sk - sq``; positions are dropped when no
+    geometric term uses them (the cheaper static-layout path). Dropout
+    hashes buffer coordinates with the unpadded (sq, sk) as strides."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if hq % hkv != 0:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
-    _forward_only(q, k, v)
     q_seg, kv_seg = resolve_segment_ids(segment_ids, q_segment_ids,
                                         kv_segment_ids, sq, sk)
     if (q_positions is None) != (kv_positions is None):
@@ -86,10 +121,10 @@ def flash_attention(
     block_q = tuning.round_block(block_q or auto_q, sq)
     block_k = tuning.round_block(block_k or auto_k, sk)
 
-    with torch.inference_mode():
-        qp, qpad = _pad_seq(q, 2, block_q)
-        kp, kpad = _pad_seq(k, 2, block_k)
-        vp, _ = _pad_seq(v, 2, block_k)
+    qp, qpad = _pad_seq(q, 2, block_q)
+    kp, kpad = _pad_seq(k, 2, block_k)
+    vp, _ = _pad_seq(v, 2, block_k)
+    with torch.no_grad():
         kvm = None
         if kv_mask is not None:
             kvm, _ = _pad_seq(kv_mask, 1, block_k, value=False)
@@ -113,14 +148,14 @@ def flash_attention(
             q_positions=q_positions, kv_positions=kv_positions)
         layout = compile_block_layout(spec, qp.shape[2], kp.shape[2],
                                       block_q, block_k).as_array(q.device)
-        o, _, _ = fa.flash_attention_forward(
-            qp, kp, vp, kvm, layout, scale=scale, causal=causal,
-            window=window, q_offset=spec.q_offset,
-            kv_valid_len=spec.kv_valid_len, block_q=block_q,
-            block_k=block_k, variant=variant, q_segment_ids=q_seg,
-            kv_segment_ids=kv_seg, q_positions=q_positions,
-            kv_positions=kv_positions)
-        return o[:, :, :sq]
+    call = dict(scale=scale, causal=causal, window=window,
+                q_offset=spec.q_offset, kv_valid_len=spec.kv_valid_len,
+                dropout_p=dropout_p, dropout_seed=dropout_seed,
+                dropout_dims=(sq, sk), block_q=block_q, block_k=block_k,
+                variant=variant)
+    o = _FlashCore.apply(qp, kp, vp, kvm, q_seg, kv_seg, q_positions,
+                         kv_positions, layout, call)
+    return o[:, :, :sq]
 
 
 def flash_prefill_paged(

@@ -9,7 +9,9 @@ Both accept GQA, causal / sliding-window masks, a kv padding mask, packed
 segment ids, logical positions and a softmax scale, with shapes
 (batch, heads, seq, head_dim). Every mask term is evaluated through
 ``core.masks.element_mask`` — the same fused predicate the kernels apply
-to PARTIAL blocks. Attention dropout waits for the training slice.
+to PARTIAL blocks. ``standard_attention`` also applies attention dropout
+through the counter-based keep mask the kernels share
+(``dropout_keep_mask``), bit-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -21,6 +23,65 @@ from repro_torch.core.masks import resolve_segment_ids
 from repro_torch.core.online_softmax import (NEG_INF, SoftmaxState,
                                              block_state, finalize,
                                              init_state, merge_states)
+
+
+M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for x an int64 tensor of uint32 values and
+    0 <= c < 2**32, split into 16-bit halves so no int64 product wraps."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """murmur3 finalizer on uint32 values held in int64 (the JAX package's
+    ``_mix32``, and ``mix32`` in ``csrc/flash_common.cuh``)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def dropout_threshold(p_drop: float) -> int:
+    """The uint32 keep threshold, computed in double precision exactly as
+    the JAX package does: keep = hash >= threshold."""
+    return int(p_drop * float(2**32 - 1))
+
+
+def dropout_keep_mask(seed, b, h, q_pos, k_pos, p_drop: float,
+                      num_heads: int, q_len: int, k_len: int) -> torch.Tensor:
+    """Boolean keep mask from global coordinates (all broadcastable): a pure
+    function of (seed, b, h, q, k), so the backward regenerates it.
+    ``idx = ((b*H + h)*q_len + q)*k_len + k`` wraps at 32 bits, then
+    ``r = mix32(idx ^ mix32(seed))``."""
+    def u32(x):
+        return torch.as_tensor(x).to(torch.int64) & M32
+
+    idx = _mul32(_mul32(u32(b), num_heads & M32) + u32(h) & M32,
+                 q_len & M32) + u32(q_pos) & M32
+    idx = _mul32(idx, k_len & M32) + u32(k_pos) & M32
+    r = _mix32(idx ^ _mix32(u32(seed)))
+    return r >= dropout_threshold(p_drop)
+
+
+def full_dropout_keep_mask(seed, batch: int, num_heads: int, q_len: int,
+                           k_len: int, p_drop: float, device=None,
+                           strides: tuple[int, int] | None = None
+                           ) -> torch.Tensor:
+    """(batch, num_heads, q_len, k_len) keep mask. ``strides`` = the
+    (q_len, k_len) of the hash when the tensor is a padded buffer (the
+    kernels hash buffer coordinates with the unpadded lengths)."""
+    def ar(n):
+        return torch.arange(n, dtype=torch.int64, device=device)
+
+    q_stride, k_stride = strides if strides is not None else (q_len, k_len)
+    return dropout_keep_mask(
+        seed, ar(batch)[:, None, None, None], ar(num_heads)[None, :, None, None],
+        ar(q_len)[None, None, :, None], ar(k_len)[None, None, None, :],
+        p_drop, num_heads, q_stride, k_stride)
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -56,6 +117,8 @@ def standard_attention(
     q_positions: torch.Tensor | None = None,
     kv_positions: torch.Tensor | None = None,
     scale: float | None = None,
+    dropout_p: float = 0.0,
+    dropout_seed=0,
     q_offset: int | None = None,
 ) -> torch.Tensor:
     b, hq, sq, d = q.shape
@@ -93,6 +156,10 @@ def standard_attention(
     p = torch.where(s <= NEG_INF / 2, torch.zeros_like(p), p)
     l = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(l == 0.0, torch.ones_like(l), l)
+    if dropout_p > 0.0:
+        keep = full_dropout_keep_mask(dropout_seed, b, hq, sq, sk, dropout_p,
+                                      device=q.device)
+        p = torch.where(keep, p / (1.0 - dropout_p), torch.zeros_like(p))
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 

@@ -6,8 +6,9 @@ the small part the serving path needs:
 
   * ``round_block`` — clamp a block to a sequence without emitting an
     unaligned tile (rows in multiples of ``ROW_ALIGN``; the caller pads);
-  * ``fwd_tiles`` — one fixed (block_q, block_k) per head_dim whose
-    shared-memory footprint in ``csrc/flash_fwd.cu`` fits a Hopper block;
+  * ``fwd_tiles`` / ``bwd_tiles`` — one fixed (block_q, block_k) per
+    head_dim whose shared-memory footprint in ``csrc/flash_fwd.cu`` /
+    ``csrc/flash_bwd.cu`` fits a Hopper block;
   * ``resolve_paged_decode_splits`` — split-KV parallelism for paged decode
     with the divisor rule of ``flash_decode.validate_paged_decode_geometry``.
 """
@@ -45,6 +46,31 @@ def fwd_tiles(head_dim: int) -> tuple[int, int]:
     memory for every head_dim the kernel takes (115 KB at d = 128)."""
     bq = bk = MAX_TILE
     assert fwd_smem_bytes(bq, bk, max(KERNEL_HEAD_DIMS)) <= SMEM_PER_BLOCK
+    return bq, bk
+
+
+def bwd_smem_bytes(block_q: int, block_k: int, head_dim: int) -> int:
+    """Dynamic shared memory of the larger of the two backward blocks
+    (fp32 staging). dq: q and dO tiles, K and V tiles padded by one
+    column, the dS tile. dkv: K, V, q and dO tiles padded by one column,
+    the (P∘Z)ᵀ and dSᵀ tiles, and five per-row vectors (m, l, D, position,
+    segment)."""
+    dq = 4 * (2 * block_q * head_dim + 2 * block_k * (head_dim + 1)
+              + block_q * block_k)
+    dkv = 4 * ((2 * block_k + 2 * block_q) * (head_dim + 1)
+               + 2 * block_k * block_q + 5 * block_q)
+    return max(dq, dkv)
+
+
+def bwd_tiles(head_dim: int) -> tuple[int, int]:
+    """The fixed backward (block_q, block_k) for a head_dim: the forward's
+    tiles, because one compiled layout serves the forward and the
+    backward (``ops.flash_attention``); 64 x 64 fits shared memory for
+    every head_dim the kernels take (166 KB at d = 128)."""
+    bq, bk = fwd_tiles(head_dim)
+    if bwd_smem_bytes(bq, bk, head_dim) > SMEM_PER_BLOCK:
+        raise ValueError(f"backward tiles ({bq}, {bk}) exceed shared memory "
+                         f"at head_dim {head_dim}")
     return bq, bk
 
 

@@ -1,9 +1,11 @@
 """Grouped-query self-attention layer on the flash core (port of the dense
-serving parts of ``repro.models.attention_layer``).
+parts of ``repro.models.attention_layer``).
 
-Three execution modes: packed prefill (``prefill_attention``), chunked
-prefill against the shared page pool (``chunk_prefill_attention_step``) and
-single-token paged decode (``paged_decode_attention_step``).
+Four execution modes: full-sequence training (``apply_attention``, with
+segment-relative RoPE and attention dropout), packed prefill
+(``prefill_attention``), chunked prefill against the shared page pool
+(``chunk_prefill_attention_step``) and single-token paged decode
+(``paged_decode_attention_step``).
 
 The JAX step functions return a new pool and rely on jit buffer donation
 to update it in place; here the pool tensors are updated IN PLACE and the
@@ -26,7 +28,9 @@ from repro_torch.models.layers import apply_rope, dense_init
 
 
 def attn_spec_from_config(cfg: ModelConfig) -> AttentionSpec:
-    return AttentionSpec(impl=cfg.attn_impl,
+    return AttentionSpec(impl=cfg.attn_impl, causal=cfg.causal,
+                         dropout_p=cfg.attn_dropout,
+                         block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
                          num_decode_splits=cfg.num_decode_splits,
                          use_decode_kernel=cfg.use_decode_kernel)
 
@@ -60,6 +64,25 @@ def _project_qkv(params, cfg: ModelConfig, x, kv_x, positions, kv_positions):
     if kv_positions is not None:
         k = apply_rope(k, kv_positions, cfg.rope_theta)
     return q, k, v
+
+
+def apply_attention(params, cfg: ModelConfig, x, *,
+                    spec: AttentionSpec | None = None, positions=None,
+                    kv_mask=None, segment_ids=None,
+                    deterministic: bool = True, dropout_seed=0):
+    """Full-sequence self-attention, x: (b, s, d_model) -> (b, s, d_model).
+    ``segment_ids`` isolates packed documents AND makes RoPE
+    segment-relative (positions restart at every document boundary), so
+    packed training is position-identical to per-document training."""
+    if positions is None:
+        positions = (segment_relative_positions(segment_ids)
+                     if segment_ids is not None
+                     else torch.arange(x.shape[1], device=x.device))
+    q, k, v = _project_qkv(params, cfg, x, x, positions, positions)
+    spec = spec or attn_spec_from_config(cfg)
+    o = attention(q, k, v, spec, kv_mask=kv_mask, segment_ids=segment_ids,
+                  deterministic=deterministic, dropout_seed=dropout_seed)
+    return _merge_heads(o) @ params["wo"]
 
 
 def prefill_attention(params, cfg: ModelConfig, x, *, kv_mask=None,

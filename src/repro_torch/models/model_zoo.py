@@ -1,11 +1,12 @@
-"""Top-level dense decoder Model (port of the serving parts of
-``repro.models.model_zoo``): init, packed prefill, chunked prefill against
-the page pool, paged decode, and ``params_from_jax``.
+"""Top-level dense decoder Model (port of the dense parts of
+``repro.models.model_zoo``): init, ``forward``/``loss`` for training,
+packed prefill, chunked prefill against the page pool, paged decode, and
+``params_from_jax``.
 
 Params are a plain dict: ``{"embed": (V, d), "final_norm": {...},
 "blocks": [per-layer dicts]}`` with the JAX package's weight layouts
-(``x @ W``, W of shape (d_in, d_out)). Every serving method runs under
-``torch.inference_mode()`` (the decode state is created outside it, so
+(``x @ W``, W of shape (d_in, d_out)). ``forward`` and ``loss`` run with
+autograd; every serving method runs under ``torch.inference_mode()`` (the decode state is created outside it, so
 callers may edit it); the paged pool is updated in place.
 """
 
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_map
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import apply_norm, dense_init, init_norm
 
@@ -49,12 +51,55 @@ class Model:
             "blocks": [tfm.init_block(cfg, dtype, **kw)
                        for _ in range(cfg.num_layers)],
         }
-        return _map_tensors(p, lambda t: t.to(dev))
+        return tree_map(lambda t: t.to(dev), p)
 
     # --------------------------------------------------------------- helpers
     def _logits(self, params, h):
         h = apply_norm(params["final_norm"], h)
         return h @ params["embed"].T        # tied head
+
+    def _batch_tensor(self, params, x):
+        return torch.as_tensor(x).to(params["embed"].device)
+
+    # -------------------------------------------------------------- training
+    def forward(self, params, batch, *, deterministic: bool = True,
+                dropout_seed=0):
+        """Returns (logits, aux_loss). ``batch["segment_ids"]`` (B, S), when
+        present, isolates packed documents in self-attention and makes RoPE
+        segment-relative. Batch leaves may be numpy arrays or tensors."""
+        tokens = self._batch_tensor(params, batch["tokens"]).long()
+        segment_ids = batch.get("segment_ids")
+        if segment_ids is not None:
+            segment_ids = self._batch_tensor(params, segment_ids)
+        x = params["embed"][tokens]
+        h, aux = tfm.apply_stack(params["blocks"], self.cfg, x,
+                                 segment_ids=segment_ids,
+                                 deterministic=deterministic,
+                                 dropout_seed=dropout_seed)
+        return self._logits(params, h), aux
+
+    def loss(self, params, batch, *, deterministic: bool = False,
+             dropout_seed=0, aux_weight: float = 0.01):
+        """Next-token cross-entropy in fp32 over ``loss_mask`` (default all
+        ones). Returns (total, {"loss", "ce", "aux", "tokens"})."""
+        logits, aux = self.forward(params, batch, deterministic=deterministic,
+                                   dropout_seed=dropout_seed)
+        tokens = self._batch_tensor(params, batch["tokens"]).long()
+        logits = logits[:, :-1].float()
+        targets = tokens[:, 1:]
+        if "loss_mask" in batch:
+            mask = self._batch_tensor(params, batch["loss_mask"]).float()
+        else:
+            mask = torch.ones(tokens.shape, dtype=torch.float32,
+                              device=tokens.device)
+        mask = mask[:, 1:]
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, targets[..., None])[..., 0]
+        nll = (logz - gold) * mask
+        denom = mask.sum().clamp_min(1.0)
+        ce = nll.sum() / denom
+        total = ce + aux_weight * aux
+        return total, {"loss": total, "ce": ce, "aux": aux, "tokens": denom}
 
     # --------------------------------------------------------------- serving
     def init_paged_decode_state(self, batch: int, num_pages: int,
@@ -118,18 +163,10 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg)
 
 
-def _map_tensors(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map_tensors(v, fn) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map_tensors(v, fn) for v in tree]
-    return fn(tree)
-
-
 def params_to(params: Params, device) -> Params:
     """The same params on another device (a copy per leaf)."""
     dev = resolve_device(device)
-    return _map_tensors(params, lambda t: t.to(dev))
+    return tree_map(lambda t: t.to(dev), params)
 
 
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> Params:
@@ -146,8 +183,8 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> Params:
 
     blocks = np_tree["blocks"]
     if isinstance(blocks, dict):
-        blocks = [_map_tensors(blocks, lambda a, l=l: np.asarray(a)[l])
+        blocks = [tree_map(lambda a, l=l: np.asarray(a)[l], blocks)
                   for l in range(cfg.num_layers)]
     out = {k: v for k, v in np_tree.items() if k != "blocks"}
     out["blocks"] = blocks
-    return _map_tensors(out, conv)
+    return tree_map(conv, out)

@@ -1,12 +1,17 @@
-"""Dense decoder stack (port of the dense serving parts of
+"""Dense decoder stack (port of the dense parts of
 ``repro.models.transformer``): pre-norm attention + MLP blocks, run as a
-plain loop over layers (the JAX package scans over stacked layers)."""
+plain loop over layers (the JAX package scans over stacked layers). With
+``cfg.remat`` the training stack checkpoints every block
+(``torch.utils.checkpoint``, non-reentrant: only the block's input is
+kept and the block runs again in the backward), as the JAX package's
+``jax.checkpoint(policy=nothing_saveable)`` does."""
 
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention_layer as attn_mod
@@ -29,6 +34,38 @@ def init_block(cfg: ModelConfig, dtype, *, generator, device) -> Params:
 def _mlp_residual(params: Params, cfg: ModelConfig, x):
     h = apply_norm(params["mlp_norm"], x)
     return x + apply_mlp(params["mlp"], h)
+
+
+def apply_block(params: Params, cfg: ModelConfig, x, *, segment_ids=None,
+                deterministic: bool = True, dropout_seed=0):
+    """One block, full sequence (training). Returns (x, aux_loss); aux is 0
+    for the dense family."""
+    h = apply_norm(params["attn_norm"], x)
+    x = x + attn_mod.apply_attention(params["attn"], cfg, h,
+                                     segment_ids=segment_ids,
+                                     deterministic=deterministic,
+                                     dropout_seed=dropout_seed)
+    return _mlp_residual(params, cfg, x), torch.zeros((), dtype=torch.float32,
+                                                      device=x.device)
+
+
+def apply_stack(blocks: list[Params], cfg: ModelConfig, x, *,
+                segment_ids=None, deterministic: bool = True,
+                dropout_seed=0):
+    """All blocks in order. Returns (x, total_aux_loss)."""
+    def fn(p_l, h):
+        return apply_block(p_l, cfg, h, segment_ids=segment_ids,
+                           deterministic=deterministic,
+                           dropout_seed=dropout_seed)
+
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p_l in blocks:
+        if cfg.remat:
+            x, aux = checkpoint(fn, p_l, x, use_reentrant=False)
+        else:
+            x, aux = fn(p_l, x)
+        aux_total = aux_total + aux
+    return x, aux_total
 
 
 def apply_block_prefill(params: Params, cfg: ModelConfig, x, *,

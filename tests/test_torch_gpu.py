@@ -1,6 +1,8 @@
 """Card tests of the hand-written CUDA kernels: each kernel against its
-plain PyTorch version on the same CUDA inputs, and the serving engine on
-the card against the same engine on the CPU. Marked ``gpu``; skipped
+plain PyTorch version on the same CUDA inputs (the forward, its dropout
+and "paper" variants, the dq and dkv backward kernels, the paged kernels),
+the differentiable op and a train step on the card against the CPU, and
+the serving engine on the card against the same engine on the CPU. Marked ``gpu``; skipped
 without a CUDA device (whether one is present is decided inside the
 fixture, never at import or collection). Imports no jax: the card's
 machine has none. Run there with::
@@ -9,6 +11,8 @@ machine has none. Run there with::
 
 Tolerances: fp32 inputs atol 1e-4 (summation order only); bf16 inputs
 atol 2e-2 on o (bf16 output rounding) and 1e-2 relative on m and l.
+Gradients: max |g - g_plain| / max |g_plain| <= 1e-4 in fp32 (summation
+order; dk and dv sum a whole GQA group), 2e-2 in bf16.
 """
 
 import pytest
@@ -56,12 +60,10 @@ def _segments(gen, b, s, device):
     return seg.to(device)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 64, 128])
-@pytest.mark.parametrize("mask", ["causal_segments", "window_kvmask_tail",
-                                  "positions"])
-def test_flash_fwd_matches_plain(cuda, dtype, d, mask):
-    gen = torch.Generator().manual_seed(d)
+def _contiguous_case(cuda, dtype, d, mask, seed=None):
+    """Inputs, compiled layout and call kwargs of one contiguous-K/V case:
+    GQA 8/2, sq 128 against sk 192, 64 x 64 tiles."""
+    gen = torch.Generator().manual_seed(d if seed is None else seed)
     b, hq, hkv, sq, sk, bq, bk = 2, 8, 2, 128, 192, 64, 64
     q = torch.randn(b, hq, sq, d, generator=gen).to(cuda, dtype)
     k = torch.randn(b, hkv, sk, d, generator=gen).to(cuda, dtype)
@@ -90,15 +92,96 @@ def test_flash_fwd_matches_plain(cuda, dtype, d, mask):
                 kv_segment_ids=arrays.get("kv_segment_ids"),
                 q_positions=arrays.get("q_positions"),
                 kv_positions=arrays.get("kv_positions"))
+    return gen, (q, k, v, arrays.get("kv_mask"), layout), call
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("mask", ["causal_segments", "window_kvmask_tail",
+                                  "positions"])
+def test_flash_fwd_matches_plain(cuda, dtype, d, mask):
+    _, args, call = _contiguous_case(cuda, dtype, d, mask)
     n0 = fa.LAUNCHES["flash_fwd"]
-    out = fa.flash_attention_forward(q, k, v, arrays.get("kv_mask"), layout,
-                                     **call)
+    out = fa.flash_attention_forward(*args, **call)
     torch.cuda.synchronize()
     assert fa.LAUNCHES["flash_fwd"] == n0 + 1
-    plain = fa.flash_attention_forward_plain(q, k, v, arrays.get("kv_mask"),
-                                             layout, **call)
+    plain = fa.flash_attention_forward_plain(*args, **call)
     assert fa.LAUNCHES["flash_fwd"] == n0 + 1      # the plain call counts nothing
     _check(out, plain, dtype)
+
+
+def _check_grads(got, want, dtype):
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max().clamp_min(1e-30))
+        assert err <= tol, f"{name}: scaled error {err} > {tol}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("mask", ["causal_segments", "window_kvmask_tail",
+                                  "positions"])
+def test_flash_bwd_matches_plain(cuda, dtype, d, mask):
+    """dq, dk, dv of the two backward kernels against the plain backward
+    on the same (o, m, l) residuals."""
+    gen, args, call = _contiguous_case(cuda, dtype, d, mask)
+    q = args[0]
+    o, m, l = fa.flash_attention_forward_plain(*args, **call)
+    do = torch.randn(q.shape, generator=gen).to(cuda, dtype)
+    n_dq, n_dkv = fa.LAUNCHES["flash_bwd_dq"], fa.LAUNCHES["flash_bwd_dkv"]
+    res = (*args[:3], o, do, m, l, *args[3:])
+    got = fa.flash_attention_backward(*res, **call)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_bwd_dq"] == n_dq + 1
+    assert fa.LAUNCHES["flash_bwd_dkv"] == n_dkv + 1
+    want = fa.flash_attention_backward_plain(*res, **call)
+    _check_grads(got, want, dtype)
+
+
+def test_dropout_forward_and_backward_match_plain(cuda):
+    """dropout_p = 0.2 in fp32: a keep mask that differs in one element
+    moves o and the grads far past 1e-4."""
+    gen, args, call = _contiguous_case(cuda, torch.float32, 64,
+                                       "causal_segments", seed=5)
+    call.update(dropout_p=0.2, dropout_seed=1234, dropout_dims=(120, 190))
+    out = fa.flash_attention_forward(*args, **call)
+    plain = fa.flash_attention_forward_plain(*args, **call)
+    _check(out, plain, torch.float32)
+    do = torch.randn(args[0].shape, generator=gen).to(cuda)
+    res = (*args[:3], plain[0], do, plain[1], plain[2], *args[3:])
+    got = fa.flash_attention_backward(*res, **call)
+    want = fa.flash_attention_backward_plain(*res, **call)
+    _check_grads(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paper_variant_matches_plain(cuda, dtype):
+    _, args, call = _contiguous_case(cuda, dtype, 64, "window_kvmask_tail")
+    call["variant"] = "paper"
+    out = fa.flash_attention_forward(*args, **call)
+    _check(out, fa.flash_attention_forward_plain(*args, **call), dtype)
+
+
+def test_differentiable_op_on_card_matches_cpu(cuda):
+    """``ops.flash_attention`` with autograd on the card (forward, dq and
+    dkv kernels, padding outside the Function) against the same op on the
+    CPU (plain versions): sq 100 / sk 150 pad to the tiles."""
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 8, 100, 64, generator=gen)
+    k = torch.randn(2, 2, 150, 64, generator=gen)
+    v = torch.randn(2, 2, 150, 64, generator=gen)
+    do = torch.randn(2, 8, 100, 64, generator=gen)
+    outs = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        o = ops.flash_attention(*leaves, causal=True, dropout_p=0.1,
+                                dropout_seed=9)
+        outs[str(dev)] = [o] + list(torch.autograd.grad(o, leaves, do.to(dev)))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        assert err <= 1e-4, err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -184,11 +267,11 @@ def test_unsupported_shapes_raise_before_launch(cuda):
         fa.flash_attention_forward(q, q[:, :1], q[:, :1], None, lay,
                                    scale=1.0, causal=True, window=None,
                                    q_offset=0, block_q=8, block_k=8)
-    with pytest.raises(NotImplementedError, match="paper"):
+    with pytest.raises(ValueError, match="variant"):
         ops.flash_attention(torch.randn(1, 2, 8, 64, device=cuda),
                             torch.randn(1, 1, 8, 64, device=cuda),
                             torch.randn(1, 1, 8, 64, device=cuda),
-                            causal=True, variant="paper")
+                            causal=True, variant="alg3")
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -212,3 +295,35 @@ def test_engine_on_card_matches_cpu(cuda):
     assert outs[0] == outs[1]
     assert fa.LAUNCHES["flash_fwd"] > 0 and fa.LAUNCHES["flash_fwd_paged"] > 0
     assert fd.LAUNCHES["flash_decode_paged"] > 0
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Two steps of ``make_train_step`` (fp32, pallas, remat on) from the
+    same weights and batches on the card and on the CPU: losses within
+    1e-4 relative, and every kernel of the path launched."""
+    import dataclasses
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_train_step
+
+    cfg = dataclasses.replace(reduced_config("granite-3-2b", head_dim=64,
+                                             attn_impl="pallas"), remat=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    data = SyntheticLM(cfg.vocab_size, 96, 2, seed=1, mean_doc_len=32)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        opt = adamw(warmup_cosine(1e-3, 2, 10))
+        p = params_to(params, dev)
+        state = opt.init(p)
+        step = make_train_step(model, opt, deterministic=True)
+        n0 = dict(fa.LAUNCHES)
+        losses[dev] = []
+        for s in range(2):
+            p, state, metrics = step(p, state, data.batch_at(s))
+            losses[dev].append(float(metrics["loss"]))
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.LAUNCHES[name] > n0[name], name
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-4 * abs(b), (losses["cuda"], losses["cpu"])

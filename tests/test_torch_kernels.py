@@ -234,17 +234,25 @@ def test_paged_decode_geometry_validation():
 
 
 def test_forward_only_and_cpu_wrappers():
-    """The ops raise on inputs that require grad; on CPU tensors the
-    wrappers take the plain version and never count a kernel launch."""
+    """The paged op stays forward-only (its backward kernels are not ported)
+    and raises on inputs that require grad; the differentiable op runs its
+    forward and backward through the plain versions on CPU tensors and
+    never counts a kernel launch; an unknown variant raises."""
+    case = {k: torch.as_tensor(v) for k, v in _paged_case(5).items()}
+    kw = {n: case[n] for n in ("q_segment_ids", "kv_segment_ids",
+                               "q_positions", "kv_positions")}
+    with pytest.raises(ValueError, match="forward-only"):
+        tops.flash_prefill_paged(case["q"].requires_grad_(), case["k_pool"],
+                                 case["v_pool"], case["page_list"],
+                                 block_q=8, **kw)
     q = torch.randn(1, 2, 8, 16, requires_grad=True)
     k = torch.randn(1, 1, 8, 16)
-    with pytest.raises(ValueError, match="forward-only"):
-        tops.flash_attention(q, k, k, causal=True)
     before = dict(tfa.LAUNCHES)
-    tops.flash_attention(q.detach(), k, k, causal=True)
-    assert tfa.LAUNCHES == before
-    with pytest.raises(NotImplementedError, match="dropout"):
+    o = tops.flash_attention(q, k, k, causal=True, dropout_p=0.1)
+    o.sum().backward()
+    assert tfa.LAUNCHES == before and q.grad is not None
+    with pytest.raises(ValueError, match="variant"):
         tfa.flash_attention_forward(
             q.detach(), k, k, None, torch.ones((1, 1), dtype=torch.int32),
-            scale=1.0, causal=True, window=None, q_offset=0, dropout_p=0.1,
-            block_q=8, block_k=8)
+            scale=1.0, causal=True, window=None, q_offset=0, block_q=8,
+            block_k=8, variant="alg3")
