@@ -2,11 +2,12 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py [--seed N]
-    python3 chip_smoke.py --ab PARENT_CHECKOUT    # A/B of the serving path
+    python3 chip_smoke.py --ab PARENT_CHECKOUT    # A/B against another checkout
 
 Imports nothing of JAX or of the JAX package; needs one CUDA card and the
-repository checkout beside it (``src/repro_torch``). Two main paths run
-through the hand-written kernels: serving (phases 3-4) and training
+repository checkout beside it (``src/repro_torch``). Four main paths run
+through the hand-written kernels: the trainable paged prefill (phase 2c),
+paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
 (phases 5-6). Phases:
 
 1. print the card's name and power limit (nvidia-smi), then build every
@@ -30,7 +31,19 @@ through the hand-written kernels: serving (phases 3-4) and training
    2e-2), a dropout_p = 0.1 forward + backward and a ``variant="paper"``
    forward against the plain versions, each kernel timed beside its bound,
    its plain time and ``library_ms`` = the backward of SDPA alone
-   (``torch.autograd.grad`` after one forward, boolean mask, GQA);
+   (``torch.autograd.grad`` after one forward, boolean mask, GQA). The
+   contiguous decode kernel (flash_decode) at batch 8 over a 2048-slot
+   cache, kv_len 900-1100, also with a window and with a kv_mask, against
+   its plain version (SDPA over the cache with a boolean mask as library);
+2c. paged backward: at flash_fwd_paged's shapes, one row per sequence,
+   the first prefix page shared by both rows and dead slots: the paged dq
+   and dkv kernels plus the fold into pool shape against the plain
+   backward (max |g - plain| / max |plain| <= 2e-2), untouched pages
+   exactly zero, two calls bit-identical, each kernel timed (library: SDPA's
+   backward on pre-gathered K/V). Then the path itself: launch counters
+   reset, one forward + backward through
+   ``core.attention.paged_prefill_attention`` with q and both pools
+   requiring grad; the paged forward, dq and dkv kernels must be > 0;
 3. parity: granite-3-2b at full width, 2 layers, float32: the same weights
    served by the engine on ``cuda`` (kernels) and on ``cpu`` (plain
    versions); greedy tokens must be identical (a divergence at a near-tie
@@ -40,8 +53,17 @@ through the hand-written kernels: serving (phases 3-4) and training
    1024-token prompt prefilled in chunks of 256, 32 new tokens each. Every
    kernel's launch counter is reset just before and must be > 0 just
    after; prints tokens/s, TTFT p50 and peak memory beside the card. The
-   same serve then runs once more under ``torch.profiler`` for the device
-   busy share and the kernels that take the most device time;
+   same requests then run once more under ``torch.profiler``, with 8 new
+   tokens each, for the device busy share and the kernels that take the
+   most device time;
+4b. dense parity: granite-3-2b at full width, 2 layers, float32, dense
+   slot mode (``paged=False``) on ``cuda`` and on ``cpu``, and the paged
+   engine on ``cuda``: greedy tokens identical;
+4c. dense serve: the published model in dense slot mode with the decode
+   kernel: 4 slots of 2048, 8 requests of 64-1024 prompt tokens, 32 new
+   tokens each, drained requests prefilled packed; flash_fwd and
+   flash_decode must be > 0 and flash_decode_paged 0; prints tokens/s,
+   TTFT p50, decode step p50 and peak memory (not profiled);
 5. train parity: granite-3-2b at full width, 2 layers, float32, seq 512,
    batch 2: the same random weights and ``SyntheticLM`` batches through two
    train steps on ``cuda`` (kernels) and on ``cpu`` (plain versions): losses
@@ -56,13 +78,19 @@ through the hand-written kernels: serving (phases 3-4) and training
    tokens/s, ms/step and peak memory, then one more step under
    ``torch.profiler`` for the device busy share and the top kernels.
 
-``--ab PARENT_CHECKOUT`` runs only an A/B of the serving path against another
-checkout (e.g. ``git archive`` of the parent commit): that checkout's and
-this one's own ``kernel_phase`` and ``serve_phase`` (without the profiled
-pass), each in a fresh process, in the order parent, change, change,
-parent on the same card, then prints each side's per-run numbers.
+``--ab PARENT_CHECKOUT`` runs only an A/B against another checkout (e.g.
+``git archive`` of the parent commit): first both checkouts' kernel
+sources compiled with ``-Xptxas -v`` to cubins, printing every parent
+kernel's registers, stack and spills on both sides and whether its SASS
+(``cuobjdump -sass``) is identical; then that checkout's and this one's
+own ``train_kernel_phase`` (first, so that both sides time the training
+kernels from the same process state), ``kernel_phase`` and
+``serve_phase`` (without the profiled pass), each in a fresh process, in
+the order parent,
+change, change, parent on the same card, then each side's per-run
+numbers (record in ``build/chip_smoke_ab.json``).
 
-Prints one JSON line of kernel results (``launches`` summed over the two
+Prints one JSON line of kernel results (``launches`` summed over the four
 main paths' runs, per path under ``launches_by_path``), then as its last
 line
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, without
@@ -311,7 +339,73 @@ def kernel_phase(torch, seed: int) -> list[dict]:
         b_ms, b_by, lib_ms,
         shape=f"decode b={b} kv_len {kv_len.tolist()} page {ps} "
               f"splits {splits}", library="SDPA on pre-gathered K/V, bool mask"))
+    results.append(contiguous_decode_record(torch, gen, randn, hq, hkv, d))
     return results
+
+
+def contiguous_decode_record(torch, gen, randn, hq, hkv, d) -> dict:
+    """flash_decode (#7) at the dense serve's decode shape: batch 8 over a
+    2048-slot cache, kv_len 900-1100; also checked with a window and with
+    a kv_mask. Timed on the plain case; SDPA over the contiguous cache with
+    the validity mask as a boolean mask and GQA is the library yardstick."""
+    from repro_torch.core import masks as M
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import tuning
+
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, cap = 8, 2048
+    scale = d ** -0.5
+    kv_len = torch.tensor([900, 1100, 1000, 1024, 950, 1050, 980, 1070],
+                          dtype=torch.int32, device=dev)
+    bk, splits = tuning.resolve_decode_geometry(cap, None, None)
+    qd, kc, vc = randn(b, hq, 1, d), randn(b, hkv, cap, d), randn(b, hkv, cap, d)
+    masked = torch.rand(b, cap, generator=gen, device=dev) > 0.25
+    errs = {}
+    for case, window, kvm in (("plain", None, None), ("window 256", 256, None),
+                              ("kv_mask", None, masked)):
+        valid = M.decode_kv_valid(kv_len, cap, window=window, kv_mask=kvm)
+        lay = M.kv_block_layout(valid, bk)
+        call = dict(scale=scale, block_k=bk, num_splits=splits, window=window,
+                    kv_mask=kvm)
+        parts = fd.flash_decode_partials(qd, kc, vc, kv_len, lay, **call)
+        torch.cuda.synchronize()
+        pparts = fd.flash_decode_partials_plain(qd, kc, vc, kv_len, lay, **call)
+        out = (fd._merge_split_partials(*parts, torch.bfloat16), *parts[1:])
+        plain = (fd._merge_split_partials(*pparts, torch.bfloat16), *pparts[1:])
+        o_err = float((out[0].float() - plain[0].float()).abs().max())
+        errs[case] = o_err
+        check(o_err <= 2e-2, f"flash_decode ({case}): max |o - plain| {o_err}")
+        check(rel_err(out[1], plain[1]) <= 1e-2 and rel_err(out[2], plain[2])
+              <= 1e-2, f"flash_decode ({case}): m/l differ from the plain "
+                       f"version")
+        if case == "plain":
+            first = (out, plain, lay, call, valid)
+    out, plain, lay, call, valid = first
+    rows = int(valid.sum())                  # the keys this data needs
+    kv_bytes = 2 * rows * hkv * d * 2
+    sets = [(qd, kc, vc)] + [(randn(b, hq, 1, d), randn(b, hkv, cap, d),
+                              randn(b, hkv, cap, d))
+                             for _ in range(copies_for(nbytes(kc, vc)) - 1)]
+    ms = time_ms(torch, [lambda a=a: fd.flash_decode_partials(
+        *a, kv_len, lay, **call) for a in sets])
+    plain_ms = time_ms(torch, [lambda: fd.flash_decode_partials_plain(
+        qd, kc, vc, kv_len, lay, **call)], warmup=1, iters=3)
+    b_ms, b_by = bound(nbytes(qd, out[1], out[2], kv_len, lay) + kv_bytes
+                       + out[1].numel() * d * 4, 4.0 * d * rows * hq,
+                       BF16_FLOPS_PER_S)
+    mask = valid[:, None, None, :]                # (b, 1, 1, cap) bool
+    lib_ms = time_ms(torch, [lambda a=a: sdpa(*a, attn_mask=mask, scale=scale,
+                                              enable_gqa=True) for a in sets])
+    rec = _kernel_record(
+        "flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "src/repro/kernels/flash_decode.py:169", out, plain, ms, plain_ms,
+        b_ms, b_by, lib_ms,
+        shape=f"contiguous decode b={b} capacity {cap} kv_len "
+              f"{kv_len.tolist()} block_k {bk} splits {splits}",
+        library="SDPA on the contiguous cache, bool mask, GQA")
+    rec["case_errs"] = errs
+    return rec
 
 
 def _kernel_record(name, source, replaces, out, plain, ms, plain_ms, b_ms,
@@ -498,6 +592,182 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the trainable paged prefill's backward kernels
+# ---------------------------------------------------------------------------
+
+def paged_grad_case(torch, seed: int, *, requires_grad=False) -> dict:
+    """The paged prefill at the serving shapes of flash_fwd_paged (chunks of
+    192 and 64 rows against 1536- and 600-token prefixes, page 16, hq 32 /
+    hkv 8 / d 64, bf16), one row per sequence: both rows' first prefix page
+    is the same pool page (a shared prefix), two dead slots per row, the
+    short row's q tail padded. Returns the inputs, the compiled layout and
+    the call's keyword arguments."""
+    from repro_torch.core import masks as M
+    from repro_torch.kernels import tuning
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    hq, hkv, d, ps, num_pages = 32, 8, 64, 16, 400
+    spans, chunks = [1536, 600], [192, 64]
+    sq = max(chunks)
+    T = max(-(-s // ps) for s in spans) + 2
+    pages = torch.randperm(num_pages, generator=gen, device=dev).int()
+    page_list = torch.full((2, T), -1, dtype=torch.int32, device=dev)
+    kv_seg = torch.full((2, T * ps), M.SEG_PAD_KV, dtype=torch.int32, device=dev)
+    kv_pos = torch.full((2, T * ps), M.POS_PAD, dtype=torch.int32, device=dev)
+    q_seg = torch.full((2, sq), M.SEG_PAD_Q, dtype=torch.int32, device=dev)
+    q_pos = torch.full((2, sq), M.POS_PAD, dtype=torch.int32, device=dev)
+    nxt = 1
+    for r, (span, n) in enumerate(zip(spans, chunks)):
+        np_ = -(-span // ps)
+        page_list[r, 0] = pages[0]                       # the shared page
+        page_list[r, 1:np_] = pages[nxt:nxt + np_ - 1]
+        nxt += np_ - 1
+        kv_seg[r, :span] = 0
+        kv_pos[r, :span] = torch.arange(span, device=dev)
+        q_seg[r, :n] = 0
+        q_pos[r, :n] = torch.arange(span - n, span, device=dev)
+
+    def randn(*shape):
+        t = torch.randn(*shape, generator=gen, device=dev, dtype=torch.bfloat16)
+        return t.requires_grad_() if requires_grad else t
+
+    ids = dict(q_segment_ids=q_seg, kv_segment_ids=kv_seg, q_positions=q_pos,
+               kv_positions=kv_pos)
+    bq = tuning.fwd_tiles(d)[0]
+    spec = M.MaskSpec(causal=True, **ids)
+    layout = M.compile_block_layout(spec, sq, T * ps, bq, ps).as_array(dev)
+    layout = M.paged_prefill_block_layout(layout, page_list)
+    return {"q": randn(2, hq, sq, d), "k_pool": randn(hkv, num_pages, ps, d),
+            "v_pool": randn(hkv, num_pages, ps, d), "page_list": page_list,
+            "do": randn(2, hq, sq, d).detach(), "ids": ids, "layout": layout,
+            "mask": spec.element_mask(sq, T * ps),   # (2, 1, sq, T*ps) bool
+            "call": dict(scale=d ** -0.5, causal=True, window=None,
+                         block_q=bq, **ids),
+            "shape": f"chunks {chunks} against paged prefixes {spans} "
+                     f"(one row each, first page shared, 2 dead slots), "
+                     f"page {ps}"}
+
+
+def paged_grad_kernel_phase(torch, seed: int) -> list[dict]:
+    """The paged dq and dkv kernels (+ the fold into pool shape) against the
+    plain backward over the gathered pages: dq, dk_pool, dv_pool within
+    2e-2 of their max, untouched pages exactly zero, two calls
+    bit-identical; each kernel timed beside its bound, the plain backward's
+    time and SDPA's backward on pre-gathered K/V."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import gather_pages
+
+    c = paged_grad_case(torch, seed)
+    q, k_pool, v_pool, page_list = c["q"], c["k_pool"], c["v_pool"], c["page_list"]
+    call, d = c["call"], q.shape[-1]
+    o, m, l = fa.flash_prefill_paged_forward(q, k_pool, v_pool, page_list,
+                                             c["layout"], **call)
+    res = (q, k_pool, v_pool, page_list, o, c["do"], m, l, c["layout"])
+    got = fa.flash_prefill_paged_backward(*res, **call)
+    torch.cuda.synchronize()
+    want = fa.flash_prefill_paged_backward_plain(*res, **call)
+    errs = dict(zip(("dq", "dk_pool", "dv_pool"), map(scaled_err, got, want)))
+    abs_errs = {n: float((g.float() - w.float()).abs().max())
+                for n, g, w in zip(errs, got, want)}
+    check(all(float(w.float().abs().max()) > 0 for w in want),
+          "the plain paged backward gave an all-zero gradient")
+    named = torch.zeros(k_pool.shape[1], dtype=torch.bool, device=q.device)
+    named[page_list[page_list >= 0].long()] = True
+    untouched_zero = all(bool((g[:, ~named] == 0).all()) for g in got[1:])
+    again = fa.flash_prefill_paged_backward(*res, **call)
+    torch.cuda.synchronize()
+    identical = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"[paged-grad] {c['shape']}: scaled |grad - plain| {errs}; "
+          f"untouched pages zero {untouched_zero}; two calls bit-identical "
+          f"{identical}", flush=True)
+    for name, e in errs.items():
+        check(e <= 2e-2, f"paged backward: {name} scaled error {e} > 2e-2")
+    check(untouched_zero, "paged backward: an untouched page got a gradient")
+    check(identical, "paged backward: two calls differ (not deterministic)")
+
+    ops_ = fa.prepare_backward(q, k_pool, v_pool, o, c["do"], m, l, None,
+                               c["layout"], q_offset=0, block_k=k_pool.shape[2],
+                               page_list=page_list, **call)
+    dq_ms = time_ms(torch, [lambda: fa.launch_dq_paged(ops_)])
+    dkv_ms = time_ms(torch, [lambda: fa.launch_dkv_paged(ops_)])
+    full_ms = time_ms(torch, [lambda: fa.flash_prefill_paged_backward(
+        *res, **call)])
+    plain_ms = time_ms(torch, [lambda: fa.flash_prefill_paged_backward_plain(
+        *res, **call)], warmup=1, iters=3)
+    # library: SDPA's backward alone on K/V gathered beforehand, same mask;
+    # the padded q rows, which have no key, may see key 0 so SDPA's softmax
+    # stays finite (only the time is used)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = c["mask"].clone()
+    mask[..., 0] |= ~mask.any(dim=-1)
+    leaves = [q.detach().requires_grad_(),
+              gather_pages(k_pool, page_list).requires_grad_(),
+              gather_pages(v_pool, page_list).requires_grad_()]
+    out = sdpa(*leaves, attn_mask=mask, scale=call["scale"], enable_gqa=True)
+    lib_ms = time_ms(torch, [lambda: torch.autograd.grad(
+        out, leaves, c["do"], retain_graph=True)])
+    del out, leaves
+    pairs = int(c["mask"].sum()) * q.shape[1]
+    live = int((page_list >= 0).sum())
+    kv_bytes = 2 * live * k_pool.shape[0] * k_pool.shape[2] * d * 2
+    ins = (nbytes(q, c["do"], m, l, c["layout"], page_list, *c["ids"].values())
+           + m.numel() * 4 + kv_bytes)                       # + D
+    dq_bound = bound(ins + nbytes(got[0]), 2.0 * d * pairs, BF16_FLOPS_PER_S)
+    dkv_bound = bound(ins + nbytes(got[1], got[2]), 8.0 * d * pairs,
+                      BF16_FLOPS_PER_S)
+    lib = "SDPA backward (dq, dk, dv together) on pre-gathered K/V, bool mask"
+    recs = []
+    for name, ms, (b_ms, b_by), grads, line in (
+            ("flash_bwd_dq_paged", dq_ms, dq_bound, ("dq",), 851),
+            ("flash_bwd_dkv_paged", dkv_ms, dkv_bound, ("dk_pool", "dv_pool"),
+             897)):
+        rec = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+               "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+               "launches": None,
+               "max_abs_err": max(abs_errs[g] for g in grads),
+               "scaled_err": max(errs[g] for g in grads), "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": lib_ms, "library": lib, "shape": c["shape"],
+               "backward_ms": full_ms, "deterministic": identical,
+               "plain_ms_is": "the plain paged backward (dq, dk, dv, fold)"}
+        recs.append(rec)
+        print(f"[kernel] {name}: {c['shape']}: scaled err "
+              f"{rec['scaled_err']:.3g}; {ms:.4f} ms (whole backward with the "
+              f"fold {full_ms:.4f} ms; plain backward {plain_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}, {lib} {lib_ms:.4f} ms)", flush=True)
+    return recs
+
+
+def paged_grad_phase(torch, seed: int) -> dict:
+    """The trainable paged prefill's main path: one forward and backward
+    through ``core.attention.paged_prefill_attention`` (impl "pallas") with
+    q and both pools requiring grad. Launch counters are reset just before
+    and the paged forward, dq and dkv kernels must be > 0 just after."""
+    from repro_torch.core.attention import AttentionSpec, paged_prefill_attention
+
+    c = paged_grad_case(torch, seed + 1, requires_grad=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    o = paged_prefill_attention(c["q"], c["k_pool"], c["v_pool"],
+                                c["page_list"], AttentionSpec(impl="pallas"),
+                                **c["ids"])
+    (o.float() * c["do"].float()).sum().backward()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for name in PAGED_GRAD_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was never launched in the paged-grad path")
+    for n in ("q", "k_pool", "v_pool"):
+        check(bool(torch.isfinite(c[n].grad).all()),
+              f"paged-grad path: the {n} gradient is not finite")
+    print(f"[paged-grad] forward + backward through paged_prefill_attention: "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 3: float32 parity, cuda (kernels) vs cpu (plain versions)
 # ---------------------------------------------------------------------------
 
@@ -589,6 +859,9 @@ def read_launches() -> dict:
 
 
 SERVE_KERNELS = ("flash_fwd", "flash_fwd_paged", "flash_decode_paged")
+DENSE_SERVE_KERNELS = ("flash_fwd", "flash_decode")
+PAGED_GRAD_KERNELS = ("flash_fwd_paged", "flash_bwd_dq_paged",
+                      "flash_bwd_dkv_paged")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
@@ -666,12 +939,16 @@ def _device_us(e) -> float:
         getattr(e, "self_cuda_time_total", 0.0)
 
 
+PROFILED_NEW_TOKENS = 8
+
+
 def profile_serve(torch, model, params, prompts, kw) -> dict:
-    """The same serve once more under ``torch.profiler`` (not timed for the
-    end-to-end numbers: tracing adds host cost): device busy share of the
-    wall time, device time per launch of each ported kernel, and the
-    kernels that take the most device time. Launch counters are not read
-    here."""
+    """The same requests once more under ``torch.profiler`` with
+    ``PROFILED_NEW_TOKENS`` new tokens each instead of 32 (tracing multiplies
+    the host cost of every decode step; the prefill work is the same): device
+    busy share of the wall time, device time per launch of each ported
+    kernel, and the kernels that take the most device time. Launch counters
+    are not read here."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -679,7 +956,7 @@ def profile_serve(torch, model, params, prompts, kw) -> dict:
 
     eng = ServingEngine(model, params, **kw)
     for p in prompts:
-        eng.submit(p, max_new_tokens=32)
+        eng.submit(p, max_new_tokens=PROFILED_NEW_TOKENS)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -709,6 +986,7 @@ def profile_serve(torch, model, params, prompts, kw) -> dict:
     top = sorted(kernels, key=_device_us, reverse=True)[:8]
     out = {"wall_s": wall_us / 1e6, "device_busy_s": busy_us / 1e6,
            "busy_share": busy_us / wall_us, "ported": per_kernel,
+           "new_tokens_per_request": PROFILED_NEW_TOKENS,
            "top": [{"kernel": e.key[:90], "count": e.count,
                     "device_ms": _device_us(e) / 1e3} for e in top]}
     print(f"[profile] serve under torch.profiler: wall {wall_us / 1e6:.2f}s, "
@@ -718,6 +996,120 @@ def profile_serve(torch, model, params, prompts, kw) -> dict:
         print(f"[profile]   {t['device_ms']:9.2f} ms  x{t['count']:<6} "
               f"{t['kernel']}", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 4b-4c: dense slot serving
+# ---------------------------------------------------------------------------
+
+def dense_parity_phase(torch, seed: int) -> dict:
+    """granite-3-2b at full width, 2 layers, float32, dense slot mode: the
+    engine on ``cuda`` (packed prefill + the contiguous decode kernel)
+    against the same engine on ``cpu`` (plain versions), and against the
+    paged engine on ``cuda``; greedy tokens must be identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, params_to
+    from repro_torch.serve import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("granite-3-2b"), num_layers=2,
+                              dtype="float32", attn_impl="pallas",
+                              use_decode_kernel=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(seed + 4), device="cpu")
+    gen = torch.Generator().manual_seed(seed + 5)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (41, 150, 7, 96, 23)]
+    outs, launches = {}, {}
+    for device, paged in (("cuda", False), ("cpu", False), ("cuda", True)):
+        eng = ServingEngine(model, params_to(params, device), device=device,
+                            num_slots=4, capacity=256, paged=paged)
+        reset_launches()
+        t0 = time.perf_counter()
+        outs[(device, paged)] = _serve(eng, prompts, 12, prime=False)
+        launches[(device, paged)] = read_launches()
+        print(f"[dense-parity] {device} {'paged' if paged else 'dense'}: "
+              f"{sum(map(len, outs[(device, paged)].values()))} tokens in "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+    check(launches[("cuda", False)]["flash_decode"] > 0
+          and launches[("cuda", False)]["flash_decode_paged"] == 0,
+          "dense parity: the dense engine did not decode through flash_decode")
+    vs_cpu = outs[("cuda", False)] == outs[("cpu", False)]
+    vs_paged = outs[("cuda", False)] == outs[("cuda", True)]
+    print(f"[dense-parity] greedy tokens identical: cuda dense vs cpu dense "
+          f"{vs_cpu}, cuda dense vs cuda paged {vs_paged}", flush=True)
+    check(vs_cpu, "dense parity: cuda and cpu tokens differ")
+    check(vs_paged, "dense parity: dense and paged tokens differ on the card")
+    return {"identical_vs_cpu": vs_cpu, "identical_vs_paged": vs_paged,
+            "requests": len(prompts)}
+
+
+def dense_serve_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
+    """The published granite-3-2b (40 layers, bf16) in dense slot mode with
+    the decode kernel: 4 slots of 2048, 8 requests with prompts of 64-1024
+    tokens, 32 new tokens each, drained requests prefilled packed. Launch
+    counters reset just before; flash_fwd and flash_decode must be > 0 and
+    flash_decode_paged 0 just after. Not profiled."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServingEngine
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("granite-3-2b"), attn_impl="pallas",
+                              use_decode_kernel=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    gen = torch.Generator().manual_seed(seed + 6)
+
+    def toks(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    kw = dict(num_slots=4, capacity=2048, paged=False, device=dev)
+    warm = ServingEngine(model, params, **kw)       # cuBLAS / allocator warm-up
+    warm.submit(toks(300), max_new_tokens=4)
+    warm.run()
+    del warm
+    prompts = [toks(n) for n in (64, 1024, 300, 512, 128, 900, 700, 200)]
+    eng = ServingEngine(model, params, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_tok = sum(len(r.output) for r in done)
+    lat = eng.latency_stats()
+    check(len(done) == len(prompts) and all(len(r.output) == 32 for r in done),
+          "dense serve phase did not finish every request")
+    for name in DENSE_SERVE_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was never launched in the dense serve phase")
+    check(launches["flash_decode_paged"] == 0,
+          "the dense serve launched the paged decode kernel")
+    rec = {"model": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "mode": "dense slots", "requests": len(done), "lanes": 4,
+           "capacity": 2048, "new_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "ttft_p50_s": lat["ttft_p50"],
+           "ttft_p95_s": lat["ttft_p95"],
+           "tok_latency_p50_s": lat["tok_latency_p50"],
+           "peak_memory_bytes": peak, "prefill_calls": eng.prefill_calls,
+           "decode_calls": eng.decode_calls,
+           "decode_geometry": [eng.decode_block_k, eng.num_decode_splits],
+           "blocks_skipped": eng.blocks_skipped,
+           "blocks_total": eng.blocks_total, "card": card}
+    print(f"[dense-serve] {n_tok} tokens in {wall:.2f}s: {n_tok / wall:.1f} "
+          f"tok/s, TTFT p50 {lat['ttft_p50'] * 1e3:.1f} ms, decode step p50 "
+          f"{lat['tok_latency_p50'] * 1e3:.1f} ms, peak memory "
+          f"{peak / 2**30:.2f} GiB, prefill calls {eng.prefill_calls}, "
+          f"launches {launches} [{card}]", flush=True)
+    return rec, launches
 
 
 # ---------------------------------------------------------------------------
@@ -871,7 +1263,7 @@ def profile_train(torch, trainer) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# --ab: parent against change on the serving path, in one call
+# --ab: parent against change on the serving and training kernels, one call
 # ---------------------------------------------------------------------------
 
 _AB_RUN = """
@@ -881,19 +1273,129 @@ import torch
 import chip_smoke as cs
 from repro_torch.kernels import build
 build.build_all()
+bwd, fwd = cs.train_kernel_phase(torch, {seed})
 kernels = cs.kernel_phase(torch, {seed})
 cs.profile_serve = lambda *a, **k: {{}}
 serve, _ = cs.serve_phase(torch, {seed}, cs.card_line())
 print("AB " + json.dumps({{
-    "kernels": {{r["name"]: r["ms"] for r in kernels}},
+    "kernels": {{r["name"]: r["ms"] for r in kernels + bwd}},
+    "flash_fwd_train_shape_ms": fwd["ms"],
     "serve": {{n: serve[n] for n in ("tokens_per_s", "ttft_p50_s",
                                      "tok_latency_p50_s", "wall_s")}}}}))
 """
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores")
+
+
+def _cubin(root: pathlib.Path, name: str, out: pathlib.Path):
+    """nvcc of one kernel source to a cubin with ``-Xptxas -v`` (the build's
+    own flags, without the shared-library ones); returns the process."""
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+    src = root / "src" / "repro_torch" / "kernels" / "csrc" / f"{name}.cu"
+    nvcc = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    cmd = [str(nvcc) if nvcc.exists() else "nvcc", *flags, "-cubin",
+           "-Xptxas", "-v", "-o", str(out), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def _demangle(names: list[str]) -> dict[str, str]:
+    tool = pathlib.Path("/usr/local/cuda/bin/cu++filt")
+    out = subprocess.run([str(tool) if tool.exists() else "c++filt"],
+                         input="\n".join(names), capture_output=True,
+                         text=True, timeout=60)
+    return dict(zip(names, out.stdout.splitlines()))
+
+
+def _kernel_info(log: str, cubin: pathlib.Path) -> dict[str, dict]:
+    """Per kernel (demangled name): registers and stack from ptxas, and the
+    SASS instruction text from cuobjdump (addresses and encodings dropped)."""
+    info, cur = {}, None
+    for line in log.splitlines():
+        m = _PTXAS_ENTRY.search(line)
+        if m:
+            cur = m.group(1)
+            info[cur] = {}
+        elif cur and _PTXAS_STACK.search(line):
+            st = _PTXAS_STACK.search(line)
+            info[cur]["stack"], info[cur]["spill"] = int(st.group(1)), int(st.group(2))
+        elif cur and _PTXAS_REGS.search(line):
+            info[cur]["registers"] = int(_PTXAS_REGS.search(line).group(1))
+    tool = pathlib.Path("/usr/local/cuda/bin/cuobjdump")
+    sass = subprocess.run([str(tool) if tool.exists() else "cuobjdump",
+                           "-sass", str(cubin)], capture_output=True,
+                          text=True, timeout=300).stdout
+    body, cur = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            body[cur] = []
+        elif cur and "/*" in line:
+            text = re.sub(r"/\*[^*]*\*/", "", line).strip().rstrip(";").strip()
+            if text:
+                body[cur].append(text)
+    names = _demangle(sorted(set(info) | set(body)))
+    return {names.get(k, k): {**info.get(k, {}), "sass": body.get(k, [])}
+            for k in set(info) | set(body)}
+
+
+def _base_name(kernel: str) -> str:
+    """A demangled kernel name without a last template argument ``false``:
+    the change may add a ``bool`` template parameter whose ``false``
+    instantiation is the parent's kernel."""
+    return re.sub(r", (false|\(bool\)0)>\(", ">(", kernel, count=1)
+
+
+def compare_builds(parent: pathlib.Path, change: pathlib.Path) -> dict:
+    """For every kernel the parent builds: its registers, stack and spills
+    in both checkouts and whether the change's SASS is identical (matched
+    by name, or through ``_base_name`` where the change added a trailing
+    ``false`` template argument); plus the kernels only the change
+    builds."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for tag, root in (("parent", parent), ("change", change)):
+            for name in ("flash_fwd", "flash_decode", "flash_bwd"):
+                cub = pathlib.Path(tmp) / f"{tag}-{name}.cubin"
+                procs[(tag, name)] = (_cubin(root, name, cub), cub)
+        infos = {}
+        for key, (proc, cub) in procs.items():
+            log, _ = proc.communicate()
+            check(proc.returncode == 0, f"nvcc {key} failed:\n{log[-3000:]}")
+            infos[key] = _kernel_info(log, cub)
+    for name in ("flash_fwd", "flash_decode", "flash_bwd"):
+        par, chg = infos[("parent", name)], infos[("change", name)]
+        by_base = {_base_name(k): v for k, v in chg.items()
+                   if _base_name(k) != k and _base_name(k) not in chg}
+        matched = set()
+        for kern, p in sorted(par.items()):
+            c = chg.get(kern) or by_base.get(kern)
+            matched.add(id(c))
+            if c is None:
+                out[kern] = {"parent": {k: v for k, v in p.items() if k != "sass"},
+                             "change": None}
+                continue
+            out[kern] = {
+                "parent": {k: v for k, v in p.items() if k != "sass"},
+                "change": {k: v for k, v in c.items() if k != "sass"},
+                "sass_instructions": [len(p["sass"]), len(c["sass"])],
+                "sass_identical": p["sass"] == c["sass"]}
+        out[f"{name}: new kernels"] = sorted(
+            k for k, v in chg.items() if id(v) not in matched)
+    return out
 
 
 def ab_main(parent: pathlib.Path, seed: int) -> int:
     card = card_line()
     print(card, flush=True)
+    builds = compare_builds(parent, ROOT)
+    for kern, rec in builds.items():
+        print(f"[ab-build] {kern}: {json.dumps(rec)}", flush=True)
     runs = {"parent": [], "change": []}
     for tag in ("parent", "change", "change", "parent"):
         root = parent if tag == "parent" else ROOT
@@ -906,6 +1408,10 @@ def ab_main(parent: pathlib.Path, seed: int) -> int:
         runs[tag].append(json.loads(line[0][3:]))
         print(f"[ab] {tag}: {line[0][3:]}", flush=True)
     print(json.dumps({"ab": runs, "card": card}))
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_ab.json").write_text(json.dumps(
+        {"ab": runs, "builds": builds, "card": card}, indent=1))
     return 0
 
 
@@ -947,20 +1453,30 @@ def main() -> int:
     bwd_kernels, fwd_train = train_kernel_phase(torch, args.seed)
     kernels[0]["at_train_shape"] = fwd_train
     kernels += bwd_kernels
+    kernels += paged_grad_kernel_phase(torch, args.seed)
+    torch.cuda.empty_cache()
+    paths = {"paged_grad": paged_grad_phase(torch, args.seed)}
     torch.cuda.empty_cache()
     parity = parity_phase(torch, args.seed)
-    serve, serve_launches = serve_phase(torch, args.seed, card)
+    serve, paths["serve"] = serve_phase(torch, args.seed, card)
+    torch.cuda.empty_cache()
+    dense_parity = dense_parity_phase(torch, args.seed)
+    dense_serve, paths["dense_serve"] = dense_serve_phase(torch, args.seed,
+                                                          card)
     torch.cuda.empty_cache()
     train_parity = train_parity_phase(torch, args.seed)
-    train, train_launches = train_phase(torch, args.seed, card)
+    train, paths["train"] = train_phase(torch, args.seed, card)
     for rec in kernels:
-        by_path = {"serve": serve_launches[rec["name"]],
-                   "train": train_launches[rec["name"]]}
+        by_path = {p: launches[rec["name"]] for p, launches in paths.items()}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
+    check(all(rec["launches"] > 0 for rec in kernels),
+          "a kernel was launched on none of the main paths")
 
     record = {"card": card, "build_s": build_s, "kernels": kernels,
-              "parity": parity, "serve": serve, "train_parity": train_parity,
+              "paged_grad_launches": paths["paged_grad"], "parity": parity,
+              "serve": serve, "dense_parity": dense_parity,
+              "dense_serve": dense_serve, "train_parity": train_parity,
               "train": train, "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)

@@ -16,11 +16,13 @@
 only when ``deterministic`` is False, on ``pallas`` and ``reference``;
 ``chunked`` raises on it, as in the JAX package.
 
-``decode_attention`` is the single-token path against a contiguous cache
-(plain masked softmax; the contiguous split-KV kernel is not ported yet).
+``decode_attention`` is the single-token path against a contiguous cache:
+the split-KV kernel (``use_decode_kernel``) or a plain masked softmax.
 ``paged_prefill_attention`` / ``paged_decode_attention`` attend the shared
 page pool: in place through the kernels, or through a clamped gather plus
-the same fused mask on every other path.
+the same fused mask on every other path. ``paged_prefill_attention`` is
+differentiable on every path (the paged op's backward runs the paged dq
+and dkv kernels).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 from repro_torch.core import masks
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels.flash_decode import flash_decode_paged
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
 
 AttnImpl = Literal["pallas", "chunked", "reference"]
 
@@ -101,13 +103,16 @@ def decode_attention(
     kv_mask: torch.Tensor | None = None,   # (b, capacity) True = valid slot
     scale: float | None = None,
 ) -> torch.Tensor:
-    """GQA-native masked softmax over the cache: q reshaped to
-    (b, hkv, rep, 1, d) against the unexpanded cache. Validity comes from
-    ``masks.decode_kv_valid`` (kv_len + window + optional slot mask)."""
+    """The split-KV decode kernel (``spec.use_decode_kernel``; its tile is
+    ``spec.block_k``, as in the JAX package), else a GQA-native masked
+    softmax over the cache: q reshaped to (b, hkv, rep, 1, d) against the
+    unexpanded cache. Validity comes from ``masks.decode_kv_valid``
+    (kv_len + window + optional slot mask) on both paths."""
     if spec.use_decode_kernel:
-        raise NotImplementedError(
-            "the contiguous-cache split-KV decode kernel (dense slot mode) "
-            "is not ported yet; use the paged cache")
+        return flash_decode(q, k_cache, v_cache, kv_len, scale=scale,
+                            block_k=spec.block_k,
+                            num_splits=spec.num_decode_splits,
+                            window=spec.window, kv_mask=kv_mask)
     b, hq, sq, d = q.shape
     _, hkv, capacity, _ = k_cache.shape
     rep = hq // hkv

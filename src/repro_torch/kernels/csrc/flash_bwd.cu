@@ -6,6 +6,20 @@
 //   * flash_bwd_dq_kernel  <- `_dq_kernel` (l.382-429, pl.pallas_call at l.581)
 //   * flash_bwd_dkv_kernel <- `_dkv_kernel` (l.436-495, pl.pallas_call at
 //     l.612) together with the GQA group sum outside it (l.631-636).
+// and, with `Paged=true`, those of flash_prefill_paged_backward (l.778),
+// the backward of the paged prefill (flash_fwd.cu with Paged=true):
+//   * flash_bwd_dq_kernel<.., true>  <- the paged dq (pl.pallas_call at
+//     l.851): kv tiles are pool pages read through page_list[b, t];
+//   * flash_bwd_dkv_kernel<.., true> <- the paged dkv (pl.pallas_call at
+//     l.897) with its GQA sum (l.918-920): one CTA per (b, hkv, page slot),
+//     writing fp32 rows of the PACKED page-aligned (b, hkv, T*ps, D)
+//     layout; the fold into pool shape (dead slots dropped, pages shared
+//     across rows summed in a fixed order) is a PyTorch op
+//     (kernels/flash_attention.py), as it is XLA-level code in the JAX
+//     package.
+// Only where a kv tile comes from changes with `Paged` (the tile is one
+// page of ps rows), exactly as in flash_fwd.cu; the contiguous
+// instantiations compile the same code as without it.
 // Both recompute P = diag(l)^-1 exp(S - m) from the pre-scaled q' = scale*q,
 // k and the forward's (m, l) (`_recompute_p`: rows with l = 0 use m = 0,
 // l = 1 and contribute nothing), regenerate the dropout keep mask from the
@@ -27,6 +41,10 @@
 // carries four of the five products (bound by operations) and dq one
 // (bound by its bytes). Splitting into two kernels recomputes S and dP in
 // both (7 products in all instead of 5); the bound counts only the five.
+// The paged pair at the serving chunk shape (192 + 64 q rows against
+// 1536 / 600-token paged prefixes) has ~14x fewer unmasked pairs and is
+// bound by bytes: the q, dO and live K/V pages in, dq and the pool-shaped
+// dk, dv out.
 // This first version computes in scalar fp32 FMA from shared memory, far
 // below the tensor-core peak; mma/wgmma, TMA and pipelining are work for a
 // later change.
@@ -44,6 +62,9 @@
 //   * a tile's class is read before any of its addresses is formed; SKIP
 //     tiles are never read; PARTIAL tiles apply the fused element mask,
 //     PARTIAL_DATA tiles its data terms, FULL tiles none (flash_common.cuh).
+//     The paged dkv kernel scans its slot's layout column before it reads
+//     the slot's page index: a dead slot (negative entry, SKIP in every
+//     row) is never addressed and writes zeros.
 //   * dq kernel: 8 warps x 8 q rows, a lane owns 2 kv columns of S/dP and
 //     ceil(D/32) dims of dq. dkv kernel: 8 warps x 8 kv rows, a lane owns 2
 //     q rows of S/dP and ceil(D/32) dims of dk and dv. Tiles are staged in
@@ -75,7 +96,13 @@ struct BwdParams {
   DropoutParams drop;
   int b, hq, hkv, sq, sk, nq, nk, block_q, block_k;
   float scale;
+  const int32_t* page_list;  // paged: (b, nk) physical pages; K/V (hkv, P, ps, D)
+  int num_pages;
 };
+
+// dkv output type: k's dtype, or fp32 packed rows for the paged kernel
+template <typename T, bool Paged> struct DkvOut { using type = T; };
+template <typename T> struct DkvOut<T, true> { using type = float; };
 
 // P for one (row, col) from the saved statistics (`_recompute_p`)
 __device__ __forceinline__ float recompute_p(float s, bool ok, float m_safe, float l_safe) {
@@ -93,7 +120,7 @@ __device__ __forceinline__ float dot_rows(const float* a, const float* b) {
 // ---------------------------------------------------------------------------
 // dq: one CTA per (q-block, hq, b)
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool Paged>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const BwdParams p) {
   constexpr int DPL = (D + 31) / 32;
   constexpr int LD = D + 1;                 // padded row stride
@@ -140,7 +167,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const BwdParams p
   for (int ki = 0; ki < p.nk; ++ki) {
     bool geo_on, data_on;
     if (!mp.tile_terms(mp.block_class(b, qi, ki), geo_on, data_on)) continue;
-    const long long kv_off = (((long long)b * p.hkv + kvh) * p.sk + (long long)ki * bk) * D;
+    long long kv_off;
+    if (Paged) {
+      const int page = p.page_list[(long long)b * p.nk + ki];
+      kv_off = ((long long)kvh * p.num_pages + page) * bk * D;
+    } else {
+      kv_off = (((long long)b * p.hkv + kvh) * p.sk + (long long)ki * bk) * D;
+    }
     __syncthreads();                        // previous tile fully consumed
     for (int i = tid; i < bk * D; i += THREADS) {
       const int row = i / D, col = i - row * D;
@@ -204,7 +237,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(const BwdParams p
 // ---------------------------------------------------------------------------
 // dkv: one CTA per (kv-block, hkv, b), looping over the group's q heads
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool Paged>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const BwdParams p) {
   constexpr int DPL = (D + 31) / 32;
   constexpr int LD = D + 1;
@@ -228,13 +261,24 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const BwdParams 
   const MaskParams mp = p.mask;             // by value: see flash_common.cuh
   const DropoutParams drop = p.drop;
 
+  // the output rows (paged: the slot's rows of the packed layout, sk = T*ps)
   const long long kv_off = (((long long)b * p.hkv + kvh) * p.sk + (long long)ki * bk) * D;
-  const T* kg = static_cast<const T*>(p.k) + kv_off;
-  const T* vg = static_cast<const T*>(p.v) + kv_off;
-  for (int i = tid; i < bk * D; i += THREADS) {
-    const int row = i / D, col = i - row * D;
-    k_s[row * LD + col] = to_f32(kg[i]);
-    v_s[row * LD + col] = to_f32(vg[i]);
+  long long kv_in = kv_off;
+  bool live = true;
+  if (Paged) {
+    // the slot's column is read before its page index
+    live = false;
+    for (int qi = 0; qi < p.nq && !live; ++qi) live = mp.block_class(b, qi, ki) != BLOCK_SKIP;
+    if (live) kv_in = ((long long)kvh * p.num_pages + p.page_list[(long long)b * p.nk + ki]) * bk * D;
+  }
+  if (live) {
+    const T* kg = static_cast<const T*>(p.k) + kv_in;
+    const T* vg = static_cast<const T*>(p.v) + kv_in;
+    for (int i = tid; i < bk * D; i += THREADS) {
+      const int row = i / D, col = i - row * D;
+      k_s[row * LD + col] = to_f32(kg[i]);
+      v_s[row * LD + col] = to_f32(vg[i]);
+    }
   }
 
   float dk[KROWS][DPL], dv[KROWS][DPL];
@@ -318,8 +362,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(const BwdParams 
     }
   }
 
-  T* dkg = static_cast<T*>(p.out0) + kv_off;
-  T* dvg = static_cast<T*>(p.out1) + kv_off;
+  using OutT = typename DkvOut<T, Paged>::type;
+  OutT* dkg = static_cast<OutT*>(p.out0) + kv_off;
+  OutT* dvg = static_cast<OutT*>(p.out1) + kv_off;
 #pragma unroll
   for (int i = 0; i < KROWS; ++i) {
     const int c = warp * KROWS + i;
@@ -357,25 +402,32 @@ cudaError_t launch_kernel(K kern, dim3 grid, size_t smem, const BwdParams& p,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool Paged>
 cudaError_t launch(int which, const BwdParams& p, cudaStream_t stream) {
   if (which == 0) {
-    return launch_kernel(flash_bwd_dq_kernel<T, D>, dim3(p.nq, p.hq, p.b), dq_smem<D>(p), p,
-                         stream);
+    return launch_kernel(flash_bwd_dq_kernel<T, D, Paged>, dim3(p.nq, p.hq, p.b),
+                         dq_smem<D>(p), p, stream);
   }
-  return launch_kernel(flash_bwd_dkv_kernel<T, D>, dim3(p.nk, p.hkv, p.b), dkv_smem<D>(p), p,
-                       stream);
+  return launch_kernel(flash_bwd_dkv_kernel<T, D, Paged>, dim3(p.nk, p.hkv, p.b),
+                       dkv_smem<D>(p), p, stream);
+}
+
+template <typename T, bool Paged>
+cudaError_t dispatch_d(int which, const BwdParams& p, int head_dim, cudaStream_t stream) {
+  switch (head_dim) {
+    case 16: return launch<T, 16, Paged>(which, p, stream);
+    case 32: return launch<T, 32, Paged>(which, p, stream);
+    case 64: return launch<T, 64, Paged>(which, p, stream);
+    case 128: return launch<T, 128, Paged>(which, p, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
-cudaError_t dispatch_d(int which, const BwdParams& p, int head_dim, cudaStream_t stream) {
-  switch (head_dim) {
-    case 16: return launch<T, 16>(which, p, stream);
-    case 32: return launch<T, 32>(which, p, stream);
-    case 64: return launch<T, 64>(which, p, stream);
-    case 128: return launch<T, 128>(which, p, stream);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch_paged(int which, bool paged, const BwdParams& p, int head_dim,
+                           cudaStream_t stream) {
+  return paged ? dispatch_d<T, true>(which, p, head_dim, stream)
+               : dispatch_d<T, false>(which, p, head_dim, stream);
 }
 
 int run(int which, int dtype, int head_dim,
@@ -388,9 +440,10 @@ int run(int which, int dtype, int head_dim,
         int causal, int window, int q_offset, int kv_valid_len,
         int dropout_on, unsigned dropout_seed, unsigned dropout_threshold,
         float dropout_keep, int dropout_q_len, int dropout_k_len,
-        float scale, void* stream) {
+        float scale, void* stream, const int32_t* page_list, int num_pages) {
+  const bool paged = page_list != nullptr;
   if (block_q <= 0 || block_q > MAX_BQ || block_k <= 0 || block_k > MAX_BK || hkv <= 0 ||
-      hq % hkv != 0) {
+      hq % hkv != 0 || (paged && dropout_on)) {
     return (int)cudaErrorInvalidValue;
   }
   BwdParams p;
@@ -406,12 +459,13 @@ int run(int which, int dtype, int head_dim,
                         dropout_q_len, dropout_k_len);
   p.b = b; p.hq = hq; p.hkv = hkv; p.sq = sq; p.sk = sk; p.nq = nq; p.nk = nk;
   p.block_q = block_q; p.block_k = block_k; p.scale = scale;
+  p.page_list = page_list; p.num_pages = num_pages;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_d<float>(which, p, head_dim, s);
+    err = dispatch_paged<float>(which, paged, p, head_dim, s);
   } else if (dtype == 1) {
-    err = dispatch_d<__nv_bfloat16>(which, p, head_dim, s);
+    err = dispatch_paged<__nv_bfloat16>(which, paged, p, head_dim, s);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -425,6 +479,9 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16. q is pre-scaled (q' = scale * q).
 // flash_bwd_dq writes dq into out0 (out1 unused); flash_bwd_dkv writes the
 // group-summed dk, dv into out0, out1. Returns a cudaError_t (0 = launched).
+// The _paged entry points take k, v as pools (hkv, num_pages, ps, D), the
+// kv tile = one page (block_k = ps, sk = nk * ps), the page list (b, nk)
+// and no dropout; flash_bwd_dkv_paged writes fp32 packed (b, hkv, sk, D).
 #define FLASH_BWD_ARGS                                                                    \
   int dtype, int head_dim, const void *q, const void *k, const void *v, const void *dout, \
       const float *m, const float *l, const float *dd, void *out0, void *out1,            \
@@ -440,9 +497,19 @@ extern "C" {
       window, q_offset, kv_valid_len, dropout_on, dropout_seed, dropout_threshold,         \
       dropout_keep, dropout_q_len, dropout_k_len, scale, stream
 
-int flash_bwd_dq(FLASH_BWD_ARGS) { return run(0, FLASH_BWD_PASS); }
+int flash_bwd_dq(FLASH_BWD_ARGS) { return run(0, FLASH_BWD_PASS, nullptr, 0); }
 
-int flash_bwd_dkv(FLASH_BWD_ARGS) { return run(1, FLASH_BWD_PASS); }
+int flash_bwd_dkv(FLASH_BWD_ARGS) { return run(1, FLASH_BWD_PASS, nullptr, 0); }
+
+int flash_bwd_dq_paged(FLASH_BWD_ARGS, const int32_t* page_list, int num_pages) {
+  if (page_list == nullptr) return (int)cudaErrorInvalidValue;
+  return run(0, FLASH_BWD_PASS, page_list, num_pages);
+}
+
+int flash_bwd_dkv_paged(FLASH_BWD_ARGS, const int32_t* page_list, int num_pages) {
+  if (page_list == nullptr) return (int)cudaErrorInvalidValue;
+  return run(1, FLASH_BWD_PASS, page_list, num_pages);
+}
 
 const char* flash_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -6,7 +6,11 @@ their plain versions (port of ``repro.kernels.flash_attention``).
 through a page list) return ``(o, m, l)`` exactly as the Pallas kernels do:
 o in the input dtype, per-row max m and normalizer l in fp32, rows with no
 unmasked key at o = 0, l = 0, m = NEG_INF. ``flash_attention_backward``
-returns ``(dq, dk, dv)`` with dk and dv summed over each GQA group. All of
+returns ``(dq, dk, dv)`` with dk and dv summed over each GQA group;
+``flash_prefill_paged_backward`` returns ``(dq, dk_pool, dv_pool)``: the
+paged dkv kernel writes packed page-aligned rows, which
+``fold_packed_to_pool`` sums into pool shape (dead slots dropped, pages
+shared across rows accumulated in a fixed order: deterministic). All of
 them take the COMPILED block layout (``core.masks.compile_block_layout``)
 as the single source of block-run truth and fold the softmax scale into q
 once, in q's dtype, before the kernel.
@@ -43,7 +47,8 @@ from repro_torch.kernels.tuning import (KERNEL_HEAD_DIMS, MAX_TILE,
 
 # launches of the CUDA kernel per wrapper (never counts plain-version calls)
 LAUNCHES = {"flash_fwd": 0, "flash_fwd_paged": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+            "flash_bwd_dkv": 0, "flash_bwd_dq_paged": 0,
+            "flash_bwd_dkv_paged": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -64,10 +69,13 @@ def _bwd_lib():
     lib = build.load("flash_bwd")
     if not getattr(lib, "_typed", False):
         c_int, c_p = ctypes.c_int, ctypes.c_void_p
+        args = ([c_int] * 2 + [c_p] * 10 + [ctypes.c_longlong] + [c_p] * 5
+                + [c_int] * 13 + _DROPOUT_ARGS + [ctypes.c_float, c_p])
         for fn in (lib.flash_bwd_dq, lib.flash_bwd_dkv):
-            fn.argtypes = ([c_int] * 2 + [c_p] * 10 + [ctypes.c_longlong]
-                           + [c_p] * 5 + [c_int] * 13 + _DROPOUT_ARGS
-                           + [ctypes.c_float, c_p])
+            fn.argtypes = args
+            fn.restype = c_int
+        for fn in (lib.flash_bwd_dq_paged, lib.flash_bwd_dkv_paged):
+            fn.argtypes = args + [c_p, c_int]   # page list, num_pages
             fn.restype = c_int
         lib._typed = True
     return lib
@@ -192,6 +200,23 @@ def flash_attention_backward_plain(
     Pallas kernels): P from the saved (m, l) under the layout-allowed mask,
     D = rowsum(dO∘O), dP = dO·Vᵀ∘Z, dS = P∘(dP − D), dq = scale·dS·K,
     dK = dSᵀ·q′ (q′ = scale·q), dV = (P∘Z)ᵀ·dO, dK/dV summed per group."""
+    dq, dk, dv = _dense_backward(
+        q, k, v, o, do, m, l, kv_mask, block_layout, scale=scale,
+        causal=causal, window=window, q_offset=q_offset,
+        kv_valid_len=kv_valid_len, dropout_p=dropout_p,
+        dropout_seed=dropout_seed, dropout_dims=dropout_dims,
+        block_q=block_q, block_k=block_k, q_segment_ids=q_segment_ids,
+        kv_segment_ids=kv_segment_ids, q_positions=q_positions,
+        kv_positions=kv_positions)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _dense_backward(
+    q, k, v, o, do, m, l, kv_mask, block_layout, *, scale, causal, window,
+    q_offset, kv_valid_len, dropout_p, dropout_seed, dropout_dims, block_q,
+    block_k, q_segment_ids, kv_segment_ids, q_positions, kv_positions,
+):
+    """``flash_attention_backward_plain`` with dk, dv left in fp32."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     n_rep = hq // hkv
@@ -226,7 +251,7 @@ def flash_attention_backward_plain(
     dv = torch.einsum("bhqk,bhqd->bhkd", p_drop, dof)
     dk = dk.reshape(b, hkv, n_rep, sk, d).sum(dim=2)
     dv = dv.reshape(b, hkv, n_rep, sk, d).sum(dim=2)
-    return dq, dk.to(k.dtype), dv.to(v.dtype)
+    return dq, dk, dv
 
 
 def flash_prefill_paged_forward_plain(
@@ -241,6 +266,55 @@ def flash_prefill_paged_forward_plain(
         q_offset=0, block_q=block_q, block_k=ps, variant=variant,
         q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
         q_positions=q_positions, kv_positions=kv_positions)
+
+
+def fold_packed_to_pool(packed: torch.Tensor, page_list: torch.Tensor,
+                        num_pages: int) -> torch.Tensor:
+    """Packed page-aligned gradient rows (b, hkv, T*ps, d) -> pool shape
+    (hkv, num_pages, ps, d) in fp32: slot t of row b lands on page
+    ``page_list[b, t]``; dead slots (negative) are dropped, pages no slot
+    names stay exactly zero, and a page named by several slots (a prefix
+    shared across rows) receives their sum. Deterministic: the k-th
+    occurrence of every page (in (b, t) order) is added in pass k, and
+    within one pass the pages are distinct, so no two writes race and the
+    sum order is fixed."""
+    b, hkv, rows, d = packed.shape
+    T = page_list.shape[1]
+    ps = rows // T
+    src = packed.float().reshape(b, hkv, T, ps, d).transpose(1, 2)
+    src = src.reshape(b * T, hkv, ps, d)
+    pages = page_list.reshape(-1).long()
+    live = (pages >= 0).nonzero().squeeze(1)
+    pages, src = pages[live], src[live]
+    out = torch.zeros((hkv, num_pages, ps, d), dtype=torch.float32,
+                      device=packed.device)
+    if pages.numel() == 0:
+        return out
+    rank = (pages[:, None] == pages[None, :]).tril(-1).sum(dim=1)
+    for r in range(int(rank.max()) + 1):
+        sel = (rank == r).nonzero().squeeze(1)
+        out[:, pages[sel]] += src[sel].transpose(0, 1)
+    return out
+
+
+def flash_prefill_paged_backward_plain(
+    q, k_pool, v_pool, page_list, o, do, m, l, block_layout, *, scale,
+    causal, window, q_segment_ids=None, kv_segment_ids=None,
+    q_positions=None, kv_positions=None, block_q,
+):
+    """Dense fp32 backward of the paged prefill over the GATHERED pages
+    (the layout keeps dead slots SKIP), folded into pool-shaped gradients:
+    (dq in q's dtype, dk_pool, dv_pool in the pools' dtype)."""
+    num_pages, ps = k_pool.shape[1], k_pool.shape[2]
+    dq, dk, dv = _dense_backward(
+        q, gather_pages(k_pool, page_list), gather_pages(v_pool, page_list),
+        o, do, m, l, None, block_layout, scale=scale, causal=causal,
+        window=window, q_offset=0, kv_valid_len=None, dropout_p=0.0,
+        dropout_seed=0, dropout_dims=None, block_q=block_q, block_k=ps,
+        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+        q_positions=q_positions, kv_positions=kv_positions)
+    return (dq, fold_packed_to_pool(dk, page_list, num_pages).to(k_pool.dtype),
+            fold_packed_to_pool(dv, page_list, num_pages).to(v_pool.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -373,10 +447,19 @@ def prepare_backward(q, k, v, o, do, m, l, kv_mask, block_layout, *, scale,
                      dropout_p=0.0, dropout_seed=0, dropout_dims=None,
                      block_q, block_k, q_segment_ids=None,
                      kv_segment_ids=None, q_positions=None,
-                     kv_positions=None) -> BackwardOperands:
-    """Check and lay out a backward call for ``launch_dq``/``launch_dkv``."""
+                     kv_positions=None, page_list=None) -> BackwardOperands:
+    """Check and lay out a backward call for ``launch_dq``/``launch_dkv``,
+    or, given a ``page_list``, for ``launch_dq_paged``/``launch_dkv_paged``
+    (k, v are then pools (hkv, num_pages, block_k, d))."""
     b, hq, sq, d = q.shape
-    _, hkv, sk, _ = k.shape
+    if page_list is None:
+        _, hkv, sk, _ = k.shape
+    else:
+        hkv, num_pages = k.shape[0], k.shape[1]
+        sk = page_list.shape[1] * block_k
+        if k.shape[2] != block_k or page_list.shape[0] != b:
+            raise ValueError("flash_bwd paged: the kv tile is one page and "
+                             "page_list is (b, T)")
     dropout = _dropout_args(dropout_p, dropout_seed, dropout_dims, sq, sk)
     layout, nq, nk = _check_launch(
         "flash_bwd", q, {"k": k, "v": v, "o": o, "do": do}, hkv=hkv, sk=sk,
@@ -403,6 +486,10 @@ def prepare_backward(q, k, v, o, do, m, l, kv_mask, block_layout, *, scale,
             int(q_offset), -1 if kv_valid_len is None else int(kv_valid_len),
             *dropout, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream)
+    if page_list is not None:
+        page_list = _i32(page_list)
+        extra += (page_list,)
+        args += (_ptr(page_list), num_pages)
     return BackwardOperands(_DTYPES[q.dtype], d, tensors, extra, args)
 
 
@@ -426,6 +513,36 @@ def launch_dkv(ops: BackwardOperands) -> tuple[torch.Tensor, torch.Tensor]:
                             _ptr(dk), _ptr(dv), *ops.args)
     build.check(err, lib, "flash_bwd_error_string", "flash_bwd_dkv")
     LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def launch_dq_paged(ops: BackwardOperands) -> torch.Tensor:
+    """The paged dq kernel: dq in q's dtype, (b, hq, sq, d)."""
+    dq = torch.empty_like(ops.tensors[0])
+    lib = _bwd_lib()
+    err = lib.flash_bwd_dq_paged(ops.dtype, ops.head_dim,
+                                 *map(_ptr, ops.tensors), _ptr(dq), None,
+                                 *ops.args)
+    build.check(err, lib, "flash_bwd_error_string", "flash_bwd_dq_paged")
+    LAUNCHES["flash_bwd_dq_paged"] += 1
+    return dq
+
+
+def launch_dkv_paged(ops: BackwardOperands
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The paged dkv kernel: fp32 dk, dv summed over each GQA group in the
+    packed page-aligned layout (b, hkv, T*ps, d)."""
+    q, k_pool = ops.tensors[0], ops.tensors[1]
+    T, ps = ops.extra[-1].shape[1], k_pool.shape[2]
+    shape = (q.shape[0], k_pool.shape[0], T * ps, ops.head_dim)
+    dk = torch.empty(shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty_like(dk)
+    lib = _bwd_lib()
+    err = lib.flash_bwd_dkv_paged(ops.dtype, ops.head_dim,
+                                  *map(_ptr, ops.tensors), _ptr(dk), _ptr(dv),
+                                  *ops.args)
+    build.check(err, lib, "flash_bwd_error_string", "flash_bwd_dkv_paged")
+    LAUNCHES["flash_bwd_dkv_paged"] += 1
     return dk, dv
 
 
@@ -502,3 +619,42 @@ def flash_prefill_paged_forward(
                   dropout=_dropout_args(0.0, 0, None, 0, 0))
     LAUNCHES["flash_fwd_paged"] += 1
     return out
+
+
+def flash_prefill_paged_backward(
+    q: torch.Tensor,             # (b, hq, sq, d) — sq % block_q == 0
+    k_pool: torch.Tensor,        # (hkv, num_pages, page_size, d)
+    v_pool: torch.Tensor,
+    page_list: torch.Tensor,     # (b, T) int32 physical pages; negative = dead
+    o: torch.Tensor, do: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+    block_layout: torch.Tensor,  # (b, nq, T): the forward's layout
+    *,
+    scale: float, causal: bool, window: int | None,
+    q_segment_ids: torch.Tensor | None = None,
+    kv_segment_ids: torch.Tensor | None = None,
+    q_positions: torch.Tensor | None = None,
+    kv_positions: torch.Tensor | None = None,
+    block_q: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (dq, dk_pool, dv_pool) of the paged prefill from the
+    forward's residuals: dq in q's dtype, the pool gradients in the pools'
+    dtype. On the card: D = rowsum(dO∘O) in PyTorch, the paged dq kernel
+    (one CTA per (b, hq, q-block), kv pages through ``page_list``), the
+    paged dkv kernel (one CTA per (b, hkv, page slot), GQA group summed in
+    registers, packed fp32 rows), then ``fold_packed_to_pool``."""
+    kw = dict(scale=scale, causal=causal, window=window,
+              q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+              q_positions=q_positions, kv_positions=kv_positions,
+              block_q=block_q)
+    if not q.is_cuda:
+        return flash_prefill_paged_backward_plain(
+            q, k_pool, v_pool, page_list, o, do, m, l, block_layout, **kw)
+    num_pages, ps = k_pool.shape[1], k_pool.shape[2]
+    if block_layout.ndim != 3 or block_layout.shape[-1] != page_list.shape[1]:
+        raise ValueError("the paged layout is (b, nq, T)")
+    ops = prepare_backward(q, k_pool, v_pool, o, do, m, l, None, block_layout,
+                           q_offset=0, block_k=ps, page_list=page_list, **kw)
+    dq = launch_dq_paged(ops)
+    dk, dv = launch_dkv_paged(ops)
+    return (dq, fold_packed_to_pool(dk, page_list, num_pages).to(k_pool.dtype),
+            fold_packed_to_pool(dv, page_list, num_pages).to(v_pool.dtype))

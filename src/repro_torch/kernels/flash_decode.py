@@ -1,20 +1,26 @@
-"""Split-KV paged decode: hand-written Hopper kernel + its plain version
-(port of ``repro.kernels.flash_decode.flash_decode_paged``).
+"""Split-KV decode: hand-written Hopper kernels + their plain versions
+(port of ``repro.kernels.flash_decode``).
 
 Serving decode computes attention for ONE new query token against a long
-KV cache held in a shared page pool. Parallelism comes from splitting the
-kv axis: each split runs the Algorithm-1 loop over its pages and emits a
-partial softmax state (acc, m, l); ``_merge_split_partials`` combines them
-with the online-softmax merge (a PyTorch op, as it is XLA-level code in the
-JAX package).
+KV cache. Parallelism comes from splitting the kv axis: each split runs
+the Algorithm-1 loop over its kv blocks and emits a partial softmax state
+(acc, m, l); ``_merge_split_partials`` combines them with the
+online-softmax merge (a PyTorch op, as it is XLA-level code in the JAX
+package). Two cache geometries, one kernel each in ``csrc/flash_decode.cu``:
 
-The per-sequence validity band (``kv_len`` + optional window) is lowered
-once per call by ``masks.paged_block_layout``: SKIP pages (past kv_len,
-before the window, unallocated) never run, FULL pages drop the element
-compares, PARTIAL pages apply them. On a CUDA tensor the wrapper launches
-``csrc/flash_decode.cu`` and counts it in ``LAUNCHES``; on a CPU tensor it
-runs the plain version. The contiguous-cache ``flash_decode`` (dense slot
-mode) is not ported yet.
+  * ``flash_decode`` — a contiguous per-sequence cache (b, hkv, capacity,
+    d): dense slot serving. Validity is ``kv_len`` + optional window +
+    optional per-slot ``kv_mask``, lowered by ``masks.kv_block_layout`` of
+    ``masks.decode_kv_valid`` into per-block classes.
+  * ``flash_decode_paged`` — a shared page pool (hkv, pages, page_size, d)
+    read through per-sequence page tables; the page is the kv block
+    (``masks.paged_block_layout``).
+
+SKIP blocks (past kv_len, before the window, masked out, unallocated) never
+run, FULL blocks drop the element compares, PARTIAL blocks apply them. On
+a CUDA tensor each wrapper launches its kernel and counts it in
+``LAUNCHES``; on a CPU tensor it runs the plain version. Geometry is
+validated up front (capacity % block multiples); nothing is padded.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import gather_pages, repeat_kv
 from repro_torch.kernels.tuning import KERNEL_HEAD_DIMS
 
-LAUNCHES = {"flash_decode_paged": 0}
+LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_PAGE = 64          # csrc/flash_decode.cu MAX_PAGE
@@ -42,8 +48,32 @@ def _lib():
         lib.flash_decode_paged.argtypes = ([c_int] * 2 + [c_p] * 9
                                            + [c_int] * 8 + [ctypes.c_float, c_p])
         lib.flash_decode_paged.restype = c_int
+        lib.flash_decode.argtypes = ([c_int] * 2 + [c_p] * 9 + [c_int] * 7
+                                     + [ctypes.c_float, c_p])
+        lib.flash_decode.restype = c_int
         lib._typed = True
     return lib
+
+
+def validate_decode_geometry(capacity: int, block_k: int,
+                             num_splits: int) -> tuple[int, int]:
+    """Clamp-then-validate the contiguous decode grid: a block cannot exceed
+    the cache and there cannot be more splits than blocks (documented
+    shape clamps); misalignment raises instead of padding the cache.
+    Returns the clamped ``(block_k, num_splits)``."""
+    block_k = min(block_k, capacity)
+    num_splits = min(num_splits, max(1, capacity // max(block_k, 1)))
+    if capacity % block_k:
+        raise ValueError(
+            f"flash_decode: cache capacity ({capacity}) must be a multiple "
+            f"of block_k ({block_k}); pad the cache at allocation time")
+    nk = capacity // block_k
+    if nk % num_splits:
+        raise ValueError(
+            f"flash_decode: cache capacity ({capacity}) must be a multiple "
+            f"of num_splits * block_k ({num_splits} * {block_k}); choose a "
+            f"num_splits dividing the {nk} kv blocks")
+    return block_k, num_splits
 
 
 def validate_paged_decode_geometry(pages_per_seq: int,
@@ -176,4 +206,118 @@ def flash_decode_paged(
         o_p, m_p, l_p = flash_decode_paged_partials(
             q, k_pool, v_pool, page_table, kv_len, layout, scale=scale,
             num_splits=num_splits, window=window)
+        return _merge_split_partials(o_p, m_p, l_p, q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# contiguous cache (dense slot mode)
+# ---------------------------------------------------------------------------
+
+def flash_decode_partials_plain(q, k, v, kv_len, layout, *, scale, block_k,
+                                num_splits, window, kv_mask=None):
+    """The contiguous kernel's function densely in fp32: (o_p, m_p, l_p)
+    per split, over the keys the layout lets run (FULL blocks unmasked,
+    PARTIAL blocks through ``decode_kv_valid``)."""
+    b, hq, _, d = q.shape
+    _, hkv, cap, _ = k.shape
+    n_rep = hq // hkv
+    s = torch.einsum("bhd,bhkd->bhk", q[:, :, 0].float(),
+                     repeat_kv(k, n_rep).float()) * scale
+    blk = layout.repeat_interleave(block_k, dim=1)[:, None, :]    # (b, 1, cap)
+    ok = M.decode_kv_valid(kv_len, cap, window=window,
+                           kv_mask=kv_mask)[:, None, :]
+    allowed = (blk == M.BLOCK_FULL) | ((blk == M.BLOCK_PARTIAL) & ok)
+    s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
+    s = s.reshape(b, hq, num_splits, -1)
+    m_p = s.amax(dim=-1)
+    p = torch.where(s <= NEG_INF / 2, torch.zeros_like(s),
+                    torch.exp(s - m_p[..., None]))
+    l_p = p.sum(dim=-1)
+    vv = repeat_kv(v, n_rep).float().reshape(b, hq, num_splits, -1, d)
+    o_p = torch.einsum("bhsk,bhskd->bhsd", p, vv)
+    return o_p, m_p, l_p
+
+
+def flash_decode_partials(q, k, v, kv_len, layout, *, scale, block_k,
+                          num_splits, window, kv_mask=None):
+    """(o_p, m_p, l_p) split partials over a contiguous cache: the kernel
+    on a CUDA tensor, the plain version on a CPU tensor."""
+    kw = dict(scale=scale, block_k=block_k, num_splits=num_splits,
+              window=window, kv_mask=kv_mask)
+    if not q.is_cuda:
+        return flash_decode_partials_plain(q, k, v, kv_len, layout, **kw)
+    b, hq, sq, d = q.shape
+    _, hkv, cap, _ = k.shape
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} must match q's device and dtype")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_decode takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    nk = cap // block_k
+    if (d not in KERNEL_HEAD_DIMS or hq % hkv or cap % block_k
+            or nk % num_splits or tuple(layout.shape) != (b, nk)):
+        raise ValueError(
+            f"flash_decode: head_dim {d} (one of {KERNEL_HEAD_DIMS}), "
+            f"hq % hkv == 0, capacity % block_k == 0, blocks % num_splits "
+            f"== 0 and a (b, capacity // block_k) layout required")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    kl = kv_len.to(torch.int32).contiguous()
+    lay = layout.to(torch.int32).contiguous()
+    kvm = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
+    o_p = torch.empty((b, hq, num_splits, d), dtype=torch.float32,
+                      device=q.device)
+    m_p = torch.empty((b, hq, num_splits), dtype=torch.float32,
+                      device=q.device)
+    l_p = torch.empty_like(m_p)
+    lib = _lib()
+    err = lib.flash_decode(
+        _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kl.data_ptr(), lay.data_ptr(), None if kvm is None else kvm.data_ptr(),
+        o_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr(),
+        b, hq, hkv, cap, block_k, num_splits,
+        -1 if window is None else int(window), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, lib, "flash_decode_error_string", "flash_decode")
+    LAUNCHES["flash_decode"] += 1
+    return o_p, m_p, l_p
+
+
+def flash_decode(
+    q: torch.Tensor,            # (b, hq, 1, d)
+    k: torch.Tensor,            # (b, hkv, capacity, d) — the KV cache
+    v: torch.Tensor,
+    kv_len: torch.Tensor,       # (b,) int32 valid lengths
+    *,
+    scale: float | None = None,
+    block_k: int | None = None,       # None = resolve via kernels.tuning
+    num_splits: int | None = None,
+    window: int | None = None,
+    kv_mask: torch.Tensor | None = None,   # (b, capacity) True = valid slot
+) -> torch.Tensor:
+    """One-token attention against a fixed-capacity KV cache; returns
+    (b, hq, 1, d) in q's dtype. ``window`` keeps only the last ``window``
+    valid cache positions; ``kv_mask`` masks out single slots. Blocks
+    past the valid length, before the window or fully masked out are SKIP
+    in the compiled per-sequence layout and never run. ``block_k`` /
+    ``num_splits`` left None resolve through ``tuning.resolve_decode_geometry``
+    (divisor-valid by construction); explicit values are validated."""
+    from repro_torch.kernels.tuning import resolve_decode_geometry
+    b, hq, sq, d = q.shape
+    cap = k.shape[2]
+    if sq != 1:
+        raise ValueError("flash_decode handles single-token decode")
+    if any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_decode is forward-only (serving)")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    block_k, num_splits = resolve_decode_geometry(cap, block_k, num_splits)
+    with torch.inference_mode():
+        kv_len = kv_len.to(torch.int32)
+        # one lowering per call: (b, capacity // block_k) block classes
+        valid = M.decode_kv_valid(kv_len, cap, window=window, kv_mask=kv_mask)
+        layout = M.kv_block_layout(valid, block_k)
+        o_p, m_p, l_p = flash_decode_partials(
+            q, k, v, kv_len, layout, scale=scale, block_k=block_k,
+            num_splits=num_splits, window=window, kv_mask=kv_mask)
         return _merge_split_partials(o_p, m_p, l_p, q.dtype)

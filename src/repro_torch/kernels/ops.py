@@ -1,19 +1,19 @@
 """Public entry points of the attention kernels (port of
 ``repro.kernels.ops``).
 
-``flash_attention`` is differentiable: a ``torch.autograd.Function``
-around the padded core saves q, k, v, o, m, l, the compiled layout and the
-id/position tensors (the paper's O(N) residuals) and its backward runs
-``flash_attention_backward`` — the dq and dkv kernels on a CUDA tensor,
-their plain version on a CPU tensor. Padding (``F.pad``) and the final
-slice stay outside the Function, so autograd carries their gradients. The
-call's masks are compiled ONCE into the block layout the kernels consume
-(``core.masks.compile_block_layout``), under ``torch.no_grad()``, and the
-backward reuses it.
-
-``flash_prefill_paged`` stays forward-only (serving): it raises if an input
-requires grad, because the paged backward kernels (#5, #6) are not ported
-yet (ROADMAP.md §1 item 2).
+Both ops are differentiable. ``flash_attention``: a
+``torch.autograd.Function`` around the padded core saves q, k, v, o, m, l,
+the compiled layout and the id/position tensors (the paper's O(N)
+residuals) and its backward runs ``flash_attention_backward`` — the dq and
+dkv kernels on a CUDA tensor, their plain version on a CPU tensor.
+``flash_prefill_paged``: the same around the paged core; its backward runs
+``flash_prefill_paged_backward`` (the paged dq and dkv kernels, then the
+deterministic fold of the packed dk/dv into pool shape) and returns
+gradients for q and both pools only (integer inputs get none). Padding
+(``F.pad``) and the final slice stay outside the Functions, so autograd
+carries their gradients. Each call's masks are compiled ONCE into the
+block layout the kernels consume (``core.masks.compile_block_layout``),
+under ``torch.no_grad()``, and the backward reuses it.
 
 The JAX package's kv-major re-layout (the whole GQA query group resident
 in one block, ``block_q = n_rep * sq``) is not ported: it is a TPU VMEM
@@ -32,12 +32,6 @@ from repro_torch.core.masks import (MaskSpec, POS_PAD, SEG_PAD_KV, SEG_PAD_Q,
                                     resolve_segment_ids)
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import tuning
-
-
-def _forward_only(*tensors) -> None:
-    if any(t is not None and t.requires_grad for t in tensors):
-        raise ValueError("flash_prefill_paged is forward-only (serving): the "
-                         "paged backward kernels are ROADMAP.md §1 item 2")
 
 
 class _FlashCore(torch.autograd.Function):
@@ -65,6 +59,35 @@ class _FlashCore(torch.autograd.Function):
             kv_segment_ids=kv_seg, q_positions=q_pos, kv_positions=kv_pos,
             **call)
         return dq, dk, dv, None, None, None, None, None, None, None
+
+
+class _PagedCore(torch.autograd.Function):
+    """The padded paged core: paged forward kernel, residuals, paged
+    backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k_pool, v_pool, page_list, q_seg, kv_seg, q_pos,
+                kv_pos, layout, call):
+        o, m, l = fa.flash_prefill_paged_forward(
+            q, k_pool, v_pool, page_list, layout, q_segment_ids=q_seg,
+            kv_segment_ids=kv_seg, q_positions=q_pos, kv_positions=kv_pos,
+            **call)
+        ctx.save_for_backward(q, k_pool, v_pool, page_list, o, m, l, q_seg,
+                              kv_seg, q_pos, kv_pos, layout)
+        ctx.call = call
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        (q, k_pool, v_pool, page_list, o, m, l, q_seg, kv_seg, q_pos, kv_pos,
+         layout) = ctx.saved_tensors
+        call = {n: x for n, x in ctx.call.items() if n != "variant"}
+        dq, dk_pool, dv_pool = fa.flash_prefill_paged_backward(
+            q, k_pool, v_pool, page_list, o, do, m, l, layout,
+            q_segment_ids=q_seg, kv_segment_ids=kv_seg, q_positions=q_pos,
+            kv_positions=kv_pos, **call)
+        return (dq, dk_pool, dv_pool, None, None, None, None, None, None,
+                None)
 
 
 def _pad_seq(x: torch.Tensor, axis: int, mult: int, value=0):
@@ -174,16 +197,16 @@ def flash_prefill_paged(
     block_q: int | None = None,
     variant: str = "fa2",
 ) -> torch.Tensor:
-    """FlashAttention over a PAGED kv prefix, read in place: logical kv row
-    ``t*page_size + r`` is row r of physical page ``page_list[b, t]``; no
-    gather materializes it. Causal/window masking compares LOGICAL
-    positions, so positions are required; dead kv rows carry POS_PAD (and
-    SEG_PAD_KV), which the layout compiler turns into SKIP pages."""
+    """Differentiable FlashAttention over a PAGED kv prefix, read in place:
+    logical kv row ``t*page_size + r`` is row r of physical page
+    ``page_list[b, t]``; no gather materializes it. Causal/window masking
+    compares LOGICAL positions, so positions are required; dead kv rows
+    carry POS_PAD (and SEG_PAD_KV), which the layout compiler turns into
+    SKIP pages, and dead slots get no gradient."""
     b, hq, sq, d = q.shape
     hkv, num_pages, ps, _ = k_pool.shape
     if hq % hkv != 0:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
-    _forward_only(q, k_pool, v_pool)
     if page_list.ndim != 2 or page_list.shape[0] != b:
         raise ValueError(f"page_list must be (batch, T), got "
                          f"{tuple(page_list.shape)}")
@@ -199,9 +222,9 @@ def flash_prefill_paged(
         scale = 1.0 / (d ** 0.5)
     block_q = tuning.round_block(block_q or tuning.fwd_tiles(d)[0], sq)
 
-    with torch.inference_mode():
+    qp, _ = _pad_seq(q, 2, block_q)
+    with torch.no_grad():
         page_list = page_list.to(torch.int32)
-        qp, _ = _pad_seq(q, 2, block_q)
         q_positions, _ = _pad_seq(q_positions.to(torch.int32), 1, block_q,
                                   POS_PAD)
         kv_positions = kv_positions.to(torch.int32)
@@ -216,9 +239,9 @@ def flash_prefill_paged(
         layout = compile_block_layout(spec, qp.shape[2], sk, block_q,
                                       ps).as_array(q.device)
         layout = paged_prefill_block_layout(layout, page_list)
-        o, _, _ = fa.flash_prefill_paged_forward(
-            qp, k_pool, v_pool, page_list, layout, scale=scale,
-            causal=causal, window=window, q_segment_ids=q_segment_ids,
-            kv_segment_ids=kv_segment_ids, q_positions=q_positions,
-            kv_positions=kv_positions, block_q=block_q, variant=variant)
-        return o[:, :, :sq]
+    call = dict(scale=scale, causal=causal, window=window, block_q=block_q,
+                variant=variant)
+    o = _PagedCore.apply(qp, k_pool, v_pool, page_list, q_segment_ids,
+                         kv_segment_ids, q_positions, kv_positions, layout,
+                         call)
+    return o[:, :, :sq]

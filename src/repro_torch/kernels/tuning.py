@@ -10,7 +10,12 @@ the small part the serving path needs:
     head_dim whose shared-memory footprint in ``csrc/flash_fwd.cu`` /
     ``csrc/flash_bwd.cu`` fits a Hopper block;
   * ``resolve_paged_decode_splits`` — split-KV parallelism for paged decode
-    with the divisor rule of ``flash_decode.validate_paged_decode_geometry``.
+    with the divisor rule of ``flash_decode.validate_paged_decode_geometry``;
+  * ``choose_decode_geometry`` / ``resolve_decode_geometry`` — the
+    contiguous cache's ``(block_k, num_splits)``: a Hopper chooser in place
+    of the JAX package's SRAM-budget one, explicit values validated by
+    ``flash_decode.validate_decode_geometry`` (misalignment raises, the
+    cache is never padded).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ ROW_ALIGN = 8               # tile rows: multiple of 8 (one mma.sync m-tile)
 MAX_TILE = 64               # csrc/flash_fwd.cu MAX_BQ / MAX_BK
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 TARGET_DECODE_SPLITS = 8    # split-KV parallelism target
+DECODE_TILE = 64            # csrc/flash_decode.cu MAX_TILE: K rows staged at once
 SMEM_PER_BLOCK = 232_448    # Hopper: bytes of shared memory one block may use
 
 
@@ -91,3 +97,60 @@ def resolve_paged_decode_splits(pages_per_seq: int,
         return next(s for s in _divisors_desc(pages_per_seq)
                     if s <= target_splits)
     return validate_paged_decode_geometry(pages_per_seq, int(num_splits))
+
+
+def choose_decode_geometry(capacity: int, *,
+                           target_splits: int = TARGET_DECODE_SPLITS,
+                           pinned_splits: int | None = None
+                           ) -> tuple[int, int]:
+    """``(block_k, num_splits)`` for a contiguous cache of ``capacity``
+    slots. The split-KV kernel reads every valid cache byte once whatever
+    the block, so the objective is parallelism, then the block: among
+    row-aligned divisors of the capacity no larger than the kernel's
+    shared-memory tile (``DECODE_TILE``; the smallest aligned divisor when
+    none is), maximize the split count (capped at ``target_splits``), then
+    the block. Divisor-valid by construction. ``pinned_splits`` (an
+    explicit split count with an auto block) constrains the search; no
+    block honouring it is an error, never a silent clamp."""
+    cands = [b for b in _divisors_desc(capacity)
+             if b % ROW_ALIGN == 0 or b == capacity]
+    cands = [b for b in cands if b <= DECODE_TILE] or [min(cands)]
+    best = None
+    for blk in cands:
+        nk = capacity // blk
+        if pinned_splits is not None:
+            if nk % pinned_splits:
+                continue
+            key = (pinned_splits, blk)
+        else:
+            key = (next(s for s in _divisors_desc(nk) if s <= target_splits),
+                   blk)
+        if best is None or key > best:
+            best = key
+    if best is None:
+        raise ValueError(
+            f"flash_decode: no aligned kv block of the {capacity}-slot cache "
+            f"yields a grid divisible by num_splits ({pinned_splits}); pick "
+            f"a num_splits dividing the block count or leave it auto")
+    return best[1], best[0]
+
+
+def resolve_decode_geometry(capacity: int, block_k: int | None,
+                            num_splits: int | None, *,
+                            target_splits: int = TARGET_DECODE_SPLITS
+                            ) -> tuple[int, int]:
+    """Decode ``(block_k, num_splits)`` for a CONTIGUOUS cache (the paged
+    cache resolves through ``resolve_paged_decode_splits``: its block is
+    the page). Auto values are valid by construction; explicit ones are
+    validated as in the JAX package (clamped to the cache, misalignment
+    raises)."""
+    from repro_torch.kernels.flash_decode import validate_decode_geometry
+    if block_k is None:
+        block_k, num_splits = choose_decode_geometry(
+            capacity, target_splits=target_splits,
+            pinned_splits=None if num_splits is None else int(num_splits))
+    elif num_splits is None:
+        block_k = min(int(block_k), capacity)
+        nk = max(1, capacity // max(int(block_k), 1))
+        num_splits = next(s for s in _divisors_desc(nk) if s <= target_splits)
+    return validate_decode_geometry(capacity, int(block_k), int(num_splits))

@@ -1,7 +1,9 @@
 """Serving launcher of the port: the continuous-batching scheduler over the
-paged KV cache, on the card.
+paged KV cache (or, with ``--dense``, the fixed-slot cache), on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --dense --reduced \\
+        --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --slots 4 --requests 8 --capacity 1088 --chunk-size 256 \\
         --long-prompt 1024 --shared-prefix 64 --max-new 32
@@ -11,8 +13,9 @@ The flags are the JAX launcher's (``repro.launch.serve``) plus
 ``--reduced``. Without ``--reduced`` the PUBLISHED config is built at full
 width and depth with random weights from ``--seed``. On ``cuda`` the
 launcher sets ``attn_impl="pallas"`` and ``use_decode_kernel=True``, so
-prefill and decode run through the hand-written kernels. ``--dense``,
-``--tp`` > 1 and ``--sp`` > 1 are not ported yet and raise.
+prefill and decode run through the hand-written kernels (in dense mode the
+contiguous split-KV decode kernel). ``--tp`` > 1 and ``--sp`` > 1 are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-sequence max cache length")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--dense", action="store_true",
-                    help="fixed-slot dense KV cache (not ported yet)")
+                    help="fixed-slot dense KV cache (atomic packed prefill)")
     ap.add_argument("--page-size", type=int, default=16,
                     help="KV rows per page (== mask-IR kv block)")
     ap.add_argument("--pages", type=int, default=None,
@@ -100,15 +103,15 @@ def main(argv=None):
         args.requests, args.max_new = 2, 5
         args.long_prompt, args.shared_prefix = 16, 8
     device = resolve_device(args.device)
-    if args.dense or args.tp > 1 or args.sp > 1:
-        raise NotImplementedError(
-            "--dense, --tp > 1 and --sp > 1 are not ported yet")
+    if args.tp > 1 or args.sp > 1:
+        raise NotImplementedError("--tp > 1 and --sp > 1 are not ported yet")
     cfg = model_config(args)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed),
                         device=device)
     eng = ServingEngine(model, params, num_slots=args.slots,
-                        capacity=args.capacity, page_size=args.page_size,
+                        capacity=args.capacity, paged=not args.dense,
+                        page_size=args.page_size,
                         num_pages=args.pages, chunk_size=args.chunk_size,
                         token_budget=args.token_budget,
                         prefix_cache=args.prefix_cache,
@@ -130,9 +133,11 @@ def main(argv=None):
                    max_new_tokens=int(rng.integers(4, args.max_new + 1)),
                    temperature=args.temperature, top_p=args.top_p)
     chunked = f" chunk={args.chunk_size}" if args.chunk_size else ""
+    layout = (f"paged pool={eng.kv.num_pages}x{eng.kv.page_size}" if eng.paged
+              else f"dense slots={args.slots}x{args.capacity}")
     print(f"arch={cfg.name} device={device} attn={cfg.attn_impl}"
           f"{chunked} lanes={args.slots} cache={eng.cache_bytes()/1e6:.2f} MB"
-          f" pool={eng.kv.num_pages}x{eng.kv.page_size}")
+          f" mode={layout}")
     done = eng.run(on_step=ServingEngine.step_stats_printer())
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -1,15 +1,17 @@
 """Grouped-query self-attention layer on the flash core (port of the dense
 parts of ``repro.models.attention_layer``).
 
-Four execution modes: full-sequence training (``apply_attention``, with
+Five execution modes: full-sequence training (``apply_attention``, with
 segment-relative RoPE and attention dropout), packed prefill
-(``prefill_attention``), chunked prefill against the shared page pool
-(``chunk_prefill_attention_step``) and single-token paged decode
+(``prefill_attention``, optionally writing a fixed-capacity slot cache),
+chunked prefill against the shared page pool
+(``chunk_prefill_attention_step``), single-token decode against the slot
+cache (``decode_attention_step``) and against the pool
 (``paged_decode_attention_step``).
 
-The JAX step functions return a new pool and rely on jit buffer donation
-to update it in place; here the pool tensors are updated IN PLACE and the
-same dict is returned. JAX's ``mode="drop"`` scatters (out-of-range page
+The JAX step functions return a new cache and rely on jit buffer donation
+to update it in place; here the cache and pool tensors are updated IN
+PLACE and the same dict is returned. JAX's ``mode="drop"`` scatters (out-of-range page
 index = write dropped) become explicit masks: rows whose destination is
 out of range are removed before the write, so they can never land in —
 and corrupt — a live page.
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import (AttentionSpec, attention,
+                                        decode_attention,
                                         paged_decode_attention,
                                         paged_prefill_attention)
 from repro_torch.core.masks import segment_relative_positions
@@ -85,13 +88,24 @@ def apply_attention(params, cfg: ModelConfig, x, *,
     return _merge_heads(o) @ params["wo"]
 
 
-def prefill_attention(params, cfg: ModelConfig, x, *, kv_mask=None,
-                      segment_ids=None, positions=None,
+def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
+                  device):
+    """One layer's fixed-capacity slot cache, (batch, hkv, capacity, hd)
+    per K/V leaf."""
+    shape = (batch, cfg.num_kv_heads, capacity, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def prefill_attention(params, cfg: ModelConfig, x, cache=None, *,
+                      kv_mask=None, segment_ids=None, positions=None,
                       spec: AttentionSpec | None = None):
-    """Full-sequence self-attention that also returns the K/V rows it
-    wrote, ``{"k", "v"}`` of shape (b, hkv, s, hd) (the JAX cache at
-    capacity s). Packed prefill passes ``segment_ids``: RoPE restarts per
-    segment, so each request's K/V rows equal a batch-1 prefill of it."""
+    """Full-sequence self-attention that also returns its K/V rows: written
+    in place into ``cache`` at [0, s) when one is given (the slot cache of
+    ``init_kv_cache``), else as ``{"k", "v"}`` of shape (b, hkv, s, hd) (the
+    JAX cache at capacity s). Packed prefill passes ``segment_ids``: RoPE
+    restarts per segment, so each request's K/V rows equal a batch-1
+    prefill of it."""
     sq = x.shape[1]
     if positions is None:
         positions = (segment_relative_positions(segment_ids)
@@ -100,7 +114,31 @@ def prefill_attention(params, cfg: ModelConfig, x, *, kv_mask=None,
     q, k, v = _project_qkv(params, cfg, x, x, positions, positions)
     spec = spec or attn_spec_from_config(cfg)
     o = attention(q, k, v, spec, kv_mask=kv_mask, segment_ids=segment_ids)
-    return _merge_heads(o) @ params["wo"], {"k": k, "v": v}
+    if cache is None:
+        cache = {"k": k, "v": v}
+    else:
+        cache["k"][:, :, :sq] = k.to(cache["k"].dtype)
+        cache["v"][:, :, :sq] = v.to(cache["v"].dtype)
+    return _merge_heads(o) @ params["wo"], cache
+
+
+def decode_attention_step(params, cfg: ModelConfig, x, cache, kv_len,
+                          *, spec: AttentionSpec | None = None):
+    """Single-token decode against the slot cache. x: (b, 1, d_model);
+    cache leaves (b, hkv, capacity, hd); kv_len (b,) current lengths.
+    Writes the new K/V at each sequence's ``kv_len`` in place (clamped to
+    the last slot, as JAX's ``dynamic_update_slice`` clamps), then attends
+    over [0, kv_len]. RoPE positions are ``kv_len``. Returns (out, cache)."""
+    positions = kv_len[:, None]
+    q, k, v = _project_qkv(params, cfg, x, x, positions, positions)
+    capacity = cache["k"].shape[2]
+    rows = torch.arange(x.shape[0], device=x.device)
+    pos = torch.clamp(kv_len, max=capacity - 1).long()
+    cache["k"][rows, :, pos] = k[:, :, 0].to(cache["k"].dtype)
+    cache["v"][rows, :, pos] = v[:, :, 0].to(cache["v"].dtype)
+    spec = spec or attn_spec_from_config(cfg)
+    o = decode_attention(q, cache["k"], cache["v"], kv_len + 1, spec)
+    return _merge_heads(o) @ params["wo"], cache
 
 
 def write_page_rows(pool, rows, page, off):

@@ -1,13 +1,14 @@
 """Top-level dense decoder Model (port of the dense parts of
 ``repro.models.model_zoo``): init, ``forward``/``loss`` for training,
-packed prefill, chunked prefill against the page pool, paged decode, and
-``params_from_jax``.
+prefill into a slot cache, packed prefill, chunked prefill against the
+page pool, decode against either cache, and ``params_from_jax``.
 
 Params are a plain dict: ``{"embed": (V, d), "final_norm": {...},
 "blocks": [per-layer dicts]}`` with the JAX package's weight layouts
 (``x @ W``, W of shape (d_in, d_out)). ``forward`` and ``loss`` run with
 autograd; every serving method runs under ``torch.inference_mode()`` (the decode state is created outside it, so
-callers may edit it); the paged pool is updated in place.
+callers may edit it); the slot cache and the paged pool are updated in
+place.
 """
 
 from __future__ import annotations
@@ -102,6 +103,32 @@ class Model:
         return total, {"loss": total, "ce": ce, "aux": aux, "tokens": denom}
 
     # --------------------------------------------------------------- serving
+    def decode_capacity(self, prompt_len: int, max_new: int) -> int:
+        return prompt_len + max_new
+
+    def init_decode_state(self, batch: int, capacity: int, device="cuda"):
+        """Dense decode state: per-layer slot caches
+        (L, batch, hkv, capacity, hd) and per-slot valid lengths."""
+        dev = resolve_device(device)
+        caches = tfm.init_decode_cache(self.cfg, batch, capacity,
+                                       torch_dtype(self.cfg), dev)
+        return {"caches": caches,
+                "kv_len": torch.zeros((batch,), dtype=torch.int32,
+                                      device=dev)}
+
+    @torch.inference_mode()
+    def prefill(self, params, batch, capacity: int):
+        """Run the prompt (b, s) into fresh slot caches of ``capacity``;
+        returns (state, last-token logits (b, 1, V))."""
+        tokens = self._batch_tensor(params, batch["tokens"]).long()
+        x = params["embed"][tokens]
+        h, caches = tfm.apply_stack_prefill(params["blocks"], self.cfg, x,
+                                            capacity)
+        state = {"caches": caches,
+                 "kv_len": torch.full((x.shape[0],), x.shape[1],
+                                      dtype=torch.int32, device=x.device)}
+        return state, self._logits(params, h[:, -1:])
+
     def init_paged_decode_state(self, batch: int, num_pages: int,
                                 page_size: int, pages_per_seq: int,
                                 device="cuda"):
@@ -144,19 +171,21 @@ class Model:
 
     @torch.inference_mode()
     def decode_step(self, params, state, token):
-        """token: (B,) int. Returns (new_state, logits (B, 1, V)); the pool
-        is updated in place and ``kv_len`` advances by one."""
-        if "page_table" not in state:
-            raise NotImplementedError(
-                "dense slot-cache decode is not ported yet; use the paged "
-                "decode state (init_paged_decode_state)")
+        """token: (B,) int. Returns (new_state, logits (B, 1, V)); the cache
+        is updated in place and ``kv_len`` advances by one. A ``page_table``
+        key in the state selects the paged pool, else the slot cache."""
         x = params["embed"][token.long()[:, None]]
-        h, caches = tfm.apply_stack_decode_paged(
-            params["blocks"], self.cfg, x, state["caches"],
-            state["page_table"], state["kv_len"])
-        new_state = {"caches": caches, "page_table": state["page_table"],
-                     "kv_len": state["kv_len"] + 1}
-        return new_state, self._logits(params, h)
+        if "page_table" in state:
+            h, caches = tfm.apply_stack_decode_paged(
+                params["blocks"], self.cfg, x, state["caches"],
+                state["page_table"], state["kv_len"])
+            new_state = {"caches": caches, "page_table": state["page_table"],
+                         "kv_len": state["kv_len"] + 1}
+            return new_state, self._logits(params, h)
+        h, caches = tfm.apply_stack_decode(params["blocks"], self.cfg, x,
+                                           state["caches"], state["kv_len"])
+        return ({"caches": caches, "kv_len": state["kv_len"] + 1},
+                self._logits(params, h))
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -68,28 +68,63 @@ def apply_stack(blocks: list[Params], cfg: ModelConfig, x, *,
     return x, aux_total
 
 
-def apply_block_prefill(params: Params, cfg: ModelConfig, x, *,
-                        segment_ids=None, positions=None):
+def apply_block_prefill(params: Params, cfg: ModelConfig, x,
+                        capacity: int | None = None, *, segment_ids=None,
+                        positions=None):
     """One block over a (packed) prompt; returns (x, {"kv": {"k", "v"}})
-    with the block's K/V rows (b, hkv, s, hd)."""
+    with the block's K/V rows (b, hkv, s, hd), or, given a ``capacity``,
+    a (b, hkv, capacity, hd) slot cache holding them at [0, s)."""
     h = apply_norm(params["attn_norm"], x)
-    a, kv = attn_mod.prefill_attention(params["attn"], cfg, h,
+    cache = (None if capacity is None else
+             attn_mod.init_kv_cache(cfg, x.shape[0], capacity, x.dtype,
+                                    x.device))
+    a, kv = attn_mod.prefill_attention(params["attn"], cfg, h, cache,
                                        segment_ids=segment_ids,
                                        positions=positions)
     return _mlp_residual(params, cfg, x + a), {"kv": kv}
 
 
-def apply_stack_prefill(blocks: list[Params], cfg: ModelConfig, x, *,
-                        segment_ids=None, positions=None):
-    """Prompt through all layers; K/V rows stacked on a leading layer axis:
-    {"kv": {"k": (L, b, hkv, s, hd), "v": ...}}."""
+def apply_stack_prefill(blocks: list[Params], cfg: ModelConfig, x,
+                        capacity: int | None = None, *, segment_ids=None,
+                        positions=None):
+    """Prompt through all layers; K/V rows (or slot caches of
+    ``capacity``) stacked on a leading layer axis:
+    {"kv": {"k": (L, b, hkv, s or capacity, hd), "v": ...}}."""
     ks, vs = [], []
     for p_l in blocks:
-        x, c = apply_block_prefill(p_l, cfg, x, segment_ids=segment_ids,
+        x, c = apply_block_prefill(p_l, cfg, x, capacity,
+                                   segment_ids=segment_ids,
                                    positions=positions)
         ks.append(c["kv"]["k"])
         vs.append(c["kv"]["v"])
     return x, {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
+                      device):
+    """Per-layer slot caches stacked on a leading layer axis:
+    (L, batch, hkv, capacity, hd) per K/V leaf."""
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, capacity, cfg.head_dim)
+    return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                   "v": torch.zeros(shape, dtype=dtype, device=device)}}
+
+
+def apply_block_decode(params: Params, cfg: ModelConfig, x, cache, kv_len):
+    """One block for one new token against its slot cache (updated in
+    place). Returns (x, cache)."""
+    h = apply_norm(params["attn_norm"], x)
+    a, cache = attn_mod.decode_attention_step(params["attn"], cfg, h, cache,
+                                              kv_len)
+    return _mlp_residual(params, cfg, x + a), cache
+
+
+def apply_stack_decode(blocks: list[Params], cfg: ModelConfig, x, caches,
+                       kv_len):
+    """A single token through all layers against the slot caches (updated
+    in place); ``kv_len`` is layer-invariant. Returns (x, caches)."""
+    for l, p_l in enumerate(blocks):
+        x, _ = apply_block_decode(p_l, cfg, x, _layer_pool(caches, l), kv_len)
+    return x, caches
 
 
 def init_paged_decode_cache(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -103,7 +138,8 @@ def init_paged_decode_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def _layer_pool(caches, l: int):
-    """Views of layer l's pool: in-place writes land in the stacked pool."""
+    """Views of layer l's pool or slot cache: in-place writes land in the
+    stacked leaves."""
     return {"k": caches["kv"]["k"][l], "v": caches["kv"]["v"][l]}
 
 

@@ -1,5 +1,6 @@
 """Serving engine: a thin EXECUTOR for the continuous-batching scheduler
-over a PAGED KV cache on one device (port of ``repro.serve.engine``).
+over a PAGED KV cache (the default) or a fixed-slot dense cache, on one
+device (port of ``repro.serve.engine``).
 
 Division of labour (DESIGN.md §10):
 
@@ -16,17 +17,28 @@ Division of labour (DESIGN.md §10):
     kv_len mirror) and the Request bookkeeping (EOS, token budgets,
     preemption requeue-vs-finish).
 
-Prefix caching (on by default): ``submit`` stages the prompt's rolling
-content hash with the allocator, admission maps any indexed full-page
-prefix read-only into the new request's table, and the chunk executors
-publish pages as their rows materialize (kv_cache.py, DESIGN.md §12).
+Dense mode (``paged=False``) keeps one fixed-capacity cache row per lane
+and atomic prefill, driven through the same scheduler without page
+accounting: drained requests prefill in ONE packed call whose K/V rows are
+copied into their slots, and decode runs the contiguous split-KV kernel
+(``use_decode_kernel``) or its plain version.
 
-Where the JAX engine donates the pool through jitted step functions, this
-engine updates the pool tensors in place. Entry points run on ``cuda``
+Prefix caching (on by default in paged mode): ``submit`` stages the
+prompt's rolling content hash with the allocator, admission maps any
+indexed full-page prefix read-only into the new request's table, and the
+chunk executors publish pages as their rows materialize (kv_cache.py,
+DESIGN.md §12).
+
+Every packed zero-offset prefill counts the attention blocks its compiled
+causal + segment layout proves skippable (``blocks_skipped``,
+``blocks_total``, ``last_prefill_layout_density``), as the JAX engine does.
+
+Where the JAX engine donates the cache through jitted step functions, this
+engine updates the cache tensors in place. Entry points run on ``cuda``
 unless ``device="cpu"`` is passed; there is no fallback between the two.
-Not ported yet (raise ``NotImplementedError``): dense slot mode
-(``paged=False``), tensor parallelism (``tp>1``), sequence parallelism
-(``sp>1``), and the IO ledger's per-step HBM pricing.
+Not ported yet (raise ``NotImplementedError``): tensor parallelism
+(``tp>1``), sequence parallelism (``sp>1``), and the IO ledger's per-step
+HBM pricing.
 """
 
 from __future__ import annotations
@@ -40,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import masks
 from repro_torch.core.masks import POS_PAD, SEG_PAD_Q
 from repro_torch.kernels import tuning
 from repro_torch.models.model_zoo import Model
@@ -75,11 +88,9 @@ def _params_device(params) -> torch.device:
 
 
 class ServingEngine:
-    # packed prefill widths pad to a multiple of this many rows
-    PREFILL_BUCKET = 64
-
     def __init__(self, model: Model, params, *, num_slots: int,
                  capacity: int, eos_id: int | None = None,
+                 packed_prefill: bool = True, prefill_bucket: int = 64,
                  paged: bool | None = None,
                  page_size: int = 16, num_pages: int | None = None,
                  chunk_size: int | None = None,
@@ -91,10 +102,6 @@ class ServingEngine:
         if _params_device(params).type != self.device.type:
             raise ValueError(f"params live on {_params_device(params)}, the "
                              f"engine runs on {self.device}")
-        if paged is False:
-            raise NotImplementedError(
-                "dense slot mode is not ported yet; the engine serves from "
-                "the paged KV cache")
         if tp != 1 or sp != 1:
             raise NotImplementedError(
                 "tensor/sequence-parallel serving (tp>1, sp>1) is not "
@@ -104,13 +111,38 @@ class ServingEngine:
         self.B = num_slots
         self.capacity = capacity
         self.eos_id = eos_id
-        self.prefix_cache = True if prefix_cache is None else bool(prefix_cache)
+        # packed prefill widths pad to a multiple of this many rows
+        self.packed_prefill = packed_prefill
+        self.prefill_bucket = prefill_bucket
+        self.paged = True if paged is None else bool(paged)
+        if chunk_size is not None and not self.paged:
+            raise ValueError(
+                "chunked prefill appends to paged KV state; the dense slot "
+                "cache only supports atomic prefill (chunk_size=None)")
+        if prefix_cache and not self.paged:
+            raise ValueError(
+                "prefix caching shares pool pages across page tables; the "
+                "dense slot cache has neither (prefix_cache=False)")
+        if token_budget is not None and not self.paged:
+            raise ValueError("token_budget requires chunked (paged) mode")
+        self.prefix_cache = (self.paged if prefix_cache is None
+                             else bool(prefix_cache))
         self.tm = Telemetry(trace=trace)
         reg = self.tm.registry
         self._c_prefill_calls = reg.counter(
             "serve_prefill_calls", "model prefill invocations")
         self._c_decode_calls = reg.counter(
             "serve_decode_calls", "batched decode invocations")
+        # blocks the packed prefill's compiled layout proves skippable
+        # (cross-document and padded-tail tiles), cumulated
+        self._c_blocks_skipped = reg.counter(
+            "serve_blocks_skipped", "mask-IR blocks proven skippable")
+        self._c_blocks_total = reg.counter(
+            "serve_blocks_total", "mask-IR blocks in packed layouts")
+        self._g_layout_density = reg.gauge(
+            "serve_prefill_layout_density",
+            "1 - skip rate of the last packed layout")
+        self._g_layout_density.set(1.0)
         self._c_preemptions = reg.counter(
             "serve_preemptions", "preempted requests requeued/finished")
         self._g_peak_active = reg.gauge(
@@ -150,38 +182,51 @@ class ServingEngine:
         self.next_token = np.zeros((num_slots,), np.int32)
         self._rid = itertools.count()
 
-        if capacity % page_size:
-            raise ValueError(
-                f"capacity ({capacity}) must be a multiple of page_size "
-                f"({page_size}): the page is the mask-IR kv block and the "
-                f"per-sequence page table has capacity/page_size entries")
-        self.page_size = page_size
-        self.pages_per_seq = capacity // page_size
-        if num_pages is None:
-            num_pages = num_slots * self.pages_per_seq
-        self.kv = kvc.PagedKVCache(num_pages, page_size,
-                                   registry=self.tm.registry)
-        self.state = model.init_paged_decode_state(
-            num_slots, num_pages, page_size, self.pages_per_seq,
-            device=self.device)
-        self._kv_len_h = np.zeros((num_slots,), np.int64)
-        self._paged_dirty = True     # device table/kv_len need upload
-        # kv-side width bucket for suffix chunks, rounded UP to a page
-        # multiple: the in-place kv side is a page LIST.
-        ckb = max(self.PREFILL_BUCKET, 2 * (chunk_size or 0))
-        self.chunk_kv_bucket = ckb + (-ckb) % page_size
-        self.scheduler = ChunkScheduler(
-            SchedulerConfig(num_lanes=num_slots, capacity=capacity,
-                            page_size=page_size, chunk_size=chunk_size,
-                            token_budget=token_budget),
-            kv=self.kv, telemetry=self.tm)
+        if self.paged:
+            if capacity % page_size:
+                raise ValueError(
+                    f"capacity ({capacity}) must be a multiple of page_size "
+                    f"({page_size}): the page is the mask-IR kv block and "
+                    f"the per-sequence page table has capacity/page_size "
+                    f"entries")
+            self.page_size = page_size
+            self.pages_per_seq = capacity // page_size
+            if num_pages is None:
+                num_pages = num_slots * self.pages_per_seq
+            self.kv = kvc.PagedKVCache(num_pages, page_size,
+                                       registry=self.tm.registry)
+            self.state = model.init_paged_decode_state(
+                num_slots, num_pages, page_size, self.pages_per_seq,
+                device=self.device)
+            self._kv_len_h = np.zeros((num_slots,), np.int64)
+            self._paged_dirty = True     # device table/kv_len need upload
+            # kv-side width bucket for suffix chunks, rounded UP to a page
+            # multiple: the in-place kv side is a page LIST.
+            ckb = max(self.prefill_bucket, 2 * (chunk_size or 0))
+            self.chunk_kv_bucket = ckb + (-ckb) % page_size
+            self.scheduler = ChunkScheduler(
+                SchedulerConfig(num_lanes=num_slots, capacity=capacity,
+                                page_size=page_size, chunk_size=chunk_size,
+                                token_budget=token_budget),
+                kv=self.kv, telemetry=self.tm)
+        else:
+            self.state = model.init_decode_state(num_slots, capacity,
+                                                 device=self.device)
+            self.scheduler = ChunkScheduler(
+                SchedulerConfig(num_lanes=num_slots, capacity=capacity),
+                telemetry=self.tm)
 
         # Resolve the decode kernel geometry ONCE at construction: a pinned
-        # split count that does not divide the pages per sequence fails
-        # here, not inside the first decode step.
+        # split count (or block) that does not divide the cache fails here,
+        # not inside the first decode step.
         if cfg.use_decode_kernel:
-            self.num_decode_splits = tuning.resolve_paged_decode_splits(
-                self.pages_per_seq, cfg.num_decode_splits)
+            if self.paged:
+                self.num_decode_splits = tuning.resolve_paged_decode_splits(
+                    self.pages_per_seq, cfg.num_decode_splits)
+            else:
+                self.decode_block_k, self.num_decode_splits = \
+                    tuning.resolve_decode_geometry(
+                        capacity, cfg.attn_block_k, cfg.num_decode_splits)
 
     # --------------------- views over the telemetry registry
     @property
@@ -191,6 +236,18 @@ class ServingEngine:
     @property
     def decode_calls(self) -> int:
         return int(self._c_decode_calls.total())
+
+    @property
+    def blocks_skipped(self) -> int:
+        return int(self._c_blocks_skipped.total())
+
+    @property
+    def blocks_total(self) -> int:
+        return int(self._c_blocks_total.total())
+
+    @property
+    def last_prefill_layout_density(self) -> float:
+        return self._g_layout_density.value(default=1.0)
 
     @property
     def preemptions(self) -> int:
@@ -228,7 +285,8 @@ class ServingEngine:
         return {
             "active": int(g["active"].value()),
             "occupancy": g["occupancy"].value(),
-            "pool_utilization": g["pool_utilization"].value(),
+            "pool_utilization": (g["pool_utilization"].value()
+                                 if self.paged else None),
             "prefill_tokens": int(g["prefill_tokens"].value()),
             "decode_tokens": int(g["decode_tokens"].value()),
             "deferred_chunks": int(g["deferred_chunks"].value()),
@@ -244,15 +302,16 @@ class ServingEngine:
             raise ValueError(
                 f"prompt of {len(prompt)} tokens cannot decode within "
                 f"capacity {self.capacity}")
-        # the final generated token is emitted but never written back, so
-        # the worst-case footprint is prompt + max_new - 1 cache rows.
-        worst = self.kv.pages_for(
-            min(len(prompt) + max_new_tokens - 1, self.capacity))
-        if worst > self.kv.num_pages:
-            raise ValueError(
-                f"request needs up to {worst} pages but the pool has "
-                f"{self.kv.num_pages}; enlarge num_pages or shorten the "
-                f"request")
+        if self.paged:
+            # the final generated token is emitted but never written back,
+            # so the worst-case footprint is prompt + max_new - 1 cache rows.
+            worst = self.kv.pages_for(
+                min(len(prompt) + max_new_tokens - 1, self.capacity))
+            if worst > self.kv.num_pages:
+                raise ValueError(
+                    f"request needs up to {worst} pages but the pool has "
+                    f"{self.kv.num_pages}; enlarge num_pages or shorten "
+                    f"the request")
         sp = sampling.SamplingParams(
             temperature=temperature, top_p=top_p,
             seed=rid if seed is None else seed)
@@ -280,7 +339,7 @@ class ServingEngine:
         ``lengths[i]`` resume tokens, padded to the prefill bucket."""
         offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
         total = int(offsets[-1])
-        padded = total + (-total) % self.PREFILL_BUCKET
+        padded = total + (-total) % self.prefill_bucket
         toks = np.zeros((1, padded), np.int32)
         segs = np.full((1, padded), SEG_PAD_Q, np.int32)
         for i, (r, n) in enumerate(zip(reqs, lengths)):
@@ -318,12 +377,14 @@ class ServingEngine:
         if tr.enabled:
             tr.event("req", "finish", rid=req.rid, reason=reason,
                      tokens=len(req.output))
-        # publish before release: zero-ref indexed pages are RETAINED.
-        self._publish_prefix(req, int(self._kv_len_h[lane]))
+        if self.paged:
+            # publish before release: zero-ref indexed pages are RETAINED.
+            self._publish_prefix(req, int(self._kv_len_h[lane]))
         self.scheduler.finish(req.rid)      # frees lane + pages
         self.slot_req[lane] = None
-        self._kv_len_h[lane] = 0
-        self._paged_dirty = True
+        if self.paged:
+            self._kv_len_h[lane] = 0
+            self._paged_dirty = True
 
     def _post_prefill(self, lane: int, req: Request, tok: int) -> None:
         """The final chunk's logits produced the next generated token."""
@@ -346,7 +407,8 @@ class ServingEngine:
         it (a lane may have been handed to a new admission already)."""
         if self.slot_req[lane] is self.requests[rid]:
             self.slot_req[lane] = None
-            self._kv_len_h[lane] = 0
+            if self.paged:
+                self._kv_len_h[lane] = 0
 
     def _sync_evictions(self, plan) -> None:
         """Translate scheduler evictions into Request outcomes: requeue at
@@ -378,7 +440,7 @@ class ServingEngine:
             self._stage_prefix(req)     # release dropped the staged keys
             self.scheduler.resubmit_front(rid, len(req.resume_tokens))
             self._c_preemptions.inc()
-        if plan.dirty:
+        if plan.dirty and self.paged:
             self._paged_dirty = True
 
     # ----------------------------------------- executor: zero-offset prefill
@@ -394,6 +456,7 @@ class ServingEngine:
             self.params, {"tokens": self._dev(toks),
                           "segment_ids": self._dev(segs)})
         self._c_prefill_calls.inc()
+        self._record_layout_stats(segs)
         tables = [self.kv.table(t.rid) for t in tasks]
         dest_page, dest_off = kvc.packed_destinations(
             tables, offsets, lengths, self.page_size, toks.shape[1],
@@ -438,7 +501,7 @@ class ServingEngine:
         starts = [t.start for t in tasks]
         q_off = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int64)
         total_q = int(q_off[-1])
-        Sq = total_q + (-total_q) % self.PREFILL_BUCKET
+        Sq = total_q + (-total_q) % self.prefill_bucket
         toks = np.zeros((1, Sq), np.int32)
         qseg = np.full((1, Sq), SEG_PAD_Q, np.int32)
         qpos = np.full((1, Sq), POS_PAD, np.int32)
@@ -475,12 +538,99 @@ class ServingEngine:
         self._emit_first_tokens(tasks, logits, q_off)
         self._trace_prefill("prefill_chunk", tasks, time.perf_counter() - t_w)
 
+    # ----------------------------------------------- executor: dense prefill
+    def _exec_dense(self, tasks: list[ChunkTask]) -> None:
+        """Dense mode is atomic-only: every task covers its whole prompt.
+        Several drained requests prefill in ONE packed call."""
+        t_w = time.perf_counter()
+        reqs = [self.requests[t.rid] for t in tasks]
+        if self.packed_prefill and len(tasks) > 1:
+            self._admit_packed(tasks, reqs)
+        else:
+            for t, req in zip(tasks, reqs):
+                self._admit_one(t, req)
+        self._trace_prefill("prefill_dense", tasks, time.perf_counter() - t_w)
+
+    def _bucketed(self, length: int) -> int:
+        """Pad a prefill length to the bucket multiple (capped at
+        capacity)."""
+        bucket = max(1, min(self.prefill_bucket, self.capacity))
+        return min(length + (-length) % bucket, self.capacity)
+
+    def _insert_segment(self, packed_caches, slot: int, offset: int,
+                        length: int, kv_len_new: int) -> None:
+        """Copy packed rows [offset, offset + length) of every layer's K/V
+        into slot rows [0, length), in place, and record the slot's valid
+        length. Cache leaves are (L, B, hkv, capacity, hd); packed leaves
+        (L, 1, hkv, S, hd)."""
+        for name, big in self.state["caches"]["kv"].items():
+            small = packed_caches["kv"][name]
+            big[:, slot, :, :length] = small[:, 0, :, offset:offset + length]
+        self.state["kv_len"][slot] = kv_len_new
+
+    def _admit_one(self, task: ChunkTask, req: Request) -> None:
+        """One batch-1 prefill, padded to the prefill bucket, into the
+        task's slot."""
+        toks = req.resume_tokens
+        L = len(toks)
+        padded = self._bucketed(L)
+        arr = np.zeros((1, padded), np.int32)
+        arr[0, :L] = toks
+        segs = np.full((1, padded), SEG_PAD_Q, np.int32)
+        segs[0, :L] = 0
+        caches, logits = self.model.prefill_packed(
+            self.params, {"tokens": self._dev(arr),
+                          "segment_ids": self._dev(segs)})
+        self._c_prefill_calls.inc()
+        self._insert_segment(caches, task.lane, 0, padded, L)
+        tok = self._sample_rows(logits[0, L - 1][None], [req])[0]
+        self._post_prefill(task.lane, req, int(tok))
+
+    def _admit_packed(self, tasks: list[ChunkTask],
+                      reqs: list[Request]) -> None:
+        """ONE (1, ΣLᵢ) prefill for all drained requests, then each
+        segment's rows into its slot."""
+        lengths = [len(r.resume_tokens) for r in reqs]
+        toks, segs, offsets = self._packed_batch(reqs, lengths)
+        caches, logits = self.model.prefill_packed(
+            self.params, {"tokens": self._dev(toks),
+                          "segment_ids": self._dev(segs)})
+        self._c_prefill_calls.inc()
+        self._record_layout_stats(segs)
+        for i, t in enumerate(tasks):
+            self._insert_segment(caches, t.lane, int(offsets[i]), lengths[i],
+                                 lengths[i])
+        self._emit_first_tokens(tasks, logits, offsets)
+
+    def _record_layout_stats(self, segs: np.ndarray) -> None:
+        """Compile the packed call's causal + segment layout on the host and
+        count the blocks it proves skippable (cross-document and
+        padded-tail tiles the causal geometry alone would run), at the
+        forward kernel's q tile (``tuning.fwd_tiles``) capped by the
+        prefill bucket."""
+        s = segs.shape[1]
+        cfg = self.model.cfg
+        report_block = (cfg.attn_block_q if cfg.attn_block_q is not None
+                        else tuning.fwd_tiles(cfg.head_dim)[0])
+        bq = min(report_block, self.prefill_bucket, s)
+        if s % bq:
+            return  # bucket not block-aligned; skip the report, not the call
+        ids = torch.as_tensor(segs)
+        layout = masks.compile_block_layout(
+            masks.MaskSpec(causal=True, q_segment_ids=ids,
+                           kv_segment_ids=ids), s, s, bq, bq).as_array()
+        skipped = int((layout == masks.BLOCK_SKIP).sum())
+        total = layout.numel()
+        self._c_blocks_skipped.inc(skipped)
+        self._c_blocks_total.inc(total)
+        self._g_layout_density.set(1.0 - skipped / total)
+
     # ------------------------------------------------------ executor: decode
     def _exec_decode(self, decode_lanes: list[int]) -> None:
         lanes = [l for l in decode_lanes if self.slot_req[l] is not None]
         if not lanes:
             return
-        if self._paged_dirty:
+        if self.paged and self._paged_dirty:
             # upload the host allocator's view only when it changed. Lanes
             # still PREFILLING get -1 rows: the decode write drops their
             # rows and the mask IR classifies their pages SKIP.
@@ -516,7 +666,8 @@ class ServingEngine:
             req.output.append(t)
             self.next_token[lane] = t
             self.scheduler.token_appended(req.rid)
-            self._kv_len_h[lane] += 1
+            if self.paged:
+                self._kv_len_h[lane] += 1
             hit_eos = self.eos_id is not None and t == self.eos_id
             if len(req.output) >= req.max_new_tokens or hit_eos:
                 self._finish(lane, req,
@@ -540,6 +691,8 @@ class ServingEngine:
     def _tile_args(self) -> dict[str, Any]:
         bq, bk = tuning.fwd_tiles(self.model.cfg.head_dim)
         out: dict[str, Any] = {"block_q": bq, "block_k": bk}
+        if hasattr(self, "decode_block_k"):
+            out["decode_block_k"] = self.decode_block_k
         if hasattr(self, "num_decode_splits"):
             out["num_decode_splits"] = self.num_decode_splits
         return out
@@ -569,17 +722,26 @@ class ServingEngine:
 
         zero = [t for t in plan.prefill if t.start == 0]
         suffix = [t for t in plan.prefill if t.start > 0]
-        if zero:
-            self._exec_zero_paged(zero)
-        if suffix:
-            self._exec_suffix_paged(suffix)
+        if not self.paged:
+            if zero:
+                self._exec_dense(zero)
+        else:
+            if zero:
+                if self.packed_prefill and len(zero) > 1:
+                    self._exec_zero_paged(zero)
+                else:
+                    for t in zero:
+                        self._exec_zero_paged([t])
+            if suffix:
+                self._exec_suffix_paged(suffix)
 
         active = sum(r is not None for r in self.slot_req)
         self._g_peak_active.max_update(active)
         g = self._g_step
         g["active"].set(active)
         g["occupancy"].set(active / self.B)
-        g["pool_utilization"].set(self.kv.utilization())
+        if self.paged:
+            g["pool_utilization"].set(self.kv.utilization())
         g["prefill_tokens"].set(sum(t.length for t in plan.prefill))
         g["decode_tokens"].set(len(plan.decode_lanes))
         g["deferred_chunks"].set(plan.deferred_chunks)
@@ -627,18 +789,20 @@ class ServingEngine:
 
         def show(e):
             s = e.last_step_stats
+            util = (f" pool {s['pool_utilization']:.0%}"
+                    if s["pool_utilization"] is not None else "")
             work = ""
             if s.get("prefill_tokens"):
                 work = (f" prefill {s['prefill_tokens']}t"
                         f"+decode {s['decode_tokens']}t")
             print(f"  step {next(counter):>3}: batch {s['active']}/{e.B} "
-                  f"({s['occupancy']:.0%}) pool {s['pool_utilization']:.0%}"
-                  f"{work} queued {s['queued']}")
+                  f"({s['occupancy']:.0%}){util}{work} queued {s['queued']}")
 
         return show
 
     def cache_bytes(self) -> int:
-        """Device bytes resident in the KV page pool."""
+        """Device bytes resident in the KV cache (page pool or slot
+        cache)."""
         return int(sum(t.numel() * t.element_size()
                        for t in self.state["caches"]["kv"].values()))
 

@@ -1,8 +1,10 @@
 """Card tests of the hand-written CUDA kernels: each kernel against its
 plain PyTorch version on the same CUDA inputs (the forward, its dropout
-and "paper" variants, the dq and dkv backward kernels, the paged kernels),
-the differentiable op and a train step on the card against the CPU, and
-the serving engine on the card against the same engine on the CPU. Marked ``gpu``; skipped
+and "paper" variants, the dq and dkv backward kernels, the paged kernels,
+the contiguous decode kernel, the paged dq and dkv kernels with the fold
+into pool shape), the differentiable ops and a train step on the card
+against the CPU, and the serving engine (paged and dense) on the card
+against the same engine on the CPU. Marked ``gpu``; skipped
 without a CUDA device (whether one is present is decided inside the
 fixture, never at import or collection). Imports no jax: the card's
 machine has none. Run there with::
@@ -327,3 +329,149 @@ def test_train_step_on_card_matches_cpu(cuda):
         assert fa.LAUNCHES[name] > n0[name], name
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-4 * abs(b), (losses["cuda"], losses["cpu"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_k,window,masked", [
+    (64, None, False), (16, 100, False), (128, None, True), (32, 37, True)])
+def test_flash_decode_matches_plain(cuda, dtype, block_k, window, masked):
+    """The contiguous split-KV kernel: GQA 32/8, a kv_len 0 lane (zeros), a
+    full lane, a window, a kv_mask, and a block of 128 rows (two staged
+    sub-tiles)."""
+    gen = torch.Generator().manual_seed(block_k)
+    b, hq, hkv, d, cap, splits = 6, 32, 8, 64, 512, 4
+    q = torch.randn(b, hq, 1, d, generator=gen).to(cuda, dtype)
+    k = torch.randn(b, hkv, cap, d, generator=gen).to(cuda, dtype)
+    v = torch.randn(b, hkv, cap, d, generator=gen).to(cuda, dtype)
+    kv_len = torch.tensor([1, 17, 200, 383, cap, 0], dtype=torch.int32,
+                          device=cuda)
+    kvm = ((torch.rand(b, cap, generator=gen) > 0.3).to(cuda)
+           if masked else None)
+    valid = M.decode_kv_valid(kv_len, cap, window=window, kv_mask=kvm)
+    layout = M.kv_block_layout(valid, block_k)
+    kw = dict(scale=d ** -0.5, block_k=block_k, num_splits=splits,
+              window=window, kv_mask=kvm)
+    n0 = fd.LAUNCHES["flash_decode"]
+    out = fd.flash_decode_partials(q, k, v, kv_len, layout, **kw)
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode"] == n0 + 1
+    plain = fd.flash_decode_partials_plain(q, k, v, kv_len, layout, **kw)
+    atol, rel = _tol(dtype)
+    torch.testing.assert_close(out[0], plain[0], atol=atol * 10, rtol=rel)
+    torch.testing.assert_close(out[1], plain[1], atol=rel, rtol=rel)
+    torch.testing.assert_close(out[2], plain[2], atol=rel, rtol=rel)
+    merged = fd._merge_split_partials(*out, dtype)
+    ref = fd._merge_split_partials(*plain, dtype)
+    torch.testing.assert_close(merged.float(), ref.float(), atol=atol, rtol=0)
+    assert torch.all(merged[5] == 0)         # kv_len 0 emits zeros
+    torch.testing.assert_close(
+        fd.flash_decode(q, k, v, kv_len, block_k=block_k, num_splits=splits,
+                        window=window, kv_mask=kvm).float(),
+        merged.float(), atol=0, rtol=0)
+
+
+def _paged_grad_case(cuda, dtype, page_size, seed=0):
+    """Two rows, one segment each, whose prefixes share their first pool
+    page; scrambled pages, dead slots, a padded q tail in row 1."""
+    gen = torch.Generator().manual_seed(seed + page_size)
+    hq, hkv, d, num_pages, sq = 8, 2, 64, 60, 64
+    spans, chunks = [150, 70], [64, 30]
+    T = max(-(-s // page_size) for s in spans) + 2
+    pages = torch.randperm(num_pages, generator=gen).int()
+    page_list = torch.full((2, T), -1, dtype=torch.int32)
+    kv_seg = torch.full((2, T * page_size), M.SEG_PAD_KV, dtype=torch.int32)
+    kv_pos = torch.full((2, T * page_size), M.POS_PAD, dtype=torch.int32)
+    q_seg = torch.full((2, sq), M.SEG_PAD_Q, dtype=torch.int32)
+    q_pos = torch.full((2, sq), M.POS_PAD, dtype=torch.int32)
+    nxt = 1
+    for r, (span, n) in enumerate(zip(spans, chunks)):
+        np_ = -(-span // page_size)
+        page_list[r, 0] = pages[0]                # shared by both rows
+        page_list[r, 1:np_] = pages[nxt:nxt + np_ - 1]
+        nxt += np_ - 1
+        kv_seg[r, :span] = 0
+        kv_pos[r, :span] = torch.arange(span)
+        q_seg[r, :n] = 0
+        q_pos[r, :n] = torch.arange(span - n, span)
+    f = lambda *sh: torch.randn(*sh, generator=gen).to(cuda, dtype)  # noqa: E731
+    ids = {n: t.to(cuda) for n, t in dict(
+        q_segment_ids=q_seg, kv_segment_ids=kv_seg, q_positions=q_pos,
+        kv_positions=kv_pos).items()}
+    return (f(2, hq, sq, d), f(hkv, num_pages, page_size, d),
+            f(hkv, num_pages, page_size, d), page_list.to(cuda), ids,
+            f(2, hq, sq, d))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page_size", [8, 16, 64])
+def test_flash_bwd_paged_matches_plain(cuda, dtype, page_size):
+    """The paged dq and dkv kernels + the fold against the plain backward
+    over the gathered pages: untouched pages exactly zero, two calls
+    bit-identical (no atomics anywhere)."""
+    q, k_pool, v_pool, page_list, ids, do = _paged_grad_case(
+        cuda, dtype, page_size)
+    bq = 32
+    T = page_list.shape[1]
+    spec = M.MaskSpec(causal=True, **ids)
+    layout = M.compile_block_layout(spec, q.shape[2], T * page_size, bq,
+                                    page_size).as_array(cuda)
+    layout = M.paged_prefill_block_layout(layout, page_list)
+    call = dict(scale=q.shape[-1] ** -0.5, causal=True, window=None,
+                block_q=bq, **ids)
+    o, m, l = fa.flash_prefill_paged_forward_plain(q, k_pool, v_pool,
+                                                   page_list, layout, **call)
+    res = (q, k_pool, v_pool, page_list, o, do, m, l, layout)
+    n0 = dict(fa.LAUNCHES)
+    got = fa.flash_prefill_paged_backward(*res, **call)
+    torch.cuda.synchronize()
+    for name in ("flash_bwd_dq_paged", "flash_bwd_dkv_paged"):
+        assert fa.LAUNCHES[name] == n0[name] + 1
+    want = fa.flash_prefill_paged_backward_plain(*res, **call)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert err <= tol, float(err)
+    named = set(page_list[page_list >= 0].tolist())
+    unnamed = [p for p in range(k_pool.shape[1]) if p not in named]
+    assert torch.all(got[1][:, unnamed] == 0) and torch.all(got[2][:, unnamed] == 0)
+    again = fa.flash_prefill_paged_backward(*res, **call)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_paged_op_grads_on_card_match_cpu(cuda):
+    """ops.flash_prefill_paged forward + backward (fp32) through the kernels
+    on the card against the plain versions on the CPU."""
+    q, k_pool, v_pool, page_list, ids, do = _paged_grad_case(
+        cuda, torch.float32, 16, seed=5)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k_pool, v_pool)]
+        o = ops.flash_prefill_paged(*leaves, page_list.to(dev),
+                                    **{n: t.to(dev) for n, t in ids.items()})
+        (o * do.to(dev)).sum().backward()
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+
+
+def test_dense_engine_on_card_matches_cpu(cuda):
+    """Dense slot mode with the contiguous decode kernel on the card gives
+    the CPU engine's greedy tokens, and the paged engine's on the card."""
+    cfg = reduced_config("granite-3-2b", head_dim=16, attn_impl="pallas",
+                         use_decode_kernel=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    prompts = [list(range(1, 28)), list(range(60, 79)), [5, 9, 2]]
+    outs = {}
+    for device, paged in (("cpu", False), ("cuda", False), ("cuda", True)):
+        eng = ServingEngine(model, params_to(params, device), num_slots=2,
+                            capacity=64, paged=paged, device=device)
+        n0 = fd.LAUNCHES["flash_decode"]
+        for pr in prompts:
+            eng.submit(pr, max_new_tokens=6)
+        eng.run()
+        outs[(device, paged)] = {r.rid: r.output for r in eng.finished}
+        if device == "cuda" and not paged:
+            assert fd.LAUNCHES["flash_decode"] > n0
+    assert outs[("cpu", False)] == outs[("cuda", False)] == outs[("cuda", True)]

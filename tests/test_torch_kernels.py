@@ -234,20 +234,28 @@ def test_paged_decode_geometry_validation():
 
 
 def test_forward_only_and_cpu_wrappers():
-    """The paged op stays forward-only (its backward kernels are not ported)
-    and raises on inputs that require grad; the differentiable op runs its
-    forward and backward through the plain versions on CPU tensors and
-    never counts a kernel launch; an unknown variant raises."""
+    """The paged op is differentiable: on inputs that require grad it
+    returns q and pool gradients (dead and unnamed pages exactly zero) and
+    integer inputs get none; both differentiable ops run their forward and
+    backward through the plain versions on CPU tensors and never count a
+    kernel launch; an unknown variant raises."""
     case = {k: torch.as_tensor(v) for k, v in _paged_case(5).items()}
     kw = {n: case[n] for n in ("q_segment_ids", "kv_segment_ids",
                                "q_positions", "kv_positions")}
-    with pytest.raises(ValueError, match="forward-only"):
-        tops.flash_prefill_paged(case["q"].requires_grad_(), case["k_pool"],
-                                 case["v_pool"], case["page_list"],
-                                 block_q=8, **kw)
+    before = dict(tfa.LAUNCHES)
+    leaves = [case[n].clone().requires_grad_()
+              for n in ("q", "k_pool", "v_pool")]
+    tops.flash_prefill_paged(*leaves, case["page_list"], block_q=8,
+                             **kw).sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in leaves)
+    named = set(case["page_list"][case["page_list"] >= 0].tolist())
+    unnamed = [p for p in range(case["k_pool"].shape[1]) if p not in named]
+    assert torch.all(leaves[1].grad[:, unnamed] == 0)
+    assert leaves[1].grad[:, sorted(named)].abs().sum() > 0
+    assert all(t.grad is None for t in kw.values())
     q = torch.randn(1, 2, 8, 16, requires_grad=True)
     k = torch.randn(1, 1, 8, 16)
-    before = dict(tfa.LAUNCHES)
     o = tops.flash_attention(q, k, k, causal=True, dropout_p=0.1)
     o.sum().backward()
     assert tfa.LAUNCHES == before and q.grad is not None

@@ -175,7 +175,7 @@ def test_entry_points_raise_without_cuda(weights):
 def test_unported_modes_raise(weights):
     _, _, np_params = weights
     model, params = _port(np_params)
-    for kw in (dict(paged=False), dict(tp=2), dict(sp=2)):
+    for kw in (dict(tp=2), dict(sp=2)):
         with pytest.raises(NotImplementedError):
             ServingEngine(model, params, num_slots=2, capacity=32,
                           device="cpu", **kw)
