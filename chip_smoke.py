@@ -12,24 +12,32 @@ paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
 
 1. print the card's name and power limit (nvidia-smi), then build every
    CUDA kernel of both paths from ``src/repro_torch/kernels/csrc`` (one
-   nvcc per source, the three libraries started together);
+   nvcc per source, the three libraries started together), and count the
+   tensor-core instructions (``HMMA``, ``cuobjdump -sass`` of the built
+   library) in every bf16 ``flash_fwd_kernel`` instantiation: each must
+   have some (no bf16 forward runs the scalar body);
 2. kernels: each kernel against its plain PyTorch version at the main
    path's shapes in bf16 (hq 32 / hkv 8 / d 64, page 16): a ~2k-token
    packed prefill with several documents (flash_fwd), a 256-row chunk
    against 1.5k-token paged prefixes (flash_fwd_paged), decode at batch 8
    over ~1k-token contexts (flash_decode_paged). Tolerances: max |o - o_plain|
-   <= 2e-2 (bf16 output), m and l within 1e-2 relative. Each is timed with
-   CUDA events after warm-up, inputs rotated so the working set exceeds the
-   50 MB L2; the plain version is timed the same way, and for flash_fwd so
-   is one ``scaled_dot_product_attention`` call with the equivalent boolean
-   mask (``library_ms``; the port never calls it; for the two paged kernels
+   <= 2e-2 (bf16 output), m and l within 1e-2 relative. Each is timed after
+   warm-up, inputs rotated so the working set exceeds the 50 MB L2, as
+   device time per call (``ms``: every kernel of the call summed by
+   ``torch.profiler``) and as CUDA-event time per call (``call_ms``: the
+   host's launch gaps included); the plain version is timed the same way
+   (device time), and so is one ``scaled_dot_product_attention`` call with
+   the equivalent boolean mask (``library_ms``; the port never calls it;
+   for the two paged kernels
    SDPA runs on K/V gathered beforehand into a contiguous tensor, the
    gather not timed). At the training phase's per-layer shape in bf16 (q
    (4, 32, 2048, 64), k/v (4, 8, 2048, 64), causal, the segment ids of
-   ``SyntheticLM(49155, 2048, 4, seed).batch_at(0)``): the dq and dkv
-   kernels against the plain backward (max |g - plain| / max |plain| <=
-   2e-2), a dropout_p = 0.1 forward + backward and a ``variant="paper"``
-   forward against the plain versions, each kernel timed beside its bound,
+   ``SyntheticLM(49155, 2048, 4, seed).batch_at(0)``): the forward against
+   its plain version, the dq and dkv kernels fed the kernel forward's
+   (o, m, l) against the plain backward fed the same (max |g - plain| /
+   max |plain| <= 2e-2), a dropout_p = 0.1 forward + backward and a
+   ``variant="paper"`` forward against the plain versions, each kernel
+   timed (device time) beside its bound,
    its plain time and ``library_ms`` = the backward of SDPA alone
    (``torch.autograd.grad`` after one forward, boolean mask, GQA). The
    contiguous decode kernel (flash_decode) at batch 8 over a 2048-slot
@@ -82,13 +90,14 @@ paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
 ``git archive`` of the parent commit): first both checkouts' kernel
 sources compiled with ``-Xptxas -v`` to cubins, printing every parent
 kernel's registers, stack and spills on both sides and whether its SASS
-(``cuobjdump -sass``) is identical; then that checkout's and this one's
-own ``train_kernel_phase`` (first, so that both sides time the training
+(``cuobjdump -sass``) is identical; then this script's
+``train_kernel_phase`` (first, so that both sides time the training
 kernels from the same process state), ``kernel_phase`` and
-``serve_phase`` (without the profiled pass), each in a fresh process, in
-the order parent,
-change, change, parent on the same card, then each side's per-run
-numbers (record in ``build/chip_smoke_ab.json``).
+``serve_phase`` (without the profiled pass) on that checkout's package
+and on this one's (one measurement for both sides), each in a fresh
+process, in the order parent, change, change, parent on the same card,
+then each side's per-run numbers (record in
+``build/chip_smoke_ab.json``).
 
 Prints one JSON line of kernel results (``launches`` summed over the four
 main paths' runs, per path under ``launches_by_path``), then as its last
@@ -139,8 +148,10 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fns, warmup=3, iters=20) -> float:
-    """Mean device time of one call (CUDA events around ``iters`` calls),
-    cycling over ``fns`` — one closure per rotated input copy."""
+    """Time of one call on the card's clock (CUDA events around ``iters``
+    calls), cycling over ``fns`` — one closure per rotated input copy. The
+    host's gaps between launches count: a call whose wrapper takes longer
+    on the host than its kernels on the card reads its host time."""
     for i in range(warmup):
         fns[i % len(fns)]()
     torch.cuda.synchronize()
@@ -152,6 +163,33 @@ def time_ms(torch, fns, warmup=3, iters=20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fns, warmup=3, iters=20) -> float:
+    """Device time of one call: every kernel the ``iters`` calls launch
+    (cycling over ``fns``), summed by ``torch.profiler``, over ``iters``.
+    Unlike ``time_ms`` it leaves out the host's gaps between launches,
+    which set the CUDA-event time of a call that takes less device time
+    than its wrapper takes host time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(warmup):
+        fns[i % len(fns)]()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    check(us > 0, "torch.profiler recorded no device time")
+    return us / 1e3 / iters
+
+
+def timed(torch, fns) -> tuple[float, float]:
+    """(device_ms, time_ms) of the same calls."""
+    return device_ms(torch, fns), time_ms(torch, fns)
 
 
 def copies_for(nbytes: int) -> int:
@@ -214,12 +252,12 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     sets = [(q, k, v)] + [(randn(1, hq, S, d), randn(1, hkv, S, d),
                            randn(1, hkv, S, d))
                           for _ in range(copies_for(nbytes(q, k, v)) - 1)]
-    ms = time_ms(torch, [lambda a=a: fa.flash_attention_forward(
+    ms, call_ms = timed(torch, [lambda a=a: fa.flash_attention_forward(
         *a, None, layout, **call) for a in sets])
-    plain_ms = time_ms(torch, [lambda: fa.flash_attention_forward_plain(
+    plain_ms = device_ms(torch, [lambda: fa.flash_attention_forward_plain(
         q, k, v, None, layout, **call)], warmup=1, iters=3)
     mask = spec.element_mask(S, S)                   # (1, 1, S, S) bool
-    lib_ms = time_ms(torch, [lambda a=a: sdpa(*a, attn_mask=mask, scale=scale,
+    lib_ms = device_ms(torch, [lambda a=a: sdpa(*a, attn_mask=mask, scale=scale,
                                               enable_gqa=True) for a in sets])
     pairs = int(mask.sum()) * hq
     b_ms, b_by = bound(nbytes(q, k, v, out[0], out[1], out[2], layout, seg, seg),
@@ -227,7 +265,8 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     results.append(_kernel_record(
         "flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
         "src/repro/kernels/flash_attention.py:325", out, plain, ms, plain_ms,
-        b_ms, b_by, lib_ms, shape=f"packed prefill b=1 S={S} docs={lengths}",
+        b_ms, b_by, lib_ms, call_ms=call_ms,
+        shape=f"packed prefill b=1 S={S} docs={lengths}",
         library="SDPA, bool mask"))
 
     # -- flash_fwd_paged: chunks against paged prefixes ---------------------
@@ -270,9 +309,9 @@ def kernel_phase(torch, seed: int) -> list[dict]:
         (randn(1, hq, sq, d), randn(hkv, num_pages, ps, d),
          randn(hkv, num_pages, ps, d))
         for _ in range(copies_for(nbytes(qc) + kv_bytes) - 1)]
-    ms = time_ms(torch, [lambda a=a: fa.flash_prefill_paged_forward(
+    ms, call_ms = timed(torch, [lambda a=a: fa.flash_prefill_paged_forward(
         *a, page_list, play, **pcall) for a in sets])
-    plain_ms = time_ms(torch, [lambda: fa.flash_prefill_paged_forward_plain(
+    plain_ms = device_ms(torch, [lambda: fa.flash_prefill_paged_forward_plain(
         qc, pool_k, pool_v, page_list, play, **pcall)], warmup=1, iters=3)
     pmask = pspec.element_mask(sq, T * ps)           # (1, 1, sq, T*ps) bool
     pairs = int(pmask.sum()) * hq
@@ -281,13 +320,13 @@ def kernel_phase(torch, seed: int) -> list[dict]:
                        4.0 * d * pairs, BF16_FLOPS_PER_S)
     gathered = [(a[0], gather_pages(a[1], page_list), gather_pages(a[2], page_list))
                 for a in sets]                       # the gather is not timed
-    lib_ms = time_ms(torch, [lambda a=a: sdpa(*a, attn_mask=pmask, scale=scale,
+    lib_ms = device_ms(torch, [lambda a=a: sdpa(*a, attn_mask=pmask, scale=scale,
                                               enable_gqa=True) for a in gathered])
     del gathered
     results.append(_kernel_record(
         "flash_fwd_paged", "src/repro_torch/kernels/csrc/flash_fwd.cu",
         "src/repro/kernels/flash_attention.py:765", out, plain, ms, plain_ms,
-        b_ms, b_by, lib_ms,
+        b_ms, b_by, lib_ms, call_ms=call_ms,
         shape=f"chunks {chunks} against paged prefixes {spans}, page {ps}",
         library="SDPA on pre-gathered K/V, bool mask"))
 
@@ -319,9 +358,9 @@ def kernel_phase(torch, seed: int) -> list[dict]:
         (randn(b, hq, 1, d), randn(hkv, num_pages, ps, d),
          randn(hkv, num_pages, ps, d))
         for _ in range(copies_for(kv_bytes) - 1)]
-    ms = time_ms(torch, [lambda a=a: fd.flash_decode_paged_partials(
+    ms, call_ms = timed(torch, [lambda a=a: fd.flash_decode_paged_partials(
         *a, table, kv_len, dlay, **dcall) for a in sets])
-    plain_ms = time_ms(torch, [lambda: fd.flash_decode_paged_partials_plain(
+    plain_ms = device_ms(torch, [lambda: fd.flash_decode_paged_partials_plain(
         qd, dk, dv, table, kv_len, dlay, **dcall)], warmup=1, iters=3)
     pairs = int(kv_len.sum()) * hq
     b_ms, b_by = bound(nbytes(qd, *parts, table, kv_len, dlay) + kv_bytes,
@@ -330,13 +369,13 @@ def kernel_phase(torch, seed: int) -> list[dict]:
              < kv_len[:, None])[:, None, None, :]  # (b, 1, 1, T*ps) bool
     gathered = [(a[0], gather_pages(a[1], table), gather_pages(a[2], table))
                 for a in sets]                       # the gather is not timed
-    lib_ms = time_ms(torch, [lambda a=a: sdpa(*a, attn_mask=dmask, scale=scale,
+    lib_ms = device_ms(torch, [lambda a=a: sdpa(*a, attn_mask=dmask, scale=scale,
                                               enable_gqa=True) for a in gathered])
     del gathered
     results.append(_kernel_record(
         "flash_decode_paged", "src/repro_torch/kernels/csrc/flash_decode.cu",
         "src/repro/kernels/flash_decode.py:329", out, plain, ms, plain_ms,
-        b_ms, b_by, lib_ms,
+        b_ms, b_by, lib_ms, call_ms=call_ms,
         shape=f"decode b={b} kv_len {kv_len.tolist()} page {ps} "
               f"splits {splits}", library="SDPA on pre-gathered K/V, bool mask"))
     results.append(contiguous_decode_record(torch, gen, randn, hq, hkv, d))
@@ -387,20 +426,20 @@ def contiguous_decode_record(torch, gen, randn, hq, hkv, d) -> dict:
     sets = [(qd, kc, vc)] + [(randn(b, hq, 1, d), randn(b, hkv, cap, d),
                               randn(b, hkv, cap, d))
                              for _ in range(copies_for(nbytes(kc, vc)) - 1)]
-    ms = time_ms(torch, [lambda a=a: fd.flash_decode_partials(
+    ms, call_ms = timed(torch, [lambda a=a: fd.flash_decode_partials(
         *a, kv_len, lay, **call) for a in sets])
-    plain_ms = time_ms(torch, [lambda: fd.flash_decode_partials_plain(
+    plain_ms = device_ms(torch, [lambda: fd.flash_decode_partials_plain(
         qd, kc, vc, kv_len, lay, **call)], warmup=1, iters=3)
     b_ms, b_by = bound(nbytes(qd, out[1], out[2], kv_len, lay) + kv_bytes
                        + out[1].numel() * d * 4, 4.0 * d * rows * hq,
                        BF16_FLOPS_PER_S)
     mask = valid[:, None, None, :]                # (b, 1, 1, cap) bool
-    lib_ms = time_ms(torch, [lambda a=a: sdpa(*a, attn_mask=mask, scale=scale,
+    lib_ms = device_ms(torch, [lambda a=a: sdpa(*a, attn_mask=mask, scale=scale,
                                               enable_gqa=True) for a in sets])
     rec = _kernel_record(
         "flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
         "src/repro/kernels/flash_decode.py:169", out, plain, ms, plain_ms,
-        b_ms, b_by, lib_ms,
+        b_ms, b_by, lib_ms, call_ms=call_ms,
         shape=f"contiguous decode b={b} capacity {cap} kv_len "
               f"{kv_len.tolist()} block_k {bk} splits {splits}",
         library="SDPA on the contiguous cache, bool mask, GQA")
@@ -409,16 +448,21 @@ def contiguous_decode_record(torch, gen, randn, hq, hkv, d) -> dict:
 
 
 def _kernel_record(name, source, replaces, out, plain, ms, plain_ms, b_ms,
-                   b_by, lib_ms, shape, library=None):
+                   b_by, lib_ms, shape, library=None, call_ms=None):
+    """One kernel's line: errors against the plain version, ``ms`` its
+    device time per call (``device_ms``), ``call_ms`` its CUDA-event time
+    per call (``time_ms``)."""
     o_err = float((out[0].float() - plain[0].float()).abs().max())
     m_err, l_err = rel_err(out[1], plain[1]), rel_err(out[2], plain[2])
     rec = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": None, "max_abs_err": o_err,
            "m_rel_err": m_err, "l_rel_err": l_err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": lib_ms, "library": library, "shape": shape}
+           "library_ms": lib_ms, "library": library, "shape": shape,
+           "call_ms": call_ms}
     print(f"[kernel] {name}: {shape}: max|o-plain| {o_err:.3g} "
-          f"m rel {m_err:.3g} l rel {l_err:.3g}; {ms:.4f} ms "
+          f"m rel {m_err:.3g} l rel {l_err:.3g}; {ms:.4f} ms on the card, "
+          f"{call_ms:.4f} ms a call "
           f"(plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}"
           + (f", {library} {lib_ms:.4f} ms" if lib_ms is not None else "")
           + ")", flush=True)
@@ -440,10 +484,12 @@ def scaled_err(got, want) -> float:
 
 
 def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
-    """dq / dkv against the plain backward, a dropout forward + backward and
-    a "paper" forward against the plain versions, at the per-layer shape of
-    the training phase; returns the two backward records and the forward's
-    numbers at this shape."""
+    """The forward against its plain version, then dq / dkv from the
+    kernel forward's (o, m, l) against the plain backward from the same
+    residuals, a dropout forward + backward and a "paper" forward against
+    the plain versions, at the per-layer shape of the training phase;
+    returns the two backward records and the forward's numbers at this
+    shape."""
     from repro_torch.core import masks as M
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import flash_attention as fa
@@ -471,7 +517,20 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
         randn(b, hq, S, d)
     mask = spec.element_mask(S, S)                   # (b, 1, S, S) bool
     pairs = int(mask.sum()) * hq
-    o, m, l = fa.flash_attention_forward_plain(q, k, v, None, layout, **call)
+
+    # -- the forward kernel against its plain version; its (o, m, l) are the
+    # residuals of both backwards below
+    o, m, l = fa.flash_attention_forward(q, k, v, None, layout, **call)
+    torch.cuda.synchronize()
+    fplain = fa.flash_attention_forward_plain(q, k, v, None, layout, **call)
+    f_errs = (float((o.float() - fplain[0].float()).abs().max()),
+              rel_err(m, fplain[1]), rel_err(l, fplain[2]))
+    del fplain
+    print(f"[train-kernel] flash_fwd {shape}: max |o - plain| {f_errs[0]:.3g}, "
+          f"m rel {f_errs[1]:.3g}, l rel {f_errs[2]:.3g}", flush=True)
+    check(f_errs[0] <= 2e-2, f"flash_fwd train shape: max |o - plain| {f_errs[0]}")
+    check(f_errs[1] <= 1e-2 and f_errs[2] <= 1e-2,
+          f"flash_fwd train shape: m/l relative error {f_errs[1:]} > 1e-2")
     res = (q, k, v, o, do, m, l, None, layout)
 
     # -- correctness: kernels against the plain backward --------------------
@@ -491,24 +550,24 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
 
     # -- times: each kernel alone, CUDA events (one input set exceeds 2x L2)
     ops_ = fa.prepare_backward(*res, **call)
-    dq_ms = time_ms(torch, [lambda: fa.launch_dq(ops_)])
-    dkv_ms = time_ms(torch, [lambda: fa.launch_dkv(ops_)])
+    dq_ms = device_ms(torch, [lambda: fa.launch_dq(ops_)])
+    dkv_ms = device_ms(torch, [lambda: fa.launch_dkv(ops_)])
     pair_ms = time_ms(torch, [lambda: fa.flash_attention_backward(*res, **call)])
-    plain_ms = time_ms(torch, [lambda: fa.flash_attention_backward_plain(
+    plain_ms = device_ms(torch, [lambda: fa.flash_attention_backward_plain(
         *res, **call)], warmup=1, iters=3)
-    fwd_ms = time_ms(torch, [lambda: fa.flash_attention_forward(
+    fwd_ms, fwd_call_ms = timed(torch, [lambda: fa.flash_attention_forward(
         q, k, v, None, layout, **call)])
-    fwd_plain_ms = time_ms(torch, [lambda: fa.flash_attention_forward_plain(
+    fwd_plain_ms = device_ms(torch, [lambda: fa.flash_attention_forward_plain(
         q, k, v, None, layout, **call)], warmup=1, iters=3)
 
     # -- library yardstick: SDPA's backward alone, same mask, GQA ----------
     sdpa = torch.nn.functional.scaled_dot_product_attention
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     out = sdpa(*leaves, attn_mask=mask, scale=scale, enable_gqa=True)
-    lib_bwd_ms = time_ms(torch, [lambda: torch.autograd.grad(
+    lib_bwd_ms = device_ms(torch, [lambda: torch.autograd.grad(
         out, leaves, do, retain_graph=True)])
     del out, leaves
-    lib_fwd_ms = time_ms(torch, [lambda: sdpa(q, k, v, attn_mask=mask,
+    lib_fwd_ms = device_ms(torch, [lambda: sdpa(q, k, v, attn_mask=mask,
                                               scale=scale, enable_gqa=True)])
 
     # -- dropout 0.1: forward and backward against the plain versions ------
@@ -521,21 +580,21 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
     check(d_o_err <= 2e-2, f"flash_fwd dropout: max |o - plain| {d_o_err}")
     check(rel_err(dout[1], dplain[1]) <= 1e-2 and rel_err(dout[2], dplain[2])
           <= 1e-2, "flash_fwd dropout: m/l differ from the plain version")
-    dres = (q, k, v, dplain[0], do, dplain[1], dplain[2], None, layout)
+    dres = (q, k, v, dout[0], do, dout[1], dout[2], None, layout)
     dgot = fa.flash_attention_backward(*dres, **dcall)
     torch.cuda.synchronize()
     dwant = fa.flash_attention_backward_plain(*dres, **dcall)
     derrs = dict(zip(("dq", "dk", "dv"), map(scaled_err, dgot, dwant)))
-    del dwant, dplain
+    del dwant, dplain, dout
     print(f"[train-kernel] dropout 0.1: max |o - plain| {d_o_err:.3g}, "
           f"scaled |grad - plain| {derrs}", flush=True)
     for name, e in derrs.items():
         check(e <= 2e-2, f"flash_bwd dropout: {name} scaled error {e} > 2e-2")
-    fwd_drop_ms = time_ms(torch, [lambda: fa.flash_attention_forward(
+    fwd_drop_ms = device_ms(torch, [lambda: fa.flash_attention_forward(
         q, k, v, None, layout, **dcall)])
     dops = fa.prepare_backward(*dres, **dcall)
-    dq_drop_ms = time_ms(torch, [lambda: fa.launch_dq(dops)])
-    dkv_drop_ms = time_ms(torch, [lambda: fa.launch_dkv(dops)])
+    dq_drop_ms = device_ms(torch, [lambda: fa.launch_dq(dops)])
+    dkv_drop_ms = device_ms(torch, [lambda: fa.launch_dkv(dops)])
 
     # -- variant "paper": forward against the plain version ----------------
     pcall = dict(call, variant="paper")
@@ -544,7 +603,7 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
     pplain = fa.flash_attention_forward_plain(q, k, v, None, layout, **pcall)
     p_err = float((pout[0].float() - pplain[0].float()).abs().max())
     check(p_err <= 2e-2, f"flash_fwd paper: max |o - plain| {p_err} > 2e-2")
-    fwd_paper_ms = time_ms(torch, [lambda: fa.flash_attention_forward(
+    fwd_paper_ms = device_ms(torch, [lambda: fa.flash_attention_forward(
         q, k, v, None, layout, **pcall)])
 
     # -- bounds: each input read once, each output written once; FLOPs of
@@ -577,13 +636,17 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
               f"(dropout 0.1: {drop_ms:.4f} ms; plain backward {plain_ms:.3f} "
               f"ms, bound {b_ms:.4f} ms by {b_by}, {lib} {lib_bwd_ms:.4f} ms)",
               flush=True)
-    fwd = {"shape": shape, "ms": fwd_ms, "dropout_ms": fwd_drop_ms,
+    fwd = {"shape": shape, "ms": fwd_ms, "call_ms": fwd_call_ms,
+           "dropout_ms": fwd_drop_ms,
            "paper_ms": fwd_paper_ms, "plain_ms": fwd_plain_ms,
            "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-           "library_ms": lib_fwd_ms, "dropout_max_abs_err": d_o_err,
+           "library_ms": lib_fwd_ms, "max_abs_err": f_errs[0],
+           "m_rel_err": f_errs[1], "l_rel_err": f_errs[2],
+           "dropout_max_abs_err": d_o_err,
            "paper_max_abs_err": p_err, "bwd_pair_ms": pair_ms,
            "dropout_grad_errs": derrs}
-    print(f"[kernel] flash_fwd at the train shape: {fwd_ms:.4f} ms, dropout "
+    print(f"[kernel] flash_fwd at the train shape: {fwd_ms:.4f} ms on the "
+          f"card ({fwd_call_ms:.4f} ms a call), dropout "
           f"0.1 {fwd_drop_ms:.4f} ms, paper {fwd_paper_ms:.4f} ms (plain "
           f"{fwd_plain_ms:.3f} ms, bound {fwd_bound[0]:.4f} ms by "
           f"{fwd_bound[1]}, SDPA forward {lib_fwd_ms:.4f} ms); backward pair "
@@ -689,11 +752,11 @@ def paged_grad_kernel_phase(torch, seed: int) -> list[dict]:
     ops_ = fa.prepare_backward(q, k_pool, v_pool, o, c["do"], m, l, None,
                                c["layout"], q_offset=0, block_k=k_pool.shape[2],
                                page_list=page_list, **call)
-    dq_ms = time_ms(torch, [lambda: fa.launch_dq_paged(ops_)])
-    dkv_ms = time_ms(torch, [lambda: fa.launch_dkv_paged(ops_)])
+    dq_ms = device_ms(torch, [lambda: fa.launch_dq_paged(ops_)])
+    dkv_ms = device_ms(torch, [lambda: fa.launch_dkv_paged(ops_)])
     full_ms = time_ms(torch, [lambda: fa.flash_prefill_paged_backward(
         *res, **call)])
-    plain_ms = time_ms(torch, [lambda: fa.flash_prefill_paged_backward_plain(
+    plain_ms = device_ms(torch, [lambda: fa.flash_prefill_paged_backward_plain(
         *res, **call)], warmup=1, iters=3)
     # library: SDPA's backward alone on K/V gathered beforehand, same mask;
     # the padded q rows, which have no key, may see key 0 so SDPA's softmax
@@ -705,7 +768,7 @@ def paged_grad_kernel_phase(torch, seed: int) -> list[dict]:
               gather_pages(k_pool, page_list).requires_grad_(),
               gather_pages(v_pool, page_list).requires_grad_()]
     out = sdpa(*leaves, attn_mask=mask, scale=call["scale"], enable_gqa=True)
-    lib_ms = time_ms(torch, [lambda: torch.autograd.grad(
+    lib_ms = device_ms(torch, [lambda: torch.autograd.grad(
         out, leaves, c["do"], retain_graph=True)])
     del out, leaves
     pairs = int(c["mask"].sum()) * q.shape[1]
@@ -1268,7 +1331,7 @@ def profile_train(torch, trainer) -> dict:
 
 _AB_RUN = """
 import json, sys
-sys.path[:0] = [{src!r}, {root!r}]
+sys.path[:0] = [{src!r}, {here!r}]
 import torch
 import chip_smoke as cs
 from repro_torch.kernels import build
@@ -1279,7 +1342,9 @@ cs.profile_serve = lambda *a, **k: {{}}
 serve, _ = cs.serve_phase(torch, {seed}, cs.card_line())
 print("AB " + json.dumps({{
     "kernels": {{r["name"]: r["ms"] for r in kernels + bwd}},
+    "call_ms": {{r["name"]: r["call_ms"] for r in kernels}},
     "flash_fwd_train_shape_ms": fwd["ms"],
+    "flash_fwd_train_shape_call_ms": fwd["call_ms"],
     "serve": {{n: serve[n] for n in ("tokens_per_s", "ttft_p50_s",
                                      "tok_latency_p50_s", "wall_s")}}}}))
 """
@@ -1309,6 +1374,62 @@ def _demangle(names: list[str]) -> dict[str, str]:
     return dict(zip(names, out.stdout.splitlines()))
 
 
+def _sass(binary: pathlib.Path) -> dict[str, list[str]]:
+    """The SASS instruction text of every kernel (mangled name) in a cubin
+    or a built library, from ``cuobjdump -sass`` (addresses and encodings
+    dropped)."""
+    tool = pathlib.Path("/usr/local/cuda/bin/cuobjdump")
+    out = subprocess.run([str(tool) if tool.exists() else "cuobjdump",
+                          "-sass", str(binary)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0,
+          f"cuobjdump -sass {binary.name} failed: {out.stderr[-1000:]}")
+    body, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            body[cur] = []
+        elif cur and "/*" in line:
+            text = re.sub(r"/\*[^*]*\*/", "", line).strip().rstrip(";").strip()
+            if text:
+                body[cur].append(text)
+    return body
+
+
+_FWD_BF16 = re.compile(r"flash_fwd_kernel<__nv_bfloat16, \(int\)(\d+), "
+                       r"\(bool\)(\d), \(bool\)(\d), \(bool\)(\d)>")
+
+
+def hmma_counts(lib: pathlib.Path) -> dict[str, list[int]]:
+    """[HMMA, all] SASS instructions of each bf16 ``flash_fwd_kernel``
+    instantiation of the built forward library, keyed by head dim and
+    variant; every one must have tensor-core (``HMMA``) instructions, the
+    paged and the contiguous alike (no bf16 forward runs the scalar
+    body)."""
+    body = _sass(lib)
+    names = _demangle(sorted(body))
+    counts = {}
+    for mangled, instrs in body.items():
+        m = _FWD_BF16.search(names.get(mangled, mangled))
+        if m:
+            d, paged, drop, paper = m.groups()
+            key = (f"d{d} {'paged' if paged == '1' else 'contiguous'}"
+                   f"{' dropout' if drop == '1' else ''}"
+                   f"{' paper' if paper == '1' else ''}")
+            counts[key] = [sum(bool(re.match(r"(@!?U?P\w+ )?HMMA\.", i))
+                               for i in instrs), len(instrs)]
+    print(f"[build] [HMMA, all] SASS instructions per bf16 flash_fwd_kernel: "
+          f"{json.dumps(counts)}", flush=True)
+    check(any(k.split()[1] == "paged" for k in counts)
+          and any(k.split()[1] == "contiguous" for k in counts),
+          f"the built forward lacks a paged or a contiguous bf16 kernel: "
+          f"{sorted(counts)}")
+    check(all(n > 0 for n, _ in counts.values()),
+          f"a bf16 flash_fwd_kernel has no HMMA (scalar body): {counts}")
+    return counts
+
+
 def _kernel_info(log: str, cubin: pathlib.Path) -> dict[str, dict]:
     """Per kernel (demangled name): registers and stack from ptxas, and the
     SASS instruction text from cuobjdump (addresses and encodings dropped)."""
@@ -1323,20 +1444,7 @@ def _kernel_info(log: str, cubin: pathlib.Path) -> dict[str, dict]:
             info[cur]["stack"], info[cur]["spill"] = int(st.group(1)), int(st.group(2))
         elif cur and _PTXAS_REGS.search(line):
             info[cur]["registers"] = int(_PTXAS_REGS.search(line).group(1))
-    tool = pathlib.Path("/usr/local/cuda/bin/cuobjdump")
-    sass = subprocess.run([str(tool) if tool.exists() else "cuobjdump",
-                           "-sass", str(cubin)], capture_output=True,
-                          text=True, timeout=300).stdout
-    body, cur = {}, None
-    for line in sass.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            cur = m.group(1)
-            body[cur] = []
-        elif cur and "/*" in line:
-            text = re.sub(r"/\*[^*]*\*/", "", line).strip().rstrip(";").strip()
-            if text:
-                body[cur].append(text)
+    body = _sass(cubin)
     names = _demangle(sorted(set(info) | set(body)))
     return {names.get(k, k): {**info.get(k, {}), "sass": body.get(k, [])}
             for k in set(info) | set(body)}
@@ -1399,7 +1507,7 @@ def ab_main(parent: pathlib.Path, seed: int) -> int:
     runs = {"parent": [], "change": []}
     for tag in ("parent", "change", "change", "parent"):
         root = parent if tag == "parent" else ROOT
-        code = _AB_RUN.format(src=str(root / "src"), root=str(root), seed=seed)
+        code = _AB_RUN.format(src=str(root / "src"), here=str(ROOT), seed=seed)
         out = subprocess.run([sys.executable, "-c", code], cwd=root,
                              capture_output=True, text=True, timeout=900)
         line = [x for x in out.stdout.splitlines() if x.startswith("AB ")]
@@ -1444,10 +1552,11 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    build.build_all()
+    libs = build.build_all()
     build_s = time.perf_counter() - t0
     print(f"[build] {len(build.SOURCES)} kernel libraries in {build_s:.1f}s",
           flush=True)
+    hmma = hmma_counts(libs["flash_fwd"])
 
     kernels = kernel_phase(torch, args.seed)
     bwd_kernels, fwd_train = train_kernel_phase(torch, args.seed)
@@ -1473,7 +1582,8 @@ def main() -> int:
     check(all(rec["launches"] > 0 for rec in kernels),
           "a kernel was launched on none of the main paths")
 
-    record = {"card": card, "build_s": build_s, "kernels": kernels,
+    record = {"card": card, "build_s": build_s, "hmma": hmma,
+              "kernels": kernels,
               "paged_grad_launches": paths["paged_grad"], "parity": parity,
               "serve": serve, "dense_parity": dense_parity,
               "dense_serve": dense_serve, "train_parity": train_parity,

@@ -118,6 +118,23 @@ struct MaskParams {
     }
     return ok;
   }
+  // element_ok on values staged in shared memory: kpos (kv_pos or the
+  // buffer column), kseg (kv_seg) and kvalid (kv_mask) of column `col`
+  __device__ __forceinline__ bool element_ok_staged(bool geo_on, bool data_on, int qpos,
+                                                    int qseg, int kpos, int kseg, int kvalid,
+                                                    int col) const {
+    bool ok = true;
+    if (geo_on) {
+      ok = qpos >= kpos;
+      if (window >= 0) ok = ok && (qpos - kpos < window);
+    }
+    if (data_on) {
+      if (kv_valid_len >= 0) ok = ok && (col < kv_valid_len);
+      if (kv_mask != nullptr) ok = ok && (kvalid != 0);
+      if (q_seg != nullptr) ok = ok && (qseg == kseg);
+    }
+    return ok;
+  }
 };
 
 __host__ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -154,6 +171,67 @@ inline DropoutParams make_dropout(int on, unsigned seed, unsigned threshold, flo
   d.q_len = (uint32_t)q_len;
   d.k_len = (uint32_t)k_len;
   return d;
+}
+
+// ---------------------------------------------------------------------------
+// Fragment-level pieces of the bf16 tensor-core forward (flash_fwd.cu):
+// asynchronous 16-byte copies, ldmatrix, mma.sync m16n8k16 (bf16 in, fp32
+// accumulate) and the XOR swizzle of 16-byte chunks that keeps both
+// conflict-free. For m16n8k16, lane l holds A rows l/4 and l/4 + 8, B
+// column l/4, and C rows l/4 and l/4 + 8 at columns 2*(l%4) + {0, 1}.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// c += a * b for one 16x8x16 tile
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// two floats as one bf16x2 register, `lo` in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// element offset of 16-byte chunk `chunk` of row `row` in a bf16 tile of
+// D-wide rows: chunks are XORed within each 128-byte line, so 8 rows at one
+// chunk (an ldmatrix phase) and 8 consecutive chunks (a copy phase) fall in
+// 8 different bank groups
+template <int D>
+__device__ __forceinline__ int swizzle(int row, int chunk) {
+  constexpr int CPR = D / 8;  // chunks per row
+  if constexpr (CPR >= 8) {
+    return row * D + ((chunk ^ (row & 7)) << 3);
+  } else {
+    const int lin = row * CPR + chunk;
+    return ((lin & ~7) | ((lin ^ (lin >> 3)) & 7)) << 3;
+  }
 }
 
 }  // namespace flash

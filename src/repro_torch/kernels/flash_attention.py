@@ -43,7 +43,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (dropout_threshold, full_dropout_keep_mask,
                                      gather_pages, repeat_kv)
 from repro_torch.kernels.tuning import (KERNEL_HEAD_DIMS, MAX_TILE,
-                                        SMEM_PER_BLOCK, bwd_smem_bytes)
+                                        SMEM_PER_BLOCK, bwd_smem_bytes,
+                                        fwd_pages_per_tile)
 
 # launches of the CUDA kernel per wrapper (never counts plain-version calls)
 LAUNCHES = {"flash_fwd": 0, "flash_fwd_paged": 0, "flash_bwd_dq": 0,
@@ -326,9 +327,10 @@ def _i32(t):
 
 
 def _check_launch(kernel, q, others, *, hkv, sk, block_q, block_k,
-                  block_layout):
-    """Validate what every attention kernel takes; returns the int32
-    layout on q's device and the (nq, nk) block grid."""
+                  block_layout, page_size=None):
+    """Validate what every attention kernel takes (and, given a
+    ``page_size``, that the paged forward takes that page); returns the
+    int32 layout on q's device and the (nq, nk) block grid."""
     b, hq, sq, d = q.shape
     for name, t in others.items():
         if t.device != q.device or t.dtype != q.dtype:
@@ -339,6 +341,8 @@ def _check_launch(kernel, q, others, *, hkv, sk, block_q, block_k,
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"{kernel} head_dim must be one of "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
+    if page_size is not None:
+        fwd_pages_per_tile(page_size)
     if not (0 < block_q <= MAX_TILE and 0 < block_k <= MAX_TILE):
         raise ValueError(f"{kernel} tiles must be <= {MAX_TILE}, got "
                          f"({block_q}, {block_k})")
@@ -360,7 +364,8 @@ def _launch(*, paged, q, k, v, block_layout, kv_mask, q_seg, kv_seg, q_pos,
     hkv = k.shape[0] if paged else k.shape[1]
     layout, nq, nk = _check_launch("flash_fwd", q, {"k": k, "v": v}, hkv=hkv,
                                    sk=sk, block_q=block_q, block_k=block_k,
-                                   block_layout=block_layout)
+                                   block_layout=block_layout,
+                                   page_size=block_k if paged else None)
     qs = (q * scale).contiguous()   # the scale folded into q, in q's dtype
     k, v = k.contiguous(), v.contiguous()
     kvm = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
@@ -594,9 +599,11 @@ def flash_prefill_paged_forward(
     kv_positions: torch.Tensor | None = None,
     block_q: int, variant: str = "fa2",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (o, m, l) computed directly against pool pages: the kv tile
-    is the page, logical row ``t*ps + r`` is row r of page
-    ``page_list[b, t]``; masking is position-based."""
+    """Returns (o, m, l) computed directly against pool pages: logical row
+    ``t*ps + r`` is row r of page ``page_list[b, t]``; masking is
+    position-based. The layout is per page; the bf16 kernel gathers
+    ``tuning.fwd_pages_per_tile(ps)`` pages into one 64-key tile, so the
+    page size must be 8, 16, 32 or 64 (any other raises before launch)."""
     _check_variant(variant)
     if not q.is_cuda:
         return flash_prefill_paged_forward_plain(

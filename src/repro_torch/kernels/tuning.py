@@ -9,6 +9,9 @@ the small part the serving path needs:
   * ``fwd_tiles`` / ``bwd_tiles`` — one fixed (block_q, block_k) per
     head_dim whose shared-memory footprint in ``csrc/flash_fwd.cu`` /
     ``csrc/flash_bwd.cu`` fits a Hopper block;
+  * ``fwd_pages_per_tile`` — the pages one kv tile of the paged forward
+    gathers (raises for a page size the kernel does not take), and
+    ``fwd_kv_groups`` — the warp groups that split one CTA's kv walk;
   * ``resolve_paged_decode_splits`` — split-KV parallelism for paged decode
     with the divisor rule of ``flash_decode.validate_paged_decode_geometry``;
   * ``choose_decode_geometry`` / ``resolve_decode_geometry`` — the
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 ROW_ALIGN = 8               # tile rows: multiple of 8 (one mma.sync m-tile)
 MAX_TILE = 64               # csrc/flash_fwd.cu MAX_BQ / MAX_BK
+FWD_PAGE_SIZES = (8, 16, 32, 64)   # pages a paged forward kv tile gathers whole
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 TARGET_DECODE_SPLITS = 8    # split-KV parallelism target
 DECODE_TILE = 64            # csrc/flash_decode.cu MAX_TILE: K rows staged at once
@@ -39,20 +43,56 @@ def round_block(requested: int, seq_len: int) -> int:
     return min(blk, cap)
 
 
-def fwd_smem_bytes(block_q: int, block_k: int, head_dim: int) -> int:
-    """Dynamic shared memory of one flash_fwd block (fp32 staging): the q
-    tile, the K tile padded by one column (bank-conflict-free row dots),
-    the V tile and the P tile."""
+def fwd_kv_groups(head_dim: int, paged: bool) -> int:
+    """Warp groups that split one bf16 forward CTA's kv walk
+    (``csrc/flash_fwd.cu`` kSplit): the paged prefill runs few CTAs, each
+    walking a whole prefix, so its CTA splits the walk over 3 groups of 4
+    warps (2 at head_dim 128, for registers); a contiguous CTA is one
+    group."""
+    return (3 if head_dim <= 64 else 2) if paged else 1
+
+
+def fwd_smem_bytes(block_q: int, block_k: int, head_dim: int, *,
+                   bf16: bool = False, paged: bool = False) -> int:
+    """Dynamic shared memory of one flash_fwd block.
+
+    fp32 (the scalar body): the q tile, the K tile padded by one column
+    (bank-conflict-free row dots), the V tile and the P tile.
+    bf16 (the tensor-core body): whatever the tiles, Q at ``MAX_TILE``
+    rows and, per warp group (``fwd_kv_groups``), two stages each of K and
+    V at ``MAX_TILE`` rows, all bf16 (smaller tiles are zero-padded in
+    place), then per group and stage the tile's kv_pos, kv_seg and kv_mask
+    rows as int32, then the table of kv tile classes (one per thread):
+    83,968 bytes contiguous and 151,552 paged at d = 128."""
+    if bf16:
+        groups = fwd_kv_groups(head_dim, paged)
+        return (2 * head_dim * MAX_TILE * (1 + 2 * 2 * groups)
+                + 4 * groups * (2 * 3 * MAX_TILE + 128))
     return 4 * (block_q * head_dim + block_k * (head_dim + 1)
                 + block_k * head_dim + block_q * block_k)
 
 
 def fwd_tiles(head_dim: int) -> tuple[int, int]:
     """The fixed (block_q, block_k) for a head_dim: 64 x 64 fits shared
-    memory for every head_dim the kernel takes (115 KB at d = 128)."""
+    memory for every head_dim the kernel takes (115 KB fp32, 84 KB bf16,
+    152 KB bf16 paged at d = 128)."""
     bq = bk = MAX_TILE
-    assert fwd_smem_bytes(bq, bk, max(KERNEL_HEAD_DIMS)) <= SMEM_PER_BLOCK
+    for bf16, paged in ((False, False), (True, False), (True, True)):
+        assert fwd_smem_bytes(bq, bk, max(KERNEL_HEAD_DIMS), bf16=bf16,
+                              paged=paged) <= SMEM_PER_BLOCK
     return bq, bk
+
+
+def fwd_pages_per_tile(page_size: int) -> int:
+    """Pages one kv tile of the paged forward gathers: a tile is
+    ``MAX_TILE`` keys of whole pages, so the page must divide it (8, 16,
+    32 or 64 rows). Any other page size raises: the kernel takes no
+    other, and there is no fallback."""
+    if page_size not in FWD_PAGE_SIZES:
+        raise ValueError(f"flash_fwd_paged takes page sizes {FWD_PAGE_SIZES} "
+                         f"(a kv tile gathers {MAX_TILE} // page_size whole "
+                         f"pages), got {page_size}")
+    return MAX_TILE // page_size
 
 
 def bwd_smem_bytes(block_q: int, block_k: int, head_dim: int) -> int:

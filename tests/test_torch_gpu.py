@@ -1,6 +1,7 @@
 """Card tests of the hand-written CUDA kernels: each kernel against its
 plain PyTorch version on the same CUDA inputs (the forward, its dropout
-and "paper" variants, the dq and dkv backward kernels, the paged kernels,
+and "paper" variants, ragged tiles and rows with no key, the dq and dkv
+backward kernels, the paged kernels with several pages to a kv tile,
 the contiguous decode kernel, the paged dq and dkv kernels with the fold
 into pool shape), the differentiable ops and a train step on the card
 against the CPU, and the serving engine (paged and dense) on the card
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.configs import reduced_config
 from repro_torch.core import masks as M
-from repro_torch.kernels import build, ops
+from repro_torch.kernels import build, ops, tuning
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_decode as fd
 from repro_torch.models import build_model, params_to
@@ -110,6 +111,76 @@ def test_flash_fwd_matches_plain(cuda, dtype, d, mask):
     plain = fa.flash_attention_forward_plain(*args, **call)
     assert fa.LAUNCHES["flash_fwd"] == n0 + 1      # the plain call counts nothing
     _check(out, plain, dtype)
+
+
+def _ragged_case(cuda, dtype, d, bq, bk, seed=0):
+    """Tiles that are not multiples of 16 (``round_block`` gives 8, 24, 40
+    for short sequences): GQA 4/2, sq = 3 block_q against sk = 4 block_k,
+    causal, three documents a row, a kv_valid_len inside the last tile,
+    and row 5 of sequence 0 in no document (no key: o = 0, l = 0,
+    m = NEG_INF)."""
+    gen = torch.Generator().manual_seed(seed + 7 * bq + bk + d)
+    b, hq, hkv, sq, sk = 2, 4, 2, 3 * bq, 4 * bk
+    q = torch.randn(b, hq, sq, d, generator=gen).to(cuda, dtype)
+    k = torch.randn(b, hkv, sk, d, generator=gen).to(cuda, dtype)
+    v = torch.randn(b, hkv, sk, d, generator=gen).to(cuda, dtype)
+    q_offset = max(0, sk - sq)
+    kv_seg = _segments(gen, b, sk, "cpu")
+    q_seg = kv_seg[:, q_offset:q_offset + sq].clone()
+    if q_seg.shape[1] < sq:                  # sq > sk: rows past sk, last doc
+        q_seg = torch.cat([q_seg, q_seg[:, -1:].expand(b, sq - q_seg.shape[1])], 1)
+    q_seg[0, 5] = M.SEG_PAD_Q
+    kw = dict(causal=True, window=None, q_offset=q_offset, kv_valid_len=sk - 3)
+    ids = dict(q_segment_ids=q_seg.to(cuda), kv_segment_ids=kv_seg.to(cuda))
+    spec = M.MaskSpec(**kw, **ids)
+    layout = M.compile_block_layout(spec, sq, sk, bq, bk).as_array(cuda)
+    call = dict(scale=d ** -0.5, block_q=bq, block_k=bk, **kw, **ids)
+    return gen, (q, k, v, None, layout), call
+
+
+def _check_empty_row(out, b, r):
+    o, m, l = out
+    assert torch.all(o[b, :, r] == 0)
+    assert torch.all(l[b, :, r] == 0) and torch.all(m[b, :, r] == M.NEG_INF)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("bq,bk", [(8, 8), (24, 40), (40, 24)])
+def test_flash_fwd_ragged_tiles_match_plain(cuda, dtype, d, bq, bk):
+    """The forward at block_q / block_k of 8, 24 and 40 (zero-padded to the
+    tensor cores' 16 inside the CTA), every head dim, with a row that has
+    no key."""
+    _, args, call = _ragged_case(cuda, dtype, d, bq, bk)
+    out = fa.flash_attention_forward(*args, **call)
+    torch.cuda.synchronize()
+    plain = fa.flash_attention_forward_plain(*args, **call)
+    _check(out, plain, dtype)
+    _check_empty_row(out, 0, 5)
+
+
+@pytest.mark.parametrize("variant", ["fa2", "paper"])
+@pytest.mark.parametrize("d", [32, 64])
+def test_dropout_bf16_forward_and_backward_match_plain(cuda, variant, d):
+    """bf16 dropout (p = 0.2) at ragged tiles, both accumulator variants:
+    the forward against the plain version, and the backward kernels fed the
+    KERNEL's (o, m, l) against the plain backward fed the plain ones (the
+    regenerated keep mask must agree with the forward's)."""
+    gen, args, call = _ragged_case(cuda, torch.bfloat16, d, 24, 40, seed=3)
+    call.update(dropout_p=0.2, dropout_seed=77, dropout_dims=(70, 150),
+                variant=variant)
+    out = fa.flash_attention_forward(*args, **call)
+    torch.cuda.synchronize()
+    plain = fa.flash_attention_forward_plain(*args, **call)
+    _check(out, plain, torch.bfloat16)
+    _check_empty_row(out, 0, 5)
+    do = torch.randn(args[0].shape, generator=gen).to(cuda, torch.bfloat16)
+    bcall = {n: x for n, x in call.items() if n != "variant"}
+    got = fa.flash_attention_backward(*args[:3], *out[:1], do, *out[1:],
+                                      *args[3:], **bcall)
+    want = fa.flash_attention_backward_plain(*args[:3], plain[0], do,
+                                             *plain[1:], *args[3:], **bcall)
+    _check_grads(got, want, torch.bfloat16)
 
 
 def _check_grads(got, want, dtype):
@@ -228,6 +299,72 @@ def test_flash_fwd_paged_matches_plain(cuda, dtype, page_size):
     plain = fa.flash_prefill_paged_forward_plain(q, k_pool, v_pool,
                                                  page_list.to(cuda), layout, **call)
     _check(out, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("page_size", [8, 16, 32, 64])
+def test_flash_fwd_paged_page_groups_match_plain(cuda, dtype, d, page_size):
+    """A kv tile gathers 64 // page_size pages: a dead slot between the two
+    documents' pages and the other document's SKIP pages share one group,
+    the page count is not a multiple of the pages per tile (for pages
+    below 64), and the padded q rows past both chunks have no key."""
+    gen = torch.Generator().manual_seed(100 + page_size + d)
+    hq, hkv, num_pages = 4, 2, 60
+    spans, chunks = [70, 130], [30, 34]
+    bq = 24 if page_size in (8, 32) else 40
+    sq = 3 * bq
+    k_pool = torch.randn(hkv, num_pages, page_size, d, generator=gen).to(cuda, dtype)
+    v_pool = torch.randn(hkv, num_pages, page_size, d, generator=gen).to(cuda, dtype)
+    n_pages = [-(-s // page_size) for s in spans]
+    T = n_pages[0] + 1 + n_pages[1] + 2          # dead slots: one between, two after
+    pages = torch.randperm(num_pages, generator=gen).int()
+    page_list = torch.full((1, T), -1, dtype=torch.int32)
+    kv_seg = torch.full((1, T * page_size), M.SEG_PAD_KV, dtype=torch.int32)
+    kv_pos = torch.full((1, T * page_size), M.POS_PAD, dtype=torch.int32)
+    q_seg = torch.full((1, sq), M.SEG_PAD_Q, dtype=torch.int32)
+    q_pos = torch.full((1, sq), M.POS_PAD, dtype=torch.int32)
+    slot, row, used = 0, 0, 0
+    for s, (span, n, np_) in enumerate(zip(spans, chunks, n_pages)):
+        page_list[0, slot:slot + np_] = pages[used:used + np_]
+        kv_seg[0, slot * page_size:slot * page_size + span] = s
+        kv_pos[0, slot * page_size:slot * page_size + span] = torch.arange(span)
+        q_seg[0, row:row + n] = s
+        q_pos[0, row:row + n] = torch.arange(span - n, span)
+        slot, row, used = slot + np_ + 1, row + n, used + np_
+    if page_size < 64:
+        assert T % tuning.fwd_pages_per_tile(page_size) != 0
+    q = torch.randn(1, hq, sq, d, generator=gen).to(cuda, dtype)
+    a = {n: t.to(cuda) for n, t in dict(q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+                                       q_positions=q_pos, kv_positions=kv_pos).items()}
+    spec = M.MaskSpec(causal=True, **a)
+    layout = M.compile_block_layout(spec, sq, T * page_size, bq,
+                                    page_size).as_array(cuda)
+    layout = M.paged_prefill_block_layout(layout, page_list.to(cuda))
+    call = dict(scale=d ** -0.5, causal=True, window=None, block_q=bq, **a)
+    n0 = fa.LAUNCHES["flash_fwd_paged"]
+    out = fa.flash_prefill_paged_forward(q, k_pool, v_pool, page_list.to(cuda),
+                                         layout, **call)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd_paged"] == n0 + 1
+    plain = fa.flash_prefill_paged_forward_plain(q, k_pool, v_pool,
+                                                 page_list.to(cuda), layout, **call)
+    _check(out, plain, dtype)
+    _check_empty_row(out, 0, sq - 1)
+
+
+def test_paged_forward_refuses_other_page_sizes(cuda):
+    """A page the kv tile cannot gather whole raises before launch."""
+    q = torch.randn(1, 2, 24, 64, device=cuda, dtype=torch.bfloat16)
+    pool = torch.randn(1, 4, 24, 64, device=cuda, dtype=torch.bfloat16)
+    page_list = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    layout = torch.ones((1, 1, 2), dtype=torch.int32, device=cuda)
+    n0 = fa.LAUNCHES["flash_fwd_paged"]
+    with pytest.raises(ValueError, match="page sizes"):
+        fa.flash_prefill_paged_forward(q, pool, pool, page_list, layout,
+                                       scale=0.125, causal=False, window=None,
+                                       block_q=24)
+    assert fa.LAUNCHES["flash_fwd_paged"] == n0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,0 +1,55 @@
+"""The forward kernel's tile helpers in ``repro_torch.kernels.tuning``
+(pure Python, no card): shared memory of the fp32 and bf16 bodies within
+a Hopper block for every head dim, the pages one paged kv tile gathers,
+the page sizes the paged forward refuses, and the warp groups of a CTA."""
+
+import pytest
+
+from repro_torch.kernels import tuning
+
+
+@pytest.mark.parametrize("d", tuning.KERNEL_HEAD_DIMS)
+def test_fwd_smem_fits_a_block_at_every_head_dim(d):
+    assert tuning.fwd_tiles(d) == (tuning.MAX_TILE, tuning.MAX_TILE)
+    for bf16, paged in ((False, False), (True, False), (True, True)):
+        assert tuning.fwd_smem_bytes(64, 64, d, bf16=bf16, paged=paged) \
+            <= tuning.SMEM_PER_BLOCK
+
+
+def test_fwd_smem_bf16_staging():
+    """bf16: Q and, per warp group, two stages of K and V at 64 rows
+    whatever the tiles; then per group and stage the kv_pos, kv_seg and
+    kv_mask rows and the class table (128 entries a group)."""
+    for d in tuning.KERNEL_HEAD_DIMS:
+        for paged in (False, True):
+            groups = tuning.fwd_kv_groups(d, paged)
+            tiles = 2 * 64 * d * (1 + 2 * 2 * groups)
+            rest = 4 * groups * (2 * 3 * 64 + 128)
+            for bq, bk in ((8, 8), (24, 40), (64, 64)):
+                assert tuning.fwd_smem_bytes(bq, bk, d, bf16=True,
+                                             paged=paged) == tiles + rest
+    assert tuning.fwd_smem_bytes(64, 64, 128, bf16=True) == 83_968
+    assert tuning.fwd_smem_bytes(64, 64, 128, bf16=True, paged=True) == 151_552
+    # fp32 keeps the scalar body's staging, which depends on the tiles
+    assert tuning.fwd_smem_bytes(64, 64, 128) == 114_944
+    assert tuning.fwd_smem_bytes(24, 40, 64) == 4 * (24 * 64 + 40 * 65
+                                                     + 40 * 64 + 24 * 40)
+
+
+def test_fwd_kv_groups():
+    assert [tuning.fwd_kv_groups(d, False) for d in tuning.KERNEL_HEAD_DIMS] \
+        == [1, 1, 1, 1]
+    assert [tuning.fwd_kv_groups(d, True) for d in tuning.KERNEL_HEAD_DIMS] \
+        == [3, 3, 3, 2]
+
+
+@pytest.mark.parametrize("page_size,pages", [(8, 8), (16, 4), (32, 2), (64, 1)])
+def test_fwd_pages_per_tile(page_size, pages):
+    assert tuning.fwd_pages_per_tile(page_size) == pages
+    assert pages * page_size == tuning.MAX_TILE
+
+
+@pytest.mark.parametrize("page_size", [0, 1, 4, 12, 24, 48, 96, 128])
+def test_fwd_pages_per_tile_refuses_other_pages(page_size):
+    with pytest.raises(ValueError, match="page sizes"):
+        tuning.fwd_pages_per_tile(page_size)
