@@ -14,8 +14,12 @@ paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
    CUDA kernel of both paths from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, the three libraries started together), and count the
    tensor-core instructions (``HMMA``, ``cuobjdump -sass`` of the built
-   library) in every bf16 ``flash_fwd_kernel`` instantiation: each must
-   have some (no bf16 forward runs the scalar body);
+   library) in every bf16 ``flash_fwd_kernel`` instantiation, and, from a
+   ``-Xptxas -v`` compile of ``flash_bwd.cu`` started beside the build, in
+   every bf16 paged ``flash_bwd_dq_kernel`` / ``flash_bwd_dkv_kernel``
+   with its registers and spills: each must have some (no bf16 forward
+   and no bf16 paged backward runs the scalar body), and no bf16 paged
+   backward may spill;
 2. kernels: each kernel against its plain PyTorch version at the main
    path's shapes in bf16 (hq 32 / hkv 8 / d 64, page 16): a ~2k-token
    packed prefill with several documents (flash_fwd), a 256-row chunk
@@ -45,13 +49,17 @@ paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
    its plain version (SDPA over the cache with a boolean mask as library);
 2c. paged backward: at flash_fwd_paged's shapes, one row per sequence,
    the first prefix page shared by both rows and dead slots: the paged dq
-   and dkv kernels plus the fold into pool shape against the plain
+   and dkv kernels plus the fold kernel into pool shape against the plain
    backward (max |g - plain| / max |plain| <= 2e-2), untouched pages
-   exactly zero, two calls bit-identical, each kernel timed (library: SDPA's
-   backward on pre-gathered K/V). Then the path itself: launch counters
-   reset, one forward + backward through
+   exactly zero, two calls bit-identical, one call of the whole backward
+   under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), the
+   fold bit-equal to ``fold_packed_to_pool``; each kernel timed (library:
+   SDPA's backward on pre-gathered K/V; ``index_add_`` for the fold), the
+   whole backward by device and by event time. Then the path itself:
+   launch counters reset, one forward + backward through
    ``core.attention.paged_prefill_attention`` with q and both pools
-   requiring grad; the paged forward, dq and dkv kernels must be > 0;
+   requiring grad; the paged forward, dq, dkv and fold kernels must be
+   > 0;
 3. parity: granite-3-2b at full width, 2 layers, float32: the same weights
    served by the engine on ``cuda`` (kernels) and on ``cpu`` (plain
    versions); greedy tokens must be identical (a divergence at a near-tie
@@ -92,8 +100,9 @@ sources compiled with ``-Xptxas -v`` to cubins, printing every parent
 kernel's registers, stack and spills on both sides and whether its SASS
 (``cuobjdump -sass``) is identical; then this script's
 ``train_kernel_phase`` (first, so that both sides time the training
-kernels from the same process state), ``kernel_phase`` and
-``serve_phase`` (without the profiled pass) on that checkout's package
+kernels from the same process state), ``kernel_phase``,
+``paged_grad_ab`` (the paged dq and dkv kernels and the whole paged
+backward) and ``serve_phase`` (without the profiled pass) on that checkout's package
 and on this one's (one measurement for both sides), each in a fresh
 process, in the order parent, change, change, parent on the same card,
 then each side's per-run numbers (record in
@@ -122,6 +131,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
+FP32_FLOPS_PER_S = 67e12           # fp32 outside the tensor cores
 L2_BYTES = 50e6
 
 
@@ -170,21 +180,27 @@ def device_ms(torch, fns, warmup=3, iters=20) -> float:
     (cycling over ``fns``), summed by ``torch.profiler``, over ``iters``.
     Unlike ``time_ms`` it leaves out the host's gaps between launches,
     which set the CUDA-event time of a call that takes less device time
-    than its wrapper takes host time."""
+    than its wrapper takes host time. On the card's machine a profiled
+    window now and then records no device event at all (seen in kernel
+    phases that had passed in other runs): such a window is profiled
+    again, up to three times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(warmup):
         fns[i % len(fns)]()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    check(us > 0, "torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fns[i % len(fns)]()
+            torch.cuda.synchronize()
+        us = sum(_device_us(e) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise SmokeFailure("torch.profiler recorded no device time in three "
+                       "windows")
 
 
 def timed(torch, fns) -> tuple[float, float]:
@@ -713,11 +729,14 @@ def paged_grad_case(torch, seed: int, *, requires_grad=False) -> dict:
 
 
 def paged_grad_kernel_phase(torch, seed: int) -> list[dict]:
-    """The paged dq and dkv kernels (+ the fold into pool shape) against the
-    plain backward over the gathered pages: dq, dk_pool, dv_pool within
-    2e-2 of their max, untouched pages exactly zero, two calls
-    bit-identical; each kernel timed beside its bound, the plain backward's
-    time and SDPA's backward on pre-gathered K/V."""
+    """The paged dq and dkv kernels and the fold kernel against the plain
+    backward over the gathered pages: dq, dk_pool, dv_pool within 2e-2 of
+    their max, untouched pages exactly zero, two calls bit-identical, the
+    whole backward free of host syncs (``torch.cuda.set_sync_debug_mode
+    ("error")``), the fold bit-equal to ``fold_packed_to_pool``; each
+    kernel timed beside its bound, the plain version's time and one
+    PyTorch call (SDPA's backward on pre-gathered K/V; ``index_add_`` for
+    the fold), and the whole backward by device and by event time."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import gather_pages
 
@@ -748,14 +767,59 @@ def paged_grad_kernel_phase(torch, seed: int) -> list[dict]:
         check(e <= 2e-2, f"paged backward: {name} scaled error {e} > 2e-2")
     check(untouched_zero, "paged backward: an untouched page got a gradient")
     check(identical, "paged backward: two calls differ (not deterministic)")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fa.flash_prefill_paged_backward(*res, **call)
+    except RuntimeError as e:
+        raise SmokeFailure(f"paged backward waits on the card: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("[paged-grad] the whole backward ran under "
+          "set_sync_debug_mode('error')", flush=True)
 
     ops_ = fa.prepare_backward(q, k_pool, v_pool, o, c["do"], m, l, None,
                                c["layout"], q_offset=0, block_k=k_pool.shape[2],
                                page_list=page_list, **call)
     dq_ms = device_ms(torch, [lambda: fa.launch_dq_paged(ops_)])
     dkv_ms = device_ms(torch, [lambda: fa.launch_dkv_paged(ops_)])
-    full_ms = time_ms(torch, [lambda: fa.flash_prefill_paged_backward(
+    full_dev_ms, full_ms = timed(torch, [lambda: fa.flash_prefill_paged_backward(
         *res, **call)])
+
+    # the fold alone: the kernel (with its order and zeroed pools) against
+    # fold_packed_to_pool, bit for bit, on the dkv kernel's packed rows
+    num_pages, dtype = k_pool.shape[1], k_pool.dtype
+    packed = fa.launch_dkv_paged(ops_)
+    fold = fa.launch_fold_paged(*packed, page_list, num_pages, dtype)
+    torch.cuda.synchronize()
+    fold_plain = [fa.fold_packed_to_pool(x, page_list, num_pages).to(dtype)
+                  for x in packed]
+    fold_err = max(float((a.float() - b.float()).abs().max())
+                   for a, b in zip(fold, fold_plain))
+    check(all(torch.equal(a, b) for a, b in zip(fold, fold_plain)),
+          f"flash_bwd_fold_paged differs from fold_packed_to_pool "
+          f"(max {fold_err})")
+    fold_ms, fold_call_ms = timed(torch, [lambda: fa.launch_fold_paged(
+        *packed, page_list, num_pages, dtype)])
+    fold_plain_ms = device_ms(torch, [lambda: [
+        fa.fold_packed_to_pool(x, page_list, num_pages).to(dtype)
+        for x in packed]], warmup=1, iters=3)
+    # library: index_add_ of the live slots' rows (selected beforehand) into
+    # zeroed fp32 pools, dk and dv
+    flat = page_list.reshape(-1).long()
+    live_idx = (flat >= 0).nonzero().squeeze(1)
+    hkv_, ps, T = k_pool.shape[0], k_pool.shape[2], page_list.shape[1]
+    srcs = [x.reshape(q.shape[0], hkv_, T, ps, d).transpose(1, 2)
+            .reshape(-1, hkv_, ps, d)[live_idx].transpose(0, 1).contiguous()
+            for x in packed]
+    fold_lib_ms = device_ms(torch, [lambda: [
+        torch.zeros((hkv_, num_pages, ps, d), device=q.device).index_add_(
+            1, flat[live_idx], src) for src in srcs]])
+    live_slots = int(live_idx.numel())
+    fold_bound = bound(2 * hkv_ * live_slots * ps * d * 4 + nbytes(page_list)
+                       + nbytes(*fold), 2.0 * hkv_ * live_slots * ps * d,
+                       FP32_FLOPS_PER_S)
+    del packed, fold_plain, srcs
     plain_ms = device_ms(torch, [lambda: fa.flash_prefill_paged_backward_plain(
         *res, **call)], warmup=1, iters=3)
     # library: SDPA's backward alone on K/V gathered beforehand, same mask;
@@ -793,21 +857,63 @@ def paged_grad_kernel_phase(torch, seed: int) -> list[dict]:
                "scaled_err": max(errs[g] for g in grads), "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms, "library": lib, "shape": c["shape"],
-               "backward_ms": full_ms, "deterministic": identical,
+               "backward_ms": full_dev_ms, "backward_call_ms": full_ms,
+               "deterministic": identical, "no_host_sync": True,
                "plain_ms_is": "the plain paged backward (dq, dk, dv, fold)"}
         recs.append(rec)
         print(f"[kernel] {name}: {c['shape']}: scaled err "
               f"{rec['scaled_err']:.3g}; {ms:.4f} ms (whole backward with the "
-              f"fold {full_ms:.4f} ms; plain backward {plain_ms:.3f} ms, bound "
-              f"{b_ms:.4f} ms by {b_by}, {lib} {lib_ms:.4f} ms)", flush=True)
+              f"fold {full_dev_ms:.4f} ms on the card, {full_ms:.4f} ms a "
+              f"call; plain backward {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+              f"{b_by}, {lib} {lib_ms:.4f} ms)", flush=True)
+    fold_lib = "index_add_ of the live slots' rows into zeroed fp32 pools, dk and dv"
+    rec = {"name": "flash_bwd_fold_paged", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:930",
+           "launches": None, "max_abs_err": fold_err, "ms": fold_ms,
+           "call_ms": fold_call_ms, "plain_ms": fold_plain_ms,
+           "bound_ms": fold_bound[0], "bound_by": fold_bound[1],
+           "library_ms": fold_lib_ms, "library": fold_lib,
+           "shape": c["shape"],
+           "ms_is": "launch_fold_paged: the order sort, the zeroed pools and "
+                    "the fold kernel",
+           "plain_ms_is": "fold_packed_to_pool of dk and dv, cast to bf16"}
+    recs.append(rec)
+    print(f"[kernel] flash_bwd_fold_paged: {c['shape']}: bit-equal to "
+          f"fold_packed_to_pool; {fold_ms:.4f} ms on the card, "
+          f"{fold_call_ms:.4f} ms a call (plain {fold_plain_ms:.3f} ms, bound "
+          f"{fold_bound[0]:.4f} ms by {fold_bound[1]}, {fold_lib} "
+          f"{fold_lib_ms:.4f} ms)", flush=True)
     return recs
+
+
+def paged_grad_ab(torch, seed: int) -> dict:
+    """For ``--ab``: device time of the paged dq and dkv kernels, and the
+    whole paged backward's device and event time, at phase 2c's shape,
+    through calls that both checkouts' packages have."""
+    from repro_torch.kernels import flash_attention as fa
+
+    c = paged_grad_case(torch, seed)
+    q, k_pool, v_pool, page_list = c["q"], c["k_pool"], c["v_pool"], c["page_list"]
+    call = c["call"]
+    o, m, l = fa.flash_prefill_paged_forward(q, k_pool, v_pool, page_list,
+                                             c["layout"], **call)
+    res = (q, k_pool, v_pool, page_list, o, c["do"], m, l, c["layout"])
+    ops_ = fa.prepare_backward(q, k_pool, v_pool, o, c["do"], m, l, None,
+                               c["layout"], q_offset=0, block_k=k_pool.shape[2],
+                               page_list=page_list, **call)
+    dev, ev = timed(torch, [lambda: fa.flash_prefill_paged_backward(*res, **call)])
+    return {"flash_bwd_dq_paged": device_ms(torch, [lambda: fa.launch_dq_paged(ops_)]),
+            "flash_bwd_dkv_paged": device_ms(torch, [lambda: fa.launch_dkv_paged(ops_)]),
+            "paged_backward_ms": dev, "paged_backward_call_ms": ev}
 
 
 def paged_grad_phase(torch, seed: int) -> dict:
     """The trainable paged prefill's main path: one forward and backward
     through ``core.attention.paged_prefill_attention`` (impl "pallas") with
     q and both pools requiring grad. Launch counters are reset just before
-    and the paged forward, dq and dkv kernels must be > 0 just after."""
+    and the paged forward, dq, dkv and fold kernels must be > 0 just
+    after."""
     from repro_torch.core.attention import AttentionSpec, paged_prefill_attention
 
     c = paged_grad_case(torch, seed + 1, requires_grad=True)
@@ -924,7 +1030,7 @@ def read_launches() -> dict:
 SERVE_KERNELS = ("flash_fwd", "flash_fwd_paged", "flash_decode_paged")
 DENSE_SERVE_KERNELS = ("flash_fwd", "flash_decode")
 PAGED_GRAD_KERNELS = ("flash_fwd_paged", "flash_bwd_dq_paged",
-                      "flash_bwd_dkv_paged")
+                      "flash_bwd_dkv_paged", "flash_bwd_fold_paged")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
@@ -1338,6 +1444,7 @@ from repro_torch.kernels import build
 build.build_all()
 bwd, fwd = cs.train_kernel_phase(torch, {seed})
 kernels = cs.kernel_phase(torch, {seed})
+paged_grad = cs.paged_grad_ab(torch, {seed})
 cs.profile_serve = lambda *a, **k: {{}}
 serve, _ = cs.serve_phase(torch, {seed}, cs.card_line())
 print("AB " + json.dumps({{
@@ -1345,6 +1452,7 @@ print("AB " + json.dumps({{
     "call_ms": {{r["name"]: r["call_ms"] for r in kernels}},
     "flash_fwd_train_shape_ms": fwd["ms"],
     "flash_fwd_train_shape_call_ms": fwd["call_ms"],
+    "paged_grad": paged_grad,
     "serve": {{n: serve[n] for n in ("tokens_per_s", "ttft_p50_s",
                                      "tok_latency_p50_s", "wall_s")}}}}))
 """
@@ -1427,6 +1535,40 @@ def hmma_counts(lib: pathlib.Path) -> dict[str, list[int]]:
           f"{sorted(counts)}")
     check(all(n > 0 for n, _ in counts.values()),
           f"a bf16 flash_fwd_kernel has no HMMA (scalar body): {counts}")
+    return counts
+
+
+_BWD_PAGED_BF16 = re.compile(r"flash_bwd_(dq|dkv)_kernel<__nv_bfloat16, "
+                             r"\(int\)(\d+), \(bool\)1>")
+
+
+def bwd_build_counts(proc, cubin: pathlib.Path) -> dict[str, dict]:
+    """Registers, spills and [HMMA, all] SASS instructions of every bf16
+    paged ``flash_bwd_dq_kernel`` / ``flash_bwd_dkv_kernel`` instantiation,
+    from a ``-Xptxas -v`` compile of ``flash_bwd.cu`` to a cubin (started
+    beside the build by ``_cubin``): each must have tensor-core (``HMMA``)
+    instructions (no bf16 paged backward runs the scalar body) and none may
+    spill."""
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"nvcc -Xptxas -v flash_bwd.cu failed:\n"
+                                f"{log[-3000:]}")
+    counts = {}
+    for kern, info in _kernel_info(log, cubin).items():
+        m = _BWD_PAGED_BF16.search(kern)
+        if m:
+            counts[f"{m.group(1)} d{m.group(2)}"] = {
+                "hmma": sum(bool(re.match(r"(@!?U?P\w+ )?HMMA\.", i))
+                            for i in info["sass"]),
+                "instructions": len(info["sass"]),
+                "registers": info.get("registers"), "spill": info.get("spill")}
+    print(f"[build] bf16 paged flash_bwd kernels (HMMA, SASS instructions, "
+          f"registers, spill bytes): {json.dumps(counts)}", flush=True)
+    check(len(counts) == 8, f"the built backward lacks a bf16 paged kernel: "
+                            f"{sorted(counts)}")
+    check(all(c["hmma"] > 0 for c in counts.values()),
+          f"a bf16 paged flash_bwd kernel has no HMMA (scalar body): {counts}")
+    check(all(c["spill"] == 0 for c in counts.values()),
+          f"a bf16 paged flash_bwd kernel spills: {counts}")
     return counts
 
 
@@ -1552,11 +1694,21 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    libs = build.build_all()
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    bwd_cubin = out_dir / "flash_bwd_ptxas.cubin"
+    bwd_proc = _cubin(ROOT, "flash_bwd", bwd_cubin)   # beside the build
+    try:
+        libs = build.build_all()
+    except BaseException:
+        bwd_proc.kill()
+        bwd_proc.wait()
+        raise
     build_s = time.perf_counter() - t0
     print(f"[build] {len(build.SOURCES)} kernel libraries in {build_s:.1f}s",
           flush=True)
     hmma = hmma_counts(libs["flash_fwd"])
+    hmma_bwd = bwd_build_counts(bwd_proc, bwd_cubin)
 
     kernels = kernel_phase(torch, args.seed)
     bwd_kernels, fwd_train = train_kernel_phase(torch, args.seed)
@@ -1583,13 +1735,12 @@ def main() -> int:
           "a kernel was launched on none of the main paths")
 
     record = {"card": card, "build_s": build_s, "hmma": hmma,
+              "bwd_paged_build": hmma_bwd,
               "kernels": kernels,
               "paged_grad_launches": paths["paged_grad"], "parity": parity,
               "serve": serve, "dense_parity": dense_parity,
               "dense_serve": dense_serve, "train_parity": train_parity,
               "train": train, "total_s": time.perf_counter() - t_start}
-    out_dir = ROOT / "build"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(f"[done] total {record['total_s']:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

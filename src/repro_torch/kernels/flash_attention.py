@@ -8,9 +8,10 @@ o in the input dtype, per-row max m and normalizer l in fp32, rows with no
 unmasked key at o = 0, l = 0, m = NEG_INF. ``flash_attention_backward``
 returns ``(dq, dk, dv)`` with dk and dv summed over each GQA group;
 ``flash_prefill_paged_backward`` returns ``(dq, dk_pool, dv_pool)``: the
-paged dkv kernel writes packed page-aligned rows, which
-``fold_packed_to_pool`` sums into pool shape (dead slots dropped, pages
-shared across rows accumulated in a fixed order: deterministic). All of
+paged dkv kernel writes packed page-aligned rows, which a fold kernel
+(plain version ``fold_packed_to_pool``) sums into pool shape (dead slots
+dropped, pages shared across rows accumulated in a fixed order:
+deterministic). All of
 them take the COMPILED block layout (``core.masks.compile_block_layout``)
 as the single source of block-run truth and fold the softmax scale into q
 once, in q's dtype, before the kernel.
@@ -49,7 +50,7 @@ from repro_torch.kernels.tuning import (KERNEL_HEAD_DIMS, MAX_TILE,
 # launches of the CUDA kernel per wrapper (never counts plain-version calls)
 LAUNCHES = {"flash_fwd": 0, "flash_fwd_paged": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "flash_bwd_dq_paged": 0,
-            "flash_bwd_dkv_paged": 0}
+            "flash_bwd_dkv_paged": 0, "flash_bwd_fold_paged": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -78,6 +79,8 @@ def _bwd_lib():
         for fn in (lib.flash_bwd_dq_paged, lib.flash_bwd_dkv_paged):
             fn.argtypes = args + [c_p, c_int]   # page list, num_pages
             fn.restype = c_int
+        lib.flash_bwd_fold_paged.argtypes = [c_int] + [c_p] * 6 + [c_int] * 5 + [c_p]
+        lib.flash_bwd_fold_paged.restype = c_int
         lib._typed = True
     return lib
 
@@ -298,6 +301,19 @@ def fold_packed_to_pool(packed: torch.Tensor, page_list: torch.Tensor,
     return out
 
 
+def fold_order(page_list: torch.Tensor, num_pages: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The order in which ``flash_bwd_fold_paged`` folds packed rows, on
+    the page list's device with no host sync: (pages, slots), the
+    flattened page list (slot = b * T + t) stably sorted by page, a dead
+    slot taking ``page = num_pages`` so that it sorts last. The slots
+    naming one page are then consecutive and in (b, t) order, the order in
+    which ``fold_packed_to_pool`` adds them."""
+    pages = page_list.reshape(-1).to(torch.int32)
+    pages = torch.where(pages >= 0, pages, num_pages)
+    return torch.sort(pages, stable=True)
+
+
 def flash_prefill_paged_backward_plain(
     q, k_pool, v_pool, page_list, o, do, m, l, block_layout, *, scale,
     causal, window, q_segment_ids=None, kv_segment_ids=None,
@@ -463,8 +479,11 @@ def prepare_backward(q, k, v, o, do, m, l, kv_mask, block_layout, *, scale,
         hkv, num_pages = k.shape[0], k.shape[1]
         sk = page_list.shape[1] * block_k
         if k.shape[2] != block_k or page_list.shape[0] != b:
-            raise ValueError("flash_bwd paged: the kv tile is one page and "
-                             "page_list is (b, T)")
+            raise ValueError("flash_bwd paged: the layout block is one page "
+                             "and page_list is (b, T)")
+        if q.dtype == torch.bfloat16:
+            # the tensor-core pair gathers whole pages into 64-key tiles
+            fwd_pages_per_tile(block_k)
     dropout = _dropout_args(dropout_p, dropout_seed, dropout_dims, sq, sk)
     layout, nq, nk = _check_launch(
         "flash_bwd", q, {"k": k, "v": v, "o": o, "do": do}, hkv=hkv, sk=sk,
@@ -531,6 +550,30 @@ def launch_dq_paged(ops: BackwardOperands) -> torch.Tensor:
     build.check(err, lib, "flash_bwd_error_string", "flash_bwd_dq_paged")
     LAUNCHES["flash_bwd_dq_paged"] += 1
     return dq
+
+
+def launch_fold_paged(dk: torch.Tensor, dv: torch.Tensor,
+                      page_list: torch.Tensor, num_pages: int,
+                      dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fold kernel: the paged dkv kernel's fp32 packed rows (b, hkv,
+    T*ps, d) -> (dk_pool, dv_pool) of shape (hkv, num_pages, ps, d) in
+    ``dtype``, summed per page in ``fold_order``; pages no slot names are
+    zero. Its plain version is ``fold_packed_to_pool``."""
+    b, hkv, rows, d = dk.shape
+    T = page_list.shape[1]
+    ps = rows // T
+    pages, slots = fold_order(page_list, num_pages)
+    dk_pool = torch.zeros((hkv, num_pages, ps, d), dtype=dtype,
+                          device=dk.device)
+    dv_pool = torch.zeros_like(dk_pool)
+    lib = _bwd_lib()
+    err = lib.flash_bwd_fold_paged(
+        _DTYPES[dtype], _ptr(dk), _ptr(dv), _ptr(pages), _ptr(slots),
+        _ptr(dk_pool), _ptr(dv_pool), b * T, T, hkv, ps * d, num_pages,
+        torch.cuda.current_stream(dk.device).cuda_stream)
+    build.check(err, lib, "flash_bwd_error_string", "flash_bwd_fold_paged")
+    LAUNCHES["flash_bwd_fold_paged"] += 1
+    return dk_pool, dv_pool
 
 
 def launch_dkv_paged(ops: BackwardOperands
@@ -647,8 +690,11 @@ def flash_prefill_paged_backward(
     forward's residuals: dq in q's dtype, the pool gradients in the pools'
     dtype. On the card: D = rowsum(dO∘O) in PyTorch, the paged dq kernel
     (one CTA per (b, hq, q-block), kv pages through ``page_list``), the
-    paged dkv kernel (one CTA per (b, hkv, page slot), GQA group summed in
-    registers, packed fp32 rows), then ``fold_packed_to_pool``."""
+    paged dkv kernel (GQA group summed in registers, packed fp32 rows),
+    then the fold kernel into pool shape; nothing on that path waits on
+    the card. In bf16 the pair runs on the tensor cores and gathers
+    ``tuning.fwd_pages_per_tile(ps)`` pages into a 64-key tile, so the page
+    size must be 8, 16, 32 or 64 (any other raises before launch)."""
     kw = dict(scale=scale, causal=causal, window=window,
               q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
               q_positions=q_positions, kv_positions=kv_positions,
@@ -663,5 +709,5 @@ def flash_prefill_paged_backward(
                            q_offset=0, block_k=ps, page_list=page_list, **kw)
     dq = launch_dq_paged(ops)
     dk, dv = launch_dkv_paged(ops)
-    return (dq, fold_packed_to_pool(dk, page_list, num_pages).to(k_pool.dtype),
-            fold_packed_to_pool(dv, page_list, num_pages).to(v_pool.dtype))
+    return (dq, *launch_fold_paged(dk, dv, ops.extra[-1], num_pages,
+                                   k_pool.dtype))

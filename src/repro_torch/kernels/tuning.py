@@ -96,11 +96,12 @@ def fwd_pages_per_tile(page_size: int) -> int:
 
 
 def bwd_smem_bytes(block_q: int, block_k: int, head_dim: int) -> int:
-    """Dynamic shared memory of the larger of the two backward blocks
-    (fp32 staging). dq: q and dO tiles, K and V tiles padded by one
-    column, the dS tile. dkv: K, V, q and dO tiles padded by one column,
-    the (P∘Z)ᵀ and dSᵀ tiles, and five per-row vectors (m, l, D, position,
-    segment)."""
+    """Dynamic shared memory of the larger of the two backward blocks of
+    the scalar body (fp32 staging; the bf16 paged tensor-core pair stages
+    fixed 64-row bf16 tiles that fit at every head_dim). dq: q and dO
+    tiles, K and V tiles padded by one column, the dS tile. dkv: K, V, q
+    and dO tiles padded by one column, the (P∘Z)ᵀ and dSᵀ tiles, and five
+    per-row vectors (m, l, D, position, segment)."""
     dq = 4 * (2 * block_q * head_dim + 2 * block_k * (head_dim + 1)
               + block_q * block_k)
     dkv = 4 * ((2 * block_k + 2 * block_q) * (head_dim + 1)

@@ -3,7 +3,8 @@ plain PyTorch version on the same CUDA inputs (the forward, its dropout
 and "paper" variants, ragged tiles and rows with no key, the dq and dkv
 backward kernels, the paged kernels with several pages to a kv tile,
 the contiguous decode kernel, the paged dq and dkv kernels with the fold
-into pool shape), the differentiable ops and a train step on the card
+into pool shape, on tensor cores in bf16 with several pages to a kv tile,
+and with no host sync), the differentiable ops and a train step on the card
 against the CPU, and the serving engine (paged and dense) on the card
 against the same engine on the CPU. Marked ``gpu``; skipped
 without a CUDA device (whether one is present is decided inside the
@@ -561,7 +562,8 @@ def test_flash_bwd_paged_matches_plain(cuda, dtype, page_size):
     n0 = dict(fa.LAUNCHES)
     got = fa.flash_prefill_paged_backward(*res, **call)
     torch.cuda.synchronize()
-    for name in ("flash_bwd_dq_paged", "flash_bwd_dkv_paged"):
+    for name in ("flash_bwd_dq_paged", "flash_bwd_dkv_paged",
+                 "flash_bwd_fold_paged"):
         assert fa.LAUNCHES[name] == n0[name] + 1
     want = fa.flash_prefill_paged_backward_plain(*res, **call)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
@@ -590,6 +592,153 @@ def test_paged_op_grads_on_card_match_cpu(cuda):
         grads[dev] = [t.grad.cpu() for t in leaves]
     for a, b in zip(grads["cuda"], grads["cpu"]):
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+
+
+def _paged_group_case(cuda, d, page_size, block_q, seed=0):
+    """bf16, two rows. Row 0 packs document A (span 70, 32 chunk rows) and
+    document B (span 45, 30 rows) with a dead slot between their pages and
+    B's first page the same pool page as A's (shared within the row); row
+    1 holds document C (span 100, 40 rows) whose first page is that page
+    too (shared across rows). Every row ends in dead slots, as many as make
+    T no multiple of the pages per 64-key tile (page < 64). q rows 64..127
+    are padding (SKIP everywhere); at block_q 32, A's and B's q-blocks see
+    each other's pages as SKIP inside one tile."""
+    gen = torch.Generator().manual_seed(seed + 10 * page_size + d + block_q)
+    hq, hkv, num_pages, sq = 8, 2, 40, 128
+    g = tuning.fwd_pages_per_tile(page_size)
+    rows = [[(70, 32), (45, 30)], [(100, 40)]]
+    npg = lambda span: -(-span // page_size)  # noqa: E731
+    used = [sum(npg(s) for s, _ in docs) + len(docs) - 1 for docs in rows]
+    T = max(used) + 1
+    while g > 1 and T % g == 0:
+        T += 1
+    pages = torch.randperm(num_pages, generator=gen).int()
+    page_list = torch.full((2, T), -1, dtype=torch.int32)
+    kv_seg = torch.full((2, T * page_size), M.SEG_PAD_KV, dtype=torch.int32)
+    kv_pos = torch.full((2, T * page_size), M.POS_PAD, dtype=torch.int32)
+    q_seg = torch.full((2, sq), M.SEG_PAD_Q, dtype=torch.int32)
+    q_pos = torch.full((2, sq), M.POS_PAD, dtype=torch.int32)
+    nxt = 1
+    for r, docs in enumerate(rows):
+        slot = row = 0
+        for s, (span, n) in enumerate(docs):
+            np_ = npg(span)
+            page_list[r, slot] = pages[0]                 # the shared page
+            page_list[r, slot + 1:slot + np_] = pages[nxt:nxt + np_ - 1]
+            nxt += np_ - 1
+            lo = slot * page_size
+            kv_seg[r, lo:lo + span] = s
+            kv_pos[r, lo:lo + span] = torch.arange(span)
+            q_seg[r, row:row + n] = s
+            q_pos[r, row:row + n] = torch.arange(span - n, span)
+            slot, row = slot + np_ + 1, row + n           # a dead slot between
+    f = lambda *sh: torch.randn(*sh, generator=gen).to(cuda, torch.bfloat16)  # noqa: E731
+    ids = {n: t.to(cuda) for n, t in dict(
+        q_segment_ids=q_seg, kv_segment_ids=kv_seg, q_positions=q_pos,
+        kv_positions=kv_pos).items()}
+    q, k_pool, v_pool = (f(2, hq, sq, d), f(hkv, num_pages, page_size, d),
+                         f(hkv, num_pages, page_size, d))
+    page_list = page_list.to(cuda)
+    spec = M.MaskSpec(causal=True, **ids)
+    layout = M.compile_block_layout(spec, sq, T * page_size, block_q,
+                                    page_size).as_array(cuda)
+    layout = M.paged_prefill_block_layout(layout, page_list)
+    call = dict(scale=d ** -0.5, causal=True, window=None, block_q=block_q,
+                **ids)
+    o, m, l = fa.flash_prefill_paged_forward_plain(q, k_pool, v_pool,
+                                                   page_list, layout, **call)
+    return (q, k_pool, v_pool, page_list, o, f(2, hq, sq, d), m, l,
+            layout), call
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("page_size", [8, 16, 32, 64])
+@pytest.mark.parametrize("block_q", [32, 64])
+def test_flash_bwd_paged_bf16_page_groups_match_plain(cuda, d, page_size,
+                                                      block_q):
+    """The tensor-core paged dq and dkv kernels and the fold kernel against
+    the plain backward: tiles that mix dead, SKIP and shared pages, a T
+    that is no multiple of the pages per tile, padded q-blocks; untouched
+    pages exactly zero, padded q rows' dq zero, two calls bit-identical."""
+    res, call = _paged_group_case(cuda, d, page_size, block_q)
+    n0 = dict(fa.LAUNCHES)
+    got = fa.flash_prefill_paged_backward(*res, **call)
+    torch.cuda.synchronize()
+    for name in ("flash_bwd_dq_paged", "flash_bwd_dkv_paged",
+                 "flash_bwd_fold_paged"):
+        assert fa.LAUNCHES[name] == n0[name] + 1
+    want = fa.flash_prefill_paged_backward_plain(*res, **call)
+    for g, w in zip(got, want):
+        assert float(w.float().abs().max()) > 0
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert err <= 2e-2, float(err)
+    page_list, k_pool = res[3], res[1]
+    named = set(page_list[page_list >= 0].tolist())
+    unnamed = [p for p in range(k_pool.shape[1]) if p not in named]
+    assert unnamed
+    assert torch.all(got[1][:, unnamed] == 0) and torch.all(got[2][:, unnamed] == 0)
+    assert torch.all(got[0][:, :, 64:] == 0)
+    again = fa.flash_prefill_paged_backward(*res, **call)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fold_kernel_is_bit_equal_to_plain(cuda, dtype):
+    """flash_bwd_fold_paged against fold_packed_to_pool (then the pools'
+    dtype): pages shared within and across rows, dead slots."""
+    gen = torch.Generator().manual_seed(3)
+    b, hkv, T, ps, d, num_pages = 3, 2, 9, 16, 64, 30
+    packed = [torch.randn(b, hkv, T * ps, d, generator=gen).to(cuda)
+              for _ in range(2)]
+    page_list = torch.randint(0, 20, (b, T), generator=gen, dtype=torch.int32)
+    page_list[:, 0] = 7
+    page_list[0, -1] = 7
+    page_list[1, 2] = page_list[2, 5] = -1
+    page_list = page_list.to(cuda)
+    n0 = fa.LAUNCHES["flash_bwd_fold_paged"]
+    got = fa.launch_fold_paged(*packed, page_list, num_pages, dtype)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_bwd_fold_paged"] == n0 + 1
+    for g, x in zip(got, packed):
+        assert g.dtype == dtype
+        assert torch.equal(g, fa.fold_packed_to_pool(x, page_list,
+                                                     num_pages).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_backward_never_waits_on_the_card(cuda, dtype):
+    """The whole paged backward (D, the paged dq and dkv kernels, the fold
+    order and the fold) runs under torch.cuda.set_sync_debug_mode("error"):
+    no host sync on its path."""
+    res, call = _paged_group_case(cuda, 64, 16, 64, seed=1)
+    if dtype == torch.float32:
+        res = tuple(t.float() if t.dtype == torch.bfloat16 else t for t in res)
+    fa.flash_prefill_paged_backward(*res, **call)      # build and load first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fa.flash_prefill_paged_backward(*res, **call)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+
+
+def test_bf16_paged_backward_refuses_other_page_sizes(cuda):
+    """A page the tensor-core pair's 64-key tile cannot gather whole raises
+    before launch, with the forward's message."""
+    q = torch.randn(1, 2, 24, 64, device=cuda, dtype=torch.bfloat16)
+    pool = torch.randn(1, 4, 24, 64, device=cuda, dtype=torch.bfloat16)
+    stats = torch.zeros((1, 2, 24), device=cuda)
+    page_list = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    layout = torch.ones((1, 1, 2), dtype=torch.int32, device=cuda)
+    n0 = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError, match="page sizes"):
+        fa.flash_prefill_paged_backward(q, pool, pool, page_list, q, q, stats,
+                                        stats, layout, scale=0.125,
+                                        causal=False, window=None, block_q=24)
+    assert fa.LAUNCHES == n0
 
 
 def test_dense_engine_on_card_matches_cpu(cuda):
