@@ -16,10 +16,10 @@ paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
    tensor-core instructions (``HMMA``, ``cuobjdump -sass`` of the built
    library) in every bf16 ``flash_fwd_kernel`` instantiation, and, from a
    ``-Xptxas -v`` compile of ``flash_bwd.cu`` started beside the build, in
-   every bf16 paged ``flash_bwd_dq_kernel`` / ``flash_bwd_dkv_kernel``
-   with its registers and spills: each must have some (no bf16 forward
-   and no bf16 paged backward runs the scalar body), and no bf16 paged
-   backward may spill;
+   every bf16 ``flash_bwd_dq_kernel`` / ``flash_bwd_dkv_kernel`` (paged,
+   contiguous, contiguous with dropout) with its registers and spills:
+   each must have some (no bf16 forward and no bf16 backward runs the
+   scalar body), and no bf16 backward may spill;
 2. kernels: each kernel against its plain PyTorch version at the main
    path's shapes in bf16 (hq 32 / hkv 8 / d 64, page 16): a ~2k-token
    packed prefill with several documents (flash_fwd), a 256-row chunk
@@ -40,10 +40,14 @@ paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
    its plain version, the dq and dkv kernels fed the kernel forward's
    (o, m, l) against the plain backward fed the same (max |g - plain| /
    max |plain| <= 2e-2), a dropout_p = 0.1 forward + backward and a
-   ``variant="paper"`` forward against the plain versions, each kernel
+   ``variant="paper"`` forward against the plain versions, two calls of
+   the backward pair bit-identical (without and with dropout), each kernel
    timed (device time) beside its bound,
    its plain time and ``library_ms`` = the backward of SDPA alone
-   (``torch.autograd.grad`` after one forward, boolean mask, GQA). The
+   (``torch.autograd.grad`` after one forward, boolean mask, GQA), and the
+   pair's device time (dq + dkv) against it on a line of its own, beside
+   the kernels' CTA walks (layout tiles a dq CTA visits, (q-block, head)
+   items a dkv CTA visits: mean and max). The
    contiguous decode kernel (flash_decode) at batch 8 over a 2048-slot
    cache, kv_len 900-1100, also with a window and with a kv_mask, against
    its plain version (SDPA over the cache with a boolean mask as library);
@@ -102,7 +106,8 @@ kernel's registers, stack and spills on both sides and whether its SASS
 ``train_kernel_phase`` (first, so that both sides time the training
 kernels from the same process state), ``kernel_phase``,
 ``paged_grad_ab`` (the paged dq and dkv kernels and the whole paged
-backward) and ``serve_phase`` (without the profiled pass) on that checkout's package
+backward), ``serve_phase``, ``dense_serve_phase`` and ``train_phase``
+(without the profiled passes) on that checkout's package
 and on this one's (one measurement for both sides), each in a fresh
 process, in the order parent, change, change, parent on the same card,
 then each side's per-run numbers (record in
@@ -533,6 +538,20 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
         randn(b, hq, S, d)
     mask = spec.element_mask(S, S)                   # (b, 1, S, S) bool
     pairs = int(mask.sum()) * hq
+    # the walks of the two kernels' CTAs: dq's the tiles of its layout row,
+    # dkv's the q-blocks of its layout column times the n_rep heads
+    runs = layout.reshape(-1, S // bq, S // bk) != 0
+    row_walk = runs.sum(dim=2).float()
+    col_walk = runs.sum(dim=1).float() * (hq // hkv)
+    walks = {"dq_tiles_mean": float(row_walk.mean()),
+             "dq_tiles_max": int(row_walk.max()),
+             "dkv_items_mean": float(col_walk.mean()),
+             "dkv_items_max": int(col_walk.max())}
+    print(f"[train-kernel] CTA walks at the train layer: dq "
+          f"{walks['dq_tiles_mean']:.2f} kv tiles a CTA (max "
+          f"{walks['dq_tiles_max']}), dkv {walks['dkv_items_mean']:.2f} "
+          f"(q-block, head) items a CTA (max {walks['dkv_items_max']})",
+          flush=True)
 
     # -- the forward kernel against its plain version; its (o, m, l) are the
     # residuals of both backwards below
@@ -563,12 +582,18 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
     print(f"[train-kernel] {shape}: scaled |grad - plain| {errs}", flush=True)
     for name, e in errs.items():
         check(e <= 2e-2, f"flash_bwd: {name} scaled error {e} > 2e-2")
+    # deterministic: no atomics, the GQA sum in a fixed order
+    again = fa.flash_attention_backward(*res, **call)
+    check(all(torch.equal(a, g) for a, g in zip(again, got)),
+          "flash_bwd: two calls of the pair are not bit-identical")
+    del again
 
     # -- times: each kernel alone, CUDA events (one input set exceeds 2x L2)
     ops_ = fa.prepare_backward(*res, **call)
     dq_ms = device_ms(torch, [lambda: fa.launch_dq(ops_)])
     dkv_ms = device_ms(torch, [lambda: fa.launch_dkv(ops_)])
-    pair_ms = time_ms(torch, [lambda: fa.flash_attention_backward(*res, **call)])
+    bwd_ms, pair_ms = timed(torch, [lambda: fa.flash_attention_backward(
+        *res, **call)])
     plain_ms = device_ms(torch, [lambda: fa.flash_attention_backward_plain(
         *res, **call)], warmup=1, iters=3)
     fwd_ms, fwd_call_ms = timed(torch, [lambda: fa.flash_attention_forward(
@@ -583,6 +608,12 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
     lib_bwd_ms = device_ms(torch, [lambda: torch.autograd.grad(
         out, leaves, do, retain_graph=True)])
     del out, leaves
+    print(f"[train-kernel] backward pair against SDPA's backward: dq + dkv "
+          f"{dq_ms + dkv_ms:.4f} ms on the card (dq {dq_ms:.4f}, dkv "
+          f"{dkv_ms:.4f}); the whole flash_attention_backward {bwd_ms:.4f} ms "
+          f"on the card, {pair_ms:.4f} ms a call; SDPA backward "
+          f"{lib_bwd_ms:.4f} ms: the pair {(dq_ms + dkv_ms) / lib_bwd_ms:.2f}x "
+          f"SDPA's time", flush=True)
     lib_fwd_ms = device_ms(torch, [lambda: sdpa(q, k, v, attn_mask=mask,
                                               scale=scale, enable_gqa=True)])
 
@@ -606,6 +637,12 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
           f"scaled |grad - plain| {derrs}", flush=True)
     for name, e in derrs.items():
         check(e <= 2e-2, f"flash_bwd dropout: {name} scaled error {e} > 2e-2")
+    again = fa.flash_attention_backward(*dres, **dcall)
+    check(all(torch.equal(a, g) for a, g in zip(again, dgot)),
+          "flash_bwd dropout: two calls of the pair are not bit-identical")
+    del again
+    print("[train-kernel] two calls of the pair bit-identical, without and "
+          "with dropout 0.1", flush=True)
     fwd_drop_ms = device_ms(torch, [lambda: fa.flash_attention_forward(
         q, k, v, None, layout, **dcall)])
     dops = fa.prepare_backward(*dres, **dcall)
@@ -646,6 +683,7 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
                "scaled_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": lib_bwd_ms, "library": lib,
                "shape": shape, "dropout_ms": drop_ms, "pair_ms": pair_ms,
+               "pair_device_ms": dq_ms + dkv_ms, "backward_ms": bwd_ms,
                "plain_ms_is": "the plain backward (dq, dk, dv together)"}
         recs.append(rec)
         print(f"[kernel] {name}: {shape}: scaled err {err:.3g}; {ms:.4f} ms "
@@ -660,6 +698,8 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
            "m_rel_err": f_errs[1], "l_rel_err": f_errs[2],
            "dropout_max_abs_err": d_o_err,
            "paper_max_abs_err": p_err, "bwd_pair_ms": pair_ms,
+           "bwd_pair_device_ms": dq_ms + dkv_ms, "bwd_ms": bwd_ms,
+           "bwd_cta_walks": walks,
            "dropout_grad_errs": derrs}
     print(f"[kernel] flash_fwd at the train shape: {fwd_ms:.4f} ms on the "
           f"card ({fwd_call_ms:.4f} ms a call), dropout "
@@ -1446,15 +1486,27 @@ bwd, fwd = cs.train_kernel_phase(torch, {seed})
 kernels = cs.kernel_phase(torch, {seed})
 paged_grad = cs.paged_grad_ab(torch, {seed})
 cs.profile_serve = lambda *a, **k: {{}}
+cs.profile_train = lambda *a, **k: {{}}
 serve, _ = cs.serve_phase(torch, {seed}, cs.card_line())
+torch.cuda.empty_cache()
+dense, _ = cs.dense_serve_phase(torch, {seed}, cs.card_line())
+torch.cuda.empty_cache()
+train, _ = cs.train_phase(torch, {seed}, cs.card_line())
 print("AB " + json.dumps({{
     "kernels": {{r["name"]: r["ms"] for r in kernels + bwd}},
+    "bwd_dropout_ms": {{r["name"]: r["dropout_ms"] for r in bwd}},
+    "bwd_pair_device_ms": fwd["bwd_pair_device_ms"],
+    "bwd_ms": fwd["bwd_ms"],
     "call_ms": {{r["name"]: r["call_ms"] for r in kernels}},
     "flash_fwd_train_shape_ms": fwd["ms"],
     "flash_fwd_train_shape_call_ms": fwd["call_ms"],
     "paged_grad": paged_grad,
     "serve": {{n: serve[n] for n in ("tokens_per_s", "ttft_p50_s",
-                                     "tok_latency_p50_s", "wall_s")}}}}))
+                                     "tok_latency_p50_s", "wall_s")}},
+    "dense_serve": {{n: dense[n] for n in ("tokens_per_s", "ttft_p50_s",
+                                           "tok_latency_p50_s")}},
+    "train": {{n: train[n] for n in ("ms_per_step", "tokens_per_s",
+                                     "losses")}}}}))
 """
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
@@ -1538,37 +1590,41 @@ def hmma_counts(lib: pathlib.Path) -> dict[str, list[int]]:
     return counts
 
 
-_BWD_PAGED_BF16 = re.compile(r"flash_bwd_(dq|dkv)_kernel<__nv_bfloat16, "
-                             r"\(int\)(\d+), \(bool\)1>")
+_BWD_BF16 = re.compile(r"flash_bwd_(dq|dkv)_kernel<__nv_bfloat16, "
+                       r"\(int\)(\d+), \(bool\)(\d), \(bool\)(\d)>")
 
 
 def bwd_build_counts(proc, cubin: pathlib.Path) -> dict[str, dict]:
     """Registers, spills and [HMMA, all] SASS instructions of every bf16
-    paged ``flash_bwd_dq_kernel`` / ``flash_bwd_dkv_kernel`` instantiation,
-    from a ``-Xptxas -v`` compile of ``flash_bwd.cu`` to a cubin (started
-    beside the build by ``_cubin``): each must have tensor-core (``HMMA``)
-    instructions (no bf16 paged backward runs the scalar body) and none may
-    spill."""
+    ``flash_bwd_dq_kernel`` / ``flash_bwd_dkv_kernel`` instantiation (paged;
+    contiguous, with and without dropout), from a ``-Xptxas -v`` compile
+    of ``flash_bwd.cu`` to a cubin (started beside the build by
+    ``_cubin``): each must have tensor-core (``HMMA``) instructions (no
+    bf16 backward runs the scalar body) and none may spill."""
     log, _ = proc.communicate()
     check(proc.returncode == 0, f"nvcc -Xptxas -v flash_bwd.cu failed:\n"
                                 f"{log[-3000:]}")
     counts = {}
     for kern, info in _kernel_info(log, cubin).items():
-        m = _BWD_PAGED_BF16.search(kern)
+        m = _BWD_BF16.search(kern)
         if m:
-            counts[f"{m.group(1)} d{m.group(2)}"] = {
+            kind, d, paged, drop = m.groups()
+            key = (f"{kind} d{d} {'paged' if paged == '1' else 'contiguous'}"
+                   f"{' dropout' if drop == '1' else ''}")
+            counts[key] = {
                 "hmma": sum(bool(re.match(r"(@!?U?P\w+ )?HMMA\.", i))
                             for i in info["sass"]),
                 "instructions": len(info["sass"]),
                 "registers": info.get("registers"), "spill": info.get("spill")}
-    print(f"[build] bf16 paged flash_bwd kernels (HMMA, SASS instructions, "
+    print(f"[build] bf16 flash_bwd kernels (HMMA, SASS instructions, "
           f"registers, spill bytes): {json.dumps(counts)}", flush=True)
-    check(len(counts) == 8, f"the built backward lacks a bf16 paged kernel: "
-                            f"{sorted(counts)}")
+    # 2 kernels x 4 head dims x (paged, contiguous, contiguous dropout)
+    check(len(counts) == 24, f"the built backward lacks a bf16 kernel: "
+                             f"{sorted(counts)}")
     check(all(c["hmma"] > 0 for c in counts.values()),
-          f"a bf16 paged flash_bwd kernel has no HMMA (scalar body): {counts}")
+          f"a bf16 flash_bwd kernel has no HMMA (scalar body): {counts}")
     check(all(c["spill"] == 0 for c in counts.values()),
-          f"a bf16 paged flash_bwd kernel spills: {counts}")
+          f"a bf16 flash_bwd kernel spills: {counts}")
     return counts
 
 
@@ -1735,7 +1791,7 @@ def main() -> int:
           "a kernel was launched on none of the main paths")
 
     record = {"card": card, "build_s": build_s, "hmma": hmma,
-              "bwd_paged_build": hmma_bwd,
+              "bwd_bf16_build": hmma_bwd,
               "kernels": kernels,
               "paged_grad_launches": paths["paged_grad"], "parity": parity,
               "serve": serve, "dense_parity": dense_parity,

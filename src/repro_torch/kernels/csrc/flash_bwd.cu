@@ -43,33 +43,64 @@
 // The paged pair at the serving chunk shape (192 + 64 q rows against
 // 1536 / 600-token paged prefixes) has ~14x fewer unmasked pairs and is
 // bound by bytes: the q, dO and live K/V pages in, dq and the pool-shaped
-// dk, dv out.
-// The bf16 paged pair (the serving dtype) runs a tensor-core body
-// (dq_mma, dkv_mma, below): mma.sync m16n8k16 with ldmatrix from swizzled
-// bf16 tiles and cp.async double buffering, as flash_fwd.cu's fwd_mma; a
-// kv tile is 64 keys gathered from 64 / ps pages (ps 8, 16, 32 or 64),
-// whose classes are read first. Every other instantiation (fp32: the card's
-// parity mode; bf16 contiguous, for now) runs the first version's scalar
-// fp32 FMA body from shared memory, far below the tensor-core peak.
+// dk, dv out. In practice both pairs are held far above these bounds by
+// their per-tile element work (the mask, P from (m, l), the dropout hash,
+// the bf16 packing) between the mma.sync products, and dkv also by the
+// imbalance of its layout columns (a CTA walks every q-block that runs in
+// its column, times n_rep heads).
 //
-// Design of the tensor-core pair (bf16, Paged):
-//   * dq: one CTA per (b, hq, q-block), 3 groups of 4 warps (2 at d = 128)
-//     that take every third live 64-key tile and merge their fp32 dq
+// Which body runs: every bf16 instantiation, paged or contiguous, runs the
+// tensor-core body (dq_mma, dkv_mma, below): mma.sync m16n8k16 with
+// ldmatrix from swizzled bf16 tiles and cp.async double buffering, as
+// flash_fwd.cu's fwd_mma. The fp32 instantiations run the first version's
+// scalar fp32 FMA body from shared memory (dq_scalar, dkv_scalar): it is
+// the card's parity mode (fp32 train on cuda against cpu within 1e-4),
+// which tensor cores would break. What differs between paged and
+// contiguous K/V is `if constexpr` on `Paged`:
+//   * a paged kv tile is 64 keys gathered from 64 / ps pages (ps 8, 16,
+//     32 or 64), whose classes and pages are read first, dead slots and
+//     SKIP pages zero-filled and never addressed; a contiguous kv tile is
+//     the layout's own block of block_k <= 64 keys, its class read from
+//     the layout, rows past block_k (to a multiple of 16) zero with P = 0
+//     (selects, never a multiply by stale shared memory);
+//   * dropout exists only on contiguous K/V (as in the JAX package), as a
+//     template parameter: the instantiations without it carry none of the
+//     hash's code or registers;
+//   * the paged dkv writes fp32 packed rows for the fold; the contiguous
+//     dkv writes dk, dv once in k's dtype.
+//
+// Design of the tensor-core pair:
+//   * dq: one CTA per (b, hq, q-block). Paged: 3 groups of 4 warps (2 at
+//     d = 128) take every third live 64-key tile and merge their fp32 dq
 //     partials in group order at the end (192 CTAs on 132 SMs at the
-//     serving shape, each walking a whole prefix). Warp w of a group owns q
-//     rows 16w..16w+15; per 16 keys S = Q'K^T and dP = dO V^T (Q'
-//     and, below d = 64, dO A fragments held in registers), P from
-//     (m, l), dS = P o (dP - D) rounded to bf16 as the A operand of
-//     dq += dS K.
-//   * dkv: one CTA per (b, hkv, 64-key page group), 4 warps x 16 kv rows;
-//     it walks the q-blocks of its layout column that run and the n_rep
-//     heads of its group, Q' and dO staged once per (q-block, head) and
-//     double-buffered. Per 16 q rows S^T = K Q'^T and dP^T = V dO^T; P^T
-//     and dS^T go from C to A fragments in registers (FlashAttention-2's
-//     layout trick) for dV += P^T dO and dK += dS^T Q'. q rows past
-//     block_q (to a multiple of 16) are zero with P = 0.
+//     serving shape, each walking a whole prefix). Contiguous: one group
+//     (4096 CTAs at the training shape fill the card). Warp w of a group
+//     owns q rows 16w..16w+15; per 16 keys S = Q'K^T and dP = dO V^T (Q'
+//     and, below d = 64 or in a contiguous CTA at d = 64, dO A fragments
+//     held in registers), P from (m, l), dS = P o (dP o Z - D) rounded to
+//     bf16 as the A operand of dq += dS K.
+//   * dkv: one CTA per (b, hkv, kv-block): a 64-key page group, or the
+//     layout's block_k keys. 4 warps x 16 kv rows; it walks the q-blocks
+//     of its layout column that run and the n_rep heads of its group, Q'
+//     and dO staged once per (q-block, head) and double-buffered. Per 16 q
+//     rows S^T = K Q'^T and dP^T = V dO^T; P^T and dS^T go from C to A
+//     fragments in registers (FlashAttention-2's layout trick) for
+//     dV += (P o Z)^T dO and dK += dS^T Q'. A C fragment's row is a kv row
+//     and its column a q row, so the dropout hash is evaluated at
+//     (q row, kv column) = (qi*bq + column, ki*bk + row); the kept P
+//     enters dV unscaled and dV takes 1 / (1 - p) once in fp32 at the end,
+//     while dS uses the undropped P against dP o Z. q rows past block_q
+//     (to a multiple of 16) are zero with P = 0.
+//   * launch order, contiguous: the CTAs' walks are uneven (at the training
+//     shape a dkv CTA walks 39 (q-block, head) items on average and up to
+//     108; a dq CTA 9.7 kv tiles, up to 27), and the card starts CTAs in
+//     grid order. The grid puts the block index outermost, longest walks
+//     first in a causal layout: dkv kv-block 0 up (a column shortens as ki
+//     grows), dq q-block nq - 1 down (a row lengthens as qi grows), so the
+//     short walks fill the tail instead of the long ones. The paged grids
+//     keep the block index innermost.
 //   * the column scan of the scalar dkv becomes a parallel fill of the
-//     page classes (one q-block per thread, OR-reduced per warp).
+//     layout classes (one q-block per thread, OR-reduced per warp).
 //   * deterministic: no atomics; the group merge, the GQA sum and the fold
 //     each add in a fixed order, so two calls are bit-identical.
 //
@@ -80,15 +111,15 @@
 //     kernel owns one (b, hkv, kv-block) and walks the n_rep query heads of
 //     its group and the q tiles of its layout COLUMN. The accumulators stay
 //     in fp32 registers for the whole loop.
-//   * the dkv kernel sums the GQA group in registers and writes dk, dv once
-//     in k's dtype: no (b, hq, sk, d) fp32 partial buffer, no atomics, and
-//     the result does not depend on scheduling order (deterministic).
+//   * the dkv kernel sums the GQA group in registers and writes dk, dv once:
+//     no (b, hq, sk, d) fp32 partial buffer, no atomics, and the result
+//     does not depend on scheduling order (deterministic).
 //   * a tile's class is read before any of its addresses is formed; SKIP
 //     tiles are never read; PARTIAL tiles apply the fused element mask,
 //     PARTIAL_DATA tiles its data terms, FULL tiles none (flash_common.cuh).
-//     The paged dkv kernel scans its slot's layout column before it reads
-//     the slot's page index: a dead slot (negative entry, SKIP in every
-//     row) is never addressed and writes zeros.
+//     The paged dkv kernel reads its slots' layout column before it reads
+//     their page indices: a dead slot (negative entry, SKIP in every row)
+//     is never addressed and writes zeros.
 //   * scalar dq kernel: 8 warps x 8 q rows, a lane owns 2 kv columns of S/dP and
 //     ceil(D/32) dims of dq. Scalar dkv kernel: 8 warps x 8 kv rows, a lane owns 2
 //     q rows of S/dP and ceil(D/32) dims of dk and dv. Tiles are staged in
@@ -126,10 +157,6 @@ struct BwdParams {
   int num_pages;
 };
 
-// dkv output type: k's dtype, or fp32 packed rows for the paged kernel
-template <typename T, bool Paged> struct DkvOut { using type = T; };
-template <typename T> struct DkvOut<T, true> { using type = float; };
-
 // P for one (row, col) from the saved statistics (`_recompute_p`)
 __device__ __forceinline__ float recompute_p(float s, bool ok, float m_safe, float l_safe) {
   return (!ok || s <= NEG_INF / 2) ? 0.f : expf(s - m_safe) / l_safe;
@@ -144,7 +171,7 @@ __device__ __forceinline__ float dot_rows(const float* a, const float* b) {
 }
 
 // ---------------------------------------------------------------------------
-// scalar body (fp32, and bf16 contiguous): dq, one CTA per (q-block, hq, b)
+// scalar body (fp32, the card's parity mode): dq, one CTA per (q-block, hq, b)
 // ---------------------------------------------------------------------------
 template <typename T, int D, bool Paged>
 __device__ __forceinline__ void dq_scalar(const BwdParams& p) {
@@ -388,9 +415,8 @@ __device__ __forceinline__ void dkv_scalar(const BwdParams& p) {
     }
   }
 
-  using OutT = typename DkvOut<T, Paged>::type;
-  OutT* dkg = static_cast<OutT*>(p.out0) + kv_off;
-  OutT* dvg = static_cast<OutT*>(p.out1) + kv_off;
+  T* dkg = static_cast<T*>(p.out0) + kv_off;  // fp32 (paged: packed rows)
+  T* dvg = static_cast<T*>(p.out1) + kv_off;
 #pragma unroll
   for (int i = 0; i < KROWS; ++i) {
     const int c = warp * KROWS + i;
@@ -407,7 +433,7 @@ __device__ __forceinline__ void dkv_scalar(const BwdParams& p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 paged: tensor-core bodies
+// bf16: tensor-core bodies, paged and contiguous K/V
 // ---------------------------------------------------------------------------
 
 constexpr int ROW_WARPS = 4;                  // warps of one group: 16 rows each
@@ -427,21 +453,24 @@ __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Warp groups that split one dq CTA's kv walk, as the paged forward's
-// kSplit: 2 * 3 * 32 = 192 CTAs on 132 SMs at the serving shape, each
-// walking a whole prefix; 2 at d = 128 for registers.
-template <int D>
-constexpr int kDqSplit = D <= 64 ? 3 : 2;
+// Warp groups that split one dq CTA's kv walk, as the forward's kSplit:
+// the paged dq runs few CTAs (2 * 3 * 32 = 192 on 132 SMs at the serving
+// shape), each walking a whole prefix, so it splits the walk over 3 groups
+// (2 at d = 128, for registers); the contiguous dq fills the card with
+// CTAs (4096 at the training shape) and keeps one group.
+template <int D, bool Paged>
+constexpr int kDqSplit = Paged ? (D <= 64 ? 3 : 2) : 1;
 
-template <typename T, bool Paged>
-constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value && Paged;
+template <typename T>
+constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
 template <typename T, int D, bool Paged>
-constexpr int kDqThreads = kMma<T, Paged> ? kDqSplit<D> * GROUP_THREADS : THREADS;
-template <typename T, bool Paged>
-constexpr int kDkvThreads = kMma<T, Paged> ? GROUP_THREADS : THREADS;
+constexpr int kDqThreads = kMma<T> ? kDqSplit<D, Paged> * GROUP_THREADS : THREADS;
+template <typename T>
+constexpr int kDkvThreads = kMma<T> ? GROUP_THREADS : THREADS;
 
-// one kv tile of the dq walk: its index and, per page j inside it, whether
-// it runs and which mask terms it takes (bit j)
+// one kv tile of the dq walk: its index and, per layout block j inside it
+// (a page, or the whole contiguous tile), whether it runs and which mask
+// terms it takes (bit j)
 struct KvTile {
   int t;
   unsigned live, geo, data;
@@ -472,13 +501,20 @@ __device__ __forceinline__ unsigned page_bits(const MaskParams& mp, const int32_
   return bits;
 }
 
+// the same bits for contiguous tile (qi, ki): one layout block, bit 0
+__device__ __forceinline__ unsigned block_bits(const MaskParams& mp, int b, int qi, int ki) {
+  bool geo_on, data_on;
+  if (!mp.tile_terms(mp.block_class(b, qi, ki), geo_on, data_on)) return 0u;
+  return 1u | ((unsigned)geo_on << 8) | ((unsigned)data_on << 16);
+}
+
 // dynamic shared memory of dq_mma: Q' and dO (64 x D each), then per group
 // two stages of K and of V (64 x D each), all bf16, swizzled; then per group
 // and stage kv_pos, kv_seg, kv_mask of the tile's 64 columns as int32; then
 // the table of tile classes (one per thread)
-template <int D>
+template <int D, bool Paged>
 struct DqSmem {
-  static constexpr int Split = kDqSplit<D>;
+  static constexpr int Split = kDqSplit<D, Paged>;
   static constexpr int threads = Split * GROUP_THREADS;
   static constexpr int kv = KV_TILE * D;     // bf16 elements of one K or V stage
   static constexpr int do_off = MAX_BQ * D;
@@ -496,20 +532,23 @@ struct DqSmem {
 // dq, one CTA per (q-block, hq, b): Split groups of 4 warps, warp w of a
 // group owns q rows 16w..16w+15; group i takes the i-th of every Split kv
 // tiles that run. Per 16 keys of a tile: S = Q' K^T and dP = dO V^T, P from
-// (m, l), dS = P o (dP - D) rounded to bf16 as the A operand of dq += dS K
-// (K through ldmatrix.trans).
-template <int D>
+// (m, l), dS = P o (dP o Z - D) rounded to bf16 as the A operand of
+// dq += dS K (K through ldmatrix.trans). A paged tile is 64 keys of
+// 64 / ps pages; a contiguous tile is the layout's block of block_k keys,
+// rows past it (to a multiple of 16) zero and their columns dS = 0.
+template <int D, bool Paged, bool Dropout>
 __device__ __forceinline__ void dq_mma(const BwdParams& p) {
   using bf16 = __nv_bfloat16;
-  using Smem = DqSmem<D>;
+  using Smem = DqSmem<D, Paged>;
   constexpr int Split = Smem::Split;
   constexpr int THREADS_ALL = Smem::threads;
   constexpr int CPR = D / 8;                 // 16-byte chunks per row
   constexpr int KD = D / 16;                 // k16 steps over the head dim
-  // dO's A fragments stay in registers below d = 64; from d = 64 on
-  // (3 groups: 170 registers a thread; d = 128: a 64-register dq) holding
-  // them spills, so they are read from shared memory at every k-step
-  constexpr bool kHoldDo = D < 64;
+  // dO's A fragments stay in registers below d = 64, and at d = 64 in the
+  // one-group contiguous CTA; in the paged CTA from d = 64 on (3 groups:
+  // 170 registers a thread; d = 128: a 64-register dq) holding them
+  // spills, so they are read from shared memory at every k-step
+  constexpr bool kHoldDo = D < 64 || (!Paged && D == 64);
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* do_s = q_s + Smem::do_off;
@@ -517,19 +556,27 @@ __device__ __forceinline__ void dq_mma(const BwdParams& p) {
   unsigned* table_s = reinterpret_cast<unsigned*>(meta_base + 2 * Split * Smem::meta);
 
   const int bq = p.block_q;
-  const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int qi = Paged ? blockIdx.x : p.nq - 1 - (int)blockIdx.z;
+  const int h = Paged ? blockIdx.y : blockIdx.x;
+  const int b = Paged ? blockIdx.z : blockIdx.y;
   const int kvh = h / (p.hq / p.hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int group = warp / ROW_WARPS, gtid = tid % GROUP_THREADS;
   const int g = lane >> 2, t4 = lane & 3;
   const MaskParams mp = p.mask;             // by value: see flash_common.cuh
+  const DropoutParams drop = p.drop;
+  const float z_keep = Dropout ? 1.f / drop.keep : 1.f;   // Z of a kept element
   bf16* k_s = q_s + Smem::k_off + 2 * group * Smem::kv;
   bf16* v_s = q_s + Smem::v_off + 2 * group * Smem::kv;
   int* meta_s = meta_base + 2 * group * Smem::meta;
 
-  const int R = p.block_k;                   // rows of a page
-  const int lg_r = __ffs(R) - 1;
-  const int G = KV_TILE >> lg_r;             // pages of a kv tile
+  // R rows per layout block (the page, or the contiguous block_k); G
+  // blocks per kv tile; W columns per tile; kp rows the products run over
+  const int R = p.block_k;
+  const int lg_r = Paged ? __ffs(R) - 1 : 0;
+  const int G = Paged ? KV_TILE >> lg_r : 1;
+  const int W = Paged ? KV_TILE : R;
+  const int kp = (W + 15) & ~15;
   const int ntiles = (p.nk + G - 1) / G;
   const unsigned all_live = (1u << G) - 1u;
 
@@ -539,13 +586,18 @@ __device__ __forceinline__ void dq_mma(const BwdParams& p) {
   const bf16* kg = static_cast<const bf16*>(p.k);
   const bf16* vg = static_cast<const bf16*>(p.v);
 
-  // the tiles' page classes, read before any address is formed: one tile
-  // per thread into a shared-memory table, scanned by every thread in step
+  // the tiles' classes (and pages), read before any address is formed: one
+  // tile per thread into a shared-memory table, scanned by every thread in
+  // step
   int table0 = -THREADS_ALL;
   auto fill_table = [&](int w) {
     __syncthreads();                        // every thread is done reading it
     const int t = w + tid;
-    table_s[tid] = t < ntiles ? page_bits(mp, p.page_list, b, qi, t * G, G, p.nk) : 0u;
+    if constexpr (Paged) {
+      table_s[tid] = t < ntiles ? page_bits(mp, p.page_list, b, qi, t * G, G, p.nk) : 0u;
+    } else {
+      table_s[tid] = t < ntiles ? block_bits(mp, b, qi, t) : 0u;
+    }
     table0 = w;
     __syncthreads();
   };
@@ -578,7 +630,8 @@ __device__ __forceinline__ void dq_mma(const BwdParams& p) {
     return any;
   };
   // copies of tile kt into this group's stage st; rows of a page that does
-  // not run are zero-filled and never addressed
+  // not run, and contiguous rows past block_k, are zero-filled and never
+  // addressed
   auto load = [&](const KvTile& kt, int st) {
     bf16* kd = k_s + st * Smem::kv;
     bf16* vd = v_s + st * Smem::kv;
@@ -586,24 +639,38 @@ __device__ __forceinline__ void dq_mma(const BwdParams& p) {
     for (int it = 0; it < KV_TILE * CPR / GROUP_THREADS; ++it) {
       const int i = gtid + it * GROUP_THREADS;
       const int row = i / CPR, ch = i % CPR;
-      const int j = row >> lg_r;
-      const int off = swizzle<D>(row, ch);
-      if ((kt.live >> j) & 1u) {
-        const int page = p.page_list[(long long)b * p.nk + kt.t * G + j];
-        const long long src = (((long long)kvh * p.num_pages + page) * R + (row & (R - 1))) * D;
-        cp_async16(kd + off, kg + src + ch * 8);
-        cp_async16(vd + off, vg + src + ch * 8);
+      if constexpr (Paged) {
+        const int j = row >> lg_r;
+        const int off = swizzle<D>(row, ch);
+        if ((kt.live >> j) & 1u) {
+          const int page = p.page_list[(long long)b * p.nk + kt.t * G + j];
+          const long long src = (((long long)kvh * p.num_pages + page) * R + (row & (R - 1))) * D;
+          cp_async16(kd + off, kg + src + ch * 8);
+          cp_async16(vd + off, vg + src + ch * 8);
+        } else {
+          *reinterpret_cast<uint4*>(kd + off) = make_uint4(0u, 0u, 0u, 0u);
+          *reinterpret_cast<uint4*>(vd + off) = make_uint4(0u, 0u, 0u, 0u);
+        }
       } else {
-        *reinterpret_cast<uint4*>(kd + off) = make_uint4(0u, 0u, 0u, 0u);
-        *reinterpret_cast<uint4*>(vd + off) = make_uint4(0u, 0u, 0u, 0u);
+        if (row >= kp) break;
+        const int off = swizzle<D>(row, ch);
+        if (row < W) {
+          const long long src =
+              (((long long)b * p.hkv + kvh) * p.sk + (long long)kt.t * R + row) * D;
+          cp_async16(kd + off, kg + src + ch * 8);
+          cp_async16(vd + off, vg + src + ch * 8);
+        } else {
+          *reinterpret_cast<uint4*>(kd + off) = make_uint4(0u, 0u, 0u, 0u);
+          *reinterpret_cast<uint4*>(vd + off) = make_uint4(0u, 0u, 0u, 0u);
+        }
       }
     }
     const unsigned masked = kt.geo | kt.data;
     if (masked) {                           // what the element mask reads
       int* md = meta_s + st * Smem::meta;
-      for (int c = gtid; c < KV_TILE; c += GROUP_THREADS) {
-        if (!((masked >> (c >> lg_r)) & 1u)) continue;
-        const long long kv_row = (long long)b * p.sk + (long long)kt.t * KV_TILE + c;
+      for (int c = gtid; c < W; c += GROUP_THREADS) {
+        if (Paged && !((masked >> (c >> lg_r)) & 1u)) continue;
+        const long long kv_row = (long long)b * p.sk + (long long)kt.t * W + c;
         if (mp.kv_pos != nullptr) cp_async4(md + c, mp.kv_pos + kv_row);
         if (mp.kv_seg != nullptr) cp_async4(md + KV_TILE + c, mp.kv_seg + kv_row);
         if (mp.kv_mask != nullptr) md[2 * KV_TILE + c] = mp.kv_mask[kv_row];
@@ -679,9 +746,13 @@ __device__ __forceinline__ void dq_mma(const BwdParams& p) {
       const bf16* vs = v_s + st * Smem::kv;
       const int* md = meta_s + st * Smem::meta;
       const unsigned masked = cur.geo | cur.data;
-      const bool check = cur.live != all_live || masked;
+      bool check = cur.live != all_live || masked;
+      if constexpr (!Paged) check = check || W != kp;   // columns past block_k
 #pragma unroll
       for (int np = 0; np < KV_TILE / 16; ++np) {
+        if constexpr (!Paged) {
+          if (np * 16 >= kp) break;         // past block_k
+        }
         // S and dP for keys 16np..16np+15 (two n8 tiles)
         float s[2][4], dp[2][4];
 #pragma unroll
@@ -715,19 +786,25 @@ __device__ __forceinline__ void dq_mma(const BwdParams& p) {
           for (int e = 0; e < 4; ++e) {
             const int hh = e >> 1;
             const int c = np * 16 + n * 8 + 2 * t4 + (e & 1);
-            const int j = c >> lg_r;
+            const int j = Paged ? c >> lg_r : 0;
             bool ok = true;
             if (check) {
               ok = (cur.live >> j) & 1u;
+              if constexpr (!Paged) ok = ok && c < W;
               if (ok && ((masked >> j) & 1u)) {
-                const int col = cur.t * KV_TILE + c;
+                const int col = cur.t * W + c;
                 ok = mp.element_ok_staged((cur.geo >> j) & 1u, (cur.data >> j) & 1u, qpos[hh],
                                           qseg[hh], mp.kv_pos != nullptr ? md[c] : col,
                                           md[KV_TILE + c], md[2 * KV_TILE + c], col);
               }
             }
             const float pv = exp2f(fmaf(s[n][e], LOG2E, -lse[hh]));
-            s[n][e] = ok ? pv * (dp[n][e] - ddr[hh]) : 0.f;
+            float dpz = dp[n][e];
+            if constexpr (Dropout) {        // dP o Z, Z = keep / (1 - p)
+              const int r = r0 + g + 8 * hh;
+              dpz = drop.keeps(b, h, qi * bq + r, cur.t * W + c) ? dpz * z_keep : 0.f;
+            }
+            s[n][e] = ok ? pv * (dpz - ddr[hh]) : 0.f;
           }
         }
         // dq += dS K: the C fragments of the two n8 tiles are the A fragment
@@ -796,7 +873,7 @@ __device__ __forceinline__ void dq_mma(const BwdParams& p) {
 // dynamic shared memory of dkv_mma: K and V of the CTA's 64 keys, then two
 // stages each of Q' and of dO (64 x D), all bf16, swizzled; then per stage
 // the q rows' m, l, D, position and segment (4 bytes each); then the table
-// of page classes per q-block (one per thread) and a 4-word reduction
+// of layout classes per q-block (one per thread) and a 4-word reduction
 template <int D>
 struct DkvSmem {
   static constexpr int tile = MAX_BQ * D;    // bf16 elements of one 64-row tile
@@ -809,18 +886,23 @@ struct DkvSmem {
       2 * (size_t)bf16_elems + 4 * (2 * (size_t)rows + GROUP_THREADS + ROW_WARPS);
 };
 
-// dkv, one CTA per (64-key page group, hkv, b): 4 warps, warp w owns kv rows
-// 16w..16w+15 of the group. The CTA walks the q-blocks of its layout column
-// that run and, for each, the n_rep heads of its GQA group; Q' and dO tiles
-// (with the rows' m, l, D, positions and segments) are double-buffered by
-// cp.async, staged once per (q-block, head). Per 16 q rows: S^T = K Q'^T and
-// dP^T = V dO^T (K and V A fragments held in registers at d <= 64), P^T
-// from (m, l), dS^T = P^T o (dP^T - D); both go from C to A fragments in
-// registers for dV += P^T dO and dK += dS^T Q' (dO, Q' through
-// ldmatrix.trans). q rows past block_q (to the next multiple of 16) are
-// zero with P = 0. dk, dv sum the group's heads in fp32 registers and are
-// written as fp32 packed rows; rows of a dead slot are zero.
-template <int D>
+// dkv, one CTA per (kv-block, hkv, b): the layout's block of block_k keys
+// (contiguous; rows past it zero, to a multiple of 16) or a group of
+// 64 / ps page slots (paged). 4 warps, warp w owns kv rows 16w..16w+15.
+// The CTA walks the q-blocks of its layout column that run and, for each,
+// the n_rep heads of its GQA group; Q' and dO tiles (with the rows' m, l,
+// D, positions and segments) are double-buffered by cp.async, staged once
+// per (q-block, head). Per 16 q rows: S^T = K Q'^T and dP^T = V dO^T (K
+// and V A fragments held in registers at d <= 64), P^T from (m, l),
+// dS^T = P^T o (dP^T o Z - D); P^T o (Z != 0) and dS^T go from C to A
+// fragments in registers for dV += (P o Z)^T dO and dK += dS^T Q' (dO, Q'
+// through ldmatrix.trans; dV takes Z's 1 / (1 - p) once, in fp32, at the
+// end). The C fragments hold S^T: row = kv row, column = q row, so the
+// dropout hash is read at (q row, kv column) with the roles swapped. q rows
+// past block_q (to the next multiple of 16) are zero with P = 0. dk, dv sum
+// the group's heads in fp32 registers; contiguous: written once in bf16;
+// paged: as fp32 packed rows, rows of a dead slot zero.
+template <int D, bool Paged, bool Dropout>
 __device__ __forceinline__ void dkv_mma(const BwdParams& p) {
   using bf16 = __nv_bfloat16;
   using Smem = DkvSmem<D>;
@@ -834,27 +916,40 @@ __device__ __forceinline__ void dkv_mma(const BwdParams& p) {
   unsigned* table_s = reinterpret_cast<unsigned*>(rows_base + 2 * Smem::rows);
   unsigned* red_s = table_s + GROUP_THREADS;
 
-  const int grp = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int grp = Paged ? blockIdx.x : blockIdx.z;
+  const int kvh = Paged ? blockIdx.y : blockIdx.x;
+  const int b = Paged ? blockIdx.z : blockIdx.y;
   const int n_rep = p.hq / p.hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const MaskParams mp = p.mask;             // by value: see flash_common.cuh
+  const DropoutParams drop = p.drop;
+  const float z_keep = Dropout ? 1.f / drop.keep : 1.f;   // Z of a kept element
   const int bq = p.block_q;
   const int qp = (bq + 15) & ~15;           // q rows the products run over
+  // R rows per layout block (the page, or the contiguous block_k); G
+  // blocks per CTA; W kv rows of the CTA; kvp rows the products run over
   const int R = p.block_k;
-  const int lg_r = __ffs(R) - 1;
-  const int G = KV_TILE >> lg_r;
-  const int s0 = grp * G;                   // the group's first slot
+  const int lg_r = Paged ? __ffs(R) - 1 : 0;
+  const int G = Paged ? KV_TILE >> lg_r : 1;
+  const int W = Paged ? KV_TILE : R;
+  const int kvp = (W + 15) & ~15;
+  const int s0 = grp * G;                   // the CTA's first slot / its kv-block
   const bf16* kg = static_cast<const bf16*>(p.k);
   const bf16* vg = static_cast<const bf16*>(p.v);
   const bf16* qg = static_cast<const bf16*>(p.q);
   const bf16* dog = static_cast<const bf16*>(p.dout);
 
-  // the group's column of the layout, read before any page address is
-  // formed: a page runs for the CTA if it runs for some q-block
+  // the CTA's column of the layout, read before any page address is
+  // formed: a block runs for the CTA if it runs for some q-block
   unsigned col = 0u;
-  for (int qi = tid; qi < p.nq; qi += GROUP_THREADS)
-    col |= page_bits(mp, p.page_list, b, qi, s0, G, p.nk);
+  for (int qi = tid; qi < p.nq; qi += GROUP_THREADS) {
+    if constexpr (Paged) {
+      col |= page_bits(mp, p.page_list, b, qi, s0, G, p.nk);
+    } else {
+      col |= block_bits(mp, b, qi, s0);
+    }
+  }
   col = __reduce_or_sync(0xffffffffu, col & 0xffu);
   if (lane == 0) red_s[warp] = col;
   __syncthreads();
@@ -864,7 +959,11 @@ __device__ __forceinline__ void dkv_mma(const BwdParams& p) {
   auto fill_table = [&](int w) {
     __syncthreads();
     const int qi = w + tid;
-    table_s[tid] = qi < p.nq ? page_bits(mp, p.page_list, b, qi, s0, G, p.nk) : 0u;
+    if constexpr (Paged) {
+      table_s[tid] = qi < p.nq ? page_bits(mp, p.page_list, b, qi, s0, G, p.nk) : 0u;
+    } else {
+      table_s[tid] = qi < p.nq ? block_bits(mp, b, qi, s0) : 0u;
+    }
     table0 = w;
     __syncthreads();
   };
@@ -918,21 +1017,26 @@ __device__ __forceinline__ void dkv_mma(const BwdParams& p) {
   };
 
   const int r0 = warp * 16;                 // this warp's kv rows
-  // this lane's two kv rows (r0 + g, r0 + g + 8): page, position, segment
+  // this lane's two kv rows (r0 + g, r0 + g + 8): block, position, segment
   int jr[2], kpos[2], kseg[2], kval[2];
+  bool kin[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int rr = r0 + g + 8 * hh;
-    const int c = grp * KV_TILE + rr;       // kv buffer column
-    jr[hh] = rr >> lg_r;
-    const bool in = s0 + jr[hh] < p.nk;
+    const int c = grp * W + rr;             // kv buffer column
+    jr[hh] = Paged ? rr >> lg_r : 0;
+    const bool in = Paged ? s0 + jr[hh] < p.nk : rr < W;
+    kin[hh] = in;
     const long long kv_row = (long long)b * p.sk + c;
     kpos[hh] = (mp.kv_pos != nullptr && in) ? mp.kv_pos[kv_row] : c;
     kseg[hh] = (mp.kv_seg != nullptr && in) ? mp.kv_seg[kv_row] : 0;
     kval[hh] = (mp.kv_mask != nullptr && in) ? mp.kv_mask[kv_row] : 1;
   }
-  // the pages of this warp's 16 rows, as bits of the page index
-  const unsigned wmask = ((2u << ((r0 + 15) >> lg_r)) - 1u) & ~((1u << (r0 >> lg_r)) - 1u);
+  // the blocks of this warp's 16 rows, as bits of the block index (a
+  // contiguous warp past block_k has none)
+  const unsigned wmask =
+      Paged ? ((2u << ((r0 + 15) >> lg_r)) - 1u) & ~((1u << (r0 >> lg_r)) - 1u)
+            : (r0 < W ? 1u : 0u);
 
   float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
@@ -942,21 +1046,36 @@ __device__ __forceinline__ void dkv_mma(const BwdParams& p) {
   }
 
   if (colmask) {
-    // K and V of the pages that run (others zero, never addressed)
+    // K and V of the blocks that run (others, and contiguous rows past
+    // block_k, zero and never addressed)
 #pragma unroll
     for (int it = 0; it < KV_TILE * CPR / GROUP_THREADS; ++it) {
       const int i = tid + it * GROUP_THREADS;
       const int row = i / CPR, ch = i % CPR;
-      const int j = row >> lg_r;
-      const int off = swizzle<D>(row, ch);
-      if ((colmask >> j) & 1u) {
-        const int page = p.page_list[(long long)b * p.nk + s0 + j];
-        const long long src = (((long long)kvh * p.num_pages + page) * R + (row & (R - 1))) * D;
-        cp_async16(k_s + off, kg + src + ch * 8);
-        cp_async16(v_s + off, vg + src + ch * 8);
+      if constexpr (Paged) {
+        const int j = row >> lg_r;
+        const int off = swizzle<D>(row, ch);
+        if ((colmask >> j) & 1u) {
+          const int page = p.page_list[(long long)b * p.nk + s0 + j];
+          const long long src = (((long long)kvh * p.num_pages + page) * R + (row & (R - 1))) * D;
+          cp_async16(k_s + off, kg + src + ch * 8);
+          cp_async16(v_s + off, vg + src + ch * 8);
+        } else {
+          *reinterpret_cast<uint4*>(k_s + off) = make_uint4(0u, 0u, 0u, 0u);
+          *reinterpret_cast<uint4*>(v_s + off) = make_uint4(0u, 0u, 0u, 0u);
+        }
       } else {
-        *reinterpret_cast<uint4*>(k_s + off) = make_uint4(0u, 0u, 0u, 0u);
-        *reinterpret_cast<uint4*>(v_s + off) = make_uint4(0u, 0u, 0u, 0u);
+        if (row >= kvp) break;
+        const int off = swizzle<D>(row, ch);
+        if (row < W) {
+          const long long src =
+              (((long long)b * p.hkv + kvh) * p.sk + (long long)grp * R + row) * D;
+          cp_async16(k_s + off, kg + src + ch * 8);
+          cp_async16(v_s + off, vg + src + ch * 8);
+        } else {
+          *reinterpret_cast<uint4*>(k_s + off) = make_uint4(0u, 0u, 0u, 0u);
+          *reinterpret_cast<uint4*>(v_s + off) = make_uint4(0u, 0u, 0u, 0u);
+        }
       }
     }
     cp_async_commit();
@@ -996,10 +1115,12 @@ __device__ __forceinline__ void dkv_mma(const BwdParams& p) {
         const bf16* dos = k_s + Smem::do_off + st * Smem::tile;
         const float* rs = rows_base + st * Smem::rows;
         const int* ri = reinterpret_cast<const int*>(rs + 3 * MAX_BQ);
+        const int h = kvh * n_rep + hr;
         bool lr[2], mr[2], gr[2], dr[2];
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           lr[hh] = (live >> jr[hh]) & 1u;
+          if constexpr (!Paged) lr[hh] = lr[hh] && kin[hh];
           gr[hh] = (geo >> jr[hh]) & 1u;
           dr[hh] = (dat >> jr[hh]) & 1u;
           mr[hh] = gr[hh] || dr[hh];
@@ -1053,11 +1174,20 @@ __device__ __forceinline__ void dkv_mma(const BwdParams& p) {
                 bool ok = in && lr[hh];
                 if (ok && mr[hh]) {
                   ok = mp.element_ok_staged(gr[hh], dr[hh], ri[c], ri[MAX_BQ + c], kpos[hh],
-                                            kseg[hh], kval[hh], grp * KV_TILE + r0 + g + 8 * hh);
+                                            kseg[hh], kval[hh], grp * W + r0 + g + 8 * hh);
                 }
                 const float pv = exp2f(fmaf(s[n][e], LOG2E, -lse));
-                s[n][e] = ok ? pv : 0.f;
-                dp[n][e] = ok ? pv * (dp[n][e] - ddc) : 0.f;
+                if constexpr (Dropout) {
+                  // Z at (q row, kv column): dV takes the kept P (1 / (1 - p)
+                  // at the end), dS the undropped P against dP o Z
+                  const bool keep = drop.keeps(b, h, qi_cur * bq + c, grp * W + r0 + g + 8 * hh);
+                  const float dpz = keep ? dp[n][e] * z_keep : 0.f;
+                  s[n][e] = (ok && keep) ? pv : 0.f;
+                  dp[n][e] = ok ? pv * (dpz - ddc) : 0.f;
+                } else {
+                  s[n][e] = ok ? pv : 0.f;
+                  dp[n][e] = ok ? pv * (dp[n][e] - ddc) : 0.f;
+                }
               }
             }
           }
@@ -1087,41 +1217,62 @@ __device__ __forceinline__ void dkv_mma(const BwdParams& p) {
     cp_async_wait_all();                    // no copy outlives the CTA
   }
 
-  // fp32 packed rows of the slots < nk (a dead slot's rows are zero)
-  const long long out0 = ((long long)b * p.hkv + kvh) * p.sk + (long long)grp * KV_TILE;
-  float* dkg = static_cast<float*>(p.out0) + out0 * D;
-  float* dvg = static_cast<float*>(p.out1) + out0 * D;
+  const long long out0 = ((long long)b * p.hkv + kvh) * p.sk + (long long)grp * W;
+  if constexpr (Paged) {
+    // fp32 packed rows of the slots < nk (a dead slot's rows are zero)
+    float* dkg = static_cast<float*>(p.out0) + out0 * D;
+    float* dvg = static_cast<float*>(p.out1) + out0 * D;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int rr = r0 + g + 8 * hh;
-    if (s0 + jr[hh] >= p.nk) continue;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rr = r0 + g + 8 * hh;
+      if (s0 + jr[hh] >= p.nk) continue;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const long long o = (long long)rr * D + n * 8 + 2 * t4;
-      *reinterpret_cast<float2*>(dkg + o) = make_float2(dk[n][2 * hh], dk[n][2 * hh + 1]);
-      *reinterpret_cast<float2*>(dvg + o) = make_float2(dv[n][2 * hh], dv[n][2 * hh + 1]);
+      for (int n = 0; n < D / 8; ++n) {
+        const long long o = (long long)rr * D + n * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(dkg + o) = make_float2(dk[n][2 * hh], dk[n][2 * hh + 1]);
+        *reinterpret_cast<float2*>(dvg + o) = make_float2(dv[n][2 * hh], dv[n][2 * hh + 1]);
+      }
+    }
+  } else {
+    // the block's rows in k's dtype; dV takes Z's 1 / (1 - p) here
+    bf16* dkg = static_cast<bf16*>(p.out0) + out0 * D;
+    bf16* dvg = static_cast<bf16*>(p.out1) + out0 * D;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rr = r0 + g + 8 * hh;
+      if (!kin[hh]) continue;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const long long o = (long long)rr * D + n * 8 + 2 * t4;
+        *reinterpret_cast<uint32_t*>(dkg + o) = pack_bf16(dk[n][2 * hh], dk[n][2 * hh + 1]);
+        *reinterpret_cast<uint32_t*>(dvg + o) =
+            pack_bf16(z_keep * dv[n][2 * hh], z_keep * dv[n][2 * hh + 1]);
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// the kernels: the bf16 paged instantiations run the tensor-core bodies,
-// every other one the scalar body
+// the kernels: the bf16 instantiations run the tensor-core bodies, the fp32
+// ones (the card's parity mode) the scalar body. Dropout is a template
+// parameter of the tensor-core body only (contiguous K/V), so the
+// instantiations without it carry none of the hash's code or registers;
+// the scalar body reads it at run time.
 // ---------------------------------------------------------------------------
 
-template <typename T, int D, bool Paged>
+template <typename T, int D, bool Paged, bool Dropout>
 __global__ void __launch_bounds__(kDqThreads<T, D, Paged>) flash_bwd_dq_kernel(const BwdParams p) {
-  if constexpr (kMma<T, Paged>) {
-    dq_mma<D>(p);
+  if constexpr (kMma<T>) {
+    dq_mma<D, Paged, Dropout>(p);
   } else {
     dq_scalar<T, D, Paged>(p);
   }
 }
 
-template <typename T, int D, bool Paged>
-__global__ void __launch_bounds__(kDkvThreads<T, Paged>) flash_bwd_dkv_kernel(const BwdParams p) {
-  if constexpr (kMma<T, Paged>) {
-    dkv_mma<D>(p);
+template <typename T, int D, bool Paged, bool Dropout>
+__global__ void __launch_bounds__(kDkvThreads<T>) flash_bwd_dkv_kernel(const BwdParams p) {
+  if constexpr (kMma<T>) {
+    dkv_mma<D, Paged, Dropout>(p);
   } else {
     dkv_scalar<T, D, Paged>(p);
   }
@@ -1193,33 +1344,45 @@ cudaError_t launch_kernel(K kern, dim3 grid, int threads, size_t smem, const Bwd
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool Paged>
+template <typename T, int D, bool Paged, bool Dropout>
 cudaError_t launch(int which, const BwdParams& p, cudaStream_t stream) {
-  if constexpr (kMma<T, Paged>) {
-    // dkv: one CTA per 64-key group of 64 / ps page slots
+  if constexpr (kMma<T>) {
     if (which == 0) {
-      return launch_kernel(flash_bwd_dq_kernel<T, D, Paged>, dim3(p.nq, p.hq, p.b),
-                           kDqThreads<T, D, Paged>, DqSmem<D>::bytes, p, stream);
+      return launch_kernel(flash_bwd_dq_kernel<T, D, Paged, Dropout>,
+                           Paged ? dim3(p.nq, p.hq, p.b) : dim3(p.hq, p.b, p.nq),
+                           kDqThreads<T, D, Paged>, DqSmem<D, Paged>::bytes, p, stream);
     }
-    const int groups = (p.nk * p.block_k + KV_TILE - 1) / KV_TILE;
-    return launch_kernel(flash_bwd_dkv_kernel<T, D, Paged>, dim3(groups, p.hkv, p.b),
-                         kDkvThreads<T, Paged>, DkvSmem<D>::bytes, p, stream);
+    // dkv: one CTA per kv-block, or per 64-key group of 64 / ps page slots
+    const dim3 grid = Paged ? dim3((p.nk * p.block_k + KV_TILE - 1) / KV_TILE, p.hkv, p.b)
+                            : dim3(p.hkv, p.b, p.nk);
+    return launch_kernel(flash_bwd_dkv_kernel<T, D, Paged, Dropout>, grid,
+                         kDkvThreads<T>, DkvSmem<D>::bytes, p, stream);
   }
   if (which == 0) {
-    return launch_kernel(flash_bwd_dq_kernel<T, D, Paged>, dim3(p.nq, p.hq, p.b), THREADS,
-                         dq_smem<D>(p), p, stream);
+    return launch_kernel(flash_bwd_dq_kernel<T, D, Paged, Dropout>, dim3(p.nq, p.hq, p.b),
+                         THREADS, dq_smem<D>(p), p, stream);
   }
-  return launch_kernel(flash_bwd_dkv_kernel<T, D, Paged>, dim3(p.nk, p.hkv, p.b), THREADS,
-                       dkv_smem<D>(p), p, stream);
+  return launch_kernel(flash_bwd_dkv_kernel<T, D, Paged, Dropout>, dim3(p.nk, p.hkv, p.b),
+                       THREADS, dkv_smem<D>(p), p, stream);
+}
+
+// dropout is compile-time in the tensor-core body (contiguous K/V only, as
+// in the JAX package) and read at run time by the scalar body
+template <typename T, int D, bool Paged>
+cudaError_t launch_variant(int which, const BwdParams& p, cudaStream_t stream) {
+  if constexpr (kMma<T> && !Paged) {
+    if (p.drop.on) return launch<T, D, Paged, true>(which, p, stream);
+  }
+  return launch<T, D, Paged, false>(which, p, stream);
 }
 
 template <typename T, bool Paged>
 cudaError_t dispatch_d(int which, const BwdParams& p, int head_dim, cudaStream_t stream) {
   switch (head_dim) {
-    case 16: return launch<T, 16, Paged>(which, p, stream);
-    case 32: return launch<T, 32, Paged>(which, p, stream);
-    case 64: return launch<T, 64, Paged>(which, p, stream);
-    case 128: return launch<T, 128, Paged>(which, p, stream);
+    case 16: return launch_variant<T, 16, Paged>(which, p, stream);
+    case 32: return launch_variant<T, 32, Paged>(which, p, stream);
+    case 64: return launch_variant<T, 64, Paged>(which, p, stream);
+    case 128: return launch_variant<T, 128, Paged>(which, p, stream);
     default: return cudaErrorInvalidValue;
   }
 }

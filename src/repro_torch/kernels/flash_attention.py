@@ -488,7 +488,8 @@ def prepare_backward(q, k, v, o, do, m, l, kv_mask, block_layout, *, scale,
     layout, nq, nk = _check_launch(
         "flash_bwd", q, {"k": k, "v": v, "o": o, "do": do}, hkv=hkv, sk=sk,
         block_q=block_q, block_k=block_k, block_layout=block_layout)
-    if bwd_smem_bytes(block_q, block_k, d) > SMEM_PER_BLOCK:
+    if bwd_smem_bytes(block_q, block_k, d, bf16=q.dtype == torch.bfloat16,
+                      paged=page_list is not None) > SMEM_PER_BLOCK:
         raise ValueError(f"flash_bwd tiles ({block_q}, {block_k}) exceed "
                          f"shared memory at head_dim {d}")
     for name, t in (("m", m), ("l", l)):
@@ -614,7 +615,9 @@ def flash_attention_backward(
     from the forward's residuals (o, m, l) and the SAME compiled layout.
     On the card: D = rowsum(dO∘O) in PyTorch, then the dq kernel (one CTA
     per (b, hq, q-block)) and the dkv kernel (one CTA per (b, hkv,
-    kv-block), group-summed in registers, no atomics)."""
+    kv-block), group-summed in registers, no atomics: two calls are
+    bit-identical); in bf16 both run on the tensor cores, in fp32 the
+    scalar body (the card's parity mode)."""
     kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
               kv_valid_len=kv_valid_len, dropout_p=dropout_p,
               dropout_seed=dropout_seed, dropout_dims=dropout_dims,

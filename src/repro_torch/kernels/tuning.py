@@ -8,10 +8,14 @@ the small part the serving path needs:
     unaligned tile (rows in multiples of ``ROW_ALIGN``; the caller pads);
   * ``fwd_tiles`` / ``bwd_tiles`` — one fixed (block_q, block_k) per
     head_dim whose shared-memory footprint in ``csrc/flash_fwd.cu`` /
-    ``csrc/flash_bwd.cu`` fits a Hopper block;
+    ``csrc/flash_bwd.cu`` (``fwd_smem_bytes`` / ``bwd_smem_bytes``, fp32
+    and bf16 bodies) fits a Hopper block;
   * ``fwd_pages_per_tile`` — the pages one kv tile of the paged forward
-    gathers (raises for a page size the kernel does not take), and
-    ``fwd_kv_groups`` — the warp groups that split one CTA's kv walk;
+    gathers (raises for a page size the kernel does not take),
+    ``check_page_size`` — the page sizes every paged kernel takes (a paged
+    engine on the card checks its page at construction), and
+    ``fwd_kv_groups`` — the warp groups that split one CTA's kv walk (the
+    bf16 forward's and the bf16 dq's alike);
   * ``resolve_paged_decode_splits`` — split-KV parallelism for paged decode
     with the divisor rule of ``flash_decode.validate_paged_decode_geometry``;
   * ``choose_decode_geometry`` / ``resolve_decode_geometry`` — the
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 ROW_ALIGN = 8               # tile rows: multiple of 8 (one mma.sync m-tile)
 MAX_TILE = 64               # csrc/flash_fwd.cu MAX_BQ / MAX_BK
-FWD_PAGE_SIZES = (8, 16, 32, 64)   # pages a paged forward kv tile gathers whole
+PAGE_SIZES = (8, 16, 32, 64)    # pages the paged kernels take on the card
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 TARGET_DECODE_SPLITS = 8    # split-KV parallelism target
 DECODE_TILE = 64            # csrc/flash_decode.cu MAX_TILE: K rows staged at once
@@ -48,7 +52,8 @@ def fwd_kv_groups(head_dim: int, paged: bool) -> int:
     (``csrc/flash_fwd.cu`` kSplit): the paged prefill runs few CTAs, each
     walking a whole prefix, so its CTA splits the walk over 3 groups of 4
     warps (2 at head_dim 128, for registers); a contiguous CTA is one
-    group."""
+    group. The bf16 dq kernel splits its walk the same way
+    (``csrc/flash_bwd.cu`` kDqSplit)."""
     return (3 if head_dim <= 64 else 2) if paged else 1
 
 
@@ -86,22 +91,54 @@ def fwd_tiles(head_dim: int) -> tuple[int, int]:
 def fwd_pages_per_tile(page_size: int) -> int:
     """Pages one kv tile of the paged forward gathers: a tile is
     ``MAX_TILE`` keys of whole pages, so the page must divide it (8, 16,
-    32 or 64 rows). Any other page size raises: the kernel takes no
-    other, and there is no fallback."""
-    if page_size not in FWD_PAGE_SIZES:
-        raise ValueError(f"flash_fwd_paged takes page sizes {FWD_PAGE_SIZES} "
-                         f"(a kv tile gathers {MAX_TILE} // page_size whole "
-                         f"pages), got {page_size}")
-    return MAX_TILE // page_size
+    32 or 64 rows). Any other page size raises (``check_page_size``): the
+    kernel takes no other, and there is no fallback."""
+    return MAX_TILE // check_page_size(page_size)
 
 
-def bwd_smem_bytes(block_q: int, block_k: int, head_dim: int) -> int:
-    """Dynamic shared memory of the larger of the two backward blocks of
-    the scalar body (fp32 staging; the bf16 paged tensor-core pair stages
-    fixed 64-row bf16 tiles that fit at every head_dim). dq: q and dO
-    tiles, K and V tiles padded by one column, the dS tile. dkv: K, V, q
-    and dO tiles padded by one column, the (P∘Z)ᵀ and dSᵀ tiles, and five
-    per-row vectors (m, l, D, position, segment)."""
+def check_page_size(page_size: int) -> int:
+    """The page sizes the paged kernels take on the card: the paged
+    forward (``flash_fwd_paged``) and the bf16 paged backward
+    (``flash_bwd_dq_paged``, ``flash_bwd_dkv_paged``) gather
+    ``MAX_TILE // page_size`` whole pages into one kv tile, and paged
+    decode (``flash_decode_paged``) stages at most ``MAX_TILE`` rows of a
+    page, so a page is 8, 16, 32 or 64 rows. A paged ``ServingEngine`` on
+    the card calls this at construction, so that another page size raises
+    there and not mid-serve; the plain versions on the CPU take any page
+    size. Returns the page size."""
+    if page_size not in PAGE_SIZES:
+        raise ValueError(
+            f"the paged kernels (flash_fwd_paged, flash_bwd_dq_paged, "
+            f"flash_bwd_dkv_paged, flash_decode_paged) take page sizes "
+            f"{PAGE_SIZES} on the card, got {page_size}")
+    return page_size
+
+
+def bwd_smem_bytes(block_q: int, block_k: int, head_dim: int, *,
+                   bf16: bool = False, paged: bool = False) -> int:
+    """Dynamic shared memory of the larger of the two backward blocks.
+
+    fp32 (the scalar body) stages its tiles as fp32. dq: q and dO tiles,
+    K and V tiles padded by one column, the dS tile. dkv: K, V, q and dO
+    tiles padded by one column, the (P∘Z)ᵀ and dSᵀ tiles, and five per-row
+    vectors (m, l, D, position, segment).
+    bf16 (the tensor-core body), whatever the tiles: dq stages Q' and dO
+    at ``MAX_TILE`` rows and, per warp group (the forward's
+    ``fwd_kv_groups``: 3, or 2 at head_dim 128, paged; one contiguous),
+    two stages each of K and V at ``MAX_TILE`` rows, all bf16, then per
+    group and stage the tile's kv_pos, kv_seg and kv_mask rows as int32
+    and the class table (one entry a thread); dkv stages K, V and two
+    stages each of Q' and dO at ``MAX_TILE`` rows, then per stage five
+    per-row words, the class table (128 entries) and a 4-word reduction.
+    At d = 128:
+    101,392 bytes contiguous (dkv is the larger) and 167,936 paged
+    (dq)."""
+    if bf16:
+        groups = fwd_kv_groups(head_dim, paged)
+        dq = (2 * head_dim * MAX_TILE * (2 + 2 * 2 * groups)
+              + 4 * groups * (2 * 3 * MAX_TILE + 128))
+        dkv = 2 * 6 * MAX_TILE * head_dim + 4 * (2 * 5 * MAX_TILE + 128 + 4)
+        return max(dq, dkv)
     dq = 4 * (2 * block_q * head_dim + 2 * block_k * (head_dim + 1)
               + block_q * block_k)
     dkv = 4 * ((2 * block_k + 2 * block_q) * (head_dim + 1)
@@ -113,11 +150,14 @@ def bwd_tiles(head_dim: int) -> tuple[int, int]:
     """The fixed backward (block_q, block_k) for a head_dim: the forward's
     tiles, because one compiled layout serves the forward and the
     backward (``ops.flash_attention``); 64 x 64 fits shared memory for
-    every head_dim the kernels take (166 KB at d = 128)."""
+    every head_dim the kernels take (fp32 166 KB, bf16 101 KB contiguous
+    and 168 KB paged at d = 128)."""
     bq, bk = fwd_tiles(head_dim)
-    if bwd_smem_bytes(bq, bk, head_dim) > SMEM_PER_BLOCK:
-        raise ValueError(f"backward tiles ({bq}, {bk}) exceed shared memory "
-                         f"at head_dim {head_dim}")
+    for bf16, paged in ((False, False), (True, False), (True, True)):
+        if bwd_smem_bytes(bq, bk, head_dim, bf16=bf16,
+                          paged=paged) > SMEM_PER_BLOCK:
+            raise ValueError(f"backward tiles ({bq}, {bk}) exceed shared "
+                             f"memory at head_dim {head_dim}")
     return bq, bk
 
 

@@ -36,7 +36,10 @@ causal + segment layout proves skippable (``blocks_skipped``,
 Where the JAX engine donates the cache through jitted step functions, this
 engine updates the cache tensors in place. Entry points run on ``cuda``
 unless ``device="cpu"`` is passed; there is no fallback between the two.
-Not ported yet (raise ``NotImplementedError``): tensor parallelism
+On the card a paged engine takes pages of 8, 16, 32 or 64 rows, the sizes
+its kernels take, and refuses any other at construction
+(``tuning.check_page_size``); on the CPU any page dividing the capacity
+serves, as in the JAX engine. Not ported yet (raise ``NotImplementedError``): tensor parallelism
 (``tp>1``), sequence parallelism (``sp>1``), and the IO ledger's per-step
 HBM pricing.
 """
@@ -183,6 +186,8 @@ class ServingEngine:
         self._rid = itertools.count()
 
         if self.paged:
+            if self.device.type == "cuda":
+                tuning.check_page_size(page_size)
             if capacity % page_size:
                 raise ValueError(
                     f"capacity ({capacity}) must be a multiple of page_size "

@@ -28,7 +28,7 @@ from repro_torch.kernels import tuning
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.serve import ServingEngine
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)   # see tests/test_torch_paged_grad.py
 ATOL = 1e-5
 
 

@@ -21,7 +21,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops, ref, tuning
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)   # see tests/test_torch_paged_grad.py
 ATOL = 1e-5
 
 

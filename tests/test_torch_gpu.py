@@ -1,12 +1,14 @@
 """Card tests of the hand-written CUDA kernels: each kernel against its
 plain PyTorch version on the same CUDA inputs (the forward, its dropout
 and "paper" variants, ragged tiles and rows with no key, the dq and dkv
-backward kernels, the paged kernels with several pages to a kv tile,
+backward kernels (bf16 on tensor cores: every head dim, ragged tiles, GQA
+n_rep 1 and 4, dropout at two seeds, two calls bit-identical), the paged kernels with several pages to a kv tile,
 the contiguous decode kernel, the paged dq and dkv kernels with the fold
 into pool shape, on tensor cores in bf16 with several pages to a kv tile,
 and with no host sync), the differentiable ops and a train step on the card
 against the CPU, and the serving engine (paged and dense) on the card
-against the same engine on the CPU. Marked ``gpu``; skipped
+against the same engine on the CPU (and refusing pages its kernels do not
+take). Marked ``gpu``; skipped
 without a CUDA device (whether one is present is decided inside the
 fixture, never at import or collection). Imports no jax: the card's
 machine has none. Run there with::
@@ -64,11 +66,12 @@ def _segments(gen, b, s, device):
     return seg.to(device)
 
 
-def _contiguous_case(cuda, dtype, d, mask, seed=None):
+def _contiguous_case(cuda, dtype, d, mask, seed=None, hkv=2):
     """Inputs, compiled layout and call kwargs of one contiguous-K/V case:
-    GQA 8/2, sq 128 against sk 192, 64 x 64 tiles."""
+    8 query heads over ``hkv`` kv heads (GQA 8/2 by default), sq 128
+    against sk 192, 64 x 64 tiles."""
     gen = torch.Generator().manual_seed(d if seed is None else seed)
-    b, hq, hkv, sq, sk, bq, bk = 2, 8, 2, 128, 192, 64, 64
+    b, hq, sq, sk, bq, bk = 2, 8, 128, 192, 64, 64
     q = torch.randn(b, hq, sq, d, generator=gen).to(cuda, dtype)
     k = torch.randn(b, hkv, sk, d, generator=gen).to(cuda, dtype)
     v = torch.randn(b, hkv, sk, d, generator=gen).to(cuda, dtype)
@@ -162,14 +165,18 @@ def test_flash_fwd_ragged_tiles_match_plain(cuda, dtype, d, bq, bk):
 
 @pytest.mark.parametrize("variant", ["fa2", "paper"])
 @pytest.mark.parametrize("d", [32, 64])
-def test_dropout_bf16_forward_and_backward_match_plain(cuda, variant, d):
-    """bf16 dropout (p = 0.2) at ragged tiles, both accumulator variants:
-    the forward against the plain version, and the backward kernels fed the
-    KERNEL's (o, m, l) against the plain backward fed the plain ones (the
-    regenerated keep mask must agree with the forward's)."""
+@pytest.mark.parametrize("dropout_seed", [77, 901])
+def test_dropout_bf16_forward_and_backward_match_plain(cuda, variant, d,
+                                                       dropout_seed):
+    """bf16 dropout (p = 0.2) at ragged tiles, both accumulator variants,
+    two seeds: the forward against the plain version, and the tensor-core
+    backward pair fed the KERNEL's (o, m, l) against the plain backward fed
+    the plain ones (the regenerated keep mask must agree with the
+    forward's, in dkv with the fragment's rows and columns swapped), and
+    two calls of the pair bit-identical."""
     gen, args, call = _ragged_case(cuda, torch.bfloat16, d, 24, 40, seed=3)
-    call.update(dropout_p=0.2, dropout_seed=77, dropout_dims=(70, 150),
-                variant=variant)
+    call.update(dropout_p=0.2, dropout_seed=dropout_seed,
+                dropout_dims=(70, 150), variant=variant)
     out = fa.flash_attention_forward(*args, **call)
     torch.cuda.synchronize()
     plain = fa.flash_attention_forward_plain(*args, **call)
@@ -182,6 +189,9 @@ def test_dropout_bf16_forward_and_backward_match_plain(cuda, variant, d):
     want = fa.flash_attention_backward_plain(*args[:3], plain[0], do,
                                              *plain[1:], *args[3:], **bcall)
     _check_grads(got, want, torch.bfloat16)
+    again = fa.flash_attention_backward(*args[:3], *out[:1], do, *out[1:],
+                                        *args[3:], **bcall)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
 def _check_grads(got, want, dtype):
@@ -194,13 +204,15 @@ def _check_grads(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("mask", ["causal_segments", "window_kvmask_tail",
                                   "positions"])
-def test_flash_bwd_matches_plain(cuda, dtype, d, mask):
-    """dq, dk, dv of the two backward kernels against the plain backward
-    on the same (o, m, l) residuals."""
-    gen, args, call = _contiguous_case(cuda, dtype, d, mask)
+@pytest.mark.parametrize("hkv", [2, 8])
+def test_flash_bwd_matches_plain(cuda, dtype, d, mask, hkv):
+    """dq, dk, dv of the two backward kernels (bf16: the tensor-core pair;
+    fp32: the scalar body) against the plain backward on the same (o, m, l)
+    residuals, at GQA n_rep 4 and 1; two calls bit-identical."""
+    gen, args, call = _contiguous_case(cuda, dtype, d, mask, hkv=hkv)
     q = args[0]
     o, m, l = fa.flash_attention_forward_plain(*args, **call)
     do = torch.randn(q.shape, generator=gen).to(cuda, dtype)
@@ -212,6 +224,31 @@ def test_flash_bwd_matches_plain(cuda, dtype, d, mask):
     assert fa.LAUNCHES["flash_bwd_dkv"] == n_dkv + 1
     want = fa.flash_attention_backward_plain(*res, **call)
     _check_grads(got, want, dtype)
+    again = fa.flash_attention_backward(*res, **call)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("bq,bk", [(8, 8), (24, 40), (40, 24), (64, 64)])
+def test_flash_bwd_ragged_tiles_match_plain(cuda, dtype, d, bq, bk):
+    """The backward pair at block_q / block_k of 8, 24, 40 and 64 (the
+    tensor-core pair pads them to 16 inside the CTA: rows past a block are
+    zero with P = 0), every head dim, causal documents with a kv_valid_len
+    tail, and a row with no key (l = 0: its dq is zero); two calls
+    bit-identical."""
+    gen, args, call = _ragged_case(cuda, dtype, d, bq, bk)
+    o, m, l = fa.flash_attention_forward_plain(*args, **call)
+    assert torch.all(l[0, :, 5] == 0)
+    do = torch.randn(args[0].shape, generator=gen).to(cuda, dtype)
+    res = (*args[:3], o, do, m, l, *args[3:])
+    got = fa.flash_attention_backward(*res, **call)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_backward_plain(*res, **call)
+    _check_grads(got, want, dtype)
+    assert torch.all(got[0][0, :, 5] == 0)
+    again = fa.flash_attention_backward(*res, **call)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
 def test_dropout_forward_and_backward_match_plain(cuda):
@@ -435,6 +472,20 @@ def test_engine_on_card_matches_cpu(cuda):
     assert outs[0] == outs[1]
     assert fa.LAUNCHES["flash_fwd"] > 0 and fa.LAUNCHES["flash_fwd_paged"] > 0
     assert fd.LAUNCHES["flash_decode_paged"] > 0
+
+
+def test_paged_engine_refuses_other_page_sizes_on_card(cuda):
+    """A paged engine on the card refuses at construction a page its
+    kernels do not take, naming the sizes they take; the same engine on
+    the CPU is built (and serves: tests/test_torch_serve.py)."""
+    cfg = reduced_config("granite-3-2b", head_dim=16, attn_impl="pallas",
+                         use_decode_kernel=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    kw = dict(num_slots=2, capacity=256, page_size=128)
+    with pytest.raises(ValueError, match=r"page sizes \(8, 16, 32, 64\)"):
+        ServingEngine(model, params_to(params, "cuda"), device="cuda", **kw)
+    ServingEngine(model, params, device="cpu", **kw)
 
 
 def test_train_step_on_card_matches_cpu(cuda):

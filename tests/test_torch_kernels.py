@@ -20,7 +20,7 @@ from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import flash_decode as tfd
 from repro_torch.kernels import ops as tops
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)   # see tests/test_torch_paged_grad.py
 ATOL = 1e-5
 
 

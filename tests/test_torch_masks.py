@@ -12,7 +12,7 @@ import torch
 from repro.core import masks as JM
 from repro_torch.core import masks as TM
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)   # see tests/test_torch_paged_grad.py
 
 
 def _np(layout):

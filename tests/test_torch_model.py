@@ -19,7 +19,7 @@ from repro_torch.configs import reduced_config
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.serve import kv_cache as kvc
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)   # see tests/test_torch_paged_grad.py
 ATOL = 1e-4
 PAGE, NUM_PAGES, PAGES_PER_SEQ = 4, 16, 8
 TABLES = [[3, 9, 1], [12, 5]]                 # physical pages per request

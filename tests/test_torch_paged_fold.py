@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as tfa
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)   # see tests/test_torch_paged_grad.py
 
 
 def _case(seed, b, hkv, T, ps, d, num_pages):

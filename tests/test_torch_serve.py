@@ -20,7 +20,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.serve import ServingEngine
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)   # see tests/test_torch_paged_grad.py
 
 
 @pytest.fixture(scope="module")
@@ -60,6 +60,9 @@ CASES = {
     "preemption": (dict(num_slots=2, capacity=32, page_size=8, chunk_size=8,
                         token_budget=18, num_pages=4),
                    [list(range(1, 25)), list(range(30, 54))], 5, False),
+    # a page the card's kernels refuse (> 64 rows) still serves on the CPU
+    "page_128": (dict(num_slots=2, capacity=256, page_size=128, chunk_size=8),
+                 CHUNK_PROMPTS, 4, False),
 }
 
 

@@ -37,7 +37,7 @@ from repro_torch.optim import adamw, constant, warmup_cosine
 from repro_torch.core.tree import tree_leaves, with_leaves
 from repro_torch.train import make_train_step
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)   # see tests/test_torch_paged_grad.py
 
 
 @pytest.fixture(scope="module")

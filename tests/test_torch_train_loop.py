@@ -18,7 +18,7 @@ from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.train import Trainer, TrainerConfig, make_train_step
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)   # see tests/test_torch_paged_grad.py
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,9 @@
-"""The forward kernel's tile helpers in ``repro_torch.kernels.tuning``
-(pure Python, no card): shared memory of the fp32 and bf16 bodies within
-a Hopper block for every head dim, the pages one paged kv tile gathers,
-the page sizes the paged forward refuses, and the warp groups of a CTA."""
+"""The attention kernels' tile helpers in ``repro_torch.kernels.tuning``
+(pure Python, no card): shared memory of the forward's and the
+backward's fp32 and bf16 bodies within a Hopper block for every head dim,
+the pages one paged kv tile gathers, the page sizes the paged kernels
+refuse (the check a paged engine on the card makes at construction), and
+the warp groups of a CTA."""
 
 import pytest
 
@@ -53,3 +55,52 @@ def test_fwd_pages_per_tile(page_size, pages):
 def test_fwd_pages_per_tile_refuses_other_pages(page_size):
     with pytest.raises(ValueError, match="page sizes"):
         tuning.fwd_pages_per_tile(page_size)
+
+
+@pytest.mark.parametrize("d", tuning.KERNEL_HEAD_DIMS)
+def test_bwd_smem_fits_a_block_at_every_head_dim(d):
+    assert tuning.bwd_tiles(d) == (tuning.MAX_TILE, tuning.MAX_TILE)
+    for bf16, paged in ((False, False), (True, False), (True, True)):
+        assert tuning.bwd_smem_bytes(64, 64, d, bf16=bf16, paged=paged) \
+            <= tuning.SMEM_PER_BLOCK
+
+
+def test_bwd_smem_bf16_staging():
+    """bf16: whatever the tiles, dq stages Q', dO and per warp group two
+    stages of K and V at 64 rows, then per group and stage three rows of
+    kv terms and the class table; dkv stages K, V and two stages of Q' and
+    dO at 64 rows, then five per-row words a stage, the class table and a
+    4-word reduction; the block takes the larger of the two."""
+    for d in tuning.KERNEL_HEAD_DIMS:
+        dkv = 2 * 6 * 64 * d + 4 * (2 * 5 * 64 + 128 + 4)
+        for paged in (False, True):
+            groups = tuning.fwd_kv_groups(d, paged)   # the dq's groups
+            dq = 2 * 64 * d * (2 + 2 * 2 * groups) + 4 * groups * (2 * 3 * 64
+                                                                  + 128)
+            for bq, bk in ((8, 8), (24, 40), (64, 64)):
+                assert tuning.bwd_smem_bytes(bq, bk, d, bf16=True,
+                                             paged=paged) == max(dq, dkv)
+    assert tuning.bwd_smem_bytes(64, 64, 128, bf16=True) == 101_392
+    assert tuning.bwd_smem_bytes(64, 64, 128, bf16=True, paged=True) == 167_936
+    # fp32 keeps the scalar body's staging, which depends on the tiles
+    assert tuning.bwd_smem_bytes(64, 64, 128) == 166_144
+    assert tuning.bwd_smem_bytes(24, 40, 64) == max(
+        4 * (2 * 24 * 64 + 2 * 40 * 65 + 24 * 40),
+        4 * ((2 * 40 + 2 * 24) * 65 + 2 * 40 * 24 + 5 * 24))
+
+
+@pytest.mark.parametrize("page_size", [8, 16, 32, 64])
+def test_check_page_size_takes_the_kernels_pages(page_size):
+    assert tuning.check_page_size(page_size) == page_size
+
+
+@pytest.mark.parametrize("page_size", [0, 4, 12, 48, 96, 128])
+def test_check_page_size_refuses_other_pages(page_size):
+    """The error names every paged kernel and the sizes they take."""
+    with pytest.raises(ValueError) as err:
+        tuning.check_page_size(page_size)
+    msg = str(err.value)
+    for kernel in ("flash_fwd_paged", "flash_bwd_dq_paged",
+                   "flash_bwd_dkv_paged", "flash_decode_paged"):
+        assert kernel in msg
+    assert "(8, 16, 32, 64)" in msg and str(page_size) in msg
