@@ -14,18 +14,26 @@ paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
    CUDA kernel of both paths from ``src/repro_torch/kernels/csrc`` (one
    nvcc per source, the three libraries started together), and count the
    tensor-core instructions (``HMMA``, ``cuobjdump -sass`` of the built
-   library) in every bf16 ``flash_fwd_kernel`` instantiation, and, from a
-   ``-Xptxas -v`` compile of ``flash_bwd.cu`` started beside the build, in
-   every bf16 ``flash_bwd_dq_kernel`` / ``flash_bwd_dkv_kernel`` (paged,
-   contiguous, contiguous with dropout) with its registers and spills:
-   each must have some (no bf16 forward and no bf16 backward runs the
-   scalar body), and no bf16 backward may spill;
+   library) in every bf16 ``flash_fwd_kernel`` instantiation, and, from
+   ``-Xptxas -v`` compiles of ``flash_bwd.cu`` and ``flash_decode.cu``
+   started beside the build, in every bf16 ``flash_bwd_dq_kernel`` /
+   ``flash_bwd_dkv_kernel`` (paged, contiguous, contiguous with dropout)
+   with its registers and spills: each must have some (no bf16 forward
+   and no bf16 backward runs the scalar body), and no bf16 backward may
+   spill; then every ``flash_decode_kernel`` instantiation's registers,
+   shared memory (static, and the dynamic size and ring stages its
+   launcher gives it), spills and HMMA: none may spill, and every bf16 one
+   runs on the tensor cores;
 2. kernels: each kernel against its plain PyTorch version at the main
    path's shapes in bf16 (hq 32 / hkv 8 / d 64, page 16): a ~2k-token
    packed prefill with several documents (flash_fwd), a 256-row chunk
    against 1.5k-token paged prefixes (flash_fwd_paged), decode at batch 8
-   over ~1k-token contexts (flash_decode_paged). Tolerances: max |o - o_plain|
-   <= 2e-2 (bf16 output), m and l within 1e-2 relative. Each is timed after
+   over ~1k-token contexts (flash_decode_paged: the whole decode, one
+   launch that writes the split partials and merges them, its layout
+   lowered beforehand; the plain version is the plain partials and the
+   torch merge). Tolerances: max |o - o_plain| <= 2e-2 (bf16 output), m
+   and l within 1e-2 relative, the decodes' split accumulators o_p within
+   2e-2 once scaled by each split's max(1, l). Each is timed after
    warm-up, inputs rotated so the working set exceeds the 50 MB L2, as
    device time per call (``ms``: every kernel of the call summed by
    ``torch.profiler``) and as CUDA-event time per call (``call_ms``: the
@@ -47,8 +55,8 @@ paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
    (``torch.autograd.grad`` after one forward, boolean mask, GQA), and the
    pair's device time (dq + dkv) against it on a line of its own, beside
    the kernels' CTA walks (layout tiles a dq CTA visits, (q-block, head)
-   items a dkv CTA visits: mean and max). The
-   contiguous decode kernel (flash_decode) at batch 8 over a 2048-slot
+   items a dkv CTA visits: mean and max). The whole
+   contiguous decode (flash_decode) at batch 8 over a 2048-slot
    cache, kv_len 900-1100, also with a window and with a kv_mask, against
    its plain version (SDPA over the cache with a boolean mask as library);
 2c. paged backward: at flash_fwd_paged's shapes, one row per sequence,
@@ -108,7 +116,9 @@ kernels from the same process state), ``kernel_phase``,
 ``paged_grad_ab`` (the paged dq and dkv kernels and the whole paged
 backward), ``serve_phase``, ``dense_serve_phase`` and ``train_phase``
 (without the profiled passes) on that checkout's package
-and on this one's (one measurement for both sides), each in a fresh
+and on this one's (one measurement for both sides; a decode of a checkout
+without the fused launch is timed as its partials kernel and the torch
+merge, ``whole_decode``), each in a fresh
 process, in the order parent, change, change, parent on the same card,
 then each side's per-run numbers (record in
 ``build/chip_smoke_ab.json``).
@@ -366,25 +376,28 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     qd = randn(b, hq, 1, d)
     dk, dv = randn(hkv, num_pages, ps, d), randn(hkv, num_pages, ps, d)
     dcall = dict(scale=scale, num_splits=splits, window=None)
-    parts = fd.flash_decode_paged_partials(qd, dk, dv, table, kv_len, dlay,
-                                           **dcall)
+    whole = whole_decode(fd, paged=True)
+    o, parts = whole(qd, dk, dv, table, kv_len, dlay, **dcall)
     torch.cuda.synchronize()
     pparts = fd.flash_decode_paged_partials_plain(qd, dk, dv, table, kv_len,
                                                   dlay, **dcall)
-    out = (fd._merge_split_partials(*parts, bf16), parts[1], parts[2])
+    out = (o, parts[1], parts[2])
     plain = (fd._merge_split_partials(*pparts, bf16), pparts[1], pparts[2])
+    o_p_err = check_partials("flash_decode_paged", parts, pparts)
     rows = sum(-(-n // ps) * ps for n in kv_len.tolist())
     kv_bytes = 2 * rows * hkv * d * 2
     sets = [(qd, dk, dv)] + [
         (randn(b, hq, 1, d), randn(hkv, num_pages, ps, d),
          randn(hkv, num_pages, ps, d))
         for _ in range(copies_for(kv_bytes) - 1)]
-    ms, call_ms = timed(torch, [lambda a=a: fd.flash_decode_paged_partials(
+    ms, call_ms = timed(torch, [lambda a=a: whole(
         *a, table, kv_len, dlay, **dcall) for a in sets])
-    plain_ms = device_ms(torch, [lambda: fd.flash_decode_paged_partials_plain(
-        qd, dk, dv, table, kv_len, dlay, **dcall)], warmup=1, iters=3)
+    plain_ms = device_ms(torch, [lambda: fd._merge_split_partials(
+        *fd.flash_decode_paged_partials_plain(qd, dk, dv, table, kv_len, dlay,
+                                              **dcall), bf16)],
+        warmup=1, iters=3)
     pairs = int(kv_len.sum()) * hq
-    b_ms, b_by = bound(nbytes(qd, *parts, table, kv_len, dlay) + kv_bytes,
+    b_ms, b_by = bound(nbytes(qd, o, *parts, table, kv_len, dlay) + kv_bytes,
                        4.0 * d * pairs, BF16_FLOPS_PER_S)
     dmask = (torch.arange(T * ps, device=dev)[None, :]
              < kv_len[:, None])[:, None, None, :]  # (b, 1, 1, T*ps) bool
@@ -393,12 +406,14 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     lib_ms = device_ms(torch, [lambda a=a: sdpa(*a, attn_mask=dmask, scale=scale,
                                               enable_gqa=True) for a in gathered])
     del gathered
-    results.append(_kernel_record(
+    rec = _kernel_record(
         "flash_decode_paged", "src/repro_torch/kernels/csrc/flash_decode.cu",
         "src/repro/kernels/flash_decode.py:329", out, plain, ms, plain_ms,
         b_ms, b_by, lib_ms, call_ms=call_ms,
-        shape=f"decode b={b} kv_len {kv_len.tolist()} page {ps} "
-              f"splits {splits}", library="SDPA on pre-gathered K/V, bool mask"))
+        shape=f"whole decode b={b} kv_len {kv_len.tolist()} page {ps} "
+              f"splits {splits}", library="SDPA on pre-gathered K/V, bool mask")
+    rec["o_p_err"] = o_p_err
+    results.append(rec)
     results.append(contiguous_decode_record(torch, gen, randn, hq, hkv, d))
     return results
 
@@ -421,6 +436,7 @@ def contiguous_decode_record(torch, gen, randn, hq, hkv, d) -> dict:
     bk, splits = tuning.resolve_decode_geometry(cap, None, None)
     qd, kc, vc = randn(b, hq, 1, d), randn(b, hkv, cap, d), randn(b, hkv, cap, d)
     masked = torch.rand(b, cap, generator=gen, device=dev) > 0.25
+    whole = whole_decode(fd, paged=False)
     errs = {}
     for case, window, kvm in (("plain", None, None), ("window 256", 256, None),
                               ("kv_mask", None, masked)):
@@ -428,10 +444,10 @@ def contiguous_decode_record(torch, gen, randn, hq, hkv, d) -> dict:
         lay = M.kv_block_layout(valid, bk)
         call = dict(scale=scale, block_k=bk, num_splits=splits, window=window,
                     kv_mask=kvm)
-        parts = fd.flash_decode_partials(qd, kc, vc, kv_len, lay, **call)
+        o, parts = whole(qd, kc, vc, kv_len, lay, **call)
         torch.cuda.synchronize()
         pparts = fd.flash_decode_partials_plain(qd, kc, vc, kv_len, lay, **call)
-        out = (fd._merge_split_partials(*parts, torch.bfloat16), *parts[1:])
+        out = (o, *parts[1:])
         plain = (fd._merge_split_partials(*pparts, torch.bfloat16), *pparts[1:])
         o_err = float((out[0].float() - plain[0].float()).abs().max())
         errs[case] = o_err
@@ -439,21 +455,22 @@ def contiguous_decode_record(torch, gen, randn, hq, hkv, d) -> dict:
         check(rel_err(out[1], plain[1]) <= 1e-2 and rel_err(out[2], plain[2])
               <= 1e-2, f"flash_decode ({case}): m/l differ from the plain "
                        f"version")
+        o_p_err = check_partials(f"flash_decode ({case})", parts, pparts)
         if case == "plain":
-            first = (out, plain, lay, call, valid)
-    out, plain, lay, call, valid = first
+            first = (out, plain, lay, call, valid, parts, o_p_err)
+    out, plain, lay, call, valid, parts, o_p_err = first
     rows = int(valid.sum())                  # the keys this data needs
     kv_bytes = 2 * rows * hkv * d * 2
     sets = [(qd, kc, vc)] + [(randn(b, hq, 1, d), randn(b, hkv, cap, d),
                               randn(b, hkv, cap, d))
                              for _ in range(copies_for(nbytes(kc, vc)) - 1)]
-    ms, call_ms = timed(torch, [lambda a=a: fd.flash_decode_partials(
+    ms, call_ms = timed(torch, [lambda a=a: whole(
         *a, kv_len, lay, **call) for a in sets])
-    plain_ms = device_ms(torch, [lambda: fd.flash_decode_partials_plain(
-        qd, kc, vc, kv_len, lay, **call)], warmup=1, iters=3)
-    b_ms, b_by = bound(nbytes(qd, out[1], out[2], kv_len, lay) + kv_bytes
-                       + out[1].numel() * d * 4, 4.0 * d * rows * hq,
-                       BF16_FLOPS_PER_S)
+    plain_ms = device_ms(torch, [lambda: fd._merge_split_partials(
+        *fd.flash_decode_partials_plain(qd, kc, vc, kv_len, lay, **call),
+        torch.bfloat16)], warmup=1, iters=3)
+    b_ms, b_by = bound(nbytes(qd, out[0], *parts, kv_len, lay) + kv_bytes,
+                       4.0 * d * rows * hq, BF16_FLOPS_PER_S)
     mask = valid[:, None, None, :]                # (b, 1, 1, cap) bool
     lib_ms = device_ms(torch, [lambda a=a: sdpa(*a, attn_mask=mask, scale=scale,
                                               enable_gqa=True) for a in sets])
@@ -461,11 +478,43 @@ def contiguous_decode_record(torch, gen, randn, hq, hkv, d) -> dict:
         "flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
         "src/repro/kernels/flash_decode.py:169", out, plain, ms, plain_ms,
         b_ms, b_by, lib_ms, call_ms=call_ms,
-        shape=f"contiguous decode b={b} capacity {cap} kv_len "
+        shape=f"whole contiguous decode b={b} capacity {cap} kv_len "
               f"{kv_len.tolist()} block_k {bk} splits {splits}",
         library="SDPA on the contiguous cache, bool mask, GQA")
     rec["case_errs"] = errs
+    rec["o_p_err"] = o_p_err
     return rec
+
+
+def whole_decode(fd, paged: bool):
+    """The whole decode for a lowered layout, returning (out, (o_p, m_p,
+    l_p)): the package's one fused launch, or, in a checkout that predates
+    it (a ``--ab`` parent), its partials kernel followed by the torch
+    merge, so both sides of an A/B compute the same function."""
+    fused = getattr(fd, "flash_decode_paged_from_layout" if paged
+                    else "flash_decode_from_layout", None)
+    if fused is not None:
+        return fused
+    partials = (fd.flash_decode_paged_partials if paged
+                else fd.flash_decode_partials)
+
+    def call(q, *args, **kw):
+        parts = partials(q, *args, **kw)
+        return fd._merge_split_partials(*parts, q.dtype), parts
+    return call
+
+
+def check_partials(name, parts, plain_parts) -> float:
+    """The split accumulators o_p against the plain version, each split's
+    error scaled by its plain l: the error of the split's own normalized
+    output, held to the bf16 output tolerance, 2e-2 (the bf16 kernel
+    rounds P to bf16 for its P V product, as flash_fwd does; m and l are
+    checked with the output)."""
+    scale = plain_parts[2].float().clamp_min(1.0)[..., None]
+    err = float(((parts[0].float() - plain_parts[0].float()).abs() / scale).max())
+    check(err <= 2e-2, f"{name}: split partials o_p differ from the plain "
+                       f"version (max |o_p - plain| / max(1, l) = {err})")
+    return err
 
 
 def _kernel_record(name, source, replaces, out, plain, ms, plain_ms, b_ms,
@@ -1180,10 +1229,11 @@ def profile_serve(torch, model, params, prompts, kw) -> dict:
         print("[profile] the profiler recorded no device time: not measured",
               flush=True)
         return {"busy_share": None}
-    # flash_fwd_kernel<T, D, Paged, Dropout, Paper>: Paged tells them apart
+    # flash_fwd_kernel<T, D, Paged, Dropout, Paper> and
+    # flash_decode_kernel<T, D, Paged>: Paged tells them apart
     ported = {"flash_fwd": r"flash_fwd_kernel<[^,>]+, \d+, false",
               "flash_fwd_paged": r"flash_fwd_kernel<[^,>]+, \d+, true",
-              "flash_decode_paged": r"flash_decode_paged_kernel<"}
+              "flash_decode_paged": r"flash_decode_kernel<[^,>]+, \d+, true>"}
     per_kernel = {}
     for name, pattern in ported.items():
         hits = [e for e in kernels if re.search(pattern, e.key)]
@@ -1494,6 +1544,7 @@ torch.cuda.empty_cache()
 train, _ = cs.train_phase(torch, {seed}, cs.card_line())
 print("AB " + json.dumps({{
     "kernels": {{r["name"]: r["ms"] for r in kernels + bwd}},
+    "bound_ms": {{r["name"]: r["bound_ms"] for r in kernels + bwd}},
     "bwd_dropout_ms": {{r["name"]: r["dropout_ms"] for r in bwd}},
     "bwd_pair_device_ms": fwd["bwd_pair_device_ms"],
     "bwd_ms": fwd["bwd_ms"],
@@ -1512,6 +1563,7 @@ print("AB " + json.dumps({{
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
 _PTXAS_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
 
 
 def _cubin(root: pathlib.Path, name: str, out: pathlib.Path):
@@ -1628,6 +1680,51 @@ def bwd_build_counts(proc, cubin: pathlib.Path) -> dict[str, dict]:
     return counts
 
 
+_DECODE = re.compile(r"flash_decode_kernel<(float|__nv_bfloat16), \(int\)(\d+), "
+                     r"\(bool\)(\d)>")
+
+
+def decode_build_counts(torch, proc, cubin: pathlib.Path) -> dict[str, dict]:
+    """Registers, static shared memory, spills and HMMA instructions of
+    every ``flash_decode_kernel`` instantiation (fp32 and bf16, paged and
+    contiguous, head dims 16-128) from a ``-Xptxas -v`` compile of
+    ``flash_decode.cu`` to a cubin (started beside the build by
+    ``_cubin``), with the dynamic shared memory and ring stages its
+    launcher gives each (``flash_decode.smem_bytes``); none may spill,
+    and every bf16 one must have HMMA (its tensor-core body)."""
+    from repro_torch.kernels import flash_decode as fd
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"nvcc -Xptxas -v flash_decode.cu failed:\n"
+                                f"{log[-3000:]}")
+    counts = {}
+    for kern, info in _kernel_info(log, cubin).items():
+        m = _DECODE.search(kern)
+        if m:
+            t, d, paged = m.groups()
+            bf16 = t == "__nv_bfloat16"
+            dyn, stages = fd.smem_bytes(torch.bfloat16 if bf16 else torch.float32,
+                                        int(d))
+            key = (f"{'bf16' if bf16 else 'fp32'} d{d} "
+                   f"{'paged' if paged == '1' else 'contiguous'}")
+            counts[key] = {"registers": info.get("registers"),
+                           "spill": info.get("spill"),
+                           "static_smem": info.get("smem"),
+                           "dynamic_smem": dyn, "stages": stages,
+                           "hmma": sum(bool(re.match(r"(@!?U?P\w+ )?HMMA\.", i))
+                                       for i in info["sass"])}
+    print(f"[build] flash_decode_kernel instantiations (registers, spill "
+          f"bytes, static and dynamic shared memory, ring stages, HMMA): "
+          f"{json.dumps(counts)}", flush=True)
+    # 2 dtypes x 4 head dims x (paged, contiguous)
+    check(len(counts) == 16, f"the built decode lacks an instantiation: "
+                             f"{sorted(counts)}")
+    check(all(c["spill"] == 0 for c in counts.values()),
+          f"a flash_decode_kernel spills: {counts}")
+    check(all(c["hmma"] > 0 for k, c in counts.items() if k.startswith("bf16")),
+          f"a bf16 flash_decode_kernel has no HMMA (CUDA-core body): {counts}")
+    return counts
+
+
 def _kernel_info(log: str, cubin: pathlib.Path) -> dict[str, dict]:
     """Per kernel (demangled name): registers and stack from ptxas, and the
     SASS instruction text from cuobjdump (addresses and encodings dropped)."""
@@ -1642,6 +1739,8 @@ def _kernel_info(log: str, cubin: pathlib.Path) -> dict[str, dict]:
             info[cur]["stack"], info[cur]["spill"] = int(st.group(1)), int(st.group(2))
         elif cur and _PTXAS_REGS.search(line):
             info[cur]["registers"] = int(_PTXAS_REGS.search(line).group(1))
+            sm = _PTXAS_SMEM.search(line)
+            info[cur]["smem"] = int(sm.group(1)) if sm else 0
     body = _sass(cubin)
     names = _demangle(sorted(set(info) | set(body)))
     return {names.get(k, k): {**info.get(k, {}), "sass": body.get(k, [])}
@@ -1752,19 +1851,24 @@ def main() -> int:
     t0 = time.perf_counter()
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
-    bwd_cubin = out_dir / "flash_bwd_ptxas.cubin"
-    bwd_proc = _cubin(ROOT, "flash_bwd", bwd_cubin)   # beside the build
+    cubins = {name: out_dir / f"{name}_ptxas.cubin"
+              for name in ("flash_bwd", "flash_decode")}
+    procs = {name: _cubin(ROOT, name, cub)          # beside the build
+             for name, cub in cubins.items()}
     try:
         libs = build.build_all()
     except BaseException:
-        bwd_proc.kill()
-        bwd_proc.wait()
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
         raise
     build_s = time.perf_counter() - t0
     print(f"[build] {len(build.SOURCES)} kernel libraries in {build_s:.1f}s",
           flush=True)
     hmma = hmma_counts(libs["flash_fwd"])
-    hmma_bwd = bwd_build_counts(bwd_proc, bwd_cubin)
+    hmma_bwd = bwd_build_counts(procs["flash_bwd"], cubins["flash_bwd"])
+    decode_build = decode_build_counts(torch, procs["flash_decode"],
+                                       cubins["flash_decode"])
 
     kernels = kernel_phase(torch, args.seed)
     bwd_kernels, fwd_train = train_kernel_phase(torch, args.seed)
@@ -1791,7 +1895,7 @@ def main() -> int:
           "a kernel was launched on none of the main paths")
 
     record = {"card": card, "build_s": build_s, "hmma": hmma,
-              "bwd_bf16_build": hmma_bwd,
+              "bwd_bf16_build": hmma_bwd, "decode_build": decode_build,
               "kernels": kernels,
               "paged_grad_launches": paths["paged_grad"], "parity": parity,
               "serve": serve, "dense_parity": dense_parity,

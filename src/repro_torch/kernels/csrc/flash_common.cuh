@@ -1,7 +1,8 @@
-// Shared pieces of the FlashAttention kernels (flash_fwd.cu, flash_bwd.cu):
-// the compiled block-layout classes, the fused element mask, and the
-// counter-based dropout hash. One definition, so the forward and the two
-// backward kernels cannot drift apart.
+// Shared pieces of the FlashAttention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_decode.cu): the compiled block-layout classes, the fused element
+// mask, the counter-based dropout hash and the asynchronous copies. One
+// definition, so the forward, the two backward kernels and the decode
+// cannot drift apart.
 //
 //   * layout classes and the per-tile choice of mask terms follow
 //     src/repro/kernels/flash_attention.py:_layout_branches: SKIP tiles run
@@ -232,6 +233,23 @@ __device__ __forceinline__ int swizzle(int row, int chunk) {
     const int lin = row * CPR + chunk;
     return ((lin & ~7) | ((lin ^ (lin >> 3)) & 7)) << 3;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Pieces of the split-KV decode (flash_decode.cu).
+// ---------------------------------------------------------------------------
+
+// cp_async16, but when `valid` is false the 16 destination bytes are
+// zero-filled and nothing is read (src-size 0): `src` must still be an
+// address the kernel may form, never a dead row's.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+// wait until at most N of this thread's newest commit groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace flash

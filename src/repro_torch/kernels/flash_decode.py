@@ -1,12 +1,13 @@
-"""Split-KV decode: hand-written Hopper kernels + their plain versions
+"""Split-KV decode: one hand-written Hopper kernel + its plain versions
 (port of ``repro.kernels.flash_decode``).
 
 Serving decode computes attention for ONE new query token against a long
 KV cache. Parallelism comes from splitting the kv axis: each split runs
 the Algorithm-1 loop over its kv blocks and emits a partial softmax state
 (acc, m, l); ``_merge_split_partials`` combines them with the
-online-softmax merge (a PyTorch op, as it is XLA-level code in the JAX
-package). Two cache geometries, one kernel each in ``csrc/flash_decode.cu``:
+online-softmax merge (XLA-level code in the JAX package). Two cache
+geometries, one kernel body (``csrc/flash_decode.cu``) that also merges the
+splits in the same launch:
 
   * ``flash_decode`` — a contiguous per-sequence cache (b, hkv, capacity,
     d): dense slot serving. Validity is ``kv_len`` + optional window +
@@ -18,9 +19,13 @@ package). Two cache geometries, one kernel each in ``csrc/flash_decode.cu``:
 
 SKIP blocks (past kv_len, before the window, masked out, unallocated) never
 run, FULL blocks drop the element compares, PARTIAL blocks apply them. On
-a CUDA tensor each wrapper launches its kernel and counts it in
-``LAUNCHES``; on a CPU tensor it runs the plain version. Geometry is
-validated up front (capacity % block multiples); nothing is padded.
+a CUDA tensor each decode is one kernel launch (counted in ``LAUNCHES``)
+that writes the split partials and the merged output; on a CPU tensor it
+runs the plain partials and ``_merge_split_partials``. The
+``*_from_layout`` functions are the whole decode for a lowered layout and
+return both, the ``*_partials`` functions the partials alone (the
+comparison surface of the tests). Geometry is validated up front
+(capacity % block multiples); nothing is padded.
 """
 
 from __future__ import annotations
@@ -33,26 +38,72 @@ from repro_torch.core import masks as M
 from repro_torch.core.masks import NEG_INF
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import gather_pages, repeat_kv
-from repro_torch.kernels.tuning import KERNEL_HEAD_DIMS
+from repro_torch.kernels.tuning import (KERNEL_HEAD_DIMS, check_decode_splits,
+                                        check_page_size)
 
 LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_PAGE = 64          # csrc/flash_decode.cu MAX_PAGE
 
 
 def _lib():
     lib = build.load("flash_decode")
     if not getattr(lib, "_typed", False):
         c_int, c_p = ctypes.c_int, ctypes.c_void_p
-        lib.flash_decode_paged.argtypes = ([c_int] * 2 + [c_p] * 9
+        lib.flash_decode_paged.argtypes = ([c_int] * 2 + [c_p] * 10
                                            + [c_int] * 8 + [ctypes.c_float, c_p])
         lib.flash_decode_paged.restype = c_int
-        lib.flash_decode.argtypes = ([c_int] * 2 + [c_p] * 9 + [c_int] * 7
+        lib.flash_decode.argtypes = ([c_int] * 2 + [c_p] * 10 + [c_int] * 7
                                      + [ctypes.c_float, c_p])
         lib.flash_decode.restype = c_int
+        lib.flash_decode_smem_bytes.argtypes = [c_int, c_int,
+                                                ctypes.POINTER(c_int)]
+        lib.flash_decode_smem_bytes.restype = c_int
         lib._typed = True
     return lib
+
+
+def smem_bytes(dtype: torch.dtype, head_dim: int) -> tuple[int, int]:
+    """(dynamic shared memory bytes of one CTA, ring stages) of the decode
+    kernel for a dtype and head dim, as its launcher computes them (card
+    only: asks the built library)."""
+    stages = ctypes.c_int(0)
+    n = _lib().flash_decode_smem_bytes(_DTYPES[dtype], head_dim,
+                                       ctypes.byref(stages))
+    if n < 0:
+        raise ValueError(f"flash_decode takes {tuple(_DTYPES)} and head dims "
+                         f"{KERNEL_HEAD_DIMS}, got {dtype}, {head_dim}")
+    return n, stages.value
+
+
+def _card_operands(name, q, kv, num_splits):
+    """Check the CUDA operands of one decode launch (device, dtype, head
+    dim, split limit, 16-byte alignment of the vector loads) and return
+    (q, k, v) contiguous; raises before any launch."""
+    for tname, t in zip(("k", "v"), kv):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name}: {tname} must match q's device and dtype")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {q.shape[-1]} (one of "
+                         f"{KERNEL_HEAD_DIMS}) required")
+    check_decode_splits(num_splits)
+    ts = [t.contiguous() for t in (q, *kv)]
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: q, k and v must start on 16-byte "
+                         f"boundaries (the kernel reads 16-byte vectors)")
+    return ts
+
+
+def _card_outputs(q, num_splits):
+    """(out, o_p, m_p, l_p) of one launch, uninitialized."""
+    b, hq, _, d = q.shape
+    o_p = torch.empty((b, hq, num_splits, d), dtype=torch.float32,
+                      device=q.device)
+    m_p = torch.empty((b, hq, num_splits), dtype=torch.float32,
+                      device=q.device)
+    return torch.empty_like(q), o_p, m_p, torch.empty_like(m_p)
 
 
 def validate_decode_geometry(capacity: int, block_k: int,
@@ -127,6 +178,44 @@ def flash_decode_paged_partials_plain(q, k_pool, v_pool, page_table, kv_len,
     return o_p, m_p, l_p
 
 
+def flash_decode_paged_from_layout(q, k_pool, v_pool, page_table, kv_len,
+                                  layout, *, scale, num_splits, window):
+    """The whole paged decode for a lowered (b, T) page layout:
+    ``(out, (o_p, m_p, l_p))``. On a CUDA tensor ONE kernel launch writes
+    the split partials and merges them in a thread-block cluster; on a
+    CPU tensor the plain partials and ``_merge_split_partials``."""
+    if not q.is_cuda:
+        parts = flash_decode_paged_partials_plain(
+            q, k_pool, v_pool, page_table, kv_len, layout, scale=scale,
+            num_splits=num_splits, window=window)
+        return _merge_split_partials(*parts, q.dtype), parts
+    b, hq, sq, d = q.shape
+    hkv, num_pages, ps, _ = k_pool.shape
+    T = page_table.shape[1]
+    check_page_size(ps)
+    if hq % hkv or T % num_splits or tuple(layout.shape) != (b, T):
+        raise ValueError(
+            f"flash_decode_paged: hq % hkv == 0, T % num_splits == 0 and a "
+            f"(b, T) layout required")
+    q, k_pool, v_pool = _card_operands("flash_decode_paged", q,
+                                       (k_pool, v_pool), num_splits)
+    pt = page_table.to(torch.int32).contiguous()
+    kl = kv_len.to(torch.int32).contiguous()
+    lay = layout.to(torch.int32).contiguous()
+    out, o_p, m_p, l_p = _card_outputs(q, num_splits)
+    lib = _lib()
+    err = lib.flash_decode_paged(
+        _DTYPES[q.dtype], d, q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), pt.data_ptr(), kl.data_ptr(), lay.data_ptr(),
+        o_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr(), out.data_ptr(),
+        b, hq, hkv, num_pages, ps, T, num_splits,
+        -1 if window is None else int(window), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, lib, "flash_decode_error_string", "flash_decode_paged")
+    LAUNCHES["flash_decode_paged"] += 1
+    return out, (o_p, m_p, l_p)
+
+
 def flash_decode_paged_partials(q, k_pool, v_pool, page_table, kv_len, layout,
                                 *, scale, num_splits, window):
     """(o_p, m_p, l_p) split partials: the kernel on a CUDA tensor, the
@@ -135,41 +224,9 @@ def flash_decode_paged_partials(q, k_pool, v_pool, page_table, kv_len, layout,
         return flash_decode_paged_partials_plain(
             q, k_pool, v_pool, page_table, kv_len, layout, scale=scale,
             num_splits=num_splits, window=window)
-    b, hq, sq, d = q.shape
-    hkv, num_pages, ps, _ = k_pool.shape
-    T = page_table.shape[1]
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{name} must match q's device and dtype")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_decode_paged takes float32 or bfloat16, "
-                        f"got {q.dtype}")
-    if d not in KERNEL_HEAD_DIMS or ps > MAX_PAGE or hq % hkv or T % num_splits:
-        raise ValueError(
-            f"flash_decode_paged: head_dim {d} (one of {KERNEL_HEAD_DIMS}), "
-            f"page_size {ps} (<= {MAX_PAGE}), hq % hkv == 0 and "
-            f"T % num_splits == 0 required")
-    q = q.contiguous()
-    k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
-    pt = page_table.to(torch.int32).contiguous()
-    kl = kv_len.to(torch.int32).contiguous()
-    lay = layout.to(torch.int32).contiguous()
-    o_p = torch.empty((b, hq, num_splits, d), dtype=torch.float32,
-                      device=q.device)
-    m_p = torch.empty((b, hq, num_splits), dtype=torch.float32,
-                      device=q.device)
-    l_p = torch.empty_like(m_p)
-    lib = _lib()
-    err = lib.flash_decode_paged(
-        _DTYPES[q.dtype], d, q.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), pt.data_ptr(), kl.data_ptr(), lay.data_ptr(),
-        o_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr(),
-        b, hq, hkv, num_pages, ps, T, num_splits,
-        -1 if window is None else int(window), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, lib, "flash_decode_error_string", "flash_decode_paged")
-    LAUNCHES["flash_decode_paged"] += 1
-    return o_p, m_p, l_p
+    return flash_decode_paged_from_layout(
+        q, k_pool, v_pool, page_table, kv_len, layout, scale=scale,
+        num_splits=num_splits, window=window)[1]
 
 
 def flash_decode_paged(
@@ -203,10 +260,9 @@ def flash_decode_paged(
         # are SKIP, so the kernel never forms their address.
         layout = M.paged_block_layout(kv_len, page_table, page_size,
                                       window=window)
-        o_p, m_p, l_p = flash_decode_paged_partials(
+        return flash_decode_paged_from_layout(
             q, k_pool, v_pool, page_table, kv_len, layout, scale=scale,
-            num_splits=num_splits, window=window)
-        return _merge_split_partials(o_p, m_p, l_p, q.dtype)
+            num_splits=num_splits, window=window)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +294,44 @@ def flash_decode_partials_plain(q, k, v, kv_len, layout, *, scale, block_k,
     return o_p, m_p, l_p
 
 
+def flash_decode_from_layout(q, k, v, kv_len, layout, *, scale, block_k,
+                             num_splits, window, kv_mask=None):
+    """The whole contiguous-cache decode for a lowered (b, capacity //
+    block_k) layout: ``(out, (o_p, m_p, l_p))``. On a CUDA tensor ONE
+    kernel launch writes the split partials and merges them in a
+    thread-block cluster; on a CPU tensor the plain partials and
+    ``_merge_split_partials``."""
+    kw = dict(scale=scale, block_k=block_k, num_splits=num_splits,
+              window=window, kv_mask=kv_mask)
+    if not q.is_cuda:
+        parts = flash_decode_partials_plain(q, k, v, kv_len, layout, **kw)
+        return _merge_split_partials(*parts, q.dtype), parts
+    b, hq, sq, d = q.shape
+    _, hkv, cap, _ = k.shape
+    nk = cap // block_k
+    if (hq % hkv or cap % block_k or nk % num_splits
+            or tuple(layout.shape) != (b, nk)):
+        raise ValueError(
+            f"flash_decode: hq % hkv == 0, capacity % block_k == 0, blocks % "
+            f"num_splits == 0 and a (b, capacity // block_k) layout required")
+    q, k, v = _card_operands("flash_decode", q, (k, v), num_splits)
+    kl = kv_len.to(torch.int32).contiguous()
+    lay = layout.to(torch.int32).contiguous()
+    kvm = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
+    out, o_p, m_p, l_p = _card_outputs(q, num_splits)
+    lib = _lib()
+    err = lib.flash_decode(
+        _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        kl.data_ptr(), lay.data_ptr(), None if kvm is None else kvm.data_ptr(),
+        o_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr(), out.data_ptr(),
+        b, hq, hkv, cap, block_k, num_splits,
+        -1 if window is None else int(window), float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, lib, "flash_decode_error_string", "flash_decode")
+    LAUNCHES["flash_decode"] += 1
+    return out, (o_p, m_p, l_p)
+
+
 def flash_decode_partials(q, k, v, kv_len, layout, *, scale, block_k,
                           num_splits, window, kv_mask=None):
     """(o_p, m_p, l_p) split partials over a contiguous cache: the kernel
@@ -246,41 +340,7 @@ def flash_decode_partials(q, k, v, kv_len, layout, *, scale, block_k,
               window=window, kv_mask=kv_mask)
     if not q.is_cuda:
         return flash_decode_partials_plain(q, k, v, kv_len, layout, **kw)
-    b, hq, sq, d = q.shape
-    _, hkv, cap, _ = k.shape
-    for name, t in (("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"{name} must match q's device and dtype")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_decode takes float32 or bfloat16, got "
-                        f"{q.dtype}")
-    nk = cap // block_k
-    if (d not in KERNEL_HEAD_DIMS or hq % hkv or cap % block_k
-            or nk % num_splits or tuple(layout.shape) != (b, nk)):
-        raise ValueError(
-            f"flash_decode: head_dim {d} (one of {KERNEL_HEAD_DIMS}), "
-            f"hq % hkv == 0, capacity % block_k == 0, blocks % num_splits "
-            f"== 0 and a (b, capacity // block_k) layout required")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    kl = kv_len.to(torch.int32).contiguous()
-    lay = layout.to(torch.int32).contiguous()
-    kvm = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
-    o_p = torch.empty((b, hq, num_splits, d), dtype=torch.float32,
-                      device=q.device)
-    m_p = torch.empty((b, hq, num_splits), dtype=torch.float32,
-                      device=q.device)
-    l_p = torch.empty_like(m_p)
-    lib = _lib()
-    err = lib.flash_decode(
-        _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kl.data_ptr(), lay.data_ptr(), None if kvm is None else kvm.data_ptr(),
-        o_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr(),
-        b, hq, hkv, cap, block_k, num_splits,
-        -1 if window is None else int(window), float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, lib, "flash_decode_error_string", "flash_decode")
-    LAUNCHES["flash_decode"] += 1
-    return o_p, m_p, l_p
+    return flash_decode_from_layout(q, k, v, kv_len, layout, **kw)[1]
 
 
 def flash_decode(
@@ -317,7 +377,6 @@ def flash_decode(
         # one lowering per call: (b, capacity // block_k) block classes
         valid = M.decode_kv_valid(kv_len, cap, window=window, kv_mask=kv_mask)
         layout = M.kv_block_layout(valid, block_k)
-        o_p, m_p, l_p = flash_decode_partials(
+        return flash_decode_from_layout(
             q, k, v, kv_len, layout, scale=scale, block_k=block_k,
-            num_splits=num_splits, window=window, kv_mask=kv_mask)
-        return _merge_split_partials(o_p, m_p, l_p, q.dtype)
+            num_splits=num_splits, window=window, kv_mask=kv_mask)[0]

@@ -17,7 +17,9 @@ the small part the serving path needs:
     ``fwd_kv_groups`` — the warp groups that split one CTA's kv walk (the
     bf16 forward's and the bf16 dq's alike);
   * ``resolve_paged_decode_splits`` — split-KV parallelism for paged decode
-    with the divisor rule of ``flash_decode.validate_paged_decode_geometry``;
+    with the divisor rule of ``flash_decode.validate_paged_decode_geometry``,
+    and ``check_decode_splits`` — the split counts the decode kernel takes
+    on the card (its splits merge in one thread-block cluster);
   * ``choose_decode_geometry`` / ``resolve_decode_geometry`` — the
     contiguous cache's ``(block_k, num_splits)``: a Hopper chooser in place
     of the JAX package's SRAM-budget one, explicit values validated by
@@ -32,7 +34,8 @@ MAX_TILE = 64               # csrc/flash_fwd.cu MAX_BQ / MAX_BK
 PAGE_SIZES = (8, 16, 32, 64)    # pages the paged kernels take on the card
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 TARGET_DECODE_SPLITS = 8    # split-KV parallelism target
-DECODE_TILE = 64            # csrc/flash_decode.cu MAX_TILE: K rows staged at once
+MAX_DECODE_SPLITS = 8       # csrc/flash_decode.cu MAX_SPLITS: portable cluster size
+DECODE_TILE = 64            # csrc/flash_decode.cu TILE: kv rows of one ring stage
 SMEM_PER_BLOCK = 232_448    # Hopper: bytes of shared memory one block may use
 
 
@@ -99,10 +102,9 @@ def fwd_pages_per_tile(page_size: int) -> int:
 def check_page_size(page_size: int) -> int:
     """The page sizes the paged kernels take on the card: the paged
     forward (``flash_fwd_paged``) and the bf16 paged backward
-    (``flash_bwd_dq_paged``, ``flash_bwd_dkv_paged``) gather
-    ``MAX_TILE // page_size`` whole pages into one kv tile, and paged
-    decode (``flash_decode_paged``) stages at most ``MAX_TILE`` rows of a
-    page, so a page is 8, 16, 32 or 64 rows. A paged ``ServingEngine`` on
+    (``flash_bwd_dq_paged``, ``flash_bwd_dkv_paged``) and paged decode
+    (``flash_decode_paged``) gather ``MAX_TILE // page_size`` whole pages
+    into one kv tile, so a page is 8, 16, 32 or 64 rows. A paged ``ServingEngine`` on
     the card calls this at construction, so that another page size raises
     there and not mid-serve; the plain versions on the CPU take any page
     size. Returns the page size."""
@@ -178,6 +180,22 @@ def resolve_paged_decode_splits(pages_per_seq: int,
         return next(s for s in _divisors_desc(pages_per_seq)
                     if s <= target_splits)
     return validate_paged_decode_geometry(pages_per_seq, int(num_splits))
+
+
+def check_decode_splits(num_splits: int) -> int:
+    """The split counts the decode kernel (``flash_decode``,
+    ``flash_decode_paged``) takes on the card: the splits of one sequence
+    and kv head run as one thread-block cluster and merge there, and a
+    portable cluster holds at most ``MAX_DECODE_SPLITS`` blocks. The
+    resolvers never pick more (``TARGET_DECODE_SPLITS``); an explicit
+    larger count raises here, before any launch. The plain versions on the
+    CPU take any count. Returns the split count."""
+    if not 1 <= num_splits <= MAX_DECODE_SPLITS:
+        raise ValueError(
+            f"the decode kernels (flash_decode, flash_decode_paged) merge "
+            f"their splits in one thread-block cluster and take 1 to "
+            f"{MAX_DECODE_SPLITS} splits on the card, got {num_splits}")
+    return num_splits
 
 
 def choose_decode_geometry(capacity: int, *,

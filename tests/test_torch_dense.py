@@ -88,6 +88,25 @@ def test_flash_decode_matches_pallas(monkeypatch, block_k, num_splits, window,
     assert tfd.LAUNCHES == before                # CPU tensors: no launch
 
 
+def test_flash_decode_takes_any_split_count_on_cpu():
+    """On the CPU the contiguous decode takes more splits than the card's
+    cluster of 8 (16 here, explicit), as the JAX package does, and
+    ``flash_decode_from_layout`` returns that decode with its partials."""
+    q, k, v, kv_len, kvm = _decode_case(16, cap=128)
+    jo = jfd.flash_decode(*map(jnp.asarray, (q, k, v, kv_len)), block_k=8,
+                          num_splits=16, kv_mask=jnp.asarray(kvm),
+                          interpret=True)
+    tq, tk, tv, tkl, tkvm = map(torch.as_tensor, (q, k, v, kv_len, kvm))
+    to = tfd.flash_decode(tq, tk, tv, tkl, block_k=8, num_splits=16,
+                          kv_mask=tkvm)
+    _close(to, jo)
+    lay = TM.kv_block_layout(TM.decode_kv_valid(tkl, 128, kv_mask=tkvm), 8)
+    whole, parts = tfd.flash_decode_from_layout(
+        tq, tk, tv, tkl, lay, scale=q.shape[-1] ** -0.5, block_k=8,
+        num_splits=16, window=None, kv_mask=tkvm)
+    assert torch.equal(whole, to) and parts[0].shape[2] == 16
+
+
 def test_decode_geometry_resolution_and_validation():
     """Auto geometry is divisor-valid and within the kernel's tile; the
     explicit values are validated as in the JAX package."""

@@ -3,7 +3,10 @@ plain PyTorch version on the same CUDA inputs (the forward, its dropout
 and "paper" variants, ragged tiles and rows with no key, the dq and dkv
 backward kernels (bf16 on tensor cores: every head dim, ragged tiles, GQA
 n_rep 1 and 4, dropout at two seeds, two calls bit-identical), the paged kernels with several pages to a kv tile,
-the contiguous decode kernel, the paged dq and dkv kernels with the fold
+the decode body that merges its splits in a cluster (paged: pages of 8-64
+rows, dead and SKIP pages; contiguous: ragged blocks, windows, kv_mask;
+every head dim, GQA 1/4/6, splits 1/6/8, two calls bit-identical, 9
+splits refused), the paged dq and dkv kernels with the fold
 into pool shape, on tensor cores in bf16 with several pages to a kv tile,
 and with no host sync), the differentiable ops and a train step on the card
 against the CPU, and the serving engine (paged and dense) on the card
@@ -553,10 +556,145 @@ def test_flash_decode_matches_plain(cuda, dtype, block_k, window, masked):
     ref = fd._merge_split_partials(*plain, dtype)
     torch.testing.assert_close(merged.float(), ref.float(), atol=atol, rtol=0)
     assert torch.all(merged[5] == 0)         # kv_len 0 emits zeros
+    # the kernel merges in its cluster, the reference in torch: _tol apart
     torch.testing.assert_close(
         fd.flash_decode(q, k, v, kv_len, block_k=block_k, num_splits=splits,
                         window=window, kv_mask=kvm).float(),
-        merged.float(), atol=0, rtol=0)
+        ref.float(), atol=atol, rtol=0)
+
+
+# (hkv, n_rep, splits, window): GQA 1, 4 and 6 (two head groups of one
+# CTA's 4), splits 1, 6 and 8, a window cutting inside a 64-row tile
+_DECODE_GROUPS = ((4, 1, 6, None), (2, 4, 8, 100), (2, 4, 1, None),
+                  (1, 6, 8, None))
+
+
+def _check_decode(dtype, name, call, plain_parts, idle):
+    """One fused decode launch against the plain partials and their torch
+    merge: partials within 10 x atol (unnormalized sums), the output within
+    atol, the idle lanes zero."""
+    n0 = fd.LAUNCHES[name]
+    out, parts = call()
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES[name] == n0 + 1
+    atol, rel = _tol(dtype)
+    torch.testing.assert_close(parts[0], plain_parts[0], atol=atol * 10,
+                               rtol=rel)
+    torch.testing.assert_close(parts[1], plain_parts[1], atol=rel, rtol=rel)
+    torch.testing.assert_close(parts[2], plain_parts[2], atol=rel, rtol=rel)
+    ref = fd._merge_split_partials(*plain_parts, dtype)
+    assert out.dtype == dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+    assert torch.all(out[idle] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("page_size", [8, 16, 32, 64])
+def test_flash_decode_paged_page_groups_match_plain(cuda, dtype, d,
+                                                    page_size):
+    """The paged decode body over 64-row tiles of 64 // page_size pages:
+    an idle lane (kv_len 0), a short lane whose later splits are all SKIP,
+    a dead page inside the third lane's first tile, a full lane; every
+    GQA group, split count and window of ``_DECODE_GROUPS``."""
+    gen = torch.Generator(device=cuda).manual_seed(d + page_size)
+    b, T = 4, 24
+    num_pages = b * T + 5
+    kv_len = torch.tensor([0, 17, T * page_size // 2 + 5, T * page_size],
+                          dtype=torch.int32, device=cuda)
+    table = torch.randperm(num_pages, generator=gen, device=cuda)[:b * T]
+    table = table.reshape(b, T).int()
+    for i, n in enumerate(kv_len.tolist()):
+        table[i, -(-n // page_size):] = -1   # unallocated tail
+    table[2, 1] = -1                         # a dead page mid-sequence
+    for hkv, n_rep, splits, window in _DECODE_GROUPS:
+        hq = hkv * n_rep
+        q = torch.randn(b, hq, 1, d, generator=gen, device=cuda).to(dtype)
+        k_pool, v_pool = (torch.randn(hkv, num_pages, page_size, d,
+                                      generator=gen, device=cuda).to(dtype)
+                          for _ in range(2))
+        layout = M.paged_block_layout(kv_len, table, page_size, window=window)
+        args = (q, k_pool, v_pool, table, kv_len, layout)
+        kw = dict(scale=d ** -0.5, num_splits=splits, window=window)
+        _check_decode(
+            dtype, "flash_decode_paged",
+            lambda: fd.flash_decode_paged_from_layout(*args, **kw),
+            fd.flash_decode_paged_partials_plain(*args, **kw), idle=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("block_k", [8, 24, 40, 128])
+def test_flash_decode_ragged_blocks_match_plain(cuda, dtype, d, block_k):
+    """The contiguous decode body with kv blocks that are not 64 rows
+    (several to a tile, a tile straddling blocks, a block in two tiles):
+    an idle lane, a short lane, a half-full lane with a kv_mask, a full
+    lane; every GQA group, split count and window of ``_DECODE_GROUPS``."""
+    gen = torch.Generator(device=cuda).manual_seed(d + block_k)
+    b, cap = 4, block_k * 48                 # 48 blocks: 1, 6 or 8 splits
+    kv_len = torch.tensor([0, 17, cap // 2 + 3, cap], dtype=torch.int32,
+                          device=cuda)
+    kvm = torch.rand(b, cap, generator=gen, device=cuda) > 0.3
+    kvm[[0, 1, 3]] = True                    # the mask cuts one lane
+    for hkv, n_rep, splits, window in _DECODE_GROUPS:
+        hq = hkv * n_rep
+        q = torch.randn(b, hq, 1, d, generator=gen, device=cuda).to(dtype)
+        k, v = (torch.randn(b, hkv, cap, d, generator=gen,
+                            device=cuda).to(dtype) for _ in range(2))
+        valid = M.decode_kv_valid(kv_len, cap, window=window, kv_mask=kvm)
+        layout = M.kv_block_layout(valid, block_k)
+        args = (q, k, v, kv_len, layout)
+        kw = dict(scale=d ** -0.5, block_k=block_k, num_splits=splits,
+                  window=window, kv_mask=kvm)
+        _check_decode(
+            dtype, "flash_decode",
+            lambda: fd.flash_decode_from_layout(*args, **kw),
+            fd.flash_decode_partials_plain(*args, **kw), idle=0)
+
+
+def _decode_case(cuda, paged, splits):
+    """bf16 inputs of one decode call at granite's GQA 32/8, d 64."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, hq, hkv, d, ps, T = 3, 32, 8, 64, 16, 72
+    q = torch.randn(b, hq, 1, d, generator=gen, device=cuda).bfloat16()
+    kv_len = torch.tensor([500, 1100, 3], dtype=torch.int32, device=cuda)
+    kw = dict(scale=d ** -0.5, num_splits=splits, window=None)
+    if paged:
+        pools = [torch.randn(hkv, b * T, ps, d, generator=gen,
+                             device=cuda).bfloat16() for _ in range(2)]
+        table = torch.randperm(b * T, generator=gen, device=cuda)
+        table = table.reshape(b, T).int()
+        layout = M.paged_block_layout(kv_len, table, ps)
+        return (lambda: fd.flash_decode_paged_from_layout(
+            q, *pools, table, kv_len, layout, **kw)), "flash_decode_paged"
+    k, v = (torch.randn(b, hkv, T * ps, d, generator=gen,
+                        device=cuda).bfloat16() for _ in range(2))
+    layout = M.kv_block_layout(M.decode_kv_valid(kv_len, T * ps), 16)
+    return (lambda: fd.flash_decode_from_layout(
+        q, k, v, kv_len, layout, block_k=16, **kw)), "flash_decode"
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_flash_decode_is_bit_identical_across_calls(cuda, paged):
+    """No atomics: the cluster merges its splits in rank order, so two
+    calls give the same bits (output and partials)."""
+    call, _ = _decode_case(cuda, paged, 8)
+    (o1, p1), (o2, p2) = call(), call()
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+    for a, b in zip(p1, p2):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_flash_decode_refuses_more_splits_than_a_cluster(cuda, paged):
+    """9 splits would need a cluster of 9 blocks: refused before launch,
+    naming the limit, the launch counter unchanged."""
+    call, name = _decode_case(cuda, paged, 9)
+    n0 = fd.LAUNCHES[name]
+    with pytest.raises(ValueError, match="1 to 8 splits"):
+        call()
+    assert fd.LAUNCHES[name] == n0
 
 
 def _paged_grad_case(cuda, dtype, page_size, seed=0):

@@ -227,6 +227,38 @@ def test_paged_decode_partials_match_pallas(monkeypatch, window, num_splits):
                               captured["l_p"], jnp.float32))
 
 
+@pytest.mark.parametrize("num_splits", [12, 24])
+def test_paged_decode_takes_any_split_count_on_cpu(num_splits):
+    """The card's decode merges its splits in one thread-block cluster of
+    at most 8; on the CPU every split count still works, as in the JAX
+    package: 12 and 24 splits against the JAX kernel (interpret mode), and
+    ``flash_decode_paged_from_layout`` returns that decode with its
+    partials."""
+    rng = np.random.default_rng(num_splits)
+    b, hq, hkv, d, ps, T = 2, 4, 2, 16, 8, 24
+    q = rng.standard_normal((b, hq, 1, d)).astype(np.float32)
+    pool_k, pool_v = (rng.standard_normal((hkv, b * T, ps, d)).astype(np.float32)
+                      for _ in range(2))
+    table = rng.permutation(b * T).reshape(b, T).astype(np.int32)
+    table[0, 10:] = -1
+    kv_len = np.array([75, T * ps], np.int32)
+    jo = jfd.flash_decode_paged(*map(jnp.asarray, (q, pool_k, pool_v, table,
+                                                   kv_len)),
+                                num_splits=num_splits, interpret=True)
+    tq, tk, tv, tt, tkl = map(torch.as_tensor, (q, pool_k, pool_v, table, kv_len))
+    to = tfd.flash_decode_paged(tq, tk, tv, tt, tkl, num_splits=num_splits)
+    _close(to, jo)
+    lay = TM.paged_block_layout(tkl, tt, ps)
+    whole, parts = tfd.flash_decode_paged_from_layout(
+        tq, tk, tv, tt, tkl, lay, scale=d ** -0.5, num_splits=num_splits,
+        window=None)
+    assert torch.equal(whole, to) and parts[0].shape == (b, hq, num_splits, d)
+    for got, want in zip(parts, tfd.flash_decode_paged_partials(
+            tq, tk, tv, tt, tkl, lay, scale=d ** -0.5,
+            num_splits=num_splits, window=None)):
+        assert torch.equal(got, want)
+
+
 def test_paged_decode_geometry_validation():
     with pytest.raises(ValueError, match="multiple of num_splits"):
         tfd.validate_paged_decode_geometry(12, 8)

@@ -2,8 +2,9 @@
 (pure Python, no card): shared memory of the forward's and the
 backward's fp32 and bf16 bodies within a Hopper block for every head dim,
 the pages one paged kv tile gathers, the page sizes the paged kernels
-refuse (the check a paged engine on the card makes at construction), and
-the warp groups of a CTA."""
+refuse (the check a paged engine on the card makes at construction), the
+warp groups of a CTA, and the decode's split limit (one thread-block
+cluster of at most 8 blocks) against the split resolvers."""
 
 import pytest
 
@@ -104,3 +105,31 @@ def test_check_page_size_refuses_other_pages(page_size):
                    "flash_bwd_dkv_paged", "flash_decode_paged"):
         assert kernel in msg
     assert "(8, 16, 32, 64)" in msg and str(page_size) in msg
+
+
+@pytest.mark.parametrize("num_splits", range(1, tuning.MAX_DECODE_SPLITS + 1))
+def test_check_decode_splits_takes_a_cluster(num_splits):
+    assert tuning.check_decode_splits(num_splits) == num_splits
+
+
+@pytest.mark.parametrize("num_splits", [0, 9, 12, 16])
+def test_check_decode_splits_refuses_more_than_a_cluster(num_splits):
+    """The error names both decode kernels, the limit and the count."""
+    with pytest.raises(ValueError) as err:
+        tuning.check_decode_splits(num_splits)
+    msg = str(err.value)
+    assert "flash_decode" in msg and "flash_decode_paged" in msg
+    assert "1 to 8 splits" in msg and str(num_splits) in msg
+
+
+def test_decode_split_resolvers_stay_within_a_cluster():
+    """Auto split counts never exceed the cluster limit, so only an
+    explicit count can be refused on the card."""
+    assert tuning.TARGET_DECODE_SPLITS <= tuning.MAX_DECODE_SPLITS
+    for pages in range(1, 300):
+        tuning.check_decode_splits(tuning.resolve_paged_decode_splits(pages))
+    for cap in (8, 64, 96, 100, 1056, 2048, 4096, 32768):
+        _, splits = tuning.resolve_decode_geometry(cap, None, None)
+        tuning.check_decode_splits(splits)
+        _, splits = tuning.resolve_decode_geometry(cap, 4, None)  # 4 | cap
+        tuning.check_decode_splits(splits)
