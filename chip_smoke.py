@@ -5,10 +5,12 @@
     python3 chip_smoke.py --ab PARENT_CHECKOUT    # A/B against another checkout
 
 Imports nothing of JAX or of the JAX package; needs one CUDA card and the
-repository checkout beside it (``src/repro_torch``). Four main paths run
+repository checkout beside it (``src/repro_torch``). Seven main paths run
 through the hand-written kernels: the trainable paged prefill (phase 2c),
 paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
-(phases 5-6). Phases:
+(phases 5-6) of granite-3-2b, then training of bert-large with the paper's
+LAMB recipe (phase 7), training of olmo-1b (phase 8) and paged serving of
+qwen3-32b (phase 9). Phases:
 
 1. print the card's name and power limit (nvidia-smi), then build every
    CUDA kernel of both paths from ``src/repro_torch/kernels/csrc`` (one
@@ -72,10 +74,17 @@ paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
    ``core.attention.paged_prefill_attention`` with q and both pools
    requiring grad; the paged forward, dq, dkv and fold kernels must be
    > 0;
+2d. kernels at the later paths' shapes (bf16, the same checks, times,
+   bounds and SDPA yardsticks as phase 2b, without dropout and "paper"):
+   the forward and the dq / dkv pair at train-bert's attention layer (q
+   and k/v (56, 16, 512, 64), non-causal over the packed documents of its
+   first batch) and at train-olmo's ((4, 16, 2048, 128), causal);
+   printed as ``at_shapes`` sub-entries of those kernels' records, each
+   with its launches on its path (serve-qwen3's come with phase 9);
 3. parity: granite-3-2b at full width, 2 layers, float32: the same weights
-   served by the engine on ``cuda`` (kernels) and on ``cpu`` (plain
-   versions); greedy tokens must be identical (a divergence at a near-tie
-   is reported with its step and top-2 logit margin);
+   (drawn on the card) served by the engine on ``cuda`` (kernels) and on
+   ``cpu`` (plain versions); greedy tokens must be identical (a divergence
+   at a near-tie is reported with its step and top-2 logit margin);
 4. serve: the published granite-3-2b (40 layers, bf16, random weights from
    the seed): 8 requests on 4 lanes, a 64-token shared prefix, one
    1024-token prompt prefilled in chunks of 256, 32 new tokens each. Every
@@ -104,7 +113,32 @@ paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
    reset just before and flash_fwd, flash_bwd_dq, flash_bwd_dkv must be > 0
    just after; every loss and grad norm finite; prints the first loss,
    tokens/s, ms/step and peak memory, then one more step under
-   ``torch.profiler`` for the device busy share and the top kernels.
+   ``torch.profiler`` for the device busy share and the top kernels;
+7. bert parity, then train-bert: bert-large at full width, 2 layers,
+   float32, with ``lamb(warmup_poly(3.75e-3, 10, 7100))`` on ``cuda`` and
+   on ``cpu`` (the tolerances of phase 5); then the published bert-large
+   (24 layers, d 1024, 16 heads of 64, LayerNorm, GELU, non-causal, bf16,
+   remat) with that recipe, clip 1.0, at seq 512 and batch 56 (the MLPerf
+   step batch of 448 over the paper's 8 cards), 6 steps, through
+   ``make_train_step`` and the ``Trainer``, with the checks, numbers and
+   profile of phase 6;
+8. olmo parity, then train-olmo: the same for olmo-1b (non-parametric
+   LayerNorm, untied head, 16 heads of 128) with AdamW, then the
+   published model (16 layers) through the training launcher at seq 2048,
+   batch 4, 6 steps;
+9. qwen3 parity, then serve-qwen3: qwen3-32b at full width, 2 layers,
+   float32, served on ``cuda`` and on ``cpu`` (8 new tokens, the rules of
+   phase 3); then qwen3-32b at its published width (d 5120, 64/8 heads of
+   128, qk-norm, untied head, bf16) cut to 8 of its 64 layers, serving the
+   requests of phase 4, with its checks, numbers and profile; then the
+   same requests once more with the wrappers of flash_fwd (#1),
+   flash_fwd_paged (#4) and flash_decode_paged (#8) watched, and each of
+   the three held at the serve's call that did the most work (its
+   layout, page list, positions and lane lengths, random q/K/V of its
+   shapes) against its plain version, with the checks, times, bound and
+   SDPA yardstick of phase 2, in a fresh Python process (the profiler
+   stops recording whole windows late in this one), as ``at_shapes``
+   sub-entries.
 
 ``--ab PARENT_CHECKOUT`` runs only an A/B against another checkout (e.g.
 ``git archive`` of the parent commit): first both checkouts' kernel
@@ -123,7 +157,7 @@ process, in the order parent, change, change, parent on the same card,
 then each side's per-run numbers (record in
 ``build/chip_smoke_ab.json``).
 
-Prints one JSON line of kernel results (``launches`` summed over the four
+Prints one JSON line of kernel results (``launches`` summed over the seven
 main paths' runs, per path under ``launches_by_path``), then as its last
 line
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, without
@@ -135,6 +169,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import pathlib
@@ -196,26 +231,36 @@ def device_ms(torch, fns, warmup=3, iters=20) -> float:
     Unlike ``time_ms`` it leaves out the host's gaps between launches,
     which set the CUDA-event time of a call that takes less device time
     than its wrapper takes host time. On the card's machine a profiled
-    window now and then records no device event at all (seen in kernel
-    phases that had passed in other runs): such a window is profiled
-    again, up to three times in all."""
+    window now and then records no device event at all, or only some of
+    the kernels it ran (seen early and late in a process, now and then
+    several windows in a row; ``serve_shape_records_apart`` says what
+    happens late in this script's process). Every call launches the same
+    kernels, so
+    a window is kept only if it counts each of its kernels a multiple of
+    ``iters`` times; any other is profiled again after a pause, up to ten
+    windows in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(warmup):
         fns[i % len(fns)]()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(10):
+        if attempt:
+            print(f"[profile] window {attempt} recorded no device time or "
+                  f"only part of its kernels: profiling again", flush=True)
+            time.sleep(0.5)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fns[i % len(fns)]()
             torch.cuda.synchronize()
-        us = sum(_device_us(e) for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        us = sum(_device_us(e) for e in kernels)
+        if us > 0 and all(e.count % iters == 0 for e in kernels):
             return us / 1e3 / iters
-    raise SmokeFailure("torch.profiler recorded no device time in three "
-                       "windows")
+    raise SmokeFailure("torch.profiler recorded no whole window of device "
+                       "time in ten")
 
 
 def timed(torch, fns) -> tuple[float, float]:
@@ -238,6 +283,14 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def release(torch) -> None:
+    """Free what the last phase left: its objects (some sit in reference
+    cycles) and the allocator's cached blocks, so that the next phase's
+    peak memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def rel_err(a, b) -> float:
     """max |a - b| / max(1, |b|) over finite entries (m and l)."""
     a, b = a.float(), b.float()
@@ -250,15 +303,11 @@ def rel_err(a, b) -> float:
 
 def kernel_phase(torch, seed: int) -> list[dict]:
     from repro_torch.core import masks as M
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import tuning
-    from repro_torch.kernels.ref import gather_pages
 
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(seed)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     hq, hkv, d, ps = 32, 8, 64, 16
     scale = d ** -0.5
     results = []
@@ -276,29 +325,10 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     layout = M.compile_block_layout(spec, S, S, bq, bk).as_array(dev)
     call = dict(scale=scale, causal=True, window=None, q_offset=0,
                 block_q=bq, block_k=bk, q_segment_ids=seg, kv_segment_ids=seg)
-    q, k, v = randn(1, hq, S, d), randn(1, hkv, S, d), randn(1, hkv, S, d)
-    out = fa.flash_attention_forward(q, k, v, None, layout, **call)
-    torch.cuda.synchronize()
-    plain = fa.flash_attention_forward_plain(q, k, v, None, layout, **call)
-    sets = [(q, k, v)] + [(randn(1, hq, S, d), randn(1, hkv, S, d),
-                           randn(1, hkv, S, d))
-                          for _ in range(copies_for(nbytes(q, k, v)) - 1)]
-    ms, call_ms = timed(torch, [lambda a=a: fa.flash_attention_forward(
-        *a, None, layout, **call) for a in sets])
-    plain_ms = device_ms(torch, [lambda: fa.flash_attention_forward_plain(
-        q, k, v, None, layout, **call)], warmup=1, iters=3)
-    mask = spec.element_mask(S, S)                   # (1, 1, S, S) bool
-    lib_ms = device_ms(torch, [lambda a=a: sdpa(*a, attn_mask=mask, scale=scale,
-                                              enable_gqa=True) for a in sets])
-    pairs = int(mask.sum()) * hq
-    b_ms, b_by = bound(nbytes(q, k, v, out[0], out[1], out[2], layout, seg, seg),
-                       4.0 * d * pairs, BF16_FLOPS_PER_S)
-    results.append(_kernel_record(
-        "flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
-        "src/repro/kernels/flash_attention.py:325", out, plain, ms, plain_ms,
-        b_ms, b_by, lib_ms, call_ms=call_ms,
-        shape=f"packed prefill b=1 S={S} docs={lengths}",
-        library="SDPA, bool mask"))
+    results.append(packed_prefill_record(
+        torch, gen, (randn(1, hq, S, d), randn(1, hkv, S, d),
+                     randn(1, hkv, S, d), None, layout), call,
+        f"packed prefill b=1 S={S} docs={lengths}"))
 
     # -- flash_fwd_paged: chunks against paged prefixes ---------------------
     spans, chunks = [1536, 600], [192, 64]
@@ -327,95 +357,187 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     pcall = dict(scale=scale, causal=True, window=None, block_q=bq,
                  q_segment_ids=q_seg, kv_segment_ids=kv_seg,
                  q_positions=q_pos, kv_positions=kv_pos)
-    qc = randn(1, hq, sq, d)
-    pool_k, pool_v = randn(hkv, num_pages, ps, d), randn(hkv, num_pages, ps, d)
-    out = fa.flash_prefill_paged_forward(qc, pool_k, pool_v, page_list, play,
-                                         **pcall)
-    torch.cuda.synchronize()
-    plain = fa.flash_prefill_paged_forward_plain(qc, pool_k, pool_v,
-                                                 page_list, play, **pcall)
-    live = int((page_list >= 0).sum())
-    kv_bytes = 2 * live * hkv * ps * d * 2
-    sets = [(qc, pool_k, pool_v)] + [
-        (randn(1, hq, sq, d), randn(hkv, num_pages, ps, d),
-         randn(hkv, num_pages, ps, d))
-        for _ in range(copies_for(nbytes(qc) + kv_bytes) - 1)]
-    ms, call_ms = timed(torch, [lambda a=a: fa.flash_prefill_paged_forward(
-        *a, page_list, play, **pcall) for a in sets])
-    plain_ms = device_ms(torch, [lambda: fa.flash_prefill_paged_forward_plain(
-        qc, pool_k, pool_v, page_list, play, **pcall)], warmup=1, iters=3)
-    pmask = pspec.element_mask(sq, T * ps)           # (1, 1, sq, T*ps) bool
-    pairs = int(pmask.sum()) * hq
-    b_ms, b_by = bound(nbytes(qc, out[0], out[1], out[2], play, page_list,
-                              q_seg, q_pos, kv_seg, kv_pos) + kv_bytes,
-                       4.0 * d * pairs, BF16_FLOPS_PER_S)
-    gathered = [(a[0], gather_pages(a[1], page_list), gather_pages(a[2], page_list))
-                for a in sets]                       # the gather is not timed
-    lib_ms = device_ms(torch, [lambda a=a: sdpa(*a, attn_mask=pmask, scale=scale,
-                                              enable_gqa=True) for a in gathered])
-    del gathered
-    results.append(_kernel_record(
-        "flash_fwd_paged", "src/repro_torch/kernels/csrc/flash_fwd.cu",
-        "src/repro/kernels/flash_attention.py:765", out, plain, ms, plain_ms,
-        b_ms, b_by, lib_ms, call_ms=call_ms,
-        shape=f"chunks {chunks} against paged prefixes {spans}, page {ps}",
-        library="SDPA on pre-gathered K/V, bool mask"))
+    results.append(paged_prefill_record(
+        torch, gen, (randn(1, hq, sq, d), randn(hkv, num_pages, ps, d),
+                     randn(hkv, num_pages, ps, d), page_list, play), pcall,
+        f"chunks {chunks} against paged prefixes {spans}, page {ps}"))
 
-    # -- flash_decode_paged: batch 8 over ~1k-token contexts ----------------
-    b, cap = 8, 1152
-    T = cap // ps
+    # -- flash_decode_paged: batch 8 over ~1k-token contexts, 1152-slot page
+    # tables with unallocated tails
     kv_len = torch.tensor([900, 1100, 1000, 1024, 950, 1050, 980, 1070],
                           dtype=torch.int32, device=dev)
-    num_pages = b * T
-    table = torch.randperm(num_pages, generator=gen, device=dev).int()
+    b, T = len(kv_len), 1152 // ps
+    table = torch.randperm(b * T, generator=gen, device=dev).int()
     table = table.reshape(b, T).clone()
     for i, n in enumerate(kv_len.tolist()):
         table[i, -(-(n + 1) // ps):] = -1           # unallocated tail
-    splits = tuning.resolve_paged_decode_splits(T)
-    dlay = M.paged_block_layout(kv_len, table, ps)
-    qd = randn(b, hq, 1, d)
-    dk, dv = randn(hkv, num_pages, ps, d), randn(hkv, num_pages, ps, d)
-    dcall = dict(scale=scale, num_splits=splits, window=None)
-    whole = whole_decode(fd, paged=True)
-    o, parts = whole(qd, dk, dv, table, kv_len, dlay, **dcall)
+    dcall = dict(scale=scale, num_splits=tuning.resolve_paged_decode_splits(T),
+                 window=None)
+    results.append(paged_decode_record(
+        torch, gen, (randn(b, hq, 1, d), randn(hkv, b * T, ps, d),
+                     randn(hkv, b * T, ps, d), table, kv_len,
+                     M.paged_block_layout(kv_len, table, ps)), dcall))
+    results.append(contiguous_decode_record(torch, gen, randn, hq, hkv, d))
+    return results
+
+
+def fresh(torch, gen, t):
+    """A random tensor on the card of ``t``'s shape and dtype."""
+    return torch.randn(t.shape, generator=gen, device="cuda", dtype=t.dtype)
+
+
+def copies(torch, gen, tensors, nbytes_: int) -> list[tuple]:
+    """``tensors`` and enough random copies of them that one pass over all
+    exceeds twice the L2 cache (``nbytes_`` per set)."""
+    return [tuple(tensors)] + [tuple(fresh(torch, gen, t) for t in tensors)
+                               for _ in range(copies_for(nbytes_) - 1)]
+
+
+def scored_pairs(fa, q, sk, kv_mask, layout, call, block_k):
+    """(b or 1, 1, sq, sk) bool, or (sq, sk): the (q, k) pairs the kernel
+    scores, as its plain version masks them."""
+    return fa._allowed(
+        layout, kv_mask, b=q.shape[0], sq=q.shape[2], sk=sk, dev=q.device,
+        causal=call["causal"], window=call["window"],
+        q_offset=call.get("q_offset", 0),
+        kv_valid_len=call.get("kv_valid_len"), block_q=call["block_q"],
+        block_k=block_k, q_segment_ids=call.get("q_segment_ids"),
+        kv_segment_ids=call.get("kv_segment_ids"),
+        q_positions=call.get("q_positions"),
+        kv_positions=call.get("kv_positions"))
+
+
+def _meta(call) -> list:
+    return [call.get(n) for n in ("q_segment_ids", "kv_segment_ids",
+                                  "q_positions", "kv_positions")]
+
+
+def packed_prefill_record(torch, gen, args, call, shape) -> dict:
+    """flash_fwd (#1) on ``args`` = (q, k, v, kv_mask, layout) under
+    ``call`` against its plain version; timed over random copies of q, k
+    and v; SDPA with the pairs the kernel scores as a boolean mask is the
+    library yardstick."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v, kv_mask, layout = args
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    out = fa.flash_attention_forward(*args, **call)
     torch.cuda.synchronize()
-    pparts = fd.flash_decode_paged_partials_plain(qd, dk, dv, table, kv_len,
-                                                  dlay, **dcall)
+    plain = fa.flash_attention_forward_plain(*args, **call)
+    sets = copies(torch, gen, (q, k, v), nbytes(q, k, v))
+    ms, call_ms = timed(torch, [lambda a=a: fa.flash_attention_forward(
+        *a, kv_mask, layout, **call) for a in sets])
+    plain_ms = device_ms(torch, [lambda: fa.flash_attention_forward_plain(
+        *args, **call)], warmup=1, iters=3)
+    mask = scored_pairs(fa, q, sk, kv_mask, layout, call, call["block_k"])
+    lib_ms = device_ms(torch, [lambda a=a: sdpa(
+        *a, attn_mask=mask, scale=call["scale"], enable_gqa=True)
+        for a in sets])
+    pairs = int(mask.expand(b, 1, sq, sk).sum()) * hq
+    b_ms, b_by = bound(nbytes(q, k, v, *out, kv_mask, layout, *_meta(call)),
+                       4.0 * d * pairs, BF16_FLOPS_PER_S)
+    return _kernel_record(
+        "flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
+        "src/repro/kernels/flash_attention.py:325", out, plain, ms, plain_ms,
+        b_ms, b_by, lib_ms, call_ms=call_ms, shape=shape,
+        library="SDPA, bool mask")
+
+
+def paged_prefill_record(torch, gen, args, call, shape) -> dict:
+    """flash_fwd_paged (#4) on ``args`` = (q, k_pool, v_pool, page_list,
+    layout) under ``call`` against its plain version; timed over random
+    copies of q and the pools; SDPA on K/V gathered beforehand, with the
+    pairs the kernel scores as a boolean mask, is the library yardstick."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import gather_pages
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k_pool, v_pool, page_list, layout = args
+    b, hq, sq, d = q.shape
+    hkv, _, ps, _ = k_pool.shape
+    sk = page_list.shape[1] * ps
+    out = fa.flash_prefill_paged_forward(*args, **call)
+    torch.cuda.synchronize()
+    plain = fa.flash_prefill_paged_forward_plain(*args, **call)
+    live = int((page_list >= 0).sum())
+    kv_bytes = 2 * live * hkv * ps * d * k_pool.element_size()
+    sets = copies(torch, gen, (q, k_pool, v_pool), nbytes(q) + kv_bytes)
+    ms, call_ms = timed(torch, [lambda a=a: fa.flash_prefill_paged_forward(
+        *a, page_list, layout, **call) for a in sets])
+    plain_ms = device_ms(torch, [lambda: fa.flash_prefill_paged_forward_plain(
+        *args, **call)], warmup=1, iters=3)
+    mask = scored_pairs(fa, q, sk, None, layout, call, ps)
+    pairs = int(mask.expand(b, 1, sq, sk).sum()) * hq
+    b_ms, b_by = bound(nbytes(q, *out, layout, page_list, *_meta(call))
+                       + kv_bytes, 4.0 * d * pairs, BF16_FLOPS_PER_S)
+    gathered = [(a[0], gather_pages(a[1], page_list),
+                 gather_pages(a[2], page_list))
+                for a in sets]                       # the gather is not timed
+    lib_ms = device_ms(torch, [lambda a=a: sdpa(
+        *a, attn_mask=mask, scale=call["scale"], enable_gqa=True)
+        for a in gathered])
+    del gathered
+    return _kernel_record(
+        "flash_fwd_paged", "src/repro_torch/kernels/csrc/flash_fwd.cu",
+        "src/repro/kernels/flash_attention.py:765", out, plain, ms, plain_ms,
+        b_ms, b_by, lib_ms, call_ms=call_ms, shape=shape,
+        library="SDPA on pre-gathered K/V, bool mask")
+
+
+def paged_decode_record(torch, gen, args, call) -> dict:
+    """flash_decode_paged (#8), the whole decode (one launch that writes the
+    split partials and merges them, its layout lowered beforehand), on
+    ``args`` = (q, k_pool, v_pool, page_table, kv_len, layout) under
+    ``call`` (no window) against the plain partials and their torch merge;
+    timed over random copies of q and the pools; SDPA on K/V gathered
+    beforehand is the library yardstick."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.ref import gather_pages
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qd, k_pool, v_pool, table, kv_len, dlay = args
+    b, hq, _, d = qd.shape
+    hkv, _, ps, _ = k_pool.shape
+    T = table.shape[1]
+    check(call["window"] is None, "paged_decode_record takes no window")
+    whole = whole_decode(fd, paged=True)
+    o, parts = whole(*args, **call)
+    torch.cuda.synchronize()
+    pparts = fd.flash_decode_paged_partials_plain(*args, **call)
     out = (o, parts[1], parts[2])
-    plain = (fd._merge_split_partials(*pparts, bf16), pparts[1], pparts[2])
+    plain = (fd._merge_split_partials(*pparts, qd.dtype), pparts[1], pparts[2])
     o_p_err = check_partials("flash_decode_paged", parts, pparts)
     rows = sum(-(-n // ps) * ps for n in kv_len.tolist())
-    kv_bytes = 2 * rows * hkv * d * 2
-    sets = [(qd, dk, dv)] + [
-        (randn(b, hq, 1, d), randn(hkv, num_pages, ps, d),
-         randn(hkv, num_pages, ps, d))
-        for _ in range(copies_for(kv_bytes) - 1)]
+    kv_bytes = 2 * rows * hkv * d * k_pool.element_size()
+    sets = copies(torch, gen, (qd, k_pool, v_pool), kv_bytes)
     ms, call_ms = timed(torch, [lambda a=a: whole(
-        *a, table, kv_len, dlay, **dcall) for a in sets])
+        *a, table, kv_len, dlay, **call) for a in sets])
     plain_ms = device_ms(torch, [lambda: fd._merge_split_partials(
-        *fd.flash_decode_paged_partials_plain(qd, dk, dv, table, kv_len, dlay,
-                                              **dcall), bf16)],
+        *fd.flash_decode_paged_partials_plain(*args, **call), qd.dtype)],
         warmup=1, iters=3)
     pairs = int(kv_len.sum()) * hq
     b_ms, b_by = bound(nbytes(qd, o, *parts, table, kv_len, dlay) + kv_bytes,
                        4.0 * d * pairs, BF16_FLOPS_PER_S)
-    dmask = (torch.arange(T * ps, device=dev)[None, :]
+    dmask = (torch.arange(T * ps, device=qd.device)[None, :]
              < kv_len[:, None])[:, None, None, :]  # (b, 1, 1, T*ps) bool
     gathered = [(a[0], gather_pages(a[1], table), gather_pages(a[2], table))
                 for a in sets]                       # the gather is not timed
-    lib_ms = device_ms(torch, [lambda a=a: sdpa(*a, attn_mask=dmask, scale=scale,
-                                              enable_gqa=True) for a in gathered])
+    lib_ms = device_ms(torch, [lambda a=a: sdpa(
+        *a, attn_mask=dmask, scale=call["scale"], enable_gqa=True)
+        for a in gathered])
     del gathered
     rec = _kernel_record(
         "flash_decode_paged", "src/repro_torch/kernels/csrc/flash_decode.cu",
         "src/repro/kernels/flash_decode.py:329", out, plain, ms, plain_ms,
         b_ms, b_by, lib_ms, call_ms=call_ms,
-        shape=f"whole decode b={b} kv_len {kv_len.tolist()} page {ps} "
-              f"splits {splits}", library="SDPA on pre-gathered K/V, bool mask")
+        shape=f"whole decode b={b} hq={hq} hkv={hkv} d={d} kv_len "
+              f"{kv_len.tolist()} page {ps} table {T} pages splits "
+              f"{call['num_splits']}",
+        library="SDPA on pre-gathered K/V, bool mask")
     rec["o_p_err"] = o_p_err
-    results.append(rec)
-    results.append(contiguous_decode_record(torch, gen, randn, hq, hkv, d))
-    return results
+    return rec
 
 
 def contiguous_decode_record(torch, gen, randn, hq, hkv, d) -> dict:
@@ -553,54 +675,36 @@ def scaled_err(got, want) -> float:
                  / want.abs().max().clamp_min(1e-30))
 
 
-def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
-    """The forward against its plain version, then dq / dkv from the
+def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg) -> dict:
+    """The forward kernel against its plain version, then dq / dkv from the
     kernel forward's (o, m, l) against the plain backward from the same
-    residuals, a dropout forward + backward and a "paper" forward against
-    the plain versions, at the per-layer shape of the training phase;
-    returns the two backward records and the forward's numbers at this
-    shape."""
+    residuals, two calls of the pair bit-identical, at one training
+    layer's attention shape in bf16 (packed documents ``seg``); each kernel
+    timed (device time) beside its bound, its plain time and SDPA's.
+    Returns the numbers, and the inputs and residuals for further checks."""
     from repro_torch.core import masks as M
-    from repro_torch.data import SyntheticLM
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import tuning
 
     dev = torch.device("cuda")
-    bf16 = torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(seed + 10)
-    b, hq, hkv, S, d = 4, 32, 8, 2048, 64
     scale = d ** -0.5
-    seg = torch.as_tensor(SyntheticLM(49155, S, b, seed=seed).batch_at(0)
-                          ["segment_ids"]).to(dev)
     bq, bk = tuning.bwd_tiles(d)
-    spec = M.MaskSpec(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    spec = M.MaskSpec(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
     layout = M.compile_block_layout(spec, S, S, bq, bk).as_array(dev)
-    call = dict(scale=scale, causal=True, window=None, q_offset=0,
+    call = dict(scale=scale, causal=causal, window=None, q_offset=0,
                 block_q=bq, block_k=bk, q_segment_ids=seg, kv_segment_ids=seg)
-    shape = (f"train layer b={b} hq={hq} hkv={hkv} S={S} d={d}, causal, "
+    shape = (f"train layer b={b} hq={hq} hkv={hkv} S={S} d={d}, "
+             f"{'causal' if causal else 'non-causal'}, "
              f"{int(seg.max(dim=1).values.sum()) + b} documents")
 
     def randn(*shp):
-        return torch.randn(*shp, generator=gen, device=dev, dtype=bf16)
+        return torch.randn(*shp, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
 
     q, k, v, do = randn(b, hq, S, d), randn(b, hkv, S, d), randn(b, hkv, S, d), \
         randn(b, hq, S, d)
     mask = spec.element_mask(S, S)                   # (b, 1, S, S) bool
     pairs = int(mask.sum()) * hq
-    # the walks of the two kernels' CTAs: dq's the tiles of its layout row,
-    # dkv's the q-blocks of its layout column times the n_rep heads
-    runs = layout.reshape(-1, S // bq, S // bk) != 0
-    row_walk = runs.sum(dim=2).float()
-    col_walk = runs.sum(dim=1).float() * (hq // hkv)
-    walks = {"dq_tiles_mean": float(row_walk.mean()),
-             "dq_tiles_max": int(row_walk.max()),
-             "dkv_items_mean": float(col_walk.mean()),
-             "dkv_items_max": int(col_walk.max())}
-    print(f"[train-kernel] CTA walks at the train layer: dq "
-          f"{walks['dq_tiles_mean']:.2f} kv tiles a CTA (max "
-          f"{walks['dq_tiles_max']}), dkv {walks['dkv_items_mean']:.2f} "
-          f"(q-block, head) items a CTA (max {walks['dkv_items_max']})",
-          flush=True)
 
     # -- the forward kernel against its plain version; its (o, m, l) are the
     # residuals of both backwards below
@@ -612,9 +716,9 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
     del fplain
     print(f"[train-kernel] flash_fwd {shape}: max |o - plain| {f_errs[0]:.3g}, "
           f"m rel {f_errs[1]:.3g}, l rel {f_errs[2]:.3g}", flush=True)
-    check(f_errs[0] <= 2e-2, f"flash_fwd train shape: max |o - plain| {f_errs[0]}")
+    check(f_errs[0] <= 2e-2, f"flash_fwd {shape}: max |o - plain| {f_errs[0]}")
     check(f_errs[1] <= 1e-2 and f_errs[2] <= 1e-2,
-          f"flash_fwd train shape: m/l relative error {f_errs[1:]} > 1e-2")
+          f"flash_fwd {shape}: m/l relative error {f_errs[1:]} > 1e-2")
     res = (q, k, v, o, do, m, l, None, layout)
 
     # -- correctness: kernels against the plain backward --------------------
@@ -630,17 +734,18 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
     del want
     print(f"[train-kernel] {shape}: scaled |grad - plain| {errs}", flush=True)
     for name, e in errs.items():
-        check(e <= 2e-2, f"flash_bwd: {name} scaled error {e} > 2e-2")
+        check(e <= 2e-2, f"flash_bwd {shape}: {name} scaled error {e} > 2e-2")
     # deterministic: no atomics, the GQA sum in a fixed order
     again = fa.flash_attention_backward(*res, **call)
     check(all(torch.equal(a, g) for a, g in zip(again, got)),
-          "flash_bwd: two calls of the pair are not bit-identical")
+          f"flash_bwd {shape}: two calls of the pair are not bit-identical")
     del again
 
-    # -- times: each kernel alone, CUDA events (one input set exceeds 2x L2)
+    # -- times: each kernel alone (one input set exceeds 2x L2)
     ops_ = fa.prepare_backward(*res, **call)
     dq_ms = device_ms(torch, [lambda: fa.launch_dq(ops_)])
     dkv_ms = device_ms(torch, [lambda: fa.launch_dkv(ops_)])
+    del ops_
     bwd_ms, pair_ms = timed(torch, [lambda: fa.flash_attention_backward(
         *res, **call)])
     plain_ms = device_ms(torch, [lambda: fa.flash_attention_backward_plain(
@@ -657,14 +762,91 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
     lib_bwd_ms = device_ms(torch, [lambda: torch.autograd.grad(
         out, leaves, do, retain_graph=True)])
     del out, leaves
+    lib_fwd_ms = device_ms(torch, [lambda: sdpa(q, k, v, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)])
     print(f"[train-kernel] backward pair against SDPA's backward: dq + dkv "
           f"{dq_ms + dkv_ms:.4f} ms on the card (dq {dq_ms:.4f}, dkv "
           f"{dkv_ms:.4f}); the whole flash_attention_backward {bwd_ms:.4f} ms "
           f"on the card, {pair_ms:.4f} ms a call; SDPA backward "
           f"{lib_bwd_ms:.4f} ms: the pair {(dq_ms + dkv_ms) / lib_bwd_ms:.2f}x "
           f"SDPA's time", flush=True)
-    lib_fwd_ms = device_ms(torch, [lambda: sdpa(q, k, v, attn_mask=mask,
-                                              scale=scale, enable_gqa=True)])
+
+    # -- bounds: each input read once, each output written once; FLOPs of
+    # the minimal backward, 5 products of 2d per unmasked pair, split as
+    # dkv: S, dP, dV, dK (8d) and dq: dQ (2d) so the two bounds add up
+    ins = nbytes(q, k, v, do, m, l, layout, seg, seg) + m.numel() * 4  # + D
+    return {
+        "shape": shape, "call": call, "layout": layout, "res": res,
+        "errs": errs, "abs_errs": abs_errs, "f_errs": f_errs,
+        "dq_ms": dq_ms, "dkv_ms": dkv_ms, "bwd_ms": bwd_ms,
+        "pair_ms": pair_ms, "plain_ms": plain_ms, "fwd_ms": fwd_ms,
+        "fwd_call_ms": fwd_call_ms, "fwd_plain_ms": fwd_plain_ms,
+        "lib_bwd_ms": lib_bwd_ms, "lib_fwd_ms": lib_fwd_ms,
+        "dq_bound": bound(ins + nbytes(got[0]), 2.0 * d * pairs,
+                          BF16_FLOPS_PER_S),
+        "dkv_bound": bound(ins + nbytes(got[1], got[2]), 8.0 * d * pairs,
+                           BF16_FLOPS_PER_S),
+        "fwd_bound": bound(nbytes(q, k, v, o, m, l, layout, seg, seg),
+                           4.0 * d * pairs, BF16_FLOPS_PER_S)}
+
+
+def shape_entries(c: dict) -> dict:
+    """One case of ``fwd_bwd_case`` as the sub-entries of the forward and
+    of the dq / dkv kernels at that shape."""
+    fwd = {"shape": c["shape"], "ms": c["fwd_ms"], "call_ms": c["fwd_call_ms"],
+           "plain_ms": c["fwd_plain_ms"], "bound_ms": c["fwd_bound"][0],
+           "bound_by": c["fwd_bound"][1], "library_ms": c["lib_fwd_ms"],
+           "max_abs_err": c["f_errs"][0], "m_rel_err": c["f_errs"][1],
+           "l_rel_err": c["f_errs"][2]}
+    out = {"flash_fwd": fwd}
+    for name, ms, (b_ms, b_by), grads in (
+            ("flash_bwd_dq", c["dq_ms"], c["dq_bound"], ("dq",)),
+            ("flash_bwd_dkv", c["dkv_ms"], c["dkv_bound"], ("dk", "dv"))):
+        out[name] = {"shape": c["shape"], "ms": ms,
+                     "plain_ms": c["plain_ms"], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": c["lib_bwd_ms"],
+                     "max_abs_err": max(c["abs_errs"][g] for g in grads),
+                     "scaled_err": max(c["errs"][g] for g in grads),
+                     "pair_device_ms": c["dq_ms"] + c["dkv_ms"],
+                     "backward_ms": c["bwd_ms"], "pair_ms": c["pair_ms"]}
+    for name, e in out.items():
+        print(f"[kernel] {name} at {e['shape']}: {e['ms']:.4f} ms on the card "
+              f"(plain {e['plain_ms']:.3f} ms, bound {e['bound_ms']:.4f} ms by "
+              f"{e['bound_by']}, SDPA {e['library_ms']:.4f} ms)", flush=True)
+    return out
+
+
+def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
+    """``fwd_bwd_case`` at the per-layer shape of the training phase, then
+    a dropout forward + backward and a "paper" forward against the plain
+    versions; returns the two backward records and the forward's numbers
+    at this shape."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    b, hq, hkv, S, d = 4, 32, 8, 2048, 64
+    seg = torch.as_tensor(SyntheticLM(49155, S, b, seed=seed).batch_at(0)
+                          ["segment_ids"]).to(dev)
+    c = fwd_bwd_case(torch, gen, b, hq, hkv, S, d, True, seg)
+    shape, call, layout = c["shape"], c["call"], c["layout"]
+    q, k, v, o, do, m, l = c["res"][:7]
+    bq, bk = call["block_q"], call["block_k"]
+    # the walks of the two kernels' CTAs: dq's the tiles of its layout row,
+    # dkv's the q-blocks of its layout column times the n_rep heads
+    runs = layout.reshape(-1, S // bq, S // bk) != 0
+    row_walk = runs.sum(dim=2).float()
+    col_walk = runs.sum(dim=1).float() * (hq // hkv)
+    walks = {"dq_tiles_mean": float(row_walk.mean()),
+             "dq_tiles_max": int(row_walk.max()),
+             "dkv_items_mean": float(col_walk.mean()),
+             "dkv_items_max": int(col_walk.max())}
+    print(f"[train-kernel] CTA walks at the train layer: dq "
+          f"{walks['dq_tiles_mean']:.2f} kv tiles a CTA (max "
+          f"{walks['dq_tiles_max']}), dkv {walks['dkv_items_mean']:.2f} "
+          f"(q-block, head) items a CTA (max {walks['dkv_items_max']})",
+          flush=True)
 
     # -- dropout 0.1: forward and backward against the plain versions ------
     dcall = dict(call, dropout_p=0.1, dropout_seed=seed + 7,
@@ -708,55 +890,76 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
     fwd_paper_ms = device_ms(torch, [lambda: fa.flash_attention_forward(
         q, k, v, None, layout, **pcall)])
 
-    # -- bounds: each input read once, each output written once; FLOPs of
-    # the minimal backward, 5 products of 2d per unmasked pair, split as
-    # dkv: S, dP, dV, dK (8d) and dq: dQ (2d) so the two bounds add up
-    ins = nbytes(q, k, v, do, m, l, layout, seg, seg) + m.numel() * 4  # + D
-    dq_bound = bound(ins + nbytes(got[0]), 2.0 * d * pairs, BF16_FLOPS_PER_S)
-    dkv_bound = bound(ins + nbytes(got[1], got[2]), 8.0 * d * pairs,
-                      BF16_FLOPS_PER_S)
-    fwd_bound = bound(nbytes(q, k, v, o, m, l, layout, seg, seg),
-                      4.0 * d * pairs, BF16_FLOPS_PER_S)
     lib = "SDPA backward (dq, dk, dv together), bool mask, GQA"
     recs = []
     for name, ms, (b_ms, b_by), grads, drop_ms, line in (
-            ("flash_bwd_dq", dq_ms, dq_bound, ("dq",), dq_drop_ms, 581),
-            ("flash_bwd_dkv", dkv_ms, dkv_bound, ("dk", "dv"), dkv_drop_ms,
-             612)):
-        err = max(errs[g] for g in grads)
+            ("flash_bwd_dq", c["dq_ms"], c["dq_bound"], ("dq",), dq_drop_ms,
+             581),
+            ("flash_bwd_dkv", c["dkv_ms"], c["dkv_bound"], ("dk", "dv"),
+             dkv_drop_ms, 612)):
+        err = max(c["errs"][g] for g in grads)
         rec = {"name": name, "route": "cuda",
                "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
                "replaces": f"src/repro/kernels/flash_attention.py:{line}",
                "launches": None,
-               "max_abs_err": max(abs_errs[g] for g in grads),
-               "scaled_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": lib_bwd_ms, "library": lib,
-               "shape": shape, "dropout_ms": drop_ms, "pair_ms": pair_ms,
-               "pair_device_ms": dq_ms + dkv_ms, "backward_ms": bwd_ms,
+               "max_abs_err": max(c["abs_errs"][g] for g in grads),
+               "scaled_err": err, "ms": ms, "plain_ms": c["plain_ms"],
+               "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": c["lib_bwd_ms"], "library": lib,
+               "shape": shape, "dropout_ms": drop_ms,
+               "pair_ms": c["pair_ms"],
+               "pair_device_ms": c["dq_ms"] + c["dkv_ms"],
+               "backward_ms": c["bwd_ms"],
                "plain_ms_is": "the plain backward (dq, dk, dv together)"}
         recs.append(rec)
         print(f"[kernel] {name}: {shape}: scaled err {err:.3g}; {ms:.4f} ms "
-              f"(dropout 0.1: {drop_ms:.4f} ms; plain backward {plain_ms:.3f} "
-              f"ms, bound {b_ms:.4f} ms by {b_by}, {lib} {lib_bwd_ms:.4f} ms)",
-              flush=True)
-    fwd = {"shape": shape, "ms": fwd_ms, "call_ms": fwd_call_ms,
+              f"(dropout 0.1: {drop_ms:.4f} ms; plain backward "
+              f"{c['plain_ms']:.3f} ms, bound {b_ms:.4f} ms by {b_by}, {lib} "
+              f"{c['lib_bwd_ms']:.4f} ms)", flush=True)
+    fwd = {"shape": shape, "ms": c["fwd_ms"], "call_ms": c["fwd_call_ms"],
            "dropout_ms": fwd_drop_ms,
-           "paper_ms": fwd_paper_ms, "plain_ms": fwd_plain_ms,
-           "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
-           "library_ms": lib_fwd_ms, "max_abs_err": f_errs[0],
-           "m_rel_err": f_errs[1], "l_rel_err": f_errs[2],
+           "paper_ms": fwd_paper_ms, "plain_ms": c["fwd_plain_ms"],
+           "bound_ms": c["fwd_bound"][0], "bound_by": c["fwd_bound"][1],
+           "library_ms": c["lib_fwd_ms"], "max_abs_err": c["f_errs"][0],
+           "m_rel_err": c["f_errs"][1], "l_rel_err": c["f_errs"][2],
            "dropout_max_abs_err": d_o_err,
-           "paper_max_abs_err": p_err, "bwd_pair_ms": pair_ms,
-           "bwd_pair_device_ms": dq_ms + dkv_ms, "bwd_ms": bwd_ms,
-           "bwd_cta_walks": walks,
+           "paper_max_abs_err": p_err, "bwd_pair_ms": c["pair_ms"],
+           "bwd_pair_device_ms": c["dq_ms"] + c["dkv_ms"],
+           "bwd_ms": c["bwd_ms"], "bwd_cta_walks": walks,
            "dropout_grad_errs": derrs}
-    print(f"[kernel] flash_fwd at the train shape: {fwd_ms:.4f} ms on the "
-          f"card ({fwd_call_ms:.4f} ms a call), dropout "
+    print(f"[kernel] flash_fwd at the train shape: {c['fwd_ms']:.4f} ms on the "
+          f"card ({c['fwd_call_ms']:.4f} ms a call), dropout "
           f"0.1 {fwd_drop_ms:.4f} ms, paper {fwd_paper_ms:.4f} ms (plain "
-          f"{fwd_plain_ms:.3f} ms, bound {fwd_bound[0]:.4f} ms by "
-          f"{fwd_bound[1]}, SDPA forward {lib_fwd_ms:.4f} ms); backward pair "
-          f"{pair_ms:.4f} ms", flush=True)
+          f"{c['fwd_plain_ms']:.3f} ms, bound {c['fwd_bound'][0]:.4f} ms by "
+          f"{c['fwd_bound'][1]}, SDPA forward {c['lib_fwd_ms']:.4f} ms); "
+          f"backward pair {c['pair_ms']:.4f} ms", flush=True)
     return recs, fwd
+
+
+def new_shape_kernel_phase(torch, seed: int) -> dict:
+    """The kernels at the shapes of the two later training paths: #1/#2/#3
+    at train-bert's attention layer (non-causal, its packed documents, d
+    64, MHA) and at train-olmo's (causal, d 128, MHA), each through
+    ``fwd_bwd_case``. Returns {kernel: {path: entry}}; serve-qwen3's
+    kernels are held at its shapes by ``serve_phase``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    at: dict = {}
+    for path, (arch, S, b) in NEW_TRAIN_PATHS.items():
+        cfg = get_config(arch)
+        # the segments of the path's first batch
+        seg = torch.as_tensor(SyntheticLM(cfg.vocab_size, S, b, seed=seed)
+                              .batch_at(0)["segment_ids"]).to(dev)
+        c = fwd_bwd_case(torch, gen, b, cfg.num_heads, cfg.num_kv_heads, S,
+                         cfg.head_dim, cfg.causal, seg)
+        for name, e in shape_entries(c).items():
+            at.setdefault(name, {})[path] = e
+        del c
+        release(torch)
+    return at
 
 
 # ---------------------------------------------------------------------------
@@ -1040,18 +1243,24 @@ def _serve(engine, prompts, n_new, prime: bool):
     return {r.rid: r.output for r in engine.finished}
 
 
-def parity_phase(torch, seed: int) -> dict:
+def parity_phase(torch, seed: int, arch: str = "granite-3-2b",
+                 n_new: int = 12, tag: str = "parity") -> dict:
+    """``arch`` at full width, 2 layers, float32: the same
+    weights (drawn on the card from ``seed``) served by the paged engine on
+    ``cuda`` (kernels) and on ``cpu`` (plain versions); greedy tokens must
+    be identical, a divergence allowed only at a near-tie."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, params_to
     from repro_torch.serve import ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("granite-3-2b"), num_layers=2,
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
                               dtype="float32", attn_impl="pallas",
                               use_decode_kernel=True)
     model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(seed), device="cpu")
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        device="cpu")
     gen = torch.Generator().manual_seed(seed + 1)
 
     def toks(n):
@@ -1067,10 +1276,12 @@ def parity_phase(torch, seed: int) -> dict:
         p = params if device == "cpu" else params_to(params, device)
         engines[device] = ServingEngine(model, p, device=device, **kw)
         t0 = time.perf_counter()
-        outs[device] = _serve(engines[device], prompts, 12, prime=True)
-        print(f"[parity] {device}: {sum(map(len, outs[device].values()))} "
-              f"tokens in {time.perf_counter() - t0:.2f}s", flush=True)
-    check(engines["cuda"].prefix_hits >= 1, "parity run had no prefix hit")
+        outs[device] = _serve(engines[device], prompts, n_new, prime=True)
+        print(f"[{tag}] {cfg.name} 2 layers float32, {device}: "
+              f"{sum(map(len, outs[device].values()))} tokens in "
+              f"{time.perf_counter() - t0:.2f}s", flush=True)
+        del p
+    check(engines["cuda"].prefix_hits >= 1, f"{tag} run had no prefix hit")
     diverged = []
     for rid, ref in outs["cpu"].items():
         got = outs["cuda"][rid]
@@ -1084,16 +1295,17 @@ def parity_phase(torch, seed: int) -> dict:
                 "segment_ids": torch.zeros((1, len(ctx)), dtype=torch.int32)})
         top2 = torch.topk(logits[0, -1].float(), 2).values
         margin = float(top2[0] - top2[1])
-        print(f"[parity] request {rid} diverges at generated step {i}: "
+        print(f"[{tag}] request {rid} diverges at generated step {i}: "
               f"cuda {got[i]} cpu {ref[i]}, top-2 logit margin {margin:.3g}",
               flush=True)
         diverged.append({"rid": rid, "step": i, "margin": margin})
         check(margin < 1e-3, f"request {rid} diverged at step {i} with a "
                              f"top-2 margin {margin:.3g} (not a near-tie)")
-    print(f"[parity] greedy tokens identical: {not diverged} "
+    print(f"[{tag}] greedy tokens identical: {not diverged} "
           f"({len(outs['cpu'])} requests, near-tie divergences: "
           f"{len(diverged)})", flush=True)
-    return {"identical": not diverged, "near_tie_divergences": diverged,
+    return {"model": cfg.name, "layers": cfg.num_layers,
+            "identical": not diverged, "near_tie_divergences": diverged,
             "requests": len(outs["cpu"]),
             "prefix_hits": engines["cuda"].prefix_hits}
 
@@ -1121,25 +1333,42 @@ DENSE_SERVE_KERNELS = ("flash_fwd", "flash_decode")
 PAGED_GRAD_KERNELS = ("flash_fwd_paged", "flash_bwd_dq_paged",
                       "flash_bwd_dkv_paged", "flash_bwd_fold_paged")
 TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the later paths: (arch, seq, batch) of the two trained at full depth, and
+# the depth serve-qwen3 cuts qwen3-32b to (its 64 layers hold ~65.5 GB of
+# bf16 weights; 8 keep the published width at ~10.9 GB)
+NEW_TRAIN_PATHS = {"train_bert": ("bert-large", 512, 56),
+                   "train_olmo": ("olmo-1b", 2048, 4)}
+SERVE_QWEN3_LAYERS = 8
 
 
-def serve_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
+def serve_phase(torch, seed: int, card: str, arch: str = "granite-3-2b",
+                num_layers: int | None = None, tag: str = "serve",
+                hold_shapes: bool = False) -> tuple[dict, dict]:
+    """``arch`` at its published width (and depth, unless ``num_layers``),
+    bf16, random weights drawn on the card from ``seed``, served by the
+    paged engine through the kernels; then profiled (``profile_serve``).
+    With ``hold_shapes`` the same requests are served once more with the
+    serving kernels' wrappers watched (``capture_calls``), and each kernel
+    is held at the shape of its call that did the most work
+    (``serve_shape_records``, under ``rec["at_shapes"]``)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import ServingEngine
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config("granite-3-2b"), attn_impl="pallas",
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas",
                               use_decode_kernel=True)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(seed),
                         device=dev)
     torch.cuda.synchronize()
-    print(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
-          f"{cfg.dtype}, weights in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim}, {cfg.dtype}, weights in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     gen = torch.Generator().manual_seed(seed + 2)
 
     def toks(n):
@@ -1170,11 +1399,11 @@ def serve_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     n_tok = sum(len(r.output) for r in done)
     lat = eng.latency_stats()
     check(len(done) == len(prompts) and all(len(r.output) == 32 for r in done),
-          "serve phase did not finish every request")
-    check(eng.prefix_hits >= 1, "serve phase had no prefix-cache hit")
+          f"{tag} phase did not finish every request")
+    check(eng.prefix_hits >= 1, f"{tag} phase had no prefix-cache hit")
     for name in SERVE_KERNELS:
         check(launches[name] > 0,
-              f"kernel {name} was never launched in the serve phase")
+              f"kernel {name} was never launched in the {tag} phase")
     profile = profile_serve(torch, model, params, prompts, kw)
     rec = {"model": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
            "requests": len(done), "lanes": 4, "new_tokens": n_tok,
@@ -1185,11 +1414,162 @@ def serve_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
            "prefill_calls": eng.prefill_calls,
            "decode_calls": eng.decode_calls, "profile": profile,
            "card": card}
-    print(f"[serve] {n_tok} tokens in {wall:.2f}s: {n_tok / wall:.1f} tok/s, "
+    print(f"[{tag}] {n_tok} tokens in {wall:.2f}s: {n_tok / wall:.1f} tok/s, "
           f"TTFT p50 {lat['ttft_p50'] * 1e3:.1f} ms, peak memory "
           f"{peak / 2**30:.2f} GiB, prefix hits {eng.prefix_hits}, "
           f"launches {launches} [{card}]", flush=True)
+    if hold_shapes:
+        calls = capture_calls(torch, lambda: _serve(
+            ServingEngine(model, params, **kw), prompts, 32, prime=False))
+        rec["at_shapes"] = serve_shape_records_apart(torch, seed, calls, tag)
     return rec, launches
+
+
+# the serving kernels' wrappers as the engine calls them, each with the
+# work of one call (q rows times the key rows it may read)
+SERVE_WRAPPERS = {
+    "flash_fwd": ("flash_attention", "flash_attention_forward",
+                  lambda a: a[0].shape[0] * a[0].shape[2] * a[1].shape[2]),
+    "flash_fwd_paged": ("flash_attention", "flash_prefill_paged_forward",
+                        lambda a: a[0].shape[2] * int((a[3] >= 0).sum())),
+    "flash_decode_paged": ("flash_decode", "flash_decode_paged_from_layout",
+                           lambda a: int(a[4].sum()))}
+
+
+def capture_calls(torch, run) -> dict:
+    """Runs ``run()`` with each wrapper of ``SERVE_WRAPPERS`` replaced by
+    one that calls it and keeps the arguments of its call with the most
+    work (the first of equals): q, K and V as meta tensors of their shape
+    and dtype, every other tensor cloned. Returns {kernel: (args, kw)};
+    the wrappers are put back however ``run`` ends. The extra host work
+    (and a sync a call for the work of the paged calls) is why this runs
+    beside the timed serve, not in it."""
+    import importlib
+
+    def keep(i, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if i < 3:
+            return torch.empty(x.shape, dtype=x.dtype, device="meta")
+        return x.clone()
+
+    best, saved = {}, {}
+
+    def watch(name, fn, work):
+        def call(*a, **kw):
+            w = work(a)
+            if name not in best or w > best[name][0]:
+                best[name] = (w, tuple(keep(i, x) for i, x in enumerate(a)),
+                              {n: keep(3, x) for n, x in kw.items()})
+            return fn(*a, **kw)
+        return call
+
+    for name, (mod, attr, work) in SERVE_WRAPPERS.items():
+        mod = importlib.import_module(f"repro_torch.kernels.{mod}")
+        saved[name] = (mod, attr, getattr(mod, attr))
+        setattr(mod, attr, watch(name, saved[name][2], work))
+    try:
+        run()
+    finally:
+        for mod, attr, fn in saved.values():
+            setattr(mod, attr, fn)
+    check(set(best) == set(SERVE_WRAPPERS),
+          f"the serve called only {sorted(best)} of {sorted(SERVE_WRAPPERS)}")
+    return {name: (a, kw) for name, (_, a, kw) in best.items()}
+
+
+def serve_shape_records(torch, seed: int, calls: dict, tag: str) -> dict:
+    """#1, #4 and #8 each held against its plain version at the call the
+    serve gave it (``capture_calls``), with random q, K and V of those
+    shapes, timed beside its bound and SDPA's time. Returns {kernel:
+    entry}, entries without ``launches`` (``main`` adds the path's)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+
+    def inputs(name):
+        args, kw = calls[name]
+        return tuple(fresh(torch, gen, t) for t in args[:3]) + args[3:], kw
+
+    def segments(ids) -> list[int]:
+        return ids[0].unique_consecutive(return_counts=True)[1].tolist()
+
+    out = {}
+    with torch.inference_mode():        # the engine's tensors were made so
+        args, kw = inputs("flash_fwd")
+        b, hq, sq, d = args[0].shape
+        out["flash_fwd"] = packed_prefill_record(
+            torch, gen, args, kw,
+            f"{tag} packed prefill b={b} hq={hq} hkv={args[1].shape[1]} "
+            f"S={sq} d={d}, {'causal' if kw['causal'] else 'non-causal'}, "
+            f"rows by segment {segments(kw['q_segment_ids'])}")
+        args, kw = inputs("flash_fwd_paged")
+        b, hq, sq, d = args[0].shape
+        hkv, _, ps, _ = args[1].shape
+        out["flash_fwd_paged"] = paged_prefill_record(
+            torch, gen, args, kw,
+            f"{tag} chunked prefill hq={hq} hkv={hkv} d={d}: {sq} q rows "
+            f"(by segment {segments(kw['q_segment_ids'])}, first position "
+            f"{int(kw['q_positions'][0, 0])}) against "
+            f"{int((args[3] >= 0).sum())} live of {args[3].shape[1]} pages "
+            f"of {ps}")
+        args, kw = inputs("flash_decode_paged")
+        dec = paged_decode_record(torch, gen, args, kw)
+        dec["shape"] = f"{tag} {dec['shape']}"
+        out["flash_decode_paged"] = dec
+    for entry in out.values():
+        entry.pop("launches")
+    return out
+
+
+_SHAPES_RUN = """
+import json, sys
+sys.path[:0] = [{src!r}, {here!r}]
+import torch
+import chip_smoke as cs
+saved = torch.load({path!r}, map_location="cuda", weights_only=False)
+
+
+def back(x):
+    if isinstance(x, tuple) and x[:1] == ("meta",):
+        return torch.empty(x[1], dtype=getattr(torch, x[2]), device="meta")
+    return x
+
+
+calls = {{n: (tuple(map(back, a)), kw) for n, (a, kw) in saved["calls"].items()}}
+out = cs.serve_shape_records(torch, saved["seed"], calls, saved["tag"])
+print("SHAPES " + json.dumps(out))
+"""
+
+
+def serve_shape_records_apart(torch, seed: int, calls: dict, tag: str) -> dict:
+    """``serve_shape_records`` in a fresh Python process on the same card.
+    Late in this script's long process ``torch.profiler`` stops recording
+    whole windows (after serve-qwen3's serve it recorded none of these
+    kernels' windows whole in ten tries), where a fresh process records
+    them at once. The captured calls go through a file under ``build/``,
+    q, K and V as ("meta", shape, dtype)."""
+    def put(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if x.device.type == "meta":
+            return ("meta", tuple(x.shape), str(x.dtype).removeprefix("torch."))
+        return x.cpu()
+
+    path = ROOT / "build" / "serve_shape_calls.pt"
+    torch.save({"seed": seed, "tag": tag, "calls": {
+        n: (tuple(map(put, a)), {k: put(v) for k, v in kw.items()})
+        for n, (a, kw) in calls.items()}}, path)
+    code = _SHAPES_RUN.format(src=str(ROOT / "src"), here=str(ROOT),
+                              path=str(path))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    lines = out.stdout.splitlines()
+    for x in lines:
+        if not x.startswith("SHAPES "):
+            print(x, flush=True)
+    line = [x for x in lines if x.startswith("SHAPES ")]
+    check(out.returncode == 0 and len(line) == 1,
+          f"the {tag} shape records failed: {out.stderr[-3000:]}")
+    return json.loads(line[0][len("SHAPES "):])
 
 
 def _device_us(e) -> float:
@@ -1385,19 +1765,36 @@ def _grads(torch, model, params, batch):
         params, torch.autograd.grad(loss, leaves))
 
 
-def train_parity_phase(torch, seed: int) -> dict:
+def adamw_recipe():
+    """The training launcher's recipe at two steps."""
+    from repro_torch.optim import adamw, warmup_cosine
+    return adamw(warmup_cosine(3e-4, 20, 2))
+
+
+def lamb_recipe():
+    """The MLPerf-BERT recipe (``benchmarks/bench_table1_bert.py``)."""
+    from repro_torch.optim import lamb, warmup_poly
+    return lamb(warmup_poly(3.75e-3, 10, 7100))
+
+
+def train_parity_phase(torch, seed: int, arch: str = "granite-3-2b",
+                       recipe=adamw_recipe, tag: str = "train-parity") -> dict:
+    """``arch`` at full width, 2 layers, float32, seq 512, batch 2: the same
+    weights (drawn on the card from ``seed``) and ``SyntheticLM`` batches
+    through two train steps of ``recipe()`` on ``cuda`` (kernels) and on
+    ``cpu`` (plain versions)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model, params_to
-    from repro_torch.optim import adamw, warmup_cosine
     from repro_torch.train import make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("granite-3-2b"), num_layers=2,
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
                               dtype="float32", attn_impl="pallas")
     model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(seed), device="cpu")
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        device="cpu")
     data = SyntheticLM(cfg.vocab_size, 512, 2, seed=seed + 3)
     out = {}
     for device in ("cuda", "cpu"):
@@ -1406,7 +1803,7 @@ def train_parity_phase(torch, seed: int) -> dict:
         _, g = _grads(torch, model, p, data.batch_at(0))
         g0 = {n: g["blocks"][0]["attn"][n].cpu() for n in ("wq", "wk", "wv")}
         del g
-        opt = adamw(warmup_cosine(3e-4, 20, 2))
+        opt = recipe()
         state = opt.init(p)
         step = make_train_step(model, opt, clip_norm=1.0, deterministic=True)
         losses = []
@@ -1415,18 +1812,18 @@ def train_parity_phase(torch, seed: int) -> dict:
             losses.append(float(metrics["loss"]))
         out[device] = {"losses": losses, "grads": g0}
         del p, state
-        print(f"[train-parity] {device}: losses {losses} in "
-              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        print(f"[{tag}] {cfg.name} 2 layers float32, {device}: losses "
+              f"{losses} in {time.perf_counter() - t0:.1f}s", flush=True)
     rel = [abs(a - b) / abs(b) for a, b in zip(out["cuda"]["losses"],
                                                out["cpu"]["losses"])]
     gerr = {n: scaled_err(out["cuda"]["grads"][n], out["cpu"]["grads"][n])
             for n in ("wq", "wk", "wv")}
-    print(f"[train-parity] loss relative differences {rel}; layer-0 "
+    print(f"[{tag}] loss relative differences {rel}; layer-0 "
           f"scaled grad differences {gerr}", flush=True)
-    check(max(rel) <= 1e-4, f"train parity: losses differ by {rel} > 1e-4")
+    check(max(rel) <= 1e-4, f"{tag}: losses differ by {rel} > 1e-4")
     check(max(gerr.values()) <= 1e-3,
-          f"train parity: layer-0 grads differ by {gerr} > 1e-3")
-    return {"losses_cuda": out["cuda"]["losses"],
+          f"{tag}: layer-0 grads differ by {gerr} > 1e-3")
+    return {"model": cfg.name, "losses_cuda": out["cuda"]["losses"],
             "losses_cpu": out["cpu"]["losses"], "loss_rel_diff": rel,
             "grad_scaled_diff": gerr}
 
@@ -1435,20 +1832,74 @@ def train_parity_phase(torch, seed: int) -> dict:
 # phase 6: the published model, trained through the kernels
 # ---------------------------------------------------------------------------
 
-def train_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
+def train_phase(torch, seed: int, card: str, arch: str = "granite-3-2b",
+                tag: str = "train") -> tuple[dict, dict]:
+    """The published ``arch`` through the training launcher (AdamW,
+    warmup_cosine(3e-4, 20, steps), clip 1.0, deterministic, bf16, remat),
+    seq 2048, batch 4, 6 steps (``train_path``)."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import train as launch_train
 
-    dev = torch.device("cuda")
     steps, seq, batch = 6, 2048, 4
+
+    def run():
+        return launch_train.main([
+            "--arch", arch, "--device", "cuda", "--seed", str(seed),
+            "--steps", str(steps), "--seq", str(seq), "--batch", str(batch),
+            "--ckpt-every", "1000000",
+            "--ckpt-dir", str(ROOT / "build" / "chip_smoke_train_ckpt")])
+
+    return train_path(torch, tag, get_config(arch), run, seq, batch, steps,
+                      "AdamW, warmup_cosine(3e-4, 20, 6), clip 1.0", card)
+
+
+def bert_train_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
+    """The published bert-large (24 layers, bf16, remat, non-causal over
+    ``SyntheticLM``'s packed documents) with the MLPerf-BERT recipe
+    (``lamb_recipe``, clip 1.0, deterministic) at seq 512 and batch 56 (the
+    MLPerf step batch of 448 over the paper's 8 cards), 6 steps, through
+    ``make_train_step`` and the ``Trainer`` (``train_path``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train import Trainer, TrainerConfig, make_train_step
+
+    arch, seq, batch = NEW_TRAIN_PATHS["train_bert"]
+    steps = 6
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+
+    def run():
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                            device="cuda")
+        opt = lamb_recipe()
+        step = make_train_step(model, opt, clip_norm=1.0, deterministic=True)
+        data = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+        trainer = Trainer(
+            TrainerConfig(total_steps=steps, ckpt_every=1000000,
+                          ckpt_dir=str(ROOT / "build" / "chip_smoke_bert_ckpt")),
+            step, params, opt.init(params), data.batch_at)
+        trainer.run()
+        return trainer
+
+    return train_path(torch, "train-bert", cfg, run, seq, batch, steps,
+                      "LAMB, warmup_poly(3.75e-3, 10, 7100), clip 1.0", card)
+
+
+def train_path(torch, tag, cfg, run, seq, batch, steps, recipe,
+               card) -> tuple[dict, dict]:
+    """One training main path: launch counters reset just before ``run()``
+    (which builds the model and trains ``steps`` steps, returning the
+    ``Trainer``) and flash_fwd, flash_bwd_dq and flash_bwd_dkv > 0 just
+    after; every loss and grad norm finite; prints the first loss, tokens/s
+    and ms/step over steps 2-``steps`` and peak memory, then profiles one
+    more step (``profile_train``)."""
+    dev = torch.device("cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     t0 = time.perf_counter()
-    trainer = launch_train.main([
-        "--arch", "granite-3-2b", "--device", "cuda", "--seed", str(seed),
-        "--steps", str(steps), "--seq", str(seq), "--batch", str(batch),
-        "--ckpt-every", "1000000",
-        "--ckpt-dir", str(ROOT / "build" / "chip_smoke_train_ckpt")])
+    trainer = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -1456,24 +1907,27 @@ def train_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     hist = trainer.history
     for name in TRAIN_KERNELS:
         check(launches[name] > 0,
-              f"kernel {name} was never launched in the train phase")
-    check(len(hist) == steps, f"train phase ran {len(hist)} of {steps} steps")
+              f"kernel {name} was never launched in the {tag} phase")
+    check(len(hist) == steps, f"{tag} phase ran {len(hist)} of {steps} steps")
     for rec in hist:
         check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
-              f"train step {rec['step']}: loss {rec['loss']} grad norm "
+              f"{tag} step {rec['step']}: loss {rec['loss']} grad norm "
               f"{rec['grad_norm']}")
     timed = [r["step_time_s"] for r in hist[1:]]    # step 1 compiles, warms up
     ms_step = sum(timed) / len(timed) * 1e3
     tok_s = seq * batch / (ms_step / 1e3)
     per_step = {n: launches[n] / steps for n in TRAIN_KERNELS}
-    print(f"[train] granite-3-2b 40 layers bf16 remat, seq {seq} batch {batch}: "
-          f"first loss {hist[0]['loss']:.4f} (ln 49155 = {math.log(49155):.4f}), "
-          f"last {hist[-1]['loss']:.4f}; {ms_step:.1f} ms/step, {tok_s:.0f} "
+    print(f"[{tag}] {cfg.name} {cfg.num_layers} layers {cfg.dtype} remat, "
+          f"{'causal' if cfg.causal else 'non-causal'}, {recipe}, seq {seq} "
+          f"batch {batch}: first loss {hist[0]['loss']:.4f} (ln "
+          f"{cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}), last "
+          f"{hist[-1]['loss']:.4f}; {ms_step:.1f} ms/step, {tok_s:.0f} "
           f"tokens/s over steps 2-{steps}; peak memory {peak / 2**30:.2f} GiB; "
           f"launches {launches} ({per_step} a step) [{card}]", flush=True)
     profile = profile_train(torch, trainer)
-    rec = {"model": "granite-3-2b", "layers": 40, "dtype": "bfloat16",
-           "remat": True, "seq": seq, "batch": batch, "steps": steps,
+    rec = {"model": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "remat": cfg.remat, "causal": cfg.causal, "recipe": recipe,
+           "seq": seq, "batch": batch, "steps": steps,
            "losses": [r["loss"] for r in hist],
            "grad_norms": [r["grad_norm"] for r in hist],
            "step_ms": [r["step_time_s"] * 1e3 for r in hist],
@@ -1875,22 +2329,46 @@ def main() -> int:
     kernels[0]["at_train_shape"] = fwd_train
     kernels += bwd_kernels
     kernels += paged_grad_kernel_phase(torch, args.seed)
-    torch.cuda.empty_cache()
+    release(torch)
+    at_shapes = new_shape_kernel_phase(torch, args.seed)
+    release(torch)
     paths = {"paged_grad": paged_grad_phase(torch, args.seed)}
-    torch.cuda.empty_cache()
+    release(torch)
     parity = parity_phase(torch, args.seed)
     serve, paths["serve"] = serve_phase(torch, args.seed, card)
-    torch.cuda.empty_cache()
+    release(torch)
     dense_parity = dense_parity_phase(torch, args.seed)
     dense_serve, paths["dense_serve"] = dense_serve_phase(torch, args.seed,
                                                           card)
-    torch.cuda.empty_cache()
+    release(torch)
     train_parity = train_parity_phase(torch, args.seed)
     train, paths["train"] = train_phase(torch, args.seed, card)
+    release(torch)
+    bert_parity = train_parity_phase(torch, args.seed, "bert-large",
+                                     lamb_recipe, tag="bert-parity")
+    train_bert, paths["train_bert"] = bert_train_phase(torch, args.seed, card)
+    release(torch)
+    olmo_parity = train_parity_phase(torch, args.seed, "olmo-1b",
+                                     tag="olmo-parity")
+    train_olmo, paths["train_olmo"] = train_phase(
+        torch, args.seed, card, arch="olmo-1b", tag="train-olmo")
+    release(torch)
+    qwen3_parity = parity_phase(torch, args.seed, "qwen3-32b", n_new=8,
+                                tag="qwen3-parity")
+    release(torch)
+    serve_qwen3, paths["serve_qwen3"] = serve_phase(
+        torch, args.seed, card, arch="qwen3-32b",
+        num_layers=SERVE_QWEN3_LAYERS, tag="serve-qwen3", hold_shapes=True)
+    for name, entry in serve_qwen3.pop("at_shapes").items():
+        at_shapes.setdefault(name, {})["serve_qwen3"] = entry
     for rec in kernels:
         by_path = {p: launches[rec["name"]] for p, launches in paths.items()}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
+        if rec["name"] in at_shapes:
+            rec["at_shapes"] = at_shapes[rec["name"]]
+            for path, entry in rec["at_shapes"].items():
+                entry["launches"] = by_path[path]
     check(all(rec["launches"] > 0 for rec in kernels),
           "a kernel was launched on none of the main paths")
 
@@ -1900,7 +2378,11 @@ def main() -> int:
               "paged_grad_launches": paths["paged_grad"], "parity": parity,
               "serve": serve, "dense_parity": dense_parity,
               "dense_serve": dense_serve, "train_parity": train_parity,
-              "train": train, "total_s": time.perf_counter() - t_start}
+              "train": train, "bert_parity": bert_parity,
+              "train_bert": train_bert, "olmo_parity": olmo_parity,
+              "train_olmo": train_olmo, "qwen3_parity": qwen3_parity,
+              "serve_qwen3": serve_qwen3,
+              "total_s": time.perf_counter() - t_start}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(f"[done] total {record['total_s']:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

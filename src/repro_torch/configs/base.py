@@ -1,6 +1,8 @@
 """Model configuration of the port's dense decoders (the dense-decoder
-part of ``repro.configs.base``): pre-norm blocks with RMSNorm (eps 1e-5),
-RoPE, grouped-query attention, a SwiGLU MLP and a tied embedding head.
+part of ``repro.configs.base``): pre-norm blocks (RMSNorm, LayerNorm or
+non-parametric LayerNorm, eps 1e-5), RoPE, grouped-query attention with
+optional qk-norm and a decoupled head_dim, a SwiGLU, GeGLU or GELU MLP,
+and a tied or separate output head.
 
 Defaults match the JAX package, including ``attn_impl="chunked"``,
 ``use_decode_kernel=False`` and ``remat=True``: with the first two the
@@ -27,16 +29,26 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0                   # 0 -> d_model // num_heads
-    rope_theta: float = 10_000.0
+
+    # attention
     attn_impl: str = "chunked"          # dispatch (see core.attention)
     causal: bool = True
+    window: int | None = None           # causal sliding window
+    qk_norm: bool = False               # RMS-normalize q and k per head
+    rope_theta: float = 10_000.0
     attn_dropout: float = 0.0
     # kernel tile geometry: None = auto (kernels.tuning)
     attn_block_q: int | None = None
     attn_block_k: int | None = None
-    use_decode_kernel: bool = False     # split-KV paged decode kernel;
-                                        # False = plain masked-softmax path
     num_decode_splits: int | None = None  # None = auto (kernels.tuning)
+    use_decode_kernel: bool = False     # split-KV decode kernel;
+                                        # False = plain masked-softmax path
+
+    # norms / mlp
+    norm_type: Literal["rmsnorm", "layernorm", "layernorm_np"] = "rmsnorm"
+    mlp_type: Literal["swiglu", "geglu", "gelu"] = "swiglu"
+
+    tie_embeddings: bool = True         # False: a separate (d_model, V) head
     dtype: str = "bfloat16"
     remat: bool = True                  # activation checkpoint each block
 

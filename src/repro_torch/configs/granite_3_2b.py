@@ -9,4 +9,6 @@ CONFIG = ModelConfig(
     name="granite-3-2b", family="dense",
     num_layers=40, d_model=2048, num_heads=32, num_kv_heads=8,
     d_ff=8192, vocab_size=49155,
+    norm_type="rmsnorm", mlp_type="swiglu",
+    tie_embeddings=True,
 )

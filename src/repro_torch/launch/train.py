@@ -6,9 +6,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
         --steps 20 --seq 64 --batch 4
 
-The flags follow the JAX launcher's (``repro.launch.train``), with two
-differences. The default arch is ``granite-3-2b``, not the JAX launcher's
-``olmo-1b``: granite-3-2b is the only configuration ported so far. And
+The flags follow the JAX launcher's (``repro.launch.train``; default arch
+``olmo-1b``, any arch of ``repro_torch.configs``), with one difference:
 without ``--reduced`` the PUBLISHED config is built at full width and
 depth (random weights from ``--seed``) on one device; the production-mesh
 path (``--full`` on a TPU slice: TP/DP/EP + ZeRO-1) is not ported.
@@ -16,7 +15,8 @@ path (``--full`` on a TPU slice: TP/DP/EP + ZeRO-1) is not ported.
 sets ``attn_impl="pallas"``, so on ``cuda`` the attention forward and
 backward run through the hand-written kernels (their plain versions on
 ``cpu``). AdamW with ``warmup_cosine(lr, 20, steps)``, clip 1.0,
-deterministic; SIGTERM asks for a checkpoint at the next step.
+deterministic; SIGTERM asks for a checkpoint at the next step while
+``main`` trains (the previous handler is restored when it returns).
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from repro_torch.train import Trainer, TrainerConfig, make_train_step
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--reduced", action="store_true",
                     help="the tiny family-faithful config instead of the "
                          "published one")
@@ -82,11 +82,17 @@ def main(argv=None) -> Trainer:
         TrainerConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                       ckpt_dir=args.ckpt_dir, async_ckpt=True),
         step, params, opt_state, data.batch_at)
-    signal.signal(signal.SIGTERM, lambda *_: trainer.request_checkpoint())
-
-    if args.resume and trainer.try_resume():
-        print(f"resumed from step {trainer.step}", flush=True)
-    hist = trainer.run()
+    previous = signal.signal(signal.SIGTERM,
+                             lambda *_: trainer.request_checkpoint())
+    try:
+        if args.resume and trainer.try_resume():
+            print(f"resumed from step {trainer.step}", flush=True)
+        hist = trainer.run()
+    finally:
+        # the handler holds the trainer (params and fp32 moments): put the
+        # previous one back so that a caller running several launches in
+        # one process frees each run's memory with its Trainer
+        signal.signal(signal.SIGTERM, previous)
     for rec in hist[:: max(1, len(hist) // 10)]:
         print(f"step {rec['step']:>5}  loss {rec['loss']:.4f}  grad_norm "
               f"{rec['grad_norm']:.3f}  {rec['step_time_s'] * 1e3:.0f} ms/step",

@@ -1,5 +1,8 @@
 """Grouped-query self-attention layer on the flash core (port of the dense
-parts of ``repro.models.attention_layer``).
+parts of ``repro.models.attention_layer``), with optional qk-norm (an RMS
+normalization of every q and k head before RoPE, scaled by ``q_norm`` /
+``k_norm``) and a head_dim decoupled from d_model (``wq`` is
+(d_model, hq * head_dim)).
 
 Five execution modes: full-sequence training (``apply_attention``, with
 segment-relative RoPE and attention dropout), packed prefill
@@ -27,12 +30,12 @@ from repro_torch.core.attention import (AttentionSpec, attention,
                                         paged_decode_attention,
                                         paged_prefill_attention)
 from repro_torch.core.masks import segment_relative_positions
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, rms_normalize
 
 
 def attn_spec_from_config(cfg: ModelConfig) -> AttentionSpec:
     return AttentionSpec(impl=cfg.attn_impl, causal=cfg.causal,
-                         dropout_p=cfg.attn_dropout,
+                         window=cfg.window, dropout_p=cfg.attn_dropout,
                          block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
                          num_decode_splits=cfg.num_decode_splits,
                          use_decode_kernel=cfg.use_decode_kernel)
@@ -41,10 +44,14 @@ def attn_spec_from_config(cfg: ModelConfig) -> AttentionSpec:
 def init_attention(cfg: ModelConfig, dtype, *, generator, device):
     hq, hkv, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
     kw = dict(generator=generator, device=device)
-    return {"wq": dense_init(d, hq * hd, dtype, **kw),
-            "wk": dense_init(d, hkv * hd, dtype, **kw),
-            "wv": dense_init(d, hkv * hd, dtype, **kw),
-            "wo": dense_init(hq * hd, d, dtype, **kw)}
+    p = {"wq": dense_init(d, hq * hd, dtype, **kw),
+         "wk": dense_init(d, hkv * hd, dtype, **kw),
+         "wv": dense_init(d, hkv * hd, dtype, **kw),
+         "wo": dense_init(hq * hd, d, dtype, **kw)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=device)
+    return p
 
 
 def _split_heads(x, n_heads, head_dim):
@@ -62,6 +69,9 @@ def _project_qkv(params, cfg: ModelConfig, x, kv_x, positions, kv_positions):
     q = _split_heads(x @ params["wq"], hq, hd)
     k = _split_heads(kv_x @ params["wk"], hkv, hd)
     v = _split_heads(kv_x @ params["wv"], hkv, hd)
+    if cfg.qk_norm:
+        q = rms_normalize(q) * params["q_norm"]
+        k = rms_normalize(k) * params["k_norm"]
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
     if kv_positions is not None:

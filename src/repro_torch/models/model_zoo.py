@@ -4,7 +4,8 @@ prefill into a slot cache, packed prefill, chunked prefill against the
 page pool, decode against either cache, and ``params_from_jax``.
 
 Params are a plain dict: ``{"embed": (V, d), "final_norm": {...},
-"blocks": [per-layer dicts]}`` with the JAX package's weight layouts
+"blocks": [per-layer dicts]}``, plus ``"lm_head": (d, V)`` when
+``cfg.tie_embeddings`` is False, with the JAX package's weight layouts
 (``x @ W``, W of shape (d_in, d_out)). ``forward`` and ``loss`` run with
 autograd; every serving method runs under ``torch.inference_mode()`` (the decode state is created outside it, so
 callers may edit it); the slot cache and the paged pool are updated in
@@ -48,16 +49,19 @@ class Model:
         kw = dict(generator=generator, device=gdev)
         p: Params = {
             "embed": dense_init(cfg.vocab_size, cfg.d_model, dtype, **kw),
-            "final_norm": init_norm(cfg.d_model, dtype, gdev),
+            "final_norm": init_norm(cfg.d_model, cfg.norm_type, dtype, gdev),
             "blocks": [tfm.init_block(cfg, dtype, **kw)
                        for _ in range(cfg.num_layers)],
         }
+        if not cfg.tie_embeddings:
+            p["lm_head"] = dense_init(cfg.d_model, cfg.vocab_size, dtype, **kw)
         return tree_map(lambda t: t.to(dev), p)
 
     # --------------------------------------------------------------- helpers
     def _logits(self, params, h):
-        h = apply_norm(params["final_norm"], h)
-        return h @ params["embed"].T        # tied head
+        h = apply_norm(params["final_norm"], h, self.cfg.norm_type)
+        head = params.get("lm_head")
+        return h @ (params["embed"].T if head is None else head)
 
     def _batch_tensor(self, params, x):
         return torch.as_tensor(x).to(params["embed"].device)

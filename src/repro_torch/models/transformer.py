@@ -1,5 +1,6 @@
 """Dense decoder stack (port of the dense parts of
-``repro.models.transformer``): pre-norm attention + MLP blocks, run as a
+``repro.models.transformer``): pre-norm attention + MLP blocks (norm and
+MLP by ``cfg.norm_type`` / ``cfg.mlp_type``), run as a
 plain loop over layers (the JAX package scans over stacked layers). With
 ``cfg.remat`` the training stack checkpoints every block
 (``torch.utils.checkpoint``, non-reentrant: only the block's input is
@@ -24,23 +25,23 @@ Params = dict[str, Any]
 def init_block(cfg: ModelConfig, dtype, *, generator, device) -> Params:
     kw = dict(generator=generator, device=device)
     return {
-        "attn_norm": init_norm(cfg.d_model, dtype, device),
+        "attn_norm": init_norm(cfg.d_model, cfg.norm_type, dtype, device),
         "attn": attn_mod.init_attention(cfg, dtype, **kw),
-        "mlp_norm": init_norm(cfg.d_model, dtype, device),
-        "mlp": init_mlp(cfg.d_model, cfg.d_ff, dtype, **kw),
+        "mlp_norm": init_norm(cfg.d_model, cfg.norm_type, dtype, device),
+        "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, **kw),
     }
 
 
 def _mlp_residual(params: Params, cfg: ModelConfig, x):
-    h = apply_norm(params["mlp_norm"], x)
-    return x + apply_mlp(params["mlp"], h)
+    h = apply_norm(params["mlp_norm"], x, cfg.norm_type)
+    return x + apply_mlp(params["mlp"], h, cfg.mlp_type)
 
 
 def apply_block(params: Params, cfg: ModelConfig, x, *, segment_ids=None,
                 deterministic: bool = True, dropout_seed=0):
     """One block, full sequence (training). Returns (x, aux_loss); aux is 0
     for the dense family."""
-    h = apply_norm(params["attn_norm"], x)
+    h = apply_norm(params["attn_norm"], x, cfg.norm_type)
     x = x + attn_mod.apply_attention(params["attn"], cfg, h,
                                      segment_ids=segment_ids,
                                      deterministic=deterministic,
@@ -74,7 +75,7 @@ def apply_block_prefill(params: Params, cfg: ModelConfig, x,
     """One block over a (packed) prompt; returns (x, {"kv": {"k", "v"}})
     with the block's K/V rows (b, hkv, s, hd), or, given a ``capacity``,
     a (b, hkv, capacity, hd) slot cache holding them at [0, s)."""
-    h = apply_norm(params["attn_norm"], x)
+    h = apply_norm(params["attn_norm"], x, cfg.norm_type)
     cache = (None if capacity is None else
              attn_mod.init_kv_cache(cfg, x.shape[0], capacity, x.dtype,
                                     x.device))
@@ -112,7 +113,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
 def apply_block_decode(params: Params, cfg: ModelConfig, x, cache, kv_len):
     """One block for one new token against its slot cache (updated in
     place). Returns (x, cache)."""
-    h = apply_norm(params["attn_norm"], x)
+    h = apply_norm(params["attn_norm"], x, cfg.norm_type)
     a, cache = attn_mod.decode_attention_step(params["attn"], cfg, h, cache,
                                               kv_len)
     return _mlp_residual(params, cfg, x + a), cache
@@ -151,7 +152,7 @@ def apply_stack_chunk_prefill(blocks: list[Params], cfg: ModelConfig, x,
     and page list are layer-invariant. Returns (x, caches) — caches
     updated in place."""
     for l, p_l in enumerate(blocks):
-        h = apply_norm(p_l["attn_norm"], x)
+        h = apply_norm(p_l["attn_norm"], x, cfg.norm_type)
         a, _ = attn_mod.chunk_prefill_attention_step(
             p_l["attn"], cfg, h, _layer_pool(caches, l), dest_page, dest_off,
             page_list, q_seg, kv_seg, q_pos, kv_pos)
@@ -164,7 +165,7 @@ def apply_stack_decode_paged(blocks: list[Params], cfg: ModelConfig, x,
     """A single token through all layers against the page pools (updated in
     place). ``page_table`` / ``kv_len`` are layer-invariant."""
     for l, p_l in enumerate(blocks):
-        h = apply_norm(p_l["attn_norm"], x)
+        h = apply_norm(p_l["attn_norm"], x, cfg.norm_type)
         a, _ = attn_mod.paged_decode_attention_step(
             p_l["attn"], cfg, h, _layer_pool(caches, l), page_table, kv_len)
         x = _mlp_residual(p_l, cfg, x + a)

@@ -950,3 +950,136 @@ def test_dense_engine_on_card_matches_cpu(cuda):
         if device == "cuda" and not paged:
             assert fd.LAUNCHES["flash_decode"] > n0
     assert outs[("cpu", False)] == outs[("cuda", False)] == outs[("cuda", True)]
+
+
+# (name, causal, d, n_rep) of the attention layers the new training paths
+# run: bert-large's (non-causal, packed documents, d 64, MHA) and
+# olmo-1b's (causal, packed documents, d 128, MHA)
+_NEW_TRAIN_SHAPES = (("bert", False, 64, 1), ("olmo", True, 128, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,causal,d,n_rep", _NEW_TRAIN_SHAPES)
+def test_new_train_shapes_match_plain(cuda, dtype, name, causal, d, n_rep):
+    """The forward and the dq / dkv pair at the attention shapes of the
+    bert-large and olmo-1b paths against their plain versions (packed
+    documents with a ragged tail), two backward calls bit-identical."""
+    gen = torch.Generator().manual_seed(d + causal)
+    b, hkv, S, bq, bk = 2, 4, 320, 64, 64
+    hq = hkv * n_rep
+    q = torch.randn(b, hq, S, d, generator=gen).to(cuda, dtype)
+    k, v = (torch.randn(b, hkv, S, d, generator=gen).to(cuda, dtype)
+            for _ in range(2))
+    seg = _segments(gen, b, S, cuda)
+    spec = M.MaskSpec(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    layout = M.compile_block_layout(spec, S, S, bq, bk).as_array(cuda)
+    call = dict(scale=d ** -0.5, causal=causal, window=None, q_offset=0,
+                block_q=bq, block_k=bk, q_segment_ids=seg, kv_segment_ids=seg)
+    n0 = dict(fa.LAUNCHES)
+    out = fa.flash_attention_forward(q, k, v, None, layout, **call)
+    torch.cuda.synchronize()
+    _check(out, fa.flash_attention_forward_plain(q, k, v, None, layout,
+                                                 **call), dtype)
+    do = torch.randn(q.shape, generator=gen).to(cuda, dtype)
+    res = (q, k, v, out[0], do, out[1], out[2], None, layout)
+    got = fa.flash_attention_backward(*res, **call)
+    torch.cuda.synchronize()
+    for kern in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.LAUNCHES[kern] == n0[kern] + 1, kern
+    _check_grads(got, fa.flash_attention_backward_plain(*res, **call), dtype)
+    again = fa.flash_attention_backward(*res, **call)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 8])
+@pytest.mark.parametrize("paged", [True, False])
+def test_decode_at_qwen3_group_matches_plain(cuda, dtype, splits, paged):
+    """The decode body at qwen3-32b's GQA 8 (two head groups of one CTA's
+    4) and d 128, 16 query heads over 2 kv heads: an idle lane, a short
+    lane, a long lane and a full one, against the plain partials and their
+    merge."""
+    gen = torch.Generator(device=cuda).manual_seed(splits + 2 * paged)
+    b, hkv, n_rep, d, ps, T = 4, 2, 8, 128, 16, 64
+    hq = hkv * n_rep
+    kv_len = torch.tensor([0, 21, 700, T * ps], dtype=torch.int32,
+                          device=cuda)
+    q = torch.randn(b, hq, 1, d, generator=gen, device=cuda).to(dtype)
+    kw = dict(scale=d ** -0.5, num_splits=splits, window=None)
+    if paged:
+        num_pages = b * T
+        table = torch.randperm(num_pages, generator=gen, device=cuda)
+        table = table.reshape(b, T).int()
+        for i, n in enumerate(kv_len.tolist()):
+            table[i, -(-n // ps):] = -1
+        pools = [torch.randn(hkv, num_pages, ps, d, generator=gen,
+                             device=cuda).to(dtype) for _ in range(2)]
+        args = (q, *pools, table, kv_len,
+                M.paged_block_layout(kv_len, table, ps))
+        _check_decode(dtype, "flash_decode_paged",
+                      lambda: fd.flash_decode_paged_from_layout(*args, **kw),
+                      fd.flash_decode_paged_partials_plain(*args, **kw),
+                      idle=0)
+        return
+    cap = T * ps
+    k, v = (torch.randn(b, hkv, cap, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    layout = M.kv_block_layout(M.decode_kv_valid(kv_len, cap), 64)
+    args = (q, k, v, kv_len, layout)
+    kw["block_k"] = 64
+    _check_decode(dtype, "flash_decode",
+                  lambda: fd.flash_decode_from_layout(*args, **kw),
+                  fd.flash_decode_partials_plain(*args, **kw), idle=0)
+
+
+def test_qwen3_engine_on_card_matches_cpu(cuda):
+    """Reduced qwen3-32b (qk-norm, untied head, head_dim 32 decoupled from
+    d_model 64) served on the card gives the CPU engine's greedy tokens,
+    paged and dense."""
+    cfg = reduced_config("qwen3-32b", head_dim=32, attn_impl="pallas",
+                         use_decode_kernel=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    shared = list(range(1, 25))
+    prompts = [shared + [40, 41, 42], list(range(60, 79)), shared + [50]]
+    for paged in (True, False):
+        outs = []
+        for device in ("cpu", "cuda"):
+            eng = ServingEngine(model, params_to(params, device), num_slots=2,
+                                capacity=64, page_size=8, paged=paged,
+                                chunk_size=8 if paged else None,
+                                device=device)
+            for pr in prompts:
+                eng.submit(pr, max_new_tokens=6)
+                eng.run()
+            outs.append({r.rid: r.output for r in eng.finished})
+        assert outs[0] == outs[1], paged
+
+
+def test_bert_lamb_train_step_on_card_matches_cpu(cuda):
+    """Two steps of reduced bert-large (non-causal, LayerNorm, GELU) with
+    ``lamb(warmup_poly)`` on the card and on the CPU, fp32: losses within
+    1e-4 relative, every kernel of the path launched."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import lamb, warmup_poly
+    from repro_torch.train import make_train_step
+
+    cfg = reduced_config("bert-large", head_dim=64, attn_impl="pallas")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    data = SyntheticLM(cfg.vocab_size, 96, 2, seed=1, mean_doc_len=32)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        opt = lamb(warmup_poly(3.75e-3, 1, 10))
+        p = params_to(params, dev)
+        state = opt.init(p)
+        step = make_train_step(model, opt, deterministic=True)
+        n0 = dict(fa.LAUNCHES)
+        losses[dev] = []
+        for s in range(2):
+            p, state, metrics = step(p, state, data.batch_at(s))
+            losses[dev].append(float(metrics["loss"]))
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.LAUNCHES[name] > n0[name], name
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-4 * abs(b), (losses["cuda"], losses["cpu"])
