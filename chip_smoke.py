@@ -5,12 +5,14 @@
     python3 chip_smoke.py --ab PARENT_CHECKOUT    # A/B against another checkout
 
 Imports nothing of JAX or of the JAX package; needs one CUDA card and the
-repository checkout beside it (``src/repro_torch``). Seven main paths run
+repository checkout beside it (``src/repro_torch``). Ten main paths run
 through the hand-written kernels: the trainable paged prefill (phase 2c),
 paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
 (phases 5-6) of granite-3-2b, then training of bert-large with the paper's
-LAMB recipe (phase 7), training of olmo-1b (phase 8) and paged serving of
-qwen3-32b (phase 9). Phases:
+LAMB recipe (phase 7), training of olmo-1b (phase 8), paged serving of
+qwen3-32b (phase 9), and the mixture-of-experts family: paged serving of
+olmoe-1b-7b (phase 10) and of phi3.5-moe-42b-a6.6b (phase 11) and
+training of olmoe-1b-7b (phase 12). Phases:
 
 1. print the card's name and power limit (nvidia-smi), then build every
    CUDA kernel of both paths from ``src/repro_torch/kernels/csrc`` (one
@@ -80,7 +82,15 @@ qwen3-32b (phase 9). Phases:
    and k/v (56, 16, 512, 64), non-causal over the packed documents of its
    first batch) and at train-olmo's ((4, 16, 2048, 128), causal);
    printed as ``at_shapes`` sub-entries of those kernels' records, each
-   with its launches on its path (serve-qwen3's come with phase 9);
+   with its launches on its path (serve-qwen3's come with phase 9, the
+   MoE serves' with phases 10-11; train-olmoe's attention layer is
+   train-olmo's, so it shares that entry with its own launches);
+2e. the MoE layer: one layer at olmoe-1b-7b's width (64 experts of d_ff
+   1024, top-8, d 2048), bf16, forward + backward over 4 rows of 2048
+   tokens: two calls bit-identical, a third under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync) with the
+   same bits; its device time and the GEMM kernels' share of it beside
+   their bound;
 3. parity: granite-3-2b at full width, 2 layers, float32: the same weights
    (drawn on the card) served by the engine on ``cuda`` (kernels) and on
    ``cpu`` (plain versions); greedy tokens must be identical (a divergence
@@ -136,9 +146,30 @@ qwen3-32b (phase 9). Phases:
    the three held at the serve's call that did the most work (its
    layout, page list, positions and lane lengths, random q/K/V of its
    shapes) against its plain version, with the checks, times, bound and
-   SDPA yardstick of phase 2, in a fresh Python process (the profiler
-   stops recording whole windows late in this one), as ``at_shapes``
-   sub-entries.
+   SDPA yardstick of phase 2, in a fresh Python process after the last
+   phase (the profiler stops recording whole windows late in this one;
+   one process for the three serves that hold their shapes), as
+   ``at_shapes`` sub-entries;
+10. olmoe parity, then serve-olmoe: olmoe-1b-7b at full width, 2 layers,
+   float32, one packed batch (seq 256, batch 2) through the loss and its
+   gradients on ``cuda`` and on ``cpu`` with every MoE call's routes
+   watched: a route flip (a token whose top-k differs) only at a near-tie
+   of the router (a gap of at most 1e-5 in the CPU's probabilities), its
+   row then left out; the loss within 1e-4 relative, layer 0's attention
+   and MoE gradients (router included) within 1e-3 scaled; then served on
+   both (8 new tokens, the rules of phase 3 with the routes compared: a
+   token divergence is allowed after a near-tie route flip too); then the
+   published olmoe-1b-7b (16 layers, bf16) serving the requests of phase
+   4, with its checks, numbers and profile (the MoE layers' share of the
+   device time), and #1, #4 and #8 held at its calls as in phase 9;
+11. phi3.5-moe parity, then serve-phi35moe: the same for
+   phi3.5-moe-42b-a6.6b (16 experts of d_ff 6400, top-2, 32/8 heads of
+   128), served at its full width cut to 8 of its 32 layers;
+12. train-olmoe: olmoe-1b-7b at full width cut to 8 of its 16 layers
+   (bf16, remat) with AdamW, warmup_cosine(3e-4, 20, 6), clip 1.0, seq
+   2048, batch 4, 6 steps through ``make_train_step`` and the ``Trainer``,
+   with the checks, numbers and profile of phase 6 and the cross-entropy
+   and load-balancing loss of each step apart.
 
 ``--ab PARENT_CHECKOUT`` runs only an A/B against another checkout (e.g.
 ``git archive`` of the parent commit): first both checkouts' kernel
@@ -157,7 +188,7 @@ process, in the order parent, change, change, parent on the same card,
 then each side's per-run numbers (record in
 ``build/chip_smoke_ab.json``).
 
-Prints one JSON line of kernel results (``launches`` summed over the seven
+Prints one JSON line of kernel results (``launches`` summed over the ten
 main paths' runs, per path under ``launches_by_path``), then as its last
 line
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, without
@@ -168,6 +199,7 @@ written to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -962,6 +994,86 @@ def new_shape_kernel_phase(torch, seed: int) -> dict:
     return at
 
 
+def moe_layer_phase(torch, seed: int, card: str) -> dict:
+    """One MoE layer at olmoe-1b-7b's width (64 experts of d_ff 1024,
+    top-8, d 2048, capacity factor 1.25), bf16, forward + backward over
+    train-olmoe's tokens (4 rows of 2048): two calls bit-identical (the
+    dispatch and combine are gathers both ways, no atomics), a third under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync) with the
+    same bits; its device time per call, and the share of it in GEMM
+    kernels (the expert einsums and the router product) beside their
+    bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    dev = torch.device("cuda")
+    cfg = get_config(TRAIN_OLMOE[0])
+    b, s = TRAIN_OLMOE[2], TRAIN_OLMOE[1]
+    gen = torch.Generator(device=dev).manual_seed(seed + 40)
+    params = moe.init_moe(cfg, torch.bfloat16, generator=gen, device=dev)
+    x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    cot = torch.randn(x.shape, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+
+    def run():
+        leaves = {n: t.detach().requires_grad_() for n, t in params.items()}
+        xx = x.detach().requires_grad_()
+        y, aux = moe.apply_moe(leaves, cfg, xx)
+        return (y, aux, *torch.autograd.grad((y * cot).float().sum() + aux,
+                                             [xx, *leaves.values()]))
+
+    first, second = run(), run()
+    same = all(torch.equal(a, c) for a, c in zip(first, second))
+    check(same, "moe layer: two forward + backward calls differ")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        third = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(all(torch.equal(a, c) for a, c in zip(first, third)),
+          "moe layer: the call under set_sync_debug_mode differs")
+    del first, second, third
+    ms = device_ms(torch, [run], iters=5)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    total = sum(_device_us(e) for e in kernels)
+    gemm = sum(_device_us(e) for e in kernels
+               if re.search(r"gemm|xmma|nvjet|cutlass", e.key, re.I))
+    cap = moe.capacity(cfg, s)
+    rows = b * cfg.num_experts * cap
+    # three expert products forward, twice that backward; the router's
+    flops = (18.0 * rows * cfg.d_model * cfg.d_ff
+             + 6.0 * b * s * cfg.d_model * cfg.num_experts)
+    g_bound = flops / BF16_FLOPS_PER_S * 1e3
+    top = sorted(kernels, key=_device_us, reverse=True)[:6]
+    rec = {"shape": f"x ({b}, {s}, {cfg.d_model}) bf16, {cfg.num_experts} "
+                    f"experts of d_ff {cfg.d_ff}, top-{cfg.num_experts_per_token}"
+                    f", capacity {cap} rows an expert a row",
+           "bit_identical": same, "no_host_sync": True, "ms": ms,
+           "gemm_ms": gemm / 1e3 / 5, "gemm_share": gemm / total if total else None,
+           "gemm_bound_ms": g_bound, "card": card,
+           "top": [{"kernel": e.key[:90], "count": e.count // 5,
+                    "device_ms": _device_us(e) / 1e3 / 5} for e in top]}
+    share = (f"{rec['gemm_ms']:.3f} ms ({rec['gemm_share']:.1%})" if total
+             else "not measured (the profile recorded no device time)")
+    print(f"[moe] layer forward + backward at {rec['shape']}: two calls "
+          f"bit-identical, no host sync under set_sync_debug_mode('error'); "
+          f"{ms:.3f} ms on the card a call, GEMM kernels {share}, their "
+          f"bound {g_bound:.3f} ms by operations [{card}]", flush=True)
+    for t in rec["top"]:
+        print(f"[moe]   {t['device_ms']:8.3f} ms  x{t['count']:<4} "
+              f"{t['kernel']}", flush=True)
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phase 2c: the trainable paged prefill's backward kernels
 # ---------------------------------------------------------------------------
@@ -1243,12 +1355,67 @@ def _serve(engine, prompts, n_new, prime: bool):
     return {r.rid: r.output for r in engine.finished}
 
 
+@contextlib.contextmanager
+def watch_routes():
+    """While open, records every MoE layer call's top-k experts and router
+    probabilities (copied to the CPU) in the yielded list:
+    ``repro_torch.models.moe._route`` watched."""
+    from repro_torch.models import moe
+    seen, route = [], moe._route
+
+    def watch(logits, k):
+        out = route(logits, k)
+        seen.append((out[0].cpu(), out[2].cpu()))
+        return out
+
+    moe._route = watch
+    try:
+        yield seen
+    finally:
+        moe._route = route
+
+
+ROUTE_TIE = 1e-5      # a route flip is a near-tie below this probability gap
+
+
+def route_differences(got, want, rows_apart: bool) -> tuple[list, bool]:
+    """Compares two runs' MoE routes, call by call (the same calls in the
+    same order; ``want`` is the CPU's). Every (row, token) whose top-k
+    differs is a flip, with the gap of the CPU's router probabilities at
+    the first differing rank. With ``rows_apart`` (a training forward:
+    rows never mix) a row is followed until its first flip, and later
+    calls' differences in it are its consequences; otherwise (a serve:
+    caches carry a flip to every later call) only the first call with a
+    difference is read. Returns (flips, whether each is a near-tie)."""
+    flips, done = [], set()
+    for c, ((gi, _), (wi, wp)) in enumerate(zip(got, want)):
+        check(gi.shape == wi.shape, f"MoE call {c}: routes of shapes "
+                                    f"{tuple(gi.shape)} and {tuple(wi.shape)}")
+        new = [(b, t) for b, t in (gi != wi).any(-1).nonzero().tolist()
+               if b not in done]
+        for b, t in new:
+            j = int((gi[b, t] != wi[b, t]).nonzero()[0])
+            top = wp[b, t].sort(descending=True).values
+            flips.append({"call": c, "row": b, "token": t, "rank": j,
+                          "gap": float(top[j] - top[j + 1])})
+        done |= {b for b, _ in new}
+        if new and not rows_apart:
+            break
+    return flips, all(f["gap"] <= ROUTE_TIE for f in flips)
+
+
 def parity_phase(torch, seed: int, arch: str = "granite-3-2b",
                  n_new: int = 12, tag: str = "parity") -> dict:
     """``arch`` at full width, 2 layers, float32: the same
     weights (drawn on the card from ``seed``) served by the paged engine on
     ``cuda`` (kernels) and on ``cpu`` (plain versions); greedy tokens must
-    be identical, a divergence allowed only at a near-tie."""
+    be identical, a divergence allowed only at a near-tie. For an MoE arch
+    the routes of every MoE call are compared too (``route_differences``):
+    a route flip is allowed only at a near-tie of the router (a gap of at
+    most ``ROUTE_TIE`` in probability on the CPU's side), and then a token
+    divergence after it is allowed as well; a route difference that is not
+    a near-tie is allowed only after a token divergence at a near-tie of
+    the logits (its consequence)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, params_to
     from repro_torch.serve import ServingEngine
@@ -1270,13 +1437,15 @@ def parity_phase(torch, seed: int, arch: str = "granite-3-2b",
     prompts = [shared + toks(9), toks(150), shared + toks(20), shared + toks(3),
                toks(40)]
     kw = dict(num_slots=4, capacity=256, page_size=16, chunk_size=64)
-    outs = {}
-    engines = {}
+    outs, engines, routes = {}, {}, {}
+    moe = cfg.family == "moe"
     for device in ("cuda", "cpu"):
         p = params if device == "cpu" else params_to(params, device)
         engines[device] = ServingEngine(model, p, device=device, **kw)
         t0 = time.perf_counter()
-        outs[device] = _serve(engines[device], prompts, n_new, prime=True)
+        with watch_routes() if moe else contextlib.nullcontext([]) as seen:
+            outs[device] = _serve(engines[device], prompts, n_new, prime=True)
+        routes[device] = seen
         print(f"[{tag}] {cfg.name} 2 layers float32, {device}: "
               f"{sum(map(len, outs[device].values()))} tokens in "
               f"{time.perf_counter() - t0:.2f}s", flush=True)
@@ -1299,15 +1468,31 @@ def parity_phase(torch, seed: int, arch: str = "granite-3-2b",
               f"cuda {got[i]} cpu {ref[i]}, top-2 logit margin {margin:.3g}",
               flush=True)
         diverged.append({"rid": rid, "step": i, "margin": margin})
-        check(margin < 1e-3, f"request {rid} diverged at step {i} with a "
-                             f"top-2 margin {margin:.3g} (not a near-tie)")
+    flips, near = route_differences(routes["cuda"], routes["cpu"],
+                                    rows_apart=False)
+    logit_ties = all(d["margin"] < 1e-3 for d in diverged)
+    if moe:
+        print(f"[{tag}] {len(routes['cpu'])} MoE calls; first call with a "
+              f"route flip: {flips[0]['call'] if flips else None}, "
+              f"{len(flips)} flips, gaps {[f['gap'] for f in flips]}",
+              flush=True)
+        check(near or (diverged and logit_ties),
+              f"{tag}: a route flip that is not a near-tie ({flips})")
+    for d in diverged:
+        check(d["margin"] < 1e-3 or (flips and near),
+              f"request {d['rid']} diverged at step {d['step']} with a "
+              f"top-2 margin {d['margin']:.3g} (not a near-tie) and no "
+              f"near-tie route flip before")
     print(f"[{tag}] greedy tokens identical: {not diverged} "
           f"({len(outs['cpu'])} requests, near-tie divergences: "
           f"{len(diverged)})", flush=True)
-    return {"model": cfg.name, "layers": cfg.num_layers,
-            "identical": not diverged, "near_tie_divergences": diverged,
-            "requests": len(outs["cpu"]),
-            "prefix_hits": engines["cuda"].prefix_hits}
+    rec = {"model": cfg.name, "layers": cfg.num_layers,
+           "identical": not diverged, "near_tie_divergences": diverged,
+           "requests": len(outs["cpu"]),
+           "prefix_hits": engines["cuda"].prefix_hits}
+    if moe:
+        rec.update(moe_calls=len(routes["cpu"]), route_flips=flips)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1339,6 +1524,14 @@ TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 NEW_TRAIN_PATHS = {"train_bert": ("bert-large", 512, 56),
                    "train_olmo": ("olmo-1b", 2048, 4)}
 SERVE_QWEN3_LAYERS = 8
+# the MoE paths: olmoe-1b-7b is served at its full depth (16 layers, ~13.8
+# GB of bf16 weights) and trained at 8 of its 16 layers (3.56 B parameters:
+# bf16 params and grads and fp32 AdamW moments ~43 GB); phi3.5-moe's 32
+# layers hold ~84 GB of bf16 weights, so it is served at 8 (~21.5 GB).
+# train-olmoe's attention layer, (4, 16, 2048, 128) causal over the packed
+# documents of SyntheticLM(50304, 2048, 4, seed), is train-olmo's.
+SERVE_PHI35MOE_LAYERS = 8
+TRAIN_OLMOE = ("olmoe-1b-7b", 2048, 4, 8)        # arch, seq, batch, layers
 
 
 def serve_phase(torch, seed: int, card: str, arch: str = "granite-3-2b",
@@ -1348,9 +1541,10 @@ def serve_phase(torch, seed: int, card: str, arch: str = "granite-3-2b",
     bf16, random weights drawn on the card from ``seed``, served by the
     paged engine through the kernels; then profiled (``profile_serve``).
     With ``hold_shapes`` the same requests are served once more with the
-    serving kernels' wrappers watched (``capture_calls``), and each kernel
-    is held at the shape of its call that did the most work
-    (``serve_shape_records``, under ``rec["at_shapes"]``)."""
+    serving kernels' wrappers watched (``capture_calls``), and each
+    kernel's call that did the most work is returned under
+    ``rec["calls"]``, for ``serve_shape_records_apart`` to hold the kernels
+    there."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import ServingEngine
@@ -1419,9 +1613,8 @@ def serve_phase(torch, seed: int, card: str, arch: str = "granite-3-2b",
           f"{peak / 2**30:.2f} GiB, prefix hits {eng.prefix_hits}, "
           f"launches {launches} [{card}]", flush=True)
     if hold_shapes:
-        calls = capture_calls(torch, lambda: _serve(
+        rec["calls"] = capture_calls(torch, lambda: _serve(
             ServingEngine(model, params, **kw), prompts, 32, prime=False))
-        rec["at_shapes"] = serve_shape_records_apart(torch, seed, calls, tag)
     return rec, launches
 
 
@@ -1534,19 +1727,22 @@ def back(x):
     return x
 
 
-calls = {{n: (tuple(map(back, a)), kw) for n, (a, kw) in saved["calls"].items()}}
-out = cs.serve_shape_records(torch, saved["seed"], calls, saved["tag"])
+out = {{path: cs.serve_shape_records(
+    torch, saved["seed"],
+    {{n: (tuple(map(back, a)), kw) for n, (a, kw) in calls.items()}}, tag)
+    for path, (tag, calls) in saved["paths"].items()}}
 print("SHAPES " + json.dumps(out))
 """
 
 
-def serve_shape_records_apart(torch, seed: int, calls: dict, tag: str) -> dict:
-    """``serve_shape_records`` in a fresh Python process on the same card.
-    Late in this script's long process ``torch.profiler`` stops recording
-    whole windows (after serve-qwen3's serve it recorded none of these
-    kernels' windows whole in ten tries), where a fresh process records
-    them at once. The captured calls go through a file under ``build/``,
-    q, K and V as ("meta", shape, dtype)."""
+def serve_shape_records_apart(torch, seed: int, paths: dict) -> dict:
+    """``serve_shape_records`` of each serve path, {path: (tag, calls)},
+    in one fresh Python process on the same card; returns {path: {kernel:
+    entry}}. Late in this script's long process ``torch.profiler`` stops
+    recording whole windows (after serve-qwen3's serve it recorded none of
+    these kernels' windows whole in ten tries), where a fresh process
+    records them at once. The captured calls go through a file under
+    ``build/``, q, K and V as ("meta", shape, dtype)."""
     def put(x):
         if not isinstance(x, torch.Tensor):
             return x
@@ -1555,26 +1751,67 @@ def serve_shape_records_apart(torch, seed: int, calls: dict, tag: str) -> dict:
         return x.cpu()
 
     path = ROOT / "build" / "serve_shape_calls.pt"
-    torch.save({"seed": seed, "tag": tag, "calls": {
-        n: (tuple(map(put, a)), {k: put(v) for k, v in kw.items()})
-        for n, (a, kw) in calls.items()}}, path)
+    torch.save({"seed": seed, "paths": {
+        p: (tag, {n: (tuple(map(put, a)), {k: put(v) for k, v in kw.items()})
+                  for n, (a, kw) in calls.items()})
+        for p, (tag, calls) in paths.items()}}, path)
     code = _SHAPES_RUN.format(src=str(ROOT / "src"), here=str(ROOT),
                               path=str(path))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=600)
+                         capture_output=True, text=True, timeout=900)
     lines = out.stdout.splitlines()
     for x in lines:
         if not x.startswith("SHAPES "):
             print(x, flush=True)
     line = [x for x in lines if x.startswith("SHAPES ")]
     check(out.returncode == 0 and len(line) == 1,
-          f"the {tag} shape records failed: {out.stderr[-3000:]}")
+          f"the serves' shape records failed: {out.stderr[-3000:]}")
     return json.loads(line[0][len("SHAPES "):])
 
 
 def _device_us(e) -> float:
     return getattr(e, "self_device_time_total", None) or \
         getattr(e, "self_cuda_time_total", 0.0)
+
+
+@contextlib.contextmanager
+def moe_ranges(torch):
+    """While open, every MoE layer call runs inside a ``torch.profiler``
+    range named "moe" (``repro_torch.models.moe.apply_moe`` wrapped)."""
+    from repro_torch.models import moe
+    apply = moe.apply_moe
+
+    def ranged(*a, **kw):
+        with torch.profiler.record_function("moe"):
+            return apply(*a, **kw)
+
+    moe.apply_moe = ranged
+    try:
+        yield
+    finally:
+        moe.apply_moe = apply
+
+
+def device_kernels(prof) -> list:
+    """The device kernels of a profile by name, without the profiler's
+    device-side copies of ``moe_ranges``' ranges."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key != "moe"]
+
+
+def moe_share(prof, busy_us: float) -> dict:
+    """Device time of the kernels launched inside ``moe_ranges``' ranges
+    (the MoE forwards, with remat their recomputation too; a backward's
+    kernels are launched outside them), and its share of the device's busy
+    time."""
+    from torch.autograd import DeviceType
+    us = sum(getattr(e, "device_time_total", None) or
+             getattr(e, "cuda_time_total", 0.0)
+             for e in prof.events()
+             if e.name == "moe" and e.device_type == DeviceType.CPU)
+    return {"moe_device_s": us / 1e6,
+            "moe_share_of_busy": us / busy_us if us > 0 else None}
 
 
 PROFILED_NEW_TOKENS = 8
@@ -1587,7 +1824,6 @@ def profile_serve(torch, model, params, prompts, kw) -> dict:
     busy share of the wall time, device time per launch of each ported
     kernel, and the kernels that take the most device time. Launch counters
     are not read here."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serve import ServingEngine
@@ -1595,15 +1831,16 @@ def profile_serve(torch, model, params, prompts, kw) -> dict:
     eng = ServingEngine(model, params, **kw)
     for p in prompts:
         eng.submit(p, max_new_tokens=PROFILED_NEW_TOKENS)
+    moe = model.cfg.family == "moe"
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            (moe_ranges(torch) if moe else contextlib.nullcontext()):
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy_us = sum(_device_us(e) for e in kernels)
     if busy_us <= 0:
         print("[profile] the profiler recorded no device time: not measured",
@@ -1628,9 +1865,13 @@ def profile_serve(torch, model, params, prompts, kw) -> dict:
            "new_tokens_per_request": PROFILED_NEW_TOKENS,
            "top": [{"kernel": e.key[:90], "count": e.count,
                     "device_ms": _device_us(e) / 1e3} for e in top]}
+    if moe:
+        out.update(moe_share(prof, busy_us))
     print(f"[profile] serve under torch.profiler: wall {wall_us / 1e6:.2f}s, "
           f"device busy {busy_us / 1e6:.3f}s ({busy_us / wall_us:.1%}); "
-          f"ported kernels {json.dumps(per_kernel)}", flush=True)
+          f"ported kernels {json.dumps(per_kernel)}"
+          + (f"; MoE layers {out['moe_device_s']:.3f}s of the busy time "
+             f"({out['moe_share_of_busy']})" if moe else ""), flush=True)
     for t in out["top"]:
         print(f"[profile]   {t['device_ms']:9.2f} ms  x{t['count']:<6} "
               f"{t['kernel']}", flush=True)
@@ -1828,6 +2069,76 @@ def train_parity_phase(torch, seed: int, arch: str = "granite-3-2b",
             "grad_scaled_diff": gerr}
 
 
+MOE_GRADS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
+             ("moe", "router"), ("moe", "w_gate"), ("moe", "w_up"),
+             ("moe", "w_down"))
+
+
+def moe_train_parity_phase(torch, seed: int, arch: str, tag: str) -> dict:
+    """The MoE ``arch`` at full width, 2 layers, float32, remat on: the
+    same weights (drawn on the card from ``seed``) and one packed
+    ``SyntheticLM`` batch (seq 256, batch 2) through the loss and its
+    gradients on ``cuda`` (kernels) and on ``cpu`` (plain versions), each
+    MoE call's routes watched. Every route flip must be a near-tie
+    (``route_differences``, rows apart); the rows with one are then left
+    out and the loss and gradients taken again on the others. The loss
+    within 1e-4 relative; layer 0's attention and MoE gradients (router
+    included) within 1e-3 scaled by their max."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model, params_to
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                              dtype="float32", attn_impl="pallas")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        device="cpu")
+    batch = SyntheticLM(cfg.vocab_size, 256, 2, seed=seed + 3).batch_at(0)
+
+    def run(rows=None):
+        b = batch if rows is None else {k: v[rows] for k, v in batch.items()}
+        out = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            p = params_to(params, device)
+            with watch_routes() as seen:
+                loss, g = _grads(torch, model, p, b)
+            out[device] = {"loss": loss, "routes": seen, "grads": {
+                n: g["blocks"][0][m][n].cpu() for m, n in MOE_GRADS}}
+            del p, g
+            print(f"[{tag}] {cfg.name} 2 layers float32, {device}: loss "
+                  f"{loss} in {time.perf_counter() - t0:.1f}s", flush=True)
+        return out
+
+    out = run()
+    flips, near = route_differences(out["cuda"]["routes"],
+                                    out["cpu"]["routes"], rows_apart=True)
+    print(f"[{tag}] {len(out['cpu']['routes'])} MoE calls, route flips "
+          f"{flips}", flush=True)
+    check(near, f"{tag}: a route flip that is not a near-tie ({flips})")
+    rows = None
+    if flips:
+        rows = [r for r in range(2) if r not in {f["row"] for f in flips}]
+        check(bool(rows), f"{tag}: every row has a route flip")
+        out = run(rows)
+    rel = abs(out["cuda"]["loss"] - out["cpu"]["loss"]) / abs(out["cpu"]["loss"])
+    gerr = {n: scaled_err(out["cuda"]["grads"][n], out["cpu"]["grads"][n])
+            for _, n in MOE_GRADS}
+    print(f"[{tag}] loss relative difference {rel:.3g} (rows "
+          f"{rows or 'all'}); layer-0 scaled grad differences {gerr}",
+          flush=True)
+    check(rel <= 1e-4, f"{tag}: losses differ by {rel} > 1e-4")
+    check(max(gerr.values()) <= 1e-3,
+          f"{tag}: layer-0 grads differ by {gerr} > 1e-3")
+    return {"model": cfg.name, "loss_cuda": out["cuda"]["loss"],
+            "loss_cpu": out["cpu"]["loss"], "loss_rel_diff": rel,
+            "grad_scaled_diff": gerr, "route_flips": flips,
+            "rows_compared": rows or [0, 1],
+            "moe_calls": len(out["cpu"]["routes"])}
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the published model, trained through the kernels
 # ---------------------------------------------------------------------------
@@ -1857,33 +2168,61 @@ def bert_train_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     """The published bert-large (24 layers, bf16, remat, non-causal over
     ``SyntheticLM``'s packed documents) with the MLPerf-BERT recipe
     (``lamb_recipe``, clip 1.0, deterministic) at seq 512 and batch 56 (the
-    MLPerf step batch of 448 over the paper's 8 cards), 6 steps, through
-    ``make_train_step`` and the ``Trainer`` (``train_path``)."""
+    MLPerf step batch of 448 over the paper's 8 cards), 6 steps
+    (``trainer_phase``)."""
     from repro_torch.configs import get_config
+
+    arch, seq, batch = NEW_TRAIN_PATHS["train_bert"]
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
+    return trainer_phase(torch, seed, card, "train-bert", cfg, seq, batch,
+                         lamb_recipe,
+                         "LAMB, warmup_poly(3.75e-3, 10, 7100), clip 1.0")
+
+
+def olmoe_train_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
+    """olmoe-1b-7b at its published width (64 experts of d_ff 1024, top-8,
+    16 heads of 128, untied head, bf16, remat) cut to 8 of its 16 layers,
+    with the launcher's recipe (AdamW, warmup_cosine(3e-4, 20, 6), clip
+    1.0), seq 2048, batch 4, 6 steps (``trainer_phase``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw, warmup_cosine
+
+    arch, seq, batch, layers = TRAIN_OLMOE
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              attn_impl="pallas")
+    return trainer_phase(torch, seed, card, "train-olmoe", cfg, seq, batch,
+                         lambda: adamw(warmup_cosine(3e-4, 20, 6)),
+                         "AdamW, warmup_cosine(3e-4, 20, 6), clip 1.0")
+
+
+def trainer_phase(torch, seed: int, card: str, tag: str, cfg, seq: int,
+                  batch: int, recipe, recipe_text: str) -> tuple[dict, dict]:
+    """``cfg`` with weights drawn on the card from ``seed``, trained 6 steps
+    through ``make_train_step`` (``recipe()``, clip 1.0, deterministic) and
+    the ``Trainer`` on ``SyntheticLM`` batches (``train_path``)."""
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model
     from repro_torch.train import Trainer, TrainerConfig, make_train_step
 
-    arch, seq, batch = NEW_TRAIN_PATHS["train_bert"]
     steps = 6
-    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas")
 
     def run():
         model = build_model(cfg)
         params = model.init(torch.Generator(device="cuda").manual_seed(seed),
                             device="cuda")
-        opt = lamb_recipe()
+        opt = recipe()
         step = make_train_step(model, opt, clip_norm=1.0, deterministic=True)
         data = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
         trainer = Trainer(
             TrainerConfig(total_steps=steps, ckpt_every=1000000,
-                          ckpt_dir=str(ROOT / "build" / "chip_smoke_bert_ckpt")),
+                          ckpt_dir=str(ROOT / "build" /
+                                       f"chip_smoke_{tag}_ckpt")),
             step, params, opt.init(params), data.batch_at)
         trainer.run()
         return trainer
 
-    return train_path(torch, "train-bert", cfg, run, seq, batch, steps,
-                      "LAMB, warmup_poly(3.75e-3, 10, 7100), clip 1.0", card)
+    return train_path(torch, tag, cfg, run, seq, batch, steps, recipe_text,
+                      card)
 
 
 def train_path(torch, tag, cfg, run, seq, batch, steps, recipe,
@@ -1924,6 +2263,10 @@ def train_path(torch, tag, cfg, run, seq, batch, steps, recipe,
           f"{hist[-1]['loss']:.4f}; {ms_step:.1f} ms/step, {tok_s:.0f} "
           f"tokens/s over steps 2-{steps}; peak memory {peak / 2**30:.2f} GiB; "
           f"launches {launches} ({per_step} a step) [{card}]", flush=True)
+    if cfg.family == "moe":
+        print(f"[{tag}] cross-entropy {[round(r['ce'], 4) for r in hist]}, "
+              f"load-balancing aux {[round(r['aux'], 4) for r in hist]}",
+              flush=True)
     profile = profile_train(torch, trainer)
     rec = {"model": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
            "remat": cfg.remat, "causal": cfg.causal, "recipe": recipe,
@@ -1934,6 +2277,8 @@ def train_path(torch, tag, cfg, run, seq, batch, steps, recipe,
            "ms_per_step": ms_step, "tokens_per_s": tok_s, "wall_s": wall,
            "peak_memory_bytes": peak, "launches_per_step": per_step,
            "profile": profile, "card": card}
+    if cfg.family == "moe":
+        rec.update(ce=[r["ce"] for r in hist], aux=[r["aux"] for r in hist])
     return rec, launches
 
 
@@ -1941,21 +2286,21 @@ def profile_train(torch, trainer) -> dict:
     """One more train step under ``torch.profiler`` (not counted in the
     numbers above): device busy share of its wall time and the kernels
     that take the most device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     b = trainer.batch_fn(trainer.step)              # the next batch of the run
+    moe = "moe" in trainer.params["blocks"][0]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            (moe_ranges(torch) if moe else contextlib.nullcontext()):
         t0 = time.perf_counter()
         trainer.params, trainer.opt_state, metrics = trainer.step_fn(
             trainer.params, trainer.opt_state, b)
         float(metrics["loss"])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy_us = sum(_device_us(e) for e in kernels)
     if busy_us <= 0:
         print("[profile] the profiler recorded no device time: not measured",
@@ -1966,9 +2311,13 @@ def profile_train(torch, trainer) -> dict:
            "busy_share": busy_us / wall_us,
            "top": [{"kernel": e.key[:90], "count": e.count,
                     "device_ms": _device_us(e) / 1e3} for e in top]}
+    if moe:
+        out.update(moe_share(prof, busy_us))
     print(f"[profile] one train step under torch.profiler: wall "
           f"{wall_us / 1e6:.3f}s, device busy {busy_us / 1e6:.3f}s "
-          f"({busy_us / wall_us:.1%})", flush=True)
+          f"({busy_us / wall_us:.1%})"
+          + (f"; MoE layer forwards {out['moe_device_s']:.3f}s "
+             f"({out['moe_share_of_busy']})" if moe else ""), flush=True)
     for t in out["top"]:
         print(f"[profile]   {t['device_ms']:9.2f} ms  x{t['count']:<6} "
               f"{t['kernel']}", flush=True)
@@ -2324,43 +2673,88 @@ def main() -> int:
     decode_build = decode_build_counts(torch, procs["flash_decode"],
                                        cubins["flash_decode"])
 
+    laps = {}
+
+    def lap(name: str) -> None:
+        """Frees what the phase left (``release``) and notes when it
+        ended, in seconds since the start."""
+        release(torch)
+        laps[name] = time.perf_counter() - t_start
+        print(f"[time] {name} ended at {laps[name]:.1f}s", flush=True)
+
     kernels = kernel_phase(torch, args.seed)
     bwd_kernels, fwd_train = train_kernel_phase(torch, args.seed)
     kernels[0]["at_train_shape"] = fwd_train
     kernels += bwd_kernels
     kernels += paged_grad_kernel_phase(torch, args.seed)
-    release(torch)
+    lap("kernels")
     at_shapes = new_shape_kernel_phase(torch, args.seed)
-    release(torch)
+    lap("kernels_at_shapes")
+    moe_layer = moe_layer_phase(torch, args.seed, card)
+    lap("moe_layer")
     paths = {"paged_grad": paged_grad_phase(torch, args.seed)}
-    release(torch)
+    lap("paged_grad")
     parity = parity_phase(torch, args.seed)
     serve, paths["serve"] = serve_phase(torch, args.seed, card)
-    release(torch)
+    lap("serve")
     dense_parity = dense_parity_phase(torch, args.seed)
     dense_serve, paths["dense_serve"] = dense_serve_phase(torch, args.seed,
                                                           card)
-    release(torch)
+    lap("dense_serve")
     train_parity = train_parity_phase(torch, args.seed)
     train, paths["train"] = train_phase(torch, args.seed, card)
-    release(torch)
+    lap("train")
     bert_parity = train_parity_phase(torch, args.seed, "bert-large",
                                      lamb_recipe, tag="bert-parity")
     train_bert, paths["train_bert"] = bert_train_phase(torch, args.seed, card)
-    release(torch)
+    lap("train_bert")
     olmo_parity = train_parity_phase(torch, args.seed, "olmo-1b",
                                      tag="olmo-parity")
     train_olmo, paths["train_olmo"] = train_phase(
         torch, args.seed, card, arch="olmo-1b", tag="train-olmo")
-    release(torch)
+    lap("train_olmo")
     qwen3_parity = parity_phase(torch, args.seed, "qwen3-32b", n_new=8,
                                 tag="qwen3-parity")
-    release(torch)
+    lap("qwen3_parity")
     serve_qwen3, paths["serve_qwen3"] = serve_phase(
         torch, args.seed, card, arch="qwen3-32b",
         num_layers=SERVE_QWEN3_LAYERS, tag="serve-qwen3", hold_shapes=True)
-    for name, entry in serve_qwen3.pop("at_shapes").items():
-        at_shapes.setdefault(name, {})["serve_qwen3"] = entry
+    lap("serve_qwen3")
+    olmoe_train_parity = moe_train_parity_phase(
+        torch, args.seed, "olmoe-1b-7b", tag="olmoe-train-parity")
+    lap("olmoe_train_parity")
+    olmoe_parity = parity_phase(torch, args.seed, "olmoe-1b-7b", n_new=8,
+                                tag="olmoe-parity")
+    lap("olmoe_parity")
+    serve_olmoe, paths["serve_olmoe"] = serve_phase(
+        torch, args.seed, card, arch="olmoe-1b-7b", tag="serve-olmoe",
+        hold_shapes=True)
+    lap("serve_olmoe")
+    phi35moe_train_parity = moe_train_parity_phase(
+        torch, args.seed, "phi3.5-moe-42b-a6.6b", tag="phi35moe-train-parity")
+    lap("phi35moe_train_parity")
+    phi35moe_parity = parity_phase(torch, args.seed, "phi3.5-moe-42b-a6.6b",
+                                   n_new=8, tag="phi35moe-parity")
+    lap("phi35moe_parity")
+    serve_phi35moe, paths["serve_phi35moe"] = serve_phase(
+        torch, args.seed, card, arch="phi3.5-moe-42b-a6.6b",
+        num_layers=SERVE_PHI35MOE_LAYERS, tag="serve-phi35moe",
+        hold_shapes=True)
+    lap("serve_phi35moe")
+    train_olmoe, paths["train_olmoe"] = olmoe_train_phase(torch, args.seed,
+                                                          card)
+    lap("train_olmoe")
+    serves = {"serve_qwen3": serve_qwen3, "serve_olmoe": serve_olmoe,
+              "serve_phi35moe": serve_phi35moe}
+    held = serve_shape_records_apart(torch, args.seed, {
+        path: (path.replace("_", "-"), rec.pop("calls"))
+        for path, rec in serves.items()})
+    for path, entries in held.items():
+        for name, entry in entries.items():
+            at_shapes.setdefault(name, {})[path] = entry
+    lap("serve_shape_records")
+    for name in TRAIN_KERNELS:       # train-olmoe's attention is train-olmo's
+        at_shapes[name]["train_olmoe"] = dict(at_shapes[name]["train_olmo"])
     for rec in kernels:
         by_path = {p: launches[rec["name"]] for p, launches in paths.items()}
         rec["launches"] = sum(by_path.values())
@@ -2381,8 +2775,13 @@ def main() -> int:
               "train": train, "bert_parity": bert_parity,
               "train_bert": train_bert, "olmo_parity": olmo_parity,
               "train_olmo": train_olmo, "qwen3_parity": qwen3_parity,
-              "serve_qwen3": serve_qwen3,
-              "total_s": time.perf_counter() - t_start}
+              "serve_qwen3": serve_qwen3, "moe_layer": moe_layer,
+              "olmoe_train_parity": olmoe_train_parity,
+              "olmoe_parity": olmoe_parity, "serve_olmoe": serve_olmoe,
+              "phi35moe_train_parity": phi35moe_train_parity,
+              "phi35moe_parity": phi35moe_parity,
+              "serve_phi35moe": serve_phi35moe, "train_olmoe": train_olmoe,
+              "phase_end_s": laps, "total_s": time.perf_counter() - t_start}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(f"[done] total {record['total_s']:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

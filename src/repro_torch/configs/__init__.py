@@ -1,7 +1,8 @@
 """Architecture registry of the port: the dense decoders of the JAX
-package (``olmo-1b``, ``internlm2-20b``, ``granite-3-2b``, ``qwen3-32b``)
-and the paper's own models (``gpt2-small``, ``gpt2-medium``,
-``bert-large``). ``get_config(name)`` / ``reduced_config(name)`` mirror
+package (``olmo-1b``, ``internlm2-20b``, ``granite-3-2b``, ``qwen3-32b``),
+its mixture-of-experts decoders (``olmoe-1b-7b``,
+``phi3.5-moe-42b-a6.6b``) and the paper's own models (``gpt2-small``,
+``gpt2-medium``, ``bert-large``). ``get_config(name)`` / ``reduced_config(name)`` mirror
 ``repro.configs``."""
 
 from __future__ import annotations
@@ -12,13 +13,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.granite_3_2b import CONFIG as _granite_3_2b
 from repro_torch.configs.internlm2_20b import CONFIG as _internlm2_20b
 from repro_torch.configs.olmo_1b import CONFIG as _olmo_1b
+from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
 from repro_torch.configs.paper_models import (BERT_LARGE, GPT2_MEDIUM,
                                               GPT2_SMALL)
+from repro_torch.configs.phi3_5_moe_42b import CONFIG as _phi35moe
 from repro_torch.configs.qwen3_32b import CONFIG as _qwen3_32b
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in [_olmo_1b, _internlm2_20b, _granite_3_2b, _qwen3_32b,
-                        GPT2_SMALL, GPT2_MEDIUM, BERT_LARGE]}
+                        _olmoe, _phi35moe, GPT2_SMALL, GPT2_MEDIUM,
+                        BERT_LARGE]}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -33,8 +37,8 @@ def list_archs() -> list[str]:
 
 def reduced_config(name: str, **overrides) -> ModelConfig:
     """Family-faithful tiny config for CPU tests: same structure (GQA
-    ratio, norm, MLP, head, causality), small dims — the same reduction as
-    ``repro.configs``."""
+    ratio, norm, MLP, head, causality, top-k routing), small dims — the
+    same reduction as ``repro.configs`` (at most 8 experts, top-2)."""
     cfg = get_config(name)
     heads = min(cfg.num_heads, 4)
     ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
@@ -47,6 +51,8 @@ def reduced_config(name: str, **overrides) -> ModelConfig:
         d_ff=128,
         vocab_size=256,
         window=min(cfg.window, 64) if cfg.window else None,
+        num_experts=min(cfg.num_experts, 8),
+        num_experts_per_token=min(cfg.num_experts_per_token, 2),
         dtype="float32",
         remat=False,
     )

@@ -1,8 +1,10 @@
-"""Model configuration of the port's dense decoders (the dense-decoder
-part of ``repro.configs.base``): pre-norm blocks (RMSNorm, LayerNorm or
-non-parametric LayerNorm, eps 1e-5), RoPE, grouped-query attention with
-optional qk-norm and a decoupled head_dim, a SwiGLU, GeGLU or GELU MLP,
-and a tied or separate output head.
+"""Model configuration of the port's decoders (the dense and
+mixture-of-experts parts of ``repro.configs.base``): pre-norm blocks
+(RMSNorm, LayerNorm or non-parametric LayerNorm, eps 1e-5), RoPE,
+grouped-query attention with optional qk-norm and a decoupled head_dim, a
+SwiGLU, GeGLU or GELU MLP (``family="dense"``) or a top-k routed SwiGLU
+mixture of experts with capacity-factor dropping (``family="moe"``), and a
+tied or separate output head.
 
 Defaults match the JAX package, including ``attn_impl="chunked"``,
 ``use_decode_kernel=False`` and ``remat=True``: with the first two the
@@ -21,7 +23,7 @@ from typing import Literal
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: Literal["dense"]
+    family: Literal["dense", "moe"]
     num_layers: int
     d_model: int
     num_heads: int
@@ -47,6 +49,12 @@ class ModelConfig:
     # norms / mlp
     norm_type: Literal["rmsnorm", "layernorm", "layernorm_np"] = "rmsnorm"
     mlp_type: Literal["swiglu", "geglu", "gelu"] = "swiglu"
+
+    # MoE (family "moe"): experts of d_ff each, top-k per token, expert
+    # buffers of capacity_factor * s * k / num_experts rows per sequence
+    num_experts: int = 0
+    num_experts_per_token: int = 0
+    moe_capacity_factor: float = 1.25
 
     tie_embeddings: bool = True         # False: a separate (d_model, V) head
     dtype: str = "bfloat16"

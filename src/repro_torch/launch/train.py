@@ -7,7 +7,8 @@
         --steps 20 --seq 64 --batch 4
 
 The flags follow the JAX launcher's (``repro.launch.train``; default arch
-``olmo-1b``, any arch of ``repro_torch.configs``), with one difference:
+``olmo-1b``, any arch of ``repro_torch.configs``, the MoE ones printing
+their cross-entropy and load-balancing loss apart), with one difference:
 without ``--reduced`` the PUBLISHED config is built at full width and
 depth (random weights from ``--seed``) on one device; the production-mesh
 path (``--full`` on a TPU slice: TP/DP/EP + ZeRO-1) is not ported.
@@ -94,7 +95,9 @@ def main(argv=None) -> Trainer:
         # one process frees each run's memory with its Trainer
         signal.signal(signal.SIGTERM, previous)
     for rec in hist[:: max(1, len(hist) // 10)]:
-        print(f"step {rec['step']:>5}  loss {rec['loss']:.4f}  grad_norm "
+        moe = (f"  ce {rec['ce']:.4f}  aux {rec['aux']:.4f}"
+               if cfg.family == "moe" else "")
+        print(f"step {rec['step']:>5}  loss {rec['loss']:.4f}{moe}  grad_norm "
               f"{rec['grad_norm']:.3f}  {rec['step_time_s'] * 1e3:.0f} ms/step",
               flush=True)
     if trainer.slow_steps:

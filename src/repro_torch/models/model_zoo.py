@@ -1,4 +1,4 @@
-"""Top-level dense decoder Model (port of the dense parts of
+"""Top-level decoder Model (port of the dense and MoE parts of
 ``repro.models.model_zoo``): init, ``forward``/``loss`` for training,
 prefill into a slot cache, packed prefill, chunked prefill against the
 page pool, decode against either cache, and ``params_from_jax``.
@@ -206,13 +206,16 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> Params:
     """The JAX package's parameter pytree (leaves as numpy arrays) -> this
     package's params. Blocks stacked on a leading layer axis (``init_stack``
     under ``scan_layers``) are unstacked into a per-layer list; a list of
-    blocks is taken as is. Leaves are cast to the config's dtype through
-    float32 (lossless for bf16 and f32)."""
+    blocks is taken as is. A float32 leaf stays float32 (the reference
+    keeps some in a bf16 model: the MoE router); every other leaf is cast
+    to the config's dtype through float32 (lossless for bf16 and f32)."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
 
     def conv(a):
-        return torch.from_numpy(np.array(a, np.float32)).to(dev, dtype)
+        a = np.asarray(a)
+        to = torch.float32 if a.dtype == np.float32 else dtype
+        return torch.from_numpy(np.array(a, np.float32)).to(dev, to)
 
     blocks = np_tree["blocks"]
     if isinstance(blocks, dict):

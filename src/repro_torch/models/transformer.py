@@ -1,7 +1,10 @@
-"""Dense decoder stack (port of the dense parts of
+"""Decoder stack (port of the dense and MoE parts of
 ``repro.models.transformer``): pre-norm attention + MLP blocks (norm and
-MLP by ``cfg.norm_type`` / ``cfg.mlp_type``), run as a
-plain loop over layers (the JAX package scans over stacked layers). With
+MLP by ``cfg.norm_type`` / ``cfg.mlp_type``), or attention + MoE blocks
+for ``family="moe"``, run as a plain loop over layers (the JAX package
+scans over stacked layers). The training stack sums the MoE layers'
+load-balancing losses; the serving stacks drop them, as the reference
+does. With
 ``cfg.remat`` the training stack checkpoints every block
 (``torch.utils.checkpoint``, non-reentrant: only the block's input is
 kept and the block runs again in the backward), as the JAX package's
@@ -16,6 +19,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention_layer as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
                                        init_norm)
 
@@ -24,17 +28,27 @@ Params = dict[str, Any]
 
 def init_block(cfg: ModelConfig, dtype, *, generator, device) -> Params:
     kw = dict(generator=generator, device=device)
-    return {
+    p = {
         "attn_norm": init_norm(cfg.d_model, cfg.norm_type, dtype, device),
         "attn": attn_mod.init_attention(cfg, dtype, **kw),
         "mlp_norm": init_norm(cfg.d_model, cfg.norm_type, dtype, device),
-        "mlp": init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, **kw),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.init_moe(cfg, dtype, **kw)
+    else:
+        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, **kw)
+    return p
 
 
-def _mlp_residual(params: Params, cfg: ModelConfig, x):
+def _ffn_residual(params: Params, cfg: ModelConfig, x):
+    """x plus the block's MLP, or MoE, of its normalised self. Returns (x,
+    aux): the MoE's load-balancing loss, or None for an MLP (the serving
+    stacks drop it)."""
     h = apply_norm(params["mlp_norm"], x, cfg.norm_type)
-    return x + apply_mlp(params["mlp"], h, cfg.mlp_type)
+    if "moe" in params:
+        y, aux = moe_mod.apply_moe(params["moe"], cfg, h)
+        return x + y, aux
+    return x + apply_mlp(params["mlp"], h, cfg.mlp_type), None
 
 
 def apply_block(params: Params, cfg: ModelConfig, x, *, segment_ids=None,
@@ -46,8 +60,10 @@ def apply_block(params: Params, cfg: ModelConfig, x, *, segment_ids=None,
                                      segment_ids=segment_ids,
                                      deterministic=deterministic,
                                      dropout_seed=dropout_seed)
-    return _mlp_residual(params, cfg, x), torch.zeros((), dtype=torch.float32,
-                                                      device=x.device)
+    x, aux = _ffn_residual(params, cfg, x)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def apply_stack(blocks: list[Params], cfg: ModelConfig, x, *,
@@ -82,7 +98,7 @@ def apply_block_prefill(params: Params, cfg: ModelConfig, x,
     a, kv = attn_mod.prefill_attention(params["attn"], cfg, h, cache,
                                        segment_ids=segment_ids,
                                        positions=positions)
-    return _mlp_residual(params, cfg, x + a), {"kv": kv}
+    return _ffn_residual(params, cfg, x + a)[0], {"kv": kv}
 
 
 def apply_stack_prefill(blocks: list[Params], cfg: ModelConfig, x,
@@ -116,7 +132,7 @@ def apply_block_decode(params: Params, cfg: ModelConfig, x, cache, kv_len):
     h = apply_norm(params["attn_norm"], x, cfg.norm_type)
     a, cache = attn_mod.decode_attention_step(params["attn"], cfg, h, cache,
                                               kv_len)
-    return _mlp_residual(params, cfg, x + a), cache
+    return _ffn_residual(params, cfg, x + a)[0], cache
 
 
 def apply_stack_decode(blocks: list[Params], cfg: ModelConfig, x, caches,
@@ -156,7 +172,7 @@ def apply_stack_chunk_prefill(blocks: list[Params], cfg: ModelConfig, x,
         a, _ = attn_mod.chunk_prefill_attention_step(
             p_l["attn"], cfg, h, _layer_pool(caches, l), dest_page, dest_off,
             page_list, q_seg, kv_seg, q_pos, kv_pos)
-        x = _mlp_residual(p_l, cfg, x + a)
+        x = _ffn_residual(p_l, cfg, x + a)[0]
     return x, caches
 
 
@@ -168,5 +184,5 @@ def apply_stack_decode_paged(blocks: list[Params], cfg: ModelConfig, x,
         h = apply_norm(p_l["attn_norm"], x, cfg.norm_type)
         a, _ = attn_mod.paged_decode_attention_step(
             p_l["attn"], cfg, h, _layer_pool(caches, l), page_table, kv_len)
-        x = _mlp_residual(p_l, cfg, x + a)
+        x = _ffn_residual(p_l, cfg, x + a)[0]
     return x, caches

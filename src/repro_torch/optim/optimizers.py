@@ -36,11 +36,17 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that brings a global norm of ``norm`` to at most
+    ``max_norm``."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree, max_norm: float):
     """(fp32 grads scaled so their global norm is at most ``max_norm``,
     the norm before clipping)."""
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = clip_scale(norm, max_norm)
     return tree_map(lambda g: g.float() * scale, tree), norm
 
 

@@ -4,6 +4,15 @@ One device, eager: the loss and its gradient with respect to every
 parameter (``torch.autograd.grad``), optional gradient accumulation as a
 loop over microbatches, global-norm clipping, then the optimizer update.
 The dropout seed is the optimizer step, as in the JAX package. The
+metrics are the reference's: loss, ce, aux (the MoE load-balancing loss,
+0 for dense models), tokens and grad_norm.
+
+Clipping, update and apply go piece by piece (each top-level entry of the
+params, each block), so the fp32 clipped gradients and updates of only one
+piece exist at a time: at olmoe-1b-7b's width that is ~3.4 GB instead of
+8 bytes a parameter. The global norm is taken over every gradient first,
+and both optimizers work leaf by leaf, so the result is the same as
+clipping and updating the whole tree at once. The
 sharded and ZeRO-1 step factories wait for the tensor/data-parallel slice
 (ROADMAP.md).
 """
@@ -15,7 +24,51 @@ import torch
 from repro_torch.core.tree import tree_leaves, tree_map, with_leaves
 from repro_torch.models.model_zoo import Model
 from repro_torch.optim.optimizers import (Optimizer, apply_updates,
-                                          clip_by_global_norm)
+                                          clip_scale, global_norm)
+
+
+def _pieces(tree) -> list[tuple]:
+    """Keys of the tree's top-level entries, a list's items one by one."""
+    keys = []
+    for k, v in tree.items():
+        if isinstance(v, list):
+            keys += [(k, i) for i in range(len(v))]
+        else:
+            keys.append((k,))
+    return keys
+
+
+def _get(tree, key):
+    return tree[key[0]] if len(key) == 1 else tree[key[0]][key[1]]
+
+
+def _set(tree, key, value) -> None:
+    if len(key) == 1:
+        tree[key[0]] = value
+    else:
+        tree[key[0]][key[1]] = value
+
+
+def _clip_update_apply(optimizer: Optimizer, grads, opt_state, params,
+                       clip_norm: float):
+    """Global-norm clipping, the optimizer update and its application, one
+    piece (``_pieces``) at a time; each piece's gradients are released once
+    it is done. Returns (new params, opt_state, norm before clipping)."""
+    norm = global_norm(grads)
+    scale = clip_scale(norm, clip_norm)
+    step = opt_state["step"]
+    new = {k: list(v) if isinstance(v, list) else v
+           for k, v in params.items()}
+    for key in _pieces(params):
+        g = tree_map(lambda x: x.float() * scale, _get(grads, key))
+        _set(grads, key, None)
+        state = {"step": step, "mu": _get(opt_state["mu"], key),
+                 "nu": _get(opt_state["nu"], key)}
+        updates, state = optimizer.update(g, state, _get(params, key))
+        del g
+        _set(new, key, apply_updates(_get(params, key), updates))
+    opt_state["step"] = state["step"]
+    return new, opt_state, norm
 
 
 def make_train_step(model: Model, optimizer: Optimizer, *,
@@ -55,10 +108,8 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
                 m = {k: v / grad_accum for k, v in m.items()}
                 metrics = m if metrics is None else {
                     k: metrics[k] + m[k] for k in m}
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        del grads
-        params = apply_updates(params, updates)
+        params, opt_state, gnorm = _clip_update_apply(
+            optimizer, grads, opt_state, params, clip_norm)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
         return params, opt_state, metrics

@@ -1,8 +1,10 @@
 """The port's architecture registry against the JAX package's: every
 field the two ``ModelConfig`` classes share is equal for each of the seven
-dense archs, at the published size and after ``reduced_config`` (also with
-overrides), and the config's ``window`` reaches the ``AttentionSpec`` the
-attention layer builds, as in the reference."""
+dense archs and the two MoE archs, at the published size and after
+``reduced_config`` (also with overrides), the reduction clamps the experts
+to 8 and the top-k to 2 as the reference's does, and the config's
+``window`` reaches the ``AttentionSpec`` the attention layer builds, as
+in the reference."""
 
 import dataclasses
 
@@ -17,6 +19,7 @@ from repro_torch.models.attention_layer import attn_spec_from_config
 
 DENSE = ["granite-3-2b", "olmo-1b", "qwen3-32b", "internlm2-20b",
          "gpt2-small", "gpt2-medium", "bert-large"]
+MOE = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"]
 
 
 def _shared(port_cfg, jax_cfg):
@@ -28,18 +31,22 @@ def _shared(port_cfg, jax_cfg):
 
 
 def test_registry_holds_the_dense_archs():
-    assert sorted(ARCHS) == sorted(DENSE) == list_archs()
+    """The dense archs, and beside them the MoE archs, under the
+    reference's names and families."""
+    assert sorted(ARCHS) == sorted(DENSE + MOE) == list_archs()
+    assert {a for a in ARCHS if get_config(a).family == "dense"} == set(DENSE)
+    assert {a for a in ARCHS if get_config(a).family == "moe"} == set(MOE)
     with pytest.raises(KeyError):
         get_config("mamba2-2.7b")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_published_fields_equal_jax(arch):
     ours, ref = _shared(get_config(arch), jax_get_config(arch))
     assert ours == ref
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 @pytest.mark.parametrize("overrides", [{}, {"head_dim": 32, "window": 300},
                                        {"num_layers": 1, "causal": False}])
 def test_reduced_fields_equal_jax(arch, overrides):
@@ -73,3 +80,24 @@ def test_window_reaches_the_attention_spec(arch, window):
     ref = jax_spec(jax_reduced_config(arch, window=window, attn_impl="pallas"))
     assert spec.window == ref.window == window
     assert (spec.causal, spec.impl) == (ref.causal, ref.impl)
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("overrides", [{}, {"moe_capacity_factor": 8.0},
+                                       {"num_experts": 16,
+                                        "num_experts_per_token": 4}])
+def test_reduction_clamps_the_experts(arch, overrides):
+    """At most 8 experts and top-2 after the reduction (the published 64 /
+    top-8 and 16 / top-2 are cut as the reference cuts them), overrides
+    applied last; the capacity factor keeps its 1.25 default."""
+    ours, ref = _shared(reduced_config(arch, **overrides),
+                        jax_reduced_config(arch, **overrides))
+    assert ours == ref
+    cfg = reduced_config(arch, **overrides)
+    pub = get_config(arch)
+    assert cfg.num_experts == overrides.get("num_experts",
+                                            min(pub.num_experts, 8))
+    assert cfg.num_experts_per_token == overrides.get(
+        "num_experts_per_token", min(pub.num_experts_per_token, 2))
+    assert cfg.moe_capacity_factor == overrides.get("moe_capacity_factor",
+                                                    1.25)

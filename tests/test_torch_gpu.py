@@ -1,4 +1,4 @@
-"""Card tests of the hand-written CUDA kernels: each kernel against its
+"""Card tests of the hand-written CUDA kernels and of the MoE layer: each kernel against its
 plain PyTorch version on the same CUDA inputs (the forward, its dropout
 and "paper" variants, ragged tiles and rows with no key, the dq and dkv
 backward kernels (bf16 on tensor cores: every head dim, ragged tiles, GQA
@@ -11,7 +11,10 @@ into pool shape, on tensor cores in bf16 with several pages to a kv tile,
 and with no host sync), the differentiable ops and a train step on the card
 against the CPU, and the serving engine (paged and dense) on the card
 against the same engine on the CPU (and refusing pages its kernels do not
-take). Marked ``gpu``; skipped
+take); the MoE layer on the card against the CPU (fp32), bit-identical
+twice and free of host syncs in bf16, reduced olmoe-1b-7b served on the
+card against the CPU, and the serving kernels at the MoE serves' head
+groups (d 128, GQA 1 and 4). Marked ``gpu``; skipped
 without a CUDA device (whether one is present is decided inside the
 fixture, never at import or collection). Imports no jax: the card's
 machine has none. Run there with::
@@ -952,10 +955,12 @@ def test_dense_engine_on_card_matches_cpu(cuda):
     assert outs[("cpu", False)] == outs[("cuda", False)] == outs[("cuda", True)]
 
 
-# (name, causal, d, n_rep) of the attention layers the new training paths
-# run: bert-large's (non-causal, packed documents, d 64, MHA) and
-# olmo-1b's (causal, packed documents, d 128, MHA)
-_NEW_TRAIN_SHAPES = (("bert", False, 64, 1), ("olmo", True, 128, 1))
+# (name, causal, d, n_rep) of the attention layers the later paths run:
+# bert-large's (non-causal, packed documents, d 64, MHA), olmo-1b's and
+# olmoe-1b-7b's (causal, packed documents, d 128, MHA) and
+# phi3.5-moe's prefill (causal, d 128, GQA 4)
+_NEW_TRAIN_SHAPES = (("bert", False, 64, 1), ("olmo", True, 128, 1),
+                     ("phi35moe", True, 128, 4))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1083,3 +1088,187 @@ def test_bert_lamb_train_step_on_card_matches_cpu(cuda):
         assert fa.LAUNCHES[name] > n0[name], name
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-4 * abs(b), (losses["cuda"], losses["cpu"])
+
+
+# ---------------------------------------------------------------------------
+# the mixture-of-experts family
+# ---------------------------------------------------------------------------
+
+def _moe_near_tie_rows(got, want, probs) -> set:
+    """Rows whose top-k routes differ between the card (``got``) and the
+    CPU (``want``); each difference must be a near-tie of the CPU's
+    router probabilities (gap <= 1e-5 at the first differing rank)."""
+    rows = set()
+    for b, t in (got != want).any(-1).nonzero().tolist():
+        j = int((got[b, t] != want[b, t]).nonzero()[0])
+        top = probs[b, t].sort(descending=True).values
+        assert float(top[j] - top[j + 1]) <= 1e-5, (b, t)
+        rows.add(b)
+    return rows
+
+
+@pytest.mark.parametrize("experts,top_k,cf", [(8, 2, 1.25), (64, 8, 1.25),
+                                              (16, 2, 0.5)])
+def test_moe_layer_on_card_matches_cpu(cuda, experts, top_k, cf):
+    """One MoE layer (capacity path, d 256, d_ff 128) in fp32 on the card
+    and on the CPU: the same routes (a flip only at a near-tie, its row
+    then left out), outputs within 1e-4, the aux loss within 1e-5
+    relative, every gradient (router, experts, x) within 1e-4 scaled by
+    its max."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(
+        reduced_config("olmoe-1b-7b"), d_model=256, d_ff=128,
+        num_experts=experts, num_experts_per_token=top_k,
+        moe_capacity_factor=cf)
+    gen = torch.Generator().manual_seed(experts + top_k)
+    params = moe.init_moe(cfg, torch.float32, generator=gen, device="cpu")
+    x = torch.randn(4, 96, cfg.d_model, generator=gen)
+    cot = torch.randn(4, 96, cfg.d_model, generator=gen)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        leaves = {n: t.to(dev, copy=True).requires_grad_()
+                  for n, t in params.items()}
+        xx = x.to(dev, copy=True).requires_grad_()
+        logits = xx.detach() @ leaves["router"].detach()
+        idx, _, probs = moe._route(logits, top_k)
+        y, aux = moe.apply_moe(leaves, cfg, xx)
+        grads = torch.autograd.grad((y * cot.to(dev)).sum() + aux,
+                                    [xx, *leaves.values()])
+        out[dev] = [t.detach().cpu() for t in (idx, probs, y, aux, *grads)]
+    rows = _moe_near_tie_rows(out["cuda"][0], out["cpu"][0], out["cpu"][1])
+    keep = [r for r in range(4) if r not in rows]
+    torch.testing.assert_close(out["cuda"][2][keep], out["cpu"][2][keep],
+                               atol=1e-4, rtol=0)
+    if not rows:
+        torch.testing.assert_close(out["cuda"][3], out["cpu"][3], atol=0,
+                                   rtol=1e-5)
+        for g, w in zip(out["cuda"][4:], out["cpu"][4:]):
+            err = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            assert err <= 1e-4, err
+
+
+def test_moe_layer_bf16_is_bit_identical_and_never_waits(cuda):
+    """Forward + backward of one MoE layer at olmoe-1b-7b's expert shapes
+    (64 experts of d_ff 1024, top-8, d 2048; 2 x 512 tokens) in bf16:
+    two calls bit-identical (the dispatch and combine gathers sum a
+    token's slots in a fixed order, no atomics), and a third under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), num_layers=1)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params = moe.init_moe(cfg, torch.bfloat16, generator=gen, device=cuda)
+    x = torch.randn(2, 512, cfg.d_model, generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    cot = torch.randn(x.shape, generator=gen, device=cuda,
+                      dtype=torch.bfloat16)
+
+    def run():
+        leaves = {n: t.detach().requires_grad_() for n, t in params.items()}
+        xx = x.detach().requires_grad_()
+        y, aux = moe.apply_moe(leaves, cfg, xx)
+        grads = torch.autograd.grad((y * cot).float().sum() + aux,
+                                    [xx, *leaves.values()])
+        return (y, aux, *grads)
+
+    first, second = run(), run()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert first[-4].dtype == torch.float32              # the router's grad
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        third = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(a, b) for a, b in zip(first, third))
+
+
+def test_moe_engine_on_card_matches_cpu(cuda):
+    """Reduced olmoe-1b-7b (8 experts, top-2, capacity factor 1.25: the
+    packed prefill rows drop) served on the card gives the CPU engine's
+    greedy tokens, paged (chunked prefill, a prefix hit) and dense."""
+    cfg = reduced_config("olmoe-1b-7b", head_dim=64, attn_impl="pallas",
+                         use_decode_kernel=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    shared = list(range(1, 25))
+    prompts = [shared + [40, 41, 42], list(range(60, 79)), shared + [50],
+               [5, 9, 2]]
+    for paged in (True, False):
+        outs = []
+        for device in ("cpu", "cuda"):
+            eng = ServingEngine(model, params_to(params, device), num_slots=2,
+                                capacity=64, page_size=16, paged=paged,
+                                chunk_size=16 if paged else None,
+                                device=device)
+            for pr in prompts:
+                eng.submit(pr, max_new_tokens=6)
+            eng.run()
+            outs.append({r.rid: r.output for r in eng.finished})
+        assert outs[0] == outs[1], paged
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_rep", [1, 4])
+def test_serving_kernels_at_moe_head_groups_match_plain(cuda, dtype, n_rep):
+    """#4 (a 48-row chunk against a 150-token paged prefix, page 16) and
+    #8 (the whole decode over lanes of 0, 21, 700 and 1024 keys) at d 128
+    with 2 kv heads of ``n_rep`` q heads each: olmoe-1b-7b's MHA and
+    phi3.5-moe's GQA 4 head groups, against their plain versions (#1 at
+    these groups: ``test_new_train_shapes_match_plain``)."""
+    gen = torch.Generator(device=cuda).manual_seed(n_rep)
+    hkv, d, ps = 2, 128, 16
+    hq = hkv * n_rep
+    # -- #4: one chunk of rows [150 - 48, 150) against its paged prefix
+    span, n, bq = 150, 48, 64
+    T = -(-span // ps)
+    num_pages = 3 * T
+    pools = [torch.randn(hkv, num_pages, ps, d, generator=gen,
+                         device=cuda).to(dtype) for _ in range(2)]
+    page_list = torch.randperm(num_pages, generator=gen,
+                               device=cuda)[:T][None].int()
+    kv_seg = torch.full((1, T * ps), M.SEG_PAD_KV, dtype=torch.int32,
+                        device=cuda)
+    kv_pos = torch.full((1, T * ps), M.POS_PAD, dtype=torch.int32,
+                        device=cuda)
+    kv_seg[0, :span], kv_pos[0, :span] = 0, torch.arange(span, device=cuda)
+    q_seg = torch.full((1, bq), M.SEG_PAD_Q, dtype=torch.int32, device=cuda)
+    q_pos = torch.full((1, bq), M.POS_PAD, dtype=torch.int32, device=cuda)
+    q_seg[0, :n] = 0
+    q_pos[0, :n] = torch.arange(span - n, span, device=cuda)
+    a = dict(q_segment_ids=q_seg, kv_segment_ids=kv_seg, q_positions=q_pos,
+             kv_positions=kv_pos)
+    layout = M.compile_block_layout(M.MaskSpec(causal=True, **a), bq, T * ps,
+                                    bq, ps).as_array(cuda)
+    layout = M.paged_prefill_block_layout(layout, page_list)
+    q = torch.randn(1, hq, bq, d, generator=gen, device=cuda).to(dtype)
+    call = dict(scale=d ** -0.5, causal=True, window=None, block_q=bq, **a)
+    n0 = fa.LAUNCHES["flash_fwd_paged"]
+    out = fa.flash_prefill_paged_forward(q, *pools, page_list, layout, **call)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd_paged"] == n0 + 1
+    _check(out, fa.flash_prefill_paged_forward_plain(q, *pools, page_list,
+                                                     layout, **call), dtype)
+    # -- #8: the whole decode
+    b, T = 4, 64
+    kv_len = torch.tensor([0, 21, 700, T * ps], dtype=torch.int32,
+                          device=cuda)
+    q = torch.randn(b, hq, 1, d, generator=gen, device=cuda).to(dtype)
+    num_pages = b * T
+    table = torch.randperm(num_pages, generator=gen, device=cuda)
+    table = table.reshape(b, T).int()
+    for i, n in enumerate(kv_len.tolist()):
+        table[i, -(-n // ps):] = -1
+    pools = [torch.randn(hkv, num_pages, ps, d, generator=gen,
+                         device=cuda).to(dtype) for _ in range(2)]
+    args = (q, *pools, table, kv_len, M.paged_block_layout(kv_len, table, ps))
+    kw = dict(scale=d ** -0.5, num_splits=8, window=None)
+    _check_decode(dtype, "flash_decode_paged",
+                  lambda: fd.flash_decode_paged_from_layout(*args, **kw),
+                  fd.flash_decode_paged_partials_plain(*args, **kw), idle=0)
