@@ -5,14 +5,17 @@
     python3 chip_smoke.py --ab PARENT_CHECKOUT    # A/B against another checkout
 
 Imports nothing of JAX or of the JAX package; needs one CUDA card and the
-repository checkout beside it (``src/repro_torch``). Ten main paths run
-through the hand-written kernels: the trainable paged prefill (phase 2c),
+repository checkout beside it (``src/repro_torch``). Fourteen main paths
+run, through the hand-written kernels where they have attention: the
+trainable paged prefill (phase 2c),
 paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
 (phases 5-6) of granite-3-2b, then training of bert-large with the paper's
 LAMB recipe (phase 7), training of olmo-1b (phase 8), paged serving of
-qwen3-32b (phase 9), and the mixture-of-experts family: paged serving of
+qwen3-32b (phase 9), the mixture-of-experts family: paged serving of
 olmoe-1b-7b (phase 10) and of phi3.5-moe-42b-a6.6b (phase 11) and
-training of olmoe-1b-7b (phase 12). Phases:
+training of olmoe-1b-7b (phase 12), and the state-space and hybrid
+families: dense-slot serving and training of mamba2-2.7b (phase 13, no
+attention kernel) and of hymba-1.5b (phase 14). Phases:
 
 1. print the card's name and power limit (nvidia-smi), then build every
    CUDA kernel of both paths from ``src/repro_torch/kernels/csrc`` (one
@@ -81,16 +84,24 @@ training of olmoe-1b-7b (phase 12). Phases:
    the forward and the dq / dkv pair at train-bert's attention layer (q
    and k/v (56, 16, 512, 64), non-causal over the packed documents of its
    first batch) and at train-olmo's ((4, 16, 2048, 128), causal);
+   and at train-hymba's ((4, 25/5, 2048, 64), causal with a sliding
+   window of 1024 over its packed documents: whole tiles skipped; SDPA
+   takes the window as a boolean mask, having no window argument);
    printed as ``at_shapes`` sub-entries of those kernels' records, each
    with its launches on its path (serve-qwen3's come with phase 9, the
-   MoE serves' with phases 10-11; train-olmoe's attention layer is
-   train-olmo's, so it shares that entry with its own launches);
+   MoE serves' with phases 10-11, serve-hymba's with phase 14;
+   train-olmoe's attention layer is train-olmo's, so it shares that entry
+   with its own launches);
 2e. the MoE layer: one layer at olmoe-1b-7b's width (64 experts of d_ff
    1024, top-8, d 2048), bf16, forward + backward over 4 rows of 2048
    tokens: two calls bit-identical, a third under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync) with the
    same bits; its device time and the GEMM kernels' share of it beside
-   their bound;
+   their bound; then one SSM layer at mamba2-2.7b's width (80 heads of
+   64, state 128, chunks of 256, d 2560), bf16, forward + backward over
+   4 rows of 2048 tokens, with the same checks, its peak memory, and its
+   time beside its bound (bf16 projections on the tensor cores, the
+   SSD scan's products in float32);
 3. parity: granite-3-2b at full width, 2 layers, float32: the same weights
    (drawn on the card) served by the engine on ``cuda`` (kernels) and on
    ``cpu`` (plain versions); greedy tokens must be identical (a divergence
@@ -169,7 +180,26 @@ training of olmoe-1b-7b (phase 12). Phases:
    (bf16, remat) with AdamW, warmup_cosine(3e-4, 20, 6), clip 1.0, seq
    2048, batch 4, 6 steps through ``make_train_step`` and the ``Trainer``,
    with the checks, numbers and profile of phase 6 and the cross-entropy
-   and load-balancing loss of each step apart.
+   and load-balancing loss of each step apart;
+13. mamba2 parity, serve-mamba2, train-mamba2: mamba2-2.7b at full
+   width, 2 layers, float32, on ``cuda`` and on ``cpu``: the loss of a
+   packed batch within 1e-4 relative and every layer-0 gradient within
+   1e-4 scaled, then served in dense slots (the family's default) with
+   greedy tokens identical (a divergence only at a near-tie); then the
+   published model (64 layers, bf16) in dense slots (4 of 2048) serving
+   the requests of phase 4c with the 1024-token prompt at 1536, with the
+   numbers of phase 4c, the profile of phase 4 (the SSM layers' share of
+   the device time) and NO attention kernel launched; then trained
+   through the training launcher as in phase 6 (seq 2048, batch 4, 6
+   steps), again with no attention kernel launched;
+14. hymba parity, serve-hymba, train-hymba: the same for hymba-1.5b (32
+   layers, 25/5 heads of 64, window 1024, SSM heads beside attention; the
+   parity's prompt of 1100 tokens and loss of 1280 reach past the
+   window; its ``ssm_norm``, which the reference never reads, has a zero
+   gradient on both sides), its serve launching flash_fwd and
+   flash_decode and no paged kernel, its train flash_fwd, flash_bwd_dq
+   and flash_bwd_dkv; #1 and #7 held at serve-hymba's own calls in the
+   fresh process of phase 9.
 
 ``--ab PARENT_CHECKOUT`` runs only an A/B against another checkout (e.g.
 ``git archive`` of the parent commit): first both checkouts' kernel
@@ -188,7 +218,7 @@ process, in the order parent, change, change, parent on the same card,
 then each side's per-run numbers (record in
 ``build/chip_smoke_ab.json``).
 
-Prints one JSON line of kernel results (``launches`` summed over the ten
+Prints one JSON line of kernel results (``launches`` summed over the
 main paths' runs, per path under ``launches_by_path``), then as its last
 line
 ``{"ok": true, "device": {...}}``. Exits non-zero on any failure, without
@@ -613,29 +643,76 @@ def contiguous_decode_record(torch, gen, randn, hq, hkv, d) -> dict:
         if case == "plain":
             first = (out, plain, lay, call, valid, parts, o_p_err)
     out, plain, lay, call, valid, parts, o_p_err = first
+    rec = contiguous_decode_timed(
+        torch, gen, (qd, kc, vc, kv_len, lay), call, valid, out, plain, parts,
+        f"whole contiguous decode b={b} capacity {cap} kv_len "
+        f"{kv_len.tolist()} block_k {bk} splits {splits}")
+    rec["case_errs"] = errs
+    rec["o_p_err"] = o_p_err
+    return rec
+
+
+def contiguous_decode_timed(torch, gen, args, call, valid, out, plain, parts,
+                            shape) -> dict:
+    """flash_decode (#7)'s record on ``args`` = (q, k_cache, v_cache,
+    kv_len, layout) under ``call``, given its checked output: the whole
+    decode timed over random copies of q and the cache, the plain
+    partials and torch merge, the bound over the ``valid`` keys (window
+    and mask applied), and SDPA over the contiguous cache with ``valid``
+    as a boolean mask (GQA) as the library yardstick."""
+    from repro_torch.kernels import flash_decode as fd
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    whole = whole_decode(fd, paged=False)
+    qd, kc, vc, kv_len, lay = args
+    b, hq, _, d = qd.shape
+    hkv = kc.shape[1]
     rows = int(valid.sum())                  # the keys this data needs
-    kv_bytes = 2 * rows * hkv * d * 2
-    sets = [(qd, kc, vc)] + [(randn(b, hq, 1, d), randn(b, hkv, cap, d),
-                              randn(b, hkv, cap, d))
-                             for _ in range(copies_for(nbytes(kc, vc)) - 1)]
+    kv_bytes = 2 * rows * hkv * d * kc.element_size()
+    sets = copies(torch, gen, (qd, kc, vc), nbytes(kc, vc))
     ms, call_ms = timed(torch, [lambda a=a: whole(
         *a, kv_len, lay, **call) for a in sets])
     plain_ms = device_ms(torch, [lambda: fd._merge_split_partials(
-        *fd.flash_decode_partials_plain(qd, kc, vc, kv_len, lay, **call),
-        torch.bfloat16)], warmup=1, iters=3)
+        *fd.flash_decode_partials_plain(*args, **call), qd.dtype)],
+        warmup=1, iters=3)
     b_ms, b_by = bound(nbytes(qd, out[0], *parts, kv_len, lay) + kv_bytes,
                        4.0 * d * rows * hq, BF16_FLOPS_PER_S)
     mask = valid[:, None, None, :]                # (b, 1, 1, cap) bool
-    lib_ms = device_ms(torch, [lambda a=a: sdpa(*a, attn_mask=mask, scale=scale,
-                                              enable_gqa=True) for a in sets])
-    rec = _kernel_record(
+    lib_ms = device_ms(torch, [lambda a=a: sdpa(
+        *a, attn_mask=mask, scale=call["scale"], enable_gqa=True)
+        for a in sets])
+    return _kernel_record(
         "flash_decode", "src/repro_torch/kernels/csrc/flash_decode.cu",
         "src/repro/kernels/flash_decode.py:169", out, plain, ms, plain_ms,
-        b_ms, b_by, lib_ms, call_ms=call_ms,
-        shape=f"whole contiguous decode b={b} capacity {cap} kv_len "
-              f"{kv_len.tolist()} block_k {bk} splits {splits}",
+        b_ms, b_by, lib_ms, call_ms=call_ms, shape=shape,
         library="SDPA on the contiguous cache, bool mask, GQA")
-    rec["case_errs"] = errs
+
+
+def contiguous_decode_record_at(torch, gen, args, call) -> dict:
+    """flash_decode (#7) at a captured call, ``args`` = (q, k_cache,
+    v_cache, kv_len, layout) and ``call`` as the serve gave them (its
+    window and slot mask), against the plain partials and torch merge
+    (``contiguous_decode_timed``)."""
+    from repro_torch.core import masks as M
+    from repro_torch.kernels import flash_decode as fd
+
+    qd, kc, vc, kv_len, lay = args
+    b, hq, _, d = qd.shape
+    cap = kc.shape[2]
+    o, parts = whole_decode(fd, paged=False)(*args, **call)
+    torch.cuda.synchronize()
+    pparts = fd.flash_decode_partials_plain(*args, **call)
+    out = (o, *parts[1:])
+    plain = (fd._merge_split_partials(*pparts, qd.dtype), *pparts[1:])
+    o_p_err = check_partials("flash_decode", parts, pparts)
+    valid = M.decode_kv_valid(kv_len, cap, window=call["window"],
+                              kv_mask=call.get("kv_mask"))
+    rec = contiguous_decode_timed(
+        torch, gen, args, call, valid, out, plain, parts,
+        f"whole contiguous decode b={b} hq={hq} hkv={kc.shape[1]} d={d} "
+        f"capacity {cap} kv_len {kv_len.tolist()} window {call['window']} "
+        f"block_k {call['block_k']} splits {call['num_splits']}, "
+        f"{int(valid.sum())} keys in reach")
     rec["o_p_err"] = o_p_err
     return rec
 
@@ -707,13 +784,17 @@ def scaled_err(got, want) -> float:
                  / want.abs().max().clamp_min(1e-30))
 
 
-def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg) -> dict:
+def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
+                 window=None) -> dict:
     """The forward kernel against its plain version, then dq / dkv from the
     kernel forward's (o, m, l) against the plain backward from the same
     residuals, two calls of the pair bit-identical, at one training
-    layer's attention shape in bf16 (packed documents ``seg``); each kernel
-    timed (device time) beside its bound, its plain time and SDPA's.
-    Returns the numbers, and the inputs and residuals for further checks."""
+    layer's attention shape in bf16 (packed documents ``seg``, a causal
+    sliding ``window`` if given); each kernel timed (device time) beside
+    its bound (over the unmasked pairs), its plain time and SDPA's (with
+    the same mask, window included, as a boolean mask: SDPA has no window
+    argument). Returns the numbers, and the inputs and residuals for
+    further checks."""
     from repro_torch.core import masks as M
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import tuning
@@ -721,13 +802,15 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg) -> dict:
     dev = torch.device("cuda")
     scale = d ** -0.5
     bq, bk = tuning.bwd_tiles(d)
-    spec = M.MaskSpec(causal=causal, q_segment_ids=seg, kv_segment_ids=seg)
+    spec = M.MaskSpec(causal=causal, window=window, q_segment_ids=seg,
+                      kv_segment_ids=seg)
     layout = M.compile_block_layout(spec, S, S, bq, bk).as_array(dev)
-    call = dict(scale=scale, causal=causal, window=None, q_offset=0,
+    call = dict(scale=scale, causal=causal, window=window, q_offset=0,
                 block_q=bq, block_k=bk, q_segment_ids=seg, kv_segment_ids=seg)
     shape = (f"train layer b={b} hq={hq} hkv={hkv} S={S} d={d}, "
-             f"{'causal' if causal else 'non-causal'}, "
-             f"{int(seg.max(dim=1).values.sum()) + b} documents")
+             f"{'causal' if causal else 'non-causal'}"
+             + (f", window {window}" if window is not None else "")
+             + f", {int(seg.max(dim=1).values.sum()) + b} documents")
 
     def randn(*shp):
         return torch.randn(*shp, generator=gen, device=dev,
@@ -969,11 +1052,13 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
 
 
 def new_shape_kernel_phase(torch, seed: int) -> dict:
-    """The kernels at the shapes of the two later training paths: #1/#2/#3
+    """The kernels at the shapes of the later training paths: #1/#2/#3
     at train-bert's attention layer (non-causal, its packed documents, d
-    64, MHA) and at train-olmo's (causal, d 128, MHA), each through
-    ``fwd_bwd_case``. Returns {kernel: {path: entry}}; serve-qwen3's
-    kernels are held at its shapes by ``serve_phase``."""
+    64, MHA), at train-olmo's (causal, d 128, MHA) and at train-hymba's
+    (causal, window 1024, d 64, GQA 25/5), each through ``fwd_bwd_case``
+    (its shape naming the layout's skipped tiles). Returns {kernel: {path:
+    entry}}; the serves' kernels are held at their own calls
+    (``serve_shape_records_apart``)."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
 
@@ -986,7 +1071,9 @@ def new_shape_kernel_phase(torch, seed: int) -> dict:
         seg = torch.as_tensor(SyntheticLM(cfg.vocab_size, S, b, seed=seed)
                               .batch_at(0)["segment_ids"]).to(dev)
         c = fwd_bwd_case(torch, gen, b, cfg.num_heads, cfg.num_kv_heads, S,
-                         cfg.head_dim, cfg.causal, seg)
+                         cfg.head_dim, cfg.causal, seg, window=cfg.window)
+        skipped = int((c["layout"] == 0).sum())
+        c["shape"] += f", {skipped} of {c['layout'].numel()} tiles skipped"
         for name, e in shape_entries(c).items():
             at.setdefault(name, {})[path] = e
         del c
@@ -1070,6 +1157,111 @@ def moe_layer_phase(torch, seed: int, card: str) -> dict:
           f"bound {g_bound:.3f} ms by operations [{card}]", flush=True)
     for t in rec["top"]:
         print(f"[moe]   {t['device_ms']:8.3f} ms  x{t['count']:<4} "
+              f"{t['kernel']}", flush=True)
+    return rec
+
+
+def ssm_layer_bound_ms(cfg, b: int, s: int) -> tuple[float, float, float]:
+    """The least time of one SSM layer's forward + backward (three times
+    the forward's matmul FLOPs) over (b, s) tokens at ``cfg``'s width:
+    the two projections in bf16 on the tensor cores, plus the SSD scan's
+    products in float32 (outside them): the chunk scores C·B, their
+    product with dt·x over the (Q, Q) decay-masked pairs, the chunk-end
+    states and the inter-chunk output. Returns (bound ms, projection
+    GFLOP, scan GFLOP), both GFLOP forward + backward."""
+    d_inner, h, p, n = (cfg.ssm_d_inner, cfg.ssm_num_heads, cfg.ssm_head_dim,
+                        cfg.ssm_state)
+    q = cfg.ssm_chunk
+    chunks = b * math.ceil(s / q)
+    proj = 3 * 2.0 * b * s * cfg.d_model * (3 * d_inner + 2 * n + h)
+    scan = 3 * chunks * (2.0 * q * q * n + 2.0 * h * q * q * p
+                         + 4.0 * h * q * p * n)
+    ms = (proj / BF16_FLOPS_PER_S + scan / FP32_FLOPS_PER_S) * 1e3
+    return ms, proj / 1e9, scan / 1e9
+
+
+def ssm_layer_phase(torch, seed: int, card: str) -> dict:
+    """One SSM layer at mamba2-2.7b's width (d 2560, 80 heads of 64, state
+    128, chunks of 256), bf16, forward + backward over train-mamba2's
+    tokens (4 rows of 2048): two calls bit-identical, a third under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync: the chunk
+    loop reads nothing back) with the same bits; its peak memory above its
+    inputs, its device time per call and the share of it in GEMM kernels
+    beside the layer's bound (``ssm_layer_bound_ms``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    dev = torch.device("cuda")
+    arch, s, b = SSM_LAYER
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(seed + 50)
+    params = ssm.init_ssm(cfg, torch.bfloat16, generator=gen, device=dev)
+    x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    cot = torch.randn(x.shape, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+
+    def run():
+        leaves = {n: t.detach().requires_grad_() for n, t in params.items()}
+        xx = x.detach().requires_grad_()
+        y = ssm.apply_ssm(leaves, cfg, xx)
+        return (y, *torch.autograd.grad((y * cot).float().sum(),
+                                        [xx, *leaves.values()]))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    first = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    second = run()
+    same = all(torch.equal(a, c) for a, c in zip(first, second))
+    check(same, "ssm layer: two forward + backward calls differ")
+    check(all(bool(torch.isfinite(t).all()) for t in first),
+          "ssm layer: a non-finite output or gradient")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        third = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(all(torch.equal(a, c) for a, c in zip(first, third)),
+          "ssm layer: the call under set_sync_debug_mode differs")
+    del first, second, third
+    ms = device_ms(torch, [run], iters=5)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            run()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    total = sum(_device_us(e) for e in kernels)
+    gemm = sum(_device_us(e) for e in kernels
+               if re.search(r"gemm|xmma|nvjet|cutlass", e.key, re.I))
+    g_bound, proj_gf, scan_gf = ssm_layer_bound_ms(cfg, b, s)
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    rec = {"shape": f"x ({b}, {s}, {cfg.d_model}) bf16, {cfg.ssm_num_heads} "
+                    f"heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, "
+                    f"chunk {cfg.ssm_chunk}",
+           "bit_identical": same, "no_host_sync": True, "ms": ms,
+           "peak_memory_bytes": peak,
+           "gemm_ms": gemm / 1e3 / 5, "gemm_share": gemm / total if total else None,
+           "bound_ms": g_bound, "proj_gflop": proj_gf, "scan_gflop": scan_gf,
+           "card": card,
+           "top": [{"kernel": e.key[:90], "count": e.count // 5,
+                    "device_ms": _device_us(e) / 1e3 / 5} for e in top]}
+    share = (f"{rec['gemm_ms']:.3f} ms ({rec['gemm_share']:.1%})" if total
+             else "not measured (the profile recorded no device time)")
+    print(f"[ssm] layer forward + backward at {rec['shape']}: two calls "
+          f"bit-identical, no host sync under set_sync_debug_mode('error'); "
+          f"{ms:.3f} ms on the card a call, GEMM kernels {share}, bound "
+          f"{g_bound:.3f} ms ({proj_gf:.0f} GFLOP of bf16 projections, "
+          f"{scan_gf:.0f} GFLOP of float32 scan products); peak memory "
+          f"{peak / 2**30:.2f} GiB above its inputs [{card}]", flush=True)
+    for t in rec["top"]:
+        print(f"[ssm]   {t['device_ms']:8.3f} ms  x{t['count']:<4} "
               f"{t['kernel']}", flush=True)
     return rec
 
@@ -1522,7 +1714,8 @@ TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # the depth serve-qwen3 cuts qwen3-32b to (its 64 layers hold ~65.5 GB of
 # bf16 weights; 8 keep the published width at ~10.9 GB)
 NEW_TRAIN_PATHS = {"train_bert": ("bert-large", 512, 56),
-                   "train_olmo": ("olmo-1b", 2048, 4)}
+                   "train_olmo": ("olmo-1b", 2048, 4),
+                   "train_hymba": ("hymba-1.5b", 2048, 4)}
 SERVE_QWEN3_LAYERS = 8
 # the MoE paths: olmoe-1b-7b is served at its full depth (16 layers, ~13.8
 # GB of bf16 weights) and trained at 8 of its 16 layers (3.56 B parameters:
@@ -1532,6 +1725,21 @@ SERVE_QWEN3_LAYERS = 8
 # documents of SyntheticLM(50304, 2048, 4, seed), is train-olmo's.
 SERVE_PHI35MOE_LAYERS = 8
 TRAIN_OLMOE = ("olmoe-1b-7b", 2048, 4, 8)        # arch, seq, batch, layers
+# the SSM and hybrid paths, at full width and depth: mamba2-2.7b (64
+# layers, 2.70 B parameters) and hymba-1.5b (32 layers, 1.6 B). The SSM
+# layer is held at train-mamba2's tokens; train-hymba's attention layer,
+# (4, 25/5, 2048, 64) causal with a window of 1024 over the packed
+# documents of SyntheticLM(32001, 2048, 4, seed), is in NEW_TRAIN_PATHS.
+SSM_LAYER = ("mamba2-2.7b", 2048, 4)             # arch, seq, batch
+# float32 card-vs-CPU parity of the two at 2 layers: (seq, batch) of the
+# loss and its gradients, prompt lengths (some not a chunk multiple; for
+# hymba one past its window of 1024) and slot capacity of the dense serve
+RECURRENT_PARITY = {
+    "mamba2-2.7b": ((512, 2), (41, 300, 7, 96, 600), 640),
+    "hymba-1.5b": ((1280, 1), (41, 300, 7, 96, 1100), 1152)}
+# serve-hymba's and serve-mamba2's longest prompt: 1536 tokens, so that
+# hymba's window skips whole tiles in its prefill and decode
+RECURRENT_LONG_PROMPT = 1536
 
 
 def serve_phase(torch, seed: int, card: str, arch: str = "granite-3-2b",
@@ -1627,10 +1835,16 @@ SERVE_WRAPPERS = {
                         lambda a: a[0].shape[2] * int((a[3] >= 0).sum())),
     "flash_decode_paged": ("flash_decode", "flash_decode_paged_from_layout",
                            lambda a: int(a[4].sum()))}
+# the dense-slot serve's: the unpadded prefill's forward and the
+# contiguous decode
+DENSE_SERVE_WRAPPERS = {
+    "flash_fwd": SERVE_WRAPPERS["flash_fwd"],
+    "flash_decode": ("flash_decode", "flash_decode_from_layout",
+                     lambda a: int(a[3].sum()))}
 
 
-def capture_calls(torch, run) -> dict:
-    """Runs ``run()`` with each wrapper of ``SERVE_WRAPPERS`` replaced by
+def capture_calls(torch, run, wrappers=SERVE_WRAPPERS) -> dict:
+    """Runs ``run()`` with each wrapper of ``wrappers`` replaced by
     one that calls it and keeps the arguments of its call with the most
     work (the first of equals): q, K and V as meta tensors of their shape
     and dtype, every other tensor cloned. Returns {kernel: (args, kw)};
@@ -1657,7 +1871,7 @@ def capture_calls(torch, run) -> dict:
             return fn(*a, **kw)
         return call
 
-    for name, (mod, attr, work) in SERVE_WRAPPERS.items():
+    for name, (mod, attr, work) in wrappers.items():
         mod = importlib.import_module(f"repro_torch.kernels.{mod}")
         saved[name] = (mod, attr, getattr(mod, attr))
         setattr(mod, attr, watch(name, saved[name][2], work))
@@ -1666,16 +1880,17 @@ def capture_calls(torch, run) -> dict:
     finally:
         for mod, attr, fn in saved.values():
             setattr(mod, attr, fn)
-    check(set(best) == set(SERVE_WRAPPERS),
-          f"the serve called only {sorted(best)} of {sorted(SERVE_WRAPPERS)}")
+    check(set(best) == set(wrappers),
+          f"the serve called only {sorted(best)} of {sorted(wrappers)}")
     return {name: (a, kw) for name, (_, a, kw) in best.items()}
 
 
 def serve_shape_records(torch, seed: int, calls: dict, tag: str) -> dict:
-    """#1, #4 and #8 each held against its plain version at the call the
-    serve gave it (``capture_calls``), with random q, K and V of those
-    shapes, timed beside its bound and SDPA's time. Returns {kernel:
-    entry}, entries without ``launches`` (``main`` adds the path's)."""
+    """Each kernel of ``calls`` (#1, and #4 and #8 of a paged serve or #7
+    of a dense one) held against its plain version at the call the serve
+    gave it (``capture_calls``), with random q, K and V of those shapes,
+    timed beside its bound and SDPA's time. Returns {kernel: entry},
+    entries without ``launches`` (``main`` adds the path's)."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 30)
 
     def inputs(name):
@@ -1683,6 +1898,8 @@ def serve_shape_records(torch, seed: int, calls: dict, tag: str) -> dict:
         return tuple(fresh(torch, gen, t) for t in args[:3]) + args[3:], kw
 
     def segments(ids) -> list[int]:
+        if ids is None:                # an unpacked prefill: one segment
+            return [calls["flash_fwd"][0][0].shape[2]]
         return ids[0].unique_consecutive(return_counts=True)[1].tolist()
 
     out = {}
@@ -1691,9 +1908,17 @@ def serve_shape_records(torch, seed: int, calls: dict, tag: str) -> dict:
         b, hq, sq, d = args[0].shape
         out["flash_fwd"] = packed_prefill_record(
             torch, gen, args, kw,
-            f"{tag} packed prefill b={b} hq={hq} hkv={args[1].shape[1]} "
+            f"{tag} {'packed ' if kw['q_segment_ids'] is not None else ''}"
+            f"prefill b={b} hq={hq} hkv={args[1].shape[1]} "
             f"S={sq} d={d}, {'causal' if kw['causal'] else 'non-causal'}, "
-            f"rows by segment {segments(kw['q_segment_ids'])}")
+            f"window {kw['window']}, rows by segment "
+            f"{segments(kw['q_segment_ids'])}")
+        if "flash_decode" in calls:
+            args, kw = inputs("flash_decode")
+            dec = contiguous_decode_record_at(torch, gen, args, kw)
+            dec["shape"] = f"{tag} {dec['shape']}"
+            out["flash_decode"] = dec
+            return _without_launches(out)
         args, kw = inputs("flash_fwd_paged")
         b, hq, sq, d = args[0].shape
         hkv, _, ps, _ = args[1].shape
@@ -1708,6 +1933,10 @@ def serve_shape_records(torch, seed: int, calls: dict, tag: str) -> dict:
         dec = paged_decode_record(torch, gen, args, kw)
         dec["shape"] = f"{tag} {dec['shape']}"
         out["flash_decode_paged"] = dec
+    return _without_launches(out)
+
+
+def _without_launches(out: dict) -> dict:
     for entry in out.values():
         entry.pop("launches")
     return out
@@ -1774,44 +2003,65 @@ def _device_us(e) -> float:
         getattr(e, "self_cuda_time_total", 0.0)
 
 
+# the layer functions whose calls ``layer_ranges`` marks, by range name
+RANGED = {"moe": ("moe", ("apply_moe",)),
+          "ssm": ("ssm", ("apply_ssm", "decode_ssm_step"))}
+
+
+def ranged_layer(block: dict) -> str | None:
+    """The range ``layer_ranges`` marks in a model of these blocks: "moe",
+    "ssm" (SSM and hybrid blocks) or None."""
+    return next((name for name in RANGED if name in block), None)
+
+
 @contextlib.contextmanager
-def moe_ranges(torch):
-    """While open, every MoE layer call runs inside a ``torch.profiler``
-    range named "moe" (``repro_torch.models.moe.apply_moe`` wrapped)."""
-    from repro_torch.models import moe
-    apply = moe.apply_moe
+def layer_ranges(torch, name: str | None):
+    """While open, every call of the ``RANGED[name]`` layer functions
+    (``repro_torch.models.<module>.<fn>``, wrapped) runs inside a
+    ``torch.profiler`` range named ``name``; nothing for None."""
+    import importlib
+    if name is None:
+        yield
+        return
+    mod_name, fns = RANGED[name]
+    mod = importlib.import_module(f"repro_torch.models.{mod_name}")
+    saved = {fn: getattr(mod, fn) for fn in fns}
 
-    def ranged(*a, **kw):
-        with torch.profiler.record_function("moe"):
-            return apply(*a, **kw)
+    def wrap(fn):
+        def ranged(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return ranged
 
-    moe.apply_moe = ranged
+    for fn, f in saved.items():
+        setattr(mod, fn, wrap(f))
     try:
         yield
     finally:
-        moe.apply_moe = apply
+        for fn, f in saved.items():
+            setattr(mod, fn, f)
 
 
 def device_kernels(prof) -> list:
     """The device kernels of a profile by name, without the profiler's
-    device-side copies of ``moe_ranges``' ranges."""
+    device-side copies of ``layer_ranges``' ranges."""
     from torch.autograd import DeviceType
     return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key != "moe"]
+            if e.device_type == DeviceType.CUDA and e.key not in RANGED]
 
 
-def moe_share(prof, busy_us: float) -> dict:
-    """Device time of the kernels launched inside ``moe_ranges``' ranges
-    (the MoE forwards, with remat their recomputation too; a backward's
-    kernels are launched outside them), and its share of the device's busy
-    time."""
+def range_share(prof, busy_us: float, name: str) -> dict:
+    """Device time of the kernels launched inside ``layer_ranges``' ranges
+    ``name`` (the layer forwards, with remat their recomputation too; a
+    backward's kernels are launched outside them), and its share of the
+    device's busy time."""
     from torch.autograd import DeviceType
     us = sum(getattr(e, "device_time_total", None) or
              getattr(e, "cuda_time_total", 0.0)
              for e in prof.events()
-             if e.name == "moe" and e.device_type == DeviceType.CPU)
-    return {"moe_device_s": us / 1e6,
-            "moe_share_of_busy": us / busy_us if us > 0 else None}
+             if e.name == name and e.device_type == DeviceType.CPU)
+    return {f"{name}_device_s": us / 1e6,
+            f"{name}_share_of_busy": us / busy_us if us > 0 else None}
 
 
 PROFILED_NEW_TOKENS = 8
@@ -1831,11 +2081,11 @@ def profile_serve(torch, model, params, prompts, kw) -> dict:
     eng = ServingEngine(model, params, **kw)
     for p in prompts:
         eng.submit(p, max_new_tokens=PROFILED_NEW_TOKENS)
-    moe = model.cfg.family == "moe"
+    ranged = ranged_layer(params["blocks"][0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof, \
-            (moe_ranges(torch) if moe else contextlib.nullcontext()):
+            layer_ranges(torch, ranged):
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
@@ -1850,7 +2100,8 @@ def profile_serve(torch, model, params, prompts, kw) -> dict:
     # flash_decode_kernel<T, D, Paged>: Paged tells them apart
     ported = {"flash_fwd": r"flash_fwd_kernel<[^,>]+, \d+, false",
               "flash_fwd_paged": r"flash_fwd_kernel<[^,>]+, \d+, true",
-              "flash_decode_paged": r"flash_decode_kernel<[^,>]+, \d+, true>"}
+              "flash_decode_paged": r"flash_decode_kernel<[^,>]+, \d+, true>",
+              "flash_decode": r"flash_decode_kernel<[^,>]+, \d+, false>"}
     per_kernel = {}
     for name, pattern in ported.items():
         hits = [e for e in kernels if re.search(pattern, e.key)]
@@ -1865,13 +2116,14 @@ def profile_serve(torch, model, params, prompts, kw) -> dict:
            "new_tokens_per_request": PROFILED_NEW_TOKENS,
            "top": [{"kernel": e.key[:90], "count": e.count,
                     "device_ms": _device_us(e) / 1e3} for e in top]}
-    if moe:
-        out.update(moe_share(prof, busy_us))
+    if ranged:
+        out.update(range_share(prof, busy_us, ranged))
     print(f"[profile] serve under torch.profiler: wall {wall_us / 1e6:.2f}s, "
           f"device busy {busy_us / 1e6:.3f}s ({busy_us / wall_us:.1%}); "
           f"ported kernels {json.dumps(per_kernel)}"
-          + (f"; MoE layers {out['moe_device_s']:.3f}s of the busy time "
-             f"({out['moe_share_of_busy']})" if moe else ""), flush=True)
+          + (f"; {ranged} layers {out[ranged + '_device_s']:.3f}s of the busy "
+             f"time ({out[ranged + '_share_of_busy']})" if ranged else ""),
+          flush=True)
     for t in out["top"]:
         print(f"[profile]   {t['device_ms']:9.2f} ms  x{t['count']:<6} "
               f"{t['kernel']}", flush=True)
@@ -1925,18 +2177,27 @@ def dense_parity_phase(torch, seed: int) -> dict:
             "requests": len(prompts)}
 
 
-def dense_serve_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
-    """The published granite-3-2b (40 layers, bf16) in dense slot mode with
-    the decode kernel: 4 slots of 2048, 8 requests with prompts of 64-1024
-    tokens, 32 new tokens each, drained requests prefilled packed. Launch
-    counters reset just before; flash_fwd and flash_decode must be > 0 and
-    flash_decode_paged 0 just after. Not profiled."""
+def dense_serve_phase(torch, seed: int, card: str,
+                      arch: str = "granite-3-2b", tag: str = "dense-serve",
+                      long_prompt: int = 1024,
+                      kernels=DENSE_SERVE_KERNELS,
+                      profiled: bool = False) -> tuple[dict, dict]:
+    """The published ``arch`` (bf16, full depth) in dense slot mode with
+    the decode kernel: 4 slots of 2048, 8 requests with prompts of
+    64-``long_prompt`` tokens, 32 new tokens each (granite's drained
+    requests prefilled packed; the SSM and hybrid families prefill each
+    unpadded). Launch counters reset just before; every kernel of
+    ``kernels`` must be > 0 just after, and every other kernel 0. With
+    ``profiled`` the same requests run once more under ``torch.profiler``
+    (``profile_serve``), and once more with the wrappers of #1 and #7
+    watched (``capture_calls``), each call with the most work returned
+    under ``rec["calls"]`` where one of them is in ``kernels``."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import ServingEngine
 
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config("granite-3-2b"), attn_impl="pallas",
+    cfg = dataclasses.replace(get_config(arch), attn_impl="pallas",
                               use_decode_kernel=True)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(seed),
@@ -1951,7 +2212,8 @@ def dense_serve_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     warm.submit(toks(300), max_new_tokens=4)
     warm.run()
     del warm
-    prompts = [toks(n) for n in (64, 1024, 300, 512, 128, 900, 700, 200)]
+    prompts = [toks(n) for n in (64, long_prompt, 300, 512, 128, 900, 700,
+                                 200)]
     eng = ServingEngine(model, params, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1967,15 +2229,16 @@ def dense_serve_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     n_tok = sum(len(r.output) for r in done)
     lat = eng.latency_stats()
     check(len(done) == len(prompts) and all(len(r.output) == 32 for r in done),
-          "dense serve phase did not finish every request")
-    for name in DENSE_SERVE_KERNELS:
-        check(launches[name] > 0,
-              f"kernel {name} was never launched in the dense serve phase")
-    check(launches["flash_decode_paged"] == 0,
-          "the dense serve launched the paged decode kernel")
+          f"{tag} phase did not finish every request")
+    check(not eng.paged, f"{tag}: the engine is not in dense slot mode")
+    for name, n in launches.items():
+        check((n > 0) == (name in kernels),
+              f"kernel {name} was launched {n} times in the {tag} phase "
+              f"(expected: {kernels} only)")
     rec = {"model": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
            "mode": "dense slots", "requests": len(done), "lanes": 4,
-           "capacity": 2048, "new_tokens": n_tok, "wall_s": wall,
+           "capacity": 2048, "prompt_lens": [len(p) for p in prompts],
+           "new_tokens": n_tok, "wall_s": wall,
            "tokens_per_s": n_tok / wall, "ttft_p50_s": lat["ttft_p50"],
            "ttft_p95_s": lat["ttft_p95"],
            "tok_latency_p50_s": lat["tok_latency_p50"],
@@ -1983,12 +2246,23 @@ def dense_serve_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
            "decode_calls": eng.decode_calls,
            "decode_geometry": [eng.decode_block_k, eng.num_decode_splits],
            "blocks_skipped": eng.blocks_skipped,
-           "blocks_total": eng.blocks_total, "card": card}
-    print(f"[dense-serve] {n_tok} tokens in {wall:.2f}s: {n_tok / wall:.1f} "
-          f"tok/s, TTFT p50 {lat['ttft_p50'] * 1e3:.1f} ms, decode step p50 "
-          f"{lat['tok_latency_p50'] * 1e3:.1f} ms, peak memory "
-          f"{peak / 2**30:.2f} GiB, prefill calls {eng.prefill_calls}, "
-          f"launches {launches} [{card}]", flush=True)
+           "blocks_total": eng.blocks_total,
+           "state_bytes": eng.cache_bytes(), "card": card}
+    print(f"[{tag}] {cfg.name} {cfg.num_layers} layers: {n_tok} tokens in "
+          f"{wall:.2f}s: {n_tok / wall:.1f} tok/s, TTFT p50 "
+          f"{lat['ttft_p50'] * 1e3:.1f} ms (p95 {lat['ttft_p95'] * 1e3:.1f}), "
+          f"decode step p50 {lat['tok_latency_p50'] * 1e3:.1f} ms, peak memory "
+          f"{peak / 2**30:.2f} GiB, slot state {eng.cache_bytes() / 2**30:.3f} "
+          f"GiB, prefill calls {eng.prefill_calls}, launches {launches} "
+          f"[{card}]", flush=True)
+    if profiled:
+        rec["profile"] = profile_serve(torch, model, params, prompts, kw)
+        wrappers = {n: w for n, w in DENSE_SERVE_WRAPPERS.items()
+                    if n in kernels}
+        if wrappers:
+            rec["calls"] = capture_calls(torch, lambda: _serve(
+                ServingEngine(model, params, **kw), prompts, 32, prime=False),
+                wrappers)
     return rec, launches
 
 
@@ -2003,7 +2277,8 @@ def _grads(torch, model, params, batch):
     loss, _ = model.loss(with_leaves(params, leaves), batch,
                          deterministic=True)
     return float(loss.detach()), with_leaves(
-        params, torch.autograd.grad(loss, leaves))
+        params, torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True))
 
 
 def adamw_recipe():
@@ -2139,15 +2414,109 @@ def moe_train_parity_phase(torch, seed: int, arch: str, tag: str) -> dict:
             "moe_calls": len(out["cpu"]["routes"])}
 
 
+def recurrent_parity_phase(torch, seed: int, arch: str, tag: str) -> dict:
+    """The SSM or hybrid ``arch`` at full width, 2 layers, float32: the
+    same weights (drawn on the card from ``seed``) on ``cuda`` (kernels)
+    and on ``cpu`` (plain versions). The loss of one packed ``SyntheticLM``
+    batch (``RECURRENT_PARITY``) within 1e-4 relative and every layer-0
+    gradient within 1e-4 scaled by its max (the hybrid's ``ssm_norm``,
+    which the loss never reads, exactly zero on both); then the dense-slot
+    engine (the family's default) serving the same prompts, greedy tokens
+    identical, a divergence allowed only at a near-tie of the CPU's logits
+    (top-2 margin < 1e-3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model, params_to
+    from repro_torch.serve import ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                              dtype="float32", attn_impl="pallas",
+                              use_decode_kernel=True)
+    (seq, b), lens, capacity = RECURRENT_PARITY[arch]
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        device="cpu")
+    batch = SyntheticLM(cfg.vocab_size, seq, b, seed=seed + 3).batch_at(0)
+    gen = torch.Generator().manual_seed(seed + 7)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in lens]
+    out, launches = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        p = params_to(params, device)
+        loss, g = _grads(torch, model, p, batch)
+        grads = {f"{k}/{n}": t.cpu() for k, v in g["blocks"][0].items()
+                 for n, t in v.items()}
+        del g
+        eng = ServingEngine(model, p, device=device, num_slots=4,
+                            capacity=capacity)
+        check(not eng.paged, f"{tag}: the engine did not choose dense slots")
+        reset_launches()
+        toks = _serve(eng, prompts, 8, prime=False)
+        launches[device] = read_launches()
+        out[device] = {"loss": loss, "grads": grads, "tokens": toks}
+        del p, eng
+        print(f"[{tag}] {cfg.name} 2 layers float32, {device}: loss {loss}, "
+              f"{sum(map(len, toks.values()))} tokens in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    rel = abs(out["cuda"]["loss"] - out["cpu"]["loss"]) / abs(out["cpu"]["loss"])
+    gerr = {n: scaled_err(out["cuda"]["grads"][n], out["cpu"]["grads"][n])
+            for n in out["cpu"]["grads"]
+            if float(out["cpu"]["grads"][n].abs().max()) > 0}
+    zero = sorted(set(out["cpu"]["grads"]) - set(gerr))
+    print(f"[{tag}] loss relative difference {rel:.3g}; layer-0 scaled grad "
+          f"differences {gerr}; zero on the CPU: {zero}", flush=True)
+    check(rel <= 1e-4, f"{tag}: losses differ by {rel} > 1e-4")
+    check(max(gerr.values()) <= 1e-4,
+          f"{tag}: layer-0 grads differ by {gerr} > 1e-4")
+    check(zero == (["ssm_norm/w"] if cfg.hybrid else []),
+          f"{tag}: layer-0 gradients zero on the CPU: {zero}")
+    check(all(float(out["cuda"]["grads"][n].abs().max()) == 0 for n in zero),
+          f"{tag}: a gradient zero on the CPU is not zero on the card")
+    want = ("flash_decode",) if cfg.hybrid else ()
+    check(all((n > 0) == (k in want) for k, n in launches["cuda"].items()
+              if k.startswith("flash_decode")),
+          f"{tag}: decode launches {launches['cuda']}, expected {want}")
+    diverged = []
+    for rid, ref in out["cpu"]["tokens"].items():
+        got = out["cuda"]["tokens"][rid]
+        if got == ref:
+            continue
+        i = next(j for j, (a, c) in enumerate(zip(got, ref)) if a != c)
+        ctx = prompts[rid] + ref[:i]
+        _, logits = model.prefill(params, {"tokens": torch.tensor([ctx])},
+                                  len(ctx))
+        top2 = torch.topk(logits[0, -1].float(), 2).values
+        margin = float(top2[0] - top2[1])
+        print(f"[{tag}] request {rid} diverges at generated step {i}: cuda "
+              f"{got[i]} cpu {ref[i]}, top-2 logit margin {margin:.3g}",
+              flush=True)
+        check(margin < 1e-3, f"{tag}: request {rid} diverged at step {i} "
+                             f"with a top-2 margin {margin:.3g}")
+        diverged.append({"rid": rid, "step": i, "margin": margin})
+    print(f"[{tag}] greedy tokens identical: {not diverged} ({len(prompts)} "
+          f"requests of {list(lens)} prompt tokens, near-tie divergences: "
+          f"{len(diverged)})", flush=True)
+    return {"model": cfg.name, "layers": 2, "loss_cuda": out["cuda"]["loss"],
+            "loss_cpu": out["cpu"]["loss"], "loss_rel_diff": rel,
+            "grad_scaled_diff": gerr, "zero_grads": zero,
+            "identical": not diverged, "near_tie_divergences": diverged,
+            "requests": len(prompts), "launches_cuda": launches["cuda"]}
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the published model, trained through the kernels
 # ---------------------------------------------------------------------------
 
 def train_phase(torch, seed: int, card: str, arch: str = "granite-3-2b",
-                tag: str = "train") -> tuple[dict, dict]:
+                tag: str = "train",
+                kernels=TRAIN_KERNELS) -> tuple[dict, dict]:
     """The published ``arch`` through the training launcher (AdamW,
     warmup_cosine(3e-4, 20, steps), clip 1.0, deterministic, bf16, remat),
-    seq 2048, batch 4, 6 steps (``train_path``)."""
+    seq 2048, batch 4, 6 steps (``train_path``; ``kernels`` the attention
+    kernels it must launch, none for an attention-free arch)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train as launch_train
 
@@ -2161,7 +2530,8 @@ def train_phase(torch, seed: int, card: str, arch: str = "granite-3-2b",
             "--ckpt-dir", str(ROOT / "build" / "chip_smoke_train_ckpt")])
 
     return train_path(torch, tag, get_config(arch), run, seq, batch, steps,
-                      "AdamW, warmup_cosine(3e-4, 20, 6), clip 1.0", card)
+                      "AdamW, warmup_cosine(3e-4, 20, 6), clip 1.0", card,
+                      kernels)
 
 
 def bert_train_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
@@ -2226,13 +2596,14 @@ def trainer_phase(torch, seed: int, card: str, tag: str, cfg, seq: int,
 
 
 def train_path(torch, tag, cfg, run, seq, batch, steps, recipe,
-               card) -> tuple[dict, dict]:
+               card, kernels=TRAIN_KERNELS) -> tuple[dict, dict]:
     """One training main path: launch counters reset just before ``run()``
     (which builds the model and trains ``steps`` steps, returning the
-    ``Trainer``) and flash_fwd, flash_bwd_dq and flash_bwd_dkv > 0 just
-    after; every loss and grad norm finite; prints the first loss, tokens/s
-    and ms/step over steps 2-``steps`` and peak memory, then profiles one
-    more step (``profile_train``)."""
+    ``Trainer``) and each of ``kernels`` (flash_fwd, flash_bwd_dq and
+    flash_bwd_dkv) > 0 just after, every other kernel 0; every loss and
+    grad norm finite; prints the first loss, tokens/s and ms/step over
+    steps 2-``steps`` and peak memory, then profiles one more step
+    (``profile_train``)."""
     dev = torch.device("cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2244,9 +2615,10 @@ def train_path(torch, tag, cfg, run, seq, batch, steps, recipe,
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated(dev)
     hist = trainer.history
-    for name in TRAIN_KERNELS:
-        check(launches[name] > 0,
-              f"kernel {name} was never launched in the {tag} phase")
+    for name, n in launches.items():
+        check((n > 0) == (name in kernels),
+              f"kernel {name} was launched {n} times in the {tag} phase "
+              f"(expected: {kernels} only)")
     check(len(hist) == steps, f"{tag} phase ran {len(hist)} of {steps} steps")
     for rec in hist:
         check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
@@ -2289,11 +2661,11 @@ def profile_train(torch, trainer) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     b = trainer.batch_fn(trainer.step)              # the next batch of the run
-    moe = "moe" in trainer.params["blocks"][0]
+    ranged = ranged_layer(trainer.params["blocks"][0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof, \
-            (moe_ranges(torch) if moe else contextlib.nullcontext()):
+            layer_ranges(torch, ranged):
         t0 = time.perf_counter()
         trainer.params, trainer.opt_state, metrics = trainer.step_fn(
             trainer.params, trainer.opt_state, b)
@@ -2311,13 +2683,14 @@ def profile_train(torch, trainer) -> dict:
            "busy_share": busy_us / wall_us,
            "top": [{"kernel": e.key[:90], "count": e.count,
                     "device_ms": _device_us(e) / 1e3} for e in top]}
-    if moe:
-        out.update(moe_share(prof, busy_us))
+    if ranged:
+        out.update(range_share(prof, busy_us, ranged))
     print(f"[profile] one train step under torch.profiler: wall "
           f"{wall_us / 1e6:.3f}s, device busy {busy_us / 1e6:.3f}s "
           f"({busy_us / wall_us:.1%})"
-          + (f"; MoE layer forwards {out['moe_device_s']:.3f}s "
-             f"({out['moe_share_of_busy']})" if moe else ""), flush=True)
+          + (f"; {ranged} layer forwards {out[ranged + '_device_s']:.3f}s "
+             f"({out[ranged + '_share_of_busy']})" if ranged else ""),
+          flush=True)
     for t in out["top"]:
         print(f"[profile]   {t['device_ms']:9.2f} ms  x{t['count']:<6} "
               f"{t['kernel']}", flush=True)
@@ -2692,6 +3065,8 @@ def main() -> int:
     lap("kernels_at_shapes")
     moe_layer = moe_layer_phase(torch, args.seed, card)
     lap("moe_layer")
+    ssm_layer = ssm_layer_phase(torch, args.seed, card)
+    lap("ssm_layer")
     paths = {"paged_grad": paged_grad_phase(torch, args.seed)}
     lap("paged_grad")
     parity = parity_phase(torch, args.seed)
@@ -2744,8 +3119,29 @@ def main() -> int:
     train_olmoe, paths["train_olmoe"] = olmoe_train_phase(torch, args.seed,
                                                           card)
     lap("train_olmoe")
+    mamba2_parity = recurrent_parity_phase(torch, args.seed, "mamba2-2.7b",
+                                           tag="mamba2-parity")
+    lap("mamba2_parity")
+    serve_mamba2, paths["serve_mamba2"] = dense_serve_phase(
+        torch, args.seed, card, arch="mamba2-2.7b", tag="serve-mamba2",
+        long_prompt=RECURRENT_LONG_PROMPT, kernels=(), profiled=True)
+    lap("serve_mamba2")
+    train_mamba2, paths["train_mamba2"] = train_phase(
+        torch, args.seed, card, arch="mamba2-2.7b", tag="train-mamba2",
+        kernels=())
+    lap("train_mamba2")
+    hymba_parity = recurrent_parity_phase(torch, args.seed, "hymba-1.5b",
+                                          tag="hymba-parity")
+    lap("hymba_parity")
+    serve_hymba, paths["serve_hymba"] = dense_serve_phase(
+        torch, args.seed, card, arch="hymba-1.5b", tag="serve-hymba",
+        long_prompt=RECURRENT_LONG_PROMPT, profiled=True)
+    lap("serve_hymba")
+    train_hymba, paths["train_hymba"] = train_phase(
+        torch, args.seed, card, arch="hymba-1.5b", tag="train-hymba")
+    lap("train_hymba")
     serves = {"serve_qwen3": serve_qwen3, "serve_olmoe": serve_olmoe,
-              "serve_phi35moe": serve_phi35moe}
+              "serve_phi35moe": serve_phi35moe, "serve_hymba": serve_hymba}
     held = serve_shape_records_apart(torch, args.seed, {
         path: (path.replace("_", "-"), rec.pop("calls"))
         for path, rec in serves.items()})
@@ -2781,7 +3177,10 @@ def main() -> int:
               "phi35moe_train_parity": phi35moe_train_parity,
               "phi35moe_parity": phi35moe_parity,
               "serve_phi35moe": serve_phi35moe, "train_olmoe": train_olmoe,
-              "phase_end_s": laps, "total_s": time.perf_counter() - t_start}
+              "ssm_layer": ssm_layer, "mamba2_parity": mamba2_parity,
+              "serve_mamba2": serve_mamba2, "train_mamba2": train_mamba2,
+              "hymba_parity": hymba_parity, "serve_hymba": serve_hymba,
+              "train_hymba": train_hymba, "phase_end_s": laps, "total_s": time.perf_counter() - t_start}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(f"[done] total {record['total_s']:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

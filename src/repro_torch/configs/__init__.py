@@ -1,7 +1,8 @@
 """Architecture registry of the port: the dense decoders of the JAX
 package (``olmo-1b``, ``internlm2-20b``, ``granite-3-2b``, ``qwen3-32b``),
 its mixture-of-experts decoders (``olmoe-1b-7b``,
-``phi3.5-moe-42b-a6.6b``) and the paper's own models (``gpt2-small``,
+``phi3.5-moe-42b-a6.6b``), its state-space and hybrid decoders
+(``mamba2-2.7b``, ``hymba-1.5b``) and the paper's own models (``gpt2-small``,
 ``gpt2-medium``, ``bert-large``). ``get_config(name)`` / ``reduced_config(name)`` mirror
 ``repro.configs``."""
 
@@ -11,7 +12,9 @@ import dataclasses
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.granite_3_2b import CONFIG as _granite_3_2b
+from repro_torch.configs.hymba_1_5b import CONFIG as _hymba
 from repro_torch.configs.internlm2_20b import CONFIG as _internlm2_20b
+from repro_torch.configs.mamba2_2_7b import CONFIG as _mamba2
 from repro_torch.configs.olmo_1b import CONFIG as _olmo_1b
 from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
 from repro_torch.configs.paper_models import (BERT_LARGE, GPT2_MEDIUM,
@@ -21,8 +24,8 @@ from repro_torch.configs.qwen3_32b import CONFIG as _qwen3_32b
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in [_olmo_1b, _internlm2_20b, _granite_3_2b, _qwen3_32b,
-                        _olmoe, _phi35moe, GPT2_SMALL, GPT2_MEDIUM,
-                        BERT_LARGE]}
+                        _olmoe, _phi35moe, _hymba, _mamba2, GPT2_SMALL,
+                        GPT2_MEDIUM, BERT_LARGE]}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -37,22 +40,30 @@ def list_archs() -> list[str]:
 
 def reduced_config(name: str, **overrides) -> ModelConfig:
     """Family-faithful tiny config for CPU tests: same structure (GQA
-    ratio, norm, MLP, head, causality, top-k routing), small dims — the
-    same reduction as ``repro.configs`` (at most 8 experts, top-2)."""
+    ratio, norm, MLP, head, causality, top-k routing, SSM heads), small
+    dims — the same reduction as ``repro.configs`` (at most 8 experts,
+    top-2; no attention heads and no MLP where the arch has none; SSM state
+    at most 16, SSM heads of 16, chunks of 16)."""
     cfg = get_config(name)
-    heads = min(cfg.num_heads, 4)
-    ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
+    heads = min(cfg.num_heads, 4) if cfg.num_heads else 0
+    kv = 0
+    if cfg.num_heads:
+        ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
+        kv = max(1, heads // ratio)
     small = dict(
         num_layers=2,
         d_model=64,
         num_heads=heads,
-        num_kv_heads=max(1, heads // ratio),
-        head_dim=16,
-        d_ff=128,
+        num_kv_heads=kv,
+        head_dim=16 if cfg.num_heads else 0,
+        d_ff=128 if cfg.d_ff else 0,
         vocab_size=256,
         window=min(cfg.window, 64) if cfg.window else None,
         num_experts=min(cfg.num_experts, 8),
         num_experts_per_token=min(cfg.num_experts_per_token, 2),
+        ssm_state=min(cfg.ssm_state, 16),
+        ssm_head_dim=16 if cfg.ssm_state else 64,
+        ssm_chunk=16,
         dtype="float32",
         remat=False,
     )

@@ -1,10 +1,12 @@
-"""Model configuration of the port's decoders (the dense and
-mixture-of-experts parts of ``repro.configs.base``): pre-norm blocks
+"""Model configuration of the port's decoders (the dense, mixture-of-experts,
+state-space and hybrid parts of ``repro.configs.base``): pre-norm blocks
 (RMSNorm, LayerNorm or non-parametric LayerNorm, eps 1e-5), RoPE,
 grouped-query attention with optional qk-norm and a decoupled head_dim, a
 SwiGLU, GeGLU or GELU MLP (``family="dense"``) or a top-k routed SwiGLU
-mixture of experts with capacity-factor dropping (``family="moe"``), and a
-tied or separate output head.
+mixture of experts with capacity-factor dropping (``family="moe"``),
+attention-free Mamba2 (SSD) blocks (``family="ssm"``) or Hymba's parallel
+attention + SSM heads (``family="hybrid"``), and a tied or separate output
+head.
 
 Defaults match the JAX package, including ``attn_impl="chunked"``,
 ``use_decode_kernel=False`` and ``remat=True``: with the first two the
@@ -23,7 +25,7 @@ from typing import Literal
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: Literal["dense", "moe"]
+    family: Literal["dense", "moe", "ssm", "hybrid"]
     num_layers: int
     d_model: int
     num_heads: int
@@ -56,6 +58,18 @@ class ModelConfig:
     num_experts_per_token: int = 0
     moe_capacity_factor: float = 1.25
 
+    # SSM (Mamba2 / SSD; families "ssm" and "hybrid")
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256
+    fast_conv: bool = False             # depthwise conv1d stem (vs shifts)
+    ssm_decay_dtype: str = "float32"    # SSD intra-chunk decay operand dtype
+
+    # hybrid (Hymba): parallel attention + SSM heads in one block
+    hybrid: bool = False
+
     tie_embeddings: bool = True         # False: a separate (d_model, V) head
     dtype: str = "bfloat16"
     remat: bool = True                  # activation checkpoint each block
@@ -66,3 +80,15 @@ class ModelConfig:
         if self.num_heads % max(self.num_kv_heads, 1):
             raise ValueError(f"num_heads {self.num_heads} not a multiple of "
                              f"num_kv_heads {self.num_kv_heads}")
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_num_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim

@@ -14,8 +14,10 @@ The flags are the JAX launcher's (``repro.launch.serve``) plus
 width and depth with random weights from ``--seed``. On ``cuda`` the
 launcher sets ``attn_impl="pallas"`` and ``use_decode_kernel=True``, so
 prefill and decode run through the hand-written kernels (in dense mode the
-contiguous split-KV decode kernel). ``--tp`` > 1 and ``--sp`` > 1 are not
-ported yet and raise.
+contiguous split-KV decode kernel). Families with recurrent state
+(``mamba2-2.7b``, ``hymba-1.5b``) serve in dense slots without
+``--dense``, as in the reference (the engine's default for them).
+``--tp`` > 1 and ``--sp`` > 1 are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-sequence max cache length")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--dense", action="store_true",
-                    help="fixed-slot dense KV cache (atomic packed prefill)")
+                    help="fixed-slot dense KV cache (atomic packed prefill); "
+                         "the default for families that cannot page")
     ap.add_argument("--page-size", type=int, default=16,
                     help="KV rows per page (== mask-IR kv block)")
     ap.add_argument("--pages", type=int, default=None,
@@ -110,7 +113,8 @@ def main(argv=None):
     params = model.init(torch.Generator(device=device).manual_seed(args.seed),
                         device=device)
     eng = ServingEngine(model, params, num_slots=args.slots,
-                        capacity=args.capacity, paged=not args.dense,
+                        capacity=args.capacity,
+                        paged=False if args.dense else None,
                         page_size=args.page_size,
                         num_pages=args.pages, chunk_size=args.chunk_size,
                         token_budget=args.token_budget,

@@ -7,8 +7,9 @@
         --steps 20 --seq 64 --batch 4
 
 The flags follow the JAX launcher's (``repro.launch.train``; default arch
-``olmo-1b``, any arch of ``repro_torch.configs``, the MoE ones printing
-their cross-entropy and load-balancing loss apart), with one difference:
+``olmo-1b``, any arch of ``repro_torch.configs``: dense, MoE (printing
+their cross-entropy and load-balancing loss apart), ``mamba2-2.7b`` and
+``hymba-1.5b``), with one difference:
 without ``--reduced`` the PUBLISHED config is built at full width and
 depth (random weights from ``--seed``) on one device; the production-mesh
 path (``--full`` on a TPU slice: TP/DP/EP + ZeRO-1) is not ported.

@@ -1,7 +1,11 @@
-"""Top-level decoder Model (port of the dense and MoE parts of
-``repro.models.model_zoo``): init, ``forward``/``loss`` for training,
-prefill into a slot cache, packed prefill, chunked prefill against the
-page pool, decode against either cache, and ``params_from_jax``.
+"""Top-level decoder Model (port of the decoder-only parts of
+``repro.models.model_zoo``: the dense, MoE, SSM and hybrid families):
+init, ``forward``/``loss`` for training, prefill into a slot cache, packed
+prefill, chunked prefill against the page pool, decode against either
+cache, and ``params_from_jax``. Packed prefill and the page pool serve the
+attention families only (``supports_packed_prefill``,
+``supports_paged_decode``); SSM and hybrid models carry a recurrent state
+beside (or instead of) the K/V cache and serve in dense slots.
 
 Params are a plain dict: ``{"embed": (V, d), "final_norm": {...},
 "blocks": [per-layer dicts]}``, plus ``"lm_head": (d, V)`` when
@@ -112,7 +116,9 @@ class Model:
 
     def init_decode_state(self, batch: int, capacity: int, device="cuda"):
         """Dense decode state: per-layer slot caches
-        (L, batch, hkv, capacity, hd) and per-slot valid lengths."""
+        (L, batch, hkv, capacity, hd), the SSM state where the family has
+        one (``transformer.init_decode_cache``), and per-slot valid
+        lengths."""
         dev = resolve_device(device)
         caches = tfm.init_decode_cache(self.cfg, batch, capacity,
                                        torch_dtype(self.cfg), dev)
@@ -122,8 +128,9 @@ class Model:
 
     @torch.inference_mode()
     def prefill(self, params, batch, capacity: int):
-        """Run the prompt (b, s) into fresh slot caches of ``capacity``;
-        returns (state, last-token logits (b, 1, V))."""
+        """Run the prompt (b, s) into fresh slot caches of ``capacity``
+        (and, for the SSM and hybrid families, the SSM state after the
+        prompt); returns (state, last-token logits (b, 1, V))."""
         tokens = self._batch_tensor(params, batch["tokens"]).long()
         x = params["embed"][tokens]
         h, caches = tfm.apply_stack_prefill(params["blocks"], self.cfg, x,
@@ -132,6 +139,18 @@ class Model:
                  "kv_len": torch.full((x.shape[0],), x.shape[1],
                                       dtype=torch.int32, device=x.device)}
         return state, self._logits(params, h[:, -1:])
+
+    def supports_packed_prefill(self) -> bool:
+        """Packed prefill scatters per-segment K/V row ranges into slots or
+        pages: every cache leaf must be a length-indexed K/V cache. SSM
+        and hybrid states do not split per segment."""
+        cfg = self.cfg
+        return cfg.family in ("dense", "moe") and not cfg.hybrid
+
+    def supports_paged_decode(self) -> bool:
+        """Paged decode needs per-token K/V rows: the packed-prefill
+        predicate, as in the reference."""
+        return self.supports_packed_prefill()
 
     def init_paged_decode_state(self, batch: int, num_pages: int,
                                 page_size: int, pages_per_seq: int,
@@ -176,7 +195,8 @@ class Model:
     @torch.inference_mode()
     def decode_step(self, params, state, token):
         """token: (B,) int. Returns (new_state, logits (B, 1, V)); the cache
-        is updated in place and ``kv_len`` advances by one. A ``page_table``
+        (and every slot's SSM state, idle slots' too) is updated in place
+        and ``kv_len`` advances by one. A ``page_table``
         key in the state selects the paged pool, else the slot cache."""
         x = params["embed"][token.long()[:, None]]
         if "page_table" in state:
@@ -207,7 +227,8 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> Params:
     package's params. Blocks stacked on a leading layer axis (``init_stack``
     under ``scan_layers``) are unstacked into a per-layer list; a list of
     blocks is taken as is. A float32 leaf stays float32 (the reference
-    keeps some in a bf16 model: the MoE router); every other leaf is cast
+    keeps some in a bf16 model: the MoE router, the SSM's ``A_log``, ``D``
+    and ``dt_bias``); every other leaf is cast
     to the config's dtype through float32 (lossless for bf16 and f32)."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)

@@ -1,10 +1,14 @@
-"""Decoder stack (port of the dense and MoE parts of
+"""Decoder stack (port of the decoder-only parts of
 ``repro.models.transformer``): pre-norm attention + MLP blocks (norm and
-MLP by ``cfg.norm_type`` / ``cfg.mlp_type``), or attention + MoE blocks
-for ``family="moe"``, run as a plain loop over layers (the JAX package
-scans over stacked layers). The training stack sums the MoE layers'
-load-balancing losses; the serving stacks drop them, as the reference
-does. With
+MLP by ``cfg.norm_type`` / ``cfg.mlp_type``), attention + MoE blocks for
+``family="moe"``, attention-free Mamba2 (SSD) blocks for ``family="ssm"``
+(an MLP only where ``d_ff > 0``), and Hymba's blocks for
+``family="hybrid"``: attention and SSM heads read the same normalized
+input, and their outputs, each RMS-normalized, are averaged. The stacks run
+as a plain loop over layers (the JAX package scans over stacked layers).
+The training stack sums the MoE layers' load-balancing losses; the serving
+stacks drop them, as the reference does. The SSM path ignores
+``segment_ids``: packing is an attention-family feature. With
 ``cfg.remat`` the training stack checkpoints every block
 (``torch.utils.checkpoint``, non-reentrant: only the block's input is
 kept and the block runs again in the backward), as the JAX package's
@@ -18,32 +22,50 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.tree import tree_map
 from repro_torch.models import attention_layer as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
-                                       init_norm)
+                                       init_norm, rms_normalize)
 
 Params = dict[str, Any]
 
 
 def init_block(cfg: ModelConfig, dtype, *, generator, device) -> Params:
+    """The reference's block tree: attention unless the family is "ssm",
+    an SSM (with its own norm) for "ssm" and "hybrid" (the hybrid's
+    ``ssm_norm`` is never read, as in the reference), then an MoE for
+    "moe" or an MLP where ``d_ff > 0``."""
     kw = dict(generator=generator, device=device)
-    p = {
-        "attn_norm": init_norm(cfg.d_model, cfg.norm_type, dtype, device),
-        "attn": attn_mod.init_attention(cfg, dtype, **kw),
-        "mlp_norm": init_norm(cfg.d_model, cfg.norm_type, dtype, device),
-    }
+    p: Params = {}
+    if cfg.family != "ssm":
+        p["attn_norm"] = init_norm(cfg.d_model, cfg.norm_type, dtype, device)
+        p["attn"] = attn_mod.init_attention(cfg, dtype, **kw)
+    if cfg.family == "ssm" or cfg.hybrid:
+        p["ssm_norm"] = init_norm(cfg.d_model, cfg.norm_type, dtype, device)
+        p["ssm"] = ssm_mod.init_ssm(cfg, dtype, **kw)
     if cfg.family == "moe":
+        p["mlp_norm"] = init_norm(cfg.d_model, cfg.norm_type, dtype, device)
         p["moe"] = moe_mod.init_moe(cfg, dtype, **kw)
-    else:
+    elif cfg.d_ff > 0:
+        p["mlp_norm"] = init_norm(cfg.d_model, cfg.norm_type, dtype, device)
         p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.mlp_type, dtype, **kw)
     return p
 
 
+def _mix(x, a, m):
+    """Hymba's residual: the attention and SSM outputs, each RMS-normalized,
+    averaged."""
+    return x + 0.5 * (rms_normalize(a) + rms_normalize(m))
+
+
 def _ffn_residual(params: Params, cfg: ModelConfig, x):
-    """x plus the block's MLP, or MoE, of its normalised self. Returns (x,
-    aux): the MoE's load-balancing loss, or None for an MLP (the serving
-    stacks drop it)."""
+    """x plus the block's MLP, or MoE, of its normalised self (x itself
+    for a block with neither). Returns (x, aux): the MoE's load-balancing
+    loss, or None (the serving stacks drop it)."""
+    if "mlp_norm" not in params:
+        return x, None
     h = apply_norm(params["mlp_norm"], x, cfg.norm_type)
     if "moe" in params:
         y, aux = moe_mod.apply_moe(params["moe"], cfg, h)
@@ -54,12 +76,18 @@ def _ffn_residual(params: Params, cfg: ModelConfig, x):
 def apply_block(params: Params, cfg: ModelConfig, x, *, segment_ids=None,
                 deterministic: bool = True, dropout_seed=0):
     """One block, full sequence (training). Returns (x, aux_loss); aux is 0
-    for the dense family."""
-    h = apply_norm(params["attn_norm"], x, cfg.norm_type)
-    x = x + attn_mod.apply_attention(params["attn"], cfg, h,
+    outside the MoE family."""
+    if cfg.family == "ssm":
+        h = apply_norm(params["ssm_norm"], x, cfg.norm_type)
+        x = x + ssm_mod.apply_ssm(params["ssm"], cfg, h)
+    else:
+        h = apply_norm(params["attn_norm"], x, cfg.norm_type)
+        a = attn_mod.apply_attention(params["attn"], cfg, h,
                                      segment_ids=segment_ids,
                                      deterministic=deterministic,
                                      dropout_seed=dropout_seed)
+        x = (_mix(x, a, ssm_mod.apply_ssm(params["ssm"], cfg, h))
+             if cfg.hybrid else x + a)
     x, aux = _ffn_residual(params, cfg, x)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -88,51 +116,85 @@ def apply_stack(blocks: list[Params], cfg: ModelConfig, x, *,
 def apply_block_prefill(params: Params, cfg: ModelConfig, x,
                         capacity: int | None = None, *, segment_ids=None,
                         positions=None):
-    """One block over a (packed) prompt; returns (x, {"kv": {"k", "v"}})
-    with the block's K/V rows (b, hkv, s, hd), or, given a ``capacity``,
-    a (b, hkv, capacity, hd) slot cache holding them at [0, s)."""
+    """One block over a (packed) prompt; returns (x, cache_l): ``"kv"``
+    with the block's K/V rows (b, hkv, s, hd), or, given a ``capacity``, a
+    (b, hkv, capacity, hd) slot cache holding them at [0, s); ``"ssm"``
+    with the SSM's final state {"h", "conv"} (families "ssm" and
+    "hybrid"; those prefill one unpacked prompt a row)."""
+    cache_l: Params = {}
+    if cfg.family == "ssm":
+        h = apply_norm(params["ssm_norm"], x, cfg.norm_type)
+        y, cache_l["ssm"] = ssm_mod.apply_ssm(params["ssm"], cfg, h,
+                                              return_final_state=True)
+        return _ffn_residual(params, cfg, x + y)[0], cache_l
     h = apply_norm(params["attn_norm"], x, cfg.norm_type)
     cache = (None if capacity is None else
              attn_mod.init_kv_cache(cfg, x.shape[0], capacity, x.dtype,
                                     x.device))
-    a, kv = attn_mod.prefill_attention(params["attn"], cfg, h, cache,
-                                       segment_ids=segment_ids,
-                                       positions=positions)
-    return _ffn_residual(params, cfg, x + a)[0], {"kv": kv}
+    a, cache_l["kv"] = attn_mod.prefill_attention(
+        params["attn"], cfg, h, cache, segment_ids=segment_ids,
+        positions=positions)
+    if cfg.hybrid:
+        m, cache_l["ssm"] = ssm_mod.apply_ssm(params["ssm"], cfg, h,
+                                              return_final_state=True)
+        x = _mix(x, a, m)
+    else:
+        x = x + a
+    return _ffn_residual(params, cfg, x)[0], cache_l
 
 
 def apply_stack_prefill(blocks: list[Params], cfg: ModelConfig, x,
                         capacity: int | None = None, *, segment_ids=None,
                         positions=None):
-    """Prompt through all layers; K/V rows (or slot caches of
-    ``capacity``) stacked on a leading layer axis:
-    {"kv": {"k": (L, b, hkv, s or capacity, hd), "v": ...}}."""
-    ks, vs = [], []
+    """Prompt through all layers; every cache leaf stacked on a leading
+    layer axis: {"kv": {"k": (L, b, hkv, s or capacity, hd), "v": ...},
+    "ssm": {"h": (L, b, h, p, n), "conv": (L, b, w-1, conv_ch)}}, each
+    where the family has it."""
+    outs = []
     for p_l in blocks:
         x, c = apply_block_prefill(p_l, cfg, x, capacity,
                                    segment_ids=segment_ids,
                                    positions=positions)
-        ks.append(c["kv"]["k"])
-        vs.append(c["kv"]["v"])
-    return x, {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+        outs.append(c)
+    return x, tree_map(lambda *ls: torch.stack(ls), outs[0], *outs[1:])
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
                       device):
     """Per-layer slot caches stacked on a leading layer axis:
-    (L, batch, hkv, capacity, hd) per K/V leaf."""
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, capacity, cfg.head_dim)
-    return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                   "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    (L, batch, hkv, capacity, hd) per K/V leaf (unless the family is
+    "ssm"), and the SSM state (families "ssm" and "hybrid"): "h" (L,
+    batch, h, p, n) float32 and "conv" (L, batch, w-1, conv_ch)."""
+    c: Params = {}
+    if cfg.family != "ssm":
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, capacity,
+                 cfg.head_dim)
+        c["kv"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                   "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.family == "ssm" or cfg.hybrid:
+        one = ssm_mod.init_ssm_state(cfg, batch, dtype, device)
+        c["ssm"] = {k: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype,
+                                   device=device) for k, t in one.items()}
+    return c
 
 
 def apply_block_decode(params: Params, cfg: ModelConfig, x, cache, kv_len):
-    """One block for one new token against its slot cache (updated in
-    place). Returns (x, cache)."""
+    """One block for one new token against its layer's slot cache
+    ({"kv", "ssm"} as the family has them, updated in place). Returns (x,
+    cache)."""
+    if cfg.family == "ssm":
+        h = apply_norm(params["ssm_norm"], x, cfg.norm_type)
+        y, _ = ssm_mod.decode_ssm_step(params["ssm"], cfg, h, cache["ssm"])
+        return _ffn_residual(params, cfg, x + y)[0], cache
     h = apply_norm(params["attn_norm"], x, cfg.norm_type)
-    a, cache = attn_mod.decode_attention_step(params["attn"], cfg, h, cache,
-                                              kv_len)
-    return _ffn_residual(params, cfg, x + a)[0], cache
+    a, _ = attn_mod.decode_attention_step(params["attn"], cfg, h,
+                                          cache["kv"], kv_len)
+    if cfg.hybrid:
+        m, _ = ssm_mod.decode_ssm_step(params["ssm"], cfg, h, cache["ssm"])
+        x = _mix(x, a, m)
+    else:
+        x = x + a
+    return _ffn_residual(params, cfg, x)[0], cache
 
 
 def apply_stack_decode(blocks: list[Params], cfg: ModelConfig, x, caches,
@@ -140,14 +202,20 @@ def apply_stack_decode(blocks: list[Params], cfg: ModelConfig, x, caches,
     """A single token through all layers against the slot caches (updated
     in place); ``kv_len`` is layer-invariant. Returns (x, caches)."""
     for l, p_l in enumerate(blocks):
-        x, _ = apply_block_decode(p_l, cfg, x, _layer_pool(caches, l), kv_len)
+        layer = {name: {k: t[l] for k, t in leaves.items()}
+                 for name, leaves in caches.items()}
+        x, _ = apply_block_decode(p_l, cfg, x, layer, kv_len)
     return x, caches
 
 
 def init_paged_decode_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                             dtype, device):
     """Per-layer page pools stacked on a leading layer axis:
-    (L, hkv, num_pages, page_size, hd) per K/V leaf."""
+    (L, hkv, num_pages, page_size, hd) per K/V leaf. Paging is an
+    attention-family feature: SSM and hybrid state has no per-token rows."""
+    if cfg.family not in ("dense", "moe") or cfg.hybrid:
+        raise ValueError(f"family {cfg.family!r} (hybrid={cfg.hybrid}) has "
+                         f"no pageable KV cache")
     shape = (cfg.num_layers, cfg.num_kv_heads, num_pages, page_size,
              cfg.head_dim)
     return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -155,8 +223,8 @@ def init_paged_decode_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def _layer_pool(caches, l: int):
-    """Views of layer l's pool or slot cache: in-place writes land in the
-    stacked leaves."""
+    """Views of layer l's page pool: in-place writes land in the stacked
+    leaves."""
     return {"k": caches["kv"]["k"][l], "v": caches["kv"]["v"][l]}
 
 

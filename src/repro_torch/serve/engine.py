@@ -21,7 +21,11 @@ Dense mode (``paged=False``) keeps one fixed-capacity cache row per lane
 and atomic prefill, driven through the same scheduler without page
 accounting: drained requests prefill in ONE packed call whose K/V rows are
 copied into their slots, and decode runs the contiguous split-KV kernel
-(``use_decode_kernel``) or its plain version.
+(``use_decode_kernel``) or its plain version. Families with recurrent
+state (SSM, hybrid) can neither page nor pack: they serve in dense mode
+(the default for them; ``paged=True`` raises), each admission one
+UNPADDED batch-1 ``Model.prefill`` (padding would run the recurrence past
+the prompt) whose state overwrites the slot's whole state, every leaf.
 
 Prefix caching (on by default in paged mode): ``submit`` stages the
 prompt's rolling content hash with the allocator, admission maps any
@@ -56,6 +60,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import masks
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.core.masks import POS_PAD, SEG_PAD_Q
 from repro_torch.kernels import tuning
 from repro_torch.models.model_zoo import Model
@@ -115,9 +120,15 @@ class ServingEngine:
         self.capacity = capacity
         self.eos_id = eos_id
         # packed prefill widths pad to a multiple of this many rows
-        self.packed_prefill = packed_prefill
+        self.packed_prefill = packed_prefill and model.supports_packed_prefill()
         self.prefill_bucket = prefill_bucket
-        self.paged = True if paged is None else bool(paged)
+        can_page = model.supports_paged_decode()
+        self.paged = can_page if paged is None else bool(paged)
+        if self.paged and not can_page:
+            raise ValueError(
+                f"paged decode needs a per-token KV cache; family "
+                f"{model.cfg.family!r} (hybrid={model.cfg.hybrid}) carries "
+                f"recurrent/encoder state that cannot be paged")
         if chunk_size is not None and not self.paged:
             raise ValueError(
                 "chunked prefill appends to paged KV state; the dense slot "
@@ -573,11 +584,37 @@ class ServingEngine:
             big[:, slot, :, :length] = small[:, 0, :, offset:offset + length]
         self.state["kv_len"][slot] = kv_len_new
 
+    def _insert(self, slot_caches, slot: int, kv_len_new: int) -> None:
+        """Overwrite slot ``slot``'s WHOLE state, every cache leaf, with a
+        batch-1 ``Model.prefill``'s state (leaves (L, 1, ...)), in place: a
+        leaf the prefill filled only in part (a conv state of fewer than
+        w-1 rows, from a prompt that short) is zero past it, so nothing of
+        the slot's last occupant, or of its idle decode steps, is left."""
+        def ins(big, small):
+            dst = big[:, slot]
+            dst.zero_()
+            dst[(slice(None),) + tuple(slice(0, n)
+                                       for n in small.shape[2:])] = small[:, 0]
+
+        tree_map(ins, self.state["caches"], slot_caches)
+        self.state["kv_len"][slot] = kv_len_new
+
     def _admit_one(self, task: ChunkTask, req: Request) -> None:
-        """One batch-1 prefill, padded to the prefill bucket, into the
-        task's slot."""
+        """One batch-1 prefill into the task's slot: padded to the prefill
+        bucket for the packable families; unpadded, through
+        ``Model.prefill``, for those with recurrent state."""
         toks = req.resume_tokens
         L = len(toks)
+        if not self.model.supports_packed_prefill():
+            slot_state, logits = self.model.prefill(
+                self.params, {"tokens": self._dev(np.asarray([toks],
+                                                             np.int32))},
+                self.capacity)
+            self._c_prefill_calls.inc()
+            self._insert(slot_state["caches"], task.lane, L)
+            tok = self._sample_rows(logits[0, -1][None], [req])[0]
+            self._post_prefill(task.lane, req, int(tok))
+            return
         padded = self._bucketed(L)
         arr = np.zeros((1, padded), np.int32)
         arr[0, :L] = toks
@@ -806,10 +843,10 @@ class ServingEngine:
         return show
 
     def cache_bytes(self) -> int:
-        """Device bytes resident in the KV cache (page pool or slot
-        cache)."""
+        """Device bytes resident in the decode state's caches (page pool or
+        slot cache, and the SSM state where the family has one)."""
         return int(sum(t.numel() * t.element_size()
-                       for t in self.state["caches"]["kv"].values()))
+                       for t in tree_leaves(self.state["caches"])))
 
     def latency_stats(self) -> dict[str, float]:
         """Percentile-reduced per-request latencies (seconds): TTFT (submit

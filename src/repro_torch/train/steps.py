@@ -12,7 +12,13 @@ params, each block), so the fp32 clipped gradients and updates of only one
 piece exist at a time: at olmoe-1b-7b's width that is ~3.4 GB instead of
 8 bytes a parameter. The global norm is taken over every gradient first,
 and both optimizers work leaf by leaf, so the result is the same as
-clipping and updating the whole tree at once. The
+clipping and updating the whole tree at once — the tree as the reference
+holds it: its blocks stacked on a leading layer axis. Its optimizers
+decay a leaf of two or more dims, and each block leaf has the layer axis
+there, so a block's 1-D leaves (norm scales, biases, the SSM's ``A_log``,
+``D``, ``dt_bias``) are decayed and only the top-level 1-D ones (the final
+norm) are not. The step hands each block to the optimizer with that axis
+(a view), so the updates are the reference's. The
 sharded and ZeRO-1 step factories wait for the tensor/data-parallel slice
 (ROADMAP.md).
 """
@@ -53,19 +59,29 @@ def _clip_update_apply(optimizer: Optimizer, grads, opt_state, params,
                        clip_norm: float):
     """Global-norm clipping, the optimizer update and its application, one
     piece (``_pieces``) at a time; each piece's gradients are released once
-    it is done. Returns (new params, opt_state, norm before clipping)."""
+    it is done; a block goes with a leading layer axis, as the reference
+    stacks it (the moments are updated in place through the views).
+    Returns (new params, opt_state, norm before clipping)."""
     norm = global_norm(grads)
     scale = clip_scale(norm, clip_norm)
     step = opt_state["step"]
     new = {k: list(v) if isinstance(v, list) else v
            for k, v in params.items()}
     for key in _pieces(params):
-        g = tree_map(lambda x: x.float() * scale, _get(grads, key))
+        block = len(key) == 2
+
+        def view(t):
+            return t.unsqueeze(0) if block else t
+
+        g = tree_map(lambda x: view(x.float() * scale), _get(grads, key))
         _set(grads, key, None)
-        state = {"step": step, "mu": _get(opt_state["mu"], key),
-                 "nu": _get(opt_state["nu"], key)}
-        updates, state = optimizer.update(g, state, _get(params, key))
+        state = {"step": step, "mu": tree_map(view, _get(opt_state["mu"], key)),
+                 "nu": tree_map(view, _get(opt_state["nu"], key))}
+        updates, state = optimizer.update(g, state,
+                                          tree_map(view, _get(params, key)))
         del g
+        if block:
+            updates = tree_map(lambda u: u.squeeze(0), updates)
         _set(new, key, apply_updates(_get(params, key), updates))
     opt_state["step"] = state["step"]
     return new, opt_state, norm
@@ -84,7 +100,10 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
         loss, metrics = model.loss(with_leaves(params, leaves), batch,
                                    deterministic=deterministic,
                                    dropout_seed=seed)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss never reads (hymba's ssm_norm) gets a zero
+        # gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         return (with_leaves(params, grads),
                 {k: v.detach() for k, v in metrics.items()})
 

@@ -1,8 +1,9 @@
 """The port's architecture registry against the JAX package's: every
 field the two ``ModelConfig`` classes share is equal for each of the seven
-dense archs and the two MoE archs, at the published size and after
-``reduced_config`` (also with overrides), the reduction clamps the experts
-to 8 and the top-k to 2 as the reference's does, and the config's
+dense archs, the two MoE archs and the SSM and hybrid archs, at the
+published size and after ``reduced_config`` (also with overrides), the
+reduction clamps the experts to 8 and the top-k to 2 as the reference's
+does, gives no heads and no MLP where the arch has none, and the config's
 ``window`` reaches the ``AttentionSpec`` the attention layer builds, as
 in the reference."""
 
@@ -20,6 +21,7 @@ from repro_torch.models.attention_layer import attn_spec_from_config
 DENSE = ["granite-3-2b", "olmo-1b", "qwen3-32b", "internlm2-20b",
          "gpt2-small", "gpt2-medium", "bert-large"]
 MOE = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"]
+SSM = ["mamba2-2.7b", "hymba-1.5b"]
 
 
 def _shared(port_cfg, jax_cfg):
@@ -31,22 +33,25 @@ def _shared(port_cfg, jax_cfg):
 
 
 def test_registry_holds_the_dense_archs():
-    """The dense archs, and beside them the MoE archs, under the
-    reference's names and families."""
-    assert sorted(ARCHS) == sorted(DENSE + MOE) == list_archs()
+    """The dense archs, and beside them the MoE, SSM and hybrid archs,
+    under the reference's names and families; the encoder-decoder is the
+    next arch not ported yet."""
+    assert sorted(ARCHS) == sorted(DENSE + MOE + SSM) == list_archs()
     assert {a for a in ARCHS if get_config(a).family == "dense"} == set(DENSE)
     assert {a for a in ARCHS if get_config(a).family == "moe"} == set(MOE)
+    assert get_config("mamba2-2.7b").family == "ssm"
+    assert get_config("hymba-1.5b").family == "hybrid"
     with pytest.raises(KeyError):
-        get_config("mamba2-2.7b")
+        get_config("seamless-m4t-medium")
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
 def test_published_fields_equal_jax(arch):
     ours, ref = _shared(get_config(arch), jax_get_config(arch))
     assert ours == ref
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
 @pytest.mark.parametrize("overrides", [{}, {"head_dim": 32, "window": 300},
                                        {"num_layers": 1, "causal": False}])
 def test_reduced_fields_equal_jax(arch, overrides):
@@ -101,3 +106,22 @@ def test_reduction_clamps_the_experts(arch, overrides):
         "num_experts_per_token", min(pub.num_experts_per_token, 2))
     assert cfg.moe_capacity_factor == overrides.get("moe_capacity_factor",
                                                     1.25)
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_ssm_fields_and_reduction_match_jax(arch):
+    """The SSM fields and properties the reference derives (d_inner, SSM
+    heads) at the published size, and the reduction: no attention heads
+    and no head_dim for mamba2, no MLP where d_ff is 0, SSM state at most
+    16, SSM heads of 16, chunks of 16; mamba2's head_dim is d_model as in
+    the reference (no kernel sees it)."""
+    for ours, ref in ((get_config(arch), jax_get_config(arch)),
+                      (reduced_config(arch), jax_reduced_config(arch))):
+        for name in ("ssm_d_inner", "ssm_num_heads", "attention_free"):
+            assert getattr(ours, name) == getattr(ref, name), name
+    m = get_config("mamba2-2.7b")
+    assert (m.head_dim, m.ssm_num_heads, m.ssm_d_inner) == (2560, 80, 5120)
+    r = reduced_config(arch)
+    assert r.ssm_state == 16 and r.ssm_head_dim == 16 and r.ssm_chunk == 16
+    assert (r.num_heads, r.d_ff) == ((0, 0) if arch == "mamba2-2.7b"
+                                     else (4, 128))

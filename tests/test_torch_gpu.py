@@ -14,7 +14,11 @@ against the same engine on the CPU (and refusing pages its kernels do not
 take); the MoE layer on the card against the CPU (fp32), bit-identical
 twice and free of host syncs in bf16, reduced olmoe-1b-7b served on the
 card against the CPU, and the serving kernels at the MoE serves' head
-groups (d 128, GQA 1 and 4). Marked ``gpu``; skipped
+groups (d 128, GQA 1 and 4); the kernels at hymba-1.5b's GQA 5 with a
+window that skips whole tiles (#1, #2, #3, and #7 at window 1024),
+reduced hymba served and trained on the card against the CPU, and one
+bf16 SSM layer at mamba2-2.7b's heads bit-identical twice and free of host
+syncs. Marked ``gpu``; skipped
 without a CUDA device (whether one is present is decided inside the
 fixture, never at import or collection). Imports no jax: the card's
 machine has none. Run there with::
@@ -1272,3 +1276,157 @@ def test_serving_kernels_at_moe_head_groups_match_plain(cuda, dtype, n_rep):
     _check_decode(dtype, "flash_decode_paged",
                   lambda: fd.flash_decode_paged_from_layout(*args, **kw),
                   fd.flash_decode_paged_partials_plain(*args, **kw), idle=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hymba_attention_group_with_window_matches_plain(cuda, dtype):
+    """The forward and the dq / dkv pair at hymba-1.5b's head group (5 q
+    heads a kv head, d 64) with a causal window of 200 over 512 keys, so
+    that whole 64 x 64 tiles fall out of it and are skipped, over packed
+    documents: against their plain versions, two backward calls
+    bit-identical (the dkv GQA sum over 5 heads in a fixed order)."""
+    gen = torch.Generator().manual_seed(5)
+    b, hkv, n_rep, S, d, bq, bk, window = 2, 2, 5, 512, 64, 64, 64, 200
+    hq = hkv * n_rep
+    q = torch.randn(b, hq, S, d, generator=gen).to(cuda, dtype)
+    k, v = (torch.randn(b, hkv, S, d, generator=gen).to(cuda, dtype)
+            for _ in range(2))
+    seg = _segments(gen, b, S, cuda)
+    spec = M.MaskSpec(causal=True, window=window, q_segment_ids=seg,
+                      kv_segment_ids=seg)
+    layout = M.compile_block_layout(spec, S, S, bq, bk).as_array(cuda)
+    # some tiles below the diagonal are out of the window
+    nq = S // bq
+    below = torch.ones(nq, nq, dtype=torch.bool, device=cuda).tril(-1)
+    assert bool(((layout == M.BLOCK_SKIP) & below).any())
+    call = dict(scale=d ** -0.5, causal=True, window=window, q_offset=0,
+                block_q=bq, block_k=bk, q_segment_ids=seg, kv_segment_ids=seg)
+    n0 = dict(fa.LAUNCHES)
+    out = fa.flash_attention_forward(q, k, v, None, layout, **call)
+    torch.cuda.synchronize()
+    _check(out, fa.flash_attention_forward_plain(q, k, v, None, layout,
+                                                 **call), dtype)
+    do = torch.randn(q.shape, generator=gen).to(cuda, dtype)
+    res = (q, k, v, out[0], do, out[1], out[2], None, layout)
+    got = fa.flash_attention_backward(*res, **call)
+    torch.cuda.synchronize()
+    for kern in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.LAUNCHES[kern] == n0[kern] + 1, kern
+    _check_grads(got, fa.flash_attention_backward_plain(*res, **call), dtype)
+    again = fa.flash_attention_backward(*res, **call)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [1, 8])
+def test_decode_at_hymba_group_with_window_matches_plain(cuda, dtype, splits):
+    """The contiguous decode at hymba-1.5b's GQA 5 (one CTA's 4 heads and
+    one more), d 64, window 1024 over a 2048-slot cache: an idle lane, a
+    lane inside the window, and two past it whose first blocks are
+    skipped, against the plain partials and their merge."""
+    gen = torch.Generator(device=cuda).manual_seed(splits)
+    b, hkv, n_rep, d, cap, bk, window = 4, 2, 5, 64, 2048, 64, 1024
+    hq = hkv * n_rep
+    kv_len = torch.tensor([0, 700, 1536, cap], dtype=torch.int32,
+                          device=cuda)
+    q = torch.randn(b, hq, 1, d, generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn(b, hkv, cap, d, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    valid = M.decode_kv_valid(kv_len, cap, window=window)
+    layout = M.kv_block_layout(valid, bk)
+    assert int((layout[3] == M.BLOCK_SKIP).sum()) >= cap // 2 // bk
+    kw = dict(scale=d ** -0.5, block_k=bk, num_splits=splits, window=window)
+    args = (q, k, v, kv_len, layout)
+    _check_decode(dtype, "flash_decode",
+                  lambda: fd.flash_decode_from_layout(*args, **kw),
+                  fd.flash_decode_partials_plain(*args, **kw), idle=0)
+
+
+def test_hymba_engine_and_train_step_on_card_match_cpu(cuda):
+    """Reduced hymba-1.5b (float32, window 64, GQA 4, head_dim 64) served
+    in dense slots on the card gives the CPU engine's greedy tokens, with
+    prompts past the window and one that is not a chunk multiple, through
+    #1 and #7; two AdamW steps on the card give the CPU's losses within
+    1e-4 relative through #1, #2 and #3."""
+    import dataclasses
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_train_step
+
+    cfg = reduced_config("hymba-1.5b", head_dim=64, attn_impl="pallas",
+                         use_decode_kernel=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    prompts = [list(range(1, 100)), [5, 9, 2, 7], list(range(30, 67)),
+               list(range(3, 83))]
+    outs = []
+    for device in ("cpu", "cuda"):
+        n0 = {**fa.LAUNCHES, **fd.LAUNCHES}
+        eng = ServingEngine(model, params_to(params, device), num_slots=2,
+                            capacity=128, device=device)
+        assert not eng.paged
+        for pr in prompts:
+            eng.submit(pr, max_new_tokens=6)
+        eng.run()
+        outs.append({r.rid: r.output for r in eng.finished})
+    assert outs[0] == outs[1]
+    assert fa.LAUNCHES["flash_fwd"] > n0["flash_fwd"]
+    assert fd.LAUNCHES["flash_decode"] > n0["flash_decode"]
+    assert fd.LAUNCHES["flash_decode_paged"] == n0["flash_decode_paged"]
+
+    cfg = dataclasses.replace(cfg, remat=True)
+    model = build_model(cfg)
+    data = SyntheticLM(cfg.vocab_size, 160, 2, seed=1, mean_doc_len=48)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        opt = adamw(warmup_cosine(1e-3, 2, 10))
+        p = params_to(params, dev)
+        state = opt.init(p)
+        step = make_train_step(model, opt, deterministic=True)
+        n0 = dict(fa.LAUNCHES)
+        losses[dev] = []
+        for s in range(2):
+            p, state, metrics = step(p, state, data.batch_at(s))
+            losses[dev].append(float(metrics["loss"]))
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.LAUNCHES[name] > n0[name], name
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-4 * abs(b), (losses["cuda"], losses["cpu"])
+
+
+def test_ssm_layer_bf16_is_bit_identical_and_never_waits(cuda):
+    """Forward + backward of one SSM layer at mamba2-2.7b's head shapes
+    (80 heads of 64, state 128, chunks of 256, d 2560; 2 x 600 tokens, a
+    padded last chunk) in bf16: finite, two calls bit-identical, and a
+    third under ``torch.cuda.set_sync_debug_mode("error")`` (the chunk loop
+    reads nothing back to the host)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = get_config("mamba2-2.7b")
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    params = ssm.init_ssm(cfg, torch.bfloat16, generator=gen, device=cuda)
+    x = torch.randn(2, 600, cfg.d_model, generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    cot = torch.randn(x.shape, generator=gen, device=cuda,
+                      dtype=torch.bfloat16)
+
+    def run():
+        leaves = {n: t.detach().requires_grad_() for n, t in params.items()}
+        xx = x.detach().requires_grad_()
+        y = ssm.apply_ssm(leaves, cfg, xx)
+        return (y, *torch.autograd.grad((y * cot).float().sum(),
+                                        [xx, *leaves.values()]))
+
+    first, second = run(), run()
+    assert all(bool(torch.isfinite(t).all()) for t in first)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert params["A_log"].dtype == first[5].dtype == torch.float32
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        third = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(a, b) for a, b in zip(first, third))

@@ -256,10 +256,19 @@ def test_three_train_steps_match_jax(arch):
     assert router.dtype == torch.float32 and not torch.equal(router, start)
 
 
+def _stacked(tree):
+    """The tree as the reference holds it: the blocks stacked on a leading
+    layer axis."""
+    return {k: tree_map(lambda *ls: torch.stack(ls), *v)
+            if isinstance(v, list) else v for k, v in tree.items()}
+
+
 def test_piecewise_update_equals_whole_tree_update():
     """The train step clips, updates and applies one piece of the params
     at a time; that is bit-identical to the whole-tree clip, update and
-    apply of ``repro_torch.optim``, the moments included."""
+    apply of ``repro_torch.optim`` on the tree as the reference holds it
+    (blocks stacked on a layer axis, so a block's 1-D leaves are decayed),
+    the moments included."""
     from repro_torch.optim import apply_updates, clip_by_global_norm
 
     cfg = dataclasses.replace(reduced_config("olmoe-1b-7b"), num_layers=3)
@@ -277,15 +286,20 @@ def test_piecewise_update_equals_whole_tree_update():
                          deterministic=True)
     grads = with_leaves(params, torch.autograd.grad(loss, leaves))
     grads, norm = clip_by_global_norm(grads, 0.5)
-    ref_state = opt.init(params)
-    updates, ref_state = opt.update(grads, ref_state, params)
-    ref = apply_updates(params, updates)
+    ref_state = opt.init(_stacked(params))
+    updates, ref_state = opt.update(_stacked(grads), ref_state,
+                                    _stacked(params))
+    ref = apply_updates(_stacked(params), updates)
     assert torch.equal(metrics["grad_norm"], norm)
-    for a, b in zip(tree_leaves(new), tree_leaves(ref)):
+    for a, b in zip(tree_leaves(_stacked(new)), tree_leaves(ref)):
         assert torch.equal(a, b)
     for name in ("mu", "nu"):
-        for a, b in zip(tree_leaves(state[name]), tree_leaves(ref_state[name])):
+        for a, b in zip(tree_leaves(_stacked(state[name])),
+                        tree_leaves(ref_state[name])):
             assert torch.equal(a, b)
+    # a block's 1-D leaves are decayed, as the reference's stacked ones
+    w0 = params["blocks"][0]["attn_norm"]["w"]
+    assert not torch.equal(new["blocks"][0]["attn_norm"]["w"], w0)
     assert int(state["step"]) == int(ref_state["step"]) == 1
     # the caller's params are untouched
     assert not torch.equal(tree_leaves(new)[0], tree_leaves(params)[0])
