@@ -5,8 +5,9 @@
     python3 chip_smoke.py --ab PARENT_CHECKOUT    # A/B against another checkout
 
 Imports nothing of JAX or of the JAX package; needs one CUDA card and the
-repository checkout beside it (``src/repro_torch``). Fourteen main paths
-run, through the hand-written kernels where they have attention: the
+repository checkout beside it (``src/repro_torch``). Twenty main paths
+run, through the hand-written kernels where they have attention: four
+block-sparse attentions (paper Alg. 5) as a user calls them (phase 2f), the
 trainable paged prefill (phase 2c),
 paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
 (phases 5-6) of granite-3-2b, then training of bert-large with the paper's
@@ -15,7 +16,9 @@ qwen3-32b (phase 9), the mixture-of-experts family: paged serving of
 olmoe-1b-7b (phase 10) and of phi3.5-moe-42b-a6.6b (phase 11) and
 training of olmoe-1b-7b (phase 12), and the state-space and hybrid
 families: dense-slot serving and training of mamba2-2.7b (phase 13, no
-attention kernel) and of hymba-1.5b (phase 14). Phases:
+attention kernel) and of hymba-1.5b (phase 14), and the encoder-decoder:
+model-level serving and training of seamless-m4t-medium (phase 15).
+Phases:
 
 1. print the card's name and power limit (nvidia-smi), then build every
    CUDA kernel of both paths from ``src/repro_torch/kernels/csrc`` (one
@@ -92,6 +95,24 @@ attention kernel) and of hymba-1.5b (phase 14). Phases:
    MoE serves' with phases 10-11, serve-hymba's with phase 14;
    train-olmoe's attention layer is train-olmo's, so it shares that entry
    with its own launches);
+2f. block-sparse FlashAttention (paper §3.3, Alg. 5), GPT-2 small's
+   attention (12 heads of 64, bf16) with a butterfly pattern of 128-row
+   blocks (``masks.butterfly_block_layout``), which ``ops.flash_attention``
+   refines into the kernels' 64-row tiles: four paths, each one forward +
+   backward through ``ops.flash_attention(block_layout=...)`` with launch
+   counters reset just before (flash_fwd, flash_bwd_dq and flash_bwd_dkv
+   once each, nothing else): (4, 12, 4096, 64) non-causal, causal, and
+   non-causal with a kv_mask (PARTIAL_DATA tiles), and (1, 12, 16384, 64)
+   non-causal; then #1, #2 and #3 at each against their plain versions
+   (``fwd_bwd_case``; at 16384 the plain versions by groups of heads,
+   ``plain_by_heads``), timed beside the bound over the kept
+   pairs, SDPA with the expanded element mask, and the dense #1 and pair
+   at the same shape, with the density and the skipped tiles;
+2g. the kernels at seamless-m4t-medium's shapes (16 heads of 64): #1, #2
+   and #3 at train-seamless's (4, 16, 1024, 64) layers, non-causal (the
+   encoder, the cross-attention) and causal (the decoder); #1 at
+   serve-seamless's cross-attention prefill (64 rows against 1024); #7
+   over its 1024-row cross cache and its 128-row self cache;
 2e. the MoE layer: one layer at olmoe-1b-7b's width (64 experts of d_ff
    1024, top-8, d 2048), bf16, forward + backward over 4 rows of 2048
    tokens: two calls bit-identical, a third under
@@ -199,7 +220,22 @@ attention kernel) and of hymba-1.5b (phase 14). Phases:
    gradient on both sides), its serve launching flash_fwd and
    flash_decode and no paged kernel, its train flash_fwd, flash_bwd_dq
    and flash_bwd_dkv; #1 and #7 held at serve-hymba's own calls in the
-   fresh process of phase 9.
+   fresh process of phase 9;
+15. seamless parity, serve-seamless, train-seamless: seamless-m4t-medium
+   at full width, 2 + 2 layers, float32, on ``cuda`` and on ``cpu``: the
+   loss of one batch of frames and tokens within 1e-4 relative, every
+   layer-0 gradient of both stacks and ``frontend_proj``'s within 1e-4
+   scaled, greedy tokens of a prefill + 8 decode steps identical (a
+   divergence only at a near-tie); then the published model (12 + 12
+   layers, bf16) through the model-level loop (the engine and the
+   launchers refuse the family, as the reference's cannot run it): 4
+   sequences of 1024 frames and a 64-token prompt, 32 greedy decode
+   steps, flash_fwd and flash_decode only, tokens identical to the plain
+   path's (a divergence only at a bf16 near-tie), with tokens/s, prefill
+   time, decode step p50, peak memory and a profiled pass; then trained
+   6 steps (AdamW, warmup_cosine(1e-3, 2, 6)) on 4 rows of 1024 frames +
+   1024 tokens through ``make_train_step`` and the ``Trainer``, with the
+   checks, numbers and profile of phase 6 and a falling loss.
 
 ``--ab PARENT_CHECKOUT`` runs only an A/B against another checkout (e.g.
 ``git archive`` of the parent commit): first both checkouts' kernel
@@ -784,17 +820,47 @@ def scaled_err(got, want) -> float:
                  / want.abs().max().clamp_min(1e-30))
 
 
+# score elements (b x heads x S x S, float32) of one call of a plain
+# version in ``fwd_bwd_case``: the largest case that runs whole,
+# blocksparse_4k's (4, 12, 4096, 4096); larger ones run by groups of heads
+PLAIN_SCORES = 4 * 12 * 4096 * 4096
+
+
+def plain_by_heads(torch, plain, heads, rest, call):
+    """``plain(*heads, *rest, **call)`` over as many KV heads a call as keep
+    its float32 scores within ``PLAIN_SCORES`` elements: ``heads`` are (b,
+    h, S, ...) with h = hq or hkv (q before k), ``rest`` is not per head;
+    the outputs are concatenated on the head axis. One call where all heads
+    fit, so the result is the whole call's at every shape."""
+    b, hq, S = heads[0].shape[:3]
+    hkv = heads[1].shape[1]
+    r = hq // hkv
+    g = max(1, min(hkv, PLAIN_SCORES // (b * r * S * S)))
+    if g == hkv:
+        return plain(*heads, *rest, **call)
+
+    def part(t, h0):
+        n = t.shape[1] // hkv            # q heads a KV head, or 1
+        return t[:, h0 * n:(h0 + g) * n]
+
+    outs = [plain(*(part(t, h0) for t in heads), *rest, **call)
+            for h0 in range(0, hkv, g)]
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
 def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
-                 window=None) -> dict:
+                 window=None, sparse=None, kv_mask=None) -> dict:
     """The forward kernel against its plain version, then dq / dkv from the
     kernel forward's (o, m, l) against the plain backward from the same
     residuals, two calls of the pair bit-identical, at one training
-    layer's attention shape in bf16 (packed documents ``seg``, a causal
-    sliding ``window`` if given); each kernel timed (device time) beside
-    its bound (over the unmasked pairs), its plain time and SDPA's (with
-    the same mask, window included, as a boolean mask: SDPA has no window
-    argument). Returns the numbers, and the inputs and residuals for
-    further checks."""
+    layer's attention shape in bf16 (packed documents ``seg`` or None, a
+    causal sliding ``window`` if given, an Alg. 5 ``sparse`` pattern at
+    the kernels' tiles and a ``kv_mask`` if given); each kernel timed
+    (device time) beside its bound (over the pairs the kernels score), its
+    plain time and SDPA's (with those pairs as a boolean mask, window
+    included: SDPA has no window argument). The plain versions run as
+    ``plain_by_heads`` (at most ``PLAIN_SCORES`` score elements a call).
+    Returns the numbers, and the inputs and residuals for further checks."""
     from repro_torch.core import masks as M
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import tuning
@@ -803,14 +869,17 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
     scale = d ** -0.5
     bq, bk = tuning.bwd_tiles(d)
     spec = M.MaskSpec(causal=causal, window=window, q_segment_ids=seg,
-                      kv_segment_ids=seg)
+                      kv_segment_ids=seg, kv_mask=kv_mask,
+                      sparse_layout=sparse)
     layout = M.compile_block_layout(spec, S, S, bq, bk).as_array(dev)
     call = dict(scale=scale, causal=causal, window=window, q_offset=0,
                 block_q=bq, block_k=bk, q_segment_ids=seg, kv_segment_ids=seg)
-    shape = (f"train layer b={b} hq={hq} hkv={hkv} S={S} d={d}, "
+    shape = (f"layer b={b} hq={hq} hkv={hkv} S={S} d={d}, "
              f"{'causal' if causal else 'non-causal'}"
              + (f", window {window}" if window is not None else "")
-             + f", {int(seg.max(dim=1).values.sum()) + b} documents")
+             + (f", {int(seg.max(dim=1).values.sum()) + b} documents"
+                if seg is not None else "")
+             + (", kv_mask" if kv_mask is not None else ""))
 
     def randn(*shp):
         return torch.randn(*shp, generator=gen, device=dev,
@@ -818,14 +887,16 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
 
     q, k, v, do = randn(b, hq, S, d), randn(b, hkv, S, d), randn(b, hkv, S, d), \
         randn(b, hq, S, d)
-    mask = spec.element_mask(S, S)                   # (b, 1, S, S) bool
-    pairs = int(mask.sum()) * hq
+    # the pairs the kernels score, as their plain versions mask them
+    mask = scored_pairs(fa, q, S, kv_mask, layout, call, bk)
+    pairs = int(mask.expand(b, 1, S, S).sum()) * hq
 
     # -- the forward kernel against its plain version; its (o, m, l) are the
     # residuals of both backwards below
-    o, m, l = fa.flash_attention_forward(q, k, v, None, layout, **call)
+    o, m, l = fa.flash_attention_forward(q, k, v, kv_mask, layout, **call)
     torch.cuda.synchronize()
-    fplain = fa.flash_attention_forward_plain(q, k, v, None, layout, **call)
+    fplain = plain_by_heads(torch, fa.flash_attention_forward_plain,
+                            (q, k, v), (kv_mask, layout), call)
     f_errs = (float((o.float() - fplain[0].float()).abs().max()),
               rel_err(m, fplain[1]), rel_err(l, fplain[2]))
     del fplain
@@ -834,12 +905,13 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
     check(f_errs[0] <= 2e-2, f"flash_fwd {shape}: max |o - plain| {f_errs[0]}")
     check(f_errs[1] <= 1e-2 and f_errs[2] <= 1e-2,
           f"flash_fwd {shape}: m/l relative error {f_errs[1:]} > 1e-2")
-    res = (q, k, v, o, do, m, l, None, layout)
+    res = (q, k, v, o, do, m, l, kv_mask, layout)
 
     # -- correctness: kernels against the plain backward --------------------
     got = fa.flash_attention_backward(*res, **call)
     torch.cuda.synchronize()
-    want = fa.flash_attention_backward_plain(*res, **call)
+    want = plain_by_heads(torch, fa.flash_attention_backward_plain,
+                          res[:7], res[7:], call)
     errs = dict(zip(("dq", "dk", "dv"), map(scaled_err, got, want)))
     abs_errs = {n: float((g.float() - w.float()).abs().max())
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)}
@@ -863,12 +935,14 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
     del ops_
     bwd_ms, pair_ms = timed(torch, [lambda: fa.flash_attention_backward(
         *res, **call)])
-    plain_ms = device_ms(torch, [lambda: fa.flash_attention_backward_plain(
-        *res, **call)], warmup=1, iters=3)
+    plain_ms = device_ms(torch, [lambda: plain_by_heads(
+        torch, fa.flash_attention_backward_plain, res[:7], res[7:], call)],
+        warmup=1, iters=3)
     fwd_ms, fwd_call_ms = timed(torch, [lambda: fa.flash_attention_forward(
-        q, k, v, None, layout, **call)])
-    fwd_plain_ms = device_ms(torch, [lambda: fa.flash_attention_forward_plain(
-        q, k, v, None, layout, **call)], warmup=1, iters=3)
+        q, k, v, kv_mask, layout, **call)])
+    fwd_plain_ms = device_ms(torch, [lambda: plain_by_heads(
+        torch, fa.flash_attention_forward_plain, (q, k, v), (kv_mask, layout),
+        call)], warmup=1, iters=3)
 
     # -- library yardstick: SDPA's backward alone, same mask, GQA ----------
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -889,7 +963,8 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
     # -- bounds: each input read once, each output written once; FLOPs of
     # the minimal backward, 5 products of 2d per unmasked pair, split as
     # dkv: S, dP, dV, dK (8d) and dq: dQ (2d) so the two bounds add up
-    ins = nbytes(q, k, v, do, m, l, layout, seg, seg) + m.numel() * 4  # + D
+    ins = nbytes(q, k, v, do, m, l, layout, seg, seg, kv_mask) \
+        + m.numel() * 4                                          # + D
     return {
         "shape": shape, "call": call, "layout": layout, "res": res,
         "errs": errs, "abs_errs": abs_errs, "f_errs": f_errs,
@@ -901,7 +976,8 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
                           BF16_FLOPS_PER_S),
         "dkv_bound": bound(ins + nbytes(got[1], got[2]), 8.0 * d * pairs,
                            BF16_FLOPS_PER_S),
-        "fwd_bound": bound(nbytes(q, k, v, o, m, l, layout, seg, seg),
+        "fwd_bound": bound(nbytes(q, k, v, o, m, l, layout, seg, seg,
+                                  kv_mask),
                            4.0 * d * pairs, BF16_FLOPS_PER_S)}
 
 
@@ -2566,10 +2642,12 @@ def olmoe_train_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
 
 
 def trainer_phase(torch, seed: int, card: str, tag: str, cfg, seq: int,
-                  batch: int, recipe, recipe_text: str) -> tuple[dict, dict]:
+                  batch: int, recipe, recipe_text: str,
+                  batch_at=None) -> tuple[dict, dict]:
     """``cfg`` with weights drawn on the card from ``seed``, trained 6 steps
     through ``make_train_step`` (``recipe()``, clip 1.0, deterministic) and
-    the ``Trainer`` on ``SyntheticLM`` batches (``train_path``)."""
+    the ``Trainer`` on ``SyntheticLM`` batches, or on ``batch_at(step)``
+    (``train_path``)."""
     from repro_torch.data import SyntheticLM
     from repro_torch.models import build_model
     from repro_torch.train import Trainer, TrainerConfig, make_train_step
@@ -2582,12 +2660,13 @@ def trainer_phase(torch, seed: int, card: str, tag: str, cfg, seq: int,
                             device="cuda")
         opt = recipe()
         step = make_train_step(model, opt, clip_norm=1.0, deterministic=True)
-        data = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+        batches = batch_at or SyntheticLM(cfg.vocab_size, seq, batch,
+                                          seed=seed).batch_at
         trainer = Trainer(
             TrainerConfig(total_steps=steps, ckpt_every=1000000,
                           ckpt_dir=str(ROOT / "build" /
                                        f"chip_smoke_{tag}_ckpt")),
-            step, params, opt.init(params), data.batch_at)
+            step, params, opt.init(params), batches)
         trainer.run()
         return trainer
 
@@ -2695,6 +2774,533 @@ def profile_train(torch, trainer) -> dict:
         print(f"[profile]   {t['device_ms']:9.2f} ms  x{t['count']:<6} "
               f"{t['kernel']}", flush=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2f: block-sparse FlashAttention (paper §3.3, Alg. 5)
+# ---------------------------------------------------------------------------
+
+# GPT-2 small's attention (12 heads of 64) at the reference's bench_fig2
+# length, 4096, batch 4, and at Path-X's length, 16384, one sequence; a
+# butterfly pattern of the paper's 128-row blocks, which ops.flash_attention
+# refines into the kernels' 64-row tiles. (batch, seq, causal, kv_mask)
+BLOCKSPARSE = {"blocksparse_4k": (4, 4096, False, False),
+               "blocksparse_4k_causal": (4, 4096, True, False),
+               "blocksparse_4k_kvmask": (4, 4096, False, True),
+               "blocksparse_16k": (1, 16384, False, False)}
+BLOCKSPARSE_HEADS, BLOCKSPARSE_D, BLOCKSPARSE_BLOCK = 12, 64, 128
+
+
+def _sparse_inputs(torch, gen, path):
+    """(pattern at 128-row blocks, the same refined to the kernels' tiles,
+    kv_mask or None) of a ``BLOCKSPARSE`` path."""
+    from repro_torch.core import masks as M
+    from repro_torch.kernels import tuning
+
+    b, S, causal, masked = BLOCKSPARSE[path]
+    pattern = M.butterfly_block_layout(S, S, BLOCKSPARSE_BLOCK,
+                                       BLOCKSPARSE_BLOCK, causal=causal)
+    tile, r = tuning.sparse_tile(BLOCKSPARSE_BLOCK, on_card=True)
+    kvm = None
+    if masked:          # ragged valid lengths: PARTIAL_DATA and SKIP tiles
+        lens = torch.tensor([S, S - 1000, S - 77, S // 2], device="cuda")[:b]
+        kvm = torch.arange(S, device="cuda")[None, :] < lens[:, None]
+        kvm &= torch.rand(b, S, generator=gen, device="cuda") > 0.05
+    return pattern, M.refine_block_layout(pattern, r, r), kvm
+
+
+def blocksparse_path(torch, seed: int, path: str) -> dict:
+    """The path as a user calls it: ``ops.flash_attention(block_layout=
+    ...)`` forward and backward through autograd, bf16, launch counters
+    reset just before and read just after: flash_fwd, flash_bwd_dq and
+    flash_bwd_dkv once each and nothing else; o and the gradients finite."""
+    from repro_torch.kernels import ops
+
+    b, S, causal, _ = BLOCKSPARSE[path]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    pattern, _, kvm = _sparse_inputs(torch, gen, path)
+    h, d = BLOCKSPARSE_HEADS, BLOCKSPARSE_D
+    q, k, v, do = (torch.randn(b, h, S, d, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    torch.cuda.synchronize()
+    reset_launches()
+    o = ops.flash_attention(*leaves, causal=causal, kv_mask=kvm,
+                            block_layout=pattern)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for name, n in launches.items():
+        check(n == (1 if name in TRAIN_KERNELS else 0),
+              f"{path}: {name} launched {n} times by one forward + backward")
+    check(all(bool(torch.isfinite(t).all()) for t in (o, *grads)),
+          f"{path}: o or a gradient is not finite")
+    return launches
+
+
+def _dense_times(torch, fa, q, k, v, do, kvm, causal, call):
+    """Device ms of #1 and of the dq + dkv pair at the same shape without
+    the sparse pattern (causal or not, the kv_mask kept)."""
+    from repro_torch.core import masks as M
+
+    S = q.shape[2]
+    layout = M.compile_block_layout(
+        M.MaskSpec(causal=causal, kv_mask=kvm), S, S, call["block_q"],
+        call["block_k"]).as_array(q.device)
+    fwd = device_ms(torch, [lambda: fa.flash_attention_forward(
+        q, k, v, kvm, layout, **call)])
+    o, m, l = fa.flash_attention_forward(q, k, v, kvm, layout, **call)
+    ops_ = fa.prepare_backward(q, k, v, o, do, m, l, kvm, layout, **call)
+    pair = (device_ms(torch, [lambda: fa.launch_dq(ops_)])
+            + device_ms(torch, [lambda: fa.launch_dkv(ops_)]))
+    return fwd, pair
+
+
+def _sparse_notes(entries: dict, layout, dense_fwd, dense_pair, pattern):
+    """Density, skipped tiles and the dense times, into each entry."""
+    from repro_torch.core import masks as M
+
+    skipped = int((layout == M.BLOCK_SKIP).sum())
+    notes = {"density": M.layout_density(pattern),
+             "tiles_skipped": skipped, "tiles": layout.numel(),
+             "partial_data_tiles": int((layout == M.BLOCK_PARTIAL_DATA).sum()),
+             "dense_fwd_ms": dense_fwd, "dense_pair_ms": dense_pair}
+    for e in entries.values():
+        e.update(notes)
+        e["shape"] += (f", butterfly {BLOCKSPARSE_BLOCK}-blocks density "
+                       f"{notes['density']:.4f}, {skipped} of "
+                       f"{layout.numel()} 64-tiles skipped "
+                       f"({skipped / layout.numel():.1%}"
+                       + (", every row's layout" if layout.ndim == 3 else "")
+                       + ")")
+    print(f"[blocksparse] {entries['flash_fwd']['shape']}: #1 "
+          f"{entries['flash_fwd']['ms']:.4f} ms against dense {dense_fwd:.4f}"
+          f" ms; dq + dkv {entries['flash_bwd_dq']['pair_device_ms']:.4f} ms "
+          f"against dense {dense_pair:.4f} ms", flush=True)
+
+
+def blocksparse_phase(torch, seed: int) -> tuple[dict, dict]:
+    """Each ``BLOCKSPARSE`` path once as a user calls it
+    (``blocksparse_path``), then its kernels held against their plain
+    versions at its shape through ``fwd_bwd_case``: (4, 12, 4096, 64)
+    non-causal, causal, non-causal with a kv_mask, and (1, 12, 16384, 64)
+    non-causal (its plain versions by groups of heads), each beside its
+    density, skipped tiles and the dense kernels' times at the same shape
+    (Prop. 4).
+    Returns ({kernel: {path: entry}}, {path: launches})."""
+    from repro_torch.kernels import flash_attention as fa
+
+    at, paths = {}, {}
+    for path in BLOCKSPARSE:
+        paths[path] = blocksparse_path(torch, seed, path)
+        release(torch)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 42)
+    h, d = BLOCKSPARSE_HEADS, BLOCKSPARSE_D
+    for path, (b, S, causal, _) in BLOCKSPARSE.items():
+        pattern, fine, kvm = _sparse_inputs(torch, gen, path)
+        c = fwd_bwd_case(torch, gen, b, h, h, S, d, causal, None,
+                         sparse=fine, kv_mask=kvm)
+        entries = shape_entries(c)
+        q, k, v, _, do = c["res"][:5]
+        dense = _dense_times(torch, fa, q, k, v, do, kvm, causal, c["call"])
+        _sparse_notes(entries, c["layout"], *dense, pattern)
+        del c, q, k, v, do
+        for name, e in entries.items():
+            at.setdefault(name, {})[path] = e
+        release(torch)
+    return at, paths
+
+
+# ---------------------------------------------------------------------------
+# phases 2g and 15: the encoder-decoder, seamless-m4t-medium
+# ---------------------------------------------------------------------------
+
+SEAMLESS = "seamless-m4t-medium"
+# serve-seamless: sequences, audio frames, prompt tokens, decode steps, and
+# the self-attention cache (prompt + steps, rounded up to the decode tile)
+SEAMLESS_SERVE = (4, 1024, 64, 32, 128)
+# serve-seamless: max |logit - plain logit| at any step, both paths fed the
+# same tokens: four bf16 spacings at the top logits (~0.25, where one is
+# 2**-9); the readings on an H100 were at most 0.00293
+SEAMLESS_LOGIT_ATOL = 4 * 2.0 ** -9
+# train-seamless: batch, frames, tokens (the reference's S/2 + S/2 of a
+# 2048-position sequence), steps
+SEAMLESS_TRAIN = (4, 1024, 1024, 6)
+
+
+def seamless_kernel_phase(torch, seed: int) -> dict:
+    """The kernels at seamless-m4t-medium's shapes (16 heads of 64, MHA,
+    bf16): #1, #2 and #3 at train-seamless's layers, (4, 16, 1024, 64)
+    non-causal (the encoder's self-attention and the decoder's
+    cross-attention, frames and tokens alike 1024 long) and causal (the
+    decoder's self-attention), through ``fwd_bwd_case``; #1 at
+    serve-seamless's cross-attention prefill (64 decoder rows against
+    1024 encoder rows); #7 at its cross-attention decode (the 1024-row
+    cache, kv_len 1024) and its self-attention decode (the 128-row cache at
+    its last step, kv_len 96). Returns {kernel: {path: entry}}, the
+    decoder's and the self-attention decode's under their path's entry."""
+    from repro_torch.core import masks as M
+    from repro_torch.kernels import tuning
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 50)
+    b, n_frames, n_prompt, steps, cap = SEAMLESS_SERVE
+    h, d = 16, 64
+    enc = shape_entries(fwd_bwd_case(torch, gen, SEAMLESS_TRAIN[0], h, h,
+                                     SEAMLESS_TRAIN[1], d, False, None))
+    release(torch)
+    dec = shape_entries(fwd_bwd_case(torch, gen, SEAMLESS_TRAIN[0], h, h,
+                                     SEAMLESS_TRAIN[2], d, True, None))
+    release(torch)
+    for name, e in enc.items():
+        e["shape"] = "seamless encoder self / decoder cross " + e["shape"]
+        e["decoder_self"] = dec[name]
+        dec[name]["shape"] = "seamless decoder self " + dec[name]["shape"]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    layout = M.compile_block_layout(M.MaskSpec(), n_prompt, n_frames, 64,
+                                    64).as_array(dev)
+    call = dict(scale=d ** -0.5, causal=False, window=None, q_offset=0,
+                block_q=64, block_k=64)
+    cross = _without_launches({"f": packed_prefill_record(
+        torch, gen, (randn(b, h, n_prompt, d), randn(b, h, n_frames, d),
+                     randn(b, h, n_frames, d), None, layout), call,
+        f"serve-seamless cross-attention prefill b={b} hq={h} hkv={h} "
+        f"{n_prompt} decoder rows against {n_frames} encoder rows d={d}, "
+        f"non-causal")})["f"]
+
+    def decode(capacity, kv):
+        kv_len = torch.full((b,), kv, dtype=torch.int32, device=dev)
+        bk, splits = tuning.resolve_decode_geometry(capacity, None, None)
+        lay = M.kv_block_layout(M.decode_kv_valid(kv_len, capacity), bk)
+        rec = contiguous_decode_record_at(
+            torch, gen, (randn(b, h, 1, d), randn(b, h, capacity, d),
+                         randn(b, h, capacity, d), kv_len, lay),
+            dict(scale=d ** -0.5, block_k=bk, num_splits=splits, window=None,
+                 kv_mask=None))
+        rec.pop("launches")
+        return rec
+
+    cross_dec = decode(n_frames, n_frames)
+    cross_dec["shape"] = "serve-seamless cross-attention " + cross_dec["shape"]
+    self_dec = decode(cap, n_prompt + steps)
+    self_dec["shape"] = "serve-seamless self-attention " + self_dec["shape"]
+    cross_dec["self"] = self_dec
+    return {"flash_fwd": {"train_seamless": enc["flash_fwd"],
+                          "serve_seamless": cross},
+            "flash_bwd_dq": {"train_seamless": enc["flash_bwd_dq"]},
+            "flash_bwd_dkv": {"train_seamless": enc["flash_bwd_dkv"]},
+            "flash_decode": {"serve_seamless": cross_dec}}
+
+
+def seamless_parity_phase(torch, seed: int, tag: str = "seamless-parity"
+                          ) -> dict:
+    """seamless-m4t-medium at full width, 2 encoder + 2 decoder layers,
+    float32: the same weights (drawn on the card from ``seed``) on
+    ``cuda`` (kernels: #1-#3, #7) and on ``cpu`` (plain versions). The
+    loss of one batch (2 x 256 frames + 256 tokens) within 1e-4 relative
+    and every layer-0 gradient of both stacks (the decoder's
+    cross-attention included) and ``frontend_proj``'s within 1e-4 scaled
+    by its max; then prefill (300 frames, a 24-token prompt) and 8 greedy
+    decode steps: tokens identical, a divergence allowed only at a
+    near-tie of the CPU's logits (top-2 margin < 1e-3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, params_to
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(SEAMLESS), num_layers=2,
+                              num_encoder_layers=2, dtype="float32",
+                              attn_impl="pallas", use_decode_kernel=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        device="cpu")
+    gen = torch.Generator().manual_seed(seed + 8)
+    batch = {"frames": torch.randn(2, 256, cfg.frontend_dim, generator=gen),
+             "tokens": torch.randint(1, cfg.vocab_size, (2, 256),
+                                     generator=gen)}
+    frames = torch.randn(2, 300, cfg.frontend_dim, generator=gen)
+    prompt = torch.randint(1, cfg.vocab_size, (2, 24), generator=gen)
+    out, launches = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        p = params_to(params, device)
+        loss, g = _grads(torch, model, p,
+                         {k: t.to(device) for k, t in batch.items()})
+        grads = {f"{stack}/{k}/{n}": t.cpu()
+                 for stack in ("enc_blocks", "blocks")
+                 for k, v in g[stack][0].items() for n, t in v.items()}
+        grads["frontend_proj"] = g["frontend_proj"].cpu()
+        del g
+        reset_launches()
+        state, lg = model.prefill(p, {"frames": frames.to(device),
+                                      "tokens": prompt.to(device)}, 64)
+        toks, logits = [], []
+        for _ in range(8):
+            logits.append(lg[:, -1].float().cpu())
+            toks.append(lg[:, -1].argmax(-1))
+            state, lg = model.decode_step(p, state, toks[-1])
+        launches[device] = read_launches()
+        out[device] = {"loss": loss, "grads": grads, "logits": logits,
+                       "tokens": torch.stack(toks, 1).cpu().tolist()}
+        del p, state
+        print(f"[{tag}] {cfg.name} 2 + 2 layers float32, {device}: loss "
+              f"{loss}, tokens {out[device]['tokens']} in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    rel = abs(out["cuda"]["loss"] - out["cpu"]["loss"]) / abs(out["cpu"]["loss"])
+    gerr = {n: scaled_err(out["cuda"]["grads"][n], out["cpu"]["grads"][n])
+            for n in out["cpu"]["grads"]}
+    print(f"[{tag}] loss relative difference {rel:.3g}; largest layer-0 "
+          f"scaled grad difference {max(gerr.values()):.3g} "
+          f"({max(gerr, key=gerr.get)}); launches on the card "
+          f"{launches['cuda']}", flush=True)
+    check(rel <= 1e-4, f"{tag}: losses differ by {rel} > 1e-4")
+    check(max(gerr.values()) <= 1e-4,
+          f"{tag}: layer-0 grads differ by {gerr} > 1e-4")
+    check(all(float(out["cpu"]["grads"][n].abs().max()) > 0 for n in gerr),
+          f"{tag}: a layer-0 gradient is zero on the CPU")
+    check(launches["cuda"]["flash_fwd"] > 0
+          and launches["cuda"]["flash_decode"] > 0,
+          f"{tag}: launches on the card {launches['cuda']}")
+    diverged = []
+    for row, (got, ref) in enumerate(zip(out["cuda"]["tokens"],
+                                         out["cpu"]["tokens"])):
+        if got == ref:
+            continue
+        i = next(j for j, (a, c) in enumerate(zip(got, ref)) if a != c)
+        top2 = torch.topk(out["cpu"]["logits"][i][row], 2).values
+        margin = float(top2[0] - top2[1])
+        print(f"[{tag}] row {row} diverges at step {i}: cuda {got[i]} cpu "
+              f"{ref[i]}, top-2 logit margin {margin:.3g}", flush=True)
+        check(margin < 1e-3, f"{tag}: row {row} diverged at step {i} with "
+                             f"a top-2 margin {margin:.3g}")
+        diverged.append({"row": row, "step": i, "margin": margin})
+    print(f"[{tag}] greedy tokens identical: {not diverged}", flush=True)
+    return {"model": cfg.name, "layers": "2 + 2",
+            "loss_cuda": out["cuda"]["loss"], "loss_cpu": out["cpu"]["loss"],
+            "loss_rel_diff": rel, "grad_scaled_diff": gerr,
+            "identical": not diverged, "near_tie_divergences": diverged,
+            "launches_cuda": launches["cuda"]}
+
+
+def _bf16_near_tie(top1: float, margin: float) -> bool:
+    """A bf16 logit margin of at most two bf16 spacings at the top logit."""
+    return margin <= 2 * 2.0 ** (math.floor(math.log2(max(abs(top1),
+                                                          2 ** -60))) - 7)
+
+
+def _greedy(torch, model, params, frames, prompt, cap, steps, forced=None):
+    """Prefill, then ``steps`` decode steps through the model-level loop,
+    each feeding the last token: the greedy one, or with ``forced`` (b,
+    steps + 1 tokens) the forced one (teacher forcing). Returns (tokens
+    (b, steps + 1) on the host, the float32 logits each token was read
+    from, prefill seconds, per-step seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, lg = model.prefill(params, {"frames": frames, "tokens": prompt},
+                              cap)
+    toks, logits, step_s = [], [], []
+    prefill_s = None
+    for i in range(steps + 1):
+        if i:
+            t1 = time.perf_counter()
+            state, lg = model.decode_step(params, state, tok)
+        logits.append(lg[:, -1].float())
+        tok = lg[:, -1].argmax(-1)
+        if forced is not None:
+            tok = torch.tensor([row[i] for row in forced], device=tok.device)
+        toks.append(tok.tolist())                # the host reads each token
+        if i:
+            step_s.append(time.perf_counter() - t1)
+        else:
+            prefill_s = time.perf_counter() - t0
+    return [list(r) for r in zip(*toks)], logits, prefill_s, step_s
+
+
+def _bf16_ties(tokens, logits) -> tuple[int, list]:
+    """``tokens`` (b, n) against the argmax of ``logits`` (n tensors of (b,
+    V)), token by token: (how many are the argmax, the others with their
+    margin below the maximum, each a bf16 near-tie or the check fails)."""
+    same, ties = 0, []
+    for i, lg in enumerate(logits):
+        top = lg.max(dim=-1).values
+        for r, row in enumerate(tokens):
+            if int(lg[r].argmax()) == row[i]:
+                same += 1
+                continue
+            margin = float(top[r] - lg[r, row[i]])
+            ties.append({"row": r, "token": i, "margin": margin,
+                         "top": float(top[r])})
+            check(_bf16_near_tie(float(top[r]), margin),
+                  f"serve-seamless: row {r} token {i} is {margin:.3g} below "
+                  f"the plain path's maximum {float(top[r]):.3g} (not a bf16 "
+                  f"near-tie)")
+    return same, ties
+
+
+def seamless_serve_phase(torch, seed: int, card: str,
+                         tag: str = "serve-seamless") -> tuple[dict, dict]:
+    """The published seamless-m4t-medium (12 + 12 layers, d 1024, 16 heads
+    of 64, bf16, random weights drawn on the card from ``seed``) served
+    through the model-level loop the reference tests (the engine refuses
+    the family, as the reference's cannot serve it): 4 sequences of 1024
+    audio frames and a 64-token prompt, one prefill (the encoder, #1
+    non-causal; the decoder's self- and cross-attention, #1; the cross
+    caches), then 32 greedy decode steps (self- and cross-attention
+    through #7). Launch counters reset just before and read just after:
+    flash_fwd and flash_decode > 0, every other kernel 0. Then the plain
+    path (the same weights with ``attn_impl="chunked"`` and the plain
+    decode: no kernel) reads the same tokens (teacher forcing): each
+    greedy token of the kernels must be the argmax of the plain path's
+    logits at its step, or tie with it in bf16 (``_bf16_near_tie``: random
+    weights give logits of ~0.25 over 256,206 words, where one bf16
+    spacing is 0.002 and exact ties are common), and every logit at every
+    step within ``SEAMLESS_LOGIT_ATOL`` of the plain path's. Prints
+    tokens/s, the prefill's time, decode step p50 and peak memory; then 8
+    decode steps once more under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    b, n_frames, n_prompt, steps, cap = SEAMLESS_SERVE
+    cfg = dataclasses.replace(get_config(SEAMLESS), attn_impl="pallas",
+                              use_decode_kernel=True)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    frames = torch.randn(b, n_frames, cfg.frontend_dim, generator=gen,
+                         device=dev)
+    prompt = torch.randint(1, cfg.vocab_size, (b, n_prompt), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    print(f"[{tag}] {cfg.name}: {cfg.num_encoder_layers} + {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.head_dim}, {cfg.dtype}, weights in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    _greedy(torch, model, params, frames, prompt, cap, 2)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    toks, klogits, prefill_s, step_s = _greedy(torch, model, params, frames,
+                                               prompt, cap, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for name, n in launches.items():
+        check((n > 0) == (name in DENSE_SERVE_KERNELS),
+              f"kernel {name} was launched {n} times in the {tag} phase")
+    # the plain path on the kernels' tokens: at every token, the kernels'
+    # choice must be the plain logits' argmax, or tie with it in bf16
+    plain = build_model(dataclasses.replace(cfg, attn_impl="chunked",
+                                            use_decode_kernel=False))
+    _, plogits, _, _ = _greedy(torch, plain, params, frames, prompt, cap,
+                               steps, forced=toks)
+    same, ties = _bf16_ties(toks, plogits)
+    for t in ties:
+        print(f"[{tag}] row {t['row']} token {t['token']}: the plain path's "
+              f"logit of the kernels' token is {t['margin']:.3g} below its "
+              f"maximum {t['top']:.3g} (a bf16 near-tie)", flush=True)
+    # the same tokens in, so every logit is held to the plain path's
+    diffs = [float((a - p).abs().max()) for a, p in zip(klogits, plogits)]
+    top = max(float(p.abs().max()) for p in plogits)
+    print(f"[{tag}] max |logit - plain| at each of the {steps + 1} steps: "
+          f"{', '.join(f'{x:.4g}' for x in diffs)} (max |plain logit| "
+          f"{top:.4g}; limit {SEAMLESS_LOGIT_ATOL})", flush=True)
+    check(max(diffs) <= SEAMLESS_LOGIT_ATOL,
+          f"{tag}: max |logit - plain| {max(diffs)} > {SEAMLESS_LOGIT_ATOL}")
+    n_tok = b * (steps + 1)
+    step_p50 = sorted(step_s)[len(step_s) // 2]
+    print(f"[{tag}] {n_tok} tokens ({b} sequences, the prefill's and {steps} "
+          f"decode steps') in {wall:.2f}s: {n_tok / wall:.1f} tok/s, prefill "
+          f"{prefill_s * 1e3:.1f} ms, decode step p50 {step_p50 * 1e3:.1f} "
+          f"ms, peak memory {peak / 2**30:.2f} GiB, launches {launches}; "
+          f"the plain path's greedy choice at {same} of {n_tok} tokens, "
+          f"bf16 near-ties at {len(ties)} [{card}]", flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        _greedy(torch, model, params, frames, prompt, cap, 8)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t1) * 1e6
+    kernels = device_kernels(prof)
+    busy_us = sum(_device_us(e) for e in kernels)
+    profile_rec = {"busy_share": busy_us / wall_us if busy_us > 0 else None,
+                   "wall_s": wall_us / 1e6, "device_busy_s": busy_us / 1e6,
+                   "decode_steps": 8,
+                   "top": [{"kernel": e.key[:90], "count": e.count,
+                            "device_ms": _device_us(e) / 1e3}
+                           for e in sorted(kernels, key=_device_us,
+                                           reverse=True)[:8]]}
+    print(f"[profile] {tag} prefill + 8 decode steps under torch.profiler: "
+          f"wall {wall_us / 1e6:.3f}s, device busy {busy_us / 1e6:.3f}s "
+          + (f"({busy_us / wall_us:.1%})" if busy_us > 0
+             else "(no device time recorded: not measured)"), flush=True)
+    for t in profile_rec["top"]:
+        print(f"[profile]   {t['device_ms']:9.2f} ms  x{t['count']:<6} "
+              f"{t['kernel']}", flush=True)
+    rec = {"model": cfg.name, "layers": f"{cfg.num_encoder_layers} + "
+           f"{cfg.num_layers}", "dtype": cfg.dtype, "sequences": b,
+           "frames": n_frames, "prompt_tokens": n_prompt,
+           "decode_steps": steps, "new_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall, "prefill_s": prefill_s,
+           "decode_step_p50_s": step_p50, "peak_memory_bytes": peak,
+           "plain_argmax_tokens": same, "bf16_near_ties": ties,
+           "max_abs_logit_diff_by_step": diffs,
+           "max_abs_plain_logit": top,
+           "profile": profile_rec,
+           "card": card}
+    return rec, launches
+
+
+def seamless_batch(torch, cfg, b: int, n_frames: int, n_tokens: int,
+                   seed: int) -> dict:
+    """train-seamless's batch: audio frames drawn on the card and
+    ``SyntheticLM`` token rows with their loss mask (its segment ids
+    dropped: an encoder-decoder takes none)."""
+    from repro_torch.data import SyntheticLM
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 11)
+    text = SyntheticLM(cfg.vocab_size, n_tokens, b, seed=seed).batch_at(0)
+    return {"frames": torch.randn(b, n_frames, cfg.frontend_dim,
+                                  generator=gen, device="cuda"),
+            "tokens": text["tokens"], "loss_mask": text["loss_mask"]}
+
+
+def seamless_train_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
+    """The published seamless-m4t-medium (bf16, remat) trained 6 steps
+    through ``make_train_step`` and the ``Trainer`` with frames in the
+    batch (``seamless_batch``: 4 rows of 1024 frames + 1024 tokens), AdamW
+    with warmup_cosine(1e-3, 2, 6), clip 1.0 (``trainer_phase``; the train
+    launcher refuses the family, whose batches ``SyntheticLM`` does not
+    make). Every step takes the same batch: ``SyntheticLM``'s token chains
+    over 256,206 words hold no structure that 6 steps of fresh batches
+    can learn (their loss stays at ln V), and a repeated batch must be
+    learnt, so the losses must be finite and the last below the first.
+    The work of a step does not depend on the data."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw, warmup_cosine
+
+    b, n_frames, n_tokens, steps = SEAMLESS_TRAIN
+    cfg = dataclasses.replace(get_config(SEAMLESS), attn_impl="pallas")
+    rec, launches = trainer_phase(
+        torch, seed, card, "train-seamless", cfg, n_frames + n_tokens, b,
+        lambda: adamw(warmup_cosine(1e-3, 2, steps)),
+        "AdamW, warmup_cosine(1e-3, 2, 6), clip 1.0",
+        batch_at=lambda step, batch=seamless_batch(
+            torch, cfg, b, n_frames, n_tokens, seed): batch)
+    check(rec["losses"][-1] < rec["losses"][0],
+          f"train-seamless: the loss did not fall ({rec['losses']})")
+    return rec, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3063,11 +3669,17 @@ def main() -> int:
     lap("kernels")
     at_shapes = new_shape_kernel_phase(torch, args.seed)
     lap("kernels_at_shapes")
+    sparse_at, paths = blocksparse_phase(torch, args.seed)
+    lap("blocksparse")
+    for extra in (sparse_at, seamless_kernel_phase(torch, args.seed)):
+        for name, entries in extra.items():
+            at_shapes.setdefault(name, {}).update(entries)
+    lap("seamless_kernels")
     moe_layer = moe_layer_phase(torch, args.seed, card)
     lap("moe_layer")
     ssm_layer = ssm_layer_phase(torch, args.seed, card)
     lap("ssm_layer")
-    paths = {"paged_grad": paged_grad_phase(torch, args.seed)}
+    paths["paged_grad"] = paged_grad_phase(torch, args.seed)
     lap("paged_grad")
     parity = parity_phase(torch, args.seed)
     serve, paths["serve"] = serve_phase(torch, args.seed, card)
@@ -3140,6 +3752,14 @@ def main() -> int:
     train_hymba, paths["train_hymba"] = train_phase(
         torch, args.seed, card, arch="hymba-1.5b", tag="train-hymba")
     lap("train_hymba")
+    seamless_parity = seamless_parity_phase(torch, args.seed)
+    lap("seamless_parity")
+    serve_seamless, paths["serve_seamless"] = seamless_serve_phase(
+        torch, args.seed, card)
+    lap("serve_seamless")
+    train_seamless, paths["train_seamless"] = seamless_train_phase(
+        torch, args.seed, card)
+    lap("train_seamless")
     serves = {"serve_qwen3": serve_qwen3, "serve_olmoe": serve_olmoe,
               "serve_phi35moe": serve_phi35moe, "serve_hymba": serve_hymba}
     held = serve_shape_records_apart(torch, args.seed, {
@@ -3180,7 +3800,12 @@ def main() -> int:
               "ssm_layer": ssm_layer, "mamba2_parity": mamba2_parity,
               "serve_mamba2": serve_mamba2, "train_mamba2": train_mamba2,
               "hymba_parity": hymba_parity, "serve_hymba": serve_hymba,
-              "train_hymba": train_hymba, "phase_end_s": laps, "total_s": time.perf_counter() - t_start}
+              "train_hymba": train_hymba,
+              "blocksparse": {p: at_shapes["flash_fwd"][p] for p in BLOCKSPARSE},
+              "seamless_parity": seamless_parity,
+              "serve_seamless": serve_seamless,
+              "train_seamless": train_seamless, "phase_end_s": laps,
+              "total_s": time.perf_counter() - t_start}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(f"[done] total {record['total_s']:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,8 @@
 package (``olmo-1b``, ``internlm2-20b``, ``granite-3-2b``, ``qwen3-32b``),
 its mixture-of-experts decoders (``olmoe-1b-7b``,
 ``phi3.5-moe-42b-a6.6b``), its state-space and hybrid decoders
-(``mamba2-2.7b``, ``hymba-1.5b``) and the paper's own models (``gpt2-small``,
+(``mamba2-2.7b``, ``hymba-1.5b``), its encoder-decoder
+(``seamless-m4t-medium``) and the paper's own models (``gpt2-small``,
 ``gpt2-medium``, ``bert-large``). ``get_config(name)`` / ``reduced_config(name)`` mirror
 ``repro.configs``."""
 
@@ -21,11 +22,12 @@ from repro_torch.configs.paper_models import (BERT_LARGE, GPT2_MEDIUM,
                                               GPT2_SMALL)
 from repro_torch.configs.phi3_5_moe_42b import CONFIG as _phi35moe
 from repro_torch.configs.qwen3_32b import CONFIG as _qwen3_32b
+from repro_torch.configs.seamless_m4t_medium import CONFIG as _seamless
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in [_olmo_1b, _internlm2_20b, _granite_3_2b, _qwen3_32b,
-                        _olmoe, _phi35moe, _hymba, _mamba2, GPT2_SMALL,
-                        GPT2_MEDIUM, BERT_LARGE]}
+                        _seamless, _olmoe, _phi35moe, _hymba, _mamba2,
+                        GPT2_SMALL, GPT2_MEDIUM, BERT_LARGE]}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -43,7 +45,8 @@ def reduced_config(name: str, **overrides) -> ModelConfig:
     ratio, norm, MLP, head, causality, top-k routing, SSM heads), small
     dims — the same reduction as ``repro.configs`` (at most 8 experts,
     top-2; no attention heads and no MLP where the arch has none; SSM state
-    at most 16, SSM heads of 16, chunks of 16)."""
+    at most 16, SSM heads of 16, chunks of 16; 2 encoder layers where the
+    arch has an encoder, frontend embeddings of dim 32, 8 vision patches)."""
     cfg = get_config(name)
     heads = min(cfg.num_heads, 4) if cfg.num_heads else 0
     kv = 0
@@ -52,6 +55,7 @@ def reduced_config(name: str, **overrides) -> ModelConfig:
         kv = max(1, heads // ratio)
     small = dict(
         num_layers=2,
+        num_encoder_layers=2 if cfg.num_encoder_layers else 0,
         d_model=64,
         num_heads=heads,
         num_kv_heads=kv,
@@ -64,6 +68,8 @@ def reduced_config(name: str, **overrides) -> ModelConfig:
         ssm_state=min(cfg.ssm_state, 16),
         ssm_head_dim=16 if cfg.ssm_state else 64,
         ssm_chunk=16,
+        frontend_tokens=8 if cfg.frontend == "vision" else 0,
+        frontend_dim=32 if cfg.frontend else 0,
         dtype="float32",
         remat=False,
     )

@@ -4,9 +4,11 @@ state-space and hybrid parts of ``repro.configs.base``): pre-norm blocks
 grouped-query attention with optional qk-norm and a decoupled head_dim, a
 SwiGLU, GeGLU or GELU MLP (``family="dense"``) or a top-k routed SwiGLU
 mixture of experts with capacity-factor dropping (``family="moe"``),
-attention-free Mamba2 (SSD) blocks (``family="ssm"``) or Hymba's parallel
-attention + SSM heads (``family="hybrid"``), and a tied or separate output
-head.
+attention-free Mamba2 (SSD) blocks (``family="ssm"``), Hymba's parallel
+attention + SSM heads (``family="hybrid"``) or an encoder-decoder
+(``family="encdec"``: a non-causal encoder of ``num_encoder_layers``
+blocks over a modality frontend's projected frames, then decoder blocks
+with cross-attention), and a tied or separate output head.
 
 Defaults match the JAX package, including ``attn_impl="chunked"``,
 ``use_decode_kernel=False`` and ``remat=True``: with the first two the
@@ -25,7 +27,7 @@ from typing import Literal
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: Literal["dense", "moe", "ssm", "hybrid"]
+    family: Literal["dense", "moe", "ssm", "hybrid", "encdec"]
     num_layers: int
     d_model: int
     num_heads: int
@@ -69,6 +71,14 @@ class ModelConfig:
 
     # hybrid (Hymba): parallel attention + SSM heads in one block
     hybrid: bool = False
+
+    # encoder-decoder (seamless-m4t)
+    num_encoder_layers: int = 0          # >0 -> enc-dec; num_layers = decoder
+
+    # modality frontend stubs: the batch carries precomputed embeddings
+    frontend: Literal[None, "vision", "audio"] = None
+    frontend_tokens: int = 0             # vision: patch tokens prepended
+    frontend_dim: int = 0                # raw embedding dim before projection
 
     tie_embeddings: bool = True         # False: a separate (d_model, V) head
     dtype: str = "bfloat16"

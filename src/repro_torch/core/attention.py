@@ -10,6 +10,9 @@
                     chunks, O(N) memory). The default, as in the JAX
                     package.
   * ``reference`` — Algorithm 0 (materializes S/P).
+  * ``block_sparse`` — the ``pallas`` path with an Alg. 5 sparse pattern
+                    (``block_layout``, required): the pattern joins the one
+                    block-layout compilation of ``kernels/ops.py``.
 
 ``attention`` takes the JAX signature's ``dropout_seed`` and
 ``deterministic``: attention dropout (``AttentionSpec.dropout_p``) runs
@@ -37,7 +40,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
 
-AttnImpl = Literal["pallas", "chunked", "reference"]
+AttnImpl = Literal["pallas", "chunked", "reference", "block_sparse"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,23 +69,28 @@ def attention(
     kv_segment_ids: torch.Tensor | None = None,
     q_positions: torch.Tensor | None = None,
     kv_positions: torch.Tensor | None = None,
+    block_layout=None,
     dropout_seed=0,
     deterministic: bool = True,
     q_offset: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
     """(b, hq, sq, d) x (b, hkv, sk, d)^2 -> (b, hq, sq, d); every impl
-    evaluates the same fused mask."""
+    evaluates the same fused mask. ``block_layout`` (an Alg. 5 sparse
+    pattern) reaches the kernels on ``pallas`` and ``block_sparse``, as in
+    the JAX package; the other impls do not read it."""
     dropout_p = 0.0 if deterministic else spec.dropout_p
     common = dict(causal=spec.causal, window=spec.window, kv_mask=kv_mask,
                   segment_ids=segment_ids, q_segment_ids=q_segment_ids,
                   kv_segment_ids=kv_segment_ids, q_positions=q_positions,
                   kv_positions=kv_positions, scale=scale, q_offset=q_offset)
-    if spec.impl == "pallas":
+    if spec.impl in ("pallas", "block_sparse"):
+        if spec.impl == "block_sparse" and block_layout is None:
+            raise ValueError("impl=block_sparse requires block_layout")
         return kops.flash_attention(
             q, k, v, dropout_p=dropout_p, dropout_seed=dropout_seed,
             block_q=spec.block_q, block_k=spec.block_k, variant=spec.variant,
-            **common)
+            block_layout=block_layout, **common)
     if spec.impl == "chunked":
         if dropout_p > 0.0:
             raise ValueError("attention dropout requires impl='pallas'")

@@ -257,6 +257,40 @@ def full_block_layout(q_len: int, k_len: int, block_q: int, block_k: int) -> np.
     return np.full((nq, nk), BLOCK_FULL, np.uint8)
 
 
+def butterfly_block_layout(q_len: int, k_len: int, block_q: int, block_k: int,
+                           causal: bool = False) -> np.ndarray:
+    """Fixed butterfly sparsity (paper §3.3): block (i, j) is kept (FULL)
+    on the block-diagonal band, where j ≡ i (mod round(sqrt(n))), or where
+    |i - j| is a power of two; every other block is SKIP. With ``causal``
+    the pattern is capped elementwise by the causal layout, so blocks above
+    the diagonal drop and the diagonal stays FULL (min(FULL, PARTIAL)), as
+    in the JAX package."""
+    nq = (q_len + block_q - 1) // block_q
+    nk = (k_len + block_k - 1) // block_k
+    n = max(nq, nk)
+    root = max(1, int(round(np.sqrt(n))))
+    i = np.arange(nq)[:, None]
+    j = np.arange(nk)[None, :]
+    dist = np.abs(i - j)
+    keep = ((dist <= 1)
+            | ((i % root) == (j % root))
+            | ((dist > 0) & ((dist & (dist - 1)) == 0)))
+    out = np.where(keep, BLOCK_FULL, BLOCK_SKIP).astype(np.uint8)
+    if causal:
+        out = np.minimum(out, causal_block_layout(q_len, k_len, block_q,
+                                                  block_k))
+    return out
+
+
+def refine_block_layout(layout: np.ndarray, rq: int, rk: int) -> np.ndarray:
+    """A static (nq, nk) pattern at blocks ``rq`` x ``rk`` times finer: each
+    coarse class repeated over its rq x rk sub-blocks (SKIP stays SKIP,
+    FULL stays FULL, PARTIAL and PARTIAL_DATA keep their class), so the
+    element mask it selects is unchanged."""
+    return np.repeat(np.repeat(np.asarray(layout, np.uint8), rq, axis=0),
+                     rk, axis=1)
+
+
 def sliding_window_block_layout(q_len: int, k_len: int, block_q: int, block_k: int,
                                 window: int, q_offset: int = 0) -> np.ndarray:
     """Block layout for a causal sliding-window mask."""
@@ -496,3 +530,60 @@ def compile_block_layout(spec: MaskSpec, q_len: int, k_len: int,
                                    block_q, block_k)
         layout = combine_block_layouts(layout, seg)
     return BlockLayout(layout, block_q, block_k, q_len, k_len)
+
+
+# ---------------------------------------------------------------------------
+# Layout introspection and expansion for the oracles
+# ---------------------------------------------------------------------------
+
+def _grid(layout):
+    arr = layout.layout if isinstance(layout, BlockLayout) else layout
+    return torch.as_tensor(np.asarray(arr) if isinstance(arr, np.ndarray)
+                           else arr)
+
+
+def layout_density(layout) -> float:
+    """Fraction s of non-skipped blocks (Prop. 4's sparsity fraction), in
+    float32 as the count times float32(1 / blocks): the rounding of the
+    JAX package's ``jnp.mean`` on the CPU, so that the two agree bit for
+    bit."""
+    grid = _grid(layout)
+    kept = np.float32(int((grid != BLOCK_SKIP).sum()))
+    return float(kept * np.float32(1.0 / grid.numel()))
+
+
+def layout_skip_rate(layout) -> float:
+    """Fraction of SKIP blocks: work avoided at block level."""
+    return 1.0 - layout_density(layout)
+
+
+def layout_to_element_mask(layout, block_q: int, block_k: int,
+                           q_len: int, k_len: int,
+                           base_mask: torch.Tensor | None = None,
+                           data_mask: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """Expand a block layout to a boolean element mask for the oracles.
+    FULL blocks are all-True, SKIP all-False; PARTIAL blocks intersect with
+    ``base_mask`` (the fused geometry + data mask) and PARTIAL_DATA blocks
+    with ``data_mask`` (default ``base_mask``). A static (nq, nk) or
+    batched (b, nq, nk) layout (the result then has the batch dim); 4-D
+    (b, 1, q, k) masks (``MaskSpec.element_mask``'s batched shape) are
+    squeezed so that the batch dims align."""
+    grid = _grid(layout)
+    dev = base_mask.device if base_mask is not None else grid.device
+    grid = grid.to(dev)
+    qb = torch.arange(q_len, device=dev) // block_q
+    kb = torch.arange(k_len, device=dev) // block_k
+    blk = grid[..., qb[:, None], kb[None, :]]
+    mask = blk != BLOCK_SKIP
+    if data_mask is None:
+        data_mask = base_mask
+
+    def _align(m):
+        return m[:, 0] if (m is not None and m.ndim == 4) else m
+
+    base_mask, data_mask = _align(base_mask), _align(data_mask)
+    if base_mask is not None:
+        part = torch.where(blk == BLOCK_PARTIAL_DATA, data_mask, base_mask)
+        mask = mask & ((blk == BLOCK_FULL) | part)
+    return mask

@@ -15,6 +15,12 @@ carries their gradients. Each call's masks are compiled ONCE into the
 block layout the kernels consume (``core.masks.compile_block_layout``),
 under ``torch.no_grad()``, and the backward reuses it.
 
+An Alg. 5 ``block_layout`` (a static (nq, nk) sparse pattern) fixes the
+block grid, as in the JAX package: ``block_q = ceil(sq / nq)``,
+``block_k = ceil(sk / nk)``. A block above the kernels' 64-row tile that
+is a multiple of it is refined exactly (``tuning.sparse_tile``,
+``masks.refine_block_layout``); any other raises on a CUDA tensor.
+
 The JAX package's kv-major re-layout (the whole GQA query group resident
 in one block, ``block_q = n_rep * sq``) is not ported: it is a TPU VMEM
 choice that does not fit Hopper shared memory, and the loop order is the
@@ -23,13 +29,14 @@ CUDA kernel's own business.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core.masks import (MaskSpec, POS_PAD, SEG_PAD_KV, SEG_PAD_Q,
                                     compile_block_layout,
                                     paged_prefill_block_layout,
-                                    resolve_segment_ids)
+                                    refine_block_layout, resolve_segment_ids)
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import tuning
 
@@ -113,6 +120,7 @@ def flash_attention(
     dropout_p: float = 0.0,
     dropout_seed=0,
     variant: str = "fa2",
+    block_layout=None,                    # (nq, nk) uint8 sparse pattern (Alg. 5)
     segment_ids: torch.Tensor | None = None,
     q_segment_ids: torch.Tensor | None = None,
     kv_segment_ids: torch.Tensor | None = None,
@@ -124,7 +132,10 @@ def flash_attention(
     differ) and POS_PAD positions, so padded rows come out fully masked.
     ``q_offset`` defaults to ``sk - sq``; positions are dropped when no
     geometric term uses them (the cheaper static-layout path). Dropout
-    hashes buffer coordinates with the unpadded (sq, sk) as strides."""
+    hashes buffer coordinates with the unpadded (sq, sk) as strides.
+    ``block_layout`` is an Alg. 5 sparse pattern, authoritative over the
+    geometry (its FULL blocks run unmasked, causal or not); its grid fixes
+    the blocks (see the module docstring)."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if hq % hkv != 0:
@@ -141,34 +152,46 @@ def flash_attention(
     if q_offset is None:
         q_offset = sk - sq
     auto_q, auto_k = tuning.fwd_tiles(d)
+    if block_layout is not None:
+        # the pattern's grid is the tile decision
+        nq_s, nk_s = np.asarray(block_layout).shape
+        auto_q, auto_k = -(-sq // nq_s), -(-sk // nk_s)
     block_q = tuning.round_block(block_q or auto_q, sq)
     block_k = tuning.round_block(block_k or auto_k, sk)
 
-    qp, qpad = _pad_seq(q, 2, block_q)
-    kp, kpad = _pad_seq(k, 2, block_k)
-    vp, _ = _pad_seq(v, 2, block_k)
+    # pad to the pattern's blocks, then cut them into kernel tiles
+    pad_q, pad_k = block_q, block_k
+    if block_layout is not None:
+        block_q, rq = tuning.sparse_tile(block_q, q.is_cuda)
+        block_k, rk = tuning.sparse_tile(block_k, q.is_cuda)
+        block_layout = refine_block_layout(block_layout, rq, rk)
+
+    qp, qpad = _pad_seq(q, 2, pad_q)
+    kp, kpad = _pad_seq(k, 2, pad_k)
+    vp, _ = _pad_seq(v, 2, pad_k)
     with torch.no_grad():
         kvm = None
         if kv_mask is not None:
-            kvm, _ = _pad_seq(kv_mask, 1, block_k, value=False)
+            kvm, _ = _pad_seq(kv_mask, 1, pad_k, value=False)
         if q_seg is not None:
-            q_seg, _ = _pad_seq(q_seg.to(torch.int32), 1, block_q, SEG_PAD_Q)
-            kv_seg, _ = _pad_seq(kv_seg.to(torch.int32), 1, block_k,
+            q_seg, _ = _pad_seq(q_seg.to(torch.int32), 1, pad_q, SEG_PAD_Q)
+            kv_seg, _ = _pad_seq(kv_seg.to(torch.int32), 1, pad_k,
                                  SEG_PAD_KV)
         if q_positions is not None:
             # POS_PAD keys are causally unreachable from real queries, so
             # the kv padding tail self-masks.
             q_positions, _ = _pad_seq(q_positions.to(torch.int32), 1,
-                                      block_q, POS_PAD)
+                                      pad_q, POS_PAD)
             kv_positions, _ = _pad_seq(kv_positions.to(torch.int32), 1,
-                                       block_k, POS_PAD)
+                                       pad_k, POS_PAD)
         has_pos = q_positions is not None
         spec = MaskSpec(
             causal=causal, window=window,
             q_offset=0 if has_pos else q_offset,
             kv_valid_len=None if has_pos else (sk if kpad else None),
             kv_mask=kvm, q_segment_ids=q_seg, kv_segment_ids=kv_seg,
-            q_positions=q_positions, kv_positions=kv_positions)
+            q_positions=q_positions, kv_positions=kv_positions,
+            sparse_layout=block_layout)
         layout = compile_block_layout(spec, qp.shape[2], kp.shape[2],
                                       block_q, block_k).as_array(q.device)
     call = dict(scale=scale, causal=causal, window=window,

@@ -6,6 +6,9 @@ the small part the serving path needs:
 
   * ``round_block`` — clamp a block to a sequence without emitting an
     unaligned tile (rows in multiples of ``ROW_ALIGN``; the caller pads);
+  * ``sparse_tile`` — the kernel tile under a block-sparse pattern's
+    block (the pattern refined to ``MAX_TILE`` where its block is a
+    multiple of it; any other block above it raises on the card);
   * ``fwd_tiles`` / ``bwd_tiles`` — one fixed (block_q, block_k) per
     head_dim whose shared-memory footprint in ``csrc/flash_fwd.cu`` /
     ``csrc/flash_bwd.cu`` (``fwd_smem_bytes`` / ``bwd_smem_bytes``, fp32
@@ -48,6 +51,27 @@ def round_block(requested: int, seq_len: int) -> int:
     blk = min(int(requested), cap)
     blk = max(ROW_ALIGN, (blk // ROW_ALIGN) * ROW_ALIGN)
     return min(blk, cap)
+
+
+def sparse_tile(block: int, on_card: bool) -> tuple[int, int]:
+    """(tile, factor) for one axis of a block-sparse pattern (paper Alg. 5)
+    whose grid fixes the block: a block of at most ``MAX_TILE`` rows is the
+    tile (factor 1); a multiple of ``MAX_TILE`` is cut into ``factor``
+    tiles of ``MAX_TILE`` (the pattern refined exactly,
+    ``masks.refine_block_layout``). Any other block raises on the card,
+    whose kernels take tiles of at most ``MAX_TILE`` rows; the plain
+    versions on the CPU take it as it is."""
+    if block <= MAX_TILE:
+        return block, 1
+    if block % MAX_TILE == 0:
+        return MAX_TILE, block // MAX_TILE
+    if on_card:
+        raise ValueError(
+            f"a block-sparse layout's block of {block} rows is neither at "
+            f"most {MAX_TILE} nor a multiple of {MAX_TILE}: the kernels "
+            f"take tiles of at most {MAX_TILE} rows, and only a multiple "
+            f"refines into them exactly")
+    return block, 1
 
 
 def fwd_kv_groups(head_dim: int, paged: bool) -> int:

@@ -17,7 +17,9 @@ prefill and decode run through the hand-written kernels (in dense mode the
 contiguous split-KV decode kernel). Families with recurrent state
 (``mamba2-2.7b``, ``hymba-1.5b``) serve in dense slots without
 ``--dense``, as in the reference (the engine's default for them).
-``--tp`` > 1 and ``--sp`` > 1 are not ported yet and raise.
+``--tp`` > 1 and ``--sp`` > 1 are not ported yet and raise. An arch whose
+model reads frontend embeddings (``seamless-m4t-medium``) is refused: its
+requests would carry tokens alone.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.models import build_model
+from repro_torch.models import build_model, require_token_inputs
 from repro_torch.serve import ServingEngine
 
 
@@ -109,6 +111,7 @@ def main(argv=None):
     if args.tp > 1 or args.sp > 1:
         raise NotImplementedError("--tp > 1 and --sp > 1 are not ported yet")
     cfg = model_config(args)
+    require_token_inputs(cfg, "the serve launcher")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed),
                         device=device)

@@ -9,7 +9,8 @@
 The flags follow the JAX launcher's (``repro.launch.train``; default arch
 ``olmo-1b``, any arch of ``repro_torch.configs``: dense, MoE (printing
 their cross-entropy and load-balancing loss apart), ``mamba2-2.7b`` and
-``hymba-1.5b``), with one difference:
+``hymba-1.5b``; ``seamless-m4t-medium`` is refused, as its model reads
+audio frames that ``SyntheticLM`` does not make), with one difference:
 without ``--reduced`` the PUBLISHED config is built at full width and
 depth (random weights from ``--seed``) on one device; the production-mesh
 path (``--full`` on a TPU slice: TP/DP/EP + ZeRO-1) is not ported.
@@ -34,7 +35,7 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.tree import tree_leaves
 from repro_torch.data import SyntheticLM
 from repro_torch.kernels.build import REPO_ROOT
-from repro_torch.models import build_model
+from repro_torch.models import build_model, require_token_inputs
 from repro_torch.optim import adamw, warmup_cosine
 from repro_torch.train import Trainer, TrainerConfig, make_train_step
 
@@ -67,6 +68,7 @@ def main(argv=None) -> Trainer:
     dev = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    require_token_inputs(cfg, "the train launcher (SyntheticLM tokens)")
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init(gen, device=dev)

@@ -5,7 +5,9 @@ normalization of every q and k head before RoPE, scaled by ``q_norm`` /
 (d_model, hq * head_dim)).
 
 Five execution modes: full-sequence training (``apply_attention``, with
-segment-relative RoPE and attention dropout), packed prefill
+segment-relative RoPE and attention dropout; or cross-attention over an
+encoder's output, with its prefill in ``cross_prefill_attention`` and
+its decode in ``cross_decode_attention_step``), packed prefill
 (``prefill_attention``, optionally writing a fixed-capacity slot cache),
 chunked prefill against the shared page pool
 (``chunk_prefill_attention_step``), single-token decode against the slot
@@ -21,6 +23,8 @@ and corrupt — a live page.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -80,21 +84,34 @@ def _project_qkv(params, cfg: ModelConfig, x, kv_x, positions, kv_positions):
 
 
 def apply_attention(params, cfg: ModelConfig, x, *,
-                    spec: AttentionSpec | None = None, positions=None,
-                    kv_mask=None, segment_ids=None,
-                    deterministic: bool = True, dropout_seed=0):
-    """Full-sequence self-attention, x: (b, s, d_model) -> (b, s, d_model).
-    ``segment_ids`` isolates packed documents AND makes RoPE
-    segment-relative (positions restart at every document boundary), so
-    packed training is position-identical to per-document training."""
-    if positions is None:
+                    spec: AttentionSpec | None = None, kv_x=None,
+                    positions=None, kv_mask=None, segment_ids=None,
+                    block_layout=None, deterministic: bool = True,
+                    dropout_seed=0):
+    """Full-sequence attention, x: (b, s, d_model) -> (b, s, d_model).
+    Self-attention by default: ``segment_ids`` isolates packed documents
+    AND makes RoPE segment-relative (positions restart at every document
+    boundary), so packed training is position-identical to per-document
+    training. Given ``kv_x`` (b, s_kv, d_model), cross-attention: keys and
+    values from ``kv_x``, no RoPE on q or k (decoder queries and encoder
+    keys live in different position spaces), never causal and never
+    windowed, and ``segment_ids`` ignored (the encoder stream is one), as
+    in the JAX package. ``block_layout`` is an Alg. 5 sparse pattern
+    (``impl`` ``pallas`` or ``block_sparse``)."""
+    cross = kv_x is not None
+    if positions is None and not cross:
         positions = (segment_relative_positions(segment_ids)
                      if segment_ids is not None
                      else torch.arange(x.shape[1], device=x.device))
-    q, k, v = _project_qkv(params, cfg, x, x, positions, positions)
+    rope = None if cross else positions
+    q, k, v = _project_qkv(params, cfg, x, kv_x if cross else x, rope, rope)
     spec = spec or attn_spec_from_config(cfg)
-    o = attention(q, k, v, spec, kv_mask=kv_mask, segment_ids=segment_ids,
-                  deterministic=deterministic, dropout_seed=dropout_seed)
+    if cross:
+        spec = dataclasses.replace(spec, causal=False, window=None)
+    o = attention(q, k, v, spec, kv_mask=kv_mask,
+                  segment_ids=None if cross else segment_ids,
+                  block_layout=block_layout, deterministic=deterministic,
+                  dropout_seed=dropout_seed)
     return _merge_heads(o) @ params["wo"]
 
 
@@ -149,6 +166,42 @@ def decode_attention_step(params, cfg: ModelConfig, x, cache, kv_len,
     spec = spec or attn_spec_from_config(cfg)
     o = decode_attention(q, cache["k"], cache["v"], kv_len + 1, spec)
     return _merge_heads(o) @ params["wo"], cache
+
+
+def cross_prefill_attention(params, cfg: ModelConfig, x, enc_out,
+                            capacity: int):
+    """``apply_attention(kv_x=enc_out)`` (cross-attention: no RoPE, never
+    causal or windowed) that also returns the encoder's K/V for decode,
+    projected once: (b, hkv, capacity, hd) each, rows [0, s_enc) from
+    ``enc_out`` (b, s_enc, d_model) and zeros past them (``capacity`` >=
+    s_enc pads the cache to the decode kernel's tile; the decode masks the
+    padding through ``kv_len = s_enc``). Returns (out, cache)."""
+    b, s_enc, _ = enc_out.shape
+    q, k, v = _project_qkv(params, cfg, x, enc_out, None, None)
+    spec = dataclasses.replace(attn_spec_from_config(cfg), causal=False,
+                               window=None)
+    o = attention(q, k, v, spec)
+    cache = init_kv_cache(cfg, b, capacity, enc_out.dtype, enc_out.device)
+    cache["k"][:, :, :s_enc] = k
+    cache["v"][:, :, :s_enc] = v
+    return _merge_heads(o) @ params["wo"], cache
+
+
+def cross_decode_attention_step(params, cfg: ModelConfig, x, cache,
+                                enc_len, *, spec: AttentionSpec | None = None):
+    """One decoder token's cross-attention over the encoder's cached K/V
+    (``cross_prefill_attention``; read only). x: (b, 1, d_model);
+    ``enc_len`` (b,) the encoder rows, the rest of the cache padding. No
+    RoPE on q and no window, as in the full-sequence cross-attention; the
+    decode path of ``spec`` (the split-KV kernel under
+    ``use_decode_kernel``) with kv_len = enc_len."""
+    q = _split_heads(x @ params["wq"], cfg.num_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_normalize(q) * params["q_norm"]
+    spec = dataclasses.replace(spec or attn_spec_from_config(cfg),
+                               window=None)
+    o = decode_attention(q, cache["k"], cache["v"], enc_len, spec)
+    return _merge_heads(o) @ params["wo"]
 
 
 def write_page_rows(pool, rows, page, off):

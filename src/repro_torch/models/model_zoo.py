@@ -1,5 +1,5 @@
-"""Top-level decoder Model (port of the decoder-only parts of
-``repro.models.model_zoo``: the dense, MoE, SSM and hybrid families):
+"""Top-level Model (port of ``repro.models.model_zoo`` for the dense, MoE,
+SSM, hybrid and encoder-decoder families):
 init, ``forward``/``loss`` for training, prefill into a slot cache, packed
 prefill, chunked prefill against the page pool, decode against either
 cache, and ``params_from_jax``. Packed prefill and the page pool serve the
@@ -9,11 +9,24 @@ beside (or instead of) the K/V cache and serve in dense slots.
 
 Params are a plain dict: ``{"embed": (V, d), "final_norm": {...},
 "blocks": [per-layer dicts]}``, plus ``"lm_head": (d, V)`` when
-``cfg.tie_embeddings`` is False, with the JAX package's weight layouts
+``cfg.tie_embeddings`` is False, and, for an encoder-decoder,
+``"enc_blocks"`` (a list), ``"enc_final_norm"`` and ``"frontend_proj"``
+(frontend_dim, d), with the JAX package's weight layouts
 (``x @ W``, W of shape (d_in, d_out)). ``forward`` and ``loss`` run with
 autograd; every serving method runs under ``torch.inference_mode()`` (the decode state is created outside it, so
 callers may edit it); the slot cache and the paged pool are updated in
 place.
+
+An encoder-decoder's batch is ``{"frames": (B, S_enc, frontend_dim),
+"tokens": (B, S)}`` (the audio frontend is a stub: frames are
+precomputed embeddings): ``_encode`` projects the frames and runs the
+encoder non-causal; the decoder's blocks cross-attend its output.
+``prefill`` caches the encoder's K/V per layer and ``decode_step`` attends
+them with ``kv_len`` = the encoder's length (``state["enc_len"]``); the
+cross cache is padded to the decode kernel's tile
+(``transformer.cross_capacity``), the reference's holds exactly S_enc
+rows. Packed ``segment_ids`` are refused with a frontend or an encoder,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -51,12 +64,21 @@ class Model:
         gdev = generator.device
         dtype = torch_dtype(cfg)
         kw = dict(generator=generator, device=gdev)
+        enc = cfg.num_encoder_layers > 0
         p: Params = {
             "embed": dense_init(cfg.vocab_size, cfg.d_model, dtype, **kw),
             "final_norm": init_norm(cfg.d_model, cfg.norm_type, dtype, gdev),
-            "blocks": [tfm.init_block(cfg, dtype, **kw)
+            "blocks": [tfm.init_block(cfg, dtype, cross_attn=enc, **kw)
                        for _ in range(cfg.num_layers)],
         }
+        if enc:
+            p["enc_blocks"] = [tfm.init_block(cfg, dtype, **kw)
+                               for _ in range(cfg.num_encoder_layers)]
+            p["enc_final_norm"] = init_norm(cfg.d_model, cfg.norm_type,
+                                            dtype, gdev)
+        if cfg.frontend is not None:
+            p["frontend_proj"] = dense_init(cfg.frontend_dim, cfg.d_model,
+                                            dtype, **kw)
         if not cfg.tie_embeddings:
             p["lm_head"] = dense_init(cfg.d_model, cfg.vocab_size, dtype, **kw)
         return tree_map(lambda t: t.to(dev), p)
@@ -70,18 +92,40 @@ class Model:
     def _batch_tensor(self, params, x):
         return torch.as_tensor(x).to(params["embed"].device)
 
+    def _encode(self, params, batch, deterministic: bool = True):
+        """The encoder's output (B, S_enc, d): ``batch["frames"]`` through
+        ``frontend_proj``, the encoder's blocks (non-causal) and its final
+        norm."""
+        frames = self._batch_tensor(params, batch["frames"])
+        front = frames.to(params["frontend_proj"].dtype) @ params["frontend_proj"]
+        h, _ = tfm.apply_stack(params["enc_blocks"], self.cfg, front,
+                               deterministic=deterministic,
+                               causal_override=False)
+        return apply_norm(params["enc_final_norm"], h, self.cfg.norm_type)
+
     # -------------------------------------------------------------- training
     def forward(self, params, batch, *, deterministic: bool = True,
                 dropout_seed=0):
         """Returns (logits, aux_loss). ``batch["segment_ids"]`` (B, S), when
         present, isolates packed documents in self-attention and makes RoPE
         segment-relative. Batch leaves may be numpy arrays or tensors."""
+        cfg = self.cfg
         tokens = self._batch_tensor(params, batch["tokens"]).long()
         segment_ids = batch.get("segment_ids")
         if segment_ids is not None:
+            if cfg.frontend is not None or cfg.num_encoder_layers > 0:
+                raise ValueError(
+                    "packed segment_ids are a text-decoder feature: "
+                    "frontends prepend a modality stream with its own "
+                    "position space, and cross-attention reads one shared "
+                    "encoder stream that cannot be isolated per packed "
+                    "document")
             segment_ids = self._batch_tensor(params, segment_ids)
+        enc_out = None
+        if cfg.num_encoder_layers > 0:
+            enc_out = self._encode(params, batch, deterministic)
         x = params["embed"][tokens]
-        h, aux = tfm.apply_stack(params["blocks"], self.cfg, x,
+        h, aux = tfm.apply_stack(params["blocks"], cfg, x, enc_out=enc_out,
                                  segment_ids=segment_ids,
                                  deterministic=deterministic,
                                  dropout_seed=dropout_seed)
@@ -114,38 +158,56 @@ class Model:
     def decode_capacity(self, prompt_len: int, max_new: int) -> int:
         return prompt_len + max_new
 
-    def init_decode_state(self, batch: int, capacity: int, device="cuda"):
+    def init_decode_state(self, batch: int, capacity: int, device="cuda",
+                          *, enc_len: int = 0):
         """Dense decode state: per-layer slot caches
         (L, batch, hkv, capacity, hd), the SSM state where the family has
-        one (``transformer.init_decode_cache``), and per-slot valid
-        lengths."""
+        one, an encoder-decoder's cross caches for ``enc_len`` encoder rows
+        (``transformer.init_decode_cache``), per-slot valid lengths and,
+        with an encoder, ``"enc_len"`` (batch,)."""
         dev = resolve_device(device)
         caches = tfm.init_decode_cache(self.cfg, batch, capacity,
-                                       torch_dtype(self.cfg), dev)
-        return {"caches": caches,
-                "kv_len": torch.zeros((batch,), dtype=torch.int32,
-                                      device=dev)}
+                                       torch_dtype(self.cfg), dev,
+                                       enc_len=enc_len)
+        state = {"caches": caches,
+                 "kv_len": torch.zeros((batch,), dtype=torch.int32,
+                                       device=dev)}
+        if "cross_kv" in caches:
+            state["enc_len"] = torch.full((batch,), enc_len,
+                                          dtype=torch.int32, device=dev)
+        return state
 
     @torch.inference_mode()
     def prefill(self, params, batch, capacity: int):
         """Run the prompt (b, s) into fresh slot caches of ``capacity``
         (and, for the SSM and hybrid families, the SSM state after the
-        prompt); returns (state, last-token logits (b, 1, V))."""
+        prompt; for an encoder-decoder, ``batch["frames"]`` through the
+        encoder and its K/V into per-layer cross caches); returns (state,
+        last-token logits (b, 1, V))."""
         tokens = self._batch_tensor(params, batch["tokens"]).long()
+        enc_out = None
+        if self.cfg.num_encoder_layers > 0:
+            enc_out = self._encode(params, batch)
         x = params["embed"][tokens]
         h, caches = tfm.apply_stack_prefill(params["blocks"], self.cfg, x,
-                                            capacity)
+                                            capacity, enc_out=enc_out)
+        b, dev = x.shape[0], x.device
         state = {"caches": caches,
-                 "kv_len": torch.full((x.shape[0],), x.shape[1],
-                                      dtype=torch.int32, device=x.device)}
+                 "kv_len": torch.full((b,), x.shape[1], dtype=torch.int32,
+                                      device=dev)}
+        if enc_out is not None:
+            state["enc_len"] = torch.full((b,), enc_out.shape[1],
+                                          dtype=torch.int32, device=dev)
         return state, self._logits(params, h[:, -1:])
 
     def supports_packed_prefill(self) -> bool:
         """Packed prefill scatters per-segment K/V row ranges into slots or
         pages: every cache leaf must be a length-indexed K/V cache. SSM
-        and hybrid states do not split per segment."""
+        and hybrid states, encoder and frontend streams do not split per
+        segment."""
         cfg = self.cfg
-        return cfg.family in ("dense", "moe") and not cfg.hybrid
+        return (cfg.family in ("dense", "moe") and not cfg.hybrid
+                and cfg.num_encoder_layers == 0 and cfg.frontend is None)
 
     def supports_paged_decode(self) -> bool:
         """Paged decode needs per-token K/V rows: the packed-prefill
@@ -207,13 +269,32 @@ class Model:
                          "kv_len": state["kv_len"] + 1}
             return new_state, self._logits(params, h)
         h, caches = tfm.apply_stack_decode(params["blocks"], self.cfg, x,
-                                           state["caches"], state["kv_len"])
-        return ({"caches": caches, "kv_len": state["kv_len"] + 1},
-                self._logits(params, h))
+                                           state["caches"], state["kv_len"],
+                                           state.get("enc_len"))
+        new_state = dict(state, caches=caches, kv_len=state["kv_len"] + 1)
+        return new_state, self._logits(params, h)
 
 
 def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg)
+
+
+def require_token_inputs(cfg: ModelConfig, entry: str) -> None:
+    """Raise for a model whose batch needs more than tokens (an encoder's
+    ``frames``, a VLM's ``patches``): ``entry`` feeds token prompts or
+    ``SyntheticLM`` token batches only. The JAX package's engine passes
+    tokens alone to ``Model.prefill`` and its train launcher feeds
+    ``SyntheticLM`` tokens, so neither runs these families; such a model
+    runs at model level (``forward``, ``loss``, ``prefill``,
+    ``decode_step`` with the batch it needs, and ``make_train_step``)."""
+    if cfg.num_encoder_layers > 0 or cfg.frontend is not None:
+        raise ValueError(
+            f"{entry} feeds token inputs only, and {cfg.name} (family "
+            f"{cfg.family!r}, frontend {cfg.frontend!r}) also reads "
+            f"precomputed frontend embeddings, as the JAX package's engine "
+            f"and train launcher cannot either; run it at model level "
+            f"(Model.prefill / decode_step / loss, make_train_step) with "
+            f"them in the batch")
 
 
 def params_to(params: Params, device) -> Params:
@@ -224,9 +305,9 @@ def params_to(params: Params, device) -> Params:
 
 def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> Params:
     """The JAX package's parameter pytree (leaves as numpy arrays) -> this
-    package's params. Blocks stacked on a leading layer axis (``init_stack``
-    under ``scan_layers``) are unstacked into a per-layer list; a list of
-    blocks is taken as is. A float32 leaf stays float32 (the reference
+    package's params. Blocks (and an encoder's ``enc_blocks``) stacked on
+    a leading layer axis (``init_stack`` under ``scan_layers``) are
+    unstacked into a per-layer list; a list of blocks is taken as is. A float32 leaf stays float32 (the reference
     keeps some in a bf16 model: the MoE router, the SSM's ``A_log``, ``D``
     and ``dt_bias``); every other leaf is cast
     to the config's dtype through float32 (lossless for bf16 and f32)."""
@@ -238,10 +319,15 @@ def params_from_jax(np_tree, cfg: ModelConfig, device="cuda") -> Params:
         to = torch.float32 if a.dtype == np.float32 else dtype
         return torch.from_numpy(np.array(a, np.float32)).to(dev, to)
 
-    blocks = np_tree["blocks"]
-    if isinstance(blocks, dict):
-        blocks = [tree_map(lambda a, l=l: np.asarray(a)[l], blocks)
-                  for l in range(cfg.num_layers)]
-    out = {k: v for k, v in np_tree.items() if k != "blocks"}
-    out["blocks"] = blocks
+    def unstack(blocks, n):
+        if isinstance(blocks, dict):
+            return [tree_map(lambda a, l=l: np.asarray(a)[l], blocks)
+                    for l in range(n)]
+        return blocks
+
+    out = dict(np_tree)
+    out["blocks"] = unstack(np_tree["blocks"], cfg.num_layers)
+    if "enc_blocks" in np_tree:
+        out["enc_blocks"] = unstack(np_tree["enc_blocks"],
+                                    cfg.num_encoder_layers)
     return tree_map(conv, out)

@@ -1,12 +1,17 @@
-"""Decoder stack (port of the decoder-only parts of
-``repro.models.transformer``): pre-norm attention + MLP blocks (norm and
-MLP by ``cfg.norm_type`` / ``cfg.mlp_type``), attention + MoE blocks for
-``family="moe"``, attention-free Mamba2 (SSD) blocks for ``family="ssm"``
-(an MLP only where ``d_ff > 0``), and Hymba's blocks for
-``family="hybrid"``: attention and SSM heads read the same normalized
-input, and their outputs, each RMS-normalized, are averaged. The stacks run
-as a plain loop over layers (the JAX package scans over stacked layers).
-The training stack sums the MoE layers' load-balancing losses; the serving
+"""Block stacks (port of ``repro.models.transformer``): pre-norm attention
++ MLP blocks (norm and MLP by ``cfg.norm_type`` / ``cfg.mlp_type``),
+attention + MoE blocks for ``family="moe"``, attention-free Mamba2 (SSD)
+blocks for ``family="ssm"`` (an MLP only where ``d_ff > 0``), and
+Hymba's blocks for ``family="hybrid"``: attention and SSM heads read the
+same normalized input, and their outputs, each RMS-normalized, are
+averaged. ``family="encdec"``: the encoder's blocks are the dense ones
+run non-causal (``causal_override=False``), the decoder's add
+cross-attention over the encoder's output after self-attention
+(``cross_norm``, ``cross_attn``); prefill caches the encoder's K/V per
+layer (``"cross_kv"``, padded to the decode kernel's tile) and decode
+attends them with ``kv_len`` = the encoder's length. The stacks run as a
+plain loop over layers (the JAX package scans over stacked layers). The
+training stack sums the MoE layers' load-balancing losses; the serving
 stacks drop them, as the reference does. The SSM path ignores
 ``segment_ids``: packing is an attention-family feature. With
 ``cfg.remat`` the training stack checkpoints every block
@@ -18,6 +23,8 @@ from __future__ import annotations
 
 from typing import Any
 
+import dataclasses
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -26,17 +33,20 @@ from repro_torch.core.tree import tree_map
 from repro_torch.models import attention_layer as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.kernels.tuning import DECODE_TILE
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
                                        init_norm, rms_normalize)
 
 Params = dict[str, Any]
 
 
-def init_block(cfg: ModelConfig, dtype, *, generator, device) -> Params:
+def init_block(cfg: ModelConfig, dtype, *, generator, device,
+               cross_attn: bool = False) -> Params:
     """The reference's block tree: attention unless the family is "ssm",
     an SSM (with its own norm) for "ssm" and "hybrid" (the hybrid's
-    ``ssm_norm`` is never read, as in the reference), then an MoE for
-    "moe" or an MLP where ``d_ff > 0``."""
+    ``ssm_norm`` is never read, as in the reference), cross-attention
+    with its norm for an encoder-decoder's decoder blocks
+    (``cross_attn``), then an MoE for "moe" or an MLP where ``d_ff > 0``."""
     kw = dict(generator=generator, device=device)
     p: Params = {}
     if cfg.family != "ssm":
@@ -45,6 +55,9 @@ def init_block(cfg: ModelConfig, dtype, *, generator, device) -> Params:
     if cfg.family == "ssm" or cfg.hybrid:
         p["ssm_norm"] = init_norm(cfg.d_model, cfg.norm_type, dtype, device)
         p["ssm"] = ssm_mod.init_ssm(cfg, dtype, **kw)
+    if cross_attn:
+        p["cross_norm"] = init_norm(cfg.d_model, cfg.norm_type, dtype, device)
+        p["cross_attn"] = attn_mod.init_attention(cfg, dtype, **kw)
     if cfg.family == "moe":
         p["mlp_norm"] = init_norm(cfg.d_model, cfg.norm_type, dtype, device)
         p["moe"] = moe_mod.init_moe(cfg, dtype, **kw)
@@ -73,21 +86,42 @@ def _ffn_residual(params: Params, cfg: ModelConfig, x):
     return x + apply_mlp(params["mlp"], h, cfg.mlp_type), None
 
 
-def apply_block(params: Params, cfg: ModelConfig, x, *, segment_ids=None,
-                deterministic: bool = True, dropout_seed=0):
+def _cross_residual(params: Params, cfg: ModelConfig, x, enc_out, *,
+                    deterministic: bool = True):
+    """x plus cross-attention of its normalised self over ``enc_out``
+    (decoder blocks of an encoder-decoder; x itself otherwise)."""
+    if "cross_attn" not in params or enc_out is None:
+        return x
+    h = apply_norm(params["cross_norm"], x, cfg.norm_type)
+    return x + attn_mod.apply_attention(params["cross_attn"], cfg, h,
+                                        kv_x=enc_out,
+                                        deterministic=deterministic)
+
+
+def apply_block(params: Params, cfg: ModelConfig, x, *, enc_out=None,
+                segment_ids=None, deterministic: bool = True,
+                dropout_seed=0, causal_override: bool | None = None):
     """One block, full sequence (training). Returns (x, aux_loss); aux is 0
-    outside the MoE family."""
+    outside the MoE family. ``causal_override`` sets the self-attention's
+    causality (the encoder's blocks run with False, and then no window);
+    ``enc_out`` feeds the decoder blocks' cross-attention."""
+    spec = None
+    if causal_override is not None:
+        spec = dataclasses.replace(
+            attn_mod.attn_spec_from_config(cfg), causal=causal_override,
+            window=cfg.window if causal_override else None)
     if cfg.family == "ssm":
         h = apply_norm(params["ssm_norm"], x, cfg.norm_type)
         x = x + ssm_mod.apply_ssm(params["ssm"], cfg, h)
     else:
         h = apply_norm(params["attn_norm"], x, cfg.norm_type)
-        a = attn_mod.apply_attention(params["attn"], cfg, h,
+        a = attn_mod.apply_attention(params["attn"], cfg, h, spec=spec,
                                      segment_ids=segment_ids,
                                      deterministic=deterministic,
                                      dropout_seed=dropout_seed)
         x = (_mix(x, a, ssm_mod.apply_ssm(params["ssm"], cfg, h))
              if cfg.hybrid else x + a)
+    x = _cross_residual(params, cfg, x, enc_out, deterministic=deterministic)
     x, aux = _ffn_residual(params, cfg, x)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -95,13 +129,16 @@ def apply_block(params: Params, cfg: ModelConfig, x, *, segment_ids=None,
 
 
 def apply_stack(blocks: list[Params], cfg: ModelConfig, x, *,
-                segment_ids=None, deterministic: bool = True,
-                dropout_seed=0):
+                enc_out=None, segment_ids=None,
+                deterministic: bool = True, dropout_seed=0,
+                causal_override: bool | None = None):
     """All blocks in order. Returns (x, total_aux_loss)."""
     def fn(p_l, h):
-        return apply_block(p_l, cfg, h, segment_ids=segment_ids,
+        return apply_block(p_l, cfg, h, enc_out=enc_out,
+                           segment_ids=segment_ids,
                            deterministic=deterministic,
-                           dropout_seed=dropout_seed)
+                           dropout_seed=dropout_seed,
+                           causal_override=causal_override)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_l in blocks:
@@ -113,14 +150,24 @@ def apply_stack(blocks: list[Params], cfg: ModelConfig, x, *,
     return x, aux_total
 
 
+def cross_capacity(enc_len: int) -> int:
+    """Rows of a cross-attention cache for ``enc_len`` encoder rows: padded
+    up to the decode kernel's tile (``DECODE_TILE``), so that the split-KV
+    decode takes its tile whatever the encoder's length; the padding is
+    masked through ``kv_len = enc_len``."""
+    return -(-enc_len // DECODE_TILE) * DECODE_TILE
+
+
 def apply_block_prefill(params: Params, cfg: ModelConfig, x,
                         capacity: int | None = None, *, segment_ids=None,
-                        positions=None):
+                        positions=None, enc_out=None):
     """One block over a (packed) prompt; returns (x, cache_l): ``"kv"``
     with the block's K/V rows (b, hkv, s, hd), or, given a ``capacity``, a
     (b, hkv, capacity, hd) slot cache holding them at [0, s); ``"ssm"``
     with the SSM's final state {"h", "conv"} (families "ssm" and
-    "hybrid"; those prefill one unpacked prompt a row)."""
+    "hybrid"; those prefill one unpacked prompt a row); ``"cross_kv"``
+    with the encoder's K/V rows for decode (decoder blocks of an
+    encoder-decoder, given ``enc_out``; ``cross_capacity`` rows)."""
     cache_l: Params = {}
     if cfg.family == "ssm":
         h = apply_norm(params["ssm_norm"], x, cfg.norm_type)
@@ -140,37 +187,51 @@ def apply_block_prefill(params: Params, cfg: ModelConfig, x,
         x = _mix(x, a, m)
     else:
         x = x + a
+    if "cross_attn" in params and enc_out is not None:
+        h = apply_norm(params["cross_norm"], x, cfg.norm_type)
+        c, cache_l["cross_kv"] = attn_mod.cross_prefill_attention(
+            params["cross_attn"], cfg, h, enc_out,
+            cross_capacity(enc_out.shape[1]))
+        x = x + c
     return _ffn_residual(params, cfg, x)[0], cache_l
 
 
 def apply_stack_prefill(blocks: list[Params], cfg: ModelConfig, x,
                         capacity: int | None = None, *, segment_ids=None,
-                        positions=None):
+                        positions=None, enc_out=None):
     """Prompt through all layers; every cache leaf stacked on a leading
     layer axis: {"kv": {"k": (L, b, hkv, s or capacity, hd), "v": ...},
-    "ssm": {"h": (L, b, h, p, n), "conv": (L, b, w-1, conv_ch)}}, each
-    where the family has it."""
+    "ssm": {"h": (L, b, h, p, n), "conv": (L, b, w-1, conv_ch)},
+    "cross_kv": {"k": (L, b, hkv, cross_capacity(s_enc), hd), "v": ...}},
+    each where the family has it."""
     outs = []
     for p_l in blocks:
         x, c = apply_block_prefill(p_l, cfg, x, capacity,
                                    segment_ids=segment_ids,
-                                   positions=positions)
+                                   positions=positions, enc_out=enc_out)
         outs.append(c)
     return x, tree_map(lambda *ls: torch.stack(ls), outs[0], *outs[1:])
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
-                      device):
+                      device, *, enc_len: int = 0):
     """Per-layer slot caches stacked on a leading layer axis:
     (L, batch, hkv, capacity, hd) per K/V leaf (unless the family is
-    "ssm"), and the SSM state (families "ssm" and "hybrid"): "h" (L,
-    batch, h, p, n) float32 and "conv" (L, batch, w-1, conv_ch)."""
+    "ssm"), the SSM state (families "ssm" and "hybrid"): "h" (L,
+    batch, h, p, n) float32 and "conv" (L, batch, w-1, conv_ch), and an
+    encoder-decoder's cross-attention cache for ``enc_len`` encoder rows
+    ("cross_kv", ``cross_capacity(enc_len)`` rows)."""
     c: Params = {}
+
+    def kv(rows):
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, rows, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
     if cfg.family != "ssm":
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, capacity,
-                 cfg.head_dim)
-        c["kv"] = {"k": torch.zeros(shape, dtype=dtype, device=device),
-                   "v": torch.zeros(shape, dtype=dtype, device=device)}
+        c["kv"] = kv(capacity)
+    if cfg.num_encoder_layers > 0 and enc_len > 0:
+        c["cross_kv"] = kv(cross_capacity(enc_len))
     if cfg.family == "ssm" or cfg.hybrid:
         one = ssm_mod.init_ssm_state(cfg, batch, dtype, device)
         c["ssm"] = {k: torch.zeros((cfg.num_layers, *t.shape), dtype=t.dtype,
@@ -178,10 +239,12 @@ def init_decode_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
     return c
 
 
-def apply_block_decode(params: Params, cfg: ModelConfig, x, cache, kv_len):
+def apply_block_decode(params: Params, cfg: ModelConfig, x, cache, kv_len,
+                       enc_len=None):
     """One block for one new token against its layer's slot cache
-    ({"kv", "ssm"} as the family has them, updated in place). Returns (x,
-    cache)."""
+    ({"kv", "ssm"} as the family has them, updated in place; an
+    encoder-decoder's "cross_kv", read over ``enc_len`` (b,) rows).
+    Returns (x, cache)."""
     if cfg.family == "ssm":
         h = apply_norm(params["ssm_norm"], x, cfg.norm_type)
         y, _ = ssm_mod.decode_ssm_step(params["ssm"], cfg, h, cache["ssm"])
@@ -194,17 +257,22 @@ def apply_block_decode(params: Params, cfg: ModelConfig, x, cache, kv_len):
         x = _mix(x, a, m)
     else:
         x = x + a
+    if "cross_attn" in params and "cross_kv" in cache:
+        h = apply_norm(params["cross_norm"], x, cfg.norm_type)
+        x = x + attn_mod.cross_decode_attention_step(
+            params["cross_attn"], cfg, h, cache["cross_kv"], enc_len)
     return _ffn_residual(params, cfg, x)[0], cache
 
 
 def apply_stack_decode(blocks: list[Params], cfg: ModelConfig, x, caches,
-                       kv_len):
+                       kv_len, enc_len=None):
     """A single token through all layers against the slot caches (updated
-    in place); ``kv_len`` is layer-invariant. Returns (x, caches)."""
+    in place); ``kv_len`` and ``enc_len`` are layer-invariant. Returns (x,
+    caches)."""
     for l, p_l in enumerate(blocks):
         layer = {name: {k: t[l] for k, t in leaves.items()}
                  for name, leaves in caches.items()}
-        x, _ = apply_block_decode(p_l, cfg, x, layer, kv_len)
+        x, _ = apply_block_decode(p_l, cfg, x, layer, kv_len, enc_len)
     return x, caches
 
 

@@ -43,7 +43,10 @@ unless ``device="cpu"`` is passed; there is no fallback between the two.
 On the card a paged engine takes pages of 8, 16, 32 or 64 rows, the sizes
 its kernels take, and refuses any other at construction
 (``tuning.check_page_size``); on the CPU any page dividing the capacity
-serves, as in the JAX engine. Not ported yet (raise ``NotImplementedError``): tensor parallelism
+serves, as in the JAX engine. A model that reads frontend embeddings (the
+encoder-decoder) is refused at construction (``require_token_inputs``):
+a request carries tokens alone, as in the JAX engine, which cannot serve
+it either. Not ported yet (raise ``NotImplementedError``): tensor parallelism
 (``tp>1``), sequence parallelism (``sp>1``), and the IO ledger's per-step
 HBM pricing.
 """
@@ -63,7 +66,7 @@ from repro_torch.core import masks
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.core.masks import POS_PAD, SEG_PAD_Q
 from repro_torch.kernels import tuning
-from repro_torch.models.model_zoo import Model
+from repro_torch.models.model_zoo import Model, require_token_inputs
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import sampling
 from repro_torch.serve.scheduler import ChunkScheduler, ChunkTask, SchedulerConfig
@@ -114,6 +117,7 @@ class ServingEngine:
             raise NotImplementedError(
                 "tensor/sequence-parallel serving (tp>1, sp>1) is not "
                 "ported yet")
+        require_token_inputs(model.cfg, "the serving engine")
         self.model = model
         self.params = params
         self.B = num_slots

@@ -8,7 +8,7 @@ metrics are the reference's: loss, ce, aux (the MoE load-balancing loss,
 0 for dense models), tokens and grad_norm.
 
 Clipping, update and apply go piece by piece (each top-level entry of the
-params, each block), so the fp32 clipped gradients and updates of only one
+params, each block of ``blocks`` and of an encoder's ``enc_blocks``), so the fp32 clipped gradients and updates of only one
 piece exist at a time: at olmoe-1b-7b's width that is ~3.4 GB instead of
 8 bytes a parameter. The global norm is taken over every gradient first,
 and both optimizers work leaf by leaf, so the result is the same as
@@ -17,8 +17,9 @@ holds it: its blocks stacked on a leading layer axis. Its optimizers
 decay a leaf of two or more dims, and each block leaf has the layer axis
 there, so a block's 1-D leaves (norm scales, biases, the SSM's ``A_log``,
 ``D``, ``dt_bias``) are decayed and only the top-level 1-D ones (the final
-norm) are not. The step hands each block to the optimizer with that axis
-(a view), so the updates are the reference's. The
+norm, an encoder's final norm) are not. The step hands each block, an
+encoder's too, to the optimizer with that axis (a view), so the updates
+are the reference's. The
 sharded and ZeRO-1 step factories wait for the tensor/data-parallel slice
 (ROADMAP.md).
 """

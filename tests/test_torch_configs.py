@@ -1,6 +1,7 @@
 """The port's architecture registry against the JAX package's: every
 field the two ``ModelConfig`` classes share is equal for each of the seven
-dense archs, the two MoE archs and the SSM and hybrid archs, at the
+dense archs, the two MoE archs, the SSM and hybrid archs and the
+encoder-decoder, at the
 published size and after ``reduced_config`` (also with overrides), the
 reduction clamps the experts to 8 and the top-k to 2 as the reference's
 does, gives no heads and no MLP where the arch has none, and the config's
@@ -22,6 +23,7 @@ DENSE = ["granite-3-2b", "olmo-1b", "qwen3-32b", "internlm2-20b",
          "gpt2-small", "gpt2-medium", "bert-large"]
 MOE = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"]
 SSM = ["mamba2-2.7b", "hymba-1.5b"]
+ENCDEC = ["seamless-m4t-medium"]
 
 
 def _shared(port_cfg, jax_cfg):
@@ -33,25 +35,26 @@ def _shared(port_cfg, jax_cfg):
 
 
 def test_registry_holds_the_dense_archs():
-    """The dense archs, and beside them the MoE, SSM and hybrid archs,
-    under the reference's names and families; the encoder-decoder is the
-    next arch not ported yet."""
-    assert sorted(ARCHS) == sorted(DENSE + MOE + SSM) == list_archs()
+    """The dense archs, and beside them the MoE, SSM, hybrid and
+    encoder-decoder archs, under the reference's names and families; the
+    VLM is the next arch not ported yet."""
+    assert sorted(ARCHS) == sorted(DENSE + MOE + SSM + ENCDEC) == list_archs()
     assert {a for a in ARCHS if get_config(a).family == "dense"} == set(DENSE)
     assert {a for a in ARCHS if get_config(a).family == "moe"} == set(MOE)
     assert get_config("mamba2-2.7b").family == "ssm"
     assert get_config("hymba-1.5b").family == "hybrid"
+    assert get_config("seamless-m4t-medium").family == "encdec"
     with pytest.raises(KeyError):
-        get_config("seamless-m4t-medium")
+        get_config("phi-3-vision-4.2b")
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM + ENCDEC)
 def test_published_fields_equal_jax(arch):
     ours, ref = _shared(get_config(arch), jax_get_config(arch))
     assert ours == ref
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + SSM)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM + ENCDEC)
 @pytest.mark.parametrize("overrides", [{}, {"head_dim": 32, "window": 300},
                                        {"num_layers": 1, "causal": False}])
 def test_reduced_fields_equal_jax(arch, overrides):

@@ -1430,3 +1430,218 @@ def test_ssm_layer_bf16_is_bit_identical_and_never_waits(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(torch.equal(a, b) for a, b in zip(first, third))
+
+
+# ---------------------------------------------------------------------------
+# block-sparse FlashAttention (paper Alg. 5) and the encoder-decoder
+# ---------------------------------------------------------------------------
+
+def _sparse_case(cuda, dtype, blk, causal, masked, s=512, d=64):
+    """A butterfly pattern at ``blk``-row blocks, refined to the kernels'
+    tiles as ``ops.flash_attention`` refines it, compiled with an optional
+    kv_mask (FULL blocks it cuts become PARTIAL_DATA); GQA 4/2."""
+    gen = torch.Generator().manual_seed(blk + 2 * causal + masked)
+    b, hq, hkv = 2, 4, 2
+    q = torch.randn(b, hq, s, d, generator=gen).to(cuda, dtype)
+    k = torch.randn(b, hkv, s, d, generator=gen).to(cuda, dtype)
+    v = torch.randn(b, hkv, s, d, generator=gen).to(cuda, dtype)
+    kvm = None
+    if masked:
+        kvm = (torch.rand(b, s, generator=gen) > 0.2)
+        kvm[:, s - 40:] = False
+        kvm = kvm.to(cuda)
+    pattern = M.butterfly_block_layout(s, s, blk, blk, causal=causal)
+    tile, r = tuning.sparse_tile(blk, on_card=True)
+    spec = M.MaskSpec(causal=causal, kv_mask=kvm,
+                      sparse_layout=M.refine_block_layout(pattern, r, r))
+    layout = M.compile_block_layout(spec, s, s, tile, tile).as_array(cuda)
+    call = dict(scale=d ** -0.5, causal=causal, window=None, q_offset=0,
+                block_q=tile, block_k=tile)
+    return gen, (q, k, v, kvm, layout), call
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("blk", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+def test_blocksparse_kernels_match_plain(cuda, dtype, blk, causal, masked):
+    """#1, #2 and #3 at a butterfly layout of 64-row blocks and of 128-row
+    blocks refined into 64-row tiles, causal (a FULL block above the
+    diagonal runs unmasked) and not, with a kv_mask (PARTIAL_DATA tiles)
+    and without; two backward calls bit-identical."""
+    gen, args, call = _sparse_case(cuda, dtype, blk, causal, masked)
+    layout = args[4]
+    assert bool((layout == M.BLOCK_SKIP).any())
+    if masked:
+        assert bool((layout == M.BLOCK_PARTIAL_DATA).any())
+    n0 = dict(fa.LAUNCHES)
+    out = fa.flash_attention_forward(*args, **call)
+    torch.cuda.synchronize()
+    _check(out, fa.flash_attention_forward_plain(*args, **call), dtype)
+    do = torch.randn(args[0].shape, generator=gen).to(cuda, dtype)
+    res = (*args[:3], out[0], do, out[1], out[2], *args[3:])
+    got = fa.flash_attention_backward(*res, **call)
+    torch.cuda.synchronize()
+    _check_grads(got, fa.flash_attention_backward_plain(*res, **call), dtype)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.LAUNCHES[name] == n0[name] + 1, name
+    again = fa.flash_attention_backward(*res, **call)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_blocksparse_op_on_card_matches_cpu(cuda):
+    """``ops.flash_attention(block_layout=...)`` with autograd at a causal
+    butterfly pattern of 128-row blocks with a kv_mask, sq 510 (4 blocks
+    of ceil(510 / 4) = 128 rows, padded to 512), on the card against the
+    CPU (fp32)."""
+    gen = torch.Generator().manual_seed(11)
+    s = 510
+    q = torch.randn(1, 4, s, 64, generator=gen)
+    k = torch.randn(1, 2, s, 64, generator=gen)
+    v = torch.randn(1, 2, s, 64, generator=gen)
+    do = torch.randn(1, 4, s, 64, generator=gen)
+    kvm = torch.rand(1, s, generator=gen) > 0.25
+    layout = M.butterfly_block_layout(s, s, 128, 128, causal=True)
+    outs = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        o = ops.flash_attention(*leaves, causal=True, block_layout=layout,
+                                kv_mask=kvm.to(dev))
+        outs[str(dev)] = [o] + list(torch.autograd.grad(o, leaves, do.to(dev)))
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        assert err <= 1e-4, err
+
+
+def test_blocksparse_refuses_other_blocks_on_card(cuda):
+    """A pattern whose block (96 rows) is neither at most the kernels' 64-row
+    tile nor a multiple of it raises before any launch on the card."""
+    x = torch.randn(1, 2, 192, 64, device=cuda)
+    n0 = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError, match="neither at most 64 nor a multiple"):
+        ops.flash_attention(x, x, x, causal=True,
+                            block_layout=torch.ones((2, 2), dtype=torch.uint8))
+    assert dict(fa.LAUNCHES) == n0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_kernels_match_plain(cuda, dtype):
+    """#1 + backward at cross-attention's shapes: decoder queries (sq 96)
+    against encoder keys (sk 200, a padding tail), non-causal, no RoPE,
+    MHA, through ``ops.flash_attention`` on the card against the CPU in
+    fp32, and the kernels against their plain versions in bf16."""
+    gen = torch.Generator().manual_seed(12)
+    q = torch.randn(2, 4, 96, 64, generator=gen)
+    k = torch.randn(2, 4, 200, 64, generator=gen)
+    v = torch.randn(2, 4, 200, 64, generator=gen)
+    do = torch.randn(2, 4, 96, 64, generator=gen)
+    if dtype == torch.float32:
+        outs = {}
+        for dev in ("cpu", cuda):
+            leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+            o = ops.flash_attention(*leaves, causal=False)
+            outs[str(dev)] = [o] + list(torch.autograd.grad(o, leaves,
+                                                            do.to(dev)))
+        for got, want in zip(outs["cuda"], outs["cpu"]):
+            err = float((got.cpu() - want).abs().max() / want.abs().max())
+            assert err <= 1e-4, err
+        return
+    q, k, v, do = (t.to(cuda, dtype) for t in (q, k, v, do))
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 56))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 56))
+    spec = M.MaskSpec(causal=False, kv_valid_len=200)
+    layout = M.compile_block_layout(spec, 96, 256, 32, 64).as_array(cuda)
+    call = dict(scale=0.125, causal=False, window=None, q_offset=0,
+                kv_valid_len=200, block_q=32, block_k=64)
+    args = (q, kp, vp, None, layout)
+    out = fa.flash_attention_forward(*args, **call)
+    _check(out, fa.flash_attention_forward_plain(*args, **call), dtype)
+    res = (q, kp, vp, out[0], do, out[1], out[2], None, layout)
+    _check_grads(fa.flash_attention_backward(*res, **call),
+                 fa.flash_attention_backward_plain(*res, **call), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("enc_len", [100, 128, 1000])
+def test_decode_over_padded_cross_cache_matches_plain(cuda, dtype, enc_len):
+    """#7 over a cross-attention cache padded to the decode tile
+    (``transformer.cross_capacity``) with kv_len = enc_len: the padded
+    rows (filled with garbage here) never count, against the plain decode
+    over the unpadded rows."""
+    from repro_torch.core.attention import AttentionSpec, decode_attention
+    from repro_torch.models.transformer import cross_capacity
+
+    gen = torch.Generator().manual_seed(enc_len)
+    cap = cross_capacity(enc_len)
+    assert cap % tuning.DECODE_TILE == 0 and cap - enc_len < 64
+    q = torch.randn(3, 16, 1, 64, generator=gen).to(cuda, dtype)
+    k = torch.randn(3, 16, cap, 64, generator=gen).to(cuda, dtype)
+    v = torch.randn(3, 16, cap, 64, generator=gen).to(cuda, dtype)
+    kv_len = torch.full((3,), enc_len, dtype=torch.int32, device=cuda)
+    n0 = fd.LAUNCHES["flash_decode"]
+    got = decode_attention(q, k, v, kv_len,
+                           AttentionSpec(use_decode_kernel=True))
+    torch.cuda.synchronize()
+    assert fd.LAUNCHES["flash_decode"] == n0 + 1
+    want = decode_attention(q, k[:, :, :enc_len], v[:, :, :enc_len], kv_len,
+                            AttentionSpec())
+    atol, _ = _tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def test_encdec_on_card_matches_cpu(cuda):
+    """Reduced seamless-m4t-medium (float32, head_dim 64): prefill of 40
+    audio frames and a 9-token prompt, then 6 greedy decode steps, on the
+    card gives the CPU's tokens through #1 (encoder non-causal,
+    cross-attention sq != sk) and #7 (self- and cross-attention decode);
+    two AdamW steps on the card give the CPU's losses within 1e-4
+    relative through #1, #2 and #3."""
+    import dataclasses
+
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.train import make_train_step
+
+    cfg = reduced_config("seamless-m4t-medium", head_dim=64,
+                         attn_impl="pallas", use_decode_kernel=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    frames = torch.randn(2, 40, cfg.frontend_dim, generator=gen)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 9), generator=gen)
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        n0 = {**fa.LAUNCHES, **fd.LAUNCHES}
+        p = params_to(params, dev)
+        state, lg = model.prefill(p, {"frames": frames.to(dev),
+                                      "tokens": prompt.to(dev)}, 16)
+        out = []
+        for _ in range(6):
+            tok = lg[:, -1].argmax(-1)
+            out.append(tok.tolist())
+            state, lg = model.decode_step(p, state, tok)
+        tokens[dev] = out
+    assert tokens["cpu"] == tokens["cuda"]
+    assert fa.LAUNCHES["flash_fwd"] > n0["flash_fwd"]
+    assert fd.LAUNCHES["flash_decode"] >= n0["flash_decode"] + 6 * 2 * 2
+
+    model = build_model(dataclasses.replace(cfg, remat=True))
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        opt = adamw(warmup_cosine(1e-3, 2, 10))
+        p = params_to(params, dev)
+        state = opt.init(p)
+        step = make_train_step(model, opt, deterministic=True)
+        n0 = dict(fa.LAUNCHES)
+        losses[dev] = []
+        for s in range(2):
+            g = torch.Generator().manual_seed(20 + s)
+            batch = {"frames": torch.randn(2, 80, cfg.frontend_dim,
+                                           generator=g),
+                     "tokens": torch.randint(0, cfg.vocab_size, (2, 48),
+                                             generator=g)}
+            p, state, metrics = step(p, state, batch)
+            losses[dev].append(float(metrics["loss"]))
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.LAUNCHES[name] > n0[name], name
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(a - b) <= 1e-4 * abs(b), (losses["cuda"], losses["cpu"])
