@@ -5,8 +5,8 @@
     python3 chip_smoke.py --ab PARENT_CHECKOUT    # A/B against another checkout
 
 Imports nothing of JAX or of the JAX package; needs one CUDA card and the
-repository checkout beside it (``src/repro_torch``). Twenty main paths
-run, through the hand-written kernels where they have attention: four
+repository checkout beside it (``src/repro_torch``). Twenty-two main
+paths run, through the hand-written kernels where they have attention: four
 block-sparse attentions (paper Alg. 5) as a user calls them (phase 2f), the
 trainable paged prefill (phase 2c),
 paged serving (phases 3-4), dense-slot serving (phases 4b-4c) and training
@@ -16,20 +16,23 @@ qwen3-32b (phase 9), the mixture-of-experts family: paged serving of
 olmoe-1b-7b (phase 10) and of phi3.5-moe-42b-a6.6b (phase 11) and
 training of olmoe-1b-7b (phase 12), and the state-space and hybrid
 families: dense-slot serving and training of mamba2-2.7b (phase 13, no
-attention kernel) and of hymba-1.5b (phase 14), and the encoder-decoder:
-model-level serving and training of seamless-m4t-medium (phase 15).
+attention kernel) and of hymba-1.5b (phase 14), the encoder-decoder:
+model-level serving and training of seamless-m4t-medium (phase 15), and
+the vision-language decoder: model-level serving and training of
+phi-3-vision-4.2b at head_dim 96 (phase 16).
 Phases:
 
 1. print the card's name and power limit (nvidia-smi), then build every
    CUDA kernel of both paths from ``src/repro_torch/kernels/csrc`` (one
-   nvcc per source, the three libraries started together), and count the
-   tensor-core instructions (``HMMA``, ``cuobjdump -sass`` of the built
-   library) in every bf16 ``flash_fwd_kernel`` instantiation, and, from
-   ``-Xptxas -v`` compiles of ``flash_bwd.cu`` and ``flash_decode.cu``
-   started beside the build, in every bf16 ``flash_bwd_dq_kernel`` /
-   ``flash_bwd_dkv_kernel`` (paged, contiguous, contiguous with dropout)
-   with its registers and spills: each must have some (no bf16 forward
-   and no bf16 backward runs the scalar body), and no bf16 backward may
+   nvcc per source, the three libraries started together), and, from
+   ``-Xptxas -v`` compiles of ``flash_fwd.cu``, ``flash_bwd.cu`` and
+   ``flash_decode.cu`` started beside the build, count the tensor-core
+   instructions (``HMMA``, ``cuobjdump -sass``) with the registers and
+   spills of every bf16 ``flash_fwd_kernel`` (paged; contiguous, with and
+   without dropout; both variants) and ``flash_bwd_dq_kernel`` /
+   ``flash_bwd_dkv_kernel`` (paged, contiguous, contiguous with dropout),
+   at every head dim (16, 32, 64, 96, 128): each must have some (no bf16
+   forward and no bf16 backward runs the scalar body), and none may
    spill; then every ``flash_decode_kernel`` instantiation's registers,
    shared memory (static, and the dynamic size and ring stages its
    launcher gives it), spills and HMMA: none may spill, and every bf16 one
@@ -113,6 +116,10 @@ Phases:
    encoder, the cross-attention) and causal (the decoder); #1 at
    serve-seamless's cross-attention prefill (64 rows against 1024); #7
    over its 1024-row cross cache and its 128-row self cache;
+2h. the kernels at phi-3-vision-4.2b's shapes (32 heads of 96): #1, #2
+   and #3 at train-phi3v's (4, 32, 2048, 96) causal layer; #1 at
+   serve-phi3v's (4, 32, 640, 96) causal prefill; #7 for 4 lanes over its
+   672-row cache;
 2e. the MoE layer: one layer at olmoe-1b-7b's width (64 experts of d_ff
    1024, top-8, d 2048), bf16, forward + backward over 4 rows of 2048
    tokens: two calls bit-identical, a third under
@@ -235,7 +242,21 @@ Phases:
    time, decode step p50, peak memory and a profiled pass; then trained
    6 steps (AdamW, warmup_cosine(1e-3, 2, 6)) on 4 rows of 1024 frames +
    1024 tokens through ``make_train_step`` and the ``Trainer``, with the
-   checks, numbers and profile of phase 6 and a falling loss.
+   checks, numbers and profile of phase 6 and a falling loss;
+16. phi3v parity, serve-phi3v, train-phi3v: phi-3-vision-4.2b at full
+   width, 2 layers, float32, on ``cuda`` and on ``cpu``: the loss of one
+   batch of 576 patches + 64 tokens within 1e-4 relative, every layer-0
+   gradient and ``frontend_proj``'s within 1e-4 scaled, greedy tokens of
+   a prefill + 8 decode steps identical (a divergence only at a
+   near-tie); then the published model (32 layers, bf16) through the
+   model-level loop: 4 sequences of 576 patches and a 64-token prompt, 32
+   greedy decode steps, flash_fwd and flash_decode only, every logit
+   within ``PHI3V_LOGIT_SPACINGS`` bf16 spacings of the plain path's and
+   each token within twice that of the plain maximum; then trained 6
+   steps (AdamW) on 4 rows of 576 patches + 1472 tokens at full depth,
+   with a falling loss. The paged serve of phase 4 (and those of phases
+   9-11) print the engine's IO ledger: predicted HBM bytes, wall time and
+   implied GB/s per step kind, against the card's 3.35 TB/s.
 
 ``--ab PARENT_CHECKOUT`` runs only an A/B against another checkout (e.g.
 ``git archive`` of the parent commit): first both checkouts' kernel
@@ -277,10 +298,21 @@ import sys
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
-FP32_FLOPS_PER_S = 67e12           # fp32 outside the tensor cores
+# H100 SXM rates (NVIDIA data sheet), set from repro_torch.core.io_model
+# once the package is on the path (``use_io_model``): HBM bytes/s, dense
+# bf16 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = BF16_FLOPS_PER_S = FP32_FLOPS_PER_S = None
 L2_BYTES = 50e6
+
+
+def use_io_model() -> None:
+    """The card's rates from the port's IO model: one source for every
+    bound this script and the serving engine's IO ledger compute."""
+    global HBM_BYTES_PER_S, BF16_FLOPS_PER_S, FP32_FLOPS_PER_S
+    from repro_torch.core import io_model
+    HBM_BYTES_PER_S = io_model.H100_HBM_BW
+    BF16_FLOPS_PER_S = io_model.H100_BF16_FLOPS
+    FP32_FLOPS_PER_S = io_model.H100_FP32_FLOPS
 
 
 class SmokeFailure(Exception):
@@ -337,7 +369,6 @@ def device_ms(torch, fns, warmup=3, iters=20) -> float:
     a window is kept only if it counts each of its kernels a multiple of
     ``iters`` times; any other is profiled again after a pause, up to ten
     windows in all."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(warmup):
         fns[i % len(fns)]()
@@ -352,8 +383,7 @@ def device_ms(torch, fns, warmup=3, iters=20) -> float:
             for i in range(iters):
                 fns[i % len(fns)]()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
+        kernels = device_kernels(prof)
         us = sum(_device_us(e) for e in kernels)
         if us > 0 and all(e.count % iters == 0 for e in kernels):
             return us / 1e3 / iters
@@ -1882,6 +1912,7 @@ def serve_phase(torch, seed: int, card: str, arch: str = "granite-3-2b",
     for name in SERVE_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was never launched in the {tag} phase")
+    ledger = ledger_record(eng, tag, card)
     profile = profile_serve(torch, model, params, prompts, kw)
     rec = {"model": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
            "requests": len(done), "lanes": 4, "new_tokens": n_tok,
@@ -1891,7 +1922,7 @@ def serve_phase(torch, seed: int, card: str, arch: str = "granite-3-2b",
            "peak_memory_bytes": peak, "prefix_hits": eng.prefix_hits,
            "prefill_calls": eng.prefill_calls,
            "decode_calls": eng.decode_calls, "profile": profile,
-           "card": card}
+           "ledger": ledger, "card": card}
     print(f"[{tag}] {n_tok} tokens in {wall:.2f}s: {n_tok / wall:.1f} tok/s, "
           f"TTFT p50 {lat['ttft_p50'] * 1e3:.1f} ms, peak memory "
           f"{peak / 2**30:.2f} GiB, prefix hits {eng.prefix_hits}, "
@@ -1900,6 +1931,28 @@ def serve_phase(torch, seed: int, card: str, arch: str = "granite-3-2b",
         rec["calls"] = capture_calls(torch, lambda: _serve(
             ServingEngine(model, params, **kw), prompts, 32, prime=False))
     return rec, launches
+
+
+def ledger_record(eng, tag: str, card: str) -> dict:
+    """The engine's IO ledger after a serve (``engine.tm.ledger``): per
+    step kind, the steps, the predicted HBM bytes (``io_model``, at the
+    forward kernel's tiles), the wall time of the steps (host clock, each
+    ending at the sampled tokens' read-back) and the implied GB/s, with
+    its share of the card's 3.35 TB/s. Printed as the ledger's table."""
+    summary = eng.tm.ledger.summary()
+    for kind, c in summary.items():
+        c["share_of_hbm_bw"] = (c["implied_gb_per_s"] * 1e9 / HBM_BYTES_PER_S
+                                if kind != "prefix_saved" else None)
+    print(f"[{tag}] IO ledger (predicted HBM bytes against the steps' wall "
+          f"time; the card's HBM moves {HBM_BYTES_PER_S / 1e9:.0f} GB/s) "
+          f"[{card}]:", flush=True)
+    for line in eng.tm.ledger.table().splitlines():
+        print(f"[{tag}]   {line}", flush=True)
+    print(f"[{tag}] implied share of the HBM rate by step kind: "
+          + ", ".join(f"{k} {c['share_of_hbm_bw']:.2%}"
+                      for k, c in summary.items()
+                      if c["share_of_hbm_bw"] is not None), flush=True)
+    return summary
 
 
 # the serving kernels' wrappers as the engine calls them, each with the
@@ -2023,6 +2076,7 @@ import json, sys
 sys.path[:0] = [{src!r}, {here!r}]
 import torch
 import chip_smoke as cs
+cs.use_io_model()
 saved = torch.load({path!r}, map_location="cuda", weights_only=False)
 
 
@@ -2075,8 +2129,7 @@ def serve_shape_records_apart(torch, seed: int, paths: dict) -> dict:
 
 
 def _device_us(e) -> float:
-    return getattr(e, "self_device_time_total", None) or \
-        getattr(e, "self_cuda_time_total", 0.0)
+    return e.self_device_time_total
 
 
 # the layer functions whose calls ``layer_ranges`` marks, by range name
@@ -2118,24 +2171,76 @@ def layer_ranges(torch, name: str | None):
             setattr(mod, fn, f)
 
 
-def device_kernels(prof) -> list:
-    """The device kernels of a profile by name, without the profiler's
-    device-side copies of ``layer_ranges``' ranges."""
+@dataclasses.dataclass
+class DeviceKernel:
+    """One device kernel of a profile: its name, launches and device µs."""
+    key: str
+    count: int = 0
+    self_device_time_total: float = 0.0
+
+
+def _raw_events(prof) -> list:
+    """The profile's raw events (``_KinetoEvent``s: name, device type,
+    start and end in ns, correlation id, thread). Read these, not
+    ``prof.events()``: building that event tree took ~40 s of a profiled
+    serve's post-processing on the card (serve-mamba2), and
+    ``key_averages()`` over it another ~20-40 s."""
+    return prof.profiler.kineto_results.events()
+
+
+def _is_kernel(e) -> bool:
+    """A device event that is work (a kernel, a copy, a memset), not a
+    device-side copy of a host range."""
     from torch.autograd import DeviceType
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in RANGED]
+    return (e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+            and not e.is_hidden_event() and e.name() not in RANGED)
+
+
+def device_kernels(prof) -> list[DeviceKernel]:
+    """The device kernels of a profile by name (launches, device µs), as
+    ``key_averages()`` sums them, without the profiler's device-side
+    copies of ``layer_ranges``' ranges."""
+    out: dict[str, DeviceKernel] = {}
+    for e in _raw_events(prof):
+        if _is_kernel(e):
+            k = out.setdefault(e.name(), DeviceKernel(e.name()))
+            k.count += 1
+            k.self_device_time_total += (e.end_ns() - e.start_ns()) / 1e3
+    return list(out.values())
 
 
 def range_share(prof, busy_us: float, name: str) -> dict:
     """Device time of the kernels launched inside ``layer_ranges``' ranges
     ``name`` (the layer forwards, with remat their recomputation too; a
     backward's kernels are launched outside them), and its share of the
-    device's busy time."""
+    device's busy time. A kernel belongs to the host op that launched it
+    (the op whose id is its linked correlation id, as the profiler links
+    them) and so to a range ``name`` that spans that op on its thread."""
+    import bisect
+
     from torch.autograd import DeviceType
-    us = sum(getattr(e, "device_time_total", None) or
-             getattr(e, "cuda_time_total", 0.0)
-             for e in prof.events()
-             if e.name == name and e.device_type == DeviceType.CPU)
+    events = _raw_events(prof)
+    spans: dict[int, list] = {}
+    ops = {}
+    for e in events:
+        if e.device_type() != DeviceType.CPU or e.linked_correlation_id():
+            continue
+        if e.name() == name:
+            spans.setdefault(e.start_thread_id(), []).append(
+                (e.start_ns(), e.end_ns()))
+        ops[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+    for v in spans.values():
+        v.sort()
+    starts = {t: [a for a, _ in v] for t, v in spans.items()}
+    ns = 0
+    for e in events:
+        op = ops.get(e.linked_correlation_id()) if _is_kernel(e) else None
+        if op is None or op[0] not in spans:
+            continue
+        i = bisect.bisect_right(starts[op[0]], op[1]) - 1
+        if i >= 0 and op[1] <= spans[op[0]][i][1]:
+            ns += e.end_ns() - e.start_ns()
+    us = ns / 1e3
     return {f"{name}_device_s": us / 1e6,
             f"{name}_share_of_busy": us / busy_us if us > 0 else None}
 
@@ -2174,10 +2279,11 @@ def profile_serve(torch, model, params, prompts, kw) -> dict:
         return {"busy_share": None}
     # flash_fwd_kernel<T, D, Paged, Dropout, Paper> and
     # flash_decode_kernel<T, D, Paged>: Paged tells them apart
-    ported = {"flash_fwd": r"flash_fwd_kernel<[^,>]+, \d+, false",
-              "flash_fwd_paged": r"flash_fwd_kernel<[^,>]+, \d+, true",
-              "flash_decode_paged": r"flash_decode_kernel<[^,>]+, \d+, true>",
-              "flash_decode": r"flash_decode_kernel<[^,>]+, \d+, false>"}
+    ported = {"flash_fwd": r"flash_fwd_kernel(?:_min)?<[^,>]+, \d+, false",
+              "flash_fwd_paged": r"flash_fwd_kernel(?:_min)?<[^,>]+, \d+, true",
+              "flash_decode_paged":
+                  r"flash_decode_kernel(?:_min)?<[^,>]+, \d+, true>",
+              "flash_decode": r"flash_decode_kernel(?:_min)?<[^,>]+, \d+, false>"}
     per_kernel = {}
     for name, pattern in ported.items():
         hits = [e for e in kernels if re.search(pattern, e.key)]
@@ -3092,16 +3198,17 @@ def _bf16_near_tie(top1: float, margin: float) -> bool:
                                                           2 ** -60))) - 7)
 
 
-def _greedy(torch, model, params, frames, prompt, cap, steps, forced=None):
-    """Prefill, then ``steps`` decode steps through the model-level loop,
+def _greedy(torch, model, params, front, prompt, cap, steps, forced=None):
+    """Prefill (``front``: the batch's frontend embeddings, ``{"frames":
+    ...}`` or ``{"patches": ...}``, and the prompt), then ``steps`` decode
+    steps through the model-level loop,
     each feeding the last token: the greedy one, or with ``forced`` (b,
     steps + 1 tokens) the forced one (teacher forcing). Returns (tokens
     (b, steps + 1) on the host, the float32 logits each token was read
     from, prefill seconds, per-step seconds)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, lg = model.prefill(params, {"frames": frames, "tokens": prompt},
-                              cap)
+    state, lg = model.prefill(params, {**front, "tokens": prompt}, cap)
     toks, logits, step_s = [], [], []
     prefill_s = None
     for i in range(steps + 1):
@@ -3120,10 +3227,12 @@ def _greedy(torch, model, params, frames, prompt, cap, steps, forced=None):
     return [list(r) for r in zip(*toks)], logits, prefill_s, step_s
 
 
-def _bf16_ties(tokens, logits) -> tuple[int, list]:
+def _bf16_ties(tokens, logits, tag: str, near_tie=_bf16_near_tie
+               ) -> tuple[int, list]:
     """``tokens`` (b, n) against the argmax of ``logits`` (n tensors of (b,
     V)), token by token: (how many are the argmax, the others with their
-    margin below the maximum, each a bf16 near-tie or the check fails)."""
+    margin below the maximum, each a near-tie, ``near_tie(top, margin)``,
+    or the check fails)."""
     same, ties = 0, []
     for i, lg in enumerate(logits):
         top = lg.max(dim=-1).values
@@ -3134,8 +3243,8 @@ def _bf16_ties(tokens, logits) -> tuple[int, list]:
             margin = float(top[r] - lg[r, row[i]])
             ties.append({"row": r, "token": i, "margin": margin,
                          "top": float(top[r])})
-            check(_bf16_near_tie(float(top[r]), margin),
-                  f"serve-seamless: row {r} token {i} is {margin:.3g} below "
+            check(near_tie(float(top[r]), margin),
+                  f"{tag}: row {r} token {i} is {margin:.3g} below "
                   f"the plain path's maximum {float(top[r]):.3g} (not a bf16 "
                   f"near-tie)")
     return same, ties
@@ -3150,46 +3259,66 @@ def seamless_serve_phase(torch, seed: int, card: str,
     audio frames and a 64-token prompt, one prefill (the encoder, #1
     non-causal; the decoder's self- and cross-attention, #1; the cross
     caches), then 32 greedy decode steps (self- and cross-attention
-    through #7). Launch counters reset just before and read just after:
-    flash_fwd and flash_decode > 0, every other kernel 0. Then the plain
-    path (the same weights with ``attn_impl="chunked"`` and the plain
-    decode: no kernel) reads the same tokens (teacher forcing): each
-    greedy token of the kernels must be the argmax of the plain path's
-    logits at its step, or tie with it in bf16 (``_bf16_near_tie``: random
-    weights give logits of ~0.25 over 256,206 words, where one bf16
-    spacing is 0.002 and exact ties are common), and every logit at every
-    step within ``SEAMLESS_LOGIT_ATOL`` of the plain path's. Prints
-    tokens/s, the prefill's time, decode step p50 and peak memory; then 8
-    decode steps once more under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
+    through #7), held to the plain path (``model_level_serve``) with every
+    logit within ``SEAMLESS_LOGIT_ATOL`` of the plain path's."""
     from repro_torch.configs import get_config
-    from repro_torch.models import build_model
 
     dev = torch.device("cuda")
     b, n_frames, n_prompt, steps, cap = SEAMLESS_SERVE
     cfg = dataclasses.replace(get_config(SEAMLESS), attn_impl="pallas",
                               use_decode_kernel=True)
-    model = build_model(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=dev).manual_seed(seed),
-                        device=dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 9)
     frames = torch.randn(b, n_frames, cfg.frontend_dim, generator=gen,
                          device=dev)
     prompt = torch.randint(1, cfg.vocab_size, (b, n_prompt), generator=gen,
                            device=dev)
+    rec, launches = model_level_serve(
+        torch, seed, card, tag, cfg, {"frames": frames}, prompt, cap, steps,
+        lambda top: SEAMLESS_LOGIT_ATOL,
+        f"{cfg.num_encoder_layers} + {cfg.num_layers}")
+    rec.update(frames=n_frames)
+    return rec, launches
+
+
+def model_level_serve(torch, seed, card, tag, cfg, front, prompt, cap, steps,
+                      logit_atol, layers: str, near_tie=None
+                      ) -> tuple[dict, dict]:
+    """``cfg`` (bf16, random weights drawn on the card from ``seed``) served
+    through the model-level loop (``_greedy``: a prefill of ``front`` and
+    ``prompt``, then ``steps`` greedy decode steps): the engine refuses a
+    model with frontend embeddings, as the reference's cannot serve it.
+    Launch counters reset just before and read just after: flash_fwd and
+    flash_decode > 0, every other kernel 0. Then the plain path (the same
+    weights with ``attn_impl="chunked"`` and the plain decode: no kernel)
+    reads the same tokens (teacher forcing): each greedy token of the
+    kernels must be the argmax of the plain path's logits at its step, or
+    tie with it (``near_tie(top, margin)``, by default ``_bf16_near_tie``:
+    random weights give flat logits, where exact ties are common), and
+    every logit at every step within ``atol = logit_atol(max |plain
+    logit|)`` of the plain path's (``near_tie`` may read ``atol``:
+    called as ``near_tie(top, margin, atol)`` when given). Prints
+    tokens/s, the prefill's time, decode step p50 and peak memory; then 8
+    decode steps once more under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    b, n_prompt = prompt.shape
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
     torch.cuda.synchronize()
-    print(f"[{tag}] {cfg.name}: {cfg.num_encoder_layers} + {cfg.num_layers} "
-          f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
-          f"{cfg.head_dim}, {cfg.dtype}, weights in "
+    print(f"[{tag}] {cfg.name}: {layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads of {cfg.head_dim}, {cfg.dtype}, weights in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
-    _greedy(torch, model, params, frames, prompt, cap, 2)   # warm-up
+    _greedy(torch, model, params, front, prompt, cap, 2)   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     t0 = time.perf_counter()
-    toks, klogits, prefill_s, step_s = _greedy(torch, model, params, frames,
+    toks, klogits, prefill_s, step_s = _greedy(torch, model, params, front,
                                                prompt, cap, steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3202,21 +3331,24 @@ def seamless_serve_phase(torch, seed: int, card: str,
     # choice must be the plain logits' argmax, or tie with it in bf16
     plain = build_model(dataclasses.replace(cfg, attn_impl="chunked",
                                             use_decode_kernel=False))
-    _, plogits, _, _ = _greedy(torch, plain, params, frames, prompt, cap,
+    _, plogits, _, _ = _greedy(torch, plain, params, front, prompt, cap,
                                steps, forced=toks)
-    same, ties = _bf16_ties(toks, plogits)
-    for t in ties:
-        print(f"[{tag}] row {t['row']} token {t['token']}: the plain path's "
-              f"logit of the kernels' token is {t['margin']:.3g} below its "
-              f"maximum {t['top']:.3g} (a bf16 near-tie)", flush=True)
     # the same tokens in, so every logit is held to the plain path's
     diffs = [float((a - p).abs().max()) for a, p in zip(klogits, plogits)]
     top = max(float(p.abs().max()) for p in plogits)
+    atol = logit_atol(top)
     print(f"[{tag}] max |logit - plain| at each of the {steps + 1} steps: "
           f"{', '.join(f'{x:.4g}' for x in diffs)} (max |plain logit| "
-          f"{top:.4g}; limit {SEAMLESS_LOGIT_ATOL})", flush=True)
-    check(max(diffs) <= SEAMLESS_LOGIT_ATOL,
-          f"{tag}: max |logit - plain| {max(diffs)} > {SEAMLESS_LOGIT_ATOL}")
+          f"{top:.4g}; limit {atol:.4g})", flush=True)
+    tie = (_bf16_near_tie if near_tie is None
+           else lambda t, m: near_tie(t, m, atol))
+    same, ties = _bf16_ties(toks, plogits, tag, tie)
+    for t in ties:
+        print(f"[{tag}] row {t['row']} token {t['token']}: the plain path's "
+              f"logit of the kernels' token is {t['margin']:.3g} below its "
+              f"maximum {t['top']:.3g} (a near-tie)", flush=True)
+    check(max(diffs) <= atol,
+          f"{tag}: max |logit - plain| {max(diffs)} > {atol}")
     n_tok = b * (steps + 1)
     step_p50 = sorted(step_s)[len(step_s) // 2]
     print(f"[{tag}] {n_tok} tokens ({b} sequences, the prefill's and {steps} "
@@ -3229,7 +3361,7 @@ def seamless_serve_phase(torch, seed: int, card: str,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        _greedy(torch, model, params, frames, prompt, cap, 8)
+        _greedy(torch, model, params, front, prompt, cap, 8)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t1) * 1e6
     kernels = device_kernels(prof)
@@ -3248,15 +3380,14 @@ def seamless_serve_phase(torch, seed: int, card: str,
     for t in profile_rec["top"]:
         print(f"[profile]   {t['device_ms']:9.2f} ms  x{t['count']:<6} "
               f"{t['kernel']}", flush=True)
-    rec = {"model": cfg.name, "layers": f"{cfg.num_encoder_layers} + "
-           f"{cfg.num_layers}", "dtype": cfg.dtype, "sequences": b,
-           "frames": n_frames, "prompt_tokens": n_prompt,
+    rec = {"model": cfg.name, "layers": layers, "dtype": cfg.dtype,
+           "sequences": b, "prompt_tokens": n_prompt,
            "decode_steps": steps, "new_tokens": n_tok, "wall_s": wall,
            "tokens_per_s": n_tok / wall, "prefill_s": prefill_s,
            "decode_step_p50_s": step_p50, "peak_memory_bytes": peak,
            "plain_argmax_tokens": same, "bf16_near_ties": ties,
            "max_abs_logit_diff_by_step": diffs,
-           "max_abs_plain_logit": top,
+           "max_abs_plain_logit": top, "logit_atol": atol,
            "profile": profile_rec,
            "card": card}
     return rec, launches
@@ -3303,6 +3434,226 @@ def seamless_train_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     return rec, launches
 
 
+PHI3V = "phi-3-vision-4.2b"
+# serve-phi3v: sequences, patch rows, prompt tokens, decode steps, cache
+# capacity (patches + prompt + steps)
+PHI3V_SERVE = (4, 576, 64, 32, 672)
+# serve-phi3v: max |logit - plain logit| at any step, both paths fed the
+# same tokens, in bf16 spacings at the largest |plain logit| (2**-5 at a
+# top of 5.0); the readings on an H100 were 0.090-0.112 a step, 2.9-3.6
+# spacings: 32 bf16 layers drift further than seamless's 12 + 12 (0.003 at
+# a top of 0.26: 1.5 spacings), while float32 parity is exact
+PHI3V_LOGIT_SPACINGS = 6
+# train-phi3v: batch, patch rows, tokens (patches + text = the reference's
+# seq_len, 2048), steps
+PHI3V_TRAIN = (4, 576, 1472, 6)
+
+
+def phi3v_kernel_phase(torch, seed: int) -> dict:
+    """The kernels at phi-3-vision-4.2b's shapes (32 heads of 96, MHA,
+    bf16): #1, #2 and #3 at train-phi3v's layer, (4, 32, 2048, 96) causal
+    over patches and text, through ``fwd_bwd_case``; #1 at serve-phi3v's
+    prefill, (4, 32, 640, 96) causal (576 patch rows and a 64-token
+    prompt); #7 at its decode, 4 lanes over the 672-row cache at its last
+    step. Returns {kernel: {path: entry}}."""
+    from repro_torch.core import masks as M
+    from repro_torch.kernels import tuning
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 60)
+    b, n_patch, n_prompt, steps, cap = PHI3V_SERVE
+    tb, t_patch, t_text, _ = PHI3V_TRAIN
+    h, d = 32, 96
+    train = shape_entries(fwd_bwd_case(torch, gen, tb, h, h, t_patch + t_text,
+                                       d, True, None))
+    release(torch)
+    for e in train.values():
+        e["shape"] = "train-phi3v " + e["shape"]
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    s = n_patch + n_prompt
+    layout = M.compile_block_layout(M.MaskSpec(causal=True), s, s, 64,
+                                    64).as_array(dev)
+    call = dict(scale=d ** -0.5, causal=True, window=None, q_offset=0,
+                block_q=64, block_k=64)
+    prefill = _without_launches({"f": packed_prefill_record(
+        torch, gen, (randn(b, h, s, d), randn(b, h, s, d), randn(b, h, s, d),
+                     None, layout), call,
+        f"serve-phi3v prefill b={b} hq={h} hkv={h} S={s} ({n_patch} patch "
+        f"rows + a {n_prompt}-token prompt) d={d}, causal")})["f"]
+    release(torch)
+    kv_len = torch.full((b,), cap, dtype=torch.int32, device=dev)
+    bk, splits = tuning.resolve_decode_geometry(cap, None, None)
+    lay = M.kv_block_layout(M.decode_kv_valid(kv_len, cap), bk)
+    dec = contiguous_decode_record_at(
+        torch, gen, (randn(b, h, 1, d), randn(b, h, cap, d),
+                     randn(b, h, cap, d), kv_len, lay),
+        dict(scale=d ** -0.5, block_k=bk, num_splits=splits, window=None,
+             kv_mask=None))
+    dec.pop("launches")
+    dec["shape"] = "serve-phi3v " + dec["shape"]
+    return {"flash_fwd": {"train_phi3v": train["flash_fwd"],
+                          "serve_phi3v": prefill},
+            "flash_bwd_dq": {"train_phi3v": train["flash_bwd_dq"]},
+            "flash_bwd_dkv": {"train_phi3v": train["flash_bwd_dkv"]},
+            "flash_decode": {"serve_phi3v": dec}}
+
+
+def phi3v_parity_phase(torch, seed: int, tag: str = "phi3v-parity") -> dict:
+    """phi-3-vision-4.2b at full width (d 3072, 32 heads of 96), 2 layers,
+    float32: the same weights (drawn on the card from ``seed``) on
+    ``cuda`` (kernels: #1-#3 at d 96, #7) and on ``cpu`` (plain versions).
+    The loss of one batch (2 x (576 patches + 64 tokens)) within 1e-4
+    relative and every layer-0 gradient and ``frontend_proj``'s within
+    1e-4 scaled by its max; then prefill (576 patches and a 24-token
+    prompt) and 8 greedy decode steps: tokens identical, a divergence
+    allowed only at a near-tie of the CPU's logits (top-2 margin < 1e-3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, params_to
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(PHI3V), num_layers=2,
+                              dtype="float32", attn_impl="pallas",
+                              use_decode_kernel=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(seed),
+                        device="cpu")
+    gen = torch.Generator().manual_seed(seed + 12)
+    n_patch = cfg.frontend_tokens
+    batch = {"patches": torch.randn(2, n_patch, cfg.frontend_dim,
+                                    generator=gen),
+             "tokens": torch.randint(1, cfg.vocab_size, (2, 64),
+                                     generator=gen)}
+    patches = torch.randn(2, n_patch, cfg.frontend_dim, generator=gen)
+    prompt = torch.randint(1, cfg.vocab_size, (2, 24), generator=gen)
+    out, launches = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        p = params_to(params, device)
+        loss, g = _grads(torch, model, p,
+                         {k: t.to(device) for k, t in batch.items()})
+        grads = {f"blocks/{k}/{n}": t.cpu()
+                 for k, v in g["blocks"][0].items() for n, t in v.items()}
+        grads["frontend_proj"] = g["frontend_proj"].cpu()
+        del g
+        reset_launches()
+        state, lg = model.prefill(p, {"patches": patches.to(device),
+                                      "tokens": prompt.to(device)},
+                                  n_patch + 64)
+        toks, logits = [], []
+        for _ in range(8):
+            logits.append(lg[:, -1].float().cpu())
+            toks.append(lg[:, -1].argmax(-1))
+            state, lg = model.decode_step(p, state, toks[-1])
+        launches[device] = read_launches()
+        out[device] = {"loss": loss, "grads": grads, "logits": logits,
+                       "tokens": torch.stack(toks, 1).cpu().tolist()}
+        del p, state
+        print(f"[{tag}] {cfg.name} 2 layers float32, {device}: loss {loss}, "
+              f"tokens {out[device]['tokens']} in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+    rel = abs(out["cuda"]["loss"] - out["cpu"]["loss"]) / abs(out["cpu"]["loss"])
+    gerr = {n: scaled_err(out["cuda"]["grads"][n], out["cpu"]["grads"][n])
+            for n in out["cpu"]["grads"]}
+    print(f"[{tag}] loss relative difference {rel:.3g}; largest layer-0 "
+          f"scaled grad difference {max(gerr.values()):.3g} "
+          f"({max(gerr, key=gerr.get)}); launches on the card "
+          f"{launches['cuda']}", flush=True)
+    check(rel <= 1e-4, f"{tag}: losses differ by {rel} > 1e-4")
+    check(max(gerr.values()) <= 1e-4,
+          f"{tag}: layer-0 grads differ by {gerr} > 1e-4")
+    check(all(float(out["cpu"]["grads"][n].abs().max()) > 0 for n in gerr),
+          f"{tag}: a layer-0 gradient is zero on the CPU")
+    check(launches["cuda"]["flash_fwd"] > 0
+          and launches["cuda"]["flash_decode"] > 0,
+          f"{tag}: launches on the card {launches['cuda']}")
+    diverged = []
+    for row, (got, ref) in enumerate(zip(out["cuda"]["tokens"],
+                                         out["cpu"]["tokens"])):
+        if got == ref:
+            continue
+        i = next(j for j, (a, c) in enumerate(zip(got, ref)) if a != c)
+        top2 = torch.topk(out["cpu"]["logits"][i][row], 2).values
+        margin = float(top2[0] - top2[1])
+        print(f"[{tag}] row {row} diverges at step {i}: cuda {got[i]} cpu "
+              f"{ref[i]}, top-2 logit margin {margin:.3g}", flush=True)
+        check(margin < 1e-3, f"{tag}: row {row} diverged at step {i} with "
+                             f"a top-2 margin {margin:.3g}")
+        diverged.append({"row": row, "step": i, "margin": margin})
+    print(f"[{tag}] greedy tokens identical: {not diverged}", flush=True)
+    return {"model": cfg.name, "layers": 2,
+            "loss_cuda": out["cuda"]["loss"], "loss_cpu": out["cpu"]["loss"],
+            "loss_rel_diff": rel, "grad_scaled_diff": gerr,
+            "identical": not diverged, "near_tie_divergences": diverged,
+            "launches_cuda": launches["cuda"]}
+
+
+def phi3v_serve_phase(torch, seed: int, card: str,
+                      tag: str = "serve-phi3v") -> tuple[dict, dict]:
+    """The published phi-3-vision-4.2b (32 layers, d 3072, 32 heads of 96,
+    bf16, 3.82 B parameters, random weights drawn on the card from
+    ``seed``) served through the model-level loop (the engine refuses the
+    family, as the reference's cannot serve it): 4 sequences of 576 patch
+    embeddings and a 64-token prompt, one prefill (#1 at d 96 over the
+    640-row stream), then 32 greedy decode steps (#7 at d 96), held to the
+    plain path (``model_level_serve``) with every logit within ``atol`` =
+    ``PHI3V_LOGIT_SPACINGS`` bf16 spacings at the largest |plain logit|,
+    and each greedy token's plain logit within 2 ``atol`` of the plain
+    maximum (what logits within ``atol`` of each other allow)."""
+    from repro_torch.configs import get_config
+
+    dev = torch.device("cuda")
+    b, n_patch, n_prompt, steps, cap = PHI3V_SERVE
+    cfg = dataclasses.replace(get_config(PHI3V), attn_impl="pallas",
+                              use_decode_kernel=True)
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    patches = torch.randn(b, n_patch, cfg.frontend_dim, generator=gen,
+                          device=dev)
+    prompt = torch.randint(1, cfg.vocab_size, (b, n_prompt), generator=gen,
+                           device=dev)
+    rec, launches = model_level_serve(
+        torch, seed, card, tag, cfg, {"patches": patches}, prompt, cap,
+        steps, lambda top: PHI3V_LOGIT_SPACINGS * 2.0 ** (
+            math.floor(math.log2(top)) - 7), str(cfg.num_layers),
+        near_tie=lambda top, margin, atol: margin <= 2 * atol)
+    rec.update(patches=n_patch)
+    return rec, launches
+
+
+def phi3v_train_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
+    """The published phi-3-vision-4.2b (bf16, remat, full depth) trained 6
+    steps through ``make_train_step`` and the ``Trainer`` with patches in
+    the batch (4 rows of 576 patch embeddings + 1472 ``SyntheticLM``
+    tokens: 2048 positions, the reference's seq_len), AdamW with
+    warmup_cosine(1e-3, 2, 6), clip 1.0 (``trainer_phase``; the train
+    launcher refuses the family). Every step takes the same batch, which
+    must be learnt: the losses must be finite and the last below the
+    first."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import adamw, warmup_cosine
+
+    b, n_patch, n_text, steps = PHI3V_TRAIN
+    cfg = dataclasses.replace(get_config(PHI3V), attn_impl="pallas")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 14)
+    text = SyntheticLM(cfg.vocab_size, n_text, b, seed=seed).batch_at(0)
+    batch = {"patches": torch.randn(b, n_patch, cfg.frontend_dim,
+                                    generator=gen, device="cuda"),
+             "tokens": text["tokens"], "loss_mask": text["loss_mask"]}
+    rec, launches = trainer_phase(
+        torch, seed, card, "train-phi3v", cfg, n_patch + n_text, b,
+        lambda: adamw(warmup_cosine(1e-3, 2, steps)),
+        "AdamW, warmup_cosine(1e-3, 2, 6), clip 1.0",
+        batch_at=lambda step: batch)
+    check(rec["losses"][-1] < rec["losses"][0],
+          f"train-phi3v: the loss did not fall ({rec['losses']})")
+    return rec, launches
+
+
 # ---------------------------------------------------------------------------
 # --ab: parent against change on the serving and training kernels, one call
 # ---------------------------------------------------------------------------
@@ -3312,6 +3663,7 @@ import json, sys
 sys.path[:0] = [{src!r}, {here!r}]
 import torch
 import chip_smoke as cs
+cs.HBM_BYTES_PER_S, cs.BF16_FLOPS_PER_S, cs.FP32_FLOPS_PER_S = {rates!r}
 from repro_torch.kernels import build
 build.build_all()
 bwd, fwd = cs.train_kernel_phase(torch, {seed})
@@ -3391,36 +3743,44 @@ def _sass(binary: pathlib.Path) -> dict[str, list[str]]:
     return body
 
 
-_FWD_BF16 = re.compile(r"flash_fwd_kernel<__nv_bfloat16, \(int\)(\d+), "
+_FWD_BF16 = re.compile(r"flash_fwd_kernel(?:_min)?<__nv_bfloat16, \(int\)(\d+), "
                        r"\(bool\)(\d), \(bool\)(\d), \(bool\)(\d)>")
 
 
-def hmma_counts(lib: pathlib.Path) -> dict[str, list[int]]:
-    """[HMMA, all] SASS instructions of each bf16 ``flash_fwd_kernel``
-    instantiation of the built forward library, keyed by head dim and
-    variant; every one must have tensor-core (``HMMA``) instructions, the
-    paged and the contiguous alike (no bf16 forward runs the scalar
-    body)."""
-    body = _sass(lib)
-    names = _demangle(sorted(body))
+def fwd_build_counts(proc, cubin: pathlib.Path) -> dict[str, dict]:
+    """Registers, spills and [HMMA, all] SASS instructions of every bf16
+    ``flash_fwd_kernel`` instantiation (each head dim: paged fa2 and
+    "paper", contiguous with and without dropout in both variants), from
+    a ``-Xptxas -v`` compile of ``flash_fwd.cu`` to a cubin (started beside
+    the build by ``_cubin``, with the build's flags): each must have
+    tensor-core (``HMMA``) instructions (no bf16 forward runs the scalar
+    body) and none may spill."""
+    from repro_torch.kernels.tuning import KERNEL_HEAD_DIMS
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"nvcc -Xptxas -v flash_fwd.cu failed:\n"
+                                f"{log[-3000:]}")
     counts = {}
-    for mangled, instrs in body.items():
-        m = _FWD_BF16.search(names.get(mangled, mangled))
+    for kern, info in _kernel_info(log, cubin).items():
+        m = _FWD_BF16.search(kern)
         if m:
             d, paged, drop, paper = m.groups()
             key = (f"d{d} {'paged' if paged == '1' else 'contiguous'}"
                    f"{' dropout' if drop == '1' else ''}"
                    f"{' paper' if paper == '1' else ''}")
-            counts[key] = [sum(bool(re.match(r"(@!?U?P\w+ )?HMMA\.", i))
-                               for i in instrs), len(instrs)]
-    print(f"[build] [HMMA, all] SASS instructions per bf16 flash_fwd_kernel: "
-          f"{json.dumps(counts)}", flush=True)
-    check(any(k.split()[1] == "paged" for k in counts)
-          and any(k.split()[1] == "contiguous" for k in counts),
-          f"the built forward lacks a paged or a contiguous bf16 kernel: "
-          f"{sorted(counts)}")
-    check(all(n > 0 for n, _ in counts.values()),
+            counts[key] = {
+                "hmma": sum(bool(re.match(r"(@!?U?P\w+ )?HMMA\.", i))
+                            for i in info["sass"]),
+                "instructions": len(info["sass"]),
+                "registers": info.get("registers"), "spill": info.get("spill")}
+    print(f"[build] bf16 flash_fwd kernels (HMMA, SASS instructions, "
+          f"registers, spill bytes): {json.dumps(counts)}", flush=True)
+    # per head dim: paged x 2 variants, contiguous x 2 variants x dropout
+    check(len(counts) == 6 * len(KERNEL_HEAD_DIMS),
+          f"the built forward lacks a bf16 kernel: {sorted(counts)}")
+    check(all(c["hmma"] > 0 for c in counts.values()),
           f"a bf16 flash_fwd_kernel has no HMMA (scalar body): {counts}")
+    check(all(c["spill"] == 0 for c in counts.values()),
+          f"a bf16 flash_fwd_kernel spills: {counts}")
     return counts
 
 
@@ -3435,6 +3795,7 @@ def bwd_build_counts(proc, cubin: pathlib.Path) -> dict[str, dict]:
     of ``flash_bwd.cu`` to a cubin (started beside the build by
     ``_cubin``): each must have tensor-core (``HMMA``) instructions (no
     bf16 backward runs the scalar body) and none may spill."""
+    from repro_torch.kernels.tuning import KERNEL_HEAD_DIMS
     log, _ = proc.communicate()
     check(proc.returncode == 0, f"nvcc -Xptxas -v flash_bwd.cu failed:\n"
                                 f"{log[-3000:]}")
@@ -3452,9 +3813,9 @@ def bwd_build_counts(proc, cubin: pathlib.Path) -> dict[str, dict]:
                 "registers": info.get("registers"), "spill": info.get("spill")}
     print(f"[build] bf16 flash_bwd kernels (HMMA, SASS instructions, "
           f"registers, spill bytes): {json.dumps(counts)}", flush=True)
-    # 2 kernels x 4 head dims x (paged, contiguous, contiguous dropout)
-    check(len(counts) == 24, f"the built backward lacks a bf16 kernel: "
-                             f"{sorted(counts)}")
+    # 2 kernels x each head dim x (paged, contiguous, contiguous dropout)
+    check(len(counts) == 2 * 3 * len(KERNEL_HEAD_DIMS),
+          f"the built backward lacks a bf16 kernel: {sorted(counts)}")
     check(all(c["hmma"] > 0 for c in counts.values()),
           f"a bf16 flash_bwd kernel has no HMMA (scalar body): {counts}")
     check(all(c["spill"] == 0 for c in counts.values()),
@@ -3462,7 +3823,8 @@ def bwd_build_counts(proc, cubin: pathlib.Path) -> dict[str, dict]:
     return counts
 
 
-_DECODE = re.compile(r"flash_decode_kernel<(float|__nv_bfloat16), \(int\)(\d+), "
+_DECODE = re.compile(r"flash_decode_kernel(?:_min)?<(float|__nv_bfloat16), "
+                     r"\(int\)(\d+), "
                      r"\(bool\)(\d)>")
 
 
@@ -3475,6 +3837,7 @@ def decode_build_counts(torch, proc, cubin: pathlib.Path) -> dict[str, dict]:
     launcher gives each (``flash_decode.smem_bytes``); none may spill,
     and every bf16 one must have HMMA (its tensor-core body)."""
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.tuning import KERNEL_HEAD_DIMS
     log, _ = proc.communicate()
     check(proc.returncode == 0, f"nvcc -Xptxas -v flash_decode.cu failed:\n"
                                 f"{log[-3000:]}")
@@ -3497,9 +3860,9 @@ def decode_build_counts(torch, proc, cubin: pathlib.Path) -> dict[str, dict]:
     print(f"[build] flash_decode_kernel instantiations (registers, spill "
           f"bytes, static and dynamic shared memory, ring stages, HMMA): "
           f"{json.dumps(counts)}", flush=True)
-    # 2 dtypes x 4 head dims x (paged, contiguous)
-    check(len(counts) == 16, f"the built decode lacks an instantiation: "
-                             f"{sorted(counts)}")
+    # 2 dtypes x each head dim x (paged, contiguous)
+    check(len(counts) == 2 * 2 * len(KERNEL_HEAD_DIMS),
+          f"the built decode lacks an instantiation: {sorted(counts)}")
     check(all(c["spill"] == 0 for c in counts.values()),
           f"a flash_decode_kernel spills: {counts}")
     check(all(c["hmma"] > 0 for k, c in counts.items() if k.startswith("bf16")),
@@ -3586,7 +3949,9 @@ def ab_main(parent: pathlib.Path, seed: int) -> int:
     runs = {"parent": [], "change": []}
     for tag in ("parent", "change", "change", "parent"):
         root = parent if tag == "parent" else ROOT
-        code = _AB_RUN.format(src=str(root / "src"), here=str(ROOT), seed=seed)
+        code = _AB_RUN.format(src=str(root / "src"), here=str(ROOT), seed=seed,
+                              rates=(HBM_BYTES_PER_S, BF16_FLOPS_PER_S,
+                                     FP32_FLOPS_PER_S))
         out = subprocess.run([sys.executable, "-c", code], cwd=root,
                              capture_output=True, text=True, timeout=900)
         line = [x for x in out.stdout.splitlines() if x.startswith("AB ")]
@@ -3616,6 +3981,7 @@ def main() -> int:
               "from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    use_io_model()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3634,7 +4000,7 @@ def main() -> int:
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     cubins = {name: out_dir / f"{name}_ptxas.cubin"
-              for name in ("flash_bwd", "flash_decode")}
+              for name in ("flash_fwd", "flash_bwd", "flash_decode")}
     procs = {name: _cubin(ROOT, name, cub)          # beside the build
              for name, cub in cubins.items()}
     try:
@@ -3647,7 +4013,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"[build] {len(build.SOURCES)} kernel libraries in {build_s:.1f}s",
           flush=True)
-    hmma = hmma_counts(libs["flash_fwd"])
+    hmma = fwd_build_counts(procs["flash_fwd"], cubins["flash_fwd"])
     hmma_bwd = bwd_build_counts(procs["flash_bwd"], cubins["flash_bwd"])
     decode_build = decode_build_counts(torch, procs["flash_decode"],
                                        cubins["flash_decode"])
@@ -3675,6 +4041,9 @@ def main() -> int:
         for name, entries in extra.items():
             at_shapes.setdefault(name, {}).update(entries)
     lap("seamless_kernels")
+    for name, entries in phi3v_kernel_phase(torch, args.seed).items():
+        at_shapes.setdefault(name, {}).update(entries)
+    lap("phi3v_kernels")
     moe_layer = moe_layer_phase(torch, args.seed, card)
     lap("moe_layer")
     ssm_layer = ssm_layer_phase(torch, args.seed, card)
@@ -3760,6 +4129,14 @@ def main() -> int:
     train_seamless, paths["train_seamless"] = seamless_train_phase(
         torch, args.seed, card)
     lap("train_seamless")
+    phi3v_parity = phi3v_parity_phase(torch, args.seed)
+    lap("phi3v_parity")
+    serve_phi3v, paths["serve_phi3v"] = phi3v_serve_phase(torch, args.seed,
+                                                          card)
+    lap("serve_phi3v")
+    train_phi3v, paths["train_phi3v"] = phi3v_train_phase(torch, args.seed,
+                                                          card)
+    lap("train_phi3v")
     serves = {"serve_qwen3": serve_qwen3, "serve_olmoe": serve_olmoe,
               "serve_phi35moe": serve_phi35moe, "serve_hymba": serve_hymba}
     held = serve_shape_records_apart(torch, args.seed, {
@@ -3804,7 +4181,9 @@ def main() -> int:
               "blocksparse": {p: at_shapes["flash_fwd"][p] for p in BLOCKSPARSE},
               "seamless_parity": seamless_parity,
               "serve_seamless": serve_seamless,
-              "train_seamless": train_seamless, "phase_end_s": laps,
+              "train_seamless": train_seamless,
+              "phi3v_parity": phi3v_parity, "serve_phi3v": serve_phi3v,
+              "train_phi3v": train_phi3v, "phase_end_s": laps,
               "total_s": time.perf_counter() - t_start}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(f"[done] total {record['total_s']:.1f}s", flush=True)

@@ -3,7 +3,8 @@ package (``olmo-1b``, ``internlm2-20b``, ``granite-3-2b``, ``qwen3-32b``),
 its mixture-of-experts decoders (``olmoe-1b-7b``,
 ``phi3.5-moe-42b-a6.6b``), its state-space and hybrid decoders
 (``mamba2-2.7b``, ``hymba-1.5b``), its encoder-decoder
-(``seamless-m4t-medium``) and the paper's own models (``gpt2-small``,
+(``seamless-m4t-medium``), its vision-language decoder
+(``phi-3-vision-4.2b``) and the paper's own models (``gpt2-small``,
 ``gpt2-medium``, ``bert-large``). ``get_config(name)`` / ``reduced_config(name)`` mirror
 ``repro.configs``."""
 
@@ -21,12 +22,14 @@ from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe
 from repro_torch.configs.paper_models import (BERT_LARGE, GPT2_MEDIUM,
                                               GPT2_SMALL)
 from repro_torch.configs.phi3_5_moe_42b import CONFIG as _phi35moe
+from repro_torch.configs.phi_3_vision_4_2b import CONFIG as _phi3v
 from repro_torch.configs.qwen3_32b import CONFIG as _qwen3_32b
 from repro_torch.configs.seamless_m4t_medium import CONFIG as _seamless
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in [_olmo_1b, _internlm2_20b, _granite_3_2b, _qwen3_32b,
-                        _seamless, _olmoe, _phi35moe, _hymba, _mamba2,
+                        _seamless, _phi3v, _olmoe, _phi35moe, _hymba,
+                        _mamba2,
                         GPT2_SMALL, GPT2_MEDIUM, BERT_LARGE]}
 
 

@@ -8,7 +8,9 @@ attention-free Mamba2 (SSD) blocks (``family="ssm"``), Hymba's parallel
 attention + SSM heads (``family="hybrid"``) or an encoder-decoder
 (``family="encdec"``: a non-causal encoder of ``num_encoder_layers``
 blocks over a modality frontend's projected frames, then decoder blocks
-with cross-attention), and a tied or separate output head.
+with cross-attention) or a vision-language decoder (``family="vlm"``: a
+frontend's projected patches prepended to the token embeddings), and a
+tied or separate output head.
 
 Defaults match the JAX package, including ``attn_impl="chunked"``,
 ``use_decode_kernel=False`` and ``remat=True``: with the first two the
@@ -27,7 +29,7 @@ from typing import Literal
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: Literal["dense", "moe", "ssm", "hybrid", "encdec"]
+    family: Literal["dense", "moe", "ssm", "hybrid", "encdec", "vlm"]
     num_layers: int
     d_model: int
     num_heads: int

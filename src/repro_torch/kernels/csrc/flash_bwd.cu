@@ -70,8 +70,8 @@
 //     dkv writes dk, dv once in k's dtype.
 //
 // Design of the tensor-core pair:
-//   * dq: one CTA per (b, hq, q-block). Paged: 3 groups of 4 warps (2 at
-//     d = 128) take every third live 64-key tile and merge their fp32 dq
+//   * dq: one CTA per (b, hq, q-block). Paged: 3 groups of 4 warps (2 above
+//     d = 64) take every third live 64-key tile and merge their fp32 dq
 //     partials in group order at the end (192 CTAs on 132 SMs at the
 //     serving shape, each walking a whole prefix). Contiguous: one group
 //     (4096 CTAs at the training shape fill the card). Warp w of a group
@@ -456,7 +456,7 @@ __device__ __forceinline__ void cp_async_wait_prior() {
 // Warp groups that split one dq CTA's kv walk, as the forward's kSplit:
 // the paged dq runs few CTAs (2 * 3 * 32 = 192 on 132 SMs at the serving
 // shape), each walking a whole prefix, so it splits the walk over 3 groups
-// (2 at d = 128, for registers); the contiguous dq fills the card with
+// (2 above d = 64, for registers); the contiguous dq fills the card with
 // CTAs (4096 at the training shape) and keeps one group.
 template <int D, bool Paged>
 constexpr int kDqSplit = Paged ? (D <= 64 ? 3 : 2) : 1;
@@ -1382,6 +1382,7 @@ cudaError_t dispatch_d(int which, const BwdParams& p, int head_dim, cudaStream_t
     case 16: return launch_variant<T, 16, Paged>(which, p, stream);
     case 32: return launch_variant<T, 32, Paged>(which, p, stream);
     case 64: return launch_variant<T, 64, Paged>(which, p, stream);
+    case 96: return launch_variant<T, 96, Paged>(which, p, stream);
     case 128: return launch_variant<T, 128, Paged>(which, p, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -223,11 +223,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // element offset of 16-byte chunk `chunk` of row `row` in a bf16 tile of
 // D-wide rows: chunks are XORed within each 128-byte line, so 8 rows at one
 // chunk (an ldmatrix phase) and 8 consecutive chunks (a copy phase) fall in
-// 8 different bank groups
+// 8 different bank groups. D = 96 (12 chunks, a row and a half of banks):
+// a permutation within the row, chunks 0-7 XORed by row & 7 and chunks 8-11
+// by (row >> 1) & 3, so that 8 rows at one chunk still fall in 8 bank
+// groups (a row starts 4 groups after the one before it)
 template <int D>
 __device__ __forceinline__ int swizzle(int row, int chunk) {
   constexpr int CPR = D / 8;  // chunks per row
-  if constexpr (CPR >= 8) {
+  if constexpr (CPR == 12) {
+    const int c = chunk < 8 ? chunk ^ (row & 7) : 8 + ((chunk - 8) ^ ((row >> 1) & 3));
+    return row * D + (c << 3);
+  } else if constexpr (CPR >= 8) {
+    static_assert(CPR % 8 == 0, "a row of chunks that is not whole 128-byte lines");
     return row * D + ((chunk ^ (row & 7)) << 3);
   } else {
     const int lin = row * CPR + chunk;

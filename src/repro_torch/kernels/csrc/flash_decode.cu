@@ -41,13 +41,14 @@
 //     (mma.sync m16n8k16, the group's q heads as the rows of A, each warp
 //     16 key rows of a tile, P from the C fragments of S to the A fragments
 //     of P V in registers: MmaCore), fp32 on the CUDA cores (LPR lanes share
-//     a key row, one 16-byte chunk each, partial dots reduced by xor
-//     shuffles: ScalarCore). The design first ran every dtype on the CUDA
-//     cores; on the card that body was bound by its own arithmetic (timed
-//     without its loads it took as long as its loads without arithmetic),
-//     not by bytes. Each warp (fp32: each row group) keeps its own fp32
-//     online-softmax state, and the states merge in a fixed order at the
-//     end (in the warp, then the four warps through shared memory);
+//     a key row, a power of two of them, each one or more 16-byte chunks,
+//     partial dots reduced by xor shuffles: ScalarCore). The design first ran
+//     every dtype on the CUDA cores; on the card that body was bound by its
+//     own arithmetic (timed without its loads it took as long as its loads
+//     without arithmetic), not by bytes. Each warp (fp32: each row group)
+//     keeps its own fp32 online-softmax state, and the states merge in a fixed
+//     order at the end (in the warp, then the four warps through shared
+//     memory);
 //   * the splits of one (b, head group) run as one thread-block cluster
 //     (grid (splits, kv heads x head groups, b), cluster (splits, 1, 1)):
 //     each CTA writes its partial to global memory and leaves it in shared
@@ -87,14 +88,27 @@ constexpr int MAX_PPT = 8;         // pages of one tile: TILE / smallest page
 constexpr int MAX_SPLITS = 8;      // portable thread-block cluster size
 constexpr int RING_BUDGET = 48 * 1024;   // bytes of ring a CTA aims at
 
+// Chunks one lane of the scalar core takes: the fewest that leave a power
+// of two of lanes a row, since a row's lanes reduce their partial dots by
+// xor shuffles. One everywhere but D = 96, whose 24 fp32 chunks go to 8
+// lanes of 3 chunks (12 lanes a row would leave 8 lanes of a warp idle and
+// a reduction across rows).
+constexpr int chunks_per_lane(int chunks) {
+  int c = 1;
+  while (chunks % c != 0 || chunks / c > 32 || ((chunks / c) & (chunks / c - 1)) != 0) ++c;
+  return c;
+}
+
 // The ring of one (T, D), and the scalar core's lane geometry: every lane
-// owns one 16-byte chunk of a key row, LPR lanes a row; a row group of the
-// CTA takes rows group, group + ROW_GROUPS, ... of each tile, KB of them
-// per softmax update.
+// owns CPL 16-byte chunks of a key row (chunks ch, ch + LPR, ...), LPR lanes
+// a row; a row group of the CTA takes rows group, group + ROW_GROUPS, ... of
+// each tile, KB of them per softmax update.
 template <typename T, int D>
 struct Geo {
   static constexpr int EPC = 16 / sizeof(T);          // elements per chunk
-  static constexpr int LPR = D / EPC;                 // lanes (chunks) per row
+  static constexpr int CHUNKS = D / EPC;              // 16-byte chunks per row
+  static constexpr int CPL = chunks_per_lane(CHUNKS); // chunks per lane
+  static constexpr int LPR = CHUNKS / CPL;            // lanes per row, a power of two
   static_assert(LPR >= 2 && LPR <= 32, "head_dim out of range");
   static constexpr int RPW = 32 / LPR;                // rows per warp step
   static constexpr int ROW_GROUPS = WARPS * RPW;
@@ -190,7 +204,7 @@ __device__ __forceinline__ unsigned long long unit_rows(int cls, int a, int n, i
 // merge: per (warp, group) its acc rows in `gacc` ([warp][group][head][D],
 // every group of a warp at the warp's max) and per warp its m and l.
 
-// fp32 (CUDA cores): LPR lanes share one key row, one 16-byte chunk each;
+// fp32 (CUDA cores): LPR lanes share one key row, CPL 16-byte chunks each;
 // the lanes form the partial dots of every q head and reduce them by xor
 // shuffles, so every lane of the row holds the scores. Each row group of
 // the CTA takes rows group, group + ROW_GROUPS, ... of a tile.
@@ -198,11 +212,15 @@ template <int D>
 struct ScalarCore {
   using G = Geo<float, D>;
   static constexpr int GROUPS_PER_WARP = G::RPW;
-  float q[HEADS][G::EPC];                // this lane's chunk of q * scale
-  float m[HEADS], l[HEADS], acc[HEADS][G::EPC];
+  static constexpr int E = G::CPL * G::EPC;   // elements of a row this lane holds
+  static_assert(G::EPC == 4, "a chunk is one float4");
+  float q[HEADS][E];                     // this lane's chunks of q * scale
+  float m[HEADS], l[HEADS], acc[HEADS][E];
   int ch, group, warp, lane;
 
   __device__ static int offset(int r, int c) { return r * D + c * G::EPC; }
+  // element j * EPC of this lane's row slice: chunk ch + j * LPR
+  __device__ int col(int j) const { return (ch + j * G::LPR) * G::EPC; }
 
   __device__ __forceinline__ void init(const float* qg, int nh, float scale, int w, int ln) {
     warp = w;
@@ -211,18 +229,34 @@ struct ScalarCore {
     group = warp * G::RPW + lane / G::LPR;
 #pragma unroll
     for (int h = 0; h < HEADS; ++h) {
-      if (h < nh) {
-        unpack(*reinterpret_cast<const uint4*>(qg + h * D + ch * G::EPC), q[h]);
 #pragma unroll
-        for (int e = 0; e < G::EPC; ++e) q[h][e] *= scale;
-      } else {
+      for (int j = 0; j < G::CPL; ++j) {
+        float* qj = q[h] + j * G::EPC;
+        if (h < nh) {
+          float f[G::EPC];
+          unpack(*reinterpret_cast<const uint4*>(qg + h * D + col(j)), f);
 #pragma unroll
-        for (int e = 0; e < G::EPC; ++e) q[h][e] = 0.f;
+          for (int e = 0; e < G::EPC; ++e) qj[e] = f[e] * scale;
+        } else {
+#pragma unroll
+          for (int e = 0; e < G::EPC; ++e) qj[e] = 0.f;
+        }
       }
       m[h] = NEG_INF;
       l[h] = 0.f;
 #pragma unroll
-      for (int e = 0; e < G::EPC; ++e) acc[h][e] = 0.f;
+      for (int e = 0; e < E; ++e) acc[h][e] = 0.f;
+    }
+  }
+
+  // this lane's chunks of row r of a tile
+  __device__ __forceinline__ void row(const float* t, int r, float (&f)[E]) const {
+#pragma unroll
+    for (int j = 0; j < G::CPL; ++j) {
+      float c[G::EPC];
+      unpack(*reinterpret_cast<const uint4*>(t + r * D + col(j)), c);
+#pragma unroll
+      for (int e = 0; e < G::EPC; ++e) f[j * G::EPC + e] = c[e];
     }
   }
 
@@ -234,13 +268,13 @@ struct ScalarCore {
 #pragma unroll
       for (int kk = 0; kk < G::KB; ++kk) {
         const int r = group + (k0 + kk) * G::ROW_GROUPS;
-        float kf[G::EPC];
-        unpack(*reinterpret_cast<const uint4*>(ks + offset(r, ch)), kf);
+        float kf[E];
+        row(ks, r, kf);
 #pragma unroll
         for (int h = 0; h < HEADS; ++h) {
           float dot = 0.f;
 #pragma unroll
-          for (int e = 0; e < G::EPC; ++e) dot = fmaf(q[h][e], kf[e], dot);
+          for (int e = 0; e < E; ++e) dot = fmaf(q[h][e], kf[e], dot);
 #pragma unroll
           for (int o = 1; o < G::LPR; o <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
           s[kk][h] = ((ok >> r) & 1ull) ? dot : NEG_INF;
@@ -262,17 +296,17 @@ struct ScalarCore {
         l[h] = l[h] * corr + sum;
         m[h] = mx;
 #pragma unroll
-        for (int e = 0; e < G::EPC; ++e) acc[h][e] *= corr;
+        for (int e = 0; e < E; ++e) acc[h][e] *= corr;
       }
 #pragma unroll
       for (int kk = 0; kk < G::KB; ++kk) {
         const int r = group + (k0 + kk) * G::ROW_GROUPS;
-        float vf[G::EPC];
-        unpack(*reinterpret_cast<const uint4*>(vs + offset(r, ch)), vf);
+        float vf[E];
+        row(vs, r, vf);
 #pragma unroll
         for (int h = 0; h < HEADS; ++h) {
 #pragma unroll
-          for (int e = 0; e < G::EPC; ++e) acc[h][e] = fmaf(s[kk][h], vf[e], acc[h][e]);
+          for (int e = 0; e < E; ++e) acc[h][e] = fmaf(s[kk][h], vf[e], acc[h][e]);
         }
       }
     }
@@ -291,11 +325,11 @@ struct ScalarCore {
       float lw = l[h] * w;
 #pragma unroll
       for (int o = G::LPR; o < 32; o <<= 1) lw += __shfl_xor_sync(0xffffffffu, lw, o);
-      float4* dst = reinterpret_cast<float4*>(gacc + (group * HEADS + h) * D + ch * G::EPC);
 #pragma unroll
-      for (int e = 0; e < G::EPC; e += 4) {
-        dst[e / 4] = make_float4(acc[h][e] * w, acc[h][e + 1] * w, acc[h][e + 2] * w,
-                                 acc[h][e + 3] * w);
+      for (int j = 0; j < G::CPL; ++j) {
+        const float* a = acc[h] + j * G::EPC;
+        *reinterpret_cast<float4*>(gacc + (group * HEADS + h) * D + col(j)) =
+            make_float4(a[0] * w, a[1] * w, a[2] * w, a[3] * w);
       }
       if (lane == 0) {
         wm[warp][h] = mx;
@@ -421,7 +455,7 @@ struct MmaCore {
 };
 
 template <typename T, int D, bool Paged>
-__global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeParams p) {
+__device__ __forceinline__ void decode_body(const DecodeParams& p) {
   using G = Geo<T, D>;
   using Core = std::conditional_t<std::is_same<T, __nv_bfloat16>::value, MmaCore<D>,
                                   ScalarCore<D>>;
@@ -633,9 +667,42 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeParam
 }
 
 template <typename T, int D, bool Paged>
+__global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeParams p) {
+  decode_body<T, D, Paged>(p);
+}
+
+// Given launch bounds without a count of CTAs an SM must hold, ptxas cuts a
+// kernel's registers to the next CTA tier when it is close to one, and may
+// spill to get there: at d = 96 it did (the bf16 bodies: 128 registers and
+// 4-8 bytes of spill, on the card). The d = 96 bodies launch through this
+// kernel, which names the CTAs an SM must hold, so that ptxas keeps the
+// registers that allow them: 3 in bf16 (at most 168 registers, where the
+// ring's shared memory allows 4), 2 in fp32 (whose 101 KB of shared memory
+// allow no more; at 3, its 168 registers spilled 12-24 bytes). The other
+// head dims keep the kernel they were measured with.
+template <typename T>
+constexpr int kMinBlocks96 = std::is_same<T, __nv_bfloat16>::value ? 3 : 2;
+
+template <typename T, int D, bool Paged>
+__global__ void __launch_bounds__(THREADS, kMinBlocks96<T>)
+    flash_decode_kernel_min(const DecodeParams p) {
+  decode_body<T, D, Paged>(p);
+}
+
+// the kernel of one instantiation (only the one it launches is compiled)
+template <typename T, int D, bool Paged>
+auto decode_kernel() {
+  if constexpr (D == 96) {
+    return flash_decode_kernel_min<T, D, Paged>;
+  } else {
+    return flash_decode_kernel<T, D, Paged>;
+  }
+}
+
+template <typename T, int D, bool Paged>
 cudaError_t launch(const DecodeParams& p, cudaStream_t stream) {
   constexpr int smem = smem_bytes<T, D>();
-  auto kernel = flash_decode_kernel<T, D, Paged>;
+  auto kernel = decode_kernel<T, D, Paged>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   // all of the SM's unified memory as shared memory, so that several CTAs
   // fit on an SM (left to the driver, it may pick a carveout for one)
@@ -673,6 +740,7 @@ cudaError_t dispatch(int dtype, int head_dim, const DecodeParams& p, cudaStream_
     case 16: return launch<T, 16, Paged>(p, s);     \
     case 32: return launch<T, 32, Paged>(p, s);     \
     case 64: return launch<T, 64, Paged>(p, s);     \
+    case 96: return launch<T, 96, Paged>(p, s);     \
     case 128: return launch<T, 128, Paged>(p, s);   \
     default: return cudaErrorInvalidValue;          \
   }
@@ -752,10 +820,12 @@ int flash_decode_smem_bytes(int dtype, int head_dim, int* stages) {
   }
   if (dtype == 0) {
     FLASH_DECODE_SMEM(float, 16) FLASH_DECODE_SMEM(float, 32)
-    FLASH_DECODE_SMEM(float, 64) FLASH_DECODE_SMEM(float, 128)
+    FLASH_DECODE_SMEM(float, 64) FLASH_DECODE_SMEM(float, 96)
+    FLASH_DECODE_SMEM(float, 128)
   } else if (dtype == 1) {
     FLASH_DECODE_SMEM(__nv_bfloat16, 16) FLASH_DECODE_SMEM(__nv_bfloat16, 32)
-    FLASH_DECODE_SMEM(__nv_bfloat16, 64) FLASH_DECODE_SMEM(__nv_bfloat16, 128)
+    FLASH_DECODE_SMEM(__nv_bfloat16, 64) FLASH_DECODE_SMEM(__nv_bfloat16, 96)
+    FLASH_DECODE_SMEM(__nv_bfloat16, 128)
   }
 #undef FLASH_DECODE_SMEM
   return -1;

@@ -43,7 +43,7 @@
 //     fragment of n8 tile j, lane l holds rows l/4 and l/4 + 8, columns
 //     8j + 2(l%4) + {0, 1}; the mask and dropout are applied on those
 //     coordinates. A contiguous CTA is one group (128 threads). A paged CTA
-//     is 3 groups (d <= 64; 2 at d = 128): group i takes the i-th of every
+//     is 3 groups (d <= 64; 2 above): group i takes the i-th of every
 //     3 (2) tiles that run, in its own two stages, and at the end hands its
 //     (m, l, acc) to group 0 through shared memory, which merges them as
 //     split-KV does (kSplit).
@@ -298,7 +298,7 @@ constexpr float LOG2E = 1.4426950408889634f;  // exp(x) = exp2(x * LOG2E)
 // SM would leave each scheduler one warp; contiguous calls fill the card
 // with CTAs and keep one group. 3 groups (384 threads, <= 170 registers)
 // measured as fast as 4 at d = 64, where 4 (<= 128 registers) spill; 2 at
-// d = 128, whose accumulator alone is 64 registers.
+// d = 96 and 128, whose accumulators alone are 48 and 64 registers.
 template <int D, bool Paged>
 constexpr int kSplit = Paged ? (D <= 64 ? 3 : 2) : 1;
 
@@ -604,14 +604,13 @@ __device__ __forceinline__ void fwd_mma(const FwdParams& p) {
           s[n][e] = pv;
         }
       }
-      float acc_scale[2], l_inv[2];
+      float acc_scale[2];
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         psum[hh] += __shfl_xor_sync(0xffffffffu, psum[hh], 1);
         psum[hh] += __shfl_xor_sync(0xffffffffu, psum[hh], 2);
         const float l_new = l_r[hh] * corr[hh] + psum[hh];
         acc_scale[hh] = Paper ? l_r[hh] * corr[hh] : corr[hh];
-        l_inv[hh] = 1.f / ((l_new == 0.f) ? 1.f : l_new);
         l_r[hh] = l_new;
         m_r[hh] = m_new[hh];
       }
@@ -640,7 +639,10 @@ __device__ __forceinline__ void fwd_mma(const FwdParams& p) {
           }
         }
       }
-      if (Paper) {
+      if (Paper) {                          // 1 / l_new, formed after P V (registers)
+        float l_inv[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) l_inv[hh] = 1.f / ((l_r[hh] == 0.f) ? 1.f : l_r[hh]);
 #pragma unroll
         for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
@@ -736,14 +738,41 @@ constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
 template <typename T, int D, bool Paged>
 constexpr int kThreads = kMma<T> ? kSplit<D, Paged> * GROUP_THREADS : THREADS;
 
-// Dropout and Paper are compile-time, so the serving instantiations (no
-// dropout, fa2) carry none of the training variants' code or registers.
 template <typename T, int D, bool Paged, bool Dropout, bool Paper>
-__global__ void __launch_bounds__(kThreads<T, D, Paged>) flash_fwd_kernel(const FwdParams p) {
+__device__ __forceinline__ void fwd_body(const FwdParams& p) {
   if constexpr (kMma<T>) {
     fwd_mma<D, Paged, Dropout, Paper>(p);
   } else {
     fwd_scalar<T, D, Paged, Dropout, Paper>(p);
+  }
+}
+
+// Dropout and Paper are compile-time, so the serving instantiations (no
+// dropout, fa2) carry none of the training variants' code or registers.
+template <typename T, int D, bool Paged, bool Dropout, bool Paper>
+__global__ void __launch_bounds__(kThreads<T, D, Paged>) flash_fwd_kernel(const FwdParams p) {
+  fwd_body<T, D, Paged, Dropout, Paper>(p);
+}
+
+// Given launch bounds without a count of CTAs an SM must hold, ptxas cuts a
+// kernel's registers to the next CTA tier when it is close to one, and may
+// spill to get there: at d = 96 it did (the bf16 contiguous dropout body:
+// 168 registers and 24 bytes of spill, on the card). The d = 96 bodies
+// launch through this kernel, whose count of 1 turns that cut off; the
+// other head dims keep the kernel they were measured with.
+template <typename T, int D, bool Paged, bool Dropout, bool Paper>
+__global__ void __launch_bounds__(kThreads<T, D, Paged>, 1)
+    flash_fwd_kernel_min(const FwdParams p) {
+  fwd_body<T, D, Paged, Dropout, Paper>(p);
+}
+
+// the kernel of one instantiation (only the one it launches is compiled)
+template <typename T, int D, bool Paged, bool Dropout, bool Paper>
+auto fwd_kernel() {
+  if constexpr (D == 96) {
+    return flash_fwd_kernel_min<T, D, Paged, Dropout, Paper>;
+  } else {
+    return flash_fwd_kernel<T, D, Paged, Dropout, Paper>;
   }
 }
 
@@ -753,7 +782,7 @@ cudaError_t launch(const FwdParams& p, cudaStream_t stream) {
       kMma<T> ? MmaSmem<D, kSplit<D, Paged>>::bytes
               : sizeof(float) * ((size_t)p.block_q * D + (size_t)p.block_k * (D + 1) +
                                  (size_t)p.block_k * D + (size_t)p.block_q * p.block_k);
-  auto kern = flash_fwd_kernel<T, D, Paged, Dropout, Paper>;
+  auto kern = fwd_kernel<T, D, Paged, Dropout, Paper>();
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(p.nq, p.hq, p.b);
@@ -779,6 +808,7 @@ cudaError_t dispatch_d(const FwdParams& p, bool paged, int head_dim, cudaStream_
     case 16: return dispatch_variant<T, 16>(p, paged, stream);
     case 32: return dispatch_variant<T, 32>(p, paged, stream);
     case 64: return dispatch_variant<T, 64>(p, paged, stream);
+    case 96: return dispatch_variant<T, 96>(p, paged, stream);
     case 128: return dispatch_variant<T, 128>(p, paged, stream);
     default: return cudaErrorInvalidValue;
   }

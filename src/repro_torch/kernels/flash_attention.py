@@ -44,7 +44,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (dropout_threshold, full_dropout_keep_mask,
                                      gather_pages, repeat_kv)
 from repro_torch.kernels.tuning import (KERNEL_HEAD_DIMS, MAX_TILE,
-                                        SMEM_PER_BLOCK, bwd_smem_bytes,
+                                        SMEM_PER_BLOCK,
+                                        attention_working_set_bytes,
                                         fwd_pages_per_tile)
 
 # launches of the CUDA kernel per wrapper (never counts plain-version calls)
@@ -488,8 +489,9 @@ def prepare_backward(q, k, v, o, do, m, l, kv_mask, block_layout, *, scale,
     layout, nq, nk = _check_launch(
         "flash_bwd", q, {"k": k, "v": v, "o": o, "do": do}, hkv=hkv, sk=sk,
         block_q=block_q, block_k=block_k, block_layout=block_layout)
-    if bwd_smem_bytes(block_q, block_k, d, bf16=q.dtype == torch.bfloat16,
-                      paged=page_list is not None) > SMEM_PER_BLOCK:
+    if attention_working_set_bytes(
+            block_q, block_k, d, bf16=q.dtype == torch.bfloat16,
+            paged=page_list is not None) > SMEM_PER_BLOCK:
         raise ValueError(f"flash_bwd tiles ({block_q}, {block_k}) exceed "
                          f"shared memory at head_dim {d}")
     for name, t in (("m", m), ("l", l)):

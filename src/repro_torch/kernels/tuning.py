@@ -12,13 +12,13 @@ the small part the serving path needs:
   * ``fwd_tiles`` / ``bwd_tiles`` — one fixed (block_q, block_k) per
     head_dim whose shared-memory footprint in ``csrc/flash_fwd.cu`` /
     ``csrc/flash_bwd.cu`` (``fwd_smem_bytes`` / ``bwd_smem_bytes``, fp32
-    and bf16 bodies) fits a Hopper block;
+    and bf16 bodies, from ``core.io_model``) fits a Hopper block;
   * ``fwd_pages_per_tile`` — the pages one kv tile of the paged forward
     gathers (raises for a page size the kernel does not take),
     ``check_page_size`` — the page sizes every paged kernel takes (a paged
     engine on the card checks its page at construction), and
-    ``fwd_kv_groups`` — the warp groups that split one CTA's kv walk (the
-    bf16 forward's and the bf16 dq's alike);
+    ``fwd_kv_groups`` (from ``core.io_model``) — the warp groups that
+    split one CTA's kv walk (the bf16 forward's and the bf16 dq's alike);
   * ``resolve_paged_decode_splits`` — split-KV parallelism for paged decode
     with the divisor rule of ``flash_decode.validate_paged_decode_geometry``,
     and ``check_decode_splits`` — the split counts the decode kernel takes
@@ -32,14 +32,18 @@ the small part the serving path needs:
 
 from __future__ import annotations
 
+from repro_torch.core.io_model import H100_SMEM_PER_BLOCK as SMEM_PER_BLOCK
+from repro_torch.core.io_model import MAX_TILE  # csrc/flash_fwd.cu MAX_BQ / MAX_BK
+from repro_torch.core.io_model import (attention_working_set_bytes,
+                                       bwd_smem_bytes, fwd_kv_groups,
+                                       fwd_smem_bytes)
+
 ROW_ALIGN = 8               # tile rows: multiple of 8 (one mma.sync m-tile)
-MAX_TILE = 64               # csrc/flash_fwd.cu MAX_BQ / MAX_BK
 PAGE_SIZES = (8, 16, 32, 64)    # pages the paged kernels take on the card
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 96, 128)
 TARGET_DECODE_SPLITS = 8    # split-KV parallelism target
 MAX_DECODE_SPLITS = 8       # csrc/flash_decode.cu MAX_SPLITS: portable cluster size
 DECODE_TILE = 64            # csrc/flash_decode.cu TILE: kv rows of one ring stage
-SMEM_PER_BLOCK = 232_448    # Hopper: bytes of shared memory one block may use
 
 
 def round_block(requested: int, seq_len: int) -> int:
@@ -74,44 +78,15 @@ def sparse_tile(block: int, on_card: bool) -> tuple[int, int]:
     return block, 1
 
 
-def fwd_kv_groups(head_dim: int, paged: bool) -> int:
-    """Warp groups that split one bf16 forward CTA's kv walk
-    (``csrc/flash_fwd.cu`` kSplit): the paged prefill runs few CTAs, each
-    walking a whole prefix, so its CTA splits the walk over 3 groups of 4
-    warps (2 at head_dim 128, for registers); a contiguous CTA is one
-    group. The bf16 dq kernel splits its walk the same way
-    (``csrc/flash_bwd.cu`` kDqSplit)."""
-    return (3 if head_dim <= 64 else 2) if paged else 1
-
-
-def fwd_smem_bytes(block_q: int, block_k: int, head_dim: int, *,
-                   bf16: bool = False, paged: bool = False) -> int:
-    """Dynamic shared memory of one flash_fwd block.
-
-    fp32 (the scalar body): the q tile, the K tile padded by one column
-    (bank-conflict-free row dots), the V tile and the P tile.
-    bf16 (the tensor-core body): whatever the tiles, Q at ``MAX_TILE``
-    rows and, per warp group (``fwd_kv_groups``), two stages each of K and
-    V at ``MAX_TILE`` rows, all bf16 (smaller tiles are zero-padded in
-    place), then per group and stage the tile's kv_pos, kv_seg and kv_mask
-    rows as int32, then the table of kv tile classes (one per thread):
-    83,968 bytes contiguous and 151,552 paged at d = 128."""
-    if bf16:
-        groups = fwd_kv_groups(head_dim, paged)
-        return (2 * head_dim * MAX_TILE * (1 + 2 * 2 * groups)
-                + 4 * groups * (2 * 3 * MAX_TILE + 128))
-    return 4 * (block_q * head_dim + block_k * (head_dim + 1)
-                + block_k * head_dim + block_q * block_k)
-
-
 def fwd_tiles(head_dim: int) -> tuple[int, int]:
     """The fixed (block_q, block_k) for a head_dim: 64 x 64 fits shared
     memory for every head_dim the kernel takes (115 KB fp32, 84 KB bf16,
-    152 KB bf16 paged at d = 128)."""
+    152 KB bf16 paged at d = 128; 90 KB, 63 KB and 115 KB at d = 96)."""
     bq = bk = MAX_TILE
     for bf16, paged in ((False, False), (True, False), (True, True)):
-        assert fwd_smem_bytes(bq, bk, max(KERNEL_HEAD_DIMS), bf16=bf16,
-                              paged=paged) <= SMEM_PER_BLOCK
+        assert attention_working_set_bytes(
+            bq, bk, max(KERNEL_HEAD_DIMS), bf16=bf16, paged=paged,
+            backward=False) <= SMEM_PER_BLOCK
     return bq, bk
 
 
@@ -140,38 +115,6 @@ def check_page_size(page_size: int) -> int:
     return page_size
 
 
-def bwd_smem_bytes(block_q: int, block_k: int, head_dim: int, *,
-                   bf16: bool = False, paged: bool = False) -> int:
-    """Dynamic shared memory of the larger of the two backward blocks.
-
-    fp32 (the scalar body) stages its tiles as fp32. dq: q and dO tiles,
-    K and V tiles padded by one column, the dS tile. dkv: K, V, q and dO
-    tiles padded by one column, the (P∘Z)ᵀ and dSᵀ tiles, and five per-row
-    vectors (m, l, D, position, segment).
-    bf16 (the tensor-core body), whatever the tiles: dq stages Q' and dO
-    at ``MAX_TILE`` rows and, per warp group (the forward's
-    ``fwd_kv_groups``: 3, or 2 at head_dim 128, paged; one contiguous),
-    two stages each of K and V at ``MAX_TILE`` rows, all bf16, then per
-    group and stage the tile's kv_pos, kv_seg and kv_mask rows as int32
-    and the class table (one entry a thread); dkv stages K, V and two
-    stages each of Q' and dO at ``MAX_TILE`` rows, then per stage five
-    per-row words, the class table (128 entries) and a 4-word reduction.
-    At d = 128:
-    101,392 bytes contiguous (dkv is the larger) and 167,936 paged
-    (dq)."""
-    if bf16:
-        groups = fwd_kv_groups(head_dim, paged)
-        dq = (2 * head_dim * MAX_TILE * (2 + 2 * 2 * groups)
-              + 4 * groups * (2 * 3 * MAX_TILE + 128))
-        dkv = 2 * 6 * MAX_TILE * head_dim + 4 * (2 * 5 * MAX_TILE + 128 + 4)
-        return max(dq, dkv)
-    dq = 4 * (2 * block_q * head_dim + 2 * block_k * (head_dim + 1)
-              + block_q * block_k)
-    dkv = 4 * ((2 * block_k + 2 * block_q) * (head_dim + 1)
-               + 2 * block_k * block_q + 5 * block_q)
-    return max(dq, dkv)
-
-
 def bwd_tiles(head_dim: int) -> tuple[int, int]:
     """The fixed backward (block_q, block_k) for a head_dim: the forward's
     tiles, because one compiled layout serves the forward and the
@@ -180,11 +123,17 @@ def bwd_tiles(head_dim: int) -> tuple[int, int]:
     and 168 KB paged at d = 128)."""
     bq, bk = fwd_tiles(head_dim)
     for bf16, paged in ((False, False), (True, False), (True, True)):
-        if bwd_smem_bytes(bq, bk, head_dim, bf16=bf16,
-                          paged=paged) > SMEM_PER_BLOCK:
+        if attention_working_set_bytes(bq, bk, head_dim, bf16=bf16,
+                                       paged=paged) > SMEM_PER_BLOCK:
             raise ValueError(f"backward tiles ({bq}, {bk}) exceed shared "
                              f"memory at head_dim {head_dim}")
     return bq, bk
+
+
+def elt_bytes(dtype: str) -> int:
+    """Bytes of one element of a config's dtype (``"bfloat16"`` 2,
+    ``"float32"`` 4), as the reference's ``tuning._elt_bytes``."""
+    return {"bfloat16": 2, "float16": 2, "float32": 4}.get(str(dtype), 4)
 
 
 def _divisors_desc(n: int) -> list[int]:

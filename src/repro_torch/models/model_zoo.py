@@ -1,5 +1,5 @@
 """Top-level Model (port of ``repro.models.model_zoo`` for the dense, MoE,
-SSM, hybrid and encoder-decoder families):
+SSM, hybrid, encoder-decoder and vision-language families):
 init, ``forward``/``loss`` for training, prefill into a slot cache, packed
 prefill, chunked prefill against the page pool, decode against either
 cache, and ``params_from_jax``. Packed prefill and the page pool serve the
@@ -16,6 +16,12 @@ Params are a plain dict: ``{"embed": (V, d), "final_norm": {...},
 autograd; every serving method runs under ``torch.inference_mode()`` (the decode state is created outside it, so
 callers may edit it); the slot cache and the paged pool are updated in
 place.
+
+A VLM's batch is ``{"patches": (B, frontend_tokens, frontend_dim),
+"tokens": (B, S)}`` (the image frontend is a stub: patches are
+precomputed embeddings): ``_embed_decoder_input`` projects the patches
+and prepends them to the token embeddings, ``loss`` drops their logits,
+and ``prefill`` caches the whole stream (``decode_step`` takes tokens).
 
 An encoder-decoder's batch is ``{"frames": (B, S_enc, frontend_dim),
 "tokens": (B, S)}`` (the audio frontend is a stub: frames are
@@ -92,6 +98,20 @@ class Model:
     def _batch_tensor(self, params, x):
         return torch.as_tensor(x).to(params["embed"].device)
 
+    def _embed_decoder_input(self, params, batch):
+        """The decoder's input stream (B, S, d): the token embeddings and,
+        for a VLM, ``batch["patches"]`` (B, frontend_tokens, frontend_dim)
+        through ``frontend_proj`` ahead of them (the stream then holds
+        frontend_tokens + S rows; attention is causal over all of it and
+        RoPE positions run over it, as in the reference)."""
+        tokens = self._batch_tensor(params, batch["tokens"]).long()
+        x = params["embed"][tokens]
+        if self.cfg.frontend == "vision":
+            patches = self._batch_tensor(params, batch["patches"])
+            front = patches.to(x.dtype) @ params["frontend_proj"]
+            x = torch.cat([front, x], dim=1)
+        return x
+
     def _encode(self, params, batch, deterministic: bool = True):
         """The encoder's output (B, S_enc, d): ``batch["frames"]`` through
         ``frontend_proj``, the encoder's blocks (non-causal) and its final
@@ -110,7 +130,6 @@ class Model:
         present, isolates packed documents in self-attention and makes RoPE
         segment-relative. Batch leaves may be numpy arrays or tensors."""
         cfg = self.cfg
-        tokens = self._batch_tensor(params, batch["tokens"]).long()
         segment_ids = batch.get("segment_ids")
         if segment_ids is not None:
             if cfg.frontend is not None or cfg.num_encoder_layers > 0:
@@ -124,7 +143,7 @@ class Model:
         enc_out = None
         if cfg.num_encoder_layers > 0:
             enc_out = self._encode(params, batch, deterministic)
-        x = params["embed"][tokens]
+        x = self._embed_decoder_input(params, batch)
         h, aux = tfm.apply_stack(params["blocks"], cfg, x, enc_out=enc_out,
                                  segment_ids=segment_ids,
                                  deterministic=deterministic,
@@ -134,10 +153,13 @@ class Model:
     def loss(self, params, batch, *, deterministic: bool = False,
              dropout_seed=0, aux_weight: float = 0.01):
         """Next-token cross-entropy in fp32 over ``loss_mask`` (default all
-        ones). Returns (total, {"loss", "ce", "aux", "tokens"})."""
+        ones) on the token rows (a VLM's patch rows are dropped first).
+        Returns (total, {"loss", "ce", "aux", "tokens"})."""
         logits, aux = self.forward(params, batch, deterministic=deterministic,
                                    dropout_seed=dropout_seed)
         tokens = self._batch_tensor(params, batch["tokens"]).long()
+        if self.cfg.frontend == "vision":
+            logits = logits[:, self.cfg.frontend_tokens:]
         logits = logits[:, :-1].float()
         targets = tokens[:, 1:]
         if "loss_mask" in batch:
@@ -182,13 +204,13 @@ class Model:
         """Run the prompt (b, s) into fresh slot caches of ``capacity``
         (and, for the SSM and hybrid families, the SSM state after the
         prompt; for an encoder-decoder, ``batch["frames"]`` through the
-        encoder and its K/V into per-layer cross caches); returns (state,
-        last-token logits (b, 1, V))."""
-        tokens = self._batch_tensor(params, batch["tokens"]).long()
+        encoder and its K/V into per-layer cross caches; for a VLM, the
+        patches ahead of the prompt, so ``kv_len`` is frontend_tokens +
+        the prompt); returns (state, last-token logits (b, 1, V))."""
         enc_out = None
         if self.cfg.num_encoder_layers > 0:
             enc_out = self._encode(params, batch)
-        x = params["embed"][tokens]
+        x = self._embed_decoder_input(params, batch)
         h, caches = tfm.apply_stack_prefill(params["blocks"], self.cfg, x,
                                             capacity, enc_out=enc_out)
         b, dev = x.shape[0], x.device
@@ -280,13 +302,15 @@ def build_model(cfg: ModelConfig) -> Model:
 
 
 def require_token_inputs(cfg: ModelConfig, entry: str) -> None:
-    """Raise for a model whose batch needs more than tokens (an encoder's
-    ``frames``, a VLM's ``patches``): ``entry`` feeds token prompts or
+    """Raise for a model whose batch needs more than tokens: the
+    encoder-decoder's ``frames`` (seamless-m4t-medium) or the VLM's
+    ``patches`` (phi-3-vision-4.2b). ``entry`` feeds token prompts or
     ``SyntheticLM`` token batches only. The JAX package's engine passes
     tokens alone to ``Model.prefill`` and its train launcher feeds
     ``SyntheticLM`` tokens, so neither runs these families; such a model
     runs at model level (``forward``, ``loss``, ``prefill``,
-    ``decode_step`` with the batch it needs, and ``make_train_step``)."""
+    ``decode_step`` with the batch it needs, and ``make_train_step``).
+    A VLM's ``decode_step`` takes tokens alone, as the reference's does."""
     if cfg.num_encoder_layers > 0 or cfg.frontend is not None:
         raise ValueError(
             f"{entry} feeds token inputs only, and {cfg.name} (family "

@@ -23,12 +23,33 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.core.tree import tree_leaves, tree_map, with_leaves
+
+
+class StackedUpdate(NamedTuple):
+    """The update of leaves stacked on a leading layer axis, taken one
+    layer at a time (the train step hands the optimizer one block at a
+    time), for an optimizer whose update of a leaf depends on the whole
+    leaf (LAMB's trust ratio). ``moments(grads, state, params, sums)``
+    (pass 1, every layer) updates the layer's moments in place and adds
+    each leaf's statistics into ``sums`` (device tensors, one per leaf in
+    tree order; an empty list before the first layer); ``scales(state,
+    sums)`` turns the whole stack's sums into one device tensor, a scale
+    per leaf; ``update(state, params, scales)`` (pass 2, every layer) returns
+    the layer's updates from the moments stored in pass 1. They take the
+    state as ``update`` does (the step before this one) and never wait on
+    the host."""
+    moments: Callable
+    scales: Callable
+    update: Callable
 
 
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable
+    # None: ``update`` works element by element (AdamW), so one layer of a
+    # stacked leaf updates as the whole leaf would
+    stacked: StackedUpdate | None = None
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -72,6 +93,13 @@ def _bias_corrections(step, b1, b2):
             1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32), stepf))
 
 
+def _update_moments(g, m, v, b1, b2):
+    """The fp32 moments of one leaf, in place."""
+    g = g.float()
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * g * g)
+
+
 def _lr_fn(lr):
     return lr if callable(lr) else (
         lambda _: torch.tensor(lr, dtype=torch.float32))
@@ -91,9 +119,7 @@ def adamw(lr: Callable[[torch.Tensor], torch.Tensor] | float,
         b1c, b2c = _bias_corrections(step, b1, b2)
 
         def upd(g, m, v, p):
-            g = g.float()
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * g * g)
+            _update_moments(g, m, v, b1, b2)
             u = (m / b1c) / (torch.sqrt(v / b2c) + eps)
             if _is_matrix(p):
                 u = u + weight_decay * p.float()
@@ -113,30 +139,69 @@ def lamb(lr: Callable[[torch.Tensor], torch.Tensor] | float,
     only) scaled per leaf by the trust ratio ||p|| / ||r||, or 1 where
     either norm is 0 (a zero-initialised LayerNorm bias). The ratio stays
     a device tensor (``torch.where``), so a step never waits on the host
-    once per leaf."""
+    once per leaf. A leaf stacked on a layer axis but updated a layer at a
+    time takes its ratio over the whole stack, as the reference's stacked
+    leaf does (``stacked``: pass 1 sums ||p||² and ||r||² over the layers,
+    pass 2 recomputes r from the stored moments with the same arithmetic
+    and applies the ratio)."""
     lr_fn = _lr_fn(lr)
 
-    def update(grads, state, params):
+    def consts(state):
         step = state["step"] + 1
-        lr_t = lr_fn(step)
-        b1c, b2c = _bias_corrections(step, b1, b2)
+        return step, lr_fn(step), *_bias_corrections(step, b1, b2)
+
+    def direction(m, v, p, b1c, b2c):
+        r = (m / b1c) / (torch.sqrt(v / b2c) + eps)
+        if _is_matrix(p):
+            r = r + weight_decay * p.float()
+        return r
+
+    def trust_ratio(w_norm, r_norm):
+        return torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                           torch.ones_like(w_norm))
+
+    def update(grads, state, params):
+        step, lr_t, b1c, b2c = consts(state)
 
         def upd(g, m, v, p):
-            g = g.float()
-            pf = p.float()
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * g * g)
-            r = (m / b1c) / (torch.sqrt(v / b2c) + eps)
-            if _is_matrix(p):
-                r = r + weight_decay * pf
-            w_norm = torch.linalg.vector_norm(pf)
-            r_norm = torch.linalg.vector_norm(r)
-            trust = torch.where((w_norm > 0) & (r_norm > 0),
-                                w_norm / r_norm, torch.ones_like(w_norm))
+            _update_moments(g, m, v, b1, b2)
+            r = direction(m, v, p, b1c, b2c)
+            trust = trust_ratio(torch.linalg.vector_norm(p.float()),
+                                torch.linalg.vector_norm(r))
             return -lr_t * trust * r
 
         updates = tree_map(upd, grads, state["mu"], state["nu"], params)
         state["step"] = step
         return updates, state
 
-    return Optimizer(_init_moments, update)
+    def layer_moments(grads, state, params, sums):
+        """||p||² and ||r||² of each leaf of one layer, added into sums."""
+        _, _, b1c, b2c = consts(state)
+        leaves = zip(tree_leaves(grads), tree_leaves(state["mu"]),
+                     tree_leaves(state["nu"]), tree_leaves(params))
+        for i, (g, m, v, p) in enumerate(leaves):
+            _update_moments(g, m, v, b1, b2)
+            r = direction(m, v, p, b1c, b2c)
+            sq = torch.stack([
+                torch.linalg.vector_norm(p, dtype=torch.float32),
+                torch.linalg.vector_norm(r)]).square()
+            if i == len(sums):
+                sums.append(sq)
+            else:
+                sums[i] = sums[i] + sq
+
+    def stack_scales(state, sums):
+        """-lr times the trust ratio of each stacked leaf."""
+        _, lr_t, _, _ = consts(state)
+        norms = torch.stack(sums).sqrt()
+        return -lr_t * trust_ratio(norms[:, 0], norms[:, 1])
+
+    def layer_update(state, params, scales):
+        _, _, b1c, b2c = consts(state)
+        leaves = zip(tree_leaves(state["mu"]), tree_leaves(state["nu"]),
+                     tree_leaves(params), scales)
+        return with_leaves(params, [c * direction(m, v, p, b1c, b2c)
+                                    for m, v, p, c in leaves])
+
+    return Optimizer(_init_moments, update,
+                     StackedUpdate(layer_moments, stack_scales, layer_update))

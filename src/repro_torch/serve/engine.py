@@ -47,8 +47,18 @@ serves, as in the JAX engine. A model that reads frontend embeddings (the
 encoder-decoder) is refused at construction (``require_token_inputs``):
 a request carries tokens alone, as in the JAX engine, which cannot serve
 it either. Not ported yet (raise ``NotImplementedError``): tensor parallelism
-(``tp>1``), sequence parallelism (``sp>1``), and the IO ledger's per-step
-HBM pricing.
+(``tp>1``) and sequence parallelism (``sp>1``).
+
+Every executed step is priced in predicted HBM bytes by the IO ledger
+(``telemetry.io_ledger``: ``self.tm.ledger``) next to its wall time, which
+ends where the step already waits for the host (the sampled tokens'
+read-back; a chunk that completes no prompt has none, and its time is the
+host's enqueue time). The price model takes the forward kernel's tiles
+(``tuning.fwd_tiles``) and its q-major loop order. Prefix-cache hits are
+credited as bytes not spent (``prefill_hbm_bytes_saved``,
+``io_model.prefix_cache_hbm_bytes_saved``), and the paged chunk path
+counts the prefix gathers it never runs
+(``prefill_gather_bytes_eliminated``).
 """
 
 from __future__ import annotations
@@ -62,7 +72,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import masks
+from repro_torch.core import io_model, masks
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.core.masks import POS_PAD, SEG_PAD_Q
 from repro_torch.kernels import tuning
@@ -70,7 +80,7 @@ from repro_torch.models.model_zoo import Model, require_token_inputs
 from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import sampling
 from repro_torch.serve.scheduler import ChunkScheduler, ChunkTask, SchedulerConfig
-from repro_torch.telemetry import Telemetry
+from repro_torch.telemetry import IOLedger, ServePriceModel, Telemetry
 
 
 @dataclasses.dataclass
@@ -183,6 +193,14 @@ class ServingEngine:
             "serve_prefix_pages_shared", "pages mapped from the index")
         self._c_tokens_skipped = reg.counter(
             "serve_prefill_tokens_skipped", "prompt rows never prefilled")
+        self._c_hbm_saved = reg.counter(
+            "serve_prefill_hbm_bytes_saved", "io_model credit for those rows")
+        # hot-path IO the in-place kv side does not pay: the bytes the
+        # per-layer prefix gather (read pages + write packed rows, K and V)
+        # would have moved for the same chunk steps.
+        self._c_gather_elim = reg.counter(
+            "serve_prefill_gather_bytes_eliminated",
+            "prefix-gather bytes the paged chunk path avoids")
         self._stepped = False
         self._step_idx = 0
         self._preempted_rids: set[int] = set()
@@ -248,6 +266,15 @@ class ServingEngine:
                     tuning.resolve_decode_geometry(
                         capacity, cfg.attn_block_k, cfg.num_decode_splits)
 
+        # IO-ledger pricing: the model geometry and the forward kernel's
+        # tiles, walked q-major (the Hopper bodies' loop order)
+        block_q, block_k = tuning.fwd_tiles(cfg.head_dim)
+        self.tm.ledger = IOLedger(ServePriceModel(
+            d=cfg.head_dim, heads_q=cfg.num_heads,
+            heads_kv=cfg.num_kv_heads, d_model=cfg.d_model,
+            layers=cfg.num_layers, elt=tuning.elt_bytes(cfg.dtype),
+            block_q=block_q, block_k=block_k, kv_major=False))
+
     # --------------------- views over the telemetry registry
     @property
     def prefill_calls(self) -> int:
@@ -292,6 +319,25 @@ class ServingEngine:
     @property
     def prefill_tokens_skipped(self) -> int:
         return int(self._c_tokens_skipped.total())
+
+    @property
+    def prefill_hbm_bytes_saved(self) -> int:
+        return int(self._c_hbm_saved.total())
+
+    @property
+    def prefill_gather_bytes_eliminated(self) -> int:
+        return int(self._c_gather_elim.total())
+
+    @property
+    def ttfts(self) -> list[float]:
+        """Raw TTFT samples (seconds), from the histogram."""
+        return self._h_ttft.samples()
+
+    @property
+    def tok_latencies(self) -> list[float]:
+        """Raw per-token decode latency samples (seconds), from the
+        histogram."""
+        return self._h_tok.samples()
 
     @property
     def prefix_cache_hit_rate(self) -> float:
@@ -488,7 +534,8 @@ class ServingEngine:
             self._kv_len_h[t.lane] = t.length
             self._publish_prefix(reqs[i], t.length)
         self._emit_first_tokens(tasks, logits, offsets)
-        self._trace_prefill("prefill_zero", tasks, time.perf_counter() - t_w)
+        self._account_prefill("prefill_zero", tasks,
+                              time.perf_counter() - t_w)
 
     def _emit_first_tokens(self, tasks, logits, offsets) -> None:
         """Sample the next token of every task whose chunk completes its
@@ -540,6 +587,12 @@ class ServingEngine:
         Sk = self._kv_bucketed(pages_needed * self.page_size)
         page_list, kseg, kpos = kvc.paged_prefix_lists(
             tables, spans, self.page_size, Sk // self.page_size)
+        cfg = self.model.cfg
+        self._c_gather_elim.inc(int(sum(
+            io_model.gather_hbm_bytes(sp, cfg.head_dim, cfg.num_kv_heads,
+                                      elt=tuning.elt_bytes(cfg.dtype),
+                                      layers=cfg.num_layers)
+            for sp in spans)))
         batch = {"tokens": self._dev(toks),
                  "q_segment_ids": self._dev(qseg),
                  "q_positions": self._dev(qpos),
@@ -556,7 +609,8 @@ class ServingEngine:
             self._kv_len_h[t.lane] = t.start + t.length
             self._publish_prefix(r, t.start + t.length)
         self._emit_first_tokens(tasks, logits, q_off)
-        self._trace_prefill("prefill_chunk", tasks, time.perf_counter() - t_w)
+        self._account_prefill("prefill_chunk", tasks,
+                              time.perf_counter() - t_w)
 
     # ----------------------------------------------- executor: dense prefill
     def _exec_dense(self, tasks: list[ChunkTask]) -> None:
@@ -569,7 +623,8 @@ class ServingEngine:
         else:
             for t, req in zip(tasks, reqs):
                 self._admit_one(t, req)
-        self._trace_prefill("prefill_dense", tasks, time.perf_counter() - t_w)
+        self._account_prefill("prefill_dense", tasks,
+                              time.perf_counter() - t_w)
 
     def _bucketed(self, length: int) -> int:
         """Pad a prefill length to the bucket multiple (capped at
@@ -676,6 +731,9 @@ class ServingEngine:
         lanes = [l for l in decode_lanes if self.slot_req[l] is not None]
         if not lanes:
             return
+        # pre-step KV lengths price the split-KV reads (ledger, below)
+        kv_lens = [self.scheduler.by_rid[self.slot_req[l].rid].filled
+                   for l in lanes]
         if self.paged and self._paged_dirty:
             # upload the host allocator's view only when it changed. Lanes
             # still PREFILLING get -1 rows: the decode write drops their
@@ -701,11 +759,15 @@ class ServingEngine:
         dt = time.perf_counter() - t0
         for _ in lanes:
             self._h_tok.observe(dt)
+        hbm = self.tm.ledger.price.decode_bytes(kv_lens)
+        self.tm.ledger.account("decode", hbm_bytes=hbm, wall_s=dt,
+                               tokens=len(lanes))
         tr = self.tm.tracer
         if tr.enabled:
             tr.span("step", "decode", tr.now() - dt, dt,
                     step=self._step_idx, lanes=list(lanes),
-                    tokens=len(lanes), tiles=self._tile_args())
+                    tokens=len(lanes), kv_rows=int(sum(kv_lens)),
+                    hbm_bytes=hbm, tiles=self._tile_args())
         for lane in lanes:
             req = self.slot_req[lane]
             t = int(nxt[lane])
@@ -719,24 +781,31 @@ class ServingEngine:
                 self._finish(lane, req,
                              "eos" if hit_eos else "max_new_tokens")
 
-    # ------------------------------------- telemetry helpers
-    def _trace_prefill(self, name: str, tasks: list[ChunkTask],
-                       dt: float) -> None:
+    # ------------------------------------- telemetry accounting helpers
+    def _account_prefill(self, name: str, tasks: list[ChunkTask],
+                         dt: float) -> None:
+        """IO-ledger + trace bookkeeping for one executed prefill call."""
+        spans = [(t.start, t.length) for t in tasks]
+        tokens = sum(t.length for t in tasks)
+        hbm = self.tm.ledger.price.prefill_bytes(spans)
+        self.tm.ledger.account(name, hbm_bytes=hbm, wall_s=dt,
+                               tokens=tokens)
         tr = self.tm.tracer
         if not tr.enabled:
             return
         tr.span("step", name, tr.now() - dt, dt, step=self._step_idx,
                 lanes=[t.lane for t in tasks],
                 chunks=[[t.start, t.length] for t in tasks],
-                tokens=sum(t.length for t in tasks),
-                tiles=self._tile_args())
+                tokens=tokens, hbm_bytes=hbm, tiles=self._tile_args())
         for t in tasks:
             tr.event("req", "chunk", rid=t.rid, lane=t.lane,
                      start=t.start, length=t.length, last=t.last)
 
     def _tile_args(self) -> dict[str, Any]:
-        bq, bk = tuning.fwd_tiles(self.model.cfg.head_dim)
-        out: dict[str, Any] = {"block_q": bq, "block_k": bk}
+        """The priced tile geometry (and the decode's) for span args."""
+        p = self.tm.ledger.price
+        out: dict[str, Any] = {"block_q": p.block_q, "block_k": p.block_k,
+                               "kv_major": p.kv_major}
         if hasattr(self, "decode_block_k"):
             out["decode_block_k"] = self.decode_block_k
         if hasattr(self, "num_decode_splits"):
@@ -812,7 +881,9 @@ class ServingEngine:
 
     # --------------------------------------------------------- observability
     def _record_prefix_hit(self, rid: int) -> None:
-        """Account one admission's prefix-cache outcome."""
+        """Account one admission's prefix-cache outcome: rows the scheduler
+        mapped from shared pages are prefill that never runs, credited in
+        HBM bytes (``io_model.prefix_cache_hbm_bytes_saved``)."""
         if not self.prefix_cache:
             return
         self._c_prefix_lookups.inc()
@@ -822,10 +893,19 @@ class ServingEngine:
         self._c_prefix_hits.inc()
         self._c_prefix_pages.inc(cached // self.page_size)
         self._c_tokens_skipped.inc(cached)
+        cfg = self.model.cfg
+        saved = int(io_model.prefix_cache_hbm_bytes_saved(
+            cached, cfg.head_dim, cfg.num_heads, cfg.num_kv_heads,
+            elt=tuning.elt_bytes(cfg.dtype), layers=cfg.num_layers))
+        self._c_hbm_saved.inc(saved)
+        # prefix hits are bytes NOT spent: the ledger carries them as a
+        # separate credit kind, never summed into total_bytes().
+        self.tm.ledger.account("prefix_saved", hbm_bytes=saved,
+                               tokens=cached)
         tr = self.tm.tracer
         if tr.enabled:
             tr.event("req", "prefix_hit", rid=rid, cached_tokens=cached,
-                     pages=cached // self.page_size)
+                     pages=cached // self.page_size, hbm_bytes_saved=saved)
 
     @staticmethod
     def step_stats_printer():

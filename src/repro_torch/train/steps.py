@@ -8,20 +8,21 @@ metrics are the reference's: loss, ce, aux (the MoE load-balancing loss,
 0 for dense models), tokens and grad_norm.
 
 Clipping, update and apply go piece by piece (each top-level entry of the
-params, each block of ``blocks`` and of an encoder's ``enc_blocks``), so the fp32 clipped gradients and updates of only one
-piece exist at a time: at olmoe-1b-7b's width that is ~3.4 GB instead of
-8 bytes a parameter. The global norm is taken over every gradient first,
-and both optimizers work leaf by leaf, so the result is the same as
-clipping and updating the whole tree at once — the tree as the reference
-holds it: its blocks stacked on a leading layer axis. Its optimizers
-decay a leaf of two or more dims, and each block leaf has the layer axis
-there, so a block's 1-D leaves (norm scales, biases, the SSM's ``A_log``,
-``D``, ``dt_bias``) are decayed and only the top-level 1-D ones (the final
-norm, an encoder's final norm) are not. The step hands each block, an
-encoder's too, to the optimizer with that axis (a view), so the updates
-are the reference's. The
-sharded and ZeRO-1 step factories wait for the tensor/data-parallel slice
-(ROADMAP.md).
+params, each block of ``blocks`` and of an encoder's ``enc_blocks``), so
+the fp32 clipped gradients and updates of only one piece exist at a time:
+at olmoe-1b-7b's width that is ~3.4 GB instead of 8 bytes a parameter.
+The global norm is taken over every gradient first, AdamW works element
+by element, and LAMB's trust ratio of a block leaf is taken over all
+layers (two passes over the blocks, ``Optimizer.stacked``), so the result
+is the same as clipping and updating the whole tree at once — the tree as
+the reference holds it: its blocks stacked on a leading layer axis. Its
+optimizers decay a leaf of two or more dims, and each block leaf has the
+layer axis there, so a block's 1-D leaves (norm scales, biases, the SSM's
+``A_log``, ``D``, ``dt_bias``) are decayed and only the top-level 1-D ones
+(the final norm, an encoder's final norm) are not. The step hands each
+block, an encoder's too, to the optimizer with that axis (a view), so the
+updates are the reference's. The sharded and ZeRO-1 step factories wait
+for the tensor/data-parallel slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -32,17 +33,6 @@ from repro_torch.core.tree import tree_leaves, tree_map, with_leaves
 from repro_torch.models.model_zoo import Model
 from repro_torch.optim.optimizers import (Optimizer, apply_updates,
                                           clip_scale, global_norm)
-
-
-def _pieces(tree) -> list[tuple]:
-    """Keys of the tree's top-level entries, a list's items one by one."""
-    keys = []
-    for k, v in tree.items():
-        if isinstance(v, list):
-            keys += [(k, i) for i in range(len(v))]
-        else:
-            keys.append((k,))
-    return keys
 
 
 def _get(tree, key):
@@ -59,32 +49,62 @@ def _set(tree, key, value) -> None:
 def _clip_update_apply(optimizer: Optimizer, grads, opt_state, params,
                        clip_norm: float):
     """Global-norm clipping, the optimizer update and its application, one
-    piece (``_pieces``) at a time; each piece's gradients are released once
-    it is done; a block goes with a leading layer axis, as the reference
-    stacks it (the moments are updated in place through the views).
+    piece at a time (each top-level entry of the params, each block of a
+    list); each piece's gradients are released once its moments are
+    updated; a block goes with a leading layer axis, as the reference
+    stacks it (the moments are updated in place through the views). An
+    optimizer with a ``stacked`` update (LAMB) takes the blocks of a list
+    in two passes, so that a block leaf's update sees the whole stack:
+    pass 1 updates every block's moments and sums its statistics (turned
+    into one scale per leaf), pass 2 forms and applies every block's
+    update.
     Returns (new params, opt_state, norm before clipping)."""
     norm = global_norm(grads)
     scale = clip_scale(norm, clip_norm)
     step = opt_state["step"]
     new = {k: list(v) if isinstance(v, list) else v
            for k, v in params.items()}
-    for key in _pieces(params):
-        block = len(key) == 2
 
+    def piece(key, with_grads=True):
+        """(clipped fp32 grads or None, optimizer state, params) of one
+        piece, a block with a leading layer axis (views)."""
         def view(t):
-            return t.unsqueeze(0) if block else t
+            return t.unsqueeze(0) if len(key) == 2 else t
 
-        g = tree_map(lambda x: view(x.float() * scale), _get(grads, key))
-        _set(grads, key, None)
+        g = None
+        if with_grads:
+            g = tree_map(lambda x: view(x.float() * scale), _get(grads, key))
+            _set(grads, key, None)
         state = {"step": step, "mu": tree_map(view, _get(opt_state["mu"], key)),
                  "nu": tree_map(view, _get(opt_state["nu"], key))}
-        updates, state = optimizer.update(g, state,
-                                          tree_map(view, _get(params, key)))
-        del g
-        if block:
+        return g, state, tree_map(view, _get(params, key))
+
+    def apply(key, updates):
+        if len(key) == 2:
             updates = tree_map(lambda u: u.squeeze(0), updates)
         _set(new, key, apply_updates(_get(params, key), updates))
-    opt_state["step"] = state["step"]
+
+    for name, entry in params.items():
+        stacked = isinstance(entry, list) and optimizer.stacked is not None
+        keys = ([(name, i) for i in range(len(entry))]
+                if isinstance(entry, list) else [(name,)])
+        if stacked:
+            sums: list = []
+            for key in keys:
+                g, state, p = piece(key)
+                optimizer.stacked.moments(g, state, p, sums)
+                del g
+            scales = optimizer.stacked.scales(state, sums)
+            for key in keys:
+                _, state, p = piece(key, with_grads=False)
+                apply(key, optimizer.stacked.update(state, p, scales))
+            continue
+        for key in keys:
+            g, state, p = piece(key)
+            updates, _ = optimizer.update(g, state, p)
+            del g
+            apply(key, updates)
+    opt_state["step"] = step + 1
     return new, opt_state, norm
 
 

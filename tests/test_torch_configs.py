@@ -1,7 +1,7 @@
 """The port's architecture registry against the JAX package's: every
 field the two ``ModelConfig`` classes share is equal for each of the seven
-dense archs, the two MoE archs, the SSM and hybrid archs and the
-encoder-decoder, at the
+dense archs, the two MoE archs, the SSM and hybrid archs, the
+encoder-decoder and the vision-language decoder, at the
 published size and after ``reduced_config`` (also with overrides), the
 reduction clamps the experts to 8 and the top-k to 2 as the reference's
 does, gives no heads and no MLP where the arch has none, and the config's
@@ -12,6 +12,7 @@ import dataclasses
 
 import pytest
 
+from repro.configs import ARCHS as jax_archs
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced_config as jax_reduced_config
 from repro.models.attention_layer import attn_spec_from_config as jax_spec
@@ -24,6 +25,7 @@ DENSE = ["granite-3-2b", "olmo-1b", "qwen3-32b", "internlm2-20b",
 MOE = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"]
 SSM = ["mamba2-2.7b", "hymba-1.5b"]
 ENCDEC = ["seamless-m4t-medium"]
+VLM = ["phi-3-vision-4.2b"]
 
 
 def _shared(port_cfg, jax_cfg):
@@ -35,26 +37,28 @@ def _shared(port_cfg, jax_cfg):
 
 
 def test_registry_holds_the_dense_archs():
-    """The dense archs, and beside them the MoE, SSM, hybrid and
-    encoder-decoder archs, under the reference's names and families; the
-    VLM is the next arch not ported yet."""
-    assert sorted(ARCHS) == sorted(DENSE + MOE + SSM + ENCDEC) == list_archs()
+    """The dense archs, and beside them the MoE, SSM, hybrid,
+    encoder-decoder and vision-language archs, under the reference's names
+    and families: every arch of the reference."""
+    assert sorted(ARCHS) == sorted(DENSE + MOE + SSM + ENCDEC + VLM) \
+        == list_archs() == sorted(jax_archs)
     assert {a for a in ARCHS if get_config(a).family == "dense"} == set(DENSE)
     assert {a for a in ARCHS if get_config(a).family == "moe"} == set(MOE)
     assert get_config("mamba2-2.7b").family == "ssm"
     assert get_config("hymba-1.5b").family == "hybrid"
     assert get_config("seamless-m4t-medium").family == "encdec"
+    assert get_config("phi-3-vision-4.2b").family == "vlm"
     with pytest.raises(KeyError):
-        get_config("phi-3-vision-4.2b")
+        get_config("phi-3-vision")
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + SSM + ENCDEC)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM + ENCDEC + VLM)
 def test_published_fields_equal_jax(arch):
     ours, ref = _shared(get_config(arch), jax_get_config(arch))
     assert ours == ref
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE + SSM + ENCDEC)
+@pytest.mark.parametrize("arch", DENSE + MOE + SSM + ENCDEC + VLM)
 @pytest.mark.parametrize("overrides", [{}, {"head_dim": 32, "window": 300},
                                        {"num_layers": 1, "causal": False}])
 def test_reduced_fields_equal_jax(arch, overrides):

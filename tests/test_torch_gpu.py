@@ -113,7 +113,7 @@ def _contiguous_case(cuda, dtype, d, mask, seed=None, hkv=2):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 64, 96, 128])
 @pytest.mark.parametrize("mask", ["causal_segments", "window_kvmask_tail",
                                   "positions"])
 def test_flash_fwd_matches_plain(cuda, dtype, d, mask):
@@ -159,7 +159,7 @@ def _check_empty_row(out, b, r):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
 @pytest.mark.parametrize("bq,bk", [(8, 8), (24, 40), (40, 24)])
 def test_flash_fwd_ragged_tiles_match_plain(cuda, dtype, d, bq, bk):
     """The forward at block_q / block_k of 8, 24 and 40 (zero-padded to the
@@ -174,7 +174,7 @@ def test_flash_fwd_ragged_tiles_match_plain(cuda, dtype, d, bq, bk):
 
 
 @pytest.mark.parametrize("variant", ["fa2", "paper"])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 96])
 @pytest.mark.parametrize("dropout_seed", [77, 901])
 def test_dropout_bf16_forward_and_backward_match_plain(cuda, variant, d,
                                                        dropout_seed):
@@ -214,7 +214,7 @@ def _check_grads(got, want, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
 @pytest.mark.parametrize("mask", ["causal_segments", "window_kvmask_tail",
                                   "positions"])
 @pytest.mark.parametrize("hkv", [2, 8])
@@ -239,7 +239,7 @@ def test_flash_bwd_matches_plain(cuda, dtype, d, mask, hkv):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
 @pytest.mark.parametrize("bq,bk", [(8, 8), (24, 40), (40, 24), (64, 64)])
 def test_flash_bwd_ragged_tiles_match_plain(cuda, dtype, d, bq, bk):
     """The backward pair at block_q / block_k of 8, 24, 40 and 64 (the
@@ -283,6 +283,70 @@ def test_paper_variant_matches_plain(cuda, dtype):
     call["variant"] = "paper"
     out = fa.flash_attention_forward(*args, **call)
     _check(out, fa.flash_attention_forward_plain(*args, **call), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["fa2", "paper"])
+@pytest.mark.parametrize("dropout_p", [0.0, 0.2])
+def test_head_dim_96_forward_variants_and_backward_match_plain(
+        cuda, dtype, variant, dropout_p):
+    """Every contiguous instantiation at head_dim 96 (phi-3-vision's: 12
+    chunks a row, the swizzle that permutes within a row of 12): the
+    forward in both accumulator variants with and without dropout, then
+    the backward pair fed the kernel's (o, m, l) against the plain backward
+    fed the plain ones, at ragged tiles with a row with no key."""
+    gen, args, call = _ragged_case(cuda, dtype, 96, 24, 40, seed=5)
+    call.update(variant=variant)
+    if dropout_p:
+        call.update(dropout_p=dropout_p, dropout_seed=31,
+                    dropout_dims=(70, 150))
+    out = fa.flash_attention_forward(*args, **call)
+    torch.cuda.synchronize()
+    plain = fa.flash_attention_forward_plain(*args, **call)
+    _check(out, plain, dtype)
+    _check_empty_row(out, 0, 5)
+    do = torch.randn(args[0].shape, generator=gen).to(cuda, dtype)
+    bcall = {n: x for n, x in call.items() if n != "variant"}
+    got = fa.flash_attention_backward(*args[:3], *out[:1], do, *out[1:],
+                                      *args[3:], **bcall)
+    want = fa.flash_attention_backward_plain(*args[:3], plain[0], do,
+                                             *plain[1:], *args[3:], **bcall)
+    _check_grads(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", ["fa2", "paper"])
+@pytest.mark.parametrize("page_size", [16, 64])
+def test_head_dim_96_paged_forward_and_backward_match_plain(
+        cuda, dtype, variant, page_size):
+    """The paged instantiations at head_dim 96: the paged forward in both
+    variants (2 warp groups a CTA above d 64) and the paged dq, dkv and
+    fold (fp32 scalar body and bf16 tensor-core body) against the plain
+    versions over the gathered pages."""
+    q, k_pool, v_pool, page_list, ids, do = _paged_grad_case(
+        cuda, dtype, page_size, seed=9, d=96)
+    bq = 32
+    T = page_list.shape[1]
+    layout = M.compile_block_layout(M.MaskSpec(causal=True, **ids),
+                                    q.shape[2], T * page_size, bq,
+                                    page_size).as_array(cuda)
+    layout = M.paged_prefill_block_layout(layout, page_list)
+    call = dict(scale=96 ** -0.5, causal=True, window=None, block_q=bq,
+                **ids)
+    out = fa.flash_prefill_paged_forward(q, k_pool, v_pool, page_list,
+                                         layout, variant=variant, **call)
+    torch.cuda.synchronize()
+    plain = fa.flash_prefill_paged_forward_plain(
+        q, k_pool, v_pool, page_list, layout, variant=variant, **call)
+    _check(out, plain, dtype)
+    res = (q, k_pool, v_pool, page_list, plain[0], do, plain[1], plain[2],
+           layout)
+    got = fa.flash_prefill_paged_backward(*res, **call)
+    want = fa.flash_prefill_paged_backward_plain(*res, **call)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert err <= tol, float(err)
 
 
 def test_differentiable_op_on_card_matches_cpu(cuda):
@@ -350,7 +414,7 @@ def test_flash_fwd_paged_matches_plain(cuda, dtype, page_size):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
 @pytest.mark.parametrize("page_size", [8, 16, 32, 64])
 def test_flash_fwd_paged_page_groups_match_plain(cuda, dtype, d, page_size):
     """A kv tile gathers 64 // page_size pages: a dead slot between the two
@@ -596,7 +660,7 @@ def _check_decode(dtype, name, call, plain_parts, idle):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
 @pytest.mark.parametrize("page_size", [8, 16, 32, 64])
 def test_flash_decode_paged_page_groups_match_plain(cuda, dtype, d,
                                                     page_size):
@@ -630,7 +694,7 @@ def test_flash_decode_paged_page_groups_match_plain(cuda, dtype, d,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
 @pytest.mark.parametrize("block_k", [8, 24, 40, 128])
 def test_flash_decode_ragged_blocks_match_plain(cuda, dtype, d, block_k):
     """The contiguous decode body with kv blocks that are not 64 rows
@@ -704,11 +768,11 @@ def test_flash_decode_refuses_more_splits_than_a_cluster(cuda, paged):
     assert fd.LAUNCHES[name] == n0
 
 
-def _paged_grad_case(cuda, dtype, page_size, seed=0):
+def _paged_grad_case(cuda, dtype, page_size, seed=0, d=64):
     """Two rows, one segment each, whose prefixes share their first pool
     page; scrambled pages, dead slots, a padded q tail in row 1."""
     gen = torch.Generator().manual_seed(seed + page_size)
-    hq, hkv, d, num_pages, sq = 8, 2, 64, 60, 64
+    hq, hkv, num_pages, sq = 8, 2, 60, 64
     spans, chunks = [150, 70], [64, 30]
     T = max(-(-s // page_size) for s in spans) + 2
     pages = torch.randperm(num_pages, generator=gen).int()
@@ -847,7 +911,7 @@ def _paged_group_case(cuda, d, page_size, block_q, seed=0):
             layout), call
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
 @pytest.mark.parametrize("page_size", [8, 16, 32, 64])
 @pytest.mark.parametrize("block_q", [32, 64])
 def test_flash_bwd_paged_bf16_page_groups_match_plain(cuda, d, page_size,

@@ -40,10 +40,11 @@ def test_fwd_smem_bf16_staging():
 
 
 def test_fwd_kv_groups():
+    assert tuning.KERNEL_HEAD_DIMS == (16, 32, 64, 96, 128)
     assert [tuning.fwd_kv_groups(d, False) for d in tuning.KERNEL_HEAD_DIMS] \
-        == [1, 1, 1, 1]
+        == [1, 1, 1, 1, 1]
     assert [tuning.fwd_kv_groups(d, True) for d in tuning.KERNEL_HEAD_DIMS] \
-        == [3, 3, 3, 2]
+        == [3, 3, 3, 2, 2]
 
 
 @pytest.mark.parametrize("page_size,pages", [(8, 8), (16, 4), (32, 2), (64, 1)])
