@@ -5,7 +5,7 @@
     python3 chip_smoke.py --ab PARENT_CHECKOUT    # A/B against another checkout
 
 Imports nothing of JAX or of the JAX package; needs one CUDA card and the
-repository checkout beside it (``src/repro_torch``). Twenty-two main
+repository checkout beside it (``src/repro_torch``). Twenty-four main
 paths run, through the hand-written kernels where they have attention: four
 block-sparse attentions (paper Alg. 5) as a user calls them (phase 2f), the
 trainable paged prefill (phase 2c),
@@ -19,7 +19,9 @@ families: dense-slot serving and training of mamba2-2.7b (phase 13, no
 attention kernel) and of hymba-1.5b (phase 14), the encoder-decoder:
 model-level serving and training of seamless-m4t-medium (phase 15), and
 the vision-language decoder: model-level serving and training of
-phi-3-vision-4.2b at head_dim 96 (phase 16).
+phi-3-vision-4.2b at head_dim 96 (phase 16), and tensor- and
+sequence-parallel paged serving of granite-3-2b by ranks that share the
+card (phase 17).
 Phases:
 
 1. print the card's name and power limit (nvidia-smi), then build every
@@ -256,7 +258,22 @@ Phases:
    steps (AdamW) on 4 rows of 576 patches + 1472 tokens at full depth,
    with a falling loss. The paged serve of phase 4 (and those of phases
    9-11) print the engine's IO ledger: predicted HBM bytes, wall time and
-   implied GB/s per step kind, against the card's 3.35 TB/s.
+   implied GB/s per step kind, against the card's 3.35 TB/s;
+17. parity-tp, serve-tp2, serve-sp2 (``tp_serving_phase``): SPMD ranks
+   (``repro_torch.distributed``, spawned through ``torch.multiprocessing``)
+   sharing the one card over a gloo group, collectives staged through
+   host memory (NCCL takes one card a rank): granite-3-2b at full width,
+   2 layers, float32, at tp=2, sp=2 (allgather and ring) and (sp 2, tp 2)
+   against the tp=1 engine on the card (greedy tokens identical,
+   packed-prefill logits within 1e-4, each step kind's collective census
+   exact on every rank); then granite-3-2b in bf16 at full depth serving
+   serve's traffic at tp=2 and at sp=2 (allgather) against the tp=1 serve:
+   every rank's tokens identical, teacher-forced logits along tp=1's
+   tokens within ``TP_LOGIT_SPACINGS`` bf16 spacings of tp=1's (a token
+   parting only at a top-2 margin within twice that), #1 (at tp only),
+   #4 and #8 launched on every rank, tok/s, TTFT p50 and each rank's peak
+   memory; rank 0's #1, #4 and #8 calls held in the fresh process of
+   phase 9 (``serve_tp2`` / ``serve_sp2`` sub-entries).
 
 ``--ab PARENT_CHECKOUT`` runs only an A/B against another checkout (e.g.
 ``git archive`` of the parent commit): first both checkouts' kernel
@@ -2033,15 +2050,16 @@ def serve_shape_records(torch, seed: int, calls: dict, tag: str) -> dict:
 
     out = {}
     with torch.inference_mode():        # the engine's tensors were made so
-        args, kw = inputs("flash_fwd")
-        b, hq, sq, d = args[0].shape
-        out["flash_fwd"] = packed_prefill_record(
-            torch, gen, args, kw,
-            f"{tag} {'packed ' if kw['q_segment_ids'] is not None else ''}"
-            f"prefill b={b} hq={hq} hkv={args[1].shape[1]} "
-            f"S={sq} d={d}, {'causal' if kw['causal'] else 'non-causal'}, "
-            f"window {kw['window']}, rows by segment "
-            f"{segments(kw['q_segment_ids'])}")
+        if "flash_fwd" in calls:        # none at sp > 1 (chunk steps only)
+            args, kw = inputs("flash_fwd")
+            b, hq, sq, d = args[0].shape
+            out["flash_fwd"] = packed_prefill_record(
+                torch, gen, args, kw,
+                f"{tag} {'packed ' if kw['q_segment_ids'] is not None else ''}"
+                f"prefill b={b} hq={hq} hkv={args[1].shape[1]} "
+                f"S={sq} d={d}, {'causal' if kw['causal'] else 'non-causal'}, "
+                f"window {kw['window']}, rows by segment "
+                f"{segments(kw['q_segment_ids'])}")
         if "flash_decode" in calls:
             args, kw = inputs("flash_decode")
             dec = contiguous_decode_record_at(torch, gen, args, kw)
@@ -3655,6 +3673,360 @@ def phi3v_train_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: tensor- and sequence-parallel serving, ranks sharing one card
+# ---------------------------------------------------------------------------
+
+# the parity meshes (sp, tp, sp strategy) of phase 17 at 2 and 4 ranks,
+# and the two bf16 serves' (granite-3-2b, 40 layers, serve's traffic)
+PARITY_MESHES = ((1, 2, None), (2, 1, "allgather"), (2, 1, "ring"),
+                 (2, 2, "allgather"))
+SERVE_TP_MESHES = {"serve_tp2": (1, 2, None), "serve_sp2": (2, 1, "allgather")}
+# the teacher-forced logits of a bf16 tp/sp serve against tp=1's: within
+# this many bf16 spacings at the row's top |logit| (PERF.md §6);
+# a token may part from tp=1's only where tp=1's top-2 margin is within
+# twice that
+TP_LOGIT_SPACINGS = 16
+RANKS_NOTE = "ranks sharing one card, collectives through host memory"
+
+
+def _spacing(top: float) -> float:
+    """One bf16 spacing at |top|."""
+    return 2.0 ** (math.floor(math.log2(max(abs(top), 2 ** -60))) - 7)
+
+
+def _teacher_batch(torch, prompts, outputs, dev):
+    """One packed prefill of every request's prompt and its first 31 of 32
+    generated tokens (``outputs``, by rid = index), and the rows whose
+    logits predict each generated token."""
+    toks, segs, rows, off = [], [], [], 0
+    for i, p in enumerate(prompts):
+        seq = p + outputs[i][:-1]
+        toks += seq
+        segs += [i] * len(seq)
+        rows += [off + len(p) - 1 + j for j in range(len(outputs[i]))]
+        off += len(seq)
+    pad = (-off) % 64
+    toks += [0] * pad
+    segs += [-1] * pad
+    return ({"tokens": torch.tensor([toks], device=dev),
+             "segment_ids": torch.tensor([segs], dtype=torch.int32,
+                                         device=dev)},
+            torch.tensor(rows, device=dev))
+
+
+def _tp_serve_rank(torch, job) -> dict:
+    """One rank of serve-tp2 / serve-sp2: the weights drawn from the seed,
+    the requests served once with rank 0's #1, #4 and #8 calls captured
+    (``capture_calls``; the warm-up), then once timed with the launch
+    counters reset just before and read just after; then the
+    teacher-forced logits along tp=1's tokens (``job["forced"]``) through
+    the rank's shard model, brought back by rank 0."""
+    from repro_torch.distributed.meshes import serve_mesh
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServingEngine
+
+    sp, tp, strategy = job["mesh"]
+    mesh = serve_mesh(sp, tp, backend="gloo", device=job.get("device",
+                                                              "cuda"))
+    dev = mesh.device
+    model = build_model(job["cfg"])
+    params = model.init(torch.Generator(device=dev).manual_seed(job["seed"]),
+                        device=dev)
+    kw = dict(job["engine"], tp=tp, sp=sp, sp_strategy=strategy, mesh=mesh,
+              device=dev)
+    wrappers = {k: v for k, v in SERVE_WRAPPERS.items()
+                if tp > 1 or k != "flash_fwd"}
+    calls = None
+    if mesh.rank == 0:
+        calls = capture_calls(torch, lambda: _serve(
+            ServingEngine(model, params, **kw), job["prompts"], 32,
+            prime=False), wrappers)
+        calls = {n: (tuple(_portable(torch, x) for x in a),
+                     {k: _portable(torch, x) for k, x in kws.items()})
+                 for n, (a, kws) in calls.items()}
+    else:
+        _serve(ServingEngine(model, params, **kw), job["prompts"], 32,
+               prime=False)
+    eng = ServingEngine(model, params, **kw)
+    del params
+    on_card = dev.type == "cuda"      # False only in a CPU rehearsal
+    if on_card:
+        release(torch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    outputs = _serve(eng, job["prompts"], 32, prime=False)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) if on_card else None
+    batch, rows = _teacher_batch(torch, job["prompts"], job["forced"], dev)
+    with torch.inference_mode():
+        _, logits = eng.shard_model.prefill_packed(eng.params, batch)
+    return {"rank": mesh.rank, "coord": mesh.coord, "outputs": outputs,
+            "wall_s": wall, "latency": eng.latency_stats(),
+            "peak_memory_bytes": peak, "launches": launches,
+            "prefix_hits": eng.prefix_hits, "step_census": eng.step_census,
+            "cache_bytes": eng.cache_bytes(), "calls": calls,
+            "forced_logits": (logits[0, rows].float().cpu()
+                              if mesh.rank == 0 else None)}
+
+
+def _portable(torch, x):
+    """A captured argument as ``serve_shape_records_apart`` stores it: q,
+    K and V (meta) as ("meta", shape, dtype), other tensors on the host."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    if x.device.type == "meta":
+        return ("meta", tuple(x.shape), str(x.dtype).removeprefix("torch."))
+    return x.cpu()
+
+
+def tp_rank(jobs: list) -> list:
+    """What one spawned rank of phase 17 runs: the float32 parity runs
+    (``launch.serve_rank``, TF32 off as in the parent) and the bf16 serves
+    (``_tp_serve_rank``)."""
+    import torch
+
+    from repro_torch.distributed import launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    use_io_model()
+    return [launch.serve_rank(job["spec"]) if job["kind"] == "parity"
+            else _tp_serve_rank(torch, job) for job in jobs]
+
+
+def tp_serving_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
+    """Phase 17: the port's tensor- and sequence-parallel serving (DESIGN.md
+    §13-§14) as SPMD ranks (``repro_torch.distributed``) that share the one
+    H100 over a gloo group (NCCL refuses two ranks of one communicator on
+    one device), every collective staged through host memory: so this
+    phase measures correctness and the kernels' per-shard work, not the
+    speed of collectives. One spawn for each world size (2 ranks and 4).
+
+    * parity-tp: granite-3-2b at full width, 2 layers, float32, at tp=2,
+      sp=2 (allgather and ring) and (sp 2, tp 2), held to the tp=1 engine
+      on the card: greedy tokens identical, packed-prefill logits within
+      1e-4, each step kind's census exact on every rank;
+    * serve-tp2 and serve-sp2 (allgather): granite-3-2b in bf16 at full
+      width and depth, serve's traffic, against the tp=1 serve on the
+      card: every rank's tokens identical; teacher-forced logits along
+      tp=1's tokens within ``TP_LOGIT_SPACINGS`` bf16 spacings of tp=1's,
+      a token parting from tp=1's only at a top-2 margin within twice
+      that; #1 (at tp only), #4 and #8 launched on every rank; tok/s, TTFT
+      p50 and per-rank peak memory. Rank 0's #1, #4 and #8 calls are
+      returned (``rec["calls"]``) for ``serve_shape_records_apart``.
+
+    Returns ({"parity_tp", "spawn_s", path: record}, {path: rank 0's
+    launches})."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import launch
+    from repro_torch.distributed.sharding import expected_sp_prefill_census
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServingEngine
+
+    dev = torch.device("cuda")
+    # float32 parity at 2 layers: the tp=1 engine on the card
+    pcfg = dataclasses.replace(get_config("granite-3-2b"), num_layers=2,
+                               dtype="float32", attn_impl="pallas",
+                               use_decode_kernel=True)
+    gen = torch.Generator().manual_seed(seed + 1)
+
+    def ptoks(n):
+        return torch.randint(1, pcfg.vocab_size, (n,), generator=gen).tolist()
+
+    shared = ptoks(32)
+    pprompts = [shared + ptoks(9), ptoks(150), shared + ptoks(20),
+                shared + ptoks(3), ptoks(40)]
+    waves = [[{"prompt": pprompts[0], "max_new": 12}],
+             [{"prompt": p, "max_new": 12} for p in pprompts[1:]]]
+    pkw = dict(num_slots=4, capacity=256, page_size=16, chunk_size=64)
+    n1, n2 = len(pprompts[1]), len(pprompts[2])
+    live, pad = n1 + n2, (-(n1 + n2)) % 64
+    packed = {"tokens": torch.tensor([pprompts[1] + pprompts[2] + [0] * pad]),
+              "segment_ids": torch.tensor([[0] * n1 + [1] * n2 + [-1] * pad],
+                                          dtype=torch.int32)}
+    pmodel = build_model(pcfg)
+    pparams = pmodel.init(torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+    eng = ServingEngine(pmodel, pparams, device=dev, **pkw)
+    want = launch.serve_waves(eng, waves)
+    check(eng.prefix_hits >= 1, "parity-tp: the tp=1 run had no prefix hit")
+    with torch.inference_mode():
+        _, want_logits = pmodel.prefill_packed(
+            pparams, {k: v.to(dev) for k, v in packed.items()})
+    want_logits = want_logits.cpu()
+    del eng, pparams
+    release(torch)
+
+    # bf16 at full depth: the tp=1 serve of serve's traffic on the card,
+    # and its teacher-forced logits along its own tokens
+    cfg = dataclasses.replace(get_config("granite-3-2b"), attn_impl="pallas",
+                              use_decode_kernel=True)
+    gen = torch.Generator().manual_seed(seed + 2)
+
+    def toks(n):
+        return torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    toks(300)                        # serve's warm-up prompt: same traffic
+    shared = toks(64)
+    prompts = [shared + toks(1024 - 64)] + [shared + toks(n) for n in
+                                            (17, 120, 45, 200, 9, 77, 150)]
+    kw = dict(num_slots=4, capacity=1056, page_size=16, chunk_size=256)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    _serve(ServingEngine(model, params, device=dev, **kw), prompts[:2], 4,
+           prime=False)                                    # warm-up
+    eng = ServingEngine(model, params, device=dev, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forced = _serve(eng, prompts, 32, prime=False)
+    torch.cuda.synchronize()
+    tp1 = {"wall_s": time.perf_counter() - t0, "latency": eng.latency_stats(),
+           "cache_bytes": eng.cache_bytes()}
+    forced = [forced[i] for i in range(len(prompts))]
+    batch, rows = _teacher_batch(torch, prompts, forced, dev)
+    with torch.inference_mode():
+        _, lg = model.prefill_packed(params, batch)
+    tp1_logits = lg[0, rows].float().cpu()
+    del eng, params, lg
+    release(torch)
+    print(f"[serve-tp1] granite-3-2b 40 layers bf16, one process: "
+          f"{32 * len(prompts) / tp1['wall_s']:.1f} tok/s, TTFT p50 "
+          f"{tp1['latency']['ttft_p50'] * 1e3:.1f} ms [{card}]", flush=True)
+
+    def parity_job(mesh):
+        sp, tp, strategy = mesh
+        return {"kind": "parity", "spec": {
+            "cfg": pcfg, "params": None, "seed": seed, "device": "cuda",
+            "backend": "gloo", "runs": [{
+                "sp": sp, "tp": tp, "sp_strategy": strategy, "engine": pkw,
+                "waves": waves, "packed": {k: v.numpy()
+                                           for k, v in packed.items()}}]}}
+
+    # one spawn for each world size, its parity runs and its serves
+    jobs = [("parity", m, parity_job(m)) for m in PARITY_MESHES] + [
+        (path, mesh, {"kind": "serve", "mesh": mesh, "cfg": cfg,
+                      "seed": seed, "engine": kw, "prompts": prompts,
+                      "forced": forced})
+        for path, mesh in SERVE_TP_MESHES.items()]
+    results = {}
+    t0 = time.perf_counter()
+    for world in sorted({m[0] * m[1] for _, m, _ in jobs}):
+        mine = [j for j in jobs if j[1][0] * j[1][1] == world]
+        out = launch.spawn(world, tp_rank, [job for _, _, job in mine],
+                           threads=2)
+        for k, (name, mesh, _) in enumerate(mine):
+            results[(name, mesh)] = [r[k] for r in out]
+    spawn_s = time.perf_counter() - t0
+
+    L = pcfg.num_layers
+    parity = []
+    for mesh in PARITY_MESHES:
+        sp, tp, strategy = mesh
+        recs = [r[0] for r in results[("parity", mesh)]]
+        census = ({"all_reduce": 2 * L} if sp == 1 else
+                  expected_sp_prefill_census(L, sp=sp, strategy=strategy))
+        want_census = ({"prefill_zero": census, "prefill_chunk": census,
+                        "decode": census} if sp == 1 else
+                       {"prefill_chunk": census,
+                        "decode": {"all_reduce": 2 * L}})
+        err = max(float((torch.from_numpy(r["packed_logits"][:, :live])
+                         - want_logits[:, :live]).abs().max()) for r in recs)
+        tag = f"parity-tp sp={sp} tp={tp}" + (f" {strategy}" if sp > 1 else "")
+        for r in recs:
+            check(r["outputs"] == want,
+                  f"{tag}: rank {r['rank']}'s greedy tokens differ from the "
+                  f"tp=1 engine's")
+            check(r["step_census"] == want_census,
+                  f"{tag}: rank {r['rank']}'s census {r['step_census']} is "
+                  f"not {want_census}")
+        check(err <= 1e-4, f"{tag}: packed-prefill logits {err} from tp=1's")
+        print(f"[{tag}] granite-3-2b 2 layers float32, {sp * tp} ranks: greedy "
+              f"tokens identical to tp=1 ({len(want)} requests), packed "
+              f"prefill max |logit - tp=1| {err:.3g}, census {census} on "
+              f"every rank [{card}; {RANKS_NOTE}]", flush=True)
+        parity.append({"sp": sp, "tp": tp, "strategy": strategy,
+                       "identical": True, "max_abs_logit_err": err,
+                       "census": want_census, "prefix_hits":
+                       recs[0]["prefix_hits"]})
+
+    out, launches = {"parity_tp": parity, "spawn_s": spawn_s}, {}
+    n_tok = 32 * len(prompts)
+    for path, (sp, tp, strategy) in SERVE_TP_MESHES.items():
+        tag = path.replace("_", "-")
+        recs = results[(path, (sp, tp, strategy))]
+        r0 = recs[0]
+        for r in recs:
+            check(r["outputs"] == r0["outputs"],
+                  f"{tag}: rank {r['rank']}'s tokens differ from rank 0's")
+            for name in SERVE_KERNELS:
+                if name == "flash_fwd" and tp == 1:
+                    continue
+                check(r["launches"][name] > 0,
+                      f"{tag}: kernel {name} never launched on rank "
+                      f"{r['rank']}")
+        fl = r0["forced_logits"]
+        diffs, divergences = [], []
+        for i in range(len(prompts)):
+            for j in range(32):
+                top = float(tp1_logits[i * 32 + j].abs().max())
+                d = float((fl[i * 32 + j] - tp1_logits[i * 32 + j]).abs().max())
+                diffs.append(d / _spacing(top))
+            got, ref = r0["outputs"][i], forced[i]
+            if got != ref:
+                j = next(n for n, (a, b) in enumerate(zip(got, ref)) if a != b)
+                row = tp1_logits[i * 32 + j]
+                margin = float(row[ref[j]] - row[got[j]])
+                spc = margin / _spacing(float(row.abs().max()))
+                divergences.append({"rid": i, "step": j, "margin": margin,
+                                    "spacings": spc})
+                check(spc <= 2 * TP_LOGIT_SPACINGS,
+                      f"{tag}: request {i} parts from tp=1 at step {j} with "
+                      f"a top-2 margin of {spc:.3g} bf16 spacings")
+        check(max(diffs) <= TP_LOGIT_SPACINGS,
+              f"{tag}: teacher-forced logits {max(diffs):.3g} bf16 spacings "
+              f"from tp=1's (limit {TP_LOGIT_SPACINGS})")
+        lat = r0["latency"]
+        rec = {"model": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+               "sp": sp, "tp": tp, "strategy": strategy, "requests":
+               len(prompts), "new_tokens": n_tok, "wall_s": r0["wall_s"],
+               "tokens_per_s": n_tok / r0["wall_s"],
+               "ttft_p50_s": lat["ttft_p50"],
+               "tok_latency_p50_s": lat["tok_latency_p50"],
+               "peak_memory_bytes_by_rank": [r["peak_memory_bytes"]
+                                             for r in recs],
+               "cache_bytes_by_rank": [r["cache_bytes"] for r in recs],
+               "tp1": tp1, "launches_by_rank": [
+                   {n: r["launches"][n] for n in SERVE_KERNELS}
+                   for r in recs],
+               "census_by_rank": [r["step_census"] for r in recs],
+               "max_forced_logit_spacings": max(diffs),
+               "divergences": divergences, "prefix_hits": r0["prefix_hits"],
+               "calls": r0["calls"], "card": card, "note": RANKS_NOTE}
+        out[path] = rec
+        launches[path] = r0["launches"]
+        print(f"[{tag}] granite-3-2b 40 layers bf16, sp={sp} tp={tp}: "
+              f"{n_tok} tokens in {r0['wall_s']:.2f}s ({n_tok / r0['wall_s']:.1f}"
+              f" tok/s, TTFT p50 {lat['ttft_p50'] * 1e3:.1f} ms), peak memory "
+              f"by rank {[round(r['peak_memory_bytes'] / 2**30, 2) for r in recs]}"
+              f" GiB, pool {r0['cache_bytes'] / 2**20:.0f} MiB a rank (tp=1: "
+              f"{tp1['cache_bytes'] / 2**20:.0f}), every rank's tokens "
+              f"identical; teacher-forced logits within "
+              f"{max(diffs):.3g} bf16 spacings of tp=1's (limit "
+              f"{TP_LOGIT_SPACINGS}), {len(divergences)} requests part from "
+              f"tp=1 at margins {[round(d['spacings'], 2) for d in divergences]}"
+              f" spacings; launches by rank {rec['launches_by_rank']} "
+              f"[{card}; {RANKS_NOTE}]", flush=True)
+    print(f"[tp-serving] the spawns in {spawn_s:.1f}s", flush=True)
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
 # --ab: parent against change on the serving and training kernels, one call
 # ---------------------------------------------------------------------------
 
@@ -4137,8 +4509,13 @@ def main() -> int:
     train_phi3v, paths["train_phi3v"] = phi3v_train_phase(torch, args.seed,
                                                           card)
     lap("train_phi3v")
+    tp_serving, tp_paths = tp_serving_phase(torch, args.seed, card)
+    paths.update(tp_paths)
+    lap("tp_serving")
     serves = {"serve_qwen3": serve_qwen3, "serve_olmoe": serve_olmoe,
-              "serve_phi35moe": serve_phi35moe, "serve_hymba": serve_hymba}
+              "serve_phi35moe": serve_phi35moe, "serve_hymba": serve_hymba,
+              "serve_tp2": tp_serving["serve_tp2"],
+              "serve_sp2": tp_serving["serve_sp2"]}
     held = serve_shape_records_apart(torch, args.seed, {
         path: (path.replace("_", "-"), rec.pop("calls"))
         for path, rec in serves.items()})
@@ -4183,7 +4560,8 @@ def main() -> int:
               "serve_seamless": serve_seamless,
               "train_seamless": train_seamless,
               "phi3v_parity": phi3v_parity, "serve_phi3v": serve_phi3v,
-              "train_phi3v": train_phi3v, "phase_end_s": laps,
+              "train_phi3v": train_phi3v, "tp_serving": tp_serving,
+              "phase_end_s": laps,
               "total_s": time.perf_counter() - t_start}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(f"[done] total {record['total_s']:.1f}s", flush=True)

@@ -86,6 +86,17 @@ class ModelConfig:
     dtype: str = "bfloat16"
     remat: bool = True                  # activation checkpoint each block
 
+    # tensor and sequence parallelism (serving; DESIGN.md §13-§14): the
+    # GLOBAL shard counts, carried by a per-shard config (whose head and
+    # d_ff counts are the per-shard ones) for the decode split target
+    # (``kernels.tuning.decode_split_target``); ``sp_strategy`` is how a
+    # chunk's K/V slabs reach every sp rank ("allgather" or "ring",
+    # ``kernels.tuning.resolve_sp_strategy``). The mesh itself is passed
+    # to the model explicitly (``distributed.meshes.ServeMesh``).
+    tp_shards: int = 1
+    sp_shards: int = 1
+    sp_strategy: str = "allgather"
+
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // max(self.num_heads, 1))

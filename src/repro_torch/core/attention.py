@@ -57,6 +57,7 @@ class AttentionSpec:
     variant: str = "fa2"            # pallas accumulator variant: "paper"|"fa2"
     num_decode_splits: int | None = None
     use_decode_kernel: bool = False
+    tp_shards: int = 1              # decode split target (tuning)
 
 
 def attention(
@@ -190,7 +191,7 @@ def paged_decode_attention(
         return flash_decode_paged(q, k_pool, v_pool, page_table, kv_len,
                                   scale=scale,
                                   num_splits=spec.num_decode_splits,
-                                  window=spec.window)
+                                  window=spec.window, shards=spec.tp_shards)
     page_size = k_pool.shape[2]
     alloc = (page_table >= 0).repeat_interleave(page_size, dim=1)
     return decode_attention(

@@ -38,6 +38,10 @@ H100_FP32_FLOPS = 67e12               # FLOP/s outside the tensor cores
 H100_SMEM_PER_BLOCK = 232_448         # bytes of shared memory one block may use
 
 MAX_TILE = 64          # rows of a q or kv tile in the Hopper bodies
+# the reference's f32 sublane count: a sequence-parallel engine rounds its
+# prefill bucket to sp * SUBLANES rows, so that its chunks are the JAX
+# engine's
+SUBLANES = 8
 
 
 # ---------------------------------------------------------------------------

@@ -239,11 +239,15 @@ def flash_decode_paged(
     scale: float | None = None,
     num_splits: int | None = None,
     window: int | None = None,
+    shards: int = 1,
 ) -> torch.Tensor:
     """Split-KV decode against a PAGED KV cache; returns (b, hq, 1, d) in
     q's dtype. ``page_table`` maps each sequence's logical page t
-    (positions [t*ps, (t+1)*ps)) to a physical pool page."""
-    from repro_torch.kernels.tuning import resolve_paged_decode_splits
+    (positions [t*ps, (t+1)*ps)) to a physical pool page. ``shards`` is
+    the tensor-parallel shard count whose per-shard heads ``q`` holds: an
+    auto split count aims at ``tuning.decode_split_target(shards)``."""
+    from repro_torch.kernels.tuning import (decode_split_target,
+                                            resolve_paged_decode_splits)
     b, hq, sq, d = q.shape
     hkv, num_pages, page_size, _ = k_pool.shape
     if sq != 1:
@@ -253,7 +257,9 @@ def flash_decode_paged(
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     T = page_table.shape[1]
-    num_splits = resolve_paged_decode_splits(T, num_splits)
+    num_splits = resolve_paged_decode_splits(
+        T, num_splits,
+        target_splits=decode_split_target(shards, on_card=q.is_cuda))
     with torch.inference_mode():
         kv_len = kv_len.to(torch.int32)
         # one lowering per call: (b, T) page classes; unallocated entries

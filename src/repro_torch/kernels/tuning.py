@@ -21,8 +21,13 @@ the small part the serving path needs:
     split one CTA's kv walk (the bf16 forward's and the bf16 dq's alike);
   * ``resolve_paged_decode_splits`` — split-KV parallelism for paged decode
     with the divisor rule of ``flash_decode.validate_paged_decode_geometry``,
-    and ``check_decode_splits`` — the split counts the decode kernel takes
+    ``decode_split_target`` — its target, scaled by the tensor-parallel
+    shard count as in the reference and capped on the card — and
+    ``check_decode_splits`` — the split counts the decode kernel takes
     on the card (its splits merge in one thread-block cluster);
+  * ``resolve_sp_strategy`` — the sequence-parallel prefill's K/V movement
+    ("allgather" or "ring"), costed by ``io_model.sp_prefill_hbm_bytes``
+    at the forward kernel's own q tile;
   * ``choose_decode_geometry`` / ``resolve_decode_geometry`` — the
     contiguous cache's ``(block_k, num_splits)``: a Hopper chooser in place
     of the JAX package's SRAM-budget one, explicit values validated by
@@ -32,6 +37,7 @@ the small part the serving path needs:
 
 from __future__ import annotations
 
+from repro_torch.core import io_model
 from repro_torch.core.io_model import H100_SMEM_PER_BLOCK as SMEM_PER_BLOCK
 from repro_torch.core.io_model import MAX_TILE  # csrc/flash_fwd.cu MAX_BQ / MAX_BK
 from repro_torch.core.io_model import (attention_working_set_bytes,
@@ -138,6 +144,37 @@ def elt_bytes(dtype: str) -> int:
 
 def _divisors_desc(n: int) -> list[int]:
     return [d for d in range(n, 0, -1) if n % d == 0]
+
+
+def decode_split_target(shards: int = 1,
+                        target_splits: int = TARGET_DECODE_SPLITS, *,
+                        on_card: bool = False) -> int:
+    """Split-KV parallelism target of one shard's decode. Under tensor
+    parallelism a shard's decode grid has ``heads / tp`` heads, so the
+    reference scales the split count up by ``tp`` to keep the grid's
+    occupancy. The CPU keeps that count; on the card it stays capped at
+    ``MAX_DECODE_SPLITS``, the splits one thread-block cluster merges
+    (``check_decode_splits``). Only the order of the float sums differs."""
+    target = int(target_splits) * max(1, int(shards))
+    return min(target, MAX_DECODE_SPLITS) if on_card else target
+
+
+def resolve_sp_strategy(chunk: int, prefix: int, head_dim: int, *,
+                        heads_q: int = 1, heads_kv: int = 1, sp: int = 1,
+                        dtype: str = "float32", layers: int = 1) -> dict:
+    """The sequence-parallel prefill's K/V movement for one engine shape
+    (DESIGN.md §14): both strategies costed against replicated prefill by
+    ``io_model.sp_prefill_hbm_bytes`` at the forward kernel's q tile
+    (``fwd_tiles``: 64 rows; the reference costs its own tuner's tile).
+    ``heads_q`` / ``heads_kv`` are per tensor-parallel shard. Returns
+    ``{"strategy", "costs", "block_q"}``: the strategy that costs less
+    ("allgather" at sp <= 1, where none is used)."""
+    block_q = fwd_tiles(head_dim)[0]
+    costs = io_model.sp_prefill_hbm_bytes(
+        chunk, prefix, head_dim, max(1, heads_q), max(1, heads_kv), sp,
+        block_q=block_q, elt=elt_bytes(dtype), layers=max(1, layers))
+    strategy = "allgather" if sp <= 1 else costs["best"]
+    return {"strategy": strategy, "costs": costs, "block_q": block_q}
 
 
 def resolve_paged_decode_splits(pages_per_seq: int,

@@ -7,6 +7,8 @@ paged KV cache (or, with ``--dense``, the fixed-slot cache), on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --slots 4 --requests 8 --capacity 1088 --chunk-size 256 \\
         --long-prompt 1024 --shared-prefix 64 --max-new 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke \\
+        --device cpu --tp 2 --sp 2
 
 The flags are the JAX launcher's (``repro.launch.serve``) plus
 ``--device`` (default ``cuda``; without a card it raises) and
@@ -17,9 +19,19 @@ prefill and decode run through the hand-written kernels (in dense mode the
 contiguous split-KV decode kernel). Families with recurrent state
 (``mamba2-2.7b``, ``hymba-1.5b``) serve in dense slots without
 ``--dense``, as in the reference (the engine's default for them).
-``--tp`` > 1 and ``--sp`` > 1 are not ported yet and raise. An arch whose
-model reads frontend embeddings (``seamless-m4t-medium``) is refused: its
-requests would carry tokens alone.
+An arch whose model reads frontend embeddings (``seamless-m4t-medium``) is
+refused: its requests would carry tokens alone.
+
+``--tp`` / ``--sp`` above 1 serve tensor- and sequence-parallel (paged
+mode, the dense family; DESIGN.md §13-§14): the launcher spawns ``sp *
+tp`` ranks (``distributed.launch.spawn``), each building the same weights
+from ``--seed``, keeping its slices and serving the same requests over
+one ``ServeMesh``; rank 0 prints. ``--backend gloo`` (the default) runs
+the ranks on ``--device``, several on one card if need be, its
+collectives staged through host memory; ``--backend nccl`` puts rank r on
+``cuda:r`` and needs a card a rank. As in the reference, a ``--reduced``
+config whose kv heads do not divide by ``--tp`` (granite's 4 q / 1 kv)
+has both head counts scaled, keeping the GQA ratio, and says so.
 """
 
 from __future__ import annotations
@@ -33,6 +45,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced_config
+from repro_torch.distributed import launch
+from repro_torch.distributed.meshes import serve_mesh
 from repro_torch.models import build_model, require_token_inputs
 from repro_torch.serve import ServingEngine
 
@@ -74,9 +88,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many identical tokens to every prompt")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel shards (not ported yet)")
+                    help="tensor-parallel ranks (paged mode): the pool and "
+                         "the projections shard by heads, the scheduler "
+                         "runs on every rank")
     ap.add_argument("--sp", type=int, default=1,
-                    help="sequence-parallel shards (not ported yet)")
+                    help="sequence-parallel ranks (paged mode): each owns "
+                         "a slab of every prefill chunk's query rows")
+    ap.add_argument("--sp-strategy", default=None,
+                    choices=("allgather", "ring"),
+                    help="the sp K/V movement (default: the io_model's "
+                         "cheaper one)")
+    ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
+                    help="the ranks' collectives: gloo (any device, ranks "
+                         "may share a card) or nccl (rank r on cuda:r)")
     ap.add_argument("--trace", metavar="PATH", default=None,
                     help="write a Chrome trace-event JSON of the serve here")
     ap.add_argument("--metrics", action="store_true",
@@ -95,10 +119,16 @@ def model_config(args):
     if torch.device(args.device).type == "cuda":
         cfg = dataclasses.replace(cfg, attn_impl="pallas",
                                   use_decode_kernel=True)
+    if args.reduced and args.tp > 1 and cfg.num_kv_heads % args.tp:
+        ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
+        kv = -(-cfg.num_kv_heads // args.tp) * args.tp
+        cfg = dataclasses.replace(cfg, num_kv_heads=kv, num_heads=kv * ratio)
     return cfg
 
 
 def main(argv=None):
+    """Serve as the flags say. Returns the engine; with ``--tp`` / ``--sp``
+    above 1, every rank's tokens by rid, by rank."""
     args = build_parser().parse_args(argv)
     if args.smoke:
         args.reduced = True
@@ -107,11 +137,33 @@ def main(argv=None):
         args.chunk_size, args.token_budget = 8, 18
         args.requests, args.max_new = 2, 5
         args.long_prompt, args.shared_prefix = 16, 8
-    device = resolve_device(args.device)
+    resolve_device(args.device)
     if args.tp > 1 or args.sp > 1:
-        raise NotImplementedError("--tp > 1 and --sp > 1 are not ported yet")
+        return launch.spawn(args.tp * args.sp, _rank, args,
+                            backend=args.backend)
+    return run(args)
+
+
+def _rank(args):
+    """One rank of a tp/sp serve: its tokens by rid."""
+    mesh = serve_mesh(args.sp, args.tp, backend=args.backend,
+                      device=args.device)
+    eng = run(args, mesh)
+    return {r.rid: list(r.output) for r in eng.finished}
+
+
+def run(args, mesh=None):
+    """Build the model from ``--seed``, serve the requests, print (on rank
+    0 of a mesh), return the engine."""
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     cfg = model_config(args)
     require_token_inputs(cfg, "the serve launcher")
+    base = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.num_kv_heads != base.num_kv_heads:
+        say(f"[tp={args.tp}] scaled the reduced config to {cfg.num_heads}q/"
+            f"{cfg.num_kv_heads}kv heads so every rank owns whole kv-head "
+            f"groups")
     model = build_model(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(args.seed),
                         device=device)
@@ -122,7 +174,9 @@ def main(argv=None):
                         num_pages=args.pages, chunk_size=args.chunk_size,
                         token_budget=args.token_budget,
                         prefix_cache=args.prefix_cache,
-                        trace=bool(args.trace), device=device)
+                        tp=args.tp, sp=args.sp, sp_strategy=args.sp_strategy,
+                        mesh=mesh, trace=bool(args.trace), device=device)
+    del params
     rng = np.random.default_rng(args.seed)
     shared = [int(t) for t in rng.integers(1, cfg.vocab_size,
                                            size=args.shared_prefix)]
@@ -142,32 +196,37 @@ def main(argv=None):
     chunked = f" chunk={args.chunk_size}" if args.chunk_size else ""
     layout = (f"paged pool={eng.kv.num_pages}x{eng.kv.page_size}" if eng.paged
               else f"dense slots={args.slots}x{args.capacity}")
-    print(f"arch={cfg.name} device={device} attn={cfg.attn_impl}"
-          f"{chunked} lanes={args.slots} cache={eng.cache_bytes()/1e6:.2f} MB"
-          f" mode={layout}")
-    done = eng.run(on_step=ServingEngine.step_stats_printer())
+    if mesh is not None:
+        layout += (f" tp={eng.tp} sp={eng.sp}"
+                   f"{f'({eng.sp_strategy})' if eng.sp > 1 else ''}"
+                   f" backend={args.backend}")
+    say(f"arch={cfg.name} device={device} attn={cfg.attn_impl}"
+        f"{chunked} lanes={args.slots} cache={eng.cache_bytes()/1e6:.2f} MB"
+        f"{' per rank' if mesh is not None else ''} mode={layout}")
+    done = eng.run(on_step=ServingEngine.step_stats_printer()
+                   if mesh is None or mesh.rank == 0 else None)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     tok = sum(len(r.output) for r in done)
     lat = eng.latency_stats()
-    print(f"{len(done)} requests, {tok} tokens in {dt:.2f}s "
-          f"({tok/dt:.1f} tok/s, ttft p50 {lat['ttft_p50']*1e3:.1f} ms, "
-          f"peak_concurrent={eng.peak_active}, "
-          f"preemptions={eng.preemptions})")
+    say(f"{len(done)} requests, {tok} tokens in {dt:.2f}s "
+        f"({tok/dt:.1f} tok/s, ttft p50 {lat['ttft_p50']*1e3:.1f} ms, "
+        f"peak_concurrent={eng.peak_active}, "
+        f"preemptions={eng.preemptions})")
     if eng.prefix_cache:
-        print(f"prefix cache: hit-rate {eng.prefix_cache_hit_rate:.0%} "
-              f"({eng.prefix_hits}/{eng.prefix_lookups} admissions), "
-              f"{eng.prefix_pages_shared} pages shared, "
-              f"{eng.prefill_tokens_skipped} prefill tokens skipped")
+        say(f"prefix cache: hit-rate {eng.prefix_cache_hit_rate:.0%} "
+            f"({eng.prefix_hits}/{eng.prefix_lookups} admissions), "
+            f"{eng.prefix_pages_shared} pages shared, "
+            f"{eng.prefill_tokens_skipped} prefill tokens skipped")
     for r in done[:5]:
-        print(f"  req{r.rid}: {len(r.output)} tokens {r.output[:8]}...")
+        say(f"  req{r.rid}: {len(r.output)} tokens {r.output[:8]}...")
     if args.trace:
         n = eng.tm.tracer.to_chrome_trace(args.trace)
-        print(f"trace: {n} events -> {args.trace}")
+        say(f"trace: {n} events -> {args.trace}")
     if args.metrics:
-        print("\n-- metrics registry --")
-        print(eng.tm.registry.table())
+        say("\n-- metrics registry --")
+        say(eng.tm.registry.table())
     return eng
 
 

@@ -14,6 +14,14 @@ chunked prefill against the shared page pool
 cache (``decode_attention_step``) and against the pool
 (``paged_decode_attention_step``).
 
+Under tensor parallelism (a ``ServeMesh`` passed as ``mesh``; DESIGN.md
+§13) the config holds one rank's heads, and ``_tp_reduce`` sums the
+output projection's partial result over the tp group: the one collective
+the layer needs, since each q-head group lives with its kv head. Under
+sequence parallelism (§14) the chunk step's q rows are one rank's slab,
+and ``_sp_gather_kv`` assembles the whole chunk's K/V before the pool
+write. A mesh of None runs neither.
+
 The JAX step functions return a new cache and rely on jit buffer donation
 to update it in place; here the cache and pool tensors are updated IN
 PLACE and the same dict is returned. JAX's ``mode="drop"`` scatters (out-of-range page
@@ -34,6 +42,8 @@ from repro_torch.core.attention import (AttentionSpec, attention,
                                         paged_decode_attention,
                                         paged_prefill_attention)
 from repro_torch.core.masks import segment_relative_positions
+from repro_torch.distributed import comm
+from repro_torch.distributed.sharding import P
 from repro_torch.models.layers import apply_rope, dense_init, rms_normalize
 
 
@@ -42,7 +52,61 @@ def attn_spec_from_config(cfg: ModelConfig) -> AttentionSpec:
                          window=cfg.window, dropout_p=cfg.attn_dropout,
                          block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
                          num_decode_splits=cfg.num_decode_splits,
-                         use_decode_kernel=cfg.use_decode_kernel)
+                         use_decode_kernel=cfg.use_decode_kernel,
+                         tp_shards=cfg.tp_shards)
+
+
+def _tp_reduce(y, cfg: ModelConfig, mesh):
+    """The output projection's partial result summed over the mesh's tp
+    group, in y's dtype (each rank's ``_merge_heads(o) @ wo`` covers only
+    its own heads' rows of ``wo``). Counted at tp=1 too, as the
+    reference's ``psum`` over an axis of one. No mesh: y."""
+    if mesh is None:
+        return y
+    return comm.all_reduce_sum(y, mesh.tp_group)
+
+
+def _sp_gather_kv(k, v, cfg: ModelConfig, mesh):
+    """The whole chunk's K/V on every sp rank (DESIGN.md §14): each rank
+    projected only its slab of the packed q rows, and the pool is
+    replicated over sp, so every rank must write every chunk row. By
+    ``cfg.sp_strategy``:
+
+      * ``"allgather"`` — one ``all_gather`` a layer over the stacked
+        (k, v), in slab order;
+      * ``"ring"`` — ``sp - 1`` ring shifts, each arriving slab placed at
+        its sender's slot.
+
+    Both move bits only, so every sp rank holds the same K/V and the pool
+    replicas stay equal. No mesh, or sp of one: (k, v)."""
+    if mesh is None or mesh.sp == 1:
+        return k, v
+    kv = torch.stack([k, v])                     # (2, 1, hkv, slab, hd)
+    group, n = mesh.sp_group, mesh.sp
+    if cfg.sp_strategy == "allgather":
+        full = comm.all_gather(kv, group, dim=3)
+    elif cfg.sp_strategy == "ring":
+        slab = kv.shape[3]
+        full = kv.new_zeros(kv.shape[:3] + (slab * n,) + kv.shape[4:])
+        src, cur = group.index, kv
+        for step in range(n):
+            full[:, :, :, src * slab:(src + 1) * slab] = cur
+            if step < n - 1:
+                cur = comm.ring_shift(cur, group)
+                src = (src - 1) % n          # it came from the left
+    else:
+        raise ValueError(f"unknown sp_strategy {cfg.sp_strategy!r}")
+    return full[0], full[1]
+
+
+def attention_specs(cfg: ModelConfig):
+    """Logical axes of the layer's params (the reference's)."""
+    s = {"wq": P("embed", "heads"), "wk": P("embed", "heads"),
+         "wv": P("embed", "heads"), "wo": P("heads", "embed")}
+    if cfg.qk_norm:
+        s["q_norm"] = P(None)
+        s["k_norm"] = P(None)
+    return s
 
 
 def init_attention(cfg: ModelConfig, dtype, *, generator, device):
@@ -87,7 +151,7 @@ def apply_attention(params, cfg: ModelConfig, x, *,
                     spec: AttentionSpec | None = None, kv_x=None,
                     positions=None, kv_mask=None, segment_ids=None,
                     block_layout=None, deterministic: bool = True,
-                    dropout_seed=0):
+                    dropout_seed=0, mesh=None):
     """Full-sequence attention, x: (b, s, d_model) -> (b, s, d_model).
     Self-attention by default: ``segment_ids`` isolates packed documents
     AND makes RoPE segment-relative (positions restart at every document
@@ -112,7 +176,7 @@ def apply_attention(params, cfg: ModelConfig, x, *,
                   segment_ids=None if cross else segment_ids,
                   block_layout=block_layout, deterministic=deterministic,
                   dropout_seed=dropout_seed)
-    return _merge_heads(o) @ params["wo"]
+    return _tp_reduce(_merge_heads(o) @ params["wo"], cfg, mesh)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
@@ -126,7 +190,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
 
 def prefill_attention(params, cfg: ModelConfig, x, cache=None, *,
                       kv_mask=None, segment_ids=None, positions=None,
-                      spec: AttentionSpec | None = None):
+                      spec: AttentionSpec | None = None, mesh=None):
     """Full-sequence self-attention that also returns its K/V rows: written
     in place into ``cache`` at [0, s) when one is given (the slot cache of
     ``init_kv_cache``), else as ``{"k", "v"}`` of shape (b, hkv, s, hd) (the
@@ -146,11 +210,11 @@ def prefill_attention(params, cfg: ModelConfig, x, cache=None, *,
     else:
         cache["k"][:, :, :sq] = k.to(cache["k"].dtype)
         cache["v"][:, :, :sq] = v.to(cache["v"].dtype)
-    return _merge_heads(o) @ params["wo"], cache
+    return _tp_reduce(_merge_heads(o) @ params["wo"], cfg, mesh), cache
 
 
 def decode_attention_step(params, cfg: ModelConfig, x, cache, kv_len,
-                          *, spec: AttentionSpec | None = None):
+                          *, spec: AttentionSpec | None = None, mesh=None):
     """Single-token decode against the slot cache. x: (b, 1, d_model);
     cache leaves (b, hkv, capacity, hd); kv_len (b,) current lengths.
     Writes the new K/V at each sequence's ``kv_len`` in place (clamped to
@@ -165,7 +229,7 @@ def decode_attention_step(params, cfg: ModelConfig, x, cache, kv_len,
     cache["v"][rows, :, pos] = v[:, :, 0].to(cache["v"].dtype)
     spec = spec or attn_spec_from_config(cfg)
     o = decode_attention(q, cache["k"], cache["v"], kv_len + 1, spec)
-    return _merge_heads(o) @ params["wo"], cache
+    return _tp_reduce(_merge_heads(o) @ params["wo"], cfg, mesh), cache
 
 
 def cross_prefill_attention(params, cfg: ModelConfig, x, enc_out,
@@ -217,7 +281,8 @@ def write_page_rows(pool, rows, page, off):
 def chunk_prefill_attention_step(params, cfg: ModelConfig, x, pool,
                                  dest_page, dest_off, page_list,
                                  q_seg, kv_seg, q_pos, kv_pos,
-                                 *, spec: AttentionSpec | None = None):
+                                 *, spec: AttentionSpec | None = None,
+                                 mesh=None):
     """Packed chunked-prefill attention against the shared page pool, in
     place (DESIGN.md §10, §11). x: (1, S, d_model) — the next chunks of
     several sequences packed (q_seg isolates them). The chunk's K/V rows
@@ -225,15 +290,23 @@ def chunk_prefill_attention_step(params, cfg: ModelConfig, x, pool,
     segment's full logical prefix is attended THROUGH ``page_list`` with the
     per-segment positions (exact attention over the atomic prefix). RoPE
     uses the same logical positions. Returns (out, pool), pool updated in
-    place."""
+    place.
+
+    Under sequence parallelism x, ``q_seg`` and ``q_pos`` are this rank's
+    slab of the packed chunk while the kv side (``dest_page`` /
+    ``dest_off`` for the whole chunk, ``page_list``, ``kv_seg``,
+    ``kv_pos``) is whole: the slab is projected at its own positions,
+    ``_sp_gather_kv`` assembles the chunk's K/V, every rank writes all of
+    it and attends its slab's queries."""
     q, k, v = _project_qkv(params, cfg, x, x, q_pos, q_pos)
+    k, v = _sp_gather_kv(k, v, cfg, mesh)
     write_page_rows(pool["k"], k[0], dest_page, dest_off)
     write_page_rows(pool["v"], v[0], dest_page, dest_off)
     spec = spec or attn_spec_from_config(cfg)
     o = paged_prefill_attention(q, pool["k"], pool["v"], page_list, spec,
                                 q_segment_ids=q_seg, kv_segment_ids=kv_seg,
                                 q_positions=q_pos, kv_positions=kv_pos)
-    return _merge_heads(o) @ params["wo"], pool
+    return _tp_reduce(_merge_heads(o) @ params["wo"], cfg, mesh), pool
 
 
 def decode_write_destination(page_table, kv_len, page_size, num_pages):
@@ -254,7 +327,8 @@ def decode_write_destination(page_table, kv_len, page_size, num_pages):
 
 def paged_decode_attention_step(params, cfg: ModelConfig, x, pool,
                                 page_table, kv_len,
-                                *, spec: AttentionSpec | None = None):
+                                *, spec: AttentionSpec | None = None,
+                                mesh=None):
     """Single-token decode against the shared page pool. x: (b, 1, d_model);
     pool leaves (hkv, num_pages, page_size, hd); page_table (b, T) int32,
     negative = unallocated; kv_len (b,). Writes the new K/V in place, then
@@ -271,4 +345,4 @@ def paged_decode_attention_step(params, cfg: ModelConfig, x, pool,
     spec = spec or attn_spec_from_config(cfg)
     o = paged_decode_attention(q, pool["k"], pool["v"], page_table,
                                kv_len + 1, spec)
-    return _merge_heads(o) @ params["wo"], pool
+    return _tp_reduce(_merge_heads(o) @ params["wo"], cfg, mesh), pool

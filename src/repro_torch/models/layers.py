@@ -1,12 +1,16 @@
 """Primitive layers (port of ``repro.models.layers``): RMSNorm, LayerNorm
 and non-parametric LayerNorm, the parameter-free RMS normalization of
 qk-norm, RoPE, the SwiGLU / GeGLU / GELU MLPs and the truncated-normal
-initializer. Params are plain dicts of tensors."""
+initializer, with the logical sharding specs of the norms and MLPs
+(``norm_specs``, ``mlp_specs``: tuples of logical axis names, as the
+reference's). Params are plain dicts of tensors."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import P
 
 
 def truncated_normal_init(shape, scale, dtype, *, generator, device):
@@ -34,6 +38,14 @@ def init_norm(d, norm_type: str, dtype, device):
     if norm_type == "layernorm_np":   # non-parametric (OLMo)
         return {}
     raise ValueError(norm_type)
+
+
+def norm_specs(norm_type: str):
+    if norm_type == "rmsnorm":
+        return {"w": P(None)}
+    if norm_type == "layernorm":
+        return {"w": P(None), "b": P(None)}
+    return {}
 
 
 def apply_norm(params, x, norm_type: str, eps: float = 1e-5):
@@ -93,6 +105,13 @@ def init_mlp(d_model, d_ff, mlp_type, dtype, *, generator, device):
 def _gelu(x):
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x, approximate="tanh")
+
+
+def mlp_specs(mlp_type: str):
+    if mlp_type in ("swiglu", "geglu"):
+        return {"w_gate": P("embed", "ff"), "w_up": P("embed", "ff"),
+                "w_down": P("ff", "embed")}
+    return {"w_up": P("embed", "ff"), "w_down": P("ff", "embed")}
 
 
 def apply_mlp(params, x, mlp_type):

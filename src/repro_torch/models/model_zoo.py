@@ -33,6 +33,14 @@ cross cache is padded to the decode kernel's tile
 (``transformer.cross_capacity``), the reference's holds exactly S_enc
 rows. Packed ``segment_ids`` are refused with a frontend or an encoder,
 as in the reference.
+
+``param_specs`` names the logical axes of every leaf (the reference's
+specs leaf for leaf, without their stacked layer axis). A ``Model`` built
+with a ``mesh`` (``distributed.meshes.ServeMesh``) is one rank's view of
+a tensor- or sequence-parallel model: its config holds the rank's head
+and d_ff counts, and its packed prefill, chunk prefill and paged decode
+run the collectives of DESIGN.md §13-§14 over that mesh (the serving
+engine builds it).
 """
 
 from __future__ import annotations
@@ -47,7 +55,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import apply_norm, dense_init, init_norm
+from repro_torch.distributed.sharding import P
+from repro_torch.models.layers import (apply_norm, dense_init, init_norm,
+                                       norm_specs)
 
 Params = dict[str, Any]
 
@@ -59,6 +69,26 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
+    mesh: Any = None
+
+    def param_specs(self) -> Params:
+        """Logical specs of ``init``'s tree, leaf for leaf: ``blocks`` (and
+        ``enc_blocks``) a list of per-layer spec dicts."""
+        cfg = self.cfg
+        enc = cfg.num_encoder_layers > 0
+        s: Params = {"embed": P("vocab", "embed"),
+                     "final_norm": norm_specs(cfg.norm_type),
+                     "blocks": [tfm.block_specs(cfg, cross_attn=enc)
+                                for _ in range(cfg.num_layers)]}
+        if enc:
+            s["enc_blocks"] = [tfm.block_specs(cfg)
+                               for _ in range(cfg.num_encoder_layers)]
+            s["enc_final_norm"] = norm_specs(cfg.norm_type)
+        if cfg.frontend is not None:
+            s["frontend_proj"] = P("embed", None)
+        if not cfg.tie_embeddings:
+            s["lm_head"] = P("embed", "vocab")
+        return s
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator, device="cuda") -> Params:
@@ -258,7 +288,8 @@ class Model:
         logits (1, S, V)); caches {"kv": {"k": (L, 1, hkv, S, hd), ...}}."""
         x = params["embed"][batch["tokens"].long()]
         h, caches = tfm.apply_stack_prefill(
-            params["blocks"], self.cfg, x, segment_ids=batch["segment_ids"])
+            params["blocks"], self.cfg, x, segment_ids=batch["segment_ids"],
+            mesh=self.mesh)
         return caches, self._logits(params, h)
 
     @torch.inference_mode()
@@ -267,13 +298,15 @@ class Model:
         shared page pool. batch: tokens / q_segment_ids / q_positions
         (1, S); kv_segment_ids / kv_positions (1, Sk); dest_page / dest_off
         (S,); page_list (1, Sk // page_size). Returns (caches, logits
-        (1, S, V)); caches updated in place."""
+        (1, S, V)); caches updated in place. Under a mesh with sp > 1 the
+        q-side rows are this rank's slab of S / sp rows (and so are the
+        logits) while dest_page / dest_off cover the whole chunk."""
         x = params["embed"][batch["tokens"].long()]
         h, caches = tfm.apply_stack_chunk_prefill(
             params["blocks"], self.cfg, x, caches,
             batch["dest_page"], batch["dest_off"], batch["page_list"],
             batch["q_segment_ids"], batch["kv_segment_ids"],
-            batch["q_positions"], batch["kv_positions"])
+            batch["q_positions"], batch["kv_positions"], mesh=self.mesh)
         return caches, self._logits(params, h)
 
     @torch.inference_mode()
@@ -286,7 +319,7 @@ class Model:
         if "page_table" in state:
             h, caches = tfm.apply_stack_decode_paged(
                 params["blocks"], self.cfg, x, state["caches"],
-                state["page_table"], state["kv_len"])
+                state["page_table"], state["kv_len"], mesh=self.mesh)
             new_state = {"caches": caches, "page_table": state["page_table"],
                          "kv_len": state["kv_len"] + 1}
             return new_state, self._logits(params, h)

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import P
 from repro_torch.models.layers import dense_init, truncated_normal_init
 
 
@@ -45,6 +46,12 @@ def init_moe(cfg: ModelConfig, dtype, *, generator, device):
         "w_up": truncated_normal_init((e, d, ff), 1.0, dtype, **kw),
         "w_down": truncated_normal_init((e, ff, d), 1.0, dtype, **kw),
     }
+
+
+def moe_specs(cfg: ModelConfig):
+    return {"router": P("embed", None), "w_gate": P("expert", "embed", None),
+            "w_up": P("expert", "embed", None),
+            "w_down": P("expert", None, "embed")}
 
 
 def _route(router_logits, k: int):

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import P
 from repro_torch.models.layers import dense_init, rms_normalize
 
 
@@ -57,6 +58,15 @@ def init_ssm(cfg: ModelConfig, dtype, *, generator, device):
         "norm_w": torch.ones((d_inner,), dtype=dtype, device=device),
         "out_proj": dense_init(d_inner, d, dtype, **kw),
     }
+
+
+def ssm_specs(cfg: ModelConfig):
+    # "ssm_ff": the SSM projection widths (2 d_inner + 2n + nheads) do not
+    # always divide by tp, and ``auto_rules`` demotes only this axis
+    return {"in_proj": P("embed", "ssm_ff"), "conv_w": P(None, "ssm_ff"),
+            "conv_b": P("ssm_ff"), "A_log": P(None), "D": P(None),
+            "dt_bias": P(None), "norm_w": P("ssm_ff"),
+            "out_proj": P("ssm_ff", "embed")}
 
 
 def _split_proj(cfg: ModelConfig, proj):

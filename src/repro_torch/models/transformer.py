@@ -17,7 +17,13 @@ stacks drop them, as the reference does. The SSM path ignores
 ``cfg.remat`` the training stack checkpoints every block
 (``torch.utils.checkpoint``, non-reentrant: only the block's input is
 kept and the block runs again in the backward), as the JAX package's
-``jax.checkpoint(policy=nothing_saveable)`` does."""
+``jax.checkpoint(policy=nothing_saveable)`` does.
+
+The paged serving stacks take a ``ServeMesh`` (``mesh``) under tensor or
+sequence parallelism: the attention layer's and the MLP's output
+projections then sum over the tp group (``attention_layer._tp_reduce``),
+two collectives a layer. ``block_specs`` gives a block's logical sharding
+specs (the reference's, without its stacked layer axis)."""
 
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.kernels.tuning import DECODE_TILE
 from repro_torch.models.layers import (apply_mlp, apply_norm, init_mlp,
-                                       init_norm, rms_normalize)
+                                       init_norm, mlp_specs, norm_specs,
+                                       rms_normalize)
 
 Params = dict[str, Any]
 
@@ -67,15 +74,37 @@ def init_block(cfg: ModelConfig, dtype, *, generator, device,
     return p
 
 
+def block_specs(cfg: ModelConfig, *, cross_attn: bool = False) -> Params:
+    """Logical specs of ``init_block``'s tree, leaf for leaf."""
+    s: Params = {}
+    if cfg.family != "ssm":
+        s["attn_norm"] = norm_specs(cfg.norm_type)
+        s["attn"] = attn_mod.attention_specs(cfg)
+    if cfg.family == "ssm" or cfg.hybrid:
+        s["ssm_norm"] = norm_specs(cfg.norm_type)
+        s["ssm"] = ssm_mod.ssm_specs(cfg)
+    if cross_attn:
+        s["cross_norm"] = norm_specs(cfg.norm_type)
+        s["cross_attn"] = attn_mod.attention_specs(cfg)
+    if cfg.family == "moe":
+        s["mlp_norm"] = norm_specs(cfg.norm_type)
+        s["moe"] = moe_mod.moe_specs(cfg)
+    elif cfg.d_ff > 0:
+        s["mlp_norm"] = norm_specs(cfg.norm_type)
+        s["mlp"] = mlp_specs(cfg.mlp_type)
+    return s
+
+
 def _mix(x, a, m):
     """Hymba's residual: the attention and SSM outputs, each RMS-normalized,
     averaged."""
     return x + 0.5 * (rms_normalize(a) + rms_normalize(m))
 
 
-def _ffn_residual(params: Params, cfg: ModelConfig, x):
+def _ffn_residual(params: Params, cfg: ModelConfig, x, mesh=None):
     """x plus the block's MLP, or MoE, of its normalised self (x itself
-    for a block with neither). Returns (x, aux): the MoE's load-balancing
+    for a block with neither); under a mesh the MLP's ``w_down`` partial
+    sums over the tp group. Returns (x, aux): the MoE's load-balancing
     loss, or None (the serving stacks drop it)."""
     if "mlp_norm" not in params:
         return x, None
@@ -83,7 +112,9 @@ def _ffn_residual(params: Params, cfg: ModelConfig, x):
     if "moe" in params:
         y, aux = moe_mod.apply_moe(params["moe"], cfg, h)
         return x + y, aux
-    return x + apply_mlp(params["mlp"], h, cfg.mlp_type), None
+    y = attn_mod._tp_reduce(apply_mlp(params["mlp"], h, cfg.mlp_type), cfg,
+                            mesh)
+    return x + y, None
 
 
 def _cross_residual(params: Params, cfg: ModelConfig, x, enc_out, *,
@@ -160,7 +191,7 @@ def cross_capacity(enc_len: int) -> int:
 
 def apply_block_prefill(params: Params, cfg: ModelConfig, x,
                         capacity: int | None = None, *, segment_ids=None,
-                        positions=None, enc_out=None):
+                        positions=None, enc_out=None, mesh=None):
     """One block over a (packed) prompt; returns (x, cache_l): ``"kv"``
     with the block's K/V rows (b, hkv, s, hd), or, given a ``capacity``, a
     (b, hkv, capacity, hd) slot cache holding them at [0, s); ``"ssm"``
@@ -180,7 +211,7 @@ def apply_block_prefill(params: Params, cfg: ModelConfig, x,
                                     x.device))
     a, cache_l["kv"] = attn_mod.prefill_attention(
         params["attn"], cfg, h, cache, segment_ids=segment_ids,
-        positions=positions)
+        positions=positions, mesh=mesh)
     if cfg.hybrid:
         m, cache_l["ssm"] = ssm_mod.apply_ssm(params["ssm"], cfg, h,
                                               return_final_state=True)
@@ -193,12 +224,12 @@ def apply_block_prefill(params: Params, cfg: ModelConfig, x,
             params["cross_attn"], cfg, h, enc_out,
             cross_capacity(enc_out.shape[1]))
         x = x + c
-    return _ffn_residual(params, cfg, x)[0], cache_l
+    return _ffn_residual(params, cfg, x, mesh)[0], cache_l
 
 
 def apply_stack_prefill(blocks: list[Params], cfg: ModelConfig, x,
                         capacity: int | None = None, *, segment_ids=None,
-                        positions=None, enc_out=None):
+                        positions=None, enc_out=None, mesh=None):
     """Prompt through all layers; every cache leaf stacked on a leading
     layer axis: {"kv": {"k": (L, b, hkv, s or capacity, hd), "v": ...},
     "ssm": {"h": (L, b, h, p, n), "conv": (L, b, w-1, conv_ch)},
@@ -208,7 +239,8 @@ def apply_stack_prefill(blocks: list[Params], cfg: ModelConfig, x,
     for p_l in blocks:
         x, c = apply_block_prefill(p_l, cfg, x, capacity,
                                    segment_ids=segment_ids,
-                                   positions=positions, enc_out=enc_out)
+                                   positions=positions, enc_out=enc_out,
+                                   mesh=mesh)
         outs.append(c)
     return x, tree_map(lambda *ls: torch.stack(ls), outs[0], *outs[1:])
 
@@ -298,7 +330,7 @@ def _layer_pool(caches, l: int):
 
 def apply_stack_chunk_prefill(blocks: list[Params], cfg: ModelConfig, x,
                               caches, dest_page, dest_off, page_list,
-                              q_seg, kv_seg, q_pos, kv_pos):
+                              q_seg, kv_seg, q_pos, kv_pos, mesh=None):
     """Packed prefill chunks through all layers, each writing its rows into
     its own pool layer and attending the prefix in place. The scatter map
     and page list are layer-invariant. Returns (x, caches) — caches
@@ -307,18 +339,19 @@ def apply_stack_chunk_prefill(blocks: list[Params], cfg: ModelConfig, x,
         h = apply_norm(p_l["attn_norm"], x, cfg.norm_type)
         a, _ = attn_mod.chunk_prefill_attention_step(
             p_l["attn"], cfg, h, _layer_pool(caches, l), dest_page, dest_off,
-            page_list, q_seg, kv_seg, q_pos, kv_pos)
-        x = _ffn_residual(p_l, cfg, x + a)[0]
+            page_list, q_seg, kv_seg, q_pos, kv_pos, mesh=mesh)
+        x = _ffn_residual(p_l, cfg, x + a, mesh)[0]
     return x, caches
 
 
 def apply_stack_decode_paged(blocks: list[Params], cfg: ModelConfig, x,
-                             caches, page_table, kv_len):
+                             caches, page_table, kv_len, mesh=None):
     """A single token through all layers against the page pools (updated in
     place). ``page_table`` / ``kv_len`` are layer-invariant."""
     for l, p_l in enumerate(blocks):
         h = apply_norm(p_l["attn_norm"], x, cfg.norm_type)
         a, _ = attn_mod.paged_decode_attention_step(
-            p_l["attn"], cfg, h, _layer_pool(caches, l), page_table, kv_len)
-        x = _ffn_residual(p_l, cfg, x + a)[0]
+            p_l["attn"], cfg, h, _layer_pool(caches, l), page_table, kv_len,
+            mesh=mesh)
+        x = _ffn_residual(p_l, cfg, x + a, mesh)[0]
     return x, caches

@@ -46,8 +46,31 @@ its kernels take, and refuses any other at construction
 serves, as in the JAX engine. A model that reads frontend embeddings (the
 encoder-decoder) is refused at construction (``require_token_inputs``):
 a request carries tokens alone, as in the JAX engine, which cannot serve
-it either. Not ported yet (raise ``NotImplementedError``): tensor parallelism
-(``tp>1``) and sequence parallelism (``sp>1``).
+it either.
+
+Tensor and sequence parallelism (``tp``, ``sp``; DESIGN.md §13-§14) run
+as SPMD ranks, one process a shard, each with its own engine over the
+same ``ServeMesh`` (``mesh``; ``distributed.meshes``): the data plane is
+sharded and the control plane is host-global. The scheduler, allocator,
+page tables and prefix index run on every rank and, being deterministic,
+make the same decisions with the same page indices everywhere. Each rank
+holds its head slice of the weights (``distributed.sharding.shard_params``
+of the full tree it is given) and of the pool (``num_kv_heads / tp``
+heads), and runs ``shard_model``, a per-shard model view whose head and
+d_ff counts are the rank's; the host bookkeeping (the IO ledger,
+``io_model`` accounting, prefix keys) keeps the global config. Embedding
+and ``lm_head`` stay replicated, so after the two all-reduces of a layer
+activations and logits are too, and sampling (a pure function of seed
+and position) needs no collective. At sp > 1 every prefill goes through
+the chunk step, each sp rank passing its slab of the packed q rows while
+the kv side stays whole; decode is sp-replicated. The last-row logits of
+the chunks a step completes are then gathered over the sp group, once a
+step, outside the model (the reference assembles its sp-sharded logits
+the same way, outside its traced step). ``step_census`` keeps, by step
+kind, the collectives of the last step's model call, counted by the
+mesh's ``collectives`` counter: ``2 * num_layers`` ``all_reduce`` calls
+for decode and the packed prefill, and
+``sharding.expected_sp_prefill_census`` for a chunk step.
 
 Every executed step is priced in predicted HBM bytes by the IO ledger
 (``telemetry.io_ledger``: ``self.tm.ledger``) next to its wall time, which
@@ -75,6 +98,8 @@ from repro_torch import resolve_device
 from repro_torch.core import io_model, masks
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.core.masks import POS_PAD, SEG_PAD_Q
+from repro_torch.distributed import comm
+from repro_torch.distributed import sharding as dist_sharding
 from repro_torch.kernels import tuning
 from repro_torch.models.model_zoo import Model, require_token_inputs
 from repro_torch.serve import kv_cache as kvc
@@ -117,16 +142,12 @@ class ServingEngine:
                  chunk_size: int | None = None,
                  token_budget: int | None = None,
                  prefix_cache: bool | None = None,
-                 tp: int = 1, sp: int = 1, trace: bool = False,
-                 device="cuda"):
+                 tp: int = 1, sp: int = 1, sp_strategy: str | None = None,
+                 mesh=None, trace: bool = False, device="cuda"):
         self.device = resolve_device(device)
         if _params_device(params).type != self.device.type:
             raise ValueError(f"params live on {_params_device(params)}, the "
                              f"engine runs on {self.device}")
-        if tp != 1 or sp != 1:
-            raise NotImplementedError(
-                "tensor/sequence-parallel serving (tp>1, sp>1) is not "
-                "ported yet")
         require_token_inputs(model.cfg, "the serving engine")
         self.model = model
         self.params = params
@@ -155,6 +176,8 @@ class ServingEngine:
             raise ValueError("token_budget requires chunked (paged) mode")
         self.prefix_cache = (self.paged if prefix_cache is None
                              else bool(prefix_cache))
+        self._check_parallel(model.cfg, tp, sp, sp_strategy, capacity,
+                             chunk_size)
         self.tm = Telemetry(trace=trace)
         reg = self.tm.registry
         self._c_prefill_calls = reg.counter(
@@ -204,8 +227,10 @@ class ServingEngine:
         self._stepped = False
         self._step_idx = 0
         self._preempted_rids: set[int] = set()
+        self.step_census: dict[str, dict[str, int]] = {}
 
         cfg = model.cfg
+        self._shard(model, params, mesh)
         # seeds every content-hash chain: pages never collide across model
         # weights / dtype / attention geometry identities.
         self._model_key = (f"{cfg.name}|{cfg.family}|{cfg.dtype}"
@@ -233,7 +258,7 @@ class ServingEngine:
                 num_pages = num_slots * self.pages_per_seq
             self.kv = kvc.PagedKVCache(num_pages, page_size,
                                        registry=self.tm.registry)
-            self.state = model.init_paged_decode_state(
+            self.state = self.shard_model.init_paged_decode_state(
                 num_slots, num_pages, page_size, self.pages_per_seq,
                 device=self.device)
             self._kv_len_h = np.zeros((num_slots,), np.int64)
@@ -245,7 +270,9 @@ class ServingEngine:
             self.scheduler = ChunkScheduler(
                 SchedulerConfig(num_lanes=num_slots, capacity=capacity,
                                 page_size=page_size, chunk_size=chunk_size,
-                                token_budget=token_budget),
+                                token_budget=token_budget,
+                                # full chunks split into equal sp slabs
+                                chunk_multiple=self.sp),
                 kv=self.kv, telemetry=self.tm)
         else:
             self.state = model.init_decode_state(num_slots, capacity,
@@ -260,7 +287,9 @@ class ServingEngine:
         if cfg.use_decode_kernel:
             if self.paged:
                 self.num_decode_splits = tuning.resolve_paged_decode_splits(
-                    self.pages_per_seq, cfg.num_decode_splits)
+                    self.pages_per_seq, cfg.num_decode_splits,
+                    target_splits=tuning.decode_split_target(
+                        self.tp, on_card=self.device.type == "cuda"))
             else:
                 self.decode_block_k, self.num_decode_splits = \
                     tuning.resolve_decode_geometry(
@@ -273,7 +302,128 @@ class ServingEngine:
             d=cfg.head_dim, heads_q=cfg.num_heads,
             heads_kv=cfg.num_kv_heads, d_model=cfg.d_model,
             layers=cfg.num_layers, elt=tuning.elt_bytes(cfg.dtype),
-            block_q=block_q, block_k=block_k, kv_major=False))
+            block_q=block_q, block_k=block_k, kv_major=False,
+            tp=self.tp, sp=self.sp,
+            sp_strategy=self.sp_strategy or "replicated"))
+
+    # ----------------------------------------- tensor/sequence parallelism
+    def _check_parallel(self, cfg, tp: int, sp: int, sp_strategy,
+                        capacity: int, chunk_size: int | None) -> None:
+        """The reference's construction checks for ``tp`` and ``sp``, in its
+        words: paged mode and the dense family only, whole kv heads (with
+        their q-head groups) and a whole share of d_ff per tp rank; at sp
+        > 1 the prefill bucket rounded up to ``sp * io_model.SUBLANES``
+        rows (so that each slab is whole rows and the chunks are the JAX
+        engine's) and the K/V movement strategy resolved
+        (``tuning.resolve_sp_strategy``) or checked."""
+        self.tp = int(tp)
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        if self.tp > 1:
+            if not self.paged:
+                raise ValueError(
+                    "tensor-parallel serving shards the page pool over "
+                    "heads; dense slot mode supports tp=1 only (pass "
+                    "paged=True)")
+            if cfg.family != "dense":
+                raise ValueError(
+                    f"tp>1 serving shards attention heads and the dense "
+                    f"MLP hidden dim; family {cfg.family!r} is out of "
+                    f"scope (expert parallelism is a separate axis)")
+            if cfg.num_kv_heads % self.tp:
+                raise ValueError(
+                    f"GQA kv heads ({cfg.num_kv_heads}) not divisible by "
+                    f"tp={self.tp}: each shard must own whole kv heads "
+                    f"(with their q-head groups) for collective-free "
+                    f"decode attention")
+            if cfg.num_heads % self.tp:
+                raise ValueError(
+                    f"query heads ({cfg.num_heads}) not divisible by "
+                    f"tp={self.tp}")
+            if cfg.d_ff and cfg.d_ff % self.tp:
+                raise ValueError(
+                    f"d_ff ({cfg.d_ff}) not divisible by tp={self.tp}")
+        self.sp = int(sp)
+        if self.sp < 1:
+            raise ValueError(f"sp must be >= 1, got {sp}")
+        self.sp_strategy: str | None = None
+        self.sp_prefill_costs = None
+        if self.sp > 1:
+            if not self.paged:
+                raise ValueError(
+                    "sequence-parallel prefill shards the packed chunk "
+                    "call's query rows; dense slot mode supports sp=1 only "
+                    "(pass paged=True)")
+            if cfg.family != "dense":
+                raise ValueError(
+                    f"sp>1 serving runs prefill through the paged chunk "
+                    f"step; family {cfg.family!r} is out of scope")
+            m = self.sp * io_model.SUBLANES
+            self.prefill_bucket += (-self.prefill_bucket) % m
+            res = tuning.resolve_sp_strategy(
+                chunk_size or self.prefill_bucket, capacity, cfg.head_dim,
+                heads_q=cfg.num_heads // self.tp,
+                heads_kv=cfg.num_kv_heads // self.tp,
+                sp=self.sp, dtype=cfg.dtype, layers=cfg.num_layers)
+            self.sp_prefill_costs = res["costs"]
+            sp_strategy = sp_strategy or res["strategy"]
+            if sp_strategy not in ("allgather", "ring"):
+                raise ValueError(
+                    f"sp_strategy must be 'allgather' or 'ring', "
+                    f"got {sp_strategy!r}")
+            self.sp_strategy = sp_strategy
+
+    def _shard(self, model: Model, params, mesh) -> None:
+        """The per-shard model view and this rank's params. Without tp or sp
+        (and no mesh) the model and params as given."""
+        if mesh is None:
+            if self.tp > 1 or self.sp > 1:
+                raise ValueError(
+                    f"tp={self.tp} x sp={self.sp} serving runs one rank a "
+                    f"shard over a ServeMesh: pass mesh= "
+                    f"(repro_torch.distributed.meshes.serve_mesh)")
+            self.mesh = None
+            self.shard_model, self.params = model, params
+            return
+        if (mesh.sp, mesh.tp) != (self.sp, self.tp):
+            raise ValueError(f"the mesh is sp={mesh.sp} x tp={mesh.tp}, the "
+                             f"engine was asked for sp={self.sp} x "
+                             f"tp={self.tp}")
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh's ranks run on {mesh.device}, the "
+                             f"engine on {self.device}")
+        cfg = model.cfg
+        self.mesh = mesh.counted(self.tm.registry)
+        self._c_collectives = self.tm.registry.get("collectives")
+        shard_cfg = dataclasses.replace(
+            cfg, num_heads=cfg.num_heads // self.tp,
+            num_kv_heads=cfg.num_kv_heads // self.tp,
+            d_ff=cfg.d_ff // self.tp, tp_shards=self.tp, sp_shards=self.sp,
+            sp_strategy=self.sp_strategy or cfg.sp_strategy)
+        self.shard_model = type(model)(shard_cfg, mesh=self.mesh)
+        rules = (dist_sharding.sp_serve_rules() if self.sp > 1
+                 else dist_sharding.tp_serve_rules())
+        self.params = dist_sharding.shard_params(
+            params, model.param_specs(), self.mesh, rules)
+
+    def collectives(self) -> dict[str, int]:
+        """The mesh's collective calls so far, by kind (all of them: the
+        model's and the sp logits gather)."""
+        c = self._c_collectives
+        return {key[0]: int(c.value(kind=key[0])) for key in c.series_keys()}
+
+    def _counted(self, kind: str, call):
+        """``call()``, keeping the collectives it ran as ``step_census[kind]``
+        when a mesh is active."""
+        if self.mesh is None:
+            return call()
+        before = self.collectives()
+        out = call()
+        after = self.collectives()
+        self.step_census[kind] = {k: n - before.get(k, 0)
+                                  for k, n in after.items()
+                                  if n != before.get(k, 0)}
+        return out
 
     # --------------------- views over the telemetry registry
     @property
@@ -518,9 +668,10 @@ class ServingEngine:
         reqs = [self.requests[t.rid] for t in tasks]
         lengths = [t.length for t in tasks]
         toks, segs, offsets = self._packed_batch(reqs, lengths)
-        caches, logits = self.model.prefill_packed(
-            self.params, {"tokens": self._dev(toks),
-                          "segment_ids": self._dev(segs)})
+        caches, logits = self._counted(
+            "prefill_zero", lambda: self.shard_model.prefill_packed(
+                self.params, {"tokens": self._dev(toks),
+                              "segment_ids": self._dev(segs)}))
         self._c_prefill_calls.inc()
         self._record_layout_stats(segs)
         tables = [self.kv.table(t.rid) for t in tasks]
@@ -543,12 +694,27 @@ class ServingEngine:
         lasts = [(i, t) for i, t in enumerate(tasks) if t.last]
         if not lasts:
             return
-        idx = torch.as_tensor([int(offsets[i]) + t.length - 1
-                               for i, t in lasts], device=logits.device)
-        toks = self._sample_rows(logits[0, idx],
+        rows = [int(offsets[i]) + t.length - 1 for i, t in lasts]
+        toks = self._sample_rows(self._rows_of(logits, rows),
                                  [self.requests[t.rid] for _, t in lasts])
         for (_, t), tok in zip(lasts, toks):
             self._post_prefill(t.lane, self.requests[t.rid], int(tok))
+
+    def _rows_of(self, logits, rows: list[int]):
+        """``logits[0, rows]`` of the packed call. At sp > 1 each rank holds
+        only its slab of the rows: each row comes from the rank that owns
+        it, through one ``all_gather`` over the sp group (the others send
+        zeros in its place)."""
+        if self.sp == 1:
+            return logits[0, torch.as_tensor(rows, device=logits.device)]
+        slab = logits.shape[1]
+        mine = self.mesh.sp_group.index
+        part = logits.new_zeros((1, len(rows), logits.shape[2]))
+        for j, r in enumerate(rows):
+            if r // slab == mine:
+                part[0, j] = logits[0, r % slab]
+        every = comm.all_gather(part, self.mesh.sp_group, dim=0)
+        return every[[r // slab for r in rows], list(range(len(rows)))]
 
     # -------------------------------------------- executor: suffix chunks
     def _kv_bucketed(self, width: int) -> int:
@@ -593,6 +759,12 @@ class ServingEngine:
                                       elt=tuning.elt_bytes(cfg.dtype),
                                       layers=cfg.num_layers)
             for sp in spans)))
+        if self.sp > 1:
+            # this rank's slab of the q rows; the kv side stays whole
+            slab = Sq // self.sp
+            mine = slice(self.mesh.sp_group.index * slab,
+                         (self.mesh.sp_group.index + 1) * slab)
+            toks, qseg, qpos = toks[:, mine], qseg[:, mine], qpos[:, mine]
         batch = {"tokens": self._dev(toks),
                  "q_segment_ids": self._dev(qseg),
                  "q_positions": self._dev(qpos),
@@ -601,8 +773,9 @@ class ServingEngine:
                  "dest_page": self._dev(dest_page),
                  "dest_off": self._dev(dest_off),
                  "page_list": self._dev(page_list[None])}
-        _, logits = self.model.prefill_chunk_paged(self.params, batch,
-                                                   self.state["caches"])
+        _, logits = self._counted(
+            "prefill_chunk", lambda: self.shard_model.prefill_chunk_paged(
+                self.params, batch, self.state["caches"]))
         self._c_prefill_calls.inc()
         self._paged_dirty = True
         for t, r in zip(tasks, reqs):
@@ -665,7 +838,7 @@ class ServingEngine:
         toks = req.resume_tokens
         L = len(toks)
         if not self.model.supports_packed_prefill():
-            slot_state, logits = self.model.prefill(
+            slot_state, logits = self.shard_model.prefill(
                 self.params, {"tokens": self._dev(np.asarray([toks],
                                                              np.int32))},
                 self.capacity)
@@ -679,7 +852,7 @@ class ServingEngine:
         arr[0, :L] = toks
         segs = np.full((1, padded), SEG_PAD_Q, np.int32)
         segs[0, :L] = 0
-        caches, logits = self.model.prefill_packed(
+        caches, logits = self.shard_model.prefill_packed(
             self.params, {"tokens": self._dev(arr),
                           "segment_ids": self._dev(segs)})
         self._c_prefill_calls.inc()
@@ -693,7 +866,7 @@ class ServingEngine:
         segment's rows into its slot."""
         lengths = [len(r.resume_tokens) for r in reqs]
         toks, segs, offsets = self._packed_batch(reqs, lengths)
-        caches, logits = self.model.prefill_packed(
+        caches, logits = self.shard_model.prefill_packed(
             self.params, {"tokens": self._dev(toks),
                           "segment_ids": self._dev(segs)})
         self._c_prefill_calls.inc()
@@ -750,8 +923,9 @@ class ServingEngine:
         t0 = time.perf_counter()
         tok = self._dev(self.next_token)
         reqs_by_lane = [self.slot_req[l] for l in range(self.B)]
-        self.state, logits = self.model.decode_step(self.params, self.state,
-                                                    tok)
+        self.state, logits = self._counted(
+            "decode", lambda: self.shard_model.decode_step(
+                self.params, self.state, tok))
         self._c_decode_calls.inc()
         nxt = self._sample_rows(logits[:, 0], reqs_by_lane)
         # sampling brought the tokens to the host, so the step's device
@@ -840,6 +1014,11 @@ class ServingEngine:
         if not self.paged:
             if zero:
                 self._exec_dense(zero)
+        elif self.sp > 1:
+            # the chunk step is exact at start 0 and carries the sp slabs;
+            # the packed prefill + scatter pair is an sp=1 path
+            if plan.prefill:
+                self._exec_suffix_paged(list(plan.prefill))
         else:
             if zero:
                 if self.packed_prefill and len(zero) > 1:
@@ -928,7 +1107,8 @@ class ServingEngine:
 
     def cache_bytes(self) -> int:
         """Device bytes resident in the decode state's caches (page pool or
-        slot cache, and the SSM state where the family has one)."""
+        slot cache, and the SSM state where the family has one): this
+        rank's, whose pool holds ``num_kv_heads / tp`` heads."""
         return int(sum(t.numel() * t.element_size()
                        for t in tree_leaves(self.state["caches"])))
 

@@ -32,6 +32,10 @@ def _forbidden(name: str) -> bool:
 def test_port_has_modules_to_scan():
     assert len(PORT_FILES) > 20
     assert (ROOT / "chip_smoke.py").exists()
+    # the tensor- and sequence-parallel serving package is scanned too
+    names = {p.name for p in PORT_FILES if p.parent.name == "distributed"}
+    assert {"__init__.py", "meshes.py", "comm.py", "sharding.py",
+            "launch.py"} <= names
 
 
 @pytest.mark.parametrize("path", SCANNED,

@@ -1,6 +1,7 @@
 """Card tests of the hand-written CUDA kernels and of the MoE layer: each kernel against its
 plain PyTorch version on the same CUDA inputs (the forward, its dropout
-and "paper" variants, ragged tiles and rows with no key, the dq and dkv
+and "paper" variants, ragged tiles and rows with no key (a sequence-parallel
+slab of padding rows only, for the paged forward), the dq and dkv
 backward kernels (bf16 on tensor cores: every head dim, ragged tiles, GQA
 n_rep 1 and 4, dropout at two seeds, two calls bit-identical), the paged kernels with several pages to a kv tile,
 the decode body that merges its splits in a cluster (paged: pages of 8-64
@@ -463,6 +464,42 @@ def test_flash_fwd_paged_page_groups_match_plain(cuda, dtype, d, page_size):
                                                  page_list.to(cuda), layout, **call)
     _check(out, plain, dtype)
     _check_empty_row(out, 0, sq - 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_paged_slab_of_padding_rows_is_zero(cuda, dtype):
+    """A sequence-parallel rank whose slab of a chunk holds only padding
+    rows (a suffix shorter than one slab after a prefix hit): every q row
+    is SEG_PAD_Q at POS_PAD against a live prefix (no row has a key), and
+    #4 must give finite zeros, as its plain version does."""
+    gen = torch.Generator().manual_seed(7)
+    hq, hkv, d, page_size, num_pages, sq, span = 8, 2, 64, 16, 12, 32, 70
+    k_pool = torch.randn(hkv, num_pages, page_size, d, generator=gen).to(cuda, dtype)
+    v_pool = torch.randn(hkv, num_pages, page_size, d, generator=gen).to(cuda, dtype)
+    T = -(-span // page_size)
+    page_list = torch.randperm(num_pages, generator=gen)[:T].int()[None]
+    kv_seg = torch.full((1, T * page_size), M.SEG_PAD_KV, dtype=torch.int32)
+    kv_pos = torch.full((1, T * page_size), M.POS_PAD, dtype=torch.int32)
+    kv_seg[0, :span], kv_pos[0, :span] = 0, torch.arange(span)
+    q_seg = torch.full((1, sq), M.SEG_PAD_Q, dtype=torch.int32)
+    q_pos = torch.full((1, sq), M.POS_PAD, dtype=torch.int32)
+    q = torch.randn(1, hq, sq, d, generator=gen).to(cuda, dtype)
+    a = {n: t.to(cuda) for n, t in dict(q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+                                       q_positions=q_pos, kv_positions=kv_pos).items()}
+    layout = M.compile_block_layout(M.MaskSpec(causal=True, **a), sq,
+                                    T * page_size, sq, page_size).as_array(cuda)
+    layout = M.paged_prefill_block_layout(layout, page_list.to(cuda))
+    call = dict(scale=d ** -0.5, causal=True, window=None, block_q=sq, **a)
+    n0 = fa.LAUNCHES["flash_fwd_paged"]
+    out = fa.flash_prefill_paged_forward(q, k_pool, v_pool, page_list.to(cuda),
+                                         layout, **call)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd_paged"] == n0 + 1
+    plain = fa.flash_prefill_paged_forward_plain(q, k_pool, v_pool,
+                                                 page_list.to(cuda), layout, **call)
+    _check(out, plain, dtype)
+    for r in range(sq):
+        _check_empty_row(out, 0, r)
 
 
 def test_paged_forward_refuses_other_page_sizes(cuda):

@@ -70,8 +70,11 @@ def test_constants():
         ref_io.SP_COLLECTIVE_LAUNCH_BYTES
     assert (io_model.H100_HBM_BW, io_model.H100_BF16_FLOPS,
             io_model.H100_SMEM_PER_BLOCK) == (3.35e12, 989e12, 232_448)
-    for name in ("TPU_CORE_VMEM_BYTES", "LANES", "SUBLANES", "V5E_HBM_BW"):
+    for name in ("TPU_CORE_VMEM_BYTES", "LANES", "V5E_HBM_BW"):
         assert not hasattr(io_model, name)
+    # the sp engine rounds its prefill bucket to sp * SUBLANES rows, as the
+    # reference's does, so that the chunks are the JAX engine's
+    assert io_model.SUBLANES == ref_io.SUBLANES
     # one source for the kernels' shared memory
     assert tuning.fwd_smem_bytes is io_model.fwd_smem_bytes
     assert tuning.bwd_smem_bytes is io_model.bwd_smem_bytes

@@ -178,10 +178,15 @@ def test_entry_points_raise_without_cuda(weights):
 def test_unported_modes_raise(weights):
     _, _, np_params = weights
     model, params = _port(np_params)
-    for kw in (dict(tp=2), dict(sp=2)):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(model, params, num_slots=2, capacity=32,
-                          device="cpu", **kw)
+    # tp / sp serve one rank a shard over a ServeMesh: reduced granite's
+    # single kv head cannot split over tp=2 (the reference's check), and
+    # sp=2 without a mesh is refused
+    with pytest.raises(ValueError, match="kv heads"):
+        ServingEngine(model, params, num_slots=2, capacity=32,
+                      device="cpu", tp=2)
+    with pytest.raises(ValueError, match="mesh="):
+        ServingEngine(model, params, num_slots=2, capacity=32,
+                      device="cpu", sp=2)
     with pytest.raises(ValueError, match="params live on"):
         ServingEngine(model, params, num_slots=2, capacity=32,
                       device="meta")
