@@ -274,6 +274,22 @@ Phases:
    #4 and #8 launched on every rank, tok/s, TTFT p50 and each rank's peak
    memory; rank 0's #1, #4 and #8 calls held in the fresh process of
    phase 9 (``serve_tp2`` / ``serve_sp2`` sub-entries).
+18. parity-train-mesh, train-dp2tp2, pipeline-2 (``train_mesh_phase``):
+   sharded training (``train.steps.make_sharded_train_step``) as four
+   gloo ranks sharing the card in one spawn, collectives staged through
+   host memory: granite-3-2b at full width, 2 layers, float32, 3 AdamW
+   steps at data 2 x model 2 with ZeRO-1 and at data 4 against the
+   single-rank step on the card (losses within ``TRAIN_MESH_RTOL``, every
+   rank's census of every step ``expected_train_census``); granite-3-2b
+   at 8 of 40 layers in bf16 at data 2 x model 2 with ZeRO-1, 4 steps of
+   the launcher's recipe on its batches (seq 2048 x 4), losses within
+   ``DP2TP2_LOSS_RTOL`` of the single-rank bf16 step's, ms a step, peak
+   memory and launches a rank (#1-#3 on every rank; rank 0's counts are
+   the ``train_dp2tp2`` path), the census; #1-#3 held to their plain
+   versions at rank 0's layer (16 q / 4 kv heads, 2 rows) with phase 2's
+   other shapes (``train_dp2tp2`` sub-entries); two 2-stage pipelines
+   (``pipeline_apply``) on CUDA tensors against the sequential stack,
+   forward and gradients.
 
 ``--ab PARENT_CHECKOUT`` runs only an A/B against another checkout (e.g.
 ``git archive`` of the parent commit): first both checkouts' kernel
@@ -4027,6 +4043,275 @@ def tp_serving_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 18: sharded training, ranks sharing one card
+# ---------------------------------------------------------------------------
+
+# parity-train-mesh: granite-3-2b at full width, 2 layers, float32, 3 AdamW
+# steps at these meshes ((data, model), ZeRO-1) against the single-rank
+# step on the card; losses within TRAIN_MESH_RTOL
+PARITY_TRAIN_MESHES = (((2, 2), True), ((4, 1), False))
+PARITY_TRAIN = (256, 4, 3)                # seq, global batch, steps
+TRAIN_MESH_RTOL = 1e-4
+# train-dp2tp2: granite-3-2b at full width, 8 of 40 layers, bf16, seq 2048,
+# global batch 4 (2 rows a data rank), ZeRO-1, 4 AdamW steps of the
+# launcher's recipe on its batches; each step's loss within this relative
+# bound of the single-rank bf16 step's (PERF.md §6, set before the first
+# card run)
+DP2TP2 = ((2, 2), 8, 2048, 4, 4)          # mesh, layers, seq, batch, steps
+DP2TP2_LOSS_RTOL = 2e-3
+# pipeline-2: two 2-stage pipelines (the "pipe" axis of a (2, 2) mesh) of
+# the reference's residual tanh layers, fp32 on the card
+PIPELINE_2 = (8, 512, 16, 4)              # layers, width, global batch, M
+
+
+def train_mesh_kernel_phase(torch, seed: int) -> dict:
+    """#1/#2/#3 at train-dp2tp2's rank 0 layer (2 rows of the launcher's
+    first batch, its documents, 16 q / 4 kv heads of 64, causal) through
+    ``fwd_bwd_case``, early in the script (the profiler records whole
+    windows in a young process). Returns {kernel: {"train_dp2tp2":
+    entry}}."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+
+    (data_ranks, model_ranks), _, seq, batch, _ = DP2TP2
+    cfg = get_config("granite-3-2b")
+    rows = batch // data_ranks
+    seg = torch.as_tensor(SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+                          .batch_at(0)["segment_ids"][:rows]).to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
+    c = fwd_bwd_case(torch, gen, rows, cfg.num_heads // model_ranks,
+                     cfg.num_kv_heads // model_ranks, seq, cfg.head_dim,
+                     True, seg)
+    return {name: {"train_dp2tp2": e} for name, e in shape_entries(c).items()}
+
+
+def train_mesh_rank(jobs: list) -> list:
+    """What one spawned rank of phase 18 runs: the train runs
+    (``launch.train_rank``) and the pipeline (``launch.pipeline_rank``),
+    TF32 off as in the parent."""
+    import torch
+
+    from repro_torch.distributed import launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for job in jobs:
+        out.append(launch.train_rank(job["spec"]) if job["kind"] == "train"
+                   else launch.pipeline_rank(job["spec"]))
+        release(torch)
+    return out
+
+
+def _single_rank_losses(torch, cfg, seed, batches, opt) -> tuple[list, float]:
+    """The single-rank ``make_train_step`` on the card over ``batches``:
+    its losses and its mean ms a step over steps 2 on."""
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_step
+
+    dev = torch.device("cuda")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    state = opt.init(params)
+    step = make_train_step(model, opt, deterministic=True)
+    losses, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    del params, state
+    release(torch)
+    return losses, sum(times[1:]) / max(len(times) - 1, 1) * 1e3
+
+
+def train_mesh_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
+    """Phase 18: the port's sharded training (``train.steps.
+    make_sharded_train_step``) as SPMD ranks (``repro_torch.distributed``)
+    that share the one H100 over a gloo group, every collective staged
+    through host memory (NCCL refuses two ranks of one communicator on one
+    device): so this phase measures correctness and the kernels'
+    per-rank work, not the speed of collectives. One spawn of 4 ranks.
+
+    * parity-train-mesh: granite-3-2b at full width, 2 layers, float32,
+      at data 2 x model 2 with ZeRO-1 and data 4 without, 3 AdamW steps
+      against the single-rank ``make_train_step`` on the card: losses
+      within ``TRAIN_MESH_RTOL``, every rank's census of every step the
+      ``expected_train_census``;
+    * train-dp2tp2: granite-3-2b at full width, 8 of 40 layers, bf16,
+      seq 2048, global batch 4, ZeRO-1, 4 steps of the launcher's recipe
+      on its batches, #1, #2 and #3 at 16 q / 4 kv heads a rank: losses
+      within ``DP2TP2_LOSS_RTOL`` of the single-rank bf16 step's, ms a
+      step, each rank's peak memory, the step's collectives by kind and
+      each rank's launches (every attention kernel on every rank; the
+      kernels are held at rank 0's shapes early, ``train_mesh_kernel_phase``);
+    * pipeline-2: ``pipeline_apply`` over 2 stages (two pipelines, the
+      "pipe" axis of a (2, 2) mesh) on CUDA tensors against the
+      sequential stack on the card, forward and gradients.
+
+    Returns (record, {path: rank 0's launches})."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import launch
+    from repro_torch.distributed.pipeline import tanh_block
+    from repro_torch.optim import adamw, warmup_cosine
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # -- parity-train-mesh: the single-rank step on the card --------------
+    pcfg = dataclasses.replace(get_config("granite-3-2b"), num_layers=2,
+                               dtype="float32", attn_impl="pallas")
+    pseq, pbatch, psteps = PARITY_TRAIN
+    data = SyntheticLM(pcfg.vocab_size, pseq, pbatch, seed=seed)
+    pbatches = [data.batch_at(i) for i in range(psteps)]
+    popt = {"name": "adamw", "lr": 1e-3}
+    want, _ = _single_rank_losses(torch, pcfg, seed, pbatches, adamw(1e-3))
+
+    # -- train-dp2tp2: the single-rank bf16 step, the kernels at rank 0's
+    # shapes -------------------------------------------------------------
+    mesh, layers, seq, batch, steps = DP2TP2
+    cfg = dataclasses.replace(get_config("granite-3-2b"), num_layers=layers,
+                              attn_impl="pallas")
+    data = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+    batches = [data.batch_at(i) for i in range(steps)]
+    tp1, tp1_ms = _single_rank_losses(
+        torch, cfg, seed, batches, adamw(warmup_cosine(3e-4, 20, steps)))
+
+    # -- pipeline-2 inputs and the sequential stack on the card ------------
+    L, D, GB, M = PIPELINE_2
+    g = torch.Generator().manual_seed(seed + 40)
+    w = torch.randn((L, D, D), generator=g) * (0.3 / math.sqrt(D / 16))
+    x = torch.randn((GB, D), generator=g)
+    wt = w.to(dev).requires_grad_()
+    y = x.to(dev)
+    for l in range(L):
+        y = tanh_block({"w": wt[l]}, y)
+    y.square().sum().backward()
+    seq_y, seq_g = y.detach().cpu(), wt.grad.cpu()
+    del wt, y
+
+    def spec(runs):
+        return {"backend": "gloo", "device": "cuda", "seed": seed,
+                "runs": runs}
+
+    jobs = [{"kind": "train", "spec": spec([
+        {"cfg": pcfg, "shape": shape, "zero1": zero1, "optimizer": popt,
+         "batches": pbatches} for shape, zero1 in PARITY_TRAIN_MESHES])},
+        {"kind": "train", "spec": spec([
+            {"cfg": cfg, "shape": mesh, "zero1": True, "batches": batches,
+             "optimizer": {"name": "adamw",
+                           "lr": ("warmup_cosine", (3e-4, 20, steps))}}])},
+        {"kind": "pipeline", "spec": {
+            "w": w.numpy(), "x": x.numpy(), "num_microbatches": M,
+            "shape": (2, 2), "axes": ("data", "pipe"), "device": "cuda",
+            "backend": "gloo"}}]
+    t0 = time.perf_counter()
+    out = launch.spawn(4, train_mesh_rank, jobs, threads=2)
+    spawn_s = time.perf_counter() - t0
+
+    # -- parity-train-mesh ------------------------------------------------
+    parity = []
+    for k, (shape, zero1) in enumerate(PARITY_TRAIN_MESHES):
+        recs = [r[0][k] for r in out]
+        tag = (f"parity-train-mesh data {shape[0]} x model {shape[1]}"
+               + (" ZeRO-1" if zero1 else ""))
+        got = [h["loss"] for h in recs[0]["history"]]
+        err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        for r in recs:
+            check([h["loss"] for h in r["history"]] == got,
+                  f"{tag}: rank {r['rank']}'s losses differ from rank 0's")
+            for i, census in enumerate(r["census"]):
+                check(census == r["expected_census"],
+                      f"{tag}: rank {r['rank']} step {i + 1} census {census}"
+                      f" is not {r['expected_census']}")
+        check(err <= TRAIN_MESH_RTOL,
+              f"{tag}: losses {got} are {err:.3g} relative from the single "
+              f"rank's {want}")
+        print(f"[{tag}] granite-3-2b 2 layers float32, {psteps} AdamW steps "
+              f"at seq {pseq} x batch {pbatch}: losses {got} within "
+              f"{err:.3g} relative of the single rank's {want}; census "
+              f"{recs[0]['expected_census']} on every rank, every step "
+              f"[{card}; {RANKS_NOTE}]", flush=True)
+        parity.append({"shape": shape, "zero1": zero1, "losses": got,
+                       "single_rank": want, "max_rel_err": err,
+                       "census": recs[0]["expected_census"]})
+
+    # -- train-dp2tp2 ------------------------------------------------------
+    recs = [r[1][0] for r in out]
+    r0 = recs[0]
+    got = [h["loss"] for h in r0["history"]]
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, tp1)]
+    for r in recs:
+        check([h["loss"] for h in r["history"]] == got,
+              f"train-dp2tp2: rank {r['rank']}'s losses differ from rank 0's")
+        for i, census in enumerate(r["census"]):
+            check(census == r["expected_census"],
+                  f"train-dp2tp2: rank {r['rank']} step {i + 1} census "
+                  f"{census} is not {r['expected_census']}")
+        for name in TRAIN_KERNELS:
+            check(r["launches"][name] > 0,
+                  f"train-dp2tp2: kernel {name} never launched on rank "
+                  f"{r['rank']}")
+    check(all(math.isfinite(v) for v in got), f"train-dp2tp2: losses {got}")
+    check(max(errs) <= DP2TP2_LOSS_RTOL,
+          f"train-dp2tp2: losses {got} are {max(errs):.3g} relative from "
+          f"the single rank's {tp1} (bound {DP2TP2_LOSS_RTOL})")
+    step_ms = [h["step_time_s"] * 1e3 for h in r0["history"]]
+    ms = sum(step_ms[1:]) / (len(step_ms) - 1)
+    rec = {"model": cfg.name, "layers": layers, "dtype": cfg.dtype,
+           "mesh": mesh, "zero1": True, "seq": seq, "batch": batch,
+           "steps": steps, "losses": got, "single_rank": tp1,
+           "max_rel_err": max(errs), "bound": DP2TP2_LOSS_RTOL,
+           "step_ms": step_ms, "ms_per_step": ms,
+           "tokens_per_s": seq * batch / (ms / 1e3),
+           "single_rank_ms_per_step": tp1_ms,
+           "peak_memory_bytes_by_rank": [r["peak_memory_bytes"] for r in recs],
+           "census": r0["expected_census"],
+           "launches_by_rank": [{n: r["launches"][n] for n in TRAIN_KERNELS}
+                                for r in recs],
+           "card": card, "note": RANKS_NOTE}
+    print(f"[train-dp2tp2] granite-3-2b {layers} layers bf16, data "
+          f"{mesh[0]} x model {mesh[1]} ZeRO-1, seq {seq} x batch {batch}, "
+          f"{steps} steps: losses {got} within {max(errs):.3g} relative of "
+          f"the single rank's {tp1} (bound {DP2TP2_LOSS_RTOL}); {ms:.1f} ms "
+          f"a step over steps 2-{steps} (single rank {tp1_ms:.1f} ms); peak "
+          f"memory by rank "
+          f"{[round(r['peak_memory_bytes'] / 2**30, 2) for r in recs]} GiB; "
+          f"a step's collectives {r0['expected_census']}; launches by rank "
+          f"{rec['launches_by_rank']} [{card}; {RANKS_NOTE}]", flush=True)
+
+    # -- pipeline-2 --------------------------------------------------------
+    prec = [r[2] for r in out]
+    y_err = max(float((torch.from_numpy(r["y"]) - seq_y).abs().max())
+                for r in prec)
+    pipes = {}
+    for r in prec:           # the two pipelines' gradients, each summed
+        pipes.setdefault(r["rank"] // 2, []).append(torch.from_numpy(r["grad"]))
+    g_err = max(float((sum(gs) - seq_g).abs().max() / seq_g.abs().max())
+                for gs in pipes.values())
+    check(y_err <= 1e-4 * float(seq_y.abs().max()) + 1e-5,
+          f"pipeline-2: max |y - sequential| {y_err}")
+    check(g_err <= 1e-4, f"pipeline-2: gradient scaled error {g_err}")
+    print(f"[pipeline-2] {L} layers of width {D}, batch {GB} in {M} "
+          f"microbatches over 2 stages (two pipelines) on the card: max |y - "
+          f"sequential| {y_err:.3g}, gradients' scaled error {g_err:.3g}; "
+          f"collectives a rank {prec[0]['census']} [{card}; {RANKS_NOTE}]",
+          flush=True)
+    print(f"[train-mesh] the spawn in {spawn_s:.1f}s", flush=True)
+    return ({"parity_train_mesh": parity, "train_dp2tp2": rec,
+             "pipeline_2": {"layers": L, "width": D, "batch": GB,
+                            "microbatches": M, "max_abs_err": y_err,
+                            "grad_scaled_err": g_err,
+                            "census": prec[0]["census"]},
+             "spawn_s": spawn_s},
+            {"train_dp2tp2": {n: r0["launches"].get(n, 0)
+                              for n in read_launches()}})
+
+
+# ---------------------------------------------------------------------------
 # --ab: parent against change on the serving and training kernels, one call
 # ---------------------------------------------------------------------------
 
@@ -4406,6 +4691,8 @@ def main() -> int:
     kernels += paged_grad_kernel_phase(torch, args.seed)
     lap("kernels")
     at_shapes = new_shape_kernel_phase(torch, args.seed)
+    for name, entries in train_mesh_kernel_phase(torch, args.seed).items():
+        at_shapes.setdefault(name, {}).update(entries)
     lap("kernels_at_shapes")
     sparse_at, paths = blocksparse_phase(torch, args.seed)
     lap("blocksparse")
@@ -4512,6 +4799,9 @@ def main() -> int:
     tp_serving, tp_paths = tp_serving_phase(torch, args.seed, card)
     paths.update(tp_paths)
     lap("tp_serving")
+    train_mesh, mesh_paths = train_mesh_phase(torch, args.seed, card)
+    paths.update(mesh_paths)
+    lap("train_mesh")
     serves = {"serve_qwen3": serve_qwen3, "serve_olmoe": serve_olmoe,
               "serve_phi35moe": serve_phi35moe, "serve_hymba": serve_hymba,
               "serve_tp2": tp_serving["serve_tp2"],
@@ -4561,6 +4851,7 @@ def main() -> int:
               "train_seamless": train_seamless,
               "phi3v_parity": phi3v_parity, "serve_phi3v": serve_phi3v,
               "train_phi3v": train_phi3v, "tp_serving": tp_serving,
+              "train_mesh": train_mesh,
               "phase_end_s": laps,
               "total_s": time.perf_counter() - t_start}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -14,7 +14,9 @@ raw bits of its dtype through numpy: ``Tensor.numpy()`` has no bfloat16,
 so a bf16 leaf is saved as its int16 view and the manifest records the
 torch dtype, which ``restore`` puts back with a ``view``. Restore checks
 each leaf's crc32 and shape and falls back to the newest valid step;
-leaves land on the device of the matching leaf of the target tree.
+leaves are matched to the target tree by their keys (the manifest keeps
+the saved tree's structure), so the target's dict order does not matter,
+and land on the device of the matching target leaf.
 """
 
 from __future__ import annotations
@@ -125,7 +127,9 @@ class Checkpointer:
                     pass
         return sorted(out)
 
-    def _validate(self, step: int) -> list[torch.Tensor] | None:
+    def _validate(self, step: int):
+        """(the saved tree, rebuilt from the manifest's structure) or None
+        where the step does not validate."""
         path = os.path.join(self.dir, f"step_{step:08d}")
         try:
             with open(os.path.join(path, "manifest.json")) as f:
@@ -136,7 +140,7 @@ class Checkpointer:
                 if list(arr.shape) != meta["shape"] or _crc(arr) != meta["crc32"]:
                     return None
                 leaves.append(_from_host(arr, meta["dtype"]))
-            return leaves
+            return _fill(manifest["structure"], iter(leaves))
         except (OSError, ValueError, KeyError, AttributeError,
                 json.JSONDecodeError):
             return None
@@ -151,11 +155,37 @@ class Checkpointer:
         that validates. Returns (tree, step)."""
         candidates = ([step] if step is not None else
                       list(reversed(self.all_steps())))
-        n_target = len(tree_leaves(target_tree))
         for s in candidates:
-            leaves = self._validate(s)
-            if leaves is None or len(leaves) != n_target:
+            saved = self._validate(s)
+            if saved is None:
                 continue
-            it = iter(leaves)
-            return tree_map(lambda t: next(it).to(t.device), target_tree), s
+            try:
+                return _match(target_tree, saved), s
+            except (KeyError, IndexError, TypeError):
+                continue            # another tree's checkpoint
         raise FileNotFoundError(f"no valid checkpoint in {self.dir}")
+
+
+def _fill(structure, leaves):
+    """The saved tree: the manifest's structure with its leaves in order."""
+    if isinstance(structure, dict):
+        return {k: _fill(v, leaves) for k, v in structure.items()}
+    if isinstance(structure, list):
+        return [_fill(v, leaves) for v in structure]
+    return next(leaves)
+
+
+def _match(target, saved):
+    """The saved tree in the target's structure (by keys), each leaf on the
+    device of the target's."""
+    if isinstance(target, dict):
+        if set(target) != set(saved):
+            raise KeyError(f"keys {sorted(saved)} != {sorted(target)}")
+        return {k: _match(v, saved[k]) for k, v in target.items()}
+    if isinstance(target, (list, tuple)):
+        if len(target) != len(saved):
+            raise IndexError("list lengths differ")
+        return type(target)(_match(t, v) for t, v in zip(target, saved))
+    if isinstance(saved, (dict, list)):
+        raise TypeError("a leaf where the checkpoint has a subtree")
+    return saved.to(target.device)

@@ -72,6 +72,7 @@ def attention(
     kv_positions: torch.Tensor | None = None,
     block_layout=None,
     dropout_seed=0,
+    dropout_coords: tuple[int, int, int] | None = None,
     deterministic: bool = True,
     q_offset: int | None = None,
     scale: float | None = None,
@@ -79,7 +80,9 @@ def attention(
     """(b, hq, sq, d) x (b, hkv, sk, d)^2 -> (b, hq, sq, d); every impl
     evaluates the same fused mask. ``block_layout`` (an Alg. 5 sparse
     pattern) reaches the kernels on ``pallas`` and ``block_sparse``, as in
-    the JAX package; the other impls do not read it."""
+    the JAX package; the other impls do not read it. ``dropout_coords`` =
+    (b0, h0, H) places the tensors' rows and heads in a global batch of H
+    heads for the dropout hash (a rank of a sharded step)."""
     dropout_p = 0.0 if deterministic else spec.dropout_p
     common = dict(causal=spec.causal, window=spec.window, kv_mask=kv_mask,
                   segment_ids=segment_ids, q_segment_ids=q_segment_ids,
@@ -90,7 +93,8 @@ def attention(
             raise ValueError("impl=block_sparse requires block_layout")
         return kops.flash_attention(
             q, k, v, dropout_p=dropout_p, dropout_seed=dropout_seed,
-            block_q=spec.block_q, block_k=spec.block_k, variant=spec.variant,
+            dropout_coords=dropout_coords, block_q=spec.block_q,
+            block_k=spec.block_k, variant=spec.variant,
             block_layout=block_layout, **common)
     if spec.impl == "chunked":
         if dropout_p > 0.0:
@@ -98,7 +102,8 @@ def attention(
         return kref.chunked_attention(q, k, v, **common)
     if spec.impl == "reference":
         return kref.standard_attention(
-            q, k, v, dropout_p=dropout_p, dropout_seed=dropout_seed, **common)
+            q, k, v, dropout_p=dropout_p, dropout_seed=dropout_seed,
+            dropout_coords=dropout_coords, **common)
     raise ValueError(f"unknown attention impl {spec.impl!r}")
 
 

@@ -1,14 +1,23 @@
-"""Tensor- and sequence-parallel serving over ``torch.distributed``
-(port of the serving half of ``repro.distributed``): one process per
-shard, every rank running the same ``ServingEngine`` (DESIGN.md §13-§14).
+"""Tensor- and sequence-parallel serving and sharded training over
+``torch.distributed`` (port of ``repro.distributed``): one process per
+shard, every rank running the same engine or train step (DESIGN.md
+§13-§14; ``train.steps.make_sharded_train_step``).
 
-  * ``meshes`` — ``ServeMesh``: this rank's ``(sp, tp)`` coordinate and
-    its two axis groups, built from an initialised default process group;
-  * ``comm`` — the three collectives the sharded model runs (the
-    counterparts of the ``psum`` / ``all_gather`` / ``ppermute`` that the
-    reference's ``shard_map`` traces), each counted by kind;
-  * ``sharding`` — the logical-axis rule tables, the sp prefill census,
-    the divisibility preflight and ``shard_params``;
-  * ``launch`` — spawning ``sp * tp`` ranks and the rank entry that
-    serves a list of prompts.
+  * ``meshes`` — ``ServeMesh`` (the serving ``(sp, tp)`` grid) and the
+    general ``Mesh`` of named axes (``make_mesh``: one group an axis, the
+    data axes together, the whole mesh), built from an initialised
+    default process group;
+  * ``comm`` — the collectives the sharded model and step run (the
+    counterparts of the reference's ``psum`` / ``pmax`` / ``all_gather``
+    / ``psum_scatter`` / ``ppermute``) and Megatron's autograd pair
+    ``copy_to_group`` / ``reduce_from_group``, each counted by kind;
+  * ``sharding`` — the logical-axis rule tables, ``auto_rules``, the
+    censuses, the divisibility preflight, ``NamedSharding``,
+    ``shard_params`` / ``unshard`` and the training model's
+    ``TrainShard``;
+  * ``zero`` — ZeRO-1's moment specs and slices;
+  * ``compression`` — int8 gradient compression with error feedback;
+  * ``pipeline`` — the GPipe pipeline over a ring of ranks;
+  * ``launch`` — spawning ranks, and the rank entries that serve, train,
+    run the pipeline and the compressed mean.
 """

@@ -1,23 +1,43 @@
-"""The collectives of the sharded serving model (the counterparts of the
-``psum``, tiled ``all_gather`` and ``ppermute`` that the reference's
-``shard_map`` bodies trace), each on one axis ``Group`` of a
-``ServeMesh``:
+"""The collectives of the sharded model and of the sharded train step (the
+counterparts of the ``psum``, ``pmax``, tiled ``all_gather``,
+``psum_scatter`` and ``ppermute`` that the reference's ``shard_map``
+bodies and sharded ``jit`` trace), each on one axis ``Group`` of a mesh
+(``meshes.ServeMesh`` or ``meshes.Mesh``):
 
-  * ``all_reduce_sum`` — the tp projection boundaries (attention ``wo``,
-    MLP ``w_down``), summed in the payload's dtype;
+  * ``all_reduce_sum`` — the tp projection boundaries of serving
+    (attention ``wo``, MLP ``w_down``), summed in the payload's dtype;
+  * ``all_reduce_max`` — the global max of a vocab-sharded softmax;
   * ``all_gather`` — an sp chunk's K/V slabs, concatenated in slab order;
+  * ``reduce_scatter`` — the data-parallel gradient sum under ZeRO-1:
+    the sum over the group, cut along one dim, slab i to rank i;
   * ``ring_shift`` — one ``batch_isend_irecv`` step, each rank sending to
-    its right neighbour ``(i + 1) % n`` and receiving from its left.
+    its right neighbour ``(i + 1) % n`` and receiving from its left;
+    differentiable: its backward is the reverse shift (the pipeline's
+    activations).
+
+and the autograd-aware pair of tensor-parallel training (Megatron's f and
+g), with a differentiable gather:
+
+  * ``copy_to_group`` — the identity forward, a sum over the group
+    backward: where a replicated activation (or parameter) enters a
+    column-parallel computation, each rank's gradient is a partial sum;
+  * ``reduce_from_group`` — a sum over the group forward, the identity
+    backward: the row-parallel outputs (``wo``, ``w_down``), the masked
+    embedding lookup, the softmax statistics of a vocab-sharded loss;
+  * ``gather_from_group`` — an ``all_gather`` forward, a
+    ``reduce_scatter`` backward (the K/V columns when a kv head is split
+    across ranks).
 
 Each call adds one to the group's ``collectives`` counter under its kind
-(``all_reduce``, ``all_gather``, ``ring_shift``): that counter is the
-port's census of a step. A call on an axis of one rank returns its input
-unsent (the sum, gather or shift over one rank is the identity), and is
-counted all the same, as the reference's trace counts a ``psum`` over an
-axis of size 1. With backend ``gloo`` a CUDA payload is copied to host
-memory, sent, and copied back: that is how gloo carries it (several ranks
-on one card), not a fallback after a failure; nothing here catches a
-failed collective.
+(``all_reduce``, ``all_reduce_max``, ``all_gather``, ``reduce_scatter``,
+``ring_shift``), a backward's collective too: that counter is the port's
+census of a step. A call on an axis of one rank returns its input unsent
+(the sum, gather or shift over one rank is the identity), and is counted
+all the same, as the reference's trace counts a ``psum`` over an axis of
+size 1. With backend ``gloo`` a CUDA payload is copied to host memory,
+sent, and copied back: that is how gloo carries it (several ranks on one
+card), not a fallback after a failure; nothing here catches a failed
+collective.
 """
 
 from __future__ import annotations
@@ -40,6 +60,12 @@ def _staged(x: torch.Tensor, group: Group) -> torch.Tensor:
     return x.contiguous()
 
 
+def _reduce(x: torch.Tensor, group: Group, op) -> torch.Tensor:
+    buf = _staged(x, group)
+    dist.all_reduce(buf, op=op, group=group.pg)
+    return buf.to(x.device)
+
+
 def all_reduce_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
     """The sum of every rank's ``x`` over the group, in x's dtype, on x's
     device. Every rank of the group receives the same bits. May reuse x's
@@ -47,9 +73,16 @@ def all_reduce_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
     _count(group, "all_reduce")
     if group.size == 1:
         return x
-    buf = _staged(x, group)
-    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group.pg)
-    return buf.to(x.device)
+    return _reduce(x, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The elementwise max of every rank's ``x`` over the group (a new
+    tensor; not differentiable)."""
+    _count(group, "all_reduce_max")
+    if group.size == 1:
+        return x
+    return _reduce(x.detach().clone(), group, dist.ReduceOp.MAX)
 
 
 def all_gather(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
@@ -64,19 +97,106 @@ def all_gather(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim).to(x.device)
 
 
-def ring_shift(x: torch.Tensor, group: Group) -> torch.Tensor:
-    """One ring step: send ``x`` to the next rank of the group, return what
-    the previous one sent (same shape and dtype)."""
+def reduce_scatter(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """The sum over the group of every rank's ``x``, cut along ``dim`` into
+    ``group.size`` equal slabs: rank i of the group receives slab i (in
+    x's dtype, on x's device). ``x.shape[dim]`` must divide."""
+    _count(group, "reduce_scatter")
+    n = group.size
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} "
+                         f"does not divide into {n} slabs")
+    if n == 1:
+        return x
+    buf = _staged(x, group)
+    parts = [p.contiguous() for p in buf.chunk(n, dim=dim)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group.pg)
+    return out.to(x.device)
+
+
+def _shift(x: torch.Tensor, group: Group, step: int) -> torch.Tensor:
+    """Send ``x`` to the rank ``step`` places on, receive from the rank
+    ``step`` places back."""
     _count(group, "ring_shift")
     n = group.size
     if n == 1:
         return x
     buf = _staged(x, group)
     recv = torch.empty_like(buf)
-    ops = [dist.P2POp(dist.isend, buf, group.ranks[(group.index + 1) % n],
+    ops = [dist.P2POp(dist.isend, buf, group.ranks[(group.index + step) % n],
                       group=group.pg),
-           dist.P2POp(dist.irecv, recv, group.ranks[(group.index - 1) % n],
+           dist.P2POp(dist.irecv, recv, group.ranks[(group.index - step) % n],
                       group=group.pg)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return recv.to(x.device)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = _shift(x, group, 1)
+        return out.view_as(out) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g.contiguous(), ctx.group, -1), None
+
+
+def ring_shift(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """One ring step: send ``x`` to the next rank of the group, return what
+    the previous one sent (same shape and dtype). Its gradient goes the
+    other way round the ring."""
+    return _RingShift.apply(x, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.clone(), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        out = all_gather(x, group, dim)
+        return out.view_as(out) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+def copy_to_group(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """x itself; in the backward its gradient is summed over the group."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """x summed over the group; in the backward its gradient passes as
+    it is to every rank's summand."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    """Every rank's x concatenated along ``dim``; in the backward each
+    rank's slab of the gradient is summed over the group."""
+    return _GatherFromGroup.apply(x, group, dim)

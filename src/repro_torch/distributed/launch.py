@@ -1,5 +1,6 @@
-"""Spawning the ranks of a tensor- or sequence-parallel serve, and the
-rank entry that serves a list of prompts.
+"""Spawning the ranks of a sharded serve or train step, and the rank
+entries that serve a list of prompts (``serve_rank``) and train a few
+steps (``train_rank``).
 
 ``spawn(world, fn, *args)`` starts ``world`` processes through
 ``torch.multiprocessing`` (start method ``spawn``: a child imports only
@@ -15,6 +16,15 @@ waves of requests (each wave drained before the next is submitted, so a
 later wave can hit the prefix cache of an earlier one), with what the
 run asks to bring back (tokens, counters, the census by step kind, the
 pool, the logits of a packed prefill).
+
+``train(spec, world)`` runs ``train_rank(spec)`` on every rank: for each
+run of the spec, a ``meshes.Mesh`` of its shape, the sharded train step
+(``train.steps.make_sharded_train_step``) over this rank's pieces of the
+spec's weights, stepped through the run's batches by a ``Trainer`` (with
+the run's checkpoint directory: save every N steps, resume first), with
+what the run asks to bring back (losses and metrics a step, each step's
+collective census, the full params gathered back, the pieces' shapes,
+the ``ValueError`` a refused mesh raised).
 """
 
 from __future__ import annotations
@@ -59,12 +69,13 @@ def spawn(world: int, fn, *args, backend: str = "gloo",
 
 def _tensors(tree, device):
     """A numpy parameter tree in the port's layout as tensors on
-    ``device`` (float32 leaves stay float32)."""
+    ``device`` (float32 leaves stay float32), copies: a train step updates
+    them in place, and the next run of the spec starts from the tree."""
     if isinstance(tree, dict):
         return {k: _tensors(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_tensors(v, device) for v in tree]
-    return torch.from_numpy(np.ascontiguousarray(tree)).to(device)
+    return torch.tensor(np.asarray(tree), device=device)
 
 
 def serve_waves(engine, waves) -> dict[int, list[int]]:
@@ -147,3 +158,189 @@ def serve(spec: dict, world: int, *, threads: int | None = 1) -> list:
     records, by rank."""
     return spawn(world, serve_rank, spec, backend=spec["backend"],
                  threads=threads)
+
+
+def _optimizer(spec: dict):
+    """An optimizer from a picklable spec: ``{"name": "adamw" | "lamb",
+    "lr": a float or (schedule name, args), **keywords}``."""
+    from repro_torch import optim
+    kw = dict(spec)
+    name, lr = kw.pop("name"), kw.pop("lr")
+    if not isinstance(lr, (int, float)):
+        lr = getattr(optim, lr[0])(*lr[1])
+    return getattr(optim, name)(lr, **kw)
+
+
+def _census(counter) -> dict[str, int]:
+    return {key[0]: int(counter.value(kind=key[0]))
+            for key in counter.series_keys()}
+
+
+def train_rank(spec: dict) -> list[dict]:
+    """One rank's part of ``train``. ``spec``: ``device``, ``backend`` and
+    ``runs``, each with ``cfg`` (a ModelConfig), ``params`` (a numpy tree
+    in the port's layout, every rank the full tree) or ``seed`` (every
+    rank draws the same tree), ``shape`` of its ``("data", "model")``
+    mesh, ``optimizer`` (``_optimizer``'s spec), ``batches`` (global
+    numpy batches, one a step, their rows cut over "data"), and optionally
+    ``zero1`` (default True), ``grad_accum``, ``deterministic`` (default
+    True), ``ckpt`` ({"dir", "every", "resume"}) and ``gather`` (bring
+    back the full params on rank 0); a key of ``spec`` is every run's
+    default. Each record holds the attention kernels' launches over the
+    run's steps and, on a card, the rank's peak memory. A run with
+    ``expect_error`` brings back the ``ValueError`` the step factory
+    raised (or None); a run with ``mesh_fn`` (a name in ``launch.mesh``
+    and its ``mesh_kw``) only builds that mesh and brings back the
+    ``ValueError`` it raised (or None)."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.distributed.meshes import make_mesh
+    from repro_torch.distributed.sharding import (P, auto_rules, shard_tree,
+                                                  unshard)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import build_model
+    from repro_torch.telemetry.metrics import MetricsRegistry
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train.steps import init_opt_state, make_sharded_train_step
+
+    out = []
+    for run in spec["runs"]:
+        if "mesh_fn" in run:
+            try:
+                getattr(launch_mesh, run["mesh_fn"])(**run.get("mesh_kw", {}))
+                out.append({"error": None})
+            except ValueError as e:
+                out.append({"error": str(e)})
+            continue
+        run = {**spec, **run}
+        model = build_model(run["cfg"])
+        mesh = make_mesh(run["shape"], ("data", "model"),
+                         backend=spec["backend"], device=spec["device"])
+        registry = MetricsRegistry()
+        mesh = mesh.counted(registry)
+        counter = registry.get("collectives")
+        batches = run["batches"]
+        rules = auto_rules(run["cfg"], mesh,
+                           global_batch=len(batches[0]["tokens"]))
+        opt = _optimizer(run["optimizer"])
+        specs = {k: P("data", None) for k in batches[0]}
+        try:
+            step, sh = make_sharded_train_step(
+                model, opt, mesh, rules=rules, zero1=run.get("zero1", True),
+                grad_accum=run.get("grad_accum", 1),
+                deterministic=run.get("deterministic", True),
+                batch_specs=specs)
+        except ValueError as e:
+            if not run.get("expect_error"):
+                raise
+            out.append({"error": str(e)})
+            continue
+        if run.get("expect_error"):
+            out.append({"error": None})
+            continue
+        if run.get("params") is None:
+            full = model.init(torch.Generator(device=mesh.device)
+                              .manual_seed(run["seed"]), device=mesh.device)
+        else:
+            full = _tensors(run["params"], mesh.device)
+        params = shard_tree(full, sh["params"])
+        del full
+        opt_state = init_opt_state(opt, params, sh)
+        census = []
+
+        def counted_step(p, o, b):
+            before = _census(counter)
+            res = step(p, o, b)
+            after = _census(counter)
+            census.append({k: n - before.get(k, 0) for k, n in after.items()
+                           if n != before.get(k, 0)})
+            return res
+
+        ckpt = run.get("ckpt") or {}
+        scratch = (None if ckpt.get("dir") else
+                   tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_"))
+        trainer = Trainer(
+            TrainerConfig(total_steps=len(batches),
+                          ckpt_every=ckpt.get("every", 10 ** 9),
+                          ckpt_dir=ckpt.get("dir") or scratch.name),
+            counted_step, params, opt_state, lambda i: batches[i],
+            param_shardings=sh["params"], opt_shardings=sh["opt"])
+        del params, opt_state
+        if ckpt.get("resume"):
+            trainer.try_resume()
+        on_card = mesh.device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize(mesh.device)
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+        launches = dict(fa.LAUNCHES)
+        hist = trainer.run()
+        if scratch is not None:
+            scratch.cleanup()
+        rec = {"rank": mesh.rank, "coord": mesh.named_coord,
+               "launches": {k: n - launches[k] for k, n in
+                            fa.LAUNCHES.items()},
+               "peak_memory_bytes": (torch.cuda.max_memory_allocated(
+                   mesh.device) if on_card else None),
+               "start": len(batches) - len(hist), "history": hist,
+               "census": census, "expected_census": sh["census"],
+               "param_shapes": [tuple(t.shape)
+                                for t in tree_leaves(trainer.params)],
+               "moment_shapes": [tuple(t.shape) for t in
+                                 tree_leaves(trainer.opt_state["mu"])]}
+        if run.get("gather"):
+            full = unshard(trainer.params, sh["params"])
+            if mesh.rank == 0:
+                rec["full"] = tree_map(lambda t: t.float().cpu().numpy(),
+                                       full)
+        out.append(rec)
+    return out
+
+
+def train(spec: dict, world: int, *, threads: int | None = 1) -> list:
+    """``train_rank(spec)`` on ``world`` ranks; each rank's list of run
+    records, by rank."""
+    return spawn(world, train_rank, spec, backend=spec["backend"],
+                 threads=threads)
+
+
+def pipeline_rank(spec: dict) -> dict:
+    """One stage of ``pipeline.pipeline_apply`` over the ``"pipe"`` axis of
+    a mesh of every rank (``spec["shape"]`` / ``spec["axes"]``, default a
+    ``("pipe",)`` mesh of them all; the ranks along another axis run
+    pipelines of their own): ``spec`` = {"w": (L, D, D) numpy, "x": (GB,
+    D) numpy, "num_microbatches", "device", "backend"}, the stack of
+    ``pipeline.tanh_block`` layers. Returns the output on this rank, the
+    gradient of sum(y²) with respect to the whole (L, D, D) stack (this
+    stage's layers; zeros elsewhere) and the collectives by kind."""
+    from repro_torch.distributed import pipeline
+    from repro_torch.distributed.meshes import make_mesh
+    from repro_torch.telemetry.metrics import MetricsRegistry
+
+    registry = MetricsRegistry()
+    mesh = make_mesh(spec.get("shape", (dist.get_world_size(),)),
+                     spec.get("axes", ("pipe",)), backend=spec["backend"],
+                     device=spec["device"]).counted(registry)
+    w = torch.tensor(spec["w"], device=mesh.device, requires_grad=True)
+    x = torch.tensor(spec["x"], device=mesh.device)
+    stages = pipeline.split_stages({"w": w}, mesh.shape["pipe"])
+    y = pipeline.pipeline_apply(pipeline.make_stage_fn(pipeline.tanh_block),
+                                stages, x, mesh=mesh,
+                                num_microbatches=spec["num_microbatches"])
+    y.square().sum().backward()
+    return {"rank": mesh.rank, "stage": mesh.named_coord["pipe"],
+            "y": y.detach().cpu().numpy(),
+            "grad": w.grad.cpu().numpy(),
+            "census": _census(registry.get("collectives"))}
+
+
+def compression_rank(spec: dict) -> dict:
+    """``compression.compressed_mean_tree`` of this rank's row of
+    ``spec["g"]`` (world, n) over a ``("data",)`` mesh of every rank."""
+    from repro_torch.distributed import compression
+    from repro_torch.distributed.meshes import make_mesh
+
+    mesh = make_mesh((dist.get_world_size(),), ("data",),
+                     backend=spec["backend"], device=spec["device"])
+    g = torch.tensor(spec["g"][mesh.rank], device=mesh.device)
+    mean = compression.compressed_mean_tree({"g": g}, mesh.group("data"))
+    return {"rank": mesh.rank, "mean": mean["g"].cpu().numpy()}

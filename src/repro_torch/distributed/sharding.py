@@ -12,16 +12,24 @@ contiguously, which keeps each q-head group on the rank of its kv head
 and ``w_down`` by rows, ``w_up`` / ``w_gate`` by columns.
 
 A mesh here is anything with a ``shape`` mapping axis names to sizes (a
-``meshes.ServeMesh``) or such a mapping itself; ``shard_params`` also
-needs the rank's coordinate (a ``ServeMesh``).
+``meshes.ServeMesh`` or ``meshes.Mesh``) or such a mapping itself;
+``shard_params`` also needs the rank's coordinate on each axis
+(``named_coord``: "sp"/"tp" of a serving mesh, "pod"/"data"/"model" of a
+training mesh). ``NamedSharding`` is a leaf's physical spec on a mesh:
+``shard`` cuts this rank's piece out of a full array, ``gather`` puts the
+full array back together from every rank's (``unshard`` over a tree, for
+a mesh-free checkpoint).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Mapping
 
 import torch
+
+from repro_torch.distributed import comm
 
 # default rules: a 2-D/3-D mesh with tensor parallelism on "model" and
 # data parallelism on ("pod", "data"), as the reference's
@@ -85,6 +93,67 @@ def expected_sp_prefill_census(traced_layers: int, *, sp: int = 1,
             census["all_gather"] = traced_layers
         else:
             raise ValueError(f"unknown sp strategy {strategy!r}")
+    return census
+
+
+def expected_train_census(cfg, shape: Mapping[str, int],
+                          rules: Mapping[str, Any], *, zero1: bool,
+                          cut_leaves: bool = True, whole_leaves: bool = False,
+                          grad_accum: int = 1, stacked: bool = False
+                          ) -> dict[str, int]:
+    """The collectives one sharded train step must count on every rank
+    (the port's census contract for ``make_sharded_train_step``), from
+    the config, the mesh shape and the rules. ``cut_leaves`` /
+    ``whole_leaves``: some moment leaf is / is not cut by ZeRO-1;
+    ``stacked``: the optimizer sums trust ratios (LAMB).
+
+    Per microbatch, at a "model" axis m > 1: each layer with its heads cut
+    one ``all_reduce`` forward (``wo``) and one backward (its input), two
+    more backward with qk-norm (the scales), and where a kv head is cut
+    two ``all_gather`` forward and two ``reduce_scatter`` backward; each
+    layer with its FFN cut one ``all_reduce`` each way; a cut vocab one
+    ``all_reduce`` for the embedding, one backward for the logits' input,
+    an ``all_reduce_max`` and two ``all_reduce`` for the softmax. With
+    ``cfg.remat`` the backward recomputes each layer's forward up to the
+    last tensor it saves (``torch.utils.checkpoint``'s early stop): the
+    attention's collectives run again (its output feeds the MLP's norm),
+    the MLP's ``w_down`` sum does not (its output only joins the residual
+    stream). At a data size D > 1: one ``all_reduce`` of the token count
+    and one for each MoE layer's routing fractions (again under remat).
+    Per step: at D > 1 one ``all_reduce`` of the metrics, the gradients'
+    sum (one ``all_reduce``, or under ZeRO-1 a ``reduce_scatter`` onto the
+    cut leaves and an ``all_reduce`` of the whole ones) and the
+    ``all_gather`` of the updated slices; over a mesh of more than one
+    rank one ``all_reduce`` for the global norm and, for LAMB, one for its
+    sums."""
+    census: dict[str, int] = {}
+
+    def add(kind, n):
+        if n:
+            census[kind] = census.get(kind, 0) + n
+
+    m = shape.get("model", 1)
+    D = math.prod(shape.get(a, 1) for a in ("pod", "data"))
+    world = math.prod(shape.values())
+    heads = m > 1 and rules.get("heads") == "model"
+    ff = m > 1 and rules.get("ff") == "model"
+    vocab = m > 1 and rules.get("vocab") == "model"
+    kv_split = heads and cfg.num_kv_heads % m != 0
+    L = cfg.num_layers
+    attn_fwd = L * (2 if cfg.remat else 1)    # the attention forwards a step
+    moe_fwd = attn_fwd if cfg.family == "moe" else 0
+    add("all_reduce", grad_accum * (
+        (attn_fwd + L * (1 + 2 * cfg.qk_norm)) * heads + 2 * L * ff
+        + 4 * vocab + (D > 1) * (1 + moe_fwd)))
+    add("all_gather", grad_accum * 2 * attn_fwd * kv_split)
+    add("reduce_scatter", grad_accum * 2 * L * kv_split)
+    add("all_reduce_max", grad_accum * vocab)
+    if D > 1:
+        add("all_reduce", 1 + (whole_leaves or not zero1))
+        if zero1 and cut_leaves:
+            add("reduce_scatter", 1)
+            add("all_gather", 1)
+    add("all_reduce", (world > 1) * (1 + stacked))
     return census
 
 
@@ -203,6 +272,113 @@ def validate_divisibility(shapes_tree, specs_tree, mesh,
     return problems
 
 
+def _names(entry) -> tuple[str, ...]:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A leaf laid out on a mesh by a physical spec (the reference's
+    ``NamedSharding``): every dim whose entry names mesh axes is cut into
+    that many contiguous pieces, indexed row-major over the axes, and a
+    rank holds the piece at its coordinate. ``mesh`` is a
+    ``meshes.Mesh`` (or, to ``shard`` only, a ``ServeMesh``)."""
+    mesh: Any
+    spec: PartitionSpec
+
+    def _cuts(self):
+        """(dim, pieces, this rank's piece) of every sharded dim."""
+        axes = self.mesh.shape
+        coord = (self.mesh.named_coord if hasattr(self.mesh, "named_coord")
+                 else dict(zip(axes, self.mesh.coord)))
+        for i, entry in enumerate(self.spec):
+            if entry is None:
+                continue
+            n, idx = 1, 0
+            for a in _names(entry):
+                n, idx = n * axes[a], idx * axes[a] + coord[a]
+            yield i, n, idx
+
+    @property
+    def axes(self) -> set[str]:
+        """The mesh axes the leaf is cut over."""
+        return {a for e in self.spec if e is not None for a in _names(e)}
+
+    def replicas(self) -> int:
+        """How many ranks hold each piece: the product of the mesh axes the
+        leaf is not cut over."""
+        return math.prod(n for a, n in self.mesh.shape.items()
+                         if a not in self.axes)
+
+    def shard(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of a full array (a contiguous copy, so that the
+        full array can be freed; a leaf cut over no axis as it is)."""
+        out = full
+        for i, n, idx in self._cuts():
+            if full.shape[i] % n:
+                raise ValueError(f"dim {i} of {tuple(full.shape)} does not "
+                                 f"divide into {n} pieces ({self.spec})")
+            size = full.shape[i] // n
+            out = out.narrow(i, idx * size, size)
+        return (out if out is full
+                else out.clone(memory_format=torch.contiguous_format))
+
+    def gather(self, piece: torch.Tensor) -> torch.Tensor:
+        """The full array from every rank's piece (one ``all_gather`` a
+        sharded dim, over the group of its axes)."""
+        out = piece
+        for i, entry in enumerate(self.spec):
+            if entry is not None:
+                out = comm.all_gather(out, self.mesh.group(_names(entry)), i)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainShard:
+    """What one rank's training model reads of its mesh (the sharded train
+    step builds it, ``train.steps.make_sharded_train_step``): the "model"
+    group and the logical axes cut over it (``heads``, ``ff``, ``vocab``:
+    those the rules put on "model", at a "model" axis of more than one
+    rank), the global head and vocab counts, the data group and whether
+    the batch rows are cut over it (a replicated batch is the same rows on
+    every data rank)."""
+    model: Any
+    data: Any
+    heads: bool
+    ff: bool
+    vocab: bool
+    num_heads: int
+    num_kv_heads: int
+    vocab_size: int
+    batch_sharded: bool
+
+    @property
+    def kv_split(self) -> bool:
+        """A kv head is cut across ranks (fewer kv heads than "model"
+        ranks): each rank's K/V columns are gathered and its q heads' kv
+        head taken whole."""
+        return self.heads and self.num_kv_heads % self.model.size != 0
+
+    @property
+    def head_offset(self) -> int:
+        """This rank's first q head in the global count."""
+        return (self.model.index * (self.num_heads // self.model.size)
+                if self.heads else 0)
+
+    def batch_offset(self, rows: int) -> int:
+        """This rank's first row of a global batch of which it holds
+        ``rows``."""
+        return self.data.index * rows if self.batch_sharded else 0
+
+
+def resolve_tree(specs, mesh, rules: Mapping[str, Any]):
+    """The logical spec tree resolved on the mesh: a tree of
+    ``NamedSharding`` (the reference's ``resolve_tree``)."""
+    return _walk("", specs, specs,
+                 lambda _, __, spec: NamedSharding(mesh,
+                                                   resolve_spec(spec, rules)))
+
+
 def shard_params(params, specs, mesh, rules: Mapping[str, Any]):
     """This rank's slices of a full parameter tree: every dim whose spec
     resolves to mesh axes is cut into that many contiguous pieces and the
@@ -212,21 +388,27 @@ def shard_params(params, specs, mesh, rules: Mapping[str, Any]):
     problems = validate_divisibility(params, specs, mesh, rules)
     if problems:
         raise ValueError("sharding preflight failed:\n" + "\n".join(problems))
-    axes = mesh.shape
-    coord = dict(zip(("sp", "tp"), mesh.coord))
+    return _walk("", params, specs, lambda _, leaf, spec: NamedSharding(
+        mesh, resolve_spec(spec, rules)).shard(leaf))
 
-    def piece(path, leaf, spec):
-        out = leaf
-        for i, entry in enumerate(resolve_spec(spec, rules)):
-            if entry is None:
-                continue
-            names = entry if isinstance(entry, tuple) else (entry,)
-            n, idx = 1, 0
-            for a in names:                 # row-major over the axes
-                n, idx = n * axes[a], idx * axes[a] + coord[a]
-            size = leaf.shape[i] // n
-            out = out.narrow(i, idx * size, size)
-        return (out if out is leaf
-                else out.clone(memory_format=torch.contiguous_format))
 
-    return _walk("", params, specs, piece)
+def _pairs(tree, shardings, fn):
+    """fn(leaf, sharding) over a tree and its tree of shardings."""
+    if isinstance(shardings, dict):
+        return {k: _pairs(tree[k], shardings[k], fn) for k in shardings}
+    if isinstance(shardings, list):
+        return [_pairs(t, sh, fn) for t, sh in zip(tree, shardings)]
+    return fn(tree, shardings)
+
+
+def shard_tree(tree, shardings):
+    """This rank's pieces of a tree of full arrays (``NamedSharding.shard``
+    leaf by leaf); the elastic restore's re-slicing."""
+    return _pairs(tree, shardings, lambda t, sh: sh.shard(t))
+
+
+def unshard(tree, shardings):
+    """The full arrays of a tree of this rank's pieces (``NamedSharding.
+    gather`` leaf by leaf: a collective every rank of the mesh must run in
+    the same order)."""
+    return _pairs(tree, shardings, lambda t, sh: sh.gather(t))

@@ -1405,6 +1405,7 @@ int run(int which, int dtype, int head_dim,
         int causal, int window, int q_offset, int kv_valid_len,
         int dropout_on, unsigned dropout_seed, unsigned dropout_threshold,
         float dropout_keep, int dropout_q_len, int dropout_k_len,
+        int dropout_b0, int dropout_h0, int dropout_heads,
         float scale, void* stream, const int32_t* page_list, int num_pages) {
   const bool paged = page_list != nullptr;
   if (block_q <= 0 || block_q > MAX_BQ || block_k <= 0 || block_k > MAX_BK || hkv <= 0 ||
@@ -1424,8 +1425,9 @@ int run(int which, int dtype, int head_dim,
   p.mask.nq = nq; p.mask.nk = nk;
   p.mask.causal = causal; p.mask.window = window; p.mask.q_offset = q_offset;
   p.mask.kv_valid_len = kv_valid_len;
-  p.drop = make_dropout(dropout_on, dropout_seed, dropout_threshold, dropout_keep, hq,
-                        dropout_q_len, dropout_k_len);
+  p.drop = make_dropout(dropout_on, dropout_seed, dropout_threshold, dropout_keep,
+                        dropout_heads, dropout_q_len, dropout_k_len, dropout_b0,
+                        dropout_h0);
   p.b = b; p.hq = hq; p.hkv = hkv; p.sq = sq; p.sk = sk; p.nq = nq; p.nk = nk;
   p.block_q = block_q; p.block_k = block_k; p.scale = scale;
   p.page_list = page_list; p.num_pages = num_pages;
@@ -1460,12 +1462,14 @@ extern "C" {
       const int32_t *kv_pos, int b, int hq, int hkv, int sq, int sk, int nq, int nk,      \
       int block_q, int block_k, int causal, int window, int q_offset, int kv_valid_len,   \
       int dropout_on, unsigned dropout_seed, unsigned dropout_threshold,                  \
-      float dropout_keep, int dropout_q_len, int dropout_k_len, float scale, void *stream
+      float dropout_keep, int dropout_q_len, int dropout_k_len, int dropout_b0,           \
+      int dropout_h0, int dropout_heads, float scale, void *stream
 #define FLASH_BWD_PASS                                                                     \
   dtype, head_dim, q, k, v, dout, m, l, dd, out0, out1, layout, layout_b_stride, kv_mask,  \
       q_seg, kv_seg, q_pos, kv_pos, b, hq, hkv, sq, sk, nq, nk, block_q, block_k, causal,  \
       window, q_offset, kv_valid_len, dropout_on, dropout_seed, dropout_threshold,         \
-      dropout_keep, dropout_q_len, dropout_k_len, scale, stream
+      dropout_keep, dropout_q_len, dropout_k_len, dropout_b0, dropout_h0, dropout_heads,   \
+      scale, stream
 
 int flash_bwd_dq(FLASH_BWD_ARGS) { return run(0, FLASH_BWD_PASS, nullptr, 0); }
 

@@ -15,7 +15,8 @@
 //   * dropout is kernels/ref.dropout_keep_mask (the JAX package's
 //     _dropout_keep): idx = ((b*H + h)*q_len + q)*k_len + k in wrapping
 //     uint32, keep = mix32(idx ^ mix32(seed)) >= threshold, over BUFFER
-//     coordinates with the unpadded (q_len, k_len) as strides.
+//     coordinates with the unpadded (q_len, k_len) as strides; a rank of a
+//     sharded step hashes its global (b0 + b, h0 + h) with the global H.
 
 #pragma once
 
@@ -153,16 +154,18 @@ struct DropoutParams {
   uint32_t threshold;   // uint32(int(p * (2^32 - 1))), computed by the caller
   float keep;           // 1 - p
   uint32_t num_heads, q_len, k_len;
+  uint32_t b0, h0;      // this buffer's first (batch, head) in the global hash
 
   __device__ __forceinline__ bool keeps(int b, int h, int row, int col) const {
-    uint32_t idx = ((uint32_t)b * num_heads + (uint32_t)h) * q_len + (uint32_t)row;
+    uint32_t idx = (((uint32_t)b + b0) * num_heads + (uint32_t)h + h0) * q_len +
+                   (uint32_t)row;
     idx = idx * k_len + (uint32_t)col;
     return mix32(idx ^ seed_mix) >= threshold;
   }
 };
 
 inline DropoutParams make_dropout(int on, unsigned seed, unsigned threshold, float keep,
-                                  int num_heads, int q_len, int k_len) {
+                                  int num_heads, int q_len, int k_len, int b0, int h0) {
   DropoutParams d;
   d.on = on;
   d.seed_mix = mix32(seed);
@@ -171,6 +174,8 @@ inline DropoutParams make_dropout(int on, unsigned seed, unsigned threshold, flo
   d.num_heads = (uint32_t)num_heads;
   d.q_len = (uint32_t)q_len;
   d.k_len = (uint32_t)k_len;
+  d.b0 = (uint32_t)b0;
+  d.h0 = (uint32_t)h0;
   return d;
 }
 

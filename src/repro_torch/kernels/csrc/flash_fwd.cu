@@ -830,6 +830,7 @@ int flash_fwd(int dtype, int paged, int head_dim,
               int causal, int window, int q_offset, int kv_valid_len, int paper,
               int dropout_on, unsigned dropout_seed, unsigned dropout_threshold,
               float dropout_keep, int dropout_q_len, int dropout_k_len,
+              int dropout_b0, int dropout_h0, int dropout_heads,
               void* stream) {
   // a paged tile gathers MAX_BK / block_k whole pages: page 8, 16, 32 or 64
   if (block_q <= 0 || block_q > MAX_BQ || block_k <= 0 || block_k > MAX_BK ||
@@ -845,8 +846,9 @@ int flash_fwd(int dtype, int paged, int head_dim,
   p.mask.nq = nq; p.mask.nk = nk;
   p.mask.causal = causal; p.mask.window = window; p.mask.q_offset = q_offset;
   p.mask.kv_valid_len = kv_valid_len;
-  p.drop = make_dropout(dropout_on, dropout_seed, dropout_threshold, dropout_keep, hq,
-                        dropout_q_len, dropout_k_len);
+  p.drop = make_dropout(dropout_on, dropout_seed, dropout_threshold, dropout_keep,
+                        dropout_heads, dropout_q_len, dropout_k_len, dropout_b0,
+                        dropout_h0);
   p.b = b; p.hq = hq; p.hkv = hkv; p.sq = sq; p.sk = sk; p.nq = nq; p.nk = nk;
   p.block_q = block_q; p.block_k = block_k; p.num_pages = num_pages;
   p.paper = paper;

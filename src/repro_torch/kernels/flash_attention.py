@@ -19,7 +19,9 @@ once, in q's dtype, before the kernel.
 Attention dropout is the counter-based hash of ``kernels.ref``
 (``dropout_keep_mask``) over BUFFER coordinates (b, q-head, row, column)
 with the unpadded ``dropout_dims`` as strides, so the backward regenerates
-the forward's mask bit for bit. ``variant="paper"`` renormalizes the
+the forward's mask bit for bit; ``dropout_coords`` = (b0, h0, H) places
+the buffer at rows b0 + b and heads h0 + h of H (a rank of a sharded
+step; default (0, 0, the buffer's heads)). ``variant="paper"`` renormalizes the
 accumulator at every kv tile (Alg. 1 line 12); ``"fa2"`` divides once at
 the end. A dense plain version has no tile order, so both variants compute
 the same dense softmax there.
@@ -86,9 +88,11 @@ def _bwd_lib():
     return lib
 
 
-# (on, seed, threshold, keep probability, q_len and k_len strides)
+# (on, seed, threshold, keep probability, q_len and k_len strides, the
+# global coordinates b0, h0 and head count H)
 _DROPOUT_ARGS = [ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
-                 ctypes.c_int, ctypes.c_int]
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int]
 
 
 def _ptr(t: torch.Tensor | None):
@@ -100,14 +104,18 @@ def _check_variant(variant):
         raise ValueError(f"unknown variant {variant!r}")
 
 
-def _dropout_args(dropout_p, dropout_seed, dropout_dims, sq, sk):
+def _dropout_args(dropout_p, dropout_seed, dropout_dims, sq, sk, hq,
+                  dropout_coords=None):
     """The kernels' dropout arguments: the uint32 threshold is computed in
     Python (double precision) exactly as ``ref.dropout_threshold``."""
     if not 0.0 <= dropout_p < 1.0:
         raise ValueError(f"dropout_p must be in [0, 1), got {dropout_p}")
     q_len, k_len = dropout_dims if dropout_dims is not None else (sq, sk)
+    b0, h0, heads = (dropout_coords if dropout_coords is not None
+                     else (0, 0, hq))
     return [int(dropout_p > 0.0), int(dropout_seed) & 0xFFFFFFFF,
-            dropout_threshold(dropout_p), 1.0 - dropout_p, q_len, k_len]
+            dropout_threshold(dropout_p), 1.0 - dropout_p, q_len, k_len,
+            int(b0), int(h0), int(heads)]
 
 
 # ---------------------------------------------------------------------------
@@ -152,19 +160,21 @@ def _allowed(block_layout, kv_mask, *, b, sq, sk, dev, causal, window,
     return allowed[:, None] if allowed.ndim == 3 else allowed
 
 
-def _keep_scale(dropout_p, dropout_seed, dropout_dims, b, hq, sq, sk, dev):
+def _keep_scale(dropout_p, dropout_seed, dropout_dims, dropout_coords, b, hq,
+                sq, sk, dev):
     """Z of the paper's Alg. 2: 1/(1-p) where the hash keeps an element, 0
     where it drops it, over buffer coordinates with the unpadded strides."""
     keep = full_dropout_keep_mask(dropout_seed, b, hq, sq, sk, dropout_p,
-                                  device=dev, strides=dropout_dims)
+                                  device=dev, strides=dropout_dims,
+                                  coords=dropout_coords)
     return torch.where(keep, 1.0 / (1.0 - dropout_p), 0.0)
 
 
 def flash_attention_forward_plain(
     q, k, v, kv_mask, block_layout, *, scale, causal, window, q_offset,
     kv_valid_len=None, dropout_p=0.0, dropout_seed=0, dropout_dims=None,
-    block_q, block_k, variant="fa2", q_segment_ids=None, kv_segment_ids=None,
-    q_positions=None, kv_positions=None,
+    dropout_coords=None, block_q, block_k, variant="fa2", q_segment_ids=None,
+    kv_segment_ids=None, q_positions=None, kv_positions=None,
 ):
     """Dense fp32 computation of exactly the kernel's function: one masked
     softmax over the pairs the layout lets run, dropout on the normalized
@@ -189,8 +199,8 @@ def flash_attention_forward_plain(
                     torch.exp(s - m[..., None]))
     l = p.sum(dim=-1)
     if dropout_p > 0.0:
-        p = p * _keep_scale(dropout_p, dropout_seed, dropout_dims, b, hq, sq,
-                            sk, dev)
+        p = p * _keep_scale(dropout_p, dropout_seed, dropout_dims,
+                            dropout_coords, b, hq, sq, sk, dev)
     o = (p @ vf) / torch.where(l == 0.0, torch.ones_like(l), l)[..., None]
     return o.to(q.dtype), m, l
 
@@ -198,8 +208,9 @@ def flash_attention_forward_plain(
 def flash_attention_backward_plain(
     q, k, v, o, do, m, l, kv_mask, block_layout, *, scale, causal, window,
     q_offset, kv_valid_len=None, dropout_p=0.0, dropout_seed=0,
-    dropout_dims=None, block_q, block_k, q_segment_ids=None,
-    kv_segment_ids=None, q_positions=None, kv_positions=None,
+    dropout_dims=None, dropout_coords=None, block_q, block_k,
+    q_segment_ids=None, kv_segment_ids=None, q_positions=None,
+    kv_positions=None,
 ):
     """Dense fp32 backward (paper Alg. 4 with the same recompute as the
     Pallas kernels): P from the saved (m, l) under the layout-allowed mask,
@@ -210,9 +221,9 @@ def flash_attention_backward_plain(
         causal=causal, window=window, q_offset=q_offset,
         kv_valid_len=kv_valid_len, dropout_p=dropout_p,
         dropout_seed=dropout_seed, dropout_dims=dropout_dims,
-        block_q=block_q, block_k=block_k, q_segment_ids=q_segment_ids,
-        kv_segment_ids=kv_segment_ids, q_positions=q_positions,
-        kv_positions=kv_positions)
+        dropout_coords=dropout_coords, block_q=block_q, block_k=block_k,
+        q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+        q_positions=q_positions, kv_positions=kv_positions)
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -220,6 +231,7 @@ def _dense_backward(
     q, k, v, o, do, m, l, kv_mask, block_layout, *, scale, causal, window,
     q_offset, kv_valid_len, dropout_p, dropout_seed, dropout_dims, block_q,
     block_k, q_segment_ids, kv_segment_ids, q_positions, kv_positions,
+    dropout_coords=None,
 ):
     """``flash_attention_backward_plain`` with dk, dv left in fp32."""
     b, hq, sq, d = q.shape
@@ -247,8 +259,8 @@ def _dense_backward(
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
     p_drop = p
     if dropout_p > 0.0:
-        z = _keep_scale(dropout_p, dropout_seed, dropout_dims, b, hq, sq, sk,
-                        dev)
+        z = _keep_scale(dropout_p, dropout_seed, dropout_dims, dropout_coords,
+                        b, hq, sq, sk, dev)
         dp, p_drop = dp * z, p * z
     ds = p * (dp - dd[..., None])
     dq = (scale * (ds @ kf)).to(q.dtype)
@@ -416,6 +428,7 @@ def flash_attention_forward(
     kv_valid_len: int | None = None,
     dropout_p: float = 0.0, dropout_seed=0,
     dropout_dims: tuple[int, int] | None = None,
+    dropout_coords: tuple[int, int, int] | None = None,
     block_q: int, block_k: int, variant: str = "fa2",
     q_segment_ids: torch.Tensor | None = None,
     kv_segment_ids: torch.Tensor | None = None,
@@ -431,14 +444,15 @@ def flash_attention_forward(
         raise ValueError("kv_valid_len cannot combine with q/kv_positions")
     _check_variant(variant)
     dropout = _dropout_args(dropout_p, dropout_seed, dropout_dims,
-                            q.shape[2], k.shape[2])
+                            q.shape[2], k.shape[2], q.shape[1], dropout_coords)
     if not q.is_cuda:
         return flash_attention_forward_plain(
             q, k, v, kv_mask, block_layout, scale=scale, causal=causal,
             window=window, q_offset=q_offset, kv_valid_len=kv_valid_len,
             dropout_p=dropout_p, dropout_seed=dropout_seed,
-            dropout_dims=dropout_dims, block_q=block_q, block_k=block_k,
-            variant=variant, q_segment_ids=q_segment_ids,
+            dropout_dims=dropout_dims, dropout_coords=dropout_coords,
+            block_q=block_q, block_k=block_k, variant=variant,
+            q_segment_ids=q_segment_ids,
             kv_segment_ids=kv_segment_ids, q_positions=q_positions,
             kv_positions=kv_positions)
     out = _launch(paged=False, q=q, k=k, v=v, block_layout=block_layout,
@@ -467,7 +481,7 @@ class BackwardOperands:
 def prepare_backward(q, k, v, o, do, m, l, kv_mask, block_layout, *, scale,
                      causal, window, q_offset, kv_valid_len=None,
                      dropout_p=0.0, dropout_seed=0, dropout_dims=None,
-                     block_q, block_k, q_segment_ids=None,
+                     dropout_coords=None, block_q, block_k, q_segment_ids=None,
                      kv_segment_ids=None, q_positions=None,
                      kv_positions=None, page_list=None) -> BackwardOperands:
     """Check and lay out a backward call for ``launch_dq``/``launch_dkv``,
@@ -485,7 +499,8 @@ def prepare_backward(q, k, v, o, do, m, l, kv_mask, block_layout, *, scale,
         if q.dtype == torch.bfloat16:
             # the tensor-core pair gathers whole pages into 64-key tiles
             fwd_pages_per_tile(block_k)
-    dropout = _dropout_args(dropout_p, dropout_seed, dropout_dims, sq, sk)
+    dropout = _dropout_args(dropout_p, dropout_seed, dropout_dims, sq, sk, hq,
+                            dropout_coords)
     layout, nq, nk = _check_launch(
         "flash_bwd", q, {"k": k, "v": v, "o": o, "do": do}, hkv=hkv, sk=sk,
         block_q=block_q, block_k=block_k, block_layout=block_layout)
@@ -607,6 +622,7 @@ def flash_attention_backward(
     kv_valid_len: int | None = None,
     dropout_p: float = 0.0, dropout_seed=0,
     dropout_dims: tuple[int, int] | None = None,
+    dropout_coords: tuple[int, int, int] | None = None,
     block_q: int, block_k: int,
     q_segment_ids: torch.Tensor | None = None,
     kv_segment_ids: torch.Tensor | None = None,
@@ -623,9 +639,9 @@ def flash_attention_backward(
     kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
               kv_valid_len=kv_valid_len, dropout_p=dropout_p,
               dropout_seed=dropout_seed, dropout_dims=dropout_dims,
-              block_q=block_q, block_k=block_k, q_segment_ids=q_segment_ids,
-              kv_segment_ids=kv_segment_ids, q_positions=q_positions,
-              kv_positions=kv_positions)
+              dropout_coords=dropout_coords, block_q=block_q, block_k=block_k,
+              q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
+              q_positions=q_positions, kv_positions=kv_positions)
     if not q.is_cuda:
         return flash_attention_backward_plain(q, k, v, o, do, m, l, kv_mask,
                                               block_layout, **kw)
@@ -671,7 +687,7 @@ def flash_prefill_paged_forward(
                   window=window, q_offset=0, kv_valid_len=None,
                   block_q=block_q, block_k=ps, sk=T * ps,
                   num_pages=num_pages, variant=variant,
-                  dropout=_dropout_args(0.0, 0, None, 0, 0))
+                  dropout=_dropout_args(0.0, 0, None, 0, 0, 0))
     LAUNCHES["flash_fwd_paged"] += 1
     return out
 

@@ -119,6 +119,7 @@ def flash_attention(
     block_k: int | None = None,
     dropout_p: float = 0.0,
     dropout_seed=0,
+    dropout_coords: tuple[int, int, int] | None = None,  # (b0, h0, H)
     variant: str = "fa2",
     block_layout=None,                    # (nq, nk) uint8 sparse pattern (Alg. 5)
     segment_ids: torch.Tensor | None = None,
@@ -132,7 +133,9 @@ def flash_attention(
     differ) and POS_PAD positions, so padded rows come out fully masked.
     ``q_offset`` defaults to ``sk - sq``; positions are dropped when no
     geometric term uses them (the cheaper static-layout path). Dropout
-    hashes buffer coordinates with the unpadded (sq, sk) as strides.
+    hashes buffer coordinates with the unpadded (sq, sk) as strides, at
+    ``dropout_coords`` (b0, h0, H) of a global batch (a sharded step's
+    rank; default (0, 0, hq)).
     ``block_layout`` is an Alg. 5 sparse pattern, authoritative over the
     geometry (its FULL blocks run unmasked, causal or not); its grid fixes
     the blocks (see the module docstring)."""
@@ -197,7 +200,8 @@ def flash_attention(
     call = dict(scale=scale, causal=causal, window=window,
                 q_offset=spec.q_offset, kv_valid_len=spec.kv_valid_len,
                 dropout_p=dropout_p, dropout_seed=dropout_seed,
-                dropout_dims=(sq, sk), block_q=block_q, block_k=block_k,
+                dropout_dims=(sq, sk), dropout_coords=dropout_coords,
+                block_q=block_q, block_k=block_k,
                 variant=variant)
     o = _FlashCore.apply(qp, kp, vp, kvm, q_seg, kv_seg, q_positions,
                          kv_positions, layout, call)

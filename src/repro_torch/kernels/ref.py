@@ -69,19 +69,25 @@ def dropout_keep_mask(seed, b, h, q_pos, k_pos, p_drop: float,
 
 def full_dropout_keep_mask(seed, batch: int, num_heads: int, q_len: int,
                            k_len: int, p_drop: float, device=None,
-                           strides: tuple[int, int] | None = None
+                           strides: tuple[int, int] | None = None,
+                           coords: tuple[int, int, int] | None = None
                            ) -> torch.Tensor:
     """(batch, num_heads, q_len, k_len) keep mask. ``strides`` = the
     (q_len, k_len) of the hash when the tensor is a padded buffer (the
-    kernels hash buffer coordinates with the unpadded lengths)."""
-    def ar(n):
-        return torch.arange(n, dtype=torch.int64, device=device)
+    kernels hash buffer coordinates with the unpadded lengths). ``coords``
+    = (b0, h0, H): the tensor's rows and heads sit at b0 + b and h0 + h of
+    a global batch of H heads (a rank of a sharded step); default (0, 0,
+    num_heads)."""
+    def ar(n, start=0):
+        return torch.arange(start, start + n, dtype=torch.int64, device=device)
 
     q_stride, k_stride = strides if strides is not None else (q_len, k_len)
+    b0, h0, heads = coords if coords is not None else (0, 0, num_heads)
     return dropout_keep_mask(
-        seed, ar(batch)[:, None, None, None], ar(num_heads)[None, :, None, None],
+        seed, ar(batch, b0)[:, None, None, None],
+        ar(num_heads, h0)[None, :, None, None],
         ar(q_len)[None, None, :, None], ar(k_len)[None, None, None, :],
-        p_drop, num_heads, q_stride, k_stride)
+        p_drop, heads, q_stride, k_stride)
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -119,6 +125,7 @@ def standard_attention(
     scale: float | None = None,
     dropout_p: float = 0.0,
     dropout_seed=0,
+    dropout_coords: tuple[int, int, int] | None = None,
     q_offset: int | None = None,
 ) -> torch.Tensor:
     b, hq, sq, d = q.shape
@@ -158,7 +165,7 @@ def standard_attention(
     p = p / torch.where(l == 0.0, torch.ones_like(l), l)
     if dropout_p > 0.0:
         keep = full_dropout_keep_mask(dropout_seed, b, hq, sq, sk, dropout_p,
-                                      device=q.device)
+                                      device=q.device, coords=dropout_coords)
         p = torch.where(keep, p / (1.0 - dropout_p), torch.zeros_like(p))
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 

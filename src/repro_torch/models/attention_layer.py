@@ -22,6 +22,17 @@ sequence parallelism (§14) the chunk step's q rows are one rank's slab,
 and ``_sp_gather_kv`` assembles the whole chunk's K/V before the pool
 write. A mesh of None runs neither.
 
+Tensor-parallel TRAINING (a ``distributed.sharding.TrainShard`` passed as
+``shard`` to ``apply_attention``, with heads cut over its "model" group)
+puts Megatron's pair around the layer: ``comm.copy_to_group`` on the
+input (each rank's q/k/v columns give a partial input gradient, summed in
+the backward) and on the replicated qk-norm scales, and
+``comm.reduce_from_group`` on the output projection (a sum forward, the
+identity backward). Where a kv head is cut across ranks (fewer kv heads
+than ranks), each rank's K/V columns are gathered
+(``comm.gather_from_group``) and its q heads' kv head taken whole. The
+dropout hash then reads the global (batch row, head, head count).
+
 The JAX step functions return a new cache and rely on jit buffer donation
 to update it in place; here the cache and pool tensors are updated IN
 PLACE and the same dict is returned. JAX's ``mode="drop"`` scatters (out-of-range page
@@ -132,14 +143,31 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _project_qkv(params, cfg: ModelConfig, x, kv_x, positions, kv_positions):
+def _whole_kv_head(cols, shard, hd: int):
+    """A rank's K or V columns (b, s, hkv * hd / m) of a kv head cut across
+    the "model" ranks -> the whole kv head its q heads read (b, s, hd)."""
+    full = comm.gather_from_group(cols, shard.model, -1)
+    head = shard.model.index // (shard.model.size // shard.num_kv_heads)
+    return full[..., head * hd:(head + 1) * hd]
+
+
+def _project_qkv(params, cfg: ModelConfig, x, kv_x, positions, kv_positions,
+                 shard=None):
+    """q, k, v heads (b, h, s, hd), qk-normed and rotated; ``shard``: the
+    rank's heads of a tensor-parallel training step."""
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = _split_heads(x @ params["wq"], hq, hd)
-    k = _split_heads(kv_x @ params["wk"], hkv, hd)
-    v = _split_heads(kv_x @ params["wv"], hkv, hd)
+    k, v = kv_x @ params["wk"], kv_x @ params["wv"]
+    if shard is not None and shard.kv_split:
+        k, v = _whole_kv_head(k, shard, hd), _whole_kv_head(v, shard, hd)
+    k, v = _split_heads(k, hkv, hd), _split_heads(v, hkv, hd)
     if cfg.qk_norm:
-        q = rms_normalize(q) * params["q_norm"]
-        k = rms_normalize(k) * params["k_norm"]
+        qn, kn = params["q_norm"], params["k_norm"]
+        if shard is not None:
+            qn = comm.copy_to_group(qn, shard.model)
+            kn = comm.copy_to_group(kn, shard.model)
+        q = rms_normalize(q) * qn
+        k = rms_normalize(k) * kn
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
     if kv_positions is not None:
@@ -151,7 +179,7 @@ def apply_attention(params, cfg: ModelConfig, x, *,
                     spec: AttentionSpec | None = None, kv_x=None,
                     positions=None, kv_mask=None, segment_ids=None,
                     block_layout=None, deterministic: bool = True,
-                    dropout_seed=0, mesh=None):
+                    dropout_seed=0, mesh=None, shard=None, batch_offset=0):
     """Full-sequence attention, x: (b, s, d_model) -> (b, s, d_model).
     Self-attention by default: ``segment_ids`` isolates packed documents
     AND makes RoPE segment-relative (positions restart at every document
@@ -161,22 +189,34 @@ def apply_attention(params, cfg: ModelConfig, x, *,
     keys live in different position spaces), never causal and never
     windowed, and ``segment_ids`` ignored (the encoder stream is one), as
     in the JAX package. ``block_layout`` is an Alg. 5 sparse pattern
-    (``impl`` ``pallas`` or ``block_sparse``)."""
+    (``impl`` ``pallas`` or ``block_sparse``). ``shard`` (a ``TrainShard``)
+    runs the rank's part of a sharded training step, whose batch rows
+    start at ``batch_offset`` of the global batch (module docstring)."""
     cross = kv_x is not None
     if positions is None and not cross:
         positions = (segment_relative_positions(segment_ids)
                      if segment_ids is not None
                      else torch.arange(x.shape[1], device=x.device))
     rope = None if cross else positions
-    q, k, v = _project_qkv(params, cfg, x, kv_x if cross else x, rope, rope)
+    tp = shard is not None and shard.heads
+    if tp:
+        x = comm.copy_to_group(x, shard.model)
+    q, k, v = _project_qkv(params, cfg, x, kv_x if cross else x, rope, rope,
+                           shard if tp else None)
     spec = spec or attn_spec_from_config(cfg)
     if cross:
         spec = dataclasses.replace(spec, causal=False, window=None)
+    coords = None
+    if shard is not None:
+        coords = (batch_offset, shard.head_offset, shard.num_heads)
     o = attention(q, k, v, spec, kv_mask=kv_mask,
                   segment_ids=None if cross else segment_ids,
                   block_layout=block_layout, deterministic=deterministic,
-                  dropout_seed=dropout_seed)
-    return _tp_reduce(_merge_heads(o) @ params["wo"], cfg, mesh)
+                  dropout_seed=dropout_seed, dropout_coords=coords)
+    out = _merge_heads(o) @ params["wo"]
+    if tp:
+        return comm.reduce_from_group(out, shard.model)
+    return _tp_reduce(out, cfg, mesh)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,

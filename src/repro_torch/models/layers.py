@@ -19,6 +19,8 @@ def truncated_normal_init(shape, scale, dtype, *, generator, device):
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     stddev = scale / max(1.0, fan_in) ** 0.5
     w = torch.empty(shape, dtype=torch.float32, device=device)
+    if w.is_meta:             # shapes only (``Model.param_shapes``)
+        return w.to(dtype)
     torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,
                                 generator=generator)
     return (w * stddev).to(dtype)

@@ -40,7 +40,16 @@ with a ``mesh`` (``distributed.meshes.ServeMesh``) is one rank's view of
 a tensor- or sequence-parallel model: its config holds the rank's head
 and d_ff counts, and its packed prefill, chunk prefill and paged decode
 run the collectives of DESIGN.md §13-§14 over that mesh (the serving
-engine builds it).
+engine builds it). A ``Model`` built with a ``shard``
+(``distributed.sharding.TrainShard``) is one rank's view of a sharded
+training step (``train.steps.make_sharded_train_step`` builds it): its
+config holds the rank's head and d_ff counts; ``forward`` runs the
+tensor-parallel blocks, a vocab-sharded embedding (a masked lookup of
+the rank's rows, summed over "model") and logits (the rank's vocab
+columns, tied or not), and ``loss`` the cross-entropy over the global
+softmax (the max and the sum of exponentials over "model") in a form
+whose gradients sum over the data ranks to the whole batch's: each rank
+divides its rows' summed loss by the whole batch's token count.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
+from repro_torch.distributed import comm
 from repro_torch.models import transformer as tfm
 from repro_torch.distributed.sharding import P
 from repro_torch.models.layers import (apply_norm, dense_init, init_norm,
@@ -70,6 +80,7 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 class Model:
     cfg: ModelConfig
     mesh: Any = None
+    shard: Any = None
 
     def param_specs(self) -> Params:
         """Logical specs of ``init``'s tree, leaf for leaf: ``blocks`` (and
@@ -91,13 +102,15 @@ class Model:
         return s
 
     # ------------------------------------------------------------------ init
-    def init(self, generator: torch.Generator, device="cuda") -> Params:
+    def init(self, generator: torch.Generator | None, device="cuda") -> Params:
         """Random weights drawn from ``generator`` on its own device, then
         placed on ``device`` (same shapes and initializer as the JAX
-        package; the random stream differs)."""
+        package; the random stream differs). ``generator=None`` with
+        ``device="meta"``: the tree's shapes and dtypes, nothing drawn or
+        allocated (``param_shapes``)."""
         cfg = self.cfg
         dev = resolve_device(device)
-        gdev = generator.device
+        gdev = generator.device if generator is not None else dev
         dtype = torch_dtype(cfg)
         kw = dict(generator=generator, device=gdev)
         enc = cfg.num_encoder_layers > 0
@@ -119,11 +132,29 @@ class Model:
             p["lm_head"] = dense_init(cfg.d_model, cfg.vocab_size, dtype, **kw)
         return tree_map(lambda t: t.to(dev), p)
 
+    def param_shapes(self) -> Params:
+        """``init``'s tree as meta tensors: the global shapes and dtypes."""
+        return self.init(None, device="meta")
+
     # --------------------------------------------------------------- helpers
     def _logits(self, params, h):
         h = apply_norm(params["final_norm"], h, self.cfg.norm_type)
         head = params.get("lm_head")
+        if self.shard is not None and self.shard.vocab:
+            h = comm.copy_to_group(h, self.shard.model)
         return h @ (params["embed"].T if head is None else head)
+
+    def _embed(self, params, tokens):
+        """The token embeddings; under a vocab-sharded ``shard`` a masked
+        lookup of this rank's rows, summed over "model"."""
+        if self.shard is None or not self.shard.vocab:
+            return params["embed"][tokens]
+        table = params["embed"]
+        rows = table.shape[0]
+        local = tokens - self.shard.model.index * rows
+        hit = (local >= 0) & (local < rows)
+        x = table[torch.where(hit, local, 0)] * hit[..., None].to(table.dtype)
+        return comm.reduce_from_group(x, self.shard.model)
 
     def _batch_tensor(self, params, x):
         return torch.as_tensor(x).to(params["embed"].device)
@@ -135,7 +166,7 @@ class Model:
         frontend_tokens + S rows; attention is causal over all of it and
         RoPE positions run over it, as in the reference)."""
         tokens = self._batch_tensor(params, batch["tokens"]).long()
-        x = params["embed"][tokens]
+        x = self._embed(params, tokens)
         if self.cfg.frontend == "vision":
             patches = self._batch_tensor(params, batch["patches"])
             front = patches.to(x.dtype) @ params["frontend_proj"]
@@ -150,7 +181,8 @@ class Model:
         front = frames.to(params["frontend_proj"].dtype) @ params["frontend_proj"]
         h, _ = tfm.apply_stack(params["enc_blocks"], self.cfg, front,
                                deterministic=deterministic,
-                               causal_override=False)
+                               causal_override=False, shard=self.shard,
+                               batch_offset=self._batch_offset(front))
         return apply_norm(params["enc_final_norm"], h, self.cfg.norm_type)
 
     # -------------------------------------------------------------- training
@@ -177,8 +209,12 @@ class Model:
         h, aux = tfm.apply_stack(params["blocks"], cfg, x, enc_out=enc_out,
                                  segment_ids=segment_ids,
                                  deterministic=deterministic,
-                                 dropout_seed=dropout_seed)
+                                 dropout_seed=dropout_seed, shard=self.shard,
+                                 batch_offset=self._batch_offset(x))
         return self._logits(params, h), aux
+
+    def _batch_offset(self, x) -> int:
+        return 0 if self.shard is None else self.shard.batch_offset(x.shape[0])
 
     def loss(self, params, batch, *, deterministic: bool = False,
              dropout_seed=0, aux_weight: float = 0.01):
@@ -198,13 +234,48 @@ class Model:
             mask = torch.ones(tokens.shape, dtype=torch.float32,
                               device=tokens.device)
         mask = mask[:, 1:]
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, targets[..., None])[..., 0]
+        if self.shard is None:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, targets[..., None])[..., 0]
+            nll = (logz - gold) * mask
+            denom = mask.sum().clamp_min(1.0)
+            ce = nll.sum() / denom
+            total = ce + aux_weight * aux
+            return total, {"loss": total, "ce": ce, "aux": aux,
+                           "tokens": denom}
+        return self._sharded_loss(logits, targets, mask, aux, aux_weight)
+
+    def _sharded_loss(self, logits, targets, mask, aux, aux_weight):
+        """This rank's share of the whole batch's loss (its rows' summed
+        cross-entropy over the whole batch's token count; the MoE's share
+        from ``load_balance_loss``): the shares, and their gradients, sum
+        over the data ranks to the unsharded loss's. With the vocab cut
+        over "model", logsumexp and the gold logit come from the global
+        max (``all_reduce_max``) and two sums over "model". ``tokens`` is
+        the whole batch's token count (a replicated batch counted once)."""
+        sh = self.shard
+        if sh.vocab:
+            cols = logits.shape[-1]
+            top = comm.all_reduce_max(logits.detach().amax(dim=-1), sh.model)
+            sumexp = comm.reduce_from_group(
+                torch.exp(logits - top[..., None]).sum(dim=-1), sh.model)
+            logz = top + torch.log(sumexp)
+            local = targets - sh.model.index * cols
+            hit = (local >= 0) & (local < cols)
+            gold = logits.gather(-1, torch.where(hit, local, 0)[..., None])
+            gold = comm.reduce_from_group(gold[..., 0] * hit, sh.model)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, targets[..., None])[..., 0]
         nll = (logz - gold) * mask
-        denom = mask.sum().clamp_min(1.0)
-        ce = nll.sum() / denom
+        denom = mask.sum()
+        if sh.data.size > 1:
+            denom = comm.all_reduce_sum(denom.detach().clone(), sh.data)
+        ce = nll.sum() / denom.clamp_min(1.0)
         total = ce + aux_weight * aux
-        return total, {"loss": total, "ce": ce, "aux": aux, "tokens": denom}
+        tokens = (denom if sh.batch_sharded else denom / sh.data.size)
+        return total, {"loss": total, "ce": ce, "aux": aux,
+                       "tokens": tokens.clamp_min(1.0)}
 
     # --------------------------------------------------------------- serving
     def decode_capacity(self, prompt_len: int, max_new: int) -> int:

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import P
 from repro_torch.models.layers import dense_init, truncated_normal_init
 
@@ -63,15 +64,22 @@ def _route(router_logits, k: int):
     return idx[..., :k], weights / weights.sum(-1, keepdim=True), probs
 
 
-def load_balance_loss(probs, idx, num_experts: int):
+def load_balance_loss(probs, idx, num_experts: int, data=None):
     """Switch-Transformer aux loss E * sum_e f_e * p_e: f_e the fraction of
-    tokens whose top-1 choice is e, p_e the mean router probability."""
+    tokens whose top-1 choice is e, p_e the mean router probability. Given
+    the ``data`` group of a sharded step (each rank an equal part of the
+    batch), f is the whole batch's (a sum over the group) and the result
+    this rank's share, E * sum_e f_e * p_e / n: the shares sum to the
+    whole batch's loss, and so do their gradients."""
     top1 = idx[..., 0]
     lead = tuple(range(top1.ndim))
     experts = torch.arange(num_experts, device=idx.device)
     f = (top1[..., None] == experts).float().mean(dim=lead)
     p = probs.mean(dim=lead)
-    return num_experts * torch.sum(f * p)
+    if data is None or data.size == 1:
+        return num_experts * torch.sum(f * p)
+    f = comm.all_reduce_sum(f, data) / data.size
+    return num_experts * torch.sum(f * p) / data.size
 
 
 def capacity(cfg: ModelConfig, s: int) -> int:
@@ -143,12 +151,14 @@ def dispatch_maps(idx, e: int, cap: int):
     return slot_src, entry_of_slot, slot_of_entry
 
 
-def apply_moe(params, cfg: ModelConfig, x, *, mode: str = "capacity"):
-    """x (b, s, d) -> (y (b, s, d), aux_loss)."""
+def apply_moe(params, cfg: ModelConfig, x, *, mode: str = "capacity",
+              data=None):
+    """x (b, s, d) -> (y (b, s, d), aux_loss); ``data``: the data group of
+    a sharded step (``load_balance_loss``)."""
     e, k = cfg.num_experts, cfg.num_experts_per_token
     logits = x @ params["router"].to(x.dtype)                        # (b, s, e)
     idx, weights, probs = _route(logits, k)
-    aux = load_balance_loss(probs, idx, e)
+    aux = load_balance_loss(probs, idx, e, data)
 
     if mode == "dense":
         h_g = torch.einsum("bsd,edf->besf", x, params["w_gate"])

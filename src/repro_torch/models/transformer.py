@@ -22,8 +22,13 @@ kept and the block runs again in the backward), as the JAX package's
 The paged serving stacks take a ``ServeMesh`` (``mesh``) under tensor or
 sequence parallelism: the attention layer's and the MLP's output
 projections then sum over the tp group (``attention_layer._tp_reduce``),
-two collectives a layer. ``block_specs`` gives a block's logical sharding
-specs (the reference's, without its stacked layer axis)."""
+two collectives a layer. The training stack takes a ``TrainShard``
+(``shard``) under a sharded train step: the rank's heads and FFN columns
+with Megatron's ``copy_to_group`` / ``reduce_from_group`` pair around the
+attention and the MLP (``attention_layer``), the MoE's load-balancing
+statistics over the data group, and the global coordinates of the
+dropout hash. ``block_specs`` gives a block's logical sharding specs (the
+reference's, without its stacked layer axis)."""
 
 from __future__ import annotations
 
@@ -32,10 +37,11 @@ from typing import Any
 import dataclasses
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
+from repro_torch.distributed import comm
 from repro_torch.models import attention_layer as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -101,24 +107,32 @@ def _mix(x, a, m):
     return x + 0.5 * (rms_normalize(a) + rms_normalize(m))
 
 
-def _ffn_residual(params: Params, cfg: ModelConfig, x, mesh=None):
+def _ffn_residual(params: Params, cfg: ModelConfig, x, mesh=None,
+                  shard=None):
     """x plus the block's MLP, or MoE, of its normalised self (x itself
     for a block with neither); under a mesh the MLP's ``w_down`` partial
-    sums over the tp group. Returns (x, aux): the MoE's load-balancing
-    loss, or None (the serving stacks drop it)."""
+    sums over the tp group, under a ``shard`` with the FFN cut over
+    "model" Megatron's pair runs around the MLP. Returns (x, aux): the
+    MoE's load-balancing loss, or None (the serving stacks drop it)."""
     if "mlp_norm" not in params:
         return x, None
     h = apply_norm(params["mlp_norm"], x, cfg.norm_type)
     if "moe" in params:
-        y, aux = moe_mod.apply_moe(params["moe"], cfg, h)
+        y, aux = moe_mod.apply_moe(params["moe"], cfg, h,
+                                   data=None if shard is None else shard.data)
         return x + y, aux
+    if shard is not None and shard.ff:
+        h = comm.copy_to_group(h, shard.model)
+        y = comm.reduce_from_group(apply_mlp(params["mlp"], h, cfg.mlp_type),
+                                   shard.model)
+        return x + y, None
     y = attn_mod._tp_reduce(apply_mlp(params["mlp"], h, cfg.mlp_type), cfg,
                             mesh)
     return x + y, None
 
 
 def _cross_residual(params: Params, cfg: ModelConfig, x, enc_out, *,
-                    deterministic: bool = True):
+                    deterministic: bool = True, shard=None, batch_offset=0):
     """x plus cross-attention of its normalised self over ``enc_out``
     (decoder blocks of an encoder-decoder; x itself otherwise)."""
     if "cross_attn" not in params or enc_out is None:
@@ -126,16 +140,19 @@ def _cross_residual(params: Params, cfg: ModelConfig, x, enc_out, *,
     h = apply_norm(params["cross_norm"], x, cfg.norm_type)
     return x + attn_mod.apply_attention(params["cross_attn"], cfg, h,
                                         kv_x=enc_out,
-                                        deterministic=deterministic)
+                                        deterministic=deterministic,
+                                        shard=shard, batch_offset=batch_offset)
 
 
 def apply_block(params: Params, cfg: ModelConfig, x, *, enc_out=None,
                 segment_ids=None, deterministic: bool = True,
-                dropout_seed=0, causal_override: bool | None = None):
+                dropout_seed=0, causal_override: bool | None = None,
+                shard=None, batch_offset: int = 0):
     """One block, full sequence (training). Returns (x, aux_loss); aux is 0
     outside the MoE family. ``causal_override`` sets the self-attention's
     causality (the encoder's blocks run with False, and then no window);
-    ``enc_out`` feeds the decoder blocks' cross-attention."""
+    ``enc_out`` feeds the decoder blocks' cross-attention; ``shard`` and
+    ``batch_offset``: a rank's part of a sharded step."""
     spec = None
     if causal_override is not None:
         spec = dataclasses.replace(
@@ -149,11 +166,13 @@ def apply_block(params: Params, cfg: ModelConfig, x, *, enc_out=None,
         a = attn_mod.apply_attention(params["attn"], cfg, h, spec=spec,
                                      segment_ids=segment_ids,
                                      deterministic=deterministic,
-                                     dropout_seed=dropout_seed)
+                                     dropout_seed=dropout_seed, shard=shard,
+                                     batch_offset=batch_offset)
         x = (_mix(x, a, ssm_mod.apply_ssm(params["ssm"], cfg, h))
              if cfg.hybrid else x + a)
-    x = _cross_residual(params, cfg, x, enc_out, deterministic=deterministic)
-    x, aux = _ffn_residual(params, cfg, x)
+    x = _cross_residual(params, cfg, x, enc_out, deterministic=deterministic,
+                        shard=shard, batch_offset=batch_offset)
+    x, aux = _ffn_residual(params, cfg, x, shard=shard)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
@@ -162,19 +181,24 @@ def apply_block(params: Params, cfg: ModelConfig, x, *, enc_out=None,
 def apply_stack(blocks: list[Params], cfg: ModelConfig, x, *,
                 enc_out=None, segment_ids=None,
                 deterministic: bool = True, dropout_seed=0,
-                causal_override: bool | None = None):
+                causal_override: bool | None = None, shard=None,
+                batch_offset: int = 0):
     """All blocks in order. Returns (x, total_aux_loss)."""
     def fn(p_l, h):
         return apply_block(p_l, cfg, h, enc_out=enc_out,
                            segment_ids=segment_ids,
                            deterministic=deterministic,
                            dropout_seed=dropout_seed,
-                           causal_override=causal_override)
+                           causal_override=causal_override, shard=shard,
+                           batch_offset=batch_offset)
 
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p_l in blocks:
         if cfg.remat:
-            x, aux = checkpoint(fn, p_l, x, use_reentrant=False)
+            # the recompute stops once the backward's tensors are back
+            # (torch's default, pinned: a sharded step's census counts on it)
+            with set_checkpoint_early_stop(True):
+                x, aux = checkpoint(fn, p_l, x, use_reentrant=False)
         else:
             x, aux = fn(p_l, x)
         aux_total = aux_total + aux

@@ -12,6 +12,15 @@
 
 A step's wall time ends at ``loss.item()``, which waits for the device
 (the JAX package's ``block_until_ready``).
+
+A sharded trainer (``param_shardings`` / ``opt_shardings``: the
+``NamedSharding`` trees of ``make_sharded_train_step``) is one rank of
+SPMD ranks: a save gathers the full arrays (every rank takes part) and
+rank 0 writes them, so a checkpoint is mesh-free, as the reference's is;
+a resume reads the full arrays and cuts this rank's pieces on the CURRENT
+mesh (the reference's elastic restore onto the current shardings). A
+preemption request on any rank makes every rank save at the same step
+(the flag is maxed over the mesh each step).
 """
 
 from __future__ import annotations
@@ -24,6 +33,9 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.core.tree import tree_leaves
+from repro_torch.distributed import comm
+from repro_torch.distributed.sharding import shard_tree, unshard
 from repro_torch.telemetry.metrics import MetricsRegistry
 
 
@@ -42,12 +54,17 @@ class Trainer:
     def __init__(self, cfg: TrainerConfig, step_fn: Callable,
                  params, opt_state,
                  batch_fn: Callable[[int], Any],
+                 param_shardings=None, opt_shardings=None,
                  registry: MetricsRegistry | None = None):
         self.cfg = cfg
         self.step_fn = step_fn
         self.params = params
         self.opt_state = opt_state
         self.batch_fn = batch_fn
+        self.param_shardings = param_shardings
+        self.opt_shardings = opt_shardings
+        self.mesh = (tree_leaves(param_shardings)[0].mesh
+                     if param_shardings is not None else None)
         self.ckpt = Checkpointer(cfg.ckpt_dir, keep=cfg.ckpt_keep,
                                  async_save=cfg.async_ckpt)
         self.step = 0
@@ -63,12 +80,22 @@ class Trainer:
             "train_tokens_per_s", "tokens/s over the last step")
 
     # ----------------------------------------------------------- checkpoints
+    def _shardings(self):
+        return {"params": self.param_shardings,
+                "opt_state": self.opt_shardings}
+
     def save(self) -> None:
-        self.ckpt.save(self.step, {"params": self.params,
-                                   "opt_state": self.opt_state})
+        tree = {"params": self.params, "opt_state": self.opt_state}
+        if self.mesh is not None:
+            tree = unshard(tree, self._shardings())
+            if self.mesh.rank != 0:
+                return
+        self.ckpt.save(self.step, tree)
 
     def try_resume(self) -> bool:
-        """Restore the newest valid checkpoint. Returns True if resumed."""
+        """Restore the newest valid checkpoint (a sharded trainer cuts its
+        pieces out of the full arrays on the current mesh). Returns True
+        if resumed."""
         if not self.ckpt.all_steps():
             return False
         target = {"params": self.params, "opt_state": self.opt_state}
@@ -76,10 +103,20 @@ class Trainer:
             tree, step = self.ckpt.restore(target)
         except FileNotFoundError:
             return False
+        if self.mesh is not None:
+            tree = shard_tree(tree, self._shardings())
         self.params = tree["params"]
         self.opt_state = tree["opt_state"]
         self.step = step
         return True
+
+    def _save_requested(self) -> bool:
+        """The preemption flag, or a sharded trainer's flag on any rank."""
+        if self.mesh is None or self.mesh.size == 1:
+            return self._ckpt_requested
+        flag = torch.tensor([float(self._ckpt_requested)],
+                            device=self.mesh.device)
+        return bool(comm.all_reduce_max(flag, self.mesh.world)[0] > 0)
 
     def request_checkpoint(self) -> None:
         """Preemption-signal hook (a SIGTERM handler calls this)."""
@@ -108,7 +145,7 @@ class Trainer:
             n_tok = self._batch_tokens(batch)
             if n_tok and dt > 0:
                 self._g_tps.set(n_tok / dt)
-            if self._ckpt_requested or self.step % self.cfg.ckpt_every == 0:
+            if self._save_requested() or self.step % self.cfg.ckpt_every == 0:
                 self.save()
                 self._ckpt_requested = False
         self.ckpt.wait()

@@ -21,15 +21,42 @@ layer axis there, so a block's 1-D leaves (norm scales, biases, the SSM's
 ``A_log``, ``D``, ``dt_bias``) are decayed and only the top-level 1-D ones
 (the final norm, an encoder's final norm) are not. The step hands each
 block, an encoder's too, to the optimizer with that axis (a view), so the
-updates are the reference's. The sharded and ZeRO-1 step factories wait
-for the tensor/data-parallel slice (ROADMAP.md).
+updates are the reference's.
+
+``make_sharded_train_step`` is the port of the reference's pjit-sharded
+step as SPMD ranks over a ``distributed.meshes.Mesh`` (one process a
+shard, every rank running the same step): each rank holds its batch rows
+(the data axes), its head, FFN and vocab slices of the params (the
+"model" axis, through the rule table) and, under ZeRO-1, its slice of
+each moment (``distributed.zero``). The rank's forward and backward run
+the model's tensor-parallel collectives (``Model`` with a ``TrainShard``);
+the gradients are then summed over the data axes, into the moment
+slices under ZeRO-1 (one ``reduce_scatter``), else everywhere (one
+``all_reduce``), each in one flat fp32 buffer; clipping reads the global
+norm (one ``all_reduce`` over the mesh, each piece counted once); the
+rank updates its slice (LAMB's trust-ratio sums are one more
+``all_reduce``) in place, and under ZeRO-1 the updated slices are
+all-gathered back (one ``all_gather``). Every result is the unsharded
+step's up to the order of float sums, the reference's contract (its jit
+is one global program).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core.tree import tree_leaves, tree_map, with_leaves
+from repro_torch.distributed import comm
+from repro_torch.distributed.meshes import data_axis_names
+from repro_torch.distributed.sharding import (NamedSharding, P, TrainShard,
+                                              _pairs, expected_train_census,
+                                              resolve_spec, resolve_tree,
+                                              rules_for_mesh,
+                                              validate_divisibility)
+from repro_torch.distributed.zero import (moment_shardings, param_slice,
+                                          zero1_dim)
 from repro_torch.models.model_zoo import Model
 from repro_torch.optim.optimizers import (Optimizer, apply_updates,
                                           clip_scale, global_norm)
@@ -108,14 +135,8 @@ def _clip_update_apply(optimizer: Optimizer, grads, opt_state, params,
     return new, opt_state, norm
 
 
-def make_train_step(model: Model, optimizer: Optimizer, *,
-                    clip_norm: float = 1.0, grad_accum: int = 1,
-                    deterministic: bool = False):
-    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``.
-    ``batch`` leaves are numpy arrays or tensors with the global batch on
-    axis 0 (divisible by ``grad_accum``). Metrics are 0-d tensors:
-    loss, ce, aux, tokens (averaged over microbatches) and grad_norm."""
-
+def _grads_fn(model: Model, deterministic: bool):
+    """``grads_of(params, batch, seed) -> (gradient leaves, metrics)``."""
     def grads_of(params, batch, seed):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         loss, metrics = model.loss(with_leaves(params, leaves), batch,
@@ -125,29 +146,47 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
         # gradient, as under jax.grad
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
-        return (with_leaves(params, grads),
-                {k: v.detach() for k, v in metrics.items()})
+        return list(grads), {k: v.detach() for k, v in metrics.items()}
+    return grads_of
+
+
+def _accumulate(grads_of, params, batch, seed, grad_accum: int):
+    """(gradient leaves, metrics) of ``grads_of`` over the batch, averaged
+    over ``grad_accum`` contiguous microbatches of its rows (fp32 sums)."""
+    if grad_accum == 1:
+        return grads_of(params, batch, seed)
+    n = len(next(iter(batch.values())))
+    if n % grad_accum:
+        raise ValueError(f"batch {n} is not a multiple of grad_accum "
+                         f"{grad_accum}")
+    mb = n // grad_accum
+    grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for p in tree_leaves(params)]
+    metrics = None
+    for i in range(grad_accum):
+        micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        g, m = grads_of(params, micro, seed)
+        grads = [a + x / grad_accum for a, x in zip(grads, g)]
+        m = {k: v / grad_accum for k, v in m.items()}
+        metrics = m if metrics is None else {k: metrics[k] + m[k] for k in m}
+    return grads, metrics
+
+
+def make_train_step(model: Model, optimizer: Optimizer, *,
+                    clip_norm: float = 1.0, grad_accum: int = 1,
+                    deterministic: bool = False):
+    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``.
+    ``batch`` leaves are numpy arrays or tensors with the global batch on
+    axis 0 (divisible by ``grad_accum``). Metrics are 0-d tensors:
+    loss, ce, aux, tokens (averaged over microbatches) and grad_norm."""
+
+    grads_of = _grads_fn(model, deterministic)
 
     def train_step(params, opt_state, batch):
         seed = int(opt_state["step"])
-        if grad_accum == 1:
-            grads, metrics = grads_of(params, batch, seed)
-        else:
-            n = len(next(iter(batch.values())))
-            if n % grad_accum:
-                raise ValueError(f"batch {n} is not a multiple of "
-                                 f"grad_accum {grad_accum}")
-            mb = n // grad_accum
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
-            metrics = None
-            for i in range(grad_accum):
-                micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                g, m = grads_of(params, micro, seed)
-                grads = tree_map(lambda a, x: a + x / grad_accum, grads, g)
-                m = {k: v / grad_accum for k, v in m.items()}
-                metrics = m if metrics is None else {
-                    k: metrics[k] + m[k] for k in m}
+        grads, metrics = _accumulate(grads_of, params, batch, seed,
+                                     grad_accum)
+        grads = with_leaves(params, grads)
         params, opt_state, gnorm = _clip_update_apply(
             optimizer, grads, opt_state, params, clip_norm)
         metrics = dict(metrics)
@@ -155,3 +194,331 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
         return params, opt_state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# the sharded step
+# ---------------------------------------------------------------------------
+
+ROADMAP_QUEUE = "ROADMAP.md queue 1"
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchSharding:
+    """The batch on the mesh: its rows cut over the data axes (``axes``),
+    or the same rows on every rank (``axes`` empty). ``shard`` takes a
+    rank's rows of the global batch; with ``grad_accum`` microbatches
+    they are its part of each microbatch in turn (microbatch i is the
+    global rows [i * mb, (i + 1) * mb), as the reference's scan splits
+    them), so the step's microbatches are contiguous runs of the rank's
+    rows."""
+    mesh: object
+    axes: tuple[str, ...]
+
+    def shard(self, batch: dict, grad_accum: int = 1) -> dict:
+        if not self.axes:
+            return batch
+        group = self.mesh.data
+        n = group.size
+
+        def rows(x):
+            b = x.shape[0]
+            if b % (grad_accum * n):
+                raise ValueError(f"batch {b} does not split into "
+                                 f"{grad_accum} microbatches over {n} data "
+                                 f"ranks")
+            x = x.reshape(grad_accum, n, b // (grad_accum * n), *x.shape[1:])
+            x = x[:, group.index]
+            return x.reshape(b // n, *x.shape[2:])
+
+        return {k: rows(v) for k, v in batch.items()}
+
+
+def _batch_sharding(mesh, rules, batch_specs) -> BatchSharding:
+    """Rows over the data axes where a spec's first entry resolves to them
+    (the reference's ``batch_specs``); no spec: replicated, as the
+    reference's ``P()``."""
+    data = set(data_axis_names(mesh))
+    axes: tuple[str, ...] = ()
+    for spec in (batch_specs or {}).values():
+        phys = resolve_spec(spec, rules)
+        for i, entry in enumerate(phys):
+            names = entry if isinstance(entry, tuple) else (entry,)
+            if entry is None:
+                continue
+            if i != 0 or not set(names) <= data:
+                raise ValueError(f"batch spec {spec} resolves to {phys}: the "
+                                 f"port cuts only the rows, over the data "
+                                 f"axes")
+            axes = tuple(names)
+    if axes and axes != tuple(data_axis_names(mesh)):
+        raise ValueError(f"the batch rows are cut over {axes}; the port cuts "
+                         f"them over all the data axes "
+                         f"{data_axis_names(mesh)}")
+    return BatchSharding(mesh, axes)
+
+
+def check_trainable(cfg, mesh, rules) -> None:
+    """Raise for what the sharded step does not run: a "model" axis of
+    more than one rank under a family other than the dense decoders and
+    encoders (MoE expert parallelism, the SSM's widths, an encoder-decoder
+    or a VLM: ROADMAP.md queue 1), or heads whose cut leaves a q head, or
+    a kv head group, on no single rank."""
+    m = mesh.shape.get("model", 1)
+    if m == 1:
+        return
+    if (cfg.family != "dense" or cfg.hybrid or cfg.num_encoder_layers
+            or cfg.frontend is not None):
+        raise ValueError(
+            f"{cfg.name} (family {cfg.family!r}) trains data-parallel only: "
+            f"a \"model\" axis of {m} ranks needs tensor parallelism of "
+            f"its experts, SSM widths or frontend, which waits in "
+            f"{ROADMAP_QUEUE}")
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    if rules.get("heads") == "model" and (hq % m or (hkv % m and m % hkv)):
+        raise ValueError(
+            f"{cfg.name}: {hq} q / {hkv} kv heads do not cut over {m} "
+            f"\"model\" ranks into whole q heads with their kv head")
+
+
+def _rank_cfg(cfg, shard: TrainShard):
+    m = shard.model.size
+    kw = {}
+    if shard.heads:
+        kw.update(num_heads=cfg.num_heads // m,
+                  num_kv_heads=(cfg.num_kv_heads // m if not shard.kv_split
+                                else 1))
+    if shard.ff:
+        kw["d_ff"] = cfg.d_ff // m
+    return dataclasses.replace(cfg, **kw)
+
+
+def _entries(params):
+    """(key, piece) of each optimizer piece: every top-level entry, and
+    every block of a list (key (name, i))."""
+    for name, entry in params.items():
+        if isinstance(entry, list):
+            for i, block in enumerate(entry):
+                yield (name, i), block
+        else:
+            yield (name,), entry
+
+
+def make_sharded_train_step(model: Model, optimizer: Optimizer, mesh, *,
+                            rules=None, zero1: bool = True,
+                            clip_norm: float = 1.0, grad_accum: int = 1,
+                            deterministic: bool = False, batch_specs=None,
+                            donate: bool = True):
+    """Returns ``(step, shardings)``: ``step(params, opt_state, batch) ->
+    (params, opt_state, metrics)`` for THIS rank of ``mesh`` (a
+    ``meshes.Mesh``), every rank calling it with its own pieces and the
+    same global ``batch``; ``shardings`` = {"params", "opt", "batch"}:
+    ``NamedSharding`` trees of the params and of the optimizer state
+    (``shard`` cuts a rank's pieces out of full arrays, ``gather`` puts
+    them back), the ``BatchSharding`` and the ``census`` a step must
+    count (``sharding.expected_train_census``). ``batch_specs``: the
+    logical specs of the batch leaves (rows over "data"), else the batch
+    is replicated. The metrics are the reference's (loss, ce, aux, tokens,
+    grad_norm), the whole batch's, the same on every rank. ``donate``:
+    the rank's params are updated in place (the moments always are)."""
+    rules = rules or rules_for_mesh(mesh)
+    cfg = model.cfg
+    check_trainable(cfg, mesh, rules)
+    specs, shapes = model.param_specs(), model.param_shapes()
+    problems = validate_divisibility(shapes, specs, mesh, rules)
+    if problems:
+        raise ValueError("sharding preflight failed:\n" + "\n".join(problems))
+    param_sh = resolve_tree(specs, mesh, rules)
+    moment_sh = (moment_shardings(shapes, specs, mesh, rules) if zero1
+                 else param_sh)
+    batch_sh = _batch_sharding(mesh, rules, batch_specs)
+    m = mesh.shape.get("model", 1)
+
+    def cut(axis):
+        return m > 1 and rules.get(axis) == "model"
+
+    shard = TrainShard(model=mesh.group("model") if "model" in mesh.shape
+                       else mesh.group(()), data=mesh.data,
+                       heads=cut("heads"), ff=cut("ff"), vocab=cut("vocab"),
+                       num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                       vocab_size=cfg.vocab_size,
+                       batch_sharded=bool(batch_sh.axes))
+    rank_model = type(model)(_rank_cfg(cfg, shard), shard=shard)
+    world, data = mesh.world, mesh.data
+    leaf_sh = tree_leaves(moment_sh)
+    cuts = [zero1_dim(sh) if zero1 else None for sh in leaf_sh]
+    whole = [i for i, c in enumerate(cuts) if c is None]
+    sliced = [i for i, c in enumerate(cuts) if c is not None]
+    replicas = [sh.replicas() for sh in leaf_sh]
+
+    grads_of = _grads_fn(rank_model, deterministic)
+
+    def reduce_grads(grads):
+        """The data-parallel sum of every gradient, fp32: this rank's
+        moment slice of it under ZeRO-1."""
+        if data.size == 1:
+            return [g.float() for g in grads]
+        out = [None] * len(grads)
+        if whole:
+            flat = comm.all_reduce_sum(
+                torch.cat([grads[i].float().reshape(-1) for i in whole]), data)
+            for i, part in zip(whole, flat.split([grads[i].numel()
+                                                  for i in whole])):
+                out[i] = part.view(grads[i].shape)
+        if sliced:
+            n = data.size
+            # each leaf's cut dim first, split into the data ranks' slabs
+            parts = [grads[i].float().movedim(cuts[i], 0).reshape(
+                n, -1) for i in sliced]
+            mine = comm.reduce_scatter(torch.cat(parts, dim=1), data,
+                                       dim=0)[0]
+            sizes = [p.shape[1] for p in parts]
+            for i, part in zip(sliced, mine.split(sizes)):
+                shape = list(grads[i].movedim(cuts[i], 0).shape)
+                shape[0] //= n
+                out[i] = part.view(shape).movedim(0, cuts[i])
+        return out
+
+    def gather_params(params):
+        """The updated moment slices all-gathered back into each rank's
+        param pieces (ZeRO-1), in place."""
+        pieces = tree_leaves(params)
+        if data.size == 1 or not sliced:
+            return
+        n = data.size
+        mine = [param_slice(pieces[i], leaf_sh[i]).float().movedim(
+            cuts[i], 0).reshape(-1) for i in sliced]
+        every = comm.all_gather(torch.cat(mine), data, dim=0).view(n, -1)
+        off = 0
+        for i, part in zip(sliced, mine):
+            piece = pieces[i].movedim(cuts[i], 0)
+            slabs = every[:, off:off + part.numel()]
+            off += part.numel()
+            piece.copy_(slabs.reshape(piece.shape).to(piece.dtype))
+
+    def train_step(params, opt_state, batch):
+        # the trees in the shardings' leaf order (the specs' key order)
+        params = _pairs(params, param_sh, lambda t, _: t)
+        opt_state = dict(opt_state, **{k: _pairs(opt_state[k], moment_sh,
+                                                 lambda t, _: t)
+                                       for k in ("mu", "nu")})
+        seed = int(opt_state["step"])
+        grads, metrics = _accumulate(grads_of, params,
+                                     batch_sh.shard(batch, grad_accum), seed,
+                                     grad_accum)
+        if data.size > 1:
+            shares = comm.all_reduce_sum(torch.stack(
+                [metrics["loss"], metrics["ce"], metrics["aux"].float()]),
+                data)
+            metrics = dict(metrics, loss=shares[0], ce=shares[1],
+                           aux=shares[2])
+        grads = reduce_grads(grads)
+        # the global norm: each piece's squares once (divided by the ranks
+        # that hold the same piece), summed over the mesh
+        sq = torch.stack([g.square().sum() / r
+                          for g, r in zip(grads, replicas)]).sum()
+        if world.size > 1:
+            sq = comm.all_reduce_sum(sq, world)
+        norm = torch.sqrt(sq)
+        scale = clip_scale(norm, clip_norm)
+        if not donate:
+            params = tree_map(torch.clone, params)
+        _sharded_update(optimizer, grads, opt_state, params, scale,
+                        leaf_sh, replicas, world)
+        gather_params(params)
+        metrics = dict(metrics)
+        metrics["grad_norm"] = norm
+        return params, opt_state, metrics
+
+    census = expected_train_census(
+        cfg, mesh.shape, rules, zero1=zero1,
+        cut_leaves=any(c is not None for c in cuts),
+        whole_leaves=any(c is None for c in cuts), grad_accum=grad_accum,
+        stacked=optimizer.stacked is not None)
+    shardings = {"params": param_sh,
+                 "opt": {"step": NamedSharding(mesh, P()), "mu": moment_sh,
+                         "nu": moment_sh},
+                 "batch": batch_sh, "census": census}
+    return train_step, shardings
+
+
+def init_opt_state(optimizer: Optimizer, params, shardings):
+    """A rank's optimizer state for its param pieces: the moments of
+    ``optimizer.init`` at the shapes of its moment slices (nothing of the
+    full moments is made)."""
+    slices = _pairs(_pairs(params, shardings["params"], lambda t, _: t),
+                    shardings["opt"]["mu"], param_slice)
+    return optimizer.init(slices)
+
+
+def _sharded_update(optimizer: Optimizer, grads: list, opt_state, params,
+                    scale, leaf_sh, replicas, world) -> None:
+    """The optimizer update of this rank's slices, one piece (top-level
+    entry or block, a block with a leading layer axis) at a time, applied
+    in place to the slices of the rank's params. A ``stacked`` optimizer
+    (LAMB) runs its two passes over every piece, its per-leaf sums summed
+    over the mesh in between (each piece's sums once); a top-level entry
+    is a stack of one piece."""
+    step = opt_state["step"]
+    pieces = list(_entries(params))
+    offsets, off = [], 0
+    for _, piece in pieces:
+        offsets.append(off)
+        off += len(tree_leaves(piece))
+
+    def piece_args(k, with_grads=True):
+        key, piece = pieces[k]
+        view = (lambda t: t.unsqueeze(0)) if len(key) == 2 else (lambda t: t)
+        o = offsets[k]
+        shs = leaf_sh[o:o + len(tree_leaves(piece))]
+        p = with_leaves(piece, [view(param_slice(t, sh)) for t, sh in
+                                zip(tree_leaves(piece), shs)])
+        get = (lambda tree: tree[key[0]] if len(key) == 1
+               else tree[key[0]][key[1]])
+        state = {"step": step, "mu": tree_map(view, get(opt_state["mu"])),
+                 "nu": tree_map(view, get(opt_state["nu"]))}
+        g = None
+        if with_grads:
+            g = with_leaves(piece, [view(grads[o + j] * scale) for j in
+                                    range(len(shs))])
+        return g, state, p
+
+    def apply(k, updates):
+        _, state, p = piece_args(k, with_grads=False)
+        for t, u in zip(tree_leaves(p), tree_leaves(updates)):
+            t.copy_((t.float() + u).to(t.dtype))
+
+    if optimizer.stacked is None:
+        for k in range(len(pieces)):
+            g, state, p = piece_args(k)
+            updates, _ = optimizer.update(g, state, p)
+            del g
+            apply(k, updates)
+    else:
+        stacks: dict = {}
+        for k, (key, _) in enumerate(pieces):
+            stacks.setdefault(key[0], []).append(k)
+        sums: dict = {}
+        for name, ks in stacks.items():
+            sums[name] = []
+            for k in ks:
+                g, state, p = piece_args(k)
+                optimizer.stacked.moments(g, state, p, sums[name])
+                del g
+        # each leaf's (||p||², ||r||²) once over the mesh
+        names = list(stacks)
+        weights = torch.tensor(
+            [1.0 / replicas[offsets[stacks[n][0]] + j]
+             for n in names for j in range(len(sums[n]))])
+        flat = torch.stack([x for n in names for x in sums[n]])
+        flat = flat * weights.to(flat.device)[:, None]
+        if world.size > 1:
+            flat = comm.all_reduce_sum(flat, world)
+        flat = list(flat)
+        for name in names:
+            mine, flat = flat[:len(sums[name])], flat[len(sums[name]):]
+            scales = optimizer.stacked.scales({"step": step}, mine)
+            for k in stacks[name]:
+                _, state, p = piece_args(k, with_grads=False)
+                apply(k, optimizer.stacked.update(state, p, scales))
+    opt_state["step"] = step + 1

@@ -38,6 +38,14 @@ def test_port_has_modules_to_scan():
             "launch.py"} <= names
 
 
+def test_sharded_training_modules_are_scanned():
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch"))
+             for p in PORT_FILES}
+    assert {"distributed/zero.py", "distributed/compression.py",
+            "distributed/pipeline.py", "launch/mesh.py",
+            "train/steps.py"} <= names
+
+
 @pytest.mark.parametrize("path", SCANNED,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_repro_imports(path):

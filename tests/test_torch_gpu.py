@@ -3,7 +3,8 @@ plain PyTorch version on the same CUDA inputs (the forward, its dropout
 and "paper" variants, ragged tiles and rows with no key (a sequence-parallel
 slab of padding rows only, for the paged forward), the dq and dkv
 backward kernels (bf16 on tensor cores: every head dim, ragged tiles, GQA
-n_rep 1 and 4, dropout at two seeds, two calls bit-identical), the paged kernels with several pages to a kv tile,
+n_rep 1 and 4, dropout at two seeds and at a sharded rank's global
+coordinates, two calls bit-identical), the paged kernels with several pages to a kv tile,
 the decode body that merges its splits in a cluster (paged: pages of 8-64
 rows, dead and SKIP pages; contiguous: ragged blocks, windows, kv_mask;
 every head dim, GQA 1/4/6, splits 1/6/8, two calls bit-identical, 9
@@ -276,6 +277,39 @@ def test_dropout_forward_and_backward_match_plain(cuda):
     got = fa.flash_attention_backward(*res, **call)
     want = fa.flash_attention_backward_plain(*res, **call)
     _check_grads(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("coords", [(3, 2, 32), (1, 6, 16)])
+def test_dropout_at_global_coordinates_matches_plain(cuda, dtype, coords):
+    """A sharded step's rank: its buffer at rows b0 and heads h0 of a
+    global batch of H heads (``dropout_coords``). #1, #2 and #3 with
+    dropout 0.2 against their plain versions at the same coordinates (each
+    side's backward fed its own forward's residuals); the coordinates
+    reach the kernel's hash (o differs from the default's), and the
+    default (0, 0, the buffer's heads) is bit-equal to passing it."""
+    gen, args, call = _contiguous_case(cuda, dtype, 64, "causal_segments",
+                                       seed=7)
+    call.update(dropout_p=0.2, dropout_seed=99, dropout_dims=(120, 190),
+                dropout_coords=coords)
+    out = fa.flash_attention_forward(*args, **call)
+    torch.cuda.synchronize()
+    plain = fa.flash_attention_forward_plain(*args, **call)
+    _check(out, plain, dtype)
+    base = fa.flash_attention_forward(*args, **dict(call,
+                                                    dropout_coords=None))
+    assert not torch.equal(out[0], base[0])
+    hq = args[0].shape[1]
+    same = fa.flash_attention_forward(*args, **dict(call,
+                                                    dropout_coords=(0, 0, hq)))
+    assert all(torch.equal(a, b) for a, b in zip(same, base))
+    do = torch.randn(args[0].shape, generator=gen).to(cuda, dtype)
+    got = fa.flash_attention_backward(*args[:3], out[0], do, out[1], out[2],
+                                      *args[3:], **call)
+    want = fa.flash_attention_backward_plain(*args[:3], plain[0], do,
+                                             plain[1], plain[2], *args[3:],
+                                             **call)
+    _check_grads(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
