@@ -290,6 +290,21 @@ Phases:
    other shapes (``train_dp2tp2`` sub-entries); two 2-stage pipelines
    (``pipeline_apply``) on CUDA tensors against the sequential stack,
    forward and gradients.
+19. parity-train-family, train-ep4, train-ssm-tp4 (``train_family_phase``):
+   every family trained with a "model" axis above one, four gloo ranks
+   sharing the card in one spawn: float32 at full width, 2 layers
+   (seamless 2 + 2), 3 AdamW steps against the single-rank step on the
+   card of olmoe-1b-7b at model 4 (16 experts a rank) and at data 2 x
+   model 2 with ZeRO-1, mamba2-2.7b at model 4 (20 SSM heads a rank),
+   phi-3-vision-4.2b at model 4 and seamless-m4t-medium at data 2 x
+   model 2 (losses within ``TRAIN_MESH_RTOL``, MoE route flips only at
+   near-ties, every rank's census of every step ``expected_train_census``);
+   olmoe-1b-7b at 4 of 16 layers (expert-parallel, model 4) and
+   mamba2-2.7b at 8 of 64 layers (cut by SSM head group, model 4) in bf16,
+   4 steps of the launcher's recipe at seq 2048 x 4, losses within
+   ``DP2TP2_LOSS_RTOL`` of the single-rank bf16 step's, ms a step, peak
+   memory, collectives and launches a rank (rank 0's #1-#3 are the
+   ``train_ep4`` path, held at its layer early, ``train_mesh_kernel_phase``).
 
 ``--ab PARENT_CHECKOUT`` runs only an A/B against another checkout (e.g.
 ``git archive`` of the parent commit): first both checkouts' kernel
@@ -4066,23 +4081,30 @@ PIPELINE_2 = (8, 512, 16, 4)              # layers, width, global batch, M
 
 def train_mesh_kernel_phase(torch, seed: int) -> dict:
     """#1/#2/#3 at train-dp2tp2's rank 0 layer (2 rows of the launcher's
-    first batch, its documents, 16 q / 4 kv heads of 64, causal) through
+    first batch, its documents, 16 q / 4 kv heads of 64, causal) and at
+    train-ep4's (olmoe-1b-7b: 4 rows, 4 / 4 heads of 128) through
     ``fwd_bwd_case``, early in the script (the profiler records whole
-    windows in a young process). Returns {kernel: {"train_dp2tp2":
-    entry}}."""
+    windows in a young process). Returns {kernel: {"train_dp2tp2": entry,
+    "train_ep4": entry}}."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
 
-    (data_ranks, model_ranks), _, seq, batch, _ = DP2TP2
-    cfg = get_config("granite-3-2b")
-    rows = batch // data_ranks
-    seg = torch.as_tensor(SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
-                          .batch_at(0)["segment_ids"][:rows]).to("cuda")
-    gen = torch.Generator(device="cuda").manual_seed(seed + 30)
-    c = fwd_bwd_case(torch, gen, rows, cfg.num_heads // model_ranks,
-                     cfg.num_kv_heads // model_ranks, seq, cfg.head_dim,
-                     True, seg)
-    return {name: {"train_dp2tp2": e} for name, e in shape_entries(c).items()}
+    out: dict = {}
+    for path, arch, ((data_ranks, model_ranks), _, seq, batch, _), k in (
+            ("train_dp2tp2", "granite-3-2b", DP2TP2, 30),
+            ("train_ep4", TRAIN_EP4[0], TRAIN_EP4[1:], 31)):
+        cfg = get_config(arch)
+        rows = batch // data_ranks
+        seg = torch.as_tensor(SyntheticLM(cfg.vocab_size, seq, batch,
+                                          seed=seed).batch_at(0)
+                              ["segment_ids"][:rows]).to("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(seed + k)
+        c = fwd_bwd_case(torch, gen, rows, cfg.num_heads // model_ranks,
+                         cfg.num_kv_heads // model_ranks, seq, cfg.head_dim,
+                         True, seg)
+        for name, e in shape_entries(c).items():
+            out.setdefault(name, {})[path] = e
+    return out
 
 
 def train_mesh_rank(jobs: list) -> list:
@@ -4309,6 +4331,245 @@ def train_mesh_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
              "spawn_s": spawn_s},
             {"train_dp2tp2": {n: r0["launches"].get(n, 0)
                               for n in read_launches()}})
+
+
+# ---------------------------------------------------------------------------
+# phase 19: every family trained with a "model" axis above one
+# ---------------------------------------------------------------------------
+
+# parity-train-family: (arch, (data, model), ZeRO-1), each at full width, 2
+# layers (seamless 2 + 2), float32, PARITY_TRAIN's 3 AdamW steps against
+# the single rank on the card, losses within TRAIN_MESH_RTOL
+PARITY_FAMILY = (("olmoe-1b-7b", (1, 4), False),
+                 ("olmoe-1b-7b", (2, 2), True),
+                 ("mamba2-2.7b", (1, 4), False),
+                 ("phi-3-vision-4.2b", (1, 4), False),
+                 ("seamless-m4t-medium", (2, 2), True))
+PARITY_FAMILY_TEXT = {"phi-3-vision-4.2b": 64,      # tokens after 576 patches
+                      "seamless-m4t-medium": 128}   # tokens after 256 frames
+# train-ep4 / train-ssm-tp4: arch, (data, model), layers, seq, batch, steps,
+# bf16, the launcher's recipe; losses within DP2TP2_LOSS_RTOL of the single
+# rank's (the prediction in PERF.md §6, set before the first card run)
+TRAIN_EP4 = ("olmoe-1b-7b", (1, 4), 4, 2048, 4, 4)
+TRAIN_SSM_TP4 = ("mamba2-2.7b", (1, 4), 8, 2048, 4, 4)
+
+
+def family_batches(cfg, seq: int, batch: int, steps: int, seed: int) -> list:
+    """numpy batches of ``SyntheticLM``'s tokens for ``cfg``'s family: a
+    VLM's 576 patches ahead of PARITY_FAMILY_TEXT tokens, an
+    encoder-decoder's ``seq`` audio frames beside them (neither takes
+    segment ids), else ``seq`` tokens with their documents."""
+    import numpy as np
+
+    from repro_torch.data import SyntheticLM
+
+    n_text = PARITY_FAMILY_TEXT.get(cfg.name, seq)
+    data = SyntheticLM(cfg.vocab_size, n_text, batch, seed=seed)
+    rng = np.random.default_rng(seed + 19)
+    out = []
+    for i in range(steps):
+        b = dict(data.batch_at(i))
+        if cfg.frontend is not None:
+            del b["segment_ids"]
+            rows = cfg.frontend_tokens if cfg.frontend == "vision" else seq
+            key = "patches" if cfg.frontend == "vision" else "frames"
+            b[key] = rng.standard_normal(
+                (batch, rows, cfg.frontend_dim)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def _census_checked(tag: str, recs: list) -> list:
+    """Every rank's losses rank 0's and each step's census the expected;
+    returns rank 0's losses."""
+    got = [h["loss"] for h in recs[0]["history"]]
+    for r in recs:
+        check([h["loss"] for h in r["history"]] == got,
+              f"{tag}: rank {r['rank']}'s losses differ from rank 0's")
+        for i, census in enumerate(r["census"]):
+            check(census == r["expected_census"],
+                  f"{tag}: rank {r['rank']} step {i + 1} census {census} is "
+                  f"not {r['expected_census']}")
+    return got
+
+
+def train_family_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
+    """Phase 19: every family trained with a "model" axis above one
+    (``make_sharded_train_step``: the MoE's experts, the SSM by head group,
+    the encoder-decoder's and the VLM's heads cut over "model") as four
+    gloo ranks sharing the card in one spawn, collectives staged through
+    host memory (so this phase measures correctness and each rank's work,
+    not the speed of collectives).
+
+    * parity-train-family: ``PARITY_FAMILY`` at full width, 2 layers,
+      float32, 3 AdamW steps against the single-rank step on the card:
+      losses within ``TRAIN_MESH_RTOL``, the MoE's routes at every call
+      against the single rank's (at step 1, from the same weights, a flip
+      only at a near-tie, gap <= ``ROUTE_TIE``; later steps' flips, from
+      weights AdamW has moved apart by float noise, recorded), every
+      rank's census of every step the expected;
+    * train-ep4 / train-ssm-tp4: olmoe-1b-7b (4 layers, 16 experts and
+      4 / 4 heads of 128 a rank) and mamba2-2.7b (8 layers, 20 SSM heads a
+      rank) at model 4 in bf16, 4 steps of the launcher's recipe at seq
+      2048 x 4: losses within ``DP2TP2_LOSS_RTOL`` of the single-rank bf16
+      step's, ms a step, peak memory, collectives and launches by rank.
+
+    Returns (record, {"train_ep4": rank 0's launches})."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed import launch
+    from repro_torch.optim import adamw, warmup_cosine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    pseq, pbatch, psteps = PARITY_TRAIN
+    # -- parity-train-family: the single rank on the card ------------------
+    pcfgs, pbatches, want = {}, {}, {}
+    for arch, _, _ in PARITY_FAMILY:
+        if arch in pcfgs:
+            continue
+        cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                                  dtype="float32", attn_impl="pallas")
+        if cfg.num_encoder_layers:
+            cfg = dataclasses.replace(cfg, num_encoder_layers=2)
+        pcfgs[arch] = cfg
+        pbatches[arch] = family_batches(cfg, pseq, pbatch, psteps, seed)
+        with watch_routes() as seen:
+            losses, _ = _single_rank_losses(torch, cfg, seed, pbatches[arch],
+                                            adamw(1e-3))
+        want[arch] = (losses, list(seen))
+    # -- train-ep4 / train-ssm-tp4: the single-rank bf16 steps -------------
+    trains = {}
+    for tag, (arch, mesh, layers, seq, batch, steps) in (
+            ("train-ep4", TRAIN_EP4), ("train-ssm-tp4", TRAIN_SSM_TP4)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  attn_impl="pallas")
+        data = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed)
+        batches = [data.batch_at(i) for i in range(steps)]
+        one, one_ms = _single_rank_losses(
+            torch, cfg, seed, batches, adamw(warmup_cosine(3e-4, 20, steps)))
+        trains[tag] = (cfg, mesh, batches, one, one_ms)
+
+    runs = [{"cfg": pcfgs[arch], "shape": shape, "zero1": zero1,
+             "optimizer": {"name": "adamw", "lr": 1e-3},
+             "batches": pbatches[arch],
+             "routes": pcfgs[arch].family == "moe"}
+            for arch, shape, zero1 in PARITY_FAMILY]
+    runs += [{"cfg": cfg, "shape": mesh, "zero1": True, "batches": batches,
+              "optimizer": {"name": "adamw",
+                            "lr": ("warmup_cosine", (3e-4, 20,
+                                                     len(batches)))}}
+             for cfg, mesh, batches, _, _ in trains.values()]
+    jobs = [{"kind": "train", "spec": {"backend": "gloo", "device": "cuda",
+                                       "seed": seed, "runs": runs}}]
+    single_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    out = launch.spawn(4, train_mesh_rank, jobs, threads=2)
+    spawn_s = time.perf_counter() - t0
+
+    # -- parity-train-family ----------------------------------------------
+    parity = []
+    for k, (arch, shape, zero1) in enumerate(PARITY_FAMILY):
+        recs = [r[0][k] for r in out]
+        tag = (f"parity-train-family {arch} data {shape[0]} x model "
+               f"{shape[1]}" + (" ZeRO-1" if zero1 else ""))
+        got = _census_checked(tag, recs)
+        losses, seen = want[arch]
+        err = max(abs(a - b) / abs(b) for a, b in zip(got, losses))
+        check(err <= TRAIN_MESH_RTOL,
+              f"{tag}: losses {got} are {err:.3g} relative from the single "
+              f"rank's {losses}")
+        first, later = [], []
+        if "routes" in recs[0]:
+            per_step = len(seen) // psteps
+            for r in recs:
+                rows = pbatch // shape[0]
+                b0 = r["coord"]["data"] * rows
+                check(len(r["routes"]) == len(seen),
+                      f"{tag}: rank {r['rank']} routed {len(r['routes'])} "
+                      f"times, the single rank {len(seen)}")
+                f, _ = route_differences(
+                    [(torch.from_numpy(i), None) for i in r["routes"]],
+                    [(i[b0:b0 + rows], p[b0:b0 + rows]) for i, p in seen],
+                    rows_apart=True)
+                # step 1 routes from the same weights on both sides: a flip
+                # there is a near-tie or a fault; later steps route from
+                # weights that AdamW's m / sqrt(v) has moved apart by the
+                # float noise of the first update, so their flips are
+                # recorded (losses bound them)
+                first += [dict(x, rank_of_mesh=r["rank"]) for x in f
+                          if x["call"] < per_step]
+                later += [dict(x, rank_of_mesh=r["rank"]) for x in f
+                          if x["call"] >= per_step]
+            check(all(x["gap"] <= ROUTE_TIE for x in first),
+                  f"{tag}: step 1's route flips {first} are not all "
+                  f"near-ties (gap <= {ROUTE_TIE}); losses {got}, the single "
+                  f"rank's {losses}")
+        gap = max((x["gap"] for x in later), default=0.0)
+        print(f"[{tag}] full width, 2 layers float32, {psteps} AdamW steps: "
+              f"losses {got} within {err:.3g} relative of the single rank's "
+              f"{losses}; route flips at step 1 {len(first)} (near-ties), at "
+              f"steps 2-{psteps} {len(later)} (largest gap {gap:.3g}); census"
+              f" {recs[0]['expected_census']} on every rank, every step "
+              f"[{card}; {RANKS_NOTE}]", flush=True)
+        parity.append({"arch": arch, "shape": shape, "zero1": zero1,
+                       "losses": got, "single_rank": losses,
+                       "max_rel_err": err, "route_flips_step1": first,
+                       "route_flips_later": later,
+                       "census": recs[0]["expected_census"]})
+
+    # -- train-ep4 / train-ssm-tp4 -----------------------------------------
+    record = {"parity_train_family": parity, "spawn_s": spawn_s,
+              "single_rank_s": single_s}
+    kernels = {"train-ep4": TRAIN_KERNELS, "train-ssm-tp4": ()}
+    for j, (tag, (cfg, mesh, batches, one, one_ms)) in enumerate(
+            trains.items()):
+        recs = [r[0][len(PARITY_FAMILY) + j] for r in out]
+        r0 = recs[0]
+        got = _census_checked(tag, recs)
+        errs = [abs(a - b) / abs(b) for a, b in zip(got, one)]
+        for r in recs:
+            for name in kernels[tag]:
+                check(r["launches"][name] > 0,
+                      f"{tag}: kernel {name} never launched on rank "
+                      f"{r['rank']}")
+        check(all(math.isfinite(v) for v in got), f"{tag}: losses {got}")
+        check(max(errs) <= DP2TP2_LOSS_RTOL,
+              f"{tag}: losses {got} are {max(errs):.3g} relative from the "
+              f"single rank's {one} (bound {DP2TP2_LOSS_RTOL})")
+        step_ms = [h["step_time_s"] * 1e3 for h in r0["history"]]
+        ms = sum(step_ms[1:]) / (len(step_ms) - 1)
+        seq, batch = len(batches[0]["tokens"][0]), len(batches[0]["tokens"])
+        rec = {"model": cfg.name, "layers": cfg.num_layers,
+               "dtype": cfg.dtype, "mesh": mesh, "seq": seq, "batch": batch,
+               "steps": len(batches), "losses": got, "single_rank": one,
+               "max_rel_err": max(errs), "bound": DP2TP2_LOSS_RTOL,
+               "step_ms": step_ms, "ms_per_step": ms,
+               "tokens_per_s": seq * batch / (ms / 1e3),
+               "single_rank_ms_per_step": one_ms,
+               "peak_memory_bytes_by_rank": [r["peak_memory_bytes"]
+                                             for r in recs],
+               "census": r0["expected_census"],
+               "launches_by_rank": [{n: r["launches"][n]
+                                     for n in TRAIN_KERNELS} for r in recs],
+               "card": card, "note": RANKS_NOTE}
+        print(f"[{tag}] {cfg.name} {cfg.num_layers} layers bf16, data "
+              f"{mesh[0]} x model {mesh[1]}, seq {seq} x batch {batch}, "
+              f"{len(batches)} steps: losses {got} within {max(errs):.3g} "
+              f"relative of the single rank's {one} (bound "
+              f"{DP2TP2_LOSS_RTOL}); {ms:.1f} ms a step over steps 2-"
+              f"{len(batches)} (single rank {one_ms:.1f} ms); peak memory by "
+              f"rank {[round(r['peak_memory_bytes'] / 2**30, 2) for r in recs]}"
+              f" GiB; a step's collectives {r0['expected_census']}; launches "
+              f"by rank {rec['launches_by_rank']} [{card}; {RANKS_NOTE}]",
+              flush=True)
+        record[tag.replace("-", "_")] = rec
+    print(f"[train-family] the single-rank runs in {single_s:.1f}s, the "
+          f"spawn in {spawn_s:.1f}s", flush=True)
+    r0 = out[0][0][len(PARITY_FAMILY)]
+    return record, {"train_ep4": {n: r0["launches"].get(n, 0)
+                                  for n in read_launches()}}
 
 
 # ---------------------------------------------------------------------------
@@ -4802,6 +5063,9 @@ def main() -> int:
     train_mesh, mesh_paths = train_mesh_phase(torch, args.seed, card)
     paths.update(mesh_paths)
     lap("train_mesh")
+    train_family, family_paths = train_family_phase(torch, args.seed, card)
+    paths.update(family_paths)
+    lap("train_family")
     serves = {"serve_qwen3": serve_qwen3, "serve_olmoe": serve_olmoe,
               "serve_phi35moe": serve_phi35moe, "serve_hymba": serve_hymba,
               "serve_tp2": tp_serving["serve_tp2"],
@@ -4851,7 +5115,7 @@ def main() -> int:
               "train_seamless": train_seamless,
               "phi3v_parity": phi3v_parity, "serve_phi3v": serve_phi3v,
               "train_phi3v": train_phi3v, "tp_serving": tp_serving,
-              "train_mesh": train_mesh,
+              "train_mesh": train_mesh, "train_family": train_family,
               "phase_end_s": laps,
               "total_s": time.perf_counter() - t_start}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

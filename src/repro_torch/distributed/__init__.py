@@ -12,7 +12,8 @@ shard, every rank running the same engine or train step (DESIGN.md
     / ``psum_scatter`` / ``ppermute``) and Megatron's autograd pair
     ``copy_to_group`` / ``reduce_from_group``, each counted by kind;
   * ``sharding`` — the logical-axis rule tables, ``auto_rules``, the
-    censuses, the divisibility preflight, ``NamedSharding``,
+    censuses, the divisibility preflight, ``NamedSharding`` (and
+    ``Pieces``, a dim cut segment by segment: the SSM's head groups),
     ``shard_params`` / ``unshard`` and the training model's
     ``TrainShard``;
   * ``zero`` — ZeRO-1's moment specs and slices;

@@ -26,7 +26,15 @@ g), with a differentiable gather:
     embedding lookup, the softmax statistics of a vocab-sharded loss;
   * ``gather_from_group`` — an ``all_gather`` forward, a
     ``reduce_scatter`` backward (the K/V columns when a kv head is split
-    across ranks).
+    across ranks);
+  * ``sum_over_group`` — a sum forward and a sum backward: a statistic
+    each rank takes over its own part and every rank then uses whole
+    (the SSM's gated-norm sum of squares over channels cut by head
+    group), whose gradient each rank holds only for its own uses;
+  * ``copy_parts_to_group`` — ``copy_to_group`` for parts of several
+    tensors at once: views forward, and backward the listed spans of
+    their gradients summed over the group in one fp32 ``all_reduce``
+    (the pieces of a head-group SSM that every rank holds whole).
 
 Each call adds one to the group's ``collectives`` counter under its kind
 (``all_reduce``, ``all_reduce_max``, ``all_gather``, ``reduce_scatter``,
@@ -200,3 +208,48 @@ def gather_from_group(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
     """Every rank's x concatenated along ``dim``; in the backward each
     rank's slab of the gradient is summed over the group."""
     return _GatherFromGroup.apply(x, group, dim)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.clone(), ctx.group), None
+
+
+class _CopyPartsToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, parts, *tensors):
+        ctx.group, ctx.parts = group, parts
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [g.clone() for g in grads]
+        spans = [g.narrow(dim, off, size)
+                 for g, (dim, offs) in zip(grads, ctx.parts)
+                 for off, size in offs]
+        flat = all_reduce_sum(torch.cat([t.float().reshape(-1)
+                                         for t in spans]), ctx.group)
+        for t, part in zip(spans, flat.split([t.numel() for t in spans])):
+            t.copy_(part.view(t.shape))
+        return (None, None, *grads)
+
+
+def sum_over_group(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """x summed over the group; in the backward its gradient is summed over
+    the group too (every rank's use of the sum contributes to each
+    summand's gradient)."""
+    return _SumOverGroup.apply(x, group)
+
+
+def copy_parts_to_group(tensors, parts, group: Group) -> tuple:
+    """Views of ``tensors``; in the backward the spans ``parts`` of their
+    gradients, ``(dim, [(offset, size), ...])`` a tensor, are summed over
+    the group (one ``all_reduce`` in fp32, cast back) and the rest passes
+    as it is."""
+    return _CopyPartsToGroup.apply(group, tuple(parts), *tensors)

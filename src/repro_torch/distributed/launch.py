@@ -29,6 +29,7 @@ the ``ValueError`` a refused mesh raised).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 
@@ -184,18 +185,24 @@ def train_rank(spec: dict) -> list[dict]:
     mesh, ``optimizer`` (``_optimizer``'s spec), ``batches`` (global
     numpy batches, one a step, their rows cut over "data"), and optionally
     ``zero1`` (default True), ``grad_accum``, ``deterministic`` (default
-    True), ``ckpt`` ({"dir", "every", "resume"}) and ``gather`` (bring
-    back the full params on rank 0); a key of ``spec`` is every run's
-    default. Each record holds the attention kernels' launches over the
-    run's steps and, on a card, the rank's peak memory. A run with
+    True), ``ckpt`` ({"dir", "every", "resume"}), ``gather`` (bring
+    back the full params on rank 0), ``grads`` (bring back the first
+    step's summed gradients, gathered into full arrays, on rank 0),
+    ``roundtrip`` (whether every leaf cut into the rank's param and
+    moment pieces gathers back into the full array, bit for bit) and
+    ``routes`` (bring back every MoE layer's top-k experts of the rank's
+    rows at every step, ``moe._route`` watched); a key of ``spec`` is
+    every run's default. Each record holds the attention kernels'
+    launches over the run's steps and, on a card, the rank's peak
+    memory. A run with
     ``expect_error`` brings back the ``ValueError`` the step factory
     raised (or None); a run with ``mesh_fn`` (a name in ``launch.mesh``
     and its ``mesh_kw``) only builds that mesh and brings back the
     ``ValueError`` it raised (or None)."""
     from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.distributed.meshes import make_mesh
-    from repro_torch.distributed.sharding import (P, auto_rules, shard_tree,
-                                                  unshard)
+    from repro_torch.distributed.sharding import (P, _pairs, auto_rules,
+                                                  shard_tree, unshard)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import mesh as launch_mesh
     from repro_torch.models import build_model
@@ -224,12 +231,19 @@ def train_rank(spec: dict) -> list[dict]:
                            global_batch=len(batches[0]["tokens"]))
         opt = _optimizer(run["optimizer"])
         specs = {k: P("data", None) for k in batches[0]}
+        kept = []
+
+        def keep_first(grads):
+            if not kept:
+                kept.append(tree_map(torch.clone, grads))
+
         try:
             step, sh = make_sharded_train_step(
                 model, opt, mesh, rules=rules, zero1=run.get("zero1", True),
                 grad_accum=run.get("grad_accum", 1),
                 deterministic=run.get("deterministic", True),
-                batch_specs=specs)
+                batch_specs=specs,
+                on_grads=keep_first if run.get("grads") else None)
         except ValueError as e:
             if not run.get("expect_error"):
                 raise
@@ -244,6 +258,17 @@ def train_rank(spec: dict) -> list[dict]:
         else:
             full = _tensors(run["params"], mesh.device)
         params = shard_tree(full, sh["params"])
+        roundtrip = None
+        if run.get("roundtrip"):
+            # every leaf's pieces, of the params and of the moments,
+            # gathered back bit for bit
+            roundtrip = all(
+                torch.equal(a, b)
+                for tree in (sh["params"], sh["opt"]["mu"])
+                for a, b in zip(tree_leaves(unshard(shard_tree(full, tree),
+                                                    tree)),
+                                tree_leaves(_pairs(full, tree,
+                                                   lambda t, _: t))))
         del full
         opt_state = init_opt_state(opt, params, sh)
         census = []
@@ -273,7 +298,8 @@ def train_rank(spec: dict) -> list[dict]:
             torch.cuda.synchronize(mesh.device)
             torch.cuda.reset_peak_memory_stats(mesh.device)
         launches = dict(fa.LAUNCHES)
-        hist = trainer.run()
+        with _watched_routes(run.get("routes")) as routes:
+            hist = trainer.run()
         if scratch is not None:
             scratch.cleanup()
         rec = {"rank": mesh.rank, "coord": mesh.named_coord,
@@ -287,6 +313,14 @@ def train_rank(spec: dict) -> list[dict]:
                                 for t in tree_leaves(trainer.params)],
                "moment_shapes": [tuple(t.shape) for t in
                                  tree_leaves(trainer.opt_state["mu"])]}
+        if run.get("routes"):
+            rec["routes"] = routes
+        if roundtrip is not None:
+            rec["roundtrip"] = roundtrip
+        if kept:
+            full = unshard(kept[0], sh["opt"]["mu"])
+            if mesh.rank == 0:
+                rec["grads"] = tree_map(lambda t: t.cpu().numpy(), full)
         if run.get("gather"):
             full = unshard(trainer.params, sh["params"])
             if mesh.rank == 0:
@@ -294,6 +328,28 @@ def train_rank(spec: dict) -> list[dict]:
                                        full)
         out.append(rec)
     return out
+
+
+@contextlib.contextmanager
+def _watched_routes(on: bool):
+    """While on, every ``moe._route`` call's top-k experts (numpy) into
+    the yielded list."""
+    from repro_torch.models import moe
+
+    seen: list = []
+    route = moe._route
+
+    def watch(logits, k):
+        out = route(logits, k)
+        seen.append(out[0].cpu().numpy())
+        return out
+
+    if on:
+        moe._route = watch
+    try:
+        yield seen
+    finally:
+        moe._route = route
 
 
 def train(spec: dict, world: int, *, threads: int | None = 1) -> list:

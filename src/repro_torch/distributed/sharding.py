@@ -60,6 +60,41 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
+class Pieces(str):
+    """A spec entry for a dim stored by piece (the SSM's head-group layout,
+    ``models.ssm.ssm_specs``): the dim is the segments of ``sizes`` in
+    order (the reference's layout of the full array); a rank holds its
+    contiguous part of each segment marked ``cut`` and every other segment
+    whole, in the same order. The entry is the axis name itself (a str:
+    the logical spec equals the reference's, and the rule table maps it as
+    it maps the name); ``resolve_spec`` carries the segments over to the
+    physical axis. A whole segment is held on every rank of the axis, so
+    its gradient must be whole there too (the model sums each rank's part,
+    ``comm.copy_parts_to_group``)."""
+
+    sizes: tuple[int, ...]
+    cut: tuple[bool, ...]
+
+    def __new__(cls, axis: str, sizes, cut):
+        if len(sizes) != len(cut):
+            raise ValueError(f"{len(sizes)} segments, {len(cut)} cut flags")
+        obj = super().__new__(cls, axis)
+        obj.sizes, obj.cut = tuple(sizes), tuple(cut)
+        return obj
+
+    def __reduce__(self):
+        return Pieces, (str(self), self.sizes, self.cut)
+
+    def __repr__(self) -> str:
+        segs = ", ".join(f"{n}{'' if c else ' whole'}"
+                         for n, c in zip(self.sizes, self.cut))
+        return f"{str(self)!r}[{segs}]"
+
+    def local_sizes(self, n: int) -> tuple[int, ...]:
+        """The segments' sizes on a rank of an axis of ``n`` ranks."""
+        return tuple(s // n if c else s for s, c in zip(self.sizes, self.cut))
+
+
 def tp_serve_rules() -> dict[str, Any]:
     """The tensor-parallel serving table (DESIGN.md §13): heads and the FFN
     hidden dim over "tp", nothing else. The page pool shards over heads
@@ -96,6 +131,74 @@ def expected_sp_prefill_census(traced_layers: int, *, sp: int = 1,
     return census
 
 
+def train_cuts(cfg, shape: Mapping[str, int],
+               rules: Mapping[str, Any]) -> dict[str, bool]:
+    """What a sharded train step cuts over a "model" axis of more than one
+    rank: the attention heads, a dense MLP's hidden dim (``ff``), the
+    vocab, the MoE's experts and the SSM by head group (``ssm``), each
+    where the rules put its logical axis on "model" and the config has
+    it."""
+    m = shape.get("model", 1)
+
+    def cut(axis):
+        return m > 1 and rules.get(axis) == "model"
+
+    return {"heads": cut("heads") and cfg.num_heads > 0,
+            "ff": cut("ff") and cfg.family != "moe" and cfg.d_ff > 0,
+            "vocab": cut("vocab"),
+            "experts": cut("expert") and cfg.family == "moe",
+            "ssm": cut("ssm_ff") and cfg.ssm_state > 0}
+
+
+def _block_census(cfg, cuts, m: int, D: int, *, encoder: bool):
+    """(forward collectives, backward collectives, the forward's tail) of
+    one block of a rank's training model: kind -> count, the tail being
+    what the block's forward runs after its last saved tensor (which
+    ``torch.utils.checkpoint``'s early stop does not run again)."""
+    fwd: dict[str, int] = {}
+    bwd: dict[str, int] = {}
+    tail: dict[str, int] = {}
+
+    def add(tree, kind, n):
+        if n:
+            tree[kind] = tree.get(kind, 0) + n
+
+    kv_split = cuts["heads"] and cfg.num_kv_heads % m != 0
+    attn = cfg.family != "ssm" or encoder
+    ssm = not encoder and (cfg.family == "ssm" or cfg.hybrid)
+    cross = not encoder and cfg.num_encoder_layers > 0
+    ffn = ("moe" if cfg.family == "moe" and not encoder
+           else "mlp" if cfg.d_ff > 0 else None)
+    for on, inputs in ((attn, 1), (cross, 2)):
+        if on and cuts["heads"]:
+            # the input copies (a cross-attention's decoder and encoder
+            # streams), wo's sum, the qk-norm scales' copies, a cut kv
+            # head's gathers
+            add(fwd, "all_reduce", 1)
+            add(fwd, "all_gather", 2 * kv_split)
+            add(bwd, "all_reduce", inputs + 2 * cfg.qk_norm)
+            add(bwd, "reduce_scatter", 2 * kv_split)
+    if ssm and cuts["ssm"]:
+        # the gated norm's sum of squares (both ways), out_proj's sum; the
+        # input copy and the whole pieces' copy backward
+        add(fwd, "all_reduce", 2)
+        add(bwd, "all_reduce", 3)
+        if ffn is None:
+            add(tail, "all_reduce", 1)
+    if ffn == "moe":
+        add(fwd, "all_reduce", D > 1)        # the routing fractions
+        if cuts["experts"]:
+            # y's sum; the copies of the input and the routing weights
+            add(fwd, "all_reduce", 1)
+            add(bwd, "all_reduce", 2)
+            add(tail, "all_reduce", 1)
+    elif ffn == "mlp" and cuts["ff"]:
+        add(fwd, "all_reduce", 1)
+        add(bwd, "all_reduce", 1)
+        add(tail, "all_reduce", 1)
+    return fwd, bwd, tail
+
+
 def expected_train_census(cfg, shape: Mapping[str, int],
                           rules: Mapping[str, Any], *, zero1: bool,
                           cut_leaves: bool = True, whole_leaves: bool = False,
@@ -107,46 +210,51 @@ def expected_train_census(cfg, shape: Mapping[str, int],
     ``whole_leaves``: some moment leaf is / is not cut by ZeRO-1;
     ``stacked``: the optimizer sums trust ratios (LAMB).
 
-    Per microbatch, at a "model" axis m > 1: each layer with its heads cut
-    one ``all_reduce`` forward (``wo``) and one backward (its input), two
-    more backward with qk-norm (the scales), and where a kv head is cut
-    two ``all_gather`` forward and two ``reduce_scatter`` backward; each
-    layer with its FFN cut one ``all_reduce`` each way; a cut vocab one
-    ``all_reduce`` for the embedding, one backward for the logits' input,
-    an ``all_reduce_max`` and two ``all_reduce`` for the softmax. With
-    ``cfg.remat`` the backward recomputes each layer's forward up to the
-    last tensor it saves (``torch.utils.checkpoint``'s early stop): the
-    attention's collectives run again (its output feeds the MLP's norm),
-    the MLP's ``w_down`` sum does not (its output only joins the residual
-    stream). At a data size D > 1: one ``all_reduce`` of the token count
-    and one for each MoE layer's routing fractions (again under remat).
-    Per step: at D > 1 one ``all_reduce`` of the metrics, the gradients'
-    sum (one ``all_reduce``, or under ZeRO-1 a ``reduce_scatter`` onto the
+    Per microbatch, each block (an encoder's too) at a "model" axis m > 1
+    (``train_cuts``): an attention with its heads cut one ``all_reduce``
+    forward (``wo``) and one backward a stream it reads (the input; a
+    cross-attention's encoder stream too), two more backward with
+    qk-norm (the scales), and where a kv head is cut two ``all_gather``
+    forward and two ``reduce_scatter`` backward; an MLP with its FFN cut
+    one ``all_reduce`` each way; an MoE with its experts cut one forward
+    (the combine's sum) and two backward (the input and the routing
+    weights); an SSM cut by head group two forward (the gated norm's sum
+    of squares, ``out_proj``) and three backward (the sum of squares, the
+    input, the whole pieces). A cut vocab adds one ``all_reduce`` for the
+    embedding, one backward for the logits' input, an ``all_reduce_max``
+    and two ``all_reduce`` for the softmax. With ``cfg.remat`` the
+    backward recomputes each block's forward up to the last tensor it
+    saves (``torch.utils.checkpoint``'s early stop): every forward
+    collective runs again except the block's tail, the sum of its FFN's
+    output (an MLP's ``w_down``, the MoE's combine) or, in a block with
+    no FFN, of its SSM's ``out_proj`` (their outputs only join the
+    residual stream). At a data size D > 1: one ``all_reduce`` of the
+    token count and one for each MoE block's routing fractions. Per
+    step: at D > 1 one ``all_reduce`` of the metrics, the gradients' sum
+    (one ``all_reduce``, or under ZeRO-1 a ``reduce_scatter`` onto the
     cut leaves and an ``all_reduce`` of the whole ones) and the
     ``all_gather`` of the updated slices; over a mesh of more than one
-    rank one ``all_reduce`` for the global norm and, for LAMB, one for its
-    sums."""
+    rank one ``all_reduce`` for the global norm and, for LAMB, one for
+    its sums."""
     census: dict[str, int] = {}
 
     def add(kind, n):
         if n:
             census[kind] = census.get(kind, 0) + n
 
-    m = shape.get("model", 1)
     D = math.prod(shape.get(a, 1) for a in ("pod", "data"))
     world = math.prod(shape.values())
-    heads = m > 1 and rules.get("heads") == "model"
-    ff = m > 1 and rules.get("ff") == "model"
-    vocab = m > 1 and rules.get("vocab") == "model"
-    kv_split = heads and cfg.num_kv_heads % m != 0
-    L = cfg.num_layers
-    attn_fwd = L * (2 if cfg.remat else 1)    # the attention forwards a step
-    moe_fwd = attn_fwd if cfg.family == "moe" else 0
-    add("all_reduce", grad_accum * (
-        (attn_fwd + L * (1 + 2 * cfg.qk_norm)) * heads + 2 * L * ff
-        + 4 * vocab + (D > 1) * (1 + moe_fwd)))
-    add("all_gather", grad_accum * 2 * attn_fwd * kv_split)
-    add("reduce_scatter", grad_accum * 2 * L * kv_split)
+    cuts = train_cuts(cfg, shape, rules)
+    for encoder, layers in ((False, cfg.num_layers),
+                            (True, cfg.num_encoder_layers)):
+        fwd, bwd, tail = _block_census(cfg, cuts, shape.get("model", 1), D,
+                                       encoder=encoder)
+        for kind in set(fwd) | set(bwd):
+            again = (fwd.get(kind, 0) - tail.get(kind, 0)) * cfg.remat
+            add(kind, grad_accum * layers * (fwd.get(kind, 0) + again
+                                             + bwd.get(kind, 0)))
+    vocab = cuts["vocab"]
+    add("all_reduce", grad_accum * (4 * vocab + (D > 1)))
     add("all_reduce_max", grad_accum * vocab)
     if D > 1:
         add("all_reduce", 1 + (whole_leaves or not zero1))
@@ -229,6 +337,11 @@ def resolve_spec(logical, rules: Mapping[str, Any]) -> PartitionSpec:
             phys.extend(r if isinstance(r, tuple) else (r,))
         if not phys:
             out.append(None)
+        elif isinstance(entry, Pieces):
+            if len(phys) != 1:
+                raise ValueError(f"a dim stored by piece is cut over one "
+                                 f"mesh axis; {entry!r} resolves to {phys}")
+            out.append(Pieces(phys[0], entry.sizes, entry.cut))
         elif len(phys) == 1:
             out.append(phys[0])
         else:
@@ -263,6 +376,15 @@ def validate_divisibility(shapes_tree, specs_tree, mesh,
                 continue
             names = entry if isinstance(entry, tuple) else (entry,)
             n = math.prod(axes[a] for a in names)
+            if isinstance(entry, Pieces):
+                bad = [s for s, c in zip(entry.sizes, entry.cut)
+                       if c and s % n]
+                if sum(entry.sizes) != dim or bad:
+                    problems.append(
+                        f"{path}: shape {shape} spec {phys} — dim[{i}]={dim}"
+                        f" stored by piece: its cut segments do not divide "
+                        f"by mesh axes {names} (size {n})")
+                continue
             if dim % n != 0:
                 problems.append(
                     f"{path}: shape {shape} spec {phys} — dim[{i}]={dim} "
@@ -281,13 +403,15 @@ class NamedSharding:
     """A leaf laid out on a mesh by a physical spec (the reference's
     ``NamedSharding``): every dim whose entry names mesh axes is cut into
     that many contiguous pieces, indexed row-major over the axes, and a
-    rank holds the piece at its coordinate. ``mesh`` is a
-    ``meshes.Mesh`` (or, to ``shard`` only, a ``ServeMesh``)."""
+    rank holds the piece at its coordinate; a dim whose entry is a
+    ``Pieces`` is cut segment by segment (its whole segments kept).
+    ``mesh`` is a ``meshes.Mesh`` (or, to ``shard`` only, a
+    ``ServeMesh``)."""
     mesh: Any
     spec: PartitionSpec
 
     def _cuts(self):
-        """(dim, pieces, this rank's piece) of every sharded dim."""
+        """(dim, entry, pieces, this rank's piece) of every sharded dim."""
         axes = self.mesh.shape
         coord = (self.mesh.named_coord if hasattr(self.mesh, "named_coord")
                  else dict(zip(axes, self.mesh.coord)))
@@ -297,7 +421,7 @@ class NamedSharding:
             n, idx = 1, 0
             for a in _names(entry):
                 n, idx = n * axes[a], idx * axes[a] + coord[a]
-            yield i, n, idx
+            yield i, entry, n, idx
 
     @property
     def axes(self) -> set[str]:
@@ -306,15 +430,40 @@ class NamedSharding:
 
     def replicas(self) -> int:
         """How many ranks hold each piece: the product of the mesh axes the
-        leaf is not cut over."""
+        leaf is not cut over (a ``Pieces`` dim's whole segments are held
+        on that many times its axis's ranks: ``share``)."""
         return math.prod(n for a, n in self.mesh.shape.items()
                          if a not in self.axes)
+
+    def share(self, ndim: int):
+        """Each element's share of a sum over every rank's piece that
+        counts each element of the full array once: 1 / the ranks holding
+        it. A float, or where a ``Pieces`` dim holds whole segments a
+        tensor broadcasting along that dim of a piece of ``ndim`` dims (the
+        leaf's own; a leading layer axis in front broadcasts too)."""
+        out = 1.0 / self.replicas()
+        for i, entry, n, _ in self._cuts():
+            if isinstance(entry, Pieces) and not all(entry.cut):
+                w = torch.cat([torch.full((size,), 1.0 if c else 1.0 / n)
+                               for size, c in zip(entry.local_sizes(n),
+                                                  entry.cut)])
+                shape = [1] * ndim
+                shape[i] = -1
+                out = out * w.view(shape)
+        return out
 
     def shard(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's piece of a full array (a contiguous copy, so that the
         full array can be freed; a leaf cut over no axis as it is)."""
         out = full
-        for i, n, idx in self._cuts():
+        for i, entry, n, idx in self._cuts():
+            if isinstance(entry, Pieces):
+                segs = out.split(list(entry.sizes), dim=i)
+                out = torch.cat([
+                    seg.narrow(i, idx * (size // n), size // n) if c else seg
+                    for seg, size, c in zip(segs, entry.sizes, entry.cut)],
+                    dim=i)
+                continue
             if full.shape[i] % n:
                 raise ValueError(f"dim {i} of {tuple(full.shape)} does not "
                                  f"divide into {n} pieces ({self.spec})")
@@ -325,11 +474,34 @@ class NamedSharding:
 
     def gather(self, piece: torch.Tensor) -> torch.Tensor:
         """The full array from every rank's piece (one ``all_gather`` a
-        sharded dim, over the group of its axes)."""
+        sharded dim, over the group of its axes; a ``Pieces`` dim gathers
+        its cut segments in one call and keeps its whole ones)."""
         out = piece
         for i, entry in enumerate(self.spec):
-            if entry is not None:
-                out = comm.all_gather(out, self.mesh.group(_names(entry)), i)
+            if entry is None:
+                continue
+            group = self.mesh.group(_names(entry))
+            if not isinstance(entry, Pieces):
+                out = comm.all_gather(out, group, i)
+                continue
+            n = group.size
+            local = entry.local_sizes(n)
+            segs = out.split(list(local), dim=i)
+            cut = [seg for seg, c in zip(segs, entry.cut) if c]
+            if not cut:
+                continue
+            every = comm.all_gather(torch.cat(cut, dim=i), group, i)
+            ranks = every.chunk(n, dim=i)
+            sizes = [size for size, c in zip(local, entry.cut) if c]
+            parts = [r.split(sizes, dim=i) for r in ranks]
+            full, k = [], 0
+            for seg, c in zip(segs, entry.cut):
+                if c:
+                    full.append(torch.cat([p[k] for p in parts], dim=i))
+                    k += 1
+                else:
+                    full.append(seg)
+            out = torch.cat(full, dim=i)
         return out
 
 
@@ -337,11 +509,12 @@ class NamedSharding:
 class TrainShard:
     """What one rank's training model reads of its mesh (the sharded train
     step builds it, ``train.steps.make_sharded_train_step``): the "model"
-    group and the logical axes cut over it (``heads``, ``ff``, ``vocab``:
-    those the rules put on "model", at a "model" axis of more than one
-    rank), the global head and vocab counts, the data group and whether
-    the batch rows are cut over it (a replicated batch is the same rows on
-    every data rank)."""
+    group and what is cut over it, at a "model" axis of more than one rank
+    (``heads``, ``ff``, ``vocab``, ``experts``: those the rules put on
+    "model"; ``ssm``: the SSM by head group, where the rules keep
+    "ssm_ff"), the global head, vocab, expert and SSM head counts, the
+    data group and whether the batch rows are cut over it (a replicated
+    batch is the same rows on every data rank)."""
     model: Any
     data: Any
     heads: bool
@@ -351,6 +524,10 @@ class TrainShard:
     num_kv_heads: int
     vocab_size: int
     batch_sharded: bool
+    experts: bool = False
+    num_experts: int = 0
+    ssm: bool = False
+    ssm_num_heads: int = 0
 
     @property
     def kv_split(self) -> bool:
@@ -364,6 +541,25 @@ class TrainShard:
         """This rank's first q head in the global count."""
         return (self.model.index * (self.num_heads // self.model.size)
                 if self.heads else 0)
+
+    @property
+    def expert_range(self) -> tuple[int, int]:
+        """This rank's experts [first, last) of the global count: its
+        contiguous part, the reference's "expert" cut (all of them where
+        the experts are not cut)."""
+        if not self.experts:
+            return 0, self.num_experts
+        n = self.num_experts // self.model.size
+        return self.model.index * n, (self.model.index + 1) * n
+
+    @property
+    def ssm_head_range(self) -> tuple[int, int]:
+        """This rank's SSM heads [first, last) (all of them where the SSM
+        is not cut)."""
+        if not self.ssm:
+            return 0, self.ssm_num_heads
+        n = self.ssm_num_heads // self.model.size
+        return self.model.index * n, (self.model.index + 1) * n
 
     def batch_offset(self, rows: int) -> int:
         """This rank's first row of a global batch of which it holds

@@ -17,8 +17,9 @@ audio frames that ``SyntheticLM`` does not make), with one difference:
 without ``--reduced`` the PUBLISHED config is built at full width and
 depth (random weights from ``--seed``). ``--data`` / ``--model`` above 1
 train sharded (``train.steps.make_sharded_train_step``: the batch rows
-over "data", heads, FFN and vocab over "model" through ``auto_rules``,
-ZeRO-1): the launcher spawns ``data * model`` ranks
+over "data", heads, FFN, vocab, the MoE's experts and the SSM's head
+groups over "model" through ``auto_rules``, ZeRO-1; every arch the
+launcher takes, the MoE, SSM and hybrid ones included): the launcher spawns ``data * model`` ranks
 (``distributed.launch.spawn``), each building the same weights from
 ``--seed``, keeping its pieces and stepping on the same batches over one
 ``("data", "model")`` mesh; rank 0 prints; checkpoints hold full arrays
@@ -81,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--data", type=int, default=1,
                     help="data-parallel ranks (the batch rows, ZeRO-1)")
     ap.add_argument("--model", type=int, default=1,
-                    help="tensor-parallel ranks (heads, FFN, vocab)")
+                    help="tensor-parallel ranks (heads, FFN, vocab, "
+                         "experts, SSM head groups)")
     ap.add_argument("--backend", default="gloo", choices=("gloo", "nccl"),
                     help="gloo: ranks on --device (may share a card); "
                          "nccl: rank r on cuda:r")

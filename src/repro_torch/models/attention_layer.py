@@ -26,7 +26,8 @@ Tensor-parallel TRAINING (a ``distributed.sharding.TrainShard`` passed as
 ``shard`` to ``apply_attention``, with heads cut over its "model" group)
 puts Megatron's pair around the layer: ``comm.copy_to_group`` on the
 input (each rank's q/k/v columns give a partial input gradient, summed in
-the backward) and on the replicated qk-norm scales, and
+the backward; a cross-attention's encoder stream too) and on the
+replicated qk-norm scales, and
 ``comm.reduce_from_group`` on the output projection (a sum forward, the
 identity backward). Where a kv head is cut across ranks (fewer kv heads
 than ranks), each rank's K/V columns are gathered
@@ -201,6 +202,8 @@ def apply_attention(params, cfg: ModelConfig, x, *,
     tp = shard is not None and shard.heads
     if tp:
         x = comm.copy_to_group(x, shard.model)
+        if cross:
+            kv_x = comm.copy_to_group(kv_x, shard.model)
     q, k, v = _project_qkv(params, cfg, x, kv_x if cross else x, rope, rope,
                            shard if tp else None)
     spec = spec or attn_spec_from_config(cfg)

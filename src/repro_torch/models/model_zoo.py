@@ -43,8 +43,11 @@ run the collectives of DESIGN.md §13-§14 over that mesh (the serving
 engine builds it). A ``Model`` built with a ``shard``
 (``distributed.sharding.TrainShard``) is one rank's view of a sharded
 training step (``train.steps.make_sharded_train_step`` builds it): its
-config holds the rank's head and d_ff counts; ``forward`` runs the
-tensor-parallel blocks, a vocab-sharded embedding (a masked lookup of
+config holds the rank's head, d_ff and expert counts (the SSM reads its
+head group off the shard); ``forward`` runs the tensor-parallel blocks
+(every family's: the MoE's experts, the SSM's head groups, an encoder's
+and a cross-attention's heads; ``frontend_proj`` stays replicated, its
+gradient whole on every rank), a vocab-sharded embedding (a masked lookup of
 the rank's rows, summed over "model") and logits (the rank's vocab
 columns, tied or not), and ``loss`` the cross-entropy over the global
 softmax (the max and the sum of exponentials over "model") in a form

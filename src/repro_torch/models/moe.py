@@ -22,6 +22,21 @@ and uses no atomics, so two calls on the card are bit-identical; no step
 reads a value back to the host, so the layer never waits on the card.
 
 The Switch-Transformer load-balancing loss is returned beside the output.
+
+Expert parallelism (a ``TrainShard`` with ``experts`` set; the rank's
+config holds its E/m experts) keeps the routing whole on every rank: the
+float32 router is replicated and the routes and dispatch maps are taken
+over all E experts, so they are the reference's bit for bit. A rank
+gathers only its experts' slots (its contiguous range of the buffer),
+runs its experts, and the combine reads a zero row for every slot of
+another rank's expert; the partial outputs are summed over "model". The
+batch rows are cut over "data" only, so no all-to-all is needed:
+Megatron's pair, ``copy_to_group`` on the input of the dispatch and on
+the routing weights before the combine, ``reduce_from_group`` on the
+output. The router itself reads the uncopied input: its gradient (the
+combine's through the copied weights, plus the load-balancing loss's,
+which every rank computes whole) is whole on every rank and is never
+summed again.
 """
 
 from __future__ import annotations
@@ -82,10 +97,12 @@ def load_balance_loss(probs, idx, num_experts: int, data=None):
     return num_experts * torch.sum(f * p) / data.size
 
 
-def capacity(cfg: ModelConfig, s: int) -> int:
+def capacity(cfg: ModelConfig, s: int, num_experts: int | None = None) -> int:
     """Expert buffer rows per sequence row of ``s`` tokens (a Python value
-    of static shapes, as in the reference)."""
-    k, e = cfg.num_experts_per_token, cfg.num_experts
+    of static shapes, as in the reference) over ``num_experts`` (default
+    the config's)."""
+    k = cfg.num_experts_per_token
+    e = num_experts or cfg.num_experts
     return max(int(cfg.moe_capacity_factor * s * k / e + 0.999), 1)
 
 
@@ -151,16 +168,35 @@ def dispatch_maps(idx, e: int, cap: int):
     return slot_src, entry_of_slot, slot_of_entry
 
 
+def _local_slots(slot_src, slot_of_entry, entry_of_slot, lo: int, hi: int,
+                 cap: int):
+    """The maps of ``dispatch_maps`` cut to the buffer slots of experts
+    [lo, hi): the slots' sources and entries, and each entry's slot among
+    them (the slot count, a zero row, where it lies on another rank or
+    was dropped)."""
+    first, rows = lo * cap, (hi - lo) * cap
+    local = slot_of_entry - first
+    local = torch.where((local >= 0) & (local < rows), local, rows)
+    return (slot_src[:, first:first + rows], local,
+            entry_of_slot[:, first:first + rows])
+
+
 def apply_moe(params, cfg: ModelConfig, x, *, mode: str = "capacity",
-              data=None):
+              data=None, shard=None):
     """x (b, s, d) -> (y (b, s, d), aux_loss); ``data``: the data group of
-    a sharded step (``load_balance_loss``)."""
-    e, k = cfg.num_experts, cfg.num_experts_per_token
+    a sharded step (``load_balance_loss``); ``shard``: a rank's experts
+    of an expert-parallel training step (module docstring)."""
+    ep = shard is not None and shard.experts
+    e = shard.num_experts if ep else cfg.num_experts
+    k = cfg.num_experts_per_token
     logits = x @ params["router"].to(x.dtype)                        # (b, s, e)
     idx, weights, probs = _route(logits, k)
     aux = load_balance_loss(probs, idx, e, data)
 
     if mode == "dense":
+        if ep:
+            raise ValueError("the dense MoE oracle runs every expert; an "
+                             "expert-parallel rank holds only its own")
         h_g = torch.einsum("bsd,edf->besf", x, params["w_gate"])
         h_u = torch.einsum("bsd,edf->besf", x, params["w_up"])
         y_e = torch.einsum("besf,efd->besd", F.silu(h_g) * h_u,
@@ -173,15 +209,25 @@ def apply_moe(params, cfg: ModelConfig, x, *, mode: str = "capacity",
         raise ValueError(f"unknown MoE mode {mode!r}")
 
     b, s, d = x.shape
-    cap = capacity(cfg, s)
+    cap = capacity(cfg, s, e)
     slot_src, entry_of_slot, slot_of_entry = dispatch_maps(idx, e, cap)
+    if ep:
+        lo, hi = shard.expert_range
+        slot_src, slot_of_entry, entry_of_slot = _local_slots(
+            slot_src, slot_of_entry, entry_of_slot, lo, hi, cap)
+        x = comm.copy_to_group(x, shard.model)
+        weights = comm.copy_to_group(weights, shard.model)
+        e = hi - lo
     buf = _TakeRows.apply(x, slot_src, slot_of_entry, k)             # (b,e*cap,d)
     buf = buf.view(b, e, cap, d)
     h = F.silu(torch.einsum("becd,edf->becf", buf, params["w_gate"]))
     h = h * torch.einsum("becd,edf->becf", buf, params["w_up"])
     out = torch.einsum("becf,efd->becd", h, params["w_down"])
-    # combine: each (token, choice) reads its slot (a zero row if dropped)
+    # combine: each (token, choice) reads its slot (a zero row if dropped,
+    # or, under expert parallelism, held by another rank)
     contrib = _TakeRows.apply(out.reshape(b, e * cap, d), slot_of_entry,
                               entry_of_slot, 1)                      # (b,s*k,d)
     y = (contrib.view(b, s, k, d) * weights.to(x.dtype)[..., None]).sum(2)
+    if ep:
+        y = comm.reduce_from_group(y, shard.model)
     return y, aux

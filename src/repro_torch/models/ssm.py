@@ -16,6 +16,20 @@ two explicit steps, so that no (Q, Q, h, p) intermediate is formed.
 
 Decode carries (ssm_state (b, h, p, n) float32, conv_state (b, w-1,
 conv_ch)) and updates both in place.
+
+Tensor-parallel training (a ``TrainShard`` with ``ssm`` set) cuts the
+layer by SSM head group, Megatron's cut with one group of B and C: a rank
+holds its heads' columns of z, x and dt in ``in_proj`` and the whole B
+and C columns, its heads' x channels and the whole B and C channels in
+the conv, its channels of ``norm_w`` and rows of ``out_proj``, and reads
+``A_log``, ``D`` and ``dt_bias`` (replicated) at its heads
+(``ssm_specs``' ``Pieces``; the reference cuts ``in_proj``'s columns
+contiguously, which crosses the z | x | B | C | dt boundaries). Its input
+enters through ``copy_to_group``, the pieces every rank holds whole
+through ``copy_parts_to_group`` (each rank's gradient of them covers only
+its heads), the gated norm's sum of squares over the whole d_inner is
+summed both ways (``sum_over_group``), and ``out_proj``'s partial rows
+end in ``reduce_from_group``.
 """
 
 from __future__ import annotations
@@ -24,15 +38,22 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import P
+from repro_torch.distributed import comm
+from repro_torch.distributed.sharding import P, Pieces
 from repro_torch.models.layers import dense_init, rms_normalize
 
 
-def _dims(cfg: ModelConfig):
+def _dims(cfg: ModelConfig, shard=None):
+    """(d_inner, heads, head dim, state, conv channels): the whole
+    layer's, or a head-group rank's (``shard.ssm``)."""
     d_inner = cfg.ssm_d_inner
     nheads = cfg.ssm_num_heads
     p = cfg.ssm_head_dim
     n = cfg.ssm_state
+    if shard is not None and shard.ssm:
+        lo, hi = shard.ssm_head_range
+        nheads = hi - lo
+        d_inner = nheads * p
     conv_ch = d_inner + 2 * n          # x, B, C go through the conv
     return d_inner, nheads, p, n, conv_ch
 
@@ -61,17 +82,43 @@ def init_ssm(cfg: ModelConfig, dtype, *, generator, device):
 
 
 def ssm_specs(cfg: ModelConfig):
-    # "ssm_ff": the SSM projection widths (2 d_inner + 2n + nheads) do not
-    # always divide by tp, and ``auto_rules`` demotes only this axis
-    return {"in_proj": P("embed", "ssm_ff"), "conv_w": P(None, "ssm_ff"),
-            "conv_b": P("ssm_ff"), "A_log": P(None), "D": P(None),
+    """The reference's specs ("ssm_ff": the SSM projection widths, 2
+    d_inner + 2n + nheads, do not always divide by tp, and ``auto_rules``
+    demotes only this axis), whose "ssm_ff" entries of ``in_proj``,
+    ``conv_w`` and ``conv_b`` are ``Pieces``: cut by head group, B and C
+    whole (module docstring)."""
+    d_inner, nheads, _, n, _ = _dims(cfg)
+    proj = Pieces("ssm_ff", (d_inner, d_inner, n, n, nheads),
+                  (True, True, False, False, True))
+    conv = Pieces("ssm_ff", (d_inner, 2 * n), (True, False))
+    return {"in_proj": P("embed", proj), "conv_w": P(None, conv),
+            "conv_b": P(conv), "A_log": P(None), "D": P(None),
             "dt_bias": P(None), "norm_w": P("ssm_ff"),
             "out_proj": P("ssm_ff", "embed")}
 
 
-def _split_proj(cfg: ModelConfig, proj):
-    d_inner, nheads, p, n, _ = _dims(cfg)
+def _split_proj(cfg: ModelConfig, proj, shard=None):
+    d_inner, nheads, p, n, _ = _dims(cfg, shard)
     return torch.split(proj, [d_inner, d_inner, n, n, nheads], dim=-1)
+
+
+def _head_group(params, cfg: ModelConfig, shard):
+    """A head-group rank's view of the layer's params: ``in_proj``,
+    ``conv_w`` and ``conv_b`` through ``copy_parts_to_group`` (their whole
+    B and C parts), ``A_log``, ``D`` and ``dt_bias`` too (whole), then
+    read at the rank's heads."""
+    d_inner, _, _, n, _ = _dims(cfg, shard)
+    lo, hi = shard.ssm_head_range
+    bc = [(2 * d_inner, 2 * n)]
+    names = ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias")
+    parts = [(1, bc), (1, [(d_inner, 2 * n)]), (0, [(d_inner, 2 * n)])]
+    parts += [(0, [(0, cfg.ssm_num_heads)])] * 3
+    views = comm.copy_parts_to_group([params[k] for k in names], parts,
+                                     shard.model)
+    out = dict(params, **dict(zip(names, views)))
+    for k in ("A_log", "D", "dt_bias"):
+        out[k] = out[k][lo:hi]
+    return out
 
 
 def _causal_conv(conv_in, w, b, width: int, fast: bool = False):
@@ -174,13 +221,21 @@ def ssd_chunked(x, dt, a_log_decay, b_in, c_in, chunk: int,
     return y
 
 
-def apply_ssm(params, cfg: ModelConfig, x, *, return_final_state: bool = False):
+def apply_ssm(params, cfg: ModelConfig, x, *, return_final_state: bool = False,
+              shard=None):
     """Full-sequence SSD. x: (b, s, d_model) -> (b, s, d_model)
-    [, the final state {"h", "conv"} for serving prefill]."""
-    d_inner, nheads, p, n, conv_ch = _dims(cfg)
+    [, the final state {"h", "conv"} for serving prefill]. ``shard``: a
+    rank's head group of a tensor-parallel training step (module
+    docstring; a ``TrainShard`` whose ``ssm`` is False runs the whole
+    layer)."""
+    tp = shard is not None and shard.ssm
+    d_inner, nheads, p, n, conv_ch = _dims(cfg, shard)
     bsz, s, _ = x.shape
+    if tp:
+        params = _head_group(params, cfg, shard)
+        x = comm.copy_to_group(x, shard.model)
     proj = x @ params["in_proj"]
-    z, xin, b_in, c_in, dt = _split_proj(cfg, proj)
+    z, xin, b_in, c_in, dt = _split_proj(cfg, proj, shard)
 
     conv_in = torch.cat([xin, b_in, c_in], dim=-1)
     conv_out = _causal_conv(conv_in, params["conv_w"], params["conv_b"],
@@ -199,14 +254,27 @@ def apply_ssm(params, cfg: ModelConfig, x, *, return_final_state: bool = False):
     y = y + params["D"][None, None, :, None] * xh.float()
     y = y.reshape(bsz, s, d_inner).to(x.dtype)
 
-    y = rms_normalize(y * F.silu(z)) * params["norm_w"]
-    out = y @ params["out_proj"]
+    if tp:
+        y = _sharded_rms_normalize(y * F.silu(z), cfg.ssm_d_inner,
+                                   shard.model) * params["norm_w"]
+        out = comm.reduce_from_group(y @ params["out_proj"], shard.model)
+    else:
+        y = rms_normalize(y * F.silu(z)) * params["norm_w"]
+        out = y @ params["out_proj"]
     if return_final_state:
         # the reference's slice: for s < w-1 the start is negative and
         # counts from the end (fewer than w-1 rows come back)
         w = cfg.ssm_conv_width
         return out, {"h": h_final, "conv": conv_in[:, s - (w - 1):, :]}
     return out
+
+
+def _sharded_rms_normalize(x, width: int, group, eps: float = 1e-6):
+    """``rms_normalize`` of channels cut over ``group`` (``width`` of them
+    in all): the sum of squares summed over the group both ways."""
+    xf = x.float()
+    ss = comm.sum_over_group((xf * xf).sum(dim=-1, keepdim=True), group)
+    return (xf * torch.rsqrt(ss / width + eps)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

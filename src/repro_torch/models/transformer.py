@@ -25,9 +25,10 @@ projections then sum over the tp group (``attention_layer._tp_reduce``),
 two collectives a layer. The training stack takes a ``TrainShard``
 (``shard``) under a sharded train step: the rank's heads and FFN columns
 with Megatron's ``copy_to_group`` / ``reduce_from_group`` pair around the
-attention and the MLP (``attention_layer``), the MoE's load-balancing
-statistics over the data group, and the global coordinates of the
-dropout hash. ``block_specs`` gives a block's logical sharding specs (the
+attention (self and cross, an encoder's too) and the MLP
+(``attention_layer``), the rank's experts (``moe``) and SSM head group
+(``ssm``) under their pairs, the MoE's load-balancing statistics over the
+data group, and the global coordinates of the dropout hash. ``block_specs`` gives a block's logical sharding specs (the
 reference's, without its stacked layer axis)."""
 
 from __future__ import annotations
@@ -112,14 +113,16 @@ def _ffn_residual(params: Params, cfg: ModelConfig, x, mesh=None,
     """x plus the block's MLP, or MoE, of its normalised self (x itself
     for a block with neither); under a mesh the MLP's ``w_down`` partial
     sums over the tp group, under a ``shard`` with the FFN cut over
-    "model" Megatron's pair runs around the MLP. Returns (x, aux): the
+    "model" Megatron's pair runs around the MLP, and with the experts cut
+    around the rank's experts (``moe.apply_moe``). Returns (x, aux): the
     MoE's load-balancing loss, or None (the serving stacks drop it)."""
     if "mlp_norm" not in params:
         return x, None
     h = apply_norm(params["mlp_norm"], x, cfg.norm_type)
     if "moe" in params:
         y, aux = moe_mod.apply_moe(params["moe"], cfg, h,
-                                   data=None if shard is None else shard.data)
+                                   data=None if shard is None else shard.data,
+                                   shard=shard)
         return x + y, aux
     if shard is not None and shard.ff:
         h = comm.copy_to_group(h, shard.model)
@@ -160,7 +163,7 @@ def apply_block(params: Params, cfg: ModelConfig, x, *, enc_out=None,
             window=cfg.window if causal_override else None)
     if cfg.family == "ssm":
         h = apply_norm(params["ssm_norm"], x, cfg.norm_type)
-        x = x + ssm_mod.apply_ssm(params["ssm"], cfg, h)
+        x = x + ssm_mod.apply_ssm(params["ssm"], cfg, h, shard=shard)
     else:
         h = apply_norm(params["attn_norm"], x, cfg.norm_type)
         a = attn_mod.apply_attention(params["attn"], cfg, h, spec=spec,
@@ -168,7 +171,10 @@ def apply_block(params: Params, cfg: ModelConfig, x, *, enc_out=None,
                                      deterministic=deterministic,
                                      dropout_seed=dropout_seed, shard=shard,
                                      batch_offset=batch_offset)
-        x = (_mix(x, a, ssm_mod.apply_ssm(params["ssm"], cfg, h))
+        # a replicated SSM takes h as it is: its input gradient is whole
+        # on every rank (only the attention's and a cut SSM's are parts)
+        x = (_mix(x, a, ssm_mod.apply_ssm(params["ssm"], cfg, h,
+                                          shard=shard))
              if cfg.hybrid else x + a)
     x = _cross_residual(params, cfg, x, enc_out, deterministic=deterministic,
                         shard=shard, batch_offset=batch_offset)

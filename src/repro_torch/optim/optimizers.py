@@ -30,10 +30,13 @@ class StackedUpdate(NamedTuple):
     """The update of leaves stacked on a leading layer axis, taken one
     layer at a time (the train step hands the optimizer one block at a
     time), for an optimizer whose update of a leaf depends on the whole
-    leaf (LAMB's trust ratio). ``moments(grads, state, params, sums)``
-    (pass 1, every layer) updates the layer's moments in place and adds
-    each leaf's statistics into ``sums`` (device tensors, one per leaf in
-    tree order; an empty list before the first layer); ``scales(state,
+    leaf (LAMB's trust ratio). ``moments(grads, state, params, sums,
+    shares=None)`` (pass 1, every layer) updates the layer's moments in
+    place and adds each leaf's statistics into ``sums`` (device tensors,
+    one per leaf in tree order; an empty list before the first layer),
+    each element counted by its share where ``shares`` gives one a leaf
+    (a float or a broadcasting tensor: a sharded rank's part of a sum
+    over the mesh); ``scales(state,
     sums)`` turns the whole stack's sums into one device tensor, a scale
     per leaf; ``update(state, params, scales)`` (pass 2, every layer) returns
     the layer's updates from the moments stored in pass 1. They take the
@@ -174,17 +177,23 @@ def lamb(lr: Callable[[torch.Tensor], torch.Tensor] | float,
         state["step"] = step
         return updates, state
 
-    def layer_moments(grads, state, params, sums):
-        """||p||² and ||r||² of each leaf of one layer, added into sums."""
+    def layer_moments(grads, state, params, sums, shares=None):
+        """||p||² and ||r||² of each leaf of one layer (each element times
+        its share, where given), added into sums."""
         _, _, b1c, b2c = consts(state)
         leaves = zip(tree_leaves(grads), tree_leaves(state["mu"]),
                      tree_leaves(state["nu"]), tree_leaves(params))
         for i, (g, m, v, p) in enumerate(leaves):
             _update_moments(g, m, v, b1, b2)
             r = direction(m, v, p, b1c, b2c)
-            sq = torch.stack([
-                torch.linalg.vector_norm(p, dtype=torch.float32),
-                torch.linalg.vector_norm(r)]).square()
+            w = 1.0 if shares is None else shares[i]
+            if isinstance(w, float):
+                sq = torch.stack([
+                    torch.linalg.vector_norm(p, dtype=torch.float32),
+                    torch.linalg.vector_norm(r)]).square() * w
+            else:
+                sq = torch.stack([(p.float().square() * w).sum(),
+                                  (r.square() * w).sum()])
             if i == len(sums):
                 sums.append(sq)
             else:

@@ -26,14 +26,17 @@ updates are the reference's.
 ``make_sharded_train_step`` is the port of the reference's pjit-sharded
 step as SPMD ranks over a ``distributed.meshes.Mesh`` (one process a
 shard, every rank running the same step): each rank holds its batch rows
-(the data axes), its head, FFN and vocab slices of the params (the
-"model" axis, through the rule table) and, under ZeRO-1, its slice of
-each moment (``distributed.zero``). The rank's forward and backward run
+(the data axes), its head, FFN, vocab, expert and SSM head-group slices
+of the params (the "model" axis, through the rule table; every family
+trains at "model" > 1) and, under ZeRO-1, its slice of each moment
+(``distributed.zero``). The rank's forward and backward run
 the model's tensor-parallel collectives (``Model`` with a ``TrainShard``);
 the gradients are then summed over the data axes, into the moment
 slices under ZeRO-1 (one ``reduce_scatter``), else everywhere (one
 ``all_reduce``), each in one flat fp32 buffer; clipping reads the global
-norm (one ``all_reduce`` over the mesh, each piece counted once); the
+norm (one ``all_reduce`` over the mesh, each element counted once: the
+pieces every rank of an axis holds, the SSM's whole B and C columns
+among them, divided by their holders, ``NamedSharding.share``); the
 rank updates its slice (LAMB's trust-ratio sums are one more
 ``all_reduce``) in place, and under ZeRO-1 the updated slices are
 all-gathered back (one ``all_gather``). Every result is the unsharded
@@ -53,7 +56,7 @@ from repro_torch.distributed.meshes import data_axis_names
 from repro_torch.distributed.sharding import (NamedSharding, P, TrainShard,
                                               _pairs, expected_train_census,
                                               resolve_spec, resolve_tree,
-                                              rules_for_mesh,
+                                              rules_for_mesh, train_cuts,
                                               validate_divisibility)
 from repro_torch.distributed.zero import (moment_shardings, param_slice,
                                           zero1_dim)
@@ -200,9 +203,6 @@ def make_train_step(model: Model, optimizer: Optimizer, *,
 # the sharded step
 # ---------------------------------------------------------------------------
 
-ROADMAP_QUEUE = "ROADMAP.md queue 1"
-
-
 @dataclasses.dataclass(frozen=True)
 class BatchSharding:
     """The batch on the mesh: its rows cut over the data axes (``axes``),
@@ -259,29 +259,24 @@ def _batch_sharding(mesh, rules, batch_specs) -> BatchSharding:
 
 
 def check_trainable(cfg, mesh, rules) -> None:
-    """Raise for what the sharded step does not run: a "model" axis of
-    more than one rank under a family other than the dense decoders and
-    encoders (MoE expert parallelism, the SSM's widths, an encoder-decoder
-    or a VLM: ROADMAP.md queue 1), or heads whose cut leaves a q head, or
-    a kv head group, on no single rank."""
+    """Raise where a "model" axis of more than one rank cuts the heads so
+    that a q head, or a kv head group, lies on no single rank (published
+    hymba-1.5b's 25 q heads at model 2 or 4). Every family trains at any
+    "model" axis whose cuts divide (the preflight,
+    ``validate_divisibility``, checks the rest)."""
     m = mesh.shape.get("model", 1)
-    if m == 1:
+    if m == 1 or not train_cuts(cfg, mesh.shape, rules)["heads"]:
         return
-    if (cfg.family != "dense" or cfg.hybrid or cfg.num_encoder_layers
-            or cfg.frontend is not None):
-        raise ValueError(
-            f"{cfg.name} (family {cfg.family!r}) trains data-parallel only: "
-            f"a \"model\" axis of {m} ranks needs tensor parallelism of "
-            f"its experts, SSM widths or frontend, which waits in "
-            f"{ROADMAP_QUEUE}")
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    if rules.get("heads") == "model" and (hq % m or (hkv % m and m % hkv)):
+    if hq % m or (hkv % m and m % hkv):
         raise ValueError(
             f"{cfg.name}: {hq} q / {hkv} kv heads do not cut over {m} "
             f"\"model\" ranks into whole q heads with their kv head")
 
 
 def _rank_cfg(cfg, shard: TrainShard):
+    """The config of a rank's model: its q and kv heads, d_ff and experts
+    where they are cut (the SSM reads its head group off the shard)."""
     m = shard.model.size
     kw = {}
     if shard.heads:
@@ -290,6 +285,8 @@ def _rank_cfg(cfg, shard: TrainShard):
                                 else 1))
     if shard.ff:
         kw["d_ff"] = cfg.d_ff // m
+    if shard.experts:
+        kw["num_experts"] = cfg.num_experts // m
     return dataclasses.replace(cfg, **kw)
 
 
@@ -308,7 +305,7 @@ def make_sharded_train_step(model: Model, optimizer: Optimizer, mesh, *,
                             rules=None, zero1: bool = True,
                             clip_norm: float = 1.0, grad_accum: int = 1,
                             deterministic: bool = False, batch_specs=None,
-                            donate: bool = True):
+                            donate: bool = True, on_grads=None):
     """Returns ``(step, shardings)``: ``step(params, opt_state, batch) ->
     (params, opt_state, metrics)`` for THIS rank of ``mesh`` (a
     ``meshes.Mesh``), every rank calling it with its own pieces and the
@@ -320,7 +317,10 @@ def make_sharded_train_step(model: Model, optimizer: Optimizer, mesh, *,
     logical specs of the batch leaves (rows over "data"), else the batch
     is replicated. The metrics are the reference's (loss, ce, aux, tokens,
     grad_norm), the whole batch's, the same on every rank. ``donate``:
-    the rank's params are updated in place (the moments always are)."""
+    the rank's params are updated in place (the moments always are).
+    ``on_grads``: called every step with the summed gradients before
+    clipping, fp32, a tree of the rank's moment slices
+    (``shardings["opt"]["mu"]`` gathers them)."""
     rules = rules or rules_for_mesh(mesh)
     cfg = model.cfg
     check_trainable(cfg, mesh, rules)
@@ -332,24 +332,23 @@ def make_sharded_train_step(model: Model, optimizer: Optimizer, mesh, *,
     moment_sh = (moment_shardings(shapes, specs, mesh, rules) if zero1
                  else param_sh)
     batch_sh = _batch_sharding(mesh, rules, batch_specs)
-    m = mesh.shape.get("model", 1)
-
-    def cut(axis):
-        return m > 1 and rules.get(axis) == "model"
-
     shard = TrainShard(model=mesh.group("model") if "model" in mesh.shape
                        else mesh.group(()), data=mesh.data,
-                       heads=cut("heads"), ff=cut("ff"), vocab=cut("vocab"),
+                       **train_cuts(cfg, mesh.shape, rules),
                        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                        vocab_size=cfg.vocab_size,
-                       batch_sharded=bool(batch_sh.axes))
+                       batch_sharded=bool(batch_sh.axes),
+                       num_experts=cfg.num_experts,
+                       ssm_num_heads=cfg.ssm_num_heads if cfg.ssm_state else 0)
     rank_model = type(model)(_rank_cfg(cfg, shard), shard=shard)
     world, data = mesh.world, mesh.data
     leaf_sh = tree_leaves(moment_sh)
     cuts = [zero1_dim(sh) if zero1 else None for sh in leaf_sh]
     whole = [i for i, c in enumerate(cuts) if c is None]
     sliced = [i for i, c in enumerate(cuts) if c is not None]
-    replicas = [sh.replicas() for sh in leaf_sh]
+    # each element's share of a mesh-wide sum (1 / the ranks holding it)
+    elem_shares = tree_leaves(_pairs(shapes, moment_sh, lambda t, sh: _on(
+        sh.share(t.ndim), mesh.device)))
 
     grads_of = _grads_fn(rank_model, deterministic)
 
@@ -413,10 +412,12 @@ def make_sharded_train_step(model: Model, optimizer: Optimizer, mesh, *,
             metrics = dict(metrics, loss=shares[0], ce=shares[1],
                            aux=shares[2])
         grads = reduce_grads(grads)
-        # the global norm: each piece's squares once (divided by the ranks
-        # that hold the same piece), summed over the mesh
-        sq = torch.stack([g.square().sum() / r
-                          for g, r in zip(grads, replicas)]).sum()
+        if on_grads is not None:
+            on_grads(with_leaves(moment_sh, grads))
+        # the global norm: each element's square once (its share), summed
+        # over the mesh
+        sq = torch.stack([_once(g.square(), w)
+                          for g, w in zip(grads, elem_shares)]).sum()
         if world.size > 1:
             sq = comm.all_reduce_sum(sq, world)
         norm = torch.sqrt(sq)
@@ -424,7 +425,7 @@ def make_sharded_train_step(model: Model, optimizer: Optimizer, mesh, *,
         if not donate:
             params = tree_map(torch.clone, params)
         _sharded_update(optimizer, grads, opt_state, params, scale,
-                        leaf_sh, replicas, world)
+                        leaf_sh, elem_shares, world)
         gather_params(params)
         metrics = dict(metrics)
         metrics["grad_norm"] = norm
@@ -451,8 +452,20 @@ def init_opt_state(optimizer: Optimizer, params, shardings):
     return optimizer.init(slices)
 
 
+def _on(share, device):
+    return share if isinstance(share, float) else share.to(device)
+
+
+def _once(sq: torch.Tensor, share) -> torch.Tensor:
+    """The sum of ``sq`` (a piece's squares) with each element counted by
+    its share (``NamedSharding.share``)."""
+    if isinstance(share, float):
+        return sq.sum() * share
+    return (sq * share).sum()
+
+
 def _sharded_update(optimizer: Optimizer, grads: list, opt_state, params,
-                    scale, leaf_sh, replicas, world) -> None:
+                    scale, leaf_sh, shares, world) -> None:
     """The optimizer update of this rank's slices, one piece (top-level
     entry or block, a block with a leading layer axis) at a time, applied
     in place to the slices of the rank's params. A ``stacked`` optimizer
@@ -503,15 +516,14 @@ def _sharded_update(optimizer: Optimizer, grads: list, opt_state, params,
             sums[name] = []
             for k in ks:
                 g, state, p = piece_args(k)
-                optimizer.stacked.moments(g, state, p, sums[name])
+                o = offsets[k]
+                # each leaf's (||p||², ||r||²) with every element once
+                optimizer.stacked.moments(g, state, p, sums[name],
+                                          shares=shares[o:o + len(
+                                              tree_leaves(g))])
                 del g
-        # each leaf's (||p||², ||r||²) once over the mesh
         names = list(stacks)
-        weights = torch.tensor(
-            [1.0 / replicas[offsets[stacks[n][0]] + j]
-             for n in names for j in range(len(sums[n]))])
         flat = torch.stack([x for n in names for x in sums[n]])
-        flat = flat * weights.to(flat.device)[:, None]
         if world.size > 1:
             flat = comm.all_reduce_sum(flat, world)
         flat = list(flat)

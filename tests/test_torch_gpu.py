@@ -1780,3 +1780,171 @@ def test_encdec_on_card_matches_cpu(cuda):
         assert fa.LAUNCHES[name] > n0[name], name
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-4 * abs(b), (losses["cuda"], losses["cpu"])
+
+
+class _LoneRank:
+    """Rank ``index`` of a "model" group of ``size`` ranks in one process:
+    the group's collectives pass each rank's part through unsummed
+    (``comm.all_reduce_sum`` as the identity), so that the rank's own
+    work runs alone, on the card as on the CPU."""
+
+    def __init__(self, index, size):
+        from repro_torch.distributed.meshes import Group
+
+        self.group = Group(ranks=tuple(range(size)), index=index, pg=None,
+                           backend="gloo")
+
+    def __enter__(self):
+        from repro_torch.distributed import comm
+
+        self._sum = comm.all_reduce_sum
+        comm.all_reduce_sum = lambda x, group: x
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import comm
+
+        comm.all_reduce_sum = self._sum
+
+    def shard(self, **cut):
+        from repro_torch.distributed.sharding import TrainShard
+
+        g = self.group
+        return TrainShard(model=g, data=_LoneRank(0, 1).group, heads=False,
+                          ff=False, vocab=False, num_heads=0,
+                          num_kv_heads=0, vocab_size=0, batch_sharded=False,
+                          **cut)
+
+
+def _moe_rank(cfg, params, x, cot, rank, size):
+    """A rank's expert slice of one MoE layer: y and the gradients of
+    (y * cot).sum() with respect to x, the router and its experts."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    lone = _LoneRank(rank, size)
+    shard = lone.shard(experts=True, num_experts=cfg.num_experts)
+    lo, hi = shard.expert_range
+    mine = {k: (v if k == "router" else v[lo:hi]).detach().requires_grad_()
+            for k, v in params.items()}
+    xx = x.detach().requires_grad_()
+    with lone:
+        y, _ = moe.apply_moe(mine, dataclasses.replace(
+            cfg, num_experts=hi - lo), xx, shard=shard)
+        grads = torch.autograd.grad((y * cot).float().sum(),
+                                    [xx, *mine.values()])
+    return (y, *grads)
+
+
+def test_rank_expert_slice_on_card_matches_cpu(cuda):
+    """Reduced olmoe-1b-7b's MoE layer (8 experts, top-2, fp32) cut into two
+    expert ranks: each rank's partial output and gradients on the card
+    against the CPU, and on the card the two ranks' outputs, input and
+    router gradients summed, and their experts' gradients side by side,
+    equal to the whole layer's."""
+    from repro_torch.models import moe
+
+    cfg = reduced_config("olmoe-1b-7b")
+    gen = torch.Generator().manual_seed(5)
+    params = moe.init_moe(cfg, torch.float32, generator=gen, device="cpu")
+    x = torch.randn(2, 32, cfg.d_model, generator=gen)
+    cot = torch.randn(x.shape, generator=gen)
+    ranks = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        ranks[dev] = [_moe_rank(cfg, p, x.to(dev), cot.to(dev), r, 2)
+                      for r in range(2)]
+    for got, want in zip(ranks["cuda"], ranks["cpu"]):
+        for g, w in zip(got, want):
+            err = float((g.cpu() - w).abs().max()
+                        / w.abs().max().clamp_min(1e-30))
+            assert err <= 1e-5, err
+    p = {k: v.to(cuda).detach().requires_grad_() for k, v in params.items()}
+    xx = x.to(cuda).requires_grad_()
+    y, _ = moe.apply_moe(p, cfg, xx)
+    whole = (y, *torch.autograd.grad((y * cot.to(cuda)).sum(),
+                                     [xx, *p.values()]))
+    r0, r1 = ranks["cuda"]
+    for i in range(3):                      # y, dx, the router's gradient
+        torch.testing.assert_close(r0[i] + r1[i], whole[i], atol=1e-5,
+                                   rtol=1e-5)
+    for i in range(3, 6):                   # the experts' gradients
+        torch.testing.assert_close(torch.cat([r0[i], r1[i]]), whole[i],
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_rank_ssm_head_group_on_card_matches_cpu(cuda):
+    """Reduced mamba2-2.7b's SSM layer (8 heads, fp32) cut by head group
+    over two ranks (``ssm_specs``' pieces): each rank's partial output and
+    the gradients of its pieces on the card against the CPU."""
+    import types
+
+    from repro_torch.distributed.sharding import (NamedSharding,
+                                                  resolve_spec)
+    from repro_torch.models import ssm
+
+    cfg = reduced_config("mamba2-2.7b")
+    gen = torch.Generator().manual_seed(6)
+    params = ssm.init_ssm(cfg, torch.float32, generator=gen, device="cpu")
+    specs = ssm.ssm_specs(cfg)
+    x = torch.randn(2, 40, cfg.d_model, generator=gen)
+    cot = torch.randn(x.shape, generator=gen)
+    for rank in range(2):
+        mesh = types.SimpleNamespace(shape={"model": 2},
+                                     named_coord={"model": rank})
+        pieces = {k: NamedSharding(mesh, resolve_spec(
+            specs[k], {"ssm_ff": "model"})).shard(v)
+            for k, v in params.items()}
+        lone = _LoneRank(rank, 2)
+        shard = lone.shard(ssm=True, ssm_num_heads=cfg.ssm_num_heads)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            mine = {k: v.to(dev).requires_grad_() for k, v in pieces.items()}
+            xx = x.to(dev).requires_grad_()
+            with lone:
+                y = ssm.apply_ssm(mine, cfg, xx, shard=shard)
+                grads = torch.autograd.grad((y * cot.to(dev)).sum(),
+                                            [xx, *mine.values()])
+            out[dev] = (y, *grads)
+        assert out["cuda"][0].shape == x.shape
+        assert out["cuda"][2].shape == (cfg.d_model, 2 * 64 + 2 * 16 + 4)
+        for g, w in zip(out["cuda"], out["cpu"]):
+            err = float((g.cpu() - w).abs().max()
+                        / w.abs().max().clamp_min(1e-30))
+            assert err <= 1e-4, err
+
+
+def test_expert_parallel_moe_layer_bf16_never_waits(cuda):
+    """One rank's expert slice (rank 1 of 4: 16 of olmoe-1b-7b's 64
+    experts of d_ff 1024, top-8, d 2048; 2 x 512 tokens) in bf16, forward
+    and backward: two calls bit-identical, and a third under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the routing over all
+    experts, the rank's slots and its combine never wait on the host)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), num_layers=1)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params = moe.init_moe(cfg, torch.bfloat16, generator=gen, device=cuda)
+    x = torch.randn(2, 512, cfg.d_model, generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    cot = torch.randn(x.shape, generator=gen, device=cuda,
+                      dtype=torch.bfloat16)
+
+    def run():
+        return _moe_rank(cfg, params, x, cot, 1, 4)
+
+    first, second = run(), run()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert first[2].dtype == torch.float32              # the router's grad
+    assert first[3].shape[0] == 16
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        third = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(a, b) for a, b in zip(first, third))
