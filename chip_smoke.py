@@ -164,7 +164,11 @@ Phases:
    reset just before and flash_fwd, flash_bwd_dq, flash_bwd_dkv must be > 0
    just after; every loss and grad norm finite; prints the first loss,
    tokens/s, ms/step and peak memory, then one more step under
-   ``torch.profiler`` for the device busy share and the top kernels;
+   ``torch.profiler`` for the device busy share and the top kernels; the
+   bytes allocated once the params and AdamW state exist, before the
+   first batch, held to the dry-run's estimate at one rank
+   (``launch.dryrun.train_state_bytes``) up to the allocator's 512-byte
+   rounding a tensor;
 7. bert parity, then train-bert: bert-large at full width, 2 layers,
    float32, with ``lamb(warmup_poly(3.75e-3, 10, 7100))`` on ``cuda`` and
    on ``cpu`` (the tolerances of phase 5); then the published bert-large
@@ -272,8 +276,7 @@ Phases:
    tokens within ``TP_LOGIT_SPACINGS`` bf16 spacings of tp=1's (a token
    parting only at a top-2 margin within twice that), #1 (at tp only),
    #4 and #8 launched on every rank, tok/s, TTFT p50 and each rank's peak
-   memory; rank 0's #1, #4 and #8 calls held in the fresh process of
-   phase 9 (``serve_tp2`` / ``serve_sp2`` sub-entries).
+   memory of one cold serve.
 18. parity-train-mesh, train-dp2tp2, pipeline-2 (``train_mesh_phase``):
    sharded training (``train.steps.make_sharded_train_step``) as four
    gloo ranks sharing the card in one spawn, collectives staged through
@@ -298,13 +301,25 @@ Phases:
    model 2 with ZeRO-1, mamba2-2.7b at model 4 (20 SSM heads a rank),
    phi-3-vision-4.2b at model 4 and seamless-m4t-medium at data 2 x
    model 2 (losses within ``TRAIN_MESH_RTOL``, MoE route flips only at
-   near-ties, every rank's census of every step ``expected_train_census``);
+   near-ties: step 1 against the single rank, every later step against
+   one forward of the mesh's own weights gathered onto rank 0; every
+   rank's census of every step ``expected_train_census``);
    olmoe-1b-7b at 4 of 16 layers (expert-parallel, model 4) and
    mamba2-2.7b at 8 of 64 layers (cut by SSM head group, model 4) in bf16,
    4 steps of the launcher's recipe at seq 2048 x 4, losses within
    ``DP2TP2_LOSS_RTOL`` of the single-rank bf16 step's, ms a step, peak
    memory, collectives and launches a rank (rank 0's #1-#3 are the
    ``train_ep4`` path, held at its layer early, ``train_mesh_kernel_phase``).
+20. levers (``levers_phase``): the chunked path's levers at hymba-1.5b's
+   full width (4 of 32 layers, bf16, 4 x 2048 tokens, no segment ids):
+   one forward + backward each with ``attn_impl="pallas"`` (#1-#3, the
+   ``levers`` path), ``chunked``, ``chunked`` + ``attn_pv_bf16`` and
+   ``chunked`` + ``banded_window`` + ``attn_pv_bf16``, each chunked run's
+   loss and layer-0 gradients within 2e-2 of the pallas run's (scaled by
+   the largest of layer 0's gradients; each leaf by its own max, and
+   every run against a float32 run of the same weights, printed), with
+   ms, peak memory and score bytes a layer; then float32 at 2 layers,
+   banded within 1e-4 of chunked.
 
 ``--ab PARENT_CHECKOUT`` runs only an A/B against another checkout (e.g.
 ``git archive`` of the parent commit): first both checkouts' kernel
@@ -2742,16 +2757,27 @@ def recurrent_parity_phase(torch, seed: int, arch: str, tag: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def train_phase(torch, seed: int, card: str, arch: str = "granite-3-2b",
-                tag: str = "train",
-                kernels=TRAIN_KERNELS) -> tuple[dict, dict]:
+                tag: str = "train", kernels=TRAIN_KERNELS,
+                state_bytes: bool = False) -> tuple[dict, dict]:
     """The published ``arch`` through the training launcher (AdamW,
     warmup_cosine(3e-4, 20, steps), clip 1.0, deterministic, bf16, remat),
     seq 2048, batch 4, 6 steps (``train_path``; ``kernels`` the attention
-    kernels it must launch, none for an attention-free arch)."""
+    kernels it must launch, none for an attention-free arch). With
+    ``state_bytes``: the device bytes allocated once the launcher's params
+    and AdamW state exist, before the first batch (``Trainer.run``
+    watched), held to the dry-run's estimate for the config at one rank
+    (``launch.dryrun.train_state_bytes``: params + the two float32
+    moments); they may differ only by the caching allocator's rounding of
+    each tensor up to 512 bytes."""
     from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed.sharding import auto_rules
+    from repro_torch.launch import dryrun
     from repro_torch.launch import train as launch_train
+    from repro_torch.train import Trainer
 
     steps, seq, batch = 6, 2048, 4
+    held = {}
 
     def run():
         return launch_train.main([
@@ -2760,9 +2786,47 @@ def train_phase(torch, seed: int, card: str, arch: str = "granite-3-2b",
             "--ckpt-every", "1000000",
             "--ckpt-dir", str(ROOT / "build" / "chip_smoke_train_ckpt")])
 
-    return train_path(torch, tag, get_config(arch), run, seq, batch, steps,
-                      "AdamW, warmup_cosine(3e-4, 20, 6), clip 1.0", card,
-                      kernels)
+    def watched():
+        torch.cuda.synchronize()
+        base, start = torch.cuda.memory_allocated(), Trainer.run
+
+        def first(trainer, *a, **kw):
+            torch.cuda.synchronize()
+            held["allocated"] = torch.cuda.memory_allocated() - base
+            held["tensors"] = sum(len(tree_leaves(t)) for t in (
+                trainer.params, trainer.opt_state["mu"],
+                trainer.opt_state["nu"]))
+            Trainer.run = start
+            return start(trainer, *a, **kw)
+
+        Trainer.run = first
+        try:
+            return run()
+        finally:
+            Trainer.run = start
+
+    cfg = get_config(arch)
+    rec, launches = train_path(
+        torch, tag, cfg, watched if state_bytes else run, seq, batch, steps,
+        "AdamW, warmup_cosine(3e-4, 20, 6), clip 1.0", card, kernels)
+    if state_bytes:
+        one = {"data": 1, "model": 1}
+        est = dryrun.train_state_bytes(cfg, one, auto_rules(cfg, one))
+        want = est["params"] + est["opt_state"]
+        over = held["allocated"] - want
+        check(0 <= over <= 512 * held["tensors"],
+              f"{tag}: {held['allocated']} bytes allocated with the params "
+              f"and AdamW state, the dry-run estimates {want} (params "
+              f"{est['params']} + moments {est['opt_state']}); "
+              f"{held['tensors']} tensors may round up by 512 bytes each")
+        print(f"[{tag}] params + AdamW state on the card before the first "
+              f"batch: {held['allocated']} bytes allocated, dry-run estimate "
+              f"{want} (params {est['params']} + moments "
+              f"{est['opt_state']}); {over} bytes over across "
+              f"{held['tensors']} tensors (allocator rounding, at most 512 "
+              f"each) [{card}]", flush=True)
+        rec["state_bytes"] = dict(held, estimate=want)
+    return rec, launches
 
 
 def bert_train_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
@@ -3747,9 +3811,8 @@ def _teacher_batch(torch, prompts, outputs, dev):
 
 def _tp_serve_rank(torch, job) -> dict:
     """One rank of serve-tp2 / serve-sp2: the weights drawn from the seed,
-    the requests served once with rank 0's #1, #4 and #8 calls captured
-    (``capture_calls``; the warm-up), then once timed with the launch
-    counters reset just before and read just after; then the
+    the requests served once, cold (no warm-up serve), timed with the
+    launch counters reset just before and read just after; then the
     teacher-forced logits along tp=1's tokens (``job["forced"]``) through
     the rank's shard model, brought back by rank 0."""
     from repro_torch.distributed.meshes import serve_mesh
@@ -3765,19 +3828,6 @@ def _tp_serve_rank(torch, job) -> dict:
                         device=dev)
     kw = dict(job["engine"], tp=tp, sp=sp, sp_strategy=strategy, mesh=mesh,
               device=dev)
-    wrappers = {k: v for k, v in SERVE_WRAPPERS.items()
-                if tp > 1 or k != "flash_fwd"}
-    calls = None
-    if mesh.rank == 0:
-        calls = capture_calls(torch, lambda: _serve(
-            ServingEngine(model, params, **kw), job["prompts"], 32,
-            prime=False), wrappers)
-        calls = {n: (tuple(_portable(torch, x) for x in a),
-                     {k: _portable(torch, x) for k, x in kws.items()})
-                 for n, (a, kws) in calls.items()}
-    else:
-        _serve(ServingEngine(model, params, **kw), job["prompts"], 32,
-               prime=False)
     eng = ServingEngine(model, params, **kw)
     del params
     on_card = dev.type == "cuda"      # False only in a CPU rehearsal
@@ -3800,19 +3850,9 @@ def _tp_serve_rank(torch, job) -> dict:
             "wall_s": wall, "latency": eng.latency_stats(),
             "peak_memory_bytes": peak, "launches": launches,
             "prefix_hits": eng.prefix_hits, "step_census": eng.step_census,
-            "cache_bytes": eng.cache_bytes(), "calls": calls,
+            "cache_bytes": eng.cache_bytes(),
             "forced_logits": (logits[0, rows].float().cpu()
                               if mesh.rank == 0 else None)}
-
-
-def _portable(torch, x):
-    """A captured argument as ``serve_shape_records_apart`` stores it: q,
-    K and V (meta) as ("meta", shape, dtype), other tensors on the host."""
-    if not isinstance(x, torch.Tensor):
-        return x
-    if x.device.type == "meta":
-        return ("meta", tuple(x.shape), str(x.dtype).removeprefix("torch."))
-    return x.cpu()
 
 
 def tp_rank(jobs: list) -> list:
@@ -3848,8 +3888,9 @@ def tp_serving_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
       tp=1's tokens within ``TP_LOGIT_SPACINGS`` bf16 spacings of tp=1's,
       a token parting from tp=1's only at a top-2 margin within twice
       that; #1 (at tp only), #4 and #8 launched on every rank; tok/s, TTFT
-      p50 and per-rank peak memory. Rank 0's #1, #4 and #8 calls are
-      returned (``rec["calls"]``) for ``serve_shape_records_apart``.
+      p50 and per-rank peak memory of one cold serve (the warm-up serve
+      that captured rank 0's kernel calls was cut to keep the script's
+      time).
 
     Returns ({"parity_tp", "spawn_s", path: record}, {path: rank 0's
     launches})."""
@@ -4038,7 +4079,7 @@ def tp_serving_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
                "census_by_rank": [r["step_census"] for r in recs],
                "max_forced_logit_spacings": max(diffs),
                "divergences": divergences, "prefix_hits": r0["prefix_hits"],
-               "calls": r0["calls"], "card": card, "note": RANKS_NOTE}
+               "card": card, "note": RANKS_NOTE}
         out[path] = rec
         launches[path] = r0["launches"]
         print(f"[{tag}] granite-3-2b 40 layers bf16, sp={sp} tp={tp}: "
@@ -4403,11 +4444,12 @@ def train_family_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
 
     * parity-train-family: ``PARITY_FAMILY`` at full width, 2 layers,
       float32, 3 AdamW steps against the single-rank step on the card:
-      losses within ``TRAIN_MESH_RTOL``, the MoE's routes at every call
-      against the single rank's (at step 1, from the same weights, a flip
-      only at a near-tie, gap <= ``ROUTE_TIE``; later steps' flips, from
-      weights AdamW has moved apart by float noise, recorded), every
-      rank's census of every step the expected;
+      losses within ``TRAIN_MESH_RTOL``, the MoE's routes at every call of
+      a step's forward held to a forward from the same weights (step 1:
+      the single rank's; every later step: one forward of the whole model
+      on rank 0 with the mesh's weights of that step gathered, over the
+      step's tokens), a flip only at a near-tie (gap <= ``ROUTE_TIE``),
+      every rank's census of every step the expected;
     * train-ep4 / train-ssm-tp4: olmoe-1b-7b (4 layers, 16 experts and
       4 / 4 heads of 128 a rank) and mamba2-2.7b (8 layers, 20 SSM heads a
       rank) at model 4 in bf16, 4 steps of the launcher's recipe at seq
@@ -4454,7 +4496,8 @@ def train_family_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     runs = [{"cfg": pcfgs[arch], "shape": shape, "zero1": zero1,
              "optimizer": {"name": "adamw", "lr": 1e-3},
              "batches": pbatches[arch],
-             "routes": pcfgs[arch].family == "moe"}
+             "routes": pcfgs[arch].family == "moe",
+             "step_routes": pcfgs[arch].family == "moe"}
             for arch, shape, zero1 in PARITY_FAMILY]
     runs += [{"cfg": cfg, "shape": mesh, "zero1": True, "batches": batches,
               "optimizer": {"name": "adamw",
@@ -4480,43 +4523,65 @@ def train_family_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
         check(err <= TRAIN_MESH_RTOL,
               f"{tag}: losses {got} are {err:.3g} relative from the single "
               f"rank's {losses}")
-        first, later = [], []
+        first, later = [], {}
         if "routes" in recs[0]:
             per_step = len(seen) // psteps
+            layers = pcfgs[arch].num_layers
+            gathered = recs[0]["step_routes"]
+            check(len(gathered) == psteps - 1,
+                  f"{tag}: {len(gathered)} gathered forwards, not "
+                  f"{psteps - 1}")
             for r in recs:
                 rows = pbatch // shape[0]
                 b0 = r["coord"]["data"] * rows
                 check(len(r["routes"]) == len(seen),
                       f"{tag}: rank {r['rank']} routed {len(r['routes'])} "
                       f"times, the single rank {len(seen)}")
+                # step 1 against the single rank (the same weights); every
+                # later step against one forward of the mesh's own weights,
+                # gathered onto rank 0, over that step's tokens: the
+                # step's first ``layers`` calls are its forward
                 f, _ = route_differences(
-                    [(torch.from_numpy(i), None) for i in r["routes"]],
-                    [(i[b0:b0 + rows], p[b0:b0 + rows]) for i, p in seen],
-                    rows_apart=True)
-                # step 1 routes from the same weights on both sides: a flip
-                # there is a near-tie or a fault; later steps route from
-                # weights that AdamW's m / sqrt(v) has moved apart by the
-                # float noise of the first update, so their flips are
-                # recorded (losses bound them)
-                first += [dict(x, rank_of_mesh=r["rank"]) for x in f
-                          if x["call"] < per_step]
-                later += [dict(x, rank_of_mesh=r["rank"]) for x in f
-                          if x["call"] >= per_step]
+                    [(torch.from_numpy(i), None)
+                     for i in r["routes"][:layers]],
+                    [(i[b0:b0 + rows], p[b0:b0 + rows])
+                     for i, p in seen[:layers]], rows_apart=True)
+                first += [dict(x, rank_of_mesh=r["rank"]) for x in f]
+                for k, calls in enumerate(gathered, start=1):
+                    mine = r["routes"][k * per_step:k * per_step + layers]
+                    f, _ = route_differences(
+                        [(torch.from_numpy(i), None) for i in mine],
+                        [(torch.from_numpy(i[b0:b0 + rows]),
+                          torch.from_numpy(p[b0:b0 + rows]))
+                         for i, p in calls], rows_apart=True)
+                    later.setdefault(k + 1, []).extend(
+                        dict(x, rank_of_mesh=r["rank"]) for x in f)
             check(all(x["gap"] <= ROUTE_TIE for x in first),
                   f"{tag}: step 1's route flips {first} are not all "
                   f"near-ties (gap <= {ROUTE_TIE}); losses {got}, the single "
                   f"rank's {losses}")
-        gap = max((x["gap"] for x in later), default=0.0)
+            for k, flips in later.items():
+                check(all(x["gap"] <= ROUTE_TIE for x in flips),
+                      f"{tag}: step {k}'s route flips against the mesh's own "
+                      f"gathered weights {flips} are not all near-ties (gap "
+                      f"<= {ROUTE_TIE})")
+        steps_note = "; ".join(
+            f"step {k} {len(v)} (largest gap "
+            f"{max((x['gap'] for x in v), default=0.0):.3g})"
+            for k, v in later.items())
         print(f"[{tag}] full width, 2 layers float32, {psteps} AdamW steps: "
               f"losses {got} within {err:.3g} relative of the single rank's "
-              f"{losses}; route flips at step 1 {len(first)} (near-ties), at "
-              f"steps 2-{psteps} {len(later)} (largest gap {gap:.3g}); census"
+              f"{losses}; route flips at step 1 against the single rank "
+              f"{len(first)} (largest gap "
+              f"{max((x['gap'] for x in first), default=0.0):.3g}), against "
+              f"the mesh's gathered weights: {steps_note or 'none routed'} "
+              f"(each <= {ROUTE_TIE}); census"
               f" {recs[0]['expected_census']} on every rank, every step "
               f"[{card}; {RANKS_NOTE}]", flush=True)
         parity.append({"arch": arch, "shape": shape, "zero1": zero1,
                        "losses": got, "single_rank": losses,
                        "max_rel_err": err, "route_flips_step1": first,
-                       "route_flips_later": later,
+                       "route_flips_by_step": later,
                        "census": recs[0]["expected_census"]})
 
     # -- train-ep4 / train-ssm-tp4 -----------------------------------------
@@ -4570,6 +4635,164 @@ def train_family_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     r0 = out[0][0][len(PARITY_FAMILY)]
     return record, {"train_ep4": {n: r0["launches"].get(n, 0)
                                   for n in read_launches()}}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the chunked path's levers at hymba-1.5b's full width
+# ---------------------------------------------------------------------------
+
+# arch, layers, batch, seq: bf16 forward + backward of each variant
+LEVERS = ("hymba-1.5b", 4, 4, 2048)
+LEVER_RUNS = (("pallas", {}),
+              ("chunked", {}),
+              ("chunked+pv_bf16", {"attn_pv_bf16": True}),
+              ("chunked+banded+pv_bf16", {"attn_pv_bf16": True,
+                                          "banded_window": True}))
+LEVERS_BF16_TOL = 2e-2          # chunked against pallas, scaled by the max
+LEVERS_FP32_TOL = 1e-4          # banded against chunked, float32, 2 layers
+
+
+def score_bytes(cfg, b: int, s: int, banded: bool) -> int:
+    """float32 score bytes one attention layer of the chunked path forms
+    (from the shapes): banded, s * 2W a head (s padded to whole windows);
+    chunked, s * s with the keys rounded up to whole chunks."""
+    if banded:
+        rows = -(-s // cfg.window) * cfg.window
+        per_head = rows * 2 * cfg.window
+    else:
+        per_head = s * (-(-s // cfg.attn_chunk_size) * cfg.attn_chunk_size)
+    return b * cfg.num_heads * per_head * 4
+
+
+def _layer0_errs(g, want) -> dict:
+    """Layer 0's gradients against ``want``'s: max |g - want| over the
+    largest |want| of all of layer 0's gradients (``layer``), and the
+    largest of each leaf's max |g - want| over its own max |want|
+    (``leaf``, with its path ``worst``)."""
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            return [x for k, v in tree.items() for x in flat(v, f"{prefix}/{k}")]
+        return [(prefix, tree.float())]
+
+    pairs = [(k, a, w) for (k, a), (_, w) in zip(flat(g["blocks"][0]),
+                                                 flat(want["blocks"][0]))]
+    top = max(float(w.abs().max()) for _, _, w in pairs)
+    leaf = {k: scaled_err(a, w) for k, a, w in pairs}
+    worst = max(leaf, key=leaf.get)
+    return {"layer": max(float((a - w).abs().max()) for _, a, w in pairs)
+            / top, "leaf": leaf[worst], "worst": worst}
+
+
+def levers_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
+    """Phase 20: the chunked path's levers (``attn_chunk_size``,
+    ``attn_pv_bf16``, ``banded_window``; plain PyTorch, the reference's
+    XLA-level path) at hymba-1.5b's full width (d 1600, 25 q / 5 kv heads
+    of 64, window 1024), 4 of its 32 layers, bf16, one batch of 4 x 2048
+    tokens without segment ids: one forward + backward each with
+    ``attn_impl="pallas"`` (#1-#3), ``"chunked"``, ``"chunked"`` +
+    ``attn_pv_bf16`` and ``"chunked"`` + ``banded_window`` +
+    ``attn_pv_bf16``, from the same weights. Each chunked run's loss and
+    layer-0 gradients held to the pallas run's within ``LEVERS_BF16_TOL``,
+    the gradients scaled by the largest of layer 0's (``_layer0_errs``;
+    each leaf by its own max is printed beside it, and every bf16 run
+    against a float32 chunked run of the same weights: 4 layers of bf16
+    backward put each leaf 1-2e-2 from it, pallas's too); ms of a forward
+    + backward (CUDA events, after one untimed pass), the peak memory
+    above the weights and the attention's score bytes a layer
+    (``score_bytes``). Then float32 at 2 layers: banded against chunked,
+    loss and layer-0 gradients (each leaf by its own max) within
+    ``LEVERS_FP32_TOL``. Launch counters are reset just before each run
+    and read just after: the pallas run launches #1-#3, the chunked runs
+    nothing. Returns (record, {"levers": the pallas run's launches})."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arch, layers, b, s = LEVERS
+    dev = torch.device("cuda")
+    base = dataclasses.replace(get_config(arch), num_layers=layers)
+    batch = dict(SyntheticLM(base.vocab_size, s, b, seed=seed).batch_at(0))
+    del batch["segment_ids"]
+    params = build_model(base).init(
+        torch.Generator(device=dev).manual_seed(seed), device=dev)
+    f32 = dataclasses.replace(base, dtype="float32", attn_impl="chunked")
+    ref_loss, ref = _grads(torch, build_model(f32),
+                           tree_map(lambda t: t.float(), params), batch)
+    runs, launches = {}, {}
+    for tag, kw in LEVER_RUNS:
+        cfg = dataclasses.replace(base, attn_impl=tag.split("+")[0], **kw)
+        model = build_model(cfg)
+        release(torch)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        loss, grads = _grads(torch, model, params, batch)
+        torch.cuda.synchronize()
+        got = read_launches()
+        for name, n in got.items():
+            check((n > 0) == (tag == "pallas" and name in TRAIN_KERNELS),
+                  f"levers {tag}: kernel {name} launched {n} times")
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        ms = time_ms(torch, [lambda: _grads(torch, model, params, batch)],
+                     warmup=0, iters=2)
+        check(math.isfinite(loss), f"levers {tag}: loss {loss}")
+        runs[tag] = {"loss": loss, "ms": ms, "peak_memory_bytes": peak,
+                     "score_bytes_per_layer": (
+                         None if tag == "pallas" else
+                         score_bytes(cfg, b, s, cfg.banded_window)),
+                     "vs_float32": dict(_layer0_errs(grads, ref),
+                                        loss=abs(loss - ref_loss)
+                                        / abs(ref_loss))}
+        if tag == "pallas":
+            launches, want_loss, want = got, loss, grads
+            continue
+        errs = dict(_layer0_errs(grads, want),
+                    loss=abs(loss - want_loss) / abs(want_loss))
+        runs[tag]["vs_pallas"] = errs
+        check(max(errs["loss"], errs["layer"]) <= LEVERS_BF16_TOL,
+              f"levers {tag}: loss {loss} and layer-0 grads are {errs} from "
+              f"the pallas run's (loss {want_loss}; bound {LEVERS_BF16_TOL})")
+        del grads
+    del params, want, ref
+    # float32, 2 layers: the banded layout is exact
+    f32 = dataclasses.replace(f32, num_layers=2)
+    params = build_model(f32).init(
+        torch.Generator(device=dev).manual_seed(seed + 1), device=dev)
+    loss_c, g_c = _grads(torch, build_model(f32), params, batch)
+    loss_b, g_b = _grads(torch, build_model(dataclasses.replace(
+        f32, banded_window=True)), params, batch)
+    f32_errs = dict(_layer0_errs(g_b, g_c),
+                    loss=abs(loss_b - loss_c) / abs(loss_c))
+    check(max(f32_errs["loss"], f32_errs["leaf"]) <= LEVERS_FP32_TOL,
+          f"levers float32: banded is {f32_errs} from chunked (loss "
+          f"{loss_b} against {loss_c}; bound {LEVERS_FP32_TOL})")
+    del params, g_c, g_b
+
+    def errs_text(e):
+        return (f"loss {e['loss']:.3g}, layer-0 grads {e['layer']:.3g} of "
+                f"the layer's max ({e['leaf']:.3g} of its own at "
+                f"{e['worst']})")
+
+    for tag, r in runs.items():
+        extra = ("" if tag == "pallas" else
+                 f"; against pallas: {errs_text(r['vs_pallas'])} (bound "
+                 f"{LEVERS_BF16_TOL}); scores {r['score_bytes_per_layer']} "
+                 f"bytes a layer")
+        print(f"[levers] {arch} {layers} layers bf16, {b} x {s} tokens, "
+              f"{tag}: loss {r['loss']:.6f}; {r['ms']:.2f} ms a forward + "
+              f"backward (CUDA events); peak {r['peak_memory_bytes'] / 2**30:.3f}"
+              f" GiB above the weights; against float32: "
+              f"{errs_text(r['vs_float32'])}{extra} [{card}]", flush=True)
+    print(f"[levers] float32, 2 layers: banded against chunked: "
+          f"{errs_text(f32_errs)} (bound {LEVERS_FP32_TOL}); pallas launches "
+          f"{launches} [{card}]", flush=True)
+    return ({"arch": arch, "layers": layers, "batch": b, "seq": s,
+             "runs": runs, "float32_banded_vs_chunked": f32_errs,
+             "card": card}, {"levers": launches})
 
 
 # ---------------------------------------------------------------------------
@@ -4978,7 +5201,8 @@ def main() -> int:
                                                           card)
     lap("dense_serve")
     train_parity = train_parity_phase(torch, args.seed)
-    train, paths["train"] = train_phase(torch, args.seed, card)
+    train, paths["train"] = train_phase(torch, args.seed, card,
+                                        state_bytes=True)
     lap("train")
     bert_parity = train_parity_phase(torch, args.seed, "bert-large",
                                      lamb_recipe, tag="bert-parity")
@@ -5066,10 +5290,11 @@ def main() -> int:
     train_family, family_paths = train_family_phase(torch, args.seed, card)
     paths.update(family_paths)
     lap("train_family")
+    levers, levers_paths = levers_phase(torch, args.seed, card)
+    paths.update(levers_paths)
+    lap("levers")
     serves = {"serve_qwen3": serve_qwen3, "serve_olmoe": serve_olmoe,
-              "serve_phi35moe": serve_phi35moe, "serve_hymba": serve_hymba,
-              "serve_tp2": tp_serving["serve_tp2"],
-              "serve_sp2": tp_serving["serve_sp2"]}
+              "serve_phi35moe": serve_phi35moe, "serve_hymba": serve_hymba}
     held = serve_shape_records_apart(torch, args.seed, {
         path: (path.replace("_", "-"), rec.pop("calls"))
         for path, rec in serves.items()})
@@ -5116,7 +5341,7 @@ def main() -> int:
               "phi3v_parity": phi3v_parity, "serve_phi3v": serve_phi3v,
               "train_phi3v": train_phi3v, "tp_serving": tp_serving,
               "train_mesh": train_mesh, "train_family": train_family,
-              "phase_end_s": laps,
+              "levers": levers, "phase_end_s": laps,
               "total_s": time.perf_counter() - t_start}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(f"[done] total {record['total_s']:.1f}s", flush=True)

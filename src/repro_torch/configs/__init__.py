@@ -6,13 +6,15 @@ its mixture-of-experts decoders (``olmoe-1b-7b``,
 (``seamless-m4t-medium``), its vision-language decoder
 (``phi-3-vision-4.2b``) and the paper's own models (``gpt2-small``,
 ``gpt2-medium``, ``bert-large``). ``get_config(name)`` / ``reduced_config(name)`` mirror
-``repro.configs``."""
+``repro.configs``; ``ASSIGNED`` (what ``list_archs`` returns) and
+``get_shape`` / ``SHAPES`` name the dry-run's cells."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (SHAPES, ModelConfig,  # noqa: F401
+                                      ShapeConfig, cell_is_applicable)
 from repro_torch.configs.granite_3_2b import CONFIG as _granite_3_2b
 from repro_torch.configs.hymba_1_5b import CONFIG as _hymba
 from repro_torch.configs.internlm2_20b import CONFIG as _internlm2_20b
@@ -33,14 +35,27 @@ ARCHS: dict[str, ModelConfig] = {
                         GPT2_SMALL, GPT2_MEDIUM, BERT_LARGE]}
 
 
+ASSIGNED = [
+    "olmo-1b", "internlm2-20b", "granite-3-2b", "qwen3-32b",
+    "phi-3-vision-4.2b", "seamless-m4t-medium", "hymba-1.5b",
+    "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "mamba2-2.7b",
+]
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
     return ARCHS[name]
 
 
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
 def list_archs() -> list[str]:
-    return sorted(ARCHS)
+    """The assigned architectures (the dry-run's; ``ARCHS`` also holds the
+    paper's GPT-2 and BERT models)."""
+    return ASSIGNED
 
 
 def reduced_config(name: str, **overrides) -> ModelConfig:

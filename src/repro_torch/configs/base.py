@@ -10,7 +10,9 @@ attention + SSM heads (``family="hybrid"``) or an encoder-decoder
 blocks over a modality frontend's projected frames, then decoder blocks
 with cross-attention) or a vision-language decoder (``family="vlm"``: a
 frontend's projected patches prepended to the token embeddings), and a
-tied or separate output head.
+tied or separate output head. ``ShapeConfig`` / ``SHAPES`` /
+``cell_is_applicable``: the dry-run's input shapes
+(``launch/dryrun.py``).
 
 Defaults match the JAX package, including ``attn_impl="chunked"``,
 ``use_decode_kernel=False`` and ``remat=True``: with the first two the
@@ -51,6 +53,10 @@ class ModelConfig:
     num_decode_splits: int | None = None  # None = auto (kernels.tuning)
     use_decode_kernel: bool = False     # split-KV decode kernel;
                                         # False = plain masked-softmax path
+    # the chunked path's levers (the reference's defaults)
+    attn_chunk_size: int = 1024         # Alg.-1 kv chunk of ``chunked``
+    attn_pv_bf16: bool = False          # bf16 P and V for P@V (fp32 sums)
+    banded_window: bool = False         # banded layout for window attention
 
     # norms / mlp
     norm_type: Literal["rmsnorm", "layernorm", "layernorm_np"] = "rmsnorm"
@@ -115,3 +121,33 @@ class ModelConfig:
     @property
     def ssm_num_heads(self) -> int:
         return self.ssm_d_inner // self.ssm_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the dry-run's cells (``repro.configs.base``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_is_applicable(cfg: ModelConfig,
+                       shape: ShapeConfig) -> tuple[bool, str]:
+    """long_500k runs only for sub-quadratic archs (SSM, or a hybrid with
+    a window); pure full-attention archs skip it (DESIGN.md §4)."""
+    if shape.name == "long_500k":
+        if cfg.family == "ssm" or (cfg.hybrid and cfg.window is not None):
+            return True, ""
+        return False, ("pure full-attention arch: long_500k requires "
+                       "sub-quadratic attention (assignment rule; "
+                       "block-sparse flash available as opt-in)")
+    return True, ""

@@ -7,8 +7,12 @@
                     maps to the hand-written CUDA kernels (their plain
                     versions for CPU tensors).
   * ``chunked``   — Algorithm 1 in plain PyTorch (online softmax over kv
-                    chunks, O(N) memory). The default, as in the JAX
-                    package.
+                    chunks of ``chunk_size``, O(N) memory; ``pv_bf16``
+                    rounds P and V to bf16 for P@V). The default, as in
+                    the JAX package. With ``banded_window`` and a window,
+                    a causal self-attention with no mask, segments or
+                    positions takes ``window_banded_attention`` instead
+                    (the reference's dispatch rule).
   * ``reference`` — Algorithm 0 (materializes S/P).
   * ``block_sparse`` — the ``pallas`` path with an Alg. 5 sparse pattern
                     (``block_layout``, required): the pattern joins the one
@@ -54,9 +58,12 @@ class AttentionSpec:
     dropout_p: float = 0.0
     block_q: int | None = None
     block_k: int | None = None
+    chunk_size: int = 1024          # ``chunked``'s kv chunk
     variant: str = "fa2"            # pallas accumulator variant: "paper"|"fa2"
     num_decode_splits: int | None = None
     use_decode_kernel: bool = False
+    pv_bf16: bool = False           # bf16 P and V for P@V (fp32 sums)
+    banded_window: bool = False     # banded layout for sliding-window attn
     tp_shards: int = 1              # decode split target (tuning)
 
 
@@ -99,7 +106,15 @@ def attention(
     if spec.impl == "chunked":
         if dropout_p > 0.0:
             raise ValueError("attention dropout requires impl='pallas'")
-        return kref.chunked_attention(q, k, v, **common)
+        if (spec.banded_window and spec.window is not None
+                and kv_mask is None and segment_ids is None
+                and q_segment_ids is None and q_positions is None
+                and q.shape[2] == k.shape[2] and q_offset in (None, 0)):
+            return kref.window_banded_attention(
+                q, k, v, window=spec.window, scale=scale,
+                pv_bf16=spec.pv_bf16)
+        return kref.chunked_attention(q, k, v, chunk_size=spec.chunk_size,
+                                      pv_bf16=spec.pv_bf16, **common)
     if spec.impl == "reference":
         return kref.standard_attention(
             q, k, v, dropout_p=dropout_p, dropout_seed=dropout_seed,

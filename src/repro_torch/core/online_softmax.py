@@ -44,16 +44,29 @@ def init_state(q_shape: tuple[int, ...], d: int, dtype=torch.float32,
     )
 
 
-def block_state(scores: torch.Tensor, values: torch.Tensor) -> SoftmaxState:
+def pv_product(p: torch.Tensor, values: torch.Tensor,
+               p_dtype=None) -> torch.Tensor:
+    """P @ V in float32; ``p_dtype`` (e.g. bf16) rounds P and V to it
+    first and sums the products in float32, the reference's
+    ``dot_general`` with ``preferred_element_type=float32`` (a product of
+    two bf16 values is exact in float32)."""
+    if p_dtype is None:
+        return p @ values.float()
+    return p.to(p_dtype).float() @ values.to(p_dtype).float()
+
+
+def block_state(scores: torch.Tensor, values: torch.Tensor,
+                p_dtype=None) -> SoftmaxState:
     """State for a single block of scores (..., q, k) and values (..., k, d);
-    scores must already include any masking as NEG_INF terms."""
+    scores must already include any masking as NEG_INF terms. ``p_dtype``:
+    the P tile's width for P@V (``pv_product``); m and l stay float32."""
     scores = scores.float()
     m = scores.amax(dim=-1)
     # Guard fully-masked rows: exp(NEG_INF - NEG_INF) = 1 would pollute l.
     p = torch.exp(scores - m[..., None])
     p = torch.where(scores <= NEG_INF / 2, torch.zeros_like(p), p)
     l = p.sum(dim=-1)
-    acc = p @ values.float()
+    acc = pv_product(p, values, p_dtype)
     return SoftmaxState(m=m, l=l, acc=acc)
 
 

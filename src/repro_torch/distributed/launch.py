@@ -189,9 +189,12 @@ def train_rank(spec: dict) -> list[dict]:
     back the full params on rank 0), ``grads`` (bring back the first
     step's summed gradients, gathered into full arrays, on rank 0),
     ``roundtrip`` (whether every leaf cut into the rank's param and
-    moment pieces gathers back into the full array, bit for bit) and
+    moment pieces gathers back into the full array, bit for bit),
     ``routes`` (bring back every MoE layer's top-k experts of the rank's
-    rows at every step, ``moe._route`` watched); a key of ``spec`` is
+    rows at every step, ``moe._route`` watched) and ``step_routes``
+    (before each step after the first, gather the mesh's weights and
+    bring back, on rank 0, the routes and router probabilities of one
+    forward of the whole model over that step's batch); a key of ``spec`` is
     every run's default. Each record holds the attention kernels'
     launches over the run's steps and, on a card, the rank's peak
     memory. A run with
@@ -271,9 +274,13 @@ def train_rank(spec: dict) -> list[dict]:
                                                    lambda t, _: t))))
         del full
         opt_state = init_opt_state(opt, params, sh)
-        census = []
+        census, step_routes = [], []
 
         def counted_step(p, o, b):
+            if run.get("step_routes") and census:
+                # this step's weights gathered, outside the census window
+                step_routes.append(_gathered_routes(model, p, sh["params"],
+                                                    b, mesh.rank))
             before = _census(counter)
             res = step(p, o, b)
             after = _census(counter)
@@ -315,6 +322,8 @@ def train_rank(spec: dict) -> list[dict]:
                                  tree_leaves(trainer.opt_state["mu"])]}
         if run.get("routes"):
             rec["routes"] = routes
+        if run.get("step_routes") and mesh.rank == 0:
+            rec["step_routes"] = step_routes
         if roundtrip is not None:
             rec["roundtrip"] = roundtrip
         if kept:
@@ -331,25 +340,45 @@ def train_rank(spec: dict) -> list[dict]:
 
 
 @contextlib.contextmanager
-def _watched_routes(on: bool):
-    """While on, every ``moe._route`` call's top-k experts (numpy) into
-    the yielded list."""
+def _watched_routes(on: bool, probs: bool = False):
+    """While on, every ``moe._route`` call's top-k experts (numpy; with
+    ``probs``, (experts, router probabilities)) into the yielded list. A
+    watch opened inside another calls the unwatched route: the outer one
+    does not see the inner one's calls."""
     from repro_torch.models import moe
 
     seen: list = []
     route = moe._route
+    base = getattr(route, "unwatched", route)
 
     def watch(logits, k):
-        out = route(logits, k)
-        seen.append(out[0].cpu().numpy())
+        out = base(logits, k)
+        idx = out[0].cpu().numpy()
+        seen.append((idx, out[2].cpu().numpy()) if probs else idx)
         return out
 
+    watch.unwatched = base
     if on:
         moe._route = watch
     try:
         yield seen
     finally:
         moe._route = route
+
+
+def _gathered_routes(model, pieces, shardings, batch, rank: int):
+    """The routes of one forward of the whole (unsharded) ``model`` over
+    the global ``batch`` with the mesh's current weights, gathered from
+    every rank's ``pieces`` (a collective every rank runs): on rank 0 a
+    list of (experts, router probabilities) a MoE call, elsewhere None."""
+    from repro_torch.distributed.sharding import unshard
+
+    full = unshard(pieces, shardings)
+    if rank != 0:
+        return None
+    with torch.no_grad(), _watched_routes(True, probs=True) as seen:
+        model.forward(full, batch)
+    return seen
 
 
 def train(spec: dict, world: int, *, threads: int | None = 1) -> list:

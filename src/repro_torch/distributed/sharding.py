@@ -131,19 +131,45 @@ def expected_sp_prefill_census(traced_layers: int, *, sp: int = 1,
     return census
 
 
+def heads_cut_whole(cfg, m: int) -> bool:
+    """Whether ``m`` "model" ranks cut the attention into whole q heads,
+    each rank holding its q heads' kv head (the kv heads cut whole, or
+    one kv head shared by ``m / hkv`` ranks)."""
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    return hq % m == 0 and (hkv % m == 0 or m % hkv == 0)
+
+
+def train_rules(cfg, shape: Mapping[str, int],
+                rules: Mapping[str, Any]) -> dict[str, Any]:
+    """The rules a sharded train step runs: ``rules`` with "heads" demoted
+    to replicated where the "model" axis would cut the heads into pieces
+    that are not whole q heads with their kv head (published hymba-1.5b's
+    25 q / 5 kv heads of 64 at model 2 or 4, which the reference cuts as
+    columns of its projections), as ``auto_rules`` demotes every axis
+    that does not divide. The attention then runs whole on every rank
+    beside the cut SSM and MLP."""
+    out = dict(rules)
+    m = shape.get("model", 1)
+    if (m > 1 and cfg.num_heads and out.get("heads") == "model"
+            and not heads_cut_whole(cfg, m)):
+        out["heads"] = None
+    return out
+
+
 def train_cuts(cfg, shape: Mapping[str, int],
                rules: Mapping[str, Any]) -> dict[str, bool]:
     """What a sharded train step cuts over a "model" axis of more than one
     rank: the attention heads, a dense MLP's hidden dim (``ff``), the
     vocab, the MoE's experts and the SSM by head group (``ssm``), each
     where the rules put its logical axis on "model" and the config has
-    it."""
+    it (the heads only where they cut whole: ``train_rules``)."""
     m = shape.get("model", 1)
 
     def cut(axis):
         return m > 1 and rules.get(axis) == "model"
 
-    return {"heads": cut("heads") and cfg.num_heads > 0,
+    return {"heads": (cut("heads") and cfg.num_heads > 0
+                      and heads_cut_whole(cfg, m)),
             "ff": cut("ff") and cfg.family != "moe" and cfg.d_ff > 0,
             "vocab": cut("vocab"),
             "experts": cut("expert") and cfg.family == "moe",
@@ -347,6 +373,25 @@ def resolve_spec(logical, rules: Mapping[str, Any]) -> PartitionSpec:
         else:
             out.append(tuple(phys))
     return PartitionSpec(*out)
+
+
+def local_shape(shape, spec: PartitionSpec,
+                axes: Mapping[str, int]) -> tuple[int, ...]:
+    """A rank's piece of a leaf of ``shape`` under a physical spec on a
+    mesh of ``axes`` (the reference's ``NamedSharding.shard_shape``): a
+    cut dim divided by the product of its axes, a ``Pieces`` dim its cut
+    segments divided and its whole ones kept. No mesh or device needed
+    (the dry-run)."""
+    out = list(shape)
+    for i, entry in enumerate(spec):
+        if entry is None:
+            continue
+        n = math.prod(axes[a] for a in _names(entry))
+        if isinstance(entry, Pieces):
+            out[i] = sum(entry.local_sizes(n))
+        else:
+            out[i] = shape[i] // n
+    return tuple(out)
 
 
 def _walk(path, tree, specs, fn):

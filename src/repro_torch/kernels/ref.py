@@ -3,7 +3,12 @@
 * ``standard_attention`` — Algorithm 0 of the paper: materializes S and P.
 * ``chunked_attention`` — Algorithm 1 as a Python loop over kv chunks
   (online softmax, O(N) memory; FlashAttention's single-accumulator
-  update). The ``chunked`` attention impl.
+  update). The ``chunked`` attention impl; ``pv_bf16`` rounds P and V to
+  bf16 for P@V and sums in float32.
+* ``window_banded_attention`` — causal sliding-window attention on a
+  banded layout: q in chunks of W = window rows, each against [previous
+  chunk | own chunk], one local softmax a chunk (score bytes s * 2W
+  instead of s * s). The ``chunked`` impl's ``banded_window`` lever.
 
 Both accept GQA, causal / sliding-window masks, a kv padding mask, packed
 segment ids, logical positions and a softmax scale, with shapes
@@ -22,7 +27,8 @@ from repro_torch.core import masks as M
 from repro_torch.core.masks import resolve_segment_ids
 from repro_torch.core.online_softmax import (NEG_INF, SoftmaxState,
                                              block_state, finalize,
-                                             init_state, merge_states)
+                                             init_state, merge_states,
+                                             pv_product)
 
 
 M32 = 0xFFFFFFFF
@@ -186,9 +192,12 @@ def chunked_attention(
     scale: float | None = None,
     chunk_size: int = 1024,
     q_offset: int | None = None,
+    pv_bf16: bool = False,
 ) -> torch.Tensor:
     """IO-aware attention: online softmax over kv chunks, never
-    materializing the (sq, sk) score matrix (peak temp is (sq, chunk))."""
+    materializing the (sq, sk) score matrix (peak temp is (sq, chunk)).
+    ``pv_bf16``: P and V rounded to bf16 for P@V, summed in float32 (the
+    reference's bf16 P tile); m and l stay float32."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if hq % hkv:
@@ -232,6 +241,7 @@ def chunked_attention(
     fast = (causal and kv_mask is None and window is None and q_offset >= 0
             and (q_seg is None or self_seg) and q_positions is None)
 
+    p_dtype = torch.bfloat16 if pv_bf16 else None
     state = init_state((b, hq, sq), d, device=dev)
     for ci in range(n_chunks):
         sl = slice(ci * chunk_size, (ci + 1) * chunk_size)
@@ -256,11 +266,68 @@ def chunked_attention(
         if fast:
             m = torch.maximum(state.m, s.amax(dim=-1))
             p = torch.exp(s - m[..., None])
-            pv = p @ vb.float()
+            pv = pv_product(p, vb, p_dtype)
             corr = torch.exp(state.m - m)
             state = SoftmaxState(m=m, l=state.l * corr + p.sum(dim=-1),
                                  acc=state.acc * corr[..., None] + pv)
         else:
-            state = merge_states(state, block_state(s, vb))
+            state = merge_states(state, block_state(s, vb, p_dtype))
     out, _ = finalize(state, dtype=q.dtype)
     return out
+
+
+def window_banded_attention(
+    q: torch.Tensor,             # (b, hq, s, d)
+    k: torch.Tensor,             # (b, hkv, s, d)
+    v: torch.Tensor,
+    *,
+    window: int,
+    scale: float | None = None,
+    pv_bf16: bool = False,
+) -> torch.Tensor:
+    """Causal sliding-window attention on a banded layout: q in chunks of
+    W = window rows, each attending to exactly [previous chunk | own
+    chunk] (2W keys, zeros before the first), which covers the causal
+    window, so one local softmax a chunk is exact, with no running
+    (m, l). The fused mask (causal, window, key position >= 0) is
+    ``element_mask`` on the band's coordinates. Score bytes: s * 2W
+    instead of s * s. ``pv_bf16`` as in ``chunked_attention``."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    W = window
+    pad = (-s) % W
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                   for t in (q, k, v))
+    sp = q.shape[2]
+    nc = sp // W
+    k = repeat_kv(k, hq // hkv)
+    v = repeat_kv(v, hq // hkv)
+    dev = q.device
+
+    qc = q.reshape(b, hq, nc, W, d)
+    # banded keys: [chunk i-1 | chunk i], left-padded with W zero rows
+    rows = (torch.arange(nc, device=dev)[:, None] * W
+            + torch.arange(2 * W, device=dev)[None, :])       # (nc, 2W)
+    kb = torch.nn.functional.pad(k, (0, 0, W, 0))[:, :, rows]  # (b,h,nc,2W,d)
+    vb = torch.nn.functional.pad(v, (0, 0, W, 0))[:, :, rows]
+
+    sc = torch.einsum("bhcqd,bhckd->bhcqk", qc.float(), kb.float()) * scale
+    i = torch.arange(nc, device=dev)[:, None, None]
+    q_pos = i * W + torch.arange(W, device=dev)[None, :, None]        # (nc,W,1)
+    k_pos = i * W - W + torch.arange(2 * W, device=dev)[None, None, :]
+    ok = M.element_mask(q_pos, k_pos, causal=True, window=W,
+                        kv_valid=k_pos >= 0)                       # (nc,W,2W)
+    sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
+
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    p = torch.where(sc <= NEG_INF / 2, torch.zeros_like(p), p)
+    l = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(l == 0.0, torch.ones_like(l), l)
+    o = pv_product(p, vb, torch.bfloat16 if pv_bf16 else None)
+    return o.reshape(b, hq, sp, d)[:, :, :s].to(q.dtype)

@@ -63,6 +63,9 @@ def attn_spec_from_config(cfg: ModelConfig) -> AttentionSpec:
     return AttentionSpec(impl=cfg.attn_impl, causal=cfg.causal,
                          window=cfg.window, dropout_p=cfg.attn_dropout,
                          block_q=cfg.attn_block_q, block_k=cfg.attn_block_k,
+                         chunk_size=cfg.attn_chunk_size,
+                         pv_bf16=cfg.attn_pv_bf16,
+                         banded_window=cfg.banded_window,
                          num_decode_splits=cfg.num_decode_splits,
                          use_decode_kernel=cfg.use_decode_kernel,
                          tp_shards=cfg.tp_shards)

@@ -139,6 +139,66 @@ class Model:
         """``init``'s tree as meta tensors: the global shapes and dtypes."""
         return self.init(None, device="meta")
 
+    # ----------------------------------------------------- dry-run interface
+    def input_specs(self, shape):
+        """One dry-run cell's inputs as meta tensors, with their logical
+        specs (the reference's ``input_specs``): for a ``train`` or
+        ``prefill`` ``configs.ShapeConfig`` the batch and its specs (an
+        encoder-decoder's ``frames`` and tokens half the sequence each, a
+        VLM's ``patches`` ahead of the tokens, a decoder's packed
+        ``segment_ids`` when training, a ``loss_mask`` when training);
+        for ``decode`` ((state, token), (state specs, token spec)), the
+        state from ``init_decode_state`` on ``device="meta"`` (an
+        encoder-decoder's also holds ``enc_len``)."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        data = "data"
+
+        def meta(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if shape.kind in ("train", "prefill"):
+            if cfg.num_encoder_layers > 0:
+                half = S // 2
+                batch = {"frames": meta(B, half, cfg.frontend_dim,
+                                        dtype=torch.float32),
+                         "tokens": meta(B, half)}
+                specs = {"frames": P(data, None, None),
+                         "tokens": P(data, None)}
+            elif cfg.frontend == "vision":
+                nf = cfg.frontend_tokens
+                batch = {"patches": meta(B, nf, cfg.frontend_dim,
+                                         dtype=torch.float32),
+                         "tokens": meta(B, S - nf)}
+                specs = {"patches": P(data, None, None),
+                         "tokens": P(data, None)}
+            else:
+                batch = {"tokens": meta(B, S)}
+                specs = {"tokens": P(data, None)}
+                if shape.kind == "train":
+                    batch["segment_ids"] = meta(B, S)
+                    specs["segment_ids"] = P(data, None)
+            if shape.kind == "train":
+                batch["loss_mask"] = meta(*batch["tokens"].shape,
+                                          dtype=torch.float32)
+                specs["loss_mask"] = P(data, None)
+            return batch, specs
+        enc = cfg.num_encoder_layers > 0
+        capacity = S // 2 if enc else S
+        state = self.init_decode_state(B, capacity, device="meta",
+                                       enc_len=S // 2 if enc else 0)
+        return (state, meta(B)), (self.decode_state_specs(), P(data))
+
+    def decode_state_specs(self) -> Params:
+        """Logical specs of ``init_decode_state``'s tree (with an encoder,
+        its cross cache and ``enc_len``)."""
+        enc = self.cfg.num_encoder_layers > 0
+        specs = {"caches": tfm.decode_cache_specs(self.cfg, enc=enc),
+                 "kv_len": P("data")}
+        if enc:
+            specs["enc_len"] = P("data")
+        return specs
+
     # --------------------------------------------------------------- helpers
     def _logits(self, params, h):
         h = apply_norm(params["final_norm"], h, self.cfg.norm_type)

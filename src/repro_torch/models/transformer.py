@@ -102,6 +102,26 @@ def block_specs(cfg: ModelConfig, *, cross_attn: bool = False) -> Params:
     return s
 
 
+def decode_cache_specs(cfg: ModelConfig, *, enc: bool = False) -> Params:
+    """Logical specs of ``init_decode_cache``'s tree (the reference's
+    ``decode_cache_specs``; a leading layer axis): K/V rows over "data",
+    the capacity over "kv_seq"; the SSM state's heads over "ssm_heads",
+    its conv channels over "ssm_ff"; ``enc``: the cross-attention's
+    K/V."""
+    from repro_torch.distributed.sharding import P
+    kv = {"k": P(None, "data", None, "kv_seq", None),
+          "v": P(None, "data", None, "kv_seq", None)}
+    c: Params = {}
+    if cfg.family != "ssm":
+        c["kv"] = kv
+    if cfg.family == "ssm" or cfg.hybrid:
+        c["ssm"] = {"h": P(None, "data", "ssm_heads", None, None),
+                    "conv": P(None, "data", None, "ssm_ff")}
+    if enc:
+        c["cross_kv"] = dict(kv)
+    return c
+
+
 def _mix(x, a, m):
     """Hymba's residual: the attention and SSM outputs, each RMS-normalized,
     averaged."""

@@ -28,8 +28,9 @@ step as SPMD ranks over a ``distributed.meshes.Mesh`` (one process a
 shard, every rank running the same step): each rank holds its batch rows
 (the data axes), its head, FFN, vocab, expert and SSM head-group slices
 of the params (the "model" axis, through the rule table; every family
-trains at "model" > 1) and, under ZeRO-1, its slice of each moment
-(``distributed.zero``). The rank's forward and backward run
+trains at "model" > 1, the heads replicated where the axis would not cut
+them whole: ``sharding.train_rules``) and, under ZeRO-1, its slice of
+each moment (``distributed.zero``). The rank's forward and backward run
 the model's tensor-parallel collectives (``Model`` with a ``TrainShard``);
 the gradients are then summed over the data axes, into the moment
 slices under ZeRO-1 (one ``reduce_scatter``), else everywhere (one
@@ -57,6 +58,7 @@ from repro_torch.distributed.sharding import (NamedSharding, P, TrainShard,
                                               _pairs, expected_train_census,
                                               resolve_spec, resolve_tree,
                                               rules_for_mesh, train_cuts,
+                                              train_rules,
                                               validate_divisibility)
 from repro_torch.distributed.zero import (moment_shardings, param_slice,
                                           zero1_dim)
@@ -258,22 +260,6 @@ def _batch_sharding(mesh, rules, batch_specs) -> BatchSharding:
     return BatchSharding(mesh, axes)
 
 
-def check_trainable(cfg, mesh, rules) -> None:
-    """Raise where a "model" axis of more than one rank cuts the heads so
-    that a q head, or a kv head group, lies on no single rank (published
-    hymba-1.5b's 25 q heads at model 2 or 4). Every family trains at any
-    "model" axis whose cuts divide (the preflight,
-    ``validate_divisibility``, checks the rest)."""
-    m = mesh.shape.get("model", 1)
-    if m == 1 or not train_cuts(cfg, mesh.shape, rules)["heads"]:
-        return
-    hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    if hq % m or (hkv % m and m % hkv):
-        raise ValueError(
-            f"{cfg.name}: {hq} q / {hkv} kv heads do not cut over {m} "
-            f"\"model\" ranks into whole q heads with their kv head")
-
-
 def _rank_cfg(cfg, shard: TrainShard):
     """The config of a rank's model: its q and kv heads, d_ff and experts
     where they are cut (the SSM reads its head group off the shard)."""
@@ -320,10 +306,10 @@ def make_sharded_train_step(model: Model, optimizer: Optimizer, mesh, *,
     the rank's params are updated in place (the moments always are).
     ``on_grads``: called every step with the summed gradients before
     clipping, fp32, a tree of the rank's moment slices
-    (``shardings["opt"]["mu"]`` gathers them)."""
-    rules = rules or rules_for_mesh(mesh)
+    (``shardings["opt"]["mu"]`` gathers them). ``rules`` pass through
+    ``sharding.train_rules``."""
     cfg = model.cfg
-    check_trainable(cfg, mesh, rules)
+    rules = train_rules(cfg, mesh.shape, rules or rules_for_mesh(mesh))
     specs, shapes = model.param_specs(), model.param_shapes()
     problems = validate_divisibility(shapes, specs, mesh, rules)
     if problems:

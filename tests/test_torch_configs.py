@@ -14,6 +14,7 @@ import pytest
 
 from repro.configs import ARCHS as jax_archs
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
 from repro.configs import reduced_config as jax_reduced_config
 from repro.models.attention_layer import attn_spec_from_config as jax_spec
 from repro_torch.configs import ARCHS, get_config, list_archs, reduced_config
@@ -41,7 +42,8 @@ def test_registry_holds_the_dense_archs():
     encoder-decoder and vision-language archs, under the reference's names
     and families: every arch of the reference."""
     assert sorted(ARCHS) == sorted(DENSE + MOE + SSM + ENCDEC + VLM) \
-        == list_archs() == sorted(jax_archs)
+        == sorted(jax_archs)
+    assert list_archs() == jax_list_archs()
     assert {a for a in ARCHS if get_config(a).family == "dense"} == set(DENSE)
     assert {a for a in ARCHS if get_config(a).family == "moe"} == set(MOE)
     assert get_config("mamba2-2.7b").family == "ssm"

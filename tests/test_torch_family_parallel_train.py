@@ -11,15 +11,19 @@ whole batch:
     cut across the ranks;
   * reduced mamba2-2.7b cut by SSM head group at model 2, model 4 (remat)
     and data 2 x model 2 with ZeRO-1; reduced hymba-1.5b at model 2 (attention heads, SSM head
-    groups, MLP; remat), and with its SSM whole on every rank (3 SSM heads:
-    its widths do not cut, as ``auto_rules`` finds);
+    groups, MLP; remat), with its SSM whole on every rank (3 SSM heads of
+    64 and 1 of 128: their widths do not cut, as ``auto_rules`` finds),
+    and at 5 q / 1 kv heads, published hymba's ratio, whose heads do not
+    cut whole over 2 ranks (``train_rules`` replicates the attention);
   * reduced seamless-m4t-medium (encoder, cross-attention) and
     phi-3-vision-4.2b (patches through the replicated ``frontend_proj``)
     at model 2.
 
 Each case: losses within 1e-4 relative of the JAX step's, the first
 step's gradients of layer 0 (and of ``frontend_proj``), summed over the
-ranks and gathered, within 1e-4 of their largest, the MoE's routes at
+ranks and gathered, within 1e-4 of their largest (with one SSM head,
+``D``'s gradient within ``D_GRAD_RTOL`` of the reference's float64
+value instead), the MoE's routes at
 every step equal to the reference's, and every rank's census of every
 step equal to ``expected_train_census``. Also: the SSM's head-group
 pieces (``Pieces``) cut and gathered back bit for bit, params and ZeRO-1
@@ -29,6 +33,7 @@ moments, and a mamba2 checkpoint saved at model 2 resumed in one process.
 import concurrent.futures
 import functools
 import threading
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -44,7 +49,8 @@ from repro.train import make_train_step as jax_make_train_step
 from repro_torch.configs import reduced_config
 from repro_torch.core.tree import tree_map
 from repro_torch.distributed import launch
-from repro_torch.distributed.sharding import auto_rules, train_cuts
+from repro_torch.distributed.sharding import (auto_rules, train_cuts,
+                                              train_rules)
 from repro_torch.models import build_model, params_from_jax
 from repro_torch.optim import adamw
 from repro_torch.train import Trainer, TrainerConfig, make_train_step
@@ -55,7 +61,9 @@ ADAMW = {"name": "adamw", "lr": 1e-3}
 
 # name: (arch, (data, model), config overrides, run keywords)
 CASES2 = {
-    "olmoe": ("olmoe-1b-7b", (1, 2), {}, {}),
+    # step_routes: before steps 2 and 3 the mesh's weights are gathered
+    # and one forward of the whole model routes the step's tokens
+    "olmoe": ("olmoe-1b-7b", (1, 2), {}, {"step_routes": True}),
     "olmoe_drop": ("olmoe-1b-7b", (1, 2), {"moe_capacity_factor": 0.25}, {}),
     "phi35moe": ("phi3.5-moe-42b-a6.6b", (1, 2), {}, {}),
     "mamba2": ("mamba2-2.7b", (1, 2), {}, {}),
@@ -64,6 +72,14 @@ CASES2 = {
     # auto_rules keeps the SSM whole on every rank beside the cut heads
     "hymba_ssm_whole": ("hymba-1.5b", (1, 2),
                         {"ssm_expand": 3, "ssm_head_dim": 64}, {}),
+    # one SSM head of 128, whole on every rank too; its D gradient is
+    # held against the float64 value (test_layer0_grads_match_jax)
+    "hymba_ssm_one_head": ("hymba-1.5b", (1, 2), {"ssm_head_dim": 128}, {}),
+    # 5 q / 1 kv heads, published hymba's ratio (25 / 5): they do not cut
+    # whole over 2 ranks, so train_rules replicates the attention beside
+    # the cut SSM and MLP
+    "hymba_gqa5": ("hymba-1.5b", (1, 2),
+                   {"num_heads": 5, "num_kv_heads": 1}, {}),
     "seamless": ("seamless-m4t-medium", (1, 2), {}, {}),
     "phi3v": ("phi-3-vision-4.2b", (1, 2), {}, {}),
 }
@@ -76,6 +92,14 @@ CASES4 = {
     "mamba2_dp2tp2": ("mamba2-2.7b", (2, 2), {}, {"zero1": True}),
 }
 CASES = {**CASES2, **CASES4}
+SSM_WHOLE = ("hymba_ssm_whole", "hymba_ssm_one_head")
+# one SSM head: D's gradient is one sum over every (row, step, channel)
+# whose terms nearly cancel, so float32 rounding on either side moves it
+# far more than any other leaf. Measured at layer 0 (the test prints
+# it): the JAX step's float32 value 7.7e-2 from the float64 one, the
+# port's 4.7e-3. The port is held to the float64 value within
+# D_GRAD_RTOL.
+D_GRAD_RTOL = 1e-2
 
 
 def batches(cfg, n=STEPS, rows=8, seq=32, seed=5):
@@ -257,10 +281,11 @@ def test_losses_and_census_match_jax(name, ckpt_dir):
     arch, shape, _, _ = CASES[name]
     cfg = weights(name)[0]
     mesh = {"data": shape[0], "model": shape[1]}
-    cuts = train_cuts(cfg, mesh, auto_rules(cfg, mesh, global_batch=8))
+    cuts = train_cuts(cfg, mesh, train_rules(
+        cfg, mesh, auto_rules(cfg, mesh, global_batch=8)))
     assert cuts["experts"] == (cfg.family == "moe")
-    assert cuts["ssm"] == (cfg.ssm_state > 0 and name != "hymba_ssm_whole")
-    assert cuts["heads"] == (cfg.num_heads > 0)
+    assert cuts["ssm"] == (cfg.ssm_state > 0 and name not in SSM_WHOLE)
+    assert cuts["heads"] == (cfg.num_heads > 0 and name != "hymba_gqa5")
 
 
 def _close(got, want):
@@ -268,13 +293,54 @@ def _close(got, want):
     np.testing.assert_allclose(got / s, want / s, atol=1e-4, rtol=0)
 
 
+def _float64_d_grads(name):
+    """The JAX loss's first-step gradient of every layer's SSM ``D`` in
+    float64: the reference's float32 weights and batch cast to float64,
+    traced with x64 on and every float32 cast of the reference made a
+    float64 one (``jnp.float32`` patched while it traces, after every
+    other reference has finished tracing)."""
+    for future in _references().values():
+        future.result()
+    arch, _, kw, _ = CASES[name]
+    jmodel = jax_build_model(jax_reduced_config(arch, **dict(kw,
+                                                             remat=False)))
+    params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    batch = batches(weights(name)[0])[0]
+
+    def f64(a):
+        return a.astype(np.float64) if a.dtype == np.float32 else a
+
+    with jax.enable_x64(True), mock.patch.object(jnp, "float32",
+                                                 jnp.float64):
+        grads = jax.grad(lambda p: jmodel.loss(
+            p, {k: jnp.asarray(f64(v)) for k, v in batch.items()},
+            deterministic=True)[0])(jax.tree.map(f64, params))
+        d = np.asarray(grads["blocks"]["ssm"]["D"])
+    assert d.dtype == np.float64
+    return d
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_layer0_grads_match_jax(name, ckpt_dir):
     got = records(name, ckpt_dir)[0]["grads"]
     _, want, _ = jax_run(name)
+    one_head = name == "hymba_ssm_one_head"
+    if one_head:
+        d64 = _float64_d_grads(name)[0]
+        d = got["blocks"][0]["ssm"]["D"]
+        print(f"layer 0's D gradient: float64 {d64}, the port's {d} "
+              f"({float(abs(d[0] / d64[0] - 1)):.2e} off), JAX float32 "
+              f"{want['blocks'][0]['ssm']['D']} "
+              f"({float(abs(want['blocks'][0]['ssm']['D'][0] / d64[0] - 1)):.2e}"
+              f" off)")
+        np.testing.assert_allclose(d, d64, rtol=D_GRAD_RTOL, atol=0)
     for key in ("blocks", "enc_blocks"):
         if key in want:
-            tree_map(_close, got[key][0], want[key][0])
+            pair = (got[key][0], want[key][0])
+            if one_head and key == "blocks":      # D: against float64
+                pair = [dict(b, ssm={k: v for k, v in b["ssm"].items()
+                                     if k != "D"}) for b in pair]
+            tree_map(_close, *pair)
     if "frontend_proj" in want:
         _close(got["frontend_proj"], want["frontend_proj"])
     block = got["blocks"][0]
@@ -309,6 +375,16 @@ def test_routes_equal_reference(name, ckpt_dir):
                     np.testing.assert_array_equal(
                         idx, want[s][l][b0:b0 + rows],
                         err_msg=f"step {s} layer {l}")
+    if CASES[name][3].get("step_routes"):
+        # the gathered weights' forward routes as the mesh did at that step
+        gathered = recs[0]["step_routes"]
+        assert len(gathered) == STEPS - 1
+        assert all(r.get("step_routes") is None for r in recs[1:])
+        for s, calls in enumerate(gathered, start=1):
+            assert len(calls) == cfg.num_layers
+            for l, (idx, probs) in enumerate(calls):
+                assert probs.shape == idx.shape[:-1] + (cfg.num_experts,)
+                np.testing.assert_array_equal(idx, want[s][l])
     if CASES[name][2].get("moe_capacity_factor") == 0.25:
         # capacity drops tokens: some expert gets more than its buffer
         cap = max(int(0.25 * 32 * 2 / cfg.num_experts + 0.999), 1)

@@ -19,9 +19,11 @@ ranks; ``repro_torch.distributed.launch.train``, each rank importing only
     internlm2-20b and gpt2-medium at model 2 against the JAX step;
   * reduced olmoe-1b-7b and mamba2-2.7b data-parallel at data 2, with and
     without ZeRO-1, and at model 2 (experts and SSM head groups cut),
-    against the JAX step; published hymba-1.5b refused at model 2 with its
-    heads named (``tests/test_torch_family_parallel_train.py`` holds every
-    family at model > 1 in depth);
+    against the JAX step; published hymba-1.5b's step built at model 2 and
+    4, its heads replicated (``train_rules``), its SSM and MLP cut
+    (``tests/test_torch_family_parallel_train.py`` holds every family at
+    model > 1 in depth, reduced hymba with heads that do not cut whole
+    among them);
   * attention dropout 0.1 at data 2 x model 2 against the single-rank
     port step, and the keep mask at (b0, h0, H) a slice of the
     reference's ``full_dropout_keep_mask``;
@@ -60,7 +62,8 @@ from repro_torch.distributed import launch
 from repro_torch.distributed.meshes import data_axis_names, num_data_shards
 from repro_torch.distributed.sharding import (P, auto_rules,
                                               expected_train_census,
-                                              resolve_spec, rules_for_mesh)
+                                              resolve_spec, rules_for_mesh,
+                                              train_cuts, train_rules)
 from repro_torch.distributed.zero import zero1_state_specs
 from repro_torch.kernels.ref import full_dropout_keep_mask
 from repro_torch.models import build_model, params_from_jax
@@ -178,6 +181,10 @@ RUNS4 = {
     "dropout": lambda tmp: dict(run("granite-3-2b", (2, 2)),
                                 cfg=dropout_cfg(), deterministic=False),
     "granite_nozero": lambda tmp: run("granite-3-2b", (2, 2), zero1=False),
+    "hymba_model4": lambda tmp: {"cfg": get_config("hymba-1.5b"),
+                                 "shape": (1, 4),
+                                 "optimizer": OPTS["adamw"][0],
+                                 "batches": batches(), "expect_error": True},
 }
 
 
@@ -333,19 +340,32 @@ def test_dense_decoders_at_model2_match_jax(arch, ckpt_dir):
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-2.7b",
                                   "hymba-1.5b"])
-def test_moe_and_ssm_refused_at_model2(arch, ckpt_dir):
-    """The MoE and the SSM, once refused at model 2, train there (experts
-    and SSM head groups cut over "model") against the JAX step, every
-    rank's census the expected; what is still refused is heads that do
-    not cut whole: published hymba-1.5b's 25 q / 5 kv heads at model 2,
-    named in the message."""
-    recs = spawned2(ckpt_dir)[(arch, "model2")]
+def test_moe_ssm_and_hybrid_at_model2(arch, ckpt_dir):
+    """The MoE and the SSM train at model 2 (experts and SSM head groups
+    cut over "model") against the JAX step, every rank's census the
+    expected; published hymba-1.5b's 25 q / 5 kv heads of 64, which do not
+    cut whole over 2 or 4 ranks, build a step at model 2 and at model 4
+    with no error: ``train_rules`` replicates the heads, the SSM is cut by
+    head group at model 2 (its widths do not divide by 4, so ``auto_rules``
+    keeps it whole there) and the MLP at both."""
     if arch == "hymba-1.5b":
-        for rec in recs:
-            assert rec["error"] is not None
-            assert "25 q / 5 kv heads" in rec["error"]
-            assert "hymba-1.5b" in rec["error"]
+        cfg = get_config(arch)
+        for recs, m in ((spawned2(ckpt_dir)[(arch, "model2")], 2),
+                        (spawned4(ckpt_dir)["hymba_model4"], 4)):
+            for rec in recs:
+                assert rec["error"] is None, rec["error"]
+            shape = {"data": 1, "model": m}
+            rules = auto_rules(cfg, shape, global_batch=8)
+            assert rules["heads"] == "model"       # the reference's rules
+            run_rules = train_rules(cfg, shape, rules)
+            assert run_rules == dict(rules, heads=None)
+            assert train_cuts(cfg, shape, run_rules) == {
+                "heads": False, "ff": True, "vocab": False,
+                "experts": False, "ssm": m == 2}
+            assert train_cuts(cfg, shape, rules) == train_cuts(
+                cfg, shape, run_rules)
         return
+    recs = spawned2(ckpt_dir)[(arch, "model2")]
     check_ranks(recs)
     want, _ = jax_run(arch, "adamw")
     np.testing.assert_allclose(losses(recs), want, rtol=1e-4)
