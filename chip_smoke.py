@@ -284,7 +284,7 @@ Phases:
    steps at data 2 x model 2 with ZeRO-1 and at data 4 against the
    single-rank step on the card (losses within ``TRAIN_MESH_RTOL``, every
    rank's census of every step ``expected_train_census``); granite-3-2b
-   at 8 of 40 layers in bf16 at data 2 x model 2 with ZeRO-1, 4 steps of
+   at 4 of 40 layers in bf16 at data 2 x model 2 with ZeRO-1, 4 steps of
    the launcher's recipe on its batches (seq 2048 x 4), losses within
    ``DP2TP2_LOSS_RTOL`` of the single-rank bf16 step's, ms a step, peak
    memory and launches a rank (#1-#3 on every rank; rank 0's counts are
@@ -304,8 +304,8 @@ Phases:
    near-ties: step 1 against the single rank, every later step against
    one forward of the mesh's own weights gathered onto rank 0; every
    rank's census of every step ``expected_train_census``);
-   olmoe-1b-7b at 4 of 16 layers (expert-parallel, model 4) and
-   mamba2-2.7b at 8 of 64 layers (cut by SSM head group, model 4) in bf16,
+   olmoe-1b-7b at 2 of 16 layers (expert-parallel, model 4) and
+   mamba2-2.7b at 4 of 64 layers (cut by SSM head group, model 4) in bf16,
    4 steps of the launcher's recipe at seq 2048 x 4, losses within
    ``DP2TP2_LOSS_RTOL`` of the single-rank bf16 step's, ms a step, peak
    memory, collectives and launches a rank (rank 0's #1-#3 are the
@@ -320,6 +320,23 @@ Phases:
    every run against a float32 run of the same weights, printed), with
    ms, peak memory and score bytes a layer; then float32 at 2 layers,
    banded within 1e-4 of chunked.
+21. tuning (``tuning_phase``, run last, after every profiled phase): the
+   tuner (``kernels/tuning.py``) with autotuning on and a fresh cache
+   (``build/autotune.json``): the attention tiles at granite-3-2b's layer
+   (32 q / 8 kv heads of 64, forward, and forward + backward under
+   ``|bwd``), at train-dp2tp2's rank layer (16 / 4 heads, ``shards=2``,
+   backward) and at olmo-1b's (16 / 16 heads of 128, forward), each at a
+   bucket of 2048 rows, causal, bf16; the contiguous decode at 2048 slots
+   and the paged decode at page 16 over 2048; the sp strategy at sp 2.
+   Every timed candidate's ms and spread, the winner and its source are
+   printed (granite's forward also tuned into a second fresh cache); a
+   second resolution of each must come from the cache; every winner is
+   held against its plain version (|o| 2e-2, gradients 2e-2 of their
+   max); the calibration of the IO model's bytes against the clock is
+   printed beside 3.35 TB/s; then ``python -m repro_torch.kernels.tuning
+   --smoke --device cuda`` runs twice, the second time with
+   ``--expect-hit``, and both must exit 0. Autotuning is off again after
+   the phase, so no path's tiles move.
 
 ``--ab PARENT_CHECKOUT`` runs only an A/B against another checkout (e.g.
 ``git archive`` of the parent commit): first both checkouts' kernel
@@ -354,6 +371,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -4108,12 +4126,13 @@ def tp_serving_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
 PARITY_TRAIN_MESHES = (((2, 2), True), ((4, 1), False))
 PARITY_TRAIN = (256, 4, 3)                # seq, global batch, steps
 TRAIN_MESH_RTOL = 1e-4
-# train-dp2tp2: granite-3-2b at full width, 8 of 40 layers, bf16, seq 2048,
+# train-dp2tp2: granite-3-2b at full width, 4 of 40 layers (cut to keep the
+# script under 950 s), bf16, seq 2048,
 # global batch 4 (2 rows a data rank), ZeRO-1, 4 AdamW steps of the
 # launcher's recipe on its batches; each step's loss within this relative
 # bound of the single-rank bf16 step's (PERF.md §6, set before the first
 # card run)
-DP2TP2 = ((2, 2), 8, 2048, 4, 4)          # mesh, layers, seq, batch, steps
+DP2TP2 = ((2, 2), 4, 2048, 4, 4)          # mesh, layers, seq, batch, steps
 DP2TP2_LOSS_RTOL = 2e-3
 # pipeline-2: two 2-stage pipelines (the "pipe" axis of a (2, 2) mesh) of
 # the reference's residual tanh layers, fp32 on the card
@@ -4203,7 +4222,7 @@ def train_mesh_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
       against the single-rank ``make_train_step`` on the card: losses
       within ``TRAIN_MESH_RTOL``, every rank's census of every step the
       ``expected_train_census``;
-    * train-dp2tp2: granite-3-2b at full width, 8 of 40 layers, bf16,
+    * train-dp2tp2: granite-3-2b at full width, 4 of 40 layers, bf16,
       seq 2048, global batch 4, ZeRO-1, 4 steps of the launcher's recipe
       on its batches, #1, #2 and #3 at 16 q / 4 kv heads a rank: losses
       within ``DP2TP2_LOSS_RTOL`` of the single-rank bf16 step's, ms a
@@ -4391,8 +4410,8 @@ PARITY_FAMILY_TEXT = {"phi-3-vision-4.2b": 64,      # tokens after 576 patches
 # train-ep4 / train-ssm-tp4: arch, (data, model), layers, seq, batch, steps,
 # bf16, the launcher's recipe; losses within DP2TP2_LOSS_RTOL of the single
 # rank's (the prediction in PERF.md §6, set before the first card run)
-TRAIN_EP4 = ("olmoe-1b-7b", (1, 4), 4, 2048, 4, 4)
-TRAIN_SSM_TP4 = ("mamba2-2.7b", (1, 4), 8, 2048, 4, 4)
+TRAIN_EP4 = ("olmoe-1b-7b", (1, 4), 2, 2048, 4, 4)
+TRAIN_SSM_TP4 = ("mamba2-2.7b", (1, 4), 4, 2048, 4, 4)
 
 
 def family_batches(cfg, seq: int, batch: int, steps: int, seed: int) -> list:
@@ -4450,8 +4469,8 @@ def train_family_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
       on rank 0 with the mesh's weights of that step gathered, over the
       step's tokens), a flip only at a near-tie (gap <= ``ROUTE_TIE``),
       every rank's census of every step the expected;
-    * train-ep4 / train-ssm-tp4: olmoe-1b-7b (4 layers, 16 experts and
-      4 / 4 heads of 128 a rank) and mamba2-2.7b (8 layers, 20 SSM heads a
+    * train-ep4 / train-ssm-tp4: olmoe-1b-7b (2 layers, 16 experts and
+      4 / 4 heads of 128 a rank) and mamba2-2.7b (4 layers, 20 SSM heads a
       rank) at model 4 in bf16, 4 steps of the launcher's recipe at seq
       2048 x 4: losses within ``DP2TP2_LOSS_RTOL`` of the single-rank bf16
       step's, ms a step, peak memory, collectives and launches by rank.
@@ -4793,6 +4812,254 @@ def levers_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     return ({"arch": arch, "layers": layers, "batch": b, "seq": s,
              "runs": runs, "float32_banded_vs_chunked": f32_errs,
              "card": card}, {"levers": launches})
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the tuner, autotuning on the card
+# ---------------------------------------------------------------------------
+
+# the autotuned shapes: (tag, arch, heads divided by, head_dim taken from
+# the arch, shards, backward); every one at a bucket of 2048 rows, causal
+TUNING_TILES = (("granite-fwd", "granite-3-2b", 1, 1, False),
+                ("granite-bwd", "granite-3-2b", 1, 1, True),
+                ("dp2tp2-bwd", "granite-3-2b", 2, 2, True),
+                ("olmo-fwd", "olmo-1b", 1, 1, False))
+TUNING_SEQ = 2048
+TUNING_DECODE = ((None, 2048), (16, 2048))   # (page_size, capacity)
+TUNING_SP = (256, 2048, 2)                   # chunk, prefix, sp
+
+
+def _new_entry(path: pathlib.Path, before: set, resolve):
+    """Run ``resolve`` and return (its result, the one cache entry it
+    added under its key)."""
+    out = resolve()
+    entries = json.loads(path.read_text())["entries"]
+    (key,) = set(entries) - before
+    return out, key, entries[key]
+
+
+def _tile_winner_errs(torch, gen, hq, hkv, d, bq, bk, backward) -> dict:
+    """The forward kernel at the winning tiles against its plain version
+    (and, for a backward winner, the dq / dkv kernels from the kernel
+    forward's residuals against the plain backward), at the timed shape
+    (1, hq, TUNING_SEQ, d), causal, bf16."""
+    from repro_torch.core import masks as M
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    S = TUNING_SEQ
+
+    def randn(*shp):
+        return torch.randn(*shp, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    q, k, v, do = randn(1, hq, S, d), randn(1, hkv, S, d), \
+        randn(1, hkv, S, d), randn(1, hq, S, d)
+    layout = M.compile_block_layout(M.MaskSpec(causal=True), S, S, bq,
+                                    bk).as_array(dev)
+    call = dict(scale=d ** -0.5, causal=True, window=None, q_offset=0,
+                block_q=bq, block_k=bk)
+    o, m, l = fa.flash_attention_forward(q, k, v, None, layout, **call)
+    po = plain_by_heads(torch, fa.flash_attention_forward_plain, (q, k, v),
+                        (None, layout), call)[0]
+    errs = {"o": float((o.float() - po.float()).abs().max())}
+    check(errs["o"] <= 2e-2, f"tuning: flash_fwd at {bq}x{bk} d {d}: max "
+                             f"|o - plain| {errs['o']}")
+    if backward:
+        res = (q, k, v, o, do, m, l, None, layout)
+        got = fa.flash_attention_backward(*res, **call)
+        want = plain_by_heads(torch, fa.flash_attention_backward_plain,
+                              res[:7], res[7:], call)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs[name] = scaled_err(g, w)
+            check(errs[name] <= 2e-2, f"tuning: flash_bwd at {bq}x{bk} d "
+                                      f"{d}: {name} scaled error "
+                                      f"{errs[name]}")
+    return errs
+
+
+def _decode_winner_err(torch, gen, d, blk, splits, page_size, cap) -> float:
+    """The whole decode at the winning geometry against the plain partials
+    and torch merge: 2 sequences of 8 q / 2 kv heads, kv_len 2048 and
+    1500, bf16."""
+    from repro_torch.core import masks as M
+    from repro_torch.kernels import flash_decode as fd
+
+    dev = torch.device("cuda")
+    q = torch.randn(2, 8, 1, d, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    kv_len = torch.tensor([cap, 1500], dtype=torch.int32, device=dev)
+    if page_size is None:
+        kc, vc = (torch.randn(2, 2, cap, d, generator=gen, device=dev,
+                              dtype=torch.bfloat16) for _ in range(2))
+        lay = M.kv_block_layout(M.decode_kv_valid(kv_len, cap), blk)
+        call = dict(scale=d ** -0.5, block_k=blk, num_splits=splits,
+                    window=None)
+        args = (q, kc, vc, kv_len, lay)
+        plain = fd.flash_decode_partials_plain
+    else:
+        pages = cap // page_size
+        kc, vc = (torch.randn(2, 2 * pages, page_size, d, generator=gen,
+                              device=dev, dtype=torch.bfloat16)
+                  for _ in range(2))
+        table = torch.randperm(2 * pages, generator=gen, device=dev).to(
+            torch.int32).reshape(2, pages)
+        lay = M.paged_block_layout(kv_len, table, page_size)
+        call = dict(scale=d ** -0.5, num_splits=splits, window=None)
+        args = (q, kc, vc, table, kv_len, lay)
+        plain = fd.flash_decode_paged_partials_plain
+    o, _ = whole_decode(fd, paged=page_size is not None)(*args, **call)
+    want = fd._merge_split_partials(*plain(*args, **call), q.dtype)
+    err = float((o.float() - want.float()).abs().max())
+    check(err <= 2e-2, f"tuning: decode at block {blk} splits {splits}: "
+                       f"max |o - plain| {err}")
+    return err
+
+
+def tuning_phase(torch, seed: int, card: str) -> dict:
+    """Phase 21: the tuner on the card (``kernels/tuning.py``), with
+    autotuning on and a fresh cache under build/: the attention tiles at
+    ``TUNING_TILES`` (forward, or forward + backward under ``|bwd``), the
+    contiguous decode at 2048 slots and the paged decode at page 16 over
+    2048, then the sp strategy at sp 2. Each first resolution times its
+    candidates (the kernels at each tile, layouts compiled outside the
+    clock, CUDA events around back-to-back calls queued behind a sleep;
+    every candidate's ms and spread, the winner and its source printed); granite's forward is tuned again into a second fresh cache
+    and that winner printed; each second resolution must come from the
+    cache; each winner
+    is held against its plain version (bf16 bounds: |o| 2e-2, gradients
+    2e-2 of their max); the calibration of the IO model's bytes against
+    the clock is printed beside 3.35 TB/s. Then the ``--smoke`` CLI runs
+    twice in a subprocess, the second time with ``--expect-hit``. Autotuning
+    is off again after the phase, whatever happens in it."""
+    import subprocess
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import tuning
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+    path = ROOT / "build" / "autotune.json"
+    path.unlink(missing_ok=True)
+    saved = dict(tuning._STATE)
+    tuning.configure_tuning(autotune=True, cache_path=str(path))
+    rec = {"card": card, "tiles": {}, "decode": {}}
+    try:
+        before = set()
+        for tag, arch, div, shards, backward in TUNING_TILES:
+            cfg = get_config(arch)
+            hq, hkv, d = (cfg.num_heads // div, cfg.num_kv_heads // div,
+                          cfg.head_dim)
+            kw = dict(dtype=torch.bfloat16, mask_class="causal",
+                      backward=backward, heads_q=hq, heads_kv=hkv,
+                      shards=shards, device=dev)
+            first, key, entry = _new_entry(path, before, lambda: tuning.
+                                           autotune_tiles(TUNING_SEQ,
+                                                          TUNING_SEQ, d, **kw))
+            before.add(key)
+            again = tuning.autotune_tiles(TUNING_SEQ, TUNING_SEQ, d, **kw)
+            check(first.source == "autotuned" and again.source == "cache"
+                  and (again.block_q, again.block_k)
+                  == (first.block_q, first.block_k),
+                  f"tuning {tag}: first {first.source}, second "
+                  f"{again.source}")
+            ms = {c: us / 1e3 for c, us in entry["candidates_us"].items()}
+            spread = {c: us / 1e3 for c, us in entry["spread_us"].items()}
+            errs = _tile_winner_errs(torch, gen, hq, hkv, d, first.block_q,
+                                     first.block_k, backward)
+            print(f"[tuning] {tag} (1, {hq}/{hkv}, {TUNING_SEQ}, {d}) "
+                  f"causal{' fwd+bwd' if backward else ''} shards {shards}: "
+                  f"candidates ms {ms} (spread ms {spread}); winner "
+                  f"{first.block_q}x{first.block_k} ({first.source}, then "
+                  f"{again.source}); against plain {errs}", flush=True)
+            rec["tiles"][tag] = {"key": key, "candidates_ms": ms,
+                                 "spread_ms": spread,
+                                 "winner": [first.block_q, first.block_k],
+                                 "model_hbm_bytes": entry["model_hbm_bytes"],
+                                 "errs": errs}
+            if tag == "granite-fwd":
+                # the same shape tuned again into a second fresh cache: the
+                # winner a later run would persist (printed, not held: a
+                # flip means the clock still cannot tell the tiles apart)
+                fresh = ROOT / "build" / "autotune_again.json"
+                fresh.unlink(missing_ok=True)
+                tuning.configure_tuning(cache_path=str(fresh))
+                twice = tuning.autotune_tiles(TUNING_SEQ, TUNING_SEQ, d, **kw)
+                tuning.configure_tuning(cache_path=str(path))
+                rec["tiles"][tag]["fresh_winner"] = [twice.block_q,
+                                                     twice.block_k]
+                print(f"[tuning] {tag} in a second fresh cache: winner "
+                      f"{twice.block_q}x{twice.block_k}", flush=True)
+        for page_size, cap in TUNING_DECODE:
+            tag = "contig" if page_size is None else f"paged{page_size}"
+            d = get_config("granite-3-2b").head_dim
+            kw = dict(dtype=torch.bfloat16, page_size=page_size, device=dev)
+            first, key, entry = _new_entry(
+                path, before,
+                lambda: tuning.autotune_decode_geometry(cap, d, **kw))
+            before.add(key)
+            again = tuning.autotune_decode_geometry(cap, d, **kw)
+            check(first.source == "autotuned" and again.source == "cache",
+                  f"tuning decode {tag}: first {first.source}, second "
+                  f"{again.source}")
+            splits = [int(c.split("x")[1]) for c in entry["candidates_us"]]
+            check(max(splits) <= tuning.MAX_DECODE_SPLITS,
+                  f"tuning decode {tag}: timed {max(splits)} splits")
+            ms = {c: us / 1e3 for c, us in entry["candidates_us"].items()}
+            spread = {c: us / 1e3 for c, us in entry["spread_us"].items()}
+            err = _decode_winner_err(torch, gen, d, first.decode_block_k,
+                                     first.num_decode_splits, page_size, cap)
+            print(f"[tuning] decode {tag} over {cap}, d {d}: candidates ms "
+                  f"{ms} (spread ms {spread}); winner block "
+                  f"{first.decode_block_k} splits "
+                  f"{first.num_decode_splits} ({first.source}, then "
+                  f"{again.source}); max |o - plain| {err:.3g}", flush=True)
+            rec["decode"][tag] = {"key": key, "candidates_ms": ms,
+                                  "spread_ms": spread,
+                                  "winner": [first.decode_block_k,
+                                             first.num_decode_splits],
+                                  "err": err}
+        cfg = get_config("granite-3-2b")
+        chunk, prefix, sp = TUNING_SP
+        kw = dict(heads_q=cfg.num_heads, heads_kv=cfg.num_kv_heads, sp=sp,
+                  dtype=cfg.dtype, layers=cfg.num_layers, device=dev)
+        res = tuning.resolve_sp_strategy(chunk, prefix, cfg.head_dim, **kw)
+        again = tuning.resolve_sp_strategy(chunk, prefix, cfg.head_dim, **kw)
+        check(again["source"] == "cache"
+              and again["strategy"] == res["strategy"],
+              f"tuning sp: second resolution {again['source']}")
+        print(f"[tuning] sp {sp} chunk {chunk} prefix {prefix}: strategy "
+              f"{res['strategy']} at slab tile {res['tiles'].block_q} "
+              f"({res['source']}, then {again['source']})", flush=True)
+        rec["sp"] = {"strategy": res["strategy"],
+                     "block_q": res["tiles"].block_q}
+        kind = torch.cuda.get_device_name(0).replace("|", "_")
+        cal = tuning.autotune_cache().calibration(kind)
+        check(cal is not None, "tuning: no calibration sample")
+        print(f"[tuning] calibration[{kind}]: io_model-implied "
+              f"{cal['model_bytes_per_s'] / 1e9:.2f} GB/s over "
+              f"{cal['samples']} timed samples = {cal['vs_nominal']:.4f}x "
+              f"nominal ({tuning.nominal_hbm_bw(kind) / 1e9:.0f} GB/s); "
+              f"{card}", flush=True)
+        rec["calibration"] = cal
+    finally:
+        tuning._STATE.update(saved)
+        tuning.configure_tuning(cache_path=saved["cache_path"])
+    smoke = ROOT / "build" / "autotune_smoke.json"
+    smoke.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "repro_torch.kernels.tuning", "--smoke",
+           "--device", "cuda", "--cache", str(smoke)]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    rec["cli"] = []
+    for extra in ([], ["--expect-hit"]):
+        out = subprocess.run(cmd + extra, env=env, capture_output=True,
+                             text=True, timeout=300)
+        print(f"[tuning] cli{' --expect-hit' if extra else ''} exit "
+              f"{out.returncode}:\n{out.stdout.strip()}", flush=True)
+        check(out.returncode == 0, f"tuning cli {extra}: exit "
+                                   f"{out.returncode}: {out.stderr[-2000:]}")
+        rec["cli"].append(out.stdout)
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -5302,6 +5569,10 @@ def main() -> int:
         for name, entry in entries.items():
             at_shapes.setdefault(name, {})[path] = entry
     lap("serve_shape_records")
+    # last: after its CLI runs (child processes on the card) one run's
+    # torch.profiler recorded no whole window in ten tries
+    tuning_rec = tuning_phase(torch, args.seed, card)
+    lap("tuning")
     for name in TRAIN_KERNELS:       # train-olmoe's attention is train-olmo's
         at_shapes[name]["train_olmoe"] = dict(at_shapes[name]["train_olmo"])
     for rec in kernels:
@@ -5341,7 +5612,7 @@ def main() -> int:
               "phi3v_parity": phi3v_parity, "serve_phi3v": serve_phi3v,
               "train_phi3v": train_phi3v, "tp_serving": tp_serving,
               "train_mesh": train_mesh, "train_family": train_family,
-              "levers": levers, "phase_end_s": laps,
+              "levers": levers, "tuning": tuning_rec, "phase_end_s": laps,
               "total_s": time.perf_counter() - t_start}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(f"[done] total {record['total_s']:.1f}s", flush=True)

@@ -64,7 +64,8 @@ class AttentionSpec:
     use_decode_kernel: bool = False
     pv_bf16: bool = False           # bf16 P and V for P@V (fp32 sums)
     banded_window: bool = False     # banded layout for sliding-window attn
-    tp_shards: int = 1              # decode split target (tuning)
+    tp_shards: int = 1              # tensor-parallel shards: tiles and
+                                    # decode split target (tuning)
 
 
 def attention(
@@ -102,7 +103,7 @@ def attention(
             q, k, v, dropout_p=dropout_p, dropout_seed=dropout_seed,
             dropout_coords=dropout_coords, block_q=spec.block_q,
             block_k=spec.block_k, variant=spec.variant,
-            block_layout=block_layout, **common)
+            block_layout=block_layout, shards=spec.tp_shards, **common)
     if spec.impl == "chunked":
         if dropout_p > 0.0:
             raise ValueError("attention dropout requires impl='pallas'")
@@ -141,7 +142,8 @@ def decode_attention(
         return flash_decode(q, k_cache, v_cache, kv_len, scale=scale,
                             block_k=spec.block_k,
                             num_splits=spec.num_decode_splits,
-                            window=spec.window, kv_mask=kv_mask)
+                            window=spec.window, kv_mask=kv_mask,
+                            shards=spec.tp_shards)
     b, hq, sq, d = q.shape
     _, hkv, capacity, _ = k_cache.shape
     rep = hq // hkv
@@ -186,7 +188,9 @@ def paged_prefill_attention(
             q, k_pool, v_pool, page_list,
             q_positions=q_positions, kv_positions=kv_positions,
             q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,
-            causal=spec.causal, window=spec.window, scale=scale)
+            causal=spec.causal, window=spec.window, scale=scale,
+            block_q=spec.block_q, variant=spec.variant,
+            shards=spec.tp_shards)
     return attention(
         q, kref.gather_pages(k_pool, page_list), kref.gather_pages(v_pool, page_list),
         spec, q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids,

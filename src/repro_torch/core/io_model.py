@@ -17,9 +17,11 @@ the reference's name for the larger of the two) are the shared memory one
 block of ``kernels/csrc/flash_fwd.cu`` / ``flash_bwd.cu`` takes: the Hopper
 counterpart of the reference's VMEM working sets of a Pallas grid step.
 ``kernels.tuning`` imports them, so there is one copy of the arithmetic.
-The reference's kv-major and decode working sets have no counterpart:
-the Hopper bodies walk q-major, and the decode kernel reports its own
-shared memory (``flash_decode_smem_bytes``).
+The reference's kv-major and decode working sets
+(``kv_major_working_set_bytes``, ``decode_working_set_bytes``) are kept as
+its counts, verbatim: VMEM of a Pallas grid step at the TPU's lanes. No
+Hopper tile decision reads them: the bodies walk q-major, and the decode
+kernel's shared memory is its fixed ring (``flash_decode_smem_bytes``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,12 @@ H100_HBM_BW = 3.35e12                 # bytes/s
 H100_BF16_FLOPS = 989e12              # FLOP/s
 H100_FP32_FLOPS = 67e12               # FLOP/s outside the tensor cores
 H100_SMEM_PER_BLOCK = 232_448         # bytes of shared memory one block may use
+# the tuner's default budget (``kernels.tuning.sram_budget``): what one
+# block may hold, the card's counterpart of the reference's
+# ``TPU_CORE_VMEM_BYTES // 2`` (half a TPU core's VMEM, the rest left to
+# Pallas's double buffering); the Hopper bodies stage their own pipeline
+# inside the footprint ``attention_working_set_bytes`` counts
+DEFAULT_SRAM_BUDGET = H100_SMEM_PER_BLOCK
 
 MAX_TILE = 64          # rows of a q or kv tile in the Hopper bodies
 # the reference's f32 sublane count: a sequence-parallel engine rounds its
@@ -204,6 +212,30 @@ def prefix_cache_hbm_bytes_saved(cached: int, d: int, heads_q: int,
     q_side = 3 * cached * d * heads_q
     kv_stream = 2 * (cached / 2) * d * t_r * heads_q
     return float((kv_writes + q_side + kv_stream) * elt * layers)
+
+
+def kv_major_working_set_bytes(n_q_group: int, block_k: int, d: int,
+                               in_elt: int = 4, acc_elt: int = 4,
+                               lanes: int = 128) -> int:
+    """The reference's VMEM residency of one kv-major forward grid step
+    (the whole grouped query block of ``n_q_group`` rows resident, one
+    (B_k x d) k/v tile streaming, m and l over the TPU's 128 lanes),
+    verbatim. The port runs no kv-major
+    order; this is the reference's count, kept bit-equal."""
+    s_tile = n_q_group * block_k * acc_elt
+    ml = n_q_group * lanes * acc_elt
+    return int(2 * n_q_group * d * in_elt + 2 * block_k * d * in_elt
+               + s_tile + n_q_group * d * acc_elt + 2 * ml)
+
+
+def decode_working_set_bytes(block_k: int, d: int, in_elt: int = 4,
+                             acc_elt: int = 4, lanes: int = 128) -> int:
+    """The reference's VMEM residency of one split-KV decode grid step
+    (k/v tiles, the (1, B_k) score row, the (1, d) / (1, 128-lane)
+    accumulator scratch), verbatim. The Hopper decode's shared memory is
+    its ring (``flash_decode_smem_bytes``), whatever the block."""
+    return int(2 * block_k * d * in_elt + block_k * acc_elt
+               + d * acc_elt + 2 * lanes * acc_elt)
 
 
 # ---------------------------------------------------------------------------

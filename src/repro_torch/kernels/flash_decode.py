@@ -245,9 +245,9 @@ def flash_decode_paged(
     q's dtype. ``page_table`` maps each sequence's logical page t
     (positions [t*ps, (t+1)*ps)) to a physical pool page. ``shards`` is
     the tensor-parallel shard count whose per-shard heads ``q`` holds: an
-    auto split count aims at ``tuning.decode_split_target(shards)``."""
-    from repro_torch.kernels.tuning import (decode_split_target,
-                                            resolve_paged_decode_splits)
+    auto split count aims at ``tuning.decode_split_target(shards)``, or is
+    the autotuner's (``tuning.resolve_decode_geometry``)."""
+    from repro_torch.kernels.tuning import resolve_decode_geometry
     b, hq, sq, d = q.shape
     hkv, num_pages, page_size, _ = k_pool.shape
     if sq != 1:
@@ -257,9 +257,10 @@ def flash_decode_paged(
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     T = page_table.shape[1]
-    num_splits = resolve_paged_decode_splits(
-        T, num_splits,
-        target_splits=decode_split_target(shards, on_card=q.is_cuda))
+    _, num_splits = resolve_decode_geometry(
+        T * page_size, None, num_splits, head_dim=d, dtype=k_pool.dtype,
+        page_size=page_size, shards=shards, on_card=q.is_cuda,
+        device=q.device)
     with torch.inference_mode():
         kv_len = kv_len.to(torch.int32)
         # one lowering per call: (b, T) page classes; unallocated entries
@@ -360,6 +361,7 @@ def flash_decode(
     num_splits: int | None = None,
     window: int | None = None,
     kv_mask: torch.Tensor | None = None,   # (b, capacity) True = valid slot
+    shards: int = 1,
 ) -> torch.Tensor:
     """One-token attention against a fixed-capacity KV cache; returns
     (b, hq, 1, d) in q's dtype. ``window`` keeps only the last ``window``
@@ -367,7 +369,8 @@ def flash_decode(
     past the valid length, before the window or fully masked out are SKIP
     in the compiled per-sequence layout and never run. ``block_k`` /
     ``num_splits`` left None resolve through ``tuning.resolve_decode_geometry``
-    (divisor-valid by construction); explicit values are validated."""
+    (divisor-valid by construction; ``shards``, the tensor-parallel shard
+    count, scales the split target); explicit values are validated."""
     from repro_torch.kernels.tuning import resolve_decode_geometry
     b, hq, sq, d = q.shape
     cap = k.shape[2]
@@ -377,7 +380,9 @@ def flash_decode(
         raise ValueError("flash_decode is forward-only (serving)")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    block_k, num_splits = resolve_decode_geometry(cap, block_k, num_splits)
+    block_k, num_splits = resolve_decode_geometry(
+        cap, block_k, num_splits, head_dim=d, dtype=k.dtype, shards=shards,
+        on_card=q.is_cuda, device=q.device)
     with torch.inference_mode():
         kv_len = kv_len.to(torch.int32)
         # one lowering per call: (b, capacity // block_k) block classes

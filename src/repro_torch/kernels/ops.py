@@ -15,7 +15,12 @@ carries their gradients. Each call's masks are compiled ONCE into the
 block layout the kernels consume (``core.masks.compile_block_layout``),
 under ``torch.no_grad()``, and the backward reuses it.
 
-An Alg. 5 ``block_layout`` (a static (nq, nk) sparse pattern) fixes the
+Tiles left ``None`` resolve through ``tuning.resolve_tiles`` (the
+analytic chooser, or the autotuner when ``tuning.configure_tuning(
+autotune=True)``), keyed by the call's mask class, head counts, the
+tensor-parallel ``shards`` of the calling step, and whether the call is
+trainable (a trainable call resolves the tiles its backward runs too). An
+Alg. 5 ``block_layout`` (a static (nq, nk) sparse pattern) fixes the
 block grid, as in the JAX package: ``block_q = ceil(sq / nq)``,
 ``block_k = ceil(sk / nk)``. A block above the kernels' 64-row tile that
 is a multiple of it is refined exactly (``tuning.sparse_tile``,
@@ -105,6 +110,11 @@ def _pad_seq(x: torch.Tensor, axis: int, mult: int, value=0):
     return F.pad(x, widths, value=value), pad
 
 
+def _trainable(*tensors) -> bool:
+    """Will autograd run this call's backward?"""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_attention(
     q: torch.Tensor,                      # (b, hq, sq, d)
     k: torch.Tensor,                      # (b, hkv, sk, d)
@@ -115,7 +125,7 @@ def flash_attention(
     window: int | None = None,
     scale: float | None = None,
     q_offset: int | None = None,
-    block_q: int | None = None,           # None = tuning.fwd_tiles
+    block_q: int | None = None,           # None = tuning.resolve_tiles
     block_k: int | None = None,
     dropout_p: float = 0.0,
     dropout_seed=0,
@@ -127,6 +137,7 @@ def flash_attention(
     kv_segment_ids: torch.Tensor | None = None,
     q_positions: torch.Tensor | None = None,
     kv_positions: torch.Tensor | None = None,
+    shards: int = 1,                      # tensor-parallel shards (tuning)
 ) -> torch.Tensor:
     """Differentiable FlashAttention. Pads seq dims to block multiples; GQA
     from head counts. Padded tails take sentinel segments (q/kv pads
@@ -154,13 +165,25 @@ def flash_attention(
         scale = 1.0 / (d ** 0.5)
     if q_offset is None:
         q_offset = sk - sq
-    auto_q, auto_k = tuning.fwd_tiles(d)
     if block_layout is not None:
         # the pattern's grid is the tile decision
         nq_s, nk_s = np.asarray(block_layout).shape
-        auto_q, auto_k = -(-sq // nq_s), -(-sk // nk_s)
-    block_q = tuning.round_block(block_q or auto_q, sq)
-    block_k = tuning.round_block(block_k or auto_k, sk)
+        block_q = -(-sq // nq_s) if block_q is None else block_q
+        block_k = -(-sk // nk_s) if block_k is None else block_k
+    if block_q is None or block_k is None:
+        tiles = tuning.resolve_tiles(
+            block_q, block_k, sq=sq, sk=sk, head_dim=d, dtype=q.dtype,
+            heads_q=hq, heads_kv=hkv, shards=shards,
+            backward=_trainable(q, k, v), device=q.device,
+            mask_class=tuning.mask_class_of(
+                causal=causal, window=window,
+                has_kv_mask=kv_mask is not None,
+                has_segments=q_seg is not None,
+                has_sparse=block_layout is not None,
+                has_positions=q_positions is not None))
+        block_q, block_k = tiles.block_q, tiles.block_k
+    block_q = tuning.round_block(block_q, sq)
+    block_k = tuning.round_block(block_k, sk)
 
     # pad to the pattern's blocks, then cut them into kernel tiles
     pad_q, pad_k = block_q, block_k
@@ -223,13 +246,16 @@ def flash_prefill_paged(
     scale: float | None = None,
     block_q: int | None = None,
     variant: str = "fa2",
+    shards: int = 1,             # tensor-parallel shards (tuning)
 ) -> torch.Tensor:
     """Differentiable FlashAttention over a PAGED kv prefix, read in place:
     logical kv row ``t*page_size + r`` is row r of physical page
     ``page_list[b, t]``; no gather materializes it. Causal/window masking
     compares LOGICAL positions, so positions are required; dead kv rows
     carry POS_PAD (and SEG_PAD_KV), which the layout compiler turns into
-    SKIP pages, and dead slots get no gradient."""
+    SKIP pages, and dead slots get no gradient. ``block_q`` None resolves
+    through ``tuning.resolve_tiles`` with the page as the pinned kv
+    block."""
     b, hq, sq, d = q.shape
     hkv, num_pages, ps, _ = k_pool.shape
     if hq % hkv != 0:
@@ -247,7 +273,16 @@ def flash_prefill_paged(
         raise ValueError("segment ids must be passed together")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    block_q = tuning.round_block(block_q or tuning.fwd_tiles(d)[0], sq)
+    if block_q is None:
+        block_q = tuning.resolve_tiles(
+            None, ps, sq=sq, sk=sk, head_dim=d, dtype=q.dtype, heads_q=hq,
+            heads_kv=hkv, shards=shards, paged=True,
+            backward=_trainable(q, k_pool, v_pool), device=q.device,
+            mask_class=tuning.mask_class_of(
+                causal=causal, window=window,
+                has_segments=q_segment_ids is not None,
+                has_positions=True)).block_q
+    block_q = tuning.round_block(block_q, sq)
 
     qp, _ = _pad_seq(q, 2, block_q)
     with torch.no_grad():

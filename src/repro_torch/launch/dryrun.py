@@ -32,12 +32,19 @@ object a line, to stdout or ``--out``) holds:
 The JAX dry-run (``repro.launch.dryrun``) also reads FLOPs, HBM bytes
 and activation bytes off XLA's ``cost_analysis`` and ``memory_analysis``
 of the compiled step; the port has no compiled program to ask, so this
-estimate leaves them out. It writes nothing under ``benchmarks/``.
+estimate leaves them out. It writes nothing under ``benchmarks/`` (so
+the reference's ``--tag`` and ``--force`` have no counterpart).
+``--override 'k=v,...'`` replaces config fields before every cell
+(``parse_overrides``: ints, ``true``/``false``, else strings; a record
+made under overrides carries them). No cell here resolves a tile, so the
+reference's ``--autotune`` / ``--sram-budget`` have no counterpart
+either.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import sys
@@ -95,16 +102,39 @@ def train_state_bytes(cfg, axes: Mapping[str, int], rules) -> dict:
             "cut_leaves": any(cut), "whole_leaves": not all(cut)}
 
 
+def parse_overrides(spec: str | None) -> dict:
+    """--override 'ssm_chunk=64,attn_pv_bf16=true,ssm_decay_dtype=bfloat16'"""
+    out = {}
+    if not spec:
+        return out
+    for kv in spec.split(","):
+        k, v = kv.split("=", 1)
+        if v.lower() in ("true", "false"):
+            out[k] = v.lower() == "true"
+        else:
+            try:
+                out[k] = int(v)
+            except ValueError:
+                out[k] = v
+    return out
+
+
 def cell(arch: str, shape_name: str, mesh_name: str,
-         axes: Mapping[str, int] | None = None) -> dict:
-    """The record of one cell (module docstring)."""
+         axes: Mapping[str, int] | None = None,
+         overrides: dict | None = None) -> dict:
+    """The record of one cell (module docstring), of the arch's config
+    with ``overrides`` replaced."""
     cfg = get_config(arch)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
     shape = SHAPES[shape_name]
     axes = dict(axes or MESHES[mesh_name])
     rec: dict[str, Any] = {
         "arch": arch, "shape": shape_name, "mesh": mesh_name,
         "axes": axes, "chips": math.prod(axes.values()), "kind": shape.kind,
         "seq_len": shape.seq_len, "global_batch": shape.global_batch}
+    if overrides:
+        rec["overrides"] = dict(overrides)
     ok, why = cell_is_applicable(cfg, shape)
     if not ok:
         rec["skipped"] = why
@@ -158,13 +188,14 @@ def _plain(rules) -> dict:
             for k, v in rules.items()}
 
 
-def cells(archs=None, shapes=None, meshes=None):
+def cells(archs=None, shapes=None, meshes=None, overrides=None):
     """Every record of ``archs`` x ``shapes`` x ``meshes`` (default: all
     the assigned archs, all shapes, both production meshes)."""
     for mesh_name in meshes or MESHES:
         for arch in archs or ASSIGNED:
             for shape_name in shapes or SHAPES:
-                yield cell(arch, shape_name, mesh_name)
+                yield cell(arch, shape_name, mesh_name,
+                           overrides=overrides)
 
 
 def main(argv=None) -> int:
@@ -176,13 +207,17 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="write the records here (JSON lines) instead of "
                          "stdout")
+    ap.add_argument("--override", default=None,
+                    help="config overrides, e.g. ssm_chunk=64,attn_pv_bf16=true")
     args = ap.parse_args(argv)
+    overrides = parse_overrides(args.override)
     meshes = {"single": ["pod16x16"], "multi": ["pod2x16x16"],
               "both": list(MESHES)}[args.mesh]
     out = open(args.out, "w") if args.out else sys.stdout
     try:
         for rec in cells([args.arch] if args.arch else None,
-                         [args.shape] if args.shape else None, meshes):
+                         [args.shape] if args.shape else None, meshes,
+                         overrides):
             out.write(json.dumps(rec) + "\n")
     finally:
         if args.out:

@@ -32,6 +32,10 @@ collectives staged through host memory; ``--backend nccl`` puts rank r on
 ``cuda:r`` and needs a card a rank. As in the reference, a ``--reduced``
 config whose kv heads do not divide by ``--tp`` (granite's 4 q / 1 kv)
 has both head counts scaled, keeping the GQA ratio, and says so.
+``--autotune`` / ``--sram-budget`` set the tuner's knobs
+(``kernels.tuning.configure_tuning``) in every rank: with ``--autotune``
+the attention tiles and the decode geometry are timed on the device at
+first use and kept in the autotune cache.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.distributed import launch
 from repro_torch.distributed.meshes import serve_mesh
+from repro_torch.kernels import tuning
 from repro_torch.models import build_model, require_token_inputs
 from repro_torch.serve import ServingEngine
 
@@ -54,6 +59,12 @@ from repro_torch.serve import ServingEngine
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--autotune", action="store_true",
+                    help="empirically time tile candidates on this device "
+                         "(persisted in the autotune cache)")
+    ap.add_argument("--sram-budget", type=int, default=None,
+                    help="tuner SRAM budget in bytes (default: "
+                         "io_model.DEFAULT_SRAM_BUDGET)")
     ap.add_argument("--reduced", action="store_true",
                     help="the tiny family-faithful config instead of the "
                          "published one")
@@ -157,6 +168,8 @@ def run(args, mesh=None):
     0 of a mesh), return the engine."""
     device = mesh.device if mesh is not None else resolve_device(args.device)
     say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
+    tuning.configure_tuning(sram_budget=args.sram_budget,
+                            autotune=args.autotune or None)
     cfg = model_config(args)
     require_token_inputs(cfg, "the serve launcher")
     base = reduced_config(args.arch) if args.reduced else get_config(args.arch)

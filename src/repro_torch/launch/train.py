@@ -34,6 +34,8 @@ backward run through the hand-written kernels (their plain versions on
 ``cpu``). AdamW with ``warmup_cosine(lr, 20, steps)``, clip 1.0,
 deterministic; SIGTERM asks for a checkpoint at the next step while
 ``main`` trains (the previous handler is restored when it returns).
+``--autotune`` / ``--sram-budget`` set the tuner's knobs
+(``kernels.tuning.configure_tuning``) in every rank.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from repro_torch.data import SyntheticLM
 from repro_torch.distributed import launch
 from repro_torch.distributed.meshes import make_mesh
 from repro_torch.distributed.sharding import P, auto_rules, shard_tree
+from repro_torch.kernels import tuning
 from repro_torch.kernels.build import REPO_ROOT
 from repro_torch.models import build_model, require_token_inputs
 from repro_torch.optim import adamw, warmup_cosine
@@ -64,6 +67,12 @@ BATCH_SPECS = {k: P("data", None)
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="olmo-1b")
+    ap.add_argument("--autotune", action="store_true",
+                    help="empirically time attention tile candidates on "
+                         "this device (persisted in the autotune cache)")
+    ap.add_argument("--sram-budget", type=int, default=None,
+                    help="tuner SRAM budget in bytes for the analytic "
+                         "tile chooser")
     ap.add_argument("--reduced", action="store_true",
                     help="the tiny family-faithful config instead of the "
                          "published one")
@@ -115,6 +124,8 @@ def run(args, mesh=None) -> Trainer:
     rank's part); print on rank 0; return the Trainer."""
     dev = mesh.device if mesh is not None else resolve_device(args.device)
     say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
+    tuning.configure_tuning(sram_budget=args.sram_budget,
+                            autotune=args.autotune or None)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     cfg = dataclasses.replace(cfg, attn_impl="pallas")
     require_token_inputs(cfg, "the train launcher (SyntheticLM tokens)")

@@ -76,8 +76,11 @@ Every executed step is priced in predicted HBM bytes by the IO ledger
 (``telemetry.io_ledger``: ``self.tm.ledger``) next to its wall time, which
 ends where the step already waits for the host (the sampled tokens'
 read-back; a chunk that completes no prompt has none, and its time is the
-host's enqueue time). The price model takes the forward kernel's tiles
-(``tuning.fwd_tiles``) and its q-major loop order. Prefix-cache hits are
+host's enqueue time). The price model takes one representative tile of
+the analytic chooser (``tuning.choose_tile_config`` at the prefill bucket,
+per tensor-parallel shard) and the q-major loop order. The decode
+geometry resolves once at construction (``tuning.resolve_decode_geometry``;
+timed there when autotuning is on). Prefix-cache hits are
 credited as bytes not spent (``prefill_hbm_bytes_saved``,
 ``io_model.prefix_cache_hbm_bytes_saved``), and the paged chunk path
 counts the prefix gathers it never runs
@@ -177,7 +180,7 @@ class ServingEngine:
         self.prefix_cache = (self.paged if prefix_cache is None
                              else bool(prefix_cache))
         self._check_parallel(model.cfg, tp, sp, sp_strategy, capacity,
-                             chunk_size)
+                             chunk_size, self.device)
         self.tm = Telemetry(trace=trace)
         reg = self.tm.registry
         self._c_prefill_calls = reg.counter(
@@ -283,39 +286,47 @@ class ServingEngine:
 
         # Resolve the decode kernel geometry ONCE at construction: a pinned
         # split count (or block) that does not divide the cache fails here,
-        # not inside the first decode step.
+        # not inside the first decode step (with autotuning on, it is timed
+        # here).
         if cfg.use_decode_kernel:
-            if self.paged:
-                self.num_decode_splits = tuning.resolve_paged_decode_splits(
-                    self.pages_per_seq, cfg.num_decode_splits,
-                    target_splits=tuning.decode_split_target(
-                        self.tp, on_card=self.device.type == "cuda"))
-            else:
-                self.decode_block_k, self.num_decode_splits = \
-                    tuning.resolve_decode_geometry(
-                        capacity, cfg.attn_block_k, cfg.num_decode_splits)
+            block_k, splits = tuning.resolve_decode_geometry(
+                capacity, None if self.paged else cfg.attn_block_k,
+                cfg.num_decode_splits, head_dim=cfg.head_dim,
+                dtype=cfg.dtype, page_size=page_size if self.paged else None,
+                shards=self.tp, on_card=self.device.type == "cuda",
+                device=self.device)
+            self.num_decode_splits = splits
+            if not self.paged:
+                self.decode_block_k = block_k
 
-        # IO-ledger pricing: the model geometry and the forward kernel's
-        # tiles, walked q-major (the Hopper bodies' loop order)
-        block_q, block_k = tuning.fwd_tiles(cfg.head_dim)
+        # IO-ledger pricing: the model geometry and ONE representative
+        # tile from the analytic chooser (construction never triggers a
+        # timing run), walked q-major (the Hopper bodies' loop order)
+        rep = tuning.choose_tile_config(
+            self.prefill_bucket, max(capacity, self.prefill_bucket),
+            cfg.head_dim, dtype=cfg.dtype, backward=False,
+            heads_q=max(1, cfg.num_heads // self.tp),
+            heads_kv=max(1, cfg.num_kv_heads // self.tp), shards=self.tp)
         self.tm.ledger = IOLedger(ServePriceModel(
             d=cfg.head_dim, heads_q=cfg.num_heads,
             heads_kv=cfg.num_kv_heads, d_model=cfg.d_model,
             layers=cfg.num_layers, elt=tuning.elt_bytes(cfg.dtype),
-            block_q=block_q, block_k=block_k, kv_major=False,
+            block_q=rep.block_q, block_k=rep.block_k, kv_major=rep.kv_major,
             tp=self.tp, sp=self.sp,
             sp_strategy=self.sp_strategy or "replicated"))
 
     # ----------------------------------------- tensor/sequence parallelism
     def _check_parallel(self, cfg, tp: int, sp: int, sp_strategy,
-                        capacity: int, chunk_size: int | None) -> None:
+                        capacity: int, chunk_size: int | None,
+                        device="cpu") -> None:
         """The reference's construction checks for ``tp`` and ``sp``, in its
         words: paged mode and the dense family only, whole kv heads (with
         their q-head groups) and a whole share of d_ff per tp rank; at sp
         > 1 the prefill bucket rounded up to ``sp * io_model.SUBLANES``
         rows (so that each slab is whole rows and the chunks are the JAX
         engine's) and the K/V movement strategy resolved
-        (``tuning.resolve_sp_strategy``) or checked."""
+        (``tuning.resolve_sp_strategy``, its autotune key on ``device``)
+        or checked."""
         self.tp = int(tp)
         if self.tp < 1:
             raise ValueError(f"tp must be >= 1, got {tp}")
@@ -364,7 +375,8 @@ class ServingEngine:
                 chunk_size or self.prefill_bucket, capacity, cfg.head_dim,
                 heads_q=cfg.num_heads // self.tp,
                 heads_kv=cfg.num_kv_heads // self.tp,
-                sp=self.sp, dtype=cfg.dtype, layers=cfg.num_layers)
+                sp=self.sp, dtype=cfg.dtype, layers=cfg.num_layers,
+                device=device)
             self.sp_prefill_costs = res["costs"]
             sp_strategy = sp_strategy or res["strategy"]
             if sp_strategy not in ("allgather", "ring"):
@@ -879,13 +891,15 @@ class ServingEngine:
     def _record_layout_stats(self, segs: np.ndarray) -> None:
         """Compile the packed call's causal + segment layout on the host and
         count the blocks it proves skippable (cross-document and
-        padded-tail tiles the causal geometry alone would run), at the
-        forward kernel's q tile (``tuning.fwd_tiles``) capped by the
-        prefill bucket."""
+        padded-tail tiles the causal geometry alone would run), at the q
+        tile of the analytic chooser (a counter never triggers a timing
+        run) capped by the prefill bucket."""
         s = segs.shape[1]
         cfg = self.model.cfg
         report_block = (cfg.attn_block_q if cfg.attn_block_q is not None
-                        else tuning.fwd_tiles(cfg.head_dim)[0])
+                        else tuning.choose_tile_config(
+                            s, s, cfg.head_dim, dtype=cfg.dtype,
+                            shards=self.tp).block_q)
         bq = min(report_block, self.prefill_bucket, s)
         if s % bq:
             return  # bucket not block-aligned; skip the report, not the call

@@ -262,13 +262,16 @@ def _batch_sharding(mesh, rules, batch_specs) -> BatchSharding:
 
 def _rank_cfg(cfg, shard: TrainShard):
     """The config of a rank's model: its q and kv heads, d_ff and experts
-    where they are cut (the SSM reads its head group off the shard)."""
+    where they are cut (the SSM reads its head group off the shard). A
+    rank whose heads are cut resolves its attention tiles as one of
+    ``m`` shards (``tp_shards``), as the serving engine's ranks do."""
     m = shard.model.size
     kw = {}
     if shard.heads:
         kw.update(num_heads=cfg.num_heads // m,
                   num_kv_heads=(cfg.num_kv_heads // m if not shard.kv_split
-                                else 1))
+                                else 1),
+                  tp_shards=m)
     if shard.ff:
         kw["d_ff"] = cfg.d_ff // m
     if shard.experts:

@@ -1948,3 +1948,140 @@ def test_expert_parallel_moe_layer_bf16_never_waits(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(torch.equal(a, b) for a, b in zip(first, third))
+
+
+# ---------------------------------------------------------------------------
+# the tuner on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def tune_cache(tmp_path):
+    """A private autotune cache; every tuner knob restored after the test."""
+    saved = dict(tuning._STATE)
+    tuning.configure_tuning(cache_path=str(tmp_path / "autotune.json"))
+    yield tmp_path / "autotune.json"
+    tuning._STATE.update(saved)
+    tuning.configure_tuning(cache_path=saved["cache_path"])
+
+
+def test_autotune_writes_then_hits_on_card(cuda, tune_cache):
+    """The first resolution times the candidates with CUDA events and keys
+    them under the card's name; the second is served from the cache."""
+    import json
+    kw = dict(dtype=torch.bfloat16, mask_class="causal", backward=False,
+              heads_q=8, heads_kv=2, device=cuda)
+    first = tuning.autotune_tiles(256, 256, 64, **kw)
+    assert first.source == "autotuned"
+    (key, entry), = json.loads(tune_cache.read_text())["entries"].items()
+    assert key.startswith(torch.cuda.get_device_name(0).replace("|", "_"))
+    assert len(entry["candidates_us"]) == 4
+    assert all(t > 0 for t in entry["candidates_us"].values())
+    second = tuning.autotune_tiles(256, 256, 64, **kw)
+    assert second.source == "cache"
+    assert (second.block_q, second.block_k) == (first.block_q, first.block_k)
+
+
+def test_autotune_clock_reads_device_time_not_host_work(cuda):
+    """A call whose host work (1 ms) dwarfs its kernel (a 4 KB add) times
+    at the kernel's device time: the timed calls run back to back, queued
+    behind a device sleep."""
+    import time as _time
+    x = torch.zeros(1024, device=cuda)
+
+    def call():
+        _time.sleep(1e-3)
+        x.add_(1.0)
+    least, spread = tuning._clock_us(call, cuda, 3)
+    assert 0 < least < 100 and spread >= 0
+
+
+def test_granite_forward_winner_stable_across_fresh_caches(cuda, tune_cache,
+                                                           tmp_path):
+    """granite-3-2b's forward layer ((1, 32 / 8 heads, 2048, 64), causal,
+    bf16) tuned twice, each time into a fresh cache, persists the same
+    winner."""
+    winners = []
+    for i in range(2):
+        tuning.configure_tuning(cache_path=str(tmp_path / f"fresh{i}.json"))
+        cfg = tuning.autotune_tiles(2048, 2048, 64, dtype=torch.bfloat16,
+                                    mask_class="causal", backward=False,
+                                    heads_q=32, heads_kv=8, device=cuda)
+        assert cfg.source == "autotuned"
+        winners.append((cfg.block_q, cfg.block_k))
+    assert winners[0] == winners[1]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_autotuned_winner_matches_plain(cuda, tune_cache, backward):
+    """The winning tiles (the |bwd winner for a trainable call, resolved
+    through ``ops.flash_attention`` on the card) against the plain version
+    at the same tiles: o within 2e-2, dq, dk, dv within 2e-2 of their
+    max."""
+    import json
+    tuning.configure_tuning(autotune=True)
+    gen = torch.Generator().manual_seed(11)
+    q = torch.randn(1, 8, 200, 64, generator=gen)
+    k, v = (torch.randn(1, 2, 200, 64, generator=gen) for _ in range(2))
+    do = torch.randn(q.shape, generator=gen)
+    outs, tiles = [], {}
+    for dev, dt in ((cuda, torch.bfloat16), (torch.device("cpu"),
+                                             torch.float32)):
+        t = [x.to(dev, dt).requires_grad_(backward) for x in (q, k, v)]
+        with torch.set_grad_enabled(backward):
+            o = ops.flash_attention(*t, causal=True, **tiles)
+        grads = (torch.autograd.grad(o, t, do.to(dev, dt)) if backward
+                 else ())
+        outs.append([x.detach().float().cpu() for x in (o, *grads)])
+        (key, entry), = json.loads(tune_cache.read_text())["entries"].items()
+        tiles = dict(block_q=entry["block_q"], block_k=entry["block_k"])
+    assert key.endswith("|bwd") == backward
+    (o, *g), (po, *pg) = outs
+    torch.testing.assert_close(o, po, atol=2e-2, rtol=0)
+    for a, b in zip(g, pg):
+        assert float((a - b).abs().max() / b.abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_paged_decode_timed_list_within_a_cluster(cuda, tune_cache, shards):
+    """The paged decode's timed candidates keep the page as the block and
+    never more than 8 splits, whatever the tensor-parallel target."""
+    import json
+    cfg = tuning.autotune_decode_geometry(2048, 64, dtype=torch.bfloat16,
+                                          page_size=16, shards=shards,
+                                          device=cuda)
+    (entry,) = json.loads(tune_cache.read_text())["entries"].values()
+    splits = [int(c.split("x")[1]) for c in entry["candidates_us"]]
+    blocks = {int(c.split("x")[0]) for c in entry["candidates_us"]}
+    assert blocks == {16} and max(splits) <= tuning.MAX_DECODE_SPLITS
+    assert cfg.decode_block_k == 16
+    assert cfg.num_decode_splits <= tuning.MAX_DECODE_SPLITS
+
+
+def test_resolve_tiles_autotune_off_keeps_64x64_at_granite(cuda, monkeypatch):
+    """With autotuning off the forward and backward kernels at granite's
+    train layer (q (1, 32, 2048, 64), k/v 8 heads) launch at 64 x 64, as
+    before the tuner."""
+    assert not tuning.autotune_enabled()
+    cfg = tuning.resolve_tiles(
+        None, None, sq=2048, sk=2048, head_dim=64, dtype=torch.bfloat16,
+        heads_q=32, heads_kv=8, mask_class="causal+seg", device=cuda)
+    assert (cfg.block_q, cfg.block_k, cfg.source) == (64, 64, "analytic")
+    seen = []
+    for name in ("flash_attention_forward", "flash_attention_backward"):
+        real = getattr(fa, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            seen.append((_name, kw["block_q"], kw["block_k"]))
+            return _real(*a, **kw)
+        monkeypatch.setattr(fa, name, spy)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(1, 32, 2048, 64, generator=gen, device=cuda,
+                    dtype=torch.bfloat16, requires_grad=True)
+    k, v = (torch.randn(1, 8, 2048, 64, generator=gen, device=cuda,
+                        dtype=torch.bfloat16, requires_grad=True)
+            for _ in range(2))
+    seg = torch.repeat_interleave(torch.arange(4, device=cuda), 512)[None]
+    o = ops.flash_attention(q, k, v, causal=True, segment_ids=seg)
+    o.sum().backward()
+    assert seen == [("flash_attention_forward", 64, 64),
+                    ("flash_attention_backward", 64, 64)]

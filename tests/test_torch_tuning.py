@@ -7,8 +7,10 @@ warp groups of a CTA, and the decode's split limit (one thread-block
 cluster of at most 8 blocks) against the split resolvers."""
 
 import pytest
+import torch
 
-from repro_torch.kernels import tuning
+from repro_torch.core import io_model
+from repro_torch.kernels import ops, tuning
 
 
 @pytest.mark.parametrize("d", tuning.KERNEL_HEAD_DIMS)
@@ -134,3 +136,31 @@ def test_decode_split_resolvers_stay_within_a_cluster():
         tuning.check_decode_splits(splits)
         _, splits = tuning.resolve_decode_geometry(cap, 4, None)  # 4 | cap
         tuning.check_decode_splits(splits)
+
+
+def test_pinned_zero_tile_raises():
+    """A pinned 0 is refused, not taken as auto (``None`` is auto)."""
+    q = torch.zeros(1, 2, 16, 16)
+    for kw in (dict(block_q=0), dict(block_k=0), dict(block_q=0, block_k=32)):
+        with pytest.raises(ValueError, match="rows"):
+            ops.flash_attention(q, q, q, causal=True, **kw)
+    kv_pos = torch.arange(16, dtype=torch.int32)[None]
+    with pytest.raises(ValueError, match="rows"):
+        ops.flash_prefill_paged(q, torch.zeros(2, 2, 8, 16),
+                                torch.zeros(2, 2, 8, 16),
+                                torch.tensor([[0, 1]], dtype=torch.int32),
+                                q_positions=kv_pos, kv_positions=kv_pos,
+                                block_q=0)
+
+
+def test_default_budget_is_one_block():
+    """The tuner's budget defaults to the shared memory one block may use,
+    and the largest tiles fit it at every head dim, paged or not."""
+    assert tuning.sram_budget() == io_model.DEFAULT_SRAM_BUDGET \
+        == tuning.SMEM_PER_BLOCK
+    for d in tuning.KERNEL_HEAD_DIMS:
+        for dtype in ("float32", "bfloat16"):
+            for paged in (False, True):
+                cfg = tuning.choose_tile_config(4096, 4096, d, dtype=dtype,
+                                                paged=paged)
+                assert (cfg.block_q, cfg.block_k) == tuning.bwd_tiles(d)
