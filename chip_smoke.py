@@ -19,9 +19,10 @@ families: dense-slot serving and training of mamba2-2.7b (phase 13, no
 attention kernel) and of hymba-1.5b (phase 14), the encoder-decoder:
 model-level serving and training of seamless-m4t-medium (phase 15), and
 the vision-language decoder: model-level serving and training of
-phi-3-vision-4.2b at head_dim 96 (phase 16), and tensor- and
+phi-3-vision-4.2b at head_dim 96 (phase 16), tensor- and
 sequence-parallel paged serving of granite-3-2b by ranks that share the
-card (phase 17).
+card (phase 17), and its sequence-sharded decode over a KV capacity or
+page pool cut across such ranks (phase 22).
 Phases:
 
 1. print the card's name and power limit (nvidia-smi), then build every
@@ -281,10 +282,10 @@ Phases:
    sharded training (``train.steps.make_sharded_train_step``) as four
    gloo ranks sharing the card in one spawn, collectives staged through
    host memory: granite-3-2b at full width, 2 layers, float32, 3 AdamW
-   steps at data 2 x model 2 with ZeRO-1 and at data 4 against the
+   steps at data 2 x model 2 with ZeRO-1 against the
    single-rank step on the card (losses within ``TRAIN_MESH_RTOL``, every
    rank's census of every step ``expected_train_census``); granite-3-2b
-   at 4 of 40 layers in bf16 at data 2 x model 2 with ZeRO-1, 4 steps of
+   at 2 of 40 layers in bf16 at data 2 x model 2 with ZeRO-1, 4 steps of
    the launcher's recipe on its batches (seq 2048 x 4), losses within
    ``DP2TP2_LOSS_RTOL`` of the single-rank bf16 step's, ms a step, peak
    memory and launches a rank (#1-#3 on every rank; rank 0's counts are
@@ -297,15 +298,14 @@ Phases:
    every family trained with a "model" axis above one, four gloo ranks
    sharing the card in one spawn: float32 at full width, 2 layers
    (seamless 2 + 2), 3 AdamW steps against the single-rank step on the
-   card of olmoe-1b-7b at model 4 (16 experts a rank) and at data 2 x
-   model 2 with ZeRO-1, mamba2-2.7b at model 4 (20 SSM heads a rank),
+   card of olmoe-1b-7b at model 4 (16 experts a rank),
    phi-3-vision-4.2b at model 4 and seamless-m4t-medium at data 2 x
    model 2 (losses within ``TRAIN_MESH_RTOL``, MoE route flips only at
    near-ties: step 1 against the single rank, every later step against
    one forward of the mesh's own weights gathered onto rank 0; every
    rank's census of every step ``expected_train_census``);
-   olmoe-1b-7b at 2 of 16 layers (expert-parallel, model 4) and
-   mamba2-2.7b at 4 of 64 layers (cut by SSM head group, model 4) in bf16,
+   olmoe-1b-7b at 1 of 16 layers (expert-parallel, model 4) and
+   mamba2-2.7b at 2 of 64 layers (cut by SSM head group, model 4) in bf16,
    4 steps of the launcher's recipe at seq 2048 x 4, losses within
    ``DP2TP2_LOSS_RTOL`` of the single-rank bf16 step's, ms a step, peak
    memory, collectives and launches a rank (rank 0's #1-#3 are the
@@ -337,6 +337,31 @@ Phases:
    --smoke --device cuda`` runs twice, the second time with
    ``--expect-hit``, and both must exit 0. Autotuning is off again after
    the phase, so no path's tiles move.
+22. kvseq (``kvseq_phase``, after levers; its kernels,
+   ``kvseq_kernel_phase``, right after phi-3-vision's): the
+   sequence-sharded decode (``train.steps.make_sharded_serve_steps``: the
+   KV capacity, or the page pool's pages, cut over "model", each rank's
+   #7 / #8 split partials merged across ranks) as gloo ranks sharing the
+   card, one spawn of 2 ranks and one of 4. #7 and #8 at serve-kvseq2's
+   rank slices (32 q / 8 kv heads of 64, 16384 of 32768 slots or 2048 of
+   4096 pages of 16, one lane past the slice boundary and one short of
+   it), each rank's launch against its plain partials and both ranks
+   merged within 2e-2, rank 0's launch timed beside its plain version,
+   its bound over the keys in its reach and SDPA over them (the
+   ``serve_kvseq2`` / ``serve_kvseq2_paged`` entries of the two kernels'
+   ``at_shapes``); parity-kvseq: granite-3-2b at full width, 2 layers,
+   float32, slots and pages at (data 1, model 2) and (data 2, model 2)
+   against the single rank's ``Model.decode_step`` on the card (greedy
+   tokens identical, logits within 1e-4, every step's census
+   ``expected_kv_seq_decode_census`` on every rank); serve-kvseq2 and
+   serve-kvseq2-paged: granite-3-2b in bf16 at full width (40 layers; the
+   paged one 8), data 1 x model 2, 2 lanes of 16376-token prompts at
+   capacity 32768, 16 decode steps teacher-forced along the single rank's
+   greedy tokens
+   (logits within ``TP_LOGIT_SPACINGS`` bf16 spacings, an argmax parting
+   only at a top-2 margin within twice that), #1 and #7 / #8 launched on
+   both ranks, decode tok/s, per-rank peak memory and each rank's
+   decode-state bytes equal to ``launch.dryrun.decode_state_bytes``.
 
 ``--ab PARENT_CHECKOUT`` runs only an A/B against another checkout (e.g.
 ``git archive`` of the parent commit): first both checkouts' kernel
@@ -2511,13 +2536,13 @@ def dense_serve_phase(torch, seed: int, card: str,
            "decode_geometry": [eng.decode_block_k, eng.num_decode_splits],
            "blocks_skipped": eng.blocks_skipped,
            "blocks_total": eng.blocks_total,
-           "state_bytes": eng.cache_bytes(), "card": card}
+           "state_bytes": eng.per_shard_cache_bytes(), "card": card}
     print(f"[{tag}] {cfg.name} {cfg.num_layers} layers: {n_tok} tokens in "
           f"{wall:.2f}s: {n_tok / wall:.1f} tok/s, TTFT p50 "
           f"{lat['ttft_p50'] * 1e3:.1f} ms (p95 {lat['ttft_p95'] * 1e3:.1f}), "
           f"decode step p50 {lat['tok_latency_p50'] * 1e3:.1f} ms, peak memory "
-          f"{peak / 2**30:.2f} GiB, slot state {eng.cache_bytes() / 2**30:.3f} "
-          f"GiB, prefill calls {eng.prefill_calls}, launches {launches} "
+          f"{peak / 2**30:.2f} GiB, slot state "
+          f"{eng.per_shard_cache_bytes() / 2**30:.3f} GiB, prefill calls {eng.prefill_calls}, launches {launches} "
           f"[{card}]", flush=True)
     if profiled:
         rec["profile"] = profile_serve(torch, model, params, prompts, kw)
@@ -3868,7 +3893,7 @@ def _tp_serve_rank(torch, job) -> dict:
             "wall_s": wall, "latency": eng.latency_stats(),
             "peak_memory_bytes": peak, "launches": launches,
             "prefix_hits": eng.prefix_hits, "step_census": eng.step_census,
-            "cache_bytes": eng.cache_bytes(),
+            "cache_bytes": eng.per_shard_cache_bytes(),
             "forced_logits": (logits[0, rows].float().cpu()
                               if mesh.rank == 0 else None)}
 
@@ -4123,16 +4148,18 @@ def tp_serving_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
 # parity-train-mesh: granite-3-2b at full width, 2 layers, float32, 3 AdamW
 # steps at these meshes ((data, model), ZeRO-1) against the single-rank
 # step on the card; losses within TRAIN_MESH_RTOL
-PARITY_TRAIN_MESHES = (((2, 2), True), ((4, 1), False))
+# (the data-4 mesh without ZeRO-1 was cut to keep the script under 950 s,
+# after phase 22's paged serve, as ROADMAP's order says)
+PARITY_TRAIN_MESHES = (((2, 2), True),)
 PARITY_TRAIN = (256, 4, 3)                # seq, global batch, steps
 TRAIN_MESH_RTOL = 1e-4
-# train-dp2tp2: granite-3-2b at full width, 4 of 40 layers (cut to keep the
+# train-dp2tp2: granite-3-2b at full width, 2 of 40 layers (cut to keep the
 # script under 950 s), bf16, seq 2048,
 # global batch 4 (2 rows a data rank), ZeRO-1, 4 AdamW steps of the
 # launcher's recipe on its batches; each step's loss within this relative
 # bound of the single-rank bf16 step's (PERF.md §6, set before the first
 # card run)
-DP2TP2 = ((2, 2), 4, 2048, 4, 4)          # mesh, layers, seq, batch, steps
+DP2TP2 = ((2, 2), 2, 2048, 4, 4)          # mesh, layers, seq, batch, steps
 DP2TP2_LOSS_RTOL = 2e-3
 # pipeline-2: two 2-stage pipelines (the "pipe" axis of a (2, 2) mesh) of
 # the reference's residual tanh layers, fp32 on the card
@@ -4218,11 +4245,11 @@ def train_mesh_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     per-rank work, not the speed of collectives. One spawn of 4 ranks.
 
     * parity-train-mesh: granite-3-2b at full width, 2 layers, float32,
-      at data 2 x model 2 with ZeRO-1 and data 4 without, 3 AdamW steps
+      at data 2 x model 2 with ZeRO-1, 3 AdamW steps
       against the single-rank ``make_train_step`` on the card: losses
       within ``TRAIN_MESH_RTOL``, every rank's census of every step the
       ``expected_train_census``;
-    * train-dp2tp2: granite-3-2b at full width, 4 of 40 layers, bf16,
+    * train-dp2tp2: granite-3-2b at full width, 2 of 40 layers, bf16,
       seq 2048, global batch 4, ZeRO-1, 4 steps of the launcher's recipe
       on its batches, #1, #2 and #3 at 16 q / 4 kv heads a rank: losses
       within ``DP2TP2_LOSS_RTOL`` of the single-rank bf16 step's, ms a
@@ -4400,9 +4427,10 @@ def train_mesh_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
 # parity-train-family: (arch, (data, model), ZeRO-1), each at full width, 2
 # layers (seamless 2 + 2), float32, PARITY_TRAIN's 3 AdamW steps against
 # the single rank on the card, losses within TRAIN_MESH_RTOL
+# (olmoe's data 2 x model 2 ZeRO-1 mesh and mamba2-2.7b's model 4 were cut
+# to keep the script's time, after phase 22's paged serve and phase 18's
+# data-4 mesh, as ROADMAP's order says)
 PARITY_FAMILY = (("olmoe-1b-7b", (1, 4), False),
-                 ("olmoe-1b-7b", (2, 2), True),
-                 ("mamba2-2.7b", (1, 4), False),
                  ("phi-3-vision-4.2b", (1, 4), False),
                  ("seamless-m4t-medium", (2, 2), True))
 PARITY_FAMILY_TEXT = {"phi-3-vision-4.2b": 64,      # tokens after 576 patches
@@ -4410,8 +4438,8 @@ PARITY_FAMILY_TEXT = {"phi-3-vision-4.2b": 64,      # tokens after 576 patches
 # train-ep4 / train-ssm-tp4: arch, (data, model), layers, seq, batch, steps,
 # bf16, the launcher's recipe; losses within DP2TP2_LOSS_RTOL of the single
 # rank's (the prediction in PERF.md §6, set before the first card run)
-TRAIN_EP4 = ("olmoe-1b-7b", (1, 4), 2, 2048, 4, 4)
-TRAIN_SSM_TP4 = ("mamba2-2.7b", (1, 4), 4, 2048, 4, 4)
+TRAIN_EP4 = ("olmoe-1b-7b", (1, 4), 1, 2048, 4, 4)
+TRAIN_SSM_TP4 = ("mamba2-2.7b", (1, 4), 2, 2048, 4, 4)
 
 
 def family_batches(cfg, seq: int, batch: int, steps: int, seed: int) -> list:
@@ -4469,8 +4497,8 @@ def train_family_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
       on rank 0 with the mesh's weights of that step gathered, over the
       step's tokens), a flip only at a near-tie (gap <= ``ROUTE_TIE``),
       every rank's census of every step the expected;
-    * train-ep4 / train-ssm-tp4: olmoe-1b-7b (2 layers, 16 experts and
-      4 / 4 heads of 128 a rank) and mamba2-2.7b (4 layers, 20 SSM heads a
+    * train-ep4 / train-ssm-tp4: olmoe-1b-7b (1 layer, 16 experts and
+      4 / 4 heads of 128 a rank) and mamba2-2.7b (2 layers, 20 SSM heads a
       rank) at model 4 in bf16, 4 steps of the launcher's recipe at seq
       2048 x 4: losses within ``DP2TP2_LOSS_RTOL`` of the single-rank bf16
       step's, ms a step, peak memory, collectives and launches by rank.
@@ -4812,6 +4840,424 @@ def levers_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     return ({"arch": arch, "layers": layers, "batch": b, "seq": s,
              "runs": runs, "float32_banded_vs_chunked": f32_errs,
              "card": card}, {"levers": launches})
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the sequence-sharded decode, ranks sharing one card
+# ---------------------------------------------------------------------------
+
+# parity-kvseq's ("data", "model") meshes; serve-kvseq2's traffic: lanes,
+# capacity (the reference's decode_32k), prompt, greedy decode steps (each
+# lane's writes cross the slice boundary at 16384 in decode step 9), and
+# serve-kvseq2-paged's page size (4096 pages, 2048 a rank)
+KVSEQ_PARITY_MESHES = ((1, 2), (2, 2))
+KVSEQ_SERVE = {"serve_kvseq2": "contiguous", "serve_kvseq2_paged": "paged"}
+# the depth of each serve: serve-kvseq2-paged runs 8 of granite's 40 layers
+# (cut first to keep the script under 950 s, as ROADMAP's order says)
+KVSEQ_LAYERS = {"serve_kvseq2": 40, "serve_kvseq2_paged": 8}
+KVSEQ_LANES, KVSEQ_CAPACITY, KVSEQ_PROMPT, KVSEQ_STEPS = 2, 32768, 16376, 16
+KVSEQ_PAGE = 16
+# the kernels held at serve-kvseq2's rank slices: global lengths mid-decode
+# (lane 0 past the slice boundary, lane 1 short of it: rank 1 has nothing
+# of lane 1 to attend)
+KVSEQ_KV_LEN = (16384 + 8, 16380)
+
+
+def kvseq_rank(spec: dict) -> list:
+    """What one spawned rank of phase 22 runs: ``launch.kv_seq_rank`` with
+    TF32 off, as in the parent."""
+    import torch
+
+    from repro_torch.distributed import launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    use_io_model()
+    return launch.kv_seq_rank(spec)
+
+
+def _kvseq_slices(torch, gen, paged: bool):
+    """serve-kvseq2's decode operands at a rank's slice, for both ranks of
+    model 2: q (2, 32, 1, 64) bf16 and a random cache of 32768 slots (or
+    4096 pages of 16 in the interleaved layout) cut in two, with the
+    arguments and call of each rank's #7 (or #8) launch as
+    ``flash_decode_slice`` (``flash_decode_paged_slice``) makes it."""
+    from repro_torch.core import masks as M
+    from repro_torch.kernels import tuning
+    from repro_torch.models.transformer import interleaved_page_table
+
+    dev = torch.device("cuda")
+    b, hq, hkv, d, m = KVSEQ_LANES, 32, 8, 64, 2
+    cap = KVSEQ_CAPACITY
+    kv_len = torch.tensor(KVSEQ_KV_LEN, dtype=torch.int32, device=dev)
+    q = torch.randn((b, hq, 1, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    scale = d ** -0.5
+    ranks = []
+    if not paged:
+        cs = cap // m
+        bk, splits = tuning.resolve_decode_geometry(
+            cs, None, None, head_dim=d, dtype=torch.bfloat16, on_card=True,
+            device=dev)
+        for r in range(m):
+            k = torch.randn((b, hkv, cs, d), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            v = torch.randn_like(k)
+            pos = r * cs + torch.arange(cs, device=dev)
+            valid = M.element_mask((kv_len - 1)[:, None], pos[None, :],
+                                   causal=True)
+            local = torch.clamp(kv_len - r * cs, 0, cs)
+            lay = M.kv_block_layout(valid, bk)
+            ranks.append(((q, k, v, local, lay),
+                          dict(scale=scale, block_k=bk, num_splits=splits,
+                               window=None, kv_mask=None), valid))
+        return ranks
+    T = cap // KVSEQ_PAGE
+    n = b * T // m
+    table = interleaved_page_table(b, T, dev)
+    _, splits = tuning.resolve_decode_geometry(
+        cap, None, None, head_dim=d, dtype=torch.bfloat16,
+        page_size=KVSEQ_PAGE, on_card=True, device=dev)
+    for r in range(m):
+        kp = torch.randn((hkv, n, KVSEQ_PAGE, d), generator=gen, device=dev,
+                         dtype=torch.bfloat16)
+        vp = torch.randn_like(kp)
+        local = table - r * n
+        local = torch.where((local >= 0) & (local < n), local,
+                            torch.full_like(local, -1))
+        lay = M.paged_block_layout(kv_len, local, KVSEQ_PAGE)
+        valid = ((lay != M.BLOCK_SKIP).repeat_interleave(KVSEQ_PAGE, dim=1)
+                 & M.decode_kv_valid(kv_len, cap))
+        ranks.append(((q, kp, vp, local, kv_len, lay),
+                      dict(scale=scale, num_splits=splits, window=None),
+                      valid))
+    return ranks
+
+
+def kvseq_kernel_phase(torch, seed: int) -> dict:
+    """#7 and #8 at serve-kvseq2's rank slices (``_kvseq_slices``): each
+    rank's launch against its plain partials, both ranks' partials merged
+    (as ``attention_layer.merge_rank_partials`` merges them) against the
+    merged plain ones within the bf16 bound (|o| err <= 2e-2), and rank
+    0's launch (its slice full) timed against its plain version, its
+    bound over the keys this data puts in its reach and SDPA over the
+    same keys. Returns {kernel: {path: entry}} for the kernel records'
+    ``at_shapes``."""
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels.ref import gather_pages
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+    out = {}
+    for name, path, paged in (("flash_decode", "serve_kvseq2", False),
+                              ("flash_decode_paged", "serve_kvseq2_paged",
+                               True)):
+        whole = whole_decode(fd, paged=paged)
+        plain_fn = (fd.flash_decode_paged_partials_plain if paged
+                    else fd.flash_decode_partials_plain)
+        ranks = _kvseq_slices(torch, gen, paged)
+        parts, pparts, o_p_errs = [], [], []
+        for args, call, _ in ranks:
+            o, p = whole(*args, **call)
+            torch.cuda.synchronize()
+            pp = plain_fn(*args, **call)
+            o_p_errs.append(check_partials(f"{name} at {path}", p, pp))
+            parts.append(p)
+            pparts.append(pp)
+
+        def merged(ps):
+            return fd._merge_split_partials(
+                *(torch.cat([p[i] for p in ps], dim=2) for i in range(3)),
+                torch.bfloat16)
+
+        got, want = merged(parts), merged(pparts)
+        merge_err = float((got.float() - want.float()).abs().max())
+        check(merge_err <= 2e-2, f"{name} at {path}: the ranks' merged output "
+                                 f"{merge_err} from the plain version's")
+        args, call, valid = ranks[0]
+        q = args[0]
+        o, p = whole(*args, **call)
+        pp = plain_fn(*args, **call)
+        o_plain = fd._merge_split_partials(*pp, q.dtype)
+        rows = int(valid.sum())
+        kv_src = args[1]
+        hkv, d = kv_src.shape[0 if paged else 1], q.shape[-1]
+        kv_bytes = 2 * rows * hkv * d * kv_src.element_size()
+        sets = copies(torch, gen, args[:3], nbytes(*args[1:3]))
+        ms, call_ms = timed(torch, [lambda a=a: whole(*a, *args[3:], **call)
+                                    for a in sets])
+        plain_ms = device_ms(torch, [lambda: fd._merge_split_partials(
+            *plain_fn(*args, **call), q.dtype)], warmup=1, iters=3)
+        b_ms, b_by = bound(nbytes(q, o, *p, *args[3:]) + kv_bytes,
+                           4.0 * d * rows * q.shape[1], BF16_FLOPS_PER_S)
+        mask = valid[:, None, None, :]
+        if paged:
+            kk = [(a[0], gather_pages(a[1], args[3].clamp_min(0)),
+                   gather_pages(a[2], args[3].clamp_min(0))) for a in sets]
+        else:
+            kk = sets
+        lib_ms = device_ms(torch, [lambda a=a: sdpa(
+            *a, attn_mask=mask, scale=call["scale"], enable_gqa=True)
+            for a in kk])
+        del kk
+        rec = _kernel_record(
+            name, "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "src/repro/kernels/flash_decode.py:"
+            + ("329" if paged else "169"), (o, p[1], p[2]),
+            (o_plain, pp[1], pp[2]), ms, plain_ms, b_ms, b_by, lib_ms,
+            call_ms=call_ms,
+            shape=(f"rank 0 of model 2: b={q.shape[0]} hq={q.shape[1]} "
+                   f"hkv={hkv} d={d} "
+                   + (f"pages of {KVSEQ_PAGE}, 2048 of 4096 its own"
+                      if paged else "slots [0, 16384) of 32768")
+                   + f", global kv_len {list(KVSEQ_KV_LEN)}, splits "
+                     f"{call['num_splits']}, {rows} keys in reach"),
+            library="SDPA over the rank's keys, bool mask, GQA")
+        rec.update(merged_over_ranks_err=merge_err, o_p_errs=o_p_errs)
+        out[name] = {path: rec}
+        del ranks, sets, parts, pparts
+        release(torch)
+    return out
+
+
+def _kvseq_single(torch, model, params, batch, capacity, steps):
+    """The single rank's greedy decode on the card: tokens (b, steps + 1)
+    and float32 logits (b, steps + 1, V) on the host (prefill first), its
+    decode tok/s and its decode state's bytes."""
+    with torch.inference_mode():
+        state, logits = model.prefill(params, batch, capacity)
+        toks, lgs = [logits[:, -1].argmax(-1)], [logits[:, -1].float().cpu()]
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in state["caches"]["kv"].values())
+        state_bytes += state["kv_len"].numel() * 4
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, logits = model.decode_step(params, state,
+                                              toks[-1].to(torch.int32))
+            toks.append(logits[:, -1].argmax(-1))
+            lgs.append(logits[:, -1].float().cpu())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return (torch.stack(toks, 1).cpu().numpy(), torch.stack(lgs, 1),
+            steps * batch["tokens"].shape[0] / dt, state_bytes)
+
+
+def kvseq_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
+    """Phase 22: the sequence-sharded decode
+    (``train.steps.make_sharded_serve_steps``: the KV capacity, or the
+    page pool, cut over "model", each rank's #7 / #8 partials merged
+    across ranks) as gloo ranks sharing the one card
+    (``distributed.launch.kv_seq_rank``), one spawn of 2 ranks and one
+    of 4.
+
+    * parity-kvseq: granite-3-2b at full width, 2 layers, float32,
+      contiguous and paged at (data 1, model 2) and (data 2, model 2),
+      two lanes of a 120-token prompt decoding 12 steps over a capacity
+      of 256 (the slice boundary at 128), against the single-rank
+      ``Model.decode_step`` on the card: greedy tokens identical, prefill
+      and decode logits within 1e-4, the census of every step equal to
+      ``expected_kv_seq_decode_census`` on every rank;
+    * serve-kvseq2 / serve-kvseq2-paged: granite-3-2b in bf16 at full
+      width, ``KVSEQ_LAYERS`` deep (40, the paged one 8), data 1 x model
+      2, ``KVSEQ_LANES`` lanes of
+      ``KVSEQ_PROMPT``-token prompts at capacity ``KVSEQ_CAPACITY`` (pages
+      of ``KVSEQ_PAGE``), ``KVSEQ_STEPS`` decode steps teacher-forced
+      along the single rank's greedy tokens: logits within
+      ``TP_LOGIT_SPACINGS`` bf16 spacings of the single rank's at the
+      row's top |logit|, a rank's argmax parting from the single rank's
+      token only at a top-2 margin within twice that; #1, and #7 or #8,
+      launched on every rank; decode tok/s, per-rank peak memory and
+      decode-state bytes, the latter against ``launch.dryrun``'s per-rank
+      estimate.
+
+    Returns ({"parity_kvseq", path: record, "spawn_s"}, {path: rank 0's
+    launches})."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.distributed import launch
+    from repro_torch.distributed.sharding import auto_rules
+    from repro_torch.launch.dryrun import decode_state_bytes
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda")
+    rs = __import__("numpy").random.RandomState(seed + 22)
+    pcfg = dataclasses.replace(get_config("granite-3-2b"), num_layers=2,
+                               dtype="float32", attn_impl="pallas",
+                               use_decode_kernel=True)
+    pb = {"tokens": rs.randint(1, pcfg.vocab_size, (2, 120)).astype("int32")}
+    pcap, psteps = 256, 12
+    pmodel = build_model(pcfg)
+    pparams = pmodel.init(torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+    want_t, want_l, _, _ = _kvseq_single(
+        torch, pmodel, pparams, {k: torch.as_tensor(v, device=dev)
+                                 for k, v in pb.items()}, pcap, psteps)
+    del pparams
+    release(torch)
+
+    sb = {"tokens": rs.randint(1, get_config("granite-3-2b").vocab_size,
+                               (KVSEQ_LANES, KVSEQ_PROMPT)).astype("int32")}
+    # the single rank's greedy decode at each serve's depth
+    cfgs, refs = {}, {}
+    for path, layers in KVSEQ_LAYERS.items():
+        cfg = dataclasses.replace(get_config("granite-3-2b"),
+                                  num_layers=layers, attn_impl="pallas",
+                                  use_decode_kernel=True)
+        cfgs[path] = cfg
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                            device=dev)
+        refs[path] = _kvseq_single(
+            torch, model, params, {k: torch.as_tensor(v, device=dev)
+                                   for k, v in sb.items()}, KVSEQ_CAPACITY,
+            KVSEQ_STEPS)
+        del params
+        release(torch)
+        print(f"[serve-kvseq1] granite-3-2b {layers} layers bf16, one "
+              f"process: {KVSEQ_LANES} lanes x {KVSEQ_STEPS} decode steps at "
+              f"{KVSEQ_PROMPT}-token prompts, capacity {KVSEQ_CAPACITY}: "
+              f"{refs[path][2]:.1f} decode tok/s, decode state "
+              f"{refs[path][3]} bytes [{card}]", flush=True)
+
+    def prun(mesh, state):
+        return {"cfg": pcfg, "shape": mesh, "state": state, "rules": "auto",
+                "batch": pb, "capacity": pcap, "steps": psteps,
+                "page_size": 16}
+
+    def srun(path, state):
+        return {"cfg": cfgs[path], "shape": (1, 2), "state": state,
+                "rules": "auto", "batch": sb, "capacity": KVSEQ_CAPACITY,
+                "steps": KVSEQ_STEPS, "page_size": KVSEQ_PAGE,
+                "forced": [refs[path][0][:, i] for i in range(KVSEQ_STEPS)]}
+
+    jobs = {2: [("parity", (1, 2), s) for s in ("contiguous", "paged")]
+            + [(p, (1, 2), s) for p, s in KVSEQ_SERVE.items()],
+            4: [("parity", (2, 2), s) for s in ("contiguous", "paged")]}
+    results = {}
+    t0 = time.perf_counter()
+    for world, mine in jobs.items():
+        runs = [prun(mesh, s) if name == "parity" else srun(name, s)
+                for name, mesh, s in mine]
+        recs = launch.spawn(world, kvseq_rank, {
+            "seed": seed, "params": None, "device": "cuda",
+            "backend": "gloo", "runs": runs}, threads=2)
+        for k, key in enumerate(mine):
+            results[key] = [r[k] for r in recs]
+    spawn_s = time.perf_counter() - t0
+
+    parity = []
+    for mesh in KVSEQ_PARITY_MESHES:
+        for state in ("contiguous", "paged"):
+            recs = results[("parity", mesh, state)]
+            tag = f"parity-kvseq data={mesh[0]} model={mesh[1]} {state}"
+            err = 0.0
+            for r in recs:
+                lo, hi = r["lanes"]
+                check((r["tokens"] == want_t[lo:hi]).all(),
+                      f"{tag}: rank {r['rank']}'s greedy tokens differ from "
+                      f"the single rank's")
+                err = max(err, float(abs(r["logits"]
+                                         - want_l[lo:hi].numpy()).max()))
+                for c in r["census"]:
+                    check(c == r["expected_census"],
+                          f"{tag}: rank {r['rank']}'s census {c} is not "
+                          f"{r['expected_census']}")
+            check(err <= 1e-4, f"{tag}: logits {err} from the single rank's")
+            print(f"[{tag}] granite-3-2b 2 layers float32: greedy tokens "
+                  f"identical to the single rank's over {psteps} steps, max "
+                  f"|logit - single| {err:.3g}, census "
+                  f"{recs[0]['expected_census']} every step on every rank "
+                  f"[{card}; {RANKS_NOTE}]", flush=True)
+            parity.append({"data": mesh[0], "model": mesh[1], "state": state,
+                           "identical": True, "max_abs_logit_err": err,
+                           "census": recs[0]["expected_census"]})
+
+    out, launches = {"parity_kvseq": parity, "spawn_s": spawn_s}, {}
+    axes = {"data": 1, "model": 2}
+    for path, state in KVSEQ_SERVE.items():
+        tag = path.replace("_", "-")
+        recs = results[(path, (1, 2), state)]
+        cfg = cfgs[path]
+        ref_t, ref_l, ref_tps, ref_bytes = refs[path]
+        est = decode_state_bytes(
+            cfg, axes, auto_rules(cfg, axes),
+            ShapeConfig(path, KVSEQ_CAPACITY, KVSEQ_LANES, "decode"),
+            page_size=KVSEQ_PAGE if state == "paged" else None)
+        kernel = "flash_decode_paged" if state == "paged" else "flash_decode"
+        diffs, divergences = [], []
+        for r in recs:
+            check(r["state_bytes"] == est,
+                  f"{tag}: rank {r['rank']}'s decode state holds "
+                  f"{r['state_bytes']} bytes, the dry-run estimates {est}")
+            for name in ("flash_fwd", kernel):
+                check(r["launches"][name] > 0,
+                      f"{tag}: kernel {name} never launched on rank "
+                      f"{r['rank']}")
+            for c in r["census"]:
+                check(c == r["expected_census"],
+                      f"{tag}: rank {r['rank']}'s census {c} is not "
+                      f"{r['expected_census']}")
+            got = torch.from_numpy(r["logits"])
+            for i in range(KVSEQ_LANES):
+                for j in range(KVSEQ_STEPS + 1):
+                    row = ref_l[i, j]
+                    top = float(row.abs().max())
+                    diffs.append(float((got[i, j] - row).abs().max())
+                                 / _spacing(top))
+                    mine = int(r["tokens"][i, j])
+                    if mine != int(ref_t[i, j]):
+                        margin = float(row[int(ref_t[i, j])] - row[mine])
+                        spc = margin / _spacing(top)
+                        divergences.append({"rank": r["rank"], "lane": i,
+                                            "step": j, "spacings": spc})
+                        check(spc <= 2 * TP_LOGIT_SPACINGS,
+                              f"{tag}: lane {i} parts from the single rank "
+                              f"at step {j} with a top-2 margin of {spc:.3g} "
+                              f"bf16 spacings")
+        check(max(diffs) <= TP_LOGIT_SPACINGS,
+              f"{tag}: teacher-forced logits {max(diffs):.3g} bf16 spacings "
+              f"from the single rank's (limit {TP_LOGIT_SPACINGS})")
+        r0 = recs[0]
+        n_tok = KVSEQ_LANES * KVSEQ_STEPS
+        rec = {"model": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
+               "data": 1, "model_ranks": 2, "state": state,
+               "lanes": KVSEQ_LANES, "capacity": KVSEQ_CAPACITY,
+               "prompt": KVSEQ_PROMPT, "decode_steps": KVSEQ_STEPS,
+               "page_size": KVSEQ_PAGE if state == "paged" else None,
+               "prefill_s_by_rank": [r["prefill_s"] for r in recs],
+               "decode_s_by_rank": [r["decode_s"] for r in recs],
+               "decode_tokens_per_s": n_tok / max(r["decode_s"]
+                                                  for r in recs),
+               "single_rank_decode_tokens_per_s": ref_tps,
+               "single_rank_state_bytes": ref_bytes,
+               "peak_memory_bytes_by_rank": [r["peak_memory_bytes"]
+                                             for r in recs],
+               "state_bytes_by_rank": [r["state_bytes"] for r in recs],
+               "dryrun_state_bytes": est,
+               "census": r0["expected_census"],
+               "launches_by_rank": [{n: r["launches"][n] for n in
+                                     ("flash_fwd", kernel)} for r in recs],
+               "max_forced_logit_spacings": max(diffs),
+               "divergences": divergences, "card": card, "note": RANKS_NOTE}
+        out[path] = rec
+        launches[path] = r0["launches"]
+        print(f"[{tag}] granite-3-2b {cfg.num_layers} layers bf16, data 1 x "
+              f"model 2, "
+              f"{state}: {n_tok} decode tokens at "
+              f"{rec['decode_tokens_per_s']:.1f} tok/s (single rank "
+              f"{ref_tps:.1f}), prefill {max(rec['prefill_s_by_rank']):.1f}s,"
+              f" peak memory by rank "
+              f"{[round(r['peak_memory_bytes'] / 2**30, 2) for r in recs]} GiB,"
+              f" decode state {rec['state_bytes_by_rank']} bytes by rank "
+              f"(dry-run {est}; single rank {ref_bytes}), census "
+              f"{rec['census']} a step; teacher-forced logits within "
+              f"{max(diffs):.3g} bf16 spacings (limit {TP_LOGIT_SPACINGS}), "
+              f"{len(divergences)} argmax partings at "
+              f"{[round(d['spacings'], 2) for d in divergences]} spacings; "
+              f"launches by rank {rec['launches_by_rank']} "
+              f"[{card}; {RANKS_NOTE}]", flush=True)
+    print(f"[kvseq] the spawns in {spawn_s:.1f}s", flush=True)
+    return out, launches
 
 
 # ---------------------------------------------------------------------------
@@ -5454,6 +5900,9 @@ def main() -> int:
     for name, entries in phi3v_kernel_phase(torch, args.seed).items():
         at_shapes.setdefault(name, {}).update(entries)
     lap("phi3v_kernels")
+    for name, entries in kvseq_kernel_phase(torch, args.seed).items():
+        at_shapes.setdefault(name, {}).update(entries)
+    lap("kvseq_kernels")
     moe_layer = moe_layer_phase(torch, args.seed, card)
     lap("moe_layer")
     ssm_layer = ssm_layer_phase(torch, args.seed, card)
@@ -5560,6 +6009,9 @@ def main() -> int:
     levers, levers_paths = levers_phase(torch, args.seed, card)
     paths.update(levers_paths)
     lap("levers")
+    kvseq, kvseq_paths = kvseq_phase(torch, args.seed, card)
+    paths.update(kvseq_paths)
+    lap("kvseq")
     serves = {"serve_qwen3": serve_qwen3, "serve_olmoe": serve_olmoe,
               "serve_phi35moe": serve_phi35moe, "serve_hymba": serve_hymba}
     held = serve_shape_records_apart(torch, args.seed, {
@@ -5612,7 +6064,7 @@ def main() -> int:
               "phi3v_parity": phi3v_parity, "serve_phi3v": serve_phi3v,
               "train_phi3v": train_phi3v, "tp_serving": tp_serving,
               "train_mesh": train_mesh, "train_family": train_family,
-              "levers": levers, "tuning": tuning_rec, "phase_end_s": laps,
+              "levers": levers, "kvseq": kvseq, "tuning": tuning_rec, "phase_end_s": laps,
               "total_s": time.perf_counter() - t_start}
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(f"[done] total {record['total_s']:.1f}s", flush=True)

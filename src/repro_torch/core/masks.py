@@ -136,8 +136,19 @@ class MaskSpec:
                 "a static sparse_layout cannot govern traced positions")
 
     @property
+    def has_geometry(self) -> bool:
+        """Geometric terms (subject to a sparse pattern's FULL override)."""
+        return self.causal or self.window is not None
+
+    @property
     def has_positions(self) -> bool:
         return self.q_positions is not None
+
+    @property
+    def has_data(self) -> bool:
+        """Validity and isolation terms (never overridden by FULL)."""
+        return (self.kv_valid_len is not None or self.kv_mask is not None
+                or self.q_segment_ids is not None)
 
     @property
     def has_traced(self) -> bool:
@@ -169,6 +180,44 @@ class MaskSpec:
                    if self.q_segment_ids is not None else None),
             kv_seg=(self.kv_segment_ids[:, None, None, :]
                     if self.kv_segment_ids is not None else None))
+
+
+# ---------------------------------------------------------------------------
+# Element-level convenience masks (oracles / bias construction)
+# ---------------------------------------------------------------------------
+
+def causal_mask(q_len: int, k_len: int, q_offset: int = 0,
+                device=None) -> torch.Tensor:
+    """Boolean (q, k): True where a query may attend; ``q_offset`` shifts
+    the query positions (q a suffix of the kv sequence, e.g. decode)."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    k_pos = torch.arange(k_len, device=device)[None, :]
+    return element_mask(q_pos, k_pos, causal=True)
+
+
+def sliding_window_mask(q_len: int, k_len: int, window: int,
+                        q_offset: int = 0, device=None) -> torch.Tensor:
+    """Causal sliding window: attend to keys in (pos - window, pos]."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    k_pos = torch.arange(k_len, device=device)[None, :]
+    return element_mask(q_pos, k_pos, causal=True, window=window)
+
+
+def padding_mask_to_bias(kv_mask: torch.Tensor,
+                         dtype=torch.float32) -> torch.Tensor:
+    """(batch, k) boolean -> (batch, 1, 1, k) additive bias: 0 where valid,
+    ``NEG_INF`` where padding."""
+    zero = torch.zeros((), dtype=dtype, device=kv_mask.device)
+    neg = torch.full((), NEG_INF, dtype=dtype, device=kv_mask.device)
+    return torch.where(kv_mask[:, None, None, :], zero, neg)
+
+
+def segment_mask(q_segment_ids: torch.Tensor,
+                 kv_segment_ids: torch.Tensor) -> torch.Tensor:
+    """(b, sq) x (b, sk) segment ids -> (b, 1, sq, sk) boolean attend-mask:
+    True where query and key belong to the same packed segment (it
+    broadcasts against per-head scores (b, h, sq, sk))."""
+    return q_segment_ids[:, None, :, None] == kv_segment_ids[:, None, None, :]
 
 
 def decode_kv_valid(kv_len: torch.Tensor, capacity: int, *,
@@ -470,6 +519,16 @@ class BlockLayout:
                                    device=device or "cpu")
         return self.layout.to(device=device or self.layout.device,
                               dtype=torch.int32)
+
+    def density(self) -> float:
+        """Fraction of non-skipped blocks (Prop. 4's sparsity fraction s)."""
+        return layout_density(self)
+
+    def skip_count(self) -> int:
+        return int((_grid(self) == BLOCK_SKIP).sum())
+
+    def block_count(self) -> int:
+        return int(_grid(self).numel())
 
 
 def compile_block_layout(spec: MaskSpec, q_len: int, k_len: int,

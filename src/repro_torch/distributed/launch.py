@@ -38,6 +38,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.core.tree import tree_leaves, tree_map
+
 
 def _rank_main(rank, world, tmp, backend, threads):
     if threads:
@@ -102,7 +104,11 @@ def serve_rank(spec: dict) -> list[dict]:
     ``engine`` (ServingEngine keywords), ``waves`` and the flags ``pool``
     (bring back the rank's page pool) and ``packed`` (a (1, S) packed
     prefill batch of numpy ``tokens`` / ``segment_ids`` whose logits to
-    bring back, through the shard model). A run with ``mesh_only`` only
+    bring back, through the shard model) and ``census`` (the engine's
+    censuses, ``decode_collective_census`` and ``prefill_collective_census``
+    of every kind, before the first step and after the waves, and whether
+    the second left the engine's pool, counters and census as they were).
+    A run with ``mesh_only`` only
     builds the mesh of its ``sp``, ``tp`` and ``backend`` and brings back
     the ``ValueError`` it raised (or None)."""
     from repro_torch.distributed.meshes import serve_mesh
@@ -132,6 +138,7 @@ def serve_rank(spec: dict) -> list[dict]:
                             sp_strategy=run.get("sp_strategy"), mesh=mesh,
                             device=mesh.device, **run.get("engine", {}))
         del params
+        census = _engine_census(eng) if run.get("census") else None
         rec = {"rank": mesh.rank, "coord": mesh.coord,
                "outputs": serve_waves(eng, run.get("waves", [])),
                "preemptions": eng.preemptions,
@@ -139,9 +146,23 @@ def serve_rank(spec: dict) -> list[dict]:
                "prefill_tokens_skipped": eng.prefill_tokens_skipped,
                "step_census": dict(eng.step_census),
                "cache_bytes": eng.cache_bytes(),
+               "per_shard_cache_bytes": eng.per_shard_cache_bytes(),
                "sp_strategy": eng.sp_strategy,
                "prefill_bucket": eng.prefill_bucket,
                "chunk_size": eng.scheduler.cfg.chunk_size}
+        if census is not None:
+            # again after serving: the placeholder steps must leave the
+            # engine's pool, counters and census as they were
+            pool = {k: t.clone() for k, t in eng.state["caches"]["kv"].items()}
+            seen = (eng.collectives(), dict(eng.step_census),
+                    eng.decode_calls, eng.prefill_calls)
+            rec["census_before"] = census
+            rec["census_after"] = _engine_census(eng)
+            rec["census_left_engine"] = (
+                seen == (eng.collectives(), dict(eng.step_census),
+                         eng.decode_calls, eng.prefill_calls)
+                and all(torch.equal(pool[k], t) for k, t in
+                        eng.state["caches"]["kv"].items()))
         if run.get("pool"):
             rec["pool"] = {k: t.cpu().numpy()
                            for k, t in eng.state["caches"]["kv"].items()}
@@ -154,10 +175,170 @@ def serve_rank(spec: dict) -> list[dict]:
     return out
 
 
+def _engine_census(eng) -> dict:
+    """The engine's decode census and its prefill census of every kind,
+    or the ``ValueError`` a kind raised, as its message."""
+    out = {"decode": eng.decode_collective_census()}
+    for kind in ("chunk", "packed", "scatter", "bogus"):
+        try:
+            out[kind] = eng.prefill_collective_census(kind)
+        except ValueError as e:
+            out[kind] = f"ValueError: {e}"
+    return out
+
+
 def serve(spec: dict, world: int, *, threads: int | None = 1) -> list:
     """``serve_rank(spec)`` on ``world`` ranks; each rank's list of run
     records, by rank."""
     return spawn(world, serve_rank, spec, backend=spec["backend"],
+                 threads=threads)
+
+
+def _numpy(tree):
+    """A state tree as numpy copies (the decode steps update the state in
+    place), floats as float32."""
+    def one(t):
+        t = t.detach().cpu()
+        return (t.float() if t.is_floating_point() else t).numpy().copy()
+    return tree_map(one, tree)
+
+
+def kv_seq_rank(spec: dict) -> list[dict]:
+    """One rank's part of ``kv_seq``: for each run of the spec, a
+    ``("data", "model")`` mesh of its ``shape`` (counted), the sharded
+    serve steps (``train.steps.make_sharded_serve_steps``) of ``cfg`` with
+    the run's ``state`` specs ("contiguous": ``Model.decode_state_specs``,
+    "paged": ``paged_decode_state_specs`` with ``page_size``, None: no
+    state sharding) and ``rules`` ("auto": ``sharding.auto_rules``, None:
+    the mesh's defaults), the prefill of the run's global ``batch`` (numpy
+    leaves) at ``capacity``, then ``steps`` greedy decode steps (or, given
+    ``forced``, one global token row a step: teacher forcing). ``spec``:
+    ``cfg``, ``params`` (a numpy tree in the port's layout, every rank the
+    full tree, cut to its pieces) or ``seed`` (every rank draws the same
+    tree on its device), ``device``, ``backend`` and ``runs``; a run's
+    ``cfg``, ``params`` and ``seed`` replace the spec's; its
+    ``donate`` (default True), ``keep_state`` (bring back the rank's
+    state pieces after the prefill and after the steps, and whether the
+    state handed to the first step changed) and ``expect_error`` (bring
+    back the ``ValueError`` building the steps or the prefill raised).
+    Each record: the rank, its coordinate, its lanes' tokens and float32
+    logits (prefill first), the census of each decode step, the decode
+    state's bytes after the prefill, the kernels' launches over the
+    prefill and the decode steps, times and, on a card, the rank's peak
+    memory."""
+    import time
+
+    from repro_torch.distributed.meshes import make_mesh
+    from repro_torch.distributed.sharding import auto_rules
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import build_model
+    from repro_torch.telemetry.metrics import MetricsRegistry
+    from repro_torch.train.steps import make_sharded_serve_steps
+
+    out = []
+    for run in spec["runs"]:
+        cfg = run.get("cfg", spec.get("cfg"))
+        model = build_model(cfg)
+        registry = MetricsRegistry()
+        mesh = make_mesh(run["shape"], ("data", "model"),
+                         backend=spec["backend"],
+                         device=spec["device"]).counted(registry)
+        counter = registry.get("collectives")
+        dev = mesh.device
+        rec = {"rank": mesh.rank, "coord": mesh.named_coord}
+        kind = run.get("state", "contiguous")
+        specs = {"contiguous": model.decode_state_specs,
+                 "paged": model.paged_decode_state_specs,
+                 None: lambda: None}[kind]()
+        rules = (auto_rules(cfg, mesh) if run.get("rules") == "auto"
+                 else None)
+        try:
+            prefill, decode = make_sharded_serve_steps(
+                model, mesh, rules=rules, state_specs=specs,
+                donate=run.get("donate", True))
+        except ValueError as e:
+            if not run.get("expect_error"):
+                raise
+            out.append(dict(rec, error=str(e)))
+            continue
+        sh = decode.shardings
+        tree = run.get("params", spec.get("params"))
+        if tree is None:
+            full = model.init(torch.Generator(device=dev)
+                              .manual_seed(run.get("seed", spec.get("seed"))),
+                              device=dev)
+        else:
+            full = _tensors(tree, dev)
+        if sh["params"] is None:
+            params = full
+        else:
+            from repro_torch.distributed.sharding import _pairs
+            params = _pairs(full, sh["params"], lambda t, s_: s_.shard(t))
+        del full
+        batch = {k: torch.as_tensor(np.asarray(v), device=dev)
+                 for k, v in run["batch"].items()}
+        on_card = dev.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+        kw = {"page_size": run["page_size"]} if kind == "paged" else {}
+        launches = {**fa.LAUNCHES, **fd.LAUNCHES}
+        t0 = time.perf_counter()
+        state, logits = prefill(params, batch, run["capacity"], **kw)
+        if on_card:
+            torch.cuda.synchronize()
+        rec["prefill_s"] = time.perf_counter() - t0
+        rec["state_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in tree_leaves(state))
+        if run.get("keep_state"):
+            rec["prefill_state"] = _numpy(state)
+        b = logits.shape[0]
+        lo = (mesh.data.index * b if sh["token"] is not None
+              and sh["token"].spec[0] is not None else 0)
+        rec["lanes"] = (lo, lo + b)
+        tokens = [logits[:, -1].argmax(-1).cpu().numpy()]
+        rec_logits = [logits[:, -1].float().cpu().numpy()]
+        census = []
+        forced = run.get("forced")
+        first = None if not run.get("keep_state") else _numpy(state)
+        t0 = time.perf_counter()
+        for i in range(run["steps"]):
+            row = (np.asarray(forced[i])[lo:lo + b] if forced is not None
+                   else tokens[-1])
+            token = torch.as_tensor(row, dtype=torch.int32, device=dev)
+            before = _census(counter)
+            new_state, logits = decode(params, state, token)
+            after = _census(counter)
+            census.append({k: n - before.get(k, 0) for k, n in after.items()
+                           if n != before.get(k, 0)})
+            if i == 0 and first is not None:
+                rec["input_state_unchanged"] = all(
+                    np.array_equal(a, c) for a, c in zip(
+                        tree_leaves(first), tree_leaves(_numpy(state))))
+            state = new_state
+            tokens.append(logits[:, -1].argmax(-1).cpu().numpy())
+            rec_logits.append(logits[:, -1].float().cpu().numpy())
+        if on_card:
+            torch.cuda.synchronize()
+        rec["decode_s"] = time.perf_counter() - t0
+        rec["launches"] = {k: n - launches[k] for k, n in
+                           {**fa.LAUNCHES, **fd.LAUNCHES}.items()}
+        rec.update(tokens=np.stack(tokens, 1), logits=np.stack(rec_logits, 1),
+                   census=census, expected_census=sh["census"],
+                   peak_memory_bytes=(torch.cuda.max_memory_allocated(dev)
+                                      if on_card else None))
+        if run.get("keep_state"):
+            rec["state"] = _numpy(state)
+        del state, new_state, params
+        out.append(rec)
+    return out
+
+
+def kv_seq(spec: dict, world: int, *, threads: int | None = 1) -> list:
+    """``kv_seq_rank(spec)`` on ``world`` ranks; each rank's list of run
+    records, by rank."""
+    return spawn(world, kv_seq_rank, spec, backend=spec["backend"],
                  threads=threads)
 
 

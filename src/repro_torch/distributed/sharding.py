@@ -612,6 +612,96 @@ class TrainShard:
         return self.data.index * rows if self.batch_sharded else 0
 
 
+@dataclasses.dataclass(frozen=True)
+class DecodeShard(TrainShard):
+    """What one rank of a sequence-sharded decode reads of its mesh
+    (``train.steps.make_sharded_serve_steps`` builds it): the params'
+    cuts of a ``TrainShard`` (``heads``: the q/k/v columns and ``wo``'s
+    rows, which need not be whole heads, since every rank gathers every
+    head of the new token), ``kv_seq``: the KV capacity, or the page
+    pool's pages, cut over "model"; ``batch_sharded``: the decode lanes
+    cut over the data axes; ``world``: the whole mesh's group."""
+    world: Any = None
+    kv_seq: bool = False
+
+    @property
+    def kv_rank(self) -> tuple[int, int]:
+        """(ranks the KV capacity is cut over, this rank's piece)."""
+        if not self.kv_seq:
+            return 1, 0
+        return self.model.size, self.model.index
+
+
+def decode_cuts(cfg, shape: Mapping[str, int],
+                rules: Mapping[str, Any]) -> dict[str, bool]:
+    """What a sequence-sharded decode rank cuts over a "model" axis of
+    more than one rank (the params' cuts of ``train_cuts``, with the
+    heads cut wherever the rules put them on "model": the decode gathers
+    the token's columns, so they need not be whole heads), ``kv_seq``
+    (the capacity or pages) and ``lanes`` (the decode lanes over the
+    data axes)."""
+    m = shape.get("model", 1)
+    d = math.prod(shape.get(a, 1) for a in ("pod", "data"))
+
+    def cut(axis):
+        return m > 1 and rules.get(axis) == "model"
+
+    cuts = dict(train_cuts(cfg, shape, rules))
+    cuts["heads"] = cut("heads") and cfg.num_heads > 0
+    cuts["kv_seq"] = cut("kv_seq")
+    cuts["lanes"] = d > 1 and rules.get("data") is not None
+    return cuts
+
+
+def expected_kv_seq_decode_census(cfg, m: int, *, data: int = 1,
+                                  paged: bool = False, rules=None
+                                  ) -> dict[str, int]:
+    """The collectives one decode step of ``make_sharded_serve_steps`` must
+    count on every rank of a ``("data", "model")`` mesh of ``data`` x
+    ``m`` ranks with its state sharded by the decode specs, from the
+    config and the rules (default ``rules_for_mesh``). Per attention
+    layer: one ``all_gather`` of the new token's q/k/v columns where the
+    heads are cut (over "model"; for a pool that every data rank holds,
+    of every data rank's lanes too, over the whole mesh), one of the
+    fp32 split partials where the capacity is cut, and one
+    ``all_reduce`` of ``wo``'s rows where the heads are cut; a decoder
+    block's cross-attention the same but for the token's K/V. An SSM cut
+    by head group two ``all_reduce`` (the gated norm's sum of squares,
+    ``out_proj``), an MLP with its hidden dim cut or an MoE with its
+    experts cut one. Per step: a cut vocab one ``all_reduce`` (the
+    embedding) and one ``all_gather`` (the logits); a pool shared by
+    the data ranks one ``all_gather`` of their page tables and
+    lengths."""
+    shape = {"data": data, "model": m}
+    rules = rules or rules_for_mesh(shape)
+    cuts = decode_cuts(cfg, shape, rules)
+    census: dict[str, int] = {}
+
+    def add(kind, n):
+        if n:
+            census[kind] = census.get(kind, 0) + n
+
+    shared = paged and cuts["lanes"]
+    L = cfg.num_layers
+    if cfg.family != "ssm":
+        add("all_gather", L * ((cuts["heads"] or shared) + cuts["kv_seq"]))
+        add("all_reduce", L * cuts["heads"])
+    if cfg.num_encoder_layers > 0:
+        # a decoder block's cross-attention: the token's q columns and the
+        # partials over the rank's encoder rows
+        add("all_gather", L * (cuts["heads"] + cuts["kv_seq"]))
+        add("all_reduce", L * cuts["heads"])
+    if (cfg.family == "ssm" or cfg.hybrid) and cuts["ssm"]:
+        add("all_reduce", 2 * L)
+    if cfg.family == "moe":
+        add("all_reduce", L * cuts["experts"])
+    elif cfg.d_ff > 0:
+        add("all_reduce", L * cuts["ff"])
+    add("all_reduce", cuts["vocab"])
+    add("all_gather", cuts["vocab"] + shared)
+    return census
+
+
 def resolve_tree(specs, mesh, rules: Mapping[str, Any]):
     """The logical spec tree resolved on the mesh: a tree of
     ``NamedSharding`` (the reference's ``resolve_tree``)."""
@@ -621,11 +711,15 @@ def resolve_tree(specs, mesh, rules: Mapping[str, Any]):
 
 
 def shard_params(params, specs, mesh, rules: Mapping[str, Any]):
-    """This rank's slices of a full parameter tree: every dim whose spec
-    resolves to mesh axes is cut into that many contiguous pieces and the
-    piece at the rank's coordinate kept (a copy, so the full tree can be
-    freed); replicated leaves are kept as they are. Raises with the
-    preflight's messages where a dim does not divide."""
+    """This rank's slices of a full parameter tree, or of a full decode
+    state (``Model.decode_state_specs`` / ``paged_decode_state_specs``:
+    "data" cuts the lanes, "kv_seq" the capacity or the pool's pages,
+    "ssm_heads" / "ssm_ff" the SSM state by head group): every dim whose
+    spec resolves to mesh axes is cut into that many contiguous pieces
+    (a ``Pieces`` dim segment by segment) and the piece at the rank's
+    coordinate kept (a copy, so the full tree can be freed); replicated
+    leaves are kept as they are. Raises with the preflight's messages,
+    each naming its leaf, where a dim does not divide."""
     problems = validate_divisibility(params, specs, mesh, rules)
     if problems:
         raise ValueError("sharding preflight failed:\n" + "\n".join(problems))

@@ -391,3 +391,86 @@ def flash_decode(
         return flash_decode_from_layout(
             q, k, v, kv_len, layout, scale=scale, block_k=block_k,
             num_splits=num_splits, window=window, kv_mask=kv_mask)[0]
+
+
+# ---------------------------------------------------------------------------
+# a rank's slice of a sequence-sharded cache
+# ---------------------------------------------------------------------------
+
+def flash_decode_slice(q, k, v, kv_len, *, offset: int,
+                       scale: float | None = None,
+                       block_k: int | None = None,
+                       num_splits: int | None = None,
+                       window: int | None = None):
+    """The split partials ``(o_p, m_p, l_p)`` of one-token attention over a
+    SLICE of a contiguous cache: ``k``, ``v`` (b, hkv, cs, d) hold the
+    global positions [offset, offset + cs) of each lane, ``kv_len`` (b,)
+    the global lengths. One rank of a sequence-sharded decode runs this
+    over its slice (#7 on a CUDA tensor, its plain version on a CPU
+    tensor) and merges every rank's partials (``_merge_split_partials``).
+    The slice's valid keys are those of the whole cache, ``kv_len`` and
+    ``window`` counted globally: the kernel gets the length within the
+    slice (clamped to [0, cs]) and, under a window, the slice's valid
+    slots as its ``kv_mask``, since the window's lower edge belongs to
+    the global length. The block and splits resolve at the slice's
+    capacity with ``shards=1`` (every rank holds every head). A lane with
+    no valid key in the slice gives splits of m = NEG_INF, l = 0, which
+    the merge weighs 0."""
+    from repro_torch.kernels.tuning import resolve_decode_geometry
+    b, hq, sq, d = q.shape
+    cs = k.shape[2]
+    if sq != 1:
+        raise ValueError("flash_decode_slice handles single-token decode")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    block_k, num_splits = resolve_decode_geometry(
+        cs, block_k, num_splits, head_dim=d, dtype=k.dtype, shards=1,
+        on_card=q.is_cuda, device=q.device)
+    with torch.inference_mode():
+        kv_len = kv_len.to(torch.int32)
+        pos = offset + torch.arange(cs, device=q.device)
+        valid = M.element_mask((kv_len - 1)[:, None], pos[None, :],
+                               causal=True, window=window)
+        local = torch.clamp(kv_len - offset, 0, cs)
+        layout = M.kv_block_layout(valid, block_k)
+        return flash_decode_from_layout(
+            q, k, v, local, layout, scale=scale, block_k=block_k,
+            num_splits=num_splits, window=None,
+            kv_mask=None if window is None else valid)[1]
+
+
+def flash_decode_paged_slice(q, k_pool, v_pool, page_table, kv_len, *,
+                             first_page: int, scale: float | None = None,
+                             num_splits: int | None = None,
+                             window: int | None = None):
+    """The split partials ``(o_p, m_p, l_p)`` of one-token attention over
+    the pages [first_page, first_page + num_pages) of a page pool cut
+    over ranks: ``k_pool``, ``v_pool`` (hkv, num_pages, page_size, d) are
+    this rank's pages, ``page_table`` (b, T) the global table and
+    ``kv_len`` the global lengths. Entries of pages the rank does not own
+    become -1, which ``masks.paged_block_layout`` forces SKIP, so the
+    kernel (#8 on a CUDA tensor, its plain version on a CPU tensor) never
+    forms their address; the table stays in logical page space, so the
+    lengths and the window are the global ones. The splits resolve over
+    the table's T pages with ``shards=1``."""
+    from repro_torch.kernels.tuning import resolve_decode_geometry
+    b, hq, sq, d = q.shape
+    hkv, n, ps, _ = k_pool.shape
+    T = page_table.shape[1]
+    if sq != 1:
+        raise ValueError("flash_decode_paged_slice handles single-token "
+                         "decode")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    _, num_splits = resolve_decode_geometry(
+        T * ps, None, num_splits, head_dim=d, dtype=k_pool.dtype,
+        page_size=ps, shards=1, on_card=q.is_cuda, device=q.device)
+    with torch.inference_mode():
+        kv_len = kv_len.to(torch.int32)
+        local = page_table.to(torch.int32) - first_page
+        local = torch.where((local >= 0) & (local < n), local,
+                            torch.full_like(local, -1))
+        layout = M.paged_block_layout(kv_len, local, ps, window=window)
+        return flash_decode_paged_from_layout(
+            q, k_pool, v_pool, local, kv_len, layout, scale=scale,
+            num_splits=num_splits, window=window)[1]

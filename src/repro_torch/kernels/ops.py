@@ -43,6 +43,7 @@ from repro_torch.core.masks import (MaskSpec, POS_PAD, SEG_PAD_KV, SEG_PAD_Q,
                                     paged_prefill_block_layout,
                                     refine_block_layout, resolve_segment_ids)
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels import tuning
 
 
@@ -307,3 +308,9 @@ def flash_prefill_paged(
                          kv_segment_ids, q_positions, kv_positions, layout,
                          call)
     return o[:, :, :sq]
+
+
+# the reference entry points re-exported, as the reference's ops does, so
+# that benchmarks and tests import everything from ops
+standard_attention = kref.standard_attention
+chunked_attention = kref.chunked_attention

@@ -102,6 +102,31 @@ def train_state_bytes(cfg, axes: Mapping[str, int], rules) -> dict:
             "cut_leaves": any(cut), "whole_leaves": not all(cut)}
 
 
+def decode_state_bytes(cfg, axes: Mapping[str, int], rules, shape, *,
+                       page_size: int | None = None) -> int:
+    """Bytes a rank holds of the decode state of a ``shape`` (its
+    ``global_batch`` lanes at a capacity of its ``seq_len``; an
+    encoder-decoder's half of it, with its cross cache for the other
+    half) under ``Model.decode_state_specs``, or with ``page_size`` of a
+    pool of every lane's pages under ``paged_decode_state_specs``: what
+    ``train.steps.make_sharded_serve_steps``' prefill allocates on each
+    rank."""
+    model = build_model(cfg)
+    if page_size is not None:
+        pages = shape.seq_len // page_size
+        state = model.init_paged_decode_state(
+            shape.global_batch, shape.global_batch * pages, page_size,
+            pages, device="meta")
+        return tree_bytes(state, model.paged_decode_state_specs(), axes,
+                          rules)
+    enc = cfg.num_encoder_layers > 0
+    capacity = shape.seq_len // 2 if enc else shape.seq_len
+    state = model.init_decode_state(shape.global_batch, capacity,
+                                    device="meta",
+                                    enc_len=capacity if enc else 0)
+    return tree_bytes(state, model.decode_state_specs(), axes, rules)
+
+
 def parse_overrides(spec: str | None) -> dict:
     """--override 'ssm_chunk=64,attn_pv_bf16=true,ssm_decay_dtype=bfloat16'"""
     out = {}
@@ -175,7 +200,7 @@ def cell(arch: str, shape_name: str, mesh_name: str,
         else:
             (cache, token), (cache_specs, token_spec) = inputs, input_specs
             by_rank["batch"] = tree_bytes(token, token_spec, axes, rules)
-        by_rank["cache"] = tree_bytes(cache, cache_specs, axes, rules)
+        by_rank["cache"] = decode_state_bytes(cfg, axes, rules, shape)
         problems += validate_divisibility(cache, cache_specs, axes, rules)
     by_rank["total"] = sum(by_rank.values())
     rec["bytes_per_rank"] = by_rank

@@ -213,9 +213,11 @@ def run(args, mesh=None):
         layout += (f" tp={eng.tp} sp={eng.sp}"
                    f"{f'({eng.sp_strategy})' if eng.sp > 1 else ''}"
                    f" backend={args.backend}")
+    shard_note = (f" ({eng.per_shard_cache_bytes()/1e6:.2f} MB/shard)"
+                  if eng.tp > 1 else "")
     say(f"arch={cfg.name} device={device} attn={cfg.attn_impl}"
         f"{chunked} lanes={args.slots} cache={eng.cache_bytes()/1e6:.2f} MB"
-        f"{' per rank' if mesh is not None else ''} mode={layout}")
+        f"{shard_note} mode={layout}")
     done = eng.run(on_step=ServingEngine.step_stats_printer()
                    if mesh is None or mesh.rank == 0 else None)
     if device.type == "cuda":
@@ -232,6 +234,25 @@ def run(args, mesh=None):
             f"({eng.prefix_hits}/{eng.prefix_lookups} admissions), "
             f"{eng.prefix_pages_shared} pages shared, "
             f"{eng.prefill_tokens_skipped} prefill tokens skipped")
+    if eng.tp > 1 or eng.sp > 1:
+        # every rank counts the censuses together (their collectives are
+        # real); rank 0 prints them
+        decode_census = eng.decode_collective_census()
+        chunk_census = eng.prefill_collective_census("chunk")
+    if eng.tp > 1:
+        say(f"tp={eng.tp}: per-shard pool utilization "
+            f"{eng.kv.utilization():.0%} (identical on every shard: one "
+            f"logical pool, head-sliced), "
+            f"{eng.per_shard_cache_bytes()/1e6:.2f} MB KV/shard, "
+            f"decode census {decode_census}")
+    if eng.sp > 1:
+        c = eng.sp_prefill_costs
+        say(f"sp={eng.sp}: strategy={eng.sp_strategy} "
+            f"(io_model chunk bytes: replicated {c['replicated']/1e6:.2f} "
+            f"MB, allgather {c['allgather']/1e6:.2f} MB, "
+            f"ring {c['ring']/1e6:.2f} MB), "
+            f"prefill census {chunk_census}, "
+            f"decode census {decode_census}")
     for r in done[:5]:
         say(f"  req{r.rid}: {len(r.output)} tokens {r.output[:8]}...")
     if args.trace:

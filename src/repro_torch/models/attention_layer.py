@@ -56,6 +56,9 @@ from repro_torch.core.attention import (AttentionSpec, attention,
 from repro_torch.core.masks import segment_relative_positions
 from repro_torch.distributed import comm
 from repro_torch.distributed.sharding import P
+from repro_torch.kernels.flash_decode import (_merge_split_partials,
+                                             flash_decode_paged_slice,
+                                             flash_decode_slice)
 from repro_torch.models.layers import apply_rope, dense_init, rms_normalize
 
 
@@ -159,12 +162,22 @@ def _project_qkv(params, cfg: ModelConfig, x, kv_x, positions, kv_positions,
                  shard=None):
     """q, k, v heads (b, h, s, hd), qk-normed and rotated; ``shard``: the
     rank's heads of a tensor-parallel training step."""
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _split_heads(x @ params["wq"], hq, hd)
+    hd = cfg.head_dim
+    q = x @ params["wq"]
     k, v = kv_x @ params["wk"], kv_x @ params["wv"]
     if shard is not None and shard.kv_split:
         k, v = _whole_kv_head(k, shard, hd), _whole_kv_head(v, shard, hd)
-    k, v = _split_heads(k, hkv, hd), _split_heads(v, hkv, hd)
+    return _qkv_heads(params, cfg, q, k, v, positions, kv_positions, shard)
+
+
+def _qkv_heads(params, cfg: ModelConfig, q, k, v, positions, kv_positions,
+               shard=None):
+    """Projected columns (b, s, h * hd) -> heads (b, h, s, hd), qk-normed
+    and rotated (RoPE where positions are given)."""
+    hd = cfg.head_dim
+    q = _split_heads(q, q.shape[-1] // hd, hd)
+    k = _split_heads(k, k.shape[-1] // hd, hd)
+    v = _split_heads(v, v.shape[-1] // hd, hd)
     if cfg.qk_norm:
         qn, kn = params["q_norm"], params["k_norm"]
         if shard is not None:
@@ -232,6 +245,30 @@ def init_kv_cache(cfg: ModelConfig, batch: int, capacity: int, dtype,
     shape = (batch, cfg.num_kv_heads, capacity, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def kv_cache_specs():
+    """Logical specs of one layer's slot cache (the reference's): lanes
+    over "data", the capacity over "kv_seq" (the sequence-sharded decode
+    cuts it over "model"; the kv heads stay whole)."""
+    return {"k": P("data", None, "kv_seq", None),
+            "v": P("data", None, "kv_seq", None)}
+
+
+def init_paged_kv_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                        dtype, device):
+    """One layer's page pool, (hkv, num_pages, page_size, hd) per K/V
+    leaf: no lane axis, any lane's page table may point anywhere in it."""
+    shape = (cfg.num_kv_heads, num_pages, page_size, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_kv_cache_specs():
+    """Logical specs of one layer's page pool (the reference's): the pages
+    over "kv_seq", as the slot cache's capacity."""
+    return {"k": P(None, "kv_seq", None, None),
+            "v": P(None, "kv_seq", None, None)}
 
 
 def prefill_attention(params, cfg: ModelConfig, x, cache=None, *,
@@ -392,3 +429,196 @@ def paged_decode_attention_step(params, cfg: ModelConfig, x, pool,
     o = paged_decode_attention(q, pool["k"], pool["v"], page_table,
                                kv_len + 1, spec)
     return _tp_reduce(_merge_heads(o) @ params["wo"], cfg, mesh), pool
+
+
+# ---------------------------------------------------------------------------
+# sequence-sharded decode: the KV capacity or the page pool cut over "model"
+# ---------------------------------------------------------------------------
+
+def gather_columns(cols, shard, *, all_lanes: bool = False):
+    """Every head's columns of the rank's column-parallel projections:
+    ``cols`` (b, s, c_i) each, this rank's columns of its lanes, gathered
+    over "model" where the heads are cut (in rank order: the reference's
+    contiguous column cut), and with ``all_lanes`` (a pool every data rank
+    holds whole) every data rank's lanes too, over the whole mesh (over
+    "data" where the heads are whole). One ``all_gather``; ``cols`` as
+    they are where nothing is cut."""
+    heads = shard.heads
+    lanes = all_lanes and shard.batch_sharded and shard.data.size > 1
+    if not (heads or lanes):
+        return list(cols)
+    group = (shard.world if heads and lanes else
+             shard.model if heads else shard.data)
+    m = shard.model.size if heads else 1
+    sizes = [c.shape[-1] for c in cols]
+    flat = torch.cat(cols, dim=-1)
+    b, s = flat.shape[:2]
+    every = comm.all_gather(flat, group, dim=0).view(-1, m, b, s, sum(sizes))
+    return [part.permute(0, 2, 3, 1, 4).reshape(-1, s, m * part.shape[-1])
+            for part in every.split(sizes, dim=-1)]
+
+
+def _rank_output(params, o, shard):
+    """``wo`` of every head's output o (b, h, s, hd): where the heads are
+    cut, this rank's columns of it through its rows of ``wo``, summed
+    over "model"."""
+    flat = _merge_heads(o)
+    if not shard.heads:
+        return flat @ params["wo"]
+    w = params["wo"].shape[0]
+    r = shard.model.index
+    out = flat[..., r * w:(r + 1) * w] @ params["wo"]
+    return comm.all_reduce_sum(out, shard.model)
+
+
+def merge_rank_partials(parts, shard, dtype):
+    """One output (b, hq, 1, d) from the fp32 split partials of every
+    rank's slice: gathered over "model" (one ``all_gather``) where the
+    capacity is cut, then merged over all ranks' splits
+    (``_merge_split_partials``; an empty split weighs 0)."""
+    o_p, m_p, l_p = parts
+    if shard.kv_seq:
+        packed = torch.cat([o_p, m_p[..., None], l_p[..., None]], dim=-1)
+        every = comm.all_gather(packed, shard.model, dim=2)
+        o_p, m_p, l_p = every[..., :-2], every[..., -2], every[..., -1]
+    return _merge_split_partials(o_p, m_p, l_p, dtype)
+
+
+def kv_seq_prefill_attention(params, cfg: ModelConfig, x, shard, *,
+                             kv_x=None, causal: bool = True,
+                             spec: AttentionSpec | None = None):
+    """Full-sequence attention of a prompt x (b, s, d_model) on one rank of
+    a sequence-sharded decode: the tensor-parallel prefill at the rank's
+    heads. Where the rules cut the heads whole (q heads with their kv
+    head, ``sharding.heads_cut_whole``) the rank attends its q heads
+    only, its K/V columns gathered over "model" (the cache needs every
+    head); otherwise it gathers q too and attends every head. Self
+    attention (causal unless ``causal`` is False: an encoder's), or with
+    ``kv_x`` (b, s_kv, d_model) cross-attention (no RoPE, never causal or
+    windowed). Returns (out (b, s, d_model), k, v): every kv head's rows
+    (b, hkv, s or s_kv, hd), of which the caller keeps its slice."""
+    from repro_torch.distributed.sharding import heads_cut_whole
+    cross = kv_x is not None
+    src = kv_x if cross else x
+    pos = None if cross else torch.arange(x.shape[1], device=x.device)
+    q, k, v = x @ params["wq"], src @ params["wk"], src @ params["wv"]
+    m, r = shard.model.size, shard.model.index
+    whole = shard.heads and heads_cut_whole(cfg, m)
+    if whole:
+        k, v = gather_columns([k, v], shard)
+    else:
+        q, k, v = gather_columns([q, k, v], shard)
+    q, k, v = _qkv_heads(params, cfg, q, k, v, pos, pos)
+    spec = spec or attn_spec_from_config(cfg)
+    if cross or not causal:
+        spec = dataclasses.replace(spec, causal=False, window=None)
+    ka, va = k, v
+    if whole:
+        hq = q.shape[1]
+        n_rep = cfg.num_heads // cfg.num_kv_heads
+        lo, hi = r * hq // n_rep, ((r + 1) * hq - 1) // n_rep + 1
+        ka, va = k[:, lo:hi], v[:, lo:hi]
+        spec = dataclasses.replace(spec, tp_shards=m)
+        o = attention(q, ka, va, spec)
+        out = comm.all_reduce_sum(_merge_heads(o) @ params["wo"], shard.model)
+    else:
+        out = _rank_output(params, attention(q, ka, va, spec), shard)
+    return out, k, v
+
+
+def kv_seq_decode_attention_step(params, cfg: ModelConfig, x, cache, kv_len,
+                                 shard, *, spec: AttentionSpec | None = None):
+    """Single-token decode on one rank of a sequence-sharded slot cache.
+    x: (b, 1, d_model), the rank's lanes; cache leaves (b, hkv, C / m, hd),
+    this rank's slice [r C / m, (r + 1) C / m) of every head; kv_len (b,)
+    the global lengths. The new token's q/k/v columns are gathered over
+    "model" (every rank then holds every head), the new K/V is written
+    on its owner only, the rank whose slice holds position
+    ``min(kv_len, C - 1)`` (the reference's clamp at the last slot), the
+    rank attends its slice (``flash_decode_slice``: #7 on the card) and
+    the fp32 split partials of every rank are merged
+    (``merge_rank_partials``). Returns (out, cache), cache updated in
+    place."""
+    q, k, v = gather_columns([x @ params[w] for w in ("wq", "wk", "wv")],
+                             shard)
+    q, k, v = _qkv_heads(params, cfg, q, k, v, kv_len[:, None],
+                         kv_len[:, None])
+    m, r = shard.kv_rank
+    cs = cache["k"].shape[2]
+    off = r * cs
+    pos = torch.clamp(kv_len, max=m * cs - 1).long() - off
+    own = ((pos >= 0) & (pos < cs))[:, None, None]
+    idx = pos.clamp(0, cs - 1)
+    rows = torch.arange(x.shape[0], device=x.device)
+    for c, new in ((cache["k"], k), (cache["v"], v)):
+        c[rows, :, idx] = torch.where(own, new[:, :, 0].to(c.dtype),
+                                      c[rows, :, idx])
+    spec = spec or attn_spec_from_config(cfg)
+    parts = flash_decode_slice(q, cache["k"], cache["v"], kv_len + 1,
+                               offset=off, block_k=spec.block_k,
+                               num_splits=spec.num_decode_splits,
+                               window=spec.window)
+    o = merge_rank_partials(parts, shard, q.dtype)
+    return _rank_output(params, o, shard), cache
+
+
+def kv_seq_paged_decode_attention_step(params, cfg: ModelConfig, x, pool,
+                                       page_table, kv_len, shard, *,
+                                       lanes=None,
+                                       spec: AttentionSpec | None = None):
+    """Single-token decode on one rank of a page pool cut over "model":
+    pool leaves (hkv, N / m, page_size, hd), this rank's pages [r N / m,
+    (r + 1) N / m); page_table (b, T) and kv_len (b,) the rank's lanes in
+    global page indices and lengths. ``lanes``: (page_table, kv_len) of
+    every data rank's lanes where the pool is every data rank's (the
+    reference's pool is replicated over "data"): the new K/V of all of
+    them is gathered and written, each row by the rank that owns its
+    page. The rank attends its pages through the global table
+    (``flash_decode_paged_slice``: #8 on the card) and the partials are
+    merged over "model". Returns (out, pool), pool updated in place."""
+    cols = [x @ params[w] for w in ("wq", "wk", "wv")]
+    q, k, v = gather_columns(cols, shard, all_lanes=lanes is not None)
+    table, lengths = lanes if lanes is not None else (page_table, kv_len)
+    q, k, v = _qkv_heads(params, cfg, q, k, v, lengths[:, None],
+                         lengths[:, None])
+    if lanes is not None:
+        b = x.shape[0]
+        q = q[shard.data.index * b:(shard.data.index + 1) * b]
+    m, r = shard.kv_rank
+    n, ps = pool["k"].shape[1], pool["k"].shape[2]
+    phys, off = decode_write_destination(table, lengths, ps, m * n)
+    local = phys - r * n
+    local = torch.where((local >= 0) & (local < n), local,
+                        torch.full_like(local, n))
+    write_page_rows(pool["k"], k[:, :, 0].transpose(0, 1), local, off)
+    write_page_rows(pool["v"], v[:, :, 0].transpose(0, 1), local, off)
+    spec = spec or attn_spec_from_config(cfg)
+    parts = flash_decode_paged_slice(q, pool["k"], pool["v"], page_table,
+                                     kv_len + 1, first_page=r * n,
+                                     num_splits=spec.num_decode_splits,
+                                     window=spec.window)
+    o = merge_rank_partials(parts, shard, q.dtype)
+    return _rank_output(params, o, shard), pool
+
+
+def kv_seq_cross_decode_step(params, cfg: ModelConfig, x, cache, enc_len,
+                             shard, *, spec: AttentionSpec | None = None):
+    """One decoder token's cross-attention on one rank of a
+    sequence-sharded decode: cache leaves (b, hkv, S_enc / m, hd), this
+    rank's rows of the encoder's K/V; enc_len (b,) the encoder's length.
+    The token's q columns are gathered over "model", the rank attends its
+    rows (``flash_decode_slice``, no window) and the partials are merged
+    over "model" (``merge_rank_partials``). No RoPE, as in the
+    full-sequence cross-attention. Returns out (b, 1, d_model)."""
+    (q,) = gather_columns([x @ params["wq"]], shard)
+    q = _split_heads(q, q.shape[-1] // cfg.head_dim, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_normalize(q) * params["q_norm"]
+    _, r = shard.kv_rank
+    cs = cache["k"].shape[2]
+    spec = spec or attn_spec_from_config(cfg)
+    parts = flash_decode_slice(q, cache["k"], cache["v"], enc_len,
+                               offset=r * cs, block_k=spec.block_k,
+                               num_splits=spec.num_decode_splits)
+    o = merge_rank_partials(parts, shard, q.dtype)
+    return _rank_output(params, o, shard)

@@ -68,7 +68,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.tree import tree_map
 from repro_torch.distributed import comm
 from repro_torch.models import transformer as tfm
-from repro_torch.distributed.sharding import P
+from repro_torch.distributed.sharding import DecodeShard, P
 from repro_torch.models.layers import (apply_norm, dense_init, init_norm,
                                        norm_specs)
 
@@ -198,6 +198,13 @@ class Model:
         if enc:
             specs["enc_len"] = P("data")
         return specs
+
+    def paged_decode_state_specs(self) -> Params:
+        """Logical specs of ``init_paged_decode_state``'s tree (the
+        reference's): the pool's pages over "kv_seq", as the slot cache's
+        capacity; the page table and lengths follow the lanes."""
+        return {"caches": tfm.paged_decode_cache_specs(),
+                "page_table": P("data", None), "kv_len": P("data")}
 
     # --------------------------------------------------------------- helpers
     def _logits(self, params, h):
@@ -364,13 +371,21 @@ class Model:
         return state
 
     @torch.inference_mode()
-    def prefill(self, params, batch, capacity: int):
+    def prefill(self, params, batch, capacity: int, *,
+                page_size: int | None = None):
         """Run the prompt (b, s) into fresh slot caches of ``capacity``
         (and, for the SSM and hybrid families, the SSM state after the
         prompt; for an encoder-decoder, ``batch["frames"]`` through the
         encoder and its K/V into per-layer cross caches; for a VLM, the
         patches ahead of the prompt, so ``kv_len`` is frontend_tokens +
-        the prompt); returns (state, last-token logits (b, 1, V))."""
+        the prompt); returns (state, last-token logits (b, 1, V)). A
+        decode rank (``shard`` a ``DecodeShard``) returns its piece of
+        the state (``_rank_prefill``; ``page_size``: as a page pool)."""
+        if isinstance(self.shard, DecodeShard):
+            return self._rank_prefill(params, batch, capacity, page_size)
+        if page_size is not None:
+            raise ValueError("prefill writes a page pool on a decode rank "
+                             "only (make_sharded_serve_steps)")
         enc_out = None
         if self.cfg.num_encoder_layers > 0:
             enc_out = self._encode(params, batch)
@@ -448,7 +463,11 @@ class Model:
         """token: (B,) int. Returns (new_state, logits (B, 1, V)); the cache
         (and every slot's SSM state, idle slots' too) is updated in place
         and ``kv_len`` advances by one. A ``page_table``
-        key in the state selects the paged pool, else the slot cache."""
+        key in the state selects the paged pool, else the slot cache. A
+        decode rank (``shard`` a ``DecodeShard``) steps its lanes over its
+        piece of the state (``_rank_decode_step``)."""
+        if isinstance(self.shard, DecodeShard):
+            return self._rank_decode_step(params, state, token)
         x = params["embed"][token.long()[:, None]]
         if "page_table" in state:
             h, caches = tfm.apply_stack_decode_paged(
@@ -462,6 +481,114 @@ class Model:
                                            state.get("enc_len"))
         new_state = dict(state, caches=caches, kv_len=state["kv_len"] + 1)
         return new_state, self._logits(params, h)
+
+    # ------------------------------------ one rank of a sequence-sharded decode
+    def _rank_rows(self, batch):
+        """This rank's lanes of a global batch (its rows over the data
+        axes where the lanes are cut)."""
+        sh = self.shard
+        if not sh.batch_sharded:
+            return batch
+        n, i = sh.data.size, sh.data.index
+
+        def rows(x):
+            if x.shape[0] % n:
+                raise ValueError(f"batch {x.shape[0]} does not cut into {n} "
+                                 f"data ranks' lanes")
+            b = x.shape[0] // n
+            return x[i * b:(i + 1) * b]
+        return {k: rows(v) for k, v in batch.items()}
+
+    def _rank_logits(self, params, h):
+        """Every vocab column's logits on a decode rank (a cut vocab's
+        columns gathered over "model")."""
+        logits = self._logits(params, h)
+        if self.shard.vocab:
+            logits = comm.all_gather(logits, self.shard.model, dim=-1)
+        return logits
+
+    def _rank_prefill(self, params, batch, capacity: int,
+                      page_size: int | None):
+        """A decode rank's prefill of its lanes: the tensor-parallel
+        prefill (``transformer.apply_stack_prefill_rank``), keeping the
+        rank's capacity slice of every head's K/V and its SSM head group.
+        With ``page_size``, the slices as the rank's pages of a pool
+        holding every lane's whole capacity in the interleaved layout
+        (``transformer.interleaved_page_table``; every data rank's lanes,
+        gathered over "data", where the lanes are cut: the pool is
+        replicated over "data"). Returns (state piece, logits (b, 1, V) of
+        the rank's lanes)."""
+        cfg, sh = self.cfg, self.shard
+        batch = self._rank_rows(batch)
+        enc_out = None
+        if cfg.num_encoder_layers > 0:
+            frames = self._batch_tensor(params, batch["frames"])
+            front = (frames.to(params["frontend_proj"].dtype)
+                     @ params["frontend_proj"])
+            enc_out = apply_norm(
+                params["enc_final_norm"],
+                tfm.apply_encoder_rank(params["enc_blocks"], cfg, front, sh),
+                cfg.norm_type)
+        x = self._embed_decoder_input(params, batch)
+        h, caches = tfm.apply_stack_prefill_rank(params["blocks"], cfg, x,
+                                                 capacity, sh, enc_out)
+        b, s = x.shape[:2]
+        kv_len = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        logits = self._rank_logits(params, h[:, -1:])
+        if page_size is None:
+            state = {"caches": caches, "kv_len": kv_len}
+            if enc_out is not None:
+                state["enc_len"] = torch.full((b,), enc_out.shape[1],
+                                              dtype=torch.int32,
+                                              device=x.device)
+            return state, logits
+        if "ssm" in caches:
+            raise ValueError(f"family {cfg.family!r} (hybrid={cfg.hybrid}) "
+                             f"has no pageable KV cache")
+        m, r = sh.kv_rank
+        T = capacity // page_size
+        if capacity % page_size or T % m:
+            raise ValueError(f"capacity {capacity} does not cut into pages "
+                             f"of {page_size} whose count divides by {m}")
+        kv = torch.stack([caches["kv"]["k"], caches["kv"]["v"]])
+        lanes = (0, b)
+        if sh.batch_sharded and sh.data.size > 1:
+            kv = comm.all_gather(kv, sh.data, dim=2)
+            lanes = (sh.data.index * b, (sh.data.index + 1) * b)
+        _, L, B, hkv, cs, hd = kv.shape
+        tl = cs // page_size
+        pools = kv.view(2, L, B, hkv, tl, page_size, hd).permute(
+            0, 1, 3, 4, 2, 5, 6).reshape(2, L, hkv, tl * B, page_size, hd)
+        return {"caches": {"kv": {"k": pools[0].contiguous(),
+                                  "v": pools[1].contiguous()}},
+                "page_table": tfm.interleaved_page_table(B, T, x.device,
+                                                         rows=lanes),
+                "kv_len": kv_len}, logits
+
+    def _rank_decode_step(self, params, state, token):
+        """One decode step of a decode rank's lanes over its state piece
+        (the K/V capacity or pages cut over "model", merged across ranks;
+        ``transformer.apply_stack_decode`` / ``apply_stack_decode_paged``
+        with the shard). Returns (new state piece, logits (b, 1, V))."""
+        sh = self.shard
+        x = self._embed(params, token.long()[:, None])
+        if "page_table" in state:
+            lanes = None
+            if sh.batch_sharded and sh.data.size > 1:
+                both = torch.cat([state["page_table"].to(torch.int32),
+                                  state["kv_len"].to(torch.int32)[:, None]],
+                                 dim=1)
+                every = comm.all_gather(both, sh.data, dim=0)
+                lanes = (every[:, :-1], every[:, -1])
+            h, caches = tfm.apply_stack_decode_paged(
+                params["blocks"], self.cfg, x, state["caches"],
+                state["page_table"], state["kv_len"], shard=sh, lanes=lanes)
+        else:
+            h, caches = tfm.apply_stack_decode(
+                params["blocks"], self.cfg, x, state["caches"],
+                state["kv_len"], state.get("enc_len"), shard=sh)
+        new_state = dict(state, caches=caches, kv_len=state["kv_len"] + 1)
+        return new_state, self._rank_logits(params, h)
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -291,13 +291,34 @@ def init_ssm_state(cfg: ModelConfig, batch: int, dtype, device):
     }
 
 
-def decode_ssm_step(params, cfg: ModelConfig, x, state):
+def ssm_state_specs(cfg: ModelConfig | None = None):
+    """Logical specs of the decode state (the reference's): lanes over
+    "data", ``h``'s heads over "ssm_heads", the conv state's channels over
+    "ssm_ff". Given ``cfg`` the conv entry is a ``Pieces`` of the head-group
+    cut (its x channels cut, B and C whole: ``ssm_specs``' conv layout),
+    equal to the reference's name."""
+    conv = "ssm_ff"
+    if cfg is not None:
+        d_inner, _, _, n, _ = _dims(cfg)
+        conv = Pieces("ssm_ff", (d_inner, 2 * n), (True, False))
+    return {"h": P("data", "ssm_heads", None, None),
+            "conv": P("data", None, conv)}
+
+
+def decode_ssm_step(params, cfg: ModelConfig, x, state, shard=None):
     """x: (b, 1, d_model). Advances ``state`` ({"h", "conv"}) by one token
-    in place; returns (y (b, 1, d_model), state)."""
-    d_inner, nheads, p, n, conv_ch = _dims(cfg)
+    in place; returns (y (b, 1, d_model), state). ``shard``: a rank's
+    head group of a sequence-sharded decode (``shard.ssm``; the state is
+    the rank's heads of ``h`` and its x channels with the whole B and C
+    channels of ``conv``): the gated norm's sum of squares and
+    ``out_proj``'s rows are summed over "model"."""
+    tp = shard is not None and shard.ssm
+    d_inner, nheads, p, n, conv_ch = _dims(cfg, shard)
+    if tp:
+        params = _head_group(params, cfg, shard)
     bsz = x.shape[0]
     proj = x[:, 0] @ params["in_proj"]                 # (b, proj_out)
-    z, xin, b_in, c_in, dt = _split_proj(cfg, proj)
+    z, xin, b_in, c_in, dt = _split_proj(cfg, proj, shard)
 
     conv_in = torch.cat([xin, b_in, c_in], dim=-1)     # (b, conv_ch)
     window = torch.cat([state["conv"], conv_in[:, None]], dim=1)  # (b, w, ch)
@@ -316,9 +337,13 @@ def decode_ssm_step(params, cfg: ModelConfig, x, state):
     y = y + params["D"][None, :, None] * xh
     y = y.reshape(bsz, d_inner).to(x.dtype)
 
-    y = rms_normalize(y * F.silu(z)) * params["norm_w"]
-    y = (y @ params["out_proj"])[:, None]
+    if tp:
+        y = _sharded_rms_normalize(y * F.silu(z), cfg.ssm_d_inner,
+                                   shard.model) * params["norm_w"]
+        y = comm.all_reduce_sum(y @ params["out_proj"], shard.model)[:, None]
+    else:
+        y = rms_normalize(y * F.silu(z)) * params["norm_w"]
+        y = (y @ params["out_proj"])[:, None]
     state["h"].copy_(h_new)
     state["conv"].copy_(window[:, 1:])
     return y, state
-

@@ -102,24 +102,33 @@ def block_specs(cfg: ModelConfig, *, cross_attn: bool = False) -> Params:
     return s
 
 
+def _layered(specs):
+    """A layer's specs with a leading layer axis."""
+    if isinstance(specs, dict):
+        return {k: _layered(v) for k, v in specs.items()}
+    return type(specs)(None, *specs)
+
+
 def decode_cache_specs(cfg: ModelConfig, *, enc: bool = False) -> Params:
     """Logical specs of ``init_decode_cache``'s tree (the reference's
     ``decode_cache_specs``; a leading layer axis): K/V rows over "data",
     the capacity over "kv_seq"; the SSM state's heads over "ssm_heads",
-    its conv channels over "ssm_ff"; ``enc``: the cross-attention's
-    K/V."""
-    from repro_torch.distributed.sharding import P
-    kv = {"k": P(None, "data", None, "kv_seq", None),
-          "v": P(None, "data", None, "kv_seq", None)}
+    its conv channels over "ssm_ff" (cut by head group,
+    ``ssm.ssm_state_specs``); ``enc``: the cross-attention's K/V."""
     c: Params = {}
     if cfg.family != "ssm":
-        c["kv"] = kv
+        c["kv"] = attn_mod.kv_cache_specs()
     if cfg.family == "ssm" or cfg.hybrid:
-        c["ssm"] = {"h": P(None, "data", "ssm_heads", None, None),
-                    "conv": P(None, "data", None, "ssm_ff")}
+        c["ssm"] = ssm_mod.ssm_state_specs(cfg)
     if enc:
-        c["cross_kv"] = dict(kv)
-    return c
+        c["cross_kv"] = attn_mod.kv_cache_specs()
+    return _layered(c)
+
+
+def paged_decode_cache_specs() -> Params:
+    """Logical specs of ``init_paged_decode_cache``'s tree (the
+    reference's): each layer's pool, its pages over "kv_seq"."""
+    return _layered({"kv": attn_mod.paged_kv_cache_specs()})
 
 
 def _mix(x, a, m):
@@ -347,15 +356,159 @@ def apply_block_decode(params: Params, cfg: ModelConfig, x, cache, kv_len,
 
 
 def apply_stack_decode(blocks: list[Params], cfg: ModelConfig, x, caches,
-                       kv_len, enc_len=None):
+                       kv_len, enc_len=None, shard=None):
     """A single token through all layers against the slot caches (updated
-    in place); ``kv_len`` and ``enc_len`` are layer-invariant. Returns (x,
+    in place); ``kv_len`` and ``enc_len`` are layer-invariant. ``shard``
+    (a ``sharding.DecodeShard``): one rank of a sequence-sharded decode,
+    ``caches`` its piece (``apply_block_decode_rank``). Returns (x,
     caches)."""
     for l, p_l in enumerate(blocks):
         layer = {name: {k: t[l] for k, t in leaves.items()}
                  for name, leaves in caches.items()}
-        x, _ = apply_block_decode(p_l, cfg, x, layer, kv_len, enc_len)
+        if shard is not None:
+            x = apply_block_decode_rank(p_l, cfg, x, layer, kv_len, shard,
+                                        enc_len)
+        else:
+            x, _ = apply_block_decode(p_l, cfg, x, layer, kv_len, enc_len)
     return x, caches
+
+
+# ---------------------------------------------------------------------------
+# one rank of a sequence-sharded decode (train.steps.make_sharded_serve_steps)
+# ---------------------------------------------------------------------------
+
+def _ffn_rank(params: Params, cfg: ModelConfig, x, shard):
+    """x plus the block's MLP or MoE on a decode rank: an MLP with its
+    hidden dim cut sums ``w_down``'s rows over "model", an MoE with its
+    experts cut its experts' outputs (``moe.apply_moe``; no
+    load-balancing statistics are summed: serving drops them)."""
+    if "mlp_norm" not in params:
+        return x
+    h = apply_norm(params["mlp_norm"], x, cfg.norm_type)
+    if "moe" in params:
+        return x + moe_mod.apply_moe(params["moe"], cfg, h, shard=shard)[0]
+    y = apply_mlp(params["mlp"], h, cfg.mlp_type)
+    if shard.ff:
+        y = comm.all_reduce_sum(y, shard.model)
+    return x + y
+
+
+def _capacity_slice(k, v, capacity: int, shard) -> Params:
+    """This rank's slice [r C / m, (r + 1) C / m) of a slot cache of
+    ``capacity`` holding the prompt's K/V rows (b, hkv, s, hd) at [0, s)."""
+    m, r = shard.kv_rank
+    if capacity % m:
+        raise ValueError(f"capacity {capacity} does not cut into {m} "
+                         f"slices over \"model\"")
+    b, hkv, s, hd = k.shape
+    if s > capacity:
+        raise ValueError(f"a prompt of {s} rows exceeds the capacity "
+                         f"{capacity}")
+    cs = capacity // m
+    lo, hi = r * cs, min(s, (r + 1) * cs)
+    out = {}
+    for name, t in (("k", k), ("v", v)):
+        c = t.new_zeros((b, hkv, cs, hd))
+        if hi > lo:
+            c[:, :, :hi - lo] = t[:, :, lo:hi]
+        out[name] = c
+    return out
+
+
+def apply_encoder_rank(blocks: list[Params], cfg: ModelConfig, x, shard):
+    """An encoder's blocks (non-causal self-attention, the FFN) on a decode
+    rank, tensor-parallel as the decoder's prefill."""
+    for p_l in blocks:
+        h = apply_norm(p_l["attn_norm"], x, cfg.norm_type)
+        a, _, _ = attn_mod.kv_seq_prefill_attention(p_l["attn"], cfg, h,
+                                                    shard, causal=False)
+        x = _ffn_rank(p_l, cfg, x + a, shard)
+    return x
+
+
+def apply_block_prefill_rank(params: Params, cfg: ModelConfig, x,
+                             capacity: int, shard, enc_out=None):
+    """One block over a prompt on a decode rank: the tensor-parallel
+    prefill at the rank's heads (``attention_layer.
+    kv_seq_prefill_attention``), its SSM head group and FFN cut. Returns
+    (x, cache_l): ``"kv"`` the rank's capacity slice of every head,
+    ``"ssm"`` the rank's head group of the final SSM state,
+    ``"cross_kv"`` (given the encoder's output ``enc_out``) the rank's
+    slice of the encoder's K/V rows, exactly S_enc of them in all."""
+    cache_l: Params = {}
+    if cfg.family == "ssm":
+        h = apply_norm(params["ssm_norm"], x, cfg.norm_type)
+        y, cache_l["ssm"] = ssm_mod.apply_ssm(params["ssm"], cfg, h,
+                                              return_final_state=True,
+                                              shard=shard)
+        return _ffn_rank(params, cfg, x + y, shard), cache_l
+    h = apply_norm(params["attn_norm"], x, cfg.norm_type)
+    a, k, v = attn_mod.kv_seq_prefill_attention(params["attn"], cfg, h,
+                                                shard)
+    cache_l["kv"] = _capacity_slice(k, v, capacity, shard)
+    if cfg.hybrid:
+        m, cache_l["ssm"] = ssm_mod.apply_ssm(params["ssm"], cfg, h,
+                                              return_final_state=True,
+                                              shard=shard)
+        x = _mix(x, a, m)
+    else:
+        x = x + a
+    if "cross_attn" in params and enc_out is not None:
+        h = apply_norm(params["cross_norm"], x, cfg.norm_type)
+        c, k, v = attn_mod.kv_seq_prefill_attention(params["cross_attn"],
+                                                    cfg, h, shard,
+                                                    kv_x=enc_out)
+        cache_l["cross_kv"] = _capacity_slice(k, v, enc_out.shape[1], shard)
+        x = x + c
+    return _ffn_rank(params, cfg, x, shard), cache_l
+
+
+def apply_stack_prefill_rank(blocks: list[Params], cfg: ModelConfig, x,
+                             capacity: int, shard, enc_out=None):
+    """A prompt through all layers on a decode rank; every cache leaf of
+    the rank's piece stacked on a leading layer axis, written layer by
+    layer into leaves allocated once."""
+    caches = None
+    for l, p_l in enumerate(blocks):
+        x, c = apply_block_prefill_rank(p_l, cfg, x, capacity, shard,
+                                        enc_out)
+        if caches is None:
+            caches = tree_map(lambda t: t.new_empty((len(blocks),
+                                                     *t.shape)), c)
+        for name, leaves in c.items():
+            for k, t in leaves.items():
+                caches[name][k][l] = t
+    return x, caches
+
+
+def apply_block_decode_rank(params: Params, cfg: ModelConfig, x, cache,
+                            kv_len, shard, enc_len=None):
+    """One block for one new token on a decode rank against its piece of
+    the layer's slot cache (updated in place): the attention over the
+    rank's capacity slice, merged over "model"
+    (``attention_layer.kv_seq_decode_attention_step``), the SSM by head
+    group, a decoder block's cross-attention over the rank's rows of the
+    encoder's K/V (``kv_seq_cross_decode_step``, ``enc_len`` rows in
+    all), the FFN cut. Returns x."""
+    if cfg.family == "ssm":
+        h = apply_norm(params["ssm_norm"], x, cfg.norm_type)
+        y, _ = ssm_mod.decode_ssm_step(params["ssm"], cfg, h, cache["ssm"],
+                                       shard=shard)
+        return _ffn_rank(params, cfg, x + y, shard)
+    h = apply_norm(params["attn_norm"], x, cfg.norm_type)
+    a, _ = attn_mod.kv_seq_decode_attention_step(params["attn"], cfg, h,
+                                                 cache["kv"], kv_len, shard)
+    if cfg.hybrid:
+        m, _ = ssm_mod.decode_ssm_step(params["ssm"], cfg, h, cache["ssm"],
+                                       shard=shard)
+        x = _mix(x, a, m)
+    else:
+        x = x + a
+    if "cross_attn" in params and "cross_kv" in cache:
+        h = apply_norm(params["cross_norm"], x, cfg.norm_type)
+        x = x + attn_mod.kv_seq_cross_decode_step(
+            params["cross_attn"], cfg, h, cache["cross_kv"], enc_len, shard)
+    return _ffn_rank(params, cfg, x, shard)
 
 
 def init_paged_decode_cache(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -366,10 +519,10 @@ def init_paged_decode_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     if cfg.family not in ("dense", "moe") or cfg.hybrid:
         raise ValueError(f"family {cfg.family!r} (hybrid={cfg.hybrid}) has "
                          f"no pageable KV cache")
-    shape = (cfg.num_layers, cfg.num_kv_heads, num_pages, page_size,
-             cfg.head_dim)
-    return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                   "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    layer = attn_mod.init_paged_kv_cache(cfg, num_pages, page_size, dtype,
+                                         "meta")
+    return {"kv": {k: torch.zeros((cfg.num_layers, *t.shape), dtype=dtype,
+                                  device=device) for k, t in layer.items()}}
 
 
 def _layer_pool(caches, l: int):
@@ -395,13 +548,40 @@ def apply_stack_chunk_prefill(blocks: list[Params], cfg: ModelConfig, x,
 
 
 def apply_stack_decode_paged(blocks: list[Params], cfg: ModelConfig, x,
-                             caches, page_table, kv_len, mesh=None):
+                             caches, page_table, kv_len, mesh=None,
+                             shard=None, lanes=None):
     """A single token through all layers against the page pools (updated in
-    place). ``page_table`` / ``kv_len`` are layer-invariant."""
+    place). ``page_table`` / ``kv_len`` are layer-invariant. ``shard`` (a
+    ``sharding.DecodeShard``): one rank of a decode over a pool cut over
+    "model", ``caches`` its pages, ``lanes`` every data rank's (table,
+    lengths) where the pool is every data rank's
+    (``attention_layer.kv_seq_paged_decode_attention_step``)."""
     for l, p_l in enumerate(blocks):
         h = apply_norm(p_l["attn_norm"], x, cfg.norm_type)
+        if shard is not None:
+            a, _ = attn_mod.kv_seq_paged_decode_attention_step(
+                p_l["attn"], cfg, h, _layer_pool(caches, l), page_table,
+                kv_len, shard, lanes=lanes)
+            x = _ffn_rank(p_l, cfg, x + a, shard)
+            continue
         a, _ = attn_mod.paged_decode_attention_step(
             p_l["attn"], cfg, h, _layer_pool(caches, l), page_table, kv_len,
             mesh=mesh)
         x = _ffn_residual(p_l, cfg, x + a, mesh)[0]
     return x, caches
+
+
+def interleaved_page_table(lanes: int, pages_per_seq: int, device,
+                           rows=None) -> "torch.Tensor":
+    """The page table of a pool that holds ``lanes`` lanes' whole
+    capacities, logical page t of lane b at pool page ``t * lanes + b``:
+    a pool cut into m contiguous page ranges then gives each rank the
+    logical pages [r T / m, (r + 1) T / m) of every lane, the slot
+    cache's capacity slice (the sequence-sharded decode's prefill writes
+    its pages so). ``rows``: the lanes [first, last) to return (default
+    all). int32 (len(rows), pages_per_seq)."""
+    lo, hi = rows or (0, lanes)
+    b = torch.arange(lo, hi, device=device, dtype=torch.int32)[:, None]
+    t = torch.arange(pages_per_seq, device=device, dtype=torch.int32)
+    return t[None, :] * lanes + b
+

@@ -109,6 +109,7 @@ from repro_torch.serve import kv_cache as kvc
 from repro_torch.serve import sampling
 from repro_torch.serve.scheduler import ChunkScheduler, ChunkTask, SchedulerConfig
 from repro_torch.telemetry import IOLedger, ServePriceModel, Telemetry
+from repro_torch.telemetry.metrics import MetricsRegistry
 
 
 @dataclasses.dataclass
@@ -394,7 +395,7 @@ class ServingEngine:
                     f"tp={self.tp} x sp={self.sp} serving runs one rank a "
                     f"shard over a ServeMesh: pass mesh= "
                     f"(repro_torch.distributed.meshes.serve_mesh)")
-            self.mesh = None
+            self.mesh = self._mesh = None
             self.shard_model, self.params = model, params
             return
         if (mesh.sp, mesh.tp) != (self.sp, self.tp):
@@ -405,6 +406,7 @@ class ServingEngine:
             raise ValueError(f"the mesh's ranks run on {mesh.device}, the "
                              f"engine on {self.device}")
         cfg = model.cfg
+        self._mesh = mesh
         self.mesh = mesh.counted(self.tm.registry)
         self._c_collectives = self.tm.registry.get("collectives")
         shard_cfg = dataclasses.replace(
@@ -423,6 +425,115 @@ class ServingEngine:
         model's and the sp logits gather)."""
         c = self._c_collectives
         return {key[0]: int(c.value(kind=key[0])) for key in c.series_keys()}
+
+    def _census_of(self, call) -> dict[str, int]:
+        """The collectives ``call(model)`` runs, by kind: ``model`` is the
+        shard model over this rank's mesh counted into a registry of its
+        own, so the engine's counters and census stay as they were.
+        Every rank must make the call together (its collectives are
+        real)."""
+        registry = MetricsRegistry()
+        model = type(self.shard_model)(self.shard_model.cfg,
+                                       mesh=self._mesh.counted(registry))
+        with torch.inference_mode():
+            call(model)
+        c = registry.get("collectives")
+        return {key[0]: int(c.value(kind=key[0])) for key in c.series_keys()
+                if c.value(kind=key[0])}
+
+    def _placeholder_pool(self):
+        """A page pool of one page: the placeholder steps' destinations all
+        lie past it (dropped), and their page lists read page 0."""
+        return self.shard_model.init_paged_decode_state(
+            self.B, 1, self.page_size, self.pages_per_seq,
+            device=self.device)
+
+    def decode_collective_census(self) -> dict[str, int]:
+        """The collectives one decode step makes, by kind, counted from the
+        step itself run on placeholder inputs (a one-page pool whose
+        table is unallocated, or a small slot cache; token 0 in every
+        lane), which leaves the engine's state and counters as they were:
+        ``{"all_reduce": 2 L}`` under tp or sp (the attention's ``wo`` and
+        the MLP's ``w_down``; decode is replicated over sp), ``{}``
+        unsharded. Callable before the first step; every rank calls it
+        together."""
+        if self.mesh is None:
+            return {}
+        tok = torch.zeros((self.B,), dtype=torch.int32, device=self.device)
+        if self.paged:
+            state = self._placeholder_pool()
+        else:
+            state = self.shard_model.init_decode_state(
+                self.B, min(self.capacity, tuning.DECODE_TILE),
+                device=self.device)
+        return self._census_of(
+            lambda model: model.decode_step(self.params, state, tok))
+
+    def prefill_collective_census(self, kind: str = "chunk"
+                                  ) -> dict[str, int]:
+        """The collectives one prefill step function makes, by kind,
+        counted from the step run on placeholder inputs (all rows padding,
+        every write past a one-page pool), the engine's state and counters
+        left as they were. Kinds:
+
+        * ``"chunk"``: the paged chunk step (``prefill_chunk_paged``),
+          whose contract is ``sharding.expected_sp_prefill_census``: two
+          ``all_reduce`` a layer, plus the sp K/V movement;
+        * ``"packed"``: the zero-offset packed prefill (sp=1 only; at
+          sp > 1 zero chunks run through the chunk step);
+        * ``"scatter"``: the packed rows' write into the pool (sp=1 only):
+          a data movement, ``{}``.
+
+        ``{}`` unsharded or in dense mode; a ``ValueError`` for "packed" or
+        "scatter" at sp > 1 and for an unknown kind. Every rank calls it
+        together."""
+        if self.mesh is None or not self.paged:
+            return {}
+        S = self.prefill_bucket
+        dev = self.device
+        if kind == "chunk":
+            Sk = self.chunk_kv_bucket
+            Sq = S // self.sp
+            pool = self._placeholder_pool()["caches"]
+            batch = {
+                "tokens": torch.zeros((1, Sq), dtype=torch.int32, device=dev),
+                "q_segment_ids": torch.full((1, Sq), SEG_PAD_Q,
+                                            dtype=torch.int32, device=dev),
+                "q_positions": torch.full((1, Sq), POS_PAD,
+                                          dtype=torch.int32, device=dev),
+                "kv_segment_ids": torch.zeros((1, Sk), dtype=torch.int32,
+                                              device=dev),
+                "kv_positions": torch.zeros((1, Sk), dtype=torch.int32,
+                                            device=dev),
+                "dest_page": torch.ones((S,), dtype=torch.int32, device=dev),
+                "dest_off": torch.zeros((S,), dtype=torch.int32, device=dev),
+                "page_list": torch.zeros((1, Sk // self.page_size),
+                                         dtype=torch.int32, device=dev)}
+            return self._census_of(lambda model: model.prefill_chunk_paged(
+                self.params, batch, pool))
+        if kind == "packed":
+            if self.sp > 1:
+                raise ValueError(
+                    "sp>1 routes zero-offset chunks through the chunk step; "
+                    "census kind='chunk' instead")
+            batch = {"tokens": torch.zeros((1, S), dtype=torch.int32,
+                                           device=dev),
+                     "segment_ids": torch.full((1, S), SEG_PAD_Q,
+                                               dtype=torch.int32, device=dev)}
+            return self._census_of(lambda model: model.prefill_packed(
+                self.params, batch))
+        if kind == "scatter":
+            if self.sp > 1:
+                raise ValueError("the packed->pool scatter is an sp=1-only "
+                                 "path")
+            pool = self._placeholder_pool()["caches"]
+            packed = {"kv": {k: t.new_zeros((t.shape[0], 1, t.shape[1], S,
+                                             t.shape[4]))
+                             for k, t in pool["kv"].items()}}
+            dest = torch.ones((S,), dtype=torch.int32, device=dev)
+            return self._census_of(lambda model: kvc.scatter_packed_segments(
+                pool, packed, dest, torch.zeros_like(dest)))
+        raise ValueError(f"unknown prefill census kind {kind!r}")
 
     def _counted(self, kind: str, call):
         """``call()``, keeping the collectives it ran as ``step_census[kind]``
@@ -1121,10 +1232,22 @@ class ServingEngine:
 
     def cache_bytes(self) -> int:
         """Device bytes resident in the decode state's caches (page pool or
-        slot cache, and the SSM state where the family has one): this
-        rank's, whose pool holds ``num_kv_heads / tp`` heads."""
+        slot cache, and the SSM state where the family has one), summed
+        over all shards, as the reference's global ``nbytes``: this
+        rank's times tp (the pool is cut over tp by heads and replicated
+        over sp)."""
+        return self.per_shard_cache_bytes() * self.tp
+
+    def per_shard_cache_bytes(self) -> int:
+        """This rank's device bytes of the decode state's caches: its pool
+        holds ``num_kv_heads / tp`` heads of every page."""
         return int(sum(t.numel() * t.element_size()
                        for t in tree_leaves(self.state["caches"])))
+
+    @property
+    def queue(self) -> list[Request]:
+        """Pending (not yet admitted) requests, in service order."""
+        return [self.requests[rid] for rid, _ in self.scheduler.queue]
 
     def latency_stats(self) -> dict[str, float]:
         """Percentile-reduced per-request latencies (seconds): TTFT (submit

@@ -48,18 +48,18 @@ is one global program).
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from repro_torch.core.tree import tree_leaves, tree_map, with_leaves
 from repro_torch.distributed import comm
 from repro_torch.distributed.meshes import data_axis_names
-from repro_torch.distributed.sharding import (NamedSharding, P, TrainShard,
-                                              _pairs, expected_train_census,
-                                              resolve_spec, resolve_tree,
-                                              rules_for_mesh, train_cuts,
-                                              train_rules,
-                                              validate_divisibility)
+from repro_torch.distributed.sharding import (
+    DecodeShard, NamedSharding, P, TrainShard, _pairs, decode_cuts,
+    expected_kv_seq_decode_census, expected_train_census, local_shape,
+    resolve_spec, resolve_tree, rules_for_mesh, train_cuts, train_rules,
+    validate_divisibility)
 from repro_torch.distributed.zero import (moment_shardings, param_slice,
                                           zero1_dim)
 from repro_torch.models.model_zoo import Model
@@ -523,3 +523,153 @@ def _sharded_update(optimizer: Optimizer, grads: list, opt_state, params,
                 _, state, p = piece_args(k, with_grads=False)
                 apply(k, optimizer.stacked.update(state, p, scales))
     opt_state["step"] = step + 1
+
+
+# ---------------------------------------------------------------------------
+# the sharded serve steps
+# ---------------------------------------------------------------------------
+
+def _state_cuts(state_sh, mesh) -> tuple[bool, bool, bool | None]:
+    """(the KV capacity or pages cut over "model", the lanes cut over the
+    data axes, the SSM state cut over "model" or None without one) of the
+    resolved state specs; any other cut raises."""
+    caches = state_sh["caches"]
+    kv_seq = False
+    if "kv" in caches:
+        # (L, hkv, pages, page, hd) or (L, lanes, hkv, capacity, hd)
+        entry = caches["kv"]["k"].spec[2 if "page_table" in state_sh else 3]
+        if entry not in (None, "model"):
+            raise ValueError(f"the KV capacity resolves to {entry!r}; the "
+                             f"port cuts it over \"model\" only")
+        kv_seq = entry == "model"
+    entry = state_sh["kv_len"].spec[0]
+    data = data_axis_names(mesh)
+    if entry is not None and tuple(entry if isinstance(entry, tuple)
+                                   else (entry,)) != data:
+        raise ValueError(f"the lanes resolve to {entry!r}; the port cuts "
+                         f"them over all the data axes {data}")
+    ssm = None
+    if "ssm" in caches:
+        ssm = caches["ssm"]["h"].spec[2] == "model"
+    return kv_seq, entry is not None, ssm
+
+
+def make_sharded_serve_steps(model: Model, mesh, *, rules=None,
+                             state_specs=None, donate: bool = True):
+    """``(prefill_fn, decode_fn)`` for THIS rank of ``mesh`` (a
+    ``meshes.Mesh`` with "data" and "model" axes, "model" last), the
+    port of the reference's sharded serve steps, every rank calling them
+    with its own pieces:
+
+      * ``prefill_fn(params, batch, capacity, page_size=None) -> (state,
+        logits)``: the global ``batch``; the rank's lanes run the
+        tensor-parallel prefill and it returns its piece of the decode
+        state (the reference's state after its ``device_put`` to the
+        state specs: the port's prefill returns the rank's piece
+        directly) and its lanes' last logits (b, 1, V). For paged
+        ``state_specs`` (``Model.paged_decode_state_specs``) pass
+        ``page_size``: the state is then the rank's pages of a pool in
+        ``transformer.interleaved_page_table``'s layout;
+      * ``decode_fn(params, state, token) -> (state, logits)``: one decode
+        step of the rank's lanes (``token`` its lanes' ids) over its state
+        piece: the capacity or the pool's pages cut over "model", each
+        rank attending its slice with the decode kernel (#7 / #8) and the
+        fp32 split partials merged across ranks; the MoE's experts and
+        the SSM's head groups cut as the sharded train step cuts them.
+        ``donate=False`` leaves the input state's tensors unchanged (the
+        step runs on a copy).
+
+    ``params`` are the rank's pieces (``shardings["params"]``: a tree of
+    ``NamedSharding`` whose ``shard`` cuts them). ``rules`` default
+    ``rules_for_mesh``; a dim that does not divide raises a ``ValueError``
+    naming the leaf (granite's vocab 49155 at "model" 2: pass
+    ``sharding.auto_rules``). ``state_specs`` None: no state sharding,
+    the single-rank ``Model.prefill`` / ``decode_step`` over whole params
+    and a whole state on every rank. Both functions carry ``shardings``:
+    {"params", "state", "token", "census"}, ``census`` the collectives
+    one decode step counts on every rank
+    (``sharding.expected_kv_seq_decode_census``)."""
+    cfg = model.cfg
+    if state_specs is None:
+        def decode(params, state, token):
+            if not donate:
+                state = tree_map(torch.clone, state)
+            return model.decode_step(params, state, token)
+
+        def prefill(params, batch, capacity):
+            return model.prefill(params, batch, capacity)
+
+        prefill.shardings = decode.shardings = {
+            "params": None, "state": None, "token": None, "census": {}}
+        return prefill, decode
+
+    axes = tuple(mesh.axis_names)
+    if "model" in axes and axes[-1] != "model":
+        raise ValueError(f"the mesh's axes {axes} must end with \"model\"")
+    rules = rules or rules_for_mesh(mesh)
+    specs, shapes = model.param_specs(), model.param_shapes()
+    problems = validate_divisibility(shapes, specs, mesh, rules)
+    if problems:
+        raise ValueError("sharding preflight failed:\n" + "\n".join(problems))
+    param_sh = resolve_tree(specs, mesh, rules)
+    state_sh = resolve_tree(state_specs, mesh, rules)
+    paged = "page_table" in state_specs
+    kv_seq, lanes, ssm_state = _state_cuts(state_sh, mesh)
+    cuts = decode_cuts(cfg, mesh.shape, rules)
+    if ssm_state is not None and ssm_state != cuts["ssm"]:
+        raise ValueError(
+            f"the SSM state is {'' if ssm_state else 'not '}cut over "
+            f"\"model\" and its params are {'' if cuts['ssm'] else 'not '}"
+            f"(rules ssm_heads={rules.get('ssm_heads')!r}, "
+            f"ssm_ff={rules.get('ssm_ff')!r}): the port cuts both by head "
+            f"group or neither")
+    model_group = (mesh.group("model") if "model" in mesh.shape
+                   else mesh.group(()))
+    shard = DecodeShard(
+        model=model_group, data=mesh.data, world=mesh.world,
+        heads=cuts["heads"], ff=cuts["ff"], vocab=cuts["vocab"],
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        vocab_size=cfg.vocab_size, batch_sharded=lanes,
+        experts=cuts["experts"], num_experts=cfg.num_experts,
+        ssm=cuts["ssm"],
+        ssm_num_heads=cfg.ssm_num_heads if cfg.ssm_state else 0,
+        kv_seq=kv_seq)
+    rank_model = type(model)(cfg, shard=shard)
+    local = _pairs(shapes, param_sh, lambda t, sh: local_shape(
+        tuple(t.shape), sh.spec, mesh.shape))
+
+    def check_pieces(params):
+        bad = []
+        _pairs(_pairs(params, param_sh, lambda t, _: t), local,
+               lambda t, want: bad.append((tuple(t.shape), want))
+               if tuple(t.shape) != want else None)
+        if bad:
+            raise ValueError(f"the params are not this rank's pieces: "
+                             f"shapes {bad[:3]} (shardings['params'] "
+                             f"cuts them)")
+
+    def decode(params, state, token):
+        check_pieces(params)
+        if not donate:
+            state = tree_map(torch.clone, state)
+        return rank_model.decode_step(params, state, token)
+
+    def prefill(params, batch, capacity, page_size=None):
+        check_pieces(params)
+        if paged and page_size is None:
+            raise ValueError("paged state specs: pass the pool's page_size")
+        if not paged and page_size is not None:
+            raise ValueError("page_size needs paged state specs "
+                             "(Model.paged_decode_state_specs)")
+        return rank_model.prefill(params, batch, capacity,
+                                  page_size=page_size)
+
+    census = expected_kv_seq_decode_census(
+        cfg, mesh.shape.get("model", 1),
+        data=math.prod(mesh.shape.get(a, 1) for a in ("pod", "data")),
+        paged=paged, rules=rules)
+    prefill.shardings = decode.shardings = {
+        "params": param_sh, "state": state_sh,
+        "token": NamedSharding(mesh, resolve_spec(P("data"), rules)),
+        "census": census}
+    return prefill, decode

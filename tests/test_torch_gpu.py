@@ -2085,3 +2085,111 @@ def test_resolve_tiles_autotune_off_keeps_64x64_at_granite(cuda, monkeypatch):
     o.sum().backward()
     assert seen == [("flash_attention_forward", 64, 64),
                     ("flash_attention_backward", 64, 64)]
+
+
+# ---------------------------------------------------------------------------
+# the sequence-sharded decode: a rank's slice through #7 / #8
+# ---------------------------------------------------------------------------
+
+def _merged(parts, dtype):
+    return fd._merge_split_partials(
+        *(torch.cat([p[i] for p in parts], dim=2) for i in range(3)), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("window", [None, 40])
+def test_flash_decode_slices_merge_to_the_whole(cuda, dtype, m, window):
+    """Each rank's ``flash_decode_slice`` over its C / m slots launches #7
+    and matches the CPU's plain partials; the ranks' partials merged equal
+    the whole cache's decode. Lane lengths leave later ranks nothing to
+    attend (their splits weigh 0)."""
+    gen = torch.Generator().manual_seed(m)
+    b, hq, hkv, d, cap = 4, 8, 2, 64, 512
+    q = torch.randn(b, hq, 1, d, generator=gen).to(dtype)
+    k = torch.randn(b, hkv, cap, d, generator=gen).to(dtype)
+    v = torch.randn(b, hkv, cap, d, generator=gen).to(dtype)
+    kv_len = torch.tensor([1, 100, 300, 512], dtype=torch.int32)
+    cs = cap // m
+    got, want = [], []
+    for r in range(m):
+        sl = slice(r * cs, (r + 1) * cs)
+        n0 = fd.LAUNCHES["flash_decode"]
+        got.append(fd.flash_decode_slice(
+            q.to(cuda), k[:, :, sl].to(cuda), v[:, :, sl].to(cuda),
+            kv_len.to(cuda), offset=r * cs, window=window))
+        assert fd.LAUNCHES["flash_decode"] == n0 + 1
+        want.append(fd.flash_decode_slice(q, k[:, :, sl], v[:, :, sl],
+                                          kv_len, offset=r * cs,
+                                          window=window))
+    atol, _ = _tol(dtype)
+    out = _merged(got, dtype).float().cpu()
+    torch.testing.assert_close(out, _merged(want, dtype).float(), atol=atol,
+                               rtol=0)
+    whole = fd.flash_decode(q, k, v, kv_len, window=window)
+    torch.testing.assert_close(out, whole.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [2, 4])
+def test_flash_decode_paged_slices_merge_to_the_whole(cuda, dtype, m):
+    """Each rank's ``flash_decode_paged_slice`` over its pages (the others'
+    table entries -1, forced SKIP) launches #8 and matches the CPU's plain
+    partials; merged they equal the whole pool's decode."""
+    from repro_torch.models.transformer import interleaved_page_table
+    gen = torch.Generator().manual_seed(10 + m)
+    b, hq, hkv, d, ps, T = 4, 8, 2, 64, 16, 16
+    n = b * T
+    q = torch.randn(b, hq, 1, d, generator=gen).to(dtype)
+    kp = torch.randn(hkv, n, ps, d, generator=gen).to(dtype)
+    vp = torch.randn(hkv, n, ps, d, generator=gen).to(dtype)
+    table = interleaved_page_table(b, T, "cpu")
+    kv_len = torch.tensor([1, 70, 200, 256], dtype=torch.int32)
+    nl = n // m
+    got, want = [], []
+    for r in range(m):
+        sl = slice(r * nl, (r + 1) * nl)
+        n0 = fd.LAUNCHES["flash_decode_paged"]
+        got.append(fd.flash_decode_paged_slice(
+            q.to(cuda), kp[:, sl].to(cuda), vp[:, sl].to(cuda),
+            table.to(cuda), kv_len.to(cuda), first_page=r * nl))
+        assert fd.LAUNCHES["flash_decode_paged"] == n0 + 1
+        want.append(fd.flash_decode_paged_slice(
+            q, kp[:, sl], vp[:, sl], table, kv_len, first_page=r * nl))
+    atol, _ = _tol(dtype)
+    out = _merged(got, dtype).float().cpu()
+    torch.testing.assert_close(out, _merged(want, dtype).float(), atol=atol,
+                               rtol=0)
+    whole = fd.flash_decode_paged(q, kp, vp, table, kv_len)
+    torch.testing.assert_close(out, whole.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("state", ["contiguous", "paged"])
+def test_kv_seq_ranks_on_card_match_cpu(cuda, state):
+    """Reduced granite's sequence-sharded decode at model 2, two gloo
+    ranks sharing the card, against the same ranks on the CPU: tokens
+    identical, logits within 1e-4, #7 or #8 launched on both ranks."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.distributed import launch
+
+    cfg = reduced_config("granite-3-2b", attn_impl="pallas",
+                         use_decode_kernel=True)
+    tokens = torch.randint(1, cfg.vocab_size, (2, 29),
+                           generator=torch.Generator().manual_seed(0))
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    run = {"shape": (1, 2), "state": state, "rules": "auto",
+           "batch": {"tokens": tokens.numpy()}, "capacity": 64, "steps": 6,
+           "page_size": 16}
+    spec = {"cfg": cfg, "params": tree_map(lambda t: t.numpy(), params),
+            "backend": "gloo", "runs": [run]}
+    card = launch.kv_seq(dict(spec, device="cuda"), 2)
+    cpu = launch.kv_seq(dict(spec, device="cpu"), 2)
+    kernel = "flash_decode_paged" if state == "paged" else "flash_decode"
+    for a, c in zip(card, cpu):
+        assert (a[0]["tokens"] == c[0]["tokens"]).all()
+        torch.testing.assert_close(torch.from_numpy(a[0]["logits"]),
+                                   torch.from_numpy(c[0]["logits"]),
+                                   atol=1e-4, rtol=0)
+        assert a[0]["launches"][kernel] == 6 * cfg.num_layers
+        assert a[0]["census"] == c[0]["census"]

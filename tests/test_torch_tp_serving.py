@@ -10,8 +10,9 @@ its head slice of the reduced granite-3-2b (heads 8/4 at tp 2 and 4,
     the port's tp=1; every rank's tokens the same;
   * packed-prefill logits within 1e-5 of the port's tp=1 and 1e-4 of the
     JAX model, the same bits on every rank;
-  * each rank's pool the head slice of the tp=1 pool, and its
-    ``cache_bytes`` a tp-th of tp=1's;
+  * each rank's pool the head slice of the tp=1 pool, its
+    ``per_shard_cache_bytes`` a tp-th of its ``cache_bytes``, which is
+    tp=1's (the reference's meanings: a rank's, and the sum over shards);
   * the census: decode, the zero-offset packed prefill and the chunk step
     each count ``2 * num_layers`` ``all_reduce`` calls and nothing else;
   * ``backend="nccl"`` with more ranks than cards refused before any
@@ -151,7 +152,8 @@ def test_packed_logits_and_pool_slices(tp):
             assert pool.shape[1] == hkv
             np.testing.assert_allclose(pool, full[:, j * hkv:(j + 1) * hkv],
                                        rtol=1e-5, atol=1e-6)
-        assert rec["cache_bytes"] * tp == peng.cache_bytes()
+        assert (rec["per_shard_cache_bytes"] * tp == rec["cache_bytes"]
+                == peng.cache_bytes())
 
 
 @pytest.mark.parametrize("tp", TPS)
