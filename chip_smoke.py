@@ -27,9 +27,12 @@ Phases:
 
 1. print the card's name and power limit (nvidia-smi), then build every
    CUDA kernel of both paths from ``src/repro_torch/kernels/csrc`` (one
-   nvcc per source, the three libraries started together), and, from
-   ``-Xptxas -v`` compiles of ``flash_fwd.cu``, ``flash_bwd.cu`` and
-   ``flash_decode.cu`` started beside the build, count the tensor-core
+   nvcc per source, the four libraries started together), and, from
+   ``-Xptxas -v`` compiles of ``flash_fwd.cu``, ``flash_bwd.cu``,
+   ``flash_bwd_sm90.cu`` and ``flash_decode.cu`` started beside the build,
+   hold every ``flash_bwd_dq_sm90_kernel`` / ``flash_bwd_dkv_sm90_kernel``
+   (d 64, 96, 128, with and without dropout) to wgmma (``HGMMA``), TMA
+   loads (``UTMALDG``) and no spill, and count the tensor-core
    instructions (``HMMA``, ``cuobjdump -sass``) with the registers and
    spills of every bf16 ``flash_fwd_kernel`` (paged; contiguous, with and
    without dropout; both variants) and ``flash_bwd_dq_kernel`` /
@@ -70,8 +73,16 @@ Phases:
    its plain time and ``library_ms`` = the backward of SDPA alone
    (``torch.autograd.grad`` after one forward, boolean mask, GQA), and the
    pair's device time (dq + dkv) against it on a line of its own, beside
-   the kernels' CTA walks (layout tiles a dq CTA visits, (q-block, head)
-   items a dkv CTA visits: mean and max). The whole
+   the kernels' CTA walks. The pair is the body the path launches, the
+   sm90 one (``flash_bwd_sm90.cu``, wgmma and TMA; records
+   ``flash_bwd_dq_sm90`` / ``flash_bwd_dkv_sm90``), held and timed beside
+   flash_bwd.cu's mma.sync body on the same residuals (forced with
+   ``_mma_body``; records ``flash_bwd_dq`` / ``flash_bwd_dkv``, marked
+   ``"on_main_path": false``: no main path launches that body, and the
+   script checks that none does); so is every later shape's pair
+   (``mma_ms``). The walks: layout tiles a dq
+   CTA visits, (q-block, head) items a dkv CTA visits, mean and max. The
+   whole
    contiguous decode (flash_decode) at batch 8 over a 2048-slot
    cache, kv_len 900-1100, also with a window and with a kv_mask, against
    its plain version (SDPA over the cache with a boolean mask as library);
@@ -106,8 +117,8 @@ Phases:
    blocks (``masks.butterfly_block_layout``), which ``ops.flash_attention``
    refines into the kernels' 64-row tiles: four paths, each one forward +
    backward through ``ops.flash_attention(block_layout=...)`` with launch
-   counters reset just before (flash_fwd, flash_bwd_dq and flash_bwd_dkv
-   once each, nothing else): (4, 12, 4096, 64) non-causal, causal, and
+   counters reset just before (flash_fwd, flash_bwd_dq_sm90 and
+   flash_bwd_dkv_sm90 once each, nothing else): (4, 12, 4096, 64) non-causal, causal, and
    non-causal with a kv_mask (PARTIAL_DATA tiles), and (1, 12, 16384, 64)
    non-causal; then #1, #2 and #3 at each against their plain versions
    (``fwd_bwd_case``; at 16384 the plain versions by groups of heads,
@@ -157,13 +168,16 @@ Phases:
    batch 2: the same random weights and ``SyntheticLM`` batches through two
    train steps on ``cuda`` (kernels) and on ``cpu`` (plain versions): losses
    within 1e-4 relative, layer 0's wq/wk/wv gradients of the first batch
-   within 1e-3 scaled by their max;
+   within 1e-3 scaled by their max; its card run launches the scalar
+   (float32) body of flash_bwd.cu's contiguous pair and no sm90 kernel
+   (a parity run, not a main path: its launches are counted nowhere);
 6. train: the published granite-3-2b (40 layers, bf16, remat on) through
    the training launcher (``repro_torch.launch.train``: AdamW,
    warmup_cosine(3e-4, 20, steps), clip 1.0, deterministic), seq 2048,
    batch 4, 6 steps, step 1 excluded from the timing. Launch counters are
-   reset just before and flash_fwd, flash_bwd_dq, flash_bwd_dkv must be > 0
-   just after; every loss and grad norm finite; prints the first loss,
+   reset just before and flash_fwd, flash_bwd_dq_sm90, flash_bwd_dkv_sm90
+   must be > 0 just after (every other counter, the mma.sync pair's too,
+   0); every loss and grad norm finite; prints the first loss,
    tokens/s, ms/step and peak memory, then one more step under
    ``torch.profiler`` for the device busy share and the top kernels; the
    bytes allocated once the params and AdamW state exist, before the
@@ -232,8 +246,8 @@ Phases:
    parity's prompt of 1100 tokens and loss of 1280 reach past the
    window; its ``ssm_norm``, which the reference never reads, has a zero
    gradient on both sides), its serve launching flash_fwd and
-   flash_decode and no paged kernel, its train flash_fwd, flash_bwd_dq
-   and flash_bwd_dkv; #1 and #7 held at serve-hymba's own calls in the
+   flash_decode and no paged kernel, its train flash_fwd,
+   flash_bwd_dq_sm90 and flash_bwd_dkv_sm90; #1 and #7 held at serve-hymba's own calls in the
    fresh process of phase 9;
 15. seamless parity, serve-seamless, train-seamless: seamless-m4t-medium
    at full width, 2 + 2 layers, float32, on ``cuda`` and on ``cpu``: the
@@ -271,11 +285,11 @@ Phases:
    2 layers, float32, at tp=2, sp=2 (allgather and ring) and (sp 2, tp 2)
    against the tp=1 engine on the card (greedy tokens identical,
    packed-prefill logits within 1e-4, each step kind's collective census
-   exact on every rank); then granite-3-2b in bf16 at full depth serving
-   serve's traffic at tp=2 and at sp=2 (allgather) against the tp=1 serve:
-   every rank's tokens identical, teacher-forced logits along tp=1's
-   tokens within ``TP_LOGIT_SPACINGS`` bf16 spacings of tp=1's (a token
-   parting only at a top-2 margin within twice that), #1 (at tp only),
+   exact on every rank); then granite-3-2b in bf16 at full width
+   (``SERVE_TP_LAYERS``, 8 of 40 layers) serving serve's traffic at tp=2
+   and at sp=2 (allgather) against the tp=1 serve: every rank's tokens
+   identical, teacher-forced logits along tp=1's tokens within
+   ``TP_LOGIT_SPACINGS`` bf16 spacings of tp=1's (a token parting only at a top-2 margin within twice that), #1 (at tp only),
    #4 and #8 launched on every rank, tok/s, TTFT p50 and each rank's peak
    memory of one cold serve.
 18. parity-train-mesh, train-dp2tp2, pipeline-2 (``train_mesh_phase``):
@@ -354,8 +368,8 @@ Phases:
    against the single rank's ``Model.decode_step`` on the card (greedy
    tokens identical, logits within 1e-4, every step's census
    ``expected_kv_seq_decode_census`` on every rank); serve-kvseq2 and
-   serve-kvseq2-paged: granite-3-2b in bf16 at full width (40 layers; the
-   paged one 8), data 1 x model 2, 2 lanes of 16376-token prompts at
+   serve-kvseq2-paged: granite-3-2b in bf16 at full width (8 of 40 layers
+   each; serve-kvseq2 ran all 40 before), data 1 x model 2, 2 lanes of 16376-token prompts at
    capacity 32768, 16 decode steps teacher-forced along the single rank's
    greedy tokens
    (logits within ``TP_LOGIT_SPACINGS`` bf16 spacings, an argmax parting
@@ -1046,17 +1060,26 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
     # -- correctness: kernels against the plain backward --------------------
     got = fa.flash_attention_backward(*res, **call)
     torch.cuda.synchronize()
+    ops_ = fa.prepare_backward(*res, **call)
+    mma_got = (fa.launch_dq(ops_, _mma_body=True),
+               *fa.launch_dkv(ops_, _mma_body=True))
+    del ops_
     want = plain_by_heads(torch, fa.flash_attention_backward_plain,
                           res[:7], res[7:], call)
     errs = dict(zip(("dq", "dk", "dv"), map(scaled_err, got, want)))
     abs_errs = {n: float((g.float() - w.float()).abs().max())
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    mma_errs = dict(zip(("dq", "dk", "dv"), map(scaled_err, mma_got, want)))
+    mma_abs_errs = {n: float((g.float() - w.float()).abs().max())
+                    for n, g, w in zip(("dq", "dk", "dv"), mma_got, want)}
+    del mma_got
     # an all-zero gradient would agree with the kernel's trivially
     check(all(float(w.float().abs().max()) > 0 for w in want),
           "the plain backward gave an all-zero gradient")
     del want
-    print(f"[train-kernel] {shape}: scaled |grad - plain| {errs}", flush=True)
-    for name, e in errs.items():
+    print(f"[train-kernel] {shape}: scaled |grad - plain| {errs} (the "
+          f"mma.sync body {mma_errs})", flush=True)
+    for name, e in (*errs.items(), *mma_errs.items()):
         check(e <= 2e-2, f"flash_bwd {shape}: {name} scaled error {e} > 2e-2")
     # deterministic: no atomics, the GQA sum in a fixed order
     again = fa.flash_attention_backward(*res, **call)
@@ -1064,10 +1087,14 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
           f"flash_bwd {shape}: two calls of the pair are not bit-identical")
     del again
 
-    # -- times: each kernel alone (one input set exceeds 2x L2)
+    # -- times: each kernel alone (one input set exceeds 2x L2), the body
+    # the path launches (backward_body) and, beside it, the mma.sync body
     ops_ = fa.prepare_backward(*res, **call)
+    check(ops_.body == "sm90", f"flash_bwd {shape}: body {ops_.body}, not sm90")
     dq_ms = device_ms(torch, [lambda: fa.launch_dq(ops_)])
     dkv_ms = device_ms(torch, [lambda: fa.launch_dkv(ops_)])
+    mma_dq_ms = device_ms(torch, [lambda: fa.launch_dq(ops_, _mma_body=True)])
+    mma_dkv_ms = device_ms(torch, [lambda: fa.launch_dkv(ops_, _mma_body=True)])
     del ops_
     bwd_ms, pair_ms = timed(torch, [lambda: fa.flash_attention_backward(
         *res, **call)])
@@ -1091,7 +1118,9 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
                                               scale=scale, enable_gqa=True)])
     print(f"[train-kernel] backward pair against SDPA's backward: dq + dkv "
           f"{dq_ms + dkv_ms:.4f} ms on the card (dq {dq_ms:.4f}, dkv "
-          f"{dkv_ms:.4f}); the whole flash_attention_backward {bwd_ms:.4f} ms "
+          f"{dkv_ms:.4f}; the mma.sync body {mma_dq_ms + mma_dkv_ms:.4f}: dq "
+          f"{mma_dq_ms:.4f}, dkv {mma_dkv_ms:.4f}); the whole "
+          f"flash_attention_backward {bwd_ms:.4f} ms "
           f"on the card, {pair_ms:.4f} ms a call; SDPA backward "
           f"{lib_bwd_ms:.4f} ms: the pair {(dq_ms + dkv_ms) / lib_bwd_ms:.2f}x "
           f"SDPA's time", flush=True)
@@ -1104,7 +1133,9 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
     return {
         "shape": shape, "call": call, "layout": layout, "res": res,
         "errs": errs, "abs_errs": abs_errs, "f_errs": f_errs,
+        "mma_errs": mma_errs, "mma_abs_errs": mma_abs_errs,
         "dq_ms": dq_ms, "dkv_ms": dkv_ms, "bwd_ms": bwd_ms,
+        "mma_dq_ms": mma_dq_ms, "mma_dkv_ms": mma_dkv_ms,
         "pair_ms": pair_ms, "plain_ms": plain_ms, "fwd_ms": fwd_ms,
         "fwd_call_ms": fwd_call_ms, "fwd_plain_ms": fwd_plain_ms,
         "lib_bwd_ms": lib_bwd_ms, "lib_fwd_ms": lib_fwd_ms,
@@ -1126,10 +1157,13 @@ def shape_entries(c: dict) -> dict:
            "max_abs_err": c["f_errs"][0], "m_rel_err": c["f_errs"][1],
            "l_rel_err": c["f_errs"][2]}
     out = {"flash_fwd": fwd}
-    for name, ms, (b_ms, b_by), grads in (
-            ("flash_bwd_dq", c["dq_ms"], c["dq_bound"], ("dq",)),
-            ("flash_bwd_dkv", c["dkv_ms"], c["dkv_bound"], ("dk", "dv"))):
-        out[name] = {"shape": c["shape"], "ms": ms,
+    for name, ms, mma_ms, (b_ms, b_by), grads in (
+            ("flash_bwd_dq_sm90", c["dq_ms"], c["mma_dq_ms"], c["dq_bound"],
+             ("dq",)),
+            ("flash_bwd_dkv_sm90", c["dkv_ms"], c["mma_dkv_ms"],
+             c["dkv_bound"], ("dk", "dv"))):
+        out[name] = {"shape": c["shape"], "ms": ms, "mma_ms": mma_ms,
+                     "mma_pair_device_ms": c["mma_dq_ms"] + c["mma_dkv_ms"],
                      "plain_ms": c["plain_ms"], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": c["lib_bwd_ms"],
                      "max_abs_err": max(c["abs_errs"][g] for g in grads),
@@ -1137,9 +1171,10 @@ def shape_entries(c: dict) -> dict:
                      "pair_device_ms": c["dq_ms"] + c["dkv_ms"],
                      "backward_ms": c["bwd_ms"], "pair_ms": c["pair_ms"]}
     for name, e in out.items():
+        mma = f", mma.sync body {e['mma_ms']:.4f} ms" if "mma_ms" in e else ""
         print(f"[kernel] {name} at {e['shape']}: {e['ms']:.4f} ms on the card "
               f"(plain {e['plain_ms']:.3f} ms, bound {e['bound_ms']:.4f} ms by "
-              f"{e['bound_by']}, SDPA {e['library_ms']:.4f} ms)", flush=True)
+              f"{e['bound_by']}, SDPA {e['library_ms']:.4f} ms{mma})", flush=True)
     return out
 
 
@@ -1206,6 +1241,8 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
     dops = fa.prepare_backward(*dres, **dcall)
     dq_drop_ms = device_ms(torch, [lambda: fa.launch_dq(dops)])
     dkv_drop_ms = device_ms(torch, [lambda: fa.launch_dkv(dops)])
+    mma_dq_drop_ms = device_ms(torch, [lambda: fa.launch_dq(dops, _mma_body=True)])
+    mma_dkv_drop_ms = device_ms(torch, [lambda: fa.launch_dkv(dops, _mma_body=True)])
 
     # -- variant "paper": forward against the plain version ----------------
     pcall = dict(call, variant="paper")
@@ -1219,17 +1256,30 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
 
     lib = "SDPA backward (dq, dk, dv together), bool mask, GQA"
     recs = []
-    for name, ms, (b_ms, b_by), grads, drop_ms, line in (
-            ("flash_bwd_dq", c["dq_ms"], c["dq_bound"], ("dq",), dq_drop_ms,
-             581),
-            ("flash_bwd_dkv", c["dkv_ms"], c["dkv_bound"], ("dk", "dv"),
-             dkv_drop_ms, 612)):
-        err = max(c["errs"][g] for g in grads)
+    # each of #2 / #3 twice: the sm90 body (wgmma, TMA) that the bf16 paths
+    # at d 64 / 96 / 128 launch, and flash_bwd.cu's mma.sync body, forced
+    # here, which no main path launches (MMA_BODY_NOTE)
+    mma_pair = c["mma_dq_ms"] + c["mma_dkv_ms"]
+    for name, ms, (b_ms, b_by), grads, drop_ms, line, source, extra in (
+            ("flash_bwd_dq_sm90", c["dq_ms"], c["dq_bound"], ("dq",),
+             dq_drop_ms, 581, "flash_bwd_sm90.cu",
+             {"mma_ms": c["mma_dq_ms"], "mma_dropout_ms": mma_dq_drop_ms,
+              "mma_pair_device_ms": mma_pair}),
+            ("flash_bwd_dkv_sm90", c["dkv_ms"], c["dkv_bound"], ("dk", "dv"),
+             dkv_drop_ms, 612, "flash_bwd_sm90.cu",
+             {"mma_ms": c["mma_dkv_ms"], "mma_dropout_ms": mma_dkv_drop_ms,
+              "mma_pair_device_ms": mma_pair}),
+            ("flash_bwd_dq", c["mma_dq_ms"], c["dq_bound"], ("dq",),
+             mma_dq_drop_ms, 581, "flash_bwd.cu", MMA_BODY_NOTE),
+            ("flash_bwd_dkv", c["mma_dkv_ms"], c["dkv_bound"], ("dk", "dv"),
+             mma_dkv_drop_ms, 612, "flash_bwd.cu", MMA_BODY_NOTE)):
+        pre = "" if source == "flash_bwd_sm90.cu" else "mma_"
+        err = max(c[pre + "errs"][g] for g in grads)
         rec = {"name": name, "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+               "source": f"src/repro_torch/kernels/csrc/{source}",
                "replaces": f"src/repro/kernels/flash_attention.py:{line}",
                "launches": None,
-               "max_abs_err": max(c["abs_errs"][g] for g in grads),
+               "max_abs_err": max(c[pre + "abs_errs"][g] for g in grads),
                "scaled_err": err, "ms": ms, "plain_ms": c["plain_ms"],
                "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": c["lib_bwd_ms"], "library": lib,
@@ -1237,7 +1287,8 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
                "pair_ms": c["pair_ms"],
                "pair_device_ms": c["dq_ms"] + c["dkv_ms"],
                "backward_ms": c["bwd_ms"],
-               "plain_ms_is": "the plain backward (dq, dk, dv together)"}
+               "plain_ms_is": "the plain backward (dq, dk, dv together)",
+               **extra}
         recs.append(rec)
         print(f"[kernel] {name}: {shape}: scaled err {err:.3g}; {ms:.4f} ms "
               f"(dropout 0.1: {drop_ms:.4f} ms; plain backward "
@@ -1921,7 +1972,17 @@ SERVE_KERNELS = ("flash_fwd", "flash_fwd_paged", "flash_decode_paged")
 DENSE_SERVE_KERNELS = ("flash_fwd", "flash_decode")
 PAGED_GRAD_KERNELS = ("flash_fwd_paged", "flash_bwd_dq_paged",
                       "flash_bwd_dkv_paged", "flash_bwd_fold_paged")
-TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the contiguous bf16 pair at d 64 / 96 / 128 over 64 x 64 blocks runs the
+# wgmma/TMA body (flash_bwd_sm90.cu); the mma.sync counters stay 0 there
+TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
+# flash_bwd.cu's contiguous pair: its records time the mma.sync body forced
+# at the train shape; no main path launches it (their launches must be 0)
+MMA_PAIR = ("flash_bwd_dq", "flash_bwd_dkv")
+MMA_BODY_NOTE = {
+    "on_main_path": False,
+    "body": "flash_bwd.cu's mma.sync body, forced (_mma_body) at the train "
+            "shape beside the sm90 body; no main path launches it (fp32 "
+            "calls, the parity runs', take its scalar instantiation)"}
 # the later paths: (arch, seq, batch) of the two trained at full depth, and
 # the depth serve-qwen3 cuts qwen3-32b to (its 64 layers hold ~65.5 GB of
 # bf16 weights; 8 keep the published width at ~10.9 GB)
@@ -2604,6 +2665,9 @@ def train_parity_phase(torch, seed: int, arch: str = "granite-3-2b",
     out = {}
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            reset_launches()
         p = params_to(params, device)
         _, g = _grads(torch, model, p, data.batch_at(0))
         g0 = {n: g["blocks"][0]["attn"][n].cpu() for n in ("wq", "wk", "wv")}
@@ -2616,6 +2680,9 @@ def train_parity_phase(torch, seed: int, arch: str = "granite-3-2b",
             p, state, metrics = step(p, state, data.batch_at(s))
             losses.append(float(metrics["loss"]))
         out[device] = {"losses": losses, "grads": g0}
+        if device == "cuda":
+            torch.cuda.synchronize()
+            out["launches"] = read_launches()
         del p, state
         print(f"[{tag}] {cfg.name} 2 layers float32, {device}: losses "
               f"{losses} in {time.perf_counter() - t0:.1f}s", flush=True)
@@ -2628,9 +2695,13 @@ def train_parity_phase(torch, seed: int, arch: str = "granite-3-2b",
     check(max(rel) <= 1e-4, f"{tag}: losses differ by {rel} > 1e-4")
     check(max(gerr.values()) <= 1e-3,
           f"{tag}: layer-0 grads differ by {gerr} > 1e-3")
+    # float32 runs flash_bwd.cu's scalar body (the card's parity mode)
+    check(out["launches"]["flash_bwd_dq"] > 0 and out["launches"]["flash_bwd_dkv"] > 0
+          and out["launches"]["flash_bwd_dq_sm90"] == 0,
+          f"{tag}: float32 launches {out['launches']}")
     return {"model": cfg.name, "losses_cuda": out["cuda"]["losses"],
             "losses_cpu": out["cpu"]["losses"], "loss_rel_diff": rel,
-            "grad_scaled_diff": gerr}
+            "grad_scaled_diff": gerr, "launches": out["launches"]}
 
 
 MOE_GRADS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"),
@@ -2940,8 +3011,8 @@ def train_path(torch, tag, cfg, run, seq, batch, steps, recipe,
                card, kernels=TRAIN_KERNELS) -> tuple[dict, dict]:
     """One training main path: launch counters reset just before ``run()``
     (which builds the model and trains ``steps`` steps, returning the
-    ``Trainer``) and each of ``kernels`` (flash_fwd, flash_bwd_dq and
-    flash_bwd_dkv) > 0 just after, every other kernel 0; every loss and
+    ``Trainer``) and each of ``kernels`` (flash_fwd, flash_bwd_dq_sm90 and
+    flash_bwd_dkv_sm90) > 0 just after, every other kernel 0; every loss and
     grad norm finite; prints the first loss, tokens/s and ms/step over
     steps 2-``steps`` and peak memory, then profiles one more step
     (``profile_train``)."""
@@ -3074,8 +3145,8 @@ def _sparse_inputs(torch, gen, path):
 def blocksparse_path(torch, seed: int, path: str) -> dict:
     """The path as a user calls it: ``ops.flash_attention(block_layout=
     ...)`` forward and backward through autograd, bf16, launch counters
-    reset just before and read just after: flash_fwd, flash_bwd_dq and
-    flash_bwd_dkv once each and nothing else; o and the gradients finite."""
+    reset just before and read just after: flash_fwd, flash_bwd_dq_sm90
+    and flash_bwd_dkv_sm90 once each and nothing else; o and the gradients finite."""
     from repro_torch.kernels import ops
 
     b, S, causal, _ = BLOCKSPARSE[path]
@@ -3137,7 +3208,7 @@ def _sparse_notes(entries: dict, layout, dense_fwd, dense_pair, pattern):
                        + ")")
     print(f"[blocksparse] {entries['flash_fwd']['shape']}: #1 "
           f"{entries['flash_fwd']['ms']:.4f} ms against dense {dense_fwd:.4f}"
-          f" ms; dq + dkv {entries['flash_bwd_dq']['pair_device_ms']:.4f} ms "
+          f" ms; dq + dkv {entries['flash_bwd_dq_sm90']['pair_device_ms']:.4f} ms "
           f"against dense {dense_pair:.4f} ms", flush=True)
 
 
@@ -3253,8 +3324,8 @@ def seamless_kernel_phase(torch, seed: int) -> dict:
     cross_dec["self"] = self_dec
     return {"flash_fwd": {"train_seamless": enc["flash_fwd"],
                           "serve_seamless": cross},
-            "flash_bwd_dq": {"train_seamless": enc["flash_bwd_dq"]},
-            "flash_bwd_dkv": {"train_seamless": enc["flash_bwd_dkv"]},
+            "flash_bwd_dq_sm90": {"train_seamless": enc["flash_bwd_dq_sm90"]},
+            "flash_bwd_dkv_sm90": {"train_seamless": enc["flash_bwd_dkv_sm90"]},
             "flash_decode": {"serve_seamless": cross_dec}}
 
 
@@ -3653,8 +3724,8 @@ def phi3v_kernel_phase(torch, seed: int) -> dict:
     dec["shape"] = "serve-phi3v " + dec["shape"]
     return {"flash_fwd": {"train_phi3v": train["flash_fwd"],
                           "serve_phi3v": prefill},
-            "flash_bwd_dq": {"train_phi3v": train["flash_bwd_dq"]},
-            "flash_bwd_dkv": {"train_phi3v": train["flash_bwd_dkv"]},
+            "flash_bwd_dq_sm90": {"train_phi3v": train["flash_bwd_dq_sm90"]},
+            "flash_bwd_dkv_sm90": {"train_phi3v": train["flash_bwd_dkv_sm90"]},
             "flash_decode": {"serve_phi3v": dec}}
 
 
@@ -3815,7 +3886,7 @@ def phi3v_train_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 # the parity meshes (sp, tp, sp strategy) of phase 17 at 2 and 4 ranks,
-# and the two bf16 serves' (granite-3-2b, 40 layers, serve's traffic)
+# and the two bf16 serves' (granite-3-2b, serve's traffic)
 PARITY_MESHES = ((1, 2, None), (2, 1, "allgather"), (2, 1, "ring"),
                  (2, 2, "allgather"))
 SERVE_TP_MESHES = {"serve_tp2": (1, 2, None), "serve_sp2": (2, 1, "allgather")}
@@ -3824,6 +3895,9 @@ SERVE_TP_MESHES = {"serve_tp2": (1, 2, None), "serve_sp2": (2, 1, "allgather")}
 # a token may part from tp=1's only where tp=1's top-2 margin is within
 # twice that
 TP_LOGIT_SPACINGS = 16
+# the bf16 serves' depth: 8 of granite's 40 layers (cut from 40 to keep the
+# script's time, as ROADMAP's order says; the tp=1 reference runs as deep)
+SERVE_TP_LAYERS = 8
 RANKS_NOTE = "ranks sharing one card, collectives through host memory"
 
 
@@ -3926,8 +4000,8 @@ def tp_serving_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
       on the card: greedy tokens identical, packed-prefill logits within
       1e-4, each step kind's census exact on every rank;
     * serve-tp2 and serve-sp2 (allgather): granite-3-2b in bf16 at full
-      width and depth, serve's traffic, against the tp=1 serve on the
-      card: every rank's tokens identical; teacher-forced logits along
+      width, ``SERVE_TP_LAYERS`` deep, serve's traffic, against the tp=1
+      serve on the card: every rank's tokens identical; teacher-forced logits along
       tp=1's tokens within ``TP_LOGIT_SPACINGS`` bf16 spacings of tp=1's,
       a token parting from tp=1's only at a top-2 margin within twice
       that; #1 (at tp only), #4 and #8 launched on every rank; tok/s, TTFT
@@ -3977,10 +4051,11 @@ def tp_serving_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     del eng, pparams
     release(torch)
 
-    # bf16 at full depth: the tp=1 serve of serve's traffic on the card,
-    # and its teacher-forced logits along its own tokens
+    # bf16 at SERVE_TP_LAYERS: the tp=1 serve of serve's traffic on the
+    # card, and its teacher-forced logits along its own tokens
     cfg = dataclasses.replace(get_config("granite-3-2b"), attn_impl="pallas",
-                              use_decode_kernel=True)
+                              use_decode_kernel=True,
+                              num_layers=SERVE_TP_LAYERS)
     gen = torch.Generator().manual_seed(seed + 2)
 
     def toks(n):
@@ -4010,7 +4085,7 @@ def tp_serving_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
     tp1_logits = lg[0, rows].float().cpu()
     del eng, params, lg
     release(torch)
-    print(f"[serve-tp1] granite-3-2b 40 layers bf16, one process: "
+    print(f"[serve-tp1] granite-3-2b {cfg.num_layers} layers bf16, one process: "
           f"{32 * len(prompts) / tp1['wall_s']:.1f} tok/s, TTFT p50 "
           f"{tp1['latency']['ttft_p50'] * 1e3:.1f} ms [{card}]", flush=True)
 
@@ -4125,7 +4200,7 @@ def tp_serving_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
                "card": card, "note": RANKS_NOTE}
         out[path] = rec
         launches[path] = r0["launches"]
-        print(f"[{tag}] granite-3-2b 40 layers bf16, sp={sp} tp={tp}: "
+        print(f"[{tag}] granite-3-2b {cfg.num_layers} layers bf16, sp={sp} tp={tp}: "
               f"{n_tok} tokens in {r0['wall_s']:.2f}s ({n_tok / r0['wall_s']:.1f}"
               f" tok/s, TTFT p50 {lat['ttft_p50'] * 1e3:.1f} ms), peak memory "
               f"by rank {[round(r['peak_memory_bytes'] / 2**30, 2) for r in recs]}"
@@ -4364,6 +4439,10 @@ def train_mesh_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
             check(r["launches"][name] > 0,
                   f"train-dp2tp2: kernel {name} never launched on rank "
                   f"{r['rank']}")
+        for name in MMA_PAIR:
+            check(r["launches"][name] == 0,
+                  f"train-dp2tp2: the mma.sync pair's {name} ran on rank "
+                  f"{r['rank']}")
     check(all(math.isfinite(v) for v in got), f"train-dp2tp2: losses {got}")
     check(max(errs) <= DP2TP2_LOSS_RTOL,
           f"train-dp2tp2: losses {got} are {max(errs):.3g} relative from "
@@ -4426,10 +4505,11 @@ def train_mesh_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
 
 # parity-train-family: (arch, (data, model), ZeRO-1), each at full width, 2
 # layers (seamless 2 + 2), float32, PARITY_TRAIN's 3 AdamW steps against
-# the single rank on the card, losses within TRAIN_MESH_RTOL
-# (olmoe's data 2 x model 2 ZeRO-1 mesh and mamba2-2.7b's model 4 were cut
-# to keep the script's time, after phase 22's paged serve and phase 18's
-# data-4 mesh, as ROADMAP's order says)
+# the single rank on the card, losses within TRAIN_MESH_RTOL (olmoe's data
+# 2 x model 2 ZeRO-1 mesh and mamba2-2.7b's model 4 were cut to keep the
+# script's time, after phase 22's paged serve and phase 18's data-4 mesh,
+# as ROADMAP's order says); seamless's is the encoder-decoder's only run
+# with a "model" axis and the phase's only ZeRO-1 mesh
 PARITY_FAMILY = (("olmoe-1b-7b", (1, 4), False),
                  ("phi-3-vision-4.2b", (1, 4), False),
                  ("seamless-m4t-medium", (2, 2), True))
@@ -4646,6 +4726,10 @@ def train_family_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
                 check(r["launches"][name] > 0,
                       f"{tag}: kernel {name} never launched on rank "
                       f"{r['rank']}")
+            for name in MMA_PAIR:
+                check(r["launches"][name] == 0,
+                      f"{tag}: the mma.sync pair's {name} ran on rank "
+                      f"{r['rank']}")
         check(all(math.isfinite(v) for v in got), f"{tag}: losses {got}")
         check(max(errs) <= DP2TP2_LOSS_RTOL,
               f"{tag}: losses {got} are {max(errs):.3g} relative from the "
@@ -4853,8 +4937,9 @@ def levers_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
 KVSEQ_PARITY_MESHES = ((1, 2), (2, 2))
 KVSEQ_SERVE = {"serve_kvseq2": "contiguous", "serve_kvseq2_paged": "paged"}
 # the depth of each serve: serve-kvseq2-paged runs 8 of granite's 40 layers
-# (cut first to keep the script under 950 s, as ROADMAP's order says)
-KVSEQ_LAYERS = {"serve_kvseq2": 40, "serve_kvseq2_paged": 8}
+# (cut first to keep the script under 950 s, as ROADMAP's order says), and
+# serve-kvseq2 8 too (a slow host took 1197 s, 3 s under the limit)
+KVSEQ_LAYERS = {"serve_kvseq2": 8, "serve_kvseq2_paged": 8}
 KVSEQ_LANES, KVSEQ_CAPACITY, KVSEQ_PROMPT, KVSEQ_STEPS = 2, 32768, 16376, 16
 KVSEQ_PAGE = 16
 # the kernels held at serve-kvseq2's rank slices: global lengths mid-decode
@@ -5059,7 +5144,7 @@ def kvseq_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
       and decode logits within 1e-4, the census of every step equal to
       ``expected_kv_seq_decode_census`` on every rank;
     * serve-kvseq2 / serve-kvseq2-paged: granite-3-2b in bf16 at full
-      width, ``KVSEQ_LAYERS`` deep (40, the paged one 8), data 1 x model
+      width, ``KVSEQ_LAYERS`` deep (8 layers each), data 1 x model
       2, ``KVSEQ_LANES`` lanes of
       ``KVSEQ_PROMPT``-token prompts at capacity ``KVSEQ_CAPACITY`` (pages
       of ``KVSEQ_PAGE``), ``KVSEQ_STEPS`` decode steps teacher-forced
@@ -5097,13 +5182,16 @@ def kvseq_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
 
     sb = {"tokens": rs.randint(1, get_config("granite-3-2b").vocab_size,
                                (KVSEQ_LANES, KVSEQ_PROMPT)).astype("int32")}
-    # the single rank's greedy decode at each serve's depth
-    cfgs, refs = {}, {}
+    # the single rank's greedy decode at each serve's depth (once a depth)
+    cfgs, refs, by_depth = {}, {}, {}
     for path, layers in KVSEQ_LAYERS.items():
         cfg = dataclasses.replace(get_config("granite-3-2b"),
                                   num_layers=layers, attn_impl="pallas",
                                   use_decode_kernel=True)
         cfgs[path] = cfg
+        if layers in by_depth:
+            refs[path] = by_depth[layers]
+            continue
         model = build_model(cfg)
         params = model.init(torch.Generator(device=dev).manual_seed(seed),
                             device=dev)
@@ -5111,6 +5199,7 @@ def kvseq_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
             torch, model, params, {k: torch.as_tensor(v, device=dev)
                                    for k, v in sb.items()}, KVSEQ_CAPACITY,
             KVSEQ_STEPS)
+        by_depth[layers] = refs[path]
         del params
         release(torch)
         print(f"[serve-kvseq1] granite-3-2b {layers} layers bf16, one "
@@ -5724,6 +5813,48 @@ def decode_build_counts(torch, proc, cubin: pathlib.Path) -> dict[str, dict]:
     return counts
 
 
+_BWD_SM90 = re.compile(r"flash_bwd_(dq|dkv)_sm90_kernel<\(int\)(\d+), \(bool\)(\d)>")
+_PTXAS_SERIAL = re.compile(r"C7512.*function '([^']+)'")
+
+
+def sm90_build_counts(proc, cubin: pathlib.Path) -> dict[str, dict]:
+    """Registers, spills and SASS counts of every ``flash_bwd_dq_sm90_kernel``
+    / ``flash_bwd_dkv_sm90_kernel`` instantiation (d 64, 96, 128, with and
+    without dropout), from a ``-Xptxas -v`` compile of
+    ``flash_bwd_sm90.cu`` to a cubin (started beside the build by
+    ``_cubin``): each must have wgmma (``HGMMA``) and TMA tile loads
+    (``UTMALDG``), and none may spill. ptxas's note that it serialized a
+    kernel's wgmma for registers (C7512) is recorded, not refused."""
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"nvcc -Xptxas -v flash_bwd_sm90.cu failed:\n"
+                                f"{log[-3000:]}")
+    serial = set(_demangle(sorted(set(_PTXAS_SERIAL.findall(log)))).values())
+    counts = {}
+    for kern, info in _kernel_info(log, cubin).items():
+        m = _BWD_SM90.search(kern)
+        if m:
+            kind, d, drop = m.groups()
+            key = f"{kind} d{d}{' dropout' if drop == '1' else ''}"
+            ops = [re.sub(r"^@!?U?P\w+ ", "", i).split(" ")[0] for i in info["sass"]]
+            counts[key] = {
+                "hgmma": sum(o.startswith("HGMMA") for o in ops),
+                "utmaldg": sum(o.startswith("UTMALDG") for o in ops),
+                "ublkcp": sum(o.startswith("UBLKCP") for o in ops),
+                "instructions": len(info["sass"]),
+                "registers": info.get("registers"), "spill": info.get("spill"),
+                "wgmma_serialized": kern in serial}
+    print(f"[build] flash_bwd_sm90 kernels (HGMMA, UTMALDG, UBLKCP, SASS "
+          f"instructions, registers, spill bytes, wgmma serialized): "
+          f"{json.dumps(counts)}", flush=True)
+    check(len(counts) == 2 * 3 * 2,
+          f"the built sm90 backward lacks a kernel: {sorted(counts)}")
+    check(all(c["hgmma"] > 0 and c["utmaldg"] > 0 for c in counts.values()),
+          f"an sm90 backward kernel has no HGMMA or no TMA load: {counts}")
+    check(all(c["spill"] == 0 for c in counts.values()),
+          f"an sm90 backward kernel spills: {counts}")
+    return counts
+
+
 def _kernel_info(log: str, cubin: pathlib.Path) -> dict[str, dict]:
     """Per kernel (demangled name): registers and stack from ptxas, and the
     SASS instruction text from cuobjdump (addresses and encodings dropped)."""
@@ -5854,7 +5985,8 @@ def main() -> int:
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     cubins = {name: out_dir / f"{name}_ptxas.cubin"
-              for name in ("flash_fwd", "flash_bwd", "flash_decode")}
+              for name in ("flash_fwd", "flash_bwd", "flash_bwd_sm90",
+                           "flash_decode")}
     procs = {name: _cubin(ROOT, name, cub)          # beside the build
              for name, cub in cubins.items()}
     try:
@@ -5869,6 +6001,8 @@ def main() -> int:
           flush=True)
     hmma = fwd_build_counts(procs["flash_fwd"], cubins["flash_fwd"])
     hmma_bwd = bwd_build_counts(procs["flash_bwd"], cubins["flash_bwd"])
+    sm90_build = sm90_build_counts(procs["flash_bwd_sm90"],
+                                   cubins["flash_bwd_sm90"])
     decode_build = decode_build_counts(torch, procs["flash_decode"],
                                        cubins["flash_decode"])
 
@@ -6035,11 +6169,16 @@ def main() -> int:
             rec["at_shapes"] = at_shapes[rec["name"]]
             for path, entry in rec["at_shapes"].items():
                 entry["launches"] = by_path[path]
-    check(all(rec["launches"] > 0 for rec in kernels),
+    check(all(rec["launches"] > 0 for rec in kernels
+              if rec.get("on_main_path", True)),
           "a kernel was launched on none of the main paths")
+    check(all(rec["launches"] == 0 for rec in kernels
+              if not rec.get("on_main_path", True)),
+          "a main path launched flash_bwd.cu's contiguous pair")
 
     record = {"card": card, "build_s": build_s, "hmma": hmma,
-              "bwd_bf16_build": hmma_bwd, "decode_build": decode_build,
+              "bwd_bf16_build": hmma_bwd, "bwd_sm90_build": sm90_build,
+              "decode_build": decode_build,
               "kernels": kernels,
               "paged_grad_launches": paths["paged_grad"], "parity": parity,
               "serve": serve, "dense_parity": dense_parity,

@@ -1,0 +1,1080 @@
+// FlashAttention backward (paper Alg. 4, split into a dq and a dkv kernel)
+// on Hopper's own instructions, sm_90a: wgmma, TMA and an mbarrier ring fed
+// by a producer warp. The contiguous bf16 pair at head_dim 64, 96 or 128
+// over a layout compiled at block_q = block_k = 64.
+//
+// Replaces the Pallas TPU kernels of
+// src/repro/kernels/flash_attention.py:flash_attention_backward:
+//   * flash_bwd_dq_sm90_kernel  <- `_dq_kernel` (pl.pallas_call at l.581)
+//   * flash_bwd_dkv_sm90_kernel <- `_dkv_kernel` (pl.pallas_call at l.612)
+//     together with the GQA group sum outside it (l.631-636).
+// flash_bwd.cu keeps the other instantiations of the pair: fp32 (the
+// scalar parity body), the paged pair with its fold, head dims 16 and 32
+// and tiles below 64, all on mma.sync. The function is the same as
+// there: P = diag(l)^-1 exp(S - m) recomputed from the pre-scaled
+// q' = scale * q, k and the forward's (m, l) (rows with l = 0 use m = 0,
+// l = 1 and contribute nothing), dP = dO V^T (o Z), dS = P o (dP - D),
+// dq = scale * dS K, dK = dS^T q', dV = (P o Z)^T dO, the dropout keep mask
+// regenerated from the hash of flash_common.cuh, and the SAME compiled
+// block layout as the forward. D = rowsum(dO o O) and q' come from the
+// caller.
+//
+// What bounds it on an H100: the pair does seven products of 2*d FLOPs per
+// unmasked (q, k) pair (S and dP in both kernels, dV, dK, dq), the bound
+// counts the five of a fused backward; at the training shapes that is
+// ~1e11 FLOP against ~1.5e8 bytes, bound by operations (989 TFLOP/s bf16).
+// The mma.sync body (flash_bwd.cu) stays far above that bound because its
+// 16-row warps issue small products between element work and reload every
+// K/V (dq) or Q'/dO (dkv) tile once per 64 rows, copies and products taking
+// turns. This body:
+//   * issues every product as a warpgroup wgmma m64nNk16: S and dP with
+//     both operands in shared memory (K-major, 128-byte swizzle), dV, dK
+//     and dq with A (P, dS rounded to bf16) taken from registers and B read
+//     MN-major (the transposed operand), N split into 64-column chunks
+//     (64 + 32 at d = 96), each chunk one 64-column TMA box;
+//   * loads every tile by TMA (cp.async.bulk.tensor, 64 x 64 boxes of a
+//     (d, seq, b*h) tensor map, 128-byte swizzle; a row wider than 64 is
+//     several boxes, 8 KiB apart, the last one zero-filled past d = 96)
+//     and the per-row vectors (m, l, D, positions, segments, kv_mask) by
+//     bulk copies, all completing on the stage's `full` mbarrier;
+//   * runs three warpgroups: warpgroup 2 is the producer (one thread
+//     issues the copies into a ring of STAGES = 4 stages, each guarded by
+//     a full and an empty mbarrier), warpgroups 0 and 1 consume;
+//   * works on wgmma's accumulator layout, which within a warp is
+//     mma.sync's C fragment repeated every 8 columns (rows 16w + g and
+//     16w + g + 8, columns 8j + 2*t4 + {0, 1}), so the mask, P-from-(m, l)
+//     and dropout code of the mma.sync body carries over, and so does
+//     FlashAttention-2's C -> A trick (two adjacent n8 blocks of C are the
+//     A fragment of one k16 step);
+//   * keeps the element work between products short and branch-free: the
+//     mask terms a call has are hoisted (ElementMask), a FULL tile skips the
+//     mask, P is one FFMA and one ex2.approx.ftz (a probability below
+//     2^-126 flushes to 0), the lse of an item's 64 q rows is computed once
+//     per warpgroup into shared memory (dkv) or once per CTA (dq), and the
+//     dropout keep bits of an item are made before its products start.
+//     With exp2f (its denormal fix-ups) and per-element mask branches the
+//     element loop ran one element at a time and set the pace, not the
+//     tensor cores;
+//   * overlaps products with element work inside a warpgroup: S and dP are
+//     issued together, P is computed while dP runs; dkv then issues dV and
+//     computes dS while dV runs (d 64 and 96), and dK (dq: dS K) is left in
+//     flight into the next item, whose S wait also releases the stage it
+//     reads (the `held` stage; dkv at d 64 only, see registers);
+//   * registers: 2 x 128 consumer threads at 240 (setmaxnreg), the
+//     producer's 128 at 24 (it re-reads what it needs from the parameters
+//     and shared memory instead of carrying it across setmaxnreg). At d 128
+//     dkv holds dK and dV (128 fp32 a thread) beside S^T and dP^T (64):
+//     it always takes the 128-row tile (no alternation or merge), waits
+//     for dV before dS, reads its keys' positions, segments and kv_mask
+//     only in masked items and keeps the dropout bits in shared memory,
+//     and ptxas reports no spill for any instantiation.
+//
+// CTA tile, `rows` (64 or 128, chosen per shape by tuning.sm90_bwd_rows:
+// 128 where the 128-row grid still fills the card, and always for dkv at
+// d 128):
+//   * dkv: one CTA per (b, hkv, `rows` keys). At 128 the two consumer
+//     warpgroups own 64 keys each, which is one layout column each, and
+//     both read every stage; a stage runs if either column runs, and each
+//     warpgroup applies its own column's class (SKIP, FULL, PARTIAL,
+//     PARTIAL_DATA), so the mask is exact per element. At 64 both
+//     warpgroups own the CTA's 64 keys and take alternate (q-block, head)
+//     items, and warpgroup 0 adds warpgroup 1's dK, dV at the end (a fixed
+//     order). The walk is the layout column's q-blocks that run, each for
+//     the n_rep heads of the GQA group (the group sum stays in fp32
+//     registers; dk, dv are written once in bf16).
+//   * dq: one CTA per (b, hq, `rows` q rows), the same way round: at 128
+//     each warpgroup owns one layout row and the stage is the kv tile; at
+//     64 both own the same 64 q rows, take alternate kv tiles and merge.
+//     dq = scale * dq once at the end. Grid order: longest walks first,
+//     as flash_bwd.cu (dkv key block 0 up, dq q block nq - 1 down).
+//   * the walk is compacted before the roles split: all 384 threads read
+//     the layout column (dkv) or row (dq) once and write the indices that
+//     run, in order, with their classes, into shared memory (at most
+//     MAX_WALK tiles); producer and consumers then step through the same
+//     list, so no stage carries an end marker.
+//   * a 128-row tile over a sequence padded only to 64: the second
+//     warpgroup's rows lie past the end; TMA zero-fills them, their class
+//     is SKIP, and nothing is written there.
+// Deterministic: no atomics; every sum (k16 steps, items in list order,
+// the 64-row merge) has a fixed order, so two calls are bit-identical.
+
+#include <cuda.h>
+
+#include "flash_common.cuh"
+
+namespace {
+
+using namespace flash;
+using bf16 = __nv_bfloat16;
+
+constexpr int STAGES = 4;                  // ring depth
+constexpr int CONSUMERS = 2;               // consumer warpgroups
+constexpr int THREADS_ALL = (CONSUMERS + 1) * 128;
+constexpr int WARPS_ALL = THREADS_ALL / 32;
+constexpr int BOX = 64;                    // rows and columns of one TMA box
+constexpr int BOX_BYTES = BOX * BOX * 2;   // 8 KiB, 128-byte rows
+constexpr int MAX_WALK = 2048;             // tiles of one layout row / column
+constexpr int META_BYTES = 5 * 64 * 4;     // per stage: five 64-entry vectors
+constexpr float LOG2E = 1.4426950408889634f;
+
+// list entries: tile index << 8 | terms of warpgroup 0 | terms of wg 1 << 4,
+// terms = run (1) | geometric terms (2) | data terms (4)
+constexpr uint32_t RUNS_ANY = 0x11u;
+
+struct Sm90Params {
+  CUtensorMap tq, tdo;   // (d, sq, b * hq)
+  CUtensorMap tk, tv;    // (d, sk, b * hkv)
+  const float* m;        // (b, hq, sq)
+  const float* l;
+  const float* dd;       // D = rowsum(dO o O)
+  void* out0;            // dq | dk
+  void* out1;            // -  | dv
+  MaskParams mask;
+  DropoutParams drop;
+  int b, hq, hkv, sq, sk, nq, nk;
+  int rows;              // CTA tile: 64 or 128
+  float scale;
+  float z_keep;          // Z of a kept element, 1 / (1 - p) (read from the
+                         // parameters where used: no register holds it)
+};
+
+template <int D>
+struct Smem {
+  static constexpr int NB = (D + BOX - 1) / BOX;   // boxes per 64-row tile
+  static constexpr int TILE = NB * BOX_BYTES;     // one 64-row tile
+  // dkv: K[2], V[2] (the CTA's keys), Q'[STAGES], dO[STAGES];
+  // dq:  Q'[2], dO[2] (the CTA's q rows), K[STAGES], V[STAGES]
+  static constexpr int own0 = 0, own1 = 2 * TILE;
+  static constexpr int ring0 = 4 * TILE, ring1 = ring0 + STAGES * TILE;
+  static constexpr int meta = ring1 + STAGES * TILE;
+  static constexpr int bars = meta + STAGES * META_BYTES;
+  static constexpr int walk = bars + 8 * (2 * STAGES + 2);
+  static constexpr int counts = walk + 4 * MAX_WALK;
+  // dkv: per consumer warpgroup two 64-entry lse vectors (by item parity)
+  static constexpr int lse = counts + 4 * (WARPS_ALL + 4);   // + the walk's length
+  // dkv with dropout: each consumer thread's keep bits of its item
+  static constexpr int keep = lse + CONSUMERS * 2 * 64 * 4;
+  static constexpr int bytes = keep + CONSUMERS * 128 * 4;
+  static constexpr size_t launch_bytes = bytes + 1024;   // 1 KiB alignment slack
+  // the 64-row merge hands a warpgroup's fp32 accumulators through the ring
+  static_assert(2 * 128 * (D / 2) * 4 <= 2 * STAGES * TILE, "merge buffer exceeds the ring");
+  static_assert(bytes + 1024 <= 232448, "shared memory of one block");
+  // a warpgroup holds its last item's stage until its next item's S has
+  // landed; the 64-row tile's alternate items are two apart
+  static_assert(STAGES >= 3, "the held stage would be the one the next item waits for");
+};
+
+// --------------------------------------------------------------------------
+// PTX: mbarriers, TMA, wgmma
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+// one arrival that also expects `bytes` of copies on this phase
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+// one 64 x 64 box of a 3-D tensor map at (column, row, head)
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                        int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+// `bytes` (a multiple of 16, both ends 16-byte aligned) by the bulk engine
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// a row of tiles: the 64-row tile at (rows r0.., head hd) of `map`, NB boxes
+template <int D>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int r0, int hd) {
+#pragma unroll
+  for (int j = 0; j < Smem<D>::NB; ++j) tma_box(dst + j * BOX_BYTES, map, bar, j * BOX, r0, hd);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of an accumulator across a wgmma
+template <int N>
+__device__ __forceinline__ void pin(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle: start, leading and
+// stride byte offsets in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// K-major operand (rows = M or N, 128-byte rows of 64 values of K): k16
+// step kk of a 64-row tile; 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  return sw128_desc(tile + (kk >> 2) * BOX_BYTES + (kk & 3) * 32, 16, 1024);
+}
+// MN-major B operand (rows = K, 128-byte rows of 64 values of N): k16 step
+// kk of chunk j (columns 64j..64j+63) of a 64-row tile; 8-row groups of K
+// 1024 bytes apart, and a chunk never leaves its box
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int j, int kk) {
+  return sw128_desc(tile + j * BOX_BYTES + kk * 2048, 1024, 1024);
+}
+
+// d (64 x 64) += A (64 x 16) * B^T (64 x 16), A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 64) += A (64 x 16, registers) * B (16 x 64), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32) += A (64 x 16, registers) * B (16 x 32), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc (64 x D) += A (64 x 64, four k16 register fragments) * the 64-row
+// tile B read MN-major, one wgmma per 64-column chunk (columns 64j.. are
+// registers 32j..) and k16 step
+template <int D>
+__device__ __forceinline__ void rs_product(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                           uint32_t tile) {
+#pragma unroll
+  for (int j = 0; j < Smem<D>::NB; ++j) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (D - 64 * j >= 64) {
+        wgmma_rs_n64(acc + 32 * j, a[kk], mnmajor(tile, j, kk));
+      } else {
+        wgmma_rs_n32(acc + 32 * j, a[kk], mnmajor(tile, j, kk));
+      }
+    }
+  }
+}
+// register x of a 64 x D accumulator holds row 8 * ((x >> 1) & 1) + g of
+// the warp's 16 and column col_of<D>(x) + (x & 1)
+__device__ __forceinline__ int col_of(int x, int t4) {
+  return 64 * (x >> 5) + 8 * ((x & 31) >> 2) + 2 * t4;
+}
+// s (64 x 64) = A (a 64-row tile) * B^T (a 64-row tile), both K-major
+template <int D>
+__device__ __forceinline__ void ss_product(float (&s)[32], uint32_t a_tile, uint32_t b_tile) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(s, kmajor(a_tile, kk), kmajor(b_tile, kk), kk);
+}
+// the A fragments of k16 steps 0-3 from a 64 x 64 accumulator, element i
+// kept where bit i of `keep` is set and 0 elsewhere
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&c)[32],
+                                     uint32_t keep = ~0u) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int i = 8 * kk + 2 * x;
+      a[kk][x] = pack_bf16(((keep >> i) & 1u) ? c[i] : 0.f,
+                           ((keep >> (i + 1)) & 1u) ? c[i + 1] : 0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
+}
+// the 128 threads of warpgroup wg (named barriers 2 and 3)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+
+// P = exp2(s * log2(e) - lse) with lse = m * log2(e) + log2(l); a row with
+// l = 0 uses m = 0, l = 1 (`_recompute_p`)
+__device__ __forceinline__ float log2_lse(float m, float l) {
+  return l == 0.f ? 0.f : fmaf(m, LOG2E, __log2f(l));
+}
+
+// 2^x on the special function unit, denormal results flushed to 0 (a
+// probability below 2^-126)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// MaskParams::element_ok_staged with the call's terms read once: which
+// terms exist is uniform over a call, and the element test is then
+// branch-free predicate logic
+struct ElementMask {
+  int window, kv_valid_len;
+  bool win, valid, kvm, seg;
+  __device__ __forceinline__ explicit ElementMask(const MaskParams& mp)
+      : window(mp.window), kv_valid_len(mp.kv_valid_len), win(mp.window >= 0),
+        valid(mp.kv_valid_len >= 0), kvm(mp.kv_mask != nullptr), seg(mp.q_seg != nullptr) {}
+  __device__ __forceinline__ bool ok(bool geo_on, bool data_on, int qpos, int qseg, int kpos,
+                                     int kseg, int kval, int col) const {
+    const bool geo = (qpos >= kpos) & (!win | (qpos - kpos < window));
+    const bool data =
+        (!valid | (col < kv_valid_len)) & (!kvm | (kval != 0)) & (!seg | (qseg == kseg));
+    return (!geo_on | geo) & (!data_on | data);
+  }
+};
+
+__device__ __forceinline__ uint32_t terms(const MaskParams& mp, int b, int qi, int ki) {
+  bool geo, data;
+  if (!mp.tile_terms(mp.block_class(b, qi, ki), geo, data)) return 0u;
+  return 1u | (geo ? 2u : 0u) | (data ? 4u : 0u);
+}
+
+// Ordered compaction of the n candidate tiles into `walk` (entries whose
+// RUNS_ANY bits are set), by every thread of the CTA; the count lands in
+// counts[WARPS_ALL], where both roles read it (a register would carry it
+// across setmaxnreg and through the whole walk)
+template <typename F>
+__device__ __forceinline__ void build_walk(uint32_t* walk, int* counts, int n, F entry) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int count = 0;
+  for (int base = 0; base < n; base += THREADS_ALL) {
+    const int i = base + tid;
+    const uint32_t e = i < n ? entry(i) : 0u;
+    const bool runs = (e & RUNS_ANY) != 0u;
+    const unsigned bal = __ballot_sync(0xffffffffu, runs);
+    if (lane == 0) counts[warp] = __popc(bal);
+    __syncthreads();
+    int off = count, total = 0;
+    // not unrolled: before the roles split, registers are the producer's few
+#pragma unroll 1
+    for (int w = 0; w < WARPS_ALL; ++w) {
+      const int c = counts[w];
+      off += w < warp ? c : 0;
+      total += c;
+    }
+    if (runs) walk[off + __popc(bal & ((1u << lane) - 1u))] = e;
+    count += total;
+    if (tid == 0) counts[WARPS_ALL] = count;
+    __syncthreads();
+  }
+}
+
+// --------------------------------------------------------------------------
+// dkv: one CTA per (key tile, hkv, b)
+// --------------------------------------------------------------------------
+template <int D, bool Dropout>
+__global__ void __launch_bounds__(THREADS_ALL, 1)
+    flash_bwd_dkv_sm90_kernel(const __grid_constant__ Sm90Params p) {
+  using S = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // 1 KiB aligned (the 128-byte swizzle's pattern repeats every 1 KiB),
+  // as an offset of smem_raw so that loads stay shared-space loads
+  unsigned char* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S::bars);
+  uint64_t* empty = full + STAGES;
+  uint64_t* own_bar = empty + STAGES;
+  uint32_t* walk = reinterpret_cast<uint32_t*>(sm + S::walk);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;
+  const int kvh = blockIdx.x, b = blockIdx.y, ct = blockIdx.z;
+  // one layout column per warpgroup; d 128 always takes it (the 64-row
+  // tile's alternate items and merge cost registers its dK, dV leave none for)
+  const bool two = D == 128 || p.rows == 128;
+  const int kc0 = two ? 2 * ct : ct;              // the CTA's first layout column
+  const int n_rep = p.hq / p.hkv;
+  const MaskParams mp = p.mask;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], (two ? CONSUMERS : 1) * 128);
+    }
+    mbar_init(own_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  build_walk(walk, reinterpret_cast<int*>(sm + S::counts), p.nq, [&](int qi) {
+    uint32_t e = terms(mp, b, qi, kc0);
+    if (two && kc0 + 1 < p.nk) e |= terms(mp, b, qi, kc0 + 1) << 4;
+    return ((uint32_t)qi << 8) | e;
+  });
+  // the walk's length: read from shared memory by each role where needed
+  const int* walk_len = reinterpret_cast<const int*>(sm + S::counts) + WARPS_ALL;
+
+  // the producer: one thread issues every copy. It runs on 24 registers,
+  // so what it needs is read again from the parameters and shared memory
+  // rather than carried across setmaxnreg
+  auto produce = [&]() {
+    const int n = *walk_len * n_rep;
+    if (threadIdx.x != CONSUMERS * 128 || n == 0) return;
+    const int ntile = two ? 2 : 1;
+    mbar_expect(own_bar, 2 * ntile * S::TILE);
+    for (int t = 0; t < ntile; ++t) {
+      const int r0 = (kc0 + t) * BOX;
+      tma_tile<D>(sm + S::own0 + t * S::TILE, &p.tk, own_bar, r0, b * p.hkv + kvh);
+      tma_tile<D>(sm + S::own1 + t * S::TILE, &p.tv, own_bar, r0, b * p.hkv + kvh);
+    }
+    const unsigned bytes =
+        2 * S::TILE + 3 * 256 + (p.mask.q_pos ? 256 : 0) + (p.mask.q_seg ? 256 : 0);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % STAGES;
+      if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+      const int qi = (int)(walk[i / n_rep] >> 8), h = kvh * n_rep + i % n_rep;
+      mbar_expect(&full[s], bytes);
+      tma_tile<D>(sm + S::ring0 + s * S::TILE, &p.tq, &full[s], qi * BOX, b * p.hq + h);
+      tma_tile<D>(sm + S::ring1 + s * S::TILE, &p.tdo, &full[s], qi * BOX, b * p.hq + h);
+      float* meta = reinterpret_cast<float*>(sm + S::meta + s * META_BYTES);
+      const long long row0 = ((long long)b * p.hq + h) * p.sq + (long long)qi * BOX;
+      bulk_copy(meta, p.m + row0, 256, &full[s]);
+      bulk_copy(meta + 64, p.l + row0, 256, &full[s]);
+      bulk_copy(meta + 128, p.dd + row0, 256, &full[s]);
+      const long long pos0 = (long long)b * p.sq + (long long)qi * BOX;
+      if (p.mask.q_pos) bulk_copy(meta + 192, p.mask.q_pos + pos0, 256, &full[s]);
+      if (p.mask.q_seg) bulk_copy(meta + 256, p.mask.q_seg + pos0, 256, &full[s]);
+    }
+  };
+
+  // the consumers: two warpgroups
+  auto consume = [&]() {
+    const int w4 = warp & 3, g = lane >> 2, t4 = lane & 3;
+    const int rb = two ? wg : 0;                    // this warpgroup's key tile
+    const int kcol = kc0 + rb;                      // and its layout column
+    const bool col_in = kcol < p.nk;
+    // this thread's two keys (rows 16 w4 + g + 8 hh of the tile)
+    // this thread's keys: key0 and key0 + 8 (their positions, segments and
+    // kv_mask are read in a masked item only: registers are scarce at d 128)
+    const int key0 = kcol * BOX + 16 * w4 + g;
+    constexpr int NA = D / 2;                       // registers of a 64 x D accumulator
+    float dk[NA], dv[NA];
+#pragma unroll
+    for (int x = 0; x < NA; ++x) dk[x] = dv[x] = 0.f;
+    const uint32_t k_tile = smem_addr(sm + S::own0 + rb * S::TILE);
+    const uint32_t v_tile = smem_addr(sm + S::own1 + rb * S::TILE);
+    float* lse_s = reinterpret_cast<float*>(sm + S::lse) + wg * 128;
+    uint32_t* keep_s = reinterpret_cast<uint32_t*>(sm + S::keep) + wg * 128;
+    const int t = tid & 127;
+    if (*walk_len > 0) mbar_wait(own_bar, 0);
+
+    int mine = 0;          // items this warpgroup computed (picks the lse vector)
+    int held = -1;         // the stage the last dK product still reads
+    for (int i = 0; i < *walk_len * n_rep; ++i) {
+      if (!two && (i & 1) != wg) continue;          // 64-row tile: alternate items
+      const int s = i % STAGES;
+      const uint32_t e = walk[i / n_rep];
+      const uint32_t bits = (e >> (4 * rb)) & 7u;
+      if (!((bits & 1u) && col_in)) {
+        // release the held stage before waiting: the copies of a later item
+        // may wait for it
+        if (held >= 0) {
+          wg_wait<0>();
+          mbar_arrive(&empty[held]);
+          held = -1;
+        }
+        mbar_wait(&full[s], (i / STAGES) & 1);
+        mbar_arrive(&empty[s]);
+        continue;
+      }
+      mbar_wait(&full[s], (i / STAGES) & 1);
+      const int qi = (int)(e >> 8), h = kvh * n_rep + i % n_rep;
+      const uint32_t q_tile = smem_addr(sm + S::ring0 + s * S::TILE);
+      const uint32_t do_tile = smem_addr(sm + S::ring1 + s * S::TILE);
+      const float* meta = reinterpret_cast<const float*>(sm + S::meta + s * META_BYTES);
+      const int* imeta = reinterpret_cast<const int*>(meta);
+      // the item's 64 q rows' lse, once per warpgroup; two vectors by item
+      // parity, so one barrier orders these writes after the reads of the
+      // item before
+      float* lse = lse_s + 64 * (mine++ & 1);
+      if (t < 64) lse[t] = log2_lse(meta[t], meta[64 + t]);
+      warpgroup_sync(wg);
+      // the dropout keep mask, before the accumulators are live; kept in
+      // shared memory (this thread's word) between its two uses
+      if constexpr (Dropout) {
+        const DropoutParams& drop = p.drop;
+        const uint32_t row0 = ((uint32_t)b + drop.b0) * drop.num_heads + (uint32_t)h + drop.h0;
+        const uint32_t base = row0 * drop.q_len + (uint32_t)(qi * BOX);
+        uint32_t keep = 0u;
+#pragma unroll 4
+        for (int x = 0; x < 32; ++x) {
+          const uint32_t c = 8 * (x >> 2) + 2 * t4 + (x & 1);
+          const uint32_t idx = (base + c) * drop.k_len + (uint32_t)(key0 + 8 * ((x >> 1) & 1));
+          keep |= (uint32_t)(mix32(idx ^ drop.seed_mix) >= drop.threshold) << x;
+        }
+        keep_s[t] = keep;
+      }
+      // S^T = K Q'^T and dP^T = V dO^T: rows = keys, columns = q rows
+      float st[32], dpt[32];
+      wg_fence();
+      ss_product<D>(st, k_tile, q_tile);
+      wg_commit();
+      ss_product<D>(dpt, v_tile, do_tile);
+      wg_commit();
+      wg_wait<1>();                                 // S^T (and the last dK) landed
+      if (held >= 0) mbar_arrive(&empty[held]);
+      held = -1;
+      pin<32>(st);
+      // P^T, masked, while dP^T runs
+      const bool geo_on = bits & 2u, data_on = bits & 4u;
+      if (geo_on || data_on) {
+        // the mask's terms and operands are read from the kernel's parameters
+        // here (no register holds them through the loop)
+        const ElementMask em(p.mask);
+        int kpos[2], kseg[2], kval[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int key = key0 + 8 * hh;
+          const long long kv_row = (long long)b * p.sk + key;
+          kpos[hh] = p.mask.kv_pos != nullptr ? p.mask.kv_pos[kv_row] : key;
+          kseg[hh] = p.mask.kv_seg != nullptr ? p.mask.kv_seg[kv_row] : 0;
+          kval[hh] = p.mask.kv_mask != nullptr ? p.mask.kv_mask[kv_row] : 1;
+        }
+#pragma unroll
+        for (int x = 0; x < 32; ++x) {
+          const int c = 8 * (x >> 2) + 2 * t4 + (x & 1);   // q row within the q-block
+          const int hh = (x >> 1) & 1;
+          const int qpos =
+              p.mask.q_pos != nullptr ? imeta[192 + c] : qi * BOX + c + p.mask.q_offset;
+          const int qseg = p.mask.q_seg != nullptr ? imeta[256 + c] : 0;
+          const bool ok =
+              em.ok(geo_on, data_on, qpos, qseg, kpos[hh], kseg[hh], kval[hh], key0 + 8 * hh);
+          const float pv = ex2(fmaf(st[x], LOG2E, -lse[c]));
+          st[x] = ok ? pv : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int x = 0; x < 32; ++x) {
+          const int c = 8 * (x >> 2) + 2 * t4 + (x & 1);
+          st[x] = ex2(fmaf(st[x], LOG2E, -lse[c]));
+        }
+      }
+      // dV += (P o Z)^T dO: the kept P (Z's 1 / (1 - p) once at the end)
+      uint32_t pa[4][4];
+      to_a(pa, st, Dropout ? keep_s[t] : ~0u);
+      wg_fence();
+      rs_product<D>(dv, pa, do_tile);
+      wg_commit();
+      if constexpr (D == 128) {
+        wg_wait<0>();      // d 128: pa's registers are needed for dS (no spill)
+      } else {
+        wg_wait<1>();      // dP^T landed; dV may still run
+      }
+      pin<32>(dpt);
+      // dS^T = P^T o (dP^T o Z - D), the undropped P (0 where masked)
+      const uint32_t keep = Dropout ? keep_s[t] : ~0u;
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        const int c = 8 * (x >> 2) + 2 * t4 + (x & 1);
+        float dpz = dpt[x];
+        if constexpr (Dropout) dpz = ((keep >> x) & 1u) ? dpz * p.z_keep : 0.f;
+        dpt[x] = st[x] * (dpz - meta[128 + c]);
+      }
+      wg_wait<0>();                                 // dV read pa: its registers are free
+      uint32_t sa[4][4];
+      to_a(sa, dpt);
+      // dK += dS^T Q'
+      wg_fence();
+      rs_product<D>(dk, sa, q_tile);
+      wg_commit();
+      if constexpr (D == 64) {
+        held = s;                                   // released once dK has read it
+      } else {
+        // wider rows: dK's A fragments would stay live through the next
+        // item's products and spill; wait for dK here instead
+        wg_wait<0>();
+        mbar_arrive(&empty[s]);
+      }
+    }
+    wg_wait<0>();
+    if (held >= 0) mbar_arrive(&empty[held]);
+    pin<NA>(dk);
+    pin<NA>(dv);
+
+    if (!two) {
+      // warpgroup 0 adds warpgroup 1's sums through the (now idle) ring
+      float* buf = reinterpret_cast<float*>(sm + S::ring0);
+      consumer_sync();
+      if (wg == 1) {
+#pragma unroll
+        for (int x = 0; x < NA; ++x) {
+          buf[(2 * x) * 128 + t] = dk[x];
+          buf[(2 * x + 1) * 128 + t] = dv[x];
+        }
+      }
+      consumer_sync();
+      if (wg == 1) return;
+#pragma unroll
+      for (int x = 0; x < NA; ++x) {
+        dk[x] += buf[(2 * x) * 128 + t];
+        dv[x] += buf[(2 * x + 1) * 128 + t];
+      }
+    }
+    if (!col_in) return;
+    // the tile's keys in k's dtype; dV takes Z's 1 / (1 - p) here
+    bf16* dkg = static_cast<bf16*>(p.out0) + ((long long)b * p.hkv + kvh) * p.sk * D;
+    bf16* dvg = static_cast<bf16*>(p.out1) + ((long long)b * p.hkv + kvh) * p.sk * D;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long o = (long long)(key0 + 8 * hh) * D;
+#pragma unroll
+      for (int x = 2 * hh; x < NA; x += 4) {
+        const int col = col_of(x, t4);
+        *reinterpret_cast<uint32_t*>(dkg + o + col) = pack_bf16(dk[x], dk[x + 1]);
+        const float z = Dropout ? p.z_keep : 1.f;
+        *reinterpret_cast<uint32_t*>(dvg + o + col) = pack_bf16(z * dv[x], z * dv[x + 1]);
+      }
+    }
+  };
+
+  // one if / else whose branches never meet again, so that setmaxnreg
+  // holds: the producer warpgroup gives registers to the consumers
+  if (wg == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    produce();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    consume();
+  }
+}
+
+// --------------------------------------------------------------------------
+// dq: one CTA per (q tile, hq, b)
+// --------------------------------------------------------------------------
+template <int D, bool Dropout>
+__global__ void __launch_bounds__(THREADS_ALL, 1)
+    flash_bwd_dq_sm90_kernel(const __grid_constant__ Sm90Params p) {
+  using S = Smem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  // 1 KiB aligned (the 128-byte swizzle's pattern repeats every 1 KiB),
+  // as an offset of smem_raw so that loads stay shared-space loads
+  unsigned char* sm = smem_raw + ((1024u - (smem_addr(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S::bars);
+  uint64_t* empty = full + STAGES;
+  uint64_t* own_bar = empty + STAGES;
+  uint32_t* walk = reinterpret_cast<uint32_t*>(sm + S::walk);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const bool two = p.rows == 128;                 // one layout row per warpgroup
+  const int ntiles = two ? (p.nq + 1) / 2 : p.nq;
+  const int qt = ntiles - 1 - (int)blockIdx.z;    // longest walks first
+  const int qb0 = two ? 2 * qt : qt;
+  const int kvh = h / (p.hq / p.hkv);
+  const MaskParams mp = p.mask;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], (two ? CONSUMERS : 1) * 128);
+    }
+    mbar_init(own_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  build_walk(walk, reinterpret_cast<int*>(sm + S::counts), p.nk, [&](int ki) {
+    uint32_t e = terms(mp, b, qb0, ki);
+    if (two && qb0 + 1 < p.nq) e |= terms(mp, b, qb0 + 1, ki) << 4;
+    return ((uint32_t)ki << 8) | e;
+  });
+  const int* walk_len = reinterpret_cast<const int*>(sm + S::counts) + WARPS_ALL;
+
+  // the producer: one thread issues every copy (on 24 registers, as dkv's)
+  auto produce = [&]() {
+    const int n = *walk_len;
+    if (threadIdx.x != CONSUMERS * 128 || n == 0) return;
+    const int ntile = two ? 2 : 1;
+    mbar_expect(own_bar, 2 * ntile * S::TILE);
+    for (int t = 0; t < ntile; ++t) {
+      const int r0 = (qb0 + t) * BOX;
+      tma_tile<D>(sm + S::own0 + t * S::TILE, &p.tq, own_bar, r0, b * p.hq + h);
+      tma_tile<D>(sm + S::own1 + t * S::TILE, &p.tdo, own_bar, r0, b * p.hq + h);
+    }
+    const unsigned bytes = 2 * S::TILE + (p.mask.kv_pos ? 256 : 0) +
+                           (p.mask.kv_seg ? 256 : 0) + (p.mask.kv_mask ? 64 : 0);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % STAGES;
+      if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) & 1) ^ 1);
+      const int ki = (int)(walk[i] >> 8);
+      mbar_expect(&full[s], bytes);
+      tma_tile<D>(sm + S::ring0 + s * S::TILE, &p.tk, &full[s], ki * BOX, b * p.hkv + kvh);
+      tma_tile<D>(sm + S::ring1 + s * S::TILE, &p.tv, &full[s], ki * BOX, b * p.hkv + kvh);
+      unsigned char* meta = sm + S::meta + s * META_BYTES;
+      const long long kv0 = (long long)b * p.sk + (long long)ki * BOX;
+      if (p.mask.kv_pos) bulk_copy(meta, p.mask.kv_pos + kv0, 256, &full[s]);
+      if (p.mask.kv_seg) bulk_copy(meta + 256, p.mask.kv_seg + kv0, 256, &full[s]);
+      if (p.mask.kv_mask) bulk_copy(meta + 512, p.mask.kv_mask + kv0, 64, &full[s]);
+    }
+  };
+
+  // the consumers: two warpgroups
+  auto consume = [&]() {
+    const int w4 = warp & 3, g = lane >> 2, t4 = lane & 3;
+    const ElementMask em(mp);
+    const int rb = two ? wg : 0;                    // this warpgroup's q tile
+    const int qblk = qb0 + rb;                      // and its layout row
+    const bool row_in = qblk < p.nq;
+    const DropoutParams drop = p.drop;
+    const long long q_row0 = ((long long)b * p.hq + h) * p.sq;
+    // this thread's two q rows: position, segment, lse, D
+    int qrow[2], qpos[2], qseg[2];
+    float lse[2], ddr[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = qblk * BOX + 16 * w4 + g + 8 * hh;
+      const int rr = row_in ? r : 0;
+      qrow[hh] = r;
+      qpos[hh] = mp.q_position(b, p.sq, rr);
+      qseg[hh] = mp.q_segment(b, p.sq, rr);
+      lse[hh] = log2_lse(p.m[q_row0 + rr], p.l[q_row0 + rr]);
+      ddr[hh] = p.dd[q_row0 + rr];
+    }
+    constexpr int NA = D / 2;                       // registers of a 64 x D accumulator
+    float acc[NA];
+#pragma unroll
+    for (int x = 0; x < NA; ++x) acc[x] = 0.f;
+    const uint32_t q_tile = smem_addr(sm + S::own0 + rb * S::TILE);
+    const uint32_t do_tile = smem_addr(sm + S::own1 + rb * S::TILE);
+    if (*walk_len > 0) mbar_wait(own_bar, 0);
+
+    int held = -1;         // the stage the last dq product still reads
+    for (int i = 0; i < *walk_len; ++i) {
+      if (!two && (i & 1) != wg) continue;          // 64-row tile: alternate items
+      const int s = i % STAGES;
+      const uint32_t e = walk[i];
+      const uint32_t bits = (e >> (4 * rb)) & 7u;
+      if (!((bits & 1u) && row_in)) {
+        // release the held stage before waiting: the copies of a later item
+        // may wait for it
+        if (held >= 0) {
+          wg_wait<0>();
+          mbar_arrive(&empty[held]);
+          held = -1;
+        }
+        mbar_wait(&full[s], (i / STAGES) & 1);
+        mbar_arrive(&empty[s]);
+        continue;
+      }
+      mbar_wait(&full[s], (i / STAGES) & 1);
+      const int ki = (int)(e >> 8);
+      const uint32_t k_tile = smem_addr(sm + S::ring0 + s * S::TILE);
+      const uint32_t v_tile = smem_addr(sm + S::ring1 + s * S::TILE);
+      const unsigned char* meta = sm + S::meta + s * META_BYTES;
+      const int* kpos_s = reinterpret_cast<const int*>(meta);
+      const int* kseg_s = reinterpret_cast<const int*>(meta + 256);
+      const uint8_t* kval_s = meta + 512;
+      // the dropout keep mask, before the accumulators are live
+      uint32_t keep = 0u;
+      if constexpr (Dropout) {
+#pragma unroll 4
+        for (int x = 0; x < 32; ++x) {
+          const int c = 8 * (x >> 2) + 2 * t4 + (x & 1);
+          keep |= (uint32_t)drop.keeps(b, h, qrow[(x >> 1) & 1], ki * BOX + c) << x;
+        }
+      }
+      // S = Q' K^T and dP = dO V^T: rows = q rows, columns = keys
+      float sc[32], dp[32];
+      wg_fence();
+      ss_product<D>(sc, q_tile, k_tile);
+      wg_commit();
+      ss_product<D>(dp, do_tile, v_tile);
+      wg_commit();
+      wg_wait<1>();                                 // S (and the last dq product) landed
+      if (held >= 0) mbar_arrive(&empty[held]);
+      held = -1;
+      pin<32>(sc);
+      // P, masked, while dP runs
+      const bool geo_on = bits & 2u, data_on = bits & 4u;
+      if (geo_on || data_on) {
+#pragma unroll
+        for (int x = 0; x < 32; ++x) {
+          const int c = 8 * (x >> 2) + 2 * t4 + (x & 1);   // key within the tile
+          const int hh = (x >> 1) & 1;
+          const int col = ki * BOX + c;
+          const int kp = mp.kv_pos != nullptr ? kpos_s[c] : col;
+          const int ks = mp.kv_seg != nullptr ? kseg_s[c] : 0;
+          const int kv = mp.kv_mask != nullptr ? (int)kval_s[c] : 1;
+          const bool ok = em.ok(geo_on, data_on, qpos[hh], qseg[hh], kp, ks, kv, col);
+          const float pv = ex2(fmaf(sc[x], LOG2E, -lse[hh]));
+          sc[x] = ok ? pv : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int x = 0; x < 32; ++x) sc[x] = ex2(fmaf(sc[x], LOG2E, -lse[(x >> 1) & 1]));
+      }
+      wg_wait<0>();                                 // dP landed
+      pin<32>(dp);
+      // dS = P o (dP o Z - D), Z = keep / (1 - p)
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        float dpz = dp[x];
+        if constexpr (Dropout) dpz = ((keep >> x) & 1u) ? dpz * p.z_keep : 0.f;
+        sc[x] = sc[x] * (dpz - ddr[(x >> 1) & 1]);
+      }
+      uint32_t sa[4][4];
+      to_a(sa, sc);
+      // dq += dS K
+      wg_fence();
+      rs_product<D>(acc, sa, k_tile);
+      wg_commit();
+      held = s;                                     // released once the product has read it
+    }
+    wg_wait<0>();
+    if (held >= 0) mbar_arrive(&empty[held]);
+    pin<NA>(acc);
+
+    const int t = tid & 127;
+    if (!two) {
+      // warpgroup 0 adds warpgroup 1's sums through the (now idle) ring
+      float* buf = reinterpret_cast<float*>(sm + S::ring0);
+      consumer_sync();
+      if (wg == 1) {
+#pragma unroll
+        for (int x = 0; x < NA; ++x) buf[x * 128 + t] = acc[x];
+      }
+      consumer_sync();
+      if (wg == 1) return;
+#pragma unroll
+      for (int x = 0; x < NA; ++x) acc[x] += buf[x * 128 + t];
+    }
+    if (!row_in) return;
+    // chain rule for the folded scale: one multiply at the end
+    bf16* dqg = static_cast<bf16*>(p.out0) + q_row0 * D;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long o = (long long)qrow[hh] * D;
+#pragma unroll
+      for (int x = 2 * hh; x < NA; x += 4) {
+        *reinterpret_cast<uint32_t*>(dqg + o + col_of(x, t4)) =
+            pack_bf16(p.scale * acc[x], p.scale * acc[x + 1]);
+      }
+    }
+  };
+
+  // one if / else whose branches never meet again, so that setmaxnreg
+  // holds: the producer warpgroup gives registers to the consumers
+  if (wg == CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    produce();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    consume();
+  }
+}
+
+// --------------------------------------------------------------------------
+// host side: tensor maps and launches
+// --------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, which the library does not link:
+// it is reached through the CUDA runtime's entry-point query
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                         &status) == cudaSuccess &&
+        status == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+  }
+  return fn;
+}
+
+// a (d, rows, heads) bf16 tensor read as 64 x 64 boxes with the 128-byte
+// swizzle; coordinates past d or rows read as zero
+cudaError_t make_map(CUtensorMap* map, const void* base, int d, int rows, int heads) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 != 0) return cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)rows * d * 2};
+  const cuuint32_t box[3] = {BOX, BOX, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename K>
+cudaError_t launch_kernel(K kern, dim3 grid, size_t smem, const Sm90Params& p,
+                          cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, THREADS_ALL, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D, bool Dropout>
+cudaError_t launch(int which, const Sm90Params& p, cudaStream_t stream) {
+  const int per = p.rows / BOX;
+  if (which == 0) {
+    const dim3 grid(p.hq, p.b, (p.nq + per - 1) / per);
+    return launch_kernel(flash_bwd_dq_sm90_kernel<D, Dropout>, grid, Smem<D>::launch_bytes, p,
+                         stream);
+  }
+  const dim3 grid(p.hkv, p.b, (p.nk + per - 1) / per);
+  return launch_kernel(flash_bwd_dkv_sm90_kernel<D, Dropout>, grid, Smem<D>::launch_bytes, p,
+                       stream);
+}
+
+template <int D>
+cudaError_t launch_variant(int which, const Sm90Params& p, cudaStream_t stream) {
+  return p.drop.on ? launch<D, true>(which, p, stream) : launch<D, false>(which, p, stream);
+}
+
+int run(int which, int dtype, int head_dim, const void* q, const void* k, const void* v,
+        const void* dout, const float* m, const float* l, const float* dd, void* out0,
+        void* out1, const int32_t* layout, long long layout_b_stride, const uint8_t* kv_mask,
+        const int32_t* q_seg, const int32_t* kv_seg, const int32_t* q_pos,
+        const int32_t* kv_pos, int b, int hq, int hkv, int sq, int sk, int nq, int nk,
+        int block_q, int block_k, int causal, int window, int q_offset, int kv_valid_len,
+        int dropout_on, unsigned dropout_seed, unsigned dropout_threshold, float dropout_keep,
+        int dropout_q_len, int dropout_k_len, int dropout_b0, int dropout_h0,
+        int dropout_heads, float scale, void* stream, int rows) {
+  // what this body takes: bf16, d 64 / 96 / 128, 64 x 64 layout blocks,
+  // a CTA tile of 64 or 128 rows, walks of at most MAX_WALK tiles
+  // (dkv at d 128 takes 128 only: see the kernel)
+  if (dtype != 1 || block_q != BOX || block_k != BOX || (rows != 64 && rows != 128) ||
+      (which == 1 && head_dim == 128 && rows != 128) ||
+      hkv <= 0 || hq % hkv != 0 || sq != nq * BOX || sk != nk * BOX || nq > MAX_WALK ||
+      nk > MAX_WALK) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // the bulk copies of the row vectors need 16-byte aligned sources
+  const void* vectors[] = {m, l, dd, kv_mask, q_seg, kv_seg, q_pos, kv_pos};
+  for (const void* ptr : vectors) {
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return (int)cudaErrorInvalidValue;
+  }
+  Sm90Params p;
+  cudaError_t err;
+  if ((err = make_map(&p.tq, q, head_dim, sq, b * hq)) != cudaSuccess ||
+      (err = make_map(&p.tdo, dout, head_dim, sq, b * hq)) != cudaSuccess ||
+      (err = make_map(&p.tk, k, head_dim, sk, b * hkv)) != cudaSuccess ||
+      (err = make_map(&p.tv, v, head_dim, sk, b * hkv)) != cudaSuccess) {
+    return (int)err;
+  }
+  p.m = m; p.l = l; p.dd = dd; p.out0 = out0; p.out1 = out1;
+  p.mask.layout = layout; p.mask.layout_b_stride = layout_b_stride;
+  p.mask.kv_mask = kv_mask; p.mask.q_seg = q_seg; p.mask.kv_seg = kv_seg;
+  p.mask.q_pos = q_pos; p.mask.kv_pos = kv_pos;
+  p.mask.nq = nq; p.mask.nk = nk;
+  p.mask.causal = causal; p.mask.window = window; p.mask.q_offset = q_offset;
+  p.mask.kv_valid_len = kv_valid_len;
+  p.drop = make_dropout(dropout_on, dropout_seed, dropout_threshold, dropout_keep, dropout_heads,
+                        dropout_q_len, dropout_k_len, dropout_b0, dropout_h0);
+  p.b = b; p.hq = hq; p.hkv = hkv; p.sq = sq; p.sk = sk; p.nq = nq; p.nk = nk;
+  p.rows = rows; p.scale = scale;
+  p.z_keep = 1.f / dropout_keep;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64: err = launch_variant<64>(which, p, s); break;
+    case 96: err = launch_variant<96>(which, p, s); break;
+    case 128: err = launch_variant<128>(which, p, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The arguments of flash_bwd.cu's flash_bwd_dq / flash_bwd_dkv (dtype must
+// be 1 = bfloat16, q pre-scaled), then the CTA tile `rows` (64 or 128).
+// Returns a cudaError_t (0 = launched); cudaErrorInvalidValue for a call
+// outside this body's scope or an operand the TMA cannot address.
+#define FLASH_BWD_SM90_ARGS                                                               \
+  int dtype, int head_dim, const void *q, const void *k, const void *v, const void *dout, \
+      const float *m, const float *l, const float *dd, void *out0, void *out1,            \
+      const int32_t *layout, long long layout_b_stride, const uint8_t *kv_mask,           \
+      const int32_t *q_seg, const int32_t *kv_seg, const int32_t *q_pos,                  \
+      const int32_t *kv_pos, int b, int hq, int hkv, int sq, int sk, int nq, int nk,      \
+      int block_q, int block_k, int causal, int window, int q_offset, int kv_valid_len,   \
+      int dropout_on, unsigned dropout_seed, unsigned dropout_threshold,                  \
+      float dropout_keep, int dropout_q_len, int dropout_k_len, int dropout_b0,           \
+      int dropout_h0, int dropout_heads, float scale, void *stream, int rows
+#define FLASH_BWD_SM90_PASS                                                                \
+  dtype, head_dim, q, k, v, dout, m, l, dd, out0, out1, layout, layout_b_stride, kv_mask,  \
+      q_seg, kv_seg, q_pos, kv_pos, b, hq, hkv, sq, sk, nq, nk, block_q, block_k, causal,  \
+      window, q_offset, kv_valid_len, dropout_on, dropout_seed, dropout_threshold,         \
+      dropout_keep, dropout_q_len, dropout_k_len, dropout_b0, dropout_h0, dropout_heads,   \
+      scale, stream, rows
+
+int flash_bwd_sm90_dq(FLASH_BWD_SM90_ARGS) { return run(0, FLASH_BWD_SM90_PASS); }
+
+int flash_bwd_sm90_dkv(FLASH_BWD_SM90_ARGS) { return run(1, FLASH_BWD_SM90_PASS); }
+
+const char* flash_bwd_sm90_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -26,11 +26,16 @@ accumulator at every kv tile (Alg. 1 line 12); ``"fa2"`` divides once at
 the end. A dense plain version has no tile order, so both variants compute
 the same dense softmax there.
 
-On a CUDA tensor each wrapper launches ``csrc/flash_fwd.cu`` or
-``csrc/flash_bwd.cu`` (built at first use, see ``kernels/build.py``) and
-counts the launch in ``LAUNCHES``; on a CPU tensor it runs the plain
-version beside it, which computes the same function (layout included)
-densely in fp32. There is no fallback between the two.
+On a CUDA tensor each wrapper launches ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu`` or ``csrc/flash_bwd_sm90.cu`` (built at first use,
+see ``kernels/build.py``) and counts the launch in ``LAUNCHES``; on a CPU
+tensor it runs the plain version beside it, which computes the same
+function (layout included) densely in fp32. There is no fallback between
+the two. Which body of the backward pair runs is ``backward_body``'s
+static rule: the contiguous bf16 pair at head_dim 64, 96 or 128 over
+64 x 64 layout blocks runs the wgmma/TMA body of ``flash_bwd_sm90.cu``
+(counted as ``flash_bwd_dq_sm90`` / ``flash_bwd_dkv_sm90``), every other
+call on the card the ``flash_bwd.cu`` bodies.
 """
 
 from __future__ import annotations
@@ -46,13 +51,15 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (dropout_threshold, full_dropout_keep_mask,
                                      gather_pages, repeat_kv)
 from repro_torch.kernels.tuning import (KERNEL_HEAD_DIMS, MAX_TILE,
+                                        SM90_BWD_HEAD_DIMS, SM90_MAX_WALK,
                                         SMEM_PER_BLOCK,
                                         attention_working_set_bytes,
-                                        fwd_pages_per_tile)
+                                        fwd_pages_per_tile, sm90_bwd_rows)
 
 # launches of the CUDA kernel per wrapper (never counts plain-version calls)
 LAUNCHES = {"flash_fwd": 0, "flash_fwd_paged": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "flash_bwd_dq_paged": 0,
+            "flash_bwd_dkv": 0, "flash_bwd_dq_sm90": 0,
+            "flash_bwd_dkv_sm90": 0, "flash_bwd_dq_paged": 0,
             "flash_bwd_dkv_paged": 0, "flash_bwd_fold_paged": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -86,6 +93,51 @@ def _bwd_lib():
         lib.flash_bwd_fold_paged.restype = c_int
         lib._typed = True
     return lib
+
+
+def _sm90_lib():
+    lib = build.load("flash_bwd_sm90")
+    if not getattr(lib, "_typed", False):
+        c_int, c_p = ctypes.c_int, ctypes.c_void_p
+        args = ([c_int] * 2 + [c_p] * 10 + [ctypes.c_longlong] + [c_p] * 5
+                + [c_int] * 13 + _DROPOUT_ARGS + [ctypes.c_float, c_p, c_int])
+        for fn in (lib.flash_bwd_sm90_dq, lib.flash_bwd_sm90_dkv):
+            fn.argtypes = args
+            fn.restype = c_int
+        lib._typed = True
+    return lib
+
+
+def backward_body(*, on_card: bool, dtype: torch.dtype, head_dim: int,
+                  block_q: int, block_k: int, paged: bool, nq: int = 1,
+                  nk: int = 1) -> str:
+    """Which body computes a backward pair call: ``"plain"`` for CPU
+    tensors; on the card ``"sm90"`` (``csrc/flash_bwd_sm90.cu``: wgmma,
+    TMA, a producer warp) for contiguous bf16 K/V at head_dim 64, 96 or 128
+    over 64 x 64 layout blocks and at most ``SM90_MAX_WALK`` blocks a row
+    or column; ``"mma"`` (``flash_bwd.cu``'s mma.sync body) for every other
+    bf16 call (paged, head_dim 16 or 32, smaller tiles) and ``"scalar"``
+    (its fp32 parity body) for fp32. A static rule: no call is ever
+    retried on another body."""
+    if not on_card:
+        return "plain"
+    if dtype != torch.bfloat16:
+        return "scalar"
+    if (not paged and head_dim in SM90_BWD_HEAD_DIMS
+            and block_q == block_k == MAX_TILE
+            and max(nq, nk) <= SM90_MAX_WALK):
+        return "sm90"
+    return "mma"
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its address is not 16-byte aligned (the
+    sm90 body's TMA and bulk copies address whole 16-byte units)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _num_sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # (on, seed, threshold, keep probability, q_len and k_len strides, the
@@ -476,6 +528,8 @@ class BackwardOperands:
     tensors: tuple      # (q', k, v, dO, m, l, D)
     extra: tuple        # layout, kv_mask, q_seg, kv_seg, q_pos, kv_pos
     args: tuple         # the C arguments after the outputs
+    body: str = "mma"   # backward_body's choice
+    grid: tuple = ()    # (b, hq, hkv, nq, nk)
 
 
 def prepare_backward(q, k, v, o, do, m, l, kv_mask, block_layout, *, scale,
@@ -516,11 +570,12 @@ def prepare_backward(q, k, v, o, do, m, l, kv_mask, block_layout, *, scale,
     # D_i = rowsum(dO ∘ O) (Alg. 4 line 19), O(N d) at the PyTorch level
     # as in the JAX package
     dd = (do.float() * o.float()).sum(dim=-1).contiguous()
-    tensors = ((q * scale).contiguous(), k.contiguous(), v.contiguous(),
-               do.contiguous(), m.contiguous(), l.contiguous(), dd)
+    tensors = tuple(map(_aligned, (
+        (q * scale).contiguous(), k.contiguous(), v.contiguous(),
+        do.contiguous(), m.contiguous(), l.contiguous(), dd)))
     kvm = None if kv_mask is None else kv_mask.to(torch.uint8).contiguous()
-    extra = (layout, kvm, *map(_i32, (q_segment_ids, kv_segment_ids,
-                                      q_positions, kv_positions)))
+    extra = (layout, *map(_aligned, (kvm, *map(_i32, (
+        q_segment_ids, kv_segment_ids, q_positions, kv_positions)))))
     args = (_ptr(layout), nq * nk if layout.ndim == 3 else 0,
             *map(_ptr, extra[1:]),
             b, hq, hkv, sq, sk, nq, nk, block_q, block_k,
@@ -532,12 +587,29 @@ def prepare_backward(q, k, v, o, do, m, l, kv_mask, block_layout, *, scale,
         page_list = _i32(page_list)
         extra += (page_list,)
         args += (_ptr(page_list), num_pages)
-    return BackwardOperands(_DTYPES[q.dtype], d, tensors, extra, args)
+    body = backward_body(on_card=True, dtype=q.dtype, head_dim=d,
+                         block_q=block_q, block_k=block_k,
+                         paged=page_list is not None, nq=nq, nk=nk)
+    return BackwardOperands(_DTYPES[q.dtype], d, tensors, extra, args, body,
+                            (b, hq, hkv, nq, nk))
 
 
-def launch_dq(ops: BackwardOperands) -> torch.Tensor:
-    """The dq kernel: dq in q's dtype, (b, hq, sq, d)."""
+def launch_dq(ops: BackwardOperands, *, _mma_body: bool = False
+              ) -> torch.Tensor:
+    """The dq kernel: dq in q's dtype, (b, hq, sq, d). ``ops.body`` picks
+    the body; ``_mma_body`` forces flash_bwd.cu's on an sm90 call (the
+    card's tests and chip_smoke hold the two bodies against each other)."""
     dq = torch.empty_like(ops.tensors[0])
+    if ops.body == "sm90" and not _mma_body:
+        b, hq, _, nq, _ = ops.grid
+        lib = _sm90_lib()
+        err = lib.flash_bwd_sm90_dq(
+            ops.dtype, ops.head_dim, *map(_ptr, ops.tensors), _ptr(dq), None,
+            *ops.args, sm90_bwd_rows(b, hq, nq, _num_sms(dq.device)))
+        build.check(err, lib, "flash_bwd_sm90_error_string",
+                    "flash_bwd_dq_sm90")
+        LAUNCHES["flash_bwd_dq_sm90"] += 1
+        return dq
     lib = _bwd_lib()
     err = lib.flash_bwd_dq(ops.dtype, ops.head_dim, *map(_ptr, ops.tensors),
                            _ptr(dq), None, *ops.args)
@@ -546,10 +618,24 @@ def launch_dq(ops: BackwardOperands) -> torch.Tensor:
     return dq
 
 
-def launch_dkv(ops: BackwardOperands) -> tuple[torch.Tensor, torch.Tensor]:
-    """The dkv kernel: dk, dv summed over each GQA group, in k's dtype."""
+def launch_dkv(ops: BackwardOperands, *, _mma_body: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The dkv kernel: dk, dv summed over each GQA group, in k's dtype;
+    ``_mma_body`` as in ``launch_dq``."""
     dk = torch.empty_like(ops.tensors[1])
     dv = torch.empty_like(ops.tensors[2])
+    if ops.body == "sm90" and not _mma_body:
+        b, _, hkv, _, nk = ops.grid
+        lib = _sm90_lib()
+        err = lib.flash_bwd_sm90_dkv(
+            ops.dtype, ops.head_dim, *map(_ptr, ops.tensors), _ptr(dk),
+            _ptr(dv), *ops.args,
+            sm90_bwd_rows(b, hkv, nk, _num_sms(dk.device), kernel="dkv",
+                          head_dim=ops.head_dim))
+        build.check(err, lib, "flash_bwd_sm90_error_string",
+                    "flash_bwd_dkv_sm90")
+        LAUNCHES["flash_bwd_dkv_sm90"] += 1
+        return dk, dv
     lib = _bwd_lib()
     err = lib.flash_bwd_dkv(ops.dtype, ops.head_dim, *map(_ptr, ops.tensors),
                             _ptr(dk), _ptr(dv), *ops.args)
@@ -632,10 +718,11 @@ def flash_attention_backward(
     """Returns (dq, dk, dv), dk and dv already summed over each GQA group,
     from the forward's residuals (o, m, l) and the SAME compiled layout.
     On the card: D = rowsum(dO∘O) in PyTorch, then the dq kernel (one CTA
-    per (b, hq, q-block)) and the dkv kernel (one CTA per (b, hkv,
-    kv-block), group-summed in registers, no atomics: two calls are
-    bit-identical); in bf16 both run on the tensor cores, in fp32 the
-    scalar body (the card's parity mode)."""
+    per (b, hq, q tile)) and the dkv kernel (one CTA per (b, hkv, kv
+    tile), group-summed in registers, no atomics: two calls are
+    bit-identical), on the body ``backward_body`` names: in bf16 on the
+    tensor cores (wgmma at d 64 / 96 / 128 over 64 x 64 blocks, mma.sync
+    otherwise), in fp32 the scalar body (the card's parity mode)."""
     kw = dict(scale=scale, causal=causal, window=window, q_offset=q_offset,
               kv_valid_len=kv_valid_len, dropout_p=dropout_p,
               dropout_seed=dropout_seed, dropout_dims=dropout_dims,

@@ -40,7 +40,8 @@ a block at every head_dim the kernels take), ``fwd_pages_per_tile`` /
 ``check_page_size`` (the pages one paged kv tile gathers),
 ``fwd_kv_groups``, ``decode_split_target`` and ``check_decode_splits``
 (the decode merges its splits in one thread-block cluster of at most
-``MAX_DECODE_SPLITS`` blocks).
+``MAX_DECODE_SPLITS`` blocks), and ``sm90_bwd_rows`` (the CTA tile of the
+wgmma backward pair, by the shape's grid).
 
 Paged invariant: the page is the mask IR's kv block and the unit of cache
 allocation, so for paged decode the tuner does not choose the kv block —
@@ -289,6 +290,31 @@ def check_page_size(page_size: int) -> int:
             f"flash_bwd_dkv_paged, flash_decode_paged) take page sizes "
             f"{PAGE_SIZES} on the card, got {page_size}")
     return page_size
+
+
+H100_SMS = 132              # streaming multiprocessors of an H100 SXM
+SM90_BWD_HEAD_DIMS = (64, 96, 128)   # csrc/flash_bwd_sm90.cu's head dims
+SM90_MAX_WALK = 2048        # csrc/flash_bwd_sm90.cu MAX_WALK: layout blocks
+                            # of one row or column
+
+
+def sm90_bwd_rows(batch: int, heads: int, blocks: int,
+                  num_sms: int = H100_SMS, *, kernel: str = "dq",
+                  head_dim: int = 64) -> int:
+    """The CTA tile of the sm90 backward pair (``csrc/flash_bwd_sm90.cu``)
+    in rows: dq passes (b, hq, nq), dkv (b, hkv, nk), nq and nk in 64-row
+    layout blocks. 128 (two layout blocks, one per consumer warpgroup,
+    both reading every stage of the ring) where that grid, ``batch * heads
+    * ceil(blocks / 2)`` CTAs of one per SM, still gives every SM a CTA;
+    else 64 (both warpgroups on the same 64 rows, taking alternate tiles
+    of the walk and adding their sums at the end), which doubles the CTAs.
+    At train-dp2tp2's rank layer (2, 16 / 4 heads, 2048 rows) the dkv grid
+    at 128 is 2 x 4 x 16 = 128 CTAs on 132 SMs: 64 rows. dkv at head_dim
+    128 always takes 128: its dK and dV accumulators (128 fp32 registers a
+    thread) leave no room for the 64-row form's alternation and merge."""
+    if kernel == "dkv" and head_dim == 128:
+        return 128
+    return 128 if batch * heads * -(-blocks // 2) >= num_sms else 64
 
 
 def check_decode_splits(num_splits: int) -> int:

@@ -215,6 +215,23 @@ def _check_grads(got, want, dtype):
         assert err <= tol, f"{name}: scaled error {err} > {tol}"
 
 
+def _bwd_kernels(dtype, d, block_q=64, block_k=64):
+    """The launch counters of the backward pair body that
+    ``fa.backward_body`` picks for a contiguous call: the sm90 pair in bf16
+    at d 64 / 96 / 128 over 64 x 64 blocks, flash_bwd.cu's otherwise."""
+    body = fa.backward_body(on_card=True, dtype=dtype, head_dim=d,
+                            block_q=block_q, block_k=block_k, paged=False)
+    end = "_sm90" if body == "sm90" else ""
+    return f"flash_bwd_dq{end}", f"flash_bwd_dkv{end}"
+
+
+def _launched(n0, name):
+    """Whether kernel ``name`` launched since the counts ``n0`` (for the
+    backward pair: either body)."""
+    names = [n for n in (name, name + "_sm90") if n in fa.LAUNCHES]
+    return sum(fa.LAUNCHES[n] - n0[n] for n in names) > 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [16, 32, 64, 96, 128])
 @pytest.mark.parametrize("mask", ["causal_segments", "window_kvmask_tail",
@@ -228,16 +245,145 @@ def test_flash_bwd_matches_plain(cuda, dtype, d, mask, hkv):
     q = args[0]
     o, m, l = fa.flash_attention_forward_plain(*args, **call)
     do = torch.randn(q.shape, generator=gen).to(cuda, dtype)
-    n_dq, n_dkv = fa.LAUNCHES["flash_bwd_dq"], fa.LAUNCHES["flash_bwd_dkv"]
+    dq_name, dkv_name = _bwd_kernels(dtype, d)
+    n_dq, n_dkv = fa.LAUNCHES[dq_name], fa.LAUNCHES[dkv_name]
     res = (*args[:3], o, do, m, l, *args[3:])
     got = fa.flash_attention_backward(*res, **call)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_bwd_dq"] == n_dq + 1
-    assert fa.LAUNCHES["flash_bwd_dkv"] == n_dkv + 1
+    assert fa.LAUNCHES[dq_name] == n_dq + 1
+    assert fa.LAUNCHES[dkv_name] == n_dkv + 1
     want = fa.flash_attention_backward_plain(*res, **call)
     _check_grads(got, want, dtype)
     again = fa.flash_attention_backward(*res, **call)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+# the sm90 pair (csrc/flash_bwd_sm90.cu): (b, hq, hkv, sq, sk, d) and the
+# mask of each case; "butterfly" is a pattern of 128-row blocks refined to
+# the 64-row tiles, "dp2tp2" train-dp2tp2's rank layer (its dkv grid takes
+# 64-row CTA tiles, its dq grid 128)
+_SM90_CASES = {
+    "noncausal_d64": ((2, 4, 4, 320, 320, 64), dict(causal=False)),
+    "causal_d64_rep4": ((2, 8, 2, 320, 320, 64), dict(causal=True)),
+    "causal_d96_rep1": ((2, 4, 4, 320, 320, 96), dict(causal=True)),
+    "causal_d128_rep8": ((1, 8, 1, 320, 320, 128), dict(causal=True)),
+    "segments_d96_rep4": ((2, 8, 2, 384, 384, 96), dict(causal=True, seg=True)),
+    "window1024_rep5": ((1, 10, 2, 2048, 2048, 64), dict(causal=True,
+                                                         window=1024)),
+    "kvmask_d128_rep8": ((2, 8, 1, 320, 320, 128), dict(causal=False,
+                                                        kv_mask=True)),
+    "butterfly_d64": ((2, 4, 2, 1024, 1024, 64), dict(causal=False,
+                                                      sparse=128)),
+    "butterfly_causal_kvmask": ((1, 4, 2, 1024, 1024, 64), dict(
+        causal=True, sparse=128, kv_mask=True)),
+    "dropout_d64": ((2, 8, 2, 320, 320, 64), dict(causal=True, seg=True,
+                                                  dropout=0.1)),
+    "dropout_d96": ((2, 4, 4, 320, 320, 96), dict(causal=True, dropout=0.1)),
+    "dropout_d128": ((2, 8, 2, 320, 320, 128), dict(causal=False,
+                                                    dropout=0.1)),
+    "cross_64x1024": ((4, 16, 16, 64, 1024, 64), dict(causal=False)),
+    "dp2tp2": ((2, 16, 4, 2048, 2048, 64), dict(causal=True, seg=True)),
+}
+
+
+def _sm90_case(cuda, dims, opts, seed=0):
+    """Inputs, the plain forward's residuals, layout and call kwargs of one
+    ``_SM90_CASES`` case, in bf16 at 64 x 64 tiles."""
+    b, hq, hkv, sq, sk, d = dims
+    gen = torch.Generator().manual_seed(seed + sq + d + hq)
+    bf16 = torch.bfloat16
+    q = torch.randn(b, hq, sq, d, generator=gen).to(cuda, bf16)
+    k = torch.randn(b, hkv, sk, d, generator=gen).to(cuda, bf16)
+    v = torch.randn(b, hkv, sk, d, generator=gen).to(cuda, bf16)
+    causal, window = opts["causal"], opts.get("window")
+    seg = _segments(gen, b, sk, cuda) if opts.get("seg") else None
+    kvm = None
+    if opts.get("kv_mask"):
+        kvm = (torch.rand(b, sk, generator=gen) > 0.2)
+        kvm[:, sk - 40:] = False
+        kvm = kvm.to(cuda)
+    sparse = None
+    if opts.get("sparse"):
+        blk = opts["sparse"]
+        tile, r = tuning.sparse_tile(blk, on_card=True)
+        assert tile == 64
+        sparse = M.refine_block_layout(
+            M.butterfly_block_layout(sq, sk, blk, blk, causal=causal), r, r)
+    q_offset = sk - sq if causal else 0
+    spec = M.MaskSpec(causal=causal, window=window, q_offset=q_offset,
+                      kv_mask=kvm, q_segment_ids=seg, kv_segment_ids=seg,
+                      sparse_layout=sparse)
+    layout = M.compile_block_layout(spec, sq, sk, 64, 64).as_array(cuda)
+    call = dict(scale=d ** -0.5, causal=causal, window=window,
+                q_offset=q_offset, block_q=64, block_k=64,
+                q_segment_ids=seg, kv_segment_ids=seg)
+    if opts.get("dropout"):
+        call.update(dropout_p=opts["dropout"], dropout_seed=seed + 11,
+                    dropout_dims=(sq - 5, sk - 3))
+    o, m, l = fa.flash_attention_forward_plain(q, k, v, kvm, layout, **call)
+    do = torch.randn(q.shape, generator=gen).to(cuda, bf16)
+    return (q, k, v, o, do, m, l, kvm, layout), call
+
+
+def _check_sm90_pair(res, call):
+    """The sm90 pair through ``flash_attention_backward`` against the plain
+    backward and against the mma.sync body on the same residuals (2e-2 of
+    each gradient's max); only the sm90 counters move; two calls
+    bit-identical."""
+    n0 = dict(fa.LAUNCHES)
+    got = fa.flash_attention_backward(*res, **call)
+    torch.cuda.synchronize()
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.LAUNCHES[name + "_sm90"] == n0[name + "_sm90"] + 1, name
+        assert fa.LAUNCHES[name] == n0[name], name
+    _check_grads(got, fa.flash_attention_backward_plain(*res, **call),
+                 torch.bfloat16)
+    ops_ = fa.prepare_backward(*res, **call)
+    assert ops_.body == "sm90"
+    mma = (fa.launch_dq(ops_, _mma_body=True),
+           *fa.launch_dkv(ops_, _mma_body=True))
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_bwd_dq"] == n0["flash_bwd_dq"] + 1
+    _check_grads(got, mma, torch.bfloat16)
+    again = fa.flash_attention_backward(*res, **call)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("case", sorted(_SM90_CASES))
+def test_sm90_pair_matches_plain_and_mma_body(cuda, case):
+    """The wgmma/TMA pair at every mask it takes (causal and not, packed
+    documents, window 1024, kv_mask, a butterfly pattern, dropout 0.1),
+    GQA n_rep 1, 4, 5 and 8, d 64, 96 and 128, sq = sk = 320 (no multiple
+    of the 128-row CTA tile), 64 q rows against 1024 keys, train-dp2tp2's
+    small batch."""
+    dims, opts = _SM90_CASES[case]
+    _check_sm90_pair(*_sm90_case(cuda, dims, opts))
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_sm90_pair_both_cta_tiles(cuda, monkeypatch, rows, d, dropout):
+    """Each CTA tile of the sm90 pair (``tuning.sm90_bwd_rows`` picks it
+    by shape; forced here, but for dkv at d 128, which takes 128 only):
+    128 rows, one layout block per consumer warpgroup, and 64, the two
+    warpgroups splitting the walk and adding their sums; packed documents,
+    GQA 4, 5 q-blocks (the last 128-row tile half past the end)."""
+    monkeypatch.setattr(fa, "sm90_bwd_rows",
+                        lambda *a, kernel="dq", head_dim=64: (
+                            128 if kernel == "dkv" and head_dim == 128
+                            else rows))
+    opts = dict(causal=True, seg=True, dropout=dropout or None)
+    _check_sm90_pair(*_sm90_case(cuda, (2, 8, 2, 320, 320, d), opts))
+
+
+def test_sm90_cta_tile_rule_on_card(cuda):
+    """The chooser's CTA tile at train-dp2tp2's rank layer on this card:
+    dq 128 rows, dkv 64 (128 CTAs at 128 would leave SMs idle)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert tuning.sm90_bwd_rows(2, 16, 32, sms) == 128
+    assert tuning.sm90_bwd_rows(2, 4, 32, sms, kernel="dkv") == (
+        64 if sms > 128 else 128)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -660,7 +806,7 @@ def test_train_step_on_card_matches_cpu(cuda):
             p, state, metrics = step(p, state, data.batch_at(s))
             losses[dev].append(float(metrics["loss"]))
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        assert fa.LAUNCHES[name] > n0[name], name
+        assert _launched(n0, name), name
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-4 * abs(b), (losses["cuda"], losses["cpu"])
 
@@ -1128,7 +1274,7 @@ def test_new_train_shapes_match_plain(cuda, dtype, name, causal, d, n_rep):
     res = (q, k, v, out[0], do, out[1], out[2], None, layout)
     got = fa.flash_attention_backward(*res, **call)
     torch.cuda.synchronize()
-    for kern in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for kern in ("flash_fwd", *_bwd_kernels(dtype, d, bq, bk)):
         assert fa.LAUNCHES[kern] == n0[kern] + 1, kern
     _check_grads(got, fa.flash_attention_backward_plain(*res, **call), dtype)
     again = fa.flash_attention_backward(*res, **call)
@@ -1224,7 +1370,7 @@ def test_bert_lamb_train_step_on_card_matches_cpu(cuda):
             p, state, metrics = step(p, state, data.batch_at(s))
             losses[dev].append(float(metrics["loss"]))
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        assert fa.LAUNCHES[name] > n0[name], name
+        assert _launched(n0, name), name
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-4 * abs(b), (losses["cuda"], losses["cpu"])
 
@@ -1445,7 +1591,7 @@ def test_hymba_attention_group_with_window_matches_plain(cuda, dtype):
     res = (q, k, v, out[0], do, out[1], out[2], None, layout)
     got = fa.flash_attention_backward(*res, **call)
     torch.cuda.synchronize()
-    for kern in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for kern in ("flash_fwd", *_bwd_kernels(dtype, d, bq, bk)):
         assert fa.LAUNCHES[kern] == n0[kern] + 1, kern
     _check_grads(got, fa.flash_attention_backward_plain(*res, **call), dtype)
     again = fa.flash_attention_backward(*res, **call)
@@ -1525,7 +1671,7 @@ def test_hymba_engine_and_train_step_on_card_match_cpu(cuda):
             p, state, metrics = step(p, state, data.batch_at(s))
             losses[dev].append(float(metrics["loss"]))
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        assert fa.LAUNCHES[name] > n0[name], name
+        assert _launched(n0, name), name
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-4 * abs(b), (losses["cuda"], losses["cpu"])
 
@@ -1618,7 +1764,8 @@ def test_blocksparse_kernels_match_plain(cuda, dtype, blk, causal, masked):
     got = fa.flash_attention_backward(*res, **call)
     torch.cuda.synchronize()
     _check_grads(got, fa.flash_attention_backward_plain(*res, **call), dtype)
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_fwd", *_bwd_kernels(dtype, args[0].shape[-1],
+                                            call["block_q"], call["block_k"])):
         assert fa.LAUNCHES[name] == n0[name] + 1, name
     again = fa.flash_attention_backward(*res, **call)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
@@ -1777,7 +1924,7 @@ def test_encdec_on_card_matches_cpu(cuda):
             p, state, metrics = step(p, state, batch)
             losses[dev].append(float(metrics["loss"]))
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        assert fa.LAUNCHES[name] > n0[name], name
+        assert _launched(n0, name), name
     for a, b in zip(losses["cuda"], losses["cpu"]):
         assert abs(a - b) <= 1e-4 * abs(b), (losses["cuda"], losses["cpu"])
 
