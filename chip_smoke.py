@@ -27,10 +27,12 @@ Phases:
 
 1. print the card's name and power limit (nvidia-smi), then build every
    CUDA kernel of both paths from ``src/repro_torch/kernels/csrc`` (one
-   nvcc per source, the four libraries started together), and, from
-   ``-Xptxas -v`` compiles of ``flash_fwd.cu``, ``flash_bwd.cu``,
-   ``flash_bwd_sm90.cu`` and ``flash_decode.cu`` started beside the build,
-   hold every ``flash_bwd_dq_sm90_kernel`` / ``flash_bwd_dkv_sm90_kernel``
+   nvcc per source, the five libraries started together), and, from
+   ``-Xptxas -v`` compiles of ``flash_fwd.cu``, ``flash_fwd_sm90.cu``,
+   ``flash_bwd.cu``, ``flash_bwd_sm90.cu`` and ``flash_decode.cu`` started
+   beside the build, hold every ``flash_fwd_sm90_kernel`` (d 64, 96, 128;
+   paged in both variants, contiguous with and without dropout in both)
+   and every ``flash_bwd_dq_sm90_kernel`` / ``flash_bwd_dkv_sm90_kernel``
    (d 64, 96, 128, with and without dropout) to wgmma (``HGMMA``), TMA
    loads (``UTMALDG``) and no spill, and count the tensor-core
    instructions (``HMMA``, ``cuobjdump -sass``) with the registers and
@@ -45,8 +47,12 @@ Phases:
    runs on the tensor cores;
 2. kernels: each kernel against its plain PyTorch version at the main
    path's shapes in bf16 (hq 32 / hkv 8 / d 64, page 16): a ~2k-token
-   packed prefill with several documents (flash_fwd), a 256-row chunk
-   against 1.5k-token paged prefixes (flash_fwd_paged), decode at batch 8
+   packed prefill with several documents (flash_fwd_sm90, the sm90 body
+   that every bf16 forward at d 64 / 96 / 128 takes), a 256-row chunk
+   against 1.5k-token paged prefixes (flash_fwd_paged_sm90), each beside
+   flash_fwd.cu's mma.sync body on the same inputs (forced with
+   ``_mma_body``; records ``flash_fwd`` / ``flash_fwd_paged``, marked
+   ``"on_main_path": false``), decode at batch 8
    over ~1k-token contexts (flash_decode_paged: the whole decode, one
    launch that writes the split partials and merges them, its layout
    lowered beforehand; the plain version is the plain partials and the
@@ -79,8 +85,10 @@ Phases:
    flash_bwd.cu's mma.sync body on the same residuals (forced with
    ``_mma_body``; records ``flash_bwd_dq`` / ``flash_bwd_dkv``, marked
    ``"on_main_path": false``: no main path launches that body, and the
-   script checks that none does); so is every later shape's pair
-   (``mma_ms``). The walks: layout tiles a dq
+   script checks that none does, nor the mma.sync forward); the forward
+   and the pair are held and timed beside their mma.sync bodies (``mma_ms``)
+   once per head dim and at the shapes PERF.md's prediction names
+   (``MMA_SHAPES``), not at every shape. The walks: layout tiles a dq
    CTA visits, (q-block, head) items a dkv CTA visits, mean and max. The
    whole
    contiguous decode (flash_decode) at batch 8 over a 2048-slot
@@ -117,7 +125,7 @@ Phases:
    blocks (``masks.butterfly_block_layout``), which ``ops.flash_attention``
    refines into the kernels' 64-row tiles: four paths, each one forward +
    backward through ``ops.flash_attention(block_layout=...)`` with launch
-   counters reset just before (flash_fwd, flash_bwd_dq_sm90 and
+   counters reset just before (flash_fwd_sm90, flash_bwd_dq_sm90 and
    flash_bwd_dkv_sm90 once each, nothing else): (4, 12, 4096, 64) non-causal, causal, and
    non-causal with a kv_mask (PARTIAL_DATA tiles), and (1, 12, 16384, 64)
    non-causal; then #1, #2 and #3 at each against their plain versions
@@ -576,7 +584,7 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     results.append(packed_prefill_record(
         torch, gen, (randn(1, hq, S, d), randn(1, hkv, S, d),
                      randn(1, hkv, S, d), None, layout), call,
-        f"packed prefill b=1 S={S} docs={lengths}"))
+        f"packed prefill b=1 S={S} docs={lengths}", mma=True))
 
     # -- flash_fwd_paged: chunks against paged prefixes ---------------------
     spans, chunks = [1536, 600], [192, 64]
@@ -608,7 +616,8 @@ def kernel_phase(torch, seed: int) -> list[dict]:
     results.append(paged_prefill_record(
         torch, gen, (randn(1, hq, sq, d), randn(hkv, num_pages, ps, d),
                      randn(hkv, num_pages, ps, d), page_list, play), pcall,
-        f"chunks {chunks} against paged prefixes {spans}, page {ps}"))
+        f"chunks {chunks} against paged prefixes {spans}, page {ps}",
+        mma=True))
 
     # -- flash_decode_paged: batch 8 over ~1k-token contexts, 1152-slot page
     # tables with unallocated tails
@@ -626,6 +635,10 @@ def kernel_phase(torch, seed: int) -> list[dict]:
                      randn(hkv, b * T, ps, d), table, kv_len,
                      M.paged_block_layout(kv_len, table, ps)), dcall))
     results.append(contiguous_decode_record(torch, gen, randn, hq, hkv, d))
+    # flash_fwd.cu's mma.sync body at the same two shapes: no main path
+    # launches it at these head dims
+    results += [mma_body_record(results[0], "flash_fwd"),
+                mma_body_record(results[1], "flash_fwd_paged")]
     return results
 
 
@@ -660,11 +673,56 @@ def _meta(call) -> list:
                                   "q_positions", "kv_positions")]
 
 
-def packed_prefill_record(torch, gen, args, call, shape) -> dict:
-    """flash_fwd (#1) on ``args`` = (q, k, v, kv_mask, layout) under
-    ``call`` against its plain version; timed over random copies of q, k
-    and v; SDPA with the pairs the kernel scores as a boolean mask is the
-    library yardstick."""
+def _fwd_mode(torch, b, hq, nq, tiles) -> dict:
+    """The sm90 forward's CTA mode at a call's grid (``tuning``'s rule on
+    this card)."""
+    from repro_torch.kernels import tuning
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"rows": tuning.sm90_fwd_rows(b, hq, nq, sms),
+            "splits": tuning.sm90_fwd_splits(b, hq, nq, tiles, sms)}
+
+
+def _mma_fields(torch, rec, plain, run, sets) -> None:
+    """flash_fwd.cu's mma.sync body (``run`` forces it with ``_mma_body``)
+    held against the same plain version and timed on the same inputs
+    ``sets``, into ``rec``'s ``mma_*`` fields."""
+    out = run(sets[0])
+    torch.cuda.synchronize()
+    o_err = float((out[0].float() - plain[0].float()).abs().max())
+    m_err, l_err = rel_err(out[1], plain[1]), rel_err(out[2], plain[2])
+    check(o_err <= 2e-2 and m_err <= 1e-2 and l_err <= 1e-2,
+          f"{rec['name']}'s mma.sync body: |o - plain| {o_err}, m/l "
+          f"{m_err}/{l_err}")
+    rec.update(mma_max_abs_err=o_err, mma_m_rel_err=m_err,
+               mma_l_rel_err=l_err,
+               mma_ms=device_ms(torch, [lambda a=a: run(a) for a in sets]))
+    print(f"[kernel] {rec['name']}: the mma.sync body {rec['mma_ms']:.4f} ms "
+          f"on the same inputs (sm90 {rec['ms']:.4f}: "
+          f"{rec['ms'] / rec['mma_ms']:.3f}x), max|o-plain| {o_err:.3g}",
+          flush=True)
+
+
+def mma_body_record(rec: dict, name: str) -> dict:
+    """The record of flash_fwd.cu's mma.sync body at the shape of the sm90
+    record ``rec`` (its ``mma_*`` fields): no main path launches it."""
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
+            "replaces": rec["replaces"], "launches": None,
+            "max_abs_err": rec["mma_max_abs_err"],
+            "m_rel_err": rec["mma_m_rel_err"],
+            "l_rel_err": rec["mma_l_rel_err"], "ms": rec["mma_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library": rec["library"], "shape": rec["shape"],
+            "call_ms": None, **MMA_FWD_NOTE}
+
+
+def packed_prefill_record(torch, gen, args, call, shape, mma=False) -> dict:
+    """flash_fwd_sm90 (#1's sm90 body) on ``args`` = (q, k, v, kv_mask,
+    layout) under ``call`` against its plain version; timed over random
+    copies of q, k and v; SDPA with the pairs the kernel scores as a
+    boolean mask is the library yardstick. With ``mma`` the mma.sync body
+    beside it (``_mma_fields``)."""
     from repro_torch.kernels import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -686,18 +744,25 @@ def packed_prefill_record(torch, gen, args, call, shape) -> dict:
     pairs = int(mask.expand(b, 1, sq, sk).sum()) * hq
     b_ms, b_by = bound(nbytes(q, k, v, *out, kv_mask, layout, *_meta(call)),
                        4.0 * d * pairs, BF16_FLOPS_PER_S)
-    return _kernel_record(
-        "flash_fwd", "src/repro_torch/kernels/csrc/flash_fwd.cu",
+    rec = _kernel_record(
+        "flash_fwd_sm90", "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
         "src/repro/kernels/flash_attention.py:325", out, plain, ms, plain_ms,
         b_ms, b_by, lib_ms, call_ms=call_ms, shape=shape,
         library="SDPA, bool mask")
+    rec["cta_mode"] = _fwd_mode(torch, b, hq, sq // call["block_q"],
+                                -(-sk // 64))
+    if mma:
+        _mma_fields(torch, rec, plain, lambda a: fa.flash_attention_forward(
+            *a, kv_mask, layout, **call, _mma_body=True), sets)
+    return rec
 
 
-def paged_prefill_record(torch, gen, args, call, shape) -> dict:
-    """flash_fwd_paged (#4) on ``args`` = (q, k_pool, v_pool, page_list,
-    layout) under ``call`` against its plain version; timed over random
-    copies of q and the pools; SDPA on K/V gathered beforehand, with the
-    pairs the kernel scores as a boolean mask, is the library yardstick."""
+def paged_prefill_record(torch, gen, args, call, shape, mma=False) -> dict:
+    """flash_fwd_paged_sm90 (#4's sm90 body) on ``args`` = (q, k_pool,
+    v_pool, page_list, layout) under ``call`` against its plain version;
+    timed over random copies of q and the pools; SDPA on K/V gathered
+    beforehand, with the pairs the kernel scores as a boolean mask, is the
+    library yardstick. With ``mma`` the mma.sync body beside it."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import gather_pages
 
@@ -727,11 +792,19 @@ def paged_prefill_record(torch, gen, args, call, shape) -> dict:
         *a, attn_mask=mask, scale=call["scale"], enable_gqa=True)
         for a in gathered])
     del gathered
-    return _kernel_record(
-        "flash_fwd_paged", "src/repro_torch/kernels/csrc/flash_fwd.cu",
+    rec = _kernel_record(
+        "flash_fwd_paged_sm90",
+        "src/repro_torch/kernels/csrc/flash_fwd_sm90.cu",
         "src/repro/kernels/flash_attention.py:765", out, plain, ms, plain_ms,
         b_ms, b_by, lib_ms, call_ms=call_ms, shape=shape,
         library="SDPA on pre-gathered K/V, bool mask")
+    rec["cta_mode"] = _fwd_mode(torch, b, hq, sq // call["block_q"],
+                                -(-sk // 64))
+    if mma:
+        _mma_fields(torch, rec, plain,
+                    lambda a: fa.flash_prefill_paged_forward(
+                        *a, page_list, layout, **call, _mma_body=True), sets)
+    return rec
 
 
 def paged_decode_record(torch, gen, args, call) -> dict:
@@ -999,7 +1072,7 @@ def plain_by_heads(torch, plain, heads, rest, call):
 
 
 def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
-                 window=None, sparse=None, kv_mask=None) -> dict:
+                 window=None, sparse=None, kv_mask=None, mma=False) -> dict:
     """The forward kernel against its plain version, then dq / dkv from the
     kernel forward's (o, m, l) against the plain backward from the same
     residuals, two calls of the pair bit-identical, at one training
@@ -1010,7 +1083,10 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
     plain time and SDPA's (with those pairs as a boolean mask, window
     included: SDPA has no window argument). The plain versions run as
     ``plain_by_heads`` (at most ``PLAIN_SCORES`` score elements a call).
-    Returns the numbers, and the inputs and residuals for further checks."""
+    With ``mma`` (``MMA_SHAPES``) the mma.sync bodies of the forward and
+    of the pair are held against the same plain versions and timed beside
+    the sm90 ones. Returns the numbers, and the inputs and residuals for
+    further checks."""
     from repro_torch.core import masks as M
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import tuning
@@ -1050,29 +1126,44 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
     f_errs = (float((o.float() - fplain[0].float()).abs().max()),
               rel_err(m, fplain[1]), rel_err(l, fplain[2]))
     del fplain
-    print(f"[train-kernel] flash_fwd {shape}: max |o - plain| {f_errs[0]:.3g}, "
-          f"m rel {f_errs[1]:.3g}, l rel {f_errs[2]:.3g}", flush=True)
-    check(f_errs[0] <= 2e-2, f"flash_fwd {shape}: max |o - plain| {f_errs[0]}")
+    print(f"[train-kernel] flash_fwd_sm90 {shape}: max |o - plain| "
+          f"{f_errs[0]:.3g}, m rel {f_errs[1]:.3g}, l rel {f_errs[2]:.3g}",
+          flush=True)
+    check(f_errs[0] <= 2e-2, f"flash_fwd_sm90 {shape}: max |o - plain| "
+                             f"{f_errs[0]}")
     check(f_errs[1] <= 1e-2 and f_errs[2] <= 1e-2,
-          f"flash_fwd {shape}: m/l relative error {f_errs[1:]} > 1e-2")
+          f"flash_fwd_sm90 {shape}: m/l relative error {f_errs[1:]} > 1e-2")
+    fmma = {}
+    if mma:
+        mo = fa.flash_attention_forward(q, k, v, kv_mask, layout, **call,
+                                        _mma_body=True)
+        torch.cuda.synchronize()
+        fmma["mma_max_abs_err"] = float((mo[0].float() - o.float()).abs().max())
+        check(fmma["mma_max_abs_err"] <= 2e-2,
+              f"flash_fwd {shape}: the mma.sync body's o against the sm90 "
+              f"body's {fmma['mma_max_abs_err']}")
+        del mo
     res = (q, k, v, o, do, m, l, kv_mask, layout)
 
     # -- correctness: kernels against the plain backward --------------------
     got = fa.flash_attention_backward(*res, **call)
     torch.cuda.synchronize()
-    ops_ = fa.prepare_backward(*res, **call)
-    mma_got = (fa.launch_dq(ops_, _mma_body=True),
-               *fa.launch_dkv(ops_, _mma_body=True))
-    del ops_
     want = plain_by_heads(torch, fa.flash_attention_backward_plain,
                           res[:7], res[7:], call)
     errs = dict(zip(("dq", "dk", "dv"), map(scaled_err, got, want)))
     abs_errs = {n: float((g.float() - w.float()).abs().max())
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)}
-    mma_errs = dict(zip(("dq", "dk", "dv"), map(scaled_err, mma_got, want)))
-    mma_abs_errs = {n: float((g.float() - w.float()).abs().max())
-                    for n, g, w in zip(("dq", "dk", "dv"), mma_got, want)}
-    del mma_got
+    mma_errs = mma_abs_errs = {}
+    if mma:
+        ops_ = fa.prepare_backward(*res, **call)
+        mma_got = (fa.launch_dq(ops_, _mma_body=True),
+                   *fa.launch_dkv(ops_, _mma_body=True))
+        del ops_
+        mma_errs = dict(zip(("dq", "dk", "dv"), map(scaled_err, mma_got,
+                                                    want)))
+        mma_abs_errs = {n: float((g.float() - w.float()).abs().max())
+                        for n, g, w in zip(("dq", "dk", "dv"), mma_got, want)}
+        del mma_got
     # an all-zero gradient would agree with the kernel's trivially
     check(all(float(w.float().abs().max()) > 0 for w in want),
           "the plain backward gave an all-zero gradient")
@@ -1093,8 +1184,14 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
     check(ops_.body == "sm90", f"flash_bwd {shape}: body {ops_.body}, not sm90")
     dq_ms = device_ms(torch, [lambda: fa.launch_dq(ops_)])
     dkv_ms = device_ms(torch, [lambda: fa.launch_dkv(ops_)])
-    mma_dq_ms = device_ms(torch, [lambda: fa.launch_dq(ops_, _mma_body=True)])
-    mma_dkv_ms = device_ms(torch, [lambda: fa.launch_dkv(ops_, _mma_body=True)])
+    if mma:
+        fmma["mma_dq_ms"] = device_ms(torch, [lambda: fa.launch_dq(
+            ops_, _mma_body=True)])
+        fmma["mma_dkv_ms"] = device_ms(torch, [lambda: fa.launch_dkv(
+            ops_, _mma_body=True)])
+        fmma["fwd_mma_ms"] = device_ms(torch, [
+            lambda: fa.flash_attention_forward(q, k, v, kv_mask, layout,
+                                               **call, _mma_body=True)])
     del ops_
     bwd_ms, pair_ms = timed(torch, [lambda: fa.flash_attention_backward(
         *res, **call)])
@@ -1116,14 +1213,18 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
     del out, leaves
     lib_fwd_ms = device_ms(torch, [lambda: sdpa(q, k, v, attn_mask=mask,
                                               scale=scale, enable_gqa=True)])
+    mma_note = (f"; the mma.sync body {fmma['mma_dq_ms'] + fmma['mma_dkv_ms']:.4f}"
+                f": dq {fmma['mma_dq_ms']:.4f}, dkv {fmma['mma_dkv_ms']:.4f}"
+                if mma else "")
     print(f"[train-kernel] backward pair against SDPA's backward: dq + dkv "
           f"{dq_ms + dkv_ms:.4f} ms on the card (dq {dq_ms:.4f}, dkv "
-          f"{dkv_ms:.4f}; the mma.sync body {mma_dq_ms + mma_dkv_ms:.4f}: dq "
-          f"{mma_dq_ms:.4f}, dkv {mma_dkv_ms:.4f}); the whole "
+          f"{dkv_ms:.4f}{mma_note}); the whole "
           f"flash_attention_backward {bwd_ms:.4f} ms "
           f"on the card, {pair_ms:.4f} ms a call; SDPA backward "
           f"{lib_bwd_ms:.4f} ms: the pair {(dq_ms + dkv_ms) / lib_bwd_ms:.2f}x "
-          f"SDPA's time", flush=True)
+          f"SDPA's time; the forward {fwd_ms:.4f} ms"
+          + (f" (its mma.sync body {fmma['fwd_mma_ms']:.4f})" if mma else "")
+          + f", SDPA's forward {lib_fwd_ms:.4f}", flush=True)
 
     # -- bounds: each input read once, each output written once; FLOPs of
     # the minimal backward, 5 products of 2d per unmasked pair, split as
@@ -1133,9 +1234,9 @@ def fwd_bwd_case(torch, gen, b, hq, hkv, S, d, causal, seg,
     return {
         "shape": shape, "call": call, "layout": layout, "res": res,
         "errs": errs, "abs_errs": abs_errs, "f_errs": f_errs,
-        "mma_errs": mma_errs, "mma_abs_errs": mma_abs_errs,
+        "mma_errs": mma_errs, "mma_abs_errs": mma_abs_errs, **fmma,
         "dq_ms": dq_ms, "dkv_ms": dkv_ms, "bwd_ms": bwd_ms,
-        "mma_dq_ms": mma_dq_ms, "mma_dkv_ms": mma_dkv_ms,
+        "cta_mode": _fwd_mode(torch, b, hq, S // bq, -(-S // 64)),
         "pair_ms": pair_ms, "plain_ms": plain_ms, "fwd_ms": fwd_ms,
         "fwd_call_ms": fwd_call_ms, "fwd_plain_ms": fwd_plain_ms,
         "lib_bwd_ms": lib_bwd_ms, "lib_fwd_ms": lib_fwd_ms,
@@ -1155,15 +1256,22 @@ def shape_entries(c: dict) -> dict:
            "plain_ms": c["fwd_plain_ms"], "bound_ms": c["fwd_bound"][0],
            "bound_by": c["fwd_bound"][1], "library_ms": c["lib_fwd_ms"],
            "max_abs_err": c["f_errs"][0], "m_rel_err": c["f_errs"][1],
-           "l_rel_err": c["f_errs"][2]}
-    out = {"flash_fwd": fwd}
-    for name, ms, mma_ms, (b_ms, b_by), grads in (
-            ("flash_bwd_dq_sm90", c["dq_ms"], c["mma_dq_ms"], c["dq_bound"],
+           "l_rel_err": c["f_errs"][2], "cta_mode": c["cta_mode"]}
+    if "fwd_mma_ms" in c:
+        fwd.update(mma_ms=c["fwd_mma_ms"],
+                   mma_max_abs_err=c["mma_max_abs_err"])
+    out = {"flash_fwd_sm90": fwd}
+    for name, ms, mma, (b_ms, b_by), grads in (
+            ("flash_bwd_dq_sm90", c["dq_ms"], "mma_dq_ms", c["dq_bound"],
              ("dq",)),
-            ("flash_bwd_dkv_sm90", c["dkv_ms"], c["mma_dkv_ms"],
+            ("flash_bwd_dkv_sm90", c["dkv_ms"], "mma_dkv_ms",
              c["dkv_bound"], ("dk", "dv"))):
-        out[name] = {"shape": c["shape"], "ms": ms, "mma_ms": mma_ms,
-                     "mma_pair_device_ms": c["mma_dq_ms"] + c["mma_dkv_ms"],
+        if mma in c:
+            mma = {"mma_ms": c[mma],
+                   "mma_pair_device_ms": c["mma_dq_ms"] + c["mma_dkv_ms"]}
+        else:
+            mma = {}
+        out[name] = {"shape": c["shape"], "ms": ms, **mma,
                      "plain_ms": c["plain_ms"], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": c["lib_bwd_ms"],
                      "max_abs_err": max(c["abs_errs"][g] for g in grads),
@@ -1191,7 +1299,7 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
     b, hq, hkv, S, d = 4, 32, 8, 2048, 64
     seg = torch.as_tensor(SyntheticLM(49155, S, b, seed=seed).batch_at(0)
                           ["segment_ids"]).to(dev)
-    c = fwd_bwd_case(torch, gen, b, hq, hkv, S, d, True, seg)
+    c = fwd_bwd_case(torch, gen, b, hq, hkv, S, d, True, seg, mma=True)
     shape, call, layout = c["shape"], c["call"], c["layout"]
     q, k, v, o, do, m, l = c["res"][:7]
     bq, bk = call["block_q"], call["block_k"]
@@ -1304,9 +1412,11 @@ def train_kernel_phase(torch, seed: int) -> tuple[list[dict], dict]:
            "paper_max_abs_err": p_err, "bwd_pair_ms": c["pair_ms"],
            "bwd_pair_device_ms": c["dq_ms"] + c["dkv_ms"],
            "bwd_ms": c["bwd_ms"], "bwd_cta_walks": walks,
-           "dropout_grad_errs": derrs}
-    print(f"[kernel] flash_fwd at the train shape: {c['fwd_ms']:.4f} ms on the "
-          f"card ({c['fwd_call_ms']:.4f} ms a call), dropout "
+           "dropout_grad_errs": derrs, "cta_mode": c["cta_mode"],
+           "mma_ms": c["fwd_mma_ms"], "mma_max_abs_err": c["mma_max_abs_err"]}
+    print(f"[kernel] flash_fwd_sm90 at the train shape: {c['fwd_ms']:.4f} ms "
+          f"on the card (the mma.sync body {c['fwd_mma_ms']:.4f}; "
+          f"{c['fwd_call_ms']:.4f} ms a call), dropout "
           f"0.1 {fwd_drop_ms:.4f} ms, paper {fwd_paper_ms:.4f} ms (plain "
           f"{c['fwd_plain_ms']:.3f} ms, bound {c['fwd_bound'][0]:.4f} ms by "
           f"{c['fwd_bound'][1]}, SDPA forward {c['lib_fwd_ms']:.4f} ms); "
@@ -1334,7 +1444,8 @@ def new_shape_kernel_phase(torch, seed: int) -> dict:
         seg = torch.as_tensor(SyntheticLM(cfg.vocab_size, S, b, seed=seed)
                               .batch_at(0)["segment_ids"]).to(dev)
         c = fwd_bwd_case(torch, gen, b, cfg.num_heads, cfg.num_kv_heads, S,
-                         cfg.head_dim, cfg.causal, seg, window=cfg.window)
+                         cfg.head_dim, cfg.causal, seg, window=cfg.window,
+                         mma=path in MMA_SHAPES)
         skipped = int((c["layout"] == 0).sum())
         c["shape"] += f", {skipped} of {c['layout'].numel()} tiles skipped"
         for name, e in shape_entries(c).items():
@@ -1968,21 +2079,36 @@ def read_launches() -> dict:
     return {**fa.LAUNCHES, **fd.LAUNCHES}
 
 
-SERVE_KERNELS = ("flash_fwd", "flash_fwd_paged", "flash_decode_paged")
-DENSE_SERVE_KERNELS = ("flash_fwd", "flash_decode")
-PAGED_GRAD_KERNELS = ("flash_fwd_paged", "flash_bwd_dq_paged",
+# every bf16 forward at d 64 / 96 / 128 runs the wgmma/TMA body
+# (flash_fwd_sm90.cu), and the contiguous bf16 pair at those head dims over
+# 64 x 64 blocks flash_bwd_sm90.cu; the mma.sync counters stay 0 there
+SERVE_KERNELS = ("flash_fwd_sm90", "flash_fwd_paged_sm90",
+                 "flash_decode_paged")
+DENSE_SERVE_KERNELS = ("flash_fwd_sm90", "flash_decode")
+PAGED_GRAD_KERNELS = ("flash_fwd_paged_sm90", "flash_bwd_dq_paged",
                       "flash_bwd_dkv_paged", "flash_bwd_fold_paged")
-# the contiguous bf16 pair at d 64 / 96 / 128 over 64 x 64 blocks runs the
-# wgmma/TMA body (flash_bwd_sm90.cu); the mma.sync counters stay 0 there
-TRAIN_KERNELS = ("flash_fwd", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
-# flash_bwd.cu's contiguous pair: its records time the mma.sync body forced
-# at the train shape; no main path launches it (their launches must be 0)
-MMA_PAIR = ("flash_bwd_dq", "flash_bwd_dkv")
+TRAIN_KERNELS = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
+# flash_bwd.cu's contiguous pair and flash_fwd.cu's bf16 forward: their
+# records time the mma.sync body forced beside the sm90 one; no main path
+# launches it (their launches must be 0)
 MMA_BODY_NOTE = {
     "on_main_path": False,
     "body": "flash_bwd.cu's mma.sync body, forced (_mma_body) at the train "
             "shape beside the sm90 body; no main path launches it (fp32 "
             "calls, the parity runs', take its scalar instantiation)"}
+MMA_BODIES = ("flash_fwd", "flash_fwd_paged", "flash_bwd_dq", "flash_bwd_dkv")
+MMA_FWD_NOTE = {
+    "on_main_path": False,
+    "body": "flash_fwd.cu's mma.sync body, forced (_mma_body) at the "
+            "serving shape beside the sm90 body; no main path launches it "
+            "(fp32 calls, the parity runs', take its scalar instantiation)"}
+# the paths whose shapes time the mma.sync forward and backward beside the
+# sm90 bodies: one per head dim (granite's train layer d 64, train-olmo's
+# d 128, train-phi3v's d 96) and the shapes PERF.md's prediction for the
+# sm90 forward names (seamless's layer and cross prefill, serve-qwen3's #1
+# and #4, train-bert's layer; granite's serving calls in phase 2)
+MMA_SHAPES = {"train", "train_bert", "train_olmo", "train_phi3v",
+              "train_seamless", "serve_seamless", "serve_qwen3"}
 # the later paths: (arch, seq, batch) of the two trained at full depth, and
 # the depth serve-qwen3 cuts qwen3-32b to (its 64 layers hold ~65.5 GB of
 # bf16 weights; 8 keep the published width at ~10.9 GB)
@@ -2203,13 +2329,14 @@ def serve_shape_records(torch, seed: int, calls: dict, tag: str) -> dict:
         if "flash_fwd" in calls:        # none at sp > 1 (chunk steps only)
             args, kw = inputs("flash_fwd")
             b, hq, sq, d = args[0].shape
-            out["flash_fwd"] = packed_prefill_record(
+            out["flash_fwd_sm90"] = packed_prefill_record(
                 torch, gen, args, kw,
                 f"{tag} {'packed ' if kw['q_segment_ids'] is not None else ''}"
                 f"prefill b={b} hq={hq} hkv={args[1].shape[1]} "
                 f"S={sq} d={d}, {'causal' if kw['causal'] else 'non-causal'}, "
                 f"window {kw['window']}, rows by segment "
-                f"{segments(kw['q_segment_ids'])}")
+                f"{segments(kw['q_segment_ids'])}",
+                mma=tag.replace("-", "_") in MMA_SHAPES)
         if "flash_decode" in calls:
             args, kw = inputs("flash_decode")
             dec = contiguous_decode_record_at(torch, gen, args, kw)
@@ -2219,13 +2346,13 @@ def serve_shape_records(torch, seed: int, calls: dict, tag: str) -> dict:
         args, kw = inputs("flash_fwd_paged")
         b, hq, sq, d = args[0].shape
         hkv, _, ps, _ = args[1].shape
-        out["flash_fwd_paged"] = paged_prefill_record(
+        out["flash_fwd_paged_sm90"] = paged_prefill_record(
             torch, gen, args, kw,
             f"{tag} chunked prefill hq={hq} hkv={hkv} d={d}: {sq} q rows "
             f"(by segment {segments(kw['q_segment_ids'])}, first position "
             f"{int(kw['q_positions'][0, 0])}) against "
             f"{int((args[3] >= 0).sum())} live of {args[3].shape[1]} pages "
-            f"of {ps}")
+            f"of {ps}", mma=tag.replace("-", "_") in MMA_SHAPES)
         args, kw = inputs("flash_decode_paged")
         dec = paged_decode_record(torch, gen, args, kw)
         dec["shape"] = f"{tag} {dec['shape']}"
@@ -2445,9 +2572,12 @@ def profile_serve(torch, model, params, prompts, kw) -> dict:
         print("[profile] the profiler recorded no device time: not measured",
               flush=True)
         return {"busy_share": None}
+    # flash_fwd_sm90_kernel<D, Paged, Dropout, Paper>,
     # flash_fwd_kernel<T, D, Paged, Dropout, Paper> and
     # flash_decode_kernel<T, D, Paged>: Paged tells them apart
-    ported = {"flash_fwd": r"flash_fwd_kernel(?:_min)?<[^,>]+, \d+, false",
+    ported = {"flash_fwd_sm90": r"flash_fwd_sm90_kernel<\d+, false",
+              "flash_fwd_paged_sm90": r"flash_fwd_sm90_kernel<\d+, true",
+              "flash_fwd": r"flash_fwd_kernel(?:_min)?<[^,>]+, \d+, false",
               "flash_fwd_paged": r"flash_fwd_kernel(?:_min)?<[^,>]+, \d+, true",
               "flash_decode_paged":
                   r"flash_decode_kernel(?:_min)?<[^,>]+, \d+, true>",
@@ -2541,7 +2671,7 @@ def dense_serve_phase(torch, seed: int, card: str,
     ``profiled`` the same requests run once more under ``torch.profiler``
     (``profile_serve``), and once more with the wrappers of #1 and #7
     watched (``capture_calls``), each call with the most work returned
-    under ``rec["calls"]`` where one of them is in ``kernels``."""
+    under ``rec["calls"]`` where ``kernels`` is not empty."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.serve import ServingEngine
@@ -2607,12 +2737,10 @@ def dense_serve_phase(torch, seed: int, card: str,
           f"[{card}]", flush=True)
     if profiled:
         rec["profile"] = profile_serve(torch, model, params, prompts, kw)
-        wrappers = {n: w for n, w in DENSE_SERVE_WRAPPERS.items()
-                    if n in kernels}
-        if wrappers:
+        if kernels:                 # #1 and #7 (none in an SSM serve)
             rec["calls"] = capture_calls(torch, lambda: _serve(
                 ServingEngine(model, params, **kw), prompts, 32, prime=False),
-                wrappers)
+                DENSE_SERVE_WRAPPERS)
     return rec, launches
 
 
@@ -3145,8 +3273,9 @@ def _sparse_inputs(torch, gen, path):
 def blocksparse_path(torch, seed: int, path: str) -> dict:
     """The path as a user calls it: ``ops.flash_attention(block_layout=
     ...)`` forward and backward through autograd, bf16, launch counters
-    reset just before and read just after: flash_fwd, flash_bwd_dq_sm90
-    and flash_bwd_dkv_sm90 once each and nothing else; o and the gradients finite."""
+    reset just before and read just after: flash_fwd_sm90,
+    flash_bwd_dq_sm90 and flash_bwd_dkv_sm90 once each and nothing else; o
+    and the gradients finite."""
     from repro_torch.kernels import ops
 
     b, S, causal, _ = BLOCKSPARSE[path]
@@ -3206,8 +3335,9 @@ def _sparse_notes(entries: dict, layout, dense_fwd, dense_pair, pattern):
                        f"({skipped / layout.numel():.1%}"
                        + (", every row's layout" if layout.ndim == 3 else "")
                        + ")")
-    print(f"[blocksparse] {entries['flash_fwd']['shape']}: #1 "
-          f"{entries['flash_fwd']['ms']:.4f} ms against dense {dense_fwd:.4f}"
+    print(f"[blocksparse] {entries['flash_fwd_sm90']['shape']}: #1 "
+          f"{entries['flash_fwd_sm90']['ms']:.4f} ms against dense "
+          f"{dense_fwd:.4f}"
           f" ms; dq + dkv {entries['flash_bwd_dq_sm90']['pair_device_ms']:.4f} ms "
           f"against dense {dense_pair:.4f} ms", flush=True)
 
@@ -3280,7 +3410,8 @@ def seamless_kernel_phase(torch, seed: int) -> dict:
     b, n_frames, n_prompt, steps, cap = SEAMLESS_SERVE
     h, d = 16, 64
     enc = shape_entries(fwd_bwd_case(torch, gen, SEAMLESS_TRAIN[0], h, h,
-                                     SEAMLESS_TRAIN[1], d, False, None))
+                                     SEAMLESS_TRAIN[1], d, False, None,
+                                     mma="train_seamless" in MMA_SHAPES))
     release(torch)
     dec = shape_entries(fwd_bwd_case(torch, gen, SEAMLESS_TRAIN[0], h, h,
                                      SEAMLESS_TRAIN[2], d, True, None))
@@ -3303,7 +3434,7 @@ def seamless_kernel_phase(torch, seed: int) -> dict:
                      randn(b, h, n_frames, d), None, layout), call,
         f"serve-seamless cross-attention prefill b={b} hq={h} hkv={h} "
         f"{n_prompt} decoder rows against {n_frames} encoder rows d={d}, "
-        f"non-causal")})["f"]
+        f"non-causal", mma="serve_seamless" in MMA_SHAPES)})["f"]
 
     def decode(capacity, kv):
         kv_len = torch.full((b,), kv, dtype=torch.int32, device=dev)
@@ -3322,8 +3453,8 @@ def seamless_kernel_phase(torch, seed: int) -> dict:
     self_dec = decode(cap, n_prompt + steps)
     self_dec["shape"] = "serve-seamless self-attention " + self_dec["shape"]
     cross_dec["self"] = self_dec
-    return {"flash_fwd": {"train_seamless": enc["flash_fwd"],
-                          "serve_seamless": cross},
+    return {"flash_fwd_sm90": {"train_seamless": enc["flash_fwd_sm90"],
+                               "serve_seamless": cross},
             "flash_bwd_dq_sm90": {"train_seamless": enc["flash_bwd_dq_sm90"]},
             "flash_bwd_dkv_sm90": {"train_seamless": enc["flash_bwd_dkv_sm90"]},
             "flash_decode": {"serve_seamless": cross_dec}}
@@ -3692,7 +3823,8 @@ def phi3v_kernel_phase(torch, seed: int) -> dict:
     tb, t_patch, t_text, _ = PHI3V_TRAIN
     h, d = 32, 96
     train = shape_entries(fwd_bwd_case(torch, gen, tb, h, h, t_patch + t_text,
-                                       d, True, None))
+                                       d, True, None,
+                                       mma="train_phi3v" in MMA_SHAPES))
     release(torch)
     for e in train.values():
         e["shape"] = "train-phi3v " + e["shape"]
@@ -3722,8 +3854,8 @@ def phi3v_kernel_phase(torch, seed: int) -> dict:
              kv_mask=None))
     dec.pop("launches")
     dec["shape"] = "serve-phi3v " + dec["shape"]
-    return {"flash_fwd": {"train_phi3v": train["flash_fwd"],
-                          "serve_phi3v": prefill},
+    return {"flash_fwd_sm90": {"train_phi3v": train["flash_fwd_sm90"],
+                               "serve_phi3v": prefill},
             "flash_bwd_dq_sm90": {"train_phi3v": train["flash_bwd_dq_sm90"]},
             "flash_bwd_dkv_sm90": {"train_phi3v": train["flash_bwd_dkv_sm90"]},
             "flash_decode": {"serve_phi3v": dec}}
@@ -4155,7 +4287,7 @@ def tp_serving_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
             check(r["outputs"] == r0["outputs"],
                   f"{tag}: rank {r['rank']}'s tokens differ from rank 0's")
             for name in SERVE_KERNELS:
-                if name == "flash_fwd" and tp == 1:
+                if name == "flash_fwd_sm90" and tp == 1:
                     continue
                 check(r["launches"][name] > 0,
                       f"{tag}: kernel {name} never launched on rank "
@@ -4439,9 +4571,9 @@ def train_mesh_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
             check(r["launches"][name] > 0,
                   f"train-dp2tp2: kernel {name} never launched on rank "
                   f"{r['rank']}")
-        for name in MMA_PAIR:
+        for name in MMA_BODIES:
             check(r["launches"][name] == 0,
-                  f"train-dp2tp2: the mma.sync pair's {name} ran on rank "
+                  f"train-dp2tp2: the mma.sync body {name} ran on rank "
                   f"{r['rank']}")
     check(all(math.isfinite(v) for v in got), f"train-dp2tp2: losses {got}")
     check(max(errs) <= DP2TP2_LOSS_RTOL,
@@ -4726,9 +4858,9 @@ def train_family_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
                 check(r["launches"][name] > 0,
                       f"{tag}: kernel {name} never launched on rank "
                       f"{r['rank']}")
-            for name in MMA_PAIR:
+            for name in MMA_BODIES:
                 check(r["launches"][name] == 0,
-                      f"{tag}: the mma.sync pair's {name} ran on rank "
+                      f"{tag}: the mma.sync body {name} ran on rank "
                       f"{r['rank']}")
         check(all(math.isfinite(v) for v in got), f"{tag}: losses {got}")
         check(max(errs) <= DP2TP2_LOSS_RTOL,
@@ -5278,7 +5410,7 @@ def kvseq_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
             check(r["state_bytes"] == est,
                   f"{tag}: rank {r['rank']}'s decode state holds "
                   f"{r['state_bytes']} bytes, the dry-run estimates {est}")
-            for name in ("flash_fwd", kernel):
+            for name in ("flash_fwd_sm90", kernel):
                 check(r["launches"][name] > 0,
                       f"{tag}: kernel {name} never launched on rank "
                       f"{r['rank']}")
@@ -5325,7 +5457,7 @@ def kvseq_phase(torch, seed: int, card: str) -> tuple[dict, dict]:
                "dryrun_state_bytes": est,
                "census": r0["expected_census"],
                "launches_by_rank": [{n: r["launches"][n] for n in
-                                     ("flash_fwd", kernel)} for r in recs],
+                                     ("flash_fwd_sm90", kernel)} for r in recs],
                "max_forced_logit_spacings": max(diffs),
                "divergences": divergences, "card": card, "note": RANKS_NOTE}
         out[path] = rec
@@ -5814,27 +5946,55 @@ def decode_build_counts(torch, proc, cubin: pathlib.Path) -> dict[str, dict]:
 
 
 _BWD_SM90 = re.compile(r"flash_bwd_(dq|dkv)_sm90_kernel<\(int\)(\d+), \(bool\)(\d)>")
-_PTXAS_SERIAL = re.compile(r"C7512.*function '([^']+)'")
+_FWD_SM90 = re.compile(r"flash_fwd_sm90_kernel<\(int\)(\d+), \(bool\)(\d), "
+                       r"\(bool\)(\d), \(bool\)(\d)>")
+# ptxas's notes that it serialized a kernel's wgmma: for registers (C7512),
+# for a wgmma under a branch it cannot prove warpgroup-uniform (C7520)
+_PTXAS_SERIAL = re.compile(r"C75(?:12|20).*function '([^']+)'")
 
 
-def sm90_build_counts(proc, cubin: pathlib.Path) -> dict[str, dict]:
-    """Registers, spills and SASS counts of every ``flash_bwd_dq_sm90_kernel``
-    / ``flash_bwd_dkv_sm90_kernel`` instantiation (d 64, 96, 128, with and
-    without dropout), from a ``-Xptxas -v`` compile of
-    ``flash_bwd_sm90.cu`` to a cubin (started beside the build by
+def _sm90_key(source: str, kern: str) -> str | None:
+    """An sm90 instantiation's short name: ``dq d64 dropout``,
+    ``fwd d96 paged paper``; None for another kernel."""
+    if source == "flash_bwd_sm90":
+        m = _BWD_SM90.search(kern)
+        if m:
+            kind, d, drop = m.groups()
+            return f"{kind} d{d}{' dropout' if drop == '1' else ''}"
+        return None
+    m = _FWD_SM90.search(kern)
+    if m:
+        d, paged, drop, paper = m.groups()
+        return (f"fwd d{d} {'paged' if paged == '1' else 'contiguous'}"
+                f"{' dropout' if drop == '1' else ''}"
+                f"{' paper' if paper == '1' else ''}")
+    return None
+
+
+# instantiations of each sm90 source: dq / dkv x d 64, 96, 128 x dropout;
+# d 64, 96, 128 x (paged, contiguous, contiguous with dropout) x variant
+SM90_KERNELS = {"flash_bwd_sm90": 2 * 3 * 2, "flash_fwd_sm90": 3 * 3 * 2}
+
+
+def sm90_build_counts(proc, cubin: pathlib.Path,
+                      source: str = "flash_bwd_sm90") -> dict[str, dict]:
+    """Registers, spills and SASS counts of every instantiation of an sm90
+    source (``SM90_KERNELS``: ``flash_bwd_dq_sm90_kernel`` /
+    ``flash_bwd_dkv_sm90_kernel`` at d 64, 96, 128 with and without
+    dropout; ``flash_fwd_sm90_kernel`` at d 64, 96, 128, paged and
+    contiguous with and without dropout, both variants), from a ``-Xptxas
+    -v`` compile of ``<source>.cu`` to a cubin (started beside the build by
     ``_cubin``): each must have wgmma (``HGMMA``) and TMA tile loads
-    (``UTMALDG``), and none may spill. ptxas's note that it serialized a
-    kernel's wgmma for registers (C7512) is recorded, not refused."""
+    (``UTMALDG``), and none may spill. ptxas's notes that it serialized a
+    kernel's wgmma (C7512, C7520) are recorded, not refused."""
     log, _ = proc.communicate()
-    check(proc.returncode == 0, f"nvcc -Xptxas -v flash_bwd_sm90.cu failed:\n"
+    check(proc.returncode == 0, f"nvcc -Xptxas -v {source}.cu failed:\n"
                                 f"{log[-3000:]}")
     serial = set(_demangle(sorted(set(_PTXAS_SERIAL.findall(log)))).values())
     counts = {}
     for kern, info in _kernel_info(log, cubin).items():
-        m = _BWD_SM90.search(kern)
-        if m:
-            kind, d, drop = m.groups()
-            key = f"{kind} d{d}{' dropout' if drop == '1' else ''}"
+        key = _sm90_key(source, kern)
+        if key:
             ops = [re.sub(r"^@!?U?P\w+ ", "", i).split(" ")[0] for i in info["sass"]]
             counts[key] = {
                 "hgmma": sum(o.startswith("HGMMA") for o in ops),
@@ -5843,15 +6003,15 @@ def sm90_build_counts(proc, cubin: pathlib.Path) -> dict[str, dict]:
                 "instructions": len(info["sass"]),
                 "registers": info.get("registers"), "spill": info.get("spill"),
                 "wgmma_serialized": kern in serial}
-    print(f"[build] flash_bwd_sm90 kernels (HGMMA, UTMALDG, UBLKCP, SASS "
+    print(f"[build] {source} kernels (HGMMA, UTMALDG, UBLKCP, SASS "
           f"instructions, registers, spill bytes, wgmma serialized): "
           f"{json.dumps(counts)}", flush=True)
-    check(len(counts) == 2 * 3 * 2,
-          f"the built sm90 backward lacks a kernel: {sorted(counts)}")
+    check(len(counts) == SM90_KERNELS[source],
+          f"the built {source} lacks a kernel: {sorted(counts)}")
     check(all(c["hgmma"] > 0 and c["utmaldg"] > 0 for c in counts.values()),
-          f"an sm90 backward kernel has no HGMMA or no TMA load: {counts}")
+          f"a {source} kernel has no HGMMA or no TMA load: {counts}")
     check(all(c["spill"] == 0 for c in counts.values()),
-          f"an sm90 backward kernel spills: {counts}")
+          f"a {source} kernel spills: {counts}")
     return counts
 
 
@@ -5985,8 +6145,8 @@ def main() -> int:
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     cubins = {name: out_dir / f"{name}_ptxas.cubin"
-              for name in ("flash_fwd", "flash_bwd", "flash_bwd_sm90",
-                           "flash_decode")}
+              for name in ("flash_fwd", "flash_fwd_sm90", "flash_bwd",
+                           "flash_bwd_sm90", "flash_decode")}
     procs = {name: _cubin(ROOT, name, cub)          # beside the build
              for name, cub in cubins.items()}
     try:
@@ -6003,6 +6163,9 @@ def main() -> int:
     hmma_bwd = bwd_build_counts(procs["flash_bwd"], cubins["flash_bwd"])
     sm90_build = sm90_build_counts(procs["flash_bwd_sm90"],
                                    cubins["flash_bwd_sm90"])
+    sm90_fwd_build = sm90_build_counts(procs["flash_fwd_sm90"],
+                                       cubins["flash_fwd_sm90"],
+                                       "flash_fwd_sm90")
     decode_build = decode_build_counts(torch, procs["flash_decode"],
                                        cubins["flash_decode"])
 
@@ -6174,10 +6337,12 @@ def main() -> int:
           "a kernel was launched on none of the main paths")
     check(all(rec["launches"] == 0 for rec in kernels
               if not rec.get("on_main_path", True)),
-          "a main path launched flash_bwd.cu's contiguous pair")
+          "a main path launched an mma.sync body of the bf16 forward or of "
+          "the contiguous backward pair")
 
     record = {"card": card, "build_s": build_s, "hmma": hmma,
               "bwd_bf16_build": hmma_bwd, "bwd_sm90_build": sm90_build,
+              "fwd_sm90_build": sm90_fwd_build,
               "decode_build": decode_build,
               "kernels": kernels,
               "paged_grad_launches": paths["paged_grad"], "parity": parity,
@@ -6196,7 +6361,8 @@ def main() -> int:
               "serve_mamba2": serve_mamba2, "train_mamba2": train_mamba2,
               "hymba_parity": hymba_parity, "serve_hymba": serve_hymba,
               "train_hymba": train_hymba,
-              "blocksparse": {p: at_shapes["flash_fwd"][p] for p in BLOCKSPARSE},
+              "blocksparse": {p: at_shapes["flash_fwd_sm90"][p]
+                              for p in BLOCKSPARSE},
               "seamless_parity": seamless_parity,
               "serve_seamless": serve_seamless,
               "train_seamless": train_seamless,

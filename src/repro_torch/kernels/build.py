@@ -25,7 +25,8 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
-SOURCES = ("flash_fwd", "flash_decode", "flash_bwd", "flash_bwd_sm90")
+SOURCES = ("flash_fwd", "flash_decode", "flash_bwd", "flash_bwd_sm90",
+           "flash_fwd_sm90")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

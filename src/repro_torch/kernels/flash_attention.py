@@ -26,16 +26,22 @@ accumulator at every kv tile (Alg. 1 line 12); ``"fa2"`` divides once at
 the end. A dense plain version has no tile order, so both variants compute
 the same dense softmax there.
 
-On a CUDA tensor each wrapper launches ``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu`` or ``csrc/flash_bwd_sm90.cu`` (built at first use,
-see ``kernels/build.py``) and counts the launch in ``LAUNCHES``; on a CPU
-tensor it runs the plain version beside it, which computes the same
-function (layout included) densely in fp32. There is no fallback between
-the two. Which body of the backward pair runs is ``backward_body``'s
-static rule: the contiguous bf16 pair at head_dim 64, 96 or 128 over
-64 x 64 layout blocks runs the wgmma/TMA body of ``flash_bwd_sm90.cu``
-(counted as ``flash_bwd_dq_sm90`` / ``flash_bwd_dkv_sm90``), every other
-call on the card the ``flash_bwd.cu`` bodies.
+On a CUDA tensor each wrapper launches ``csrc/flash_fwd_sm90.cu``,
+``csrc/flash_fwd.cu``, ``csrc/flash_bwd_sm90.cu`` or ``csrc/flash_bwd.cu``
+(built at first use, see ``kernels/build.py``) and counts the launch in
+``LAUNCHES``; on a CPU tensor it runs the plain version beside it, which
+computes the same function (layout included) densely in fp32. There is no
+fallback between the two, nor between two bodies of one kernel. Which body
+runs is a static rule. The forward's, ``forward_body``: bf16 at head_dim
+64, 96 or 128 over 64-row q blocks (or one q block of at most 64 rows) and
+64-key blocks (or one), or pages of 8-64 rows, runs the wgmma/TMA body of
+``flash_fwd_sm90.cu`` (counted as ``flash_fwd_sm90`` /
+``flash_fwd_paged_sm90``). The backward pair's, ``backward_body``: the
+contiguous bf16 pair at head_dim 64, 96 or 128 over 64 x 64 layout blocks
+runs ``flash_bwd_sm90.cu`` (``flash_bwd_dq_sm90`` /
+``flash_bwd_dkv_sm90``). Every other call on the card runs the
+``flash_fwd.cu`` / ``flash_bwd.cu`` bodies (mma.sync in bf16, the scalar
+parity body in fp32).
 """
 
 from __future__ import annotations
@@ -51,16 +57,19 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (dropout_threshold, full_dropout_keep_mask,
                                      gather_pages, repeat_kv)
 from repro_torch.kernels.tuning import (KERNEL_HEAD_DIMS, MAX_TILE,
-                                        SM90_BWD_HEAD_DIMS, SM90_MAX_WALK,
-                                        SMEM_PER_BLOCK,
+                                        ROW_ALIGN, SM90_BWD_HEAD_DIMS,
+                                        SM90_FWD_HEAD_DIMS, SM90_FWD_MAX_WALK,
+                                        SM90_MAX_WALK, SMEM_PER_BLOCK,
                                         attention_working_set_bytes,
-                                        fwd_pages_per_tile, sm90_bwd_rows)
+                                        fwd_pages_per_tile, sm90_bwd_rows,
+                                        sm90_fwd_rows, sm90_fwd_splits)
 
 # launches of the CUDA kernel per wrapper (never counts plain-version calls)
-LAUNCHES = {"flash_fwd": 0, "flash_fwd_paged": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0, "flash_bwd_dq_sm90": 0,
-            "flash_bwd_dkv_sm90": 0, "flash_bwd_dq_paged": 0,
-            "flash_bwd_dkv_paged": 0, "flash_bwd_fold_paged": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_fwd_paged": 0, "flash_fwd_sm90": 0,
+            "flash_fwd_paged_sm90": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "flash_bwd_dq_sm90": 0, "flash_bwd_dkv_sm90": 0,
+            "flash_bwd_dq_paged": 0, "flash_bwd_dkv_paged": 0,
+            "flash_bwd_fold_paged": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -73,6 +82,18 @@ def _lib():
                                   + [c_p] * 6 + [c_int] * 15 + _DROPOUT_ARGS
                                   + [c_p])
         lib.flash_fwd.restype = c_int
+        lib._typed = True
+    return lib
+
+
+def _fwd_sm90_lib():
+    lib = build.load("flash_fwd_sm90")
+    if not getattr(lib, "_typed", False):
+        c_int, c_p = ctypes.c_int, ctypes.c_void_p
+        lib.flash_fwd_sm90.argtypes = (
+            [c_int] * 3 + [c_p] * 7 + [ctypes.c_longlong] + [c_p] * 6
+            + [c_int] * 15 + _DROPOUT_ARGS + [c_p, c_int, c_int])
+        lib.flash_fwd_sm90.restype = c_int
         lib._typed = True
     return lib
 
@@ -106,6 +127,35 @@ def _sm90_lib():
             fn.restype = c_int
         lib._typed = True
     return lib
+
+
+def forward_body(*, on_card: bool, dtype: torch.dtype, head_dim: int,
+                 block_q: int, block_k: int, paged: bool, nq: int = 1,
+                 nk: int = 1) -> str:
+    """Which body computes a forward call (``flash_attention_forward``, or
+    with ``paged`` ``flash_prefill_paged_forward``, whose ``block_k`` is the
+    page and ``nk`` the page slots): ``"plain"`` for CPU tensors; on the
+    card ``"sm90"`` (``csrc/flash_fwd_sm90.cu``: wgmma, TMA, a producer
+    warp) for bf16 at head_dim 64, 96 or 128 whose q blocks are 64 rows (or
+    one block of at most 64), whose key blocks are 64 (or one block, a
+    multiple of ``ROW_ALIGN``) or pages, and whose walk is at most
+    ``SM90_FWD_MAX_WALK`` 64-key tiles; ``"mma"`` (``flash_fwd.cu``'s
+    mma.sync body) for every other bf16 call (head_dim 16 or 32, several
+    blocks below 64 rows) and ``"scalar"`` (its fp32 parity body) for fp32.
+    Dropout (contiguous only) and the variant do not change it. A static
+    rule: no call is ever retried on another body."""
+    if not on_card:
+        return "plain"
+    if dtype != torch.bfloat16:
+        return "scalar"
+    tiles = -(-nk * block_k // MAX_TILE) if paged else nk
+    q_ok = block_q == MAX_TILE or (nq == 1 and 0 < block_q <= MAX_TILE)
+    k_ok = paged or block_k == MAX_TILE or (
+        nk == 1 and 0 < block_k <= MAX_TILE and block_k % ROW_ALIGN == 0)
+    if (head_dim in SM90_FWD_HEAD_DIMS and q_ok and k_ok
+            and tiles <= SM90_FWD_MAX_WALK):
+        return "sm90"
+    return "mma"
 
 
 def backward_body(*, on_card: bool, dtype: torch.dtype, head_dim: int,
@@ -440,7 +490,9 @@ def _check_launch(kernel, q, others, *, hkv, sk, block_q, block_k,
 
 def _launch(*, paged, q, k, v, block_layout, kv_mask, q_seg, kv_seg, q_pos,
             kv_pos, page_list, scale, causal, window, q_offset, kv_valid_len,
-            block_q, block_k, sk, num_pages, variant, dropout):
+            block_q, block_k, sk, num_pages, variant, dropout, mma_body):
+    """One forward launch on the body ``forward_body`` names (``mma_body``
+    forces flash_fwd.cu's on an sm90 call), counted in ``LAUNCHES``."""
     b, hq, sq, d = q.shape
     hkv = k.shape[0] if paged else k.shape[1]
     layout, nq, nk = _check_launch("flash_fwd", q, {"k": k, "v": v}, hkv=hkv,
@@ -455,19 +507,40 @@ def _launch(*, paged, q, k, v, block_layout, kv_mask, q_seg, kv_seg, q_pos,
     o = torch.empty_like(qs)
     m = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    lib = _lib()
-    err = lib.flash_fwd(
-        _DTYPES[q.dtype], int(paged), d,
-        _ptr(qs), _ptr(k), _ptr(v), _ptr(o), _ptr(m), _ptr(l),
-        _ptr(layout), nq * nk if layout.ndim == 3 else 0,
-        _ptr(kvm), _ptr(q_seg), _ptr(kv_seg), _ptr(q_pos), _ptr(kv_pos),
-        _ptr(page_list),
-        b, hq, hkv, sq, sk, nq, nk, block_q, block_k, num_pages,
-        int(bool(causal)), -1 if window is None else int(window),
-        int(q_offset), -1 if kv_valid_len is None else int(kv_valid_len),
-        int(variant == "paper"), *dropout,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, lib, "flash_fwd_error_string", "flash_fwd")
+    name = "flash_fwd_paged" if paged else "flash_fwd"
+    body = forward_body(on_card=True, dtype=q.dtype, head_dim=d,
+                        block_q=block_q, block_k=block_k, paged=paged, nq=nq,
+                        nk=nk)
+    sm90 = body == "sm90" and not mma_body
+    if sm90:
+        # TMA and the bulk copies address whole 16-byte units; kv_mask goes
+        # as int32, the row vectors' type
+        k, v = map(_aligned, (k, v))
+        kvm = None if kvm is None else kvm.to(torch.int32)
+        kvm, kv_seg, kv_pos = map(_aligned, (kvm, kv_seg, kv_pos))
+    args = (_DTYPES[q.dtype], int(paged), d,
+            _ptr(qs), _ptr(k), _ptr(v), _ptr(o), _ptr(m), _ptr(l),
+            _ptr(layout), nq * nk if layout.ndim == 3 else 0,
+            _ptr(kvm), _ptr(q_seg), _ptr(kv_seg), _ptr(q_pos), _ptr(kv_pos),
+            _ptr(page_list),
+            b, hq, hkv, sq, sk, nq, nk, block_q, block_k, num_pages,
+            int(bool(causal)), -1 if window is None else int(window),
+            int(q_offset), -1 if kv_valid_len is None else int(kv_valid_len),
+            int(variant == "paper"), *dropout,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if sm90:
+        name += "_sm90"
+        sms = _num_sms(q.device)
+        tiles = -(-sk // MAX_TILE)
+        lib = _fwd_sm90_lib()
+        err = lib.flash_fwd_sm90(*args, sm90_fwd_rows(b, hq, nq, sms),
+                                 sm90_fwd_splits(b, hq, nq, tiles, sms))
+        build.check(err, lib, "flash_fwd_sm90_error_string", name)
+    else:
+        lib = _lib()
+        err = lib.flash_fwd(*args)
+        build.check(err, lib, "flash_fwd_error_string", name)
+    LAUNCHES[name] += 1
     return o, m, l
 
 
@@ -486,12 +559,15 @@ def flash_attention_forward(
     kv_segment_ids: torch.Tensor | None = None,
     q_positions: torch.Tensor | None = None,
     kv_positions: torch.Tensor | None = None,
+    _mma_body: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (o, m, l). q (b,hq,sq,d), k/v (b,hkv,sk,d), kv_mask (b, sk)
     or None; sq % block_q == 0 and sk % block_k == 0 (ops.py pads).
     ``block_layout`` is the compiled (nq, nk) or (b, nq, nk) layout;
     ``dropout_dims`` = (unpadded sq, sk) keeps the dropout hash independent
-    of padding."""
+    of padding. On the card the body is ``forward_body``'s; ``_mma_body``
+    forces flash_fwd.cu's on an sm90 call (the card's tests and chip_smoke
+    hold the two bodies against each other)."""
     if q_positions is not None and kv_valid_len is not None:
         raise ValueError("kv_valid_len cannot combine with q/kv_positions")
     _check_variant(variant)
@@ -513,8 +589,7 @@ def flash_attention_forward(
                   scale=scale, causal=causal, window=window, q_offset=q_offset,
                   kv_valid_len=kv_valid_len, block_q=block_q, block_k=block_k,
                   sk=k.shape[2], num_pages=0, variant=variant,
-                  dropout=dropout)
-    LAUNCHES["flash_fwd"] += 1
+                  dropout=dropout, mma_body=_mma_body)
     return out
 
 
@@ -749,12 +824,15 @@ def flash_prefill_paged_forward(
     q_positions: torch.Tensor | None = None,
     kv_positions: torch.Tensor | None = None,
     block_q: int, variant: str = "fa2",
+    _mma_body: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (o, m, l) computed directly against pool pages: logical row
     ``t*ps + r`` is row r of page ``page_list[b, t]``; masking is
-    position-based. The layout is per page; the bf16 kernel gathers
+    position-based. The layout is per page; the bf16 kernels gather
     ``tuning.fwd_pages_per_tile(ps)`` pages into one 64-key tile, so the
-    page size must be 8, 16, 32 or 64 (any other raises before launch)."""
+    page size must be 8, 16, 32 or 64 (any other raises before launch).
+    The body is ``forward_body``'s (``_mma_body`` as in
+    ``flash_attention_forward``)."""
     _check_variant(variant)
     if not q.is_cuda:
         return flash_prefill_paged_forward_plain(
@@ -774,8 +852,8 @@ def flash_prefill_paged_forward(
                   window=window, q_offset=0, kv_valid_len=None,
                   block_q=block_q, block_k=ps, sk=T * ps,
                   num_pages=num_pages, variant=variant,
-                  dropout=_dropout_args(0.0, 0, None, 0, 0, 0))
-    LAUNCHES["flash_fwd_paged"] += 1
+                  dropout=_dropout_args(0.0, 0, None, 0, 0, 0),
+                  mma_body=_mma_body)
     return out
 
 

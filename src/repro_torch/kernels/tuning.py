@@ -40,8 +40,10 @@ a block at every head_dim the kernels take), ``fwd_pages_per_tile`` /
 ``check_page_size`` (the pages one paged kv tile gathers),
 ``fwd_kv_groups``, ``decode_split_target`` and ``check_decode_splits``
 (the decode merges its splits in one thread-block cluster of at most
-``MAX_DECODE_SPLITS`` blocks), and ``sm90_bwd_rows`` (the CTA tile of the
-wgmma backward pair, by the shape's grid).
+``MAX_DECODE_SPLITS`` blocks), ``sm90_bwd_rows`` (the CTA tile of the
+wgmma backward pair, by the shape's grid) and ``sm90_fwd_rows`` /
+``sm90_fwd_splits`` (the wgmma forward's CTA tile and the cluster a long
+kv walk of a small grid is split over).
 
 Paged invariant: the page is the mask IR's kv block and the unit of cache
 allocation, so for paged decode the tuner does not choose the kv block —
@@ -315,6 +317,50 @@ def sm90_bwd_rows(batch: int, heads: int, blocks: int,
     if kernel == "dkv" and head_dim == 128:
         return 128
     return 128 if batch * heads * -(-blocks // 2) >= num_sms else 64
+
+
+SM90_FWD_HEAD_DIMS = (64, 96, 128)   # csrc/flash_fwd_sm90.cu's head dims
+SM90_FWD_MAX_WALK = 1024    # csrc/flash_fwd_sm90.cu MAX_WALK: 64-key tiles
+SM90_FWD_MAX_SPLITS = 8     # csrc/flash_fwd_sm90.cu MAX_SPLITS: one cluster
+
+
+def sm90_fwd_rows(batch: int, heads: int, blocks: int,
+                  num_sms: int = H100_SMS) -> int:
+    """The CTA tile of the sm90 forward (``csrc/flash_fwd_sm90.cu``) in
+    rows, over ``blocks`` 64-row q blocks of ``batch * heads`` sequences:
+    128 (one layout block per consumer warpgroup, both reading every K/V
+    stage, so K/V cross into the SM once per 128 q rows) where that grid,
+    ``batch * heads * ceil(blocks / 2)`` CTAs of one per SM, fills more
+    than half the card; else 64 (both warpgroups on the same 64 rows,
+    taking alternate kv tiles and merging at the end), which doubles the
+    CTAs. Set by ``scripts/sm90_fwd_probe.py`` (PERF.md §6): 128
+    rows took 0.68-0.86x the 64-row time at granite's train layer, bert's
+    and qwen3's paged chunk (128 CTAs), 1.13-1.47x at three shapes of 64
+    CTAs."""
+    return 128 if 2 * batch * heads * -(-blocks // 2) > num_sms else 64
+
+
+SM90_FWD_SPLIT_TILES = 32   # 64-key tiles each split of a walk keeps
+
+
+def sm90_fwd_splits(batch: int, heads: int, blocks: int, kv_tiles: int,
+                    num_sms: int = H100_SMS) -> int:
+    """How many CTAs of one thread-block cluster deal the kv walk of one
+    64-row q block of the sm90 forward, merging their partials through
+    distributed shared memory: 1 while the 64-row CTAs (``batch * heads *
+    blocks``) fill at least half the card; else as many as still fit the
+    card once each (``num_sms // CTAs``), at most ``SM90_FWD_MAX_SPLITS``
+    and at most ``kv_tiles / SM90_FWD_SPLIT_TILES``, so that each split
+    walks 32 tiles (2048 keys) or more. ``scripts/sm90_fwd_probe.py`` set
+    the walk floor (PERF.md §6): at seamless's cross prefill (64
+    CTAs, 16 tiles) 2 splits took 0.97x the time of one and 4 or 8 took
+    1.9-3.0x (the cluster launch, the merge), at serving chunks of 4-16
+    tiles 1.4-8.2x; so no path's shape splits today."""
+    ctas = batch * heads * blocks
+    if 2 * ctas > num_sms:
+        return 1
+    return max(1, min(SM90_FWD_MAX_SPLITS, num_sms // ctas,
+                      kv_tiles // SM90_FWD_SPLIT_TILES))
 
 
 def check_decode_splits(num_splits: int) -> int:

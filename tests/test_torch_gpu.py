@@ -120,12 +120,13 @@ def _contiguous_case(cuda, dtype, d, mask, seed=None, hkv=2):
                                   "positions"])
 def test_flash_fwd_matches_plain(cuda, dtype, d, mask):
     _, args, call = _contiguous_case(cuda, dtype, d, mask)
-    n0 = fa.LAUNCHES["flash_fwd"]
+    name = _fwd_kernel(dtype, d, 64, 64, args[4])
+    n0 = dict(fa.LAUNCHES)
     out = fa.flash_attention_forward(*args, **call)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_fwd"] == n0 + 1
+    _check_one_fwd(n0, name)
     plain = fa.flash_attention_forward_plain(*args, **call)
-    assert fa.LAUNCHES["flash_fwd"] == n0 + 1      # the plain call counts nothing
+    _check_one_fwd(n0, name)                      # the plain call counts nothing
     _check(out, plain, dtype)
 
 
@@ -223,6 +224,30 @@ def _bwd_kernels(dtype, d, block_q=64, block_k=64):
                             block_q=block_q, block_k=block_k, paged=False)
     end = "_sm90" if body == "sm90" else ""
     return f"flash_bwd_dq{end}", f"flash_bwd_dkv{end}"
+
+
+_FWD_COUNTERS = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_paged",
+                 "flash_fwd_paged_sm90")
+
+
+def _fwd_kernel(dtype, d, block_q, block_k, layout, paged=False):
+    """The launch counter of the forward body ``fa.forward_body`` picks for
+    a call over ``layout`` (paged: ``block_k`` is the page): the sm90 body
+    in bf16 at d 64 / 96 / 128 over 64-row blocks (or one block),
+    flash_fwd.cu's otherwise."""
+    nq, nk = layout.shape[-2:]
+    body = fa.forward_body(on_card=True, dtype=dtype, head_dim=d,
+                           block_q=block_q, block_k=block_k, paged=paged,
+                           nq=nq, nk=nk)
+    name = "flash_fwd_paged" if paged else "flash_fwd"
+    return name + "_sm90" if body == "sm90" else name
+
+
+def _check_one_fwd(n0, name):
+    """Exactly one forward launch since the counts ``n0``, counted as
+    ``name``."""
+    for c in _FWD_COUNTERS:
+        assert fa.LAUNCHES[c] == n0[c] + (c == name), c
 
 
 def _launched(n0, name):
@@ -384,6 +409,238 @@ def test_sm90_cta_tile_rule_on_card(cuda):
     assert tuning.sm90_bwd_rows(2, 16, 32, sms) == 128
     assert tuning.sm90_bwd_rows(2, 4, 32, sms, kernel="dkv") == (
         64 if sms > 128 else 128)
+
+
+# the sm90 forward (csrc/flash_fwd_sm90.cu): (b, hq, hkv, sq, sk, d) and the
+# mask of each case; blocks of 64 rows, or one block of the whole axis where
+# it is shorter; "cross_64x1024" takes split mode (64 CTAs), "dp2tp2" the
+# 128-row CTA tile
+_SM90_FWD_CASES = {
+    "noncausal_d64": ((2, 4, 4, 320, 320, 64), dict(causal=False)),
+    "causal_d64_rep4_paper": ((2, 8, 2, 320, 320, 64), dict(causal=True,
+                                                            paper=True)),
+    "causal_d96_rep1": ((2, 4, 4, 320, 320, 96), dict(causal=True)),
+    "causal_d128_rep8": ((1, 8, 1, 320, 320, 128), dict(causal=True)),
+    "segments_d96_rep4": ((2, 8, 2, 384, 384, 96), dict(causal=True, seg=True)),
+    "qoffset_segments_d128": ((2, 8, 2, 192, 448, 128), dict(causal=True,
+                                                             seg=True)),
+    "window1024_rep5": ((1, 10, 2, 2048, 2048, 64), dict(causal=True,
+                                                         window=1024)),
+    "window_valid_kvmask": ((2, 8, 2, 128, 192, 64), dict(
+        causal=True, window=37, valid=180, kv_mask=True)),
+    "kvmask_d128_rep8": ((2, 8, 1, 320, 320, 128), dict(causal=False,
+                                                        kv_mask=True)),
+    "butterfly_d64": ((2, 4, 2, 1024, 1024, 64), dict(causal=False,
+                                                      sparse=128)),
+    "butterfly_causal_kvmask": ((1, 4, 2, 1024, 1024, 64), dict(
+        causal=True, sparse=128, kv_mask=True)),
+    "dropout_d64": ((2, 8, 2, 320, 320, 64), dict(causal=True, seg=True,
+                                                  dropout=0.1)),
+    "dropout_d96_paper": ((2, 4, 4, 320, 320, 96), dict(
+        causal=True, dropout=0.1, paper=True)),
+    "dropout_d128": ((2, 8, 2, 320, 320, 128), dict(causal=False,
+                                                    dropout=0.1)),
+    "cross_64x1024": ((4, 16, 16, 64, 1024, 64), dict(causal=False)),
+    "dp2tp2": ((2, 16, 4, 2048, 2048, 64), dict(causal=True, seg=True)),
+    "one_block_24": ((2, 4, 2, 24, 24, 64), dict(causal=True, seg=True)),
+    "q_block_40_d96": ((2, 8, 2, 40, 192, 96), dict(causal=True)),
+    "kv_block_16_d128": ((2, 4, 2, 128, 16, 128), dict(causal=False)),
+}
+
+
+def _sm90_fwd_case(cuda, dims, opts, seed=0):
+    """Inputs, layout and call kwargs of one ``_SM90_FWD_CASES`` case in
+    bf16: documents over the keys (the q rows are the last ``sq`` of them,
+    ``q_offset = sk - sq`` when causal), a kv_mask that drops the last 40
+    keys and a fifth of the rest, a butterfly of 128-row blocks refined to
+    64, dropout over unpadded dims, the "paper" variant."""
+    b, hq, hkv, sq, sk, d = dims
+    gen = torch.Generator().manual_seed(seed + sq + sk + d + hq)
+    bf16 = torch.bfloat16
+    q = torch.randn(b, hq, sq, d, generator=gen).to(cuda, bf16)
+    k = torch.randn(b, hkv, sk, d, generator=gen).to(cuda, bf16)
+    v = torch.randn(b, hkv, sk, d, generator=gen).to(cuda, bf16)
+    causal, window = opts["causal"], opts.get("window")
+    q_offset = sk - sq if causal else 0
+    q_seg = kv_seg = None
+    if opts.get("seg"):
+        kv_seg = _segments(gen, b, sk, cuda)
+        q_seg = kv_seg[:, sk - sq:].contiguous()
+    kvm = None
+    if opts.get("kv_mask"):
+        kvm = (torch.rand(b, sk, generator=gen) > 0.2)
+        kvm[:, sk - 40:] = False
+        kvm = kvm.to(cuda)
+    bq, bk = min(64, sq), min(64, sk)
+    sparse = None
+    if opts.get("sparse"):
+        blk = opts["sparse"]
+        tile, r = tuning.sparse_tile(blk, on_card=True)
+        sparse = M.refine_block_layout(
+            M.butterfly_block_layout(sq, sk, blk, blk, causal=causal), r, r)
+    spec = M.MaskSpec(causal=causal, window=window, q_offset=q_offset,
+                      kv_valid_len=opts.get("valid"), kv_mask=kvm,
+                      q_segment_ids=q_seg, kv_segment_ids=kv_seg,
+                      sparse_layout=sparse)
+    layout = M.compile_block_layout(spec, sq, sk, bq, bk).as_array(cuda)
+    call = dict(scale=d ** -0.5, causal=causal, window=window,
+                q_offset=q_offset, kv_valid_len=opts.get("valid"),
+                block_q=bq, block_k=bk, q_segment_ids=q_seg,
+                kv_segment_ids=kv_seg)
+    if opts.get("dropout"):
+        call.update(dropout_p=opts["dropout"], dropout_seed=seed + 11,
+                    dropout_dims=(sq - 5, sk - 3))
+    if opts.get("paper"):
+        call["variant"] = "paper"
+    return (q, k, v, kvm, layout), call
+
+
+def _check_sm90_fwd(args, call, paged=False):
+    """The sm90 forward against its plain version and against the mma.sync
+    body on the same inputs (o within 2e-2, m and l 1e-2 relative); only
+    the sm90 counter moves on the path's call; two calls bit-identical."""
+    fwd = fa.flash_prefill_paged_forward if paged else fa.flash_attention_forward
+    plain = (fa.flash_prefill_paged_forward_plain if paged
+             else fa.flash_attention_forward_plain)
+    name = "flash_fwd_paged" if paged else "flash_fwd"
+    n0 = dict(fa.LAUNCHES)
+    out = fwd(*args, **call)
+    torch.cuda.synchronize()
+    _check_one_fwd(n0, name + "_sm90")
+    _check(out, plain(*args, **call), torch.bfloat16)
+    mma = fwd(*args, **call, _mma_body=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES[name] == n0[name] + 1
+    _check(out, mma, torch.bfloat16)
+    again = fwd(*args, **call)
+    assert all(torch.equal(a, g) for a, g in zip(again, out))
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(_SM90_FWD_CASES))
+def test_sm90_fwd_matches_plain_and_mma_body(cuda, case):
+    """The wgmma/TMA forward at every mask it takes (causal and not, packed
+    documents, a q_offset, windows, kv_valid_len, kv_mask, a butterfly
+    pattern, dropout 0.1, "paper"), GQA n_rep 1, 4, 5 and 8, d 64, 96 and
+    128, 320 rows (no multiple of the 128-row CTA tile), 64 q rows against
+    1024 keys (split mode), one q or kv block shorter than 64 rows."""
+    dims, opts = _SM90_FWD_CASES[case]
+    _check_sm90_fwd(*_sm90_fwd_case(cuda, dims, opts))
+
+
+@pytest.mark.parametrize("rows,splits", [(128, 1), (64, 1), (64, 2), (64, 3),
+                                         (64, 8)])
+@pytest.mark.parametrize("d", [64, 96, 128])
+def test_sm90_fwd_every_cta_mode(cuda, monkeypatch, rows, splits, d):
+    """Each CTA mode of the sm90 forward (``tuning.sm90_fwd_rows`` /
+    ``sm90_fwd_splits`` pick one by shape; forced here): 128 rows (the last
+    tile half past the end), 64 rows merged in the CTA, and the walk split
+    over 2, 3 and 8 CTAs of a cluster (some with no tile), over packed
+    documents with dropout."""
+    monkeypatch.setattr(fa, "sm90_fwd_rows", lambda *a, **k: rows)
+    monkeypatch.setattr(fa, "sm90_fwd_splits", lambda *a, **k: splits)
+    opts = dict(causal=True, seg=True, dropout=0.1, paper=d == 96)
+    _check_sm90_fwd(*_sm90_fwd_case(cuda, (2, 8, 2, 320, 320, d), opts))
+
+
+def _sm90_paged_case(cuda, d, page_size, sq, variant="fa2", seed=0):
+    """A prefill chunk of two documents' tails against their paged prefixes
+    (GQA 8/2): a dead slot between the documents' pages and two after, the
+    page count no multiple of the pages a tile gathers (pages below 64), the
+    chunks' rows at the end of their documents (a chunk's q_offset) and
+    padding rows past them with no key; 64-row q blocks, or one block of
+    ``sq`` < 64 rows."""
+    gen = torch.Generator().manual_seed(seed + 7 * page_size + d + sq)
+    hq, hkv, num_pages = 8, 2, 90
+    spans = [300, 130]
+    chunks = [sq // 2 + 5, sq // 3] if sq >= 64 else [sq - 14, 10]
+    bq = min(64, sq)
+    bf16 = torch.bfloat16
+    pools = [torch.randn(hkv, num_pages, page_size, d, generator=gen).to(
+        cuda, bf16) for _ in range(2)]
+    n_pages = [-(-s // page_size) for s in spans]
+    T = n_pages[0] + 1 + n_pages[1] + 2
+    pages = torch.randperm(num_pages, generator=gen).int()
+    page_list = torch.full((1, T), -1, dtype=torch.int32)
+    kv_seg = torch.full((1, T * page_size), M.SEG_PAD_KV, dtype=torch.int32)
+    kv_pos = torch.full((1, T * page_size), M.POS_PAD, dtype=torch.int32)
+    q_seg = torch.full((1, sq), M.SEG_PAD_Q, dtype=torch.int32)
+    q_pos = torch.full((1, sq), M.POS_PAD, dtype=torch.int32)
+    slot = row = used = 0
+    for s, (span, n, np_) in enumerate(zip(spans, chunks, n_pages)):
+        page_list[0, slot:slot + np_] = pages[used:used + np_]
+        kv_seg[0, slot * page_size:slot * page_size + span] = s
+        kv_pos[0, slot * page_size:slot * page_size + span] = torch.arange(span)
+        q_seg[0, row:row + n] = s
+        q_pos[0, row:row + n] = torch.arange(span - n, span)
+        slot, row, used = slot + np_ + 1, row + n, used + np_
+    q = torch.randn(1, hq, sq, d, generator=gen).to(cuda, bf16)
+    a = {n: t.to(cuda) for n, t in dict(
+        q_segment_ids=q_seg, kv_segment_ids=kv_seg, q_positions=q_pos,
+        kv_positions=kv_pos).items()}
+    layout = M.compile_block_layout(M.MaskSpec(causal=True, **a), sq,
+                                    T * page_size, bq, page_size).as_array(cuda)
+    layout = M.paged_prefill_block_layout(layout, page_list.to(cuda))
+    call = dict(scale=d ** -0.5, causal=True, window=None, block_q=bq,
+                variant=variant, **a)
+    return (q, *pools, page_list.to(cuda), layout), call
+
+
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("page_size", [8, 16, 32, 64])
+@pytest.mark.parametrize("sq", [128, 40])
+def test_sm90_paged_fwd_matches_plain_and_mma_body(cuda, d, page_size, sq):
+    """The paged sm90 forward: 64 / page_size pages a tile by TMA, dead and
+    SKIP pages zero-filled past the pool, every head dim and page size, two
+    64-row q blocks or one block of 40 rows; with a row that has no key."""
+    args, call = _sm90_paged_case(cuda, d, page_size, sq)
+    out = _check_sm90_fwd(args, call, paged=True)
+    _check_empty_row(out, 0, sq - 1)
+
+
+@pytest.mark.parametrize("rows,splits", [(128, 1), (64, 1), (64, 4)])
+@pytest.mark.parametrize("variant", ["fa2", "paper"])
+def test_sm90_paged_fwd_every_cta_mode(cuda, monkeypatch, rows, splits,
+                                       variant):
+    """The paged sm90 forward in each CTA mode (forced), both variants."""
+    monkeypatch.setattr(fa, "sm90_fwd_rows", lambda *a, **k: rows)
+    monkeypatch.setattr(fa, "sm90_fwd_splits", lambda *a, **k: splits)
+    _check_sm90_fwd(*_sm90_paged_case(cuda, 64, 16, 192, variant), paged=True)
+
+
+@pytest.mark.parametrize("d", [64, 96, 128])
+def test_sm90_fwd_residuals_feed_the_sm90_backward(cuda, d):
+    """The sm90 forward's (o, m, l) feed the sm90 backward pair: its
+    gradients within 2e-2 (scaled by their max) of the plain backward fed
+    the plain forward's residuals, over packed documents with dropout;
+    only the sm90 counters move."""
+    args, call = _sm90_fwd_case(cuda, (2, 8, 2, 320, 320, d), dict(
+        causal=True, seg=True, dropout=0.1))
+    q, k, v, kvm, layout = args
+    n0 = dict(fa.LAUNCHES)
+    o, m, l = fa.flash_attention_forward(*args, **call)
+    po, pm, pl = fa.flash_attention_forward_plain(*args, **call)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(d)).to(
+        cuda, torch.bfloat16)
+    got = fa.flash_attention_backward(q, k, v, o, do, m, l, kvm, layout, **call)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_backward_plain(q, k, v, po, do, pm, pl, kvm,
+                                             layout, **call)
+    _check_grads(got, want, torch.bfloat16)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.LAUNCHES[name + "_sm90"] == n0[name + "_sm90"] + 1, name
+        assert fa.LAUNCHES[name] == n0[name], name
+
+
+def test_sm90_fwd_mode_rule_on_card(cuda):
+    """The chooser's CTA mode on this card: 128 rows at granite's train
+    layer, 64 rows and one split at seamless's cross prefill, 8 splits for
+    a 64-row chunk of 8 heads against 16384 keys."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert tuning.sm90_fwd_rows(4, 32, 32, sms) == 128
+    assert tuning.sm90_fwd_rows(4, 16, 1, sms) == 64
+    assert tuning.sm90_fwd_splits(4, 16, 1, 16, sms) == 1
+    assert tuning.sm90_fwd_splits(1, 8, 1, 256, sms) == 8
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -584,11 +841,12 @@ def test_flash_fwd_paged_matches_plain(cuda, dtype, page_size):
                                     page_size).as_array(cuda)
     layout = M.paged_prefill_block_layout(layout, page_list.to(cuda))
     call = dict(scale=d ** -0.5, causal=True, window=None, block_q=bq, **a)
-    n0 = fa.LAUNCHES["flash_fwd_paged"]
+    n0 = dict(fa.LAUNCHES)
     out = fa.flash_prefill_paged_forward(q, k_pool, v_pool, page_list.to(cuda),
                                          layout, **call)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_fwd_paged"] == n0 + 1
+    _check_one_fwd(n0, _fwd_kernel(dtype, d, call["block_q"], page_size,
+                                   layout, paged=True))
     plain = fa.flash_prefill_paged_forward_plain(q, k_pool, v_pool,
                                                  page_list.to(cuda), layout, **call)
     _check(out, plain, dtype)
@@ -635,11 +893,12 @@ def test_flash_fwd_paged_page_groups_match_plain(cuda, dtype, d, page_size):
                                     page_size).as_array(cuda)
     layout = M.paged_prefill_block_layout(layout, page_list.to(cuda))
     call = dict(scale=d ** -0.5, causal=True, window=None, block_q=bq, **a)
-    n0 = fa.LAUNCHES["flash_fwd_paged"]
+    n0 = dict(fa.LAUNCHES)
     out = fa.flash_prefill_paged_forward(q, k_pool, v_pool, page_list.to(cuda),
                                          layout, **call)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_fwd_paged"] == n0 + 1
+    _check_one_fwd(n0, _fwd_kernel(dtype, d, call["block_q"], page_size,
+                                   layout, paged=True))
     plain = fa.flash_prefill_paged_forward_plain(q, k_pool, v_pool,
                                                  page_list.to(cuda), layout, **call)
     _check(out, plain, dtype)
@@ -670,11 +929,12 @@ def test_flash_fwd_paged_slab_of_padding_rows_is_zero(cuda, dtype):
                                     T * page_size, sq, page_size).as_array(cuda)
     layout = M.paged_prefill_block_layout(layout, page_list.to(cuda))
     call = dict(scale=d ** -0.5, causal=True, window=None, block_q=sq, **a)
-    n0 = fa.LAUNCHES["flash_fwd_paged"]
+    n0 = dict(fa.LAUNCHES)
     out = fa.flash_prefill_paged_forward(q, k_pool, v_pool, page_list.to(cuda),
                                          layout, **call)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_fwd_paged"] == n0 + 1
+    _check_one_fwd(n0, _fwd_kernel(dtype, d, call["block_q"], page_size,
+                                   layout, paged=True))
     plain = fa.flash_prefill_paged_forward_plain(q, k_pool, v_pool,
                                                  page_list.to(cuda), layout, **call)
     _check(out, plain, dtype)
@@ -688,12 +948,12 @@ def test_paged_forward_refuses_other_page_sizes(cuda):
     pool = torch.randn(1, 4, 24, 64, device=cuda, dtype=torch.bfloat16)
     page_list = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
     layout = torch.ones((1, 1, 2), dtype=torch.int32, device=cuda)
-    n0 = fa.LAUNCHES["flash_fwd_paged"]
+    n0 = dict(fa.LAUNCHES)
     with pytest.raises(ValueError, match="page sizes"):
         fa.flash_prefill_paged_forward(q, pool, pool, page_list, layout,
                                        scale=0.125, causal=False, window=None,
                                        block_q=24)
-    assert fa.LAUNCHES["flash_fwd_paged"] == n0
+    assert all(fa.LAUNCHES[c] == n0[c] for c in _FWD_COUNTERS)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -761,7 +1021,9 @@ def test_engine_on_card_matches_cpu(cuda):
             eng.run()
         outs.append({r.rid: r.output for r in eng.finished})
     assert outs[0] == outs[1]
-    assert fa.LAUNCHES["flash_fwd"] > 0 and fa.LAUNCHES["flash_fwd_paged"] > 0
+    assert fa.LAUNCHES["flash_fwd"] + fa.LAUNCHES["flash_fwd_sm90"] > 0
+    assert (fa.LAUNCHES["flash_fwd_paged"]
+            + fa.LAUNCHES["flash_fwd_paged_sm90"]) > 0
     assert fd.LAUNCHES["flash_decode_paged"] > 0
 
 
@@ -1274,7 +1536,8 @@ def test_new_train_shapes_match_plain(cuda, dtype, name, causal, d, n_rep):
     res = (q, k, v, out[0], do, out[1], out[2], None, layout)
     got = fa.flash_attention_backward(*res, **call)
     torch.cuda.synchronize()
-    for kern in ("flash_fwd", *_bwd_kernels(dtype, d, bq, bk)):
+    for kern in (_fwd_kernel(dtype, d, bq, bk, layout),
+                 *_bwd_kernels(dtype, d, bq, bk)):
         assert fa.LAUNCHES[kern] == n0[kern] + 1, kern
     _check_grads(got, fa.flash_attention_backward_plain(*res, **call), dtype)
     again = fa.flash_attention_backward(*res, **call)
@@ -1534,10 +1797,10 @@ def test_serving_kernels_at_moe_head_groups_match_plain(cuda, dtype, n_rep):
     layout = M.paged_prefill_block_layout(layout, page_list)
     q = torch.randn(1, hq, bq, d, generator=gen, device=cuda).to(dtype)
     call = dict(scale=d ** -0.5, causal=True, window=None, block_q=bq, **a)
-    n0 = fa.LAUNCHES["flash_fwd_paged"]
+    n0 = dict(fa.LAUNCHES)
     out = fa.flash_prefill_paged_forward(q, *pools, page_list, layout, **call)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES["flash_fwd_paged"] == n0 + 1
+    _check_one_fwd(n0, _fwd_kernel(dtype, d, bq, ps, layout, paged=True))
     _check(out, fa.flash_prefill_paged_forward_plain(q, *pools, page_list,
                                                      layout, **call), dtype)
     # -- #8: the whole decode
@@ -1591,7 +1854,8 @@ def test_hymba_attention_group_with_window_matches_plain(cuda, dtype):
     res = (q, k, v, out[0], do, out[1], out[2], None, layout)
     got = fa.flash_attention_backward(*res, **call)
     torch.cuda.synchronize()
-    for kern in ("flash_fwd", *_bwd_kernels(dtype, d, bq, bk)):
+    for kern in (_fwd_kernel(dtype, d, bq, bk, layout),
+                 *_bwd_kernels(dtype, d, bq, bk)):
         assert fa.LAUNCHES[kern] == n0[kern] + 1, kern
     _check_grads(got, fa.flash_attention_backward_plain(*res, **call), dtype)
     again = fa.flash_attention_backward(*res, **call)
@@ -1652,7 +1916,7 @@ def test_hymba_engine_and_train_step_on_card_match_cpu(cuda):
         eng.run()
         outs.append({r.rid: r.output for r in eng.finished})
     assert outs[0] == outs[1]
-    assert fa.LAUNCHES["flash_fwd"] > n0["flash_fwd"]
+    assert _launched(n0, "flash_fwd")
     assert fd.LAUNCHES["flash_decode"] > n0["flash_decode"]
     assert fd.LAUNCHES["flash_decode_paged"] == n0["flash_decode_paged"]
 
@@ -1764,8 +2028,10 @@ def test_blocksparse_kernels_match_plain(cuda, dtype, blk, causal, masked):
     got = fa.flash_attention_backward(*res, **call)
     torch.cuda.synchronize()
     _check_grads(got, fa.flash_attention_backward_plain(*res, **call), dtype)
-    for name in ("flash_fwd", *_bwd_kernels(dtype, args[0].shape[-1],
-                                            call["block_q"], call["block_k"])):
+    for name in (_fwd_kernel(dtype, args[0].shape[-1], call["block_q"],
+                             call["block_k"], layout),
+                 *_bwd_kernels(dtype, args[0].shape[-1], call["block_q"],
+                               call["block_k"])):
         assert fa.LAUNCHES[name] == n0[name] + 1, name
     again = fa.flash_attention_backward(*res, **call)
     assert all(torch.equal(a, g) for a, g in zip(again, got))
@@ -1903,7 +2169,7 @@ def test_encdec_on_card_matches_cpu(cuda):
             state, lg = model.decode_step(p, state, tok)
         tokens[dev] = out
     assert tokens["cpu"] == tokens["cuda"]
-    assert fa.LAUNCHES["flash_fwd"] > n0["flash_fwd"]
+    assert _launched(n0, "flash_fwd")
     assert fd.LAUNCHES["flash_decode"] >= n0["flash_decode"] + 6 * 2 * 2
 
     model = build_model(dataclasses.replace(cfg, remat=True))
