@@ -33,7 +33,8 @@ Phases:
    beside the build, hold every ``flash_fwd_sm90_kernel`` (d 64, 96, 128;
    paged in both variants, contiguous with and without dropout in both)
    and every ``flash_bwd_dq_sm90_kernel`` / ``flash_bwd_dkv_sm90_kernel``
-   (d 64, 96, 128, with and without dropout) to wgmma (``HGMMA``), TMA
+   (d 64, 96, 128; paged, contiguous with and without dropout) to wgmma
+   (``HGMMA``), TMA
    loads (``UTMALDG``) and no spill, and count the tensor-core
    instructions (``HMMA``, ``cuobjdump -sass``) with the registers and
    spills of every bf16 ``flash_fwd_kernel`` (paged; contiguous, with and
@@ -100,13 +101,19 @@ Phases:
    backward (max |g - plain| / max |plain| <= 2e-2), untouched pages
    exactly zero, two calls bit-identical, one call of the whole backward
    under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), the
-   fold bit-equal to ``fold_packed_to_pool``; each kernel timed (library:
-   SDPA's backward on pre-gathered K/V; ``index_add_`` for the fold), the
-   whole backward by device and by event time. Then the path itself:
-   launch counters reset, one forward + backward through
-   ``core.attention.paged_prefill_attention`` with q and both pools
-   requiring grad; the paged forward, dq, dkv and fold kernels must be
-   > 0;
+   fold bit-equal to ``fold_packed_to_pool``. The pair is the body the path
+   launches, the sm90 one (records ``flash_bwd_dq_paged_sm90`` /
+   ``flash_bwd_dkv_paged_sm90``), held and timed in turns beside
+   flash_bwd.cu's mma.sync pair forced on the same residuals (records
+   ``flash_bwd_dq_paged`` / ``flash_bwd_dkv_paged``, ``"on_main_path":
+   false``, and ``mma_ms``), and again at qwen3-32b's heads (64 q / 8 kv
+   of 128, the same chunks: dkv's 128-key tile at n_rep 8; the records'
+   ``at_qwen3_heads``); each kernel timed (library: SDPA's backward on
+   pre-gathered K/V; ``index_add_`` for the fold), the whole backward by
+   device and by event time. Then the path itself: launch counters reset,
+   one forward + backward through ``core.attention.paged_prefill_attention``
+   with q and both pools requiring grad; the paged forward, the sm90 dq and
+   dkv and the fold kernels must be > 0, the mma.sync paged pair's 0;
 2d. kernels at the later paths' shapes (bf16, the same checks, times,
    bounds and SDPA yardsticks as phase 2b, without dropout and "paper"):
    the forward and the dq / dkv pair at train-bert's attention layer (q
@@ -1644,19 +1651,21 @@ def ssm_layer_phase(torch, seed: int, card: str) -> dict:
 # phase 2c: the trainable paged prefill's backward kernels
 # ---------------------------------------------------------------------------
 
-def paged_grad_case(torch, seed: int, *, requires_grad=False) -> dict:
+def paged_grad_case(torch, seed: int, *, requires_grad=False, hq=32, hkv=8,
+                    d=64) -> dict:
     """The paged prefill at the serving shapes of flash_fwd_paged (chunks of
-    192 and 64 rows against 1536- and 600-token prefixes, page 16, hq 32 /
-    hkv 8 / d 64, bf16), one row per sequence: both rows' first prefix page
-    is the same pool page (a shared prefix), two dead slots per row, the
-    short row's q tail padded. Returns the inputs, the compiled layout and
-    the call's keyword arguments."""
+    192 and 64 rows against 1536- and 600-token prefixes, page 16, bf16;
+    granite's hq 32 / hkv 8 / d 64 unless given: qwen3-32b's are 64 / 8 /
+    128), one row per sequence: both rows' first prefix page is the same
+    pool page (a shared prefix), two dead slots per row, the short row's q
+    tail padded. Returns the inputs, the compiled layout and the call's
+    keyword arguments."""
     from repro_torch.core import masks as M
     from repro_torch.kernels import tuning
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 20)
-    hq, hkv, d, ps, num_pages = 32, 8, 64, 16, 400
+    ps, num_pages = 16, 400
     spans, chunks = [1536, 600], [192, 64]
     sq = max(chunks)
     T = max(-(-s // ps) for s in spans) + 2
@@ -1695,33 +1704,54 @@ def paged_grad_case(torch, seed: int, *, requires_grad=False) -> dict:
                          block_q=bq, **ids),
             "shape": f"chunks {chunks} against paged prefixes {spans} "
                      f"(one row each, first page shared, 2 dead slots), "
-                     f"page {ps}"}
+                     f"page {ps}, {hq} q / {hkv} kv heads of {d}"}
 
 
-def paged_grad_kernel_phase(torch, seed: int) -> list[dict]:
-    """The paged dq and dkv kernels and the fold kernel against the plain
-    backward over the gathered pages: dq, dk_pool, dv_pool within 2e-2 of
-    their max, untouched pages exactly zero, two calls bit-identical, the
-    whole backward free of host syncs (``torch.cuda.set_sync_debug_mode
-    ("error")``), the fold bit-equal to ``fold_packed_to_pool``; each
-    kernel timed beside its bound, the plain version's time and one
-    PyTorch call (SDPA's backward on pre-gathered K/V; ``index_add_`` for
-    the fold), and the whole backward by device and by event time."""
+def paged_pair_case(torch, c: dict) -> dict:
+    """One paged backward case on the card: the sm90 pair (the body
+    ``backward_body`` names at these tiles) through
+    ``flash_prefill_paged_backward`` against the plain backward over the
+    gathered pages and against flash_bwd.cu's mma.sync pair forced with
+    ``_mma_body`` (dq, dk_pool, dv_pool within 2e-2 of their max each),
+    untouched pages exactly zero, two calls bit-identical, the whole
+    backward free of host syncs (``torch.cuda.set_sync_debug_mode
+    ("error")``); then each kernel of both bodies, the fold, the whole
+    backward, the plain version and SDPA's backward on pre-gathered K/V
+    timed in turns, with the pair's bounds."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import gather_pages
 
-    c = paged_grad_case(torch, seed)
     q, k_pool, v_pool, page_list = c["q"], c["k_pool"], c["v_pool"], c["page_list"]
     call, d = c["call"], q.shape[-1]
+    ps, T = k_pool.shape[2], page_list.shape[1]
+    nq = c["layout"].shape[-2]
+    body = fa.backward_body(on_card=True, dtype=q.dtype, head_dim=d,
+                            block_q=call["block_q"], block_k=ps, paged=True,
+                            nq=nq, nk=T)
+    check(body == "sm90", f"paged backward at {c['shape']}: the body rule "
+                          f"names {body!r}, not the sm90 pair")
     o, m, l = fa.flash_prefill_paged_forward(q, k_pool, v_pool, page_list,
                                              c["layout"], **call)
     res = (q, k_pool, v_pool, page_list, o, c["do"], m, l, c["layout"])
+    n0 = dict(fa.LAUNCHES)
     got = fa.flash_prefill_paged_backward(*res, **call)
     torch.cuda.synchronize()
+    for name in ("flash_bwd_dq_paged", "flash_bwd_dkv_paged"):
+        check(fa.LAUNCHES[name + "_sm90"] == n0[name + "_sm90"] + 1
+              and fa.LAUNCHES[name] == n0[name],
+              f"paged backward at {c['shape']}: {name}_sm90 did not launch "
+              f"once (or the mma.sync body ran)")
     want = fa.flash_prefill_paged_backward_plain(*res, **call)
-    errs = dict(zip(("dq", "dk_pool", "dv_pool"), map(scaled_err, got, want)))
+    mma = fa.flash_prefill_paged_backward(*res, **call, _mma_body=True)
+    torch.cuda.synchronize()
+    names = ("dq", "dk_pool", "dv_pool")
+    errs = dict(zip(names, map(scaled_err, got, want)))
     abs_errs = {n: float((g.float() - w.float()).abs().max())
-                for n, g, w in zip(errs, got, want)}
+                for n, g, w in zip(names, got, want)}
+    mma_errs = dict(zip(names, map(scaled_err, mma, want)))
+    mma_abs = {n: float((g.float() - w.float()).abs().max())
+               for n, g, w in zip(names, mma, want)}
+    vs_mma = dict(zip(names, map(scaled_err, got, mma)))
     check(all(float(w.float().abs().max()) > 0 for w in want),
           "the plain paged backward gave an all-zero gradient")
     named = torch.zeros(k_pool.shape[1], dtype=torch.bool, device=q.device)
@@ -1730,11 +1760,15 @@ def paged_grad_kernel_phase(torch, seed: int) -> list[dict]:
     again = fa.flash_prefill_paged_backward(*res, **call)
     torch.cuda.synchronize()
     identical = all(torch.equal(a, b) for a, b in zip(got, again))
-    print(f"[paged-grad] {c['shape']}: scaled |grad - plain| {errs}; "
+    print(f"[paged-grad] {c['shape']}: sm90 pair scaled |grad - plain| "
+          f"{errs}, |grad - mma.sync| {vs_mma}; the mma.sync pair {mma_errs}; "
           f"untouched pages zero {untouched_zero}; two calls bit-identical "
           f"{identical}", flush=True)
-    for name, e in errs.items():
-        check(e <= 2e-2, f"paged backward: {name} scaled error {e} > 2e-2")
+    for name in names:
+        check(errs[name] <= 2e-2, f"paged backward: {name} scaled error "
+                                  f"{errs[name]} > 2e-2")
+        check(vs_mma[name] <= 2e-2, f"paged backward: {name} differs from "
+                                    f"the mma.sync body by {vs_mma[name]}")
     check(untouched_zero, "paged backward: an untouched page got a gradient")
     check(identical, "paged backward: two calls differ (not deterministic)")
     torch.cuda.set_sync_debug_mode("error")
@@ -1747,17 +1781,32 @@ def paged_grad_kernel_phase(torch, seed: int) -> list[dict]:
     torch.cuda.synchronize()
     print("[paged-grad] the whole backward ran under "
           "set_sync_debug_mode('error')", flush=True)
+    del again, mma
 
     ops_ = fa.prepare_backward(q, k_pool, v_pool, o, c["do"], m, l, None,
-                               c["layout"], q_offset=0, block_k=k_pool.shape[2],
+                               c["layout"], q_offset=0, block_k=ps,
                                page_list=page_list, **call)
-    dq_ms = device_ms(torch, [lambda: fa.launch_dq_paged(ops_)])
-    dkv_ms = device_ms(torch, [lambda: fa.launch_dkv_paged(ops_)])
+    check(ops_.body == "sm90", "prepare_backward did not name the sm90 pair")
+    # each kernel of both bodies, in turns (sm90, mma.sync, mma.sync, sm90)
+    t = {}
+    for key, fn in (("dq", lambda: fa.launch_dq_paged(ops_)),
+                    ("dq_mma", lambda: fa.launch_dq_paged(ops_, _mma_body=True)),
+                    ("dkv", lambda: fa.launch_dkv_paged(ops_)),
+                    ("dkv_mma", lambda: fa.launch_dkv_paged(ops_, _mma_body=True))):
+        t[key] = [device_ms(torch, [fn])]
+    for key, fn in (("dkv_mma", lambda: fa.launch_dkv_paged(ops_, _mma_body=True)),
+                    ("dkv", lambda: fa.launch_dkv_paged(ops_)),
+                    ("dq_mma", lambda: fa.launch_dq_paged(ops_, _mma_body=True)),
+                    ("dq", lambda: fa.launch_dq_paged(ops_))):
+        t[key].append(device_ms(torch, [fn]))
+    ms = {k: sum(v) / len(v) for k, v in t.items()}
     full_dev_ms, full_ms = timed(torch, [lambda: fa.flash_prefill_paged_backward(
         *res, **call)])
+    mma_full_ms = device_ms(torch, [lambda: fa.flash_prefill_paged_backward(
+        *res, **call, _mma_body=True)])
 
     # the fold alone: the kernel (with its order and zeroed pools) against
-    # fold_packed_to_pool, bit for bit, on the dkv kernel's packed rows
+    # fold_packed_to_pool, bit for bit, on the sm90 dkv kernel's packed rows
     num_pages, dtype = k_pool.shape[1], k_pool.dtype
     packed = fa.launch_dkv_paged(ops_)
     fold = fa.launch_fold_paged(*packed, page_list, num_pages, dtype)
@@ -1778,7 +1827,7 @@ def paged_grad_kernel_phase(torch, seed: int) -> list[dict]:
     # zeroed fp32 pools, dk and dv
     flat = page_list.reshape(-1).long()
     live_idx = (flat >= 0).nonzero().squeeze(1)
-    hkv_, ps, T = k_pool.shape[0], k_pool.shape[2], page_list.shape[1]
+    hkv_ = k_pool.shape[0]
     srcs = [x.reshape(q.shape[0], hkv_, T, ps, d).transpose(1, 2)
             .reshape(-1, hkv_, ps, d)[live_idx].transpose(0, 1).contiguous()
             for x in packed]
@@ -1807,53 +1856,144 @@ def paged_grad_kernel_phase(torch, seed: int) -> list[dict]:
     del out, leaves
     pairs = int(c["mask"].sum()) * q.shape[1]
     live = int((page_list >= 0).sum())
-    kv_bytes = 2 * live * k_pool.shape[0] * k_pool.shape[2] * d * 2
+    kv_bytes = 2 * live * k_pool.shape[0] * ps * d * 2
     ins = (nbytes(q, c["do"], m, l, c["layout"], page_list, *c["ids"].values())
            + m.numel() * 4 + kv_bytes)                       # + D
-    dq_bound = bound(ins + nbytes(got[0]), 2.0 * d * pairs, BF16_FLOPS_PER_S)
-    dkv_bound = bound(ins + nbytes(got[1], got[2]), 8.0 * d * pairs,
-                      BF16_FLOPS_PER_S)
+    return {"errs": errs, "abs_errs": abs_errs, "mma_errs": mma_errs,
+            "mma_abs_errs": mma_abs, "vs_mma": vs_mma, "identical": identical,
+            "ms": ms, "samples": t, "backward_ms": full_dev_ms,
+            "backward_call_ms": full_ms, "mma_backward_ms": mma_full_ms,
+            "plain_ms": plain_ms, "lib_ms": lib_ms,
+            "dq_bound": bound(ins + nbytes(got[0]), 2.0 * d * pairs,
+                              BF16_FLOPS_PER_S),
+            "dkv_bound": bound(ins + nbytes(got[1], got[2]), 8.0 * d * pairs,
+                               BF16_FLOPS_PER_S),
+            "fold": {"err": fold_err, "ms": fold_ms, "call_ms": fold_call_ms,
+                     "plain_ms": fold_plain_ms, "lib_ms": fold_lib_ms,
+                     "bound": fold_bound},
+            "rows": {"dq": tuning_rows(torch, ops_, "dq"),
+                     "dkv": tuning_rows(torch, ops_, "dkv")}}
+
+
+def tuning_rows(torch, ops_, kernel: str) -> int:
+    """The CTA tile ``tuning.sm90_bwd_rows`` gives a paged call's grid."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import tuning
+
+    b, hq, hkv, nq, _ = ops_.grid
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if kernel == "dq":
+        return tuning.sm90_bwd_rows(b, hq, nq, sms)
+    return tuning.sm90_bwd_rows(b, hkv, fa._page_groups(ops_), sms,
+                                kernel="dkv", head_dim=ops_.head_dim)
+
+
+def paged_grad_kernel_phase(torch, seed: int) -> list[dict]:
+    """The paged dq and dkv kernels and the fold kernel at the paged grad
+    shape (``paged_pair_case``): the sm90 pair, which the path launches,
+    and flash_bwd.cu's mma.sync pair beside it (``"on_main_path": false``,
+    its ``ms`` the forced body's in the same run), each against the plain
+    backward; the fold bit-equal to ``fold_packed_to_pool``; each kernel
+    timed beside its bound, the plain version's time and one PyTorch call
+    (SDPA's backward on pre-gathered K/V; ``index_add_`` for the fold), the
+    whole backward by device and by event time. The sm90 records carry one
+    sub-entry at qwen3-32b's heads (64 q / 8 kv of 128: dkv's 128-key tile
+    at n_rep 8), checked the same way."""
+    c = paged_grad_case(torch, seed)
+    r = paged_pair_case(torch, c)
+    shape = c["shape"]
+    del c
+    release(torch)
+    cq = paged_grad_case(torch, seed + 3, hq=64, hkv=8, d=128)
+    rq = paged_pair_case(torch, cq)
+    shape_q = cq["shape"]
+    del cq
+    release(torch)
     lib = "SDPA backward (dq, dk, dv together) on pre-gathered K/V, bool mask"
+    mma_pair = r["ms"]["dq_mma"] + r["ms"]["dkv_mma"]
     recs = []
-    for name, ms, (b_ms, b_by), grads, line in (
-            ("flash_bwd_dq_paged", dq_ms, dq_bound, ("dq",), 851),
-            ("flash_bwd_dkv_paged", dkv_ms, dkv_bound, ("dk_pool", "dv_pool"),
-             897)):
-        rec = {"name": name, "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
-               "replaces": f"src/repro/kernels/flash_attention.py:{line}",
-               "launches": None,
-               "max_abs_err": max(abs_errs[g] for g in grads),
-               "scaled_err": max(errs[g] for g in grads), "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "library_ms": lib_ms, "library": lib, "shape": c["shape"],
-               "backward_ms": full_dev_ms, "backward_call_ms": full_ms,
-               "deterministic": identical, "no_host_sync": True,
-               "plain_ms_is": "the plain paged backward (dq, dk, dv, fold)"}
-        recs.append(rec)
-        print(f"[kernel] {name}: {c['shape']}: scaled err "
-              f"{rec['scaled_err']:.3g}; {ms:.4f} ms (whole backward with the "
-              f"fold {full_dev_ms:.4f} ms on the card, {full_ms:.4f} ms a "
-              f"call; plain backward {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
-              f"{b_by}, {lib} {lib_ms:.4f} ms)", flush=True)
+    for name, key, grads, line in (
+            ("flash_bwd_dq_paged", "dq", ("dq",), 851),
+            ("flash_bwd_dkv_paged", "dkv", ("dk_pool", "dv_pool"), 897)):
+        b_ms, b_by = r[f"{key}_bound"]
+        common = {"route": "cuda",
+                  "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+                  "launches": None, "plain_ms": r["plain_ms"],
+                  "bound_ms": b_ms, "bound_by": b_by,
+                  "library_ms": r["lib_ms"], "library": lib, "shape": shape,
+                  "backward_ms": r["backward_ms"],
+                  "backward_call_ms": r["backward_call_ms"],
+                  "mma_backward_ms": r["mma_backward_ms"],
+                  "fold_ms": r["fold"]["ms"],
+                  "pair_device_ms": r["ms"]["dq"] + r["ms"]["dkv"],
+                  "mma_pair_device_ms": mma_pair,
+                  "deterministic": r["identical"], "no_host_sync": True,
+                  "plain_ms_is": "the plain paged backward (dq, dk, dv, fold)"}
+        qb_ms, qb_by = rq[f"{key}_bound"]
+        qwen3 = {"shape": shape_q, "ms": rq["ms"][key],
+                 "mma_ms": rq["ms"][f"{key}_mma"],
+                 "max_abs_err": max(rq["abs_errs"][g] for g in grads),
+                 "scaled_err": max(rq["errs"][g] for g in grads),
+                 "scaled_err_vs_mma": max(rq["vs_mma"][g] for g in grads),
+                 "plain_ms": rq["plain_ms"], "bound_ms": qb_ms,
+                 "bound_by": qb_by, "library_ms": rq["lib_ms"],
+                 "backward_ms": rq["backward_ms"],
+                 "mma_backward_ms": rq["mma_backward_ms"],
+                 "fold_ms": rq["fold"]["ms"], "cta_rows": rq["rows"][key],
+                 "deterministic": rq["identical"]}
+        rec = {"name": name + "_sm90", **common,
+               "source": "src/repro_torch/kernels/csrc/flash_bwd_sm90.cu",
+               "max_abs_err": max(r["abs_errs"][g] for g in grads),
+               "scaled_err": max(r["errs"][g] for g in grads),
+               "scaled_err_vs_mma": max(r["vs_mma"][g] for g in grads),
+               "ms": r["ms"][key], "ms_samples": r["samples"][key],
+               "mma_ms": r["ms"][f"{key}_mma"],
+               "cta_rows": r["rows"][key], "at_qwen3_heads": qwen3}
+        mma_rec = {"name": name, **common, **MMA_PAGED_NOTE,
+                   "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+                   "max_abs_err": max(r["mma_abs_errs"][g] for g in grads),
+                   "scaled_err": max(r["mma_errs"][g] for g in grads),
+                   "ms": r["ms"][f"{key}_mma"],
+                   "ms_samples": r["samples"][f"{key}_mma"]}
+        recs += [rec, mma_rec]
+        print(f"[kernel] {rec['name']}: {shape}: scaled err "
+              f"{rec['scaled_err']:.3g}; {rec['ms']:.4f} ms [mma.sync body "
+              f"{rec['mma_ms']:.4f} ms, {rec['ms'] / rec['mma_ms']:.3f}x] "
+              f"(rows {rec['cta_rows']}; whole backward with the fold "
+              f"{r['backward_ms']:.4f} ms on the card [mma.sync "
+              f"{r['mma_backward_ms']:.4f}], {r['backward_call_ms']:.4f} ms a "
+              f"call; plain backward {r['plain_ms']:.3f} ms, bound {b_ms:.4f} "
+              f"ms by {b_by}, {lib} {r['lib_ms']:.4f} ms); at qwen3's heads "
+              f"{qwen3['ms']:.4f} ms [mma.sync {qwen3['mma_ms']:.4f}], scaled "
+              f"err {qwen3['scaled_err']:.3g}, rows {qwen3['cta_rows']}, "
+              f"bound {qb_ms:.4f} ms by {qb_by}, SDPA {rq['lib_ms']:.4f} ms",
+              flush=True)
+    f = r["fold"]
     fold_lib = "index_add_ of the live slots' rows into zeroed fp32 pools, dk and dv"
     rec = {"name": "flash_bwd_fold_paged", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "replaces": "src/repro/kernels/flash_attention.py:930",
-           "launches": None, "max_abs_err": fold_err, "ms": fold_ms,
-           "call_ms": fold_call_ms, "plain_ms": fold_plain_ms,
-           "bound_ms": fold_bound[0], "bound_by": fold_bound[1],
-           "library_ms": fold_lib_ms, "library": fold_lib,
-           "shape": c["shape"],
+           "launches": None, "max_abs_err": f["err"], "ms": f["ms"],
+           "call_ms": f["call_ms"], "plain_ms": f["plain_ms"],
+           "bound_ms": f["bound"][0], "bound_by": f["bound"][1],
+           "library_ms": f["lib_ms"], "library": fold_lib,
+           "shape": shape, "at_qwen3_heads": {
+               "shape": shape_q, "ms": rq["fold"]["ms"],
+               "max_abs_err": rq["fold"]["err"],
+               "bound_ms": rq["fold"]["bound"][0],
+               "bound_by": rq["fold"]["bound"][1],
+               "library_ms": rq["fold"]["lib_ms"]},
            "ms_is": "launch_fold_paged: the order sort, the zeroed pools and "
                     "the fold kernel",
            "plain_ms_is": "fold_packed_to_pool of dk and dv, cast to bf16"}
     recs.append(rec)
-    print(f"[kernel] flash_bwd_fold_paged: {c['shape']}: bit-equal to "
-          f"fold_packed_to_pool; {fold_ms:.4f} ms on the card, "
-          f"{fold_call_ms:.4f} ms a call (plain {fold_plain_ms:.3f} ms, bound "
-          f"{fold_bound[0]:.4f} ms by {fold_bound[1]}, {fold_lib} "
-          f"{fold_lib_ms:.4f} ms)", flush=True)
+    print(f"[kernel] flash_bwd_fold_paged: {shape}: bit-equal to "
+          f"fold_packed_to_pool; {f['ms']:.4f} ms on the card, "
+          f"{f['call_ms']:.4f} ms a call (plain {f['plain_ms']:.3f} ms, bound "
+          f"{f['bound'][0]:.4f} ms by {f['bound'][1]}, {fold_lib} "
+          f"{f['lib_ms']:.4f} ms); the sm90 pair + fold "
+          f"{r['ms']['dq'] + r['ms']['dkv'] + f['ms']:.4f} ms against SDPA's "
+          f"backward {r['lib_ms']:.4f} ms", flush=True)
     return recs
 
 
@@ -1898,6 +2038,9 @@ def paged_grad_phase(torch, seed: int) -> dict:
     for name in PAGED_GRAD_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was never launched in the paged-grad path")
+    for name in PAGED_MMA_BODIES:
+        check(launches[name] == 0,
+              f"the paged-grad path launched the mma.sync body {name}")
     for n in ("q", "k_pool", "v_pool"):
         check(bool(torch.isfinite(c[n].grad).all()),
               f"paged-grad path: the {n} gradient is not finite")
@@ -2085,8 +2228,12 @@ def read_launches() -> dict:
 SERVE_KERNELS = ("flash_fwd_sm90", "flash_fwd_paged_sm90",
                  "flash_decode_paged")
 DENSE_SERVE_KERNELS = ("flash_fwd_sm90", "flash_decode")
-PAGED_GRAD_KERNELS = ("flash_fwd_paged_sm90", "flash_bwd_dq_paged",
-                      "flash_bwd_dkv_paged", "flash_bwd_fold_paged")
+PAGED_GRAD_KERNELS = ("flash_fwd_paged_sm90", "flash_bwd_dq_paged_sm90",
+                      "flash_bwd_dkv_paged_sm90", "flash_bwd_fold_paged")
+# flash_bwd.cu's paged pair: the bf16 paged grad path at d 64 / 96 / 128
+# with 64-row q blocks runs the sm90 pair; its records time the mma.sync
+# pair forced beside it
+PAGED_MMA_BODIES = ("flash_bwd_dq_paged", "flash_bwd_dkv_paged")
 TRAIN_KERNELS = ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
 # flash_bwd.cu's contiguous pair and flash_fwd.cu's bf16 forward: their
 # records time the mma.sync body forced beside the sm90 one; no main path
@@ -2097,6 +2244,11 @@ MMA_BODY_NOTE = {
             "shape beside the sm90 body; no main path launches it (fp32 "
             "calls, the parity runs', take its scalar instantiation)"}
 MMA_BODIES = ("flash_fwd", "flash_fwd_paged", "flash_bwd_dq", "flash_bwd_dkv")
+MMA_PAGED_NOTE = {
+    "on_main_path": False,
+    "body": "flash_bwd.cu's paged mma.sync pair, forced (_mma_body) at the "
+            "paged grad shape beside the sm90 pair; no main path launches it "
+            "(fp32 calls and q blocks below 64 rows take it)"}
 MMA_FWD_NOTE = {
     "on_main_path": False,
     "body": "flash_fwd.cu's mma.sync body, forced (_mma_body) at the "
@@ -5945,7 +6097,8 @@ def decode_build_counts(torch, proc, cubin: pathlib.Path) -> dict[str, dict]:
     return counts
 
 
-_BWD_SM90 = re.compile(r"flash_bwd_(dq|dkv)_sm90_kernel<\(int\)(\d+), \(bool\)(\d)>")
+_BWD_SM90 = re.compile(r"flash_bwd_(dq|dkv)_sm90_kernel<\(int\)(\d+), \(bool\)(\d), "
+                       r"\(bool\)(\d)>")
 _FWD_SM90 = re.compile(r"flash_fwd_sm90_kernel<\(int\)(\d+), \(bool\)(\d), "
                        r"\(bool\)(\d), \(bool\)(\d)>")
 # ptxas's notes that it serialized a kernel's wgmma: for registers (C7512),
@@ -5955,12 +6108,13 @@ _PTXAS_SERIAL = re.compile(r"C75(?:12|20).*function '([^']+)'")
 
 def _sm90_key(source: str, kern: str) -> str | None:
     """An sm90 instantiation's short name: ``dq d64 dropout``,
-    ``fwd d96 paged paper``; None for another kernel."""
+    ``dkv d128 paged``, ``fwd d96 paged paper``; None for another kernel."""
     if source == "flash_bwd_sm90":
         m = _BWD_SM90.search(kern)
         if m:
-            kind, d, drop = m.groups()
-            return f"{kind} d{d}{' dropout' if drop == '1' else ''}"
+            kind, d, paged, drop = m.groups()
+            return (f"{kind} d{d}{' paged' if paged == '1' else ''}"
+                    f"{' dropout' if drop == '1' else ''}")
         return None
     m = _FWD_SM90.search(kern)
     if m:
@@ -5971,17 +6125,18 @@ def _sm90_key(source: str, kern: str) -> str | None:
     return None
 
 
-# instantiations of each sm90 source: dq / dkv x d 64, 96, 128 x dropout;
-# d 64, 96, 128 x (paged, contiguous, contiguous with dropout) x variant
-SM90_KERNELS = {"flash_bwd_sm90": 2 * 3 * 2, "flash_fwd_sm90": 3 * 3 * 2}
+# instantiations of each sm90 source: dq / dkv x d 64, 96, 128 x (paged,
+# contiguous, contiguous with dropout); d 64, 96, 128 x (paged,
+# contiguous, contiguous with dropout) x variant
+SM90_KERNELS = {"flash_bwd_sm90": 2 * 3 * 3, "flash_fwd_sm90": 3 * 3 * 2}
 
 
 def sm90_build_counts(proc, cubin: pathlib.Path,
                       source: str = "flash_bwd_sm90") -> dict[str, dict]:
     """Registers, spills and SASS counts of every instantiation of an sm90
     source (``SM90_KERNELS``: ``flash_bwd_dq_sm90_kernel`` /
-    ``flash_bwd_dkv_sm90_kernel`` at d 64, 96, 128 with and without
-    dropout; ``flash_fwd_sm90_kernel`` at d 64, 96, 128, paged and
+    ``flash_bwd_dkv_sm90_kernel`` at d 64, 96, 128, paged and contiguous
+    with and without dropout; ``flash_fwd_sm90_kernel`` at d 64, 96, 128, paged and
     contiguous with and without dropout, both variants), from a ``-Xptxas
     -v`` compile of ``<source>.cu`` to a cubin (started beside the build by
     ``_cubin``): each must have wgmma (``HGMMA``) and TMA tile loads
@@ -6338,7 +6493,7 @@ def main() -> int:
     check(all(rec["launches"] == 0 for rec in kernels
               if not rec.get("on_main_path", True)),
           "a main path launched an mma.sync body of the bf16 forward or of "
-          "the contiguous backward pair")
+          "the backward pair (contiguous or paged)")
 
     record = {"card": card, "build_s": build_s, "hmma": hmma,
               "bwd_bf16_build": hmma_bwd, "bwd_sm90_build": sm90_build,

@@ -90,19 +90,9 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int CONSUMERS = 2;               // consumer warpgroups
-constexpr int THREADS_ALL = (CONSUMERS + 1) * 128;
-constexpr int WARPS_ALL = THREADS_ALL / 32;
 constexpr int MAX_WALK = 1024;             // 64-key tiles of one walk
 constexpr int MAX_SPLITS = 8;              // CTAs of one (portable) cluster
 constexpr int META_BYTES = 3 * 64 * 4;     // per stage: kv_pos, kv_seg, kv_mask (int32)
-constexpr int MAX_PAGES = 8;               // pages of one 64-key tile (page 8)
-
-// A warpgroup's word for one kv tile: bit j of byte 0 / 1 / 2 = layout block
-// j of the tile (one page, or the whole contiguous tile) runs / takes the
-// geometric terms / takes the data terms; TAIL: the tile reaches past sk (a
-// key axis of one block shorter than 64), so its columns are bounded
-constexpr uint32_t TAIL = 1u << 24;
 
 struct FwdParams {
   CUtensorMap tq;            // (d, sq, b * hq)
@@ -152,25 +142,6 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
 }
 
-// wait until the phase of parity `parity` has completed; a ring that never
-// fills (a transaction count that cannot be met) traps after ~10 s of
-// waiting instead of hanging the card
-__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, unsigned parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
 // every thread of every CTA of the cluster (not .aligned: the roles reach
 // it on their own paths)
 __device__ __forceinline__ void cluster_sync() {
@@ -183,48 +154,6 @@ __device__ __forceinline__ float ld_cluster(const float* local, uint32_t rank) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
   return v;
-}
-
-// Ordered compaction of the `n` kv tiles into the walk: tile indices in
-// widx, each warpgroup's word in wb0 / wb1, tiles whose words have no
-// running block left out; by every thread of the CTA. The count lands in
-// counts[WARPS_ALL], where both roles read it
-template <bool Paged, typename F>
-__device__ __forceinline__ void build_walk(uint32_t* widx, uint32_t* wb0, uint32_t* wb1,
-                                           int* wpages, int* counts, int n, F words) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  int count = 0;
-  for (int base = 0; base < n; base += THREADS_ALL) {
-    const int i = base + tid;
-    uint32_t w0 = 0u, w1 = 0u;
-    int pages[MAX_PAGES];
-    if (i < n) words(i, w0, w1, pages);
-    const bool runs = ((w0 | w1) & 0xffu) != 0u;
-    const unsigned bal = __ballot_sync(0xffffffffu, runs);
-    if (lane == 0) counts[warp] = __popc(bal);
-    __syncthreads();
-    int off = count, total = 0;
-    // not unrolled: before the roles split, registers are the producer's few
-#pragma unroll 1
-    for (int w = 0; w < WARPS_ALL; ++w) {
-      const int c = counts[w];
-      off += w < warp ? c : 0;
-      total += c;
-    }
-    if (runs) {
-      const int at = off + __popc(bal & ((1u << lane) - 1u));
-      widx[at] = (uint32_t)i;
-      wb0[at] = w0;
-      wb1[at] = w1;
-      if constexpr (Paged) {
-#pragma unroll
-        for (int j = 0; j < MAX_PAGES; ++j) wpages[at * MAX_PAGES + j] = pages[j];
-      }
-    }
-    count += total;
-    if (tid == 0) counts[WARPS_ALL] = count;
-    __syncthreads();
-  }
 }
 
 template <int D, bool Paged, bool Dropout, bool Paper>
@@ -265,40 +194,12 @@ __global__ void __launch_bounds__(THREADS_ALL, 1)
     mbar_init(q_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  // a warpgroup's word for kv tile t of layout row qb (0: the row is past
-  // nq); paged, ``pages`` holds the tile's slots' pages (< 0: dead)
-  auto word = [&](int qb, int t, const int (&pages)[MAX_PAGES]) -> uint32_t {
-    if (qb >= p.nq) return 0u;
-    uint32_t w = 0u;
-    if constexpr (Paged) {
-      const int G = BOX >> p.lg_ps;
-#pragma unroll 1
-      for (int j = 0; j < G; ++j) {
-        const int s = t * G + j;
-        if (s >= p.nk) break;                       // dead slots of a ragged last tile
-        const uint32_t e = terms(mp, b, qb, s);
-        if (!(e & 1u) || pages[j] < 0) continue;
-        w |= (1u | (((e >> 1) & 1u) << 8) | (((e >> 2) & 1u) << 16)) << j;
-      }
-    } else {
-      const uint32_t e = terms(mp, b, qb, t);
-      w = (e & 1u) | (((e >> 1) & 1u) << 8) | (((e >> 2) & 1u) << 16);
-      if (w != 0u && (t + 1) * BOX > p.sk) w |= TAIL;
-    }
-    return w;
-  };
   build_walk<Paged>(widx, wb0, wb1, wpages, counts, p.ntiles,
                     [&](int t, uint32_t& w0, uint32_t& w1, int (&pages)[MAX_PAGES]) {
-    if constexpr (Paged) {                          // independent loads, issued together
-      const int G = BOX >> p.lg_ps;
-#pragma unroll
-      for (int j = 0; j < MAX_PAGES; ++j) {
-        const int s = t * G + j;
-        pages[j] = j < G && s < p.nk ? p.page_list[(long long)b * p.nk + s] : -1;
-      }
-    }
-    w0 = word(qb0, t, pages);
-    if (two) w1 = word(qb0 + 1, t, pages);
+    if constexpr (Paged) tile_pages(p.page_list, b, p.nk, t, p.lg_ps, pages);
+    // each warpgroup's word for kv tile t of its layout row
+    w0 = tile_word<Paged>(mp, b, qb0, t, p.nq, p.nk, p.sk, p.lg_ps, pages);
+    if (two) w1 = tile_word<Paged>(mp, b, qb0 + 1, t, p.nq, p.nk, p.sk, p.lg_ps, pages);
   });
   // the walk's length: read from shared memory by each role where needed
   const int* walk_len = counts + WARPS_ALL;
@@ -345,22 +246,18 @@ __global__ void __launch_bounds__(THREADS_ALL, 1)
         }
       }
       __syncwarp();                                 // the bytes are expected first
-      // box `lane`: K or V (lane & 1), 64-column chunk nb, and (paged) page jj
-      const int nb = (lane >> 1) % S::NB;
-      const int off = nb * BOX_BYTES;
-      unsigned char* dst = sm + ((lane & 1) ? S::v0 : S::k0) + s * S::TILE + off;
-      const CUtensorMap* map = (lane & 1) ? &p.tv : &p.tk;
+      // box `lane`: K or V (lane & 1), 64-column chunk nb, and (paged) page
+      // slot jj (paged_kv_box)
       if constexpr (Paged) {
-        const int jj = (lane >> 1) / S::NB;
-        if (jj < (BOX >> p.lg_ps)) {
-          // a page that does not run (SKIP, dead, past the list) is asked
-          // past the pool: zero-filled, never read
-          const uint32_t live = (wb0[i] | wb1[i]) & 0xffu;
-          const int row = (live >> jj) & 1u ? wpages[i * MAX_PAGES + jj] << p.lg_ps
-                                            : p.num_pages << p.lg_ps;
-          tma_box(dst + (jj << p.lg_ps) * 128, map, &full[s], nb * BOX, row, kvh);
-        }
+        const int jj = box_page<S::NB>(lane);
+        const uint32_t live = (wb0[i] | wb1[i]) & 0xffu;
+        const int page = jj < MAX_PAGES && ((live >> jj) & 1u) ? wpages[i * MAX_PAGES + jj] : 0;
+        paged_kv_box<S::NB>(lane, sm + S::k0 + s * S::TILE, sm + S::v0 + s * S::TILE, &p.tk,
+                            &p.tv, &full[s], live, page, p.lg_ps, p.num_pages, kvh);
       } else {
+        const int nb = (lane >> 1) % S::NB;
+        unsigned char* dst = sm + ((lane & 1) ? S::v0 : S::k0) + s * S::TILE + nb * BOX_BYTES;
+        const CUtensorMap* map = (lane & 1) ? &p.tv : &p.tk;
         if (lane < 2 * S::NB) tma_box(dst, map, &full[s], nb * BOX, t * BOX, bb * p.hkv + kvh);
       }
     }
@@ -778,8 +675,8 @@ int run(int dtype, int paged, int head_dim, const void* q, const void* k, const 
   cudaError_t err;
   if ((err = make_map(&p.tq, q, head_dim, sq, b * hq)) != cudaSuccess) return (int)err;
   if (paged) {
-    err = make_map(&p.tk, k, head_dim, num_pages * block_k, hkv, block_k);
-    if (err == cudaSuccess) err = make_map(&p.tv, v, head_dim, num_pages * block_k, hkv, block_k);
+    err = make_paged_map(&p.tk, k, head_dim, num_pages, block_k, hkv);
+    if (err == cudaSuccess) err = make_paged_map(&p.tv, v, head_dim, num_pages, block_k, hkv);
   } else {
     err = make_map(&p.tk, k, head_dim, sk, b * hkv);
     if (err == cudaSuccess) err = make_map(&p.tv, v, head_dim, sk, b * hkv);

@@ -3,8 +3,10 @@
 // flash_fwd_sm90.cu (the forward and the paged prefill). One definition of
 // the PTX wrappers (mbarriers, TMA tile and bulk copies, wgmma in its SS and
 // RS forms with 128-byte-swizzle descriptors, the accumulator -> A-fragment
-// conversion), of the branch-free element mask and of the host's tensor
-// maps, so the kernels that share them cannot drift apart.
+// conversion), of the branch-free element mask, of the paged K/V pieces
+// (the per-page tile words, the walk builder, one TMA box a page with a page
+// that does not run asked past the pool) and of the host's tensor maps, so
+// the kernels that share them cannot drift apart.
 //
 // wgmma's accumulator layout, within a warp, is mma.sync's C fragment
 // repeated every 8 columns: register x of a 64 x N accumulator holds row
@@ -24,6 +26,16 @@ using namespace flash;
 constexpr int BOX = 64;                    // rows and columns of one TMA box
 constexpr int BOX_BYTES = BOX * BOX * 2;   // 8 KiB, 128-byte rows
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int CONSUMERS = 2;               // consumer warpgroups
+constexpr int THREADS_ALL = (CONSUMERS + 1) * 128;
+constexpr int WARPS_ALL = THREADS_ALL / 32;
+constexpr int MAX_PAGES = 8;               // pages of one 64-key tile (page 8)
+
+// A warpgroup's word for one kv tile: bit j of byte 0 / 1 / 2 = layout block
+// j of the tile (one page, or the whole contiguous tile) runs / takes the
+// geometric terms / takes the data terms; TAIL: the tile reaches past sk (a
+// key axis of one block shorter than 64), so its columns are bounded
+constexpr uint32_t TAIL = 1u << 24;
 
 // --------------------------------------------------------------------------
 // PTX: mbarriers, TMA, wgmma
@@ -54,6 +66,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
         : "=r"(done)
         : "r"(a), "r"(parity)
         : "memory");
+  }
+}
+// wait until the phase of parity `parity` has completed; a ring that never
+// fills (a transaction count that cannot be met) traps after ~10 s of
+// waiting instead of hanging the card. (The backward pair waits with
+// mbar_wait: with this wait's clock reads in its consumers' loops, ptxas
+// spilled registers in most of its instantiations.)
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > (1ll << 34)) __trap();
   }
 }
 // one 64 x 64 box of a 3-D tensor map at (column, row, head)
@@ -239,6 +271,116 @@ __device__ __forceinline__ uint32_t terms(const MaskParams& mp, int b, int qi, i
   return 1u | (geo ? 2u : 0u) | (data ? 4u : 0u);
 }
 
+// --------------------------------------------------------------------------
+// paged K/V: a 64-key tile is 64 / ps page slots of the page list
+// --------------------------------------------------------------------------
+
+// A warpgroup's word for kv tile t of layout row qb (0: the row is past
+// nq). Paged: ``pages`` holds the tile's slots' pages (< 0: dead), the
+// layout block is one page of 2^lg_ps rows and nk counts page slots;
+// contiguous: one block, nk blocks over sk keys
+template <bool Paged>
+__device__ __forceinline__ uint32_t tile_word(const MaskParams& mp, int b, int qb, int t, int nq,
+                                              int nk, int sk, int lg_ps,
+                                              const int (&pages)[MAX_PAGES]) {
+  if (qb >= nq) return 0u;
+  uint32_t w = 0u;
+  if constexpr (Paged) {
+    const int G = BOX >> lg_ps;
+#pragma unroll 1
+    for (int j = 0; j < G; ++j) {
+      const int s = t * G + j;
+      if (s >= nk) break;                           // dead slots of a ragged last tile
+      const uint32_t e = terms(mp, b, qb, s);
+      if (!(e & 1u) || pages[j] < 0) continue;
+      w |= (1u | (((e >> 1) & 1u) << 8) | (((e >> 2) & 1u) << 16)) << j;
+    }
+  } else {
+    const uint32_t e = terms(mp, b, qb, t);
+    w = (e & 1u) | (((e >> 1) & 1u) << 8) | (((e >> 2) & 1u) << 16);
+    if (w != 0u && (t + 1) * BOX > sk) w |= TAIL;
+  }
+  return w;
+}
+
+// the pages of paged kv tile t's slots (-1: past the tile's 64 / ps slots or
+// past the list's nk), independent loads issued together
+__device__ __forceinline__ void tile_pages(const int32_t* page_list, int b, int nk, int t,
+                                           int lg_ps, int (&pages)[MAX_PAGES]) {
+  const int G = BOX >> lg_ps;
+#pragma unroll
+  for (int j = 0; j < MAX_PAGES; ++j) {
+    const int s = t * G + j;
+    pages[j] = j < G && s < nk ? page_list[(long long)b * nk + s] : -1;
+  }
+}
+
+// Ordered compaction of the `n` kv tiles into the walk: tile indices in
+// widx, each warpgroup's word in wb0 / wb1, tiles whose words have no
+// running block left out; by every thread of the CTA. With Paged, each
+// tile's MAX_PAGES pages go to wpages too. The count lands in
+// counts[WARPS_ALL], where both roles read it
+template <bool Paged, typename F>
+__device__ __forceinline__ void build_walk(uint32_t* widx, uint32_t* wb0, uint32_t* wb1,
+                                           int* wpages, int* counts, int n, F words) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  int count = 0;
+  for (int base = 0; base < n; base += THREADS_ALL) {
+    const int i = base + tid;
+    uint32_t w0 = 0u, w1 = 0u;
+    int pages[MAX_PAGES];
+    if (i < n) words(i, w0, w1, pages);
+    const bool runs = ((w0 | w1) & 0xffu) != 0u;
+    const unsigned bal = __ballot_sync(0xffffffffu, runs);
+    if (lane == 0) counts[warp] = __popc(bal);
+    __syncthreads();
+    int off = count, total = 0;
+    // not unrolled: before the roles split, registers are the producer's few
+#pragma unroll 1
+    for (int w = 0; w < WARPS_ALL; ++w) {
+      const int c = counts[w];
+      off += w < warp ? c : 0;
+      total += c;
+    }
+    if (runs) {
+      const int at = off + __popc(bal & ((1u << lane) - 1u));
+      widx[at] = (uint32_t)i;
+      wb0[at] = w0;
+      wb1[at] = w1;
+      if constexpr (Paged) {
+#pragma unroll
+        for (int j = 0; j < MAX_PAGES; ++j) wpages[at * MAX_PAGES + j] = pages[j];
+      }
+    }
+    count += total;
+    if (tid == 0) counts[WARPS_ALL] = count;
+    __syncthreads();
+  }
+}
+
+// page slot of box `bx` of a paged 64-key tile of K and V (see paged_kv_box)
+template <int NB>
+__device__ __forceinline__ int box_page(int bx) {
+  return (bx >> 1) / NB;
+}
+// Box `bx` of a paged 64-key tile of K and V, at k_dst / v_dst (NB 64-column
+// boxes of 64 rows each): K or V (bx & 1), 64-column chunk (bx >> 1) % NB,
+// page slot jj = box_page<NB>(bx), whose page is `page`; nothing past the
+// tile's 64 / ps slots. A slot whose bit of `live` is clear (SKIP, dead,
+// past the list) is asked past the pool: TMA zero-fills it without reading
+// memory and still counts its bytes, so the page is never addressed
+template <int NB>
+__device__ __forceinline__ void paged_kv_box(int bx, unsigned char* k_dst, unsigned char* v_dst,
+                                             const CUtensorMap* tk, const CUtensorMap* tv,
+                                             uint64_t* bar, uint32_t live, int page, int lg_ps,
+                                             int num_pages, int kvh) {
+  const int nb = (bx >> 1) % NB, jj = box_page<NB>(bx);
+  if (jj >= (BOX >> lg_ps)) return;
+  const int row = (live >> jj) & 1u ? page << lg_ps : num_pages << lg_ps;
+  unsigned char* dst = ((bx & 1) ? v_dst : k_dst) + nb * BOX_BYTES + (jj << lg_ps) * 128;
+  tma_box(dst, (bx & 1) ? tv : tk, bar, nb * BOX, row, kvh);
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -275,6 +417,12 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int d, int rows, int he
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+// a page pool (heads, num_pages, ps, d) read as (d, num_pages * ps, heads)
+// in boxes of one page; rows from num_pages * ps on read as zero
+cudaError_t make_paged_map(CUtensorMap* map, const void* pool, int d, int num_pages, int ps,
+                           int heads) {
+  return make_map(map, pool, d, num_pages * ps, heads, ps);
 }
 
 }  // namespace

@@ -37,11 +37,12 @@ runs is a static rule. The forward's, ``forward_body``: bf16 at head_dim
 64-key blocks (or one), or pages of 8-64 rows, runs the wgmma/TMA body of
 ``flash_fwd_sm90.cu`` (counted as ``flash_fwd_sm90`` /
 ``flash_fwd_paged_sm90``). The backward pair's, ``backward_body``: the
-contiguous bf16 pair at head_dim 64, 96 or 128 over 64 x 64 layout blocks
-runs ``flash_bwd_sm90.cu`` (``flash_bwd_dq_sm90`` /
-``flash_bwd_dkv_sm90``). Every other call on the card runs the
-``flash_fwd.cu`` / ``flash_bwd.cu`` bodies (mma.sync in bf16, the scalar
-parity body in fp32).
+bf16 pair at head_dim 64, 96 or 128 over 64-row q blocks and 64-key
+blocks, or paged over pages of 8-64 rows, runs ``flash_bwd_sm90.cu``
+(``flash_bwd_dq_sm90`` / ``flash_bwd_dkv_sm90``; paged
+``flash_bwd_dq_paged_sm90`` / ``flash_bwd_dkv_paged_sm90``). Every other
+call on the card runs the ``flash_fwd.cu`` / ``flash_bwd.cu`` bodies
+(mma.sync in bf16, the scalar parity body in fp32).
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (dropout_threshold, full_dropout_keep_mask,
                                      gather_pages, repeat_kv)
 from repro_torch.kernels.tuning import (KERNEL_HEAD_DIMS, MAX_TILE,
-                                        ROW_ALIGN, SM90_BWD_HEAD_DIMS,
+                                        PAGE_SIZES, ROW_ALIGN,
+                                        SM90_BWD_HEAD_DIMS,
                                         SM90_FWD_HEAD_DIMS, SM90_FWD_MAX_WALK,
                                         SM90_MAX_WALK, SMEM_PER_BLOCK,
                                         attention_working_set_bytes,
@@ -69,6 +71,7 @@ LAUNCHES = {"flash_fwd": 0, "flash_fwd_paged": 0, "flash_fwd_sm90": 0,
             "flash_fwd_paged_sm90": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "flash_bwd_dq_sm90": 0, "flash_bwd_dkv_sm90": 0,
             "flash_bwd_dq_paged": 0, "flash_bwd_dkv_paged": 0,
+            "flash_bwd_dq_paged_sm90": 0, "flash_bwd_dkv_paged_sm90": 0,
             "flash_bwd_fold_paged": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -121,9 +124,12 @@ def _sm90_lib():
     if not getattr(lib, "_typed", False):
         c_int, c_p = ctypes.c_int, ctypes.c_void_p
         args = ([c_int] * 2 + [c_p] * 10 + [ctypes.c_longlong] + [c_p] * 5
-                + [c_int] * 13 + _DROPOUT_ARGS + [ctypes.c_float, c_p, c_int])
+                + [c_int] * 13 + _DROPOUT_ARGS + [ctypes.c_float, c_p])
         for fn in (lib.flash_bwd_sm90_dq, lib.flash_bwd_sm90_dkv):
-            fn.argtypes = args
+            fn.argtypes = args + [c_int]          # the CTA tile
+            fn.restype = c_int
+        for fn in (lib.flash_bwd_sm90_dq_paged, lib.flash_bwd_sm90_dkv_paged):
+            fn.argtypes = args + [c_p, c_int, c_int]   # page list, num_pages, tile
             fn.restype = c_int
         lib._typed = True
     return lib
@@ -161,21 +167,26 @@ def forward_body(*, on_card: bool, dtype: torch.dtype, head_dim: int,
 def backward_body(*, on_card: bool, dtype: torch.dtype, head_dim: int,
                   block_q: int, block_k: int, paged: bool, nq: int = 1,
                   nk: int = 1) -> str:
-    """Which body computes a backward pair call: ``"plain"`` for CPU
-    tensors; on the card ``"sm90"`` (``csrc/flash_bwd_sm90.cu``: wgmma,
-    TMA, a producer warp) for contiguous bf16 K/V at head_dim 64, 96 or 128
-    over 64 x 64 layout blocks and at most ``SM90_MAX_WALK`` blocks a row
-    or column; ``"mma"`` (``flash_bwd.cu``'s mma.sync body) for every other
-    bf16 call (paged, head_dim 16 or 32, smaller tiles) and ``"scalar"``
-    (its fp32 parity body) for fp32. A static rule: no call is ever
-    retried on another body."""
+    """Which body computes a backward pair call (``flash_attention_backward``,
+    or with ``paged`` ``flash_prefill_paged_backward``, whose ``block_k`` is
+    the page and ``nk`` the page slots): ``"plain"`` for CPU tensors; on the
+    card ``"sm90"`` (``csrc/flash_bwd_sm90.cu``: wgmma, TMA, a producer
+    warp) for bf16 at head_dim 64, 96 or 128 over 64-row q blocks whose key
+    blocks are 64 (contiguous) or pages of 8, 16, 32 or 64 rows, and whose
+    walks are at most ``SM90_MAX_WALK`` long: the q blocks of a layout
+    column and the 64-key tiles of a row (paged: ``ceil(nk * page / 64)``);
+    ``"mma"`` (``flash_bwd.cu``'s mma.sync body) for every other bf16 call
+    (head_dim 16 or 32, smaller q blocks or key blocks) and ``"scalar"``
+    (its fp32 parity body) for fp32. A static rule: no call is ever retried
+    on another body."""
     if not on_card:
         return "plain"
     if dtype != torch.bfloat16:
         return "scalar"
-    if (not paged and head_dim in SM90_BWD_HEAD_DIMS
-            and block_q == block_k == MAX_TILE
-            and max(nq, nk) <= SM90_MAX_WALK):
+    tiles = -(-nk * block_k // MAX_TILE) if paged else nk
+    k_ok = block_k in PAGE_SIZES if paged else block_k == MAX_TILE
+    if (head_dim in SM90_BWD_HEAD_DIMS and block_q == MAX_TILE and k_ok
+            and max(nq, tiles) <= SM90_MAX_WALK):
         return "sm90"
     return "mma"
 
@@ -719,9 +730,29 @@ def launch_dkv(ops: BackwardOperands, *, _mma_body: bool = False
     return dk, dv
 
 
-def launch_dq_paged(ops: BackwardOperands) -> torch.Tensor:
-    """The paged dq kernel: dq in q's dtype, (b, hq, sq, d)."""
+def _page_groups(ops: BackwardOperands) -> int:
+    """The 64-key page groups of a paged call: the sm90 dkv grid's key axis."""
+    T, ps = ops.extra[-1].shape[1], ops.tensors[1].shape[2]
+    return -(-T * ps // MAX_TILE)
+
+
+def launch_dq_paged(ops: BackwardOperands, *, _mma_body: bool = False
+                    ) -> torch.Tensor:
+    """The paged dq kernel: dq in q's dtype, (b, hq, sq, d). ``ops.body``
+    picks the body; ``_mma_body`` forces flash_bwd.cu's on an sm90 call
+    (the card's tests and chip_smoke hold the two bodies against each
+    other)."""
     dq = torch.empty_like(ops.tensors[0])
+    if ops.body == "sm90" and not _mma_body:
+        b, hq, _, nq, _ = ops.grid
+        lib = _sm90_lib()
+        err = lib.flash_bwd_sm90_dq_paged(
+            ops.dtype, ops.head_dim, *map(_ptr, ops.tensors), _ptr(dq), None,
+            *ops.args, sm90_bwd_rows(b, hq, nq, _num_sms(dq.device)))
+        build.check(err, lib, "flash_bwd_sm90_error_string",
+                    "flash_bwd_dq_paged_sm90")
+        LAUNCHES["flash_bwd_dq_paged_sm90"] += 1
+        return dq
     lib = _bwd_lib()
     err = lib.flash_bwd_dq_paged(ops.dtype, ops.head_dim,
                                  *map(_ptr, ops.tensors), _ptr(dq), None,
@@ -755,15 +786,28 @@ def launch_fold_paged(dk: torch.Tensor, dv: torch.Tensor,
     return dk_pool, dv_pool
 
 
-def launch_dkv_paged(ops: BackwardOperands
+def launch_dkv_paged(ops: BackwardOperands, *, _mma_body: bool = False
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """The paged dkv kernel: fp32 dk, dv summed over each GQA group in the
-    packed page-aligned layout (b, hkv, T*ps, d)."""
+    packed page-aligned layout (b, hkv, T*ps, d); ``_mma_body`` as in
+    ``launch_dq_paged``."""
     q, k_pool = ops.tensors[0], ops.tensors[1]
     T, ps = ops.extra[-1].shape[1], k_pool.shape[2]
     shape = (q.shape[0], k_pool.shape[0], T * ps, ops.head_dim)
     dk = torch.empty(shape, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(dk)
+    if ops.body == "sm90" and not _mma_body:
+        b, _, hkv, _, _ = ops.grid
+        lib = _sm90_lib()
+        err = lib.flash_bwd_sm90_dkv_paged(
+            ops.dtype, ops.head_dim, *map(_ptr, ops.tensors), _ptr(dk),
+            _ptr(dv), *ops.args,
+            sm90_bwd_rows(b, hkv, _page_groups(ops), _num_sms(dk.device),
+                          kernel="dkv", head_dim=ops.head_dim))
+        build.check(err, lib, "flash_bwd_sm90_error_string",
+                    "flash_bwd_dkv_paged_sm90")
+        LAUNCHES["flash_bwd_dkv_paged_sm90"] += 1
+        return dk, dv
     lib = _bwd_lib()
     err = lib.flash_bwd_dkv_paged(ops.dtype, ops.head_dim,
                                   *map(_ptr, ops.tensors), _ptr(dk), _ptr(dv),
@@ -871,14 +915,18 @@ def flash_prefill_paged_backward(
     q_positions: torch.Tensor | None = None,
     kv_positions: torch.Tensor | None = None,
     block_q: int,
+    _mma_body: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (dq, dk_pool, dv_pool) of the paged prefill from the
     forward's residuals: dq in q's dtype, the pool gradients in the pools'
     dtype. On the card: D = rowsum(dO∘O) in PyTorch, the paged dq kernel
     (one CTA per (b, hq, q-block), kv pages through ``page_list``), the
-    paged dkv kernel (GQA group summed in registers, packed fp32 rows),
-    then the fold kernel into pool shape; nothing on that path waits on
-    the card. In bf16 the pair runs on the tensor cores and gathers
+    paged dkv kernel (one CTA per (b, hkv, 64-key page group), GQA group
+    summed in registers, packed fp32 rows), then the fold kernel into pool
+    shape; nothing on that path waits on the card. The pair runs on the
+    body ``backward_body`` names (``_mma_body`` forces flash_bwd.cu's on an
+    sm90 call): in bf16 on the tensor cores (wgmma at d 64 / 96 / 128 over
+    64-row q blocks, mma.sync otherwise), gathering
     ``tuning.fwd_pages_per_tile(ps)`` pages into a 64-key tile, so the page
     size must be 8, 16, 32 or 64 (any other raises before launch)."""
     kw = dict(scale=scale, causal=causal, window=window,
@@ -893,7 +941,7 @@ def flash_prefill_paged_backward(
         raise ValueError("the paged layout is (b, nq, T)")
     ops = prepare_backward(q, k_pool, v_pool, o, do, m, l, None, block_layout,
                            q_offset=0, block_k=ps, page_list=page_list, **kw)
-    dq = launch_dq_paged(ops)
-    dk, dv = launch_dkv_paged(ops)
+    dq = launch_dq_paged(ops, _mma_body=_mma_body)
+    dk, dv = launch_dkv_paged(ops, _mma_body=_mma_body)
     return (dq, *launch_fold_paged(dk, dv, ops.extra[-1], num_pages,
                                    k_pool.dtype))

@@ -305,7 +305,8 @@ def sm90_bwd_rows(batch: int, heads: int, blocks: int,
                   head_dim: int = 64) -> int:
     """The CTA tile of the sm90 backward pair (``csrc/flash_bwd_sm90.cu``)
     in rows: dq passes (b, hq, nq), dkv (b, hkv, nk), nq and nk in 64-row
-    layout blocks. 128 (two layout blocks, one per consumer warpgroup,
+    layout blocks (the paged pair: dq (b, hq, nq), dkv (b, hkv, 64-key page
+    groups, ``ceil(T * page / 64)``)). 128 (two layout blocks, one per consumer warpgroup,
     both reading every stage of the ring) where that grid, ``batch * heads
     * ceil(blocks / 2)`` CTAs of one per SM, still gives every SM a CTA;
     else 64 (both warpgroups on the same 64 rows, taking alternate tiles

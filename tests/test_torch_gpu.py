@@ -10,7 +10,10 @@ rows, dead and SKIP pages; contiguous: ragged blocks, windows, kv_mask;
 every head dim, GQA 1/4/6, splits 1/6/8, two calls bit-identical, 9
 splits refused), the paged dq and dkv kernels with the fold
 into pool shape, on tensor cores in bf16 with several pages to a kv tile,
-and with no host sync), the differentiable ops and a train step on the card
+and with no host sync (the sm90 paged pair at pages 8-64, head dims 64 /
+96 / 128, GQA n_rep 1 / 4 / 5 / 8, dead slots, shared pages and SKIP
+pages inside live page groups, both CTA tiles, against the plain backward
+and the mma.sync pair), the differentiable ops and a train step on the card
 against the CPU, and the serving engine (paged and dense) on the card
 against the same engine on the CPU (and refusing pages its kernels do not
 take); the MoE layer on the card against the CPU (fp32), bit-identical
@@ -224,6 +227,19 @@ def _bwd_kernels(dtype, d, block_q=64, block_k=64):
                             block_q=block_q, block_k=block_k, paged=False)
     end = "_sm90" if body == "sm90" else ""
     return f"flash_bwd_dq{end}", f"flash_bwd_dkv{end}"
+
+
+def _paged_bwd_kernels(dtype, d, block_q, page_size, layout):
+    """The launch counters of the paged backward pair body that
+    ``fa.backward_body`` picks for a call over ``layout`` (b, nq, T): the
+    sm90 pair in bf16 at d 64 / 96 / 128 over 64-row q blocks,
+    flash_bwd.cu's otherwise."""
+    nq, nk = layout.shape[-2:]
+    body = fa.backward_body(on_card=True, dtype=dtype, head_dim=d,
+                            block_q=block_q, block_k=page_size, paged=True,
+                            nq=nq, nk=nk)
+    end = "_sm90" if body == "sm90" else ""
+    return f"flash_bwd_dq_paged{end}", f"flash_bwd_dkv_paged{end}"
 
 
 _FWD_COUNTERS = ("flash_fwd", "flash_fwd_sm90", "flash_fwd_paged",
@@ -1301,8 +1317,8 @@ def test_flash_bwd_paged_matches_plain(cuda, dtype, page_size):
     n0 = dict(fa.LAUNCHES)
     got = fa.flash_prefill_paged_backward(*res, **call)
     torch.cuda.synchronize()
-    for name in ("flash_bwd_dq_paged", "flash_bwd_dkv_paged",
-                 "flash_bwd_fold_paged"):
+    names = _paged_bwd_kernels(dtype, q.shape[-1], bq, page_size, layout)
+    for name in (*names, "flash_bwd_fold_paged"):
         assert fa.LAUNCHES[name] == n0[name] + 1
     want = fa.flash_prefill_paged_backward_plain(*res, **call)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
@@ -1403,8 +1419,8 @@ def test_flash_bwd_paged_bf16_page_groups_match_plain(cuda, d, page_size,
     n0 = dict(fa.LAUNCHES)
     got = fa.flash_prefill_paged_backward(*res, **call)
     torch.cuda.synchronize()
-    for name in ("flash_bwd_dq_paged", "flash_bwd_dkv_paged",
-                 "flash_bwd_fold_paged"):
+    names = _paged_bwd_kernels(torch.bfloat16, d, block_q, page_size, res[-1])
+    for name in (*names, "flash_bwd_fold_paged"):
         assert fa.LAUNCHES[name] == n0[name] + 1
     want = fa.flash_prefill_paged_backward_plain(*res, **call)
     for g, w in zip(got, want):
@@ -1461,6 +1477,153 @@ def test_paged_backward_never_waits_on_the_card(cuda, dtype):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+
+
+# the sm90 paged pair (csrc/flash_bwd_sm90.cu, Paged = true)
+def _sm90_paged_grad_case(cuda, d, page_size, n_rep, window=None, seed=0):
+    """bf16, two rows of 128 q rows (two 64-row q blocks). Row 0 packs
+    document A (span 260, 70 chunk rows) and document B (span 90, 40 rows)
+    with a dead slot between their pages; row 1 holds document C (span 200,
+    100 rows). A's, B's and C's first pages are one pool page (shared
+    within and across rows); every row ends in dead slots, as many as make
+    T no multiple of the pages of a 64-key tile; padded q rows have no key.
+    GQA n_rep over 2 kv heads (1 at n_rep 8). A ``window`` makes the pages
+    behind it SKIP inside page groups whose other pages run."""
+    gen = torch.Generator().manual_seed(seed + 10 * page_size + d + n_rep
+                                        + (window or 0))
+    hkv = 1 if n_rep == 8 else 2
+    hq, sq = hkv * n_rep, 128
+    g = tuning.fwd_pages_per_tile(page_size)
+    rows = [[(260, 70), (90, 40)], [(200, 100)]]
+    npg = lambda span: -(-span // page_size)  # noqa: E731
+    used = [sum(npg(s) for s, _ in docs) + len(docs) - 1 for docs in rows]
+    T = max(used) + 2
+    while g > 1 and T % g == 0:
+        T += 1
+    num_pages = sum(npg(s) for docs in rows for s, _ in docs) + 6
+    pages = torch.randperm(num_pages, generator=gen).int()
+    page_list = torch.full((2, T), -1, dtype=torch.int32)
+    kv_seg = torch.full((2, T * page_size), M.SEG_PAD_KV, dtype=torch.int32)
+    kv_pos = torch.full((2, T * page_size), M.POS_PAD, dtype=torch.int32)
+    q_seg = torch.full((2, sq), M.SEG_PAD_Q, dtype=torch.int32)
+    q_pos = torch.full((2, sq), M.POS_PAD, dtype=torch.int32)
+    nxt = 1
+    for r, docs in enumerate(rows):
+        slot = row = 0
+        for s, (span, n) in enumerate(docs):
+            np_ = npg(span)
+            page_list[r, slot] = pages[0]                 # the shared page
+            page_list[r, slot + 1:slot + np_] = pages[nxt:nxt + np_ - 1]
+            nxt += np_ - 1
+            lo = slot * page_size
+            kv_seg[r, lo:lo + span] = s
+            kv_pos[r, lo:lo + span] = torch.arange(span)
+            q_seg[r, row:row + n] = s
+            q_pos[r, row:row + n] = torch.arange(span - n, span)
+            slot, row = slot + np_ + 1, row + n           # a dead slot between
+    f = lambda *sh: torch.randn(*sh, generator=gen).to(cuda, torch.bfloat16)  # noqa: E731
+    ids = {n: t.to(cuda) for n, t in dict(
+        q_segment_ids=q_seg, kv_segment_ids=kv_seg, q_positions=q_pos,
+        kv_positions=kv_pos).items()}
+    q, k_pool, v_pool = (f(2, hq, sq, d), f(hkv, num_pages, page_size, d),
+                         f(hkv, num_pages, page_size, d))
+    page_list = page_list.to(cuda)
+    spec = M.MaskSpec(causal=True, window=window, **ids)
+    layout = M.compile_block_layout(spec, sq, T * page_size, 64,
+                                    page_size).as_array(cuda)
+    layout = M.paged_prefill_block_layout(layout, page_list)
+    call = dict(scale=d ** -0.5, causal=True, window=window, block_q=64,
+                **ids)
+    o, m, l = fa.flash_prefill_paged_forward_plain(q, k_pool, v_pool,
+                                                   page_list, layout, **call)
+    return (q, k_pool, v_pool, page_list, o, f(2, hq, sq, d), m, l,
+            layout), call
+
+
+def _check_sm90_paged_pair(res, call):
+    """The sm90 paged pair through ``flash_prefill_paged_backward`` against
+    the plain paged backward and against the mma.sync body on the same
+    residuals (2e-2 of each gradient's max); only the sm90 counters move;
+    untouched pages and padded q rows exactly zero; two calls
+    bit-identical."""
+    q, k_pool, page_list, layout = res[0], res[1], res[3], res[-1]
+    assert fa.backward_body(on_card=True, dtype=q.dtype, head_dim=q.shape[-1],
+                            block_q=64, block_k=k_pool.shape[2], paged=True,
+                            nq=layout.shape[-2],
+                            nk=layout.shape[-1]) == "sm90"
+    n0 = dict(fa.LAUNCHES)
+    got = fa.flash_prefill_paged_backward(*res, **call)
+    torch.cuda.synchronize()
+    for name in ("flash_bwd_dq_paged", "flash_bwd_dkv_paged"):
+        assert fa.LAUNCHES[name + "_sm90"] == n0[name + "_sm90"] + 1, name
+        assert fa.LAUNCHES[name] == n0[name], name
+    assert fa.LAUNCHES["flash_bwd_fold_paged"] == n0["flash_bwd_fold_paged"] + 1
+    want = fa.flash_prefill_paged_backward_plain(*res, **call)
+    for w in want:
+        assert float(w.float().abs().max()) > 0
+    _check_grads(got, want, torch.bfloat16)
+    mma = fa.flash_prefill_paged_backward(*res, **call, _mma_body=True)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_bwd_dq_paged"] == n0["flash_bwd_dq_paged"] + 1
+    _check_grads(got, mma, torch.bfloat16)
+    named = set(page_list[page_list >= 0].tolist())
+    unnamed = [p for p in range(k_pool.shape[1]) if p not in named]
+    assert unnamed
+    assert torch.all(got[1][:, unnamed] == 0) and torch.all(got[2][:, unnamed] == 0)
+    no_key = call["q_segment_ids"] == M.SEG_PAD_Q           # (b, sq)
+    assert torch.all(got[0].transpose(1, 2)[no_key] == 0)
+    again = fa.flash_prefill_paged_backward(*res, **call)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("page_size", [8, 16, 32, 64])
+@pytest.mark.parametrize("n_rep", [1, 4, 5, 8])
+@pytest.mark.parametrize("window", [None, 48])
+def test_sm90_paged_pair_matches_plain_and_mma_body(cuda, d, page_size,
+                                                     n_rep, window):
+    """The wgmma/TMA paged pair at every page size and head dim, GQA n_rep
+    1, 4, 5 and 8: dead slots inside and after the live pages, pages shared
+    within and across rows, padded q rows, and (window 48) SKIP pages
+    inside page groups whose other pages run."""
+    _check_sm90_paged_pair(*_sm90_paged_grad_case(cuda, d, page_size, n_rep,
+                                                  window))
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("page_size", [8, 64])
+def test_sm90_paged_pair_both_cta_tiles(cuda, monkeypatch, rows, d,
+                                        page_size):
+    """Each CTA tile of the sm90 paged pair (forced; dkv at d 128 takes 128
+    only): 128 rows, one q block / page group per consumer warpgroup (the
+    last group half past the key axis), and 64, the warpgroups splitting
+    the walk and adding their sums; GQA 4 with a window."""
+    monkeypatch.setattr(fa, "sm90_bwd_rows",
+                        lambda *a, kernel="dq", head_dim=64: (
+                            128 if kernel == "dkv" and head_dim == 128
+                            else rows))
+    _check_sm90_paged_pair(*_sm90_paged_grad_case(cuda, d, page_size, 4,
+                                                  window=48, seed=3))
+
+
+def test_sm90_paged_pair_never_waits_on_the_card(cuda):
+    """The whole paged backward on the sm90 pair (D, dq, dkv, the fold
+    order and the fold) runs under set_sync_debug_mode("error")."""
+    res, call = _sm90_paged_grad_case(cuda, 128, 16, 8, seed=1)
+    fa.flash_prefill_paged_backward(*res, **call)       # build and load first
+    torch.cuda.synchronize()
+    n0 = dict(fa.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fa.flash_prefill_paged_backward(*res, **call)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_bwd_dkv_paged_sm90"] == n0["flash_bwd_dkv_paged_sm90"] + 1
     assert all(bool(torch.isfinite(g).all()) for g in got)
 
 
